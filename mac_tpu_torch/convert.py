@@ -1,0 +1,68 @@
+"""Convert the JAX package's state, given as numpy arrays, into the port's.
+
+The parity tests use these so both packages run on identical tables. Every
+function takes plain objects whose fields are array-like (a JAX
+BandedOperator or PrecondState works as it is, through np.asarray); nothing
+here imports JAX.
+"""
+
+import numpy as np
+import torch
+
+from mac_tpu_torch.ops.banded import (
+    STATICS,
+    TABLES,
+    BandedOperator,
+    PrecondState,
+)
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def banded_operator(src, device=None) -> BandedOperator:
+    """BandedOperator from the nine tables and the static fields of `src`
+    (an object with those attributes, or the dict `banded_tables` gives)."""
+    tables = {name: np.asarray(_field(src, name)) for name in TABLES}
+    statics = {name: int(_field(src, name)) for name in STATICS}
+    bop = BandedOperator(tables, **statics)
+    return bop if device is None else bop.to(device)
+
+
+def banded_tables(bop) -> dict:
+    """The nine tables (numpy int32) and the static fields of a banded
+    operator, as a dict that `banded_operator` takes back."""
+    out = {}
+    for name in TABLES:
+        v = _field(bop, name)
+        out[name] = (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                     else np.asarray(v))
+    out.update({name: int(_field(bop, name)) for name in STATICS})
+    return out
+
+
+def precond_state(src, dtype=torch.float32, device=None) -> PrecondState:
+    """PrecondState from an object with Lc_inv, chain_dp and chain_l (the
+    chain fields may be None)."""
+    def conv(name):
+        v = getattr(src, name)
+        if v is None:
+            return None
+        return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+    return PrecondState(Lc_inv=conv("Lc_inv"), chain_dp=conv("chain_dp"),
+                        chain_l=conv("chain_l"))
+
+
+def mac_params(params, dtype=torch.float32, device=None):
+    """The port's MAC parameter tuple (w_fixed, w_cand, cand_idx, banded)
+    from the JAX tuple (op, w_fixed, w_cand, chain_w, banded): cand_idx
+    holds the candidates' (RCM-relabelled) endpoints, op.idx[m_fixed:]."""
+    op, w_fixed, w_cand, _chain_w, banded = params
+    w_fixed = np.asarray(w_fixed)
+    cand_idx = np.asarray(op.idx)[w_fixed.shape[0]:]
+    return (torch.tensor(w_fixed, dtype=dtype, device=device),
+            torch.tensor(np.asarray(w_cand), dtype=dtype, device=device),
+            torch.as_tensor(cand_idx.astype(np.int64), device=device),
+            banded_operator(banded, device=device))

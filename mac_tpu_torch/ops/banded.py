@@ -1,0 +1,470 @@
+"""Block-banded formulation of the graph Laplacian (RCM-ordered).
+
+PyTorch counterpart of mac_tpu.ops.banded. Pose graphs are spatially local,
+so a reverse-Cuthill-McKee relabelling gives a small matrix bandwidth, and
+within 128-node blocks L(w) is block-banded with a handful of dense 128x128
+block diagonals: L(w) @ V is a few batched matrix products.
+
+Float32 stability: each block-row output is computed against locally
+centred inputs, out_b = sum_o BD[o, b] @ (V_{b+o-half} - c_b), with c_b the
+mean of V over block b's window. This is exact for any c_b (Laplacian rows
+sum to zero inside the window) and scales the float32 rounding to the local
+variation of V instead of its magnitude.
+
+Assembly (assemble_bd) writes the transposed upper block diagonals through
+the hand-written kernel K2/K2b (mac_tpu_torch.ops.kernels.assemble); the
+lower diagonals are never materialised -- the apply reads them as
+transposed products of the uppers.
+
+The companion preconditioner (make_banded_precond) is a symmetric two-level
+cycle: an exact odometry-chain tridiagonal solve applied through the RCM
+permutation (kernel K1, mac_tpu_torch.ops.kernels.tridiag) around a dense
+coarse-grid correction over original-order aggregates.
+
+Numerics: every product here runs in full float32 (TF32 is off, see
+mac_tpu_torch.device). The TPU reference runs the preconditioner-internal
+products (the coarse R^T (L R) and the residual applies) at its DEFAULT
+precision, a single bf16 pass; this port keeps them in float32.
+"""
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mac_tpu_torch.ops.kernels.assemble import assemble_ut
+from mac_tpu_torch.ops.lobpcg import cholesky_upper
+from mac_tpu_torch.ops.tridiag import (
+    TridiagFactor,
+    tridiag_ldl_auto,
+    tridiag_ldl_blocked,
+    tridiag_solve_factored_fast,
+)
+
+BS = 128  # node-block size
+# The banded path applies only when the RCM bandwidth keeps the band narrow.
+MAX_BANDWIDTH = 640
+# Largest per-block overflow the assembly tables take (see build_banded).
+OV_CAP = 6
+# Target coarse-grid size of the two-level preconditioner.
+COARSE_NC = 512
+# Segment length of the chain smoother's blocked LDL^T for n > 4096.
+CHAIN_LDL_BLOCK = 128
+# Newton-Schulz refinement steps per warm coarse-inverse rebuild.
+NS_COARSE_STEPS = 3
+
+TABLES = ("ueid_tbl", "dcol_tbl", "agg", "perm", "iperm", "chain_eid",
+          "oeid_tbl", "ocol_tbl", "olane_tbl")
+STATICS = ("n", "nb", "ndiag", "coarse_s", "coarse_nc", "du_dense", "ov_rows")
+
+
+class BDRep(NamedTuple):
+    """Assembled weight-dependent operator data: ut (half+1, nb, BS, BS) with
+    ut[t][b][c, r] = L[b BS + r, (b + t) BS + c] (t = 0 holds the strict
+    upper triangle, transposed), and deg (nb, BS), the diagonal of L."""
+
+    ut: torch.Tensor
+    deg: torch.Tensor
+
+
+class BandedOperator(nn.Module):
+    """Static (per-topology) tables for block-banded L(w) products, held as
+    int32 buffers so `.to(device)` moves them.
+
+    ueid_tbl (du, n_pad): upper-neighbour edge ids per node (edge (i, j > i)
+        at column i), sentinel m (weight 0) in padding.
+    dcol_tbl (du, n_pad): sheared column BS + (j - i) + (i mod BS) of each
+        slot (0 for padding).
+    oeid_tbl / ocol_tbl / olane_tbl (ov_rows, nb): the overflow split --
+        slots >= du_dense live in per-block tables of edge id, sheared
+        column and lane (see build_banded).
+    agg (n_pad,): coarse aggregate of each RCM row (nc for padding).
+    perm / iperm (n,): perm[k] = original id of RCM node k; iperm[orig] =
+        RCM id.
+    chain_eid (max(n-1, 1),): edge id joining original nodes (k, k+1),
+        sentinel m where absent.
+    """
+
+    def __init__(self, tables: dict, n: int, nb: int, ndiag: int,
+                 coarse_s: int, coarse_nc: int, du_dense: int = 0,
+                 ov_rows: int = 0):
+        super().__init__()
+        for name in TABLES:
+            table = np.array(tables[name], dtype=np.int32)  # a fresh copy
+            self.register_buffer(name, torch.from_numpy(table))
+        self.n = int(n)
+        self.nb = int(nb)
+        self.ndiag = int(ndiag)
+        self.coarse_s = int(coarse_s)
+        self.coarse_nc = int(coarse_nc)
+        self.du_dense = int(du_dense)
+        self.ov_rows = int(ov_rows)
+
+    @property
+    def half(self) -> int:
+        return self.ndiag // 2
+
+    @property
+    def n_pad(self) -> int:
+        return self.nb * BS
+
+
+def rcm_order(idx: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Reverse-Cuthill-McKee node permutation for an edge list.
+
+    Returns (perm, inv, bandwidth): perm[k] = original id of new node k,
+    inv[orig] = new id, bandwidth = max |i' - j'| over relabelled edges.
+    """
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    idx = np.asarray(idx).reshape(-1, 2)
+    m = idx.shape[0]
+    A = sp.coo_matrix((np.ones(m), (idx[:, 0], idx[:, 1])), shape=(n, n))
+    perm = np.asarray(reverse_cuthill_mckee(sp.csr_matrix(A + A.T),
+                                            symmetric_mode=True))
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    r = inv[idx]
+    bw = int(np.abs(r[:, 0] - r[:, 1]).max(initial=0))
+    return perm, inv, bw
+
+
+def build_banded_rcm(idx: np.ndarray, num_nodes: int,
+                     target_nc: int = COARSE_NC):
+    """RCM-relabel an edge list and build the banded tables.
+
+    Returns (bop, relabeled_idx) or (None, None) when the graph admits no
+    narrow band. The permutation and the original-order chain table are
+    recorded on the operator so the preconditioner smooths in the original
+    (odometry-chain) ordering.
+    """
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1, 2)
+    n = int(num_nodes)
+    if idx.shape[0] == 0 or n < 4 * BS:
+        return None, None
+    perm, inv, bw = rcm_order(idx, n)
+    if bw == 0 or bw > MAX_BANDWIDTH:
+        return None, None
+    ridx = inv[idx]
+    bop = build_banded(ridx, n, target_nc=target_nc, perm=perm, iperm=inv,
+                       orig_idx=idx)
+    return bop, (None if bop is None else ridx.astype(np.int32))
+
+
+def build_banded(idx: np.ndarray, num_nodes: int, target_nc: int = COARSE_NC,
+                 perm=None, iperm=None,
+                 orig_idx=None) -> Optional[BandedOperator]:
+    """Build the block-banded tables for an (already relabelled) edge list on
+    the host. Returns None when no narrow band exists. Duplicate (i, j)
+    edges occupy separate slots and sum. perm/iperm/orig_idx: see
+    build_banded_rcm -- identity when omitted."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1, 2)
+    n = int(num_nodes)
+    m = idx.shape[0]
+    if m == 0 or n < 4 * BS:
+        return None
+    lo = idx.min(axis=1)
+    hi = idx.max(axis=1)
+    bw = int((hi - lo).max(initial=0))
+    if bw == 0 or bw > MAX_BANDWIDTH:
+        return None
+    # Max block-diagonal offset: (i % BS + bw) // BS <= (BS - 1 + bw) // BS.
+    half = (BS - 1 + bw) // BS
+    ndiag = 2 * half + 1
+    nb = -(-n // BS)
+    n_pad = nb * BS
+
+    # Upper-neighbour slots: edge (i, j) contributes -w at sheared column
+    # BS + (j - i) + (i % BS) of row i; a stable sort by row ranks each
+    # edge within its row.
+    counts = np.zeros(n_pad, dtype=np.int64)
+    np.add.at(counts, lo, 1)
+    du = max(int(counts.max(initial=0)), 1)
+    ueid = np.full((n_pad, du), m, dtype=np.int32)
+    dcol = np.zeros((n_pad, du), dtype=np.int32)
+    order = np.argsort(lo, kind="stable")
+    lo_s = lo[order]
+    slot = np.arange(m) - np.searchsorted(lo_s, lo_s, side="left")
+    ueid[lo_s, slot] = order.astype(np.int32)
+    dcol[lo_s, slot] = (BS + (hi[order] - lo_s) + (lo_s % BS)).astype(np.int32)
+
+    # Overflow split: upper degrees are heavy-tailed, so the trailing slots
+    # hold a handful of edges each. Take the smallest dense slot count whose
+    # per-block overflow fits OV_CAP entries, when that drops >= 2 slots.
+    du_dense, ov_rows = du, 0
+    oeid_t = np.zeros((0, nb), dtype=np.int32)
+    ocol_t = np.zeros((0, nb), dtype=np.int32)
+    olane_t = np.zeros((0, nb), dtype=np.int32)
+    if du > 3:
+        occ_blk = (ueid != m).reshape(nb, BS, du).sum(axis=1)  # (nb, du)
+        tail = np.cumsum(occ_blk[:, ::-1], axis=1)[:, ::-1]    # >= slot d
+        for d in range(2, du - 1):
+            ov_max = int(tail[:, d].max(initial=0))
+            if ov_max <= OV_CAP:
+                du_dense, ov_rows = d, ov_max
+                break
+    if ov_rows > 0:
+        oeid_t = np.full((ov_rows, nb), m, dtype=np.int32)
+        ocol_t = np.zeros((ov_rows, nb), dtype=np.int32)
+        olane_t = np.zeros((ov_rows, nb), dtype=np.int32)
+        node, sl = np.nonzero(ueid[:, du_dense:] != m)
+        blk = node // BS
+        # Rank within block (np.nonzero iterates row-major: node ascending).
+        pos = np.arange(len(blk)) - np.searchsorted(blk, blk, side="left")
+        oeid_t[pos, blk] = ueid[node, du_dense + sl]
+        ocol_t[pos, blk] = dcol[node, du_dense + sl]
+        olane_t[pos, blk] = (node % BS).astype(np.int32)
+
+    if perm is None:
+        perm = np.arange(n, dtype=np.int64)
+        iperm = perm
+    if orig_idx is None:
+        orig_idx = idx
+
+    # Coarse aggregates: s consecutive ORIGINAL-order nodes each (the
+    # trajectory is the physically meaningful locality), sized by the real
+    # node count so no aggregate is all padding.
+    s = max(1, -(-n // target_nc))
+    nc = -(-n // s)
+    agg = np.concatenate([np.asarray(perm) // s,
+                          np.full(n_pad - n, nc, dtype=np.int64)])
+    orig_idx = np.asarray(orig_idx, dtype=np.int64).reshape(-1, 2)
+    olo = orig_idx.min(axis=1)
+    ohi = orig_idx.max(axis=1)
+    chain_eid = np.full(max(n - 1, 1), m, dtype=np.int32)
+    is_chain = (ohi - olo) == 1
+    chain_eid[olo[is_chain]] = np.arange(m, dtype=np.int32)[is_chain]
+
+    tables = dict(ueid_tbl=np.ascontiguousarray(ueid.T),
+                  dcol_tbl=np.ascontiguousarray(dcol.T), agg=agg, perm=perm,
+                  iperm=iperm, chain_eid=chain_eid, oeid_tbl=oeid_t,
+                  ocol_tbl=ocol_t, olane_tbl=olane_t)
+    return BandedOperator(tables, n=n, nb=nb, ndiag=ndiag, coarse_s=s,
+                          coarse_nc=nc, du_dense=du_dense, ov_rows=ov_rows)
+
+
+def assemble_bd(bop: BandedOperator, w: torch.Tensor) -> BDRep:
+    """BD(w): the transposed upper block diagonals of L(w) and its degree
+    vector. The dense slots' weights are gathered here (w_pad[ueid_tbl],
+    sentinel m = weight 0) and the overflow tail through its own tables;
+    kernel K2/K2b writes ut (its plain version on the CPU)."""
+    w_pad = torch.cat([-w, torch.zeros(1, dtype=w.dtype, device=w.device)])
+    dd = bop.du_dense
+    dcol = bop.dcol_tbl[:dd]
+    wu = w_pad[bop.ueid_tbl[:dd]]
+    ow = w_pad[bop.oeid_tbl]
+    ut = assemble_ut(dcol, wu, bop.ocol_tbl, bop.olane_tbl, ow, bop.half,
+                     bop.nb)
+    return BDRep(ut=ut, deg=_deg_from_ut(ut))
+
+
+def _deg_from_ut(ut: torch.Tensor) -> torch.Tensor:
+    """deg_i = -(row sums + column sums over the uppers); the column sums of
+    block diagonal t land t blocks below (lower-diagonal symmetry)."""
+    half = ut.shape[0] - 1
+    nb = ut.shape[1]
+    rowsum = ut.sum(dim=2)  # (half+1, nb, BS)
+    colsum = ut.sum(dim=3)
+    deg = -rowsum[0] - colsum[0]
+    for t in range(1, half + 1):
+        deg = deg - rowsum[t]
+        deg = deg - torch.cat(
+            [torch.zeros((t, BS), dtype=ut.dtype, device=ut.device),
+             colsum[t][: nb - t]], dim=0)
+    return deg
+
+
+def banded_apply(bop: BandedOperator, BD: BDRep,
+                 V: torch.Tensor) -> torch.Tensor:
+    """L(w) @ V for V of shape (n, q), in full float32 (or V's dtype): per
+    block row, the degree term, the diagonal block's strict upper part and
+    its transpose, and each off block diagonal read directly at +t and
+    transposed at -t, all against locally centred inputs."""
+    n, q = V.shape
+    nb, half, ndiag = bop.nb, bop.half, bop.ndiag
+    n_pad = bop.n_pad
+    ut, deg = BD.ut, BD.deg
+    if n_pad != n:
+        V = torch.cat([V, V.new_zeros((n_pad - n, q))], dim=0)
+    Vb = V.reshape(nb, BS, q)
+    Vp = torch.cat([Vb.new_zeros((half, BS, q)), Vb,
+                    Vb.new_zeros((half, BS, q))], dim=0)
+    if ndiag * nb * BS * q > 64 * 1024 * 1024:
+        # Huge windows (a wide coarse assembly at large n): sliding-window
+        # mean from a cumsum instead of materialising the window stack.
+        S = Vp.sum(dim=1)  # (nb + 2 half, q)
+        C = torch.cat([S.new_zeros((1, q)), torch.cumsum(S, dim=0)], dim=0)
+        cb = ((C[ndiag:] - C[:-ndiag]) / (ndiag * BS))[:, None, :]
+    else:
+        win = torch.stack([Vp[o:o + nb] for o in range(ndiag)], dim=0)
+        cb = win.mean(dim=(0, 2))[:, None, :]
+    Vc0 = Vp[half: half + nb] - cb
+    out = deg[:, :, None] * Vc0
+    out = out + torch.bmm(ut[0].transpose(1, 2), Vc0)
+    out = out + torch.bmm(ut[0], Vc0)
+    for t in range(1, half + 1):
+        out = out + torch.bmm(ut[t].transpose(1, 2),
+                              Vp[half + t: half + t + nb] - cb)
+        utsh = torch.cat([ut.new_zeros((t, BS, BS)), ut[t][: nb - t]], dim=0)
+        out = out + torch.bmm(utsh, Vp[half - t: half - t + nb] - cb)
+    return out.reshape(n_pad, q)[:n]
+
+
+class PrecondState(NamedTuple):
+    """Carryable preconditioner state across Frank-Wolfe steps: the explicit
+    coarse inverse and the chain smoother's LDL^T factor (original order).
+    A warm rebuild refines the previous inverse with Newton-Schulz; a
+    rebuild=False step reuses the whole state."""
+
+    Lc_inv: torch.Tensor                     # (nc, nc)
+    chain_dp: Optional[torch.Tensor] = None  # (n,) LDL pivots
+    chain_l: Optional[torch.Tensor] = None   # (n,) unit-L subdiagonal
+
+
+def chain_factor(bop: BandedOperator, BD: BDRep,
+                 w: torch.Tensor) -> TridiagFactor:
+    """LDL^T factor of the tridiagonal part of L(w) in ORIGINAL node order
+    (the odometry chain): the degrees gathered through the permutation,
+    lifted by 100 eps max(deg), and the chain edge weights. Exact for
+    n <= 4096, segment-decoupled at CHAIN_LDL_BLOCK nodes beyond."""
+    n, n_pad = bop.n, bop.n_pad
+    dtype = BD.deg.dtype
+    eps = torch.finfo(dtype).eps
+    d_nat = BD.deg.reshape(n_pad)[:n][bop.iperm]
+    w_pad = torch.cat([w, w.new_zeros(1)])
+    e_nat = -w_pad[bop.chain_eid][: max(n - 1, 1)].to(dtype)
+    dd = d_nat + 100 * eps * d_nat.max()
+    if n > 4096:
+        return tridiag_ldl_blocked(dd, e_nat, block=CHAIN_LDL_BLOCK)
+    return tridiag_ldl_auto(dd, e_nat)
+
+
+def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
+                        prev_state: Optional[PrecondState] = None,
+                        use_prev: Optional[bool] = None,
+                        return_state: bool = False,
+                        rebuild: Optional[bool] = None):
+    """Two-level symmetric (multiplicative V-cycle) preconditioner for L(w)
+    restricted to 1^perp, with the exact odometry-chain smoother.
+
+    prev_state / use_prev / return_state: warm-rebuild protocol. With
+    prev_state, use_prev=False builds the coarse inverse cold (Cholesky),
+    use_prev=True refines prev_state.Lc_inv by Newton-Schulz (trace
+    damping, a residual check against the damped start, and a cold rebuild
+    when the carried inverse is not finite). return_state=True returns
+    (precond_fn, PrecondState).
+
+    rebuild: with prev_state, False reuses prev_state as it is (coarse
+    inverse and chain factor); None always rebuilds.
+
+    Returns a function (n, q) -> (n, q) in RCM order.
+    """
+    if rebuild is not None and prev_state is None:
+        raise ValueError("rebuild cadence requires a carried PrecondState "
+                         "(prev_state)")
+    dtype = BD.ut.dtype
+    dev = BD.ut.device
+    s, nc = bop.coarse_s, bop.coarse_nc
+    n, n_pad = bop.n, bop.n_pad
+    eps = torch.finfo(dtype).eps
+
+    if (prev_state is not None and rebuild is not None and not rebuild
+            and prev_state.chain_dp is not None):
+        fac = TridiagFactor(dp=prev_state.chain_dp, l=prev_state.chain_l,
+                            seg=CHAIN_LDL_BLOCK if n > 4096 else None)
+    else:
+        fac = chain_factor(bop, BD, w)
+
+    def smooth(B):  # B in RCM order, (n, q)
+        return tridiag_solve_factored_fast(fac, B[bop.iperm])[bop.perm]
+
+    eye = torch.eye(nc, dtype=dtype, device=dev)
+
+    def _assemble_Lc_reg():
+        # Coarse operator Lc = R^T (L R): one banded apply on nc columns,
+        # rows restricted through the permutation (aggregates live in the
+        # original ordering).
+        Rmat = (bop.agg[:n, None] == torch.arange(nc, dtype=bop.agg.dtype,
+                                                  device=dev)[None, :]
+                ).to(dtype)
+        LR = banded_apply(bop, BD, Rmat)
+        LRn = LR[bop.iperm]
+        LRp = torch.cat([LRn, LRn.new_zeros((nc * s - n, nc))], dim=0)
+        Lc = LRp.reshape(nc, s, nc).sum(dim=1)
+        Lc = (Lc + Lc.T) / 2
+        # Rank-one constant-mode shift makes Lc SPD; the 1%-of-trace jitter
+        # dominates the assembly error.
+        cshift = 2.0 * torch.diagonal(Lc).max() + 1.0
+        jit_c = 1e-2 * (torch.trace(Lc) / nc) + 100 * eps
+        return Lc + (cshift / nc) * torch.ones_like(Lc) + jit_c * eye
+
+    def _chol_from(Lc_reg):
+        Rc = cholesky_upper(Lc_reg)
+        Rc_inv = torch.linalg.solve_triangular(Rc, eye, upper=True)
+        return Rc_inv @ Rc_inv.T
+
+    def _ns_refine(Lc_reg, Xp):
+        # Newton-Schulz from the previous step's inverse with three
+        # safeguards: (1) trace damping pulls the spectrum of Lc_reg Xp into
+        # the (0, 2) basin; (2) the refined iterate is kept only when it is
+        # finite and its residual beats the damped start's; (3) a
+        # non-finite start (a poisoned carry) rebuilds cold.
+        tr = torch.sum(Lc_reg.T * Xp)  # trace(Lc_reg @ Xp)
+        X0 = Xp * (nc / torch.clamp(tr, min=torch.finfo(dtype).tiny))
+        X = X0
+        for _ in range(NS_COARSE_STEPS):
+            X = X @ (2.0 * eye - Lc_reg @ X)
+
+        def resid(Y):
+            R = eye - Lc_reg @ Y
+            return torch.sum(R * R)
+
+        ok = torch.isfinite(X).all() & (resid(X) < resid(X0))
+        refined = torch.where(ok, X, X0)
+        if bool(torch.isfinite(X0).all()):
+            return refined
+        return _chol_from(Lc_reg)
+
+    def _refresh(Xp):
+        Lc_reg = _assemble_Lc_reg()
+        if use_prev:
+            return _ns_refine(Lc_reg, Xp)
+        return _chol_from(Lc_reg)
+
+    if prev_state is None:
+        Lc_inv = _chol_from(_assemble_Lc_reg())
+    elif rebuild is None or rebuild:
+        Lc_inv = _refresh(prev_state.Lc_inv)
+    else:
+        Lc_inv = prev_state.Lc_inv
+
+    def apply_fast(V):
+        return banded_apply(bop, BD, V)
+
+    def center(B):
+        return B - B.mean(dim=0, keepdim=True)
+
+    def restrict(Rv):  # (n, q) RCM -> (nc, q) original-order aggregates
+        Rn = Rv[bop.iperm]
+        Rp = torch.cat([Rn, Rn.new_zeros((nc * s - n, Rv.shape[1]))], dim=0)
+        return Rp.reshape(nc, s, -1).sum(dim=1)
+
+    def prolong(Xc):  # (nc, q) -> (n, q) RCM
+        return torch.repeat_interleave(Xc, s, dim=0)[:n][bop.perm]
+
+    def precond(B):
+        B = center(B)
+        x = smooth(B)
+        r = B - apply_fast(x)
+        xc = Lc_inv @ restrict(r)
+        x = x + prolong(xc)
+        r2 = B - apply_fast(x)
+        x = x + smooth(r2)
+        return center(x)
+
+    if return_state:
+        return precond, PrecondState(Lc_inv=Lc_inv, chain_dp=fac.dp,
+                                     chain_l=fac.l)
+    return precond

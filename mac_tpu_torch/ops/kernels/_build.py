@@ -1,0 +1,85 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each source in mac_tpu_torch/csrc/ has a plain C interface, so it compiles
+in seconds without PyTorch's headers:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/mac_tpu_torch/lib<name>-<hash>.so <name>.cu
+
+The library goes to build/mac_tpu_torch/ beside the package, named by a hash
+of its source and flags, and is built at first use and reused after. Nothing
+here runs at import time.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "mac_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded = {}
+build_log = []  # (name, seconds, nvcc stderr) per build in this process
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of mac_tpu_torch "
+                           "need the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this source exists.
+    nvcc's stderr (the -Xptxas -v register and shared-memory report) is
+    kept in build_log."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_log.append((name, time.perf_counter() - t0, proc.stderr))
+    return out
+
+
+def load(name: str, signatures) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; `signatures` maps each
+    exported C function to its ctypes argtypes (every function returns the
+    int cudaError_t of its launch)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib

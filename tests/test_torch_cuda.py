@@ -1,0 +1,124 @@
+"""The hand-written CUDA kernels of the PyTorch port on the card: each against
+its plain PyTorch version, the wrappers' input checks, and a solve that
+goes through both kernels. Marked `cuda`; each test skips when no CUDA
+device is present. This file imports neither JAX nor the JAX package, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mac_tpu_torch.ops import banded
+from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
+from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
+                                               tridiag_solve_plain)
+from mac_tpu_torch.ops.tridiag import tridiag_ldl, tridiag_ldl_blocked
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _graph(n, n_loops, span, seed):
+    rng = np.random.RandomState(seed)
+    chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+    loops = set()
+    while len(loops) < n_loops:
+        i = rng.randint(0, n - 2)
+        j = min(n - 1, i + 2 + rng.randint(span))
+        if j - i > 1:
+            loops.add((i, j))
+    idx = np.concatenate([chain, np.array(sorted(loops))]).astype(np.int64)
+    return idx, 0.5 + rng.rand(len(idx)), n
+
+
+def _chain(n, seed, dev):
+    rng = np.random.RandomState(seed)
+    e = -(0.5 + rng.rand(n - 1))
+    d = 0.1 + rng.rand(n) - np.concatenate([[0], e]) - np.concatenate([e, [0]])
+    return (torch.as_tensor(d, dtype=torch.float32, device=dev),
+            torch.as_tensor(e, dtype=torch.float32, device=dev), rng)
+
+
+@pytest.mark.parametrize("n,q,blocked", [
+    (1, 1, False), (5, 3, False), (777, 4, False), (4000, 4, False),
+    (10000, 4, True), (32768, 32, True), (1500, 17, True)])
+def test_tridiag_kernel_matches_plain(dev, n, q, blocked):
+    """K1 against its plain version at rtol/atol 2e-4, for ragged n, one to
+    32 right-hand sides, exact and segment-decoupled factors."""
+    d, e, rng = _chain(max(n, 2), n, dev)
+    d, e = d[:n], e[:n - 1]
+    f = (tridiag_ldl_blocked(d, e, block=128) if blocked
+         else tridiag_ldl(d, e))
+    B = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float32,
+                        device=dev)
+    before = tridiag_solve.launches
+    got = tridiag_solve(f.dp, f.l, B)
+    ref = tridiag_solve_plain(f.dp, f.l, B)
+    torch.cuda.synchronize()
+    assert tridiag_solve.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("graph", [(700, 120, 40, 3), (1500, 1200, 25, 3),
+                                   (4500, 2000, 40, 4)])
+def test_assemble_kernel_bitwise_equals_plain(dev, graph):
+    """K2/K2b against its plain version: bitwise equal, with and without
+    the overflow split."""
+    idx, w, n = _graph(*graph)
+    bop, _ = banded.build_banded_rcm(idx, n)
+    bop = bop.to(dev)
+    w_pad = torch.cat([-torch.as_tensor(w, dtype=torch.float32, device=dev),
+                       torch.zeros(1, device=dev)])
+    dd = bop.du_dense
+    args = (bop.dcol_tbl[:dd].contiguous(), w_pad[bop.ueid_tbl[:dd]],
+            bop.ocol_tbl, bop.olane_tbl, w_pad[bop.oeid_tbl], bop.half,
+            bop.nb)
+    got = assemble_ut(*args)
+    ref = assemble_ut_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    d, e, rng = _chain(100, 0, dev)
+    f = tridiag_ldl(d, e)
+    B = torch.as_tensor(rng.normal(size=(100, 4)), device=dev)
+    with pytest.raises(TypeError):
+        tridiag_solve(f.dp, f.l, B)  # float64 right-hand sides
+    with pytest.raises(ValueError):
+        tridiag_solve(f.dp, f.l, B.float().t().contiguous().t())
+    with pytest.raises(ValueError):
+        tridiag_solve(f.dp.cpu(), f.l, B.float())
+    idx, w, n = _graph(700, 120, 40, 3)
+    bop, _ = banded.build_banded_rcm(idx, n)
+    bop = bop.to(dev)
+    wu = torch.zeros(bop.dcol_tbl.shape, dtype=torch.float64, device=dev)
+    ov = torch.zeros((0, bop.nb), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        assemble_ut(bop.dcol_tbl, wu, ov, ov, ov.float(), bop.half, bop.nb)
+
+
+def test_solve_on_cuda_goes_through_both_kernels(dev):
+    """A MAC solve on the card launches both kernels and returns a rounded
+    selection of k edges."""
+    from mac_tpu_torch.solvers import MAC
+
+    idx, w, n = _graph(1500, 1200, 25, 3)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    k = len(cands[1]) // 2
+    mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+              fw_polish=False, round_guard=False, device="cuda")
+    t0, a0 = tridiag_solve.launches, assemble_ut.launches
+    rounded, unrounded, upper = mac.solve(k)
+    assert tridiag_solve.launches > t0 and assemble_ut.launches > a0
+    assert rounded.sum() == k and np.isfinite(upper)
+    assert np.all(np.isfinite(unrounded))
