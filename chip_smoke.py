@@ -3,25 +3,48 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line), each with
+its wall time printed:
   1. require CUDA; print the card (nvidia-smi name and power limit) and the
      TF32 flags;
-  2. build the hand-written CUDA kernels from mac_tpu_torch/csrc with nvcc;
+  2. build the hand-written CUDA kernels from mac_tpu_torch/csrc with nvcc,
+     one nvcc process per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time both with CUDA events:
+     main paths' shapes, and time both with CUDA events:
        tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4) and
        on an exact factor (n = 4000), rtol/atol 2e-4 (the JAX package's
        tolerance for its own kernel);
        assemble_ut (K2/K2b) on city10000's split tables and on a graph
-       without a split, bitwise equal;
-  4. the main path: read data/city10000.g2o, NaiveGreedy x_init, build
+       without a split, bitwise equal; also timed: the same scatter as one
+       index_add_ (the library yardstick);
+  3c. tridiag_solve_blocked (K1b) at rtol/atol 2e-4 on the two-grid chain
+     factor of the n = 100000 graph of phase 5 at its start weights
+     (q = 4), on blocked factors at n = 40000 (q = 8 and 32, ragged), on a
+     factor decoupled every 128 rows, and on an exact factor whose
+     couplings at the 1024-row boundaries are non-zero (the kernel and its
+     plain version both force them to 0); timed at (100000, 4), beside the
+     blocked LDL^T factorisation of that chain;
+  4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
-     the loop closures; every kernel must have launched; the relaxed
-     lambda_2 (scipy float64 referee) must sit within -1e-3 relative of the
+     the loop closures; K1 and K2 must have launched; the relaxed lambda_2
+     (scipy float64 referee) must sit within -1e-3 relative of the
      reference optimum 0.06944591018149751, and the rounded selection must
-     hold exactly K edges.
-The last two lines are a JSON summary of the kernels and the result line
-{"ok": true, "device": {...}}.
+     hold exactly K edges;
+  5. the matrix-free path, as scripts/bench_scale.py drives it: the
+     n = 100000 expander-like graph (chain plus loop closures spanning up
+     to n/4, no narrow band), K = 12500 of 50000 candidates, x_init the
+     top-K candidates by weight, MAC with fiedler_inner_iters=10,
+     fiedler_maxiter=60, fiedler_tol=6e-4, one cold and one warm
+     solve(K, x_init, max_iters=10), then evaluate_objective of the relaxed
+     solution; K1b must have launched; every output finite; exactly K
+     edges rounded; the relaxed lambda_2 at or above the reference
+     library's 0.025668825678050997 (1 - 1e-3); the upper bound at or
+     above it (1 - 1e-6).
+profile_scale.py profiles phase 5's warm solve; this script gates only.
+The last lines are the card, a JSON summary of the kernels (launches on
+their path, error against the plain version, kernel, plain and library
+times, and the least time the card could take, bound_ms) and the result
+line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -34,6 +57,14 @@ from pathlib import Path
 REFERENCE_LAM2_UNROUNDED = 0.06944591018149751  # reference relaxed optimum
 GAP_FLOOR = -1e-3
 K1_TOL = 2e-4
+# The reference library's relaxed lambda_2 on bench_scale's n = 100000
+# expander instance (scripts/bench_scale_results.json).
+REFERENCE_LAM2_SCALE = 0.025668825678050997
+SCALE_N = 100000
+# NVIDIA H100 SXM published peaks: HBM bytes/s and float32 (non-tensor-core)
+# FLOP/s; bound_ms is the larger of bytes / rate and operations / rate.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -68,6 +99,38 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float):
+    """(least milliseconds on the card, what bounds it)."""
+    tb, to = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def tridiag_bound(n: int, q: int):
+    """Read dp, l (n,) and B (n, q), write X (n, q), float32; per entry of
+    B two forward operations, one division, two backward."""
+    return bound(4.0 * (2 * n + 2 * n * q), 5.0 * n * q)
+
+
+class Phase:
+    """Prints the wall time of each phase as the next one starts."""
+
+    def __init__(self):
+        self.t_start = self.t0 = time.perf_counter()
+        self.name = None
+
+    def __call__(self, name):
+        self.end()
+        self.name, self.t0 = name, time.perf_counter()
+        print(f"== phase {name}", flush=True)
+
+    def end(self):
+        if self.name is not None:
+            print(f"== phase {self.name} wall {time.perf_counter() - self.t0:.3f}"
+                  f" s (total {time.perf_counter() - self.t_start:.3f} s)",
+                  flush=True)
+            self.name = None
+
+
 def pose_graph(n, n_loops, span, seed):
     """Odometry chain plus short-range loop closures (banded after RCM)."""
     import numpy as np
@@ -84,11 +147,37 @@ def pose_graph(n, n_loops, span, seed):
     return idx, 0.5 + rng.rand(len(idx)), n
 
 
+def synthetic(n, seed=0, local=False):
+    """Odometry chain plus random loop closures (scripts/bench_scale.py's
+    generator, kept here so the script stands alone). local=False: spans
+    up to n/4, an expander-like graph with no narrow band (the matrix-free
+    ELL route); local=True: spans <= 290 (banded)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    fixed_idx = np.stack([np.arange(n - 1), np.arange(1, n)], 1).astype(np.int32)
+    w_fixed = 0.5 + rng.rand(n - 1)
+    m_loops = n // 2
+    if local:
+        lo = rng.randint(0, n - 300, m_loops)
+        cand_idx = np.stack(
+            [lo, lo + 2 + rng.randint(0, 290, m_loops)], 1).astype(np.int32)
+        return fixed_idx, w_fixed, cand_idx, 0.5 + rng.rand(m_loops)
+    lo = rng.randint(0, n - 3, 2 * m_loops)
+    span = rng.randint(2, n // 4, 2 * m_loops)
+    hi = lo + span
+    keep = hi <= n - 1  # rejected, not clamped
+    cand_idx = np.stack([lo[keep], hi[keep]], 1)[:m_loops].astype(np.int32)
+    return fixed_idx, w_fixed, cand_idx, 0.5 + rng.rand(len(cand_idx))
+
+
 def main():
     import numpy as np
     import torch
 
+    phase = Phase()
     # ---- 1. the card
+    phase("1 card")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
@@ -97,11 +186,16 @@ def main():
         import mac_tpu_torch  # noqa: F401 (sets the numerics policy)
     except ImportError as exc:
         fail(f"the mac_tpu_torch package is not importable here: {exc}")
-    from mac_tpu_torch.ops import banded
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops.kernels import _build
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
-    from mac_tpu_torch.ops.kernels.tridiag import tridiag_solve, tridiag_solve_plain
-    from mac_tpu_torch.ops.tridiag import tridiag_ldl
+    from mac_tpu_torch.ops.kernels.tridiag import (
+        tridiag_solve, tridiag_solve_blocked, tridiag_solve_blocked_plain,
+        tridiag_solve_plain)
+    from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_auto,
+                                           tridiag_ldl_blocked)
     from mac_tpu_torch.slam.pose_graph import read_g2o_file, rpm_to_mac, split_edges
     from mac_tpu_torch.solvers import MAC, NaiveGreedy
     from mac_tpu_torch.utils.fiedler import scipy_lam2
@@ -115,10 +209,12 @@ def main():
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is on; the port's numerics policy wants full float32")
 
-    # ---- 2. build the kernels
+    # ---- 2. build the kernels, one nvcc per source, in parallel
+    phase("2 build")
     t0 = time.perf_counter()
-    for src in ("tridiag", "assemble"):
-        _build.build(src)
+    sources = ("tridiag", "assemble")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for src, secs, log in _build.build_log:
         print(f"  nvcc {src}.cu {secs:.2f} s: "
@@ -126,6 +222,7 @@ def main():
                            if "registers" in ln or "smem" in ln), flush=True)
 
     # ---- 3. kernels against their plain versions on the card
+    phase("3 K1, K2 against their plain versions")
     repo = Path(mac_tpu_torch.__file__).resolve().parent.parent
     dataset = repo / "data" / "city10000.g2o"
     meas, n = read_g2o_file(str(dataset))
@@ -176,8 +273,10 @@ def main():
                                   "exact factor (n 4000, q 4)"))
     k1_ms = cuda_ms(lambda: tridiag_solve(dp32, l32, B))
     k1_plain_ms = cuda_ms(lambda: tridiag_solve_plain(dp32, l32, B))
+    k1_bound, k1_by = tridiag_bound(n, 4)
     print(f"K1 time at (10000, 4): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms ({card})", flush=True)
+          f"{k1_plain_ms:.4f} ms, bound {k1_bound:.5f} ms ({k1_by}) ({card})",
+          flush=True)
 
     def k2_args(bop, w):
         w_pad = torch.cat([-w, w.new_zeros(1)])
@@ -209,19 +308,144 @@ def main():
               flush=True)
         if not same:
             fail(f"assemble_ut kernel differs from its plain version on {label}")
-    args_s = k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
-                                            device=dev))
-    print(f"K2 time without a split (n 700): kernel "
-          f"{cuda_ms(lambda: assemble_ut(*args_s)):.4f} ms, plain "
-          f"{cuda_ms(lambda: assemble_ut_plain(*args_s)):.4f} ms ({card})",
-          flush=True)
-    args = k2_args(bop, w)
-    k2_ms = cuda_ms(lambda: assemble_ut(*args))
-    k2_plain_ms = cuda_ms(lambda: assemble_ut_plain(*args))
-    print(f"K2b time at city10000: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.4f} ms ({card})", flush=True)
+    def k2_times(args, label):
+        """Kernel, plain and library times and the bound of one assembly.
+        The library yardstick is the same scatter as one index_add_ into a
+        zeroed ut, at flat positions computed once from the slot tables."""
+        dcol_, wu_, ocol_, olane_, ow_, half_, nb_ = args
+        BS = banded.BS
 
-    # ---- 4. the main path, through the user's entry points
+        def flat_pos(col, lane_global):
+            t = col // BS - 1
+            b, r = lane_global // BS, lane_global % BS
+            ok = (col >= BS) & (col < BS * (half_ + 2))
+            return (((t * nb_ + b) * BS + col % BS) * BS + r)[ok], ok
+
+        p1, ok1 = flat_pos(dcol_.long(),
+                           torch.arange(nb_ * BS, device=dev).expand_as(dcol_))
+        p2, ok2 = flat_pos(ocol_.long(), olane_.long() + BS * torch.arange(
+            nb_, device=dev)[None, :])
+        pos = torch.cat([p1, p2])
+        vals = torch.cat([wu_[ok1], ow_[ok2]])
+        ut_shape = (half_ + 1, nb_, BS, BS)
+
+        def library():
+            out = torch.zeros(ut_shape, dtype=torch.float32, device=dev)
+            return out.view(-1).index_add_(0, pos, vals).view(ut_shape)
+
+        lib_err = float((library() - assemble_ut_plain(*args)).abs().max())
+        ms = cuda_ms(lambda: assemble_ut(*args))
+        plain_ms = cuda_ms(lambda: assemble_ut_plain(*args))
+        library_ms = cuda_ms(library)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (dcol_, wu_, ocol_, olane_, ow_)) \
+            + 4.0 * (half_ + 1) * nb_ * BS * BS
+        bound_ms, by = bound(nbytes, wu_.numel() + ow_.numel())
+        print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_add_ {library_ms:.4f} ms (max |index_add_ - plain| "
+              f"{lib_err:.2e}), bound {bound_ms:.5f} ms ({by}) ({card})",
+              flush=True)
+        return ms, plain_ms, library_ms, bound_ms, by
+
+    k2_times(k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
+                                            device=dev)),
+             "K2 time without a split (n 700)")
+    k2_ms, k2_plain_ms, k2_library_ms, k2_bound, k2_by = k2_times(
+        k2_args(bop, w), "K2b time at city10000")
+
+    # ---- 3c. K1b against its plain version on the card
+    phase("3c K1b against its plain version")
+    fi5, wf5, ci5, wc5 = synthetic(SCALE_N, seed=0, local=False)
+    k5 = len(wc5) // 4
+    x5 = np.zeros(len(wc5))
+    x5[np.argpartition(wc5, -k5)[-k5:]] = 1.0
+    op5 = laplacian.build_operator(np.concatenate([fi5, ci5]), SCALE_N).to(dev)
+    w5 = torch.as_tensor(np.concatenate([wf5, x5 * wc5]), dtype=torch.float32,
+                         device=dev)
+    d5, e5 = laplacian.lap_tridiagonal_part(op5, w5)
+    d5 = d5 + 100 * torch.finfo(torch.float32).eps * d5.max()
+    f5 = tridiag_ldl_auto(d5, e5)
+    if f5.seg != 1024:
+        fail(f"the n = {SCALE_N} chain factor has seg {f5.seg}, want 1024")
+    k1b_err = 0.0
+
+    def k1b_check(f, q, label, seed):
+        nonlocal k1b_err
+        dp, l = f.dp.float().contiguous(), f.l.float().contiguous()
+        Bq = torch.randn((dp.shape[0], q),
+                         generator=torch.Generator().manual_seed(seed)).to(dev)
+        got = tridiag_solve_blocked(dp, l, Bq)
+        ref = tridiag_solve_blocked_plain(dp, l, Bq)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        k1b_err = max(k1b_err, err)
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, ref, rtol=K1_TOL, atol=K1_TOL)
+        print(f"K1b tridiag_solve_blocked {label}: max|kernel - plain| "
+              f"{err:.3e} (max|X| {float(ref.abs().max()):.3e}) -> "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"tridiag_solve_blocked kernel disagrees with its plain "
+                 f"version on {label}")
+        return dp, l, Bq
+
+    dp5, l5, B5 = k1b_check(f5, 4, f"two-grid chain factor (n {SCALE_N}, "
+                            "q 4, seg 1024)", 0)
+    rng = np.random.RandomState(2)
+    n_b = 40000  # 39 segments of 1024 and a ragged one of 64 rows
+    e_b = -(0.5 + rng.rand(n_b - 1))
+    d_b = (0.1 + rng.rand(n_b) - np.concatenate([[0], e_b])
+           - np.concatenate([e_b, [0]]))
+    d_b = torch.as_tensor(d_b, dtype=torch.float32, device=dev)
+    e_b = torch.as_tensor(e_b, dtype=torch.float32, device=dev)
+    f_blk = tridiag_ldl_blocked(d_b, e_b, block=1024)
+    k1b_check(f_blk, 8, "blocked factor (n 40000, q 8, seg 1024)", 1)
+    k1b_check(f_blk, 32, "blocked factor (n 40000, q 32, seg 1024)", 2)
+    k1b_check(tridiag_ldl_blocked(d_b, e_b, block=128), 4,
+              "banded-style factor (n 40000, q 4, seg 128)", 3)
+    f_exact = tridiag_ldl(d_b, e_b)
+    if not bool((f_exact.l[1024::1024] != 0).all()):
+        fail("the exact factor has zero couplings at the 1024 boundaries")
+    k1b_check(f_exact, 4, "exact factor, couplings forced to 0 at the 1024 "
+              "boundaries (n 40000, q 4)", 4)
+    k1b_ms = cuda_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
+    k1b_plain_ms = cuda_ms(lambda: tridiag_solve_blocked_plain(dp5, l5, B5))
+    k1b_bound, k1b_by = tridiag_bound(SCALE_N, 4)
+    print(f"K1b time at ({SCALE_N}, 4): kernel {k1b_ms:.4f} ms, plain "
+          f"{k1b_plain_ms:.4f} ms, bound {k1b_bound:.5f} ms ({k1b_by}) "
+          f"({card})", flush=True)
+    # The ELL product of phase 5, against the same product gathering whole
+    # (n, q) rows (V[nbr]), which PyTorch runs one thread block per row.
+    apply5 = laplacian.lap_applier(op5, w5)
+    w_tbl5 = torch.cat([w5, w5.new_zeros(1)])[op5.eid_tbl]
+
+    def rows_apply(V):
+        return (w_tbl5[:, :, None] * (V[:, None, :] - V[op5.nbr_tbl])).sum(1)
+
+    ell_out, rows_out = apply5(B5), rows_apply(B5)
+    ell_err = float((ell_out - rows_out).abs().max())
+    if not torch.allclose(ell_out, rows_out, rtol=1e-5,
+                          atol=1e-5 * float(rows_out.abs().max())):
+        fail(f"the ELL product disagrees with its row-gather form: {ell_err}")
+    print(f"ELL product at ({SCALE_N}, width {op5.nbr_tbl.shape[1]}, q 4): "
+          f"port {cuda_ms(lambda: apply5(B5)):.4f} ms, row-gather form "
+          f"{cuda_ms(lambda: rows_apply(B5)):.4f} ms (max |diff| "
+          f"{ell_err:.2e}) ({card})", flush=True)
+    ldl_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tridiag_ldl_blocked(d5, e5, block=1024)
+        torch.cuda.synchronize()
+        ldl_s.append(time.perf_counter() - t0)
+    ldl_med = statistics.median(ldl_s)
+    print(f"blocked LDL^T of the n = {SCALE_N} chain (1024-step float64 "
+          f"loop over {f5.dp.shape[0] // 1024 + 1} segments): median "
+          f"{1e3 * ldl_med:.3f} ms, {1e6 * ldl_med / 1024:.2f} us per step "
+          f"({card})", flush=True)
+
+    # ---- 4. the banded path, through the user's entry points
+    phase("4 banded path (city10000)")
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -229,8 +453,8 @@ def main():
     mac = MAC(fixed, cands, n, device="cuda")
     print(f"setup (read, NaiveGreedy, MAC ctor with its host probe): "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    tridiag_solve.launches = 0
-    assemble_ut.launches = 0
+    for kern in (tridiag_solve, tridiag_solve_blocked, assemble_ut):
+        kern.launches = 0
     times = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -241,6 +465,8 @@ def main():
         times.append(time.perf_counter() - t0)
     launches = {"tridiag_solve": tridiag_solve.launches,
                 "assemble_ut": assemble_ut.launches}
+    if tridiag_solve_blocked.launches:
+        fail("the banded path launched tridiag_solve_blocked")
     print(f"solve: cold {times[0]:.4f} s, warm {[round(t, 4) for t in times[1:]]}"
           f" s, warm median {statistics.median(times[1:]):.4f} s ({card})",
           flush=True)
@@ -264,18 +490,87 @@ def main():
     if upper < lam2 * (1 - 1e-6):
         fail(f"upper bound {upper} below the relaxed lambda_2 {lam2}")
 
+    # ---- 5. the matrix-free path at n = 100000, as bench_scale drives it
+    phase(f"5 matrix-free path (n {SCALE_N})")
+    t0 = time.perf_counter()
+    mac5 = MAC((fi5, wf5), (ci5, wc5), SCALE_N, fiedler_inner_iters=10,
+               fiedler_maxiter=60, fiedler_tol=6e-4, device="cuda")
+    ctor_s = time.perf_counter() - t0
+    print(f"n {SCALE_N}: {len(wf5)} fixed, {len(wc5)} candidates, K {k5}; "
+          f"route {'banded' if mac5._banded is not None else mac5.op.mode}, "
+          f"ELL width {mac5.op.nbr_tbl.shape[1]}, coarse {mac5.op.coarse_nc} "
+          f"x {mac5.op.coarse_s}, precond {mac5.fiedler_precond}; MAC ctor "
+          f"(host precision probe, RCM band test, ELL tables) {ctor_s:.3f} s",
+          flush=True)
+    if mac5._banded is not None or mac5.op.mode != "ell":
+        fail("the n = 100000 expander graph did not take the ELL route")
+    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut)
+    for kern in counted:
+        kern.launches = 0
+    path_s, path_launches = [], []
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounded5, unrounded5, upper5 = mac5.solve(k5, x5, max_iters=10,
+                                                  use_cache=True)
+        torch.cuda.synchronize()
+        path_s.append(time.perf_counter() - t0)
+        path_launches.append(tridiag_solve_blocked.launches
+                             - sum(path_launches))
+        print(f"solve {label}: {path_s[-1]:.3f} s, last_solve_stats "
+              f"{mac5.last_solve_stats}, K1b launches "
+              f"{path_launches[-1]}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam5 = mac5.evaluate_objective(unrounded5)
+    eval_s = time.perf_counter() - t0
+    launches5 = {kern.__name__: kern.launches for kern in counted}
+    print(f"evaluate_objective: {eval_s:.3f} s, K1b launches "
+          f"{tridiag_solve_blocked.launches - sum(path_launches)}", flush=True)
+    print(f"matrix-free path ({card}): ctor {ctor_s:.3f} s, cold solve "
+          f"{path_s[0]:.3f} s, warm solve {path_s[1]:.3f} s, "
+          f"evaluate_objective {eval_s:.3f} s; kernel launches {launches5}",
+          flush=True)
+    gap5 = (lam5 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE
+    print(f"relaxed lambda_2 (evaluate_objective) {lam5:.12g}, reference "
+          f"{REFERENCE_LAM2_SCALE:.12g}, relative gap {gap5:+.3e}; upper "
+          f"bound {upper5:.12g}; rounded {int(rounded5.sum())} of "
+          f"{len(wc5)}", flush=True)
+    if launches5["tridiag_solve_blocked"] <= 0:
+        fail("the matrix-free path never launched tridiag_solve_blocked")
+    if not (np.all(np.isfinite(unrounded5)) and np.all(np.isfinite(rounded5))
+            and np.isfinite(upper5) and np.isfinite(lam5)):
+        fail("non-finite output on the matrix-free path")
+    if rounded5.shape != (len(wc5),) or int(rounded5.sum()) != k5:
+        fail(f"rounded selection holds {rounded5.sum()} edges, want {k5}")
+    if not lam5 >= REFERENCE_LAM2_SCALE * (1 - 1e-3):
+        fail(f"relaxed lambda_2 {lam5} below the reference "
+             f"{REFERENCE_LAM2_SCALE} (1 - 1e-3)")
+    if not upper5 >= lam5 * (1 - 1e-6):
+        fail(f"upper bound {upper5} below the relaxed lambda_2 {lam5}")
+    phase.end()
+
     kernels = [
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
          "launches": launches["tridiag_solve"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": None},
         {"name": "assemble_ut", "route": "cuda",
          "source": "mac_tpu_torch/csrc/assemble.cu",
          "replaces": "mac_tpu/ops/pallas/assemble_kernel.py:61",
          "launches": launches["assemble_ut"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": k2_library_ms},
+        {"name": "tridiag_solve_blocked", "route": "cuda",
+         "source": "mac_tpu_torch/csrc/tridiag.cu",
+         "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:107",
+         "launches": launches5["tridiag_solve_blocked"],
+         "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain_ms,
+         "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None},
     ]
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,8 +4,10 @@ Maximum algebraic connectivity graph sparsification: select K candidate
 edges maximizing lambda_2 of the weighted graph Laplacian, by Frank-Wolfe
 over the relaxed selection with a warm-started TRACEMIN Fiedler oracle.
 The module names mirror mac_tpu's; the hot kernels (the banded Laplacian
-assembly and the tridiagonal chain solve) are hand-written CUDA for
-Hopper under mac_tpu_torch/csrc/, built with nvcc at first use.
+assembly and the tridiagonal chain solve, whole-row and segmented) are
+hand-written CUDA for Hopper under mac_tpu_torch/csrc/, built with nvcc at
+first use. Graphs with a narrow RCM band take the banded operator, others
+the matrix-free ELL operator with a two-grid preconditioner.
 
     from mac_tpu_torch.solvers import MAC, NaiveGreedy
     mac = MAC(fixed, cands, n, device="cuda")

@@ -2,13 +2,14 @@
 
 The parity tests use these so both packages run on identical tables. Every
 function takes plain objects whose fields are array-like (a JAX
-BandedOperator or PrecondState works as it is, through np.asarray); nothing
-here imports JAX.
+BandedOperator, GraphOperator or PrecondState works as it is, through
+np.asarray); nothing here imports JAX.
 """
 
 import numpy as np
 import torch
 
+from mac_tpu_torch.ops import laplacian
 from mac_tpu_torch.ops.banded import (
     STATICS,
     TABLES,
@@ -55,14 +56,35 @@ def precond_state(src, dtype=torch.float32, device=None) -> PrecondState:
                         chain_l=conv("chain_l"))
 
 
+def graph_operator(src, device=None) -> laplacian.GraphOperator:
+    """GraphOperator from an object with the JAX GraphOperator's six tables
+    (idx, nbr_tbl, eid_tbl, chain_slot, chain_mask, coarse_idx) and its
+    static fields n, mode, coarse_s and coarse_nc; index tables become
+    int64."""
+    tables = {}
+    for name in laplacian.TABLES:
+        v = np.asarray(_field(src, name))
+        tables[name] = torch.from_numpy(
+            np.array(v, dtype=np.bool_ if v.dtype == np.bool_ else np.int64))
+    op = laplacian.GraphOperator(
+        tables, int(_field(src, "n")), str(_field(src, "mode")),
+        int(_field(src, "coarse_s")), int(_field(src, "coarse_nc")))
+    return op if device is None else op.to(device)
+
+
 def mac_params(params, dtype=torch.float32, device=None):
-    """The port's MAC parameter tuple (w_fixed, w_cand, cand_idx, banded)
+    """The port's MAC parameter tuple (w_fixed, w_cand, cand_idx, operator)
     from the JAX tuple (op, w_fixed, w_cand, chain_w, banded): cand_idx
-    holds the candidates' (RCM-relabelled) endpoints, op.idx[m_fixed:]."""
+    holds the candidates' internal endpoints, op.idx[m_fixed:] (RCM-
+    relabelled on the banded route); the operator is the banded one when
+    `banded` is given, else op itself (the matrix-free route, whose
+    chain_w the port does not carry)."""
     op, w_fixed, w_cand, _chain_w, banded = params
     w_fixed = np.asarray(w_fixed)
     cand_idx = np.asarray(op.idx)[w_fixed.shape[0]:]
+    operator = (graph_operator(op, device=device) if banded is None
+                else banded_operator(banded, device=device))
     return (torch.tensor(w_fixed, dtype=dtype, device=device),
             torch.tensor(np.asarray(w_cand), dtype=dtype, device=device),
             torch.as_tensor(cand_idx.astype(np.int64), device=device),
-            banded_operator(banded, device=device))
+            operator)

@@ -2,24 +2,26 @@
 sides (PyTorch counterpart of mac_tpu.ops.cg.pcg_fixed): the eigensolver's
 inexact shift-invert."""
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
 def pcg_fixed(apply_A: Callable, B: torch.Tensor, Minv: Callable,
-              iters: int, X0: torch.Tensor) -> torch.Tensor:
-    """`iters` PCG steps toward A X = B from X0, preconditioned by Minv.
-    Columnwise step sizes; division guards make exhausted columns inert
-    rather than NaN."""
+              iters: int, X0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`iters` PCG steps toward A X = B from X0 (default 0),
+    preconditioned by Minv. Columnwise step sizes; division guards make
+    exhausted columns inert rather than NaN."""
     tiny = torch.finfo(B.dtype).tiny
 
     def safe_div(a, b):
         big = b.abs() > tiny
         return a / torch.where(big, b, torch.ones_like(b)) * big
 
-    X = X0
-    R = B - apply_A(X0)
+    if X0 is None:
+        X, R = torch.zeros_like(B), B
+    else:
+        X, R = X0, B - apply_A(X0)
     Z = Minv(R)
     P = Z
     rz = torch.sum(R * Z, dim=0)

@@ -1,11 +1,16 @@
-"""Kernel K1: the tridiagonal LDL^T solve (csrc/tridiag.cu).
+"""Kernels K1 and K1b: the tridiagonal LDL^T solve (csrc/tridiag.cu).
 
 Solves L diag(dp) L^T X = B with L unit lower bidiagonal (subdiagonal l),
 for dp, l of shape (n,) and B of shape (n, q) -- the contract of the TPU
-kernel it replaces, mac_tpu/ops/pallas/tridiag_kernel.py
-(_tridiag_kernel via tridiag_solve_fused). `tridiag_solve` launches the
-CUDA kernel for tensors on a CUDA device and runs `tridiag_solve_plain`,
-its plain PyTorch version, for tensors on the CPU.
+kernels they replace, mac_tpu/ops/pallas/tridiag_kernel.py:
+
+  K1  `tridiag_solve` (tridiag_solve_fused): whole rows;
+  K1b `tridiag_solve_blocked` (tridiag_solve_fused_blocked): segments of
+      `block` rows, decoupled by taking l = 0 at each segment's first row.
+
+Each wrapper launches its CUDA kernel for tensors on a CUDA device and runs
+its plain PyTorch version (`*_plain`) for tensors on the CPU, and counts
+its launches in `.launches`.
 """
 
 import ctypes
@@ -27,44 +32,82 @@ def _scan_affine(coef: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def tridiag_solve_plain(dp: torch.Tensor, l: torch.Tensor,
-                        B: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: forward and backward affine
-    scans around the diagonal scale (mac_tpu.ops.tridiag.
-    tridiag_solve_factored)."""
-    coef = torch.broadcast_to(-l[:, None], B.shape)
-    y = _scan_affine(coef, B)
-    z = y / dp[:, None]
+def _substitute(dp: torch.Tensor, l: torch.Tensor,
+                B: torch.Tensor) -> torch.Tensor:
+    """Forward affine scan, diagonal scale, backward affine scan along axis
+    0 of B; dp and l broadcast against B."""
+    y = _scan_affine(torch.broadcast_to(-l, B.shape), B)
+    z = y / dp
     # Backward: x_i = z_i - l_{i+1} x_{i+1}, a forward scan of the reversal.
-    lr = torch.cat([-l[1:], torch.zeros(1, dtype=l.dtype, device=l.device)])
-    coef_r = torch.broadcast_to(lr[:, None], B.shape).flip(0)
+    lr = torch.cat([-l[1:], torch.zeros_like(l[:1])])
+    coef_r = torch.broadcast_to(lr, B.shape).flip(0)
     return _scan_affine(coef_r, z.flip(0)).flip(0)
 
 
-_SIGNATURES = {"tridiag_solve_f32": [ctypes.c_void_p] * 4
-               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+def tridiag_solve_plain(dp: torch.Tensor, l: torch.Tensor,
+                        B: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1: forward and backward affine scans
+    around the diagonal scale (mac_tpu.ops.tridiag.
+    tridiag_solve_factored)."""
+    return _substitute(dp[:, None], l[:, None], B)
 
 
-def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,
-                  B: torch.Tensor) -> torch.Tensor:
-    """X with L diag(dp) L^T X = B. CUDA tensors: the hand-written kernel
-    (float32, contiguous, any n and q); CPU tensors: the plain version."""
+def tridiag_solve_blocked_plain(dp: torch.Tensor, l: torch.Tensor,
+                                B: torch.Tensor,
+                                block: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of K1b (mac_tpu/ops/pallas/tridiag_kernel.py,
+    tridiag_solve_fused_blocked): rows padded to a multiple of `block` with
+    l = 0, dp = 1, B = 0; l forced to 0 at every row % block == 0; each
+    segment solved on its own, by the scans of the whole-row version run
+    along the segment axis."""
+    n, q = B.shape
+    nbl = -(-n // block)
+    n_pad = nbl * block
+    dp_p = torch.ones(n_pad, dtype=B.dtype, device=B.device)
+    dp_p[:n] = dp
+    l_p = torch.zeros(n_pad, dtype=B.dtype, device=B.device)
+    l_p[:n] = l
+    l_p[::block] = 0.0  # decouple the segments
+    B_p = torch.cat([B, B.new_zeros((n_pad - n, q))], dim=0)
+    # (block, nbl, q): the scan axis first, one column of segments each.
+    Bs = B_p.reshape(nbl, block, q).transpose(0, 1)
+    X = _substitute(dp_p.reshape(nbl, block).T[:, :, None],
+                    l_p.reshape(nbl, block).T[:, :, None], Bs)
+    return X.transpose(0, 1).reshape(n_pad, q)[:n]
+
+
+_SIGNATURES = {
+    "tridiag_solve_f32": [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "tridiag_solve_blocked_f32": [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def _on_card(name: str, dp: torch.Tensor, l: torch.Tensor,
+             B: torch.Tensor) -> bool:
+    """Check the arguments; True when they lie on a CUDA device (launch the
+    kernel), False when they lie on the CPU (run the plain version)."""
     if B.dim() != 2 or dp.shape != (B.shape[0],) or l.shape != dp.shape:
-        raise ValueError(f"tridiag_solve: want dp, l (n,) and B (n, q); got "
+        raise ValueError(f"{name}: want dp, l (n,) and B (n, q); got "
                          f"{tuple(dp.shape)}, {tuple(l.shape)}, "
                          f"{tuple(B.shape)}")
     if not B.is_cuda:
         if dp.is_cuda or l.is_cuda:
-            raise ValueError("tridiag_solve: tensors on different devices")
-        return tridiag_solve_plain(dp, l, B)
+            raise ValueError(f"{name}: tensors on different devices")
+        return False
     if dp.device != B.device or l.device != B.device:
-        raise ValueError("tridiag_solve: tensors on different devices")
-    for name, t in (("dp", dp), ("l", l), ("B", B)):
+        raise ValueError(f"{name}: tensors on different devices")
+    for arg, t in (("dp", dp), ("l", l), ("B", B)):
         if t.dtype != torch.float32:
-            raise TypeError(f"tridiag_solve kernel takes float32; {name} is "
+            raise TypeError(f"{name} kernel takes float32; {arg} is "
                             f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"tridiag_solve kernel: {name} not contiguous")
+            raise ValueError(f"{name} kernel: {arg} not contiguous")
+    return True
+
+
+def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
     from mac_tpu_torch.ops.kernels import _build
 
     lib = _build.load("tridiag", _SIGNATURES)
@@ -72,13 +115,42 @@ def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,
     X = torch.empty_like(B)
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
-        err = lib.tridiag_solve_f32(dp.data_ptr(), l.data_ptr(), B.data_ptr(),
-                                    X.data_ptr(), n, q, stream)
+        err = getattr(lib, fn)(dp.data_ptr(), l.data_ptr(), B.data_ptr(),
+                               X.data_ptr(), n, q, *extra, stream)
     if err != 0:
-        raise RuntimeError(f"tridiag_solve kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    return X
+
+
+def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,
+                  B: torch.Tensor) -> torch.Tensor:
+    """K1: X with L diag(dp) L^T X = B. CUDA tensors: the hand-written
+    kernel (float32, contiguous, any n and q); CPU tensors: the plain
+    version."""
+    if not _on_card("tridiag_solve", dp, l, B):
+        return tridiag_solve_plain(dp, l, B)
+    X = _launch("tridiag_solve_f32", dp, l, B)
     tridiag_solve.launches += 1
     return X
 
 
 tridiag_solve.launches = 0
+
+
+def tridiag_solve_blocked(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor,
+                          block: int = 1024) -> torch.Tensor:
+    """K1b: the solve with the segments of `block` rows decoupled (l taken
+    as 0 at every row % block == 0). CUDA tensors: the hand-written kernel
+    (float32, contiguous, block a multiple of 32 up to 1024); CPU tensors:
+    the plain version."""
+    if not _on_card("tridiag_solve_blocked", dp, l, B):
+        return tridiag_solve_blocked_plain(dp, l, B, block)
+    if not (32 <= block <= 1024 and block % 32 == 0):
+        raise ValueError(f"tridiag_solve_blocked kernel: block {block} is "
+                         "not a multiple of 32 in [32, 1024]")
+    X = _launch("tridiag_solve_blocked_f32", dp, l, B, int(block))
+    tridiag_solve_blocked.launches += 1
+    return X
+
+
+tridiag_solve_blocked.launches = 0

@@ -1,0 +1,186 @@
+"""Matrix-free weighted-Laplacian operators.
+
+PyTorch counterpart of mac_tpu.ops.laplacian. L(w) = sum_e w_e (e_i - e_j)
+(e_i - e_j)^T is never held as a sparse matrix on the device. Two apply
+paths:
+
+  * ``dense`` (n <= DENSE_MAX_N): L(w) materialised as an (n, n) matrix,
+    applied by matrix products; small graphs also get an exact eigh.
+  * ``ell``: padded adjacency (ELLPACK) tables of (neighbour, edge id) per
+    node, and the difference-form gather apply
+        (L(w) V)_i = sum_k w_ik (V_i - V_{nbr_ik}).
+
+The tables are static per topology; only the weight vector changes across
+Frank-Wolfe steps. The operator also carries the bookkeeping of the
+two-grid preconditioner (mac_tpu_torch.ops.twogrid): which edges join
+consecutive nodes (the chain band) and each edge's coarse aggregates.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Graphs with n <= DENSE_MAX_N take the dense path; larger ones the ELL
+# gather path (whose difference form is also the float32-stable one).
+DENSE_MAX_N = 256
+# Approximate coarse-grid size of the two-grid preconditioner.
+TARGET_NC = 512
+
+TABLES = ("idx", "nbr_tbl", "eid_tbl", "chain_slot", "chain_mask",
+          "coarse_idx")
+
+
+class GraphOperator:
+    """Static per-topology data for matrix-free L(w) products.
+
+    idx (m, 2): edge endpoints. nbr_tbl / eid_tbl (n, dmax): neighbour node
+    and edge id per adjacency slot (ELL); padding slots point at node 0 and
+    the sentinel edge m (weight 0). On the dense path both are (1, 1)
+    placeholders. chain_slot (m,): the lower endpoint of an edge between
+    consecutive nodes, else the sentinel n - 1; chain_mask (m,): whether it
+    joins consecutive nodes. coarse_idx (m, 2): endpoints // coarse_s.
+    Index tables are int64 tensors; `to(device)` returns a moved copy.
+    """
+
+    def __init__(self, tables: dict, n: int, mode: str, coarse_s: int,
+                 coarse_nc: int):
+        for name in TABLES:
+            setattr(self, name, tables[name])
+        self.n = int(n)
+        self.mode = mode
+        self.coarse_s = int(coarse_s)
+        self.coarse_nc = int(coarse_nc)
+
+    @property
+    def m(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
+    def to(self, device) -> "GraphOperator":
+        return GraphOperator({name: getattr(self, name).to(device)
+                              for name in TABLES}, self.n, self.mode,
+                             self.coarse_s, self.coarse_nc)
+
+
+def build_operator(idx: np.ndarray, num_nodes: int,
+                   mode: Optional[str] = None,
+                   target_nc: int = TARGET_NC) -> GraphOperator:
+    """GraphOperator from an (m, 2) edge-index array, on the CPU.
+
+    mode: 'dense', 'ell', or None (dense iff n <= DENSE_MAX_N).
+    target_nc: approximate coarse-grid size (contiguous aggregates of
+    s = ceil(n / target_nc) nodes).
+
+    Slot order is that of the JAX package's loop: node v's slots follow its
+    occurrences in (i_0, j_0, i_1, j_1, ...), so the tables are equal.
+    """
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1, 2)
+    n = int(num_nodes)
+    m = idx.shape[0]
+    if mode is None:
+        mode = "dense" if n <= DENSE_MAX_N else "ell"
+    if mode == "dense":
+        nbr = np.zeros((1, 1), dtype=np.int64)
+        eid = np.zeros((1, 1), dtype=np.int64)
+    else:
+        ends = idx.reshape(-1)               # i_0, j_0, i_1, j_1, ...
+        others = idx[:, ::-1].reshape(-1)    # the other endpoint of each
+        order = np.argsort(ends, kind="stable")
+        counts = np.bincount(ends, minlength=n)
+        dmax = max(int(counts.max(initial=0)), 1)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        node = ends[order]
+        slot = np.arange(2 * m) - starts[node]
+        nbr = np.zeros((n, dmax), dtype=np.int64)
+        eid = np.full((n, dmax), m, dtype=np.int64)
+        nbr[node, slot] = others[order]
+        eid[node, slot] = order // 2
+    lo = idx.min(axis=1) if m else np.zeros(0, np.int64)
+    hi = idx.max(axis=1) if m else np.zeros(0, np.int64)
+    is_chain = (hi - lo) == 1
+    slot = np.where(is_chain, lo, max(n - 1, 0))
+    s = max(1, int(np.ceil(n / target_nc)))
+    nc = int(np.ceil(n / s))
+    tables = dict(idx=idx, nbr_tbl=nbr, eid_tbl=eid, chain_slot=slot,
+                  chain_mask=is_chain, coarse_idx=idx // s)
+    return GraphOperator({k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in tables.items()}, n, mode, s, nc)
+
+
+def lap_dense(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
+    """L(w) as a dense (n, n) matrix (one scatter-add)."""
+    n = op.n
+    i, j = op.idx[:, 0], op.idx[:, 1]
+    flat = torch.cat([i * n + j, j * n + i, i * n + i, j * n + j])
+    vals = torch.cat([-w, -w, w, w])
+    L = torch.zeros(n * n, dtype=w.dtype, device=w.device)
+    return L.index_add_(0, flat, vals).reshape(n, n)
+
+
+def _w_pad(w: torch.Tensor) -> torch.Tensor:
+    return torch.cat([w, w.new_zeros(1)])  # sentinel edge m: weight 0
+
+
+
+def lap_degrees(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
+    """Weighted degrees deg_i = sum_{e ni i} w_e (the diagonal of L(w))."""
+    if op.mode == "ell":
+        return _w_pad(w)[op.eid_tbl].sum(dim=1)
+    deg = torch.zeros(op.n, dtype=w.dtype, device=w.device)
+    return deg.index_add_(0, op.idx[:, 0], w).index_add_(0, op.idx[:, 1], w)
+
+
+def lap_inf_norm(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
+    """||L(w)||_inf = 2 max weighted degree."""
+    return 2.0 * lap_degrees(op, w).max()
+
+
+def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor):
+    """(d, e): the diagonal (weighted degrees) and the first off-diagonal
+    band (minus the summed weights between consecutive nodes) of L(w)."""
+    d = lap_degrees(op, w)
+    if op.n <= 1:
+        return d, torch.zeros(1, dtype=w.dtype, device=w.device)
+    # Non-chain edges add 0 at the sentinel slot n - 1, one past the band,
+    # which is cut off (the JAX scatter drops it as out of range).
+    wc = torch.where(op.chain_mask, w, torch.zeros_like(w))
+    e = torch.zeros(op.n, dtype=w.dtype, device=w.device)
+    return d, e.index_add_(0, op.chain_slot, -wc)[:op.n - 1]
+
+
+def _ell_apply_tbl(op: GraphOperator, w_tbl: torch.Tensor,
+                   V: torch.Tensor) -> torch.Tensor:
+    # Difference form (L V)_i = sum_k w_ik (V_i - V_nbr_ik), not the
+    # equivalent deg_i V_i - sum_k w_ik V_nbr_ik: smooth eigenvectors make
+    # the latter cancel two O(deg |V|) terms down to O(lambda |V|) in
+    # float32, while neighbour differences of close values are exact.
+    # The gather runs on the (q, n) layout: gathering whole (n, q) rows of
+    # q = 4 floats takes a PyTorch kernel with one thread block per row,
+    # 17x slower on an H100 at n = 1e5 (PERF.md).
+    n, dmax = op.nbr_tbl.shape
+    Vt = V.T.contiguous()                                    # (q, n)
+    Vd = Vt[:, :, None] - Vt[:, op.nbr_tbl.reshape(-1)].reshape(-1, n, dmax)
+    return (Vd * w_tbl).sum(dim=2).T.contiguous()            # (n, q)
+
+
+def lap_apply(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
+              L_dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L(w) @ V for V of shape (n, q); on the dense path a materialised
+    L_dense may be passed to amortise its build."""
+    if op.mode == "dense" and L_dense is not None:
+        return L_dense @ V
+    return lap_applier(op, w)(V)
+
+
+def lap_applier(op: GraphOperator, w: torch.Tensor):
+    """V -> L(w) @ V with the per-weight work (the dense matrix, or the
+    ELL weight table) done once, for an eigensolve's many products."""
+    if op.mode == "dense":
+        L_dense = lap_dense(op, w)
+        return lambda V: L_dense @ V
+    w_tbl = _w_pad(w)[op.eid_tbl]
+    return lambda V: _ell_apply_tbl(op, w_tbl, V)

@@ -202,3 +202,101 @@ def tracemin_fiedler(
         Xprev, X, AX, lam, res = X, X_new, AX_new, lam_new, res_new
         it += 1
     return FiedlerResult(lam=lam, X=X, iters=it, res=res)
+
+
+# LOBPCG stops after this many outer iterations without a 3% residual
+# improvement near its precision floor.
+LOBPCG_STALL_PATIENCE = 8
+
+
+def lobpcg_fiedler(
+    apply_L: Callable[[torch.Tensor], torch.Tensor],
+    X0: torch.Tensor,
+    lnorm: torch.Tensor,
+    *,
+    xprev0: torch.Tensor,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol: float = 1e-8,
+    maxiter: int = 1000,
+) -> FiedlerResult:
+    """The q smallest nonzero eigenpairs of a graph Laplacian by LOBPCG
+    (mac_tpu.ops.lobpcg.lobpcg_fiedler): Rayleigh-Ritz on span[X, W, P]
+    of the shifted operator, W the preconditioned residual and P the
+    previous iterate, seeded by `xprev0` (the reference draws it from
+    jax.random, which torch cannot reproduce).
+
+    apply_L: (n, k) -> (n, k) Laplacian product. X0: (n, q) start block.
+    lnorm: ||L||_inf, also the nullspace shift. precond: approximate inverse
+    of L on 1^perp, the identity if None."""
+    n, q = X0.shape
+    dtype = X0.dtype
+    eps = torch.finfo(dtype).eps
+    # A 1e-8 residual is out of float32's reach; clamp so the loop stops on
+    # convergence rather than maxiter.
+    eff_tol = max(float(tol), 32 * eps)
+    c = lnorm.to(dtype)
+
+    def apply_shifted(V):
+        return apply_L(V) + _shift_term(V, c)
+
+    if precond is None:
+        def precond(B):
+            return B
+
+    def project(V):
+        return V - V.mean(dim=0, keepdim=True)
+
+    X = _orth(project(X0))
+    AX = apply_shifted(X)
+    H = _hi(X).T @ _hi(AX)
+    lam, Y = torch.linalg.eigh((H + H.T) / 2)
+    lam, Y = lam.to(dtype), Y.to(dtype)
+    X, AX = X @ Y, AX @ Y
+    Xprev = project(xprev0.to(dtype))
+
+    def residual(lam, X, AX):
+        r = AX[:, 0] - lam[0] * X[:, 0]
+        return torch.sum(torch.abs(r)) / lnorm.to(dtype)
+
+    it = 0
+    res = residual(lam, X, AX)
+    best = res
+    since = 0
+    while it < maxiter and float(res) > eff_tol \
+            and since < LOBPCG_STALL_PATIENCE:
+        R = AX - X * lam[None, :]
+        W = _ortho_against(X, project(precond(R)))
+        P = _ortho_against(X, Xprev)
+        S = torch.cat([X, _colnorm(W), _colnorm(P)], dim=1)  # (n, 3q)
+        Q = _orth(S)
+        AQ = apply_shifted(Q)
+        H = _hi(Q).T @ _hi(AQ)
+        evals, C = torch.linalg.eigh((H + H.T) / 2)
+        Cq = C[:, :q].to(dtype)
+        lam_new = evals[:q].to(dtype)
+        X_new, AX_new = Q @ Cq, AQ @ Cq
+        res_new = residual(lam_new, X_new, AX_new)
+        near_floor = bool(res_new < 4 * eff_tol)
+        improved = bool(res_new < 0.97 * best)
+        best = torch.minimum(best, res_new)
+        since = since + 1 if near_floor and not improved else 0
+        Xprev, X, AX, lam, res = X, X_new, AX_new, lam_new, res_new
+        it += 1
+    return FiedlerResult(lam=lam, X=X, iters=it, res=res)
+
+
+def dense_fiedler(L_dense: torch.Tensor, q: int) -> FiedlerResult:
+    """Exact Fiedler pair by dense eigh, for tiny graphs (n <= 256) and as
+    an oracle: eigenpairs 2..q+1 (the constant mode skipped), padded with
+    the top pair when n - 1 < q."""
+    n = L_dense.shape[0]
+    evals, V = torch.linalg.eigh((L_dense + L_dense.T) / 2)
+    hi = min(1 + q, n)
+    lam, X = evals[1:hi], V[:, 1:hi]
+    pad = q - lam.shape[0]
+    if pad > 0:
+        lam = torch.cat([lam, evals[-1:].expand(pad)])
+        X = torch.cat([X, V[:, -1:].expand(n, pad)], dim=1)
+    return FiedlerResult(lam=lam, X=X, iters=0,
+                         res=torch.zeros((), dtype=L_dense.dtype,
+                                         device=L_dense.device))

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of mac_tpu.ops.tridiag. The tridiagonal part of a
 pose-graph Laplacian (degrees plus the odometry chain) is the smoother of
-the banded two-level preconditioner (mac_tpu_torch.ops.banded):
+the banded two-level preconditioner (mac_tpu_torch.ops.banded) and of the
+matrix-free two-grid V-cycle (mac_tpu_torch.ops.twogrid):
 
   1. LDL^T pivots d'_i = d_i - e_{i-1}^2 / d'_{i-1}: a continued-fraction
      (Moebius) recurrence, composed projectively as normalised 2x2 matrix
@@ -10,8 +11,9 @@ the banded two-level preconditioner (mac_tpu_torch.ops.banded):
      `block`-step float64 recurrence vectorised over chain segments
      (tridiag_ldl_blocked).
   2. Forward and backward substitution: affine recurrences, solved by the
-     hand-written CUDA kernel on the card (mac_tpu_torch.ops.kernels.
-     tridiag) and by its plain scan version elsewhere.
+     hand-written CUDA kernels K1 (whole rows) and K1b (decoupled segments)
+     on the card (mac_tpu_torch.ops.kernels.tridiag) and by their plain
+     scan versions elsewhere.
 """
 
 from typing import Optional
@@ -19,11 +21,15 @@ from typing import Optional
 import torch
 
 from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
+                                               tridiag_solve_blocked,
                                                tridiag_solve_plain)
 
-# Largest n the whole-row kernel takes; larger blocked factors belong to
-# the segment-parallel kernel K1b, which is not ported yet.
+# Largest n factored exactly by tridiag_ldl_auto and solved by the whole-row
+# kernel K1 for any factor; beyond it a segment-decoupled factor goes to the
+# segment-parallel kernel K1b.
 TRIDIAG_SCAN_MAX_N = 32768
+# Segment length of K1b's solves (the TPU kernel's block).
+SOLVE_BLOCK = 1024
 
 
 class TridiagFactor:
@@ -133,17 +139,22 @@ def tridiag_solve_factored(f: TridiagFactor, B: torch.Tensor) -> torch.Tensor:
 
 def tridiag_solve_factored_fast(f: TridiagFactor,
                                 B: torch.Tensor) -> torch.Tensor:
-    """The kernel for float32 blocks of at most 32 columns and n up to
-    TRIDIAG_SCAN_MAX_N (the dispatch rule of mac_tpu.ops.tridiag), the plain
-    scans otherwise. `tridiag_solve` itself runs the CUDA kernel on a CUDA
-    tensor and its plain version on a CPU tensor."""
-    n, q = B.shape
-    if B.dtype == torch.float32 and q <= 32:
-        if n <= TRIDIAG_SCAN_MAX_N:
-            return tridiag_solve(f.dp.to(B.dtype), f.l.to(B.dtype), B)
-        if B.is_cuda and f.seg is not None and 1024 % int(f.seg) == 0:
-            raise NotImplementedError(
-                "tridiagonal solves with n > 32768 take the segment-parallel "
-                "kernel K1b (tridiag_solve_fused_blocked), which a later "
-                "slice of the port adds")
-    return tridiag_solve_factored(f, B)
+    """The kernels for float32 blocks of any width (the dispatch rule of
+    mac_tpu.ops.tridiag): K1 up to TRIDIAG_SCAN_MAX_N; beyond it K1b
+    (segments of SOLVE_BLOCK rows) for a factor already decoupled at those
+    boundaries (f.seg divides SOLVE_BLOCK), and K1 for any other factor.
+    The TPU's 32768-row and 32-column limits were its VMEM budget; the
+    CUDA kernels have neither. Each kernel wrapper runs the CUDA kernel on
+    a CUDA tensor and its plain version on a CPU tensor. A block of another
+    dtype takes the plain scans on the CPU and is refused on the card."""
+    n = B.shape[0]
+    if B.dtype != torch.float32:
+        if B.is_cuda:
+            raise TypeError("tridiag_solve_factored_fast: the CUDA kernels "
+                            f"take float32 blocks; got {B.dtype}")
+        return tridiag_solve_factored(f, B)
+    dp, l = f.dp.to(B.dtype), f.l.to(B.dtype)
+    if (n > TRIDIAG_SCAN_MAX_N and f.seg is not None
+            and SOLVE_BLOCK % int(f.seg) == 0):
+        return tridiag_solve_blocked(dp, l, B, block=SOLVE_BLOCK)
+    return tridiag_solve(dp, l, B)

@@ -1,0 +1,86 @@
+"""Two-grid preconditioner for graph Laplacians: exact-chain smoother and a
+dense coarse-grid correction (PyTorch counterpart of mac_tpu.ops.twogrid).
+
+  * Smoother: the LDL^T solve of the tridiagonal part of L(w) (degrees and
+    the odometry-chain band), exact up to n = 32768 (kernel K1) and
+    segment-decoupled at 1024 nodes beyond (kernel K1b).
+  * Coarse level: s consecutive nodes per aggregate, nc = ceil(n / s)
+    aggregates, piecewise-constant prolongation. Lc = P^T L(w) P is the
+    (nc, nc) Laplacian of the coarse edges, accumulated in float64 by one
+    index_add_ (the TPU assembled it from one-hot matrix products because
+    its scatters are slow), shifted by (cshift / nc) 1 1^T to make it SPD
+    and inverted once per weight vector through a float64 Cholesky factor.
+  * One symmetric V-cycle: pre-smooth, coarse-correct, post-smooth, with
+    the input and output centred (the preconditioner acts on 1^perp).
+"""
+
+from typing import Callable
+
+import torch
+
+from mac_tpu_torch.ops.laplacian import GraphOperator, lap_tridiagonal_part
+from mac_tpu_torch.ops.lobpcg import cholesky_upper
+from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
+                                       tridiag_solve_factored_fast)
+
+
+def coarse_laplacian(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
+    """Lc = sum_e w_e (p_i - p_j)(p_i - p_j)^T over the coarse endpoints,
+    in float64; edges inside one aggregate contribute nothing."""
+    nc = op.coarse_nc
+    ci, cj = op.coarse_idx[:, 0], op.coarse_idx[:, 1]
+    w64 = torch.where(ci != cj, w.double(), torch.zeros_like(w.double()))
+    flat = torch.cat([ci * nc + cj, cj * nc + ci, ci * nc + ci, cj * nc + cj])
+    vals = torch.cat([-w64, -w64, w64, w64])
+    Lc = torch.zeros(nc * nc, dtype=torch.float64, device=w.device)
+    return Lc.index_add_(0, flat, vals).reshape(nc, nc)
+
+
+def make_twogrid_precond(
+    op: GraphOperator,
+    w: torch.Tensor,
+    apply_L: Callable[[torch.Tensor], torch.Tensor],
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The V-cycle preconditioner for L(w) restricted to 1^perp, a function
+    (n, q) -> (n, q); rebuild it when w changes."""
+    n, s, nc = op.n, op.coarse_s, op.coarse_nc
+    dtype = w.dtype
+    eps = torch.finfo(dtype).eps
+
+    d, e = lap_tridiagonal_part(op, w)
+    fac = tridiag_ldl_auto(d + 100 * eps * d.max(), e)
+
+    Lc = coarse_laplacian(op, w)
+    cshift = 2.0 * torch.diagonal(Lc).max() + 1.0
+    Lc_reg = Lc + (cshift / nc) * torch.ones_like(Lc)
+    eye = torch.eye(nc, dtype=torch.float64, device=w.device)
+    Rc_inv = torch.linalg.solve_triangular(cholesky_upper(Lc_reg), eye,
+                                           upper=True)
+    Lc_inv = (Rc_inv @ Rc_inv.T).to(dtype)
+    pad = nc * s - n
+
+    def center(B):
+        return B - B.mean(dim=0, keepdim=True)
+
+    def smooth(B):
+        return tridiag_solve_factored_fast(fac, B)
+
+    def restrict(R):  # (n, q) -> (nc, q): sums within aggregates
+        if pad:
+            R = torch.cat([R, R.new_zeros((pad, R.shape[1]))], dim=0)
+        return R.reshape(nc, s, -1).sum(dim=1)
+
+    def prolong(Xc):  # (nc, q) -> (n, q): piecewise constant
+        return torch.repeat_interleave(Xc, s, dim=0)[:n]
+
+    def precond(B):
+        B = center(B)
+        x = smooth(B)
+        r = B - apply_L(x)
+        x = x + prolong(Lc_inv @ restrict(r))
+        # Post-smoothing makes the cycle symmetric, as CG needs.
+        r2 = B - apply_L(x)
+        x = x + smooth(r2)
+        return center(x)
+
+    return precond

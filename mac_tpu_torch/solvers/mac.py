@@ -1,19 +1,27 @@
 """MAC: maximize algebraic connectivity of an edge-budgeted graph.
 
-PyTorch counterpart of mac_tpu.solvers.mac.MAC on its banded float32 route:
-fix a base edge set, relax the K-subset selection of candidate edges to the
-box [0, 1]^m with |x| <= K, maximise F(x) = lambda_2(L(x)) by Frank-Wolfe
-with a warm-started TRACEMIN Fiedler oracle on the RCM block-banded
-operator, round back to a binary selection, and certify the result with a
-float64 dual bound on the host.
+PyTorch counterpart of mac_tpu.solvers.mac.MAC on its two float32 device
+routes: fix a base edge set, relax the K-subset selection of candidate
+edges to the box [0, 1]^m with |x| <= K, maximise F(x) = lambda_2(L(x)) by
+Frank-Wolfe with a warm-started Fiedler oracle, round back to a binary
+selection, and certify the result with a float64 dual bound on the host.
 
-The automatic policy is the reference's fast32 policy, knob for knob:
-eigensolver tol 6e-4, 50 outer iterations, 10 inner CG steps, relative
-tolerance 3e-2, float32 coefficient algebra; warm Frank-Wolfe steps capped
-at 4 / 2 / 1 outer iterations from steps 1 / 4 / 10 with 5 inner CG steps;
-32 Frank-Wolfe steps, duality-gap stop off, Cesaro tail averaging from step
-16; the coarse inverse refreshed by Newton-Schulz from step 4; nearest
-rounding in the loop's output.
+Routes, chosen as the reference chooses them:
+  * banded: a graph with a narrow RCM band takes the block-banded operator
+    (kernels K2/K2b and K1) and the reference's fast32 policy, knob for
+    knob: eigensolver tol 6e-4, 50 outer iterations, 10 inner CG steps,
+    relative tolerance 3e-2, float32 coefficient algebra; warm Frank-Wolfe
+    steps capped at 4 / 2 / 1 outer iterations from steps 1 / 4 / 10 with 5
+    inner CG steps; 32 Frank-Wolfe steps, duality-gap stop off, Cesaro tail
+    averaging from step 16; the coarse inverse refreshed by Newton-Schulz
+    from step 4.
+  * matrix-free: any other graph (or use_banded=False) takes the ELL
+    GraphOperator in original node ids (a dense matrix for n <= 256) with
+    the two-grid V-cycle (kernel K1, or K1b past 32768 nodes) and the
+    reference defaults: tol 1e-8, 200 outer iterations, 16 inner CG steps,
+    the dtype's relative tolerance, float64 coefficient algebra, the full
+    budget on warm steps, 5 Frank-Wolfe steps.
+Both round to the nearest selection in the loop's output.
 
 Routes this slice of the port does not have raise NotImplementedError with
 the slice that adds them; none runs something else in their place.
@@ -28,6 +36,8 @@ import torch
 
 from mac_tpu_torch.device import resolve_device
 from mac_tpu_torch.ops.banded import PrecondState, build_banded_rcm
+from mac_tpu_torch.ops.laplacian import build_operator
+from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.optimization.constraints import solve_subset_box_lp
 from mac_tpu_torch.optimization.frankwolfe import frank_wolfe_with_state
 from mac_tpu_torch.utils import fiedler as _fiedler
@@ -127,21 +137,29 @@ def choose_compute_dtype(fixed_idx, w_fixed, cand_idx, w_cand, num_nodes):
 
 
 class MAC:
-    """Algebraic-connectivity-maximizing edge selection (banded float32).
+    """Algebraic-connectivity-maximizing edge selection (float32, on the
+    banded or the matrix-free route; see the module docstring).
 
     fixed_edges / candidate_edges: lists of `Edge` (or (idx, w) arrays).
     num_nodes: number of graph nodes.
     device: where the solve runs, "cuda" by default; "cpu" runs the
         kernels' plain PyTorch versions.
     The eigensolver and Frank-Wolfe knobs mirror mac_tpu.solvers.mac.MAC;
-    None selects the automatic fast32 policy (see the module docstring).
-    round_guard: the reference's post-rounding repair (an attribute there);
-        it and fw_polish resolve True for n <= 4096, which this slice does
-        not run -- pass False for such graphs.
+    None selects the route's automatic policy.
+    fiedler_method: "tracemin" (its "_lu" / "_cholesky" aliases), or, on
+        the matrix-free route, "lobpcg" or "dense" (exact eigh).
+    fiedler_precond: the matrix-free route's preconditioner, "twogrid" or
+        "tridiag"; None takes "tridiag" for a float64 solve whose fixed
+        edges hold the odometry chain and whose candidates number at most
+        n / 5, "twogrid" otherwise (so always "twogrid" here).
+    fw_polish / round_guard: the reference's exact host polish step and
+        post-rounding repair (round_guard is an attribute there). Both
+        resolve True on the banded route for n <= 4096, which this slice
+        does not run -- pass False for such graphs -- and False elsewhere.
 
-    `xprev0` (n, q) is the random block that seeds TRACEMIN's previous-
-    iterate memory; it defaults to N(0, 1) from a torch.Generator seeded
-    with 7 and may be replaced before solving.
+    `xprev0` (n, q) is the random block that seeds the eigensolver's
+    previous-iterate memory; it defaults to N(0, 1) from a torch.Generator
+    seeded with 7 and may be replaced before solving.
     """
 
     @dataclass
@@ -168,6 +186,7 @@ class MAC:
         mesh=None,
         use_banded=None,
         fw_tail_average=None,
+        fiedler_precond=None,
         precond_refresh_period=None,
         fw_polish=None,
         round_guard=None,
@@ -181,15 +200,15 @@ class MAC:
             raise ValueError(f"{num_edges} edges cannot form a connected "
                              f"simple graph on {n} nodes")
         if mesh is not None:
-            raise _not_in_slice("A device mesh", "multi-GPU solves come with "
+            raise _not_in_slice("A device mesh (row-sharded ELL or banded "
+                                "products)", "multi-GPU solves come with "
                                 "slice F (ROADMAP Queue 1, item 17)")
-        if fiedler_method not in ("tracemin", "tracemin_lu",
-                                  "tracemin_cholesky"):
-            raise _not_in_slice(f"fiedler_method={fiedler_method!r}",
-                                "LOBPCG and dense eigh come with slice C")
-        if use_banded is False:
-            raise _not_in_slice("The ELL (non-banded) operator",
-                                "it comes with slice C (item 13)")
+        if fiedler_method in ("tracemin_lu", "tracemin_cholesky"):
+            fiedler_method = "tracemin"
+        if fiedler_method not in ("tracemin", "lobpcg", "dense"):
+            raise ValueError(f"unknown fiedler_method {fiedler_method!r}")
+        if fiedler_precond not in (None, "twogrid", "tridiag"):
+            raise ValueError(f"unknown fiedler_precond {fiedler_precond!r}")
 
         self.spectral_ratio = None
         if dtype is None:
@@ -205,8 +224,8 @@ class MAC:
                 raise _not_in_slice(
                     f"The host float64 engine for small instances (n <= "
                     f"{SMALL_HOST_N})", "it comes with slice B (item 11); "
-                    "pass dtype=torch.float32 and use_banded=True for the "
-                    "banded device path")
+                    "pass dtype=torch.float32 and use_banded=True (or "
+                    "False) for a device route")
         if dtype != torch.float32:
             raise _not_in_slice(f"dtype={dtype}", "float64 solves come with "
                                 "slice B (item 11)")
@@ -218,38 +237,70 @@ class MAC:
         self.weights = np.asarray(w_cand)
         self.edge_list = np.asarray(cand_idx)
 
+        # Route: the banded operator when the graph admits a narrow RCM
+        # band (and use_banded is not False), else the matrix-free one.
         all_idx = np.concatenate([fixed_idx, cand_idx], axis=0)
-        bop, ridx = build_banded_rcm(all_idx, n)
-        if bop is None:
-            raise _not_in_slice(
-                "A graph with no narrow RCM band (the ELL operator)",
-                "it comes with slice C (item 13)")
-        self._perm = bop.perm.numpy().astype(np.int64)
-        self._banded = bop.to(self.device)  # nn.Module.to moves in place
-        # Internal (RCM-relabelled) endpoints: the node space of the device
-        # eigenvectors.
-        self._int_idx = np.asarray(ridx, dtype=np.int64)
+        bop, ridx = (build_banded_rcm(all_idx, n) if use_banded is not False
+                     else (None, None))
+        self._banded = None
+        self._perm = None
+        self.op = None
+        if bop is not None:
+            if fiedler_method != "tracemin":
+                raise _not_in_slice(
+                    f"fiedler_method={fiedler_method!r} (LOBPCG or dense "
+                    "eigh) on the banded operator", "both run on the ELL "
+                    "operator here: pass use_banded=False")
+            self._perm = bop.perm.numpy().astype(np.int64)
+            self._banded = bop.to(self.device)  # nn.Module.to moves in place
+            operator = self._banded
+            # Internal (RCM-relabelled) endpoints: the node space of the
+            # device eigenvectors.
+            self._int_idx = np.asarray(ridx, dtype=np.int64)
+        else:
+            self.op = build_operator(all_idx, n).to(self.device)
+            operator = self.op
+            self._int_idx = all_idx.astype(np.int64)
+        fast32 = self._banded is not None
         m_fixed = fixed_idx.shape[0]
         self._w_fixed = torch.as_tensor(w_fixed, dtype=dtype,
                                         device=self.device)
         self._w_cand = torch.as_tensor(w_cand, dtype=dtype, device=self.device)
         cand_int = torch.as_tensor(self._int_idx[m_fixed:], device=self.device)
-        self._params = (self._w_fixed, self._w_cand, cand_int, self._banded)
+        self._params = (self._w_fixed, self._w_cand, cand_int, operator)
 
-        # The fast32 policy (mac.py's automatic policy on the banded float32
-        # path): explicit knobs win.
-        self.fiedler_tol = float(6e-4 if fiedler_tol is None else fiedler_tol)
-        self.fiedler_maxiter = int(50 if fiedler_maxiter is None
-                                   else fiedler_maxiter)
-        self.fiedler_inner_iters = int(10 if fiedler_inner_iters is None
-                                       else fiedler_inner_iters)
-        self.fiedler_rel_tol = (3e-2 if fiedler_rel_tol is None
-                                else fiedler_rel_tol)
-        self.fiedler_coeff_dtype = (
-            torch.float32 if fiedler_coeff_dtype is None
-            else fiedler_coeff_dtype)
+        if fiedler_precond is None:
+            # The reference's rule: the chain solve alone for float64
+            # solves of a chain with few candidates (never so here).
+            chain_only = (dtype == torch.float64
+                          and cand_idx.shape[0] <= 0.2 * n
+                          and extract_chain_weights(fixed_idx, w_fixed, n)
+                          is not None)
+            fiedler_precond = "tridiag" if chain_only else "twogrid"
+        self.fiedler_method = fiedler_method
+        self.fiedler_precond = fiedler_precond
+        # The route's automatic policy (mac.py's fast32 policy on the banded
+        # route, the reference defaults on the matrix-free one): explicit
+        # knobs win.
+        if fiedler_tol is None:
+            fiedler_tol = 6e-4 if fast32 else 1e-8
+        if fiedler_maxiter is None:
+            fiedler_maxiter = 50 if fast32 else 200
+        if fiedler_inner_iters is None:
+            fiedler_inner_iters = 10 if fast32 else 16
+        if fiedler_rel_tol is None and fast32:
+            fiedler_rel_tol = 3e-2
+        if fiedler_coeff_dtype is None and fast32:
+            fiedler_coeff_dtype = torch.float32
+        self.fiedler_tol = float(fiedler_tol)
+        self.fiedler_maxiter = int(fiedler_maxiter)
+        self.fiedler_inner_iters = int(fiedler_inner_iters)
+        # None: the dtype's default relative residual tolerance.
+        self.fiedler_rel_tol = fiedler_rel_tol
+        # None: float64 coefficient algebra.
+        self.fiedler_coeff_dtype = fiedler_coeff_dtype
         self._warm_maxiter_user_set = fiedler_warm_maxiter is not None
-        if fiedler_warm_maxiter is None and n >= 4096:
+        if fiedler_warm_maxiter is None and fast32 and n >= 4096:
             fiedler_warm_maxiter = 5
         if fiedler_warm_maxiter is None:
             self._warm_schedule = ((1, self.fiedler_maxiter),)
@@ -259,28 +310,32 @@ class MAC:
             self._warm_schedule = self._check_schedule(fiedler_warm_maxiter)
         self.fiedler_warm_maxiter = fiedler_warm_maxiter
         if fiedler_warm_inner_iters is None:
-            self._warm_inner_schedule = ((1, 5),)
+            self._warm_inner_schedule = ((1, 5),) if fast32 else None
         elif isinstance(fiedler_warm_inner_iters, int):
             self._warm_inner_schedule = ((1, int(fiedler_warm_inner_iters)),)
         else:
             self._warm_inner_schedule = self._check_schedule(
                 fiedler_warm_inner_iters)
         self._tail_average_user_set = fw_tail_average is not None
-        self.fw_tail_average = bool(True if fw_tail_average is None
+        self.fw_tail_average = bool(fast32 if fw_tail_average is None
                                     else fw_tail_average)
         self.precond_refresh_period = (1 if precond_refresh_period is None
                                        else int(precond_refresh_period))
         self.min_selection_weight_tol = float(min_selection_weight_tol)
         # The reference turns on its exact host polish step and round guard
-        # for n <= 4096; both are host float64 eigensolves (slice B).
-        self.fw_polish = bool(n <= 4096 if fw_polish is None else fw_polish)
-        self.round_guard = bool(n <= 4096 if round_guard is None
+        # on the banded route for n <= 4096; both are host float64
+        # eigensolves (slice B).
+        small_banded = fast32 and n <= 4096
+        self.fw_polish = bool(small_banded if fw_polish is None
+                              else fw_polish)
+        self.round_guard = bool(small_banded if round_guard is None
                                 else round_guard)
         if self.fw_polish or self.round_guard:
             raise _not_in_slice(
                 "The exact float64 polish step and round guard (on by "
-                "default for n <= 4096)", "they come with slice B (item 10); "
-                "pass fw_polish=False and round_guard=False")
+                "default on the banded route for n <= 4096)",
+                "they come with slice B (item 10); pass fw_polish=False "
+                "and round_guard=False")
 
         self._q = min(int(fiedler_block_q or 4), n - 1)
         self._X0 = torch.as_tensor(_fiedler.default_block(n, self._q),
@@ -331,15 +386,16 @@ class MAC:
     def _fiedler(self, params, w_all, X, maxiter=None, pstate=None,
                  use_prev=None, rebuild=None, want_pstate: bool = False,
                  rel_tol=None, inner_iters=None):
-        banded = params[3]
         return _fiedler.fiedler_pair_op(
-            banded, w_all, X,
+            params[3], w_all, X,
             xprev0=self.xprev0,
             tol=self.fiedler_tol,
             maxiter=self.fiedler_maxiter if maxiter is None else maxiter,
             inner_iters=(self.fiedler_inner_iters
                          if inner_iters is None else inner_iters),
             rel_tol=self.fiedler_rel_tol if rel_tol is None else rel_tol,
+            method=self.fiedler_method,
+            precond=self.fiedler_precond,
             coeff_dtype=self.fiedler_coeff_dtype,
             pstate=pstate, use_prev=use_prev, rebuild=rebuild,
             return_pstate=want_pstate,
@@ -375,13 +431,16 @@ class MAC:
             schedule = ((1, self.fiedler_maxiter),)
         if not use_cache:
             inner_schedule = None
-        banded = params[3]
-        nc, n = banded.coarse_nc, banded.n
-        dev = self.device
-        pstate0 = PrecondState(
-            Lc_inv=torch.zeros((nc, nc), dtype=self.dtype, device=dev),
-            chain_dp=torch.zeros(n, dtype=self.dtype, device=dev),
-            chain_l=torch.zeros(n, dtype=self.dtype, device=dev))
+        # The banded route carries its preconditioner state across steps;
+        # the matrix-free route rebuilds its V-cycle every step.
+        pstate0 = None
+        bop, dev = self._banded, self.device
+        if bop is not None:
+            nc, n = bop.coarse_nc, bop.n
+            pstate0 = PrecondState(
+                Lc_inv=torch.zeros((nc, nc), dtype=self.dtype, device=dev),
+                chain_dp=torch.zeros(n, dtype=self.dtype, device=dev),
+                chain_l=torch.zeros(n, dtype=self.dtype, device=dev))
         period = int(self.precond_refresh_period)
 
         def problem(x, state):
@@ -389,13 +448,19 @@ class MAC:
             mi = self._warm_cap(schedule, step)
             ii = (None if inner_schedule is None
                   else self._warm_inner(inner_schedule, step))
-            # Newton-Schulz coarse refresh once the FW step size 2/(step+2)
-            # bounds the operator change (step >= 4); with a refresh period
-            # p > 1, steps >= 8 rebuild only every p-th step.
-            rebuild = None if period <= 1 else (step < 8 or step % period == 0)
-            f, grad, Xres, iters, pstate = self._problem_impl(
-                params, x, X, maxiter=mi, pstate=pstate, use_prev=step >= 4,
-                rebuild=rebuild, inner_iters=ii)
+            if pstate is None:
+                f, grad, Xres, iters = self._problem_impl(
+                    params, x, X, maxiter=mi, inner_iters=ii)
+            else:
+                # Newton-Schulz coarse refresh once the FW step size
+                # 2/(step+2) bounds the operator change (step >= 4); with a
+                # refresh period p > 1, steps >= 8 rebuild only every p-th
+                # step.
+                rebuild = (None if period <= 1
+                           else (step < 8 or step % period == 0))
+                f, grad, Xres, iters, pstate = self._problem_impl(
+                    params, x, X, maxiter=mi, pstate=pstate,
+                    use_prev=step >= 4, rebuild=rebuild, inner_iters=ii)
             Xnew = Xres if use_cache else X0
             return f, grad, (Xnew, fiters + iters, step + 1, pstate)
 
@@ -424,6 +489,14 @@ class MAC:
         d = v[idx[:, 0]] - v[idx[:, 1]]
         return float((w * d * d).sum() / (v * v).sum())
 
+    def _eval_rel_tol(self) -> float:
+        """Residual tolerance of standalone objective evaluations: at most
+        1e-3, since the Rayleigh quotient over-reports lambda_2 by up to
+        ||r||_rel^2 / gap and the banded route's in-loop 3e-2 would bias
+        it by ~1e-3 relative."""
+        rt = self.fiedler_rel_tol
+        return 1e-3 if rt is None else min(float(rt), 1e-3)
+
     # ------------------------------------------------------------ public API
 
     def laplacian(self, x):
@@ -435,6 +508,18 @@ class MAC:
         w = np.concatenate([self._w_fixed.cpu().numpy(),
                             x[keep] * self.weights[keep]])
         return weight_graph_lap_from_edges(idx, w, self.num_nodes)
+
+    def evaluate_objective(self, x) -> float:
+        """F(x) = lambda_2(L(x)): a Fiedler solve from the cold start block
+        with at least 100 outer iterations and the evaluation tolerance,
+        refined to float64 on the host by the exact edge-sum Rayleigh
+        quotient of its Fiedler vector."""
+        x = torch.as_tensor(np.array(x), dtype=self.dtype,
+                            device=self.device)
+        res = self._fiedler(self._params, self._w_all(self._params, x),
+                            self._X0, maxiter=max(self.fiedler_maxiter, 100),
+                            rel_tol=self._eval_rel_tol())
+        return self._refine_lambda(x.cpu().numpy(), res.X[:, 0].cpu().numpy())
 
     def problem(self, x, cache: Optional["MAC.Cache"] = None):
         """(F(x), grad F(x)) with a cold preconditioner, warm-starting from
@@ -462,17 +547,20 @@ class MAC:
         """Solve the budgeted edge-selection problem.
 
         Returns (rounded, unrounded, upper_bound) as in
-        mac_tpu.solvers.mac.MAC.solve. max_iters=None selects the fast32
-        policy (32 steps, warm-cap schedule (1, 4), (4, 2), (10, 1), tail
-        averaging, gap stop off). With use_cache, upper_bound is a rigorous
-        float64 certificate: the final-iterate Rayleigh quotient plus its
-        supergradient linearisation maximised over the feasible set.
+        mac_tpu.solvers.mac.MAC.solve. max_iters=None selects the route's
+        policy: on the banded route the fast32 one (32 steps, warm-cap
+        schedule (1, 4), (4, 2), (10, 1), tail averaging, gap stop off), on
+        the matrix-free route the reference's 5 steps. An explicit
+        max_iters keeps the reference semantics (gap stop 1e-4, no tail
+        averaging unless asked for). With use_cache, upper_bound is a
+        rigorous float64 certificate: the final-iterate Rayleigh quotient
+        plus its supergradient linearisation maximised over the feasible
+        set.
         """
         m = len(self.weights)
         k = int(k)
         if k >= m or k <= 0:
-            raise _not_in_slice(f"The k={k} shortcut (k <= 0 or k >= m "
-                                "needs objective evaluation)",
+            raise _not_in_slice(f"The k={k} shortcut (k <= 0 or k >= m)",
                                 "it comes with slice B (item 12)")
         if rounding != "nearest":
             raise _not_in_slice(f"rounding={rounding!r}",
@@ -487,7 +575,10 @@ class MAC:
 
         schedule = self._warm_schedule
         tail_avg = False
-        if max_iters is None:
+        if max_iters is None and self._banded is None:
+            max_iters = 5  # the reference's default
+            tail_avg = self._tail_average_user_set and self.fw_tail_average
+        elif max_iters is None:
             max_iters = 32
             if not self._warm_maxiter_user_set:
                 schedule = ((1, 4), (4, 2), (10, 1))

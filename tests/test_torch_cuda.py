@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the PyTorch port on the card: each against
-its plain PyTorch version, the wrappers' input checks, and a solve that
-goes through both kernels. Marked `cuda`; each test skips when no CUDA
+its plain PyTorch version, the wrappers' input checks, a banded solve that
+goes through K1 and K2 and a matrix-free one that goes through K1b. Marked `cuda`; each test skips when no CUDA
 device is present. This file imports neither JAX nor the JAX package, so it
 also runs where JAX is not installed:
 
@@ -14,8 +14,11 @@ import torch
 from mac_tpu_torch.ops import banded
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
 from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
+                                               tridiag_solve_blocked,
+                                               tridiag_solve_blocked_plain,
                                                tridiag_solve_plain)
-from mac_tpu_torch.ops.tridiag import tridiag_ldl, tridiag_ldl_blocked
+from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_blocked,
+                                       tridiag_solve_factored_fast)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +71,57 @@ def test_tridiag_kernel_matches_plain(dev, n, q, blocked):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("n,q,seg", [
+    (1, 1, 1024), (1000, 3, 1024), (1024, 4, 1024), (1025, 5, 1024),
+    (40000, 8, 1024), (40000, 32, 1024), (100000, 4, 1024), (33000, 2, 128),
+    (40000, 16, None), (5000, 1, None)])
+def test_blocked_tridiag_kernel_matches_plain(dev, n, q, seg):
+    """K1b against its plain version at rtol/atol 2e-4: ragged n, one to 32
+    right-hand sides, factors decoupled every 1024 or 128 rows, and exact
+    factors (seg None), whose couplings at the 1024-row boundaries both
+    versions force to 0."""
+    d, e, rng = _chain(max(n, 2), n + 1, dev)
+    d, e = d[:n], e[:n - 1]
+    f = tridiag_ldl(d, e) if seg is None else tridiag_ldl_blocked(d, e, seg)
+    if seg is None and n > 1024:
+        assert bool((f.l[1024::1024] != 0).all())
+    B = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float32,
+                        device=dev)
+    before = tridiag_solve_blocked.launches
+    got = tridiag_solve_blocked(f.dp, f.l, B)
+    ref = tridiag_solve_blocked_plain(f.dp, f.l, B)
+    torch.cuda.synchronize()
+    assert tridiag_solve_blocked.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_dispatch_launches_the_kernel_its_rule_names(dev):
+    """Past 32768 rows a seg-1024 or seg-128 factor launches K1b and an
+    exact factor K1; up to 32768 rows every factor launches K1; a block
+    wider than 32 columns launches the same kernels, and a float64 block is
+    refused."""
+    n = 33000
+    d, e, rng = _chain(n, 9, dev)
+    B = torch.as_tensor(rng.normal(size=(n, 40)), dtype=torch.float32,
+                        device=dev)
+    for f, rows, q, kern in (
+            (tridiag_ldl_blocked(d, e, 1024), n, 4, tridiag_solve_blocked),
+            (tridiag_ldl_blocked(d, e, 128), n, 4, tridiag_solve_blocked),
+            (tridiag_ldl(d, e), n, 4, tridiag_solve),
+            (tridiag_ldl_blocked(d[:3000], e[:2999], 1024), 3000, 4,
+             tridiag_solve),
+            (tridiag_ldl_blocked(d, e, 1024), n, 40, tridiag_solve_blocked),
+            (tridiag_ldl(d[:3000], e[:2999]), 3000, 40, tridiag_solve)):
+        k1, k1b = tridiag_solve.launches, tridiag_solve_blocked.launches
+        tridiag_solve_factored_fast(f, B[:rows, :q].contiguous())
+        torch.cuda.synchronize()
+        assert (tridiag_solve.launches - k1,
+                tridiag_solve_blocked.launches - k1b) == (
+            (1, 0) if kern is tridiag_solve else (0, 1))
+    with pytest.raises(TypeError):
+        tridiag_solve_factored_fast(tridiag_ldl(d, e), B.double())
+
+
 @pytest.mark.parametrize("graph", [(700, 120, 40, 3), (1500, 1200, 25, 3),
                                    (4500, 2000, 40, 4)])
 def test_assemble_kernel_bitwise_equals_plain(dev, graph):
@@ -98,6 +152,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tridiag_solve(f.dp, f.l, B.float().t().contiguous().t())
     with pytest.raises(ValueError):
         tridiag_solve(f.dp.cpu(), f.l, B.float())
+    with pytest.raises(TypeError):
+        tridiag_solve_blocked(f.dp, f.l, B)
+    with pytest.raises(ValueError):
+        tridiag_solve_blocked(f.dp, f.l, B.float(), block=100)
     idx, w, n = _graph(700, 120, 40, 3)
     bop, _ = banded.build_banded_rcm(idx, n)
     bop = bop.to(dev)
@@ -120,5 +178,23 @@ def test_solve_on_cuda_goes_through_both_kernels(dev):
     t0, a0 = tridiag_solve.launches, assemble_ut.launches
     rounded, unrounded, upper = mac.solve(k)
     assert tridiag_solve.launches > t0 and assemble_ut.launches > a0
+    assert rounded.sum() == k and np.isfinite(upper)
+    assert np.all(np.isfinite(unrounded))
+
+
+def test_ell_solve_on_cuda_launches_the_blocked_kernel(dev):
+    """A matrix-free MAC solve past 32768 nodes (an expander-like graph, no
+    narrow band) launches K1b on every V-cycle and returns k edges."""
+    from chip_smoke import synthetic
+    from mac_tpu_torch.solvers import MAC
+
+    fi, wf, ci, wc = synthetic(40000)
+    k = len(wc) // 4
+    mac = MAC((fi, wf), (ci, wc), 40000, dtype=torch.float32,
+              fiedler_maxiter=10, fiedler_inner_iters=4, device="cuda")
+    assert mac._banded is None and mac.op.mode == "ell"
+    before = tridiag_solve_blocked.launches
+    rounded, unrounded, upper = mac.solve(k, max_iters=2)
+    assert tridiag_solve_blocked.launches > before
     assert rounded.sum() == k and np.isfinite(upper)
     assert np.all(np.isfinite(unrounded))

@@ -129,7 +129,7 @@ BANDED32 = dict(use_banded=True, dtype=torch.float32, device="cpu")
     (dict(BANDED32, fw_polish=False), "polish"),
     (dict(BANDED32, fw_polish=False, round_guard=False, mesh=object()),
      "mesh"),
-    (dict(device="cpu", use_banded=False), "ELL"),
+    (dict(device="cpu", use_banded=False, mesh=object()), "ELL"),
     (dict(device="cpu", use_banded=True, dtype=torch.float64), "float64"),
     (dict(BANDED32, fiedler_method="lobpcg"), "LOBPCG"),
 ])
@@ -153,16 +153,26 @@ def test_unported_solve_options_raise():
 
 
 def test_graph_without_narrow_band_raises():
-    """Expander-like loop closures leave no narrow band: that graph takes
-    the ELL operator of a later slice."""
+    """Expander-like loop closures leave no narrow band. What such a graph
+    still raises for are the routes not yet ported: the float64 solve and
+    Madow rounding. Otherwise, even with use_banded=True, it takes the
+    matrix-free ELL operator in original node ids, where fw_polish and
+    round_guard resolve False, as in the reference."""
     rng = np.random.RandomState(0)
     n = 2000
     chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
     rand = np.sort(rng.randint(0, n, size=(2000, 2)), axis=1)
     rand = rand[rand[:, 1] - rand[:, 0] > 1]
-    with pytest.raises(NotImplementedError, match="narrow RCM band"):
-        MAC((chain, np.ones(n - 1)), (rand, np.ones(len(rand))), n,
-            fw_polish=False, round_guard=False, **BANDED32)
+    fixed, cands = (chain, np.ones(n - 1)), (rand, np.ones(len(rand)))
+    with pytest.raises(NotImplementedError, match="float64"):
+        MAC(fixed, cands, n, **dict(BANDED32, dtype=torch.float64))
+    mac = MAC(fixed, cands, n, **BANDED32)
+    assert mac._banded is None and mac.op.mode == "ell"
+    assert not mac.fw_polish and not mac.round_guard
+    np.testing.assert_array_equal(mac._int_idx,
+                                  np.concatenate([chain, rand]))
+    with pytest.raises(NotImplementedError, match="Madow"):
+        mac.solve(5, rounding="madow")
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
