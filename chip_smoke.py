@@ -10,13 +10,20 @@ its wall time printed:
   2. build the hand-written CUDA kernels from mac_tpu_torch/csrc with nvcc,
      one nvcc process per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes, and time both with CUDA events:
-       tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4) and
-       on an exact factor (n = 4000), rtol/atol 2e-4 (the JAX package's
-       tolerance for its own kernel);
-       assemble_ut (K2/K2b) on city10000's split tables and on a graph
-       without a split, bitwise equal; also timed: the same scatter as one
-       index_add_ (the library yardstick);
+     main paths' shapes, and time it:
+       tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4),
+       on an exact factor (n = 4000), on an exact factor at (33000, 40),
+       too large for the cluster's shared memory (the tiled branch, two
+       passes of columns), and at (5000, 200), wider than one launch's 128
+       columns, rtol/atol 2e-4 (the JAX package's tolerance for its own
+       kernel);
+       assemble_ut (K2/K2b) on city10000's split tables, on a graph
+       without a split and on a half-4 band whose slot rows hold duplicate
+       edges, bitwise equal; also timed: the same scatter as one
+       index_add_ into a zeroed ut (the library yardstick);
+     a kernel's time is its device time (device_ms: 100 calls behind a
+     spin kernel), with the time of one call and its host work beside it
+     (call_ms); the plain versions are timed by call_ms;
   3c. tridiag_solve_blocked (K1b) at rtol/atol 2e-4 on the two-grid chain
      factor of the n = 100000 graph of phase 5 at its start weights
      (q = 4), on blocked factors at n = 40000 (q = 8 and 32, ragged), on a
@@ -42,9 +49,10 @@ its wall time printed:
      above it (1 - 1e-6).
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
-their path, error against the plain version, kernel, plain and library
-times, and the least time the card could take, bound_ms) and the result
-line {"ok": true, "device": {...}}.
+their path, error against the plain version, device time (ms and
+device_ms), call_ms, the plain version's call time, the yardstick's device
+time (library_ms), and the least time the card could take, bound_ms) and
+the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -81,8 +89,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in milliseconds."""
+def call_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median time of one call of fn() in milliseconds, CUDA events around
+    the call on an idle device: the wrapper's host work (checks, allocation,
+    the ctypes call) lies inside the window."""
     import torch
 
     for _ in range(warmup):
@@ -97,6 +107,50 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
+    """Device time of one call of fn() in milliseconds: `reps` calls
+    enqueued back to back behind a spin kernel (torch.cuda._sleep) that
+    keeps the device busy while the host enqueues them, CUDA events around
+    the reps calls only; the median over `rounds` of elapsed / reps. A
+    round whose enqueue outlasted the spin is dropped and the spin
+    doubled, so no host time lands in the window."""
+    import torch
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s0, s1 = ev(), ev()
+    s0.record()
+    torch.cuda._sleep(1_000_000)
+    s1.record()
+    s1.synchronize()
+    cycles_per_ms = 1e6 / s0.elapsed_time(s1)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(8 * rounds):
+        a, b = ev(), ev()
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        b.synchronize()
+        if enqueue_ms > 0.8 * spin_ms:
+            spin_ms *= 2
+            continue
+        times.append(a.elapsed_time(b) / reps)
+        if len(times) == rounds:
+            return statistics.median(times)
+    fail("device_ms: the host never got ahead of the device")
 
 
 def bound(nbytes: float, flops: float):
@@ -147,6 +201,20 @@ def pose_graph(n, n_loops, span, seed):
     return idx, 0.5 + rng.rand(len(idx)), n
 
 
+def wide_graph(n, n_loops, span, seed, dup=0):
+    """Odometry chain plus loop closures spanning up to `span` nodes, the
+    first `dup` of them repeated (duplicate edges share a slot row)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+    lo = rng.randint(0, n - 2, n_loops)
+    loops = np.stack([lo, np.minimum(n - 1, lo + 2 + rng.randint(0, span,
+                                                                  n_loops))], 1)
+    idx = np.concatenate([chain, loops, loops[:dup]]).astype(np.int64)
+    return idx, 0.5 + rng.rand(len(idx)), n
+
+
 def synthetic(n, seed=0, local=False):
     """Odometry chain plus random loop closures (scripts/bench_scale.py's
     generator, kept here so the script stands alone). local=False: spans
@@ -169,6 +237,81 @@ def synthetic(n, seed=0, local=False):
     keep = hi <= n - 1  # rejected, not clamped
     cand_idx = np.stack([lo[keep], hi[keep]], 1)[:m_loops].astype(np.int32)
     return fixed_idx, w_fixed, cand_idx, 0.5 + rng.rand(len(cand_idx))
+
+
+def city10000_inputs(dev):
+    """city10000 at K = 50% of its loop closures, x_init from NaiveGreedy:
+    (path of the g2o file, n, fixed, cands, K, x_init, banded tables on
+    dev, edge weights w at x_init, the chain factor's dp and l in float32,
+    a (n, 4) right-hand side from seed 0)."""
+    import numpy as np
+    import torch
+
+    import mac_tpu_torch
+    from mac_tpu_torch.ops import banded
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import NaiveGreedy
+
+    repo = Path(mac_tpu_torch.__file__).resolve().parent.parent
+    dataset = repo / "data" / "city10000.g2o"
+    meas, n = read_g2o_file(str(dataset))
+    fixed, cands = split_edges(rpm_to_mac(meas))
+    k = len(cands) // 2
+    x_init = NaiveGreedy(cands).subset(k)
+    idx = np.array([[e.i, e.j] for e in fixed + cands])
+    w_all = np.concatenate([[e.weight for e in fixed],
+                            x_init * np.array([e.weight for e in cands])])
+    bop = banded.build_banded_rcm(idx, n)[0].to(dev)
+    w = torch.as_tensor(w_all, dtype=torch.float32, device=dev)
+    fac = banded.chain_factor(bop, banded.assemble_bd(bop, w), w)
+    B = torch.randn((n, 4), generator=torch.Generator().manual_seed(0)).to(dev)
+    return (dataset, n, fixed, cands, k, x_init, bop, w,
+            fac.dp.float().contiguous(), fac.l.float().contiguous(), B)
+
+
+def k2_args(bop, w):
+    """assemble_ut's arguments for the banded tables bop at edge weights w
+    (as ops.banded.assemble_bd gathers them)."""
+    import torch
+
+    w_pad = torch.cat([-w, w.new_zeros(1)])
+    dd = bop.du_dense
+    return (bop.dcol_tbl[:dd].contiguous(),
+            w_pad[bop.ueid_tbl[:dd]].contiguous(), bop.ocol_tbl,
+            bop.olane_tbl, w_pad[bop.oeid_tbl].contiguous(), bop.half, bop.nb)
+
+
+def index_add_assembly(args):
+    """The library yardstick of assemble_ut: a callable that computes the
+    same ut as one index_add_ of the slot weights into a zeroed ut, at flat
+    positions computed once here from the slot tables."""
+    import torch
+
+    from mac_tpu_torch.ops.banded import BS
+
+    dcol, wu, ocol, olane, ow, half, nb = args
+    dev = wu.device
+
+    def flat_pos(col, lane_global):
+        t = col // BS - 1
+        b, r = lane_global // BS, lane_global % BS
+        ok = (col >= BS) & (col < BS * (half + 2))
+        return (((t * nb + b) * BS + col % BS) * BS + r)[ok], ok
+
+    p1, ok1 = flat_pos(dcol.long(),
+                       torch.arange(nb * BS, device=dev).expand_as(dcol))
+    p2, ok2 = flat_pos(ocol.long(), olane.long() + BS * torch.arange(
+        nb, device=dev)[None, :])
+    pos = torch.cat([p1, p2])
+    vals = torch.cat([wu[ok1], ow[ok2]])
+    shape = (half + 1, nb, BS, BS)
+
+    def library():
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return out.view(-1).index_add_(0, pos, vals).view(shape)
+
+    return library
 
 
 def main():
@@ -223,26 +366,12 @@ def main():
 
     # ---- 3. kernels against their plain versions on the card
     phase("3 K1, K2 against their plain versions")
-    repo = Path(mac_tpu_torch.__file__).resolve().parent.parent
-    dataset = repo / "data" / "city10000.g2o"
-    meas, n = read_g2o_file(str(dataset))
-    fixed, cands = split_edges(rpm_to_mac(meas))
-    k = len(cands) // 2
-    x_init = NaiveGreedy(cands).subset(k)
-    idx = np.array([[e.i, e.j] for e in fixed + cands])
-    w_all = np.concatenate([[e.weight for e in fixed],
-                            x_init * np.array([e.weight for e in cands])])
-    bop, _ = banded.build_banded_rcm(idx, n)
-    bop = bop.to(dev)
+    (dataset, n, fixed, cands, k, _, bop, w, dp32, l32,
+     B) = city10000_inputs(dev)
     print(f"city10000: n {n}, {len(fixed)} fixed, {len(cands)} candidates, "
           f"K {k}; nb {bop.nb} half {bop.half} du {bop.ueid_tbl.shape[0]} "
           f"du_dense {bop.du_dense} ov_rows {bop.ov_rows} coarse "
           f"{bop.coarse_nc} x {bop.coarse_s}", flush=True)
-    w = torch.as_tensor(w_all, dtype=torch.float32, device=dev)
-    BD = banded.assemble_bd(bop, w)
-    fac = banded.chain_factor(bop, BD, w)
-    gen = torch.Generator().manual_seed(0)
-    B = torch.randn((n, 4), generator=gen).to(dev)
 
     def k1_check(dp, l, B, label):
         got = tridiag_solve(dp, l, B)
@@ -259,7 +388,6 @@ def main():
                  f"{label}")
         return err
 
-    dp32, l32 = fac.dp.float().contiguous(), fac.l.float().contiguous()
     k1_err = k1_check(dp32, l32, B, "city10000 chain factor (n 10000, q 4)")
     rng = np.random.RandomState(1)
     n_ex = 4000
@@ -271,87 +399,92 @@ def main():
                            device=dev)
     k1_err = max(k1_err, k1_check(f_ex.dp, f_ex.l, B_ex,
                                   "exact factor (n 4000, q 4)"))
-    k1_ms = cuda_ms(lambda: tridiag_solve(dp32, l32, B))
-    k1_plain_ms = cuda_ms(lambda: tridiag_solve_plain(dp32, l32, B))
+    # An exact factor too large for the cluster's shared memory (the kernel's
+    # tiled two-pass branch) and wider than one pass of columns.
+    n_big = 33000
+    e = -(0.5 + rng.rand(n_big - 1))
+    d = (0.1 + rng.rand(n_big) - np.concatenate([[0], e])
+         - np.concatenate([e, [0]]))
+    f_big = tridiag_ldl(torch.as_tensor(d, dtype=torch.float32, device=dev),
+                        torch.as_tensor(e, dtype=torch.float32, device=dev))
+    B_big = torch.as_tensor(rng.normal(size=(n_big, 40)), dtype=torch.float32,
+                            device=dev)
+    k1_err = max(k1_err, k1_check(f_big.dp, f_big.l, B_big,
+                                  "exact factor (n 33000, q 40)"))
+    # Wider than one launch's 128 columns: two launches, each on a column
+    # group of B and X at row stride 200.
+    B_wide = torch.as_tensor(rng.normal(size=(5000, 200)), dtype=torch.float32,
+                             device=dev)
+    k1_err = max(k1_err, k1_check(f_big.dp[:5000].contiguous(),
+                                  f_big.l[:5000].contiguous(), B_wide,
+                                  "exact factor (n 5000, q 200)"))
+    k1_dev = device_ms(lambda: tridiag_solve(dp32, l32, B))
+    k1_call = call_ms(lambda: tridiag_solve(dp32, l32, B))
+    k1_plain_ms = call_ms(lambda: tridiag_solve_plain(dp32, l32, B))
     k1_bound, k1_by = tridiag_bound(n, 4)
-    print(f"K1 time at (10000, 4): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms, bound {k1_bound:.5f} ms ({k1_by}) ({card})",
-          flush=True)
-
-    def k2_args(bop, w):
-        w_pad = torch.cat([-w, w.new_zeros(1)])
-        dd = bop.du_dense
-        return (bop.dcol_tbl[:dd].contiguous(),
-                w_pad[bop.ueid_tbl[:dd]].contiguous(), bop.ocol_tbl,
-                bop.olane_tbl, w_pad[bop.oeid_tbl].contiguous(), bop.half,
-                bop.nb)
+    print(f"K1 time at (10000, 4): kernel device {k1_dev:.5f} ms, call "
+          f"{k1_call:.4f} ms, plain call {k1_plain_ms:.4f} ms, bound "
+          f"{k1_bound:.5f} ms ({k1_by}) ({card})", flush=True)
 
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
     bop_s, _ = banded.build_banded_rcm(idx_s, n_s)
     bop_s = bop_s.to(dev)
     if bop_s.ov_rows != 0:
         fail("the no-split assembly case picked a split")
-    k2_err = 0.0
-    for label, b_, w_ in (
-            ("city10000 (split: du_dense 5, ov 5)", bop, w),
-            ("n 700 graph without a split", bop_s,
-             torch.as_tensor(w_s, dtype=torch.float32, device=dev))):
+    # A wide band (half 4, split) whose slot rows hold duplicate edges.
+    idx_w, w_w, n_w = wide_graph(2000, 3000, 450, 5, dup=200)
+    bop_w = banded.build_banded(idx_w, n_w).to(dev)
+    if bop_w.half < 3:
+        fail(f"the wide assembly case has half {bop_w.half}, want >= 3")
+    k2_err = {}
+    for key, label, b_, w_ in (
+            ("K2b", "city10000 (split: du_dense 5, ov 5)", bop, w),
+            ("K2", "n 700 graph without a split", bop_s,
+             torch.as_tensor(w_s, dtype=torch.float32, device=dev)),
+            ("K2w", f"n 2000 graph, half {bop_w.half}, du_dense "
+             f"{bop_w.du_dense}, ov {bop_w.ov_rows}, duplicate edges", bop_w,
+             torch.as_tensor(w_w, dtype=torch.float32, device=dev))):
         args = k2_args(b_, w_)
         got = assemble_ut(*args)
         ref = assemble_ut_plain(*args)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        k2_err = max(k2_err, err)
+        k2_err[key] = err
         same = torch.equal(got, ref)
         print(f"K2 assemble_ut {label}: shape {tuple(got.shape)}, max|kernel "
               f"- plain| {err:.3e} -> {'bitwise equal' if same else 'MISMATCH'}",
               flush=True)
         if not same:
             fail(f"assemble_ut kernel differs from its plain version on {label}")
+
     def k2_times(args, label):
-        """Kernel, plain and library times and the bound of one assembly.
-        The library yardstick is the same scatter as one index_add_ into a
-        zeroed ut, at flat positions computed once from the slot tables."""
+        """Kernel, plain and library times and the bound of one assembly."""
         dcol_, wu_, ocol_, olane_, ow_, half_, nb_ = args
         BS = banded.BS
-
-        def flat_pos(col, lane_global):
-            t = col // BS - 1
-            b, r = lane_global // BS, lane_global % BS
-            ok = (col >= BS) & (col < BS * (half_ + 2))
-            return (((t * nb_ + b) * BS + col % BS) * BS + r)[ok], ok
-
-        p1, ok1 = flat_pos(dcol_.long(),
-                           torch.arange(nb_ * BS, device=dev).expand_as(dcol_))
-        p2, ok2 = flat_pos(ocol_.long(), olane_.long() + BS * torch.arange(
-            nb_, device=dev)[None, :])
-        pos = torch.cat([p1, p2])
-        vals = torch.cat([wu_[ok1], ow_[ok2]])
-        ut_shape = (half_ + 1, nb_, BS, BS)
-
-        def library():
-            out = torch.zeros(ut_shape, dtype=torch.float32, device=dev)
-            return out.view(-1).index_add_(0, pos, vals).view(ut_shape)
-
+        library = index_add_assembly(args)
         lib_err = float((library() - assemble_ut_plain(*args)).abs().max())
-        ms = cuda_ms(lambda: assemble_ut(*args))
-        plain_ms = cuda_ms(lambda: assemble_ut_plain(*args))
-        library_ms = cuda_ms(library)
+        tm = {"device_ms": device_ms(lambda: assemble_ut(*args)),
+              "call_ms": call_ms(lambda: assemble_ut(*args)),
+              "plain_ms": call_ms(lambda: assemble_ut_plain(*args)),
+              "library_ms": device_ms(library),
+              "library_call_ms": call_ms(library)}
         nbytes = sum(t.numel() * t.element_size()
                      for t in (dcol_, wu_, ocol_, olane_, ow_)) \
             + 4.0 * (half_ + 1) * nb_ * BS * BS
-        bound_ms, by = bound(nbytes, wu_.numel() + ow_.numel())
-        print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_add_ {library_ms:.4f} ms (max |index_add_ - plain| "
-              f"{lib_err:.2e}), bound {bound_ms:.5f} ms ({by}) ({card})",
-              flush=True)
-        return ms, plain_ms, library_ms, bound_ms, by
+        tm["bound_ms"], tm["bound_by"] = bound(nbytes,
+                                               wu_.numel() + ow_.numel())
+        print(f"{label}: kernel device {tm['device_ms']:.5f} ms, call "
+              f"{tm['call_ms']:.4f} ms, plain call {tm['plain_ms']:.4f} ms, "
+              f"index_add_ device {tm['library_ms']:.5f} ms, call "
+              f"{tm['library_call_ms']:.4f} ms (max |index_add_ - plain| "
+              f"{lib_err:.2e}), bound {tm['bound_ms']:.5f} ms "
+              f"({tm['bound_by']}) ({card})", flush=True)
+        return tm
 
-    k2_times(k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
-                                            device=dev)),
-             "K2 time without a split (n 700)")
-    k2_ms, k2_plain_ms, k2_library_ms, k2_bound, k2_by = k2_times(
-        k2_args(bop, w), "K2b time at city10000")
+    k2_tm = k2_times(k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
+                                                    device=dev)),
+                     "K2 time without a split (n 700)")
+    k2b_tm = k2_times(k2_args(bop, w), "K2b time at city10000")
 
     # ---- 3c. K1b against its plain version on the card
     phase("3c K1b against its plain version")
@@ -408,12 +541,13 @@ def main():
         fail("the exact factor has zero couplings at the 1024 boundaries")
     k1b_check(f_exact, 4, "exact factor, couplings forced to 0 at the 1024 "
               "boundaries (n 40000, q 4)", 4)
-    k1b_ms = cuda_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
-    k1b_plain_ms = cuda_ms(lambda: tridiag_solve_blocked_plain(dp5, l5, B5))
+    k1b_dev = device_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
+    k1b_call = call_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
+    k1b_plain_ms = call_ms(lambda: tridiag_solve_blocked_plain(dp5, l5, B5))
     k1b_bound, k1b_by = tridiag_bound(SCALE_N, 4)
-    print(f"K1b time at ({SCALE_N}, 4): kernel {k1b_ms:.4f} ms, plain "
-          f"{k1b_plain_ms:.4f} ms, bound {k1b_bound:.5f} ms ({k1b_by}) "
-          f"({card})", flush=True)
+    print(f"K1b time at ({SCALE_N}, 4): kernel device {k1b_dev:.5f} ms, call "
+          f"{k1b_call:.4f} ms, plain call {k1b_plain_ms:.4f} ms, bound "
+          f"{k1b_bound:.5f} ms ({k1b_by}) ({card})", flush=True)
     # The ELL product of phase 5, against the same product gathering whole
     # (n, q) rows (V[nbr]), which PyTorch runs one thread block per row.
     apply5 = laplacian.lap_applier(op5, w5)
@@ -428,8 +562,8 @@ def main():
                           atol=1e-5 * float(rows_out.abs().max())):
         fail(f"the ELL product disagrees with its row-gather form: {ell_err}")
     print(f"ELL product at ({SCALE_N}, width {op5.nbr_tbl.shape[1]}, q 4): "
-          f"port {cuda_ms(lambda: apply5(B5)):.4f} ms, row-gather form "
-          f"{cuda_ms(lambda: rows_apply(B5)):.4f} ms (max |diff| "
+          f"port {call_ms(lambda: apply5(B5)):.4f} ms, row-gather form "
+          f"{call_ms(lambda: rows_apply(B5)):.4f} ms (max |diff| "
           f"{ell_err:.2e}) ({card})", flush=True)
     ldl_s = []
     for _ in range(3):
@@ -550,24 +684,42 @@ def main():
         fail(f"upper bound {upper5} below the relaxed lambda_2 {lam5}")
     phase.end()
 
+    # "ms" and "device_ms": device time (device_ms); "call_ms": one call
+    # with its host work (call_ms); "plain_ms": one call of the plain
+    # version; "library_ms": the yardstick's device time. K2 and K2b are
+    # one kernel (one wrapper, one count), timed at the two table forms;
+    # city10000 runs only the overflow form, so its launches stand under
+    # K2b and the no-split form's under K2 are 0.
+    def k2_entry(key, replaces, shape, tm, count):
+        return {"name": "assemble_ut", "route": "cuda",
+                "source": "mac_tpu_torch/csrc/assemble.cu",
+                "replaces": replaces, "shape": shape, "launches": count,
+                "max_abs_err": k2_err[key], "ms": tm["device_ms"],
+                "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+                "library_call_ms": tm["library_call_ms"]}
+
     kernels = [
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
-         "launches": launches["tridiag_solve"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "shape": "(10000, 4)", "launches": launches["tridiag_solve"],
+         "max_abs_err": k1_err, "ms": k1_dev, "device_ms": k1_dev,
+         "call_ms": k1_call, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
-        {"name": "assemble_ut", "route": "cuda",
-         "source": "mac_tpu_torch/csrc/assemble.cu",
-         "replaces": "mac_tpu/ops/pallas/assemble_kernel.py:61",
-         "launches": launches["assemble_ut"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_library_ms},
+        k2_entry("K2b", "mac_tpu/ops/pallas/assemble_kernel.py:61",
+                 "city10000 tables (du_dense 5, ov 5)", k2b_tm,
+                 launches["assemble_ut"]),
+        k2_entry("K2", "mac_tpu/ops/pallas/assemble_kernel.py:49",
+                 "n 700, no split", k2_tm, 0),
         {"name": "tridiag_solve_blocked", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:107",
+         "shape": f"({SCALE_N}, 4)",
          "launches": launches5["tridiag_solve_blocked"],
-         "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain_ms,
+         "max_abs_err": k1b_err, "ms": k1b_dev, "device_ms": k1b_dev,
+         "call_ms": k1b_call, "plain_ms": k1b_plain_ms,
          "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None},
     ]
     print(card, flush=True)

@@ -15,72 +15,136 @@
 // never writes them. Overflow entry o of block b adds ow[o][b] at column
 // ocol[o][b] of lane olane[o][b]; padding entries carry weight 0.
 //
-// One thread block per node block b, one thread per lane r. Element
-// (c, r) of every tile is written by thread r alone, in slot order (dense
-// slots, then the block's overflow entries in table order), so duplicate
-// edges sum without atomics and in the same order as the reference's
-// sheared accumulation: the result is bitwise equal to it.
+// What bounds it on the H100: device-memory writes. ut is
+// (half + 1) * nb * 128 * 128 floats (city10000: 3 * 79 tiles of 64 KB,
+// 15.5 MB, 4.8 us at 3.35 TB/s) against ~0.2 MB of slot tables read.
 //
-// What bounds it on the H100: device-memory writes. It zeroes and writes
-// (half + 1) * nb * 128 * 128 floats (city10000: 3 * 79 * 16384 * 4 B =
-// 15.5 MB, coalesced across the 128 lanes), against ~40 KB of tables read.
-// The slot adds are scattered single-float read-modify-writes, du of them
-// per thread.
+// The design: one thread block per output tile (t, b), 237 blocks on
+// city10000, so every SM has work. The block builds its 64 KB tile in
+// dynamic shared memory: it zeroes the tile, then thread r adds the slots
+// of lane r that land in tile t -- the dense slots first, then the block's
+// overflow entries in table order. Element (c, r) has one owner who sums in
+// slot order, as the reference's sheared accumulation does, so the result
+// is bitwise equal to it without atomics; the shared index c * 128 + r is
+// free of bank conflicts across a warp. ut[t][b] is one contiguous 64 KB
+// run, so the tile leaves in one TMA bulk store (cp.async.bulk from shared
+// to global memory): ut is written once, with no zero pass in device memory
+// and no read-modify-write. Every table load of a block is issued before
+// the tile is zeroed (eight dense slots a round in registers, the block's
+// overflow entries staged in shared memory), so their latencies overlap.
+// Measured (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W): 0.0080 ms of
+// device time at city10000, against 0.0084 ms for the same scatter as one
+// index_add_ into a zeroed ut and 0.0099 ms for the first port of this
+// kernel (one block per node block b, 79 blocks of 128 threads, ut zeroed
+// and then updated in device memory); the bound is 0.0048 ms.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kBS = 128;
+constexpr int kTileBytes = kBS * kBS * sizeof(float);  // 64 KB
+constexpr int kChunk = 8;  // dense slots whose loads are in flight together
 
 __global__ void __launch_bounds__(kBS)
 assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
                    int du, const int* __restrict__ ocol,
                    const int* __restrict__ olane, const float* __restrict__ ow,
-                   int ov, float* __restrict__ ut, int half, int nb) {
+                   int ov, float* __restrict__ ut, int nb) {
+  extern __shared__ __align__(128) float tile[];  // tile[c * 128 + r]
+  __shared__ int s_lane[kBS], s_col[kBS];         // one round of overflow
+  __shared__ float s_w[kBS];
   const int b = blockIdx.x;
+  const int t = blockIdx.y;
   const int r = threadIdx.x;
+  // Columns of tile t: [128 (t + 1), 128 (t + 2)); col below is relative.
+  const int lo = kBS * (t + 1);
   const size_t n_pad = (size_t)nb * kBS;
-  const size_t tile = (size_t)kBS * kBS;
-  const size_t tstride = (size_t)nb * tile;
-  float* base = ut + (size_t)b * tile + r;  // ut[0][b][0][r]
-
-  for (int t = 0; t <= half; ++t)
-    for (int c = 0; c < kBS; ++c) base[t * tstride + (size_t)c * kBS] = 0.0f;
-
-  const int lo = kBS;
-  const int hi = kBS * (half + 2);
   const size_t node = (size_t)b * kBS + r;
-  for (int k = 0; k < du; ++k) {
-    const int col = dcol[k * n_pad + node];
-    if (col < lo || col >= hi) continue;
-    const int t = col / kBS - 1;
-    const int c = col % kBS;
-    base[t * tstride + (size_t)c * kBS] += wu[k * n_pad + node];
+
+  // Loads first, so that their latency overlaps the zeroing: a round of
+  // kChunk dense slots of lane r, and the block's first kBS overflow entries.
+  int col[kChunk];
+  float val[kChunk];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int k = k0 + u;
+      col[u] = k < du ? dcol[k * n_pad + node] - lo : -1;
+      val[u] = k < du ? wu[k * n_pad + node] : 0.0f;
+    }
+  };
+  auto stage = [&](int o0) {
+    if (o0 + r < ov) {
+      const size_t e = (size_t)(o0 + r) * nb + b;
+      s_lane[r] = olane[e];
+      s_col[r] = ocol[e] - lo;
+      s_w[r] = ow[e];
+    }
+  };
+  fetch(0);
+  stage(0);
+  float4* tile4 = reinterpret_cast<float4*>(tile);
+  for (int i = r; i < kBS * kBS / 4; i += kBS)
+    tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+
+  for (int k0 = 0; k0 < du; k0 += kChunk) {
+    if (k0 > 0) fetch(k0);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if ((unsigned)col[u] < (unsigned)kBS) tile[col[u] * kBS + r] += val[u];
   }
-  for (int o = 0; o < ov; ++o) {
-    const size_t e = (size_t)o * nb + b;
-    if (olane[e] != r) continue;
-    const int col = ocol[e];
-    if (col < lo || col >= hi) continue;
-    const int t = col / kBS - 1;
-    const int c = col % kBS;
-    base[t * tstride + (size_t)c * kBS] += ow[e];
+  for (int o0 = 0; o0 < ov; o0 += kBS) {
+    if (o0 > 0) {
+      __syncthreads();  // the last round is read
+      stage(o0);
+      __syncthreads();
+    }
+    const int m = min(kBS, ov - o0);
+    for (int o = 0; o < m; ++o)
+      if (s_lane[o] == r && (unsigned)s_col[o] < (unsigned)kBS)
+        tile[s_col[o] * kBS + r] += s_w[o];
+  }
+
+  // Make the generic-proxy writes to shared memory visible to the bulk
+  // copy (async proxy), then one thread stores the whole tile.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (r == 0) {
+    float* dst = ut + ((size_t)t * nb + b) * kBS * kBS;
+    const uint32_t src = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(dst), "r"(src), "r"(kTileBytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    // The block's shared memory must outlive the copy's reads of it.
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
 }  // namespace
 
 // dcol: (du, nb*128) int32; wu: (du, nb*128) float32; ocol, olane: (ov, nb)
-// int32; ow: (ov, nb) float32; ut: (half+1, nb, 128, 128) float32. All
-// row-major and contiguous; the overflow pointers are unused when ov = 0.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// int32; ow: (ov, nb) float32; ut: (half+1, nb, 128, 128) float32, 16-byte
+// aligned. All row-major and contiguous; the overflow pointers are unused
+// when ov = 0. Launches on `stream` and returns the first CUDA error of the
+// shared-memory attribute or the launch (0 on success).
 extern "C" int assemble_ut_f32(const int* dcol, const float* wu, int du,
                                const int* ocol, const int* olane,
                                const float* ow, int ov, float* ut, int half,
                                int nb, void* stream) {
-  if (nb <= 0) return 0;
-  assemble_ut_kernel<<<nb, kBS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dcol, wu, du, ocol, olane, ow, ov, ut, half, nb);
+  if (nb <= 0 || half < 0) return 0;
+  if (reinterpret_cast<uintptr_t>(ut) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      assemble_ut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTileBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(nb, half + 1);
+  assemble_ut_kernel<<<grid, kBS, kTileBytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      dcol, wu, du, ocol, olane, ow, ov, ut, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,13 +71,15 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, signatures) -> ctypes.CDLL:
+def load(name: str, signatures, path=None) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; `signatures` maps each
     exported C function to its ctypes argtypes (every function returns the
-    int cudaError_t of its launch)."""
-    lib = _loaded.get(name)
+    int cudaError_t of its launch). With `path`, load that library instead
+    (another build exporting the same functions, as kernel_ab.py's A/B
+    does) and make it the one the wrappers call from then on."""
+    lib = None if path is not None else _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name) if path is None else path))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -51,12 +51,27 @@ def _chain(n, seed, dev):
             torch.as_tensor(e, dtype=torch.float32, device=dev), rng)
 
 
+# Where K1's cluster splits the rows raggedly (fewer rows than blocks, than
+# the blocks' first warps, spans not a multiple of 4) at one to 40 columns
+# (past 8, columns run in passes), exact factors too large for the
+# cluster's shared memory (the tiled two-pass branch), and blocks wider
+# than one launch's 128 columns (launches on column groups at row stride q;
+# (5000, 200) also tiles).
+_K1_EDGES = [(n, q, False) for n in (1, 2, 3, 31, 100, 255, 257, 1001, 10001)
+             for q in (1, 3, 4, 5, 40) if (n, q) != (1, 1)]
+_K1_TILED = [(33000, 40, False), (100000, 4, False)]
+_K1_WIDE = [(1001, 130, False), (5000, 200, False)]
+
+
 @pytest.mark.parametrize("n,q,blocked", [
     (1, 1, False), (5, 3, False), (777, 4, False), (4000, 4, False),
-    (10000, 4, True), (32768, 32, True), (1500, 17, True)])
+    (10000, 4, True), (32768, 32, True), (1500, 17, True)]
+    + _K1_EDGES + _K1_TILED + _K1_WIDE)
 def test_tridiag_kernel_matches_plain(dev, n, q, blocked):
     """K1 against its plain version at rtol/atol 2e-4, for ragged n, one to
-    32 right-hand sides, exact and segment-decoupled factors."""
+    200 right-hand sides, exact and segment-decoupled factors, at the edges
+    of the cluster's row split, on its tiled branch and past one launch's
+    columns."""
     d, e, rng = _chain(max(n, 2), n, dev)
     d, e = d[:n], e[:n - 1]
     f = (tridiag_ldl_blocked(d, e, block=128) if blocked
@@ -136,6 +151,27 @@ def test_assemble_kernel_bitwise_equals_plain(dev, graph):
     args = (bop.dcol_tbl[:dd].contiguous(), w_pad[bop.ueid_tbl[:dd]],
             bop.ocol_tbl, bop.olane_tbl, w_pad[bop.oeid_tbl], bop.half,
             bop.nb)
+    got = assemble_ut(*args)
+    ref = assemble_ut_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("graph,half_min,split", [
+    ((2000, 600, 450, 5, 0), 3, False), ((2000, 3000, 450, 5, 200), 3, True),
+    ((1500, 300, 25, 3, 300), 1, True), ((1500, 1200, 25, 3, 300), 1, True)])
+def test_assemble_kernel_bitwise_on_wide_bands_and_duplicates(dev, graph,
+                                                             half_min, split):
+    """K2/K2b against its plain version, bitwise: bands of half 4 with and
+    without the overflow split, and slot rows holding duplicate edges
+    (dense and overflow), which must sum in slot order."""
+    from chip_smoke import k2_args, wide_graph
+
+    n_, n_loops, span, seed, dup = graph
+    idx, w, n = wide_graph(n_, n_loops, span, seed, dup=dup)
+    bop = banded.build_banded(idx, n).to(dev)
+    assert bop.half >= half_min and (bop.ov_rows > 0) == split
+    args = k2_args(bop, torch.as_tensor(w, dtype=torch.float32, device=dev))
     got = assemble_ut(*args)
     ref = assemble_ut_plain(*args)
     torch.cuda.synchronize()
