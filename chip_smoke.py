@@ -29,8 +29,12 @@ its wall time printed:
      (q = 4), on blocked factors at n = 40000 (q = 8 and 32, ragged), on a
      factor decoupled every 128 rows, and on an exact factor whose
      couplings at the 1024-row boundaries are non-zero (the kernel and its
-     plain version both force them to 0); timed at (100000, 4), beside the
-     blocked LDL^T factorisation of that chain;
+     plain version both force them to 0); then the kernel's other
+     branches: q = 1, 3, 5 (scalar loads), q = 40 and 130 (many column
+     groups), segments of 128 and 256 rows passed explicitly, n = 1 and
+     n = 1025 (a last segment of one row), and a right-hand side 4 bytes
+     off a 16-byte boundary; timed at (100000, 4), beside the blocked
+     LDL^T factorisation of that chain;
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K1 and K2 must have launched; the relaxed lambda_2
@@ -502,13 +506,19 @@ def main():
         fail(f"the n = {SCALE_N} chain factor has seg {f5.seg}, want 1024")
     k1b_err = 0.0
 
-    def k1b_check(f, q, label, seed):
+    def k1b_check(f, q, label, seed, block=1024, misaligned=False):
         nonlocal k1b_err
         dp, l = f.dp.float().contiguous(), f.l.float().contiguous()
         Bq = torch.randn((dp.shape[0], q),
                          generator=torch.Generator().manual_seed(seed)).to(dev)
-        got = tridiag_solve_blocked(dp, l, Bq)
-        ref = tridiag_solve_blocked_plain(dp, l, Bq)
+        if misaligned:  # the same block, 4 bytes off a 16-byte boundary
+            flat = torch.empty(Bq.numel() + 1, dtype=Bq.dtype, device=dev)
+            flat[1:] = Bq.reshape(-1)
+            Bq = flat[1:].view(Bq.shape)
+            if Bq.data_ptr() % 16 == 0 or not Bq.is_contiguous():
+                fail("the misaligned right-hand side is aligned")
+        got = tridiag_solve_blocked(dp, l, Bq, block=block)
+        ref = tridiag_solve_blocked_plain(dp, l, Bq, block=block)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         k1b_err = max(k1b_err, err)
@@ -541,6 +551,22 @@ def main():
         fail("the exact factor has zero couplings at the 1024 boundaries")
     k1b_check(f_exact, 4, "exact factor, couplings forced to 0 at the 1024 "
               "boundaries (n 40000, q 4)", 4)
+    # The kernel's other branches: scalar loads (q % 4 != 0, or a block off
+    # a 16-byte boundary), several column groups (q 40, 130), segment
+    # lengths passed explicitly, ragged and single-row last segments.
+    for q_ in (1, 3, 5, 40, 130):
+        k1b_check(f_blk, q_, f"blocked factor (n 40000, q {q_}, seg 1024)",
+                  5 + q_)
+    k1b_check(tridiag_ldl_blocked(d_b, e_b, block=128), 4,
+              "seg-128 factor in segments of 128 (n 40000, q 4)", 6, block=128)
+    k1b_check(f_exact, 5, "exact factor in segments of 256 (n 40000, q 5)", 7,
+              block=256)
+    k1b_check(tridiag_ldl_blocked(d_b[:1], e_b[:0], block=1024), 4,
+              "one row (n 1, q 4)", 8)
+    k1b_check(tridiag_ldl_blocked(d_b[:1025], e_b[:1024], block=1024), 4,
+              "a last segment of one row (n 1025, q 4)", 9)
+    k1b_check(f5, 4, f"two-grid chain factor, B 4 bytes off a 16-byte "
+              f"boundary (n {SCALE_N}, q 4)", 10, misaligned=True)
     k1b_dev = device_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
     k1b_call = call_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
     k1b_plain_ms = call_ms(lambda: tridiag_solve_blocked_plain(dp5, l5, B5))

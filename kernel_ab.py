@@ -5,29 +5,48 @@ in one process on one NVIDIA GPU.
     mkdir -p build/ab_old
     git show <commit>:mac_tpu_torch/csrc/tridiag.cu > build/ab_old/tridiag.cu
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
-    python3 kernel_ab.py build/ab_old
+    python3 kernel_ab.py [--kernels-only] build/ab_old [VARIANT_DIR ...]
 
 The older sources must export the same C functions. Both versions are built
 with the package's nvcc flags and loaded by _build.load(name, signatures,
-path), so both run behind the same wrappers, checks and allocations. In
-turns old, new, new, old, at the main paths' shapes (chip_smoke.py's):
+path), so both run behind the same wrappers, checks and allocations: the
+wrappers keep the C functions they resolved (_build.function), and
+_build.load with a path drops those handles, so the next call of a wrapper
+goes to the library loaded last. In turns old, new, new, old, at the main
+paths' shapes (chip_smoke.py's):
   1. K1 tridiag_solve at city10000's chain factor (10000, 4); K2b
      assemble_ut at city10000's tables and K2 at the n = 700 graph, beside
      the same scatter as one index_add_ into a zeroed ut; K1b
-     tridiag_solve_blocked at the n = 100000 two-grid chain factor (q 4):
-     each with its device time (chip_smoke.device_ms), the time of one call
-     with its host work (chip_smoke.call_ms) and its error against the
-     plain version;
-  2. K1's error against a float64 solve of city10000's chain factor, for
-     the old and new kernels and the plain version in float32;
+     tridiag_solve_blocked at the n = 100000 two-grid chain factor (q 4 and
+     q 32) and at (1024, 1), the smallest launch its wrapper can make (the
+     launch floor of this way of timing): each with its device time
+     (chip_smoke.device_ms), the time of one call with its host work
+     (chip_smoke.call_ms) and its error against the plain version. Where
+     the older directory also holds tridiag.py, an older copy of
+     mac_tpu_torch/ops/kernels/tridiag.py, the call times of K1 and K1b
+     through that module's wrappers stand beside the current wrappers', on
+     the new kernels;
+  2. K1's error against a float64 solve of city10000's chain factor, and
+     K1b's against a float64 blocked solve of the n = 100000 chain factor,
+     for the old and new kernels and the plain version in float32;
   3. one warm city10000 solve per turn: wall (unprofiled) and the relaxed
      lambda_2's gap to the reference optimum; then the same solve with K1's
      plain version in the kernel's place on the card, and on the CPU (every
      kernel's plain version): how far the float32 trajectory moves when
-     only the summation order of the chain solve changes;
-  4. one warm solve per version under torch.profiler with CUDA activity
-     alone: the device time of K1 and K2b in that solve and the whole
-     device busy time.
+     only the summation order of the chain solve changes; then the same for
+     the matrix-free path: one warm n = 100000 solve(K, x_init,
+     max_iters=10) per turn with its wall and the gap of evaluate_objective
+     to the reference library's lambda_2, and once with K1b's plain version
+     in the kernel's place on the card;
+  4. one warm solve per version and path under torch.profiler with CUDA
+     activity alone: the device time of K1 and K2b (city10000) and of K1b
+     (n = 100000) in that solve and the whole device busy time.
+Each further VARIANT_DIR holds another tridiag.cu (a step of a design, a
+tuning constant edited, a part of the kernel taken out to see what it
+costs): its K1b is timed after the turns of part 1 and its error printed in
+part 2, and nothing else runs on it; a variant that disagrees with the
+plain version is marked and timed all the same. --kernels-only stops after
+part 2.
 Every timing line names the card and its power limit.
 """
 
@@ -38,40 +57,85 @@ import time
 from pathlib import Path
 from unittest import mock
 
-from chip_smoke import (REFERENCE_LAM2_UNROUNDED, SCALE_N, call_ms, card_line,
-                        city10000_inputs, device_ms, fail,
+from chip_smoke import (REFERENCE_LAM2_SCALE, REFERENCE_LAM2_UNROUNDED, SCALE_N,
+                        call_ms, card_line, city10000_inputs, device_ms, fail,
                         index_add_assembly, k2_args, pose_graph, synthetic)
 
 TURNS = ("old", "new", "new", "old")
 
 
-def build_old(old_dir: Path) -> dict:
-    """nvcc each older source into build/ab/; {name: path of the library}."""
+def build_dir(src_dir: Path, tag: str, names) -> dict:
+    """nvcc the sources `names` of src_dir into build/ab/; {name: path of
+    the library}."""
     from mac_tpu_torch.ops.kernels import _build
 
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for name in ("tridiag", "assemble"):
-        out = out_dir / f"lib{name}-old.so"
+    for name in names:
+        out = out_dir / f"lib{name}-{tag}.so"
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                               str(out), str(old_dir / f"{name}.cu")],
+                               str(out), str(src_dir / f"{name}.cu")],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            fail(f"nvcc failed for the older {name}.cu:\n{proc.stderr}")
-        print(f"old {name}.cu: " + " | ".join(
+            fail(f"nvcc failed for {src_dir / name}.cu:\n{proc.stderr}")
+        print(f"{tag} {name}.cu: " + " | ".join(
             ln.strip() for ln in proc.stderr.splitlines()
-            if "registers" in ln or "smem" in ln), flush=True)
+            if "registers" in ln or "smem" in ln or "spill" in ln),
+            flush=True)
         libs[name] = out
     return libs
 
 
+def enqueue_us(fn, reps: int = 2000) -> float:
+    """Host microseconds to enqueue one call of fn(): `reps` calls back to
+    back on the host clock with no synchronisation between them (the
+    device, faster than the host here, never fills its queue)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def device_profile(run, keys):
+    """run() under torch.profiler with CUDA activity alone: its return
+    value and {key: [device microseconds, events]} for each kernel-name
+    test in keys (name -> predicate) and for "busy", every device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+    sums = {key: [0.0, 0] for key in (*keys, "busy")}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        for key in sums:
+            if key == "busy" or keys[key](e.name):
+                sums[key][0] += us
+                sums[key][1] += 1
+    return out, sums
+
+
 def main():
+    import importlib.util
+
     import numpy as np
     import torch
 
-    if len(sys.argv) != 2:
-        fail("usage: python3 kernel_ab.py OLD_CSRC_DIR")
+    argv = [a for a in sys.argv[1:] if a != "--kernels-only"]
+    kernels_only = len(argv) < len(sys.argv) - 1
+    if not argv:
+        fail("usage: python3 kernel_ab.py [--kernels-only] OLD_CSRC_DIR "
+             "[VARIANT_DIR ...]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     card = card_line()
@@ -87,13 +151,17 @@ def main():
     from mac_tpu_torch.solvers import MAC
     from mac_tpu_torch.utils.fiedler import scipy_lam2
 
+    old_dir = Path(argv[0])
     sigs = {"tridiag": tridiag._SIGNATURES, "assemble": assemble._SIGNATURES}
-    libs = {"old": build_old(Path(sys.argv[1])),
+    libs = {"old": build_dir(old_dir, "old", sigs),
             "new": {name: _build.build(name) for name in sigs}}
     for src, secs, log in _build.build_log:
         print(f"new {src}.cu: " + " | ".join(
             ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "smem" in ln), flush=True)
+            if "registers" in ln or "smem" in ln or "spill" in ln), flush=True)
+    variants = [f"variant {Path(d).name}" for d in argv[1:]]
+    for tag, d in zip(variants, argv[1:]):
+        libs[tag] = build_dir(Path(d), tag.replace(" ", "-"), ("tridiag",))
 
     def use(version):
         for name, path in libs[version].items():
@@ -108,8 +176,9 @@ def main():
     args_s = k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
                                             device=dev))
     fi5, wf5, ci5, wc5 = synthetic(SCALE_N, seed=0, local=False)
+    k5 = len(wc5) // 4
     x5 = np.zeros(len(wc5))
-    x5[np.argpartition(wc5, -(len(wc5) // 4))[-(len(wc5) // 4):]] = 1.0
+    x5[np.argpartition(wc5, -k5)[-k5:]] = 1.0
     op5 = laplacian.build_operator(np.concatenate([fi5, ci5]), SCALE_N).to(dev)
     w5 = torch.as_tensor(np.concatenate([wf5, x5 * wc5]), dtype=torch.float32,
                          device=dev)
@@ -117,10 +186,24 @@ def main():
     f5 = tridiag_ldl_auto(d5 + 100 * torch.finfo(torch.float32).eps * d5.max(),
                           e5)
     dp5, l5 = f5.dp.float().contiguous(), f5.l.float().contiguous()
-    B5 = torch.randn((SCALE_N, 4),
-                     generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    B5 = torch.randn((SCALE_N, 4), generator=gen).to(dev)
+    B5w = torch.randn((SCALE_N, 32), generator=gen).to(dev)
 
     # ---- 1. kernel times, in turns
+    k1b_cases = [
+        (f"K1b tridiag_solve_blocked ({SCALE_N}, 4)",
+         lambda: tridiag_solve_blocked(dp5, l5, B5),
+         lambda: tridiag_solve_blocked_plain(dp5, l5, B5), None),
+        (f"K1b tridiag_solve_blocked ({SCALE_N}, 32)",
+         lambda: tridiag_solve_blocked(dp5, l5, B5w),
+         lambda: tridiag_solve_blocked_plain(dp5, l5, B5w), None),
+        ("K1b launch floor (1024, 1)",
+         lambda: tridiag_solve_blocked(dp5[:1024], l5[:1024], B5w[:32].view(
+             1024, 1)),
+         lambda: tridiag_solve_blocked_plain(dp5[:1024], l5[:1024],
+                                             B5w[:32].view(1024, 1)), None),
+    ]
     cases = [
         ("K1 tridiag_solve (10000, 4)", lambda: tridiag_solve(dp1, l1, B1),
          lambda: tridiag_solve_plain(dp1, l1, B1), None),
@@ -128,51 +211,94 @@ def main():
          lambda: assemble_ut_plain(*args_b), index_add_assembly(args_b)),
         ("K2 assemble_ut n 700", lambda: assemble_ut(*args_s),
          lambda: assemble_ut_plain(*args_s), index_add_assembly(args_s)),
-        (f"K1b tridiag_solve_blocked ({SCALE_N}, 4)",
-         lambda: tridiag_solve_blocked(dp5, l5, B5),
-         lambda: tridiag_solve_blocked_plain(dp5, l5, B5), None),
-    ]
+    ] + k1b_cases
     results = {}
+
+    def time_case(version, label, kern, ref):
+        use(version)
+        got = kern()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = (torch.equal(got, ref) if "assemble" in label
+              else torch.allclose(got, ref, rtol=2e-4, atol=2e-4))
+        if not ok and version in TURNS:
+            fail(f"{version} {label} disagrees with its plain version "
+                 f"({err:.3e})")
+        dms, cms = device_ms(kern), call_ms(kern)
+        results.setdefault(label, {}).setdefault(version, []).append(dms)
+        print(f"{version} {label}: device {dms:.5f} ms, call {cms:.4f} "
+              f"ms, max|kernel - plain| {err:.2e}"
+              f"{'' if ok else ' (DISAGREES)'} ({card})", flush=True)
+
     for label, kern, plain, library in cases:
         ref = plain()
         for version in TURNS:
-            use(version)
-            got = kern()
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            ok = (torch.equal(got, ref) if "assemble" in label
-                  else torch.allclose(got, ref, rtol=2e-4, atol=2e-4))
-            if not ok:
-                fail(f"{version} {label} disagrees with its plain version "
-                     f"({err:.3e})")
-            dms, cms = device_ms(kern), call_ms(kern)
-            results.setdefault(label, {}).setdefault(version, []).append(dms)
-            print(f"{version} {label}: device {dms:.5f} ms, call {cms:.4f} "
-                  f"ms, max|kernel - plain| {err:.2e} ({card})", flush=True)
+            time_case(version, label, kern, ref)
         if library is not None:
             print(f"index_add_ yardstick for {label}: device "
                   f"{device_ms(library):.5f} ms, call {call_ms(library):.4f} "
                   f"ms ({card})", flush=True)
+    for label, kern, plain, _ in k1b_cases:
+        ref = plain()
+        for version in variants:
+            time_case(version, label, kern, ref)
     for label, by in results.items():
         old, new = statistics.median(by["old"]), statistics.median(by["new"])
         print(f"summary {label}: device old {old:.5f} ms, new {new:.5f} ms, "
-              f"new/old {new / old:.3f} ({card})", flush=True)
+              f"new/old {new / old:.3f}" + "".join(
+                  f", {v} {by[v][0]:.5f} ms" for v in variants if v in by)
+              + f" ({card})", flush=True)
+    # The wrappers of an older copy of ops/kernels/tridiag.py, on the new
+    # kernels: what the host side of a call costs, before and after.
+    if (old_dir / "tridiag.py").exists():
+        spec = importlib.util.spec_from_file_location(
+            "older_tridiag_wrappers", old_dir / "tridiag.py")
+        older = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(older)
+        use("new")
+        pairs = (
+            ("K1 (10000, 4)", lambda: older.tridiag_solve(dp1, l1, B1),
+             lambda: tridiag_solve(dp1, l1, B1)),
+            (f"K1b ({SCALE_N}, 4)",
+             lambda: older.tridiag_solve_blocked(dp5, l5, B5),
+             lambda: tridiag_solve_blocked(dp5, l5, B5)))
+        for label, old_call, new_call in pairs:
+            if not torch.equal(old_call(), new_call()):
+                fail(f"the older wrapper of {label} returns another result")
+            turns = (old_call, new_call, new_call, old_call)
+            ms = [call_ms(fn) for fn in turns]
+            us = [enqueue_us(fn) for fn in turns]
+            print(f"wrapper of {label} on the new kernel, in turns older, "
+                  f"current, current, older: call_ms "
+                  + ", ".join(f"{t:.4f}" for t in ms) + " ms; host time to "
+                  "enqueue one call " + ", ".join(f"{t:.2f}" for t in us)
+                  + f" us ({card})", flush=True)
 
-    # ---- 2. K1's error against float64 on city10000's chain factor
-    X64 = tridiag_solve_plain(dp1.double(), l1.double(), B1.double())
-    scale = float(X64.abs().max())
-    for label, version in (("old K1", "old"), ("new K1", "new"),
-                           ("plain version (float32)", None)):
-        if version is None:
-            X = tridiag_solve_plain(dp1, l1, B1)
-        else:
-            use(version)
-            X = tridiag_solve(dp1, l1, B1)
-        err = float((X.double() - X64).abs().max())
-        print(f"{label} at (10000, 4) against float64: max abs error "
-              f"{err:.3e}, relative to max|X| {err / scale:.3e}", flush=True)
+    # ---- 2. errors against float64 on the paths' chain factors
+    def f64_errors(label, kern, plain, plain64, versions):
+        X64 = plain64()
+        scale = float(X64.abs().max())
+        for version in (*versions, None):
+            if version is not None:
+                use(version)
+            X = plain() if version is None else kern()
+            err = float((X.double() - X64).abs().max())
+            print(f"{version or 'plain version (float32)'} {label} against "
+                  f"float64: max abs error {err:.3e}, relative to max|X| "
+                  f"{err / scale:.3e}", flush=True)
 
-    # ---- 3. warm city10000 solves: wall and the relaxed gap
+    f64_errors("K1 at (10000, 4)", cases[0][1], cases[0][2],
+               lambda: tridiag_solve_plain(dp1.double(), l1.double(),
+                                           B1.double()), ("old", "new"))
+    f64_errors(f"K1b at ({SCALE_N}, 4)", k1b_cases[0][1], k1b_cases[0][2],
+               lambda: tridiag_solve_blocked_plain(dp5.double(), l5.double(),
+                                                   B5.double()),
+               ("old", "new", *variants))
+
+    if kernels_only:
+        return
+
+    # ---- 3. warm solves: wall and the relaxed gap
     mac = MAC(fixed, cands, n, device="cuda")
 
     def solve(m=mac):
@@ -205,36 +331,74 @@ def main():
     print(f"the port on the CPU (every plain version), city10000 solve: "
           f"relaxed lambda_2 {lam2:.10g}, gap {gap:+.4e}", flush=True)
 
-    # ---- 4. the device time of the kernels in one profiled warm solve
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # The matrix-free path, as chip_smoke.py's phase 5 drives it.
+    mac5 = MAC((fi5, wf5), (ci5, wc5), SCALE_N, fiedler_inner_iters=10,
+               fiedler_maxiter=60, fiedler_tol=6e-4, device="cuda")
+
+    def solve5():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, unrounded, _ = mac5.solve(k5, x5, max_iters=10, use_cache=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lam2 = mac5.evaluate_objective(unrounded)
+        return (wall, lam2,
+                (lam2 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE)
 
     for version in ("old", "new"):
         use(version)
+        solve5()
+    for version in TURNS:
+        use(version)
+        before = tridiag_solve_blocked.launches
+        wall, lam2, gap = solve5()
+        print(f"{version} n {SCALE_N} warm solve: wall {wall:.4f} s "
+              f"unprofiled; relaxed lambda_2 (evaluate_objective) "
+              f"{lam2:.12g}, gap {gap:+.4e}; K1b launches "
+              f"{tridiag_solve_blocked.launches - before}, fiedler "
+              f"iterations {mac5.last_solve_stats.get('fiedler_iterations')}"
+              f" ({card})", flush=True)
+    with mock.patch.object(ops_tridiag, "tridiag_solve_blocked",
+                           tridiag_solve_blocked_plain):
+        _, lam2, gap = solve5()
+    print(f"K1b's plain version on the card, n {SCALE_N} solve: relaxed "
+          f"lambda_2 {lam2:.12g}, gap {gap:+.4e}", flush=True)
+
+    # ---- 4. the device time of the kernels in one profiled warm solve
+    k1_keys = {"K1": lambda nm: ("tridiag_solve_kernel" in nm
+                                 and "blocked" not in nm),
+               "K2b": lambda nm: "assemble_ut_kernel" in nm}
+    k1b_keys = {"K1b": lambda nm: "tridiag_solve_blocked_kernel" in nm}
+    for version in ("old", "new"):
+        use(version)
         t1, t2 = tridiag_solve.launches, assemble_ut.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            pwall = solve()[0]
-        sums = {"tridiag_solve_kernel": [0.0, 0], "assemble_ut_kernel": [0.0, 0],
-                "busy": [0.0, 0]}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            sums["busy"][0] += us
-            sums["busy"][1] += 1
-            for key in ("tridiag_solve_kernel", "assemble_ut_kernel"):
-                if key in e.name and "blocked" not in e.name:
-                    sums[key][0] += us
-                    sums[key][1] += 1
+        (pwall, _, _), sums = device_profile(solve, k1_keys)
         print(f"{version} city10000 warm solve profiled: wall {pwall:.4f} s;"
               f" device busy {sums['busy'][0] / 1e3:.2f}"
               f" ms over {sums['busy'][1]} kernels and copies; K1 "
-              f"{sums['tridiag_solve_kernel'][0] / 1e3:.3f} ms over "
-              f"{sums['tridiag_solve_kernel'][1]} launches (wrapper counted "
-              f"{tridiag_solve.launches - t1}); K2b "
-              f"{sums['assemble_ut_kernel'][0] / 1e3:.3f} ms over "
-              f"{sums['assemble_ut_kernel'][1]} launches (wrapper counted "
-              f"{assemble_ut.launches - t2}) ({card})", flush=True)
+              f"{sums['K1'][0] / 1e3:.3f} ms over {sums['K1'][1]} launches "
+              f"(wrapper counted {tridiag_solve.launches - t1}); K2b "
+              f"{sums['K2b'][0] / 1e3:.3f} ms over {sums['K2b'][1]} launches "
+              f"(wrapper counted {assemble_ut.launches - t2}) ({card})",
+              flush=True)
+    for version in ("old", "new"):
+        use(version)
+
+        def warm5():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mac5.solve(k5, x5, max_iters=10, use_cache=True)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        t1 = tridiag_solve_blocked.launches
+        pwall, sums = device_profile(warm5, k1b_keys)
+        print(f"{version} n {SCALE_N} warm solve profiled: wall {pwall:.4f} "
+              f"s; device busy {sums['busy'][0] / 1e3:.2f} ms over "
+              f"{sums['busy'][1]} kernels and copies; K1b "
+              f"{sums['K1b'][0] / 1e3:.3f} ms over {sums['K1b'][1]} launches "
+              f"(wrapper counted {tridiag_solve_blocked.launches - t1}) "
+              f"({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 1024;
 
 // Inclusive scan of affine maps across the 32 lanes of a warp.
 // reverse = false: lane i ends with map_i o ... o map_0;
@@ -466,81 +465,295 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
 // (tridiag_solve_fused_blocked): the chain smoother of the matrix-free
 // two-grid V-cycle (and of the banded preconditioner) once n > 32768, where
 // the factor comes from the blocked LDL^T and its couplings are zero at
-// every `block` boundary. The kernel forces l = 0 at each row with
+// every `block` boundary. The kernel takes l = 0 at each row with
 // row % block == 0 itself, so the segments solve independently whatever the
-// caller's l holds there -- the contract of the TPU kernel.
-//
-// The TPU ran Hillis-Steele lane scans over a grid of 256-row VMEM tiles
-// because the whole-row kernel ran out of VMEM past n ~ 3e4. Here the
-// independent unit is a (segment, column) pair: a grid of ceil(n / block) x q
-// blocks (98 x 4 = 392 at n = 100000, q = 4), one thread per row of the
-// segment. Each substitution is an inclusive scan of affine maps: a warp
-// scan with shuffles, one step across the warps in shared memory, and the
-// warp's prefix applied to each thread's map.
+// caller's l holds there -- the contract of the TPU kernel. Rows past n
+// behave as l = 0, dp = 1, B = 0.
 //
 // What bounds it on the H100: latency, not bytes. At n = 100000, q = 4 the
-// solve moves 4 MB (1.2 us at 3.35 TB/s) but takes 6.8 us of device time:
-// a block runs two 5-step warp scans, two cross-warp scans and four
-// __syncthreads(), and B is read with a stride of q. Several columns per
-// block, or a vectorised (n, q) row load, are later work.
+// solve moves 4 MB (1.2 us at 3.35 TB/s), and an empty kernel behind the
+// same wrapper already takes 1.8 us of device time. What costs beyond that
+// is the number of memory instructions and sectors of each warp, then
+// the chain of dependent steps in a block's lifetime and the number of
+// waves the grid takes. The first port (one 1024-thread block per (segment,
+// column), one row per thread, B read at a stride of q, four
+// __syncthreads(), the warp totals scanned by warp 0 alone, an IEEE
+// division per entry) ran 392 blocks in 1.5 waves: 0.0066 ms.
+//
+// The design: one block per segment and group of four columns (98 blocks at
+// n = 100000, q = 4: one wave on 132 SMs), four consecutive rows per
+// thread. At q = 4 a warp's 128 rows of B are 2 KB in a row: the warp loads
+// them as coalesced float4s into a swizzled tile of shared memory, each
+// lane takes its four rows from there, and X leaves the same way; dp and l
+// arrive as one float4 each per thread. (A lane loading its own four rows
+// directly touches twice the sectors in four times the cache lines per
+// instruction: 0.0051 ms against 0.0035.) At other q % 4 == 0 a thread
+// loads a float4 per row, and at any other q or alignment value by value.
+// The thread composes the affine map of its rows in registers -- the
+// coefficient part once for all columns, the value part per column -- a
+// shuffle scan runs over the threads' maps, the warp totals go to shared
+// memory, and after one __syncthreads() every warp composes the totals of
+// the warps before it (forward) or after it (backward) itself. The thread
+// then re-sweeps its rows from the incoming value. z = y / dp is a product
+// with the pivot's reciprocal, one per row for all columns (sixteen IEEE
+// divisions per thread, each with its branch, cost 1.5 us), and stays in
+// registers between the two substitutions; X is written once. Two
+// barriers in all; the scans and barriers together cost 0.35 us. Measured
+// (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W): 0.0035 ms of device time
+// at (100000, 4) against 0.0066 ms for the first port in the same process;
+// 2 and 8 rows per thread and 8 columns per block were slower.
 
-// Scan of the warps' total maps, held in sc/sv[0..nw): run by warp 0, in
-// place; lanes past nw take the identity map.
-__device__ __forceinline__ void scan_warp_totals(float* sc, float* sv,
-                                                 int lane, int nw,
-                                                 bool reverse) {
-  float c = lane < nw ? sc[lane] : 1.0f;
-  float v = lane < nw ? sv[lane] : 0.0f;
-  warp_scan_maps(c, v, lane, reverse);
-  if (lane < nw) {
-    sc[lane] = c;
-    sv[lane] = v;
+constexpr int kMaxBlock = 1024;  // the longest segment
+constexpr int kRows = 4;         // consecutive rows per thread
+constexpr int kCols = 4;         // columns per block: one float4 of a row
+constexpr int kK1bThreads = kMaxBlock / kRows;
+constexpr int kK1bWarps = kK1bThreads / 32;
+static_assert(kRows == 4 && kCols == 4, "K1b's loads and its tile's swizzle");
+
+// How a block moves its rows of B and X:
+//   kScalar: value by value, any q and any alignment;
+//   kVector: a float4 per row (q % 4 == 0, all four arrays 16-byte aligned);
+//   kTile:   q == 4 and aligned, where a warp's 128 rows are 2 KB in a row:
+//            coalesced float4s (lane after lane) through shared memory, from
+//            which each lane takes its four consecutive rows.
+enum RowMoves { kScalar, kVector, kTile };
+
+// Where row f of a warp's tile lies in shared memory: lanes storing rows
+// 32 k + lane and lanes fetching rows 4 lane + i both spread over all banks.
+__device__ __forceinline__ int tile_slot(int f) { return f ^ ((f >> 3) & 3); }
+
+// warp_scan_maps for maps that share their coefficient c over kCols values.
+__device__ __forceinline__ void warp_scan_maps_cols(float& c,
+                                                    float (&v)[kCols],
+                                                    int lane, bool reverse) {
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const float pc = reverse ? __shfl_down_sync(kFullMask, c, k)
+                             : __shfl_up_sync(kFullMask, c, k);
+    const bool valid = reverse ? (lane + k < 32) : (lane >= k);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float pv = reverse ? __shfl_down_sync(kFullMask, v[j], k)
+                               : __shfl_up_sync(kFullMask, v[j], k);
+      if (valid) v[j] = v[j] + c * pv;
+    }
+    if (valid) c = c * pc;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The map of the lanes before this one in the substitution's order (the
+// neighbour's inclusive map; the identity for the first lane).
+__device__ __forceinline__ void neighbour_map(float c, const float (&v)[kCols],
+                                              int lane, bool reverse,
+                                              float& nc, float (&nv)[kCols]) {
+  const bool first = lane == (reverse ? 31 : 0);
+  nc = reverse ? __shfl_down_sync(kFullMask, c, 1)
+               : __shfl_up_sync(kFullMask, c, 1);
+  if (first) nc = 1.0f;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    nv[j] = reverse ? __shfl_down_sync(kFullMask, v[j], 1)
+                    : __shfl_up_sync(kFullMask, v[j], 1);
+    if (first) nv[j] = 0.0f;
+  }
+}
+
+// 1 / x for a normal positive x (a pivot): the approximate reciprocal and
+// one Newton step, within an ulp or two of the quotient and, unlike an
+// IEEE division, without a branch.
+__device__ __forceinline__ float reciprocal(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+
+template <RowMoves kMoves>
+__global__ void __launch_bounds__(kK1bThreads)
 tridiag_solve_blocked_kernel(const float* __restrict__ dp,
                              const float* __restrict__ l,
                              const float* __restrict__ B,
                              float* __restrict__ X, int n, int q, int block) {
-  __shared__ float fc[32], fv[32], bc[32], bv[32];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int w = t >> 5;
+  __shared__ float fc[kK1bWarps], fv[kK1bWarps][kCols];
+  __shared__ float bc[kK1bWarps], bv[kK1bWarps][kCols];
+  __shared__ float4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int col = blockIdx.y;
-  const long long row = static_cast<long long>(blockIdx.x) * block + t;
-  const bool live = row < n;  // rows past n: l = 0, dp = 1, B = 0
+  const long long seg0 = static_cast<long long>(blockIdx.x) * block;
+  // The segment's rows inside n, this thread's first row in the segment and
+  // in the arrays, the block's first column.
+  const int rows = static_cast<int>(min(static_cast<long long>(block),
+                                        n - seg0));
+  const int r0 = threadIdx.x * kRows;
+  const long long g0 = seg0 + r0;
+  const int j0 = blockIdx.y * kCols;
+  // kTile: the warp's tile, its first row in the segment, its rows of B, X.
+  float4* tile = tiles + (kMoves == kTile ? w * 32 * kRows : 0);
+  const int t0 = w * 32 * kRows;
+  const float4* Bt = reinterpret_cast<const float4*>(B) + seg0 + t0;
+  float4* Xt = reinterpret_cast<float4*>(X) + seg0 + t0;
 
-  // Forward: y_i = b_i - l_i y_{i-1}; the segment's first row is decoupled.
-  float c = (live && t != 0) ? -l[row] : 0.0f;
-  float v = live ? B[row * q + col] : 0.0f;
-  warp_scan_maps(c, v, lane, false);
+  // cf[i] = -l of the thread's row i: the forward coefficient of row i and
+  // the backward coefficient of row i - 1. It is 0 at the segment's first
+  // row and past its last row inside n, which also cuts the backward pass
+  // at the segment's last row and at row n - 1.
+  float cf[kRows + 1], rd[kRows], v[kRows][kCols];
+  if (kMoves == kTile) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int f = 32 * k + lane;
+      tile[tile_slot(f)] =
+          t0 + f < rows ? Bt[f] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  if (kMoves != kScalar && r0 + kRows <= rows) {
+    const float4 l4 = *reinterpret_cast<const float4*>(l + g0);
+    const float4 d4 = *reinterpret_cast<const float4*>(dp + g0);
+    cf[0] = r0 != 0 ? -l4.x : 0.0f;
+    cf[1] = -l4.y;
+    cf[2] = -l4.z;
+    cf[3] = -l4.w;
+    rd[0] = reciprocal(d4.x);
+    rd[1] = reciprocal(d4.y);
+    rd[2] = reciprocal(d4.z);
+    rd[3] = reciprocal(d4.w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const bool live = r0 + i < rows;
+      cf[i] = (r0 + i != 0 && live) ? -l[g0 + i] : 0.0f;
+      rd[i] = live ? reciprocal(dp[g0 + i]) : 1.0f;
+    }
+  }
+  cf[kRows] = r0 + kRows < rows ? -l[g0 + kRows] : 0.0f;
+  if (kMoves == kTile) __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const bool live = r0 + i < rows;
+    const float* row = B + (g0 + i) * q + j0;
+    if (kMoves == kScalar) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        v[i][j] = (live && j0 + j < q) ? row[j] : 0.0f;
+    } else {
+      float4 b4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (kMoves == kTile)
+        b4 = tile[tile_slot(kRows * lane + i)];
+      else if (live)
+        b4 = *reinterpret_cast<const float4*>(row);
+      v[i][0] = b4.x;
+      v[i][1] = b4.y;
+      v[i][2] = b4.z;
+      v[i][3] = b4.w;
+    }
+  }
+
+  // Forward: y_i = b_i + cf_i y_{i-1}. The thread's map, the scan over the
+  // warp, the warps before this one, then the rows again from the incoming
+  // value; z = y / dp replaces b (a product with the pivot's reciprocal).
+  float c = 1.0f, t[kCols], nc, nt[kCols], in[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) t[j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i] * t[j];
+    c = cf[i] * c;
+  }
+  warp_scan_maps_cols(c, t, lane, false);
+  neighbour_map(c, t, lane, false, nc, nt);
   if (lane == 31) {
     fc[w] = c;
-    fv[w] = v;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) fv[w][j] = t[j];
   }
   __syncthreads();
-  if (w == 0) scan_warp_totals(fc, fv, lane, nw, false);
-  __syncthreads();
-  // y_{-1} = 0, so the value entering warp w is the v of warps 0..w-1.
-  const float y = (w == 0) ? v : v + c * fv[w - 1];
-  const float z = y / (live ? dp[row] : 1.0f);
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kK1bWarps - 1; ++k) {
+    if (k < w) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) in[j] = fv[k][j] + fc[k] * in[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      in[j] = v[i][j] + cf[i] * in[j];
+      v[i][j] = in[j] * rd[i];
+    }
+  }
 
-  // Backward: x_i = z_i - l_{i+1} x_{i+1}; the segment's last row and row
-  // n - 1 are decoupled.
-  c = (t != block - 1 && row + 1 < n) ? -l[row + 1] : 0.0f;
-  v = z;
-  warp_scan_maps(c, v, lane, true);
+  // Backward: x_i = z_i + cf_{i+1} x_{i+1}, the same steps from the last
+  // row to the first; x replaces z.
+  c = 1.0f;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) t[j] = 0.0f;
+#pragma unroll
+  for (int i = kRows - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i + 1] * t[j];
+    c = cf[i + 1] * c;
+  }
+  warp_scan_maps_cols(c, t, lane, true);
+  neighbour_map(c, t, lane, true, nc, nt);
   if (lane == 0) {
     bc[w] = c;
-    bv[w] = v;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) bv[w][j] = t[j];
   }
   __syncthreads();
-  if (w == 0) scan_warp_totals(bc, bv, lane, nw, true);
-  __syncthreads();
-  const float x = (w == nw - 1) ? v : v + c * bv[w + 1];
-  if (live) X[row * q + col] = x;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = 0.0f;
+#pragma unroll
+  for (int k = kK1bWarps - 1; k > 0; --k) {
+    if (k > w && k < nw) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) in[j] = bv[k][j] + bc[k] * in[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
+#pragma unroll
+  for (int i = kRows - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      in[j] = v[i][j] + cf[i + 1] * in[j];
+      v[i][j] = in[j];
+    }
+  }
+
+  if (kMoves == kTile) {
+    __syncwarp();  // every lane has taken its rows of B from the tile
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      tile[tile_slot(kRows * lane + i)] =
+          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int f = 32 * k + lane;
+      if (t0 + f < rows) Xt[f] = tile[tile_slot(f)];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (r0 + i >= rows) continue;
+    float* row = X + (g0 + i) * q + j0;
+    if (kMoves == kVector) {
+      *reinterpret_cast<float4*>(row) =
+          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j0 + j < q) row[j] = v[i][j];
+    }
+  }
 }
 
 // K1's function attributes: the dynamic shared memory cap and the
@@ -604,16 +817,24 @@ extern "C" int tridiag_solve_f32(const float* dp, const float* l,
 }
 
 // K1b. The same arrays; `block` (a multiple of 32, at most 1024) is the
-// segment length. Returns cudaErrorInvalidValue for any other block.
+// segment length. Returns cudaErrorInvalidValue for any other block, else
+// the launch's error (0 on success).
 extern "C" int tridiag_solve_blocked_f32(const float* dp, const float* l,
                                          const float* B, float* X, int n,
                                          int q, int block, void* stream) {
-  if (block < 32 || block > kThreads || block % 32 != 0)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || q <= 0) return 0;
-  const dim3 grid((n + block - 1) / block, q);
-  tridiag_solve_blocked_kernel<<<grid, block, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + block - 1) / block, (q + kCols - 1) / kCols);
+  const int threads = ((block + kRows - 1) / kRows + 31) & ~31;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(dp) | reinterpret_cast<uintptr_t>(l) |
+       reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(X)) % 16
+      == 0;
+  auto kernel = !aligned || q % 4 != 0 ? tridiag_solve_blocked_kernel<kScalar>
+                : q == 4               ? tridiag_solve_blocked_kernel<kTile>
+                                       : tridiag_solve_blocked_kernel<kVector>;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       dp, l, B, X, n, q, block);
   return static_cast<int>(cudaGetLastError());
 }

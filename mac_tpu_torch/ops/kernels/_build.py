@@ -21,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mac_tpu_torch"
@@ -28,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded = {}
+_functions = {}  # (name, exported function) -> its ctypes function
 build_log = []  # (name, seconds, nvcc stderr) per build in this process
 
 
@@ -76,7 +79,8 @@ def load(name: str, signatures, path=None) -> ctypes.CDLL:
     exported C function to its ctypes argtypes (every function returns the
     int cudaError_t of its launch). With `path`, load that library instead
     (another build exporting the same functions, as kernel_ab.py's A/B
-    does) and make it the one the wrappers call from then on."""
+    does) and make it the one the wrappers call from then on: the handles
+    that `function` keeps for `name` are dropped."""
     lib = None if path is not None else _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name) if path is None else path))
@@ -84,4 +88,27 @@ def load(name: str, signatures, path=None) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
+        for key in [key for key in _functions if key[0] == name]:
+            del _functions[key]
     return lib
+
+
+def function(name: str, fn: str, signatures):
+    """The exported C function `fn` of csrc/<name>.cu as a ctypes function,
+    resolved at its first call and kept: a wrapper's launch costs one dict
+    lookup here. It follows `load(name, signatures, path)`."""
+    call = _functions.get((name, fn))
+    if call is None:
+        call = _functions[(name, fn)] = getattr(load(name, signatures), fn)
+    return call
+
+
+def launch(call, device: torch.device, *args) -> int:
+    """Call the ctypes function `call` with `args` and, as its last
+    argument, PyTorch's current stream on the CUDA device `device`, with
+    that device current: it is switched only when it is not already. The
+    function's cudaError_t."""
+    if device.index == torch.cuda.current_device():
+        return call(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return call(*args, torch.cuda.current_stream().cuda_stream)

@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from mac_tpu_torch.ops.kernels import _build
+
 BS = 128
 
 
@@ -79,16 +81,11 @@ def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"assemble_ut kernel: {name} not contiguous")
-    from mac_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("assemble", _SIGNATURES)
+    call = _build.function("assemble", "assemble_ut_f32", _SIGNATURES)
     ut = torch.empty((half + 1, nb, BS, BS), dtype=wu.dtype, device=wu.device)
-    with torch.cuda.device(wu.device):
-        stream = torch.cuda.current_stream(wu.device).cuda_stream
-        err = lib.assemble_ut_f32(dcol.data_ptr(), wu.data_ptr(), du,
-                                  ocol.data_ptr(), olane.data_ptr(),
-                                  ow.data_ptr(), ov, ut.data_ptr(), half, nb,
-                                  stream)
+    err = _build.launch(call, wu.device, dcol.data_ptr(), wu.data_ptr(), du,
+                        ocol.data_ptr(), olane.data_ptr(), ow.data_ptr(), ov,
+                        ut.data_ptr(), half, nb)
     if err != 0:
         raise RuntimeError(f"assemble_ut kernel launch failed: cudaError "
                            f"{err}")

@@ -17,6 +17,8 @@ import ctypes
 
 import torch
 
+from mac_tpu_torch.ops.kernels import _build
+
 
 def _scan_affine(coef: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of y_i = coef_i * y_{i-1} + val_i along axis 0 with
@@ -98,25 +100,25 @@ def _on_card(name: str, dp: torch.Tensor, l: torch.Tensor,
         return False
     if dp.device != B.device or l.device != B.device:
         raise ValueError(f"{name}: tensors on different devices")
-    for arg, t in (("dp", dp), ("l", l), ("B", B)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32; {arg} is "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} kernel: {arg} not contiguous")
+    if not dp.dtype == l.dtype == B.dtype == torch.float32:
+        arg, t = next((arg, t) for arg, t in (("dp", dp), ("l", l), ("B", B))
+                      if t.dtype != torch.float32)
+        raise TypeError(f"{name} kernel takes float32; {arg} is {t.dtype}")
+    if not (dp.is_contiguous() and l.is_contiguous() and B.is_contiguous()):
+        arg = next(arg for arg, t in (("dp", dp), ("l", l), ("B", B))
+                   if not t.is_contiguous())
+        raise ValueError(f"{name} kernel: {arg} not contiguous")
     return True
 
 
 def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
-    from mac_tpu_torch.ops.kernels import _build
-
-    lib = _build.load("tridiag", _SIGNATURES)
-    n, q = B.shape
+    """Call the exported C function `fn` on B's device and PyTorch's current
+    stream there; X, or an error for a non-zero cudaError_t."""
+    call = _build.function("tridiag", fn, _SIGNATURES)
     X = torch.empty_like(B)
-    with torch.cuda.device(B.device):
-        stream = torch.cuda.current_stream(B.device).cuda_stream
-        err = getattr(lib, fn)(dp.data_ptr(), l.data_ptr(), B.data_ptr(),
-                               X.data_ptr(), n, q, *extra, stream)
+    err = _build.launch(call, B.device, dp.data_ptr(), l.data_ptr(),
+                        B.data_ptr(), X.data_ptr(), B.shape[0], B.shape[1],
+                        *extra)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return X

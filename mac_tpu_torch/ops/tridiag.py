@@ -153,7 +153,8 @@ def tridiag_solve_factored_fast(f: TridiagFactor,
             raise TypeError("tridiag_solve_factored_fast: the CUDA kernels "
                             f"take float32 blocks; got {B.dtype}")
         return tridiag_solve_factored(f, B)
-    dp, l = f.dp.to(B.dtype), f.l.to(B.dtype)
+    dp = f.dp if f.dp.dtype == B.dtype else f.dp.to(B.dtype)
+    l = f.l if f.l.dtype == B.dtype else f.l.to(B.dtype)
     if (n > TRIDIAG_SCAN_MAX_N and f.seg is not None
             and SOLVE_BLOCK % int(f.seg) == 0):
         return tridiag_solve_blocked(dp, l, B, block=SOLVE_BLOCK)

@@ -86,15 +86,34 @@ def test_tridiag_kernel_matches_plain(dev, n, q, blocked):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("n,q,seg", [
-    (1, 1, 1024), (1000, 3, 1024), (1024, 4, 1024), (1025, 5, 1024),
-    (40000, 8, 1024), (40000, 32, 1024), (100000, 4, 1024), (33000, 2, 128),
-    (40000, 16, None), (5000, 1, None)])
-def test_blocked_tridiag_kernel_matches_plain(dev, n, q, seg):
-    """K1b against its plain version at rtol/atol 2e-4: ragged n, one to 32
-    right-hand sides, factors decoupled every 1024 or 128 rows, and exact
-    factors (seg None), whose couplings at the 1024-row boundaries both
-    versions force to 0."""
+# K1b's branches: one to 130 right-hand sides (q % 4 != 0 takes the scalar
+# loads, q > 4 several column groups), segment lengths passed explicitly
+# (1024, 256, 128, and 96, which the rows of a thread do not divide evenly
+# into warps), ragged last segments (n 1, 1025), and a right-hand side whose
+# storage is 4 bytes off a 16-byte boundary (the scalar loads at q % 4 == 0).
+_K1B_CASES = [
+    (1, 1, 1024, 1024, False), (1000, 3, 1024, 1024, False),
+    (1024, 4, 1024, 1024, False), (1025, 5, 1024, 1024, False),
+    (40000, 8, 1024, 1024, False), (40000, 32, 1024, 1024, False),
+    (100000, 4, 1024, 1024, False), (33000, 2, 128, 1024, False),
+    (40000, 16, None, 1024, False), (5000, 1, None, 1024, False),
+    (1025, 1, 1024, 1024, False), (1025, 4, 1024, 1024, False),
+    (40000, 40, 1024, 1024, False), (5000, 130, 1024, 1024, False),
+    (33000, 4, 128, 128, False), (33000, 5, 128, 128, False),
+    (1025, 4, 256, 256, False), (40000, 3, 256, 256, False),
+    (1, 4, 128, 128, False), (1000, 4, None, 96, False),
+    (100000, 4, 1024, 1024, True), (1025, 8, 256, 256, True)]
+
+
+@pytest.mark.parametrize("n,q,seg,block,misaligned", _K1B_CASES)
+def test_blocked_tridiag_kernel_matches_plain(dev, n, q, seg, block,
+                                              misaligned):
+    """K1b against its plain version at rtol/atol 2e-4: ragged n, one to
+    130 right-hand sides, factors decoupled every `seg` rows solved in
+    segments of `block` rows (the kernel and its plain version both force
+    the couplings at the `block` boundaries to 0, also where an exact
+    factor, seg None, holds non-zero ones there), and a misaligned
+    right-hand side."""
     d, e, rng = _chain(max(n, 2), n + 1, dev)
     d, e = d[:n], e[:n - 1]
     f = tridiag_ldl(d, e) if seg is None else tridiag_ldl_blocked(d, e, seg)
@@ -102,9 +121,14 @@ def test_blocked_tridiag_kernel_matches_plain(dev, n, q, seg):
         assert bool((f.l[1024::1024] != 0).all())
     B = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float32,
                         device=dev)
+    if misaligned:
+        flat = torch.empty(n * q + 1, dtype=torch.float32, device=dev)
+        flat[1:] = B.reshape(-1)
+        B = flat[1:].view(n, q)
+        assert B.is_contiguous() and B.data_ptr() % 16 == 4
     before = tridiag_solve_blocked.launches
-    got = tridiag_solve_blocked(f.dp, f.l, B)
-    ref = tridiag_solve_blocked_plain(f.dp, f.l, B)
+    got = tridiag_solve_blocked(f.dp, f.l, B, block=block)
+    ref = tridiag_solve_blocked_plain(f.dp, f.l, B, block=block)
     torch.cuda.synchronize()
     assert tridiag_solve_blocked.launches == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
@@ -190,8 +214,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tridiag_solve(f.dp.cpu(), f.l, B.float())
     with pytest.raises(TypeError):
         tridiag_solve_blocked(f.dp, f.l, B)
-    with pytest.raises(ValueError):
-        tridiag_solve_blocked(f.dp, f.l, B.float(), block=100)
+    with pytest.raises(TypeError, match="l is torch.float64"):
+        tridiag_solve_blocked(f.dp, f.l.double(), B.float())
+    with pytest.raises(ValueError, match="B not contiguous"):
+        tridiag_solve_blocked(f.dp, f.l, B.float().t().contiguous().t())
+    with pytest.raises(ValueError, match="dp not contiguous"):
+        tridiag_solve_blocked(f.dp.repeat_interleave(2)[::2], f.l, B.float())
+    with pytest.raises(ValueError, match="different devices"):
+        tridiag_solve_blocked(f.dp, f.l.cpu(), B.float())
+    with pytest.raises(ValueError, match="want dp, l"):
+        tridiag_solve_blocked(f.dp[:-1], f.l, B.float())
+    for block in (100, 16, 2048):
+        with pytest.raises(ValueError):
+            tridiag_solve_blocked(f.dp, f.l, B.float(), block=block)
     idx, w, n = _graph(700, 120, 40, 3)
     bop, _ = banded.build_banded_rcm(idx, n)
     bop = bop.to(dev)

@@ -140,3 +140,119 @@ def test_tridiag_dispatch_refuses_unported_blocked_kernel(monkeypatch):
         ref = tt.tridiag_solve_factored(f, B[:rows, :q])
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-4,
                                    atol=2e-4)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("q", [1, 5])
+def test_blocked_plain_solve_matches_pallas_kernel_at_short_blocks(block, q):
+    """K1b's plain version against the segment-decoupled Pallas kernel
+    (interpret mode) in f32 at rtol/atol 2e-4 with the segment length passed
+    explicitly (128 and 256) on a ragged n = 1500 at one and five
+    right-hand sides. The factor is exact, so both versions have to cut its
+    non-zero couplings at the `block` boundaries themselves."""
+    from mac_tpu.ops.pallas.tridiag_kernel import tridiag_solve_fused_blocked
+
+    n = 1500
+    d, e, rng = _chain_system(n, 11)
+    jf = jax.jit(jt.tridiag_ldl)(jnp.asarray(d, jnp.float32),
+                                 jnp.asarray(e, jnp.float32))
+    assert np.all(np.asarray(jf.l)[block::block] != 0)
+    B = rng.normal(size=(n, q)).astype(np.float32)
+    ref = np.asarray(tridiag_solve_fused_blocked(
+        jf.dp, jf.l, jnp.asarray(B), block=block, interpret=True))
+    dp, l = torch.tensor(np.asarray(jf.dp)), torch.tensor(np.asarray(jf.l))
+    got = tridiag_solve_blocked_plain(dp, l, torch.as_tensor(B),
+                                      block=block).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+    before = tridiag_solve_blocked.launches
+    np.testing.assert_array_equal(
+        tridiag_solve_blocked(dp, l, torch.as_tensor(B), block=block).numpy(),
+        got)
+    assert tridiag_solve_blocked.launches == before
+
+
+class _StubLibrary:
+    """Stands in for a ctypes.CDLL: each exported function is an object
+    that takes argtypes and restype, records its calls and returns the
+    library's `result` as its cudaError_t."""
+
+    class _Function:
+        def __init__(self, lib, name):
+            self.lib, self.name, self.calls = lib, name, []
+
+        def __call__(self, *args):
+            self.calls.append(args)
+            return self.lib.result
+
+    def __init__(self, path):
+        self.path = path
+        self.result = 0
+        self._fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self._fns.setdefault(name, self._Function(self, name))
+
+
+@pytest.mark.parametrize("name,fn", [
+    ("tridiag", "tridiag_solve_f32"),
+    ("tridiag", "tridiag_solve_blocked_f32"),
+    ("assemble", "assemble_ut_f32")])
+def test_kept_function_handle_follows_a_loaded_library(monkeypatch, name, fn):
+    """The wrappers resolve their C function once (_build.function) and
+    keep it; _build.load(name, signatures, path) makes another library the
+    one they call from then on, for that source only."""
+    from mac_tpu_torch.ops.kernels import _build, assemble
+    from mac_tpu_torch.ops.kernels import tridiag as ktridiag
+
+    sigs = {"tridiag": ktridiag._SIGNATURES,
+            "assemble": assemble._SIGNATURES}[name]
+    other = "assemble" if name == "tridiag" else "tridiag"
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_functions", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", _StubLibrary)
+    monkeypatch.setattr(_build, "build", lambda nm: f"built/{nm}")
+
+    first = _build.function(name, fn, sigs)
+    assert first.lib.path == f"built/{name}" and first.name == fn
+    assert first.argtypes == sigs[fn] and first.restype is _build.ctypes.c_int
+    assert _build.function(name, fn, sigs) is first  # kept, not resolved anew
+    kept_other = _build.function(other, "some_function", {})
+
+    lib_a = _build.load(name, sigs, "elsewhere/a.so")
+    swapped = _build.function(name, fn, sigs)
+    assert swapped is not first and swapped.lib is lib_a
+    assert lib_a.path == "elsewhere/a.so"
+    assert _build.function(name, fn, sigs) is swapped
+    assert _build.function(other, "some_function", {}) is kept_other
+    _build.load(name, sigs, "built/" + name)
+    assert _build.function(name, fn, sigs).lib.path == f"built/{name}"
+    assert _build.load(name, sigs) is _build.function(name, fn, sigs).lib
+
+
+def test_launch_calls_the_kept_function_with_the_kernel_arguments(monkeypatch):
+    """_launch marshals (dp, l, B, X, n, q, extra..., stream) to the function
+    _build.function returns, on the current stream of B's device, and raises
+    on a non-zero cudaError_t; no device is needed for that."""
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import tridiag as ktridiag
+
+    lib = _StubLibrary("stub")
+    monkeypatch.setattr(_build, "function",
+                        lambda name, fn, sigs: getattr(lib, fn))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda: type("Stream", (), {"cuda_stream": 77})())
+    dp, l, B = torch.ones(6), torch.zeros(6), torch.ones(6, 2)
+    X = ktridiag._launch("tridiag_solve_blocked_f32", dp, l, B, 32)
+    (args,) = lib.tridiag_solve_blocked_f32.calls
+    assert args == (dp.data_ptr(), l.data_ptr(), B.data_ptr(), X.data_ptr(),
+                    6, 2, 32, 77)
+    assert X.shape == B.shape and X.data_ptr() != B.data_ptr()
+    ktridiag._launch("tridiag_solve_f32", dp, l, B)
+    assert len(lib.tridiag_solve_f32.calls[0]) == 7
+    lib.result = 700
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        ktridiag._launch("tridiag_solve_f32", dp, l, B)
