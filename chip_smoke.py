@@ -12,14 +12,15 @@ its wall time printed:
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time it:
        tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4),
-       on an exact factor (n = 4000), on an exact factor at (33000, 40),
+       on sphere2500's exact chain factor (n = 2500), on an exact factor
+       (n = 4000), on an exact factor at (33000, 40),
        too large for the cluster's shared memory (the tiled branch, two
        passes of columns), and at (5000, 200), wider than one launch's 128
        columns, rtol/atol 2e-4 (the JAX package's tolerance for its own
        kernel);
-       assemble_ut (K2/K2b) on city10000's split tables, on a graph
-       without a split and on a half-4 band whose slot rows hold duplicate
-       edges, bitwise equal; also timed: the same scatter as one
+       assemble_ut (K2/K2b) on city10000's split tables, on sphere2500's
+       tables (no split), on a small graph without a split and on a half-4
+       band whose slot rows hold duplicate edges, bitwise equal; also timed: the same scatter as one
        index_add_ into a zeroed ut (the library yardstick);
      a kernel's time is its device time (device_ms: 100 calls behind a
      spin kernel), with the time of one call and its host work beside it
@@ -51,6 +52,23 @@ its wall time printed:
      edges rounded; the relaxed lambda_2 at or above the reference
      library's 0.025668825678050997 (1 - 1e-3); the upper bound at or
      above it (1 - 1e-6).
+  6. the bundled datasets with scripts/bench_all.py's protocol: for each
+     of intel, kitti_05, kitti_02, sphere2500 and ais2klinik, K = 50% of
+     the loop closures, x_init from NaiveGreedy, MAC(fixed, cands, n) with
+     no other argument (so on the card), solve(K, x_init, use_cache=True)
+     once cold and three times warm. Gates: the reference's route (intel by
+     the size gate and the kitti and ais sets by the tiny-gap escalation to
+     float64 and the host engine; sphere2500 float32 on the banded operator
+     with the polish and the round guard on); the relaxed lambda_2 (scipy
+     referee) within -1e-6 relative of the reference library's on the host
+     routes and -1e-3 on sphere2500; exactly K edges rounded; the upper
+     bound at least the relaxed lambda_2 (1 - 1e-9); sphere2500's rounded
+     lambda_2 at least 0.1 of its relaxed one (not collapsed), with K1 and
+     the assembly kernel launched; no kernel launched on the host routes.
+     Then the graph that is disconnected even with every candidate (two
+     chains of 600 nodes, three candidates): float64 on the device engine
+     on the card, solve(2) selects 2, a finite upper bound,
+     |evaluate_objective| < 1e-8, no kernel launched.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
 their path, error against the plain version, device time (ms and
@@ -73,6 +91,17 @@ K1_TOL = 2e-4
 # expander instance (scripts/bench_scale_results.json).
 REFERENCE_LAM2_SCALE = 0.025668825678050997
 SCALE_N = 100000
+# Phase 6: the reference library's relaxed lambda_2 at K = 50% of the loop
+# closures (BASELINE.md, scripts/baseline_reference.json), the route each
+# dataset must take (dtype, fiedler_backend, banded) and its relaxed-gap
+# floor.
+BUNDLED = {
+    "intel": (0.05372595512017725, "float64", "host", False, -1e-6),
+    "kitti_05": (18.887283604529912, "float64", "host", False, -1e-6),
+    "kitti_02": (2.3255991498563375, "float64", "host", False, -1e-6),
+    "sphere2500": (0.23430047503258467, "float32", "device", True, -1e-3),
+    "ais2klinik": (5.2958016833414765e-05, "float64", "host", False, -1e-6),
+}
 # NVIDIA H100 SXM published peaks: HBM bytes/s and float32 (non-tensor-core)
 # FLOP/s; bound_ms is the larger of bytes / rate and operations / rate.
 H100_BYTES_PER_S = 3.35e12
@@ -243,11 +272,11 @@ def synthetic(n, seed=0, local=False):
     return fixed_idx, w_fixed, cand_idx, 0.5 + rng.rand(len(cand_idx))
 
 
-def city10000_inputs(dev):
-    """city10000 at K = 50% of its loop closures, x_init from NaiveGreedy:
-    (path of the g2o file, n, fixed, cands, K, x_init, banded tables on
-    dev, edge weights w at x_init, the chain factor's dp and l in float32,
-    a (n, 4) right-hand side from seed 0)."""
+def dataset_inputs(dev, name="city10000"):
+    """A bundled banded dataset at K = 50% of its loop closures, x_init from
+    NaiveGreedy: (path of the g2o file, n, fixed, cands, K, x_init, banded
+    tables on dev, edge weights w at x_init, the chain factor's dp and l in
+    float32, a (n, 4) right-hand side from seed 0)."""
     import numpy as np
     import torch
 
@@ -258,7 +287,7 @@ def city10000_inputs(dev):
     from mac_tpu_torch.solvers import NaiveGreedy
 
     repo = Path(mac_tpu_torch.__file__).resolve().parent.parent
-    dataset = repo / "data" / "city10000.g2o"
+    dataset = repo / "data" / f"{name}.g2o"
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
     k = len(cands) // 2
@@ -371,7 +400,7 @@ def main():
     # ---- 3. kernels against their plain versions on the card
     phase("3 K1, K2 against their plain versions")
     (dataset, n, fixed, cands, k, _, bop, w, dp32, l32,
-     B) = city10000_inputs(dev)
+     B) = dataset_inputs(dev)
     print(f"city10000: n {n}, {len(fixed)} fixed, {len(cands)} candidates, "
           f"K {k}; nb {bop.nb} half {bop.half} du {bop.ueid_tbl.shape[0]} "
           f"du_dense {bop.du_dense} ov_rows {bop.ov_rows} coarse "
@@ -403,6 +432,14 @@ def main():
                            device=dev)
     k1_err = max(k1_err, k1_check(f_ex.dp, f_ex.l, B_ex,
                                   "exact factor (n 4000, q 4)"))
+    # sphere2500 (phase 6): the exact chain factor of a real solve, and
+    # banded tables without a split.
+    (_, n_sp, _, _, _, _, bop_sp, w_sp, dp_sp, l_sp,
+     B_sp) = dataset_inputs(dev, "sphere2500")
+    if bop_sp.ov_rows != 0:
+        fail("sphere2500's banded tables picked a split")
+    k1_err = max(k1_err, k1_check(
+        dp_sp, l_sp, B_sp, f"sphere2500 exact chain factor (n {n_sp}, q 4)"))
     # An exact factor too large for the cluster's shared memory (the kernel's
     # tiled two-pass branch) and wider than one pass of columns.
     n_big = 33000
@@ -429,6 +466,11 @@ def main():
     print(f"K1 time at (10000, 4): kernel device {k1_dev:.5f} ms, call "
           f"{k1_call:.4f} ms, plain call {k1_plain_ms:.4f} ms, bound "
           f"{k1_bound:.5f} ms ({k1_by}) ({card})", flush=True)
+    k1_sp_dev = device_ms(lambda: tridiag_solve(dp_sp, l_sp, B_sp))
+    k1_sp_plain = call_ms(lambda: tridiag_solve_plain(dp_sp, l_sp, B_sp))
+    print(f"K1 time at sphere2500's exact factor ({n_sp}, 4): kernel device "
+          f"{k1_sp_dev:.5f} ms, plain call {k1_sp_plain:.4f} ms, bound "
+          f"{tridiag_bound(n_sp, 4)[0]:.5f} ms ({card})", flush=True)
 
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
     bop_s, _ = banded.build_banded_rcm(idx_s, n_s)
@@ -443,7 +485,9 @@ def main():
     k2_err = {}
     for key, label, b_, w_ in (
             ("K2b", "city10000 (split: du_dense 5, ov 5)", bop, w),
-            ("K2", "n 700 graph without a split", bop_s,
+            ("K2", f"sphere2500 (no split: nb {bop_sp.nb}, half "
+             f"{bop_sp.half}, du_dense {bop_sp.du_dense})", bop_sp, w_sp),
+            ("K2s", "n 700 graph without a split", bop_s,
              torch.as_tensor(w_s, dtype=torch.float32, device=dev)),
             ("K2w", f"n 2000 graph, half {bop_w.half}, du_dense "
              f"{bop_w.du_dense}, ov {bop_w.ov_rows}, duplicate edges", bop_w,
@@ -485,9 +529,8 @@ def main():
               f"({tm['bound_by']}) ({card})", flush=True)
         return tm
 
-    k2_tm = k2_times(k2_args(bop_s, torch.as_tensor(w_s, dtype=torch.float32,
-                                                    device=dev)),
-                     "K2 time without a split (n 700)")
+    k2_tm = k2_times(k2_args(bop_sp, w_sp),
+                     "K2 time at sphere2500 (no split)")
     k2b_tm = k2_times(k2_args(bop, w), "K2b time at city10000")
 
     # ---- 3c. K1b against its plain version on the card
@@ -708,42 +751,164 @@ def main():
              f"{REFERENCE_LAM2_SCALE} (1 - 1e-3)")
     if not upper5 >= lam5 * (1 - 1e-6):
         fail(f"upper bound {upper5} below the relaxed lambda_2 {lam5}")
+
+    # ---- 6. the bundled datasets, MAC(fixed, cands, n) with no knobs
+    phase("6 bundled datasets")
+    bundled_launches = {}
+    for ds, (ref_lam, want_dtype, want_backend, want_banded,
+             gap_floor) in BUNDLED.items():
+        t0 = time.perf_counter()
+        meas, n6 = read_g2o_file(str(dataset.parent / f"{ds}.g2o"))
+        fixed6, cands6 = split_edges(rpm_to_mac(meas))
+        k6 = len(cands6) // 2
+        x6 = NaiveGreedy(cands6).subset(k6)
+        mac6 = MAC(fixed6, cands6, n6)
+        setup_s = time.perf_counter() - t0
+        if mac6.device.type != "cuda":
+            fail(f"{ds}: MAC without a device argument is on {mac6.device}")
+        for kern in counted:
+            kern.launches = 0
+        times6 = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r6, u6, up6 = mac6.solve(k6, x6, use_cache=True)
+            torch.cuda.synchronize()
+            times6.append(time.perf_counter() - t0)
+        got = {kern.__name__: kern.launches for kern in counted}
+        bundled_launches[ds] = got
+        lam_u = scipy_lam2(mac6.laplacian(u6))
+        lam_r = scipy_lam2(mac6.laplacian(r6))
+        gap6 = (lam_u - ref_lam) / ref_lam
+        banded6 = mac6._banded is not None
+        ratio = mac6.spectral_ratio
+        print(f"{ds}: n {n6}, m_cand {len(cands6)}, K {k6}; dtype "
+              f"{str(mac6.dtype).split('.')[-1]}, fiedler_backend "
+              f"{mac6.fiedler_backend}, auto_dtype_reason "
+              f"{mac6.auto_dtype_reason!r}, spectral_ratio "
+              f"{'None' if ratio is None else format(ratio, '.3e')}, "
+              f"{'banded' if banded6 else mac6.op.mode} operator, fw_polish "
+              f"{mac6.fw_polish}, round_guard {mac6.round_guard}; setup "
+              f"{setup_s:.3f} s, cold {times6[0]:.4f} s, warm "
+              f"{[round(t, 4) for t in times6[1:]]} s, warm median "
+              f"{statistics.median(times6[1:]):.4f} s ({card}); relaxed "
+              f"lambda_2 {lam_u:.12g} (reference {ref_lam:.12g}, gap "
+              f"{gap6:+.3e}), rounded lambda_2 {lam_r:.12g}, upper "
+              f"{up6:.12g}; last_solve_stats {mac6.last_solve_stats}; kernel "
+              f"launches in the 4 solves {got}", flush=True)
+        if (str(mac6.dtype).split(".")[-1], mac6.fiedler_backend,
+                banded6) != (want_dtype, want_backend, want_banded):
+            fail(f"{ds} took another route than the reference's "
+                 f"({want_dtype}, {want_backend}, banded {want_banded})")
+        if mac6.fw_polish != want_banded or mac6.round_guard != want_banded:
+            fail(f"{ds}: fw_polish {mac6.fw_polish}, round_guard "
+                 f"{mac6.round_guard}, want both {want_banded}")
+        if not (np.all(np.isfinite(u6)) and np.isfinite(up6)
+                and np.isfinite(lam_u) and np.isfinite(lam_r)):
+            fail(f"{ds}: non-finite solve output")
+        if not gap6 >= gap_floor:
+            fail(f"{ds}: relaxed lambda_2 gap {gap6:+.3e} below {gap_floor}")
+        if r6.shape != (len(cands6),) or int(r6.sum()) != k6 \
+                or set(np.unique(r6)) - {0.0, 1.0}:
+            fail(f"{ds}: rounded selection holds {r6.sum()} edges, want {k6}")
+        if not up6 >= lam_u * (1 - 1e-9):
+            fail(f"{ds}: upper bound {up6} below the relaxed lambda_2 {lam_u}")
+        if want_banded:
+            if not lam_r >= 0.1 * lam_u:
+                fail(f"{ds}: rounded lambda_2 {lam_r} collapsed below 0.1 of "
+                     f"the relaxed {lam_u}")
+            if got["tridiag_solve"] <= 0 or got["assemble_ut"] <= 0:
+                fail(f"{ds} never launched K1 or the assembly kernel: {got}")
+            b6 = mac6._banded
+            print(f"{ds}: assembly form "
+                  f"{'K2b (split)' if b6.ov_rows else 'K2 (no split)'}, nb "
+                  f"{b6.nb}, half {b6.half}, du_dense {b6.du_dense}, ov_rows "
+                  f"{b6.ov_rows}; exact chain factor (n <= 4096)", flush=True)
+            if b6.ov_rows:
+                fail(f"{ds}: the solver's tables split, phase 3's did not")
+        elif any(got.values()):
+            fail(f"{ds} is host-routed but launched kernels: {got}")
+
+    # The graph that is disconnected even with every candidate.
+    from mac_tpu_torch.utils.graphs import Edge
+
+    n_d, half_d = 1200, 600
+    fixed_d = [Edge(i, i + 1, 1.0) for i in range(half_d - 1)] + \
+        [Edge(i, i + 1, 1.0) for i in range(half_d, n_d - 1)]
+    cands_d = [Edge(0, 5, 1.0), Edge(half_d, half_d + 9, 1.0),
+               Edge(2, 30, 1.0)]
+    mac_d = MAC(fixed_d, cands_d, n_d)
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_d, u_d, up_d = mac_d.solve(2)
+    obj_d = mac_d.evaluate_objective(u_d)
+    torch.cuda.synchronize()
+    disc_s = time.perf_counter() - t0
+    got_d = {kern.__name__: kern.launches for kern in counted}
+    print(f"disconnected graph (n {n_d}): dtype "
+          f"{str(mac_d.dtype).split('.')[-1]}, fiedler_backend "
+          f"{mac_d.fiedler_backend}, device {mac_d.device}, precond "
+          f"{mac_d.fiedler_precond}; solve(2) and evaluate_objective "
+          f"{disc_s:.3f} s ({card}); selected {int(r_d.sum())}, upper "
+          f"{up_d:.3e}, evaluate_objective {obj_d:.3e}; last_solve_stats "
+          f"{mac_d.last_solve_stats}; kernel launches {got_d} (float64: "
+          f"none)", flush=True)
+    if (mac_d.fiedler_backend, mac_d.dtype, mac_d.device.type) != (
+            "device", torch.float64, "cuda"):
+        fail("the disconnected graph left the float64 device engine")
+    if int(r_d.sum()) != 2 or not np.isfinite(up_d):
+        fail(f"disconnected graph: selected {r_d.sum()}, upper {up_d}")
+    if not (np.isfinite(obj_d) and abs(obj_d) < 1e-8):
+        fail(f"disconnected graph: evaluate_objective {obj_d}, want 0")
+    if any(got_d.values()):
+        fail(f"the float64 solve launched kernels: {got_d}")
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
     # with its host work (call_ms); "plain_ms": one call of the plain
     # version; "library_ms": the yardstick's device time. K2 and K2b are
     # one kernel (one wrapper, one count), timed at the two table forms;
-    # city10000 runs only the overflow form, so its launches stand under
-    # K2b and the no-split form's under K2 are 0.
+    # city10000 (phase 4) runs only the overflow form, so its launches
+    # stand under K2b; sphere2500 (phase 6) runs the form without a split,
+    # and its launches stand under K2. "launches" is the count of the
+    # kernel's own main path (K1 phase 4, K1b phase 5, K2 phase 6);
+    # "launches_sphere2500" that of phase 6's four solves.
     def k2_entry(key, replaces, shape, tm, count):
         return {"name": "assemble_ut", "route": "cuda",
                 "source": "mac_tpu_torch/csrc/assemble.cu",
-                "replaces": replaces, "shape": shape, "launches": count,
+                "replaces": replaces, "shape": shape, "launches": count[0],
+                "launches_sphere2500": count[1],
                 "max_abs_err": k2_err[key], "ms": tm["device_ms"],
                 "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                 "library_call_ms": tm["library_call_ms"]}
 
+    sphere = bundled_launches["sphere2500"]
     kernels = [
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
          "shape": "(10000, 4)", "launches": launches["tridiag_solve"],
+         "launches_sphere2500": sphere["tridiag_solve"],
          "max_abs_err": k1_err, "ms": k1_dev, "device_ms": k1_dev,
          "call_ms": k1_call, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         k2_entry("K2b", "mac_tpu/ops/pallas/assemble_kernel.py:61",
                  "city10000 tables (du_dense 5, ov 5)", k2b_tm,
-                 launches["assemble_ut"]),
+                 (launches["assemble_ut"], 0)),
         k2_entry("K2", "mac_tpu/ops/pallas/assemble_kernel.py:49",
-                 "n 700, no split", k2_tm, 0),
+                 f"sphere2500 tables (nb {bop_sp.nb}, half {bop_sp.half}, "
+                 f"du_dense {bop_sp.du_dense}, no split)", k2_tm,
+                 (sphere["assemble_ut"], sphere["assemble_ut"])),
         {"name": "tridiag_solve_blocked", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:107",
          "shape": f"({SCALE_N}, 4)",
          "launches": launches5["tridiag_solve_blocked"],
+         "launches_sphere2500": sphere["tridiag_solve_blocked"],
          "max_abs_err": k1b_err, "ms": k1b_dev, "device_ms": k1b_dev,
          "call_ms": k1b_call, "plain_ms": k1b_plain_ms,
          "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None},

@@ -58,7 +58,7 @@ from pathlib import Path
 from unittest import mock
 
 from chip_smoke import (REFERENCE_LAM2_SCALE, REFERENCE_LAM2_UNROUNDED, SCALE_N,
-                        call_ms, card_line, city10000_inputs, device_ms, fail,
+                        call_ms, card_line, dataset_inputs, device_ms, fail,
                         index_add_assembly, k2_args, pose_graph, synthetic)
 
 TURNS = ("old", "new", "new", "old")
@@ -169,7 +169,7 @@ def main():
 
     dev = torch.device("cuda")
     (_, n, fixed, cands, k, x_init, bop, w, dp1, l1,
-     B1) = city10000_inputs(dev)
+     B1) = dataset_inputs(dev)
     args_b = k2_args(bop, w)
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
     bop_s = banded.build_banded_rcm(idx_s, n_s)[0].to(dev)

@@ -107,6 +107,10 @@ def tracemin_fiedler(
     inner_iters: int = 16,
     rel_tol: Optional[float] = None,
     coeff_dtype=None,
+    lam0: Optional[torch.Tensor] = None,
+    warm_init: Optional[bool] = None,
+    min_iters: int = 0,
+    nullvec: Optional[torch.Tensor] = None,
 ) -> FiedlerResult:
     """Block inverse (subspace) iteration with Rayleigh-Ritz.
 
@@ -114,6 +118,20 @@ def tracemin_fiedler(
     lnorm: ||L||_inf (the nullspace shift c). Minv: preconditioner on
     1^perp. xprev0: (n, q) block that seeds the previous-iterate memory
     (LOBPCG's P term) before its first update.
+
+    nullvec: a unit (n,) vector spanning the operator's nullspace when that
+    is not the constant vector, e.g. D^(1/2) 1 / ||D^(1/2) 1|| for the
+    normalised Laplacian; the shift is then c u (u^T V) and the projection
+    V - u (u^T V). None is the constant vector (mean projection).
+
+    lam0 / warm_init: the warm entry. With lam0 (the (q,) Ritz values that
+    came with X0) given and warm_init true, X0 is trusted to be the
+    Ritz-ordered orthonormal block a previous call returned: it is not
+    orthonormalised again, only rotated by one Rayleigh-Ritz pass against
+    the current operator. warm_init false (or lam0 None) takes the cold
+    entry. min_iters forces that many outer iterations whatever the entry
+    residual: a warm block already within rel_tol would otherwise come back
+    as it is, the previous operator's eigenvectors.
 
     Stops when the eigenvalue-relative residual ||A x - lam x|| / lam drops
     to rel_tol (or, with a sane relative residual, the reference criterion
@@ -132,17 +150,35 @@ def tracemin_fiedler(
     c = lnorm.to(dtype)
     sigma = 32 * eps * c
 
-    def project(V):
-        m64 = V.double().mean(dim=0, keepdim=True)
-        return V - m64.to(V.dtype)
+    if nullvec is None:
+        def shift(V):
+            return _shift_term(V, c)
+
+        def project(V):
+            m64 = V.double().mean(dim=0, keepdim=True)
+            return V - m64.to(V.dtype)
+    else:
+        # Coefficients in float64, like _shift_term's means.
+        u64 = nullvec.double()
+
+        def shift(V):
+            coef = u64[None, :] @ V.double()  # (1, k)
+            return (c.double() * (u64[:, None] * coef)).to(V.dtype)
+
+        def project(V):
+            coef = u64[None, :] @ V.double()
+            return V - (u64[:, None] * coef).to(V.dtype)
 
     def apply_shifted(V):
-        return apply_L(V) + _shift_term(V, c)
+        return apply_L(V) + shift(V)
 
     def apply_inner(V):
         return apply_shifted(V) + sigma * V
 
-    X = _orth(project(X0), coeff_dtype)
+    # Cold entry: orthonormalise, then Rayleigh-Ritz. Warm entry: the
+    # Rayleigh-Ritz rotation alone.
+    warm = lam0 is not None and bool(warm_init)
+    X = X0 if warm else _orth(project(X0), coeff_dtype)
     AX = apply_shifted(X)
     H = _gram(X, AX, coeff_dtype)
     lam, Y0 = torch.linalg.eigh((H + H.T) / 2)
@@ -173,7 +209,7 @@ def tracemin_fiedler(
         # ||L||_inf is below any tolerance while the pair is still garbage.
         legacy_done = (res <= eff_tol) & (rres < 2.0)
         keep = (~legacy_done) & (rres > rel_tol_v) & (since < STALL_PATIENCE)
-        if it >= maxiter or not bool(keep):
+        if it >= min_iters and (it >= maxiter or not bool(keep)):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma)
         Y = pcg_fixed(apply_inner, X, Minv, iters=inner_iters,

@@ -145,13 +145,16 @@ def tridiag_solve_factored_fast(f: TridiagFactor,
     boundaries (f.seg divides SOLVE_BLOCK), and K1 for any other factor.
     The TPU's 32768-row and 32-column limits were its VMEM budget; the
     CUDA kernels have neither. Each kernel wrapper runs the CUDA kernel on
-    a CUDA tensor and its plain version on a CPU tensor. A block of another
-    dtype takes the plain scans on the CPU and is refused on the card."""
+    a CUDA tensor and its plain version on a CPU tensor.
+
+    A block of another dtype (the float64 routes) takes
+    tridiag_solve_factored, the plain scans, on whatever device it lies:
+    the reference's own rule for that dtype, whose kernels are float32 only
+    and whose dispatch sends every other block to its scan solve. It is no
+    way round a kernel: a float32 block on the card reaches K1 or K1b and
+    nothing else, and a kernel that fails to build or launch raises."""
     n = B.shape[0]
     if B.dtype != torch.float32:
-        if B.is_cuda:
-            raise TypeError("tridiag_solve_factored_fast: the CUDA kernels "
-                            f"take float32 blocks; got {B.dtype}")
         return tridiag_solve_factored(f, B)
     dp = f.dp if f.dp.dtype == B.dtype else f.dp.to(B.dtype)
     l = f.l if f.l.dtype == B.dtype else f.l.to(B.dtype)

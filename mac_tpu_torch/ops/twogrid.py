@@ -9,7 +9,8 @@ dense coarse-grid correction (PyTorch counterpart of mac_tpu.ops.twogrid).
     (nc, nc) Laplacian of the coarse edges, accumulated in float64 by one
     index_add_ (the TPU assembled it from one-hot matrix products because
     its scatters are slow), shifted by (cshift / nc) 1 1^T to make it SPD
-    and inverted once per weight vector through a float64 Cholesky factor.
+    and inverted once per weight vector through a float64 Cholesky factor
+    (regularised when the graph's components leave it singular).
   * One symmetric V-cycle: pre-smooth, coarse-correct, post-smooth, with
     the input and output centred (the preconditioner acts on 1^perp).
 """
@@ -54,8 +55,17 @@ def make_twogrid_precond(
     cshift = 2.0 * torch.diagonal(Lc).max() + 1.0
     Lc_reg = Lc + (cshift / nc) * torch.ones_like(Lc)
     eye = torch.eye(nc, dtype=torch.float64, device=w.device)
-    Rc_inv = torch.linalg.solve_triangular(cholesky_upper(Lc_reg), eye,
-                                           upper=True)
+    Rc = cholesky_upper(Lc_reg)
+    piv = torch.diagonal(Rc)
+    if not bool(piv.min() > 1e-7 * piv.max()):
+        # The constant shift lifts one null vector. A graph of several
+        # components made of whole aggregates leaves Lc a null vector per
+        # component (lambda_2 = 0), so the factor's last pivot is 0 up to
+        # rounding, or NaN. The banded preconditioner's jitter, 1% of the
+        # mean diagonal, makes such a coarse level a bounded smoother of
+        # those modes and leaves them to the eigensolver.
+        Rc = cholesky_upper(Lc_reg + (1e-2 * torch.trace(Lc) / nc) * eye)
+    Rc_inv = torch.linalg.solve_triangular(Rc, eye, upper=True)
     Lc_inv = (Rc_inv @ Rc_inv.T).to(dtype)
     pad = nc * s - n
 

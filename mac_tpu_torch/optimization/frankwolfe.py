@@ -26,6 +26,7 @@ def frank_wolfe_with_state(
     relative_duality_gap_tol: float = 1e-5,
     grad_norm_tol: float = 1e-10,
     tail_average_from: Optional[int] = None,
+    verbose: bool = False,
 ):
     """Maximise a concave f via Frank-Wolfe.
 
@@ -37,6 +38,7 @@ def frank_wolfe_with_state(
         objective makes the accumulated bound fire spuriously).
     tail_average_from: when set, return the mean of the iterates evaluated
         from that step index on (Cesaro tail average).
+    verbose: print f and the duality gap at every step.
 
     Returns (x, u, state, num_iters) with u the running dual upper bound.
     """
@@ -52,6 +54,8 @@ def frank_wolfe_with_state(
         f, gradf, state = problem(x, state)
         s = solve_lp(gradf)
         u = torch.minimum(u, f + gradf @ (s - x))
+        if verbose:
+            print(f"FW iter {it}: f = {float(f)}, gap = {float(u - f)}")
         # Scale-aware gradient stop: min(1, |f|) keeps normal-scale graphs
         # at the reference's absolute test.
         small_grad = (torch.linalg.vector_norm(gradf)

@@ -1,32 +1,51 @@
 """MAC: maximize algebraic connectivity of an edge-budgeted graph.
 
-PyTorch counterpart of mac_tpu.solvers.mac.MAC on its two float32 device
-routes: fix a base edge set, relax the K-subset selection of candidate
-edges to the box [0, 1]^m with |x| <= K, maximise F(x) = lambda_2(L(x)) by
-Frank-Wolfe with a warm-started Fiedler oracle, round back to a binary
-selection, and certify the result with a float64 dual bound on the host.
+PyTorch counterpart of mac_tpu.solvers.mac.MAC: fix a base edge set, relax
+the K-subset selection of candidate edges to the box [0, 1]^m with
+|x| <= K, maximise F(x) = lambda_2(L(x)) by Frank-Wolfe with a warm-started
+Fiedler oracle, round back to a binary selection (nearest or Madow), and
+certify the result with a float64 dual bound.
 
-Routes, chosen as the reference chooses them:
-  * banded: a graph with a narrow RCM band takes the block-banded operator
-    (kernels K2/K2b and K1) and the reference's fast32 policy, knob for
-    knob: eigensolver tol 6e-4, 50 outer iterations, 10 inner CG steps,
-    relative tolerance 3e-2, float32 coefficient algebra; warm Frank-Wolfe
-    steps capped at 4 / 2 / 1 outer iterations from steps 1 / 4 / 10 with 5
-    inner CG steps; 32 Frank-Wolfe steps, duality-gap stop off, Cesaro tail
-    averaging from step 16; the coarse inverse refreshed by Newton-Schulz
-    from step 4.
-  * matrix-free: any other graph (or use_banded=False) takes the ELL
-    GraphOperator in original node ids (a dense matrix for n <= 256) with
-    the two-grid V-cycle (kernel K1, or K1b past 32768 nodes) and the
+`MAC(fixed, cands, n)` routes by itself, as the reference does on an
+accelerator session (the rule holds on every device of the port, whose CPU
+runs rehearse the card):
+
+  * dtype. A host spectral probe (choose_compute_dtype) escalates to
+    float64 when lambda_2 / ||L||_inf at the mid-box point is below float32
+    resolution (a tiny gap: kitti_02, kitti_05, ais2klinik); instances of
+    at most SMALL_HOST_N nodes take float64 too (intel). An explicit dtype,
+    use_banded or fiedler_backend bypasses the second rule, an explicit
+    dtype both.
+  * fiedler_backend. Those two kinds of instance run the host engine
+    (solvers._host: numpy Frank-Wolfe, scipy splu TRACEMIN, 20 steps under
+    a 1e-4 duality-gap stop) unless the graph is disconnected even with
+    every candidate (lambda_2 = 0: the grounded system is singular), which
+    stays on the device engine. Everything else runs the device engine.
+  * the device operator. In float32 a graph with a narrow RCM band takes
+    the block-banded operator (kernels K2/K2b and K1) and the reference's
+    fast32 policy, knob for knob: eigensolver tol 6e-4, 50 outer
+    iterations, 10 inner CG steps, relative tolerance 3e-2, float32
+    coefficient algebra; warm Frank-Wolfe steps capped at 4 / 2 / 1 outer
+    iterations from steps 1 / 4 / 10 with 5 inner CG steps; 32 Frank-Wolfe
+    steps, duality-gap stop off, Cesaro tail averaging from step 16; the
+    coarse inverse refreshed by Newton-Schulz from step 4. For n <= 4096
+    two exact float64 host tails follow (solvers._host): the guarded polish
+    step and the post-rounding round guard. Any other graph, and every
+    float64 solve, takes the ELL GraphOperator in original node ids (a
+    dense matrix for n <= 256) with the two-grid V-cycle (kernel K1, or K1b
+    past 32768 nodes, in float32; the plain scans in float64, for which the
+    reference has no kernel either) or the chain solve alone, and the
     reference defaults: tol 1e-8, 200 outer iterations, 16 inner CG steps,
     the dtype's relative tolerance, float64 coefficient algebra, the full
     budget on warm steps, 5 Frank-Wolfe steps.
-Both round to the nearest selection in the loop's output.
 
-Routes this slice of the port does not have raise NotImplementedError with
-the slice that adds them; none runs something else in their place.
+Routes the port does not have yet raise NotImplementedError naming the
+slice that adds them (a device mesh; the banded operator in float64; LOBPCG
+or dense eigh on the banded operator); none runs something else in their
+place.
 """
 
+import os
 from dataclasses import dataclass
 from timeit import default_timer as timer
 from typing import Optional
@@ -40,18 +59,22 @@ from mac_tpu_torch.ops.laplacian import build_operator
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.optimization.constraints import solve_subset_box_lp
 from mac_tpu_torch.optimization.frankwolfe import frank_wolfe_with_state
+from mac_tpu_torch.solvers._host import HostSolveMixin, _graph_is_connected
 from mac_tpu_torch.utils import fiedler as _fiedler
 from mac_tpu_torch.utils.graphs import (edges_to_arrays,
                                         weight_graph_lap_from_edges)
-from mac_tpu_torch.utils.rounding import round_nearest
+from mac_tpu_torch.utils.rounding import round_nearest, round_nearest_np
 
 # lambda_2 / ||L||_inf below this cannot be resolved by a float32 eigensolve.
 F32_SPECTRAL_RATIO_MIN = 1.2e-5
-# The reference routes instances this small to its host float64 engine.
+# The routing's size gate: without a mesh, instances of at most this many
+# nodes run the host float64 engine even where float32 resolves their gap.
+# The reference's rule, kept for parity: on graphs this small the device
+# route's fixed cost per step outweighs its arithmetic, and the exact host
+# solve needs no polish. intel (n = 1728) lies below the gate; sphere2500
+# (n = 2500) above it, because its collapsed nearest rounding needs the
+# device route's round guard.
 SMALL_HOST_N = 2000
-# Seed of the default random block that starts TRACEMIN's previous-iterate
-# memory (the reference uses jax.random.PRNGKey(7)).
-XPREV_SEED = 7
 
 
 def _not_in_slice(what: str, where: str) -> NotImplementedError:
@@ -136,26 +159,42 @@ def choose_compute_dtype(fixed_idx, w_fixed, cand_idx, w_cand, num_nodes):
         return torch.float32, None
 
 
-class MAC:
-    """Algebraic-connectivity-maximizing edge selection (float32, on the
-    banded or the matrix-free route; see the module docstring).
+class MAC(HostSolveMixin):
+    """Algebraic-connectivity-maximizing edge selection; the module
+    docstring says how an instance routes itself.
 
     fixed_edges / candidate_edges: lists of `Edge` (or (idx, w) arrays).
     num_nodes: number of graph nodes.
-    device: where the solve runs, "cuda" by default; "cpu" runs the
+    device: where the device engine runs, "cuda" by default; "cpu" runs the
         kernels' plain PyTorch versions.
+    dtype: torch.float32 or torch.float64; None is float32, escalated to
+        float64 by the spectral probe or the size gate (`auto_dtype_reason`
+        says which, `spectral_ratio` holds the probe's ratio).
+    fiedler_backend: "device" (the eigensolver of mac_tpu_torch.ops.lobpcg
+        on `device`), "host" (numpy and scipy splu, solvers._host), or None
+        for the automatic rule. The attribute holds the resolved value.
     The eigensolver and Frank-Wolfe knobs mirror mac_tpu.solvers.mac.MAC;
     None selects the route's automatic policy.
     fiedler_method: "tracemin" (its "_lu" / "_cholesky" aliases), or, on
-        the matrix-free route, "lobpcg" or "dense" (exact eigh).
-    fiedler_precond: the matrix-free route's preconditioner, "twogrid" or
-        "tridiag"; None takes "tridiag" for a float64 solve whose fixed
+        the matrix-free operator, "lobpcg" or "dense" (exact eigh).
+    fiedler_precond: the matrix-free operator's preconditioner, "twogrid"
+        or "tridiag"; None takes "tridiag" for a float64 solve whose fixed
         edges hold the odometry chain and whose candidates number at most
-        n / 5, "twogrid" otherwise (so always "twogrid" here).
-    fw_polish / round_guard: the reference's exact host polish step and
-        post-rounding repair (round_guard is an attribute there). Both
-        resolve True on the banded route for n <= 4096, which this slice
-        does not run -- pass False for such graphs -- and False elsewhere.
+        n / 5, "twogrid" otherwise.
+    precond_refresh_period: on the banded route, rebuild the preconditioner
+        only every p-th Frank-Wolfe step from step 8 on; on the host engine
+        the splu cadence (the automatic rule there refactors every step).
+    fw_polish / round_guard: the exact float64 host polish step and
+        post-rounding repair (round_guard is an attribute in the
+        reference). None resolves True on the banded route for n <= 4096
+        and False elsewhere. The polish schedule is held in the attributes
+        fw_polish_rounds, fw_polish_target, fw_polish_eval_budget and
+        fw_polish_big_gap. An automatic polish is skipped when the loop's
+        own duality gap estimate exceeds fw_polish_big_gap; an explicit
+        fw_polish=True always runs.
+    host_pcg (attribute, False): on the host engine, solve warm steps by
+        block CG preconditioned with the last factor instead of
+        refactoring.
 
     `xprev0` (n, q) is the random block that seeds the eigensolver's
     previous-iterate memory; it defaults to N(0, 1) from a torch.Generator
@@ -187,6 +226,7 @@ class MAC:
         use_banded=None,
         fw_tail_average=None,
         fiedler_precond=None,
+        fiedler_backend=None,
         precond_refresh_period=None,
         fw_polish=None,
         round_guard=None,
@@ -209,26 +249,44 @@ class MAC:
             raise ValueError(f"unknown fiedler_method {fiedler_method!r}")
         if fiedler_precond not in (None, "twogrid", "tridiag"):
             raise ValueError(f"unknown fiedler_precond {fiedler_precond!r}")
+        if fiedler_backend not in (None, "device", "host"):
+            raise ValueError(f"unknown fiedler_backend {fiedler_backend!r}")
 
+        self.auto_dtype_reason = None
         self.spectral_ratio = None
+        self._tiny_gap = False
+        self._small_host = False
         if dtype is None:
             dtype, ratio = choose_compute_dtype(
                 fixed_idx, w_fixed, cand_idx, w_cand, n)
             self.spectral_ratio = ratio
             if dtype == torch.float64:
-                raise _not_in_slice(
+                self.auto_dtype_reason = (
                     f"lambda_2/||L||_inf ~ {ratio:.2e} is below float32 "
-                    "resolution and needs the float64 host engine, which",
-                    "comes with slice B (item 11)")
-            if n <= SMALL_HOST_N and use_banded is None:
-                raise _not_in_slice(
-                    f"The host float64 engine for small instances (n <= "
-                    f"{SMALL_HOST_N})", "it comes with slice B (item 11); "
-                    "pass dtype=torch.float32 and use_banded=True (or "
-                    "False) for a device route")
-        if dtype != torch.float32:
-            raise _not_in_slice(f"dtype={dtype}", "float64 solves come with "
-                                "slice B (item 11)")
+                    "resolution; escalated to float64")
+                self._tiny_gap = True
+            elif (n <= SMALL_HOST_N and fiedler_backend is None
+                  and use_banded is None):
+                # See SMALL_HOST_N. An explicit dtype, use_banded or
+                # fiedler_backend bypasses this: the knobs win.
+                dtype = torch.float64
+                self.auto_dtype_reason = (
+                    f"small instance (n <= {SMALL_HOST_N}): the host float64 "
+                    "engine outweighs the device route's fixed cost")
+                self._small_host = True
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype} is neither torch.float32 nor "
+                             "torch.float64")
+        if fiedler_backend is None:
+            # The probe's ratio cannot tell "disconnected" from "tiny gap"
+            # (its estimate is noise at that level), so an exact O(m)
+            # connectivity check decides; see _graph_is_connected.
+            host_want = self._tiny_gap or self._small_host
+            fiedler_backend = (
+                "host" if host_want and _graph_is_connected(
+                    np.concatenate([fixed_idx, cand_idx], axis=0), n)
+                else "device")
+        self.fiedler_backend = fiedler_backend
         self.dtype = dtype
         self.device = resolve_device(device)
         self.num_nodes = n
@@ -236,11 +294,20 @@ class MAC:
         self.cand_idx = cand_idx
         self.weights = np.asarray(w_cand)
         self.edge_list = np.asarray(cand_idx)
+        self._w_fixed_np = torch.as_tensor(w_fixed, dtype=dtype).numpy()
 
-        # Route: the banded operator when the graph admits a narrow RCM
-        # band (and use_banded is not False), else the matrix-free one.
+        # The device operator: in float32 the banded one when the graph
+        # admits a narrow RCM band (and use_banded is not False), else the
+        # matrix-free one; in float64 always the matrix-free one.
         all_idx = np.concatenate([fixed_idx, cand_idx], axis=0)
-        bop, ridx = (build_banded_rcm(all_idx, n) if use_banded is not False
+        if use_banded and dtype != torch.float32:
+            raise _not_in_slice(
+                f"use_banded=True with dtype={dtype} (the banded operator "
+                "is the port's float32 route: its assembly kernel is "
+                "float32 only)", "float64 solves take the matrix-free "
+                "operator: leave use_banded unset")
+        bop, ridx = (build_banded_rcm(all_idx, n)
+                     if use_banded is not False and dtype == torch.float32
                      else (None, None))
         self._banded = None
         self._perm = None
@@ -271,7 +338,7 @@ class MAC:
 
         if fiedler_precond is None:
             # The reference's rule: the chain solve alone for float64
-            # solves of a chain with few candidates (never so here).
+            # solves of a chain with few candidates.
             chain_only = (dtype == torch.float64
                           and cand_idx.shape[0] <= 0.2 * n
                           and extract_chain_weights(fixed_idx, w_fixed, n)
@@ -319,30 +386,37 @@ class MAC:
         self._tail_average_user_set = fw_tail_average is not None
         self.fw_tail_average = bool(fast32 if fw_tail_average is None
                                     else fw_tail_average)
+        self._precond_period_user = precond_refresh_period is not None
         self.precond_refresh_period = (1 if precond_refresh_period is None
                                        else int(precond_refresh_period))
         self.min_selection_weight_tol = float(min_selection_weight_tol)
-        # The reference turns on its exact host polish step and round guard
-        # on the banded route for n <= 4096; both are host float64
-        # eigensolves (slice B).
+        # The exact host tails: automatic on the banded float32 route for
+        # small graphs, where the float32 termination band is widest
+        # relative to the objective and the narrow band keeps the host splu
+        # eigensolves nearly free of fill. The guard is independent of
+        # fw_polish=False: it pins the rounded value, the polish the
+        # relaxed one.
         small_banded = fast32 and n <= 4096
+        self._fw_polish_user_set = fw_polish is not None
         self.fw_polish = bool(small_banded if fw_polish is None
                               else fw_polish)
         self.round_guard = bool(small_banded if round_guard is None
                                 else round_guard)
-        if self.fw_polish or self.round_guard:
-            raise _not_in_slice(
-                "The exact float64 polish step and round guard (on by "
-                "default on the banded route for n <= 4096)",
-                "they come with slice B (item 10); pass fw_polish=False "
-                "and round_guard=False")
+        # The polish schedule (see _host_polish): at most this many exact
+        # rounds, stop below this certified relative duality gap, at most
+        # this many eigensolves beyond the base one, and one round only
+        # when the first certified gap exceeds big_gap (an endpoint limited
+        # by the step count, which no budget can certify away).
+        self.fw_polish_rounds = 6
+        self.fw_polish_target = 5e-6
+        self.fw_polish_eval_budget = 12
+        self.fw_polish_big_gap = 5e-3
+        self.host_pcg = False
 
         self._q = min(int(fiedler_block_q or 4), n - 1)
         self._X0 = torch.as_tensor(_fiedler.default_block(n, self._q),
                                    dtype=dtype, device=self.device)
-        gen = torch.Generator().manual_seed(XPREV_SEED)
-        self.xprev0 = torch.randn((n, self._q), generator=gen,
-                                  dtype=dtype).to(self.device)
+        self.xprev0 = _fiedler.default_xprev(n, self._q, dtype, self.device)
 
     @staticmethod
     def _check_schedule(sched):
@@ -422,7 +496,7 @@ class MAC:
     def _fw_impl(self, params, x0, X0, *, k: int, maxiter: int,
                  relative_duality_gap_tol: float, grad_norm_tol: float,
                  use_cache: bool, schedule=None, inner_schedule=None,
-                 tail_average: bool = False):
+                 tail_average: bool = False, verbose: bool = False):
         """The Frank-Wolfe loop with the Ritz block, the cumulative Fiedler
         iteration count, the step index and the preconditioner state
         threaded through its state; nearest rounding of the result (ties
@@ -469,7 +543,7 @@ class MAC:
             lambda g: solve_subset_box_lp(g, k),
             maxiter=maxiter,
             relative_duality_gap_tol=relative_duality_gap_tol,
-            grad_norm_tol=grad_norm_tol,
+            grad_norm_tol=grad_norm_tol, verbose=verbose,
             tail_average_from=(maxiter // 2 if tail_average else None))
         rounded = round_nearest(x, k, weights=params[1],
                                 break_ties_decimal_tol=10)
@@ -477,25 +551,55 @@ class MAC:
 
     def _refine_lambda(self, x, v) -> float:
         """Float64 Rayleigh quotient of the Fiedler vector on the host, an
-        exact sum over edges: v^T L(x) v = sum_e w_e (v_i - v_j)^2."""
+        exact sum over edges: v^T L(x) v = sum_e w_e (v_i - v_j)^2. `v`
+        lives in the device operator's node ids (_int_idx)."""
         v = np.asarray(v, dtype=np.float64)
         v = v - v.mean()
         x = np.asarray(x, dtype=np.float64)
         keep = x > self.min_selection_weight_tol
         idx = self._int_idx
         w = np.concatenate(
-            [self._w_fixed.cpu().numpy().astype(np.float64),
+            [self._w_fixed_np.astype(np.float64),
              np.where(keep, x, 0.0) * np.asarray(self.weights, np.float64)])
         d = v[idx[:, 0]] - v[idx[:, 1]]
         return float((w * d * d).sum() / (v * v).sum())
 
-    def _eval_rel_tol(self) -> float:
-        """Residual tolerance of standalone objective evaluations: at most
-        1e-3, since the Rayleigh quotient over-reports lambda_2 by up to
-        ||r||_rel^2 / gap and the banded route's in-loop 3e-2 would bias
-        it by ~1e-3 relative."""
-        rt = self.fiedler_rel_tol
-        return 1e-3 if rt is None else min(float(rt), 1e-3)
+    def _eval_rel_tol(self):
+        """Residual tolerance of standalone objective evaluations. In
+        float32 at most 1e-3, since the Rayleigh quotient over-reports
+        lambda_2 by up to ||r||_rel^2 / gap and the banded route's in-loop
+        3e-2 would bias it by ~1e-3 relative; in float64 the solver's own
+        fiedler_rel_tol."""
+        if self.dtype == torch.float32:
+            rt = self.fiedler_rel_tol
+            return 1e-3 if rt is None else min(float(rt), 1e-3)
+        return self.fiedler_rel_tol
+
+    def _eval_impl(self, params, x: torch.Tensor, X0: torch.Tensor):
+        """The eigensolve of an objective evaluation: from the cold start
+        block, at least 100 outer iterations, the evaluation tolerance."""
+        return self._fiedler(params, self._w_all(params, x), X0,
+                             maxiter=max(self.fiedler_maxiter, 100),
+                             rel_tol=self._eval_rel_tol())
+
+    def _eval_many_impl(self, params, xs, X0: torch.Tensor):
+        """lambda_2 estimates (the eigensolver's, not refined) of a batch
+        of selections, one solve each."""
+        return [float(self._eval_impl(
+            params, torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                                    device=self.device), X0).lam[0])
+                for x in xs]
+
+    def _to_original_ids(self, X) -> np.ndarray:
+        """A device Ritz block as float64 numpy in original node ids: the
+        banded operator works in RCM ids, row i of its block being node
+        perm[i]."""
+        X_np = np.asarray(X, np.float64)
+        if self._perm is None:
+            return X_np
+        out = np.empty_like(X_np)
+        out[self._perm] = X_np
+        return out
 
     # ------------------------------------------------------------ public API
 
@@ -505,20 +609,19 @@ class MAC:
         x = np.asarray(x)
         keep = x > self.min_selection_weight_tol
         idx = np.concatenate([self.fixed_idx, self.cand_idx[keep]], axis=0)
-        w = np.concatenate([self._w_fixed.cpu().numpy(),
-                            x[keep] * self.weights[keep]])
+        w = np.concatenate([self._w_fixed_np, x[keep] * self.weights[keep]])
         return weight_graph_lap_from_edges(idx, w, self.num_nodes)
 
     def evaluate_objective(self, x) -> float:
-        """F(x) = lambda_2(L(x)): a Fiedler solve from the cold start block
-        with at least 100 outer iterations and the evaluation tolerance,
-        refined to float64 on the host by the exact edge-sum Rayleigh
-        quotient of its Fiedler vector."""
+        """F(x) = lambda_2(L(x)) by the device engine (on every route; the
+        host engine's instances evaluate in float64 there). In float32 the
+        value is refined to float64 on the host by the exact edge-sum
+        Rayleigh quotient of the Fiedler vector."""
         x = torch.as_tensor(np.array(x), dtype=self.dtype,
                             device=self.device)
-        res = self._fiedler(self._params, self._w_all(self._params, x),
-                            self._X0, maxiter=max(self.fiedler_maxiter, 100),
-                            rel_tol=self._eval_rel_tol())
+        res = self._eval_impl(self._params, x, self._X0)
+        if self.dtype == torch.float64:
+            return float(res.lam[0])
         return self._refine_lambda(x.cpu().numpy(), res.X[:, 0].cpu().numpy())
 
     def problem(self, x, cache: Optional["MAC.Cache"] = None):
@@ -539,40 +642,99 @@ class MAC:
         k: int,
         x_init=None,
         rounding: str = "nearest",
+        fallback: bool = False,
         max_iters: Optional[int] = None,
         relative_duality_gap_tol: Optional[float] = None,
         grad_norm_tol: float = 1e-8,
+        random_rounding_max_iters: int = 1,
+        verbose: bool = False,
+        return_rounding_time: bool = False,
         use_cache: bool = True,
+        seed: int = 0,
+        profile_dir: Optional[str] = None,
     ):
         """Solve the budgeted edge-selection problem.
 
-        Returns (rounded, unrounded, upper_bound) as in
-        mac_tpu.solvers.mac.MAC.solve. max_iters=None selects the route's
-        policy: on the banded route the fast32 one (32 steps, warm-cap
-        schedule (1, 4), (4, 2), (10, 1), tail averaging, gap stop off), on
-        the matrix-free route the reference's 5 steps. An explicit
+        Returns (rounded, unrounded, upper_bound[, rounding seconds]) as
+        mac_tpu.solvers.mac.MAC.solve does; k >= m selects everything and
+        k <= 0 nothing, each with F of that selection as the bound.
+
+        rounding: "nearest" (ties to the larger candidate weight) or
+        "madow" (systematic sampling, the best of
+        random_rounding_max_iters samples drawn from `seed`). fallback:
+        return x_init when the rounded selection scores below it.
+
+        max_iters=None selects the route's policy: on the banded route the
+        fast32 one (32 steps, warm-cap schedule (1, 4), (4, 2), (10, 1),
+        tail averaging, gap stop off; for n <= 4096 the exact polish and
+        the round guard follow), on the host engine 20 exact steps under
+        the 1e-4 gap stop, elsewhere the reference's 5 steps. An explicit
         max_iters keeps the reference semantics (gap stop 1e-4, no tail
-        averaging unless asked for). With use_cache, upper_bound is a
-        rigorous float64 certificate: the final-iterate Rayleigh quotient
-        plus its supergradient linearisation maximised over the feasible
-        set.
+        averaging unless asked for).
+
+        In float32 with use_cache, upper_bound is a rigorous float64
+        certificate: the final iterate's Rayleigh quotient (of the polish's
+        exact eigenvector when it ran) plus its supergradient linearisation
+        maximised over the feasible set. In float64 it is the loop's own
+        dual bound.
+
+        profile_dir: run the solve under torch.profiler and write its
+        Chrome trace to profile_dir/solve_trace.json.
         """
+        if profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                out = self.solve(
+                    k, x_init=x_init, rounding=rounding, fallback=fallback,
+                    max_iters=max_iters,
+                    relative_duality_gap_tol=relative_duality_gap_tol,
+                    grad_norm_tol=grad_norm_tol,
+                    random_rounding_max_iters=random_rounding_max_iters,
+                    verbose=verbose,
+                    return_rounding_time=return_rounding_time,
+                    use_cache=use_cache, seed=seed)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, "solve_trace.json"))
+            return out
+        if rounding not in ("nearest", "madow"):
+            raise ValueError(f"unknown rounding {rounding!r}")
         m = len(self.weights)
         k = int(k)
         if k >= m or k <= 0:
-            raise _not_in_slice(f"The k={k} shortcut (k <= 0 or k >= m)",
-                                "it comes with slice B (item 12)")
-        if rounding != "nearest":
-            raise _not_in_slice(f"rounding={rounding!r}",
-                                "Madow rounding comes with slice B (item 12)")
+            result = np.ones(m) if k >= m else np.zeros(m)
+            obj = self.evaluate_objective(result)
+            if return_rounding_time:
+                return result, result, obj, 0.0
+            return result, result, obj
         if x_init is None:
             x_init = np.full(m, k / m)
-        x_init = torch.as_tensor(np.asarray(x_init), dtype=self.dtype,
-                                 device=self.device)
-        if x_init.shape != (m,):
-            raise ValueError(f"x_init has shape {tuple(x_init.shape)}, "
+        x_init_np = np.asarray(x_init, np.float64)
+        if x_init_np.shape != (m,):
+            raise ValueError(f"x_init has shape {x_init_np.shape}, "
                              f"want ({m},)")
 
+        if self.fiedler_backend == "host":
+            rounded, x, upper, rounding_time = self._solve_host(
+                k, x_init_np, rounding,
+                20 if max_iters is None else int(max_iters),
+                (1e-4 if relative_duality_gap_tol is None
+                 else float(relative_duality_gap_tol)),
+                grad_norm_tol, random_rounding_max_iters, verbose, seed,
+                use_cache)
+            if fallback and (self.evaluate_objective(rounded)
+                             < self.evaluate_objective(x_init_np)):
+                rounded = x_init_np
+            if return_rounding_time:
+                return rounded, x, upper, rounding_time
+            return rounded, x, upper
+
+        x_init = torch.as_tensor(x_init_np, dtype=self.dtype,
+                                 device=self.device)
         schedule = self._warm_schedule
         tail_avg = False
         if max_iters is None and self._banded is None:
@@ -595,8 +757,9 @@ class MAC:
             self._params, x_init, self._X0, k=k, maxiter=int(max_iters),
             relative_duality_gap_tol=float(relative_duality_gap_tol),
             grad_norm_tol=float(grad_norm_tol), use_cache=bool(use_cache),
-            schedule=schedule,
-            inner_schedule=self._warm_inner_schedule, tail_average=tail_avg)
+            schedule=schedule, inner_schedule=self._warm_inner_schedule,
+            tail_average=tail_avg, verbose=bool(verbose))
+        # The one fetch: everything below is host math.
         x = x_dev.cpu().numpy()
         u = float(u_dev)
         X = X_dev.cpu().numpy()
@@ -606,7 +769,7 @@ class MAC:
             # candidate) can NaN the accumulated bound; substitute
             # lambda_2 <= 2 max weighted degree of the full graph.
             deg = np.zeros(self.num_nodes)
-            all_w = np.concatenate([self._w_fixed.cpu().numpy(),
+            all_w = np.concatenate([self._w_fixed_np,
                                     np.asarray(self.weights)]
                                    ).astype(np.float64)
             np.add.at(deg, self._int_idx[:, 0], all_w)
@@ -618,15 +781,85 @@ class MAC:
             "fw_time_s": timer() - solve_start,
             "tail_averaged": bool(tail_avg),
         }
-        # Nearest rounding ran with the loop; no guard or exact evaluations.
-        self.last_solve_stats["round_guard"] = False
-        self.last_solve_stats["exact_evals"] = 0
 
+        polished_v = None
+        polished_X = None
+        self._exact_evals = 0  # host float64 eigensolves of polish + guard
+        run_polish = self.fw_polish
+        if run_polish and use_cache and not self._fw_polish_user_set:
+            # The pre-gate of the automatic polish (see fw_polish_big_gap):
+            # the certified relative duality gap at the float32 endpoint,
+            # estimated from the in-loop dual bound and the float64-refined
+            # Rayleigh quotient, both in hand. An endpoint limited by the
+            # step count cannot close its certificate within any sane
+            # budget, so the host tail is skipped. An explicit
+            # fw_polish=True is not gated; nor is a use_cache=False run,
+            # whose X is the untouched start block and gives no estimate.
+            f_est = self._refine_lambda(x, X[:, 0])
+            gap_est = (u - f_est) / abs(f_est) if f_est else np.inf
+            if gap_est > self.fw_polish_big_gap:
+                run_polish = False
+                self.last_solve_stats["polished"] = False
+                self.last_solve_stats["polish_skipped_gap"] = float(gap_est)
+        if run_polish:
+            polish_start = timer()
+            # The exact solves run in original node ids: the device basis
+            # goes in through the permutation and the exact eigenvector
+            # comes back through it, into the _int_idx space the
+            # certificate below indexes. It is used even when the step is
+            # rejected: it still tightens the certificate.
+            x_pol, v_pol, polished_X, accepted = self._host_polish(
+                x.astype(np.float64), k, X_warm=self._to_original_ids(X))
+            polished_v = v_pol if self._perm is None else v_pol[self._perm]
+            if accepted:
+                x = x_pol
+                # The in-loop nearest rounding saw the iterate before the
+                # polish.
+                rounded = round_nearest_np(
+                    x_pol, k, weights=np.asarray(self.weights, np.float64),
+                    break_ties_decimal_tol=10)
+            self.last_solve_stats["polished"] = bool(accepted)
+            self.last_solve_stats["polish_time_s"] = timer() - polish_start
+
+        start = timer()
+        if rounding == "madow":
+            R = max(int(random_rounding_max_iters), 1)
+            xs = self._madow_samples(x, k, seed, R)
+            vals = (self._eval_many_impl(self._params, xs, self._X0)
+                    if R > 1 else [0.0])
+            rounded = xs[int(np.argmax(vals))]
+        self.last_solve_stats["round_guard"] = False
+        if rounding == "nearest" and self.round_guard:
+            # The relaxed float64 anchor: the exact edge-sum Rayleigh
+            # quotient of the best Fiedler vector in hand.
+            v_int = (polished_v if polished_v is not None
+                     else np.asarray(X[:, 0], np.float64))
+            f_rel64 = self._refine_lambda(x, v_int)
+            X_guard = (polished_X if polished_X is not None
+                       else self._to_original_ids(X))
+            guard_start = timer()
+            rounded, guard_hit = self._round_guard_impl(
+                np.asarray(rounded), x, f_rel64, k, seed, X_warm=X_guard)
+            self.last_solve_stats["round_guard"] = bool(guard_hit)
+            self.last_solve_stats["guard_time_s"] = timer() - guard_start
+        self.last_solve_stats["exact_evals"] = self._exact_evals
+        rounding_time = timer() - start
+
+        if fallback and (self.evaluate_objective(rounded)
+                         < self.evaluate_objective(x_init_np)):
+            rounded = x_init_np
+
+        rounded = np.asarray(rounded)
         unrounded = x
         upper = u
-        if use_cache:
-            # Rigorous float64 certificate at the final iterate.
-            v = np.asarray(X[:, 0], dtype=np.float64)
+        if self.dtype == torch.float32 and use_cache:
+            # The in-loop bound carries the float32 eigenvalue noise of its
+            # f_i and can land below the refined objective; replace it by a
+            # rigorous float64 certificate at the final iterate. (With the
+            # cache off, X is the untouched start block, whose Rayleigh
+            # quotient is uselessly loose: the in-loop bound stays.)
+            v = (polished_v if polished_v is not None
+                 else np.asarray(X[:, 0], dtype=np.float64))
             f64 = self._refine_lambda(unrounded, v)
             ci = self._int_idx[len(self.fixed_idx):]
             d = v[ci[:, 0]] - v[ci[:, 1]]
@@ -637,4 +870,6 @@ class MAC:
             s[top[grad64[top] > 0]] = 1.0
             upper = float(f64 + grad64 @ (s - unrounded))
         self.last_solve_stats["solve_total_s"] = timer() - solve_start
+        if return_rounding_time:
+            return rounded, unrounded, upper, rounding_time
         return rounded, unrounded, upper

@@ -1,20 +1,31 @@
-"""Fiedler-pair front end (PyTorch counterpart of
-mac_tpu.utils.fiedler.fiedler_pair_op) on the banded operator or on a
-matrix-free GraphOperator, the deterministic start block, and the float64
-scipy referee."""
+"""Fiedler-pair front end (PyTorch counterpart of mac_tpu.utils.fiedler).
 
-from typing import Optional
+fiedler_pair_op solves on the banded operator or on a matrix-free
+GraphOperator; find_fiedler_pair (and its reference-name wrappers) takes a
+host Laplacian matrix, scipy sparse or dense, and returns
+(lambda_2, v_2, X block) so that callers can warm-start the next solve, on
+the plain or on the normalised Laplacian. Also here: the deterministic
+start block, the device's default dtype, and the float64 scipy referee.
+Disconnected graphs are supported (lambda_2 = 0).
+"""
+
+from typing import Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+
+from mac_tpu_torch.device import resolve_device
 
 from mac_tpu_torch.ops import banded as _banded
 from mac_tpu_torch.ops.cg import pcg_fixed
 from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
-                                         lap_applier, lap_dense,
-                                         lap_inf_norm, lap_tridiagonal_part)
+                                         build_operator, lap_applier,
+                                         lap_dense, lap_inf_norm,
+                                         lap_tridiagonal_part)
 from mac_tpu_torch.ops.lobpcg import (_shift_term, dense_fiedler,
                                       lobpcg_fiedler, tracemin_fiedler)
+from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
 from mac_tpu_torch.ops.twogrid import make_twogrid_precond
@@ -32,6 +43,13 @@ def scipy_lam2(L) -> float:
     return float(np.sort(vals)[-1])
 
 
+def default_dtype(device="cuda") -> torch.dtype:
+    """The compute dtype a device defaults to: float64 on the CPU (the
+    numerical-parity mode), float32 on a card."""
+    return (torch.float64 if torch.device(device).type == "cpu"
+            else torch.float32)
+
+
 def default_block(n: int, q: Optional[int] = None, seed: Optional[int] = None,
                   dtype=None) -> np.ndarray:
     """Deterministic start block: q = min(4, n-1) columns of N(0, 1) from
@@ -46,7 +64,8 @@ def default_block(n: int, q: Optional[int] = None, seed: Optional[int] = None,
 
 
 def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
-                 coeff_dtype, pstate, use_prev, rebuild, return_pstate):
+                 coeff_dtype, pstate, use_prev, rebuild, return_pstate,
+                 **warm):
     """The banded branch: assemble BD(w), build the two-level
     preconditioner (warm-rebuilt from `pstate` when given), run TRACEMIN."""
     BD = _banded.assemble_bd(bop, w)
@@ -65,7 +84,8 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
         Minv = _banded.make_banded_precond(bop, BD, w=w)
     res = tracemin_fiedler(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
-        inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype)
+        inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
+        **warm)
     return (res, pstate_out) if return_pstate else res
 
 
@@ -86,9 +106,14 @@ def fiedler_pair_op(
     use_prev: Optional[bool] = None,
     rebuild: Optional[bool] = None,
     return_pstate: bool = False,
+    lam0: Optional[torch.Tensor] = None,
+    warm_init: Optional[bool] = None,
 ):
     """Fiedler pair of L(w), X the (n, q) start block and xprev0 the block
     that seeds the eigensolver's previous-iterate memory.
+
+    lam0 / warm_init: TRACEMIN's warm entry (ops.lobpcg.tracemin_fiedler);
+    with lam0 given, at least one outer iteration runs.
 
     op: a BandedOperator (TRACEMIN with the banded two-level
         preconditioner; pstate / use_prev / rebuild carry its coarse
@@ -103,12 +128,14 @@ def fiedler_pair_op(
     Returns FiedlerResult, or (FiedlerResult, PrecondState or None) with
     return_pstate=True.
     """
+    warm = dict(lam0=lam0, warm_init=warm_init,
+                min_iters=1 if lam0 is not None else 0)
     if isinstance(op, _banded.BandedOperator):
         return _banded_pair(
             op, w, X, xprev0=xprev0, tol=tol, maxiter=maxiter,
             inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
             pstate=pstate, use_prev=use_prev, rebuild=rebuild,
-            return_pstate=return_pstate)
+            return_pstate=return_pstate, **warm)
     if not isinstance(op, GraphOperator):
         raise TypeError(f"fiedler_pair_op: unknown operator {type(op)}")
 
@@ -147,4 +174,158 @@ def fiedler_pair_op(
                                    precond=pc, tol=tol, maxiter=maxiter))
     return _ret(tracemin_fiedler(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
-        inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype))
+        inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
+        **warm))
+
+
+def _op_from_matrix(L) -> Tuple[GraphOperator, np.ndarray,
+                                Optional[np.ndarray]]:
+    """(operator on the CPU, edge weights, chain weights or None) of a host
+    Laplacian matrix. The chain weights come back when the graph holds the
+    whole path 0-1-...-(n-1)."""
+    if sp.issparse(L):
+        coo = sp.triu(L, k=1).tocoo()
+        idx = np.stack([coo.row, coo.col], axis=1).astype(np.int32)
+        w = -np.asarray(coo.data)
+    else:
+        L = np.asarray(L)
+        iu, ju = np.triu_indices(L.shape[0], k=1)
+        vals = L[iu, ju]
+        nz = vals != 0
+        idx = np.stack([iu[nz], ju[nz]], axis=1).astype(np.int32)
+        w = -vals[nz]
+    n = L.shape[0]
+    return build_operator(idx, n), w, extract_chain_weights(idx, w, n)
+
+
+def default_xprev(n: int, q: int, dtype, device) -> torch.Tensor:
+    """The default block that seeds the eigensolver's previous-iterate
+    memory: N(0, 1) from a torch.Generator seeded with 7."""
+    gen = torch.Generator().manual_seed(_DEFAULT_SEED)
+    return torch.randn((n, q), generator=gen, dtype=dtype).to(device)
+
+
+def _normalized_fiedler(L, X: torch.Tensor, tol: float, maxiter: int,
+                        xprev0: Optional[torch.Tensor] = None):
+    """Fiedler pair of the normalised Laplacian N = D^(-1/2) L D^(-1/2).
+
+    N is applied matrix-free through the similarity transform; TRACEMIN
+    runs with the nullspace generalised to u = D^(1/2) 1 / ||D^(1/2) 1||
+    and the two-grid V-cycle of L conjugated back through D^(1/2)
+    (M_N^-1 = D^(1/2) M_L^-1 D^(1/2), exact if M_L were L). The
+    eigenvalues of N lie in [0, 2], so the nullspace shift is 2. Up to
+    DENSE_MAX_N nodes: an exact float64 eigh on the host.
+    """
+    n = L.shape[0]
+    dtype, dev = X.dtype, X.device
+    d = np.asarray(L.diagonal() if sp.issparse(L) else np.diag(np.asarray(L)),
+                   dtype=np.float64)
+    if np.any(d <= 0):
+        raise ValueError(
+            "normalized Laplacian needs strictly positive degrees; "
+            f"min diagonal = {d.min()} (isolated node?)")
+    s_host = 1.0 / np.sqrt(d)
+    if n <= DENSE_MAX_N:
+        Ld = np.asarray(L.todense() if sp.issparse(L) else L,
+                        dtype=np.float64)
+        N = s_host[:, None] * Ld * s_host[None, :]
+        evals, vecs = np.linalg.eigh((N + N.T) / 2)
+        q = X.shape[1]
+        Xb = torch.as_tensor(vecs[:, 1:q + 1], dtype=dtype, device=dev)
+        return (torch.as_tensor(evals[1], dtype=dtype, device=dev),
+                Xb[:, 0], Xb)
+
+    op, w, _ = _op_from_matrix(L)
+    op = op.to(dev)
+    w = torch.as_tensor(w, dtype=dtype, device=dev)
+    s = torch.as_tensor(s_host, dtype=dtype, device=dev)[:, None]
+    sqd = torch.as_tensor(np.sqrt(d), dtype=dtype, device=dev)[:, None]
+    u = torch.as_tensor(np.sqrt(d) / np.linalg.norm(np.sqrt(d)), dtype=dtype,
+                        device=dev)
+    apply_L = lap_applier(op, w)
+    Minv_L = make_twogrid_precond(op, w, apply_L)
+    if xprev0 is None:
+        xprev0 = default_xprev(n, X.shape[1], dtype, dev)
+    res = tracemin_fiedler(
+        lambda V: s * apply_L(s * V), X,
+        torch.tensor(2.0, dtype=dtype, device=dev),
+        lambda B: sqd * Minv_L(sqd * B), xprev0=xprev0, tol=tol,
+        maxiter=maxiter, nullvec=u)
+    return res.lam[0], res.X[:, 0], res.X
+
+
+def find_fiedler_pair(
+    L,
+    X=None,
+    method: str = "tracemin",
+    tol: float = 1e-8,
+    seed=None,
+    maxiter: int = 1000,
+    normalized: bool = False,
+    device="cuda",
+    xprev0: Optional[torch.Tensor] = None,
+):
+    """(lambda_2(L), v_2(L), X block) of a host Laplacian, as tensors on
+    `device`.
+
+    L: scipy sparse or dense (n, n) Laplacian.
+    X: optional (n, q) warm-start block of any width 1 <= q < n; None seeds
+       q = min(4, n-1) columns like the reference (RandomState(7), or
+       `seed`, an int or a numpy RandomState).
+    method: "tracemin" (default; "tracemin_lu" and "tracemin_cholesky" are
+       the same engine), "lobpcg" or "dense".
+    normalized: solve on D^(-1/2) L D^(-1/2) (see _normalized_fiedler).
+    device: where the solve runs, "cuda" by default, in its default dtype
+       (float32 on a card, float64 on the CPU).
+    xprev0: the (n, q) block that seeds the eigensolver's previous-iterate
+       memory; N(0, 1) from seed 7 when None.
+    """
+    n = L.shape[0]
+    dev = resolve_device(device)
+    dtype = default_dtype(dev)
+    if X is None:
+        q = min(4, n - 1)
+        if isinstance(seed, np.random.RandomState):
+            X = np.asarray(seed.normal(size=(q, n))).T
+        else:
+            X = default_block(n, q, seed=seed)
+    if isinstance(X, torch.Tensor):
+        X = X.to(device=dev, dtype=dtype)
+    else:
+        X = torch.as_tensor(np.asarray(X), dtype=dtype, device=dev)
+    if X.shape[0] != n or not 1 <= X.shape[1] < max(n, 2):
+        raise ValueError(f"X has shape {tuple(X.shape)}, want ({n}, q) with "
+                         f"1 <= q < {max(n, 2)}")
+    if method in ("tracemin_lu", "tracemin_cholesky"):
+        method = "tracemin"
+    if method not in ("tracemin", "lobpcg", "dense"):
+        raise ValueError(f"unknown method {method!r}")
+    if normalized:
+        return _normalized_fiedler(L, X, tol, maxiter, xprev0=xprev0)
+    op, w, _ = _op_from_matrix(L)
+    if xprev0 is None:
+        xprev0 = default_xprev(n, X.shape[1], dtype, dev)
+    res = fiedler_pair_op(
+        op.to(dev), torch.as_tensor(w, dtype=dtype, device=dev), X,
+        xprev0=xprev0, tol=tol, maxiter=maxiter, method=method)
+    return res.lam[0], res.X[:, 0], res.X
+
+
+def tracemin_fiedler_cholesky(L, X=None, normalized=False, tol=1e-8,
+                              device="cuda"):
+    """The reference library's name for its TRACEMIN solver with CHOLMOD
+    inner solves; here every tracemin method runs the preconditioned
+    engine. Returns (numpy [lambda_2], numpy X^T); normalized=True works
+    (see _normalized_fiedler)."""
+    lam, _, Xb = find_fiedler_pair(L, X=X, method="tracemin_cholesky",
+                                   tol=tol, normalized=normalized,
+                                   device=device)
+    return np.array([float(lam)]), Xb.cpu().numpy().T
+
+
+def find_fiedler_pair_cholesky(L, x=None, normalized=False, tol=1e-8,
+                               seed=None, device="cuda"):
+    """The reference library's name: (lambda_2, Fiedler vector), numpy."""
+    sigma, X = tracemin_fiedler_cholesky(L, X=x, normalized=normalized,
+                                         tol=tol, device=device)
+    return sigma[0], X[0]

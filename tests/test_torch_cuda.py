@@ -137,8 +137,9 @@ def test_blocked_tridiag_kernel_matches_plain(dev, n, q, seg, block,
 def test_dispatch_launches_the_kernel_its_rule_names(dev):
     """Past 32768 rows a seg-1024 or seg-128 factor launches K1b and an
     exact factor K1; up to 32768 rows every factor launches K1; a block
-    wider than 32 columns launches the same kernels, and a float64 block is
-    refused."""
+    wider than 32 columns launches the same kernels; a float64 block
+    launches neither and takes the plain scans on the card (the reference's
+    rule for that dtype), agreeing with the float32 kernel to 2e-4."""
     n = 33000
     d, e, rng = _chain(n, 9, dev)
     B = torch.as_tensor(rng.normal(size=(n, 40)), dtype=torch.float32,
@@ -157,8 +158,15 @@ def test_dispatch_launches_the_kernel_its_rule_names(dev):
         assert (tridiag_solve.launches - k1,
                 tridiag_solve_blocked.launches - k1b) == (
             (1, 0) if kern is tridiag_solve else (0, 1))
-    with pytest.raises(TypeError):
-        tridiag_solve_factored_fast(tridiag_ldl(d, e), B.double())
+    f = tridiag_ldl(d, e)
+    k1, k1b = tridiag_solve.launches, tridiag_solve_blocked.launches
+    got64 = tridiag_solve_factored_fast(f, B.double())
+    assert (tridiag_solve.launches, tridiag_solve_blocked.launches) == (
+        k1, k1b)
+    assert got64.dtype == torch.float64 and got64.is_cuda
+    torch.testing.assert_close(got64.float(),
+                               tridiag_solve_factored_fast(f, B),
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("graph", [(700, 120, 40, 3), (1500, 1200, 25, 3),
@@ -269,3 +277,87 @@ def test_ell_solve_on_cuda_launches_the_blocked_kernel(dev):
     assert tridiag_solve_blocked.launches > before
     assert rounded.sum() == k and np.isfinite(upper)
     assert np.all(np.isfinite(unrounded))
+
+
+def _launch_counts():
+    return (tridiag_solve.launches, tridiag_solve_blocked.launches,
+            assemble_ut.launches)
+
+
+def test_banded_tails_on_cuda_agree_with_the_cpu_run(dev):
+    """The banded float32 route with its exact host tails, on the card and
+    on the CPU: both launch-count classes (K1 and the assembly kernel on the
+    card, none on the CPU), k edges each, the tails' stats, and relaxed
+    lambda_2 values (scipy float64 referee) within 5e-3 relative of each
+    other (two float32 Frank-Wolfe trajectories)."""
+    from mac_tpu_torch.solvers import MAC
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    idx, w, n = _graph(600, 110, 9, 11)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    k = len(cands[1]) // 2
+    lam = {}
+    for device in ("cuda", "cpu"):
+        mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+                  fw_polish=True, device=device)
+        assert mac.round_guard
+        before = _launch_counts()
+        rounded, unrounded, upper = mac.solve(k)
+        k1, k1b, k2 = (a - b for a, b in zip(_launch_counts(), before))
+        assert (k1 > 0 and k2 > 0) == (device == "cuda") and k1b == 0
+        stats = mac.last_solve_stats
+        assert {"polished", "polish_time_s", "guard_time_s",
+                "exact_evals"} <= set(stats) and stats["exact_evals"] > 0
+        assert rounded.sum() == k
+        lam[device] = scipy_lam2(mac.laplacian(unrounded))
+        assert upper >= lam[device] * (1 - 1e-9)
+    assert abs(lam["cuda"] - lam["cpu"]) <= 5e-3 * lam["cpu"], lam
+
+
+def test_float64_routes_on_cuda_launch_no_kernel(dev):
+    """In float64 on the card: the device route (ELL, the chain-solve
+    preconditioner through the plain scans) evaluates lambda_2 within 1e-8
+    relative of numpy's dense eigh and solves to k edges, the default
+    constructor sends a small instance to the host engine, and neither
+    launches a kernel."""
+    from mac_tpu_torch.solvers import MAC
+
+    idx, w, n = _graph(400, 60, 30, 1)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    before = _launch_counts()
+    mac = MAC(fixed, cands, n, dtype=torch.float64)
+    assert (mac.device.type, mac.fiedler_backend, mac.fiedler_precond) == (
+        "cuda", "device", "tridiag")
+    x = np.random.RandomState(5).rand(60)
+    ref = np.linalg.eigvalsh(mac.laplacian(x).toarray())[1]
+    assert abs(mac.evaluate_objective(x) - ref) <= 1e-8 * ref
+    rounded, _, upper = mac.solve(20)
+    assert rounded.sum() == 20 and np.isfinite(upper)
+    host = MAC(fixed, cands, n)
+    assert (host.dtype, host.fiedler_backend) == (torch.float64, "host")
+    assert host.solve(20)[0].sum() == 20
+    assert _launch_counts() == before
+
+
+def test_front_ends_default_to_cuda(dev):
+    """find_fiedler_pair and IncrementalFiedlerSolver run on the card in
+    float32 unless told otherwise: tensors on the card, lambda_2 within
+    1e-3 relative of numpy's dense eigh."""
+    from mac_tpu_torch.utils.fiedler import find_fiedler_pair
+    from mac_tpu_torch.utils.graphs import weight_graph_lap_from_edges
+    from mac_tpu_torch.utils.incremental import IncrementalFiedlerSolver
+
+    idx, w, n = _graph(500, 200, 60, 2)
+    L = weight_graph_lap_from_edges(idx, w, n)
+    ref = np.linalg.eigvalsh(L.toarray())[1]
+    lam, v, X = find_fiedler_pair(L)
+    assert lam.is_cuda and X.is_cuda and X.dtype == torch.float32
+    assert abs(float(lam) - ref) <= 1e-3 * ref
+    edges = [(int(i), int(j), float(wt)) for (i, j), wt in zip(idx, w)]
+    solver = IncrementalFiedlerSolver(edges[:n - 1], n,
+                                      candidate_edges=edges[n - 1:])
+    assert solver.device.type == "cuda" and solver.dtype == torch.float32
+    for e in edges[n - 1:]:
+        solver.add_edge(e)
+    lam_inc, v_inc = solver.find_fiedler_pair()
+    assert abs(lam_inc - ref) <= 1e-3 * ref and v_inc.shape == (n,)

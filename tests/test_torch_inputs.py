@@ -1,6 +1,7 @@
 """The PyTorch port's inputs and boundaries: import hygiene, the g2o reader,
 NaiveGreedy, the banded tables (against the JAX package's, and through
-mac_tpu_torch.convert), and the routes this slice raises on."""
+mac_tpu_torch.convert), and what the constructor and solve do with each
+route's knobs, the routes that still raise included."""
 
 import re
 import subprocess
@@ -123,41 +124,59 @@ def _small_problem():
 BANDED32 = dict(use_banded=True, dtype=torch.float32, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(device="cpu"), "host float64 engine"),
-    (dict(BANDED32), "polish"),
-    (dict(BANDED32, fw_polish=False), "polish"),
+@pytest.mark.parametrize("kwargs,want", [
+    (dict(device="cpu"), (torch.float64, "host", False, False, False)),
+    (dict(BANDED32), (torch.float32, "device", True, True, True)),
+    (dict(BANDED32, fw_polish=False),
+     (torch.float32, "device", True, False, True)),
     (dict(BANDED32, fw_polish=False, round_guard=False, mesh=object()),
      "mesh"),
     (dict(device="cpu", use_banded=False, mesh=object()), "ELL"),
     (dict(device="cpu", use_banded=True, dtype=torch.float64), "float64"),
     (dict(BANDED32, fiedler_method="lobpcg"), "LOBPCG"),
 ])
-def test_unported_routes_raise(kwargs, match):
-    """Routes of the reference that this slice does not have raise
-    NotImplementedError naming the later slice; nothing runs in their
-    place."""
+def test_unported_routes_raise(kwargs, want):
+    """The constructor's routes on a small banded graph: the default one
+    (the size gate sends it to the float64 host engine) and the banded
+    float32 one with its exact tails construct, with the dtype, backend,
+    operator, fw_polish and round_guard the reference resolves; the routes
+    the port still lacks (a mesh, the banded operator in float64, LOBPCG on
+    the banded operator) raise NotImplementedError naming what to do, and
+    nothing runs in their place."""
     fixed, cands, n = _small_problem()
-    with pytest.raises(NotImplementedError, match=match):
-        MAC(fixed, cands, n, **kwargs)
+    if isinstance(want, str):
+        with pytest.raises(NotImplementedError, match=want):
+            MAC(fixed, cands, n, **kwargs)
+        return
+    mac = MAC(fixed, cands, n, **kwargs)
+    assert (mac.dtype, mac.fiedler_backend, mac._banded is not None,
+            mac.fw_polish, mac.round_guard) == want
 
 
 def test_unported_solve_options_raise():
+    """What solve refused before the port had them now runs: Madow
+    rounding selects exactly k edges, k = 0 nothing and k = m everything;
+    an unknown rounding is a ValueError."""
     fixed, cands, n = _small_problem()
     mac = MAC(fixed, cands, n, fw_polish=False, round_guard=False,
               **BANDED32)
     m = len(cands[1])
-    for kw in (dict(k=5, rounding="madow"), dict(k=0), dict(k=m)):
-        with pytest.raises(NotImplementedError):
-            mac.solve(**kw)
+    for kw, count in ((dict(k=5, rounding="madow"), 5), (dict(k=0), 0),
+                      (dict(k=m), m)):
+        rounded, unrounded, upper = mac.solve(**kw)
+        assert rounded.sum() == count and np.isfinite(upper)
+        assert set(np.unique(rounded)) <= {0.0, 1.0}
+    with pytest.raises(ValueError, match="rounding"):
+        mac.solve(5, rounding="nearest_neighbour")
 
 
 def test_graph_without_narrow_band_raises():
-    """Expander-like loop closures leave no narrow band. What such a graph
-    still raises for are the routes not yet ported: the float64 solve and
-    Madow rounding. Otherwise, even with use_banded=True, it takes the
-    matrix-free ELL operator in original node ids, where fw_polish and
-    round_guard resolve False, as in the reference."""
+    """Expander-like loop closures leave no narrow band. Even with
+    use_banded=True such a graph takes the matrix-free ELL operator in
+    original node ids, where fw_polish and round_guard resolve False, as in
+    the reference, and Madow rounding runs there. What it still raises for
+    is the banded operator in float64; without use_banded, float64 takes
+    the ELL operator too."""
     rng = np.random.RandomState(0)
     n = 2000
     chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
@@ -166,13 +185,16 @@ def test_graph_without_narrow_band_raises():
     fixed, cands = (chain, np.ones(n - 1)), (rand, np.ones(len(rand)))
     with pytest.raises(NotImplementedError, match="float64"):
         MAC(fixed, cands, n, **dict(BANDED32, dtype=torch.float64))
+    mac64 = MAC(fixed, cands, n, dtype=torch.float64, device="cpu")
+    assert mac64._banded is None and mac64.op.mode == "ell"
+    assert mac64.fiedler_backend == "device"
     mac = MAC(fixed, cands, n, **BANDED32)
     assert mac._banded is None and mac.op.mode == "ell"
     assert not mac.fw_polish and not mac.round_guard
     np.testing.assert_array_equal(mac._int_idx,
                                   np.concatenate([chain, rand]))
-    with pytest.raises(NotImplementedError, match="Madow"):
-        mac.solve(5, rounding="madow")
+    rounded, _, upper = mac.solve(5, rounding="madow", max_iters=2)
+    assert rounded.sum() == 5 and np.isfinite(upper)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
