@@ -69,9 +69,23 @@ its wall time printed:
      chains of 600 nodes, three candidates): float64 on the device engine
      on the card, solve(2) selects 2, a finite upper bound,
      |evaluate_objective| < 1e-8, no kernel launched.
+  7. the greedy baselines: GreedyESP on city10000 with scripts/bench_all.py's
+     lazy sweep (budgets 10, 30 and 50% of the loop closures: the chain
+     closed form and the scan on the card, U float32 at (5344, 10688)),
+     once cold and three times warm; gates: exactly k distinct picks per
+     budget, nested budgets, the first 200 picks those of the numpy loop
+     on the host and of the native lazy core, TF32 off; the scan's device
+     busy time under torch.profiler. GreedyESP's Z path (a non-chain
+     graph, n 5000, m 2500, k 800: Z by batched PCG on the card, then the
+     scan): the host numpy loop's selection. GreedyEig on intel (n 1728,
+     785 candidates, float32, chunk 64; the ELL operator, the V-cycle, K1
+     on the chunk's (1728, 256) block), k = 8 (cut from a user's budget to
+     keep the phase short): each step's lambda_2 within 1e-3 of the scipy
+     referee's, rising every step, the first chunk's batched lambda_2
+     within 5e-4 of the per-lane loop's, K1 launched.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
-their path, error against the plain version, device time (ms and
+their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
 device_ms), call_ms, the plain version's call time, the yardstick's device
 time (library_ms), and the least time the card could take, bound_ms) and
 the result line {"ok": true, "device": {...}}.
@@ -196,6 +210,53 @@ def tridiag_bound(n: int, q: int):
     """Read dp, l (n,) and B (n, q), write X (n, q), float32; per entry of
     B two forward operations, one division, two backward."""
     return bound(4.0 * (2 * n + 2 * n * q), 5.0 * n * q)
+
+
+def profiled_busy(fn):
+    """(device busy milliseconds, kernels and copies, the three largest
+    kernels as (milliseconds, count, name)) of one call of fn(): its device
+    activity under torch.profiler, CUDA activity alone, summed from the raw
+    activity records (building the profiler's event tree for the ~150k
+    kernels of a GreedyESP scan takes most of a minute)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, cnt = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), cnt + 1)
+    top = sorted(((ns / 1e6, cnt, name[:80]) for name, (ns, cnt)
+                  in by_name.items()), reverse=True)[:3]
+    return (sum(ns for ns, _ in by_name.values()) / 1e6,
+            sum(cnt for _, cnt in by_name.values()), top)
+
+
+def chain_instance(n, m, seed, extra=None):
+    """A weighted chain, plus the fixed edge `extra` when given (the fixed
+    set is then not a chain: GreedyESP's Z path), and m distinct candidates
+    spanning more than 1, as tests/solvers/test_baselines.py builds them.
+    Returns (fixed, candidates)."""
+    import numpy as np
+
+    from mac_tpu_torch.utils.graphs import Edge
+
+    rng = np.random.RandomState(seed)
+    fixed = [Edge(i, i + 1, 0.5 + rng.rand()) for i in range(n - 1)]
+    if extra is not None:
+        fixed.append(Edge(*extra))
+    cands, seen = [], set()
+    while len(cands) < m:
+        i, j = sorted(rng.randint(0, n, 2))
+        if j - i > 1 and (i, j) not in seen and (
+                extra is None or (i, j) != extra[:2]):
+            seen.add((i, j))
+            cands.append(Edge(int(i), int(j), 0.5 + rng.rand()))
+    return fixed, cands
 
 
 class Phase:
@@ -345,6 +406,208 @@ def index_add_assembly(args):
         return out.view(-1).index_add_(0, pos, vals).view(shape)
 
     return library
+
+
+def baselines(dev, dataset, card, counted):
+    """Phase 7: GreedyESP on city10000 (scripts/bench_all.py's lazy sweep:
+    the chain closed form and the scan on the card) and on a non-chain
+    graph (Z by PCG on the card), GreedyEig on intel (the ELL operator, the
+    V-cycle and K1); every gate fatal. Returns the launch counts of
+    GreedyEig's subset(8) and K1's check and times at GreedyEig's shape."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch import native
+    from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
+                                                   tridiag_solve_plain)
+    from mac_tpu_torch.ops.laplacian import lap_tridiagonal_part
+    from mac_tpu_torch.ops.tridiag import tridiag_ldl_auto
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import GreedyEig, GreedyESP
+    from mac_tpu_torch.solvers.greedy_eig import TRIAL_MIN_ITERS
+    from mac_tpu_torch.utils.fiedler import (fiedler_pair_lanes_plain,
+                                             scipy_lam2)
+    from mac_tpu_torch.utils.graphs import weight_graph_lap_from_edges
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for GreedyESP's scan products")
+    # (a) GreedyESP on city10000, scripts/bench_all.py's lazy sweep.
+    t7 = time.perf_counter()
+    meas, n7 = read_g2o_file(str(dataset))
+    fixed7, cands7 = split_edges(rpm_to_mac(meas))
+    m7 = len(cands7)
+    ks7 = [int(f * m7) for f in (0.1, 0.3, 0.5)]
+    ids7 = {id(e): i for i, e in enumerate(cands7)}
+    for kern in counted:
+        kern.launches = 0
+    esp_s = []
+    for _ in range(4):
+        esp = GreedyESP(fixed7, cands7, n7, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res7, sel7, times7 = esp.subsets_lazy(ks7)
+        torch.cuda.synchronize()
+        esp_s.append(time.perf_counter() - t0)
+    esp_launches = {kern.__name__: kern.launches for kern in counted}
+    order7 = [ids7[id(e)] for e in sel7]
+    if not esp._fixed_is_chain or esp.dtype != torch.float64:
+        fail("GreedyESP on city10000 left the float64 chain closed form")
+    if len(set(order7)) != ks7[-1] or [int(r.sum()) for r in res7] != ks7:
+        fail(f"GreedyESP picked {[int(r.sum()) for r in res7]}, want {ks7}")
+    for r_a, r_b in zip(res7, res7[1:]):
+        if np.any(r_a > r_b):
+            fail("GreedyESP's budgets are not nested")
+    for k_, r_ in zip(ks7, res7):
+        if set(np.flatnonzero(r_)) != set(order7[:k_]):
+            fail(f"GreedyESP's budget {k_} is not its first {k_} picks")
+    host7 = GreedyESP(fixed7, cands7, n7, device=dev)
+    host7.SCAN_MIN_WORK = 10 ** 18
+    t0 = time.perf_counter()
+    order_h = [ids7[id(e)] for e in host7.subset(200)[1]]
+    host_s = time.perf_counter() - t0
+    u7, v7 = host7.cand_idx[:, 0], host7.cand_idx[:, 1]
+    order_n = native.esp_lazy_select_chain(
+        host7._chain_rcum(), np.minimum(u7, v7), np.maximum(u7, v7),
+        host7.edge_weights, [200])
+    if order_n is None:
+        fail("the native lazy ESP core did not load")
+    if order_h != order7[:200] or order_n.tolist() != order7[:200]:
+        fail("GreedyESP's first 200 picks on the card differ from the "
+             "host numpy loop's or the native lazy core's")
+    scan_busy, scan_kernels, scan_top = profiled_busy(
+        lambda: esp._select_scan_device(ks7[-1]))
+    scan_bytes = 4.0 * m7 * ks7[-1] * (ks7[-1] - 1) / 2
+    print(f"GreedyESP city10000 (n {n7}, m {m7}, budgets {ks7}; chain "
+          f"closed form, device scan, U float32 ({ks7[-1]}, {m7})): warm "
+          f"median {statistics.median(esp_s[1:]):.4f} s of "
+          f"{[round(t, 4) for t in esp_s]} s (cold first); scan device busy "
+          f"{scan_busy:.3f} ms over {scan_kernels} kernels and copies, "
+          f"{scan_kernels / ks7[-1]:.1f} a step (profiled run; largest "
+          f"{[(round(ms, 3), cnt, nm) for ms, cnt, nm in scan_top]}); U "
+          f"rows read "
+          f"{scan_bytes:.3e} B, bound {1e3 * scan_bytes / H100_BYTES_PER_S:.1f}"
+          f" ms; first 200 picks = numpy loop ({host_s:.3f} s) = native "
+          f"lazy core; kernel launches {esp_launches} ({card})", flush=True)
+    part_s = [time.perf_counter() - t7]
+    # (b) GreedyESP's Z path: a non-chain fixed graph, Z by batched PCG.
+    t7 = t0 = time.perf_counter()
+    fixed_z, cands_z = chain_instance(5000, 2500, 17, extra=(0, 5, 1.3))
+    esp_z = GreedyESP(fixed_z, cands_z, 5000, device=dev)
+    mask_z, _ = esp_z.subset(800)
+    torch.cuda.synchronize()
+    z_s = time.perf_counter() - t0
+    host_z = GreedyESP(fixed_z, cands_z, 5000, device=dev)
+    host_z.SCAN_MIN_WORK = 10 ** 18
+    mask_zh, _ = host_z.subset(800)
+    if esp_z._fixed_is_chain or esp_z._Z is None or esp_z._z_streaming():
+        fail("the non-chain GreedyESP instance did not take the dense Z")
+    if not np.array_equal(mask_z, mask_zh) or int(mask_z.sum()) != 800:
+        fail("GreedyESP's Z-path scan on the card differs from the host "
+             "numpy loop")
+    print(f"GreedyESP Z path (n 5000, m 2500, k 800, float64 Z by PCG on "
+          f"the card, scan on the card): {z_s:.3f} s; selected set = host "
+          f"numpy loop's ({card})", flush=True)
+    part_s.append(time.perf_counter() - t7)
+    # (c) GreedyEig on intel: the ELL operator, the V-cycle and K1.
+    t7 = time.perf_counter()
+    meas, n_i = read_g2o_file(str(dataset.parent / "intel.g2o"))
+    fixed_i, cands_i = split_edges(rpm_to_mac(meas))
+    eig = GreedyEig(fixed_i, cands_i, n_i, device=dev)
+    if (eig.dtype, eig.op.mode, eig.chunk) != (torch.float32, "ell", 64):
+        fail(f"GreedyEig on intel: dtype {eig.dtype}, operator "
+             f"{eig.op.mode}, chunk {eig.chunk}")
+    x_i = np.zeros(len(cands_i))
+    # K1 at the shape GreedyEig gives it: the incumbent's V-cycle chain
+    # factor, a chunk's (n, 64 q) block.
+    d_i, e_i = lap_tridiagonal_part(eig.op, eig._weights(x_i))
+    f_i = tridiag_ldl_auto(
+        d_i + 100 * torch.finfo(torch.float32).eps * d_i.max(), e_i)
+    B_i = torch.randn((n_i, eig.chunk * eig._X0.shape[1]),
+                      generator=torch.Generator().manual_seed(7)).to(dev)
+    got_k, ref_k = (tridiag_solve(f_i.dp, f_i.l, B_i),
+                    tridiag_solve_plain(f_i.dp, f_i.l, B_i))
+    k1 = {"shape": f"({n_i}, {B_i.shape[1]})",
+          "max_abs_err": float((got_k - ref_k).abs().max())}
+    if not (bool(torch.isfinite(got_k).all()) and torch.allclose(
+            got_k, ref_k, rtol=K1_TOL, atol=K1_TOL)):
+        fail(f"K1 disagrees with its plain version at GreedyEig's shape "
+             f"{k1['shape']}: {k1['max_abs_err']:.3e}")
+    k1["device_ms"] = device_ms(lambda: tridiag_solve(f_i.dp, f_i.l, B_i))
+    k1["call_ms"] = call_ms(lambda: tridiag_solve(f_i.dp, f_i.l, B_i))
+    k1["plain_ms"] = call_ms(lambda: tridiag_solve_plain(f_i.dp, f_i.l, B_i))
+    k1["bound_ms"] = tridiag_bound(n_i, B_i.shape[1])[0]
+    print(f"K1 at GreedyEig's shape {k1['shape']} (intel's V-cycle chain "
+          f"factor): max|kernel - plain| {k1['max_abs_err']:.3e}; kernel "
+          f"device {k1['device_ms']:.5f} ms, call {k1['call_ms']:.4f} ms, "
+          f"plain call {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.5f} "
+          f"ms ({card})", flush=True)
+    lam_i, X_i = eig._eval(x_i, eig._X0)
+    grad_i = eig.grad_from_fiedler(X_i[:, 0].cpu().numpy())
+    cand_i = np.argsort(-(float(lam_i) + grad_i))[:eig.chunk]
+    lams_b, _ = eig._eval_chunk(x_i, cand_i, X_i)
+    c_i = torch.as_tensor(cand_i, device=dev)
+    ref_i = fiedler_pair_lanes_plain(
+        eig.op, eig._weights(x_i), c_i + eig._m_fixed, eig._w_cand[c_i],
+        X_i, xprev0=eig.xprev0, tol=eig.fiedler_tol,
+        min_iters=TRIAL_MIN_ITERS)
+    lams_p = ref_i.lam[:, 0].cpu().numpy()
+    chunk_err = float(np.max(np.abs(lams_b - lams_p) / np.abs(lams_p)))
+    chunk_ms = {}
+    for label, fn in (
+            ("batched", lambda: eig._eval_chunk(x_i, cand_i, X_i)),
+            ("per-lane loop", lambda: fiedler_pair_lanes_plain(
+                eig.op, eig._weights(x_i), c_i + eig._m_fixed,
+                eig._w_cand[c_i], X_i, xprev0=eig.xprev0,
+                tol=eig.fiedler_tol, min_iters=TRIAL_MIN_ITERS))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        chunk_ms[label] = 1e3 * (time.perf_counter() - t0)
+    if not chunk_err <= 5e-4:
+        fail(f"GreedyEig's batched chunk disagrees with its per-lane loop: "
+             f"{chunk_err:.3e} relative")
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask_i, sel_i = eig.subset(8)
+    torch.cuda.synchronize()
+    eig_s = time.perf_counter() - t0
+    eig_launches = {kern.__name__: kern.launches for kern in counted}
+    fi_idx = np.array([[e.i, e.j] for e in fixed_i])
+    fi_w = np.array([e.weight for e in fixed_i])
+    ref_lams = []
+    for t in range(1, len(sel_i) + 1):
+        idx_t = np.concatenate([fi_idx, [[e.i, e.j] for e in sel_i[:t]]])
+        w_t = np.concatenate([fi_w, [e.weight for e in sel_i[:t]]])
+        ref_lams.append(scipy_lam2(weight_graph_lap_from_edges(idx_t, w_t,
+                                                               n_i)))
+    step_err = [abs(a - b) / b for a, b in zip(eig.step_lam2, ref_lams)]
+    print(f"GreedyEig intel (n {n_i}, m {len(cands_i)}, k 8, chunk 64, "
+          f"float32): subset {eig_s:.3f} s; step lambda_2 "
+          f"{[f'{v:.9g}' for v in eig.step_lam2]}, scipy referee "
+          f"{[f'{v:.9g}' for v in ref_lams]}, max rel err "
+          f"{max(step_err):.2e}; first chunk (64 lanes, K1 at ({n_i}, 256))"
+          f" batched {chunk_ms['batched']:.1f} ms against the per-lane loop "
+          f"{chunk_ms['per-lane loop']:.1f} ms, lambda_2 within "
+          f"{chunk_err:.2e}; kernel launches in subset(8) {eig_launches} "
+          f"({card})", flush=True)
+    if int(mask_i.sum()) != 8 or len(sel_i) != 8:
+        fail(f"GreedyEig selected {mask_i.sum()} edges, want 8")
+    if not max(step_err) <= 1e-3:
+        fail(f"GreedyEig's reported lambda_2 off the referee: {step_err}")
+    if not all(b > a for a, b in zip(eig.step_lam2, eig.step_lam2[1:])):
+        fail(f"GreedyEig's lambda_2 did not rise every step: "
+             f"{eig.step_lam2}")
+    if eig_launches["tridiag_solve"] <= 0:
+        fail("GreedyEig on intel never launched K1")
+    part_s.append(time.perf_counter() - t7)
+    print(f"phase 7 wall by part: (a) GreedyESP city10000 {part_s[0]:.3f} s,"
+          f" (b) Z path {part_s[1]:.3f} s, (c) GreedyEig intel "
+          f"{part_s[2]:.3f} s", flush=True)
+    return eig_launches, k1
 
 
 def main():
@@ -864,6 +1127,10 @@ def main():
         fail(f"disconnected graph: evaluate_objective {obj_d}, want 0")
     if any(got_d.values()):
         fail(f"the float64 solve launched kernels: {got_d}")
+
+    # ---- 7. the greedy baselines
+    phase("7 baselines")
+    eig_launches, k1_ge = baselines(dev, dataset, card, counted)
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -893,7 +1160,15 @@ def main():
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
          "shape": "(10000, 4)", "launches": launches["tridiag_solve"],
          "launches_sphere2500": sphere["tridiag_solve"],
-         "max_abs_err": k1_err, "ms": k1_dev, "device_ms": k1_dev,
+         "launches_greedy_eig": eig_launches["tridiag_solve"],
+         "shape_greedy_eig": k1_ge["shape"],
+         "ms_greedy_eig": k1_ge["device_ms"],
+         "call_ms_greedy_eig": k1_ge["call_ms"],
+         "plain_ms_greedy_eig": k1_ge["plain_ms"],
+         "bound_ms_greedy_eig": k1_ge["bound_ms"],
+         "max_abs_err_greedy_eig": k1_ge["max_abs_err"],
+         "max_abs_err": k1_err, "ms": k1_dev,
+         "device_ms": k1_dev,
          "call_ms": k1_call, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         k2_entry("K2b", "mac_tpu/ops/pallas/assemble_kernel.py:61",

@@ -323,7 +323,8 @@ def main():
         print(f"{version} city10000 warm solve: wall {wall:.4f} s unprofiled;"
               f" relaxed lambda_2 {lam2:.10g}, gap {gap:+.4e} ({card})",
               flush=True)
-    with mock.patch.object(ops_tridiag, "tridiag_solve", tridiag_solve_plain):
+    with mock.patch.object(ops_tridiag._kernels, "tridiag_solve",
+                           tridiag_solve_plain):
         _, lam2, gap = solve()
     print(f"K1's plain version on the card, city10000 solve: relaxed "
           f"lambda_2 {lam2:.10g}, gap {gap:+.4e}", flush=True)
@@ -358,7 +359,7 @@ def main():
               f"{tridiag_solve_blocked.launches - before}, fiedler "
               f"iterations {mac5.last_solve_stats.get('fiedler_iterations')}"
               f" ({card})", flush=True)
-    with mock.patch.object(ops_tridiag, "tridiag_solve_blocked",
+    with mock.patch.object(ops_tridiag._kernels, "tridiag_solve_blocked",
                            tridiag_solve_blocked_plain):
         _, lam2, gap = solve5()
     print(f"K1b's plain version on the card, n {SCALE_N} solve: relaxed "

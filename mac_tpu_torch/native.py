@@ -1,9 +1,12 @@
-"""ctypes binding of the native g2o parser (native/g2o_parser.c).
+"""ctypes bindings of the native runtime components in native/: the g2o
+parser (g2o_parser.c) and GreedyESP's lazy-greedy selection cores
+(esp_lazy.cc: closed-form chain Gram entries, entries from a float32 or
+float64 solve matrix Z, or a dense Gram matrix).
 
 The shared library native/libmac_native.so is built from the repository's
-C source with `make -C native` (on first use when it is missing). When it
-cannot be built or loaded, `g2o_parse_arrays` returns None and the caller
-parses in Python.
+sources with `make -C native` (on first use when it is missing). When it
+cannot be built or loaded, each function returns None and the caller falls
+back to Python.
 """
 
 import ctypes
@@ -45,6 +48,23 @@ def lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_double), ctypes.c_long,
         ctypes.POINTER(ctypes.c_double), ctypes.c_long,
     ]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    tail = [i64p, i64p, f64p, ctypes.c_int64, i64p, ctypes.c_int64, i64p]
+    signatures = {
+        # (G (m, m), w, m, ks, nks, order)
+        "esp_lazy_select": [f64p, f64p, ctypes.c_int64, i64p,
+                            ctypes.c_int64, i64p],
+        # (rcum, lo, hi, w, m, ks, nks, order)
+        "esp_lazy_select_chain": [f64p] + tail,
+        # (Z (n, m), u, v, w, m, ks, nks, order)
+        "esp_lazy_select_zd": [f64p] + tail,
+        "esp_lazy_select_zf": [ctypes.POINTER(ctypes.c_float)] + tail,
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(L, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     _lib = L
     return _lib
 
@@ -69,3 +89,88 @@ def g2o_parse_arrays(path: str):
     if rc < 0:
         return None
     return se2[:n2], se3[:n3]
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _select(fn, first: np.ndarray, first_ctype, arrays, m: int,
+            ks) -> Optional[np.ndarray]:
+    """Call one selection core: (first, *arrays, m, ks, len(ks), order);
+    the (kmax,) selection order, or None on a non-zero return. Each of
+    `arrays` holds one entry per candidate and the budgets are nested
+    within 1..m, checked here: the C code trusts them."""
+    ks_arr = np.ascontiguousarray(ks, dtype=np.int64)
+    if any(a.shape != (m,) for a in arrays):
+        raise ValueError(f"per-candidate arrays must have shape ({m},)")
+    if not (ks_arr.size and ks_arr[0] > 0 and ks_arr[-1] <= m
+            and np.all(np.diff(ks_arr) >= 0)):
+        raise ValueError(f"budgets {ks_arr.tolist()} not nested in 1..{m}")
+    order = np.zeros(int(ks_arr[-1]), dtype=np.int64)
+    args = [_ptr(first, first_ctype)]
+    for a in arrays:
+        args.append(_ptr(a, ctypes.c_int64 if a.dtype == np.int64
+                         else ctypes.c_double))
+    rc = fn(*args, m, _ptr(ks_arr, ctypes.c_int64), len(ks_arr),
+            _ptr(order, ctypes.c_int64))
+    return order if rc == 0 else None
+
+
+def esp_lazy_select_chain(rcum: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                          w: np.ndarray, ks) -> Optional[np.ndarray]:
+    """Lazy-greedy k-ESP+ selection with closed-form chain Gram entries
+    max(0, rcum[min(hi_p, hi_e)] - rcum[max(lo_p, lo_e)]) for the nested
+    budgets ks: the (ks[-1],) selection order, or None when the library
+    is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    lo = np.ascontiguousarray(lo, dtype=np.int64)
+    hi = np.ascontiguousarray(hi, dtype=np.int64)
+    if len(lo) and not (0 <= lo.min() and hi.max() < len(rcum)):
+        raise ValueError("chain endpoints outside the cumulative resistances")
+    return _select(L.esp_lazy_select_chain,
+                   np.ascontiguousarray(rcum, dtype=np.float64),
+                   ctypes.c_double,
+                   [lo, hi, np.ascontiguousarray(w, dtype=np.float64)],
+                   len(lo), ks)
+
+
+def esp_lazy_select_z(Z: np.ndarray, u: np.ndarray, v: np.ndarray,
+                      w: np.ndarray, ks) -> Optional[np.ndarray]:
+    """Lazy-greedy selection with Gram entries G[p, e] = Z[u_p, e] -
+    Z[v_p, e] from the (n, m) solve matrix Z, float32 or float64 (the
+    score algebra is float64 either way): the selection order, or None
+    when the library is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    if Z.dtype == np.float32:
+        fn, ctype = L.esp_lazy_select_zf, ctypes.c_float
+    else:
+        fn, ctype = L.esp_lazy_select_zd, ctypes.c_double
+    Z = np.ascontiguousarray(Z, dtype=np.float32 if ctype is ctypes.c_float
+                             else np.float64)
+    u = np.ascontiguousarray(u, dtype=np.int64)
+    v = np.ascontiguousarray(v, dtype=np.int64)
+    if len(u) and not (0 <= min(u.min(), v.min())
+                       and max(u.max(), v.max()) < Z.shape[0]):
+        raise ValueError("candidate endpoints outside Z's rows")
+    return _select(fn, Z, ctype,
+                   [u, v, np.ascontiguousarray(w, dtype=np.float64)],
+                   Z.shape[1], ks)
+
+
+def esp_lazy_select(G: np.ndarray, w: np.ndarray, ks) -> Optional[np.ndarray]:
+    """Lazy-greedy selection over the dense (m, m) Gram matrix G: the
+    selection order, or None when the library is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    G = np.ascontiguousarray(G, dtype=np.float64)
+    if G.ndim != 2 or G.shape[0] != G.shape[1]:
+        raise ValueError(f"G has shape {G.shape}, want (m, m)")
+    return _select(L.esp_lazy_select, G, ctypes.c_double,
+                   [np.ascontiguousarray(w, dtype=np.float64)],
+                   G.shape[0], ks)

@@ -176,6 +176,18 @@ def lap_apply(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
     return lap_applier(op, w)(V)
 
 
+def lap_apply_reduced(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
+                      L_dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The node-0-pinned (reduced) Laplacian on full-length vectors: row 0
+    of V and of the product taken as zero, so CG on full-length vectors
+    solves the (n-1)-dimensional reduced system."""
+    V0 = V.clone()
+    V0[0] = 0.0
+    out = lap_apply(op, w, V0, L_dense)
+    out[0] = 0.0
+    return out
+
+
 def lap_applier(op: GraphOperator, w: torch.Tensor):
     """V -> L(w) @ V with the per-weight work (the dense matrix, or the
     ELL weight table) done once, for an eigensolve's many products."""

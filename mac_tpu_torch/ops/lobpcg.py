@@ -20,6 +20,9 @@ import torch
 from mac_tpu_torch.ops.cg import pcg_fixed
 
 
+# Outer iterations at most, and preconditioned CG steps per outer iteration.
+TRACEMIN_MAXITER = 200
+TRACEMIN_INNER_ITERS = 16
 # Stop after this many outer iterations without a STALL_FACTOR improvement
 # of the residual near the precision floor.
 STALL_PATIENCE = 5
@@ -36,9 +39,10 @@ class FiedlerResult(NamedTuple):
 def _colnorm(S: torch.Tensor) -> torch.Tensor:
     """Scale columns to unit norm; the norm floor is relative to the largest
     column so converged (noise-level) columns stay ~0 instead of
-    overflowing."""
-    nrm = torch.linalg.vector_norm(S, dim=0, keepdim=True)
-    floor = torch.finfo(S.dtype).eps * torch.clamp(nrm.max(), min=1.0)
+    overflowing. S (n, k), or a batch (R, n, k) with a floor per block."""
+    nrm = torch.linalg.vector_norm(S, dim=-2, keepdim=True)
+    floor = torch.finfo(S.dtype).eps * torch.clamp(
+        nrm.amax(dim=-1, keepdim=True), min=1.0)
     return S / torch.maximum(nrm, floor)
 
 
@@ -48,18 +52,21 @@ def _hi(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gram(A: torch.Tensor, B: torch.Tensor, coeff_dtype) -> torch.Tensor:
-    """A^T B at coefficient precision: float64, or full float32."""
+    """A^T B at coefficient precision: float64, or full float32 (of each
+    block of a batch)."""
     if coeff_dtype == torch.float64:
-        return _hi(A).T @ _hi(B)
-    return A.T @ B
+        return _hi(A).mT @ _hi(B)
+    return A.mT @ B
 
 
 def cholesky_upper(A: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor, NaN where A is not positive definite (as
     jnp.linalg.cholesky returns; later finiteness checks read it), without
-    the host synchronisation of an error check."""
+    the host synchronisation of an error check. A may be a batch of
+    matrices; each gets its own factor or NaN."""
     R, info = torch.linalg.cholesky_ex(A, upper=True)
-    return torch.where(info == 0, R, torch.full_like(R, float("nan")))
+    return torch.where((info == 0)[..., None, None], R,
+                       torch.full_like(R, float("nan")))
 
 
 def _cholqr(S: torch.Tensor, coeff_dtype=torch.float64) -> torch.Tensor:
@@ -82,9 +89,10 @@ def _orth(S: torch.Tensor, coeff_dtype=torch.float64) -> torch.Tensor:
 def _ortho_against(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Project Y orthogonal to the orthonormal block X by two classical
     Gram-Schmidt passes (CGS2), in the vector space: near convergence Y is
-    nearly parallel to X, and a Gram matrix would square that angle."""
-    Y = Y - X @ (X.T @ Y)
-    Y = Y - X @ (X.T @ Y)
+    nearly parallel to X, and a Gram matrix would square that angle. Also
+    blockwise over a batch (R, n, k)."""
+    Y = Y - X @ (X.mT @ Y)
+    Y = Y - X @ (X.mT @ Y)
     return Y
 
 
@@ -95,6 +103,32 @@ def _shift_term(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c.double() * m64).to(V.dtype)
 
 
+def default_rel_tol(dtype) -> float:
+    """TRACEMIN's eigenvalue-relative stop: 1e-3 in float32, else 1e-7."""
+    return 1e-3 if dtype == torch.float32 else 1e-7
+
+
+def _keep_iterating(res, rres, since, eff_tol, rel_tol) -> torch.Tensor:
+    """TRACEMIN's stop test, elementwise (one solve, or one flag per lane):
+    true while the relative residual rres is above rel_tol, the residual
+    has not stalled, and the reference criterion res <= eff_tol does not
+    hold. That criterion counts only when rres is also sane (< 2): on
+    tiny-lambda graphs ||r||_1 / ||L||_inf is below any tolerance while the
+    pair is still garbage."""
+    legacy_done = (res <= eff_tol) & (rres < 2.0)
+    return (~legacy_done) & (rres > rel_tol) & (since < STALL_PATIENCE)
+
+
+def _stall_update(res_new, best, since, eff_tol):
+    """(best residual, count of non-improving iterations) after an outer
+    iteration; an iteration counts only near the precision floor."""
+    near_floor = res_new < 4 * eff_tol
+    improved = res_new < STALL_FACTOR * best
+    return (torch.minimum(best, res_new),
+            torch.where(near_floor & ~improved, since + 1,
+                        torch.zeros_like(since)))
+
+
 def tracemin_fiedler(
     apply_L: Callable[[torch.Tensor], torch.Tensor],
     X0: torch.Tensor,
@@ -103,8 +137,8 @@ def tracemin_fiedler(
     *,
     xprev0: torch.Tensor,
     tol: float = 1e-8,
-    maxiter: int = 200,
-    inner_iters: int = 16,
+    maxiter: int = TRACEMIN_MAXITER,
+    inner_iters: int = TRACEMIN_INNER_ITERS,
     rel_tol: Optional[float] = None,
     coeff_dtype=None,
     lam0: Optional[torch.Tensor] = None,
@@ -191,7 +225,7 @@ def tracemin_fiedler(
         return torch.sum(torch.abs(r)) / lnorm.to(dtype)
 
     if rel_tol is None:
-        rel_tol = 1e-3 if dtype == torch.float32 else 1e-7
+        rel_tol = default_rel_tol(dtype)
     rel_tol_v = torch.tensor(rel_tol, dtype=dtype, device=dev)
 
     def rel_residual(lam, X, AX):
@@ -204,11 +238,7 @@ def tracemin_fiedler(
     since = torch.zeros((), dtype=torch.int32, device=dev)
     rres = rel_residual(lam, X, AX)
     while True:
-        # The reference-criterion stop counts only when the relative
-        # residual is also sane (< 2): on tiny-lambda graphs ||r||_1 /
-        # ||L||_inf is below any tolerance while the pair is still garbage.
-        legacy_done = (res <= eff_tol) & (rres < 2.0)
-        keep = (~legacy_done) & (rres > rel_tol_v) & (since < STALL_PATIENCE)
+        keep = _keep_iterating(res, rres, since, eff_tol, rel_tol_v)
         if it >= min_iters and (it >= maxiter or not bool(keep)):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma)
@@ -228,16 +258,152 @@ def tracemin_fiedler(
         X_new = Q @ Cq
         AX_new = AQ @ Cq
         res_new = residual(lam_new, X_new, AX_new)
-        # Count non-improving iterations only near the precision floor.
-        near_floor = res_new < 4 * eff_tol
-        improved = res_new < STALL_FACTOR * best
-        best = torch.minimum(best, res_new)
-        since = torch.where(near_floor & ~improved, since + 1,
-                            torch.zeros_like(since))
+        best, since = _stall_update(res_new, best, since, eff_tol)
         rres = rel_residual(lam_new, X_new, AX_new)
         Xprev, X, AX, lam, res = X, X_new, AX_new, lam_new, res_new
         it += 1
     return FiedlerResult(lam=lam, X=X, iters=it, res=res)
+
+
+def _lanes(V: torch.Tensor, R: int) -> torch.Tensor:
+    """(n, R k) -> (R, n, k): lane r holds columns r k .. r k + k - 1."""
+    return V.reshape(V.shape[0], R, -1).permute(1, 0, 2)
+
+
+def _flat(A: torch.Tensor) -> torch.Tensor:
+    """(R, n, k) -> (n, R k), the layout the operator and the
+    preconditioner take: every lane's columns side by side."""
+    R, n, k = A.shape
+    return A.permute(1, 0, 2).reshape(n, R * k)
+
+
+def _orth_lanes(S: torch.Tensor) -> torch.Tensor:
+    """_orth of each lane of S (R, n, k): column scaling, then CholeskyQR2
+    with one Gram, jitter and factor per lane (the jitter's trace is a
+    batched diagonal sum, which rounds otherwise than torch.trace, so
+    _orth keeps its own)."""
+    S = _colnorm(S)
+    k = S.shape[2]
+    for _ in range(2):
+        G = _gram(S, S, torch.float64)
+        eye = torch.eye(k, dtype=G.dtype, device=G.device)
+        jitter = k * torch.finfo(S.dtype).eps * (
+            torch.diagonal(G, dim1=1, dim2=2).sum(dim=1) + 1.0)
+        Rf = cholesky_upper(G + jitter[:, None, None] * eye)
+        Rinv = torch.linalg.solve_triangular(Rf, eye.expand_as(Rf),
+                                             upper=True)
+        S = S @ Rinv.to(S.dtype)
+    return S
+
+
+def tracemin_fiedler_lanes(
+    apply_L: Callable[[torch.Tensor], torch.Tensor],
+    X0: torch.Tensor,
+    lnorm: torch.Tensor,
+    Minv: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    xprev0: torch.Tensor,
+    tol: float = 1e-8,
+    min_iters: int = 0,
+) -> FiedlerResult:
+    """tracemin_fiedler's cold entry and iteration for R operators at once,
+    one lane each, as one solve: what a vmap of tracemin_fiedler over the
+    lanes computes, with its defaults (TRACEMIN_MAXITER outer iterations,
+    TRACEMIN_INNER_ITERS CG steps each, default_rel_tol, float64
+    coefficients).
+
+    apply_L: (n, R k) -> (n, R k), lane r's operator on columns
+    r k .. r k + k - 1 (k = q, or 3q for the Rayleigh-Ritz basis). X0:
+    the (n, q) start block of every lane. lnorm: (R,) ||L_r||_inf, each
+    lane's nullspace shift. Minv: a preconditioner applied to the (n, R q)
+    block; a lane may take another operator's (it changes how fast TRACEMIN
+    converges, not the eigenpair it converges to). xprev0: the (n, q) block
+    that seeds every lane's previous-iterate memory. min_iters: outer
+    iterations every lane runs whatever its entry residual (as in
+    tracemin_fiedler).
+
+    The operator products, the preconditioner and the inner CG steps run
+    on all lanes' columns together. Each lane keeps its own Rayleigh-Ritz
+    (batched q x q and 3q x 3q eigh), CGS2 and CholeskyQR2, residuals,
+    stall count and stop test; a lane that has stopped stays as it was.
+    The stop flags are read from the device once per outer iteration.
+    Returns FiedlerResult with lam (R, q), X (R, n, q), iters (R,) and res
+    (R,).
+    """
+    n, q = X0.shape
+    R = lnorm.shape[0]
+    dtype, dev = X0.dtype, X0.device
+    eps = torch.finfo(dtype).eps
+    eff_tol = max(float(tol), 2048 * eps)
+    rel_tol = default_rel_tol(dtype)
+    c = lnorm.to(dtype)
+    sigma = 32 * eps * c
+
+    def cols(t, k):  # (R,) -> (1, R k), one value per lane's column
+        return t.repeat_interleave(k)[None, :]
+
+    def project(V):
+        return V - V.double().mean(dim=0, keepdim=True).to(V.dtype)
+
+    def apply_shifted(V):
+        return apply_L(V) + _shift_term(V, cols(c, V.shape[1] // R))
+
+    sigma_q = cols(sigma, q)
+
+    def apply_inner(V):
+        return apply_shifted(V) + sigma_q * V
+
+    def rayleigh_ritz(Q, AQ):
+        H = _gram(Q, AQ, torch.float64)
+        evals, C = torch.linalg.eigh((H + H.mT) / 2)
+        Cq = C[:, :, :q].to(dtype)
+        return Q @ Cq, AQ @ Cq, evals[:, :q].to(dtype)
+
+    def residuals(lam, X, AX):
+        r = AX[:, :, 0] - lam[:, :1] * X[:, :, 0]  # (R, n)
+        return (r.abs().sum(dim=1) / c,
+                torch.linalg.vector_norm(r, dim=1)
+                / torch.maximum(lam[:, 0], sigma))
+
+    X = _orth_lanes(_lanes(project(X0.repeat(1, R)), R))
+    X, AX, lam = rayleigh_ritz(X, _lanes(apply_shifted(_flat(X)), R))
+    Xprev = project(xprev0.to(dtype)).expand(R, n, q)
+    res, rres = residuals(lam, X, AX)
+    best = res
+    since = torch.zeros(R, dtype=torch.int32, device=dev)
+    iters = torch.zeros(R, dtype=torch.int32, device=dev)
+    it = 0
+    while it < TRACEMIN_MAXITER:
+        keep = _keep_iterating(res, rres, since, eff_tol, rel_tol)
+        if it < min_iters:
+            keep = torch.ones_like(keep)
+        elif not bool(keep.any()):
+            break
+        inv_lam = 1.0 / torch.maximum(lam, sigma[:, None])
+        Y = pcg_fixed(apply_inner, _flat(X), Minv, iters=TRACEMIN_INNER_ITERS,
+                      X0=_flat(X * inv_lam[:, None, :]))
+        Y = _lanes(project(Y), R)
+        S = torch.cat([X, _colnorm(_ortho_against(X, Y)),
+                       _colnorm(_ortho_against(X, Xprev))],
+                      dim=2)  # (R, n, 3q)
+        Q = _orth_lanes(S)
+        X_new, AX_new, lam_new = rayleigh_ritz(
+            Q, _lanes(apply_shifted(_flat(Q)), R))
+        res_new, rres_new = residuals(lam_new, X_new, AX_new)
+        best_new, since_new = _stall_update(res_new, best, since, eff_tol)
+        # A lane that stopped keeps its state.
+        k3 = keep[:, None, None]
+        Xprev = torch.where(k3, X, Xprev)
+        X = torch.where(k3, X_new, X)
+        AX = torch.where(k3, AX_new, AX)
+        lam = torch.where(keep[:, None], lam_new, lam)
+        best = torch.where(keep, best_new, best)
+        res = torch.where(keep, res_new, res)
+        rres = torch.where(keep, rres_new, rres)
+        since = torch.where(keep, since_new, since)
+        iters = iters + keep.to(iters.dtype)
+        it += 1
+    return FiedlerResult(lam=lam, X=X, iters=iters, res=res)
 
 
 # LOBPCG stops after this many outer iterations without a 3% residual
@@ -324,15 +490,18 @@ def lobpcg_fiedler(
 def dense_fiedler(L_dense: torch.Tensor, q: int) -> FiedlerResult:
     """Exact Fiedler pair by dense eigh, for tiny graphs (n <= 256) and as
     an oracle: eigenpairs 2..q+1 (the constant mode skipped), padded with
-    the top pair when n - 1 < q."""
-    n = L_dense.shape[0]
-    evals, V = torch.linalg.eigh((L_dense + L_dense.T) / 2)
+    the top pair when n - 1 < q. L_dense (..., n, n) may hold a batch of
+    Laplacians; lam is then (..., q) and X (..., n, q)."""
+    n = L_dense.shape[-1]
+    evals, V = torch.linalg.eigh((L_dense + L_dense.mT) / 2)
     hi = min(1 + q, n)
-    lam, X = evals[1:hi], V[:, 1:hi]
-    pad = q - lam.shape[0]
+    lam, X = evals[..., 1:hi], V[..., 1:hi]
+    pad = q - lam.shape[-1]
     if pad > 0:
-        lam = torch.cat([lam, evals[-1:].expand(pad)])
-        X = torch.cat([X, V[:, -1:].expand(n, pad)], dim=1)
+        lam = torch.cat([lam, evals[..., -1:].expand(
+            *lam.shape[:-1], pad)], dim=-1)
+        X = torch.cat([X, V[..., -1:].expand(*X.shape[:-1], pad)], dim=-1)
     return FiedlerResult(lam=lam, X=X, iters=0,
-                         res=torch.zeros((), dtype=L_dense.dtype,
+                         res=torch.zeros(L_dense.shape[:-2],
+                                         dtype=L_dense.dtype,
                                          device=L_dense.device))

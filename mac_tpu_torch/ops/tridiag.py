@@ -20,9 +20,7 @@ from typing import Optional
 
 import torch
 
-from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
-                                               tridiag_solve_blocked,
-                                               tridiag_solve_plain)
+from mac_tpu_torch.ops.kernels import tridiag as _kernels
 
 # Largest n factored exactly by tridiag_ldl_auto and solved by the whole-row
 # kernel K1 for any factor; beyond it a segment-decoupled factor goes to the
@@ -134,7 +132,14 @@ def tridiag_ldl_auto(d: torch.Tensor, e: torch.Tensor) -> TridiagFactor:
 
 def tridiag_solve_factored(f: TridiagFactor, B: torch.Tensor) -> torch.Tensor:
     """Solve T X = B given the LDL^T factor; B is (n, q). Plain scans."""
-    return tridiag_solve_plain(f.dp, f.l, B)
+    return _kernels.tridiag_solve_plain(f.dp, f.l, B)
+
+
+def tridiag_solve(d: torch.Tensor, e: torch.Tensor,
+                  B: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD tridiagonal system (diagonal d, off-diagonal e)
+    against the (n, q) block B: the exact factor, then the plain scans."""
+    return tridiag_solve_factored(tridiag_ldl(d, e), B)
 
 
 def tridiag_solve_factored_fast(f: TridiagFactor,
@@ -160,5 +165,5 @@ def tridiag_solve_factored_fast(f: TridiagFactor,
     l = f.l if f.l.dtype == B.dtype else f.l.to(B.dtype)
     if (n > TRIDIAG_SCAN_MAX_N and f.seg is not None
             and SOLVE_BLOCK % int(f.seg) == 0):
-        return tridiag_solve_blocked(dp, l, B, block=SOLVE_BLOCK)
-    return tridiag_solve(dp, l, B)
+        return _kernels.tridiag_solve_blocked(dp, l, B, block=SOLVE_BLOCK)
+    return _kernels.tridiag_solve(dp, l, B)

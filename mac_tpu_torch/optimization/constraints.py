@@ -1,5 +1,5 @@
-"""Closed-form LP oracle for Frank-Wolfe direction finding (PyTorch
-counterpart of mac_tpu.optimization.constraints.solve_subset_box_lp)."""
+"""Closed-form LP oracles for Frank-Wolfe direction finding (PyTorch
+counterpart of mac_tpu.optimization.constraints)."""
 
 import torch
 
@@ -18,3 +18,8 @@ def solve_subset_box_lp(g: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.zeros_like(g)
     out[idx] = 1.0
     return out
+
+
+def solve_box_lp(g: torch.Tensor) -> torch.Tensor:
+    """max <g, x> s.t. 0 <= x <= 1: the indicator of the positive entries."""
+    return (g > 0.0).to(g.dtype)

@@ -1,6 +1,7 @@
-"""Frank-Wolfe for maximising concave functions over simple feasible sets,
-threading auxiliary state across steps (PyTorch counterpart of
-mac_tpu.optimization.frankwolfe.frank_wolfe_with_state).
+"""Frank-Wolfe for maximising concave functions over simple feasible sets
+(PyTorch counterpart of mac_tpu.optimization.frankwolfe):
+frank_wolfe_with_state threads auxiliary state across steps, frank_wolfe is
+the stateless form with the reference library's call signature.
 
 Termination semantics match the reference: when a tolerance check fires the
 candidate iterate is not stepped, so the returned x is the one at which
@@ -27,13 +28,15 @@ def frank_wolfe_with_state(
     grad_norm_tol: float = 1e-10,
     tail_average_from: Optional[int] = None,
     verbose: bool = False,
+    stepsize: Optional[Callable] = None,
 ):
     """Maximise a concave f via Frank-Wolfe.
 
     problem(x, state) -> (f, gradf, state'): objective, supergradient and
         updated auxiliary state (warm-start data).
     solve_lp(gradf) -> s: LP oracle over the feasible set.
-    The step size at step k is naive_stepsize(k) = 2/(k+2).
+    stepsize(x, gradf, s, k) -> gamma in [0, 1] at step k (from 0);
+        naive_stepsize(k) = 2/(k+2) when None.
     relative_duality_gap_tol <= 0 disables the duality-gap stop (a noisy
         objective makes the accumulated bound fire spuriously).
     tail_average_from: when set, return the mean of the iterates evaluated
@@ -69,9 +72,38 @@ def frank_wolfe_with_state(
         it += 1
         if bool(stop):
             break
-        gamma = torch.tensor(naive_stepsize(it - 1), dtype=dtype,
-                             device=x.device)
+        gamma = (naive_stepsize(it - 1) if stepsize is None
+                 else stepsize(x, gradf, s, it - 1))
+        gamma = torch.as_tensor(gamma, dtype=dtype, device=x.device)
         x = x + gamma * (s - x)
     if averaging and cnt > 0:
         x = xavg
     return x, u, state, it
+
+
+def frank_wolfe(
+    initial,
+    problem: Callable,
+    solve_lp: Callable,
+    stepsize: Optional[Callable] = None,
+    maxiter: int = 50,
+    relative_duality_gap_tol: float = 1e-5,
+    grad_norm_tol: float = 1e-10,
+    verbose: bool = False,
+):
+    """Stateless Frank-Wolfe: problem(x) -> (f, gradf). `initial` (a tensor
+    or an array) is taken in float64 unless it is a floating tensor.
+    Returns (x, u)."""
+    x0 = initial if (isinstance(initial, torch.Tensor)
+                     and initial.is_floating_point()) \
+        else torch.as_tensor(initial, dtype=torch.float64)
+
+    def problem_s(x, state):
+        f, g = problem(x)
+        return f, g, state
+
+    x, u, _, _ = frank_wolfe_with_state(
+        x0, None, problem_s, solve_lp, maxiter=maxiter,
+        relative_duality_gap_tol=relative_duality_gap_tol,
+        grad_norm_tol=grad_norm_tol, verbose=verbose, stepsize=stepsize)
+    return x, u

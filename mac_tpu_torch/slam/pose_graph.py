@@ -1,5 +1,6 @@
 """Pose-graph datasets: g2o parsing, odometry/loop splitting and conversion
-to weighted sparsification problems (numpy only; carried over from
+to weighted sparsification problems and NetworkX graphs, and a plot of an
+estimate (numpy; NetworkX and matplotlib imported where used; the port of
 mac_tpu.slam.pose_graph).
 
 Weight conventions:
@@ -139,3 +140,66 @@ def read_g2o_file(filename: str) -> Tuple[List[RelativePoseMeasurement], int]:
 def rpm_to_mac(measurements: List[RelativePoseMeasurement]) -> List[Edge]:
     """Edges weighted by the rotation concentration kappa."""
     return [Edge(m.i, m.j, m.kappa) for m in measurements]
+
+
+def rpm_to_arrays(measurements) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed (idx (m, 2) int32, kappa weights (m,)) arrays of the
+    measurements."""
+    idx = np.array([[m.i, m.j] for m in measurements], dtype=np.int32)
+    w = np.array([m.kappa for m in measurements])
+    return idx, w
+
+
+def rpm_to_nx(measurements):
+    """NetworkX graph of the measurements, weighted by kappa."""
+    import networkx as nx
+
+    G = nx.Graph()
+    for m in measurements:
+        G.add_edge(m.i, m.j, weight=m.kappa)
+    return G
+
+
+def _normalized_translations(xhat: np.ndarray) -> np.ndarray:
+    """The (d, n) translations of an SE-Sync variable matrix
+    X = [t_1 .. t_n | R_1 .. R_n] of shape (d, n (d + 1)), gauge-normalised:
+    rotated by R_1^T and moved so that t_1 is the origin."""
+    d, cols = xhat.shape
+    n = cols // (d + 1)
+    R0 = xhat[:, n:n + d]
+    t = R0.T @ xhat[:, :n]
+    return t - t[:, :1]
+
+
+def plot_poses(xhat: np.ndarray, measurements, show: bool = True,
+               color: str = "b", alpha: float = 0.25, ax=None):
+    """Draw an estimated pose graph: the odometry chain as a solid
+    polyline, loop closures as faint segments. 2D and 3D variable
+    matrices; returns the matplotlib axis."""
+    import matplotlib.pyplot as plt
+
+    t = _normalized_translations(np.asarray(xhat))
+    d = t.shape[0]
+    if ax is None:
+        fig = plt.figure()
+        ax = (fig.add_subplot(projection="3d") if d == 3
+              else fig.add_subplot(1, 1, 1))
+    if d == 2:
+        ax.plot(t[0], t[1], color=color, alpha=1.0, linewidth=0.5)
+    else:
+        ax.plot3D(t[0], t[1], t[2], color=color, alpha=1.0, linewidth=0.3)
+    for m in measurements:
+        if abs(m.i - m.j) <= 1:
+            continue
+        seg = t[:, [m.i, m.j]]
+        if d == 2:
+            ax.plot(seg[0], seg[1], color=color, alpha=alpha, linewidth=0.5)
+        else:
+            ax.plot3D(seg[0], seg[1], seg[2], color=color, alpha=alpha,
+                      linewidth=0.3)
+    if d == 2:
+        ax.set_aspect("equal")
+    ax.set_axis_off()
+    if show:
+        plt.show()
+    return ax

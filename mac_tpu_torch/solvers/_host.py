@@ -68,7 +68,13 @@ def host_band_probe_ratio(fixed_idx, w_fixed, cand_idx, w_cand, num_nodes):
     keeps splu nearly free of fill. None when the graph has no narrow band
     (expander-like: the fill would be dangerous, and such graphs have no
     tiny gap) or when the probe fails (a disconnected graph's grounded
-    system is singular)."""
+    system is singular).
+
+    A public helper: the port's routing does not call it. The JAX package
+    uses it only in the routing branches it takes when its backend is the
+    CPU (mac_tpu/solvers/mac.py:534-563), which send large band-narrow
+    tiny-gap graphs to the host engine; the port's CPU runs rehearse the
+    card's routing instead, so those branches have no counterpart here."""
     idx = np.concatenate([fixed_idx, cand_idx], axis=0)
     try:
         _, _, bw = rcm_order(idx, num_nodes)

@@ -21,10 +21,13 @@ from mac_tpu_torch.ops import banded as _banded
 from mac_tpu_torch.ops.cg import pcg_fixed
 from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
                                          build_operator, lap_applier,
-                                         lap_dense, lap_inf_norm,
+                                         lap_degrees, lap_dense, lap_inf_norm,
                                          lap_tridiagonal_part)
-from mac_tpu_torch.ops.lobpcg import (_shift_term, dense_fiedler,
-                                      lobpcg_fiedler, tracemin_fiedler)
+from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
+                                      FiedlerResult, _shift_term,
+                                      dense_fiedler, lobpcg_fiedler,
+                                      tracemin_fiedler,
+                                      tracemin_fiedler_lanes)
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
@@ -96,8 +99,8 @@ def fiedler_pair_op(
     *,
     xprev0: torch.Tensor,
     tol: float = 1e-8,
-    maxiter: int = 200,
-    inner_iters: int = 16,
+    maxiter: int = TRACEMIN_MAXITER,
+    inner_iters: int = TRACEMIN_INNER_ITERS,
     rel_tol: Optional[float] = None,
     method: str = "tracemin",
     precond: str = "twogrid",
@@ -108,12 +111,14 @@ def fiedler_pair_op(
     return_pstate: bool = False,
     lam0: Optional[torch.Tensor] = None,
     warm_init: Optional[bool] = None,
+    min_iters: Optional[int] = None,
 ):
     """Fiedler pair of L(w), X the (n, q) start block and xprev0 the block
     that seeds the eigensolver's previous-iterate memory.
 
-    lam0 / warm_init: TRACEMIN's warm entry (ops.lobpcg.tracemin_fiedler);
-    with lam0 given, at least one outer iteration runs.
+    lam0 / warm_init: TRACEMIN's warm entry (ops.lobpcg.tracemin_fiedler).
+    min_iters: TRACEMIN's least number of outer iterations; by default 1
+    with lam0 given, else 0.
 
     op: a BandedOperator (TRACEMIN with the banded two-level
         preconditioner; pstate / use_prev / rebuild carry its coarse
@@ -128,8 +133,9 @@ def fiedler_pair_op(
     Returns FiedlerResult, or (FiedlerResult, PrecondState or None) with
     return_pstate=True.
     """
-    warm = dict(lam0=lam0, warm_init=warm_init,
-                min_iters=1 if lam0 is not None else 0)
+    if min_iters is None:
+        min_iters = 1 if lam0 is not None else 0
+    warm = dict(lam0=lam0, warm_init=warm_init, min_iters=min_iters)
     if isinstance(op, _banded.BandedOperator):
         return _banded_pair(
             op, w, X, xprev0=xprev0, tol=tol, maxiter=maxiter,
@@ -176,6 +182,87 @@ def fiedler_pair_op(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
         **warm))
+
+
+def fiedler_pair_lanes(
+    op: GraphOperator,
+    w_base: torch.Tensor,
+    lane_edges: torch.Tensor,
+    lane_w: torch.Tensor,
+    X: torch.Tensor,
+    *,
+    xprev0: torch.Tensor,
+    tol: float = 1e-8,
+    min_iters: int = 0,
+) -> FiedlerResult:
+    """Fiedler pairs of R graphs that each add one edge to L(w_base): lane
+    r is L(w_base) + lane_w[r] a a^T, a the incidence vector of op's edge
+    lane_edges[r]. What fiedler_pair_op computes for each lane's own weight
+    vector (w_base with lane_w[r] added at lane_edges[r]) with its other
+    knobs at their defaults (the plain version is fiedler_pair_lanes_plain),
+    as one solve:
+
+      * a dense-mode operator of at most DENSE_MAX_N nodes: one batched
+        eigh of the R dense Laplacians;
+      * otherwise TRACEMIN over the lanes (tracemin_fiedler_lanes), its
+        product L(w_base) V on every lane's columns at once plus one
+        gather and one index_add_ for the R rank-one terms, and every lane
+        preconditioned by L(w_base)'s two-grid V-cycle, whose chain solves
+        run on the (n, R q) block.
+
+    X: the (n, q) start block of every lane. Returns FiedlerResult with lam
+    (R, q) and X (R, n, q)."""
+    n, q = X.shape
+    R = lane_edges.shape[0]
+    ends = op.idx.index_select(0, lane_edges)
+    lanes = torch.arange(R, device=ends.device)
+    lane_w = lane_w.to(w_base.dtype)
+    if op.mode == "dense" and n <= DENSE_MAX_N:
+        u, v = ends[:, 0], ends[:, 1]
+        base = lanes * (n * n)
+        flat = torch.cat([base + u * n + u, base + v * n + v,
+                          base + u * n + v, base + v * n + u])
+        L = lap_dense(op, w_base).expand(R, n, n).clone()
+        L.view(-1).index_add_(0, flat, torch.cat([lane_w, lane_w,
+                                                  -lane_w, -lane_w]))
+        return dense_fiedler(L, q)
+    apply_base = lap_applier(op, w_base)
+    # Rows of lane r's endpoints in the (n R, k) view of an (n, R k) block.
+    rows = torch.cat([ends[:, 0] * R + lanes, ends[:, 1] * R + lanes])
+
+    def apply_L(V):
+        k = V.shape[1] // R
+        d = V.reshape(n * R, k).index_select(0, rows)
+        t = lane_w[:, None] * (d[:R] - d[R:])
+        out = apply_base(V).reshape(n * R, k)
+        return out.index_add_(0, rows, torch.cat([t, -t])).reshape(n, R * k)
+
+    deg = lap_degrees(op, w_base)
+    lnorm = 2.0 * torch.maximum(
+        deg.max(), torch.maximum(deg[ends[:, 0]], deg[ends[:, 1]]) + lane_w)
+    return tracemin_fiedler_lanes(
+        apply_L, X, lnorm, make_twogrid_precond(op, w_base, apply_base),
+        xprev0=xprev0, tol=tol, min_iters=min_iters)
+
+
+def fiedler_pair_lanes_plain(op: GraphOperator, w_base: torch.Tensor,
+                             lane_edges: torch.Tensor, lane_w: torch.Tensor,
+                             X: torch.Tensor, *, xprev0: torch.Tensor,
+                             tol: float = 1e-8,
+                             min_iters: int = 0) -> FiedlerResult:
+    """Plain version of fiedler_pair_lanes: one fiedler_pair_op per lane on
+    its own weight vector, each with its own preconditioner (what the JAX
+    package's vmap computes). Used by the tests and chip_smoke.py."""
+    out = [fiedler_pair_op(
+        op, w_base.index_add(0, lane_edges[r:r + 1],
+                             lane_w[r:r + 1].to(w_base.dtype)),
+        X, xprev0=xprev0, tol=tol, min_iters=min_iters)
+        for r in range(lane_edges.shape[0])]
+    return FiedlerResult(
+        lam=torch.stack([o.lam for o in out]),
+        X=torch.stack([o.X for o in out]),
+        iters=torch.tensor([o.iters for o in out]),
+        res=torch.stack([torch.as_tensor(o.res) for o in out]))
 
 
 def _op_from_matrix(L) -> Tuple[GraphOperator, np.ndarray,

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of the PyTorch port on the card: each against
 its plain PyTorch version, the wrappers' input checks, a banded solve that
-goes through K1 and K2 and a matrix-free one that goes through K1b. Marked `cuda`; each test skips when no CUDA
+goes through K1 and K2 and a matrix-free one that goes through K1b, and the
+baselines on the card (GreedyEig's lane-batched trial chunk through K1,
+GreedyESP's scan). Marked `cuda`; each test skips when no CUDA
 device is present. This file imports neither JAX nor the JAX package, so it
 also runs where JAX is not installed:
 
@@ -361,3 +363,51 @@ def test_front_ends_default_to_cuda(dev):
         solver.add_edge(e)
     lam_inc, v_inc = solver.find_fiedler_pair()
     assert abs(lam_inc - ref) <= 1e-3 * ref and v_inc.shape == (n,)
+
+
+def test_greedy_eig_batched_chunk_matches_per_lane_loop(dev):
+    """GreedyEig on the card (float32, ELL, n 1200, 600 long candidates,
+    400 of them selected): a trial chunk of 64 lanes as one solve launches
+    K1 on the (n, 256) block, and its lambda_2 agree with the per-lane loop
+    (each lane with its own weights and V-cycle) to 5e-4 relative, none
+    below the incumbent's; two greedy steps select two edges."""
+    from chip_smoke import chain_instance
+    from mac_tpu_torch.solvers import GreedyEig
+    from mac_tpu_torch.solvers.greedy_eig import TRIAL_MIN_ITERS
+    from mac_tpu_torch.utils.fiedler import fiedler_pair_lanes_plain
+
+    fixed, cands = chain_instance(1200, 600, 3)
+    g = GreedyEig(fixed, cands, 1200)
+    assert g.device.type == "cuda" and g.dtype == torch.float32
+    x = np.zeros(len(cands))
+    x[:400] = 1.0
+    lam, X = g._eval(x, g._X0)
+    cand = np.arange(400, 464)
+    before = tridiag_solve.launches
+    lams, Xs = g._eval_chunk(x, cand, X)
+    assert tridiag_solve.launches > before and Xs.is_cuda
+    c = torch.as_tensor(cand, device=dev)
+    ref = fiedler_pair_lanes_plain(g.op, g._weights(x), c + g._m_fixed,
+                                   g._w_cand[c], X, xprev0=g.xprev0,
+                                   tol=g.fiedler_tol,
+                                   min_iters=TRIAL_MIN_ITERS)
+    np.testing.assert_allclose(lams, ref.lam[:, 0].cpu().numpy(), rtol=5e-4)
+    assert np.all(lams >= float(lam) * (1 - 5e-4))
+    mask, sel = g.subset(2)
+    assert mask.sum() == 2 and len(sel) == 2
+
+
+def test_greedy_esp_scan_on_card_matches_host_loop(dev):
+    """GreedyESP's scan on the card (chain n 900, m 2500, k 840, U in
+    float64) selects the host numpy loop's order; TF32 stays off."""
+    from chip_smoke import chain_instance
+    from mac_tpu_torch.solvers import GreedyESP
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fixed, cands = chain_instance(900, 2500, 5)
+    order = GreedyESP(fixed, cands, 900)._select_scan_device(840)
+    host = GreedyESP(fixed, cands, 900)
+    host.SCAN_MIN_WORK = 10 ** 18
+    _, sel = host.subset(840)
+    ids = {id(e): i for i, e in enumerate(cands)}
+    assert [ids[id(e)] for e in sel] == order.tolist()

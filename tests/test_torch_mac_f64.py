@@ -146,9 +146,9 @@ def test_tridiag_dispatch_sends_float64_to_the_scans(monkeypatch):
     rule for that dtype); a float32 block still goes to a wrapper."""
     calls = []
     for name in ("tridiag_solve", "tridiag_solve_blocked"):
-        real = getattr(tt, name)
+        real = getattr(tt._kernels, name)
         monkeypatch.setattr(
-            tt, name, lambda *a, _f=real, _n=name, **k: (
+            tt._kernels, name, lambda *a, _f=real, _n=name, **k: (
                 calls.append(_n), _f(*a, **k))[1])
     rng = np.random.RandomState(0)
     n = 500

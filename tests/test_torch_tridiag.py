@@ -114,9 +114,9 @@ def test_tridiag_dispatch_refuses_unported_blocked_kernel(monkeypatch):
     whole-row scans."""
     calls = []
     for name in ("tridiag_solve", "tridiag_solve_blocked"):
-        real = getattr(tt, name)
+        real = getattr(tt._kernels, name)
         monkeypatch.setattr(
-            tt, name, lambda *a, _f=real, _n=name, **k: (
+            tt._kernels, name, lambda *a, _f=real, _n=name, **k: (
                 calls.append(_n), _f(*a, **k))[1])
     n = 33000
     d, e, rng = _chain_system(n, 2)
