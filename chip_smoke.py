@@ -22,6 +22,11 @@ its wall time printed:
        tables (no split), on a small graph without a split and on a half-4
        band whose slot rows hold duplicate edges, bitwise equal; also timed: the same scatter as one
        index_add_ into a zeroed ut (the library yardstick);
+       the lane forms of phase 8's sweeps, timed too: K1 on city10000's
+       chain factors of its 8 budget lanes (8, 10000, 4), a factor per
+       lane, at 2e-4; K2b on city10000's tables at those 8 lanes and K2 on
+       sphere2500's at 2 lanes, bitwise (the yardstick one index_add_ into
+       a zeroed (R, ...) ut);
      a kernel's time is its device time (device_ms: 100 calls behind a
      spin kernel), with the time of one call and its host work beside it
      (call_ms); the plain versions are timed by call_ms;
@@ -35,7 +40,8 @@ its wall time printed:
      groups), segments of 128 and 256 rows passed explicitly, n = 1 and
      n = 1025 (a last segment of one row), and a right-hand side 4 bytes
      off a 16-byte boundary; timed at (100000, 4), beside the blocked
-     LDL^T factorisation of that chain;
+     LDL^T factorisation of that chain; its lane form at (2, 100000, 4) on
+     the chain factors of phase 8b's two budget lanes, checked and timed;
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K1 and K2 must have launched; the relaxed lambda_2
@@ -83,12 +89,33 @@ its wall time printed:
      keep the phase short): each step's lambda_2 within 1e-3 of the scipy
      referee's, rising every step, the first chunk's batched lambda_2
      within 5e-4 of the per-lane loop's, K1 launched.
+  8. the budget sweep MAC.solve_sweep, each part with its launch counts by
+     lane count: (a) city10000 (scripts/bench_sweep.py's 8 budgets, 10 to
+     50% of the loop closures, x_init NaiveGreedy's per budget) on phase
+     4's solver, one cold and three warm sweeps taking turns with 8 serial
+     warm solve(k, x_init) of the same budgets; gates: exactly k edges per
+     lane, each lane's relaxed lambda_2 (scipy referee) at least
+     (1 - 1e-2) of the serial solve's, the K = 5344 lane within -1e-3 of
+     the reference optimum, each lane's Frank-Wolfe bound at least its
+     relaxed lambda_2 (1 - 1e-3), K1 and K2b launched with 8 lanes; prints
+     the launches per sweep and per serial solve, the sweep's warm median
+     against the sum of the serial warm medians and one warm sweep's
+     device busy time (profiler); (b) the n = 100000 expander on phase 5's
+     solver, budgets 6250 and 12500, max_iters=10, x_init the top-k by
+     weight: K1b launched with 2 lanes, exactly k per lane, the K = 12500
+     lane's evaluate_objective at or above the reference library's
+     (1 - 1e-3); (c) kitti_05, float64, on the device engine (budgets 6
+     and 33): exactly k per lane, no kernel launched, each lane's relaxed
+     lambda_2 at least (1 - 1e-2) of the host engine's solve; (d)
+     sphere2500, 2 lanes (K2's no-split form): exactly k per lane, K1 and
+     K2 launched with 2 lanes.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
 their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
 device_ms), call_ms, the plain version's call time, the yardstick's device
-time (library_ms), and the least time the card could take, bound_ms) and
-the result line {"ok": true, "device": {...}}.
+time (library_ms), and the least time the card could take, bound_ms; one
+entry per lane shape, its launches those with that many lanes in phase 8)
+and the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -206,10 +233,13 @@ def bound(nbytes: float, flops: float):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def tridiag_bound(n: int, q: int):
-    """Read dp, l (n,) and B (n, q), write X (n, q), float32; per entry of
-    B two forward operations, one division, two backward."""
-    return bound(4.0 * (2 * n + 2 * n * q), 5.0 * n * q)
+def tridiag_bound(n: int, q: int, lanes: int = 1, shared: bool = True):
+    """Read dp, l (n,) -- one factor, or one per lane -- and B (lanes, n,
+    q), write X (lanes, n, q), float32; per entry of B two forward
+    operations, one division, two backward."""
+    factors = 1 if shared else lanes
+    return bound(4.0 * (2 * n * factors + 2 * n * q * lanes),
+                 5.0 * n * q * lanes)
 
 
 def profiled_busy(fn):
@@ -366,26 +396,30 @@ def dataset_inputs(dev, name="city10000"):
 
 def k2_args(bop, w):
     """assemble_ut's arguments for the banded tables bop at edge weights w
-    (as ops.banded.assemble_bd gathers them)."""
+    (m,), or at the lanes of w (R, m) (as ops.banded.assemble_bd gathers
+    them)."""
     import torch
 
-    w_pad = torch.cat([-w, w.new_zeros(1)])
+    w_pad = torch.cat([-w, w.new_zeros((*w.shape[:-1], 1))], dim=-1)
     dd = bop.du_dense
     return (bop.dcol_tbl[:dd].contiguous(),
-            w_pad[bop.ueid_tbl[:dd]].contiguous(), bop.ocol_tbl,
-            bop.olane_tbl, w_pad[bop.oeid_tbl].contiguous(), bop.half, bop.nb)
+            w_pad[..., bop.ueid_tbl[:dd]].contiguous(), bop.ocol_tbl,
+            bop.olane_tbl, w_pad[..., bop.oeid_tbl].contiguous(), bop.half,
+            bop.nb)
 
 
 def index_add_assembly(args):
     """The library yardstick of assemble_ut: a callable that computes the
-    same ut as one index_add_ of the slot weights into a zeroed ut, at flat
-    positions computed once here from the slot tables."""
+    same ut as one index_add_ of the slot weights into a zeroed ut (of
+    every lane), at flat positions computed once here from the slot
+    tables."""
     import torch
 
     from mac_tpu_torch.ops.banded import BS
 
     dcol, wu, ocol, olane, ow, half, nb = args
     dev = wu.device
+    lanes = wu.shape[0] if wu.dim() == 3 else 1
 
     def flat_pos(col, lane_global):
         t = col // BS - 1
@@ -397,15 +431,37 @@ def index_add_assembly(args):
                        torch.arange(nb * BS, device=dev).expand_as(dcol))
     p2, ok2 = flat_pos(ocol.long(), olane.long() + BS * torch.arange(
         nb, device=dev)[None, :])
-    pos = torch.cat([p1, p2])
-    vals = torch.cat([wu[ok1], ow[ok2]])
-    shape = (half + 1, nb, BS, BS)
+    size = (half + 1) * nb * BS * BS
+    offs = size * torch.arange(lanes, device=dev)[:, None]
+    pos = torch.cat([(offs + p1).reshape(-1), (offs + p2).reshape(-1)])
+    wu3, ow3 = wu.reshape(lanes, *dcol.shape), ow.reshape(lanes, *ocol.shape)
+    vals = torch.cat([wu3[:, ok1].reshape(-1), ow3[:, ok2].reshape(-1)])
+    shape = (half + 1, nb, BS, BS) if wu.dim() == 2 else (
+        lanes, half + 1, nb, BS, BS)
 
     def library():
         out = torch.zeros(shape, dtype=torch.float32, device=dev)
         return out.view(-1).index_add_(0, pos, vals).view(shape)
 
     return library
+
+
+def lane_weights(fixed, cands, ks, dev):
+    """(R, m) float32 edge weights of the budget lanes ks: the fixed edges'
+    weights, then each candidate's weight times NaiveGreedy's top-k[r]
+    selection (the sweep's x_init), and the (R, m_cand) x_init."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.solvers import NaiveGreedy
+
+    naive = NaiveGreedy(cands)
+    xs = np.stack([naive.subset(k) for k in ks])
+    wf = np.array([e.weight for e in fixed])
+    wc = np.array([e.weight for e in cands])
+    w = np.concatenate([np.broadcast_to(wf, (len(ks), len(wf))),
+                        xs * wc], axis=1)
+    return torch.as_tensor(w, dtype=torch.float32, device=dev), xs
 
 
 def baselines(dev, dataset, card, counted):
@@ -610,6 +666,199 @@ def baselines(dev, dataset, card, counted):
     return eig_launches, k1
 
 
+def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
+    """Phase 8: the budget sweep (MAC.solve_sweep) on the card, every gate
+    fatal: (a) city10000, banded float32, 8 lanes against 8 serial warm
+    solves, turn by turn in this call; (b) the n = 100000 expander of phase
+    5, 2 lanes (K1b); (c) kitti_05 on the float64 device engine (no
+    kernel); (d) sphere2500, 2 lanes (K2's no-split form). `mac` and
+    `mac5` are phases 4 and 5's solvers, synth5 phase 5's instance. Returns
+    the launches of each kernel by lane count in (a), (b) and (d)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import MAC, NaiveGreedy
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    def reset():
+        for kern in counted:
+            kern.launches = 0
+            kern.launches_by_lanes = {}
+
+    def by_lanes():
+        return {kern.__name__: dict(kern.launches_by_lanes)
+                for kern in counted}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) city10000: 8 lanes, scripts/bench_sweep.py's budgets and starts.
+    t8 = time.perf_counter()
+    meas, n = read_g2o_file(str(dataset))
+    fixed, cands = split_edges(rpm_to_mac(meas))
+    m = len(cands)
+    ks = [int(f * m) for f in np.linspace(0.1, 0.5, 8)]
+    naive = NaiveGreedy(cands)
+    X0 = np.stack([naive.subset(k) for k in ks])
+    sweep_s, serial_s, serial_launch = [], {k: [] for k in ks}, None
+    reset()
+    for turn in range(4):
+        (r8, u8, up8), dt = timed(lambda: mac.solve_sweep(ks, X0))
+        sweep_s.append(dt)
+        if turn == 0:
+            sweep_launch = {kern.__name__: kern.launches for kern in counted}
+            lanes_a = by_lanes()
+        if turn == 3:
+            break
+        before = {kern.__name__: kern.launches for kern in counted}
+        serial_u = []
+        for k, x in zip(ks, X0):
+            (_, u_k, _), dt = timed(lambda: mac.solve(k, x))
+            serial_s[k].append(dt)
+            serial_u.append(u_k)
+        if serial_launch is None:
+            serial_launch = {kern.__name__: (kern.launches
+                                             - before[kern.__name__]) / 8
+                             for kern in counted}
+    busy, kernels_n, top = profiled_busy(lambda: mac.solve_sweep(ks, X0))
+    lam_sw = [scipy_lam2(mac.laplacian(u)) for u in u8]
+    lam_se = [scipy_lam2(mac.laplacian(u)) for u in serial_u]
+    warm = statistics.median(sweep_s[1:])
+    serial_sum = sum(statistics.median(v) for v in serial_s.values())
+    rel = [(a - b) / b for a, b in zip(lam_sw, lam_se)]
+    gap_top = (lam_sw[-1] - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED
+    print(f"8a city10000 sweep (8 lanes, budgets {ks}, x_init NaiveGreedy; "
+          f"banded float32, fast32 policy): sweep cold {sweep_s[0]:.4f} s, "
+          f"warm {[round(t, 4) for t in sweep_s[1:]]} s, warm median "
+          f"{warm:.4f} s; 8 serial warm solves, medians by budget "
+          f"{[round(statistics.median(v), 4) for v in serial_s.values()]} s, "
+          f"sum {serial_sum:.4f} s (sweep / serial {warm / serial_sum:.3f}); "
+          f"kernel launches per sweep {sweep_launch} (by lanes {lanes_a}), "
+          f"per serial solve {serial_launch}; one warm sweep's device busy "
+          f"{busy:.3f} ms over {kernels_n} kernels and copies (profiled "
+          f"run; largest {[(round(ms, 3), cnt, nm) for ms, cnt, nm in top]})"
+          f" ({card})", flush=True)
+    print(f"8a relaxed lambda_2 (scipy) by lane: sweep "
+          f"{[f'{v:.9g}' for v in lam_sw]}, serial "
+          f"{[f'{v:.9g}' for v in lam_se]}, sweep - serial relative "
+          f"{[f'{v:+.2e}' for v in rel]}; upper "
+          f"{[f'{v:.9g}' for v in up8]}; K = {ks[-1]} lane gap to the "
+          f"reference {gap_top:+.3e}", flush=True)
+    for i, k in enumerate(ks):
+        if int(r8[i].sum()) != k or set(np.unique(r8[i])) - {0.0, 1.0}:
+            fail(f"8a: lane {k} rounded {r8[i].sum()} edges")
+        if not (np.isfinite(lam_sw[i]) and rel[i] >= -1e-2):
+            fail(f"8a: lane {k}'s relaxed lambda_2 {lam_sw[i]} is below "
+                 f"the serial solve's {lam_se[i]} (1 - 1e-2)")
+        if not up8[i] >= lam_sw[i] * (1 - 1e-3):
+            fail(f"8a: lane {k}'s upper {up8[i]} below its relaxed lambda_2 "
+                 f"{lam_sw[i]} (1 - 1e-3)")
+    if not gap_top >= GAP_FLOOR:
+        fail(f"8a: the K = {ks[-1]} lane's gap {gap_top:+.3e} is below "
+             f"{GAP_FLOOR}")
+    for name in ("tridiag_solve", "assemble_ut"):
+        if lanes_a[name].get(8, 0) <= 0:
+            fail(f"8a: {name} never launched with 8 lanes: {lanes_a}")
+    part_s = [time.perf_counter() - t8]
+
+    # (b) the n = 100000 expander, 2 lanes: the ELL V-cycle through K1b.
+    t8 = time.perf_counter()
+    _, wf5, _, wc5 = synth5
+    ks5 = [6250, 12500]
+    X5 = np.zeros((2, len(wc5)))
+    for r, k_ in enumerate(ks5):
+        X5[r, np.argpartition(wc5, -k_)[-k_:]] = 1.0
+    reset()
+    (r5, u5, up5), dt5 = timed(
+        lambda: mac5.solve_sweep(ks5, X5, max_iters=10))
+    lanes_b = by_lanes()
+    lam5 = mac5.evaluate_objective(u5[1])
+    print(f"8b n = {SCALE_N} sweep (2 lanes, budgets {ks5}, max_iters=10, "
+          f"x_init the top-k by weight; ELL float32): {dt5:.3f} s; rounded "
+          f"{[int(r.sum()) for r in r5]}; K = 12500 lane's relaxed lambda_2 "
+          f"(evaluate_objective) {lam5:.12g}, reference "
+          f"{REFERENCE_LAM2_SCALE:.12g}, relative gap "
+          f"{(lam5 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE:+.3e}; "
+          f"upper {[f'{v:.9g}' for v in up5]}; launches by lanes {lanes_b} "
+          f"({card})", flush=True)
+    if lanes_b["tridiag_solve_blocked"].get(2, 0) <= 0:
+        fail(f"8b: K1b never launched with 2 lanes: {lanes_b}")
+    if [int(r.sum()) for r in r5] != ks5:
+        fail(f"8b: rounded {[r.sum() for r in r5]}, want {ks5}")
+    if not lam5 >= REFERENCE_LAM2_SCALE * (1 - 1e-3):
+        fail(f"8b: the K = 12500 lane's relaxed lambda_2 {lam5} is below "
+             f"{REFERENCE_LAM2_SCALE} (1 - 1e-3)")
+    part_s.append(time.perf_counter() - t8)
+
+    # (c) kitti_05 on the float64 device engine: the plain scans, no kernel.
+    t8 = time.perf_counter()
+    meas, n_k = read_g2o_file(str(dataset.parent / "kitti_05.g2o"))
+    fixed_k, cands_k = split_edges(rpm_to_mac(meas))
+    mac_k = MAC(fixed_k, cands_k, n_k)
+    ks_k = [6, 33]
+    reset()
+    (r_k, u_k, up_k), dt_k = timed(lambda: mac_k.solve_sweep(ks_k))
+    got_k = {kern.__name__: kern.launches for kern in counted}
+    lam_k = [scipy_lam2(mac_k.laplacian(u)) for u in u_k]
+    lam_h = [scipy_lam2(mac_k.laplacian(mac_k.solve(k)[1])) for k in ks_k]
+    rel_k = [(a - b) / b for a, b in zip(lam_k, lam_h)]
+    print(f"8c kitti_05 sweep (n {n_k}, budgets {ks_k}; dtype "
+          f"{str(mac_k.dtype).split('.')[-1]}, routed to the "
+          f"{mac_k.fiedler_backend} engine for solve, the device engine for "
+          f"the sweep, precond {mac_k.fiedler_precond}): {dt_k:.3f} s; "
+          f"relaxed lambda_2 sweep (5 steps) {[f'{v:.12g}' for v in lam_k]}, "
+          f"host solve (20 steps) {[f'{v:.12g}' for v in lam_h]}, relative "
+          f"{[f'{v:+.2e}' for v in rel_k]}; upper "
+          f"{[f'{v:.12g}' for v in up_k]}; kernel launches {got_k} "
+          f"({card})", flush=True)
+    if (mac_k.dtype, mac_k.device.type) != (torch.float64, "cuda"):
+        fail("8c: kitti_05 is not a float64 instance on the card")
+    if [int(r.sum()) for r in r_k] != ks_k:
+        fail(f"8c: rounded {[r.sum() for r in r_k]}, want {ks_k}")
+    if any(got_k.values()):
+        fail(f"8c: the float64 sweep launched kernels: {got_k}")
+    if not all(v >= -1e-2 for v in rel_k):
+        fail(f"8c: a lane's relaxed lambda_2 is below the host solve's "
+             f"(1 - 1e-2): {rel_k}")
+    part_s.append(time.perf_counter() - t8)
+
+    # (d) sphere2500, 2 lanes: K2's no-split form with lanes.
+    t8 = time.perf_counter()
+    meas, n_s = read_g2o_file(str(dataset.parent / "sphere2500.g2o"))
+    fixed_s, cands_s = split_edges(rpm_to_mac(meas))
+    mac_s = MAC(fixed_s, cands_s, n_s)
+    ks_s = [len(cands_s) // 4, len(cands_s) // 2]
+    naive_s = NaiveGreedy(cands_s)
+    reset()
+    (r_s, u_s, up_s), dt_s = timed(lambda: mac_s.solve_sweep(
+        ks_s, np.stack([naive_s.subset(k) for k in ks_s])))
+    lanes_d = by_lanes()
+    lam_s = [scipy_lam2(mac_s.laplacian(u)) for u in u_s]
+    print(f"8d sphere2500 sweep (2 lanes, budgets {ks_s}; banded float32, "
+          f"ov_rows {mac_s._banded.ov_rows}): {dt_s:.3f} s; relaxed "
+          f"lambda_2 {[f'{v:.9g}' for v in lam_s]} (the K = {ks_s[1]} "
+          f"reference {BUNDLED['sphere2500'][0]:.9g}); launches by lanes "
+          f"{lanes_d} ({card})", flush=True)
+    if [int(r.sum()) for r in r_s] != ks_s or not np.all(np.isfinite(lam_s)):
+        fail(f"8d: rounded {[r.sum() for r in r_s]}, want {ks_s}")
+    if mac_s._banded is None or mac_s._banded.ov_rows:
+        fail("8d: sphere2500 left K2's no-split banded form")
+    for name in ("tridiag_solve", "assemble_ut"):
+        if lanes_d[name].get(2, 0) <= 0:
+            fail(f"8d: {name} never launched with 2 lanes: {lanes_d}")
+    part_s.append(time.perf_counter() - t8)
+    print(f"phase 8 wall by part: (a) {part_s[0]:.3f} s, (b) "
+          f"{part_s[1]:.3f} s, (c) {part_s[2]:.3f} s, (d) {part_s[3]:.3f} s",
+          flush=True)
+    return lanes_a, lanes_b, lanes_d
+
+
 def main():
     import numpy as np
     import torch
@@ -697,7 +946,7 @@ def main():
                                   "exact factor (n 4000, q 4)"))
     # sphere2500 (phase 6): the exact chain factor of a real solve, and
     # banded tables without a split.
-    (_, n_sp, _, _, _, _, bop_sp, w_sp, dp_sp, l_sp,
+    (_, n_sp, fixed_sp, cands_sp, _, _, bop_sp, w_sp, dp_sp, l_sp,
      B_sp) = dataset_inputs(dev, "sphere2500")
     if bop_sp.ov_rows != 0:
         fail("sphere2500's banded tables picked a split")
@@ -772,6 +1021,7 @@ def main():
         """Kernel, plain and library times and the bound of one assembly."""
         dcol_, wu_, ocol_, olane_, ow_, half_, nb_ = args
         BS = banded.BS
+        lanes = wu_.shape[0] if wu_.dim() == 3 else 1
         library = index_add_assembly(args)
         lib_err = float((library() - assemble_ut_plain(*args)).abs().max())
         tm = {"device_ms": device_ms(lambda: assemble_ut(*args)),
@@ -781,7 +1031,7 @@ def main():
               "library_call_ms": call_ms(library)}
         nbytes = sum(t.numel() * t.element_size()
                      for t in (dcol_, wu_, ocol_, olane_, ow_)) \
-            + 4.0 * (half_ + 1) * nb_ * BS * BS
+            + 4.0 * lanes * (half_ + 1) * nb_ * BS * BS
         tm["bound_ms"], tm["bound_by"] = bound(nbytes,
                                                wu_.numel() + ow_.numel())
         print(f"{label}: kernel device {tm['device_ms']:.5f} ms, call "
@@ -795,6 +1045,51 @@ def main():
     k2_tm = k2_times(k2_args(bop_sp, w_sp),
                      "K2 time at sphere2500 (no split)")
     k2b_tm = k2_times(k2_args(bop, w), "K2b time at city10000")
+
+    # The lane forms of the budget sweep (phase 8): K1 on city10000's chain
+    # factors of its 8 budget lanes (a factor per lane), K2b on its tables
+    # at those 8 lanes, K2 on sphere2500's tables at 2 lanes.
+    ks8 = [int(f * len(cands)) for f in np.linspace(0.1, 0.5, 8)]
+    w8, x8 = lane_weights(fixed, cands, ks8, dev)
+    fac8 = banded.chain_factor(bop, banded.assemble_bd(bop, w8), w8)
+    dp8, l8 = fac8.dp.float().contiguous(), fac8.l.float().contiguous()
+    B8 = torch.randn((8, n, 4),
+                     generator=torch.Generator().manual_seed(8)).to(dev)
+    k1_lanes = {"max_abs_err": k1_check(
+        dp8, l8, B8, f"city10000's 8 budget lanes (8, {n}, 4), a chain "
+        "factor per lane")}
+    k1_lanes["device_ms"] = device_ms(lambda: tridiag_solve(dp8, l8, B8))
+    k1_lanes["call_ms"] = call_ms(lambda: tridiag_solve(dp8, l8, B8))
+    k1_lanes["plain_ms"] = call_ms(lambda: tridiag_solve_plain(dp8, l8, B8))
+    k1_lanes["bound_ms"], k1_lanes["bound_by"] = tridiag_bound(
+        n, 4, lanes=8, shared=False)
+    print(f"K1 time at 8 lanes (8, {n}, 4): kernel device "
+          f"{k1_lanes['device_ms']:.5f} ms (8 single launches "
+          f"{8 * k1_dev:.5f} ms), call {k1_lanes['call_ms']:.4f} ms, plain "
+          f"call {k1_lanes['plain_ms']:.4f} ms, bound "
+          f"{k1_lanes['bound_ms']:.5f} ms ({k1_lanes['bound_by']}) ({card})",
+          flush=True)
+    ks_sp = [len(cands_sp) // 4, len(cands_sp) // 2]
+    w_sp2, _ = lane_weights(fixed_sp, cands_sp, ks_sp, dev)
+    lane_args = {"K2b_lanes": k2_args(bop, w8),
+                 "K2_lanes": k2_args(bop_sp, w_sp2)}
+    for key, label in (("K2b_lanes", "city10000 tables, 8 lanes"),
+                       ("K2_lanes", "sphere2500 tables, 2 lanes")):
+        got = assemble_ut(*lane_args[key])
+        ref = assemble_ut_plain(*lane_args[key])
+        torch.cuda.synchronize()
+        k2_err[key] = float((got - ref).abs().max())
+        same = torch.equal(got, ref)
+        print(f"K2 assemble_ut {label}: shape {tuple(got.shape)}, "
+              f"max|kernel - plain| {k2_err[key]:.3e} -> "
+              f"{'bitwise equal' if same else 'MISMATCH'}", flush=True)
+        if not same:
+            fail(f"assemble_ut kernel differs from its plain version on "
+                 f"{label}")
+    k2b8_tm = k2_times(lane_args["K2b_lanes"],
+                       "K2b time at city10000, 8 lanes")
+    k2sp2_tm = k2_times(lane_args["K2_lanes"],
+                        "K2 time at sphere2500, 2 lanes")
 
     # ---- 3c. K1b against its plain version on the card
     phase("3c K1b against its plain version")
@@ -815,7 +1110,7 @@ def main():
     def k1b_check(f, q, label, seed, block=1024, misaligned=False):
         nonlocal k1b_err
         dp, l = f.dp.float().contiguous(), f.l.float().contiguous()
-        Bq = torch.randn((dp.shape[0], q),
+        Bq = torch.randn((*dp.shape, q),  # (lanes,) n, q
                          generator=torch.Generator().manual_seed(seed)).to(dev)
         if misaligned:  # the same block, 4 bytes off a 16-byte boundary
             flat = torch.empty(Bq.numel() + 1, dtype=Bq.dtype, device=dev)
@@ -836,10 +1131,10 @@ def main():
         if not ok:
             fail(f"tridiag_solve_blocked kernel disagrees with its plain "
                  f"version on {label}")
-        return dp, l, Bq
+        return dp, l, Bq, err
 
-    dp5, l5, B5 = k1b_check(f5, 4, f"two-grid chain factor (n {SCALE_N}, "
-                            "q 4, seg 1024)", 0)
+    dp5, l5, B5, _ = k1b_check(f5, 4, f"two-grid chain factor (n "
+                               f"{SCALE_N}, q 4, seg 1024)", 0)
     rng = np.random.RandomState(2)
     n_b = 40000  # 39 segments of 1024 and a ragged one of 64 rows
     e_b = -(0.5 + rng.rand(n_b - 1))
@@ -873,6 +1168,31 @@ def main():
               "a last segment of one row (n 1025, q 4)", 9)
     k1b_check(f5, 4, f"two-grid chain factor, B 4 bytes off a 16-byte "
               f"boundary (n {SCALE_N}, q 4)", 10, misaligned=True)
+    # K1b with lanes: the V-cycle chain factors of phase 8b's two budget
+    # lanes (x_init the top-k candidates by weight), a factor per lane.
+    ks5 = [6250, 12500]
+    x5_lanes = np.zeros((2, len(wc5)))
+    for r, k_ in enumerate(ks5):
+        x5_lanes[r, np.argpartition(wc5, -k_)[-k_:]] = 1.0
+    W5 = torch.as_tensor(np.concatenate(
+        [np.broadcast_to(wf5, (2, len(wf5))), x5_lanes * wc5], axis=1),
+        dtype=torch.float32, device=dev)
+    d52, e52 = laplacian.lap_tridiagonal_part(op5, W5)
+    f52 = tridiag_ldl_auto(
+        d52 + 100 * torch.finfo(torch.float32).eps
+        * d52.amax(dim=-1, keepdim=True), e52)
+    dp52, l52, B52, err52 = k1b_check(
+        f52, 4, f"phase 8b's 2 budget lanes (2, {SCALE_N}, 4), a chain "
+        "factor per lane", 12)
+    k1b_lanes = {"max_abs_err": err52}
+    k1b_lanes["device_ms"] = device_ms(
+        lambda: tridiag_solve_blocked(dp52, l52, B52))
+    k1b_lanes["call_ms"] = call_ms(
+        lambda: tridiag_solve_blocked(dp52, l52, B52))
+    k1b_lanes["plain_ms"] = call_ms(
+        lambda: tridiag_solve_blocked_plain(dp52, l52, B52))
+    k1b_lanes["bound_ms"], k1b_lanes["bound_by"] = tridiag_bound(
+        SCALE_N, 4, lanes=2, shared=False)
     k1b_dev = device_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
     k1b_call = call_ms(lambda: tridiag_solve_blocked(dp5, l5, B5))
     k1b_plain_ms = call_ms(lambda: tridiag_solve_blocked_plain(dp5, l5, B5))
@@ -880,6 +1200,12 @@ def main():
     print(f"K1b time at ({SCALE_N}, 4): kernel device {k1b_dev:.5f} ms, call "
           f"{k1b_call:.4f} ms, plain call {k1b_plain_ms:.4f} ms, bound "
           f"{k1b_bound:.5f} ms ({k1b_by}) ({card})", flush=True)
+    print(f"K1b time at 2 lanes (2, {SCALE_N}, 4): kernel device "
+          f"{k1b_lanes['device_ms']:.5f} ms (2 single launches "
+          f"{2 * k1b_dev:.5f} ms), call {k1b_lanes['call_ms']:.4f} ms, "
+          f"plain call {k1b_lanes['plain_ms']:.4f} ms, bound "
+          f"{k1b_lanes['bound_ms']:.5f} ms ({k1b_lanes['bound_by']}) "
+          f"({card})", flush=True)
     # The ELL product of phase 5, against the same product gathering whole
     # (n, q) rows (V[nbr]), which PyTorch runs one thread block per row.
     apply5 = laplacian.lap_applier(op5, w5)
@@ -1131,6 +1457,11 @@ def main():
     # ---- 7. the greedy baselines
     phase("7 baselines")
     eig_launches, k1_ge = baselines(dev, dataset, card, counted)
+
+    # ---- 8. the budget sweep
+    phase("8 budget sweep")
+    lanes_a, lanes_b, lanes_d = sweeps(dev, card, mac, mac5, dataset, counted,
+                                       (fi5, wf5, ci5, wc5))
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -1141,7 +1472,9 @@ def main():
     # stand under K2b; sphere2500 (phase 6) runs the form without a split,
     # and its launches stand under K2. "launches" is the count of the
     # kernel's own main path (K1 phase 4, K1b phase 5, K2 phase 6);
-    # "launches_sphere2500" that of phase 6's four solves.
+    # "launches_sphere2500" that of phase 6's four solves. The lane forms
+    # (shape "(R, ...)") count their launches with R lanes in phase 8's
+    # sweeps ("launches_path" names the part).
     def k2_entry(key, replaces, shape, tm, count):
         return {"name": "assemble_ut", "route": "cuda",
                 "source": "mac_tpu_torch/csrc/assemble.cu",
@@ -1152,6 +1485,17 @@ def main():
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                 "library_call_ms": tm["library_call_ms"]}
+
+    def lane_entry(name, replaces, shape, tm, launches, path):
+        return {"name": name, "route": "cuda",
+                "source": "mac_tpu_torch/csrc/" + (
+                    "assemble.cu" if name == "assemble_ut" else "tridiag.cu"),
+                "replaces": replaces, "shape": shape, "launches": launches,
+                "launches_path": path, "max_abs_err": tm["max_abs_err"],
+                "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+                "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm.get("library_ms")}
 
     sphere = bundled_launches["sphere2500"]
     kernels = [
@@ -1187,6 +1531,21 @@ def main():
          "max_abs_err": k1b_err, "ms": k1b_dev, "device_ms": k1b_dev,
          "call_ms": k1b_call, "plain_ms": k1b_plain_ms,
          "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None},
+        lane_entry("tridiag_solve", "mac_tpu/ops/pallas/tridiag_kernel.py:44",
+                   "(8, 10000, 4), a chain factor per lane", k1_lanes,
+                   lanes_a["tridiag_solve"].get(8, 0), "phase 8a"),
+        lane_entry("assemble_ut", "mac_tpu/ops/pallas/assemble_kernel.py:61",
+                   "(8, ...) city10000 tables (K2b form)",
+                   dict(k2b8_tm, max_abs_err=k2_err["K2b_lanes"]),
+                   lanes_a["assemble_ut"].get(8, 0), "phase 8a"),
+        lane_entry("assemble_ut", "mac_tpu/ops/pallas/assemble_kernel.py:49",
+                   "(2, ...) sphere2500 tables (K2 form, no split)",
+                   dict(k2sp2_tm, max_abs_err=k2_err["K2_lanes"]),
+                   lanes_d["assemble_ut"].get(2, 0), "phase 8d"),
+        lane_entry("tridiag_solve_blocked",
+                   "mac_tpu/ops/pallas/tridiag_kernel.py:107",
+                   f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
+                   lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,11 @@
 // index_add_ into a zeroed ut and 0.0099 ms for the first port of this
 // kernel (one block per node block b, 79 blocks of 128 threads, ut zeroed
 // and then updated in device memory); the bound is 0.0048 ms.
+//
+// Lanes (the budget sweep): wu (R, du, nb*128), ow (R, ov, nb) and ut
+// (R, half+1, nb, 128, 128) gain a leading lane dimension; the slot tables
+// dcol, ocol and olane are shared by every lane. The grid is (nb, half+1,
+// R), one tile per block as before; R = 1 is the single assembly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +67,10 @@ assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
   const int lo = kBS * (t + 1);
   const size_t n_pad = (size_t)nb * kBS;
   const size_t node = (size_t)b * kBS + r;
+  // Lane blockIdx.z: its slot weights and its ut.
+  wu += (size_t)blockIdx.z * du * n_pad;
+  ow += (size_t)blockIdx.z * ov * nb;
+  ut += (size_t)blockIdx.z * gridDim.y * n_pad * kBS;
 
   // Loads first, so that their latency overlaps the zeroing: a round of
   // kChunk dense slots of lane r, and the block's first kBS overflow entries.
@@ -126,23 +135,24 @@ assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
 
 }  // namespace
 
-// dcol: (du, nb*128) int32; wu: (du, nb*128) float32; ocol, olane: (ov, nb)
-// int32; ow: (ov, nb) float32; ut: (half+1, nb, 128, 128) float32, 16-byte
-// aligned. All row-major and contiguous; the overflow pointers are unused
-// when ov = 0. Launches on `stream` and returns the first CUDA error of the
-// shared-memory attribute or the launch (0 on success).
+// dcol: (du, nb*128) int32; wu: (lanes, du, nb*128) float32; ocol, olane:
+// (ov, nb) int32; ow: (lanes, ov, nb) float32; ut: (lanes, half+1, nb, 128,
+// 128) float32, 16-byte aligned. All row-major and contiguous; the overflow
+// pointers are unused when ov = 0. Launches on `stream` and returns the
+// first CUDA error of the shared-memory attribute or the launch (0 on
+// success).
 extern "C" int assemble_ut_f32(const int* dcol, const float* wu, int du,
                                const int* ocol, const int* olane,
                                const float* ow, int ov, float* ut, int half,
-                               int nb, void* stream) {
-  if (nb <= 0 || half < 0) return 0;
+                               int nb, int lanes, void* stream) {
+  if (nb <= 0 || half < 0 || lanes <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(ut) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   static const cudaError_t attr = cudaFuncSetAttribute(
       assemble_ut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kTileBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(nb, half + 1);
+  const dim3 grid(nb, half + 1, lanes);
   assemble_ut_kernel<<<grid, kBS, kTileBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       dcol, wu, du, ocol, olane, ow, ov, ut, nb);

@@ -1,6 +1,9 @@
-// Tridiagonal LDL^T solve for one (n, q) block of right-hand sides:
+// Tridiagonal LDL^T solve for an (n, q) block of right-hand sides:
 //     L diag(dp) L^T X = B,  L unit lower bidiagonal with subdiagonal l.
 // Two kernels: K1, whole rows, and K1b, segment-decoupled (further down).
+// Both take R lanes in one launch: B and X (R, n, q), and dp, l either one
+// factor per lane (R, n), at a lane stride fstride = n, or one factor that
+// every lane shares (n,), fstride = 0. R = 1 is the single solve.
 //
 // The two substitutions are affine recurrences
 //     forward:  y_i = b_i - l_i * y_{i-1}           (y_{-1} = 0)
@@ -103,6 +106,11 @@ __device__ __forceinline__ void warp_scan_maps_segmented(float& c, float& v,
 // port in the same process. The time tracks the instructions each SM
 // issues, so a tuning run picked 256 threads in 16 blocks over 128 or 512
 // threads in 8 or 16; a later sweep edits the two constants below.
+//
+// Lanes (the budget sweep's R factors, GreedyEig's shared factor on a wide
+// block): one launch holds a cluster for every (column group, lane) pair,
+// side by side in the grid (16, groups, R), so clusters that used to run
+// one launch after another now run together on the card's SMs.
 
 constexpr int kCluster = 16;            // blocks per cluster (non-portable)
 constexpr int kK1Threads = 256;         // threads per block
@@ -333,14 +341,23 @@ __device__ void exchange(cg::cluster_group& cluster, float* tot_c,
   __syncthreads();
 }
 
-// B and X hold q columns at row stride ld (a column group of a wider block
-// when ld > q).
+// B and X hold R lanes of (n, ld); the cluster at (blockIdx.y, blockIdx.z)
+// solves the column group of up to kMaxQ columns starting at column
+// kMaxQ * blockIdx.y of lane blockIdx.z, whose factor starts fstride
+// floats into dp and l per lane.
 __global__ void __launch_bounds__(kK1Threads)
 tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
-                     const float* __restrict__ B, float* X, int n, int q,
-                     int ld, int span, int tile_rows) {
+                     const float* __restrict__ B, float* X, int n, int ld,
+                     int span, int tile_rows, long long fstride) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
+  const int j0 = kMaxQ * static_cast<int>(blockIdx.y);
+  const int q = min(kMaxQ, ld - j0);  // this cluster's columns
+  const long long lane = blockIdx.z;
+  dp += lane * fstride;
+  l += lane * fstride;
+  B += lane * n * ld + j0;
+  X += lane * n * ld + j0;
   const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x;
   const int nw = blockDim.x >> 5;
@@ -501,7 +518,8 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
 // barriers in all; the scans and barriers together cost 0.35 us. Measured
 // (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W): 0.0035 ms of device time
 // at (100000, 4) against 0.0066 ms for the first port in the same process;
-// 2 and 8 rows per thread and 8 columns per block were slower.
+// 2 and 8 rows per thread and 8 columns per block were slower. Lanes add
+// the grid's third dimension, (segments, column groups, R).
 
 constexpr int kMaxBlock = 1024;  // the longest segment
 constexpr int kRows = 4;         // consecutive rows per thread
@@ -572,7 +590,15 @@ __global__ void __launch_bounds__(kK1bThreads)
 tridiag_solve_blocked_kernel(const float* __restrict__ dp,
                              const float* __restrict__ l,
                              const float* __restrict__ B,
-                             float* __restrict__ X, int n, int q, int block) {
+                             float* __restrict__ X, int n, int q, int block,
+                             long long fstride) {
+  {  // lane blockIdx.z: its factor and its (n, q) block
+    const long long lane = blockIdx.z;
+    dp += lane * fstride;
+    l += lane * fstride;
+    B += lane * n * q;
+    X += lane * n * q;
+  }
   __shared__ float fc[kK1bWarps], fv[kK1bWarps][kCols];
   __shared__ float bc[kK1bWarps], bv[kK1bWarps][kCols];
   __shared__ float4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
@@ -770,71 +796,78 @@ cudaError_t k1_setup() {
 
 }  // namespace
 
-// K1. dp, l: (n,) float32; B, X: (n, q) float32, row-major and contiguous.
-// Launches one cluster on `stream` per group of up to kMaxQ columns and
-// returns the first CUDA error of the set-up or a launch (0 on success); a
-// card that cannot schedule the cluster fails the launch.
+// K1. B, X: (lanes, n, q) float32, row-major and contiguous; dp, l: float32,
+// lane r's factor at dp + r * fstride (fstride = n: a factor per lane;
+// fstride = 0: one factor (n,) for every lane). One launch on `stream` of
+// a cluster per (group of up to kMaxQ columns, lane); returns the first
+// CUDA error of the set-up or the launch (0 on success); a card that cannot
+// schedule the cluster fails the launch.
 extern "C" int tridiag_solve_f32(const float* dp, const float* l,
                                  const float* B, float* X, int n, int q,
-                                 void* stream) {
-  if (n <= 0 || q <= 0) return 0;
+                                 int lanes, long long fstride, void* stream) {
+  if (n <= 0 || q <= 0 || lanes <= 0) return 0;
   static const cudaError_t setup = k1_setup();
   if (setup != cudaSuccess) return static_cast<int>(setup);
   const int nblk = kCluster;
   // Rows per block and per tile, multiples of 4 (the tile's column stride,
   // tile_rows + 1, is then odd).
   const int span = ((n + nblk - 1) / nblk + 3) & ~3;
-  for (int j0 = 0; j0 < q; j0 += kMaxQ) {
-    const int qg = q - j0 < kMaxQ ? q - j0 : kMaxQ;
-    const int nw = kK1Threads / 32;
-    const int cpp = qg < nw ? qg : nw;
-    const int npass = (qg + cpp - 1) / cpp;
-    // wc, wv; xc, xv; tc, tv, carry and the four totals; gc, gv; sl's row
-    // and the padding row of the tile.
-    const int fixed = 64 + 2 * npass * kK1Threads + 7 * qg + 2 * nblk * qg
-                      + 1 + qg;
-    const int fit = ((kSmemBytes / 4 - fixed) / (qg + 2)) & ~3;
-    const int tile_rows = span < fit ? span : fit;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(nblk);
-    cfg.blockDim = dim3(kK1Threads);
-    cfg.dynamicSmemBytes =
-        static_cast<size_t>(tile_rows * (qg + 2) + fixed) * sizeof(float);
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute cluster_dim[1];
-    cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
-    cluster_dim[0].val.clusterDim.x = nblk;
-    cluster_dim[0].val.clusterDim.y = 1;
-    cluster_dim[0].val.clusterDim.z = 1;
-    cfg.attrs = cluster_dim;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, tridiag_solve_kernel, dp, l, B + j0, X + j0, n, qg, q, span,
-        tile_rows);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // Shared memory for the widest group (the first): a narrower last group
+  // lays its tile out in less, at the same tile_rows.
+  const int qg = q < kMaxQ ? q : kMaxQ;
+  const int nw = kK1Threads / 32;
+  const int cpp = qg < nw ? qg : nw;
+  const int npass = (qg + cpp - 1) / cpp;
+  // wc, wv; xc, xv; tc, tv, carry and the four totals; gc, gv; sl's row
+  // and the padding row of the tile.
+  const int fixed = 64 + 2 * npass * kK1Threads + 7 * qg + 2 * nblk * qg
+                    + 1 + qg;
+  const int fit = ((kSmemBytes / 4 - fixed) / (qg + 2)) & ~3;
+  const int tile_rows = span < fit ? span : fit;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nblk, (q + kMaxQ - 1) / kMaxQ, lanes);
+  cfg.blockDim = dim3(kK1Threads);
+  cfg.dynamicSmemBytes =
+      static_cast<size_t>(tile_rows * (qg + 2) + fixed) * sizeof(float);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster_dim[1];
+  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
+  cluster_dim[0].val.clusterDim.x = nblk;
+  cluster_dim[0].val.clusterDim.y = 1;
+  cluster_dim[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster_dim;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, tridiag_solve_kernel, dp, l, B, X, n, q, span, tile_rows,
+      fstride);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1b. The same arrays; `block` (a multiple of 32, at most 1024) is the
-// segment length. Returns cudaErrorInvalidValue for any other block, else
-// the launch's error (0 on success).
+// K1b. The same arrays and lanes; `block` (a multiple of 32, at most 1024)
+// is the segment length. The grid is (segments, column groups, lanes).
+// Returns cudaErrorInvalidValue for any other block, else the launch's
+// error (0 on success).
 extern "C" int tridiag_solve_blocked_f32(const float* dp, const float* l,
                                          const float* B, float* X, int n,
-                                         int q, int block, void* stream) {
+                                         int q, int lanes, long long fstride,
+                                         int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0 || q <= 0) return 0;
-  const dim3 grid((n + block - 1) / block, (q + kCols - 1) / kCols);
+  if (n <= 0 || q <= 0 || lanes <= 0) return 0;
+  const dim3 grid((n + block - 1) / block, (q + kCols - 1) / kCols, lanes);
   const int threads = ((block + kRows - 1) / kRows + 31) & ~31;
+  // Every lane's first row keeps the base pointers' alignment when the lane
+  // strides (n q for B and X, fstride for dp and l) are multiples of 4.
   const bool aligned =
       (reinterpret_cast<uintptr_t>(dp) | reinterpret_cast<uintptr_t>(l) |
        reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(X)) % 16
-      == 0;
+          == 0 &&
+      fstride % 4 == 0;
   auto kernel = !aligned || q % 4 != 0 ? tridiag_solve_blocked_kernel<kScalar>
                 : q == 4               ? tridiag_solve_blocked_kernel<kTile>
                                        : tridiag_solve_blocked_kernel<kVector>;
   kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dp, l, B, X, n, q, block);
+      dp, l, B, X, n, q, block, fstride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,12 @@ cycle: an exact odometry-chain tridiagonal solve applied through the RCM
 permutation (kernel K1, mac_tpu_torch.ops.kernels.tridiag) around a dense
 coarse-grid correction over original-order aggregates.
 
+Lanes (the budget sweep): assemble_bd, banded_apply, chain_factor and
+make_banded_precond (without a carried PrecondState) also take R weight
+vectors w (R, m) at once, with BD (R, ...) and blocks V (R, n, q): one
+kernel launch and one batched product for all lanes, one chain factor and
+one coarse level per lane.
+
 Numerics: every product here runs in full float32 (TF32 is off, see
 mac_tpu_torch.device). The TPU reference runs the preconditioner-internal
 products (the coarse R^T (L R) and the residual applies) at its DEFAULT
@@ -34,7 +40,7 @@ import torch
 from torch import nn
 
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut
-from mac_tpu_torch.ops.lobpcg import cholesky_upper
+from mac_tpu_torch.ops.lobpcg import batched_trace, cholesky_upper
 from mac_tpu_torch.ops.tridiag import (
     TridiagFactor,
     tridiag_ldl_auto,
@@ -62,7 +68,8 @@ STATICS = ("n", "nb", "ndiag", "coarse_s", "coarse_nc", "du_dense", "ov_rows")
 class BDRep(NamedTuple):
     """Assembled weight-dependent operator data: ut (half+1, nb, BS, BS) with
     ut[t][b][c, r] = L[b BS + r, (b + t) BS + c] (t = 0 holds the strict
-    upper triangle, transposed), and deg (nb, BS), the diagonal of L."""
+    upper triangle, transposed), and deg (nb, BS), the diagonal of L; with
+    lanes, a leading lane dimension on both."""
 
     ut: torch.Tensor
     deg: torch.Tensor
@@ -249,12 +256,13 @@ def assemble_bd(bop: BandedOperator, w: torch.Tensor) -> BDRep:
     """BD(w): the transposed upper block diagonals of L(w) and its degree
     vector. The dense slots' weights are gathered here (w_pad[ueid_tbl],
     sentinel m = weight 0) and the overflow tail through its own tables;
-    kernel K2/K2b writes ut (its plain version on the CPU)."""
-    w_pad = torch.cat([-w, torch.zeros(1, dtype=w.dtype, device=w.device)])
+    kernel K2/K2b writes ut (its plain version on the CPU). w (m,), or
+    (R, m) for R lanes in one launch."""
+    w_pad = torch.cat([-w, w.new_zeros((*w.shape[:-1], 1))], dim=-1)
     dd = bop.du_dense
     dcol = bop.dcol_tbl[:dd]
-    wu = w_pad[bop.ueid_tbl[:dd]]
-    ow = w_pad[bop.oeid_tbl]
+    wu = w_pad[..., bop.ueid_tbl[:dd]]
+    ow = w_pad[..., bop.oeid_tbl]
     ut = assemble_ut(dcol, wu, bop.ocol_tbl, bop.olane_tbl, ow, bop.half,
                      bop.nb)
     return BDRep(ut=ut, deg=_deg_from_ut(ut))
@@ -263,16 +271,17 @@ def assemble_bd(bop: BandedOperator, w: torch.Tensor) -> BDRep:
 def _deg_from_ut(ut: torch.Tensor) -> torch.Tensor:
     """deg_i = -(row sums + column sums over the uppers); the column sums of
     block diagonal t land t blocks below (lower-diagonal symmetry)."""
-    half = ut.shape[0] - 1
-    nb = ut.shape[1]
-    rowsum = ut.sum(dim=2)  # (half+1, nb, BS)
-    colsum = ut.sum(dim=3)
-    deg = -rowsum[0] - colsum[0]
+    lead = ut.shape[:-4]
+    half = ut.shape[-4] - 1
+    nb = ut.shape[-3]
+    rowsum = ut.sum(dim=-2)  # (..., half+1, nb, BS)
+    colsum = ut.sum(dim=-1)
+    deg = -rowsum[..., 0, :, :] - colsum[..., 0, :, :]
     for t in range(1, half + 1):
-        deg = deg - rowsum[t]
+        deg = deg - rowsum[..., t, :, :]
         deg = deg - torch.cat(
-            [torch.zeros((t, BS), dtype=ut.dtype, device=ut.device),
-             colsum[t][: nb - t]], dim=0)
+            [ut.new_zeros((*lead, t, BS)), colsum[..., t, : nb - t, :]],
+            dim=-2)
     return deg
 
 
@@ -281,35 +290,45 @@ def banded_apply(bop: BandedOperator, BD: BDRep,
     """L(w) @ V for V of shape (n, q), in full float32 (or V's dtype): per
     block row, the degree term, the diagonal block's strict upper part and
     its transpose, and each off block diagonal read directly at +t and
-    transposed at -t, all against locally centred inputs."""
-    n, q = V.shape
+    transposed at -t, all against locally centred inputs. With lanes (BD
+    and V (R, n, q)), lane r's operator on lane r's block: each product is
+    one batched matmul over R nb blocks."""
+    lead, (n, q) = V.shape[:-2], V.shape[-2:]
     nb, half, ndiag = bop.nb, bop.half, bop.ndiag
     n_pad = bop.n_pad
     ut, deg = BD.ut, BD.deg
     if n_pad != n:
-        V = torch.cat([V, V.new_zeros((n_pad - n, q))], dim=0)
-    Vb = V.reshape(nb, BS, q)
-    Vp = torch.cat([Vb.new_zeros((half, BS, q)), Vb,
-                    Vb.new_zeros((half, BS, q))], dim=0)
-    if ndiag * nb * BS * q > 64 * 1024 * 1024:
+        V = torch.cat([V, V.new_zeros((*lead, n_pad - n, q))], dim=-2)
+    Vb = V.reshape(*lead, nb, BS, q)
+    zpad = Vb.new_zeros((*lead, half, BS, q))
+    Vp = torch.cat([zpad, Vb, zpad], dim=-3)
+
+    def blocks(o):  # the nb blocks of Vp from block o on
+        return Vp[..., o:o + nb, :, :]
+
+    if V.numel() // n_pad * ndiag * n_pad > 64 * 1024 * 1024:
         # Huge windows (a wide coarse assembly at large n): sliding-window
         # mean from a cumsum instead of materialising the window stack.
-        S = Vp.sum(dim=1)  # (nb + 2 half, q)
-        C = torch.cat([S.new_zeros((1, q)), torch.cumsum(S, dim=0)], dim=0)
-        cb = ((C[ndiag:] - C[:-ndiag]) / (ndiag * BS))[:, None, :]
+        S = Vp.sum(dim=-2)  # (..., nb + 2 half, q)
+        C = torch.cat([S.new_zeros((*lead, 1, q)), torch.cumsum(S, dim=-2)],
+                      dim=-2)
+        cb = ((C[..., ndiag:, :] - C[..., :-ndiag, :])
+              / (ndiag * BS)).unsqueeze(-2)
     else:
-        win = torch.stack([Vp[o:o + nb] for o in range(ndiag)], dim=0)
-        cb = win.mean(dim=(0, 2))[:, None, :]
-    Vc0 = Vp[half: half + nb] - cb
-    out = deg[:, :, None] * Vc0
-    out = out + torch.bmm(ut[0].transpose(1, 2), Vc0)
-    out = out + torch.bmm(ut[0], Vc0)
+        win = torch.stack([blocks(o) for o in range(ndiag)], dim=0)
+        cb = win.mean(dim=(0, -2)).unsqueeze(-2)
+    Vc0 = blocks(half) - cb
+    ut0 = ut[..., 0, :, :, :]
+    out = deg.unsqueeze(-1) * Vc0
+    out = out + torch.matmul(ut0.transpose(-1, -2), Vc0)
+    out = out + torch.matmul(ut0, Vc0)
     for t in range(1, half + 1):
-        out = out + torch.bmm(ut[t].transpose(1, 2),
-                              Vp[half + t: half + t + nb] - cb)
-        utsh = torch.cat([ut.new_zeros((t, BS, BS)), ut[t][: nb - t]], dim=0)
-        out = out + torch.bmm(utsh, Vp[half - t: half - t + nb] - cb)
-    return out.reshape(n_pad, q)[:n]
+        utt = ut[..., t, :, :, :]
+        out = out + torch.matmul(utt.transpose(-1, -2), blocks(half + t) - cb)
+        utsh = torch.cat([ut.new_zeros((*lead, t, BS, BS)),
+                          utt[..., : nb - t, :, :]], dim=-3)
+        out = out + torch.matmul(utsh, blocks(half - t) - cb)
+    return out.reshape(*lead, n_pad, q)[..., :n, :]
 
 
 class PrecondState(NamedTuple):
@@ -328,14 +347,16 @@ def chain_factor(bop: BandedOperator, BD: BDRep,
     """LDL^T factor of the tridiagonal part of L(w) in ORIGINAL node order
     (the odometry chain): the degrees gathered through the permutation,
     lifted by 100 eps max(deg), and the chain edge weights. Exact for
-    n <= 4096, segment-decoupled at CHAIN_LDL_BLOCK nodes beyond."""
+    n <= 4096, segment-decoupled at CHAIN_LDL_BLOCK nodes beyond. With
+    lanes (w (R, m)), one factor per lane: dp, l (R, n)."""
     n, n_pad = bop.n, bop.n_pad
+    lead = w.shape[:-1]
     dtype = BD.deg.dtype
     eps = torch.finfo(dtype).eps
-    d_nat = BD.deg.reshape(n_pad)[:n][bop.iperm]
-    w_pad = torch.cat([w, w.new_zeros(1)])
-    e_nat = -w_pad[bop.chain_eid][: max(n - 1, 1)].to(dtype)
-    dd = d_nat + 100 * eps * d_nat.max()
+    d_nat = BD.deg.reshape(*lead, n_pad)[..., :n][..., bop.iperm]
+    w_pad = torch.cat([w, w.new_zeros((*lead, 1))], dim=-1)
+    e_nat = -w_pad[..., bop.chain_eid][..., : max(n - 1, 1)].to(dtype)
+    dd = d_nat + 100 * eps * d_nat.amax(dim=-1, keepdim=True)
     if n > 4096:
         return tridiag_ldl_blocked(dd, e_nat, block=CHAIN_LDL_BLOCK)
     return tridiag_ldl_auto(dd, e_nat)
@@ -359,7 +380,9 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
     rebuild: with prev_state, False reuses prev_state as it is (coarse
     inverse and chain factor); None always rebuilds.
 
-    Returns a function (n, q) -> (n, q) in RCM order.
+    Returns a function (n, q) -> (n, q) in RCM order. With lanes (BD and w
+    of R lanes, no prev_state), one chain factor and one coarse level per
+    lane, built by Cholesky, and a function (R, n, q) -> (R, n, q).
     """
     if rebuild is not None and prev_state is None:
         raise ValueError("rebuild cadence requires a carried PrecondState "
@@ -377,8 +400,11 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
     else:
         fac = chain_factor(bop, BD, w)
 
-    def smooth(B):  # B in RCM order, (n, q)
-        return tridiag_solve_factored_fast(fac, B[bop.iperm])[bop.perm]
+    lead = w.shape[:-1]
+
+    def smooth(B):  # B in RCM order, (..., n, q)
+        return tridiag_solve_factored_fast(
+            fac, B[..., bop.iperm, :])[..., bop.perm, :]
 
     eye = torch.eye(nc, dtype=dtype, device=dev)
 
@@ -389,21 +415,24 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
         Rmat = (bop.agg[:n, None] == torch.arange(nc, dtype=bop.agg.dtype,
                                                   device=dev)[None, :]
                 ).to(dtype)
-        LR = banded_apply(bop, BD, Rmat)
-        LRn = LR[bop.iperm]
-        LRp = torch.cat([LRn, LRn.new_zeros((nc * s - n, nc))], dim=0)
-        Lc = LRp.reshape(nc, s, nc).sum(dim=1)
-        Lc = (Lc + Lc.T) / 2
+        LR = banded_apply(bop, BD, Rmat.expand(*lead, n, nc))
+        LRn = LR[..., bop.iperm, :]
+        LRp = torch.cat([LRn, LRn.new_zeros((*lead, nc * s - n, nc))],
+                        dim=-2)
+        Lc = LRp.reshape(*lead, nc, s, nc).sum(dim=-2)
+        Lc = (Lc + Lc.mT) / 2
         # Rank-one constant-mode shift makes Lc SPD; the 1%-of-trace jitter
         # dominates the assembly error.
-        cshift = 2.0 * torch.diagonal(Lc).max() + 1.0
-        jit_c = 1e-2 * (torch.trace(Lc) / nc) + 100 * eps
+        diag = torch.diagonal(Lc, dim1=-2, dim2=-1)
+        cshift = (2.0 * diag.amax(dim=-1) + 1.0)[..., None, None]
+        jit_c = (1e-2 * (batched_trace(Lc) / nc) + 100 * eps)[..., None, None]
         return Lc + (cshift / nc) * torch.ones_like(Lc) + jit_c * eye
 
     def _chol_from(Lc_reg):
         Rc = cholesky_upper(Lc_reg)
-        Rc_inv = torch.linalg.solve_triangular(Rc, eye, upper=True)
-        return Rc_inv @ Rc_inv.T
+        Rc_inv = torch.linalg.solve_triangular(Rc, eye.expand_as(Rc),
+                                               upper=True)
+        return Rc_inv @ Rc_inv.mT
 
     def _ns_refine(Lc_reg, Xp):
         # Newton-Schulz from the previous step's inverse with three
@@ -444,15 +473,17 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
         return banded_apply(bop, BD, V)
 
     def center(B):
-        return B - B.mean(dim=0, keepdim=True)
+        return B - B.mean(dim=-2, keepdim=True)
 
-    def restrict(Rv):  # (n, q) RCM -> (nc, q) original-order aggregates
-        Rn = Rv[bop.iperm]
-        Rp = torch.cat([Rn, Rn.new_zeros((nc * s - n, Rv.shape[1]))], dim=0)
-        return Rp.reshape(nc, s, -1).sum(dim=1)
+    def restrict(Rv):  # (..., n, q) RCM -> (..., nc, q) original aggregates
+        Rn = Rv[..., bop.iperm, :]
+        Rp = torch.cat([Rn, Rn.new_zeros((*lead, nc * s - n, Rv.shape[-1]))],
+                       dim=-2)
+        return Rp.reshape(*lead, nc, s, -1).sum(dim=-2)
 
-    def prolong(Xc):  # (nc, q) -> (n, q) RCM
-        return torch.repeat_interleave(Xc, s, dim=0)[:n][bop.perm]
+    def prolong(Xc):  # (..., nc, q) -> (..., n, q) RCM
+        return torch.repeat_interleave(Xc, s, dim=-2)[..., :n, :][
+            ..., bop.perm, :]
 
     def precond(B):
         B = center(B)

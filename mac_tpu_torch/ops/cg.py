@@ -27,24 +27,25 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def pcg_fixed(apply_A: Callable, B: torch.Tensor, Minv: Callable,
               iters: int, X0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`iters` PCG steps toward A X = B from X0 (default 0),
-    preconditioned by Minv. Columnwise step sizes; division guards make
-    exhausted columns inert rather than NaN."""
+    preconditioned by Minv. B is (n, q), or (R, n, q) for R lanes.
+    Columnwise step sizes; division guards make exhausted columns inert
+    rather than NaN."""
     if X0 is None:
         X, R = torch.zeros_like(B), B
     else:
         X, R = X0, B - apply_A(X0)
     Z = Minv(R)
     P = Z
-    rz = torch.sum(R * Z, dim=0)
+    rz = torch.sum(R * Z, dim=-2)
     for _ in range(int(iters)):
         AP = apply_A(P)
-        alpha = _safe_div(rz, torch.sum(P * AP, dim=0))
-        X = X + alpha[None, :] * P
-        R = R - alpha[None, :] * AP
+        alpha = _safe_div(rz, torch.sum(P * AP, dim=-2)).unsqueeze(-2)
+        X = X + alpha * P
+        R = R - alpha * AP
         Z = Minv(R)
-        rz_new = torch.sum(R * Z, dim=0)
-        beta = _safe_div(rz_new, rz)
-        P = Z + beta[None, :] * P
+        rz_new = torch.sum(R * Z, dim=-2)
+        beta = _safe_div(rz_new, rz).unsqueeze(-2)
+        P = Z + beta * P
         rz = rz_new
     return X
 

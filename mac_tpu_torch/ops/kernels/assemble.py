@@ -10,6 +10,10 @@ first table form is the second with no overflow entries.
 `assemble_ut` launches the CUDA kernel for tensors on a CUDA device and runs
 `assemble_ut_plain`, its plain PyTorch version (the sheared iota-compare
 accumulation of mac_tpu.ops.banded._assemble_ut_xla), for CPU tensors.
+
+Both also take R lanes in one call (the budget sweep): wu (R, du, nb*BS)
+and ow (R, ov, nb) give ut (R, half+1, nb, BS, BS), lane r's assembly from
+lane r's weights; the slot tables dcol, ocol and olane are every lane's.
 """
 
 import ctypes
@@ -26,7 +30,12 @@ def assemble_ut_plain(dcol: torch.Tensor, wu: torch.Tensor,
                       ow: torch.Tensor, half: int, nb: int) -> torch.Tensor:
     """Materialise the sheared band Sh^T (W, n_pad), W = BS (half + 2), one
     iota-compare pass per dense slot, then add each overflow entry at its
-    (column, lane), then slice the upper block diagonals out of it."""
+    (column, lane), then slice the upper block diagonals out of it. Lanes
+    (wu 3-d) are assembled one after another."""
+    if wu.dim() == 3:
+        return torch.stack([assemble_ut_plain(dcol, wu[r], ocol, olane, ow[r],
+                                              half, nb)
+                            for r in range(wu.shape[0])])
     n_pad = nb * BS
     W = BS * (half + 2)
     rows = torch.arange(W, dtype=dcol.dtype, device=wu.device)[:, None]
@@ -48,7 +57,7 @@ _SIGNATURES = {"assemble_ut_f32": [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p]}
 
 
@@ -56,16 +65,20 @@ def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
                 olane: torch.Tensor, ow: torch.Tensor, half: int,
                 nb: int) -> torch.Tensor:
     """ut (half+1, nb, BS, BS) from dense slot tables dcol/wu (du, nb*BS)
-    and overflow tables ocol/olane/ow (ov, nb); ov may be 0."""
-    du, n_pad = wu.shape
-    ov = ow.shape[0]
-    if (dcol.shape != wu.shape or n_pad != nb * BS
-            or ocol.shape != (ov, nb) or olane.shape != (ov, nb)
-            or ow.shape != (ov, nb)):
+    and overflow tables ocol/olane/ow (ov, nb); ov may be 0. With lanes,
+    wu (R, du, nb*BS) and ow (R, ov, nb) give ut (R, half+1, nb, BS, BS)."""
+    lead = wu.shape[:1] if wu.dim() == 3 else ()
+    lanes = wu.shape[0] if lead else 1
+    du, n_pad = wu.shape[-2:]
+    ov = ow.shape[-2]
+    if (wu.dim() not in (2, 3) or dcol.shape != (du, n_pad)
+            or n_pad != nb * BS or ocol.shape != (ov, nb)
+            or olane.shape != (ov, nb) or ow.shape != (*lead, ov, nb)):
         raise ValueError(
-            f"assemble_ut: want dcol/wu (du, {nb * BS}) and ocol/olane/ow "
-            f"(ov, {nb}); got {tuple(dcol.shape)}, {tuple(wu.shape)}, "
-            f"{tuple(ocol.shape)}, {tuple(olane.shape)}, {tuple(ow.shape)}")
+            f"assemble_ut: want dcol (du, {nb * BS}), wu ([R,] du, "
+            f"{nb * BS}), ocol/olane (ov, {nb}) and ow ([R,] ov, {nb}); got "
+            f"{tuple(dcol.shape)}, {tuple(wu.shape)}, {tuple(ocol.shape)}, "
+            f"{tuple(olane.shape)}, {tuple(ow.shape)}")
     tensors = (("dcol", dcol), ("wu", wu), ("ocol", ocol), ("olane", olane),
                ("ow", ow))
     if not wu.is_cuda:
@@ -82,15 +95,19 @@ def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"assemble_ut kernel: {name} not contiguous")
     call = _build.function("assemble", "assemble_ut_f32", _SIGNATURES)
-    ut = torch.empty((half + 1, nb, BS, BS), dtype=wu.dtype, device=wu.device)
+    ut = torch.empty((*lead, half + 1, nb, BS, BS), dtype=wu.dtype,
+                     device=wu.device)
     err = _build.launch(call, wu.device, dcol.data_ptr(), wu.data_ptr(), du,
                         ocol.data_ptr(), olane.data_ptr(), ow.data_ptr(), ov,
-                        ut.data_ptr(), half, nb)
+                        ut.data_ptr(), half, nb, lanes)
     if err != 0:
         raise RuntimeError(f"assemble_ut kernel launch failed: cudaError "
                            f"{err}")
     assemble_ut.launches += 1
+    assemble_ut.launches_by_lanes[lanes] = (
+        assemble_ut.launches_by_lanes.get(lanes, 0) + 1)
     return ut
 
 
 assemble_ut.launches = 0
+assemble_ut.launches_by_lanes = {}  # {lanes R: launches}

@@ -8,9 +8,15 @@ kernels they replace, mac_tpu/ops/pallas/tridiag_kernel.py:
   K1b `tridiag_solve_blocked` (tridiag_solve_fused_blocked): segments of
       `block` rows, decoupled by taking l = 0 at each segment's first row.
 
+Both also take R lanes in one call: B of shape (R, n, q), with dp, l of
+shape (R, n) (a factor per lane: the budget sweep) or (n,) (one factor
+shared by every lane). Lane r's X is the solve of lane r's B with its
+factor.
+
 Each wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain PyTorch version (`*_plain`) for tensors on the CPU, and counts
-its launches in `.launches`.
+its launches in `.launches`, and by lane count in `.launches_by_lanes`
+({R: launches}).
 """
 
 import ctypes
@@ -46,12 +52,24 @@ def _substitute(dp: torch.Tensor, l: torch.Tensor,
     return _scan_affine(coef_r, z.flip(0)).flip(0)
 
 
+def _factor_lanes(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor):
+    """dp and l of a lane block B (R, n, q) as (R, n) each (a shared factor
+    (n,) broadcast to every lane, a view)."""
+    R, n = B.shape[0], B.shape[1]
+    return dp.expand(R, n), l.expand(R, n)
+
+
 def tridiag_solve_plain(dp: torch.Tensor, l: torch.Tensor,
                         B: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1: forward and backward affine scans
     around the diagonal scale (mac_tpu.ops.tridiag.
-    tridiag_solve_factored)."""
-    return _substitute(dp[:, None], l[:, None], B)
+    tridiag_solve_factored). Lanes run side by side in the scans, the row
+    axis first."""
+    if B.dim() == 2:
+        return _substitute(dp[:, None], l[:, None], B)
+    dp, l = _factor_lanes(dp, l, B)
+    X = _substitute(dp.T[:, :, None], l.T[:, :, None], B.transpose(0, 1))
+    return X.transpose(0, 1).contiguous()
 
 
 def tridiag_solve_blocked_plain(dp: torch.Tensor, l: torch.Tensor,
@@ -60,29 +78,34 @@ def tridiag_solve_blocked_plain(dp: torch.Tensor, l: torch.Tensor,
     """Plain PyTorch version of K1b (mac_tpu/ops/pallas/tridiag_kernel.py,
     tridiag_solve_fused_blocked): rows padded to a multiple of `block` with
     l = 0, dp = 1, B = 0; l forced to 0 at every row % block == 0; each
-    segment solved on its own, by the scans of the whole-row version run
-    along the segment axis."""
-    n, q = B.shape
+    segment (of each lane) solved on its own, by the scans of the whole-row
+    version run along the segment axis."""
+    if B.dim() == 3:
+        dp, l = _factor_lanes(dp, l, B)
+    lead, (n, q) = B.shape[:-2], B.shape[-2:]
     nbl = -(-n // block)
     n_pad = nbl * block
-    dp_p = torch.ones(n_pad, dtype=B.dtype, device=B.device)
-    dp_p[:n] = dp
-    l_p = torch.zeros(n_pad, dtype=B.dtype, device=B.device)
-    l_p[:n] = l
-    l_p[::block] = 0.0  # decouple the segments
-    B_p = torch.cat([B, B.new_zeros((n_pad - n, q))], dim=0)
-    # (block, nbl, q): the scan axis first, one column of segments each.
-    Bs = B_p.reshape(nbl, block, q).transpose(0, 1)
-    X = _substitute(dp_p.reshape(nbl, block).T[:, :, None],
-                    l_p.reshape(nbl, block).T[:, :, None], Bs)
-    return X.transpose(0, 1).reshape(n_pad, q)[:n]
+    dp_p = torch.ones((*lead, n_pad), dtype=B.dtype, device=B.device)
+    dp_p[..., :n] = dp
+    l_p = torch.zeros((*lead, n_pad), dtype=B.dtype, device=B.device)
+    l_p[..., :n] = l
+    l_p[..., ::block] = 0.0  # decouple the segments
+    B_p = torch.cat([B, B.new_zeros((*lead, n_pad - n, q))], dim=-2)
+    # (block, ..., nbl, q): the scan axis first, one column of segments each.
+    Bs = B_p.reshape(*lead, nbl, block, q).movedim(-2, 0)
+    X = _substitute(dp_p.reshape(*lead, nbl, block).movedim(-1, 0)[..., None],
+                    l_p.reshape(*lead, nbl, block).movedim(-1, 0)[..., None],
+                    Bs)
+    return X.movedim(0, -2).reshape(*lead, n_pad, q)[..., :n, :]
 
 
 _SIGNATURES = {
     "tridiag_solve_f32": [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+       ctypes.c_void_p],
     "tridiag_solve_blocked_f32": [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+       ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -90,8 +113,12 @@ def _on_card(name: str, dp: torch.Tensor, l: torch.Tensor,
              B: torch.Tensor) -> bool:
     """Check the arguments; True when they lie on a CUDA device (launch the
     kernel), False when they lie on the CPU (run the plain version)."""
-    if B.dim() != 2 or dp.shape != (B.shape[0],) or l.shape != dp.shape:
-        raise ValueError(f"{name}: want dp, l (n,) and B (n, q); got "
+    n = B.shape[-2] if B.dim() in (2, 3) else -1
+    shared = dp.shape == (n,)
+    per_lane = B.dim() == 3 and dp.shape == (B.shape[0], n)
+    if n < 0 or not (shared or per_lane) or l.shape != dp.shape:
+        raise ValueError(f"{name}: want dp, l (n,) and B (n, q), or dp, l "
+                         f"(R, n) or (n,) and B (R, n, q); got "
                          f"{tuple(dp.shape)}, {tuple(l.shape)}, "
                          f"{tuple(B.shape)}")
     if not B.is_cuda:
@@ -116,43 +143,56 @@ def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
     stream there; X, or an error for a non-zero cudaError_t."""
     call = _build.function("tridiag", fn, _SIGNATURES)
     X = torch.empty_like(B)
+    lanes = B.shape[0] if B.dim() == 3 else 1
+    fstride = dp.shape[-1] if dp.dim() == 2 else 0
     err = _build.launch(call, B.device, dp.data_ptr(), l.data_ptr(),
-                        B.data_ptr(), X.data_ptr(), B.shape[0], B.shape[1],
-                        *extra)
+                        B.data_ptr(), X.data_ptr(), B.shape[-2], B.shape[-1],
+                        lanes, fstride, *extra)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return X
 
 
+def _count(wrapper, B: torch.Tensor) -> None:
+    """One launch of `wrapper`'s kernel on B's lanes."""
+    lanes = B.shape[0] if B.dim() == 3 else 1
+    wrapper.launches += 1
+    wrapper.launches_by_lanes[lanes] = (
+        wrapper.launches_by_lanes.get(lanes, 0) + 1)
+
+
 def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,
                   B: torch.Tensor) -> torch.Tensor:
-    """K1: X with L diag(dp) L^T X = B. CUDA tensors: the hand-written
-    kernel (float32, contiguous, any n and q); CPU tensors: the plain
+    """K1: X with L diag(dp) L^T X = B, of one block or of R lanes (see
+    the module docstring). CUDA tensors: the hand-written kernel (float32,
+    contiguous, any n, q and R; one launch); CPU tensors: the plain
     version."""
     if not _on_card("tridiag_solve", dp, l, B):
         return tridiag_solve_plain(dp, l, B)
     X = _launch("tridiag_solve_f32", dp, l, B)
-    tridiag_solve.launches += 1
+    _count(tridiag_solve, B)
     return X
 
 
 tridiag_solve.launches = 0
+tridiag_solve.launches_by_lanes = {}
 
 
 def tridiag_solve_blocked(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor,
                           block: int = 1024) -> torch.Tensor:
     """K1b: the solve with the segments of `block` rows decoupled (l taken
-    as 0 at every row % block == 0). CUDA tensors: the hand-written kernel
-    (float32, contiguous, block a multiple of 32 up to 1024); CPU tensors:
-    the plain version."""
+    as 0 at every row % block == 0), of one block or of R lanes. CUDA
+    tensors: the hand-written kernel (float32, contiguous, block a multiple
+    of 32 up to 1024; one launch); CPU tensors: the plain version."""
     if not _on_card("tridiag_solve_blocked", dp, l, B):
         return tridiag_solve_blocked_plain(dp, l, B, block)
     if not (32 <= block <= 1024 and block % 32 == 0):
         raise ValueError(f"tridiag_solve_blocked kernel: block {block} is "
                          "not a multiple of 32 in [32, 1024]")
     X = _launch("tridiag_solve_blocked_f32", dp, l, B, int(block))
-    tridiag_solve_blocked.launches += 1
+    _count(tridiag_solve_blocked, B)
     return X
 
 
 tridiag_solve_blocked.launches = 0
+tridiag_solve_blocked.launches_by_lanes = {}

@@ -11,9 +11,11 @@ paths:
         (L(w) V)_i = sum_k w_ik (V_i - V_{nbr_ik}).
 
 The tables are static per topology; only the weight vector changes across
-Frank-Wolfe steps. The operator also carries the bookkeeping of the
-two-grid preconditioner (mac_tpu_torch.ops.twogrid): which edges join
-consecutive nodes (the chain band) and each edge's coarse aggregates.
+Frank-Wolfe steps. Every function of w also takes R weight vectors w (R, m)
+at once (the budget sweep: one operator per lane), with blocks V (R, n, q).
+The operator also carries the bookkeeping of the two-grid preconditioner
+(mac_tpu_torch.ops.twogrid): which edges join consecutive nodes (the chain
+band) and each edge's coarse aggregates.
 """
 
 from typing import Optional
@@ -112,44 +114,47 @@ def build_operator(idx: np.ndarray, num_nodes: int,
 
 
 def lap_dense(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
-    """L(w) as a dense (n, n) matrix (one scatter-add)."""
+    """L(w) as a dense (n, n) matrix (one scatter-add); (R, n, n) for lanes."""
     n = op.n
+    lead = w.shape[:-1]
     i, j = op.idx[:, 0], op.idx[:, 1]
     flat = torch.cat([i * n + j, j * n + i, i * n + i, j * n + j])
-    vals = torch.cat([-w, -w, w, w])
-    L = torch.zeros(n * n, dtype=w.dtype, device=w.device)
-    return L.index_add_(0, flat, vals).reshape(n, n)
+    vals = torch.cat([-w, -w, w, w], dim=-1)
+    L = torch.zeros((*lead, n * n), dtype=w.dtype, device=w.device)
+    return L.index_add_(-1, flat, vals).reshape(*lead, n, n)
 
 
 def _w_pad(w: torch.Tensor) -> torch.Tensor:
-    return torch.cat([w, w.new_zeros(1)])  # sentinel edge m: weight 0
+    # sentinel edge m: weight 0
+    return torch.cat([w, w.new_zeros((*w.shape[:-1], 1))], dim=-1)
 
 
 
 def lap_degrees(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     """Weighted degrees deg_i = sum_{e ni i} w_e (the diagonal of L(w))."""
     if op.mode == "ell":
-        return _w_pad(w)[op.eid_tbl].sum(dim=1)
-    deg = torch.zeros(op.n, dtype=w.dtype, device=w.device)
-    return deg.index_add_(0, op.idx[:, 0], w).index_add_(0, op.idx[:, 1], w)
+        return _w_pad(w)[..., op.eid_tbl].sum(dim=-1)
+    deg = torch.zeros((*w.shape[:-1], op.n), dtype=w.dtype, device=w.device)
+    return deg.index_add_(-1, op.idx[:, 0], w).index_add_(-1, op.idx[:, 1], w)
 
 
 def lap_inf_norm(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
-    """||L(w)||_inf = 2 max weighted degree."""
-    return 2.0 * lap_degrees(op, w).max()
+    """||L(w)||_inf = 2 max weighted degree (per lane)."""
+    return 2.0 * lap_degrees(op, w).amax(dim=-1)
 
 
 def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor):
     """(d, e): the diagonal (weighted degrees) and the first off-diagonal
     band (minus the summed weights between consecutive nodes) of L(w)."""
     d = lap_degrees(op, w)
+    lead = w.shape[:-1]
     if op.n <= 1:
-        return d, torch.zeros(1, dtype=w.dtype, device=w.device)
+        return d, torch.zeros((*lead, 1), dtype=w.dtype, device=w.device)
     # Non-chain edges add 0 at the sentinel slot n - 1, one past the band,
     # which is cut off (the JAX scatter drops it as out of range).
     wc = torch.where(op.chain_mask, w, torch.zeros_like(w))
-    e = torch.zeros(op.n, dtype=w.dtype, device=w.device)
-    return d, e.index_add_(0, op.chain_slot, -wc)[:op.n - 1]
+    e = torch.zeros((*lead, op.n), dtype=w.dtype, device=w.device)
+    return d, e.index_add_(-1, op.chain_slot, -wc)[..., :op.n - 1]
 
 
 def _ell_apply_tbl(op: GraphOperator, w_tbl: torch.Tensor,
@@ -161,10 +166,12 @@ def _ell_apply_tbl(op: GraphOperator, w_tbl: torch.Tensor,
     # The gather runs on the (q, n) layout: gathering whole (n, q) rows of
     # q = 4 floats takes a PyTorch kernel with one thread block per row,
     # 17x slower on an H100 at n = 1e5 (PERF.md).
+    # Lanes: V (R, n, q) and w_tbl (R, n, dmax), lane by lane.
     n, dmax = op.nbr_tbl.shape
-    Vt = V.T.contiguous()                                    # (q, n)
-    Vd = Vt[:, :, None] - Vt[:, op.nbr_tbl.reshape(-1)].reshape(-1, n, dmax)
-    return (Vd * w_tbl).sum(dim=2).T.contiguous()            # (n, q)
+    Vt = V.mT.contiguous()                                   # (..., q, n)
+    Vd = Vt[..., None] - Vt[..., op.nbr_tbl.reshape(-1)].reshape(
+        *Vt.shape[:-1], n, dmax)
+    return (Vd * w_tbl.unsqueeze(-3)).sum(dim=-1).mT.contiguous()  # (.., n, q)
 
 
 def lap_apply(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
@@ -194,5 +201,5 @@ def lap_applier(op: GraphOperator, w: torch.Tensor):
     if op.mode == "dense":
         L_dense = lap_dense(op, w)
         return lambda V: L_dense @ V
-    w_tbl = _w_pad(w)[op.eid_tbl]
+    w_tbl = _w_pad(w)[..., op.eid_tbl]
     return lambda V: _ell_apply_tbl(op, w_tbl, V)

@@ -59,6 +59,15 @@ def _gram(A: torch.Tensor, B: torch.Tensor, coeff_dtype) -> torch.Tensor:
     return A.mT @ B
 
 
+def batched_trace(A: torch.Tensor) -> torch.Tensor:
+    """torch.trace of a matrix, or the trace of each matrix of a batch (a
+    diagonal sum, which rounds otherwise than torch.trace, so a single
+    matrix keeps torch.trace)."""
+    if A.dim() == 2:
+        return torch.trace(A)
+    return torch.diagonal(A, dim1=-2, dim2=-1).sum(dim=-1)
+
+
 def cholesky_upper(A: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor, NaN where A is not positive definite (as
     jnp.linalg.cholesky returns; later finiteness checks read it), without
@@ -271,24 +280,32 @@ def _lanes(V: torch.Tensor, R: int) -> torch.Tensor:
 
 
 def _flat(A: torch.Tensor) -> torch.Tensor:
-    """(R, n, k) -> (n, R k), the layout the operator and the
-    preconditioner take: every lane's columns side by side."""
+    """(R, n, k) -> (n, R k): every lane's columns side by side."""
     R, n, k = A.shape
     return A.permute(1, 0, 2).reshape(n, R * k)
 
 
-def _orth_lanes(S: torch.Tensor) -> torch.Tensor:
+def on_flat_block(fn: Callable[[torch.Tensor], torch.Tensor]
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A function of the (n, R k) block of every lane's columns side by
+    side, as a function of the lanes (R, n, k): for an operator or a
+    preconditioner shared by the lanes, whose work then runs on one wide
+    block."""
+    def lanes_fn(V):
+        return _lanes(fn(_flat(V)), V.shape[0])
+    return lanes_fn
+
+
+def _orth_lanes(S: torch.Tensor, coeff_dtype=torch.float64) -> torch.Tensor:
     """_orth of each lane of S (R, n, k): column scaling, then CholeskyQR2
-    with one Gram, jitter and factor per lane (the jitter's trace is a
-    batched diagonal sum, which rounds otherwise than torch.trace, so
-    _orth keeps its own)."""
+    with one Gram, jitter and factor per lane, coefficients at
+    coeff_dtype."""
     S = _colnorm(S)
     k = S.shape[2]
     for _ in range(2):
-        G = _gram(S, S, torch.float64)
+        G = _gram(S, S, coeff_dtype)
         eye = torch.eye(k, dtype=G.dtype, device=G.device)
-        jitter = k * torch.finfo(S.dtype).eps * (
-            torch.diagonal(G, dim1=1, dim2=2).sum(dim=1) + 1.0)
+        jitter = k * torch.finfo(S.dtype).eps * (batched_trace(G) + 1.0)
         Rf = cholesky_upper(G + jitter[:, None, None] * eye)
         Rinv = torch.linalg.solve_triangular(Rf, eye.expand_as(Rf),
                                              upper=True)
@@ -304,57 +321,58 @@ def tracemin_fiedler_lanes(
     *,
     xprev0: torch.Tensor,
     tol: float = 1e-8,
+    maxiter: int = TRACEMIN_MAXITER,
+    inner_iters: int = TRACEMIN_INNER_ITERS,
+    rel_tol: Optional[float] = None,
+    coeff_dtype=None,
     min_iters: int = 0,
 ) -> FiedlerResult:
     """tracemin_fiedler's cold entry and iteration for R operators at once,
     one lane each, as one solve: what a vmap of tracemin_fiedler over the
-    lanes computes, with its defaults (TRACEMIN_MAXITER outer iterations,
-    TRACEMIN_INNER_ITERS CG steps each, default_rel_tol, float64
-    coefficients).
+    lanes computes, with the same knobs.
 
-    apply_L: (n, R k) -> (n, R k), lane r's operator on columns
-    r k .. r k + k - 1 (k = q, or 3q for the Rayleigh-Ritz basis). X0:
-    the (n, q) start block of every lane. lnorm: (R,) ||L_r||_inf, each
-    lane's nullspace shift. Minv: a preconditioner applied to the (n, R q)
-    block; a lane may take another operator's (it changes how fast TRACEMIN
-    converges, not the eigenpair it converges to). xprev0: the (n, q) block
-    that seeds every lane's previous-iterate memory. min_iters: outer
-    iterations every lane runs whatever its entry residual (as in
-    tracemin_fiedler).
+    apply_L: (R, n, k) -> (R, n, k), lane r's operator on lane r's block
+    (k = q, or 3q for the Rayleigh-Ritz basis). Minv: (R, n, k) ->
+    (R, n, k), lane r's preconditioner; a lane may take another operator's
+    (it changes how fast TRACEMIN converges, not the eigenpair it converges
+    to). An operator or preconditioner shared by every lane can run on the
+    lanes' columns side by side (on_flat_block). X0: the (n, q) start block
+    of every lane, or (R, n, q) one per lane. lnorm: (R,) ||L_r||_inf, each
+    lane's nullspace shift. xprev0: the (n, q) block that seeds every
+    lane's previous-iterate memory. min_iters: outer iterations every lane
+    runs whatever its entry residual (as in tracemin_fiedler).
 
-    The operator products, the preconditioner and the inner CG steps run
-    on all lanes' columns together. Each lane keeps its own Rayleigh-Ritz
-    (batched q x q and 3q x 3q eigh), CGS2 and CholeskyQR2, residuals,
-    stall count and stop test; a lane that has stopped stays as it was.
-    The stop flags are read from the device once per outer iteration.
-    Returns FiedlerResult with lam (R, q), X (R, n, q), iters (R,) and res
-    (R,).
+    Each lane keeps its own Rayleigh-Ritz (batched q x q and 3q x 3q eigh),
+    CGS2 and CholeskyQR2, residuals, stall count and stop test; a lane that
+    has stopped stays as it was. The stop flags are read from the device
+    once per outer iteration. Returns FiedlerResult with lam (R, q),
+    X (R, n, q), iters (R,) and res (R,).
     """
-    n, q = X0.shape
     R = lnorm.shape[0]
+    n, q = X0.shape[-2:]
     dtype, dev = X0.dtype, X0.device
     eps = torch.finfo(dtype).eps
     eff_tol = max(float(tol), 2048 * eps)
-    rel_tol = default_rel_tol(dtype)
+    if rel_tol is None:
+        rel_tol = default_rel_tol(dtype)
+    if coeff_dtype is None:
+        coeff_dtype = torch.float64
     c = lnorm.to(dtype)
     sigma = 32 * eps * c
-
-    def cols(t, k):  # (R,) -> (1, R k), one value per lane's column
-        return t.repeat_interleave(k)[None, :]
+    c64 = c.double()[:, None, None]
 
     def project(V):
-        return V - V.double().mean(dim=0, keepdim=True).to(V.dtype)
+        return V - V.double().mean(dim=-2, keepdim=True).to(V.dtype)
 
     def apply_shifted(V):
-        return apply_L(V) + _shift_term(V, cols(c, V.shape[1] // R))
-
-    sigma_q = cols(sigma, q)
+        shift = (c64 * V.double().mean(dim=-2, keepdim=True)).to(V.dtype)
+        return apply_L(V) + shift
 
     def apply_inner(V):
-        return apply_shifted(V) + sigma_q * V
+        return apply_shifted(V) + sigma[:, None, None] * V
 
     def rayleigh_ritz(Q, AQ):
-        H = _gram(Q, AQ, torch.float64)
+        H = _gram(Q, AQ, coeff_dtype)
         evals, C = torch.linalg.eigh((H + H.mT) / 2)
         Cq = C[:, :, :q].to(dtype)
         return Q @ Cq, AQ @ Cq, evals[:, :q].to(dtype)
@@ -365,30 +383,28 @@ def tracemin_fiedler_lanes(
                 torch.linalg.vector_norm(r, dim=1)
                 / torch.maximum(lam[:, 0], sigma))
 
-    X = _orth_lanes(_lanes(project(X0.repeat(1, R)), R))
-    X, AX, lam = rayleigh_ritz(X, _lanes(apply_shifted(_flat(X)), R))
+    X = _orth_lanes(project(X0.expand(R, n, q)), coeff_dtype)
+    X, AX, lam = rayleigh_ritz(X, apply_shifted(X))
     Xprev = project(xprev0.to(dtype)).expand(R, n, q)
     res, rres = residuals(lam, X, AX)
     best = res
     since = torch.zeros(R, dtype=torch.int32, device=dev)
     iters = torch.zeros(R, dtype=torch.int32, device=dev)
     it = 0
-    while it < TRACEMIN_MAXITER:
+    while True:
         keep = _keep_iterating(res, rres, since, eff_tol, rel_tol)
         if it < min_iters:
             keep = torch.ones_like(keep)
-        elif not bool(keep.any()):
+        elif it >= maxiter or not bool(keep.any()):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma[:, None])
-        Y = pcg_fixed(apply_inner, _flat(X), Minv, iters=TRACEMIN_INNER_ITERS,
-                      X0=_flat(X * inv_lam[:, None, :]))
-        Y = _lanes(project(Y), R)
+        Y = project(pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
+                              X0=X * inv_lam[:, None, :]))
         S = torch.cat([X, _colnorm(_ortho_against(X, Y)),
                        _colnorm(_ortho_against(X, Xprev))],
                       dim=2)  # (R, n, 3q)
-        Q = _orth_lanes(S)
-        X_new, AX_new, lam_new = rayleigh_ritz(
-            Q, _lanes(apply_shifted(_flat(Q)), R))
+        Q = _orth_lanes(S, coeff_dtype)
+        X_new, AX_new, lam_new = rayleigh_ritz(Q, apply_shifted(Q))
         res_new, rres_new = residuals(lam_new, X_new, AX_new)
         best_new, since_new = _stall_update(res_new, best, since, eff_tol)
         # A lane that stopped keeps its state.

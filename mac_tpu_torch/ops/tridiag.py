@@ -14,6 +14,10 @@ matrix-free two-grid V-cycle (mac_tpu_torch.ops.twogrid):
      hand-written CUDA kernels K1 (whole rows) and K1b (decoupled segments)
      on the card (mac_tpu_torch.ops.kernels.tridiag) and by their plain
      scan versions elsewhere.
+
+Every function here also takes R lanes (the budget sweep): d, e of shape
+(R, n) and (R, n - 1) factor R matrices at once, into dp, l of shape
+(R, n); the solves then take B of shape (R, n, q).
 """
 
 from typing import Optional
@@ -68,21 +72,23 @@ def tridiag_ldl(d: torch.Tensor, e: torch.Tensor) -> TridiagFactor:
     out_dtype = d.dtype
     d = d.double()
     e = e.double()
-    zero = torch.zeros(1, dtype=d.dtype, device=d.device)
-    e2 = torch.cat([zero, e * e])  # e2[i] = e_{i-1}^2
+    zero = torch.zeros((*d.shape[:-1], 1), dtype=d.dtype, device=d.device)
+    e2 = torch.cat([zero, e * e], dim=-1)  # e2[i] = e_{i-1}^2
     # x_i = d_i - e2_i / x_{i-1} as [[d_i, -e2_i], [1, 0]] acting projectively.
     M = torch.stack([torch.stack([d, -e2], dim=-1),
                      torch.stack([torch.ones_like(d), torch.zeros_like(d)],
-                                 dim=-1)], dim=-2)  # (n, 2, 2)
-    n = d.shape[0]
+                                 dim=-1)], dim=-2)  # (..., n, 2, 2)
+    n = d.shape[-1]
     k = 1
     while k < n:
-        M = torch.cat([M[:k], _mobius_combine(M[:-k], M[k:])])
+        M = torch.cat([M[..., :k, :, :],
+                       _mobius_combine(M[..., :-k, :, :], M[..., k:, :, :])],
+                      dim=-3)
         k *= 2
-    dp = M[:, 0, 0] / M[:, 1, 0]
-    floor = 8 * torch.finfo(out_dtype).eps * d.max()
+    dp = M[..., 0, 0] / M[..., 1, 0]
+    floor = 8 * torch.finfo(out_dtype).eps * d.amax(dim=-1, keepdim=True)
     dp = torch.maximum(dp, floor)
-    l = torch.cat([zero, e / dp[:-1]])
+    l = torch.cat([zero, e / dp[..., :-1]], dim=-1)
     return TridiagFactor(dp=dp.to(out_dtype), l=l.to(out_dtype))
 
 
@@ -94,44 +100,49 @@ def tridiag_ldl_blocked(d: torch.Tensor, e: torch.Tensor,
     modes). A `block`-step float64 recurrence over (n / block,) vectors."""
     out_dtype = d.dtype
     dev = d.device
-    n = d.shape[0]
+    lead, n = d.shape[:-1], d.shape[-1]
     nb = -(-n // block)
     n_pad = nb * block
     f64 = torch.float64
-    d64 = torch.cat([d, torch.ones(n_pad - n, dtype=d.dtype, device=dev)]
-                    ).to(f64)
-    e2 = torch.cat([torch.zeros(1, dtype=f64, device=dev), (e * e).to(f64),
-                    torch.zeros(n_pad - n, dtype=f64, device=dev)])
+    d64 = torch.cat([d, torch.ones((*lead, n_pad - n), dtype=d.dtype,
+                                   device=dev)], dim=-1).to(f64)
+    e2 = torch.cat([torch.zeros((*lead, 1), dtype=f64, device=dev),
+                    (e * e).to(f64),
+                    torch.zeros((*lead, n_pad - n), dtype=f64, device=dev)],
+                   dim=-1)
     pos = torch.arange(n_pad, device=dev) % block
     e2 = torch.where(pos == 0, torch.zeros_like(e2), e2)
-    dB = d64.reshape(nb, block)
-    eB = e2.reshape(nb, block)
-    prev = torch.ones(nb, dtype=f64, device=dev)
+    dB = d64.reshape(*lead, nb, block)
+    eB = e2.reshape(*lead, nb, block)
+    prev = torch.ones((*lead, nb), dtype=f64, device=dev)
     cols = []
-    for i in range(block):
-        prev = dB[:, i] - eB[:, i] / prev
+    for i in range(block):  # every lane's segments in each step
+        prev = dB[..., i] - eB[..., i] / prev
         cols.append(prev)
-    dp = torch.stack(cols, dim=1).reshape(n_pad)[:n]
-    floor = 8 * torch.finfo(out_dtype).eps * d.to(f64).max()
+    dp = torch.stack(cols, dim=-1).reshape(*lead, n_pad)[..., :n]
+    floor = 8 * torch.finfo(out_dtype).eps * d.to(f64).amax(dim=-1,
+                                                            keepdim=True)
     dp = torch.maximum(dp, floor)
     e64 = e.to(f64)
     if n > 1:
         cut = (torch.arange(1, n, device=dev) % block) == 0
         e64 = torch.where(cut, torch.zeros_like(e64), e64)
-    l = torch.cat([torch.zeros(1, dtype=f64, device=dev), e64 / dp[:-1]])
+    l = torch.cat([torch.zeros((*lead, 1), dtype=f64, device=dev),
+                   e64 / dp[..., :-1]], dim=-1)
     return TridiagFactor(dp=dp.to(out_dtype), l=l.to(out_dtype),
                          seg=int(block))
 
 
 def tridiag_ldl_auto(d: torch.Tensor, e: torch.Tensor) -> TridiagFactor:
     """tridiag_ldl up to TRIDIAG_SCAN_MAX_N, the blocked factor beyond."""
-    if d.shape[0] <= TRIDIAG_SCAN_MAX_N:
+    if d.shape[-1] <= TRIDIAG_SCAN_MAX_N:
         return tridiag_ldl(d, e)
     return tridiag_ldl_blocked(d, e)
 
 
 def tridiag_solve_factored(f: TridiagFactor, B: torch.Tensor) -> torch.Tensor:
-    """Solve T X = B given the LDL^T factor; B is (n, q). Plain scans."""
+    """Solve T X = B given the LDL^T factor; B is (n, q), or (R, n, q) for
+    a factor of R lanes or one shared by every lane. Plain scans."""
     return _kernels.tridiag_solve_plain(f.dp, f.l, B)
 
 
@@ -157,8 +168,10 @@ def tridiag_solve_factored_fast(f: TridiagFactor,
     the reference's own rule for that dtype, whose kernels are float32 only
     and whose dispatch sends every other block to its scan solve. It is no
     way round a kernel: a float32 block on the card reaches K1 or K1b and
-    nothing else, and a kernel that fails to build or launch raises."""
-    n = B.shape[0]
+    nothing else, and a kernel that fails to build or launch raises.
+    Lanes (B (R, n, q), a factor of R lanes or a shared one) go to the same
+    kernel in one launch."""
+    n = B.shape[-2]
     if B.dtype != torch.float32:
         return tridiag_solve_factored(f, B)
     dp = f.dp if f.dp.dtype == B.dtype else f.dp.to(B.dtype)

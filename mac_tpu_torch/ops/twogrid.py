@@ -13,6 +13,10 @@ dense coarse-grid correction (PyTorch counterpart of mac_tpu.ops.twogrid).
     (regularised when the graph's components leave it singular).
   * One symmetric V-cycle: pre-smooth, coarse-correct, post-smooth, with
     the input and output centred (the preconditioner acts on 1^perp).
+
+With R weight vectors w (R, m) (the budget sweep), one V-cycle per lane on
+blocks (R, n, q): a chain factor and a coarse level each, the chain solves
+of all lanes in one kernel launch.
 """
 
 from typing import Callable
@@ -20,21 +24,23 @@ from typing import Callable
 import torch
 
 from mac_tpu_torch.ops.laplacian import GraphOperator, lap_tridiagonal_part
-from mac_tpu_torch.ops.lobpcg import cholesky_upper
+from mac_tpu_torch.ops.lobpcg import batched_trace, cholesky_upper
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
 
 
 def coarse_laplacian(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     """Lc = sum_e w_e (p_i - p_j)(p_i - p_j)^T over the coarse endpoints,
-    in float64; edges inside one aggregate contribute nothing."""
+    in float64; edges inside one aggregate contribute nothing. (R, nc, nc)
+    for lanes."""
     nc = op.coarse_nc
+    lead = w.shape[:-1]
     ci, cj = op.coarse_idx[:, 0], op.coarse_idx[:, 1]
     w64 = torch.where(ci != cj, w.double(), torch.zeros_like(w.double()))
     flat = torch.cat([ci * nc + cj, cj * nc + ci, ci * nc + ci, cj * nc + cj])
-    vals = torch.cat([-w64, -w64, w64, w64])
-    Lc = torch.zeros(nc * nc, dtype=torch.float64, device=w.device)
-    return Lc.index_add_(0, flat, vals).reshape(nc, nc)
+    vals = torch.cat([-w64, -w64, w64, w64], dim=-1)
+    Lc = torch.zeros((*lead, nc * nc), dtype=torch.float64, device=w.device)
+    return Lc.index_add_(-1, flat, vals).reshape(*lead, nc, nc)
 
 
 def make_twogrid_precond(
@@ -43,45 +49,52 @@ def make_twogrid_precond(
     apply_L: Callable[[torch.Tensor], torch.Tensor],
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The V-cycle preconditioner for L(w) restricted to 1^perp, a function
-    (n, q) -> (n, q); rebuild it when w changes."""
+    (n, q) -> (n, q), or (R, n, q) -> (R, n, q) for lanes w (R, m); rebuild
+    it when w changes."""
     n, s, nc = op.n, op.coarse_s, op.coarse_nc
     dtype = w.dtype
     eps = torch.finfo(dtype).eps
+    lead = w.shape[:-1]
 
     d, e = lap_tridiagonal_part(op, w)
-    fac = tridiag_ldl_auto(d + 100 * eps * d.max(), e)
+    fac = tridiag_ldl_auto(d + 100 * eps * d.amax(dim=-1, keepdim=True), e)
 
     Lc = coarse_laplacian(op, w)
-    cshift = 2.0 * torch.diagonal(Lc).max() + 1.0
+    diag = torch.diagonal(Lc, dim1=-2, dim2=-1)
+    cshift = (2.0 * diag.amax(dim=-1) + 1.0)[..., None, None]
     Lc_reg = Lc + (cshift / nc) * torch.ones_like(Lc)
     eye = torch.eye(nc, dtype=torch.float64, device=w.device)
     Rc = cholesky_upper(Lc_reg)
-    piv = torch.diagonal(Rc)
-    if not bool(piv.min() > 1e-7 * piv.max()):
+    piv = torch.diagonal(Rc, dim1=-2, dim2=-1)
+    singular = ~(piv.amin(dim=-1) > 1e-7 * piv.amax(dim=-1))
+    if bool(singular.any()):
         # The constant shift lifts one null vector. A graph of several
         # components made of whole aggregates leaves Lc a null vector per
         # component (lambda_2 = 0), so the factor's last pivot is 0 up to
         # rounding, or NaN. The banded preconditioner's jitter, 1% of the
         # mean diagonal, makes such a coarse level a bounded smoother of
         # those modes and leaves them to the eigensolver.
-        Rc = cholesky_upper(Lc_reg + (1e-2 * torch.trace(Lc) / nc) * eye)
-    Rc_inv = torch.linalg.solve_triangular(Rc, eye, upper=True)
-    Lc_inv = (Rc_inv @ Rc_inv.T).to(dtype)
+        jit = (1e-2 * batched_trace(Lc) / nc)[..., None, None]
+        Rc = torch.where(singular[..., None, None],
+                         cholesky_upper(Lc_reg + jit * eye), Rc)
+    Rc_inv = torch.linalg.solve_triangular(Rc, eye.expand_as(Rc), upper=True)
+    Lc_inv = (Rc_inv @ Rc_inv.mT).to(dtype)
     pad = nc * s - n
 
     def center(B):
-        return B - B.mean(dim=0, keepdim=True)
+        return B - B.mean(dim=-2, keepdim=True)
 
     def smooth(B):
         return tridiag_solve_factored_fast(fac, B)
 
-    def restrict(R):  # (n, q) -> (nc, q): sums within aggregates
+    def restrict(R):  # (..., n, q) -> (..., nc, q): sums within aggregates
         if pad:
-            R = torch.cat([R, R.new_zeros((pad, R.shape[1]))], dim=0)
-        return R.reshape(nc, s, -1).sum(dim=1)
+            R = torch.cat([R, R.new_zeros((*lead, pad, R.shape[-1]))],
+                          dim=-2)
+        return R.reshape(*lead, nc, s, -1).sum(dim=-2)
 
-    def prolong(Xc):  # (nc, q) -> (n, q): piecewise constant
-        return torch.repeat_interleave(Xc, s, dim=0)[:n]
+    def prolong(Xc):  # (..., nc, q) -> (..., n, q): piecewise constant
+        return torch.repeat_interleave(Xc, s, dim=-2)[..., :n, :]
 
     def precond(B):
         B = center(B)

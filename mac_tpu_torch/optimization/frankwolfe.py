@@ -1,7 +1,8 @@
 """Frank-Wolfe for maximising concave functions over simple feasible sets
 (PyTorch counterpart of mac_tpu.optimization.frankwolfe):
 frank_wolfe_with_state threads auxiliary state across steps, frank_wolfe is
-the stateless form with the reference library's call signature.
+the stateless form with the reference library's call signature, and
+frank_wolfe_lanes runs R problems as lanes of one loop (the budget sweep).
 
 Termination semantics match the reference: when a tolerance check fires the
 candidate iterate is not stepped, so the returned x is the one at which
@@ -79,6 +80,64 @@ def frank_wolfe_with_state(
     if averaging and cnt > 0:
         x = xavg
     return x, u, state, it
+
+
+def frank_wolfe_lanes(
+    initial: torch.Tensor,
+    state0,
+    problem: Callable,
+    solve_lp: Callable,
+    maxiter: int = 50,
+    relative_duality_gap_tol: float = 1e-5,
+    grad_norm_tol: float = 1e-10,
+    tail_average_from: Optional[int] = None,
+):
+    """frank_wolfe_with_state for R lanes at once, as a vmap of the JAX
+    package's loop computes them: x (R, m); problem(x, state, it) -> (f (R,),
+    grad (R, m), state'), called with the loop's step index it (the step of
+    every lane still running); solve_lp(grad) -> s (R, m).
+
+    Each lane has its own dual bound, gradient and duality-gap stop tests,
+    Cesaro tail average and step count. A lane whose test fired is frozen:
+    its x, u and average are no longer updated, though problem() still
+    sees it (the state it returns is not frozen; a caller that reads it
+    for a stopped lane freezes it itself). The loop ends when every lane
+    has stopped or after maxiter steps; the stop flags are read from the
+    device once per step. Returns (x, u (R,), state, iterations (R,))."""
+    x = initial
+    R = x.shape[0]
+    dtype, dev = x.dtype, x.device
+    u = torch.full((R,), float("inf"), dtype=dtype, device=dev)
+    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    iters = torch.zeros(R, dtype=torch.int64, device=dev)
+    averaging = tail_average_from is not None
+    xavg = torch.zeros_like(x) if averaging else x
+    cnt = torch.zeros(R, dtype=dtype, device=dev)
+    state = state0
+    for it in range(int(maxiter)):
+        active = ~done
+        f, gradf, state = problem(x, state, it)
+        s = solve_lp(gradf)
+        u = torch.where(active, torch.minimum(
+            u, f + (gradf * (s - x)).sum(dim=-1)), u)
+        stop = (torch.linalg.vector_norm(gradf, dim=-1)
+                < grad_norm_tol * torch.clamp(f.abs(), max=1.0))
+        if relative_duality_gap_tol > 0:
+            stop = stop | ((u - f) < relative_duality_gap_tol * f.abs())
+        if averaging and it >= tail_average_from:
+            cnt = cnt + active.to(dtype)
+            step = (x - xavg) / torch.clamp(cnt, min=1.0)[:, None]
+            xavg = torch.where(active[:, None], xavg + step, xavg)
+        iters = iters + active.to(iters.dtype)
+        move = active & ~stop
+        gamma = torch.as_tensor(naive_stepsize(it), dtype=dtype, device=dev)
+        x = torch.where(move[:, None], x + gamma * (s - x), x)
+        done = done | stop
+        if bool(done.all()):
+            break
+    if averaging:
+        x = torch.where((cnt > 0)[:, None], xavg, x)
+    return x, u, state, iters
 
 
 def frank_wolfe(

@@ -39,6 +39,12 @@ runs rehearse the card):
     the dtype's relative tolerance, float64 coefficient algebra, the full
     budget on warm steps, 5 Frank-Wolfe steps.
 
+MAC.solve_sweep runs R budgets as R lanes of one Frank-Wolfe solve on the
+device engine (every instance, the host-routed ones included, as the
+reference's sweep does): each lane with its own operator, preconditioner,
+Ritz block, stop tests and rounding, the kernels launched once for all
+lanes.
+
 Routes the port does not have yet raise NotImplementedError naming the
 slice that adds them (a device mesh; the banded operator in float64; LOBPCG
 or dense eigh on the banded operator); none runs something else in their
@@ -57,13 +63,18 @@ from mac_tpu_torch.device import resolve_device
 from mac_tpu_torch.ops.banded import PrecondState, build_banded_rcm
 from mac_tpu_torch.ops.laplacian import build_operator
 from mac_tpu_torch.ops.precond import extract_chain_weights
-from mac_tpu_torch.optimization.constraints import solve_subset_box_lp
-from mac_tpu_torch.optimization.frankwolfe import frank_wolfe_with_state
+from mac_tpu_torch.optimization.constraints import (
+    solve_subset_box_lp, solve_subset_box_lp_dynamic)
+from mac_tpu_torch.optimization.frankwolfe import (frank_wolfe_lanes,
+                                                   frank_wolfe_with_state)
 from mac_tpu_torch.solvers._host import HostSolveMixin, _graph_is_connected
 from mac_tpu_torch.utils import fiedler as _fiedler
 from mac_tpu_torch.utils.graphs import (edges_to_arrays,
                                         weight_graph_lap_from_edges)
-from mac_tpu_torch.utils.rounding import round_nearest, round_nearest_np
+from mac_tpu_torch.utils.rounding import (round_madow_base_dynamic,
+                                          round_nearest,
+                                          round_nearest_dynamic,
+                                          round_nearest_np)
 
 # lambda_2 / ||L||_inf below this cannot be resolved by a float32 eigensolve.
 F32_SPECTRAL_RATIO_MIN = 1.2e-5
@@ -454,8 +465,10 @@ class MAC(HostSolveMixin):
         return ii
 
     def _w_all(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Every edge's weight at x (m,), or at each lane of x (R, m)."""
         w_fixed, w_cand, _, _ = params
-        return torch.cat([w_fixed, self._mask(x) * w_cand])
+        return torch.cat([w_fixed.expand(*x.shape[:-1], -1),
+                          self._mask(x) * w_cand], dim=-1)
 
     def _fiedler(self, params, w_all, X, maxiter=None, pstate=None,
                  use_prev=None, rebuild=None, want_pstate: bool = False,
@@ -478,7 +491,8 @@ class MAC(HostSolveMixin):
     def _problem_impl(self, params, x, X, maxiter=None, pstate=None,
                       use_prev=None, rebuild=None, inner_iters=None):
         """(f, supergradient, Ritz block, outer iterations[, PrecondState])
-        at x: grad_e = w_e (v_i - v_j)^2 over the candidates."""
+        at x: grad_e = w_e (v_i - v_j)^2 over the candidates. With lanes
+        (x (R, m), X (R, n, q)) each of them per lane."""
         _, w_cand, cand_int, _ = params
         want_pstate = pstate is not None
         out = self._fiedler(params, self._w_all(params, x), X,
@@ -486,12 +500,12 @@ class MAC(HostSolveMixin):
                             use_prev=use_prev, rebuild=rebuild,
                             want_pstate=want_pstate, inner_iters=inner_iters)
         res, pstate_new = out if want_pstate else (out, None)
-        v = res.X[:, 0]
-        d = v[cand_int[:, 0]] - v[cand_int[:, 1]]
+        v = res.X[..., 0]
+        d = v[..., cand_int[:, 0]] - v[..., cand_int[:, 1]]
         grad = w_cand * d * d
         if want_pstate:
-            return res.lam[0], grad, res.X, res.iters, pstate_new
-        return res.lam[0], grad, res.X, res.iters
+            return res.lam[..., 0], grad, res.X, res.iters, pstate_new
+        return res.lam[..., 0], grad, res.X, res.iters
 
     def _fw_impl(self, params, x0, X0, *, k: int, maxiter: int,
                  relative_duality_gap_tol: float, grad_norm_tol: float,
@@ -548,6 +562,44 @@ class MAC(HostSolveMixin):
         rounded = round_nearest(x, k, weights=params[1],
                                 break_ties_decimal_tol=10)
         return x, u, X, it, fiters, rounded
+
+    def _fw_dynamic_impl(self, params, x0, X0, ks, *, maxiter: int,
+                         relative_duality_gap_tol: float,
+                         grad_norm_tol: float, rounding: str, u=None,
+                         schedule=None, tail_average_from=None):
+        """The budget sweep's Frank-Wolfe loop over R lanes (x0 (R, m), ks
+        (R,)): each lane's masked top-k oracle, the warm schedules of its
+        step, and per-lane stops, a stopped lane frozen; the preconditioner
+        is rebuilt every step (no PrecondState, as in the reference's
+        sweep). Then nearest rounding (ties to the larger candidate weight)
+        or Madow with the offsets u (R,), and every lane with k >= m takes
+        every candidate. Returns (rounded, x, upper, iterations), per
+        lane."""
+        if schedule is None:
+            schedule = self._warm_schedule
+        inner_schedule = self._warm_inner_schedule
+
+        def problem(x, X, step):
+            mi = self._warm_cap(schedule, step)
+            ii = (None if inner_schedule is None
+                  else self._warm_inner(inner_schedule, step))
+            f, grad, Xnew, _ = self._problem_impl(params, x, X, maxiter=mi,
+                                                  inner_iters=ii)
+            return f, grad, Xnew
+
+        x, upper, _, it = frank_wolfe_lanes(
+            x0, X0.expand(x0.shape[0], *X0.shape), problem,
+            lambda g: solve_subset_box_lp_dynamic(g, ks), maxiter=maxiter,
+            relative_duality_gap_tol=relative_duality_gap_tol,
+            grad_norm_tol=grad_norm_tol, tail_average_from=tail_average_from)
+        if rounding == "madow":
+            rounded = round_madow_base_dynamic(x, ks, u)
+        else:
+            rounded = round_nearest_dynamic(x, ks, weights=params[1])
+        take_all = (ks >= x.shape[-1])[:, None]
+        rounded = torch.where(take_all, torch.ones_like(rounded), rounded)
+        x = torch.where(take_all, torch.ones_like(x), x)
+        return rounded, x, upper, it
 
     def _refine_lambda(self, x, v) -> float:
         """Float64 Rayleigh quotient of the Fiedler vector on the host, an
@@ -636,6 +688,74 @@ class MAC(HostSolveMixin):
         if cache is not None:
             cache.Q = Xnew
         return float(f), grad.cpu().numpy()
+
+    def solve_sweep(
+        self,
+        ks,
+        x_init=None,
+        rounding: str = "nearest",
+        max_iters: Optional[int] = None,
+        relative_duality_gap_tol: Optional[float] = None,
+        grad_norm_tol: float = 1e-8,
+        seed: int = 0,
+    ):
+        """Solve a whole budget sweep as R lanes of one Frank-Wolfe solve on
+        the device engine (mac_tpu.solvers.mac.MAC.solve_sweep).
+
+        ks: (R,) budgets. x_init: optional (R, m) initial iterates, by
+        default min(k, m) / m per lane. Returns numpy (rounded (R, m),
+        unrounded (R, m), upper (R,)); upper is each lane's Frank-Wolfe dual
+        bound, not solve's float64 certificate.
+
+        The iteration policy is solve's: on the banded route 32 steps, the
+        warm-cap schedule (1, 4), (4, 2), (10, 1) unless
+        fiedler_warm_maxiter was set, the duality-gap stop off and the tail
+        average from step 16 (with fw_tail_average); elsewhere 5 steps. Any
+        unset gap tolerance is 1e-4. The warm inner-CG schedule applies.
+        Every lane's eigensolve starts from the instance's start block, and
+        lanes that stop early are frozen. Host-routed instances run the
+        device engine here too; the exact host tails (polish, round guard)
+        do not run. Madow rounding draws its R offsets from `seed`
+        (MAC._madow_u).
+        """
+        if rounding not in ("nearest", "madow"):
+            raise ValueError(f"unknown rounding {rounding!r}")
+        schedule = None
+        tail_from = None
+        if max_iters is None:
+            if self._banded is not None:
+                max_iters = 32
+                if not self._warm_maxiter_user_set:
+                    schedule = ((1, 4), (4, 2), (10, 1))
+                if relative_duality_gap_tol is None:
+                    relative_duality_gap_tol = 0.0
+                if self.fw_tail_average:
+                    tail_from = max_iters // 2
+            else:
+                max_iters = 5
+        if relative_duality_gap_tol is None:
+            relative_duality_gap_tol = 1e-4
+
+        ks_np = np.asarray(ks, dtype=np.int64).reshape(-1)
+        m = len(self.weights)
+        R = len(ks_np)
+        if x_init is None:
+            x_init = np.repeat((np.minimum(ks_np, m) / m)[:, None], m, axis=1)
+        x0 = torch.as_tensor(np.asarray(x_init, np.float64), dtype=self.dtype,
+                             device=self.device)
+        if tuple(x0.shape) != (R, m):
+            raise ValueError(f"x_init has shape {tuple(x0.shape)}, want "
+                             f"({R}, {m})")
+        u = self._madow_u(seed, R) if rounding == "madow" else None
+        rounded, x, upper, _ = self._fw_dynamic_impl(
+            self._params, x0, self._X0,
+            torch.as_tensor(ks_np, device=self.device),
+            maxiter=int(max_iters),
+            relative_duality_gap_tol=float(relative_duality_gap_tol),
+            grad_norm_tol=float(grad_norm_tol), rounding=rounding, u=u,
+            schedule=schedule, tail_average_from=tail_from)
+        return (rounded.cpu().numpy(), x.cpu().numpy(),
+                upper.cpu().numpy())
 
     def solve(
         self,

@@ -1,12 +1,14 @@
 """Fiedler-pair front end (PyTorch counterpart of mac_tpu.utils.fiedler).
 
 fiedler_pair_op solves on the banded operator or on a matrix-free
-GraphOperator; find_fiedler_pair (and its reference-name wrappers) takes a
-host Laplacian matrix, scipy sparse or dense, and returns
-(lambda_2, v_2, X block) so that callers can warm-start the next solve, on
-the plain or on the normalised Laplacian. Also here: the deterministic
-start block, the device's default dtype, and the float64 scipy referee.
-Disconnected graphs are supported (lambda_2 = 0).
+GraphOperator, for one weight vector or for R lanes of them (the budget
+sweep); fiedler_pair_lanes solves R graphs that each add one edge to a
+shared one (GreedyEig's trial chunk); find_fiedler_pair (and its
+reference-name wrappers) takes a host Laplacian matrix, scipy sparse or
+dense, and returns (lambda_2, v_2, X block) so that callers can warm-start
+the next solve, on the plain or on the normalised Laplacian. Also here: the
+deterministic start block, the device's default dtype, and the float64
+scipy referee. Disconnected graphs are supported (lambda_2 = 0).
 """
 
 from typing import Optional, Tuple
@@ -26,7 +28,7 @@ from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
 from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
                                       FiedlerResult, _shift_term,
                                       dense_fiedler, lobpcg_fiedler,
-                                      tracemin_fiedler,
+                                      on_flat_block, tracemin_fiedler,
                                       tracemin_fiedler_lanes)
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
@@ -66,6 +68,26 @@ def default_block(n: int, q: Optional[int] = None, seed: Optional[int] = None,
     return X
 
 
+def _stack(results) -> FiedlerResult:
+    """One FiedlerResult of per-lane results, the lane dimension first."""
+    return FiedlerResult(
+        lam=torch.stack([o.lam for o in results]),
+        X=torch.stack([o.X for o in results]),
+        iters=torch.tensor([int(o.iters) for o in results]),
+        res=torch.stack([torch.as_tensor(o.res) for o in results]))
+
+
+def _tracemin(apply_L, X, lnorm, Minv, *, lam0=None, warm_init=None, **kw):
+    """tracemin_fiedler, or tracemin_fiedler_lanes for lanes (lnorm (R,));
+    the lanes take the cold entry only."""
+    if lnorm.dim() == 0:
+        return tracemin_fiedler(apply_L, X, lnorm, Minv, lam0=lam0,
+                                warm_init=warm_init, **kw)
+    if lam0 is not None:
+        raise ValueError("fiedler_pair_op: lanes take no warm entry (lam0)")
+    return tracemin_fiedler_lanes(apply_L, X, lnorm, Minv, **kw)
+
+
 def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
                  coeff_dtype, pstate, use_prev, rebuild, return_pstate,
                  **warm):
@@ -77,7 +99,7 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
         return _banded.banded_apply(bop, BD, V)
 
     # ||L||_inf = 2 max weighted degree, read off BD's diagonal.
-    lnorm = 2.0 * BD.deg.max()
+    lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
     pstate_out = None
     if pstate is not None or return_pstate:
         Minv, pstate_out = _banded.make_banded_precond(
@@ -85,7 +107,7 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
             rebuild=rebuild, return_state=True)
     else:
         Minv = _banded.make_banded_precond(bop, BD, w=w)
-    res = tracemin_fiedler(
+    res = _tracemin(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
         **warm)
@@ -115,6 +137,17 @@ def fiedler_pair_op(
 ):
     """Fiedler pair of L(w), X the (n, q) start block and xprev0 the block
     that seeds the eigensolver's previous-iterate memory.
+
+    Lanes (the budget sweep): w (R, m) solves R weight vectors at once, X
+    (R, n, q) holding each lane's start block; each lane gets its own
+    operator and preconditioner, and the result holds lam (R, q), X
+    (R, n, q) and iters (R,). The banded operator's lanes assemble through
+    K2/K2b, build one chain factor and one coarse level each and run
+    TRACEMIN over the lanes (its preconditioner state stays a single
+    solve's); the ELL operator's lanes likewise (each lane's V-cycle, K1 or
+    K1b, one launch for all lanes); the dense branch takes one batched
+    eigh; LOBPCG runs lane after lane. The lanes take TRACEMIN's cold entry
+    (no lam0).
 
     lam0 / warm_init: TRACEMIN's warm entry (ops.lobpcg.tracemin_fiedler).
     min_iters: TRACEMIN's least number of outer iterations; by default 1
@@ -151,7 +184,12 @@ def fiedler_pair_op(
 
     if method == "dense" or (op.mode == "dense"
                              and op.n <= DENSE_MAX_N):
-        return _ret(dense_fiedler(lap_dense(op, w), X.shape[1]))
+        return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
+    if method == "lobpcg" and w.dim() == 2:
+        return _ret(_stack([fiedler_pair_op(
+            op, w[r], X[r], xprev0=xprev0, tol=tol, maxiter=maxiter,
+            inner_iters=inner_iters, method=method, precond=precond)
+            for r in range(w.shape[0])]))
 
     apply_L = lap_applier(op, w)
     lnorm = lap_inf_norm(op, w)
@@ -160,10 +198,10 @@ def fiedler_pair_op(
     else:
         d, e = lap_tridiagonal_part(op, w)
         eps = 100 * torch.finfo(w.dtype).eps
-        fac = tridiag_ldl_auto(d + eps * d.max(), e)
+        fac = tridiag_ldl_auto(d + eps * d.amax(dim=-1, keepdim=True), e)
 
         def center(B):
-            return B - B.mean(dim=0, keepdim=True)
+            return B - B.mean(dim=-2, keepdim=True)
 
         def Minv(B):
             # On 1^perp, so the shifted constant mode is never amplified.
@@ -178,7 +216,7 @@ def fiedler_pair_op(
 
         return _ret(lobpcg_fiedler(apply_L, X, lnorm, xprev0=xprev0,
                                    precond=pc, tol=tol, maxiter=maxiter))
-    return _ret(tracemin_fiedler(
+    return _ret(_tracemin(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
         **warm))
@@ -205,10 +243,10 @@ def fiedler_pair_lanes(
       * a dense-mode operator of at most DENSE_MAX_N nodes: one batched
         eigh of the R dense Laplacians;
       * otherwise TRACEMIN over the lanes (tracemin_fiedler_lanes), its
-        product L(w_base) V on every lane's columns at once plus one
-        gather and one index_add_ for the R rank-one terms, and every lane
-        preconditioned by L(w_base)'s two-grid V-cycle, whose chain solves
-        run on the (n, R q) block.
+        product L(w_base) V on every lane's columns at once (the (n, R k)
+        block) plus one gather and one index_add_ for the R rank-one terms,
+        and every lane preconditioned by L(w_base)'s two-grid V-cycle,
+        whose chain solves run on the (n, R q) block.
 
     X: the (n, q) start block of every lane. Returns FiedlerResult with lam
     (R, q) and X (R, n, q)."""
@@ -241,7 +279,8 @@ def fiedler_pair_lanes(
     lnorm = 2.0 * torch.maximum(
         deg.max(), torch.maximum(deg[ends[:, 0]], deg[ends[:, 1]]) + lane_w)
     return tracemin_fiedler_lanes(
-        apply_L, X, lnorm, make_twogrid_precond(op, w_base, apply_base),
+        on_flat_block(apply_L), X, lnorm,
+        on_flat_block(make_twogrid_precond(op, w_base, apply_base)),
         xprev0=xprev0, tol=tol, min_iters=min_iters)
 
 
@@ -253,16 +292,11 @@ def fiedler_pair_lanes_plain(op: GraphOperator, w_base: torch.Tensor,
     """Plain version of fiedler_pair_lanes: one fiedler_pair_op per lane on
     its own weight vector, each with its own preconditioner (what the JAX
     package's vmap computes). Used by the tests and chip_smoke.py."""
-    out = [fiedler_pair_op(
+    return _stack([fiedler_pair_op(
         op, w_base.index_add(0, lane_edges[r:r + 1],
                              lane_w[r:r + 1].to(w_base.dtype)),
         X, xprev0=xprev0, tol=tol, min_iters=min_iters)
-        for r in range(lane_edges.shape[0])]
-    return FiedlerResult(
-        lam=torch.stack([o.lam for o in out]),
-        X=torch.stack([o.X for o in out]),
-        iters=torch.tensor([o.iters for o in out]),
-        res=torch.stack([torch.as_tensor(o.res) for o in out]))
+        for r in range(lane_edges.shape[0])])
 
 
 def _op_from_matrix(L) -> Tuple[GraphOperator, np.ndarray,

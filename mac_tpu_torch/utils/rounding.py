@@ -7,10 +7,11 @@ counterpart of mac_tpu.utils.rounding).
     cumulative sum and closed-form interval counting; best of R trials
     through a batched value function.
   * round_random: independent Bernoulli rounding.
+  * round_nearest_dynamic / round_madow_base_dynamic: the two roundings of
+    MAC.solve_sweep, for R budget lanes at once.
 
 Randomness is an explicit torch.Generator (or an injected offset `u`), never
-global state. The forms that take a budget per batch lane
-(round_*_dynamic) belong to solve_sweep and are not ported yet.
+global state.
 """
 
 from typing import Callable, Optional
@@ -72,6 +73,46 @@ def round_nearest_np(w, k: int, weights=None,
     order = np.lexsort((np.asarray(weights, dtype=w.dtype), w_trunc))
     out[order[m - k:]] = 1.0
     return out
+
+
+def round_nearest_dynamic(w: torch.Tensor, k: torch.Tensor, weights=None,
+                          decimal_tol: int = 10) -> torch.Tensor:
+    """round_nearest of R lanes w (R, m) with budgets k (R,), always with
+    the lexicographic tie-break: ascending (w truncated to decimal_tol
+    decimals, then the original edge weight, or 0 without `weights`), two
+    stable sorts as jnp.lexsort orders them, and the last k[r] ranks of lane
+    r taken (k <= 0 selects nothing, k >= m everything)."""
+    m = w.shape[-1]
+    scale = 10.0 ** int(decimal_tol)
+    w_trunc = torch.round(w * scale) / scale
+    if weights is None:
+        order = torch.arange(m, device=w.device).expand_as(w)
+    else:
+        tie = torch.as_tensor(weights, dtype=w.dtype, device=w.device)
+        order = torch.sort(tie, stable=True).indices.expand_as(w)
+    order = order.gather(-1, torch.sort(w_trunc.gather(-1, order), dim=-1,
+                                        stable=True).indices)
+    ranks = torch.arange(m, device=w.device)
+    sel = (ranks[None, :] >= m - k.to(w.device)[:, None]).to(w.dtype)
+    return torch.zeros_like(w).scatter_(-1, order, sel)
+
+
+def round_madow_base_dynamic(w: torch.Tensor, k: torch.Tensor,
+                             u: torch.Tensor) -> torch.Tensor:
+    """round_madow_base of R lanes w (R, m) with budgets k (R,) and offsets
+    u (R,) in [0, 1): each lane's cumulative weight line renormalised to
+    exactly k[r] (a zero total guarded by the dtype's tiny), its k[r]
+    systematic points u[r] + t. The JAX package draws u[r] from the lane's
+    PRNG key; here it is given."""
+    kf = k.to(device=w.device, dtype=w.dtype)[:, None]
+    total = w.sum(dim=-1, keepdim=True)
+    wn = w * (kf / torch.clamp(total, min=torch.finfo(w.dtype).tiny))
+    sumw = torch.cumsum(wn, dim=-1)
+    sumw[:, -1] = kf[:, 0]
+    pi = torch.cat([sumw.new_zeros((w.shape[0], 1)), sumw[:, :-1]], dim=-1)
+    u = torch.as_tensor(u, dtype=w.dtype).to(w.device)[:, None]
+    x = torch.floor(sumw - u) - torch.floor(pi - u)
+    return torch.clamp(x, 0.0, 1.0)
 
 
 def _uniform(generator: Optional[torch.Generator], shape, dtype) -> torch.Tensor:

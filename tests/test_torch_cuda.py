@@ -411,3 +411,94 @@ def test_greedy_esp_scan_on_card_matches_host_loop(dev):
     _, sel = host.subset(840)
     ids = {id(e): i for i, e in enumerate(cands)}
     assert [ids[id(e)] for e in sel] == order.tolist()
+
+
+@pytest.mark.parametrize("R,n,q,shared", [
+    (8, 10000, 4, False), (3, 257, 5, False), (2, 33000, 40, False),
+    (64, 1728, 4, True), (2, 5000, 200, False), (1, 1001, 130, True)])
+def test_tridiag_kernel_lanes_match_plain(dev, R, n, q, shared):
+    """K1's lane form in one launch (a cluster per (column group, lane)):
+    B (R, n, q) with a factor per lane (R, n) or one shared (n,), against
+    the plain version at rtol/atol 2e-4; also the (n, R q) block of a
+    shared factor (GreedyEig's layout) in one launch."""
+    d, e, rng = _chain(n, R + n, dev)
+    dd = d * torch.as_tensor(1.0 + rng.rand(R, 1), dtype=torch.float32,
+                             device=dev)
+    f = tridiag_ldl(d, e) if shared else tridiag_ldl(dd, e.expand(R, -1))
+    B = torch.as_tensor(rng.normal(size=(R, n, q)), dtype=torch.float32,
+                        device=dev)
+    before = tridiag_solve.launches
+    got = tridiag_solve(f.dp, f.l, B)
+    ref = tridiag_solve_plain(f.dp, f.l, B)
+    torch.cuda.synchronize()
+    assert tridiag_solve.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    if shared:
+        wide = B.permute(1, 0, 2).reshape(n, R * q).contiguous()
+        torch.testing.assert_close(tridiag_solve(f.dp, f.l, wide),
+                                   tridiag_solve_plain(f.dp, f.l, wide),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("R,n,q,shared", [
+    (2, 100000, 4, False), (3, 40000, 8, False), (2, 33003, 4, False),
+    (4, 40000, 4, True), (2, 1025, 5, False)])
+def test_blocked_tridiag_kernel_lanes_match_plain(dev, R, n, q, shared):
+    """K1b's lane form, grid (segments, column groups, R): per-lane and
+    shared factors, the tiled (q 4), vector (q 8) and scalar (q 5, or lanes
+    at n % 4 != 0) load paths, against the plain version at 2e-4."""
+    d, e, rng = _chain(n, 2 * R + n, dev)
+    dd = d * torch.as_tensor(1.0 + rng.rand(R, 1), dtype=torch.float32,
+                             device=dev)
+    f = (tridiag_ldl_blocked(d, e, 1024) if shared
+         else tridiag_ldl_blocked(dd, e.expand(R, -1), 1024))
+    B = torch.as_tensor(rng.normal(size=(R, n, q)), dtype=torch.float32,
+                        device=dev)
+    before = tridiag_solve_blocked.launches
+    got = tridiag_solve_blocked(f.dp, f.l, B)
+    ref = tridiag_solve_blocked_plain(f.dp, f.l, B)
+    torch.cuda.synchronize()
+    assert tridiag_solve_blocked.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("graph", [(700, 120, 40, 3), (4500, 2000, 40, 4)])
+def test_assemble_kernel_lanes_bitwise_equal_plain(dev, graph):
+    """K2/K2b's lane form (grid (nb, half+1, R), shared slot tables): one
+    launch, bitwise its plain version, lane r the single assembly."""
+    idx, w, n = _graph(*graph)
+    bop, _ = banded.build_banded_rcm(idx, n)
+    bop = bop.to(dev)
+    W = torch.as_tensor(w, dtype=torch.float32, device=dev) * torch.linspace(
+        0.5, 1.5, 3, device=dev)[:, None]
+    w_pad = torch.cat([-W, W.new_zeros((3, 1))], dim=-1)
+    dd = bop.du_dense
+    args = (bop.dcol_tbl[:dd].contiguous(), w_pad[:, bop.ueid_tbl[:dd]],
+            bop.ocol_tbl, bop.olane_tbl, w_pad[:, bop.oeid_tbl], bop.half,
+            bop.nb)
+    before = assemble_ut.launches
+    got = assemble_ut(*args)
+    torch.cuda.synchronize()
+    assert assemble_ut.launches == before + 1
+    assert torch.equal(got, assemble_ut_plain(*args))
+    assert torch.equal(got[1], banded.assemble_bd(bop, W[1]).ut)
+
+
+def test_sweep_on_cuda_goes_through_the_lane_kernels(dev):
+    """A banded float32 sweep of 3 budgets on the card launches K1 and K2
+    once per call for all lanes (the same count as one solve's calls, not 3
+    times it), and each lane rounds to exactly k."""
+    from mac_tpu_torch.solvers import MAC
+
+    idx, w, n = _graph(1500, 1200, 25, 3)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    m = len(cands[1])
+    ks = [m // 4, m // 2, 3 * m // 4]
+    mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+              device="cuda")
+    t0, a0 = tridiag_solve.launches, assemble_ut.launches
+    rounded, unrounded, upper = mac.solve_sweep(ks)
+    assert assemble_ut.launches - a0 == 32
+    assert tridiag_solve.launches > t0
+    assert [int(r.sum()) for r in rounded] == ks
+    assert np.all(np.isfinite(unrounded)) and np.all(np.isfinite(upper))

@@ -119,3 +119,43 @@ def test_round_random_mean():
     a = tr.round_random(torch.as_tensor(x), 5)
     assert torch.equal(a, tr.round_random(torch.as_tensor(x), 5))
     assert set(np.unique(a.numpy())) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dynamic_lane_forms_equal_jax(dtype):
+    """The sweep's lane forms on seeded inputs with exact ties, budgets 0,
+    inside and past m: solve_subset_box_lp_dynamic (ranks of one stable
+    descending sort), round_nearest_dynamic (with and without the weight
+    tie-break) and round_madow_base_dynamic (the JAX package's offsets
+    injected) equal the JAX package's functions of each lane exactly."""
+    from mac_tpu.optimization import constraints as jc
+    from mac_tpu_torch.optimization.constraints import \
+        solve_subset_box_lp_dynamic
+
+    m = 57
+    rng = np.random.RandomState(11)
+    g = np.round(rng.rand(5, m), 1).astype(dtype)  # many exact ties
+    ks = np.array([0, 1, 13, 40, 60])
+    x = np.stack([relaxed(m, max(min(k, m - 1), 1), 7 + k)[0] for k in ks]
+                 ).astype(dtype)
+    weights = relaxed(m, 1, 3)[1]
+    keys = jax.random.split(jax.random.PRNGKey(5), len(ks))
+    u = [float(jax.random.uniform(kk, (), dtype=dtype)) for kk in keys]
+    k_t = torch.as_tensor(ks)
+    got_lp = solve_subset_box_lp_dynamic(torch.as_tensor(g), k_t).numpy()
+    got_near = [tr.round_nearest_dynamic(torch.as_tensor(x), k_t,
+                                         weights=wts).numpy()
+                for wts in (None, weights)]
+    got_madow = tr.round_madow_base_dynamic(
+        torch.as_tensor(x), k_t, torch.tensor(u, dtype=torch.float64)).numpy()
+    for r, k in enumerate(ks):
+        kj = jnp.asarray(k)
+        np.testing.assert_array_equal(
+            got_lp[r], jc.solve_subset_box_lp_dynamic(jnp.asarray(g[r]), kj))
+        for got, wts in zip(got_near, (None, weights)):
+            np.testing.assert_array_equal(got[r], jr.round_nearest_dynamic(
+                jnp.asarray(x[r]), kj, weights=wts))
+        np.testing.assert_array_equal(got_madow[r], jr.round_madow_base_dynamic(
+            jnp.asarray(x[r]), kj, keys[r]))
+        assert got_lp[r].sum() == min(k, m) and got_near[1][r].sum() == min(
+            k, m)

@@ -233,7 +233,8 @@ def test_kept_function_handle_follows_a_loaded_library(monkeypatch, name, fn):
 
 
 def test_launch_calls_the_kept_function_with_the_kernel_arguments(monkeypatch):
-    """_launch marshals (dp, l, B, X, n, q, extra..., stream) to the function
+    """_launch marshals (dp, l, B, X, n, q, lanes, factor lane stride,
+    extra..., stream) to the function
     _build.function returns, on the current stream of B's device, and raises
     on a non-zero cudaError_t; no device is needed for that."""
     from mac_tpu_torch.ops.kernels import _build
@@ -250,10 +251,62 @@ def test_launch_calls_the_kept_function_with_the_kernel_arguments(monkeypatch):
     X = ktridiag._launch("tridiag_solve_blocked_f32", dp, l, B, 32)
     (args,) = lib.tridiag_solve_blocked_f32.calls
     assert args == (dp.data_ptr(), l.data_ptr(), B.data_ptr(), X.data_ptr(),
-                    6, 2, 32, 77)
+                    6, 2, 1, 0, 32, 77)
     assert X.shape == B.shape and X.data_ptr() != B.data_ptr()
     ktridiag._launch("tridiag_solve_f32", dp, l, B)
-    assert len(lib.tridiag_solve_f32.calls[0]) == 7
+    assert len(lib.tridiag_solve_f32.calls[0]) == 9
+    # Lanes: B (R, n, q) with a factor per lane (lane stride n) or shared
+    # (lane stride 0).
+    B3 = torch.ones(3, 6, 2)
+    ktridiag._launch("tridiag_solve_f32", dp.expand(3, 6).contiguous(),
+                     l.expand(3, 6).contiguous(), B3)
+    assert lib.tridiag_solve_f32.calls[1][4:8] == (6, 2, 3, 6)
+    ktridiag._launch("tridiag_solve_f32", dp, l, B3)
+    assert lib.tridiag_solve_f32.calls[2][4:8] == (6, 2, 3, 0)
     lib.result = 700
     with pytest.raises(RuntimeError, match="cudaError 700"):
         ktridiag._launch("tridiag_solve_f32", dp, l, B)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+@pytest.mark.parametrize("n,q", [(1, 1), (300, 5), (2500, 4)])
+def test_lane_plain_solves_equal_a_loop_of_single_solves(n, q, shared):
+    """The lane forms of K1's and K1b's plain versions (B (R, n, q), a
+    factor per lane (R, n) or one shared (n,)) equal a loop of single-lane
+    calls, bitwise; so do the factorisations of R lanes (tridiag_ldl,
+    tridiag_ldl_blocked)."""
+    R = 3
+    systems = [_chain_system(max(n, 2), 50 + r) for r in range(R)]
+    d = torch.tensor(np.stack([s[0][:n] for s in systems]))
+    e = torch.tensor(np.stack([s[1][:n - 1] for s in systems]))
+    B = torch.tensor(systems[0][2].normal(size=(R, n, q)))
+    for factor, solve, kw in (
+            (tt.tridiag_ldl, tridiag_solve_plain, {}),
+            (lambda d_, e_: tt.tridiag_ldl_blocked(d_, e_, block=128),
+             tridiag_solve_blocked_plain, dict(block=128))):
+        lanes = factor(d, e)
+        singles = [factor(d[r], e[r]) for r in range(R)]
+        assert torch.equal(lanes.dp, torch.stack([f.dp for f in singles]))
+        assert torch.equal(lanes.l, torch.stack([f.l for f in singles]))
+        dp, l = ((lanes.dp[0], lanes.l[0]) if shared
+                 else (lanes.dp, lanes.l))
+        got = solve(dp, l, B, **kw)
+        loop = torch.stack([solve(dp if shared else dp[r],
+                                  l if shared else l[r], B[r], **kw)
+                            for r in range(R)])
+        assert got.shape == B.shape and torch.equal(got, loop)
+        # The dispatching wrappers take the same lanes on the CPU.
+        wrapper = tridiag_solve if not kw else tridiag_solve_blocked
+        assert torch.equal(wrapper(dp, l, B, **kw), got)
+
+
+def test_lane_solves_refuse_mismatched_factors():
+    dp, l = torch.ones(3, 10), torch.zeros(3, 10)
+    for bad_dp, bad_l, B in ((dp, l, torch.ones(10, 2)),
+                             (dp, l, torch.ones(2, 10, 2)),
+                             (dp, l[:, :9], torch.ones(3, 10, 2)),
+                             (dp[:, :9], l[:, :9], torch.ones(3, 10, 2))):
+        with pytest.raises(ValueError, match="want dp, l"):
+            tridiag_solve(bad_dp, bad_l, B)
+        with pytest.raises(ValueError, match="want dp, l"):
+            tridiag_solve_blocked(bad_dp, bad_l, B)

@@ -114,3 +114,65 @@ def test_extract_chain_weights_matches_jax():
         if ref is not None:
             np.testing.assert_array_equal(got, ref)
     assert extract_chain_weights(fixed_idx[1:], fixed_w[1:], n) is None
+
+
+@pytest.mark.parametrize("n", [200, 3000, 34000])
+def test_ell_lanes_equal_single_lanes(n):
+    """The matrix-free operator's lane forms (R = 3 weight vectors): the
+    ELL (or dense) product, the degrees, the tridiagonal part, the coarse
+    Laplacian and the V-cycle (one chain factor and one coarse level per
+    lane; K1b's plain version past 32768 nodes) equal the single-lane calls
+    in float64."""
+    idx, w, n = graph_and_weights(n)
+    op = tl.build_operator(idx, n)
+    gen = torch.Generator().manual_seed(n)
+    W = torch.as_tensor(w, dtype=torch.float64) * (
+        0.25 + torch.rand((3, len(w)), generator=gen, dtype=torch.float64))
+    V = torch.randn((3, n, 4), generator=gen, dtype=torch.float64)
+    out = tl.lap_applier(op, W)(V)
+    d, e = tl.lap_tridiagonal_part(op, W)
+    norms = tl.lap_inf_norm(op, W)
+    pre = (make_twogrid_precond(op, W, tl.lap_applier(op, W))(V)
+           if op.mode == "ell" else None)
+    for r in range(3):
+        torch.testing.assert_close(out[r], tl.lap_applier(op, W[r])(V[r]),
+                                   rtol=1e-12, atol=1e-12)
+        d1, e1 = tl.lap_tridiagonal_part(op, W[r])
+        assert torch.equal(d[r], d1) and torch.equal(e[r], e1)
+        assert torch.equal(norms[r], tl.lap_inf_norm(op, W[r]))
+        if pre is not None:
+            from mac_tpu_torch.ops.twogrid import coarse_laplacian
+
+            assert torch.equal(coarse_laplacian(op, W)[r],
+                               coarse_laplacian(op, W[r]))
+            torch.testing.assert_close(
+                pre[r], make_twogrid_precond(op, W[r], tl.lap_applier(
+                    op, W[r]))(V[r]), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,method,precond", [
+    (200, "tracemin", "twogrid"), (1500, "tracemin", "twogrid"),
+    (1500, "tracemin", "tridiag"), (1500, "lobpcg", "twogrid")])
+def test_fiedler_pair_op_lanes_equal_single_lanes(n, method, precond):
+    """fiedler_pair_op on R = 2 weight vectors and per-lane start blocks
+    (dense eigh at n = 200; TRACEMIN with the V-cycle or the chain solve
+    alone, and LOBPCG, at n = 1500) gives each lane's eigenpair of the
+    single call, in float64: lambda to 1e-9 relative, the Fiedler vector
+    to 1e-6 up to sign."""
+    idx, w, n = graph_and_weights(n)
+    op = tl.build_operator(idx, n)
+    gen = torch.Generator().manual_seed(3)
+    W = torch.as_tensor(w, dtype=torch.float64) * (
+        0.25 + torch.rand((2, len(w)), generator=gen, dtype=torch.float64))
+    X = torch.randn((2, n, 4), generator=gen, dtype=torch.float64)
+    xprev = torch.randn((n, 4), generator=gen, dtype=torch.float64)
+    kw = dict(xprev0=xprev, method=method, precond=precond, tol=1e-10)
+    res = fiedler_pair_op(op, W, X, **kw)
+    assert res.lam.shape == (2, 4) and res.X.shape == (2, n, 4)
+    for r in range(2):
+        one = fiedler_pair_op(op, W[r], X[r], **kw)
+        assert abs(float(res.lam[r, 0] - one.lam[0])) <= 1e-9 * float(
+            one.lam[0])
+        v, v1 = res.X[r, :, 0], one.X[:, 0]
+        torch.testing.assert_close(v * torch.sign(v @ v1), v1, rtol=0,
+                                   atol=1e-6)
