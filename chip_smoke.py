@@ -109,6 +109,19 @@ its wall time printed:
      lambda_2 at least (1 - 1e-2) of the host engine's solve; (d)
      sphere2500, 2 lanes (K2's no-split form): exactly k per lane, K1 and
      K2 launched with 2 lanes.
+  9. the device mesh (mac_tpu_torch.parallel): a process group of
+     torch.cuda.device_count() NCCL ranks (one card: in this process, a
+     file:// rendezvous) and a ("sweep", "graph") mesh over it; through
+     MAC(..., mesh=mesh): (a) city10000 at K = 5344 on the banded operator
+     sharded by block rows, relaxed gap >= -1e-3, K edges rounded, K1 and
+     K2b launched; (a') K2b on each half of a two-way split of its slot
+     tables bitwise equal to the same rows of the whole assembly; (b)
+     sphere2500, gap >= -1e-3, K2's no-split form and K1 launched; (c) the
+     n = 100000 expander at phase 5's knobs with node-row and with edge
+     shards, evaluate_objective's gap >= -1e-3, K1b launched; (d)
+     solve_sweep over 2 budgets, each lane's relaxed lambda_2 at least
+     (1 - 1e-2) of the meshless sweep's; (e) dryrun_multigpu(device
+     count). Each part prints its wall beside the meshless one's.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
 their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
@@ -859,6 +872,205 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     return lanes_a, lanes_b, lanes_d
 
 
+def mesh_part(rank, world, card, dataset, synth5, walls):
+    """Phase 9 on one rank of a started NCCL group of `world` ranks, one GPU
+    each: (a) city10000 on the banded operator sharded by block rows, (a')
+    K2b on each half of a two-way split of city10000's slot tables against
+    the same rows of the whole assembly, (b) sphere2500 (K2's no-split
+    form), (c) the n = 100000 expander of phase 5 with node-row and with
+    edge shards, (d) solve_sweep over 2 budgets against the meshless sweep,
+    (e) dryrun_multigpu(world). Each part counts its kernel launches from
+    0; walls are printed beside the meshless phase's (`walls`). Returns
+    rank's launch counts by part."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import banded
+    from mac_tpu_torch.ops.kernels.assemble import assemble_ut
+    from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
+                                                   tridiag_solve_blocked)
+    from mac_tpu_torch.parallel import sharded
+    from mac_tpu_torch.parallel.launch import dryrun_multigpu
+    from mac_tpu_torch.parallel.mesh import (MeshGroup, make_mesh,
+                                             same_on_every_rank)
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import MAC, NaiveGreedy
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut)
+    mesh = make_mesh(device_type="cuda")
+    # NCCL sets a group's communicator up at its first collective: do that
+    # for 'graph' and the default group here, outside the timed solves.
+    MeshGroup(mesh).agree(True)
+    same_on_every_rank(mesh, 0.0)
+    dataset = Path(dataset)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"9: mesh {tuple(mesh.mesh.shape)} over {world} NCCL rank(s), "
+        f"rank {rank} on {torch.cuda.current_device()}", flush=True)
+
+    def counts():
+        return {kern.__name__: kern.launches for kern in counted}
+
+    def timed(fn):
+        for kern in counted:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    def bundled(name):
+        meas, n = read_g2o_file(str(dataset.parent / f"{name}.g2o"))
+        fixed, cands = split_edges(rpm_to_mac(meas))
+        k = len(cands) // 2
+        return fixed, cands, n, k, NaiveGreedy(cands).subset(k)
+
+    # (a) city10000, banded, block rows over 'graph'
+    fixed, cands, n, k, x0 = bundled("city10000")
+    mac = MAC(fixed, cands, n, mesh=mesh)
+    if not isinstance(mac._sharded, sharded.ShardedBanded) \
+            or not mac._banded.ov_rows:
+        fail("9a: city10000 on a mesh is not row-sharded banded (K2b form)")
+    (r, u, up), wall, got_a = timed(lambda: mac.solve(k, x0))
+    lam = scipy_lam2(mac.laplacian(u))
+    gap = (lam - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED
+    say(f"9a city10000 banded x mesh (block rows [{mac._sharded.b0}, "
+        f"{mac._sharded.b1}) of {mac._banded.nb}, halo from "
+        f"{mac._sharded.h0}): solve {wall:.4f} s against the meshless warm "
+        f"median {walls['city10000']:.4f} s ({card}); relaxed lambda_2 "
+        f"{lam:.9g}, gap {gap:+.3e}; rounded {int(r.sum())}; upper "
+        f"{up:.9g}; launches {got_a}", flush=True)
+    if not (np.all(np.isfinite(u)) and np.isfinite(up)):
+        fail("9a: non-finite solve output")
+    if not gap >= GAP_FLOOR:
+        fail(f"9a: relaxed lambda_2 gap {gap:+.3e} below {GAP_FLOOR}")
+    if int(r.sum()) != k:
+        fail(f"9a: rounded {r.sum()} edges, want {k}")
+    if got_a["tridiag_solve"] <= 0 or got_a["assemble_ut"] <= 0:
+        fail(f"9a: the mesh path never launched K1 or K2b: {got_a}")
+
+    # (a') K2b on the slot tables of each half of a two-way split.
+    bop = mac._banded
+    w = torch.as_tensor(np.concatenate([mac._w_fixed_np, 0.5 * mac.weights]),
+                        dtype=torch.float32, device=bop.ueid_tbl.device)
+    whole = banded.assemble_bd(bop, w).ut
+    w_pad = torch.cat([-w, w.new_zeros(1)])
+    dd, half, nb_loc = bop.du_dense, bop.half, -(-bop.nb // 2)
+    for part in (0, 1):
+        b0, b1 = part * nb_loc, min((part + 1) * nb_loc, bop.nb)
+        h0 = max(b0 - half, 0)
+        cols = slice(h0 * 128, b1 * 128)
+        ut = assemble_ut(bop.dcol_tbl[:dd, cols].contiguous(),
+                         w_pad[bop.ueid_tbl[:dd, cols]].contiguous(),
+                         bop.ocol_tbl[:, h0:b1].contiguous(),
+                         bop.olane_tbl[:, h0:b1].contiguous(),
+                         w_pad[bop.oeid_tbl[:, h0:b1]].contiguous(), half,
+                         b1 - h0)
+        if not torch.equal(ut, whole[:, h0:b1]):
+            fail(f"9a': K2b on block rows [{h0}, {b1}) of the split tables "
+                 "differs from the whole assembly")
+    say("9a' K2b on each half of a two-way split of the slot tables (own "
+        "rows and halo): bitwise equal to the same rows of the whole "
+        "assembly", flush=True)
+
+    # (b) sphere2500, K2's no-split form
+    fixed_s, cands_s, n_s, k_s, x_s = bundled("sphere2500")
+    mac_s = MAC(fixed_s, cands_s, n_s, mesh=mesh)
+    if mac_s._banded is None or mac_s._banded.ov_rows:
+        fail("9b: sphere2500 on a mesh is not banded in K2's no-split form")
+    (r, u, up), wall, got_b = timed(lambda: mac_s.solve(k_s, x_s))
+    ref_s = BUNDLED["sphere2500"][0]
+    lam = scipy_lam2(mac_s.laplacian(u))
+    gap_s = (lam - ref_s) / ref_s
+    say(f"9b sphere2500 banded x mesh: solve {wall:.4f} s against the "
+        f"meshless warm median {walls['sphere2500']:.4f} s ({card}); "
+        f"relaxed lambda_2 {lam:.9g}, gap {gap_s:+.3e}; rounded lambda_2 "
+        f"{scipy_lam2(mac_s.laplacian(r)):.9g} (no round guard on a mesh); "
+        f"launches {got_b}", flush=True)
+    if not gap_s >= GAP_FLOOR or int(r.sum()) != k_s:
+        fail(f"9b: gap {gap_s:+.3e}, rounded {r.sum()} of {k_s}")
+    if got_b["assemble_ut"] <= 0 or got_b["tridiag_solve"] <= 0:
+        fail(f"9b: the mesh path never launched K2 or K1: {got_b}")
+
+    # (c) the n = 100000 expander, node rows and edges
+    (fi5, wf5, ci5, wc5), k5, x5 = synth5
+    got_c = {}
+    for how in ("rows", "edges"):
+        # Phase 5's knobs and its route: its precision probe resolves
+        # float32, given here to save the probe's seconds.
+        mac5 = MAC((fi5, wf5), (ci5, wc5), SCALE_N, fiedler_inner_iters=10,
+                   fiedler_maxiter=60, fiedler_tol=6e-4, mesh=mesh,
+                   mesh_apply=how, dtype=torch.float32)
+        (r, u, up), wall, got = timed(
+            lambda: mac5.solve(k5, x5, max_iters=10))
+        lam = mac5.evaluate_objective(u)
+        gap5 = (lam - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE
+        got_c[how] = got
+        say(f"9c n {SCALE_N} ELL x mesh ({how}): solve {wall:.3f} s "
+            f"against the meshless warm solve {walls['scale']:.3f} s "
+            f"({card}); relaxed lambda_2 {lam:.12g}, gap {gap5:+.3e}; "
+            f"rounded {int(r.sum())}; upper {up:.12g}; launches {got}",
+            flush=True)
+        if not (np.all(np.isfinite(u)) and np.isfinite(up)
+                and np.isfinite(lam)):
+            fail(f"9c ({how}): non-finite output")
+        if not gap5 >= GAP_FLOOR or int(r.sum()) != k5:
+            fail(f"9c ({how}): gap {gap5:+.3e}, rounded {r.sum()} of {k5}")
+        if got["tridiag_solve_blocked"] <= 0:
+            fail(f"9c ({how}): the mesh path never launched K1b: {got}")
+
+    # (d) the budget sweep over 2 budgets, against the meshless sweep
+    ks = [k // 2, k]
+    (r_m, x_m, u_m), wall_m, got_d = timed(lambda: mac.solve_sweep(ks))
+    plain = MAC(fixed, cands, n, device=mac.device, dtype=mac.dtype)
+    (r_p, x_p, u_p), wall_p, _ = timed(lambda: plain.solve_sweep(ks))
+    lam_m = [scipy_lam2(mac.laplacian(x)) for x in x_m]
+    lam_p = [scipy_lam2(mac.laplacian(x)) for x in x_p]
+    say(f"9d city10000 sweep x mesh (budgets {ks}): {wall_m:.4f} s against "
+        f"the meshless sweep {wall_p:.4f} s ({card}); relaxed lambda_2 "
+        f"mesh {[round(v, 9) for v in lam_m]}, meshless "
+        f"{[round(v, 9) for v in lam_p]}; launches {got_d}", flush=True)
+    if [int(v) for v in r_m.sum(axis=1)] != ks:
+        fail(f"9d: rounded {r_m.sum(axis=1)}, want {ks}")
+    if any(a < (1 - 1e-2) * b for a, b in zip(lam_m, lam_p)):
+        fail("9d: a mesh lane below (1 - 1e-2) of its meshless lane")
+
+    # (e) the mesh's dry run on this group
+    (summary, wall, got_e) = timed(lambda: dryrun_multigpu(world))
+    say(f"9e dryrun_multigpu({world}): {wall:.3f} s; {summary}; launches "
+        f"{got_e}", flush=True)
+    return {"a": got_a, "b": got_b, "c": got_c, "d": got_d}
+
+
+def mesh_phase(card, dataset, synth5, walls):
+    """Phase 9: a process group of torch.cuda.device_count() NCCL ranks,
+    in this process for one card (a file:// rendezvous), else one spawned
+    process per card; returns rank 0's launch counts by part."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from mac_tpu_torch.parallel.launch import spawn
+
+    world = torch.cuda.device_count()
+    args = (card, str(dataset), synth5, walls)
+    if world > 1:
+        return spawn(mesh_part, world, device_type="cuda", timeout_s=600,
+                     args=args)[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            return mesh_part(0, 1, *args)
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     import numpy as np
     import torch
@@ -1344,6 +1556,7 @@ def main():
     # ---- 6. the bundled datasets, MAC(fixed, cands, n) with no knobs
     phase("6 bundled datasets")
     bundled_launches = {}
+    bundled_walls = {}
     for ds, (ref_lam, want_dtype, want_backend, want_banded,
              gap_floor) in BUNDLED.items():
         t0 = time.perf_counter()
@@ -1366,6 +1579,7 @@ def main():
             times6.append(time.perf_counter() - t0)
         got = {kern.__name__: kern.launches for kern in counted}
         bundled_launches[ds] = got
+        bundled_walls[ds] = statistics.median(times6[1:])
         lam_u = scipy_lam2(mac6.laplacian(u6))
         lam_r = scipy_lam2(mac6.laplacian(r6))
         gap6 = (lam_u - ref_lam) / ref_lam
@@ -1462,6 +1676,13 @@ def main():
     phase("8 budget sweep")
     lanes_a, lanes_b, lanes_d = sweeps(dev, card, mac, mac5, dataset, counted,
                                        (fi5, wf5, ci5, wc5))
+
+    # ---- 9. the device mesh
+    phase("9 mesh")
+    mesh_launches = mesh_phase(
+        card, dataset, ((fi5, wf5, ci5, wc5), k5, x5),
+        {"city10000": statistics.median(times[1:]),
+         "sphere2500": bundled_walls["sphere2500"], "scale": path_s[1]})
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -1474,12 +1695,14 @@ def main():
     # kernel's own main path (K1 phase 4, K1b phase 5, K2 phase 6);
     # "launches_sphere2500" that of phase 6's four solves. The lane forms
     # (shape "(R, ...)") count their launches with R lanes in phase 8's
-    # sweeps ("launches_path" names the part).
-    def k2_entry(key, replaces, shape, tm, count):
+    # sweeps ("launches_path" names the part). "launches_mesh": the launches
+    # on phase 9's mesh path (K1 and K2b in 9a, K2 in 9b, K1b in 9c's two
+    # solves).
+    def k2_entry(key, replaces, shape, tm, count, mesh_count):
         return {"name": "assemble_ut", "route": "cuda",
                 "source": "mac_tpu_torch/csrc/assemble.cu",
                 "replaces": replaces, "shape": shape, "launches": count[0],
-                "launches_sphere2500": count[1],
+                "launches_sphere2500": count[1], "launches_mesh": mesh_count,
                 "max_abs_err": k2_err[key], "ms": tm["device_ms"],
                 "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
@@ -1503,6 +1726,7 @@ def main():
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
          "shape": "(10000, 4)", "launches": launches["tridiag_solve"],
+         "launches_mesh": mesh_launches["a"]["tridiag_solve"],
          "launches_sphere2500": sphere["tridiag_solve"],
          "launches_greedy_eig": eig_launches["tridiag_solve"],
          "shape_greedy_eig": k1_ge["shape"],
@@ -1517,16 +1741,20 @@ def main():
          "bound_by": k1_by, "library_ms": None},
         k2_entry("K2b", "mac_tpu/ops/pallas/assemble_kernel.py:61",
                  "city10000 tables (du_dense 5, ov 5)", k2b_tm,
-                 (launches["assemble_ut"], 0)),
+                 (launches["assemble_ut"], 0),
+                 mesh_launches["a"]["assemble_ut"]),
         k2_entry("K2", "mac_tpu/ops/pallas/assemble_kernel.py:49",
                  f"sphere2500 tables (nb {bop_sp.nb}, half {bop_sp.half}, "
                  f"du_dense {bop_sp.du_dense}, no split)", k2_tm,
-                 (sphere["assemble_ut"], sphere["assemble_ut"])),
+                 (sphere["assemble_ut"], sphere["assemble_ut"]),
+                 mesh_launches["b"]["assemble_ut"]),
         {"name": "tridiag_solve_blocked", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:107",
          "shape": f"({SCALE_N}, 4)",
          "launches": launches5["tridiag_solve_blocked"],
+         "launches_mesh": sum(got["tridiag_solve_blocked"]
+                              for got in mesh_launches["c"].values()),
          "launches_sphere2500": sphere["tridiag_solve_blocked"],
          "max_abs_err": k1b_err, "ms": k1b_dev, "device_ms": k1b_dev,
          "call_ms": k1b_call, "plain_ms": k1b_plain_ms,

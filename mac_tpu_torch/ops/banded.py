@@ -366,7 +366,7 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
                         prev_state: Optional[PrecondState] = None,
                         use_prev: Optional[bool] = None,
                         return_state: bool = False,
-                        rebuild: Optional[bool] = None):
+                        rebuild: Optional[bool] = None, sharded=None):
     """Two-level symmetric (multiplicative V-cycle) preconditioner for L(w)
     restricted to 1^perp, with the exact odometry-chain smoother.
 
@@ -379,6 +379,11 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
 
     rebuild: with prev_state, False reuses prev_state as it is (coarse
     inverse and chain factor); None always rebuilds.
+
+    sharded: a mac_tpu_torch.parallel.sharded.ShardedBanded whose BD this
+    is (the rank's ut rows, the whole deg): the residual products and the
+    coarse operator then come from its row-sharded products; the chain
+    factor, the coarse inverse and Newton-Schulz stay replicated.
 
     Returns a function (n, q) -> (n, q) in RCM order. With lanes (BD and w
     of R lanes, no prev_state), one chain factor and one coarse level per
@@ -415,11 +420,14 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
         Rmat = (bop.agg[:n, None] == torch.arange(nc, dtype=bop.agg.dtype,
                                                   device=dev)[None, :]
                 ).to(dtype)
-        LR = banded_apply(bop, BD, Rmat.expand(*lead, n, nc))
-        LRn = LR[..., bop.iperm, :]
-        LRp = torch.cat([LRn, LRn.new_zeros((*lead, nc * s - n, nc))],
-                        dim=-2)
-        Lc = LRp.reshape(*lead, nc, s, nc).sum(dim=-2)
+        if sharded is not None:
+            Lc = sharded.coarse(BD, Rmat)
+        else:
+            LR = banded_apply(bop, BD, Rmat.expand(*lead, n, nc))
+            LRn = LR[..., bop.iperm, :]
+            LRp = torch.cat([LRn, LRn.new_zeros((*lead, nc * s - n, nc))],
+                            dim=-2)
+            Lc = LRp.reshape(*lead, nc, s, nc).sum(dim=-2)
         Lc = (Lc + Lc.mT) / 2
         # Rank-one constant-mode shift makes Lc SPD; the 1%-of-trace jitter
         # dominates the assembly error.
@@ -470,6 +478,8 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
         Lc_inv = prev_state.Lc_inv
 
     def apply_fast(V):
+        if sharded is not None:
+            return sharded.apply(BD, V)
         return banded_apply(bop, BD, V)
 
     def center(B):

@@ -143,10 +143,12 @@ def lap_inf_norm(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     return 2.0 * lap_degrees(op, w).amax(dim=-1)
 
 
-def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor):
+def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor,
+                         deg: Optional[torch.Tensor] = None):
     """(d, e): the diagonal (weighted degrees) and the first off-diagonal
-    band (minus the summed weights between consecutive nodes) of L(w)."""
-    d = lap_degrees(op, w)
+    band (minus the summed weights between consecutive nodes) of L(w).
+    deg: the degrees when the caller has them (a sharded operator's)."""
+    d = lap_degrees(op, w) if deg is None else deg
     lead = w.shape[:-1]
     if op.n <= 1:
         return d, torch.zeros((*lead, 1), dtype=w.dtype, device=w.device)

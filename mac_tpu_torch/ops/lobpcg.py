@@ -154,6 +154,7 @@ def tracemin_fiedler(
     warm_init: Optional[bool] = None,
     min_iters: int = 0,
     nullvec: Optional[torch.Tensor] = None,
+    agree: Callable = bool,
 ) -> FiedlerResult:
     """Block inverse (subspace) iteration with Rayleigh-Ritz.
 
@@ -181,6 +182,10 @@ def tracemin_fiedler(
     ||A x - lam x||_1 / ||L||_inf drops to tol), after maxiter outer
     iterations, or after STALL_PATIENCE non-improving iterations near the
     precision floor.
+
+    agree: reads the stop test on the host, bool by default; on a mesh the
+    group's agreement (parallel.mesh.MeshGroup.agree), so that every rank
+    leaves the loop at the same iteration.
     """
     n, q = X0.shape
     dtype = X0.dtype
@@ -248,7 +253,7 @@ def tracemin_fiedler(
     rres = rel_residual(lam, X, AX)
     while True:
         keep = _keep_iterating(res, rres, since, eff_tol, rel_tol_v)
-        if it >= min_iters and (it >= maxiter or not bool(keep)):
+        if it >= min_iters and (it >= maxiter or not agree(keep)):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma)
         Y = pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
@@ -326,6 +331,7 @@ def tracemin_fiedler_lanes(
     rel_tol: Optional[float] = None,
     coeff_dtype=None,
     min_iters: int = 0,
+    agree: Callable = bool,
 ) -> FiedlerResult:
     """tracemin_fiedler's cold entry and iteration for R operators at once,
     one lane each, as one solve: what a vmap of tracemin_fiedler over the
@@ -340,7 +346,8 @@ def tracemin_fiedler_lanes(
     of every lane, or (R, n, q) one per lane. lnorm: (R,) ||L_r||_inf, each
     lane's nullspace shift. xprev0: the (n, q) block that seeds every
     lane's previous-iterate memory. min_iters: outer iterations every lane
-    runs whatever its entry residual (as in tracemin_fiedler).
+    runs whatever its entry residual (as in tracemin_fiedler). agree: as in
+    tracemin_fiedler, for the test whether any lane goes on.
 
     Each lane keeps its own Rayleigh-Ritz (batched q x q and 3q x 3q eigh),
     CGS2 and CholeskyQR2, residuals, stall count and stop test; a lane that
@@ -395,7 +402,7 @@ def tracemin_fiedler_lanes(
         keep = _keep_iterating(res, rres, since, eff_tol, rel_tol)
         if it < min_iters:
             keep = torch.ones_like(keep)
-        elif it >= maxiter or not bool(keep.any()):
+        elif it >= maxiter or not agree(keep.any()):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma[:, None])
         Y = project(pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
@@ -436,6 +443,7 @@ def lobpcg_fiedler(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-8,
     maxiter: int = 1000,
+    agree: Callable = bool,
 ) -> FiedlerResult:
     """The q smallest nonzero eigenpairs of a graph Laplacian by LOBPCG
     (mac_tpu.ops.lobpcg.lobpcg_fiedler): Rayleigh-Ritz on span[X, W, P]
@@ -445,7 +453,7 @@ def lobpcg_fiedler(
 
     apply_L: (n, k) -> (n, k) Laplacian product. X0: (n, q) start block.
     lnorm: ||L||_inf, also the nullspace shift. precond: approximate inverse
-    of L on 1^perp, the identity if None."""
+    of L on 1^perp, the identity if None. agree: as in tracemin_fiedler."""
     n, q = X0.shape
     dtype = X0.dtype
     eps = torch.finfo(dtype).eps
@@ -480,8 +488,8 @@ def lobpcg_fiedler(
     res = residual(lam, X, AX)
     best = res
     since = 0
-    while it < maxiter and float(res) > eff_tol \
-            and since < LOBPCG_STALL_PATIENCE:
+    while it < maxiter and agree(float(res) > eff_tol
+                                 and since < LOBPCG_STALL_PATIENCE):
         R = AX - X * lam[None, :]
         W = _ortho_against(X, project(precond(R)))
         P = _ortho_against(X, Xprev)

@@ -47,19 +47,26 @@ def make_twogrid_precond(
     op: GraphOperator,
     w: torch.Tensor,
     apply_L: Callable[[torch.Tensor], torch.Tensor],
+    sharded=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The V-cycle preconditioner for L(w) restricted to 1^perp, a function
     (n, q) -> (n, q), or (R, n, q) -> (R, n, q) for lanes w (R, m); rebuild
-    it when w changes."""
+    it when w changes. sharded: on a mesh, the ELL operator's sharded form
+    (mac_tpu_torch.parallel.sharded), whose collectives build the
+    tridiagonal part and Lc identically on every rank."""
     n, s, nc = op.n, op.coarse_s, op.coarse_nc
     dtype = w.dtype
     eps = torch.finfo(dtype).eps
     lead = w.shape[:-1]
 
-    d, e = lap_tridiagonal_part(op, w)
+    if sharded is None:
+        d, e = lap_tridiagonal_part(op, w)
+    else:
+        d, e = sharded.tridiagonal_part(w)
     fac = tridiag_ldl_auto(d + 100 * eps * d.amax(dim=-1, keepdim=True), e)
 
-    Lc = coarse_laplacian(op, w)
+    Lc = (coarse_laplacian(op, w) if sharded is None
+          else sharded.coarse_laplacian(w))
     diag = torch.diagonal(Lc, dim1=-2, dim2=-1)
     cshift = (2.0 * diag.amax(dim=-1) + 1.0)[..., None, None]
     Lc_reg = Lc + (cshift / nc) * torch.ones_like(Lc)

@@ -30,6 +30,7 @@ def frank_wolfe_with_state(
     tail_average_from: Optional[int] = None,
     verbose: bool = False,
     stepsize: Optional[Callable] = None,
+    agree: Callable = bool,
 ):
     """Maximise a concave f via Frank-Wolfe.
 
@@ -43,6 +44,9 @@ def frank_wolfe_with_state(
     tail_average_from: when set, return the mean of the iterates evaluated
         from that step index on (Cesaro tail average).
     verbose: print f and the duality gap at every step.
+    agree: reads "keep going" on the host, bool by default; on a mesh the
+        group's agreement (parallel.mesh.MeshGroup.agree), so that every
+        rank stops at the same step.
 
     Returns (x, u, state, num_iters) with u the running dual upper bound.
     """
@@ -71,7 +75,7 @@ def frank_wolfe_with_state(
             cnt += 1
             xavg = xavg + (x - xavg) / float(cnt)
         it += 1
-        if bool(stop):
+        if not agree(~stop):
             break
         gamma = (naive_stepsize(it - 1) if stepsize is None
                  else stepsize(x, gradf, s, it - 1))
@@ -91,6 +95,7 @@ def frank_wolfe_lanes(
     relative_duality_gap_tol: float = 1e-5,
     grad_norm_tol: float = 1e-10,
     tail_average_from: Optional[int] = None,
+    agree: Callable = bool,
 ):
     """frank_wolfe_with_state for R lanes at once, as a vmap of the JAX
     package's loop computes them: x (R, m); problem(x, state, it) -> (f (R,),
@@ -103,7 +108,8 @@ def frank_wolfe_lanes(
     sees it (the state it returns is not frozen; a caller that reads it
     for a stopped lane freezes it itself). The loop ends when every lane
     has stopped or after maxiter steps; the stop flags are read from the
-    device once per step. Returns (x, u (R,), state, iterations (R,))."""
+    device once per step (through `agree`, as in frank_wolfe_with_state).
+    Returns (x, u (R,), state, iterations (R,))."""
     x = initial
     R = x.shape[0]
     dtype, dev = x.dtype, x.device
@@ -133,7 +139,7 @@ def frank_wolfe_lanes(
         gamma = torch.as_tensor(naive_stepsize(it), dtype=dtype, device=dev)
         x = torch.where(move[:, None], x + gamma * (s - x), x)
         done = done | stop
-        if bool(done.all()):
+        if not agree(~done.all()):
             break
     if averaging:
         x = torch.where((cnt > 0)[:, None], xavg, x)

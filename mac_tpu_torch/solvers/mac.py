@@ -45,10 +45,21 @@ reference's sweep does): each lane with its own operator, preconditioner,
 Ritz block, stop tests and rounding, the kernels launched once for all
 lanes.
 
-Routes the port does not have yet raise NotImplementedError naming the
-slice that adds them (a device mesh; the banded operator in float64; LOBPCG
-or dense eigh on the banded operator); none runs something else in their
-place.
+On a device mesh (mesh=, mac_tpu_torch.parallel.mesh.make_mesh: one
+process per GPU under torch.distributed) every rank builds the same host
+tables and keeps its share of the operator on its GPU: the banded
+operator's block rows, or the ELL operator's node rows (mesh_apply="rows")
+or edges ("edges"), through mac_tpu_torch.parallel.sharded. The
+supergradient and the top-k oracle run sharded too; the eigensolver's
+block algebra, the chain solves and the coarse level run replicated. Under
+a mesh the size gate and the host engine are off, fw_polish and the round
+guard default to False, the matrix-free operator is never dense, the ranks
+agree on every loop decision, and every rank returns the first rank's
+arrays. solve_sweep splits its lanes over the mesh's 'sweep' dimension.
+
+Routes the port does not have yet raise NotImplementedError (the banded
+operator in float64; LOBPCG or dense eigh on the banded operator); none
+runs something else in their place.
 """
 
 import os
@@ -67,6 +78,9 @@ from mac_tpu_torch.optimization.constraints import (
     solve_subset_box_lp, solve_subset_box_lp_dynamic)
 from mac_tpu_torch.optimization.frankwolfe import (frank_wolfe_lanes,
                                                    frank_wolfe_with_state)
+from mac_tpu_torch.parallel import sharded as _sharded
+from mac_tpu_torch.parallel.mesh import (MeshGroup, check_mesh, mesh_device,
+                                         same_on_every_rank)
 from mac_tpu_torch.solvers._host import HostSolveMixin, _graph_is_connected
 from mac_tpu_torch.utils import fiedler as _fiedler
 from mac_tpu_torch.utils.graphs import (edges_to_arrays,
@@ -177,7 +191,13 @@ class MAC(HostSolveMixin):
     fixed_edges / candidate_edges: lists of `Edge` (or (idx, w) arrays).
     num_nodes: number of graph nodes.
     device: where the device engine runs, "cuda" by default; "cpu" runs the
-        kernels' plain PyTorch versions.
+        kernels' plain PyTorch versions. With a mesh, the mesh's device of
+        this rank; a device that contradicts it raises.
+    mesh: a ("sweep", "graph") torch.distributed DeviceMesh (make_mesh)
+        spanning the process group, or None (see the module docstring).
+    mesh_apply: the sharding of the matrix-free product on a mesh, "rows"
+        (node rows, all-gathered; the default) or "edges" (round-robin
+        edges, all-reduced).
     dtype: torch.float32 or torch.float64; None is float32, escalated to
         float64 by the spectral probe or the size gate (`auto_dtype_reason`
         says which, `spectral_ratio` holds the probe's ratio).
@@ -241,7 +261,8 @@ class MAC(HostSolveMixin):
         precond_refresh_period=None,
         fw_polish=None,
         round_guard=None,
-        device="cuda",
+        device=None,
+        mesh_apply=None,
     ):
         fixed_idx, w_fixed = edges_to_arrays(fixed_edges)
         cand_idx, w_cand = edges_to_arrays(candidate_edges)
@@ -251,9 +272,18 @@ class MAC(HostSolveMixin):
             raise ValueError(f"{num_edges} edges cannot form a connected "
                              f"simple graph on {n} nodes")
         if mesh is not None:
-            raise _not_in_slice("A device mesh (row-sharded ELL or banded "
-                                "products)", "multi-GPU solves come with "
-                                "slice F (ROADMAP Queue 1, item 17)")
+            check_mesh(mesh)
+            mdev = mesh_device(mesh)
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != mdev.type or want.index
+                                     not in (None, mdev.index)):
+                raise ValueError(f"device {device!r} contradicts the mesh's "
+                                 f"device {mdev} on this rank")
+            device = mdev
+        elif device is None:
+            device = "cuda"
+        if mesh_apply not in (None, "rows", "edges"):
+            raise ValueError(f"unknown mesh_apply {mesh_apply!r}")
         if fiedler_method in ("tracemin_lu", "tracemin_cholesky"):
             fiedler_method = "tracemin"
         if fiedler_method not in ("tracemin", "lobpcg", "dense"):
@@ -276,8 +306,8 @@ class MAC(HostSolveMixin):
                     f"lambda_2/||L||_inf ~ {ratio:.2e} is below float32 "
                     "resolution; escalated to float64")
                 self._tiny_gap = True
-            elif (n <= SMALL_HOST_N and fiedler_backend is None
-                  and use_banded is None):
+            elif (n <= SMALL_HOST_N and mesh is None
+                  and fiedler_backend is None and use_banded is None):
                 # See SMALL_HOST_N. An explicit dtype, use_banded or
                 # fiedler_backend bypasses this: the knobs win.
                 dtype = torch.float64
@@ -292,11 +322,13 @@ class MAC(HostSolveMixin):
             # The probe's ratio cannot tell "disconnected" from "tiny gap"
             # (its estimate is noise at that level), so an exact O(m)
             # connectivity check decides; see _graph_is_connected.
-            host_want = self._tiny_gap or self._small_host
+            host_want = (self._tiny_gap or self._small_host) and mesh is None
             fiedler_backend = (
                 "host" if host_want and _graph_is_connected(
                     np.concatenate([fixed_idx, cand_idx], axis=0), n)
                 else "device")
+        if mesh is not None and fiedler_backend == "host":
+            raise ValueError("the host engine does not run on a mesh")
         self.fiedler_backend = fiedler_backend
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -323,6 +355,9 @@ class MAC(HostSolveMixin):
         self._banded = None
         self._perm = None
         self.op = None
+        self.mesh = mesh
+        self._group = None if mesh is None else MeshGroup(mesh)
+        self._sharded = None
         if bop is not None:
             if fiedler_method != "tracemin":
                 raise _not_in_slice(
@@ -330,11 +365,24 @@ class MAC(HostSolveMixin):
                     "eigh) on the banded operator", "both run on the ELL "
                     "operator here: pass use_banded=False")
             self._perm = bop.perm.numpy().astype(np.int64)
+            if mesh is not None:
+                # The rank's slice of the slot tables (parallel.sharded).
+                self._sharded = _sharded.ShardedBanded(bop, self._group)
+                bop = self._sharded.bop
             self._banded = bop.to(self.device)  # nn.Module.to moves in place
-            operator = self._banded
+            operator = self._banded if mesh is None else self._sharded
             # Internal (RCM-relabelled) endpoints: the node space of the
             # device eigenvectors.
             self._int_idx = np.asarray(ridx, dtype=np.int64)
+        elif mesh is not None:
+            host_op = build_operator(all_idx, n, mode="ell")
+            self._sharded = (_sharded.EdgeShardedLaplacian
+                             if mesh_apply == "edges"
+                             else _sharded.ShardedLaplacian)(host_op,
+                                                             self._group)
+            self.op = self._sharded.base
+            operator = self._sharded
+            self._int_idx = all_idx.astype(np.int64)
         else:
             self.op = build_operator(all_idx, n).to(self.device)
             operator = self.op
@@ -407,7 +455,7 @@ class MAC(HostSolveMixin):
         # eigensolves nearly free of fill. The guard is independent of
         # fw_polish=False: it pins the rounded value, the polish the
         # relaxed one.
-        small_banded = fast32 and n <= 4096
+        small_banded = fast32 and n <= 4096 and mesh is None
         self._fw_polish_user_set = fw_polish is not None
         self.fw_polish = bool(small_banded if fw_polish is None
                               else fw_polish)
@@ -437,6 +485,12 @@ class MAC(HostSolveMixin):
         return sched
 
     # ------------------------------------------------------------------ core
+
+    @property
+    def _agree(self):
+        """How the loops read their stop tests: bool, or on a mesh the
+        'graph' group's agreement."""
+        return bool if self._group is None else self._group.agree
 
     def _mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x > self.min_selection_weight_tol, x,
@@ -501,8 +555,12 @@ class MAC(HostSolveMixin):
                             want_pstate=want_pstate, inner_iters=inner_iters)
         res, pstate_new = out if want_pstate else (out, None)
         v = res.X[..., 0]
-        d = v[..., cand_int[:, 0]] - v[..., cand_int[:, 1]]
-        grad = w_cand * d * d
+        if self.mesh is not None:
+            grad = _sharded.sharded_candidate_gradient(self._group, cand_int,
+                                                       w_cand, v)
+        else:
+            d = v[..., cand_int[:, 0]] - v[..., cand_int[:, 1]]
+            grad = w_cand * d * d
         if want_pstate:
             return res.lam[..., 0], grad, res.X, res.iters, pstate_new
         return res.lam[..., 0], grad, res.X, res.iters
@@ -552,13 +610,20 @@ class MAC(HostSolveMixin):
             Xnew = Xres if use_cache else X0
             return f, grad, (Xnew, fiters + iters, step + 1, pstate)
 
+        if self.mesh is None:
+            def solve_lp(g):
+                return solve_subset_box_lp(g, k)
+        else:
+            def solve_lp(g):
+                return _sharded.sharded_top_k_indicator(self._group, g, k)
+
         x, u, (X, fiters, _, _), it = frank_wolfe_with_state(
-            x0, (X0, 0, 0, pstate0), problem,
-            lambda g: solve_subset_box_lp(g, k),
+            x0, (X0, 0, 0, pstate0), problem, solve_lp,
             maxiter=maxiter,
             relative_duality_gap_tol=relative_duality_gap_tol,
             grad_norm_tol=grad_norm_tol, verbose=verbose,
-            tail_average_from=(maxiter // 2 if tail_average else None))
+            tail_average_from=(maxiter // 2 if tail_average else None),
+            agree=self._agree)
         rounded = round_nearest(x, k, weights=params[1],
                                 break_ties_decimal_tol=10)
         return x, u, X, it, fiters, rounded
@@ -591,7 +656,8 @@ class MAC(HostSolveMixin):
             x0, X0.expand(x0.shape[0], *X0.shape), problem,
             lambda g: solve_subset_box_lp_dynamic(g, ks), maxiter=maxiter,
             relative_duality_gap_tol=relative_duality_gap_tol,
-            grad_norm_tol=grad_norm_tol, tail_average_from=tail_average_from)
+            grad_norm_tol=grad_norm_tol, tail_average_from=tail_average_from,
+            agree=self._agree)
         if rounding == "madow":
             rounded = round_madow_base_dynamic(x, ks, u)
         else:
@@ -673,8 +739,13 @@ class MAC(HostSolveMixin):
                             device=self.device)
         res = self._eval_impl(self._params, x, self._X0)
         if self.dtype == torch.float64:
-            return float(res.lam[0])
-        return self._refine_lambda(x.cpu().numpy(), res.X[:, 0].cpu().numpy())
+            lam = float(res.lam[0])
+        else:
+            lam = self._refine_lambda(x.cpu().numpy(),
+                                      res.X[:, 0].cpu().numpy())
+        if self.mesh is not None:
+            (lam,) = same_on_every_rank(self.mesh, lam)
+        return lam
 
     def problem(self, x, cache: Optional["MAC.Cache"] = None):
         """(F(x), grad F(x)) with a cold preconditioner, warm-starting from
@@ -717,6 +788,11 @@ class MAC(HostSolveMixin):
         device engine here too; the exact host tails (polish, round guard)
         do not run. Madow rounding draws its R offsets from `seed`
         (MAC._madow_u).
+
+        On a mesh whose 'sweep' dimension has s > 1 ranks, R must be a
+        multiple of s: each 'sweep' coordinate solves its R / s lanes (the
+        products sharded over its 'graph' group) and an all-gather over
+        'sweep' assembles the results.
         """
         if rounding not in ("nearest", "madow"):
             raise ValueError(f"unknown rounding {rounding!r}")
@@ -746,16 +822,30 @@ class MAC(HostSolveMixin):
         if tuple(x0.shape) != (R, m):
             raise ValueError(f"x_init has shape {tuple(x0.shape)}, want "
                              f"({R}, {m})")
+        # Drawn for every lane, whatever share of them this rank solves.
         u = self._madow_u(seed, R) if rounding == "madow" else None
-        rounded, x, upper, _ = self._fw_dynamic_impl(
+        sweep = None if self.mesh is None else MeshGroup(self.mesh, "sweep")
+        if sweep is not None and sweep.size > 1:
+            if R % sweep.size:
+                raise ValueError(f"{R} budgets do not split over the "
+                                 f"{sweep.size} ranks of 'sweep'")
+            lanes = slice(sweep.rank * (R // sweep.size),
+                          (sweep.rank + 1) * (R // sweep.size))
+            x0, ks_np = x0[lanes], ks_np[lanes]
+            u = None if u is None else u[lanes]
+        out = self._fw_dynamic_impl(
             self._params, x0, self._X0,
             torch.as_tensor(ks_np, device=self.device),
             maxiter=int(max_iters),
             relative_duality_gap_tol=float(relative_duality_gap_tol),
             grad_norm_tol=float(grad_norm_tol), rounding=rounding, u=u,
-            schedule=schedule, tail_average_from=tail_from)
-        return (rounded.cpu().numpy(), x.cpu().numpy(),
-                upper.cpu().numpy())
+            schedule=schedule, tail_average_from=tail_from)[:3]
+        if sweep is not None and sweep.size > 1:
+            out = [sweep.all_gather(t, dim=0) for t in out]
+        out = [t.cpu().numpy() for t in out]
+        if self.mesh is not None:
+            out = same_on_every_rank(self.mesh, *out)
+        return tuple(out)
 
     def solve(
         self,
@@ -949,7 +1039,7 @@ class MAC(HostSolveMixin):
                     if R > 1 else [0.0])
             rounded = xs[int(np.argmax(vals))]
         self.last_solve_stats["round_guard"] = False
-        if rounding == "nearest" and self.round_guard:
+        if rounding == "nearest" and self.round_guard and self.mesh is None:
             # The relaxed float64 anchor: the exact edge-sum Rayleigh
             # quotient of the best Fiedler vector in hand.
             v_int = (polished_v if polished_v is not None
@@ -989,6 +1079,9 @@ class MAC(HostSolveMixin):
             top = np.argpartition(grad64, -k)[-k:]
             s[top[grad64[top] > 0]] = 1.0
             upper = float(f64 + grad64 @ (s - unrounded))
+        if self.mesh is not None:
+            rounded, unrounded, upper = same_on_every_rank(
+                self.mesh, rounded, unrounded, upper)
         self.last_solve_stats["solve_total_s"] = timer() - solve_start
         if return_rounding_time:
             return rounded, unrounded, upper, rounding_time

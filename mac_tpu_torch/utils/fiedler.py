@@ -34,6 +34,7 @@ from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
 from mac_tpu_torch.ops.twogrid import make_twogrid_precond
+from mac_tpu_torch.parallel import sharded as _sharded
 
 _DEFAULT_SEED = 7  # the reference's np.random.RandomState(7) start block
 
@@ -79,7 +80,7 @@ def _stack(results) -> FiedlerResult:
 
 def _tracemin(apply_L, X, lnorm, Minv, *, lam0=None, warm_init=None, **kw):
     """tracemin_fiedler, or tracemin_fiedler_lanes for lanes (lnorm (R,));
-    the lanes take the cold entry only."""
+    the lanes take the cold entry only. kw may hold `agree`."""
     if lnorm.dim() == 0:
         return tracemin_fiedler(apply_L, X, lnorm, Minv, lam0=lam0,
                                 warm_init=warm_init, **kw)
@@ -90,13 +91,23 @@ def _tracemin(apply_L, X, lnorm, Minv, *, lam0=None, warm_init=None, **kw):
 
 def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
                  coeff_dtype, pstate, use_prev, rebuild, return_pstate,
-                 **warm):
+                 sharded=None, **warm):
     """The banded branch: assemble BD(w), build the two-level
-    preconditioner (warm-rebuilt from `pstate` when given), run TRACEMIN."""
-    BD = _banded.assemble_bd(bop, w)
+    preconditioner (warm-rebuilt from `pstate` when given), run TRACEMIN.
+    sharded: the parallel.sharded.ShardedBanded of `bop` on a mesh, whose
+    row-sharded assembly and products take the place of the whole ones."""
+    if sharded is None:
+        BD = _banded.assemble_bd(bop, w)
 
-    def apply_L(V):
-        return _banded.banded_apply(bop, BD, V)
+        def apply_L(V):
+            return _banded.banded_apply(bop, BD, V)
+    else:
+        BD = sharded.assemble(w)
+
+        def apply_L(V):
+            return sharded.apply(BD, V)
+
+        warm["agree"] = sharded.agree
 
     # ||L||_inf = 2 max weighted degree, read off BD's diagonal.
     lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
@@ -104,9 +115,9 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
     if pstate is not None or return_pstate:
         Minv, pstate_out = _banded.make_banded_precond(
             bop, BD, w=w, prev_state=pstate, use_prev=use_prev,
-            rebuild=rebuild, return_state=True)
+            rebuild=rebuild, return_state=True, sharded=sharded)
     else:
-        Minv = _banded.make_banded_precond(bop, BD, w=w)
+        Minv = _banded.make_banded_precond(bop, BD, w=w, sharded=sharded)
     res = _tracemin(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
@@ -155,7 +166,11 @@ def fiedler_pair_op(
 
     op: a BandedOperator (TRACEMIN with the banded two-level
         preconditioner; pstate / use_prev / rebuild carry its coarse
-        inverse across calls) or a GraphOperator, which takes:
+        inverse across calls), a GraphOperator, or the sharded form of
+        either on a mesh (mac_tpu_torch.parallel.sharded: ShardedBanded,
+        ShardedLaplacian, EdgeShardedLaplacian), which solves as the
+        meshless one with its products, degrees and assembly sharded and
+        every loop test agreed over the group. A GraphOperator takes:
       * the exact dense eigh for method="dense" or a dense-mode operator of
         at most DENSE_MAX_N nodes;
       * otherwise the ELL (or dense-mode) product, the preconditioner
@@ -169,12 +184,19 @@ def fiedler_pair_op(
     if min_iters is None:
         min_iters = 1 if lam0 is not None else 0
     warm = dict(lam0=lam0, warm_init=warm_init, min_iters=min_iters)
-    if isinstance(op, _banded.BandedOperator):
+    banded_sharded = isinstance(op, _sharded.ShardedBanded)
+    if banded_sharded or isinstance(op, _banded.BandedOperator):
         return _banded_pair(
-            op, w, X, xprev0=xprev0, tol=tol, maxiter=maxiter,
-            inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
-            pstate=pstate, use_prev=use_prev, rebuild=rebuild,
-            return_pstate=return_pstate, **warm)
+            op.bop if banded_sharded else op, w, X, xprev0=xprev0, tol=tol,
+            maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
+            coeff_dtype=coeff_dtype, pstate=pstate, use_prev=use_prev,
+            rebuild=rebuild, return_pstate=return_pstate,
+            sharded=op if banded_sharded else None, **warm)
+    sharded = None
+    if isinstance(op, (_sharded.ShardedLaplacian,
+                       _sharded.EdgeShardedLaplacian)):
+        sharded, op = op, op.base
+        warm["agree"] = sharded.agree
     if not isinstance(op, GraphOperator):
         raise TypeError(f"fiedler_pair_op: unknown operator {type(op)}")
 
@@ -187,16 +209,22 @@ def fiedler_pair_op(
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
     if method == "lobpcg" and w.dim() == 2:
         return _ret(_stack([fiedler_pair_op(
-            op, w[r], X[r], xprev0=xprev0, tol=tol, maxiter=maxiter,
-            inner_iters=inner_iters, method=method, precond=precond)
+            op if sharded is None else sharded, w[r], X[r], xprev0=xprev0,
+            tol=tol, maxiter=maxiter, inner_iters=inner_iters, method=method,
+            precond=precond)
             for r in range(w.shape[0])]))
 
-    apply_L = lap_applier(op, w)
-    lnorm = lap_inf_norm(op, w)
-    if precond == "twogrid":
-        Minv = make_twogrid_precond(op, w, apply_L)
+    if sharded is None:
+        apply_L = lap_applier(op, w)
+        lnorm = lap_inf_norm(op, w)
     else:
-        d, e = lap_tridiagonal_part(op, w)
+        apply_L = sharded.applier(w)
+        lnorm = 2.0 * sharded.degrees(w).amax(dim=-1)
+    if precond == "twogrid":
+        Minv = make_twogrid_precond(op, w, apply_L, sharded)
+    else:
+        d, e = (lap_tridiagonal_part(op, w) if sharded is None
+                else sharded.tridiagonal_part(w))
         eps = 100 * torch.finfo(w.dtype).eps
         fac = tridiag_ldl_auto(d + eps * d.amax(dim=-1, keepdim=True), e)
 
@@ -214,8 +242,9 @@ def fiedler_pair_op(
         def pc(R):
             return pcg_fixed(apply_shifted, R, Minv, iters=inner_iters)
 
-        return _ret(lobpcg_fiedler(apply_L, X, lnorm, xprev0=xprev0,
-                                   precond=pc, tol=tol, maxiter=maxiter))
+        return _ret(lobpcg_fiedler(
+            apply_L, X, lnorm, xprev0=xprev0, precond=pc, tol=tol,
+            maxiter=maxiter, agree=warm.get("agree", bool)))
     return _ret(_tracemin(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,

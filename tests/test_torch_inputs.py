@@ -6,12 +6,14 @@ route's knobs, the routes that still raise included."""
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.distributed as dist
 
 from mac_tpu.ops import banded as jb
 from mac_tpu.slam import pose_graph as jpg
@@ -19,6 +21,7 @@ from mac_tpu.solvers import NaiveGreedy as JNaiveGreedy
 from mac_tpu_torch import convert
 from mac_tpu_torch.device import resolve_device
 from mac_tpu_torch.ops import banded as tb
+from mac_tpu_torch.parallel.mesh import make_mesh
 from mac_tpu_torch.slam import pose_graph as tpg
 from mac_tpu_torch.solvers import MAC, NaiveGreedy
 from tests.test_torch_banded import GRAPHS, pose_graph
@@ -122,6 +125,7 @@ def _small_problem():
 
 
 BANDED32 = dict(use_banded=True, dtype=torch.float32, device="cpu")
+CPU_MESH = "a one-rank gloo mesh on the CPU, made in the test"
 
 
 @pytest.mark.parametrize("kwargs,want", [
@@ -130,8 +134,9 @@ BANDED32 = dict(use_banded=True, dtype=torch.float32, device="cpu")
     (dict(BANDED32, fw_polish=False),
      (torch.float32, "device", True, False, True)),
     (dict(BANDED32, fw_polish=False, round_guard=False, mesh=object()),
-     "mesh"),
-    (dict(device="cpu", use_banded=False, mesh=object()), "ELL"),
+     (TypeError, "DeviceMesh")),
+    (dict(device="cuda", use_banded=False, mesh=CPU_MESH),
+     (ValueError, "contradicts the mesh")),
     (dict(device="cpu", use_banded=True, dtype=torch.float64), "float64"),
     (dict(BANDED32, fiedler_method="lobpcg"), "LOBPCG"),
 ])
@@ -140,10 +145,28 @@ def test_unported_routes_raise(kwargs, want):
     (the size gate sends it to the float64 host engine) and the banded
     float32 one with its exact tails construct, with the dtype, backend,
     operator, fw_polish and round_guard the reference resolves; the routes
-    the port still lacks (a mesh, the banded operator in float64, LOBPCG on
-    the banded operator) raise NotImplementedError naming what to do, and
-    nothing runs in their place."""
+    the port still lacks (the banded operator in float64, LOBPCG on the
+    banded operator) raise NotImplementedError naming what to do, and
+    nothing runs in their place. A mesh that is no DeviceMesh is a
+    TypeError, and a device that contradicts the mesh's (a one-rank gloo
+    mesh on the CPU here) a ValueError."""
     fixed, cands, n = _small_problem()
+    if isinstance(want, tuple) and isinstance(want[0], type):
+        exc, match = want
+        if kwargs.get("mesh") is CPU_MESH:
+            with tempfile.TemporaryDirectory() as tmp:
+                dist.init_process_group("gloo", rank=0, world_size=1,
+                                        init_method=f"file://{tmp}/rdv")
+                try:
+                    kwargs = dict(kwargs, mesh=make_mesh(device_type="cpu"))
+                    with pytest.raises(exc, match=match):
+                        MAC(fixed, cands, n, **kwargs)
+                finally:
+                    dist.destroy_process_group()
+            return
+        with pytest.raises(exc, match=match):
+            MAC(fixed, cands, n, **kwargs)
+        return
     if isinstance(want, str):
         with pytest.raises(NotImplementedError, match=want):
             MAC(fixed, cands, n, **kwargs)
