@@ -74,7 +74,9 @@ its wall time printed:
      Then the graph that is disconnected even with every candidate (two
      chains of 600 nodes, three candidates): float64 on the device engine
      on the card, solve(2) selects 2, a finite upper bound,
-     |evaluate_objective| < 1e-8, no kernel launched.
+     |evaluate_objective| < 1e-8, its chain solves through K1's float64
+     instantiation alone (no plain version on the card, no float32
+     launch).
   7. the greedy baselines: GreedyESP on city10000 with scripts/bench_all.py's
      lazy sweep (budgets 10, 30 and 50% of the loop closures: the chain
      closed form and the scan on the card, U float32 at (5344, 10688)),
@@ -105,8 +107,10 @@ its wall time printed:
      weight: K1b launched with 2 lanes, exactly k per lane, the K = 12500
      lane's evaluate_objective at or above the reference library's
      (1 - 1e-3); (c) kitti_05, float64, on the device engine (budgets 6
-     and 33): exactly k per lane, no kernel launched, each lane's relaxed
-     lambda_2 at least (1 - 1e-2) of the host engine's solve; (d)
+     and 33): exactly k per lane, K1's float64 instantiation launched and
+     nothing else (no plain version on the card), each lane's relaxed
+     lambda_2 at least (1 - 1e-2) of the host engine's solve, printed
+     beside the same sweep's on the plain scans; (d)
      sphere2500, 2 lanes (K2's no-split form): exactly k per lane, K1 and
      K2 launched with 2 lanes.
   9. the device mesh (mac_tpu_torch.parallel): a process group of
@@ -122,13 +126,34 @@ its wall time printed:
      solve_sweep over 2 budgets, each lane's relaxed lambda_2 at least
      (1 - 1e-2) of the meshless sweep's; (e) dryrun_multigpu(device
      count). Each part prints its wall beside the meshless one's.
+ 10. float64 and the remaining methods: (a) the float64 instantiations
+     against their plain versions at rtol/atol 1e-10 (K1 on city10000's
+     chain factor (10000, 4), on exact factors on each side of its
+     whole-row / tiled threshold (66240 rows at q = 4) and at (5000,
+     200); K1b at (100000, 4), also with a right-hand side 8 bytes off a
+     16-byte boundary, and at (40000, 8)) and bitwise (K2b on city10000's
+     tables, K2 on sphere2500's), each timed (device, call, plain, bound
+     at float64, K2/K2b a float64 index_add_ beside it); (b)
+     MAC(..., use_banded=True, dtype=torch.float64) on city10000 and
+     sphere2500 at full size (K = 50%, NaiveGreedy x_init,
+     max_iters=20), one cold and one warm solve each (and one profiled
+     warm solve of city10000: device busy, the largest kernels): K2b
+     (city10000) or K2 (sphere2500) and K1 launched in float64 only, no
+     plain version on the card, exactly K, upper >= relaxed, the relaxed
+     lambda_2 (scipy) within -1e-4 relative of the reference's; (c)
+     city10000, banded float32, fiedler_method="lobpcg": exactly K and a
+     gap >= -1e-3 on the warm solve; (d) fiedler_method="dense" on a banded
+     n = 600 graph, 3 steps: finite, exactly K; (f) phase 5's expander in
+     float64 (max_iters=2): the V-cycle through K1b's float64
+     instantiation alone, exactly K, upper >= evaluate_objective.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
 their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
 device_ms), call_ms, the plain version's call time, the yardstick's device
 time (library_ms), and the least time the card could take, bound_ms; one
-entry per lane shape, its launches those with that many lanes in phase 8)
-and the result line {"ok": true, "device": {...}}.
+entry per lane shape, its launches those with that many lanes in phase 8;
+one entry per float64 kernel, "dtype": "float64", its launches those of
+its phase-10 path) and the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -156,10 +181,16 @@ BUNDLED = {
     "sphere2500": (0.23430047503258467, "float32", "device", True, -1e-3),
     "ais2klinik": (5.2958016833414765e-05, "float64", "host", False, -1e-6),
 }
-# NVIDIA H100 SXM published peaks: HBM bytes/s and float32 (non-tensor-core)
-# FLOP/s; bound_ms is the larger of bytes / rate and operations / rate.
+# NVIDIA H100 SXM published peaks: HBM bytes/s and float32 and float64
+# (non-tensor-core) FLOP/s; bound_ms is the larger of bytes / rate and
+# operations / rate.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
+# Phase 10: the float64 kernels against their plain versions.
+F64_TOL = 1e-10
+# Phase 10b: the banded float64 solves' relaxed gap floor.
+GAP_FLOOR_F64 = -1e-4
 
 
 def fail(msg: str) -> None:
@@ -240,19 +271,88 @@ def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
     fail("device_ms: the host never got ahead of the device")
 
 
-def bound(nbytes: float, flops: float):
-    """(least milliseconds on the card, what bounds it)."""
-    tb, to = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+def bound(nbytes: float, flops: float, itemsize: int = 4):
+    """(least milliseconds on the card, what bounds it); the operations at
+    the float32 (itemsize 4) or float64 (8) peak."""
+    rate = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
+    tb, to = nbytes / H100_BYTES_PER_S, flops / rate
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def tridiag_bound(n: int, q: int, lanes: int = 1, shared: bool = True):
+def tridiag_bound(n: int, q: int, lanes: int = 1, shared: bool = True,
+                  itemsize: int = 4):
     """Read dp, l (n,) -- one factor, or one per lane -- and B (lanes, n,
-    q), write X (lanes, n, q), float32; per entry of B two forward
-    operations, one division, two backward."""
+    q), write X (lanes, n, q), of itemsize bytes each; per entry of B two
+    forward operations, one division, two backward."""
     factors = 1 if shared else lanes
-    return bound(4.0 * (2 * n * factors + 2 * n * q * lanes),
-                 5.0 * n * q * lanes)
+    return bound(itemsize * (2 * n * factors + 2 * n * q * lanes),
+                 5.0 * n * q * lanes, itemsize)
+
+
+def k1_whole_row_limit(q: int, itemsize: int) -> int:
+    """The largest n whose rows K1 keeps in shared memory for a block of q
+    columns of itemsize bytes (tridiag.cu's tile budget `fit`, times the
+    cluster's 16 blocks); past it the tiled two-pass branch runs."""
+    qg = min(q, 128)
+    npass = -(-qg // min(qg, 8))
+    fixed = 64 + 2 * npass * 256 + 7 * qg + 2 * 16 * qg + 1 + qg
+    return 16 * (((200 * 1024 // itemsize - fixed) // (qg + 2)) & ~3)
+
+
+class PlainOnCard:
+    """While active, counts the calls of the kernels' plain versions that
+    are given CUDA tensors (the main paths must make none: every block on
+    the card goes to a kernel). `calls` maps each plain version's name to
+    its count."""
+
+    def __enter__(self):
+        import torch
+
+        from mac_tpu_torch.ops.kernels import assemble, tridiag
+
+        self.calls = {}
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (tridiag, "tridiag_solve_plain"),
+            (tridiag, "tridiag_solve_blocked_plain"),
+            (assemble, "assemble_ut_plain"))]
+        for mod, name, real in self.saved:
+            def counted(*args, _real=real, _name=name, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                    self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*args, **kw)
+
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+        return False
+
+
+class PlainScans:
+    """While active, the tridiagonal dispatch runs the plain scans in place
+    of K1 and K1b on the card (what the float64 routes ran before their
+    kernels existed), for a comparison run."""
+
+    def __enter__(self):
+        from mac_tpu_torch.ops.kernels import tridiag
+
+        self.mod = tridiag
+        self.saved = (tridiag.tridiag_solve, tridiag.tridiag_solve_blocked)
+        tridiag.tridiag_solve = tridiag.tridiag_solve_plain
+        tridiag.tridiag_solve_blocked = tridiag.tridiag_solve_blocked_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tridiag_solve, self.mod.tridiag_solve_blocked = self.saved
+        return False
+
+
+def by_dtype(counted):
+    """{wrapper name: {dtype: launches}} of the kernel wrappers."""
+    return {kern.__name__: dict(kern.launches_by_dtype) for kern in counted}
 
 
 def profiled_busy(fn):
@@ -453,10 +553,40 @@ def index_add_assembly(args):
         lanes, half + 1, nb, BS, BS)
 
     def library():
-        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        out = torch.zeros(shape, dtype=wu.dtype, device=dev)
         return out.view(-1).index_add_(0, pos, vals).view(shape)
 
     return library
+
+
+def k2_times(args, label, card):
+    """Kernel, plain and library times and the bound of one assembly (its
+    weights float32 or float64)."""
+    from mac_tpu_torch.ops.banded import BS
+    from mac_tpu_torch.ops.kernels.assemble import (assemble_ut,
+                                                    assemble_ut_plain)
+
+    dcol_, wu_, ocol_, olane_, ow_, half_, nb_ = args
+    lanes = wu_.shape[0] if wu_.dim() == 3 else 1
+    library = index_add_assembly(args)
+    lib_err = float((library() - assemble_ut_plain(*args)).abs().max())
+    tm = {"device_ms": device_ms(lambda: assemble_ut(*args)),
+          "call_ms": call_ms(lambda: assemble_ut(*args)),
+          "plain_ms": call_ms(lambda: assemble_ut_plain(*args)),
+          "library_ms": device_ms(library),
+          "library_call_ms": call_ms(library)}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (dcol_, wu_, ocol_, olane_, ow_)) \
+        + wu_.element_size() * lanes * (half_ + 1) * nb_ * BS * BS
+    tm["bound_ms"], tm["bound_by"] = bound(
+        nbytes, wu_.numel() + ow_.numel(), wu_.element_size())
+    print(f"{label}: kernel device {tm['device_ms']:.5f} ms, call "
+          f"{tm['call_ms']:.4f} ms, plain call {tm['plain_ms']:.4f} ms, "
+          f"index_add_ device {tm['library_ms']:.5f} ms, call "
+          f"{tm['library_call_ms']:.4f} ms (max |index_add_ - plain| "
+          f"{lib_err:.2e}), bound {tm['bound_ms']:.5f} ms "
+          f"({tm['bound_by']}) ({card})", flush=True)
+    return tm
 
 
 def lane_weights(fixed, cands, ks, dev):
@@ -690,15 +820,14 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     import numpy as np
     import torch
 
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
     from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
                                                split_edges)
     from mac_tpu_torch.solvers import MAC, NaiveGreedy
     from mac_tpu_torch.utils.fiedler import scipy_lam2
 
     def reset():
-        for kern in counted:
-            kern.launches = 0
-            kern.launches_by_lanes = {}
+        reset_counts(*counted)
 
     def by_lanes():
         return {kern.__name__: dict(kern.launches_by_lanes)
@@ -809,33 +938,44 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
              f"{REFERENCE_LAM2_SCALE} (1 - 1e-3)")
     part_s.append(time.perf_counter() - t8)
 
-    # (c) kitti_05 on the float64 device engine: the plain scans, no kernel.
+    # (c) kitti_05 on the float64 device engine: K1's float64
+    # instantiation, then the same sweep on the plain scans (what this part
+    # ran before that kernel existed) for comparison.
     t8 = time.perf_counter()
     meas, n_k = read_g2o_file(str(dataset.parent / "kitti_05.g2o"))
     fixed_k, cands_k = split_edges(rpm_to_mac(meas))
     mac_k = MAC(fixed_k, cands_k, n_k)
     ks_k = [6, 33]
     reset()
-    (r_k, u_k, up_k), dt_k = timed(lambda: mac_k.solve_sweep(ks_k))
-    got_k = {kern.__name__: kern.launches for kern in counted}
+    with PlainOnCard() as plain_k:
+        (r_k, u_k, up_k), dt_k = timed(lambda: mac_k.solve_sweep(ks_k))
+    got_k = by_dtype(counted)
+    with PlainScans():
+        (_, u_ks, _), dt_ks = timed(lambda: mac_k.solve_sweep(ks_k))
     lam_k = [scipy_lam2(mac_k.laplacian(u)) for u in u_k]
+    lam_ks = [scipy_lam2(mac_k.laplacian(u)) for u in u_ks]
     lam_h = [scipy_lam2(mac_k.laplacian(mac_k.solve(k)[1])) for k in ks_k]
     rel_k = [(a - b) / b for a, b in zip(lam_k, lam_h)]
     print(f"8c kitti_05 sweep (n {n_k}, budgets {ks_k}; dtype "
           f"{str(mac_k.dtype).split('.')[-1]}, routed to the "
           f"{mac_k.fiedler_backend} engine for solve, the device engine for "
-          f"the sweep, precond {mac_k.fiedler_precond}): {dt_k:.3f} s; "
-          f"relaxed lambda_2 sweep (5 steps) {[f'{v:.12g}' for v in lam_k]}, "
-          f"host solve (20 steps) {[f'{v:.12g}' for v in lam_h]}, relative "
+          f"the sweep, precond {mac_k.fiedler_precond}): {dt_k:.3f} s "
+          f"(on the plain scans {dt_ks:.3f} s); relaxed lambda_2 sweep (5 "
+          f"steps) {[f'{v:.12g}' for v in lam_k]}, on the plain scans "
+          f"{[f'{v:.12g}' for v in lam_ks]}, host solve (20 steps) "
+          f"{[f'{v:.12g}' for v in lam_h]}, relative "
           f"{[f'{v:+.2e}' for v in rel_k]}; upper "
-          f"{[f'{v:.12g}' for v in up_k]}; kernel launches {got_k} "
-          f"({card})", flush=True)
+          f"{[f'{v:.12g}' for v in up_k]}; kernel launches by dtype {got_k}"
+          f", plain versions on the card {plain_k.calls} ({card})",
+          flush=True)
     if (mac_k.dtype, mac_k.device.type) != (torch.float64, "cuda"):
         fail("8c: kitti_05 is not a float64 instance on the card")
     if [int(r.sum()) for r in r_k] != ks_k:
         fail(f"8c: rounded {[r.sum() for r in r_k]}, want {ks_k}")
-    if any(got_k.values()):
-        fail(f"8c: the float64 sweep launched kernels: {got_k}")
+    if (got_k["tridiag_solve"].get("float64", 0) <= 0 or plain_k.calls
+            or any(v.get("float32", 0) for v in got_k.values())):
+        fail(f"8c: the float64 sweep did not run K1's float64 "
+             f"instantiation alone: {got_k}, plain {plain_k.calls}")
     if not all(v >= -1e-2 for v in rel_k):
         fail(f"8c: a lane's relaxed lambda_2 is below the host solve's "
              f"(1 - 1e-2): {rel_k}")
@@ -1071,6 +1211,337 @@ def mesh_phase(card, dataset, synth5, walls):
             dist.destroy_process_group()
 
 
+def float64_phase(dev, card, dataset, synth5, counted):
+    """Phase 10, float64 and the remaining methods, every gate fatal: (a)
+    the float64 instantiations of K1, K1b and K2/K2b against their plain
+    versions at phase 3's shapes, timed; (b) MAC(..., use_banded=True,
+    dtype=torch.float64) on city10000 and sphere2500 at full size; (c)
+    LOBPCG on city10000's banded float32 operator; (d) the dense eigh on a
+    banded n = 600 graph; (f) the n = 100000 expander of phase 5 in
+    float64 (the V-cycle through K1b's float64 instantiation). Phase 8c is
+    the float64 sweep (e). `counted` are the kernel wrappers. Returns the
+    float64 kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import banded, laplacian
+    from mac_tpu_torch.ops.kernels.assemble import (assemble_ut,
+                                                    assemble_ut_plain)
+    from mac_tpu_torch.ops.kernels.tridiag import (
+        reset_counts, tridiag_solve, tridiag_solve_blocked,
+        tridiag_solve_blocked_plain, tridiag_solve_plain)
+    from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_auto,
+                                           tridiag_ldl_blocked)
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import MAC, NaiveGreedy
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    f64 = torch.float64
+    part_s = {}
+
+    def randn(shape, seed):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            seed), dtype=f64).to(dev)
+
+    def chain(n, seed):
+        rng = np.random.RandomState(seed)
+        e = -(0.5 + rng.rand(n - 1))
+        d = (0.1 + rng.rand(n) - np.concatenate([[0], e])
+             - np.concatenate([e, [0]]))
+        return (torch.as_tensor(d, dtype=f64, device=dev),
+                torch.as_tensor(e, dtype=f64, device=dev))
+
+    def check(kern, plain, f, B, label, **kw):
+        got = kern(f.dp, f.l, B, **kw)
+        ref = plain(f.dp, f.l, B, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = (got.dtype == f64 and bool(torch.isfinite(got).all())
+              and torch.allclose(got, ref, rtol=F64_TOL, atol=F64_TOL))
+        print(f"{kern.__name__} float64 {label}: max|kernel - plain| "
+              f"{err:.3e} (max|X| {float(ref.abs().max()):.3e}) -> "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{kern.__name__}'s float64 kernel disagrees with its plain "
+                 f"version on {label} (rtol/atol {F64_TOL})")
+        return err
+
+    def times(kern, plain, f, B, n, q):
+        tm = {"device_ms": device_ms(lambda: kern(f.dp, f.l, B)),
+              "call_ms": call_ms(lambda: kern(f.dp, f.l, B)),
+              "plain_ms": call_ms(lambda: plain(f.dp, f.l, B))}
+        tm["bound_ms"], tm["bound_by"] = tridiag_bound(n, q, itemsize=8)
+        print(f"{kern.__name__} float64 time at ({n}, {q}): kernel device "
+              f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, "
+              f"plain call {tm['plain_ms']:.4f} ms, bound "
+              f"{tm['bound_ms']:.5f} ms ({tm['bound_by']}) ({card})",
+              flush=True)
+        return tm
+
+    # (a) the float64 kernels against their plain versions.
+    t10 = time.perf_counter()
+    (_, n, fixed, cands, k, x_init, bop, w, _, _, _) = dataset_inputs(dev)
+    w64 = w.double()
+    fac = banded.chain_factor(bop, banded.assemble_bd(bop, w64), w64)
+    B = randn((n, 4), 0)
+    k1 = {"max_abs_err": check(tridiag_solve, tridiag_solve_plain, fac, B,
+                               f"city10000's chain factor ({n}, 4)")}
+    limit = k1_whole_row_limit(4, 8)
+    d, e = chain(limit + 1, 1)
+    for rows in (limit, limit + 1):
+        f_ex = tridiag_ldl(d[:rows], e[:rows - 1])
+        k1["max_abs_err"] = max(k1["max_abs_err"], check(
+            tridiag_solve, tridiag_solve_plain, f_ex, randn((rows, 4), rows),
+            f"exact factor ({rows}, 4), "
+            f"{'whole rows' if rows == limit else 'tiled'}"))
+    f_5k = tridiag_ldl(d[:5000], e[:4999])
+    k1["max_abs_err"] = max(k1["max_abs_err"], check(
+        tridiag_solve, tridiag_solve_plain, f_5k, randn((5000, 200), 2),
+        "exact factor (5000, 200)"))
+    k1.update(times(tridiag_solve, tridiag_solve_plain, fac, B, n, 4))
+
+    fi5, wf5, ci5, wc5 = synth5
+    k5 = len(wc5) // 4
+    x5 = np.zeros(len(wc5))
+    x5[np.argpartition(wc5, -k5)[-k5:]] = 1.0
+    op5 = laplacian.build_operator(np.concatenate([fi5, ci5]),
+                                   SCALE_N).to(dev)
+    w5 = torch.as_tensor(np.concatenate([wf5, x5 * wc5]), dtype=f64,
+                         device=dev)
+    d5, e5 = laplacian.lap_tridiagonal_part(op5, w5)
+    f5 = tridiag_ldl_auto(d5 + 100 * torch.finfo(f64).eps * d5.max(), e5)
+    if f5.seg != 1024:
+        fail(f"the float64 n = {SCALE_N} chain factor has seg {f5.seg}")
+    B5 = randn((SCALE_N, 4), 3)
+    k1b = {"max_abs_err": check(
+        tridiag_solve_blocked, tridiag_solve_blocked_plain, f5, B5,
+        f"two-grid chain factor ({SCALE_N}, 4, seg 1024)")}
+    flat = torch.empty(B5.numel() + 1, dtype=f64, device=dev)
+    flat[1:] = B5.reshape(-1)
+    B5m = flat[1:].view(B5.shape)
+    if B5m.data_ptr() % 16 != 8 or not B5m.is_contiguous():
+        fail("the misaligned float64 right-hand side is not 8 bytes off")
+    k1b["max_abs_err"] = max(k1b["max_abs_err"], check(
+        tridiag_solve_blocked, tridiag_solve_blocked_plain, f5, B5m,
+        f"two-grid chain factor, B 8 bytes off a 16-byte boundary "
+        f"({SCALE_N}, 4)"))
+    d_b, e_b = chain(40000, 4)
+    k1b["max_abs_err"] = max(k1b["max_abs_err"], check(
+        tridiag_solve_blocked, tridiag_solve_blocked_plain,
+        tridiag_ldl_blocked(d_b, e_b, block=1024), randn((40000, 8), 5),
+        "blocked factor (40000, 8, seg 1024)"))
+    k1b.update(times(tridiag_solve_blocked, tridiag_solve_blocked_plain, f5,
+                     B5, SCALE_N, 4))
+
+    (_, _, fixed_sp, cands_sp, _, _, bop_sp, w_sp, _, _,
+     _) = dataset_inputs(dev, "sphere2500")
+    k2 = {}
+    for key, label, b_, w_ in (
+            ("K2b", "city10000 (split)", bop, w64),
+            ("K2", "sphere2500 (no split)", bop_sp, w_sp.double())):
+        args = k2_args(b_, w_)
+        got = assemble_ut(*args)
+        ref = assemble_ut_plain(*args)
+        torch.cuda.synchronize()
+        same = got.dtype == f64 and torch.equal(got, ref)
+        print(f"assemble_ut float64 {label}: shape {tuple(got.shape)}, "
+              f"max|kernel - plain| {float((got - ref).abs().max()):.3e} -> "
+              f"{'bitwise equal' if same else 'MISMATCH'}", flush=True)
+        if not same:
+            fail(f"assemble_ut's float64 kernel differs from its plain "
+                 f"version on {label}")
+        k2[key] = dict(k2_times(args, f"{key} float64 time at {label}",
+                                card), max_abs_err=0.0)
+    part_s["a"] = time.perf_counter() - t10
+
+    # (b) the banded operator in float64, through the user's entry point.
+    t10 = time.perf_counter()
+    launches_b = {}
+    for name, ref_lam in (("city10000", REFERENCE_LAM2_UNROUNDED),
+                          ("sphere2500", BUNDLED["sphere2500"][0])):
+        meas, n_ = read_g2o_file(str(dataset.parent / f"{name}.g2o"))
+        fixed_, cands_ = split_edges(rpm_to_mac(meas))
+        k_ = len(cands_) // 2
+        x_ = NaiveGreedy(cands_).subset(k_)
+        mac = MAC(fixed_, cands_, n_, use_banded=True, dtype=f64,
+                  device="cuda")
+        if (mac._banded is None or mac.fw_polish or mac.round_guard
+                or (mac.fiedler_tol, mac.fiedler_maxiter,
+                    mac.fiedler_inner_iters) != (1e-8, 200, 16)):
+            fail(f"10b {name}: not the banded float64 route with the "
+                 f"reference's conservative knobs")
+        split = mac._banded.ov_rows > 0
+        reset_counts(*counted)
+        walls = []
+        with PlainOnCard() as plain:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r_, u_, up_ = mac.solve(k_, x_, max_iters=20)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        got = by_dtype(counted)
+        launches_b[name] = got
+        if name == "city10000":
+            busy, kernels_n, top = profiled_busy(
+                lambda: mac.solve(k_, x_, max_iters=20))
+            print(f"10b city10000 banded float64, one profiled warm solve: "
+                  f"device busy {busy:.3f} ms over {kernels_n} kernels and "
+                  f"copies (the unprofiled warm wall {walls[1]:.4f} s); "
+                  f"largest {[(round(ms, 3), c, nm) for ms, c, nm in top]} "
+                  f"({card})", flush=True)
+        lam = scipy_lam2(mac.laplacian(u_))
+        gap = (lam - ref_lam) / ref_lam
+        print(f"10b {name} banded float64 (n {n_}, K {k_}, max_iters=20, "
+              f"x_init NaiveGreedy; assembly form "
+              f"{'K2b (split)' if split else 'K2 (no split)'}): cold "
+              f"{walls[0]:.4f} s, warm {walls[1]:.4f} s ({card}); relaxed "
+              f"lambda_2 (scipy) {lam:.17g}, reference {ref_lam:.17g}, "
+              f"relative gap {gap:+.3e}; upper {up_:.17g}; rounded "
+              f"{int(r_.sum())}; last_solve_stats {mac.last_solve_stats}; "
+              f"kernel launches by dtype {got}; plain versions on the card "
+              f"{plain.calls}", flush=True)
+        if (got["assemble_ut"].get("float64", 0) <= 0
+                or got["tridiag_solve"].get("float64", 0) <= 0):
+            fail(f"10b {name}: K2/K2b or K1 float64 never launched: {got}")
+        if any(v.get("float32", 0) for v in got.values()) or plain.calls:
+            fail(f"10b {name}: a block left the float64 kernels: {got}, "
+                 f"plain {plain.calls}")
+        if (name == "city10000") != split:
+            fail(f"10b {name}: assembly form split={split}")
+        if int(r_.sum()) != k_ or set(np.unique(r_)) - {0.0, 1.0}:
+            fail(f"10b {name}: rounded {r_.sum()} edges, want {k_}")
+        if not (np.isfinite(lam) and up_ >= lam * (1 - 1e-9)):
+            fail(f"10b {name}: upper {up_} below the relaxed {lam}")
+        if not gap >= GAP_FLOOR_F64:
+            fail(f"10b {name}: relaxed gap {gap:+.3e} below "
+                 f"{GAP_FLOOR_F64}")
+    part_s["b"] = time.perf_counter() - t10
+
+    # (c) LOBPCG on city10000's banded float32 operator (fast32 policy).
+    t10 = time.perf_counter()
+    meas, n_c = read_g2o_file(str(dataset))
+    fixed_c, cands_c = split_edges(rpm_to_mac(meas))
+    mac_c = MAC(fixed_c, cands_c, n_c, fiedler_method="lobpcg",
+                device="cuda")
+    if mac_c._banded is None or mac_c.dtype != torch.float32:
+        fail("10c: city10000 with LOBPCG left the banded float32 route")
+    reset_counts(*counted)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_c, u_c, up_c = mac_c.solve(k, x_init)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    got_c = by_dtype(counted)
+    lam_c = scipy_lam2(mac_c.laplacian(u_c))
+    gap_c = (lam_c - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED
+    print(f"10c city10000 LOBPCG, banded float32: cold {walls[0]:.4f} s, "
+          f"warm {walls[1]:.4f} s ({card}); relaxed lambda_2 (scipy) "
+          f"{lam_c:.12g}, relative gap {gap_c:+.3e}; upper {up_c:.12g}; "
+          f"rounded {int(r_c.sum())}; last_solve_stats "
+          f"{mac_c.last_solve_stats}; launches by dtype {got_c}", flush=True)
+    if int(r_c.sum()) != k or not gap_c >= GAP_FLOOR:
+        fail(f"10c: rounded {r_c.sum()} (want {k}), gap {gap_c:+.3e} "
+             f"(floor {GAP_FLOOR})")
+    if (got_c["tridiag_solve"].get("float32", 0) <= 0
+            or got_c["assemble_ut"].get("float32", 0) <= 0):
+        fail(f"10c: K1 or K2b never launched: {got_c}")
+    part_s["c"] = time.perf_counter() - t10
+
+    # (d) the dense eigh on a banded n = 600 graph, three steps.
+    t10 = time.perf_counter()
+    idx_d, w_d, n_d = pose_graph(600, 110, 9, 11)
+    fixed_d = (idx_d[:n_d - 1], w_d[:n_d - 1])
+    cands_d = (idx_d[n_d - 1:], w_d[n_d - 1:])
+    k_d = len(cands_d[1]) // 2
+    mac_d = MAC(fixed_d, cands_d, n_d, use_banded=True, dtype=torch.float32,
+                fiedler_method="dense", device="cuda")
+    reset_counts(*counted)
+    r_d, u_d, up_d = mac_d.solve(k_d, max_iters=3)
+    got_d = by_dtype(counted)
+    print(f"10d dense eigh on the banded operator (n {n_d}, K {k_d}, 3 "
+          f"steps): rounded {int(r_d.sum())}, relaxed lambda_2 (scipy) "
+          f"{scipy_lam2(mac_d.laplacian(u_d)):.9g}, upper {up_d:.9g}; "
+          f"launches by dtype {got_d} ({card})", flush=True)
+    if (mac_d._banded is None or int(r_d.sum()) != k_d
+            or not (np.all(np.isfinite(u_d)) and np.isfinite(up_d))):
+        fail(f"10d: banded {mac_d._banded is not None}, rounded "
+             f"{r_d.sum()} (want {k_d}), upper {up_d}")
+    part_s["d"] = time.perf_counter() - t10
+
+    # (f) the n = 100000 expander in float64: the V-cycle through K1b.
+    t10 = time.perf_counter()
+    mac_f = MAC((fi5, wf5), (ci5, wc5), SCALE_N, dtype=f64,
+                fiedler_inner_iters=10, fiedler_maxiter=60,
+                fiedler_tol=6e-4, device="cuda")
+    if mac_f._banded is not None or mac_f.op.mode != "ell":
+        fail("10f: the float64 expander left the ELL route")
+    reset_counts(*counted)
+    with PlainOnCard() as plain_f:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_f, u_f, up_f = mac_f.solve(k5, x5, max_iters=2)
+        torch.cuda.synchronize()
+        wall_f = time.perf_counter() - t0
+        lam_f = mac_f.evaluate_objective(u_f)
+    got_f = by_dtype(counted)
+    print(f"10f n = {SCALE_N} expander in float64 (ELL, precond "
+          f"{mac_f.fiedler_precond}, max_iters=2): solve {wall_f:.3f} s "
+          f"({card}); evaluate_objective {lam_f:.12g} (the reference's "
+          f"{REFERENCE_LAM2_SCALE:.12g} after its own 10 steps); upper "
+          f"{up_f:.12g}; rounded {int(r_f.sum())}; last_solve_stats "
+          f"{mac_f.last_solve_stats}; launches by dtype {got_f}; plain "
+          f"versions on the card {plain_f.calls}", flush=True)
+    if (got_f["tridiag_solve_blocked"].get("float64", 0) <= 0
+            or plain_f.calls
+            or any(v.get("float32", 0) for v in got_f.values())):
+        fail(f"10f: the V-cycle did not run K1b's float64 instantiation "
+             f"alone: {got_f}, plain {plain_f.calls}")
+    if int(r_f.sum()) != k5 or not (np.isfinite(lam_f)
+                                     and up_f >= lam_f * (1 - 1e-6)):
+        fail(f"10f: rounded {r_f.sum()} (want {k5}), lambda_2 {lam_f}, "
+             f"upper {up_f}")
+    part_s["f"] = time.perf_counter() - t10
+    print("phase 10 wall by part: " + ", ".join(
+        f"({p}) {v:.3f} s" for p, v in part_s.items()), flush=True)
+
+    def entry(name, source, replaces, shape, tm, launches, path):
+        return {"name": name, "dtype": "float64", "route": "cuda",
+                "source": f"mac_tpu_torch/csrc/{source}",
+                "replaces": replaces, "shape": shape, "launches": launches,
+                "launches_path": path, "max_abs_err": tm["max_abs_err"],
+                "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+                "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm.get("library_ms")}
+
+    city, sphere = launches_b["city10000"], launches_b["sphere2500"]
+    return [
+        entry("tridiag_solve_f64", "tridiag.cu",
+              "mac_tpu/ops/pallas/tridiag_kernel.py:44",
+              f"({n}, 4), city10000's chain factor", k1,
+              city["tridiag_solve"].get("float64", 0)
+              + sphere["tridiag_solve"].get("float64", 0),
+              "phase 10b (city10000 and sphere2500, 2 solves each)"),
+        entry("tridiag_solve_blocked_f64", "tridiag.cu",
+              "mac_tpu/ops/pallas/tridiag_kernel.py:107",
+              f"({SCALE_N}, 4), the two-grid chain factor", k1b,
+              got_f["tridiag_solve_blocked"].get("float64", 0), "phase 10f"),
+        entry("assemble_ut_f64", "assemble.cu",
+              "mac_tpu/ops/pallas/assemble_kernel.py:61",
+              "city10000 tables (K2b form)", k2["K2b"],
+              city["assemble_ut"].get("float64", 0), "phase 10b city10000"),
+        entry("assemble_ut_f64", "assemble.cu",
+              "mac_tpu/ops/pallas/assemble_kernel.py:49",
+              "sphere2500 tables (K2 form, no split)", k2["K2"],
+              sphere["assemble_ut"].get("float64", 0),
+              "phase 10b sphere2500"),
+    ]
+
+
 def main():
     import numpy as np
     import torch
@@ -1092,8 +1563,8 @@ def main():
     from mac_tpu_torch.ops.kernels import _build
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
-        tridiag_solve, tridiag_solve_blocked, tridiag_solve_blocked_plain,
-        tridiag_solve_plain)
+        reset_counts, tridiag_solve, tridiag_solve_blocked,
+        tridiag_solve_blocked_plain, tridiag_solve_plain)
     from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_auto,
                                            tridiag_ldl_blocked)
     from mac_tpu_torch.slam.pose_graph import read_g2o_file, rpm_to_mac, split_edges
@@ -1229,34 +1700,9 @@ def main():
         if not same:
             fail(f"assemble_ut kernel differs from its plain version on {label}")
 
-    def k2_times(args, label):
-        """Kernel, plain and library times and the bound of one assembly."""
-        dcol_, wu_, ocol_, olane_, ow_, half_, nb_ = args
-        BS = banded.BS
-        lanes = wu_.shape[0] if wu_.dim() == 3 else 1
-        library = index_add_assembly(args)
-        lib_err = float((library() - assemble_ut_plain(*args)).abs().max())
-        tm = {"device_ms": device_ms(lambda: assemble_ut(*args)),
-              "call_ms": call_ms(lambda: assemble_ut(*args)),
-              "plain_ms": call_ms(lambda: assemble_ut_plain(*args)),
-              "library_ms": device_ms(library),
-              "library_call_ms": call_ms(library)}
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (dcol_, wu_, ocol_, olane_, ow_)) \
-            + 4.0 * lanes * (half_ + 1) * nb_ * BS * BS
-        tm["bound_ms"], tm["bound_by"] = bound(nbytes,
-                                               wu_.numel() + ow_.numel())
-        print(f"{label}: kernel device {tm['device_ms']:.5f} ms, call "
-              f"{tm['call_ms']:.4f} ms, plain call {tm['plain_ms']:.4f} ms, "
-              f"index_add_ device {tm['library_ms']:.5f} ms, call "
-              f"{tm['library_call_ms']:.4f} ms (max |index_add_ - plain| "
-              f"{lib_err:.2e}), bound {tm['bound_ms']:.5f} ms "
-              f"({tm['bound_by']}) ({card})", flush=True)
-        return tm
-
     k2_tm = k2_times(k2_args(bop_sp, w_sp),
-                     "K2 time at sphere2500 (no split)")
-    k2b_tm = k2_times(k2_args(bop, w), "K2b time at city10000")
+                     "K2 time at sphere2500 (no split)", card)
+    k2b_tm = k2_times(k2_args(bop, w), "K2b time at city10000", card)
 
     # The lane forms of the budget sweep (phase 8): K1 on city10000's chain
     # factors of its 8 budget lanes (a factor per lane), K2b on its tables
@@ -1299,9 +1745,9 @@ def main():
             fail(f"assemble_ut kernel differs from its plain version on "
                  f"{label}")
     k2b8_tm = k2_times(lane_args["K2b_lanes"],
-                       "K2b time at city10000, 8 lanes")
+                       "K2b time at city10000, 8 lanes", card)
     k2sp2_tm = k2_times(lane_args["K2_lanes"],
-                        "K2 time at sphere2500, 2 lanes")
+                        "K2 time at sphere2500, 2 lanes", card)
 
     # ---- 3c. K1b against its plain version on the card
     phase("3c K1b against its plain version")
@@ -1641,23 +2087,23 @@ def main():
     cands_d = [Edge(0, 5, 1.0), Edge(half_d, half_d + 9, 1.0),
                Edge(2, 30, 1.0)]
     mac_d = MAC(fixed_d, cands_d, n_d)
-    for kern in counted:
-        kern.launches = 0
+    reset_counts(*counted)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r_d, u_d, up_d = mac_d.solve(2)
-    obj_d = mac_d.evaluate_objective(u_d)
+    with PlainOnCard() as plain_d:
+        r_d, u_d, up_d = mac_d.solve(2)
+        obj_d = mac_d.evaluate_objective(u_d)
     torch.cuda.synchronize()
     disc_s = time.perf_counter() - t0
-    got_d = {kern.__name__: kern.launches for kern in counted}
+    got_d = by_dtype(counted)
     print(f"disconnected graph (n {n_d}): dtype "
           f"{str(mac_d.dtype).split('.')[-1]}, fiedler_backend "
           f"{mac_d.fiedler_backend}, device {mac_d.device}, precond "
           f"{mac_d.fiedler_precond}; solve(2) and evaluate_objective "
           f"{disc_s:.3f} s ({card}); selected {int(r_d.sum())}, upper "
           f"{up_d:.3e}, evaluate_objective {obj_d:.3e}; last_solve_stats "
-          f"{mac_d.last_solve_stats}; kernel launches {got_d} (float64: "
-          f"none)", flush=True)
+          f"{mac_d.last_solve_stats}; kernel launches by dtype {got_d}, "
+          f"plain versions on the card {plain_d.calls}", flush=True)
     if (mac_d.fiedler_backend, mac_d.dtype, mac_d.device.type) != (
             "device", torch.float64, "cuda"):
         fail("the disconnected graph left the float64 device engine")
@@ -1665,8 +2111,10 @@ def main():
         fail(f"disconnected graph: selected {r_d.sum()}, upper {up_d}")
     if not (np.isfinite(obj_d) and abs(obj_d) < 1e-8):
         fail(f"disconnected graph: evaluate_objective {obj_d}, want 0")
-    if any(got_d.values()):
-        fail(f"the float64 solve launched kernels: {got_d}")
+    if (got_d["tridiag_solve"].get("float64", 0) <= 0 or plain_d.calls
+            or any(v.get("float32", 0) for v in got_d.values())):
+        fail(f"the float64 solve did not run its chain solves through K1's "
+             f"float64 instantiation alone: {got_d}, plain {plain_d.calls}")
 
     # ---- 7. the greedy baselines
     phase("7 baselines")
@@ -1683,6 +2131,11 @@ def main():
         card, dataset, ((fi5, wf5, ci5, wc5), k5, x5),
         {"city10000": statistics.median(times[1:]),
          "sphere2500": bundled_walls["sphere2500"], "scale": path_s[1]})
+
+    # ---- 10. float64 and the remaining methods
+    phase("10 float64 and the remaining methods")
+    f64_kernels = float64_phase(dev, card, dataset, (fi5, wf5, ci5, wc5),
+                                counted)
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -1774,7 +2227,7 @@ def main():
                    "mac_tpu/ops/pallas/tridiag_kernel.py:107",
                    f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
                    lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
-    ]
+    ] + f64_kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,11 @@
 // (R, half+1, nb, 128, 128) gain a leading lane dimension; the slot tables
 // dcol, ocol and olane are shared by every lane. The grid is (nb, half+1,
 // R), one tile per block as before; R = 1 is the single assembly.
+//
+// Float64 (the banded operator of a float64 solve) is the same kernel with
+// 8-byte elements: a 128 x 128 tile of 128 KB, one block per SM, and the
+// same bulk store of the whole tile; bitwise equal to the plain version
+// for the same reason.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,17 +54,25 @@
 namespace {
 
 constexpr int kBS = 128;
-constexpr int kTileBytes = kBS * kBS * sizeof(float);  // 64 KB
 constexpr int kChunk = 8;  // dense slots whose loads are in flight together
 
+// T is float (64 KB tiles) or double (128 KB tiles, above the default
+// dynamic shared-memory limit, set at the first launch; one block per SM).
+template <typename T>
+__host__ __device__ constexpr int tile_bytes() {
+  return kBS * kBS * static_cast<int>(sizeof(T));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kBS)
-assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
+assemble_ut_kernel(const int* __restrict__ dcol, const T* __restrict__ wu,
                    int du, const int* __restrict__ ocol,
-                   const int* __restrict__ olane, const float* __restrict__ ow,
-                   int ov, float* __restrict__ ut, int nb) {
-  extern __shared__ __align__(128) float tile[];  // tile[c * 128 + r]
-  __shared__ int s_lane[kBS], s_col[kBS];         // one round of overflow
-  __shared__ float s_w[kBS];
+                   const int* __restrict__ olane, const T* __restrict__ ow,
+                   int ov, T* __restrict__ ut, int nb) {
+  extern __shared__ __align__(128) unsigned char tile_raw[];
+  T* tile = reinterpret_cast<T*>(tile_raw);  // tile[c * 128 + r]
+  __shared__ int s_lane[kBS], s_col[kBS];    // one round of overflow
+  __shared__ T s_w[kBS];
   const int b = blockIdx.x;
   const int t = blockIdx.y;
   const int r = threadIdx.x;
@@ -75,13 +88,13 @@ assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
   // Loads first, so that their latency overlaps the zeroing: a round of
   // kChunk dense slots of lane r, and the block's first kBS overflow entries.
   int col[kChunk];
-  float val[kChunk];
+  T val[kChunk];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) {
       const int k = k0 + u;
       col[u] = k < du ? dcol[k * n_pad + node] - lo : -1;
-      val[u] = k < du ? wu[k * n_pad + node] : 0.0f;
+      val[u] = k < du ? wu[k * n_pad + node] : T(0);
     }
   };
   auto stage = [&](int o0) {
@@ -94,9 +107,9 @@ assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
   };
   fetch(0);
   stage(0);
-  float4* tile4 = reinterpret_cast<float4*>(tile);
-  for (int i = r; i < kBS * kBS / 4; i += kBS)
-    tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  uint4* tile16 = reinterpret_cast<uint4*>(tile_raw);  // 16-byte zeroing
+  for (int i = r; i < tile_bytes<T>() / 16; i += kBS)
+    tile16[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
   for (int k0 = 0; k0 < du; k0 += kChunk) {
@@ -122,39 +135,56 @@ assemble_ut_kernel(const int* __restrict__ dcol, const float* __restrict__ wu,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   if (r == 0) {
-    float* dst = ut + ((size_t)t * nb + b) * kBS * kBS;
-    const uint32_t src = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+    T* dst = ut + ((size_t)t * nb + b) * kBS * kBS;
+    const uint32_t src =
+        static_cast<uint32_t>(__cvta_generic_to_shared(tile_raw));
     asm volatile(
         "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        :: "l"(dst), "r"(src), "r"(kTileBytes) : "memory");
+        :: "l"(dst), "r"(src), "r"(tile_bytes<T>()) : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     // The block's shared memory must outlive the copy's reads of it.
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
-}  // namespace
-
-// dcol: (du, nb*128) int32; wu: (lanes, du, nb*128) float32; ocol, olane:
-// (ov, nb) int32; ow: (lanes, ov, nb) float32; ut: (lanes, half+1, nb, 128,
-// 128) float32, 16-byte aligned. All row-major and contiguous; the overflow
-// pointers are unused when ov = 0. Launches on `stream` and returns the
-// first CUDA error of the shared-memory attribute or the launch (0 on
-// success).
-extern "C" int assemble_ut_f32(const int* dcol, const float* wu, int du,
-                               const int* ocol, const int* olane,
-                               const float* ow, int ov, float* ut, int half,
-                               int nb, int lanes, void* stream) {
+template <typename T>
+int assemble_launch(const int* dcol, const T* wu, int du, const int* ocol,
+                    const int* olane, const T* ow, int ov, T* ut, int half,
+                    int nb, int lanes, void* stream) {
   if (nb <= 0 || half < 0 || lanes <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(ut) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      assemble_ut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTileBytes);
+      assemble_ut_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_bytes<T>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(nb, half + 1, lanes);
-  assemble_ut_kernel<<<grid, kBS, kTileBytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  assemble_ut_kernel<T><<<grid, kBS, tile_bytes<T>(),
+                          static_cast<cudaStream_t>(stream)>>>(
       dcol, wu, du, ocol, olane, ow, ov, ut, nb);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dcol: (du, nb*128) int32; wu: (lanes, du, nb*128) float32 (_f32) or
+// float64 (_f64); ocol, olane: (ov, nb) int32; ow: (lanes, ov, nb) and ut:
+// (lanes, half+1, nb, 128, 128) of wu's type, ut 16-byte aligned. All
+// row-major and contiguous; the overflow pointers are unused when ov = 0.
+// Launches on `stream` and returns the first CUDA error of the
+// shared-memory attribute or the launch (0 on success).
+extern "C" int assemble_ut_f32(const int* dcol, const float* wu, int du,
+                               const int* ocol, const int* olane,
+                               const float* ow, int ov, float* ut, int half,
+                               int nb, int lanes, void* stream) {
+  return assemble_launch(dcol, wu, du, ocol, olane, ow, ov, ut, half, nb,
+                         lanes, stream);
+}
+
+extern "C" int assemble_ut_f64(const int* dcol, const double* wu, int du,
+                               const int* ocol, const int* olane,
+                               const double* ow, int ov, double* ut, int half,
+                               int nb, int lanes, void* stream) {
+  return assemble_launch(dcol, wu, du, ocol, olane, ow, ov, ut, half, nb,
+                         lanes, stream);
 }

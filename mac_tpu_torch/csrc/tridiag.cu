@@ -9,6 +9,14 @@
 //     forward:  y_i = b_i - l_i * y_{i-1}           (y_{-1} = 0)
 //     backward: x_i = z_i - l_{i+1} * x_{i+1}       (x_n = 0), z = y / dp
 // and affine maps compose as (c2, v2) o (c1, v1) = (c2 c1, v2 + c2 v1).
+//
+// Both kernels are templates on the element type T and are exported twice:
+// float (the *_f32 entry points, the float32 routes) and double (*_f64, the
+// float64 routes: the banded operator in float64, the float64 ELL V-cycle,
+// GreedyESP's tridiagonal-part solves). The double instantiation is the
+// same design with 8-byte elements: K1's shared-memory tile holds half the
+// rows, K1b moves a row of four values as two 16-byte halves, and its
+// pivots' reciprocals are correctly rounded.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -24,14 +32,16 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Inclusive scan of affine maps across the 32 lanes of a warp.
 // reverse = false: lane i ends with map_i o ... o map_0;
 // reverse = true:  lane i ends with map_i o ... o map_31.
-__device__ __forceinline__ void warp_scan_maps(float& c, float& v, int lane,
+// T is float or double (a double shuffle is two 32-bit shuffles).
+template <typename T>
+__device__ __forceinline__ void warp_scan_maps(T& c, T& v, int lane,
                                                bool reverse) {
 #pragma unroll
   for (int k = 1; k < 32; k <<= 1) {
-    const float pc = reverse ? __shfl_down_sync(kFullMask, c, k)
-                             : __shfl_up_sync(kFullMask, c, k);
-    const float pv = reverse ? __shfl_down_sync(kFullMask, v, k)
-                             : __shfl_up_sync(kFullMask, v, k);
+    const T pc = reverse ? __shfl_down_sync(kFullMask, c, k)
+                         : __shfl_up_sync(kFullMask, c, k);
+    const T pv = reverse ? __shfl_down_sync(kFullMask, v, k)
+                         : __shfl_up_sync(kFullMask, v, k);
     const bool valid = reverse ? (lane + k < 32) : (lane >= k);
     if (valid) {
       v = v + c * pv;
@@ -42,17 +52,18 @@ __device__ __forceinline__ void warp_scan_maps(float& c, float& v, int lane,
 
 // The same scan over lanes cut into segments of `seg` lanes: a lane
 // composes only the maps of its own segment.
-__device__ __forceinline__ void warp_scan_maps_segmented(float& c, float& v,
-                                                         int lane, int seg,
+template <typename T>
+__device__ __forceinline__ void warp_scan_maps_segmented(T& c, T& v, int lane,
+                                                         int seg,
                                                          bool reverse) {
   const int s0 = (lane / seg) * seg;
   const int s1 = s0 + seg - 1;
 #pragma unroll
   for (int k = 1; k < 32; k <<= 1) {
-    const float pc = reverse ? __shfl_down_sync(kFullMask, c, k)
-                             : __shfl_up_sync(kFullMask, c, k);
-    const float pv = reverse ? __shfl_down_sync(kFullMask, v, k)
-                             : __shfl_up_sync(kFullMask, v, k);
+    const T pc = reverse ? __shfl_down_sync(kFullMask, c, k)
+                         : __shfl_up_sync(kFullMask, c, k);
+    const T pv = reverse ? __shfl_down_sync(kFullMask, v, k)
+                         : __shfl_up_sync(kFullMask, v, k);
     const bool valid = reverse ? (lane + k <= s1) : (lane - k >= s0);
     if (valid) {
       v = v + c * pv;
@@ -143,15 +154,17 @@ struct RowWalk {
   }
 };
 
-__device__ __forceinline__ void tile_in(float* s, int lds, const float* g,
-                                        int ld, int rows, int q) {
+template <typename T>
+__device__ __forceinline__ void tile_in(T* s, int lds, const T* g, int ld,
+                                        int rows, int q) {
   for (RowWalk e(q); e.r < rows; e.next())
     __pipeline_memcpy_async(s + e.c * lds + e.r,
-                            g + (long long)e.r * ld + e.c, sizeof(float));
+                            g + (long long)e.r * ld + e.c, sizeof(T));
 }
 
-__device__ __forceinline__ void tile_out(float* g, int ld, const float* s,
-                                         int lds, int rows, int q) {
+template <typename T>
+__device__ __forceinline__ void tile_out(T* g, int ld, const T* s, int lds,
+                                         int rows, int q) {
   for (RowWalk e(q); e.r < rows; e.next())
     g[(long long)e.r * ld + e.c] = s[e.c * lds + e.r];
 }
@@ -175,13 +188,11 @@ struct Columns {
 // (tc, tv)[col] get the tile's total map; and when acc_c is not null the
 // total is composed into (acc_c, acc_v): forward acc = tile o acc, backward
 // acc = acc o tile (tiles are walked first to last).
-template <bool kForward>
-__device__ void tile_compose(const float* sB, int lds, const float* sl,
-                             int rows, long long g0, int n, int q,
-                             Columns cols,
-                             float* xc, float* xv, float* tc, float* tv,
-                             float* acc_c, float* acc_v, float* wc,
-                             float* wv) {
+template <typename T, bool kForward>
+__device__ void tile_compose(const T* sB, int lds, const T* sl, int rows,
+                             long long g0, int n, int q, Columns cols, T* xc,
+                             T* xv, T* tc, T* tv, T* acc_c, T* acc_v, T* wc,
+                             T* wv) {
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int w = t >> 5;
@@ -196,17 +207,17 @@ __device__ void tile_compose(const float* sB, int lds, const float* sl,
   for (int pass = 0; pass < cols.npass; ++pass) {
     const int col = pass * cols.cpp + j;
     const bool live = j < cols.cpp && col < q;   // uniform across a warp
-    float c = 1.0f, v = 0.0f;
+    T c = T(1), v = T(0);
     if (live) {
       if (kForward) {
         for (int i = lo; i < hi; ++i) {
-          const float cf = (g0 + i == 0) ? 0.0f : -sl[i];
+          const T cf = (g0 + i == 0) ? T(0) : -sl[i];
           v = sB[col * lds + i] + cf * v;
           c = cf * c;
         }
       } else {
         for (int i = hi - 1; i >= lo; --i) {
-          const float cb = (g0 + i == n - 1) ? 0.0f : -sl[i + 1];
+          const T cb = (g0 + i == n - 1) ? T(0) : -sl[i + 1];
           v = sB[col * lds + i] + cb * v;
           c = cb * c;
         }
@@ -215,13 +226,13 @@ __device__ void tile_compose(const float* sB, int lds, const float* sl,
     warp_scan_maps(c, v, lane, !kForward);
     // The lanes before this one (in the substitution's order) within the
     // warp: the neighbour's inclusive map.
-    float nc = kForward ? __shfl_up_sync(kFullMask, c, 1)
+    T nc = kForward ? __shfl_up_sync(kFullMask, c, 1)
                         : __shfl_down_sync(kFullMask, c, 1);
-    float nv = kForward ? __shfl_up_sync(kFullMask, v, 1)
+    T nv = kForward ? __shfl_up_sync(kFullMask, v, 1)
                         : __shfl_down_sync(kFullMask, v, 1);
     if (lane == (kForward ? 0 : 31)) {
-      nc = 1.0f;
-      nv = 0.0f;
+      nc = T(1);
+      nv = T(0);
     }
     if (lane == (kForward ? 31 : 0)) {
       wc[w] = c;
@@ -229,8 +240,8 @@ __device__ void tile_compose(const float* sB, int lds, const float* sl,
     }
     __syncthreads();
     if (w == 0) {
-      float sc = lane < nw ? wc[lane] : 1.0f;
-      float sv = lane < nw ? wv[lane] : 0.0f;
+      T sc = lane < nw ? wc[lane] : T(1);
+      T sv = lane < nw ? wv[lane] : T(0);
       warp_scan_maps_segmented(sc, sv, lane, wpc, !kForward);
       if (lane < nw) {
         wc[lane] = sc;
@@ -241,13 +252,13 @@ __device__ void tile_compose(const float* sB, int lds, const float* sl,
     if (live) {
       // The warps before this one within the column.
       const bool first = kForward ? (w == seg0) : (w == seg0 + wpc - 1);
-      const float pc = first ? 1.0f : wc[kForward ? w - 1 : w + 1];
-      const float pv = first ? 0.0f : wv[kForward ? w - 1 : w + 1];
+      const T pc = first ? T(1) : wc[kForward ? w - 1 : w + 1];
+      const T pv = first ? T(0) : wv[kForward ? w - 1 : w + 1];
       xc[pass * blockDim.x + t] = nc * pc;
       xv[pass * blockDim.x + t] = nv + nc * pv;
       if (p == 0) {
         const int tw = kForward ? seg0 + wpc - 1 : seg0;
-        const float ttc = wc[tw], ttv = wv[tw];
+        const T ttc = wc[tw], ttv = wv[tw];
         tc[col] = ttc;
         tv[col] = ttv;
         if (acc_c != nullptr) {
@@ -268,12 +279,10 @@ __device__ void tile_compose(const float* sB, int lds, const float* sl,
 // Re-sweeps each thread's chunk from carry[col], the value entering the
 // tile, through the map tile_compose left in (xc, xv): forward writes
 // z_i = y_i / dp_i over b_i, backward x_i over z_i. No barrier.
-template <bool kForward>
-__device__ void tile_apply(float* sB, int lds, const float* sdp,
-                           const float* sl, int rows, long long g0, int n,
-                           int q, Columns cols,
-                           const float* xc, const float* xv,
-                           const float* carry) {
+template <typename T, bool kForward>
+__device__ void tile_apply(T* sB, int lds, const T* sdp, const T* sl,
+                           int rows, long long g0, int n, int q, Columns cols,
+                           const T* xc, const T* xv, const T* carry) {
   const int t = threadIdx.x;
   const int j = t / cols.P;
   const int p = t - j * cols.P;
@@ -284,16 +293,16 @@ __device__ void tile_apply(float* sB, int lds, const float* sdp,
     const int col = pass * cols.cpp + j;
     if (j >= cols.cpp || col >= q) continue;
     const int m = pass * blockDim.x + t;
-    float x = xv[m] + xc[m] * carry[col];
+    T x = xv[m] + xc[m] * carry[col];
     if (kForward) {
       for (int i = lo; i < hi; ++i) {
-        const float cf = (g0 + i == 0) ? 0.0f : -sl[i];
+        const T cf = (g0 + i == 0) ? T(0) : -sl[i];
         x = sB[col * lds + i] + cf * x;
         sB[col * lds + i] = x / sdp[i];
       }
     } else {
       for (int i = hi - 1; i >= lo; --i) {
-        const float cb = (g0 + i == n - 1) ? 0.0f : -sl[i + 1];
+        const T cb = (g0 + i == n - 1) ? T(0) : -sl[i + 1];
         x = sB[col * lds + i] + cb * x;
         sB[col * lds + i] = x;
       }
@@ -310,10 +319,9 @@ __device__ void tile_apply(float* sB, int lds, const float* sdp,
 // barrier that the kernel waits on before it exits (no block may leave
 // while another reads its shared memory), so that barrier's latency hides
 // behind the backward substitution.
-template <bool kForward>
-__device__ void exchange(cg::cluster_group& cluster, float* tot_c,
-                         float* tot_v, float* gc, float* gv, float* carry,
-                         int q) {
+template <typename T, bool kForward>
+__device__ void exchange(cg::cluster_group& cluster, T* tot_c, T* tot_v,
+                         T* gc, T* gv, T* carry, int q) {
   cluster.sync();
   const int rank = static_cast<int>(cluster.block_rank());
   const int nblk = static_cast<int>(cluster.num_blocks());
@@ -328,7 +336,7 @@ __device__ void exchange(cg::cluster_group& cluster, float* tot_c,
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   __syncthreads();
   for (int col = threadIdx.x; col < q; col += blockDim.x) {
-    float x = 0.0f;
+    T x = T(0);
     if (kForward) {
       for (int k = 0; k < rank; ++k)
         x = gv[k * q + col] + gc[k * q + col] * x;
@@ -344,12 +352,14 @@ __device__ void exchange(cg::cluster_group& cluster, float* tot_c,
 // B and X hold R lanes of (n, ld); the cluster at (blockIdx.y, blockIdx.z)
 // solves the column group of up to kMaxQ columns starting at column
 // kMaxQ * blockIdx.y of lane blockIdx.z, whose factor starts fstride
-// floats into dp and l per lane.
+// elements into dp and l per lane. T is float or double.
+template <typename T>
 __global__ void __launch_bounds__(kK1Threads)
-tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
-                     const float* __restrict__ B, float* X, int n, int ld,
+tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
+                     const T* __restrict__ B, T* X, int n, int ld,
                      int span, int tile_rows, long long fstride) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int j0 = kMaxQ * static_cast<int>(blockIdx.y);
   const int q = min(kMaxQ, ld - j0);  // this cluster's columns
@@ -367,22 +377,22 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
   cols.npass = (q + cols.cpp - 1) / cols.cpp;
 
   const int lds = tile_rows + 1;                     // odd
-  float* sB = smem;                                  // q * lds
-  float* sdp = sB + q * lds;                         // tile_rows
-  float* sl = sdp + tile_rows;                       // tile_rows + 1
-  float* wc = sl + tile_rows + 1;                    // 32
-  float* wv = wc + 32;                               // 32
-  float* xc = wv + 32;                               // npass * blockDim
-  float* xv = xc + cols.npass * blockDim.x;          // npass * blockDim
-  float* tc = xv + cols.npass * blockDim.x;          // q each below
-  float* tv = tc + q;
-  float* carry = tv + q;
-  float* fc = carry + q;                             // forward totals
-  float* fv = fc + q;
-  float* bc = fv + q;                                // backward totals
-  float* bv = bc + q;
-  float* gc = bv + q;                                // nblk * q each
-  float* gv = gc + cluster.num_blocks() * q;
+  T* sB = smem;                              // q * lds
+  T* sdp = sB + q * lds;                     // tile_rows
+  T* sl = sdp + tile_rows;                   // tile_rows + 1
+  T* wc = sl + tile_rows + 1;                // 32
+  T* wv = wc + 32;                           // 32
+  T* xc = wv + 32;                           // npass * blockDim
+  T* xv = xc + cols.npass * blockDim.x;      // npass * blockDim
+  T* tc = xv + cols.npass * blockDim.x;      // q each below
+  T* tv = tc + q;
+  T* carry = tv + q;
+  T* fc = carry + q;                         // forward totals
+  T* fv = fc + q;
+  T* bc = fv + q;                            // backward totals
+  T* bv = bc + q;
+  T* gc = bv + q;                            // nblk * q each
+  T* gv = gc + cluster.num_blocks() * q;
 
   const long long r0 = min((long long)rank * span, (long long)n);
   const long long r1 = min(r0 + span, (long long)n);
@@ -391,10 +401,10 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
   const bool resident = ntiles <= 1;  // the tile stays in shared memory
 
   for (int i = t; i < q; i += blockDim.x) {
-    fc[i] = 1.0f;
-    fv[i] = 0.0f;
-    bc[i] = 1.0f;
-    bv[i] = 0.0f;
+    fc[i] = T(1);
+    fv[i] = T(0);
+    bc[i] = T(1);
+    bv[i] = T(0);
   }
   auto start = [&](int k) { return r0 + (long long)k * tile_rows; };
   auto len = [&](int k) {
@@ -402,17 +412,17 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
   };
   // Tile k into shared memory: `src` (B, or z from X), dp, and l over one
   // row more.
-  auto load = [&](int k, const float* src) {
+  auto load = [&](int k, const T* src) {
     const long long ts = start(k);
     const int tr = len(k);
     tile_in(sB, lds, src + ts * ld, ld, tr, q);
     for (int i = t; i < tr; i += blockDim.x)
-      __pipeline_memcpy_async(sdp + i, dp + ts + i, sizeof(float));
+      __pipeline_memcpy_async(sdp + i, dp + ts + i, sizeof(T));
     for (int i = t; i <= tr; i += blockDim.x) {
       if (ts + i < n)
-        __pipeline_memcpy_async(sl + i, l + ts + i, sizeof(float));
+        __pipeline_memcpy_async(sl + i, l + ts + i, sizeof(T));
       else
-        sl[i] = 0.0f;
+        sl[i] = T(0);
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
@@ -429,12 +439,12 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
     __syncthreads();
   };
 
-  auto compose_fwd = [&](int k, float* acc_c, float* acc_v) {
-    tile_compose<true>(sB, lds, sl, len(k), start(k), n, q, cols, xc, xv, tc,
+  auto compose_fwd = [&](int k, T* acc_c, T* acc_v) {
+    tile_compose<T, true>(sB, lds, sl, len(k), start(k), n, q, cols, xc, xv, tc,
                        tv, acc_c, acc_v, wc, wv);
   };
-  auto compose_bwd = [&](int k, float* acc_c, float* acc_v) {
-    tile_compose<false>(sB, lds, sl, len(k), start(k), n, q, cols, xc, xv, tc,
+  auto compose_bwd = [&](int k, T* acc_c, T* acc_v) {
+    tile_compose<T, false>(sB, lds, sl, len(k), start(k), n, q, cols, xc, xv, tc,
                         tv, acc_c, acc_v, wc, wv);
   };
 
@@ -444,28 +454,28 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
     load(k, B);
     compose_fwd(k, fc, fv);
   }
-  exchange<true>(cluster, fc, fv, gc, gv, carry, q);
+  exchange<T, true>(cluster, fc, fv, gc, gv, carry, q);
   // Forward, pass 2: z; then the backward maps of each tile of z.
   for (int k = 0; k < ntiles; ++k) {
     if (!resident) {
       load(k, B);
       compose_fwd(k, nullptr, nullptr);
     }
-    tile_apply<true>(sB, lds, sdp, sl, len(k), start(k), n, q, cols, xc, xv,
+    tile_apply<T, true>(sB, lds, sdp, sl, len(k), start(k), n, q, cols, xc, xv,
                      carry);
     __syncthreads();
     if (!resident) advance();
     compose_bwd(k, bc, bv);
     if (!resident) store(k);
   }
-  exchange<false>(cluster, bc, bv, gc, gv, carry, q);
+  exchange<T, false>(cluster, bc, bv, gc, gv, carry, q);
   // Backward: x over z, last tile first; X written once per row.
   for (int k = ntiles - 1; k >= 0; --k) {
     if (!resident) {
       load(k, X);
       compose_bwd(k, nullptr, nullptr);
     }
-    tile_apply<false>(sB, lds, sdp, sl, len(k), start(k), n, q, cols, xc, xv,
+    tile_apply<T, false>(sB, lds, sdp, sl, len(k), start(k), n, q, cols, xc, xv,
                       carry);
     __syncthreads();
     if (!resident) advance();
@@ -523,16 +533,42 @@ tridiag_solve_kernel(const float* __restrict__ dp, const float* __restrict__ l,
 
 constexpr int kMaxBlock = 1024;  // the longest segment
 constexpr int kRows = 4;         // consecutive rows per thread
-constexpr int kCols = 4;         // columns per block: one float4 of a row
+constexpr int kCols = 4;         // columns per block: four values of a row
 constexpr int kK1bThreads = kMaxBlock / kRows;
 constexpr int kK1bWarps = kK1bThreads / 32;
 static_assert(kRows == 4 && kCols == 4, "K1b's loads and its tile's swizzle");
 
+// Four consecutive values of a row: a float4 (16 bytes), or for double two
+// 16-byte halves (32 bytes, moved as two 16-byte loads or stores).
+struct alignas(16) Double4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<double> {
+  using type = Double4;
+};
+template <typename T>
+__device__ __forceinline__ typename Vec4<T>::type vec4(T x, T y, T z, T w) {
+  typename Vec4<T>::type v;
+  v.x = x;
+  v.y = y;
+  v.z = z;
+  v.w = w;
+  return v;
+}
+
 // How a block moves its rows of B and X:
 //   kScalar: value by value, any q and any alignment;
-//   kVector: a float4 per row (q % 4 == 0, all four arrays 16-byte aligned);
-//   kTile:   q == 4 and aligned, where a warp's 128 rows are 2 KB in a row:
-//            coalesced float4s (lane after lane) through shared memory, from
+//   kVector: four values per row (q % 4 == 0, all four arrays 16-byte
+//            aligned);
+//   kTile:   q == 4 and aligned, where a warp's 128 rows lie in a row:
+//            coalesced rows (lane after lane) through shared memory, from
 //            which each lane takes its four consecutive rows.
 enum RowMoves { kScalar, kVector, kTile };
 
@@ -541,18 +577,18 @@ enum RowMoves { kScalar, kVector, kTile };
 __device__ __forceinline__ int tile_slot(int f) { return f ^ ((f >> 3) & 3); }
 
 // warp_scan_maps for maps that share their coefficient c over kCols values.
-__device__ __forceinline__ void warp_scan_maps_cols(float& c,
-                                                    float (&v)[kCols],
+template <typename T>
+__device__ __forceinline__ void warp_scan_maps_cols(T& c, T (&v)[kCols],
                                                     int lane, bool reverse) {
 #pragma unroll
   for (int k = 1; k < 32; k <<= 1) {
-    const float pc = reverse ? __shfl_down_sync(kFullMask, c, k)
-                             : __shfl_up_sync(kFullMask, c, k);
+    const T pc = reverse ? __shfl_down_sync(kFullMask, c, k)
+                         : __shfl_up_sync(kFullMask, c, k);
     const bool valid = reverse ? (lane + k < 32) : (lane >= k);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      const float pv = reverse ? __shfl_down_sync(kFullMask, v[j], k)
-                               : __shfl_up_sync(kFullMask, v[j], k);
+      const T pv = reverse ? __shfl_down_sync(kFullMask, v[j], k)
+                           : __shfl_up_sync(kFullMask, v[j], k);
       if (valid) v[j] = v[j] + c * pv;
     }
     if (valid) c = c * pc;
@@ -561,37 +597,40 @@ __device__ __forceinline__ void warp_scan_maps_cols(float& c,
 
 // The map of the lanes before this one in the substitution's order (the
 // neighbour's inclusive map; the identity for the first lane).
-__device__ __forceinline__ void neighbour_map(float c, const float (&v)[kCols],
-                                              int lane, bool reverse,
-                                              float& nc, float (&nv)[kCols]) {
+template <typename T>
+__device__ __forceinline__ void neighbour_map(T c, const T (&v)[kCols],
+                                              int lane, bool reverse, T& nc,
+                                              T (&nv)[kCols]) {
   const bool first = lane == (reverse ? 31 : 0);
   nc = reverse ? __shfl_down_sync(kFullMask, c, 1)
                : __shfl_up_sync(kFullMask, c, 1);
-  if (first) nc = 1.0f;
+  if (first) nc = T(1);
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
     nv[j] = reverse ? __shfl_down_sync(kFullMask, v[j], 1)
                     : __shfl_up_sync(kFullMask, v[j], 1);
-    if (first) nv[j] = 0.0f;
+    if (first) nv[j] = T(0);
   }
 }
 
-// 1 / x for a normal positive x (a pivot): the approximate reciprocal and
-// one Newton step, within an ulp or two of the quotient and, unlike an
-// IEEE division, without a branch.
+// 1 / x for a normal positive x (a pivot). float: the approximate
+// reciprocal and one Newton step, within an ulp or two of the quotient and,
+// unlike an IEEE division, without a branch. double: the correctly rounded
+// reciprocal.
 __device__ __forceinline__ float reciprocal(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return fmaf(r, fmaf(-x, r, 1.0f), r);
 }
+__device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
 
-template <RowMoves kMoves>
+template <typename T, RowMoves kMoves>
 __global__ void __launch_bounds__(kK1bThreads)
-tridiag_solve_blocked_kernel(const float* __restrict__ dp,
-                             const float* __restrict__ l,
-                             const float* __restrict__ B,
-                             float* __restrict__ X, int n, int q, int block,
-                             long long fstride) {
+tridiag_solve_blocked_kernel(const T* __restrict__ dp,
+                             const T* __restrict__ l,
+                             const T* __restrict__ B, T* __restrict__ X,
+                             int n, int q, int block, long long fstride) {
+  using V4 = typename Vec4<T>::type;
   {  // lane blockIdx.z: its factor and its (n, q) block
     const long long lane = blockIdx.z;
     dp += lane * fstride;
@@ -599,9 +638,9 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
     B += lane * n * q;
     X += lane * n * q;
   }
-  __shared__ float fc[kK1bWarps], fv[kK1bWarps][kCols];
-  __shared__ float bc[kK1bWarps], bv[kK1bWarps][kCols];
-  __shared__ float4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
+  __shared__ T fc[kK1bWarps], fv[kK1bWarps][kCols];
+  __shared__ T bc[kK1bWarps], bv[kK1bWarps][kCols];
+  __shared__ V4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -614,28 +653,28 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
   const long long g0 = seg0 + r0;
   const int j0 = blockIdx.y * kCols;
   // kTile: the warp's tile, its first row in the segment, its rows of B, X.
-  float4* tile = tiles + (kMoves == kTile ? w * 32 * kRows : 0);
+  V4* tile = tiles + (kMoves == kTile ? w * 32 * kRows : 0);
   const int t0 = w * 32 * kRows;
-  const float4* Bt = reinterpret_cast<const float4*>(B) + seg0 + t0;
-  float4* Xt = reinterpret_cast<float4*>(X) + seg0 + t0;
+  const V4* Bt = reinterpret_cast<const V4*>(B) + seg0 + t0;
+  V4* Xt = reinterpret_cast<V4*>(X) + seg0 + t0;
+  const V4 zero4 = vec4<T>(T(0), T(0), T(0), T(0));
 
   // cf[i] = -l of the thread's row i: the forward coefficient of row i and
   // the backward coefficient of row i - 1. It is 0 at the segment's first
   // row and past its last row inside n, which also cuts the backward pass
   // at the segment's last row and at row n - 1.
-  float cf[kRows + 1], rd[kRows], v[kRows][kCols];
+  T cf[kRows + 1], rd[kRows], v[kRows][kCols];
   if (kMoves == kTile) {
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int f = 32 * k + lane;
-      tile[tile_slot(f)] =
-          t0 + f < rows ? Bt[f] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      tile[tile_slot(f)] = t0 + f < rows ? Bt[f] : zero4;
     }
   }
   if (kMoves != kScalar && r0 + kRows <= rows) {
-    const float4 l4 = *reinterpret_cast<const float4*>(l + g0);
-    const float4 d4 = *reinterpret_cast<const float4*>(dp + g0);
-    cf[0] = r0 != 0 ? -l4.x : 0.0f;
+    const V4 l4 = *reinterpret_cast<const V4*>(l + g0);
+    const V4 d4 = *reinterpret_cast<const V4*>(dp + g0);
+    cf[0] = r0 != 0 ? -l4.x : T(0);
     cf[1] = -l4.y;
     cf[2] = -l4.z;
     cf[3] = -l4.w;
@@ -647,26 +686,26 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const bool live = r0 + i < rows;
-      cf[i] = (r0 + i != 0 && live) ? -l[g0 + i] : 0.0f;
-      rd[i] = live ? reciprocal(dp[g0 + i]) : 1.0f;
+      cf[i] = (r0 + i != 0 && live) ? -l[g0 + i] : T(0);
+      rd[i] = live ? reciprocal(dp[g0 + i]) : T(1);
     }
   }
-  cf[kRows] = r0 + kRows < rows ? -l[g0 + kRows] : 0.0f;
+  cf[kRows] = r0 + kRows < rows ? -l[g0 + kRows] : T(0);
   if (kMoves == kTile) __syncwarp();
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const bool live = r0 + i < rows;
-    const float* row = B + (g0 + i) * q + j0;
+    const T* row = B + (g0 + i) * q + j0;
     if (kMoves == kScalar) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        v[i][j] = (live && j0 + j < q) ? row[j] : 0.0f;
+        v[i][j] = (live && j0 + j < q) ? row[j] : T(0);
     } else {
-      float4 b4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      V4 b4 = zero4;
       if (kMoves == kTile)
         b4 = tile[tile_slot(kRows * lane + i)];
       else if (live)
-        b4 = *reinterpret_cast<const float4*>(row);
+        b4 = *reinterpret_cast<const V4*>(row);
       v[i][0] = b4.x;
       v[i][1] = b4.y;
       v[i][2] = b4.z;
@@ -677,9 +716,9 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
   // Forward: y_i = b_i + cf_i y_{i-1}. The thread's map, the scan over the
   // warp, the warps before this one, then the rows again from the incoming
   // value; z = y / dp replaces b (a product with the pivot's reciprocal).
-  float c = 1.0f, t[kCols], nc, nt[kCols], in[kCols];
+  T c = T(1), t[kCols], nc, nt[kCols], in[kCols];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) t[j] = 0.0f;
+  for (int j = 0; j < kCols; ++j) t[j] = T(0);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
 #pragma unroll
@@ -695,7 +734,7 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = 0.0f;
+  for (int j = 0; j < kCols; ++j) in[j] = T(0);
 #pragma unroll
   for (int k = 0; k < kK1bWarps - 1; ++k) {
     if (k < w) {
@@ -716,9 +755,9 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
 
   // Backward: x_i = z_i + cf_{i+1} x_{i+1}, the same steps from the last
   // row to the first; x replaces z.
-  c = 1.0f;
+  c = T(1);
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) t[j] = 0.0f;
+  for (int j = 0; j < kCols; ++j) t[j] = T(0);
 #pragma unroll
   for (int i = kRows - 1; i >= 0; --i) {
 #pragma unroll
@@ -734,7 +773,7 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = 0.0f;
+  for (int j = 0; j < kCols; ++j) in[j] = T(0);
 #pragma unroll
   for (int k = kK1bWarps - 1; k > 0; --k) {
     if (k > w && k < nw) {
@@ -758,7 +797,7 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
       tile[tile_slot(kRows * lane + i)] =
-          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+          vec4<T>(v[i][0], v[i][1], v[i][2], v[i][3]);
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
@@ -770,10 +809,10 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (r0 + i >= rows) continue;
-    float* row = X + (g0 + i) * q + j0;
+    T* row = X + (g0 + i) * q + j0;
     if (kMoves == kVector) {
-      *reinterpret_cast<float4*>(row) =
-          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+      *reinterpret_cast<V4*>(row) = vec4<T>(v[i][0], v[i][1], v[i][2],
+                                            v[i][3]);
     } else {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
@@ -782,31 +821,24 @@ tridiag_solve_blocked_kernel(const float* __restrict__ dp,
   }
 }
 
-// K1's function attributes: the dynamic shared memory cap and the
-// non-portable cluster size. The first error, or cudaSuccess.
+// K1's function attributes for element type T: the dynamic shared memory
+// cap and the non-portable cluster size. The first error, or cudaSuccess.
+template <typename T>
 cudaError_t k1_setup() {
   const cudaError_t err = cudaFuncSetAttribute(
-      tridiag_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tridiag_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(tridiag_solve_kernel,
+  return cudaFuncSetAttribute(tridiag_solve_kernel<T>,
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               1);
 }
 
-}  // namespace
-
-// K1. B, X: (lanes, n, q) float32, row-major and contiguous; dp, l: float32,
-// lane r's factor at dp + r * fstride (fstride = n: a factor per lane;
-// fstride = 0: one factor (n,) for every lane). One launch on `stream` of
-// a cluster per (group of up to kMaxQ columns, lane); returns the first
-// CUDA error of the set-up or the launch (0 on success); a card that cannot
-// schedule the cluster fails the launch.
-extern "C" int tridiag_solve_f32(const float* dp, const float* l,
-                                 const float* B, float* X, int n, int q,
-                                 int lanes, long long fstride, void* stream) {
+template <typename T>
+int k1_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
+              int lanes, long long fstride, void* stream) {
   if (n <= 0 || q <= 0 || lanes <= 0) return 0;
-  static const cudaError_t setup = k1_setup();
+  static const cudaError_t setup = k1_setup<T>();
   if (setup != cudaSuccess) return static_cast<int>(setup);
   const int nblk = kCluster;
   // Rows per block and per tile, multiples of 4 (the tile's column stride,
@@ -819,16 +851,19 @@ extern "C" int tridiag_solve_f32(const float* dp, const float* l,
   const int cpp = qg < nw ? qg : nw;
   const int npass = (qg + cpp - 1) / cpp;
   // wc, wv; xc, xv; tc, tv, carry and the four totals; gc, gv; sl's row
-  // and the padding row of the tile.
+  // and the padding row of the tile. In elements of T: with 8-byte
+  // elements a block holds half the rows, so the tiled branch starts at
+  // about half of float's n.
   const int fixed = 64 + 2 * npass * kK1Threads + 7 * qg + 2 * nblk * qg
                     + 1 + qg;
-  const int fit = ((kSmemBytes / 4 - fixed) / (qg + 2)) & ~3;
+  const int fit =
+      ((kSmemBytes / static_cast<int>(sizeof(T)) - fixed) / (qg + 2)) & ~3;
   const int tile_rows = span < fit ? span : fit;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nblk, (q + kMaxQ - 1) / kMaxQ, lanes);
   cfg.blockDim = dim3(kK1Threads);
   cfg.dynamicSmemBytes =
-      static_cast<size_t>(tile_rows * (qg + 2) + fixed) * sizeof(float);
+      static_cast<size_t>(tile_rows * (qg + 2) + fixed) * sizeof(T);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute cluster_dim[1];
   cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
@@ -838,20 +873,15 @@ extern "C" int tridiag_solve_f32(const float* dp, const float* l,
   cfg.attrs = cluster_dim;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tridiag_solve_kernel, dp, l, B, X, n, q, span, tile_rows,
+      &cfg, tridiag_solve_kernel<T>, dp, l, B, X, n, q, span, tile_rows,
       fstride);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1b. The same arrays and lanes; `block` (a multiple of 32, at most 1024)
-// is the segment length. The grid is (segments, column groups, lanes).
-// Returns cudaErrorInvalidValue for any other block, else the launch's
-// error (0 on success).
-extern "C" int tridiag_solve_blocked_f32(const float* dp, const float* l,
-                                         const float* B, float* X, int n,
-                                         int q, int lanes, long long fstride,
-                                         int block, void* stream) {
+template <typename T>
+int k1b_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
+               int lanes, long long fstride, int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || q <= 0 || lanes <= 0) return 0;
@@ -864,10 +894,49 @@ extern "C" int tridiag_solve_blocked_f32(const float* dp, const float* l,
        reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(X)) % 16
           == 0 &&
       fstride % 4 == 0;
-  auto kernel = !aligned || q % 4 != 0 ? tridiag_solve_blocked_kernel<kScalar>
-                : q == 4               ? tridiag_solve_blocked_kernel<kTile>
-                                       : tridiag_solve_blocked_kernel<kVector>;
+  auto kernel = !aligned || q % 4 != 0
+                    ? tridiag_solve_blocked_kernel<T, kScalar>
+                : q == 4 ? tridiag_solve_blocked_kernel<T, kTile>
+                         : tridiag_solve_blocked_kernel<T, kVector>;
   kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       dp, l, B, X, n, q, block, fstride);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. B, X: (lanes, n, q) float32 (_f32) or float64 (_f64), row-major and
+// contiguous; dp, l: of the same type, lane r's factor at dp + r * fstride
+// (fstride = n: a factor per lane; fstride = 0: one factor (n,) for every
+// lane). One launch on `stream` of a cluster per (group of up to kMaxQ
+// columns, lane); returns the first CUDA error of the set-up or the launch
+// (0 on success); a card that cannot schedule the cluster fails the launch.
+extern "C" int tridiag_solve_f32(const float* dp, const float* l,
+                                 const float* B, float* X, int n, int q,
+                                 int lanes, long long fstride, void* stream) {
+  return k1_launch(dp, l, B, X, n, q, lanes, fstride, stream);
+}
+
+extern "C" int tridiag_solve_f64(const double* dp, const double* l,
+                                 const double* B, double* X, int n, int q,
+                                 int lanes, long long fstride, void* stream) {
+  return k1_launch(dp, l, B, X, n, q, lanes, fstride, stream);
+}
+
+// K1b. The same arrays and lanes; `block` (a multiple of 32, at most 1024)
+// is the segment length. The grid is (segments, column groups, lanes).
+// Returns cudaErrorInvalidValue for any other block, else the launch's
+// error (0 on success).
+extern "C" int tridiag_solve_blocked_f32(const float* dp, const float* l,
+                                         const float* B, float* X, int n,
+                                         int q, int lanes, long long fstride,
+                                         int block, void* stream) {
+  return k1b_launch(dp, l, B, X, n, q, lanes, fstride, block, stream);
+}
+
+extern "C" int tridiag_solve_blocked_f64(const double* dp, const double* l,
+                                         const double* B, double* X, int n,
+                                         int q, int lanes, long long fstride,
+                                         int block, void* stream) {
+  return k1b_launch(dp, l, B, X, n, q, lanes, fstride, block, stream);
 }

@@ -331,6 +331,41 @@ def banded_apply(bop: BandedOperator, BD: BDRep,
     return out.reshape(*lead, n_pad, q)[..., :n, :]
 
 
+def banded_upper(ut: torch.Tensor, nb: int, b0: int = 0) -> torch.Tensor:
+    """The upper triangle of L(w), (..., nb BS, nb BS), in the operator's
+    (RCM) node ids, holding the block rows [b0, b0 + ut's rows) that ut
+    (..., half+1, rows, BS, BS) assembles: block (b, b + t) is ut[t][b]^T
+    (t = 0: the strict upper part of the diagonal block); zeros elsewhere."""
+    lead = ut.shape[:-4]
+    half, rows = ut.shape[-4] - 1, ut.shape[-3]
+    # U[..., block row, block column + t, r, c]; columns past nb stay empty.
+    U = ut.new_zeros((*lead, rows, nb + half, BS, BS))
+    for t in range(half + 1):
+        torch.diagonal(U[..., b0 + t:b0 + t + rows, :, :], dim1=-4,
+                       dim2=-3).copy_(ut[..., t, :, :, :].transpose(-1, -2)
+                                      .movedim(-3, -1))
+    U = U[..., :nb, :, :].movedim(-3, -2)  # (..., rows, BS, nb, BS)
+    full = ut.new_zeros((*lead, nb, BS, nb, BS))
+    full[..., b0:b0 + rows, :, :, :] = U
+    return full.reshape(*lead, nb * BS, nb * BS)
+
+
+def dense_from_upper(U: torch.Tensor, deg: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """L(w) (..., n, n) from its strict upper triangle U (..., n_pad, n_pad)
+    and its diagonal deg (..., nb, BS)."""
+    L = U + U.mT
+    L = L + torch.diag_embed(deg.reshape(*deg.shape[:-2], -1))
+    return L[..., :n, :n]
+
+
+def banded_dense(bop: BandedOperator, BD: BDRep) -> torch.Tensor:
+    """L(w) as a dense (n, n) matrix (with lanes (R, n, n)) in the
+    operator's (RCM) node ids, read off BD: the exact dense eigh of
+    fiedler_method="dense" runs on it."""
+    return dense_from_upper(banded_upper(BD.ut, bop.nb), BD.deg, bop.n)
+
+
 class PrecondState(NamedTuple):
     """Carryable preconditioner state across Frank-Wolfe steps: the explicit
     coarse inverse and the chain smoother's LDL^T factor (original order).

@@ -85,6 +85,8 @@ def load(name: str, signatures, path=None) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build(name) if path is None else path))
         for fn, argtypes in signatures.items():
+            if not hasattr(lib, fn):  # an older build without this export
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib

@@ -7,9 +7,12 @@ mac_tpu/ops/pallas/assemble_kernel.py (_assemble_kernel via
 assemble_ut_fused, and _assemble_kernel_ov via assemble_ut_fused_ov). The
 first table form is the second with no overflow entries.
 
-`assemble_ut` launches the CUDA kernel for tensors on a CUDA device and runs
+`assemble_ut` launches the CUDA kernel for tensors on a CUDA device (weights
+in float32 or float64, one instantiation of the kernel each) and runs
 `assemble_ut_plain`, its plain PyTorch version (the sheared iota-compare
-accumulation of mac_tpu.ops.banded._assemble_ut_xla), for CPU tensors.
+accumulation of mac_tpu.ops.banded._assemble_ut_xla), for CPU tensors. It
+counts its launches as the tridiagonal wrappers do (`.launches`,
+`.launches_by_lanes`, `.launches_by_dtype`).
 
 Both also take R lanes in one call (the budget sweep): wu (R, du, nb*BS)
 and ow (R, ov, nb) give ut (R, half+1, nb, BS, BS), lane r's assembly from
@@ -21,6 +24,8 @@ import ctypes
 import torch
 
 from mac_tpu_torch.ops.kernels import _build
+from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
+                                               reset_counts)
 
 BS = 128
 
@@ -53,12 +58,11 @@ def assemble_ut_plain(dcol: torch.Tensor, wu: torch.Tensor,
          for t in range(half + 1)], dim=0)
 
 
-_SIGNATURES = {"assemble_ut_f32": [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p]}
+_SIGNATURES = {f"assemble_ut_{suffix}": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for suffix in SUFFIX.values()}
 
 
 def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
@@ -88,13 +92,9 @@ def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
     for name, t in tensors:
         if t.device != wu.device:
             raise ValueError("assemble_ut: tensors on different devices")
-        want = torch.float32 if name in ("wu", "ow") else torch.int32
-        if t.dtype != want:
-            raise TypeError(f"assemble_ut kernel takes {name} as {want}; got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"assemble_ut kernel: {name} not contiguous")
-    call = _build.function("assemble", "assemble_ut_f32", _SIGNATURES)
+    check_kernel_args(tensors)
+    call = _build.function("assemble", f"assemble_ut_{SUFFIX[wu.dtype]}",
+                           _SIGNATURES)
     ut = torch.empty((*lead, half + 1, nb, BS, BS), dtype=wu.dtype,
                      device=wu.device)
     err = _build.launch(call, wu.device, dcol.data_ptr(), wu.data_ptr(), du,
@@ -103,11 +103,26 @@ def assemble_ut(dcol: torch.Tensor, wu: torch.Tensor, ocol: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"assemble_ut kernel launch failed: cudaError "
                            f"{err}")
-    assemble_ut.launches += 1
-    assemble_ut.launches_by_lanes[lanes] = (
-        assemble_ut.launches_by_lanes.get(lanes, 0) + 1)
+    count_launch(assemble_ut, lanes, wu.dtype)
     return ut
 
 
-assemble_ut.launches = 0
-assemble_ut.launches_by_lanes = {}  # {lanes R: launches}
+def check_kernel_args(tensors) -> None:
+    """What the kernel takes beyond the shapes: the slot tables as int32,
+    the weights wu and ow both float32 or both float64, each contiguous.
+    tensors: ((name, tensor), ...) of assemble_ut's arrays."""
+    t = dict(tensors)
+    if t["wu"].dtype not in SUFFIX or t["ow"].dtype != t["wu"].dtype:
+        raise TypeError(f"assemble_ut kernel takes wu and ow as float32 or "
+                        f"float64, the same; got {t['wu'].dtype} and "
+                        f"{t['ow'].dtype}")
+    for name in ("dcol", "ocol", "olane"):
+        if t[name].dtype != torch.int32:
+            raise TypeError(f"assemble_ut kernel takes {name} as int32; got "
+                            f"{t[name].dtype}")
+    for name, tensor in tensors:
+        if not tensor.is_contiguous():
+            raise ValueError(f"assemble_ut kernel: {name} not contiguous")
+
+
+reset_counts(assemble_ut)

@@ -13,10 +13,12 @@ shape (R, n) (a factor per lane: the budget sweep) or (n,) (one factor
 shared by every lane). Lane r's X is the solve of lane r's B with its
 factor.
 
-Each wrapper launches its CUDA kernel for tensors on a CUDA device and runs
-its plain PyTorch version (`*_plain`) for tensors on the CPU, and counts
-its launches in `.launches`, and by lane count in `.launches_by_lanes`
-({R: launches}).
+Each wrapper launches its CUDA kernel for tensors on a CUDA device (float32
+or float64, one instantiation of the kernel each) and runs its plain
+PyTorch version (`*_plain`) for tensors on the CPU, and counts its launches
+in `.launches`, by lane count in `.launches_by_lanes` ({R: launches}) and
+by dtype in `.launches_by_dtype` ({"float32": launches, "float64":
+launches}).
 """
 
 import ctypes
@@ -99,14 +101,16 @@ def tridiag_solve_blocked_plain(dp: torch.Tensor, l: torch.Tensor,
     return X.movedim(0, -2).reshape(*lead, n_pad, q)[..., :n, :]
 
 
+# The exported functions' suffix for each dtype the kernels take.
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_K1_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_longlong]
 _SIGNATURES = {
-    "tridiag_solve_f32": [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-       ctypes.c_void_p],
-    "tridiag_solve_blocked_f32": [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-       ctypes.c_int, ctypes.c_void_p],
-}
+    f"{fn}_{suffix}": _K1_ARGS + extra
+    for fn, extra in (("tridiag_solve", [ctypes.c_void_p]),
+                      ("tridiag_solve_blocked", [ctypes.c_int,
+                                                 ctypes.c_void_p]))
+    for suffix in SUFFIX.values()}
 
 
 def _on_card(name: str, dp: torch.Tensor, l: torch.Tensor,
@@ -127,15 +131,24 @@ def _on_card(name: str, dp: torch.Tensor, l: torch.Tensor,
         return False
     if dp.device != B.device or l.device != B.device:
         raise ValueError(f"{name}: tensors on different devices")
-    if not dp.dtype == l.dtype == B.dtype == torch.float32:
-        arg, t = next((arg, t) for arg, t in (("dp", dp), ("l", l), ("B", B))
-                      if t.dtype != torch.float32)
-        raise TypeError(f"{name} kernel takes float32; {arg} is {t.dtype}")
+    check_kernel_args(name, dp, l, B)
+    return True
+
+
+def check_kernel_args(name: str, dp: torch.Tensor, l: torch.Tensor,
+                      B: torch.Tensor) -> None:
+    """What the kernels take beyond the shapes: one dtype, float32 or
+    float64, for all three arrays, each contiguous."""
+    if B.dtype not in SUFFIX or not dp.dtype == l.dtype == B.dtype:
+        arg, t = next((arg, t) for arg, t in (("B", B), ("dp", dp), ("l", l))
+                      if t.dtype not in SUFFIX or t.dtype != B.dtype)
+        raise TypeError(f"{name} kernel takes float32 or float64, the same "
+                        f"for dp, l and B; {arg} is {t.dtype} (B "
+                        f"{B.dtype})")
     if not (dp.is_contiguous() and l.is_contiguous() and B.is_contiguous()):
         arg = next(arg for arg, t in (("dp", dp), ("l", l), ("B", B))
                    if not t.is_contiguous())
         raise ValueError(f"{name} kernel: {arg} not contiguous")
-    return True
 
 
 def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
@@ -153,46 +166,53 @@ def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
     return X
 
 
-def _count(wrapper, B: torch.Tensor) -> None:
-    """One launch of `wrapper`'s kernel on B's lanes."""
-    lanes = B.shape[0] if B.dim() == 3 else 1
+def count_launch(wrapper, lanes: int, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel on `lanes` lanes of `dtype`."""
     wrapper.launches += 1
     wrapper.launches_by_lanes[lanes] = (
         wrapper.launches_by_lanes.get(lanes, 0) + 1)
+    key = str(dtype).split(".")[-1]
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+
+
+def reset_counts(*wrappers) -> None:
+    """Set every count of each kernel wrapper to 0."""
+    for wrapper in wrappers:
+        wrapper.launches = 0
+        wrapper.launches_by_lanes = {}
+        wrapper.launches_by_dtype = {}
 
 
 def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,
                   B: torch.Tensor) -> torch.Tensor:
     """K1: X with L diag(dp) L^T X = B, of one block or of R lanes (see
-    the module docstring). CUDA tensors: the hand-written kernel (float32,
-    contiguous, any n, q and R; one launch); CPU tensors: the plain
-    version."""
+    the module docstring). CUDA tensors: the hand-written kernel (float32
+    or float64, contiguous, any n, q and R; one launch); CPU tensors: the
+    plain version."""
     if not _on_card("tridiag_solve", dp, l, B):
         return tridiag_solve_plain(dp, l, B)
-    X = _launch("tridiag_solve_f32", dp, l, B)
-    _count(tridiag_solve, B)
+    X = _launch(f"tridiag_solve_{SUFFIX[B.dtype]}", dp, l, B)
+    count_launch(tridiag_solve, B.shape[0] if B.dim() == 3 else 1, B.dtype)
     return X
-
-
-tridiag_solve.launches = 0
-tridiag_solve.launches_by_lanes = {}
 
 
 def tridiag_solve_blocked(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor,
                           block: int = 1024) -> torch.Tensor:
     """K1b: the solve with the segments of `block` rows decoupled (l taken
     as 0 at every row % block == 0), of one block or of R lanes. CUDA
-    tensors: the hand-written kernel (float32, contiguous, block a multiple
-    of 32 up to 1024; one launch); CPU tensors: the plain version."""
+    tensors: the hand-written kernel (float32 or float64, contiguous, block
+    a multiple of 32 up to 1024; one launch); CPU tensors: the plain
+    version."""
     if not _on_card("tridiag_solve_blocked", dp, l, B):
         return tridiag_solve_blocked_plain(dp, l, B, block)
     if not (32 <= block <= 1024 and block % 32 == 0):
         raise ValueError(f"tridiag_solve_blocked kernel: block {block} is "
                          "not a multiple of 32 in [32, 1024]")
-    X = _launch("tridiag_solve_blocked_f32", dp, l, B, int(block))
-    _count(tridiag_solve_blocked, B)
+    X = _launch(f"tridiag_solve_blocked_{SUFFIX[B.dtype]}", dp, l, B,
+                int(block))
+    count_launch(tridiag_solve_blocked, B.shape[0] if B.dim() == 3 else 1,
+                 B.dtype)
     return X
 
 
-tridiag_solve_blocked.launches = 0
-tridiag_solve_blocked.launches_by_lanes = {}
+reset_counts(tridiag_solve, tridiag_solve_blocked)

@@ -12,8 +12,8 @@ matrix-free two-grid V-cycle (mac_tpu_torch.ops.twogrid):
      (tridiag_ldl_blocked).
   2. Forward and backward substitution: affine recurrences, solved by the
      hand-written CUDA kernels K1 (whole rows) and K1b (decoupled segments)
-     on the card (mac_tpu_torch.ops.kernels.tridiag) and by their plain
-     scan versions elsewhere.
+     on the card, in float32 or float64 (mac_tpu_torch.ops.kernels.tridiag),
+     and by their plain scan versions elsewhere.
 
 Every function here also takes R lanes (the budget sweep): d, e of shape
 (R, n) and (R, n - 1) factor R matrices at once, into dp, l of shape
@@ -155,25 +155,23 @@ def tridiag_solve(d: torch.Tensor, e: torch.Tensor,
 
 def tridiag_solve_factored_fast(f: TridiagFactor,
                                 B: torch.Tensor) -> torch.Tensor:
-    """The kernels for float32 blocks of any width (the dispatch rule of
-    mac_tpu.ops.tridiag): K1 up to TRIDIAG_SCAN_MAX_N; beyond it K1b
-    (segments of SOLVE_BLOCK rows) for a factor already decoupled at those
-    boundaries (f.seg divides SOLVE_BLOCK), and K1 for any other factor.
-    The TPU's 32768-row and 32-column limits were its VMEM budget; the
-    CUDA kernels have neither. Each kernel wrapper runs the CUDA kernel on
-    a CUDA tensor and its plain version on a CPU tensor.
+    """The kernels for float32 and float64 blocks of any width (the
+    dispatch rule of mac_tpu.ops.tridiag): K1 up to TRIDIAG_SCAN_MAX_N;
+    beyond it K1b (segments of SOLVE_BLOCK rows) for a factor already
+    decoupled at those boundaries (f.seg divides SOLVE_BLOCK), and K1 for
+    any other factor. The TPU's 32768-row and 32-column limits were its
+    VMEM budget; the CUDA kernels have neither. Each kernel wrapper runs
+    the CUDA kernel on a CUDA tensor and its plain version on a CPU tensor,
+    so no block on the card reaches the plain scans, and a kernel that
+    fails to build or launch raises.
 
-    A block of another dtype (the float64 routes) takes
-    tridiag_solve_factored, the plain scans, on whatever device it lies:
-    the reference's own rule for that dtype, whose kernels are float32 only
-    and whose dispatch sends every other block to its scan solve. It is no
-    way round a kernel: a float32 block on the card reaches K1 or K1b and
-    nothing else, and a kernel that fails to build or launch raises.
+    A float64 block runs the float64 instantiation of the same kernel: a
+    deliberate difference from the reference, whose kernels are float32
+    only because the TPU cannot take float64 through a Pallas call, so that
+    its dispatch sends every other block to its scan solve.
     Lanes (B (R, n, q), a factor of R lanes or a shared one) go to the same
     kernel in one launch."""
     n = B.shape[-2]
-    if B.dtype != torch.float32:
-        return tridiag_solve_factored(f, B)
     dp = f.dp if f.dp.dtype == B.dtype else f.dp.to(B.dtype)
     l = f.l if f.l.dtype == B.dtype else f.l.to(B.dtype)
     if (n > TRIDIAG_SCAN_MAX_N and f.seg is not None

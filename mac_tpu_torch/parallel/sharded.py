@@ -28,7 +28,8 @@ partitioning of the banded products to its compiler; here it is explicit.
 import numpy as np
 import torch
 
-from mac_tpu_torch.ops.banded import BS, BandedOperator, BDRep, _deg_from_ut
+from mac_tpu_torch.ops.banded import (BS, BandedOperator, BDRep, _deg_from_ut,
+                                      banded_upper, dense_from_upper)
 from mac_tpu_torch.ops.banded import TABLES as BANDED_TABLES
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut
 from mac_tpu_torch.ops.laplacian import (TABLES, GraphOperator, _w_pad,
@@ -327,6 +328,14 @@ class ShardedBanded:
         lo, hi = min(self.b0 * BS, n), min(self.b1 * BS, n)
         LR = self._rows(BD, Rmat.expand(*lead, *Rmat.shape))
         return self.group.all_reduce(Rmat[lo:hi].mT @ LR[..., :hi - lo, :])
+
+    def dense(self, BD: BDRep) -> torch.Tensor:
+        """L(w) dense (..., n, n) in RCM ids, replicated (ops.banded.
+        banded_dense): each rank's upper blocks of its own rows, summed by
+        one all-reduce (every entry comes from one rank)."""
+        own = BD.ut[..., self.b0 - self.h0:, :, :]
+        U = self.group.all_reduce(banded_upper(own, self.bop.nb, self.b0))
+        return dense_from_upper(U, BD.deg, self.bop.n)
 
 
 def sharded_candidate_gradient(mesh, cand_idx, w_cand, v):

@@ -30,14 +30,17 @@ runs rehearse the card):
     steps, duality-gap stop off, Cesaro tail averaging from step 16; the
     coarse inverse refreshed by Newton-Schulz from step 4. For n <= 4096
     two exact float64 host tails follow (solvers._host): the guarded polish
-    step and the post-rounding round guard. Any other graph, and every
-    float64 solve, takes the ELL GraphOperator in original node ids (a
-    dense matrix for n <= 256) with the two-grid V-cycle (kernel K1, or K1b
-    past 32768 nodes, in float32; the plain scans in float64, for which the
-    reference has no kernel either) or the chain solve alone, and the
-    reference defaults: tol 1e-8, 200 outer iterations, 16 inner CG steps,
-    the dtype's relative tolerance, float64 coefficient algebra, the full
-    budget on warm steps, 5 Frank-Wolfe steps.
+    step and the post-rounding round guard. With use_banded=True a float64
+    solve takes the banded operator too (the float64 instantiations of the
+    same kernels) under the reference defaults below, without the host
+    tails. Any other graph, and every other float64 solve, takes the ELL
+    GraphOperator in original node ids (a dense matrix for n <= 256) with
+    the two-grid V-cycle (kernel K1, or K1b past 32768 nodes, in the
+    solve's dtype) or the chain solve alone, and the reference defaults:
+    tol 1e-8, 200 outer iterations, 16 inner CG steps, the dtype's relative
+    tolerance, float64 coefficient algebra, the full budget on warm steps,
+    5 Frank-Wolfe steps. On either operator fiedler_method picks TRACEMIN,
+    LOBPCG or the exact dense eigh.
 
 MAC.solve_sweep runs R budgets as R lanes of one Frank-Wolfe solve on the
 device engine (every instance, the host-routed ones included, as the
@@ -56,10 +59,6 @@ a mesh the size gate and the host engine are off, fw_polish and the round
 guard default to False, the matrix-free operator is never dense, the ranks
 agree on every loop decision, and every rank returns the first rank's
 arrays. solve_sweep splits its lanes over the mesh's 'sweep' dimension.
-
-Routes the port does not have yet raise NotImplementedError (the banded
-operator in float64; LOBPCG or dense eigh on the banded operator); none
-runs something else in their place.
 """
 
 import os
@@ -100,11 +99,6 @@ F32_SPECTRAL_RATIO_MIN = 1.2e-5
 # (n = 2500) above it, because its collapsed nearest rounding needs the
 # device route's round guard.
 SMALL_HOST_N = 2000
-
-
-def _not_in_slice(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in this slice of the PyTorch port; {where}")
 
 
 def choose_compute_dtype(fixed_idx, w_fixed, cand_idx, w_cand, num_nodes):
@@ -206,8 +200,8 @@ class MAC(HostSolveMixin):
         for the automatic rule. The attribute holds the resolved value.
     The eigensolver and Frank-Wolfe knobs mirror mac_tpu.solvers.mac.MAC;
     None selects the route's automatic policy.
-    fiedler_method: "tracemin" (its "_lu" / "_cholesky" aliases), or, on
-        the matrix-free operator, "lobpcg" or "dense" (exact eigh).
+    fiedler_method: "tracemin" (its "_lu" / "_cholesky" aliases),
+        "lobpcg" or "dense" (exact eigh), on either operator.
     fiedler_precond: the matrix-free operator's preconditioner, "twogrid"
         or "tridiag"; None takes "tridiag" for a float64 solve whose fixed
         edges hold the odometry chain and whose candidates number at most
@@ -217,12 +211,12 @@ class MAC(HostSolveMixin):
         the splu cadence (the automatic rule there refactors every step).
     fw_polish / round_guard: the exact float64 host polish step and
         post-rounding repair (round_guard is an attribute in the
-        reference). None resolves True on the banded route for n <= 4096
-        and False elsewhere. The polish schedule is held in the attributes
-        fw_polish_rounds, fw_polish_target, fw_polish_eval_budget and
-        fw_polish_big_gap. An automatic polish is skipped when the loop's
-        own duality gap estimate exceeds fw_polish_big_gap; an explicit
-        fw_polish=True always runs.
+        reference). None resolves True on the banded float32 route for
+        n <= 4096 and False elsewhere. The polish schedule is held in the
+        attributes fw_polish_rounds, fw_polish_target,
+        fw_polish_eval_budget and fw_polish_big_gap. An automatic polish
+        is skipped when the loop's own duality gap estimate exceeds
+        fw_polish_big_gap; an explicit fw_polish=True always runs.
     host_pcg (attribute, False): on the host engine, solve warm steps by
         block CG preconditioned with the last factor instead of
         refactoring.
@@ -339,18 +333,13 @@ class MAC(HostSolveMixin):
         self.edge_list = np.asarray(cand_idx)
         self._w_fixed_np = torch.as_tensor(w_fixed, dtype=dtype).numpy()
 
-        # The device operator: in float32 the banded one when the graph
-        # admits a narrow RCM band (and use_banded is not False), else the
-        # matrix-free one; in float64 always the matrix-free one.
+        # The device operator: the banded one when the graph admits a narrow
+        # RCM band and use_banded is True, or unset in float32; else the
+        # matrix-free one.
         all_idx = np.concatenate([fixed_idx, cand_idx], axis=0)
-        if use_banded and dtype != torch.float32:
-            raise _not_in_slice(
-                f"use_banded=True with dtype={dtype} (the banded operator "
-                "is the port's float32 route: its assembly kernel is "
-                "float32 only)", "float64 solves take the matrix-free "
-                "operator: leave use_banded unset")
-        bop, ridx = (build_banded_rcm(all_idx, n)
-                     if use_banded is not False and dtype == torch.float32
+        want_banded = (use_banded if use_banded is not None
+                       else dtype == torch.float32)
+        bop, ridx = (build_banded_rcm(all_idx, n) if want_banded
                      else (None, None))
         self._banded = None
         self._perm = None
@@ -359,11 +348,6 @@ class MAC(HostSolveMixin):
         self._group = None if mesh is None else MeshGroup(mesh)
         self._sharded = None
         if bop is not None:
-            if fiedler_method != "tracemin":
-                raise _not_in_slice(
-                    f"fiedler_method={fiedler_method!r} (LOBPCG or dense "
-                    "eigh) on the banded operator", "both run on the ELL "
-                    "operator here: pass use_banded=False")
             self._perm = bop.perm.numpy().astype(np.int64)
             if mesh is not None:
                 # The rank's slice of the slot tables (parallel.sharded).
@@ -387,7 +371,10 @@ class MAC(HostSolveMixin):
             self.op = build_operator(all_idx, n).to(self.device)
             operator = self.op
             self._int_idx = all_idx.astype(np.int64)
-        fast32 = self._banded is not None
+        # The reference's tuned operating point: the banded operator in
+        # float32. A banded float64 solve keeps the conservative defaults.
+        fast32 = self._banded is not None and dtype == torch.float32
+        self._fast32 = fast32
         m_fixed = fixed_idx.shape[0]
         self._w_fixed = torch.as_tensor(w_fixed, dtype=dtype,
                                         device=self.device)
@@ -406,8 +393,8 @@ class MAC(HostSolveMixin):
         self.fiedler_method = fiedler_method
         self.fiedler_precond = fiedler_precond
         # The route's automatic policy (mac.py's fast32 policy on the banded
-        # route, the reference defaults on the matrix-free one): explicit
-        # knobs win.
+        # float32 route, the reference defaults elsewhere): explicit knobs
+        # win.
         if fiedler_tol is None:
             fiedler_tol = 6e-4 if fast32 else 1e-8
         if fiedler_maxiter is None:
@@ -778,8 +765,8 @@ class MAC(HostSolveMixin):
         unrounded (R, m), upper (R,)); upper is each lane's Frank-Wolfe dual
         bound, not solve's float64 certificate.
 
-        The iteration policy is solve's: on the banded route 32 steps, the
-        warm-cap schedule (1, 4), (4, 2), (10, 1) unless
+        The iteration policy is solve's: on the banded float32 route 32
+        steps, the warm-cap schedule (1, 4), (4, 2), (10, 1) unless
         fiedler_warm_maxiter was set, the duality-gap stop off and the tail
         average from step 16 (with fw_tail_average); elsewhere 5 steps. Any
         unset gap tolerance is 1e-4. The warm inner-CG schedule applies.
@@ -799,7 +786,7 @@ class MAC(HostSolveMixin):
         schedule = None
         tail_from = None
         if max_iters is None:
-            if self._banded is not None:
+            if self._fast32:
                 max_iters = 32
                 if not self._warm_maxiter_user_set:
                     schedule = ((1, 4), (4, 2), (10, 1))
@@ -874,13 +861,14 @@ class MAC(HostSolveMixin):
         random_rounding_max_iters samples drawn from `seed`). fallback:
         return x_init when the rounded selection scores below it.
 
-        max_iters=None selects the route's policy: on the banded route the
-        fast32 one (32 steps, warm-cap schedule (1, 4), (4, 2), (10, 1),
-        tail averaging, gap stop off; for n <= 4096 the exact polish and
-        the round guard follow), on the host engine 20 exact steps under
-        the 1e-4 gap stop, elsewhere the reference's 5 steps. An explicit
-        max_iters keeps the reference semantics (gap stop 1e-4, no tail
-        averaging unless asked for).
+        max_iters=None selects the route's policy: on the banded float32
+        route the fast32 one (32 steps, warm-cap schedule (1, 4), (4, 2),
+        (10, 1), tail averaging, gap stop off; for n <= 4096 the exact
+        polish and the round guard follow), on the host engine 20 exact
+        steps under the 1e-4 gap stop, elsewhere (the banded float64
+        route too) the reference's 5 steps. An explicit max_iters keeps the
+        reference semantics (gap stop 1e-4, no tail averaging unless asked
+        for).
 
         In float32 with use_cache, upper_bound is a rigorous float64
         certificate: the final iterate's Rayleigh quotient (of the polish's
@@ -947,7 +935,7 @@ class MAC(HostSolveMixin):
                                  device=self.device)
         schedule = self._warm_schedule
         tail_avg = False
-        if max_iters is None and self._banded is None:
+        if max_iters is None and not self._fast32:
             max_iters = 5  # the reference's default
             tail_avg = self._tail_average_user_set and self.fw_tail_average
         elif max_iters is None:

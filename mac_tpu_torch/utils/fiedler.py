@@ -89,11 +89,31 @@ def _tracemin(apply_L, X, lnorm, Minv, *, lam0=None, warm_init=None, **kw):
     return tracemin_fiedler_lanes(apply_L, X, lnorm, Minv, **kw)
 
 
+def _lobpcg(apply_L, X, lnorm, Minv, *, xprev0, tol, maxiter, inner_iters,
+            agree):
+    """LOBPCG preconditioned by `inner_iters` PCG steps on the shifted
+    operator, each step preconditioned by Minv."""
+    def apply_shifted(V):
+        return apply_L(V) + _shift_term(V, lnorm)
+
+    def pc(R):
+        return pcg_fixed(apply_shifted, R, Minv, iters=inner_iters)
+
+    return lobpcg_fiedler(apply_L, X, lnorm, xprev0=xprev0, precond=pc,
+                          tol=tol, maxiter=maxiter, agree=agree)
+
+
 def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
                  coeff_dtype, pstate, use_prev, rebuild, return_pstate,
-                 sharded=None, **warm):
-    """The banded branch: assemble BD(w), build the two-level
-    preconditioner (warm-rebuilt from `pstate` when given), run TRACEMIN.
+                 method="tracemin", sharded=None, **warm):
+    """The banded branch: assemble BD(w), then by `method`
+    * "tracemin": build the two-level preconditioner (warm-rebuilt from
+      `pstate` when given) and run TRACEMIN;
+    * "lobpcg": the same preconditioner inside `inner_iters` PCG steps on
+      the shifted operator, and LOBPCG (one weight vector);
+    * "dense": the exact dense eigh of L(w) in the operator's RCM ids (a
+      batched eigh for lanes), the incoming `pstate` returned unchanged so
+      that a carried state keeps its structure.
     sharded: the parallel.sharded.ShardedBanded of `bop` on a mesh, whose
     row-sharded assembly and products take the place of the whole ones."""
     if sharded is None:
@@ -109,6 +129,11 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
 
         warm["agree"] = sharded.agree
 
+    if method == "dense":
+        L = (_banded.banded_dense(bop, BD) if sharded is None
+             else sharded.dense(BD))
+        res = dense_fiedler(L, X.shape[-1])
+        return (res, pstate) if return_pstate else res
     # ||L||_inf = 2 max weighted degree, read off BD's diagonal.
     lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
     pstate_out = None
@@ -118,10 +143,15 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
             rebuild=rebuild, return_state=True, sharded=sharded)
     else:
         Minv = _banded.make_banded_precond(bop, BD, w=w, sharded=sharded)
-    res = _tracemin(
-        apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
-        inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,
-        **warm)
+    if method == "lobpcg":
+        res = _lobpcg(apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
+                      maxiter=maxiter, inner_iters=inner_iters,
+                      agree=warm.get("agree", bool))
+    else:
+        res = _tracemin(
+            apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
+            maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
+            coeff_dtype=coeff_dtype, **warm)
     return (res, pstate_out) if return_pstate else res
 
 
@@ -157,20 +187,22 @@ def fiedler_pair_op(
     TRACEMIN over the lanes (its preconditioner state stays a single
     solve's); the ELL operator's lanes likewise (each lane's V-cycle, K1 or
     K1b, one launch for all lanes); the dense branch takes one batched
-    eigh; LOBPCG runs lane after lane. The lanes take TRACEMIN's cold entry
-    (no lam0).
+    eigh; LOBPCG runs lane after lane, on either operator. The lanes take
+    TRACEMIN's cold entry (no lam0).
 
     lam0 / warm_init: TRACEMIN's warm entry (ops.lobpcg.tracemin_fiedler).
     min_iters: TRACEMIN's least number of outer iterations; by default 1
     with lam0 given, else 0.
 
-    op: a BandedOperator (TRACEMIN with the banded two-level
-        preconditioner; pstate / use_prev / rebuild carry its coarse
-        inverse across calls), a GraphOperator, or the sharded form of
-        either on a mesh (mac_tpu_torch.parallel.sharded: ShardedBanded,
-        ShardedLaplacian, EdgeShardedLaplacian), which solves as the
-        meshless one with its products, degrees and assembly sharded and
-        every loop test agreed over the group. A GraphOperator takes:
+    op: a BandedOperator (TRACEMIN, or LOBPCG for method="lobpcg", with
+        the banded two-level preconditioner, whose coarse inverse pstate /
+        use_prev / rebuild carry across calls; the exact dense eigh of L(w)
+        in RCM ids for method="dense"), a GraphOperator, or the sharded
+        form of either on a mesh (mac_tpu_torch.parallel.sharded:
+        ShardedBanded, ShardedLaplacian, EdgeShardedLaplacian), which
+        solves as the meshless one with its products, degrees and assembly
+        sharded and every loop test agreed over the group. A GraphOperator
+        takes:
       * the exact dense eigh for method="dense" or a dense-mode operator of
         at most DENSE_MAX_N nodes;
       * otherwise the ELL (or dense-mode) product, the preconditioner
@@ -184,13 +216,20 @@ def fiedler_pair_op(
     if min_iters is None:
         min_iters = 1 if lam0 is not None else 0
     warm = dict(lam0=lam0, warm_init=warm_init, min_iters=min_iters)
+    if method == "lobpcg" and w.dim() == 2:
+        # LOBPCG runs lane after lane, on either operator.
+        res = _stack([fiedler_pair_op(
+            op, w[r], X[r], xprev0=xprev0, tol=tol, maxiter=maxiter,
+            inner_iters=inner_iters, method=method, precond=precond)
+            for r in range(w.shape[0])])
+        return (res, pstate) if return_pstate else res
     banded_sharded = isinstance(op, _sharded.ShardedBanded)
     if banded_sharded or isinstance(op, _banded.BandedOperator):
         return _banded_pair(
             op.bop if banded_sharded else op, w, X, xprev0=xprev0, tol=tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
             coeff_dtype=coeff_dtype, pstate=pstate, use_prev=use_prev,
-            rebuild=rebuild, return_pstate=return_pstate,
+            rebuild=rebuild, return_pstate=return_pstate, method=method,
             sharded=op if banded_sharded else None, **warm)
     sharded = None
     if isinstance(op, (_sharded.ShardedLaplacian,
@@ -207,13 +246,6 @@ def fiedler_pair_op(
     if method == "dense" or (op.mode == "dense"
                              and op.n <= DENSE_MAX_N):
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
-    if method == "lobpcg" and w.dim() == 2:
-        return _ret(_stack([fiedler_pair_op(
-            op if sharded is None else sharded, w[r], X[r], xprev0=xprev0,
-            tol=tol, maxiter=maxiter, inner_iters=inner_iters, method=method,
-            precond=precond)
-            for r in range(w.shape[0])]))
-
     if sharded is None:
         apply_L = lap_applier(op, w)
         lnorm = lap_inf_norm(op, w)
@@ -236,15 +268,9 @@ def fiedler_pair_op(
             return center(tridiag_solve_factored_fast(fac, center(B)))
 
     if method == "lobpcg":
-        def apply_shifted(V):
-            return apply_L(V) + _shift_term(V, lnorm)
-
-        def pc(R):
-            return pcg_fixed(apply_shifted, R, Minv, iters=inner_iters)
-
-        return _ret(lobpcg_fiedler(
-            apply_L, X, lnorm, xprev0=xprev0, precond=pc, tol=tol,
-            maxiter=maxiter, agree=warm.get("agree", bool)))
+        return _ret(_lobpcg(apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
+                            maxiter=maxiter, inner_iters=inner_iters,
+                            agree=warm.get("agree", bool)))
     return _ret(_tracemin(
         apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol, maxiter=maxiter,
         inner_iters=inner_iters, rel_tol=rel_tol, coeff_dtype=coeff_dtype,

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of the PyTorch port on the card: each against
-its plain PyTorch version, the wrappers' input checks, a banded solve that
-goes through K1 and K2 and a matrix-free one that goes through K1b, and the
+its plain PyTorch version (float32, and the float64 instantiations at
+rtol/atol 1e-10, K2/K2b bitwise), the wrappers' input checks, a banded solve
+that goes through K1 and K2 and a matrix-free one that goes through K1b, the
+banded float64 route and LOBPCG / dense eigh on the banded operator, and the
 baselines on the card (GreedyEig's lane-batched trial chunk through K1,
 GreedyESP's scan). Marked `cuda`; each test skips when no CUDA
 device is present. This file imports neither JAX nor the JAX package, so it
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k1_whole_row_limit
 from mac_tpu_torch.ops import banded
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
 from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
@@ -140,8 +143,8 @@ def test_dispatch_launches_the_kernel_its_rule_names(dev):
     """Past 32768 rows a seg-1024 or seg-128 factor launches K1b and an
     exact factor K1; up to 32768 rows every factor launches K1; a block
     wider than 32 columns launches the same kernels; a float64 block
-    launches neither and takes the plain scans on the card (the reference's
-    rule for that dtype), agreeing with the float32 kernel to 2e-4."""
+    launches the float64 instantiation of the kernel the same rule names
+    (never the plain scans), agreeing with the float32 kernel to 2e-4."""
     n = 33000
     d, e, rng = _chain(n, 9, dev)
     B = torch.as_tensor(rng.normal(size=(n, 40)), dtype=torch.float32,
@@ -160,15 +163,19 @@ def test_dispatch_launches_the_kernel_its_rule_names(dev):
         assert (tridiag_solve.launches - k1,
                 tridiag_solve_blocked.launches - k1b) == (
             (1, 0) if kern is tridiag_solve else (0, 1))
-    f = tridiag_ldl(d, e)
-    k1, k1b = tridiag_solve.launches, tridiag_solve_blocked.launches
-    got64 = tridiag_solve_factored_fast(f, B.double())
-    assert (tridiag_solve.launches, tridiag_solve_blocked.launches) == (
-        k1, k1b)
-    assert got64.dtype == torch.float64 and got64.is_cuda
-    torch.testing.assert_close(got64.float(),
-                               tridiag_solve_factored_fast(f, B),
-                               rtol=2e-4, atol=2e-4)
+    for f, kern in ((tridiag_ldl(d, e), tridiag_solve),
+                    (tridiag_ldl_blocked(d, e, 1024), tridiag_solve_blocked)):
+        k1 = dict(tridiag_solve.launches_by_dtype)
+        k1b = dict(tridiag_solve_blocked.launches_by_dtype)
+        got64 = tridiag_solve_factored_fast(f, B.double())
+        new = [w.launches_by_dtype.get("float64", 0) - c.get("float64", 0)
+               for w, c in ((tridiag_solve, k1), (tridiag_solve_blocked,
+                                                  k1b))]
+        assert new == ([1, 0] if kern is tridiag_solve else [0, 1])
+        assert got64.dtype == torch.float64 and got64.is_cuda
+        torch.testing.assert_close(got64.float(),
+                                   tridiag_solve_factored_fast(f, B),
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("graph", [(700, 120, 40, 3), (1500, 1200, 25, 3),
@@ -217,7 +224,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     f = tridiag_ldl(d, e)
     B = torch.as_tensor(rng.normal(size=(100, 4)), device=dev)
     with pytest.raises(TypeError):
-        tridiag_solve(f.dp, f.l, B)  # float64 right-hand sides
+        tridiag_solve(f.dp, f.l, B)  # float64 right-hand sides, float32 dp
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tridiag_solve(f.dp.half(), f.l.half(), B.half())
     with pytest.raises(ValueError):
         tridiag_solve(f.dp, f.l, B.float().t().contiguous().t())
     with pytest.raises(ValueError):
@@ -318,15 +327,16 @@ def test_banded_tails_on_cuda_agree_with_the_cpu_run(dev):
 
 def test_float64_routes_on_cuda_launch_no_kernel(dev):
     """In float64 on the card: the device route (ELL, the chain-solve
-    preconditioner through the plain scans) evaluates lambda_2 within 1e-8
-    relative of numpy's dense eigh and solves to k edges, the default
-    constructor sends a small instance to the host engine, and neither
-    launches a kernel."""
+    preconditioner) evaluates lambda_2 within 1e-8 relative of numpy's
+    dense eigh and solves to k edges, its chain solves all through K1's
+    float64 instantiation; the default constructor sends a small instance
+    to the host engine, which launches no kernel."""
     from mac_tpu_torch.solvers import MAC
 
     idx, w, n = _graph(400, 60, 30, 1)
     fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
     before = _launch_counts()
+    k1_64 = tridiag_solve.launches_by_dtype.get("float64", 0)
     mac = MAC(fixed, cands, n, dtype=torch.float64)
     assert (mac.device.type, mac.fiedler_backend, mac.fiedler_precond) == (
         "cuda", "device", "tridiag")
@@ -335,6 +345,10 @@ def test_float64_routes_on_cuda_launch_no_kernel(dev):
     assert abs(mac.evaluate_objective(x) - ref) <= 1e-8 * ref
     rounded, _, upper = mac.solve(20)
     assert rounded.sum() == 20 and np.isfinite(upper)
+    k1, k1b, k2 = (a - b for a, b in zip(_launch_counts(), before))
+    assert k1 > 0 and (k1b, k2) == (0, 0)
+    assert tridiag_solve.launches_by_dtype["float64"] - k1_64 == k1
+    before = _launch_counts()
     host = MAC(fixed, cands, n)
     assert (host.dtype, host.fiedler_backend) == (torch.float64, "host")
     assert host.solve(20)[0].sum() == 20
@@ -502,3 +516,145 @@ def test_sweep_on_cuda_goes_through_the_lane_kernels(dev):
     assert tridiag_solve.launches > t0
     assert [int(r.sum()) for r in rounded] == ks
     assert np.all(np.isfinite(unrounded)) and np.all(np.isfinite(upper))
+
+
+# The float64 instantiations. K1 splits its rows over a 16-block cluster
+# and keeps a block's rows in shared memory while they fit: with 8-byte
+# elements at q = 4 up to 16 blocks of 4140 rows (n 66240), past that the
+# tiled two-pass branch (chip_smoke.k1_whole_row_limit).
+F64 = dict(rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("n,q,blocked", [
+    (1, 1, False), (31, 3, False), (2500, 4, False), (10000, 4, True),
+    (10001, 5, False), (1001, 130, False), (5000, 200, False),
+    (33000, 40, False), (100000, 4, False), (4000, 4, True)]
+    + [(k1_whole_row_limit(4, 8) + d, 4, False) for d in (0, 1)])
+def test_tridiag_kernel_f64_matches_plain(dev, n, q, blocked):
+    """K1's float64 instantiation against its plain version at rtol/atol
+    1e-10: ragged n, one to 200 right-hand sides, exact and blocked
+    factors, an exact factor on each side of the whole-row / tiled
+    threshold, past one launch's 128 columns."""
+    d, e, rng = _chain(max(n, 2), n, dev)
+    d, e = d[:n].double(), e[:n - 1].double()
+    f = (tridiag_ldl_blocked(d, e, block=128) if blocked
+         else tridiag_ldl(d, e))
+    B = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float64,
+                        device=dev)
+    before = tridiag_solve.launches_by_dtype.get("float64", 0)
+    got = tridiag_solve(f.dp, f.l, B)
+    ref = tridiag_solve_plain(f.dp, f.l, B)
+    torch.cuda.synchronize()
+    assert tridiag_solve.launches_by_dtype["float64"] == before + 1
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, ref, **F64)
+
+
+@pytest.mark.parametrize("n,q,block,misaligned", [
+    (100000, 4, 1024, False), (40000, 8, 1024, False), (1025, 5, 1024, False),
+    (40000, 32, 1024, False), (1000, 4, 96, False), (33000, 4, 128, False),
+    (100000, 4, 1024, True), (40000, 8, 1024, True), (1, 1, 1024, False)])
+def test_blocked_tridiag_kernel_f64_matches_plain(dev, n, q, block,
+                                                  misaligned):
+    """K1b's float64 instantiation against its plain version at rtol/atol
+    1e-10 on its three load paths (q 4: the tile; q 8, 32: four values per
+    row; q 5, or a right-hand side 8 bytes off a 16-byte boundary: value by
+    value), segments of 1024, 128 and 96 rows."""
+    d, e, rng = _chain(max(n, 2), n + 3, dev)
+    d, e = d[:n].double(), e[:n - 1].double()
+    f = tridiag_ldl_blocked(d, e, 1024) if n > 1 else tridiag_ldl(d, e)
+    B = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float64,
+                        device=dev)
+    if misaligned:
+        flat = torch.empty(n * q + 1, dtype=torch.float64, device=dev)
+        flat[1:] = B.reshape(-1)
+        B = flat[1:].view(n, q)
+        assert B.is_contiguous() and B.data_ptr() % 16 == 8
+    before = tridiag_solve_blocked.launches_by_dtype.get("float64", 0)
+    got = tridiag_solve_blocked(f.dp, f.l, B, block=block)
+    ref = tridiag_solve_blocked_plain(f.dp, f.l, B, block=block)
+    torch.cuda.synchronize()
+    assert tridiag_solve_blocked.launches_by_dtype["float64"] == before + 1
+    torch.testing.assert_close(got, ref, **F64)
+
+
+@pytest.mark.parametrize("R,n,q,blocked", [
+    (8, 10000, 4, False), (2, 100000, 4, True), (3, 40000, 8, True),
+    (2, 5000, 200, False)])
+def test_tridiag_kernels_f64_lanes_match_plain(dev, R, n, q, blocked):
+    """The float64 lane forms of K1 and K1b (a factor per lane) against
+    their plain versions at 1e-10."""
+    d, e, rng = _chain(n, 3 * R + n, dev)
+    dd = d.double() * torch.as_tensor(1.0 + rng.rand(R, 1), device=dev)
+    ee = e.double().expand(R, -1)
+    f = tridiag_ldl_blocked(dd, ee, 1024) if blocked else tridiag_ldl(dd, ee)
+    B = torch.as_tensor(rng.normal(size=(R, n, q)), dtype=torch.float64,
+                        device=dev)
+    kern, plain = ((tridiag_solve_blocked, tridiag_solve_blocked_plain)
+                   if blocked else (tridiag_solve, tridiag_solve_plain))
+    got = kern(f.dp, f.l, B)
+    torch.testing.assert_close(got, plain(f.dp, f.l, B), **F64)
+
+
+@pytest.mark.parametrize("graph", [(700, 120, 40, 3), (1500, 1200, 25, 3),
+                                   (4500, 2000, 40, 4)])
+def test_assemble_kernel_f64_bitwise_equals_plain(dev, graph):
+    """K2/K2b's float64 instantiation (128 KB tiles) against its plain
+    version, bitwise, with and without the overflow split, single and with
+    3 lanes (the middle lane's weights are w); float32's kernel on w
+    within 1e-6 of it."""
+    idx, w, n = _graph(*graph)
+    bop, _ = banded.build_banded_rcm(idx, n)
+    bop = bop.to(dev)
+    w64 = torch.as_tensor(w, dtype=torch.float64, device=dev)
+    W = w64 * torch.linspace(0.5, 1.5, 3, dtype=torch.float64,
+                             device=dev)[:, None]
+    from chip_smoke import k2_args
+
+    for weights in (w64, W):
+        args = k2_args(bop, weights)
+        before = assemble_ut.launches_by_dtype.get("float64", 0)
+        got = assemble_ut(*args)
+        ref = assemble_ut_plain(*args)
+        torch.cuda.synchronize()
+        assert assemble_ut.launches_by_dtype["float64"] == before + 1
+        assert got.dtype == torch.float64 and torch.equal(got, ref)
+    ut32 = assemble_ut(*k2_args(bop, w64.float()))
+    torch.testing.assert_close(ut32, got[1].float(), rtol=1e-6, atol=1e-6)
+
+
+def test_banded_float64_and_methods_on_cuda(dev):
+    """use_banded=True in float64 on the card: the banded operator with the
+    reference's conservative knobs and no host tails, K2 and K1 launched in
+    float64 only, exactly k edges, upper bound at least the relaxed
+    lambda_2, which agrees with the CPU run's to 1e-9 relative (the same
+    float64 semantics); LOBPCG and the dense eigh on the banded operator
+    (float32) select exactly k edges too."""
+    from mac_tpu_torch.solvers import MAC
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    idx, w, n = _graph(600, 110, 9, 11)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    k = len(cands[1]) // 2
+    lam = {}
+    for device in ("cuda", "cpu"):
+        mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float64,
+                  device=device)
+        assert mac._banded is not None and not mac.fw_polish
+        assert (mac.fiedler_tol, mac.fiedler_maxiter) == (1e-8, 200)
+        k1 = dict(tridiag_solve.launches_by_dtype)
+        k2 = dict(assemble_ut.launches_by_dtype)
+        rounded, unrounded, upper = mac.solve(k)
+        if device == "cuda":
+            for wrapper, was in ((tridiag_solve, k1), (assemble_ut, k2)):
+                now = wrapper.launches_by_dtype
+                assert now.get("float64", 0) > was.get("float64", 0)
+                assert now.get("float32", 0) == was.get("float32", 0)
+        lam[device] = scipy_lam2(mac.laplacian(unrounded))
+        assert rounded.sum() == k and upper >= lam[device] * (1 - 1e-9)
+    assert abs(lam["cuda"] - lam["cpu"]) <= 1e-9 * lam["cpu"], lam
+    for method in ("lobpcg", "dense"):
+        mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+                  fiedler_method=method, device="cuda")
+        rounded, unrounded, upper = mac.solve(k, max_iters=3)
+        assert rounded.sum() == k and np.all(np.isfinite(unrounded))

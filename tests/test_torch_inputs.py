@@ -137,19 +137,21 @@ CPU_MESH = "a one-rank gloo mesh on the CPU, made in the test"
      (TypeError, "DeviceMesh")),
     (dict(device="cuda", use_banded=False, mesh=CPU_MESH),
      (ValueError, "contradicts the mesh")),
-    (dict(device="cpu", use_banded=True, dtype=torch.float64), "float64"),
-    (dict(BANDED32, fiedler_method="lobpcg"), "LOBPCG"),
+    (dict(device="cpu", use_banded=True, dtype=torch.float64),
+     (torch.float64, "device", True, False, False)),
+    (dict(BANDED32, fiedler_method="lobpcg"),
+     (torch.float32, "device", True, True, True)),
 ])
 def test_unported_routes_raise(kwargs, want):
     """The constructor's routes on a small banded graph: the default one
-    (the size gate sends it to the float64 host engine) and the banded
-    float32 one with its exact tails construct, with the dtype, backend,
-    operator, fw_polish and round_guard the reference resolves; the routes
-    the port still lacks (the banded operator in float64, LOBPCG on the
-    banded operator) raise NotImplementedError naming what to do, and
-    nothing runs in their place. A mesh that is no DeviceMesh is a
-    TypeError, and a device that contradicts the mesh's (a one-rank gloo
-    mesh on the CPU here) a ValueError."""
+    (the size gate sends it to the float64 host engine), the banded float32
+    one with its exact tails, and the two routes that once raised
+    NotImplementedError: the banded operator in float64 (the reference's
+    conservative knobs, no host tails) and LOBPCG on the banded operator
+    construct, with the dtype, backend, operator, fw_polish and round_guard
+    the reference resolves. A mesh that is no DeviceMesh is a TypeError,
+    and a device that contradicts the mesh's (a one-rank gloo mesh on the
+    CPU here) a ValueError."""
     fixed, cands, n = _small_problem()
     if isinstance(want, tuple) and isinstance(want[0], type):
         exc, match = want
@@ -167,13 +169,16 @@ def test_unported_routes_raise(kwargs, want):
         with pytest.raises(exc, match=match):
             MAC(fixed, cands, n, **kwargs)
         return
-    if isinstance(want, str):
-        with pytest.raises(NotImplementedError, match=want):
-            MAC(fixed, cands, n, **kwargs)
-        return
     mac = MAC(fixed, cands, n, **kwargs)
     assert (mac.dtype, mac.fiedler_backend, mac._banded is not None,
             mac.fw_polish, mac.round_guard) == want
+    assert mac.fiedler_method == kwargs.get("fiedler_method", "tracemin")
+    if mac._banded is not None and mac.dtype == torch.float64:
+        # Not the fast32 policy: the reference's conservative knobs.
+        assert (mac.fiedler_tol, mac.fiedler_maxiter, mac.fiedler_inner_iters,
+                mac.fiedler_rel_tol, mac.fiedler_coeff_dtype,
+                mac.fw_tail_average, mac._warm_inner_schedule) == (
+            1e-8, 200, 16, None, None, False, None)
 
 
 def test_unported_solve_options_raise():
@@ -197,17 +202,19 @@ def test_graph_without_narrow_band_raises():
     """Expander-like loop closures leave no narrow band. Even with
     use_banded=True such a graph takes the matrix-free ELL operator in
     original node ids, where fw_polish and round_guard resolve False, as in
-    the reference, and Madow rounding runs there. What it still raises for
-    is the banded operator in float64; without use_banded, float64 takes
-    the ELL operator too."""
+    the reference, and Madow rounding runs there. So does a float64 solver
+    with use_banded=True (no band to take), and without use_banded, float64
+    takes the ELL operator too."""
     rng = np.random.RandomState(0)
     n = 2000
     chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
     rand = np.sort(rng.randint(0, n, size=(2000, 2)), axis=1)
     rand = rand[rand[:, 1] - rand[:, 0] > 1]
     fixed, cands = (chain, np.ones(n - 1)), (rand, np.ones(len(rand)))
-    with pytest.raises(NotImplementedError, match="float64"):
-        MAC(fixed, cands, n, **dict(BANDED32, dtype=torch.float64))
+    banded64 = MAC(fixed, cands, n, **dict(BANDED32, dtype=torch.float64))
+    assert banded64._banded is None and banded64.op.mode == "ell"
+    assert banded64.dtype == torch.float64
+    assert not banded64.fw_polish and not banded64.round_guard
     mac64 = MAC(fixed, cands, n, dtype=torch.float64, device="cpu")
     assert mac64._banded is None and mac64.op.mode == "ell"
     assert mac64.fiedler_backend == "device"

@@ -64,6 +64,9 @@ SWEEP = (chain_plus_loops(300, 100, seed=11), CAPPED, [10, 20, 30, 40],
 BANDED = (chain_plus_loops(640, 200, seed=15),
           dict(use_banded=True, dtype=torch.float32, fiedler_maxiter=20),
           100, dict(max_iters=6))
+# The banded operator in float64 with LOBPCG or the dense eigh.
+BANDED64 = (BANDED[0], dict(use_banded=True, fiedler_maxiter=10, **F64), 100,
+            dict(max_iters=2))
 BIG = (chain_plus_loops(10_000, 2_000, seed=11),
        dict(F64, fiedler_maxiter=20, fiedler_inner_iters=6), 1000,
        dict(max_iters=3))
@@ -97,7 +100,8 @@ def sliced_ut(mesh, case):
 
 def rank_two(rank, world):
     """The 2-rank cases: ELL rows and edges, banded (a solve and a sweep
-    of 2 budgets), the sliced ut rows,
+    of 2 budgets; float64 solves by LOBPCG and by the dense eigh), the
+    sliced ut rows,
     and the ELL solve with rank 1's share of the coarse matrix one ulp
     off."""
     mesh = make_mesh(device_type="cpu")
@@ -108,6 +112,9 @@ def rank_two(rank, world):
            "banded_sweep": MAC(fixed, cands, n, mesh=mesh, **knobs
                                ).solve_sweep(BANDED_KS, max_iters=3),
            "ut": sliced_ut(mesh, BANDED)}
+    for method in ("lobpcg", "dense"):
+        out[f"banded64_{method}"] = mesh_solve(mesh, BANDED64,
+                                               fiedler_method=method)
     plain = sharded.coarse_laplacian
 
     def off_by_one_ulp(op, w):
@@ -253,6 +260,22 @@ def test_banded_mesh_matches_meshless(banded_meshless, two):
     np.testing.assert_allclose(lam2(mac, x1), lam2(mac, x2), rtol=1e-4)
     assert int(r1.sum()) == BANDED[2]
     same_everywhere(two, "banded")
+
+
+@pytest.mark.parametrize("method", ["lobpcg", "dense"])
+def test_banded_f64_methods_on_mesh_match_meshless(two, method):
+    """The banded operator in float64 on 2 ranks with LOBPCG (the sharded
+    products inside its PCG preconditioner) and with the dense eigh (each
+    rank's rows of L(w), summed by one all-reduce) against the meshless
+    solve: relaxed objective and bound rtol 1e-8, the same rounding, every
+    rank the same arrays."""
+    mac, (r2, x2, u2) = meshless(BANDED64, fiedler_method=method)
+    assert mac._banded is not None and not mac.fw_polish
+    r1, x1, u1 = two[0][f"banded64_{method}"]
+    np.testing.assert_allclose(lam2(mac, x1), lam2(mac, x2), rtol=1e-8)
+    np.testing.assert_allclose(u1, u2, rtol=1e-8)
+    np.testing.assert_array_equal(r1, r2)
+    same_everywhere(two, f"banded64_{method}")
 
 
 def test_big_solve_on_4_ranks_matches_meshless(big_meshless, four):

@@ -170,12 +170,27 @@ def test_singular_coarse_level_is_regularised():
      "LOBPCG"),
 ])
 def test_routes_that_still_raise(kwargs, match):
-    """The routes the port lacks raise NotImplementedError; a mesh that is
-    no torch.distributed DeviceMesh is a TypeError (meshes are ported)."""
+    """A mesh that is no torch.distributed DeviceMesh is a TypeError
+    (meshes are ported). The two routes that raised NotImplementedError
+    until the port had them now resolve: use_banded=True in float64 builds
+    the banded operator under the reference's non-fast32 knobs with
+    fw_polish and round_guard False; LOBPCG on the banded float32 operator
+    keeps the fast32 policy and its host tails."""
     fixed, cands, n = small_banded_problem()
-    exc = TypeError if "mesh" in kwargs else NotImplementedError
-    with pytest.raises(exc, match=match):
-        MAC(fixed, cands, n, device="cpu", **kwargs)
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match=match):
+            MAC(fixed, cands, n, device="cpu", **kwargs)
+        return
+    mac = MAC(fixed, cands, n, device="cpu", **kwargs)
+    assert mac.dtype == kwargs["dtype"] and mac.fiedler_backend == "device"
+    assert mac._banded is not None and mac.op is None
+    fast32 = kwargs["dtype"] == torch.float32
+    assert mac._fast32 == fast32
+    assert mac.fw_polish == mac.round_guard == fast32
+    assert mac.fiedler_method == kwargs.get("fiedler_method", "tracemin")
+    assert (mac.fiedler_tol, mac.fiedler_maxiter, mac.fiedler_inner_iters,
+            mac.fiedler_rel_tol) == ((6e-4, 50, 10, 3e-2) if fast32
+                                     else (1e-8, 200, 16, None))
 
 
 def test_bad_knobs_raise():

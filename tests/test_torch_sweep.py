@@ -192,13 +192,25 @@ def test_float32_sweep_matches_jax(banded, R):
 
 
 def test_sweep_refuses_the_banded_float64_route():
-    """use_banded=True with float64 raises when the solver is built, so no
-    sweep reaches the banded operator in float64 (as no solve does)."""
+    """use_banded=True with float64 (a route the port once refused) now
+    solves a sweep on the banded operator in float64: the reference's 5
+    steps, each lane rounded to exactly its k, each lane's dual bound at
+    least its relaxed lambda_2 (scipy referee) and within 1e-9 relative of
+    its serial solve's relaxed lambda_2 (tests/test_torch_banded_methods.py
+    holds the route against the JAX package's sweep)."""
     idx, w, n = pose_graph(600, 200, 40, 5)
     fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
-    with pytest.raises(NotImplementedError, match="use_banded=True"):
-        MAC(fixed, cands, n, dtype=torch.float64, use_banded=True,
-            device="cpu").solve_sweep([10, 20])
+    mac = MAC(fixed, cands, n, dtype=torch.float64, use_banded=True,
+              device="cpu")
+    assert mac._banded is not None and not mac._fast32
+    ks = [10, 20]
+    rounded, unrounded, upper = mac.solve_sweep(ks)
+    assert [int(r.sum()) for r in rounded] == ks
+    for r, k in enumerate(ks):
+        lam = scipy_lam2(mac.laplacian(unrounded[r]))
+        assert upper[r] >= lam * (1 - 1e-9)
+        serial = scipy_lam2(mac.laplacian(mac.solve(k)[1]))
+        assert abs(lam - serial) <= 1e-9 * serial, (k, lam, serial)
 
 
 def test_sweep_checks_its_arguments():

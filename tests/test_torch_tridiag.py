@@ -102,8 +102,8 @@ def test_blocked_plain_solve_matches_pallas_kernel(n, q, kind):
 
 def test_tridiag_dispatch_refuses_unported_blocked_kernel(monkeypatch):
     """No blocked factor is refused any more, now that K1b is ported (a
-    float64 block takes the plain scans on any device, which
-    tests/test_torch_mac_f64.py and tests/test_torch_cuda.py check).
+    float64 block takes the same kernels' float64 instantiations, which
+    tests/test_torch_banded_f64.py and tests/test_torch_cuda.py check).
     The dispatch rule of the JAX package: past 32768
     rows a factor decoupled at segments dividing 1024 (seg 1024 or 128)
     goes to K1b, and an exact factor to K1 (the TPU's 32768 cap was its
