@@ -39,15 +39,29 @@ its wall time printed:
      branches: q = 1, 3, 5 (scalar loads), q = 40 and 130 (many column
      groups), segments of 128 and 256 rows passed explicitly, n = 1 and
      n = 1025 (a last segment of one row), and a right-hand side 4 bytes
-     off a 16-byte boundary; timed at (100000, 4), beside the blocked
-     LDL^T factorisation of that chain; its lane form at (2, 100000, 4) on
-     the chain factors of phase 8b's two budget lanes, checked and timed;
+     off a 16-byte boundary; timed at (100000, 4); its lane form at (2,
+     100000, 4) on the chain factors of phase 8b's two budget lanes,
+     checked and timed;
+  3d. the chain factor's kernels: tridiag_ldl_blocked (K3b) bitwise equal
+     to its plain version on city10000's chain at its start weights (n
+     10000, block 128, as banded.chain_factor hands it over), the n =
+     100000 two-grid chain (block 1024), a chain of 100003 rows (a partial
+     last segment), city10000's 8 budget lanes and phase 8b's 2, in
+     float32 and float64; tridiag_ldl (K3) on sphere2500's chain, n =
+     32768 and 40000 and city10000's 8 lanes, within one ulp of its plain
+     doubling scan in float32 and, in float64, within 1e-13 relative of an
+     extended-precision referee (pivot_referee) and of the plain scan
+     within that plus the scan's own distance from the referee;
+     tridiag_solve(d, e, B) at n = 40000 through one K3 launch; each timed
+     (device, call, plain call, bound, the dependent chain's length);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
-     the loop closures; K1 and K2 must have launched; the relaxed lambda_2
-     (scipy float64 referee) must sit within -1e-3 relative of the
-     reference optimum 0.06944591018149751, and the rounded selection must
-     hold exactly K edges;
+     the loop closures; K1, K2 and K3b must have launched; the relaxed
+     lambda_2 (scipy float64 referee) must sit within -1e-3 relative of
+     the reference optimum 0.06944591018149751 and print as +3.623e-04
+     (the chain factor is bitwise its plain version's, so the gap cannot
+     move), and the rounded selection must hold exactly K edges; from here
+     to phase 10 no plain chain factor may be handed a CUDA tensor;
   5. the matrix-free path, as scripts/bench_scale.py drives it: the
      n = 100000 expander-like graph (chain plus loop closures spanning up
      to n/4, no narrow band), K = 12500 of 50000 candidates, x_init the
@@ -146,6 +160,14 @@ its wall time printed:
      n = 600 graph, 3 steps: finite, exactly K; (f) phase 5's expander in
      float64 (max_iters=2): the V-cycle through K1b's float64
      instantiation alone, exactly K, upper >= evaluate_objective.
+ 11. the chain factor's kernels end to end: warm solves of city10000,
+     sphere2500 and the n = 100000 expander (K = 12500, max_iters=10) in
+     turns old, new, new, old, "old" with the factor patched back to its
+     plain loops; each turn's wall, relaxed gap and factorisations.
+Phases 4, 5, 6 (sphere2500), 8a, 8b, 8d, 9a-9c, 10b and 10f also require
+the chain factor's kernel of their route to have launched (K3b on the
+banded route past 4096 nodes and on the matrix-free route past 32768, K3
+below), in the dtype and lane count of the route.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
 their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
@@ -153,7 +175,9 @@ device_ms), call_ms, the plain version's call time, the yardstick's device
 time (library_ms), and the least time the card could take, bound_ms; one
 entry per lane shape, its launches those with that many lanes in phase 8;
 one entry per float64 kernel, "dtype": "float64", its launches those of
-its phase-10 path) and the result line {"ok": true, "device": {...}}.
+its phase-10 path; K3 and K3b with "replaces" naming the JAX scan they
+stand for and "chain_steps" the length of their dependent chain) and the
+result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -191,6 +215,12 @@ H100_F64_FLOPS = 34e12
 F64_TOL = 1e-10
 # Phase 10b: the banded float64 solves' relaxed gap floor.
 GAP_FLOOR_F64 = -1e-4
+# Phase 3d: K3 (exact factor) in float64 against the extended-precision
+# referee (pivot_referee), relative.
+F64_FACTOR_RTOL = 1e-13
+# Phase 4: city10000's relaxed gap as printed since K1's redesign: the chain
+# factor is bitwise its plain version's, so the gap cannot move.
+CITY_GAP_DIGITS = "+3.623e-04"
 
 
 def fail(msg: str) -> None:
@@ -299,22 +329,31 @@ def k1_whole_row_limit(q: int, itemsize: int) -> int:
     return 16 * (((200 * 1024 // itemsize - fixed) // (qg + 2)) & ~3)
 
 
+# The plain versions of the chain factor's kernels K3 and K3b.
+FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
+
+
 class PlainOnCard:
     """While active, counts the calls of the kernels' plain versions that
     are given CUDA tensors (the main paths must make none: every block on
-    the card goes to a kernel). `calls` maps each plain version's name to
-    its count."""
+    the card goes to a kernel): those named in `names`, by default every
+    kernel's. `calls` maps each plain version's name to its count."""
+
+    def __init__(self, names=None):
+        self.names = names
 
     def __enter__(self):
         import torch
 
-        from mac_tpu_torch.ops.kernels import assemble, tridiag
+        from mac_tpu_torch.ops.kernels import assemble, ldl, tridiag
 
         self.calls = {}
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (tridiag, "tridiag_solve_plain"),
             (tridiag, "tridiag_solve_blocked_plain"),
-            (assemble, "assemble_ut_plain"))]
+            (assemble, "assemble_ut_plain"),
+            (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]))
+            if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
                 if any(isinstance(a, torch.Tensor) and a.is_cuda
@@ -348,6 +387,149 @@ class PlainScans:
     def __exit__(self, *exc):
         self.mod.tridiag_solve, self.mod.tridiag_solve_blocked = self.saved
         return False
+
+
+class PlainFactor:
+    """While active, the chain factor runs its plain loops (the doubling
+    scan, the `block`-step recurrence) in place of K3 and K3b on the card,
+    as before those kernels existed, for a comparison run; `calls` counts
+    them."""
+
+    def __enter__(self):
+        from mac_tpu_torch.ops.kernels import ldl
+
+        self.mod, self.calls = ldl, 0
+        self.saved = (ldl.tridiag_ldl, ldl.tridiag_ldl_blocked)
+
+        def plain(real):
+            def run(*args):
+                self.calls += 1
+                return real(*args)
+            return run
+
+        ldl.tridiag_ldl = plain(ldl.tridiag_ldl_plain)
+        ldl.tridiag_ldl_blocked = plain(ldl.tridiag_ldl_blocked_plain)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tridiag_ldl, self.mod.tridiag_ldl_blocked = self.saved
+        return False
+
+
+def captured_args(mod, name, fn):
+    """The arguments (positional, then keyword values) of the first call of
+    mod.<name> while fn() runs: what a path hands that function."""
+    real, got = getattr(mod, name), []
+
+    def record(*args, **kw):
+        got.append(args + tuple(kw.values()))
+        return real(*args, **kw)
+
+    setattr(mod, name, record)
+    try:
+        fn()
+    finally:
+        setattr(mod, name, real)
+    if not got:
+        fail(f"{name} was never called")
+    return got[0]
+
+
+def pivot_referee(d, e):
+    """(dp, l) of the exact factor by the sequential pivot recurrence in
+    the host's extended precision (numpy longdouble), floored as the
+    kernels floor, as float64 arrays (lanes, n): the referee of K3 and of
+    its plain doubling scan in float64."""
+    import numpy as np
+
+    ld = np.longdouble
+    d2 = np.atleast_2d(d.double().cpu().numpy()).astype(ld)
+    e2 = np.atleast_2d(e.double().cpu().numpy()).astype(ld)
+    dp = np.empty_like(d2)
+    prev = np.ones(d2.shape[0], dtype=ld)
+    for i in range(d2.shape[1]):
+        prev = d2[:, i] - (e2[:, i - 1] ** 2 / prev if i else 0)
+        dp[:, i] = prev
+    dp = np.maximum(dp, (8 * np.finfo(np.float64).eps
+                         * d2.max(axis=1, keepdims=True)))
+    l = np.concatenate([np.zeros((d2.shape[0], 1), dtype=ld),
+                        e2 / dp[:, :-1]], axis=1)
+    return dp, l
+
+
+def factor_check(kern, plain, args, label, exact):
+    """Kernel K3 (exact=True) or K3b (exact=False; bitwise) against its
+    plain version on args = (d, e[, block]); the largest absolute error of
+    dp and l. K3 in float32: at most one ulp from the plain version. K3 in
+    float64: within F64_FACTOR_RTOL relative of pivot_referee, and from
+    the plain doubling scan by no more than that plus the plain scan's own
+    distance from the referee (the doubling scan's rounding grows with the
+    chain's conditioning, the referee's does not)."""
+    import numpy as np
+    import torch
+
+    dp, l = kern(*args)
+    ref_dp, ref_l = plain(*args)
+    torch.cuda.synchronize()
+    dtype = str(args[0].dtype).split(".")[-1]
+    pairs = ((dp, ref_dp), (l, ref_l))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    if not exact:
+        ok = all(torch.equal(a, b) for a, b in pairs)
+        what = "bitwise equal" if ok else "MISMATCH"
+    elif args[0].dtype == torch.float32:
+        ulps = max(int((a.view(torch.int32).long() - b.view(torch.int32)
+                        .long()).abs().max()) for a, b in pairs)
+        ok = ulps <= 1
+        what = f"max {ulps} float32 ulp -> {'ok' if ok else 'MISMATCH'}"
+    else:
+        def rel(a, b):
+            a = np.atleast_2d(a.cpu().numpy()).astype(np.longdouble)
+            b = np.atleast_2d(b.cpu().numpy() if isinstance(b, torch.Tensor)
+                              else b).astype(np.longdouble)
+            return float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                           1e-300)))
+
+        ref = pivot_referee(*args[:2])
+        rel_kp = max(rel(a, b) for a, b in pairs)
+        rel_k = max(rel(dp, ref[0]), rel(l, ref[1]))
+        rel_p = max(rel(ref_dp, ref[0]), rel(ref_l, ref[1]))
+        ok = (rel_k <= F64_FACTOR_RTOL
+              and rel_kp <= F64_FACTOR_RTOL + rel_p)
+        what = (f"max rel to the plain scan {rel_kp:.3e}; to the "
+                f"extended-precision referee: kernel {rel_k:.3e}, plain "
+                f"scan {rel_p:.3e} -> {'ok' if ok else 'MISMATCH'}")
+    ok = ok and bool(torch.isfinite(dp).all() and torch.isfinite(l).all())
+    print(f"{kern.__name__} {dtype} {label} {tuple(args[0].shape)}: "
+          f"max|kernel - plain| {err:.3e}, {what}", flush=True)
+    if not ok:
+        fail(f"{kern.__name__} disagrees with its plain version on {label} "
+             f"({dtype})")
+    return err
+
+
+def factor_times(kern, plain, args, label, steps, card):
+    """Device, call and plain times of one factorisation on args = (d,
+    e[, block]), its bound (d, e read once, dp, l written once; 5 float64
+    operations a row for K3b, 11 for K3, at the float64 peak) and its
+    dependent chain `steps` long, with the device time per step."""
+    d = args[0]
+    lanes = d.shape[0] if d.dim() == 2 else 1
+    n = d.shape[-1]
+    tm = {"device_ms": device_ms(lambda: kern(*args)),
+          "call_ms": call_ms(lambda: kern(*args)),
+          "plain_ms": call_ms(lambda: plain(*args), reps=10, warmup=1),
+          "chain_steps": steps}
+    tm["bound_ms"], tm["bound_by"] = bound(
+        d.element_size() * lanes * (4 * n - 1),
+        lanes * n * (5 if len(args) == 3 else 11), 8)
+    tm["ns_per_step"] = 1e6 * tm["device_ms"] / steps
+    print(f"{kern.__name__} time at {label}: kernel device "
+          f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, plain "
+          f"call {tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
+          f"({tm['bound_by']}); dependent chain {steps} steps, "
+          f"{tm['ns_per_step']:.1f} ns a step ({card})", flush=True)
+    return tm
 
 
 def by_dtype(counted):
@@ -904,7 +1086,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     if not gap_top >= GAP_FLOOR:
         fail(f"8a: the K = {ks[-1]} lane's gap {gap_top:+.3e} is below "
              f"{GAP_FLOOR}")
-    for name in ("tridiag_solve", "assemble_ut"):
+    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked"):
         if lanes_a[name].get(8, 0) <= 0:
             fail(f"8a: {name} never launched with 8 lanes: {lanes_a}")
     part_s = [time.perf_counter() - t8]
@@ -929,8 +1111,9 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
           f"{(lam5 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE:+.3e}; "
           f"upper {[f'{v:.9g}' for v in up5]}; launches by lanes {lanes_b} "
           f"({card})", flush=True)
-    if lanes_b["tridiag_solve_blocked"].get(2, 0) <= 0:
-        fail(f"8b: K1b never launched with 2 lanes: {lanes_b}")
+    for name in ("tridiag_solve_blocked", "tridiag_ldl_blocked"):
+        if lanes_b[name].get(2, 0) <= 0:
+            fail(f"8b: {name} never launched with 2 lanes: {lanes_b}")
     if [int(r.sum()) for r in r5] != ks5:
         fail(f"8b: rounded {[r.sum() for r in r5]}, want {ks5}")
     if not lam5 >= REFERENCE_LAM2_SCALE * (1 - 1e-3):
@@ -1002,7 +1185,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
         fail(f"8d: rounded {[r.sum() for r in r_s]}, want {ks_s}")
     if mac_s._banded is None or mac_s._banded.ov_rows:
         fail("8d: sphere2500 left K2's no-split banded form")
-    for name in ("tridiag_solve", "assemble_ut"):
+    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl"):
         if lanes_d[name].get(2, 0) <= 0:
             fail(f"8d: {name} never launched with 2 lanes: {lanes_d}")
     part_s.append(time.perf_counter() - t8)
@@ -1026,6 +1209,7 @@ def mesh_part(rank, world, card, dataset, synth5, walls):
     import torch
 
     from mac_tpu_torch.ops import banded
+    from mac_tpu_torch.ops.kernels import ldl
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut
     from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
                                                    tridiag_solve_blocked)
@@ -1038,7 +1222,8 @@ def mesh_part(rank, world, card, dataset, synth5, walls):
     from mac_tpu_torch.solvers import MAC, NaiveGreedy
     from mac_tpu_torch.utils.fiedler import scipy_lam2
 
-    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut)
+    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut,
+               ldl.tridiag_ldl, ldl.tridiag_ldl_blocked)
     mesh = make_mesh(device_type="cuda")
     # NCCL sets a group's communicator up at its first collective: do that
     # for 'graph' and the default group here, outside the timed solves.
@@ -1088,8 +1273,9 @@ def mesh_part(rank, world, card, dataset, synth5, walls):
         fail(f"9a: relaxed lambda_2 gap {gap:+.3e} below {GAP_FLOOR}")
     if int(r.sum()) != k:
         fail(f"9a: rounded {r.sum()} edges, want {k}")
-    if got_a["tridiag_solve"] <= 0 or got_a["assemble_ut"] <= 0:
-        fail(f"9a: the mesh path never launched K1 or K2b: {got_a}")
+    if min(got_a["tridiag_solve"], got_a["assemble_ut"],
+           got_a["tridiag_ldl_blocked"]) <= 0:
+        fail(f"9a: the mesh path never launched K1, K2b or K3b: {got_a}")
 
     # (a') K2b on the slot tables of each half of a two-way split.
     bop = mac._banded
@@ -1131,8 +1317,9 @@ def mesh_part(rank, world, card, dataset, synth5, walls):
         f"launches {got_b}", flush=True)
     if not gap_s >= GAP_FLOOR or int(r.sum()) != k_s:
         fail(f"9b: gap {gap_s:+.3e}, rounded {r.sum()} of {k_s}")
-    if got_b["assemble_ut"] <= 0 or got_b["tridiag_solve"] <= 0:
-        fail(f"9b: the mesh path never launched K2 or K1: {got_b}")
+    if min(got_b["assemble_ut"], got_b["tridiag_solve"],
+           got_b["tridiag_ldl"]) <= 0:
+        fail(f"9b: the mesh path never launched K2, K1 or K3: {got_b}")
 
     # (c) the n = 100000 expander, node rows and edges
     (fi5, wf5, ci5, wc5), k5, x5 = synth5
@@ -1158,8 +1345,9 @@ def mesh_part(rank, world, card, dataset, synth5, walls):
             fail(f"9c ({how}): non-finite output")
         if not gap5 >= GAP_FLOOR or int(r.sum()) != k5:
             fail(f"9c ({how}): gap {gap5:+.3e}, rounded {r.sum()} of {k5}")
-        if got["tridiag_solve_blocked"] <= 0:
-            fail(f"9c ({how}): the mesh path never launched K1b: {got}")
+        if min(got["tridiag_solve_blocked"], got["tridiag_ldl_blocked"]) <= 0:
+            fail(f"9c ({how}): the mesh path never launched K1b or K3b: "
+                 f"{got}")
 
     # (d) the budget sweep over 2 budgets, against the meshless sweep
     ks = [k // 2, k]
@@ -1220,7 +1408,8 @@ def float64_phase(dev, card, dataset, synth5, counted):
     banded n = 600 graph; (f) the n = 100000 expander of phase 5 in
     float64 (the V-cycle through K1b's float64 instantiation). Phase 8c is
     the float64 sweep (e). `counted` are the kernel wrappers. Returns the
-    float64 kernels' entries of the kernels line."""
+    float64 kernels' entries of the kernels line and the launches by dtype
+    of (b)'s two datasets and of (f)."""
     import numpy as np
     import torch
 
@@ -1518,8 +1707,14 @@ def float64_phase(dev, card, dataset, synth5, counted):
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                 "library_ms": tm.get("library_ms")}
 
+    for name, kern in (("city10000", "tridiag_ldl_blocked"),
+                       ("sphere2500", "tridiag_ldl")):
+        if launches_b[name][kern].get("float64", 0) <= 0:
+            fail(f"10b {name}: {kern} float64 never launched")
+    if got_f["tridiag_ldl_blocked"].get("float64", 0) <= 0:
+        fail("10f: K3b float64 never launched")
     city, sphere = launches_b["city10000"], launches_b["sphere2500"]
-    return [
+    return launches_b, got_f, [
         entry("tridiag_solve_f64", "tridiag.cu",
               "mac_tpu/ops/pallas/tridiag_kernel.py:44",
               f"({n}, 4), city10000's chain factor", k1,
@@ -1542,6 +1737,60 @@ def float64_phase(dev, card, dataset, synth5, counted):
     ]
 
 
+def factor_ab(card, cases, kernels):
+    """Phase 11: each case's warm solve in turns old, new, new, old in this
+    call, "old" with the chain factor patched back to its plain loops
+    (PlainFactor), "new" through K3/K3b (`kernels`); each turn's wall, its
+    relaxed gap against the case's reference and its factorisations (kernel
+    launches or plain calls). `cases` maps a name to (solve(), lam_ref(out)
+    -> (lambda_2, reference)); then one profiled warm solve of each on
+    the kernels (device busy time, kernels). Returns {name: {"old":
+    [walls], "new": [walls], "launches": per new solve, "plain_calls":
+    per old solve}}."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+
+    out = {}
+    for name, (solve, lam_ref) in cases.items():
+        res = out[name] = {"old": [], "new": []}
+        for turn in ("old", "new", "new", "old"):
+            reset_counts(*kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "old":
+                with PlainFactor() as pf:
+                    got = solve()
+                    torch.cuda.synchronize()
+                count = pf.calls
+            else:
+                got = solve()
+                torch.cuda.synchronize()
+                count = sum(kern.launches for kern in kernels)
+            wall = time.perf_counter() - t0
+            res[turn].append(wall)
+            res["launches" if turn == "new" else "plain_calls"] = count
+            lam, ref = lam_ref(got)
+            print(f"11 {name} {turn}: warm solve {wall:.4f} s, relaxed "
+                  f"lambda_2 {lam:.12g}, gap {(lam - ref) / ref:+.3e}, "
+                  f"factorisations {count} ("
+                  f"{'plain loops' if turn == 'old' else 'K3/K3b launches'})"
+                  f" ({card})", flush=True)
+            if not (np.all(np.isfinite(got[1])) and np.isfinite(lam)
+                    and count > 0):
+                fail(f"11 {name} {turn}: non-finite output or no factor")
+        print(f"11 {name}: old {[round(t, 4) for t in res['old']]} s, new "
+              f"{[round(t, 4) for t in res['new']]} s; mean new / old "
+              f"{sum(res['new']) / sum(res['old']):.3f} ({card})", flush=True)
+        busy, kernels_n, top = profiled_busy(solve)
+        print(f"11 {name} new, one profiled warm solve: device busy "
+              f"{busy:.3f} ms over {kernels_n} kernels and copies; largest "
+              f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
+              flush=True)
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1560,7 +1809,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from mac_tpu_torch.ops import banded, laplacian
-    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import _build, ldl
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
         reset_counts, tridiag_solve, tridiag_solve_blocked,
@@ -1583,7 +1832,7 @@ def main():
     # ---- 2. build the kernels, one nvcc per source, in parallel
     phase("2 build")
     t0 = time.perf_counter()
-    sources = ("tridiag", "assemble")
+    sources = ("tridiag", "assemble", "ldl")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1881,21 +2130,108 @@ def main():
           f"port {call_ms(lambda: apply5(B5)):.4f} ms, row-gather form "
           f"{call_ms(lambda: rows_apply(B5)):.4f} ms (max |diff| "
           f"{ell_err:.2e}) ({card})", flush=True)
-    ldl_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tridiag_ldl_blocked(d5, e5, block=1024)
-        torch.cuda.synchronize()
-        ldl_s.append(time.perf_counter() - t0)
-    ldl_med = statistics.median(ldl_s)
-    print(f"blocked LDL^T of the n = {SCALE_N} chain (1024-step float64 "
-          f"loop over {f5.dp.shape[0] // 1024 + 1} segments): median "
-          f"{1e3 * ldl_med:.3f} ms, {1e6 * ldl_med / 1024:.2f} us per step "
-          f"({card})", flush=True)
+    # ---- 3d. the chain factor's kernels against their plain versions
+    phase("3d K3, K3b against their plain versions")
+    k3, k3b = ldl.tridiag_ldl, ldl.tridiag_ldl_blocked
+    k3_plain, k3b_plain = ldl.tridiag_ldl_plain, ldl.tridiag_ldl_blocked_plain
+    f32, f64 = torch.float32, torch.float64
+
+    def chain_args(bop_, w_, name):
+        """What banded.chain_factor hands its factor (`name`) at weights w_:
+        (d, e) or (d, e, block)."""
+        return captured_args(banded, name, lambda: banded.chain_factor(
+            bop_, banded.assemble_bd(bop_, w_), w_))
+
+    city_args = chain_args(bop, w, "tridiag_ldl_blocked")
+    city8_args = chain_args(bop, w8, "tridiag_ldl_blocked")
+    sphere_args = chain_args(bop_sp, w_sp, "tridiag_ldl_auto")
+    sphere2_args = chain_args(bop_sp, w_sp2, "tridiag_ldl_auto")
+    if city_args[2] != 128 or tuple(city8_args[0].shape) != (8, n):
+        fail(f"city10000's chain factor: block {city_args[2]}, lanes "
+             f"{tuple(city8_args[0].shape)}")
+    d52l = d52 + 100 * torch.finfo(f32).eps * d52.amax(dim=-1, keepdim=True)
+    rng = np.random.RandomState(3)
+    n_r = SCALE_N + 3  # 97 segments of 1024 and a last one of 675 rows
+    e_r = -(0.5 + rng.rand(n_r - 1))
+    d_r = (0.1 + rng.rand(n_r) - np.concatenate([[0], e_r])
+           - np.concatenate([e_r, [0]]))
+    d_r = torch.as_tensor(d_r, dtype=f32, device=dev)
+    e_r = torch.as_tensor(e_r, dtype=f32, device=dev)
+    k3b_cases = [
+        ("city10000's chain at its start weights, block 128", city_args),
+        (f"the n = {SCALE_N} two-grid chain, block 1024", (d5, e5, 1024)),
+        (f"a chain of {n_r} rows, block 1024 (a partial last segment)",
+         (d_r, e_r, 1024)),
+        ("city10000's 8 budget lanes (phase 8a), block 128", city8_args),
+        ("phase 8b's 2 budget lanes, block 1024", (d52l, e52, 1024))]
+    k3_cases = [
+        ("sphere2500's chain at its start weights", sphere_args),
+        (f"the n = {SCALE_N} chain's first 32768 rows (the auto route's "
+         "largest n)", (d5[:32768], e5[:32767])),
+        (f"the n = {SCALE_N} chain's first 40000 rows", (d5[:40000],
+                                                        e5[:39999])),
+        ("city10000's 8 budget lanes", city8_args[:2])]
+    k3b_err, k3_err = {}, {}
+    for dtype in (f32, f64):
+        key = str(dtype).split(".")[-1]
+        k3b_err[key] = max(factor_check(
+            k3b, k3b_plain, (a[0].to(dtype), a[1].to(dtype), *a[2:]), lbl,
+            exact=False) for lbl, a in k3b_cases)
+        k3_err[key] = max(factor_check(
+            k3, k3_plain, (a[0].to(dtype), a[1].to(dtype)), lbl, exact=True)
+            for lbl, a in k3_cases)
+    # n = 40000 through tridiag_solve(d, e, B): one K3 launch, then a solve.
+    from mac_tpu_torch.ops.tridiag import tridiag_solve as solve_de
+
+    before = k3.launches
+    X40 = solve_de(d5[:40000].double(), e5[:39999].double(),
+                   torch.ones((d5[:40000].shape[0], 2), dtype=f64,
+                              device=dev))
+    torch.cuda.synchronize()
+    if k3.launches != before + 1 or not bool(torch.isfinite(X40).all()):
+        fail(f"tridiag_solve(d, e, B) at n = 40000: {k3.launches - before} "
+             "K3 launches, or a non-finite solve")
+    print(f"tridiag_solve(d, e, B) at n = 40000: one K3 launch, finite X",
+          flush=True)
+    # The times at the main paths' shapes and their dependent chains: K3b's
+    # is `block` divisions; K3's its chunks' rows (256 chunks at a time)
+    # twice around a serial pass over the chunks (ldl.cu's chunking).
+    def k3_steps(args):
+        rows = args[0].shape[-1]
+        chunk = -(-rows // min(1024, -(-rows // 16)))
+        nseg = -(-rows // chunk)
+        return 2 * chunk * -(-nseg // 256) + nseg
+
+    f64_of = lambda a: (a[0].double(), a[1].double(), *a[2:])  # noqa: E731
+    factor_tm = {}
+    for key, kern, plain, args, label, steps in (
+            ("K3b", k3b, k3b_plain, city_args,
+             "city10000's chain (10000,), block 128", 128),
+            ("K3b_scale", k3b, k3b_plain, (d5, e5, 1024),
+             f"the two-grid chain ({SCALE_N},), block 1024", 1024),
+            ("K3b_lanes8", k3b, k3b_plain, city8_args,
+             "city10000's 8 lanes (8, 10000), block 128", 128),
+            ("K3b_lanes2", k3b, k3b_plain, (d52l, e52, 1024),
+             f"phase 8b's 2 lanes (2, {SCALE_N}), block 1024", 1024),
+            ("K3", k3, k3_plain, sphere_args, "sphere2500's chain (2500,)",
+             k3_steps(sphere_args)),
+            ("K3_32768", k3, k3_plain, (d5[:32768], e5[:32767]),
+             "(32768,)", k3_steps((d5[:32768],))),
+            ("K3_lanes2", k3, k3_plain, sphere2_args,
+             "sphere2500's 2 lanes (2, 2500)", k3_steps(sphere2_args)),
+            ("K3b_f64", k3b, k3b_plain, f64_of(city_args),
+             "city10000's chain in float64, block 128", 128),
+            ("K3_f64", k3, k3_plain, f64_of(sphere_args),
+             "sphere2500's chain in float64", k3_steps(sphere_args))):
+        factor_tm[key] = factor_times(kern, plain, args, label, steps, card)
+        factor_tm[key]["max_abs_err"] = (
+            k3b_err if kern is k3b else k3_err)[
+                "float64" if key.endswith("f64") else "float32"]
 
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")
+    # Phases 4 to 10 hand no plain chain factor a CUDA tensor.
+    plain_factor = PlainOnCard(FACTOR_PLAINS).__enter__()
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -1903,7 +2239,7 @@ def main():
     mac = MAC(fixed, cands, n, device="cuda")
     print(f"setup (read, NaiveGreedy, MAC ctor with its host probe): "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    for kern in (tridiag_solve, tridiag_solve_blocked, assemble_ut):
+    for kern in (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b):
         kern.launches = 0
     times = []
     for _ in range(4):
@@ -1914,9 +2250,10 @@ def main():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {"tridiag_solve": tridiag_solve.launches,
-                "assemble_ut": assemble_ut.launches}
-    if tridiag_solve_blocked.launches:
-        fail("the banded path launched tridiag_solve_blocked")
+                "assemble_ut": assemble_ut.launches,
+                "tridiag_ldl_blocked": k3b.launches}
+    if tridiag_solve_blocked.launches or k3.launches:
+        fail("the banded path launched tridiag_solve_blocked or K3")
     print(f"solve: cold {times[0]:.4f} s, warm {[round(t, 4) for t in times[1:]]}"
           f" s, warm median {statistics.median(times[1:]):.4f} s ({card})",
           flush=True)
@@ -1937,6 +2274,9 @@ def main():
           f"upper bound {upper:.9g}", flush=True)
     if not gap >= GAP_FLOOR:
         fail(f"relaxed lambda_2 gap {gap:+.3e} below {GAP_FLOOR}")
+    if f"{gap:+.3e}" != CITY_GAP_DIGITS:
+        fail(f"city10000's relaxed gap {gap:+.3e} moved from "
+             f"{CITY_GAP_DIGITS}: the chain factor is no longer bitwise")
     if upper < lam2 * (1 - 1e-6):
         fail(f"upper bound {upper} below the relaxed lambda_2 {lam2}")
 
@@ -1954,7 +2294,7 @@ def main():
           flush=True)
     if mac5._banded is not None or mac5.op.mode != "ell":
         fail("the n = 100000 expander graph did not take the ELL route")
-    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut)
+    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b)
     for kern in counted:
         kern.launches = 0
     path_s, path_launches = [], []
@@ -1986,8 +2326,9 @@ def main():
           f"{REFERENCE_LAM2_SCALE:.12g}, relative gap {gap5:+.3e}; upper "
           f"bound {upper5:.12g}; rounded {int(rounded5.sum())} of "
           f"{len(wc5)}", flush=True)
-    if launches5["tridiag_solve_blocked"] <= 0:
-        fail("the matrix-free path never launched tridiag_solve_blocked")
+    if launches5["tridiag_solve_blocked"] <= 0 or k3b.launches <= 0:
+        fail("the matrix-free path never launched tridiag_solve_blocked or "
+             "K3b")
     if not (np.all(np.isfinite(unrounded5)) and np.all(np.isfinite(rounded5))
             and np.isfinite(upper5) and np.isfinite(lam5)):
         fail("non-finite output on the matrix-free path")
@@ -2003,6 +2344,7 @@ def main():
     phase("6 bundled datasets")
     bundled_launches = {}
     bundled_walls = {}
+    bundled_macs = {}
     for ds, (ref_lam, want_dtype, want_backend, want_banded,
              gap_floor) in BUNDLED.items():
         t0 = time.perf_counter()
@@ -2026,6 +2368,7 @@ def main():
         got = {kern.__name__: kern.launches for kern in counted}
         bundled_launches[ds] = got
         bundled_walls[ds] = statistics.median(times6[1:])
+        bundled_macs[ds] = (mac6, k6, x6)
         lam_u = scipy_lam2(mac6.laplacian(u6))
         lam_r = scipy_lam2(mac6.laplacian(r6))
         gap6 = (lam_u - ref_lam) / ref_lam
@@ -2066,8 +2409,10 @@ def main():
             if not lam_r >= 0.1 * lam_u:
                 fail(f"{ds}: rounded lambda_2 {lam_r} collapsed below 0.1 of "
                      f"the relaxed {lam_u}")
-            if got["tridiag_solve"] <= 0 or got["assemble_ut"] <= 0:
-                fail(f"{ds} never launched K1 or the assembly kernel: {got}")
+            if min(got["tridiag_solve"], got["assemble_ut"],
+                   got["tridiag_ldl"]) <= 0:
+                fail(f"{ds} never launched K1, K3 or the assembly kernel: "
+                     f"{got}")
             b6 = mac6._banded
             print(f"{ds}: assembly form "
                   f"{'K2b (split)' if b6.ov_rows else 'K2 (no split)'}, nb "
@@ -2134,8 +2479,30 @@ def main():
 
     # ---- 10. float64 and the remaining methods
     phase("10 float64 and the remaining methods")
-    f64_kernels = float64_phase(dev, card, dataset, (fi5, wf5, ci5, wc5),
-                                counted)
+    launches_10b, launches_10f, f64_kernels = float64_phase(
+        dev, card, dataset, (fi5, wf5, ci5, wc5), counted)
+    plain_factor.__exit__(None, None, None)
+    print(f"plain chain factors handed CUDA tensors in phases 4-10: "
+          f"{plain_factor.calls}", flush=True)
+    if plain_factor.calls:
+        fail(f"a plain chain factor ran on the card: {plain_factor.calls}")
+
+    # ---- 11. the chain factor's kernels against its plain loops, end to end
+    phase("11 K3/K3b against the plain factor loops (warm solves)")
+    ab = factor_ab(card, {
+        "city10000": (lambda: mac.solve(k, x_init, rounding="nearest",
+                                        use_cache=True),
+                      lambda out: (scipy_lam2(mac.laplacian(out[1])),
+                                   REFERENCE_LAM2_UNROUNDED)),
+        "sphere2500": (lambda: bundled_macs["sphere2500"][0].solve(
+            *bundled_macs["sphere2500"][1:], use_cache=True),
+            lambda out: (scipy_lam2(bundled_macs["sphere2500"][0].laplacian(
+                out[1])), BUNDLED["sphere2500"][0])),
+        f"n = {SCALE_N}": (lambda: mac5.solve(k5, x5, max_iters=10,
+                                              use_cache=True),
+                           lambda out: (mac5.evaluate_objective(out[1]),
+                                        REFERENCE_LAM2_SCALE))},
+        (k3, k3b))
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -2173,7 +2540,61 @@ def main():
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                 "library_ms": tm.get("library_ms")}
 
+    # K3 and K3b replace JAX scans, not Pallas kernels: "replaces" names the
+    # scan's line. "launches": K3b's on phase 4's main path, K3's on phase
+    # 6's sphere2500 solves; "chain_steps": the dependent chain's length.
+    def factor_entry(name, key, replaces, shape, launches, path, **more):
+        tm = factor_tm[key]
+        return {"name": name, "route": "cuda",
+                "source": "mac_tpu_torch/csrc/ldl.cu", "replaces": replaces,
+                "shape": shape, "launches": launches, "launches_path": path,
+                "max_abs_err": tm["max_abs_err"], "ms": tm["device_ms"],
+                "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": None,
+                "chain_steps": tm["chain_steps"], **more}
+
     sphere = bundled_launches["sphere2500"]
+    scan_blk = "mac_tpu/ops/tridiag.py:153"
+    scan_ex = "mac_tpu/ops/tridiag.py:105"
+    factor_kernels = [
+        factor_entry("tridiag_ldl_blocked", "K3b", scan_blk,
+                     "(10000,), block 128, city10000's chain",
+                     launches["tridiag_ldl_blocked"], "phase 4",
+                     launches_mesh=mesh_launches["a"]["tridiag_ldl_blocked"],
+                     launches_ab=ab["city10000"]["launches"]),
+        factor_entry("tridiag_ldl_blocked", "K3b_scale", scan_blk,
+                     f"({SCALE_N},), block 1024, the two-grid chain",
+                     launches5["tridiag_ldl_blocked"], "phase 5",
+                     launches_mesh=sum(got["tridiag_ldl_blocked"] for got
+                                       in mesh_launches["c"].values())),
+        factor_entry("tridiag_ldl_blocked", "K3b_lanes8", scan_blk,
+                     "(8, 10000), block 128, a chain per lane",
+                     lanes_a["tridiag_ldl_blocked"].get(8, 0), "phase 8a"),
+        factor_entry("tridiag_ldl_blocked", "K3b_lanes2", scan_blk,
+                     f"(2, {SCALE_N}), block 1024, a chain per lane",
+                     lanes_b["tridiag_ldl_blocked"].get(2, 0), "phase 8b"),
+        factor_entry("tridiag_ldl", "K3", scan_ex,
+                     "(2500,), sphere2500's chain", sphere["tridiag_ldl"],
+                     "phase 6 sphere2500",
+                     launches_mesh=mesh_launches["b"]["tridiag_ldl"],
+                     launches_greedy_eig=eig_launches["tridiag_ldl"]),
+        factor_entry("tridiag_ldl", "K3_lanes2", scan_ex,
+                     "(2, 2500), sphere2500's chain per lane",
+                     lanes_d["tridiag_ldl"].get(2, 0), "phase 8d"),
+        factor_entry("tridiag_ldl_blocked_f64", "K3b_f64", scan_blk,
+                     "(10000,), block 128, city10000's chain in float64",
+                     launches_10b["city10000"]["tridiag_ldl_blocked"].get(
+                         "float64", 0), "phase 10b city10000",
+                     dtype="float64",
+                     launches_scale=launches_10f["tridiag_ldl_blocked"].get(
+                         "float64", 0)),
+        factor_entry("tridiag_ldl_f64", "K3_f64", scan_ex,
+                     "(2500,), sphere2500's chain in float64",
+                     launches_10b["sphere2500"]["tridiag_ldl"].get(
+                         "float64", 0), "phase 10b sphere2500",
+                     dtype="float64"),
+    ]
     kernels = [
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
@@ -2227,7 +2648,7 @@ def main():
                    "mac_tpu/ops/pallas/tridiag_kernel.py:107",
                    f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
                    lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
-    ] + f64_kernels
+    ] + f64_kernels + factor_kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

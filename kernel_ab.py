@@ -7,6 +7,9 @@ in one process on one NVIDIA GPU.
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
     python3 kernel_ab.py [--kernels-only] build/ab_old [VARIANT_DIR ...]
 
+(and, to time the chain factor's kernels too, the older ldl.cu beside
+them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu).
+
 The older sources must export the same C functions. Both versions are built
 with the package's nvcc flags and loaded by _build.load(name, signatures,
 path), so both run behind the same wrappers, checks and allocations: the
@@ -19,7 +22,11 @@ paths' shapes (chip_smoke.py's):
      the same scatter as one index_add_ into a zeroed ut; K1b
      tridiag_solve_blocked at the n = 100000 two-grid chain factor (q 4 and
      q 32) and at (1024, 1), the smallest launch its wrapper can make (the
-     launch floor of this way of timing): each with its device time
+     launch floor of this way of timing); where the older directory holds
+     ldl.cu, K3b tridiag_ldl_blocked at city10000's chain factor (block
+     128, float32 and float64) and the n = 100000 two-grid chain (block
+     1024), and K3 tridiag_ldl at sphere2500's (float32 and float64) and at
+     32768 rows: each with its device time
      (chip_smoke.device_ms), the time of one call with its host work
      (chip_smoke.call_ms) and its error against the plain version. Where
      the older directory also holds tridiag.py, an older copy of
@@ -142,7 +149,7 @@ def main():
     print(card, flush=True)
     from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops import tridiag as ops_tridiag
-    from mac_tpu_torch.ops.kernels import _build, assemble, tridiag
+    from mac_tpu_torch.ops.kernels import _build, assemble, ldl, tridiag
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
         tridiag_solve, tridiag_solve_blocked, tridiag_solve_blocked_plain,
@@ -153,6 +160,8 @@ def main():
 
     old_dir = Path(argv[0])
     sigs = {"tridiag": tridiag._SIGNATURES, "assemble": assemble._SIGNATURES}
+    if (old_dir / "ldl.cu").exists():
+        sigs["ldl"] = ldl._SIGNATURES
     libs = {"old": build_dir(old_dir, "old", sigs),
             "new": {name: _build.build(name) for name in sigs}}
     for src, secs, log in _build.build_log:
@@ -204,6 +213,40 @@ def main():
          lambda: tridiag_solve_blocked_plain(dp5[:1024], l5[:1024],
                                              B5w[:32].view(1024, 1)), None),
     ]
+    factor_cases = []
+    if "ldl" in sigs:
+        from chip_smoke import captured_args
+
+        (_, _, _, _, _, _, bop_sp, w_sp, _, _, _) = dataset_inputs(
+            dev, "sphere2500")
+        city = captured_args(banded, "tridiag_ldl_blocked",
+                             lambda: banded.chain_factor(
+                                 bop, banded.assemble_bd(bop, w), w))
+        sphere = captured_args(banded, "tridiag_ldl_auto",
+                               lambda: banded.chain_factor(
+                                   bop_sp, banded.assemble_bd(bop_sp, w_sp),
+                                   w_sp))
+        d5l = d5 + 100 * torch.finfo(torch.float32).eps * d5.max()
+        for label, kern, plain, args in (
+                ("K3b tridiag_ldl_blocked city10000 (10000,), block 128",
+                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+                 city),
+                ("K3b tridiag_ldl_blocked float64 city10000, block 128",
+                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+                 (city[0].double(), city[1].double(), 128)),
+                (f"K3b tridiag_ldl_blocked ({SCALE_N},), block 1024",
+                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+                 (d5l, e5, 1024)),
+                ("K3 tridiag_ldl sphere2500 (2500,)", ldl.tridiag_ldl,
+                 ldl.tridiag_ldl_plain, sphere),
+                ("K3 tridiag_ldl float64 sphere2500", ldl.tridiag_ldl,
+                 ldl.tridiag_ldl_plain,
+                 (sphere[0].double(), sphere[1].double())),
+                ("K3 tridiag_ldl (32768,)", ldl.tridiag_ldl,
+                 ldl.tridiag_ldl_plain, (d5l[:32768], e5[:32767]))):
+            factor_cases.append((
+                label, lambda kern=kern, args=args: kern(*args),
+                lambda plain=plain, args=args: plain(*args), None))
     cases = [
         ("K1 tridiag_solve (10000, 4)", lambda: tridiag_solve(dp1, l1, B1),
          lambda: tridiag_solve_plain(dp1, l1, B1), None),
@@ -211,15 +254,21 @@ def main():
          lambda: assemble_ut_plain(*args_b), index_add_assembly(args_b)),
         ("K2 assemble_ut n 700", lambda: assemble_ut(*args_s),
          lambda: assemble_ut_plain(*args_s), index_add_assembly(args_s)),
-    ] + k1b_cases
+    ] + k1b_cases + factor_cases
     results = {}
+
+    def flat(out):
+        """A kernel's output as one tensor (the factor kernels return dp
+        and l)."""
+        return (torch.cat([t.reshape(-1) for t in out])
+                if isinstance(out, tuple) else out)
 
     def time_case(version, label, kern, ref):
         use(version)
-        got = kern()
+        got = flat(kern())
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        ok = (torch.equal(got, ref) if "assemble" in label
+        ok = (torch.equal(got, ref) if "assemble" in label or "K3b" in label
               else torch.allclose(got, ref, rtol=2e-4, atol=2e-4))
         if not ok and version in TURNS:
             fail(f"{version} {label} disagrees with its plain version "
@@ -231,7 +280,7 @@ def main():
               f"{'' if ok else ' (DISAGREES)'} ({card})", flush=True)
 
     for label, kern, plain, library in cases:
-        ref = plain()
+        ref = flat(plain())
         for version in TURNS:
             time_case(version, label, kern, ref)
         if library is not None:
@@ -239,7 +288,7 @@ def main():
                   f"{device_ms(library):.5f} ms, call {call_ms(library):.4f} "
                   f"ms ({card})", flush=True)
     for label, kern, plain, _ in k1b_cases:
-        ref = plain()
+        ref = flat(plain())
         for version in variants:
             time_case(version, label, kern, ref)
     for label, by in results.items():

@@ -6,10 +6,14 @@ the banded two-level preconditioner (mac_tpu_torch.ops.banded) and of the
 matrix-free two-grid V-cycle (mac_tpu_torch.ops.twogrid):
 
   1. LDL^T pivots d'_i = d_i - e_{i-1}^2 / d'_{i-1}: a continued-fraction
-     (Moebius) recurrence, composed projectively as normalised 2x2 matrix
-     products by a float64 doubling scan (tridiag_ldl), or run as a
-     `block`-step float64 recurrence vectorised over chain segments
-     (tridiag_ldl_blocked).
+     (Moebius) recurrence in float64, factored by the hand-written CUDA
+     kernels K3 (the exact factor, tridiag_ldl: projective 2x2 maps of
+     short chunks, carried in order, then a three-term recurrence per
+     chunk) and K3b (segments of `block` rows decoupled,
+     tridiag_ldl_blocked: one thread per segment) on the card
+     (mac_tpu_torch.ops.kernels.ldl), and by their plain versions
+     elsewhere (a doubling scan of the maps; a `block`-step recurrence
+     vectorised over the segments).
   2. Forward and backward substitution: affine recurrences, solved by the
      hand-written CUDA kernels K1 (whole rows) and K1b (decoupled segments)
      on the card, in float32 or float64 (mac_tpu_torch.ops.kernels.tridiag),
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from mac_tpu_torch.ops.kernels import ldl as _ldl
 from mac_tpu_torch.ops.kernels import tridiag as _kernels
 
 # Largest n factored exactly by tridiag_ldl_auto and solved by the whole-row
@@ -55,41 +60,13 @@ class TridiagFactor:
         return f"TridiagFactor(dp={self.dp!r}, l={self.l!r}, seg={self.seg})"
 
 
-def _mobius_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """b @ a for stacks of projective 2x2 maps, normalised by the largest
-    entry (b follows a in sequence order)."""
-    m = b @ a
-    scale = m.abs().amax(dim=(-2, -1), keepdim=True)
-    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-    return m / scale
-
-
 def tridiag_ldl(d: torch.Tensor, e: torch.Tensor) -> TridiagFactor:
     """Exact LDL^T pivots of the SPD tridiagonal matrix with diagonal d (n,)
-    and off-diagonal e (n-1,). The doubling scan runs in float64 (the
-    Moebius products span a wide dynamic range) and the factor comes back
-    in the input dtype, pivots floored at 8 eps max(d)."""
-    out_dtype = d.dtype
-    d = d.double()
-    e = e.double()
-    zero = torch.zeros((*d.shape[:-1], 1), dtype=d.dtype, device=d.device)
-    e2 = torch.cat([zero, e * e], dim=-1)  # e2[i] = e_{i-1}^2
-    # x_i = d_i - e2_i / x_{i-1} as [[d_i, -e2_i], [1, 0]] acting projectively.
-    M = torch.stack([torch.stack([d, -e2], dim=-1),
-                     torch.stack([torch.ones_like(d), torch.zeros_like(d)],
-                                 dim=-1)], dim=-2)  # (..., n, 2, 2)
-    n = d.shape[-1]
-    k = 1
-    while k < n:
-        M = torch.cat([M[..., :k, :, :],
-                       _mobius_combine(M[..., :-k, :, :], M[..., k:, :, :])],
-                      dim=-3)
-        k *= 2
-    dp = M[..., 0, 0] / M[..., 1, 0]
-    floor = 8 * torch.finfo(out_dtype).eps * d.amax(dim=-1, keepdim=True)
-    dp = torch.maximum(dp, floor)
-    l = torch.cat([zero, e / dp[..., :-1]], dim=-1)
-    return TridiagFactor(dp=dp.to(out_dtype), l=l.to(out_dtype))
+    and off-diagonal e (n-1,), or of R lanes (d (R, n), e (R, n-1)):
+    kernel K3 on the card, its plain float64 doubling scan on the CPU. The
+    factor comes back in the input dtype, pivots floored at 8 eps max(d)."""
+    dp, l = _ldl.tridiag_ldl(d, e)
+    return TridiagFactor(dp=dp, l=l)
 
 
 def tridiag_ldl_blocked(d: torch.Tensor, e: torch.Tensor,
@@ -97,40 +74,10 @@ def tridiag_ldl_blocked(d: torch.Tensor, e: torch.Tensor,
     """Segment-decoupled LDL^T: `block`-node chain segments factor
     independently (the couplings across segment boundaries are dropped --
     the factor is a preconditioner, and the coarse level owns the global
-    modes). A `block`-step float64 recurrence over (n / block,) vectors."""
-    out_dtype = d.dtype
-    dev = d.device
-    lead, n = d.shape[:-1], d.shape[-1]
-    nb = -(-n // block)
-    n_pad = nb * block
-    f64 = torch.float64
-    d64 = torch.cat([d, torch.ones((*lead, n_pad - n), dtype=d.dtype,
-                                   device=dev)], dim=-1).to(f64)
-    e2 = torch.cat([torch.zeros((*lead, 1), dtype=f64, device=dev),
-                    (e * e).to(f64),
-                    torch.zeros((*lead, n_pad - n), dtype=f64, device=dev)],
-                   dim=-1)
-    pos = torch.arange(n_pad, device=dev) % block
-    e2 = torch.where(pos == 0, torch.zeros_like(e2), e2)
-    dB = d64.reshape(*lead, nb, block)
-    eB = e2.reshape(*lead, nb, block)
-    prev = torch.ones((*lead, nb), dtype=f64, device=dev)
-    cols = []
-    for i in range(block):  # every lane's segments in each step
-        prev = dB[..., i] - eB[..., i] / prev
-        cols.append(prev)
-    dp = torch.stack(cols, dim=-1).reshape(*lead, n_pad)[..., :n]
-    floor = 8 * torch.finfo(out_dtype).eps * d.to(f64).amax(dim=-1,
-                                                            keepdim=True)
-    dp = torch.maximum(dp, floor)
-    e64 = e.to(f64)
-    if n > 1:
-        cut = (torch.arange(1, n, device=dev) % block) == 0
-        e64 = torch.where(cut, torch.zeros_like(e64), e64)
-    l = torch.cat([torch.zeros((*lead, 1), dtype=f64, device=dev),
-                   e64 / dp[..., :-1]], dim=-1)
-    return TridiagFactor(dp=dp.to(out_dtype), l=l.to(out_dtype),
-                         seg=int(block))
+    modes). Kernel K3b on the card, one thread per segment; its plain
+    `block`-step float64 recurrence on the CPU; bitwise the same."""
+    dp, l = _ldl.tridiag_ldl_blocked(d, e, block)
+    return TridiagFactor(dp=dp, l=l, seg=int(block))
 
 
 def tridiag_ldl_auto(d: torch.Tensor, e: torch.Tensor) -> TridiagFactor:

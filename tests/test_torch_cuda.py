@@ -4,8 +4,10 @@ rtol/atol 1e-10, K2/K2b bitwise), the wrappers' input checks, a banded solve
 that goes through K1 and K2 and a matrix-free one that goes through K1b, the
 banded float64 route and LOBPCG / dense eigh on the banded operator, and the
 baselines on the card (GreedyEig's lane-batched trial chunk through K1,
-GreedyESP's scan). Marked `cuda`; each test skips when no CUDA
-device is present. This file imports neither JAX nor the JAX package, so it
+GreedyESP's scan), and the chain factor's kernels K3 (exact, against its
+plain doubling scan within 1e-13 relative in float64 and one float32
+ulp) and K3b (segment-decoupled, bitwise). Marked `cuda`; each test skips
+when no CUDA device is present. This file imports neither JAX nor the JAX package, so it
 also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,6 +19,7 @@ import torch
 
 from chip_smoke import k1_whole_row_limit
 from mac_tpu_torch.ops import banded
+from mac_tpu_torch.ops.kernels import ldl
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
 from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
                                                tridiag_solve_blocked,
@@ -325,7 +328,7 @@ def test_banded_tails_on_cuda_agree_with_the_cpu_run(dev):
     assert abs(lam["cuda"] - lam["cpu"]) <= 5e-3 * lam["cpu"], lam
 
 
-def test_float64_routes_on_cuda_launch_no_kernel(dev):
+def test_float64_device_route_runs_k1_f64_and_host_route_none(dev):
     """In float64 on the card: the device route (ELL, the chain-solve
     preconditioner) evaluates lambda_2 within 1e-8 relative of numpy's
     dense eigh and solves to k edges, its chain solves all through K1's
@@ -658,3 +661,144 @@ def test_banded_float64_and_methods_on_cuda(dev):
                   fiedler_method=method, device="cuda")
         rounded, unrounded, upper = mac.solve(k, max_iters=3)
         assert rounded.sum() == k and np.all(np.isfinite(unrounded))
+
+
+def _ulps(a, b):
+    """Largest distance in float32 ulps between two float32 tensors."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def _factor_inputs(n, seed, dev, dtype, lanes=None):
+    """_chain's d (n,) and e (n - 1,) in dtype, or R lanes of them (one
+    seed a lane)."""
+    if lanes is None:
+        d, e, _ = _chain(n, seed, dev)
+        return d.to(dtype), e.to(dtype)
+    chains = [_chain(n, seed + r, dev)[:2] for r in range(lanes)]
+    return tuple(torch.stack(part).to(dtype) for part in zip(*chains))
+
+
+# chip_smoke.py phase 3d's shapes (n, block, lanes): city10000's chain at
+# block 128, the n = 100000 two-grid chain at 1024, a partial last segment,
+# the sweeps' 8 and 2 lanes; and small edges (one row, one segment).
+_K3B_CASES = [(10000, 128, None), (100000, 1024, None), (100003, 1024, None),
+              (10000, 128, 8), (100000, 1024, 2), (1, 128, None),
+              (129, 128, None), (5, 1024, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,block,lanes", _K3B_CASES)
+def test_blocked_ldl_kernel_bitwise_equals_plain(dev, n, block, lanes,
+                                                 dtype):
+    """K3b against its plain version, dp and l bit for bit."""
+    d, e = _factor_inputs(n, n + block, dev, dtype, lanes)
+    before = ldl.tridiag_ldl_blocked.launches
+    dp, l = ldl.tridiag_ldl_blocked(d, e, block)
+    assert ldl.tridiag_ldl_blocked.launches == before + 1
+    ref_dp, ref_l = ldl.tridiag_ldl_blocked_plain(d, e, block)
+    torch.cuda.synchronize()
+    assert dp.dtype == dtype and dp.shape == d.shape
+    assert torch.equal(dp, ref_dp) and torch.equal(l, ref_l)
+
+
+# Phase 3d's exact shapes: sphere2500's chain length, the auto route's
+# largest n, n = 40000 past it (tridiag_solve(d, e, B)), 8 lanes; and the
+# edges of the 1024-thread row split.
+_K3_CASES = [(2500, None), (32768, None), (40000, None), (10000, 8),
+             (1, None), (2, None), (1023, None), (1025, None), (3000, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,lanes", _K3_CASES)
+def test_exact_ldl_kernel_matches_plain(dev, n, lanes, dtype):
+    """K3 against its plain doubling scan: 1e-13 relative in float64, at
+    most one ulp in float32; l_0 = 0 exactly."""
+    d, e = _factor_inputs(n, n, dev, dtype, lanes)
+    before = ldl.tridiag_ldl.launches
+    dp, l = ldl.tridiag_ldl(d, e)
+    assert ldl.tridiag_ldl.launches == before + 1
+    ref_dp, ref_l = ldl.tridiag_ldl_plain(d, e)
+    torch.cuda.synchronize()
+    assert bool((l[..., 0] == 0).all())
+    for got, ref in ((dp, ref_dp), (l, ref_l)):
+        if dtype == torch.float64:
+            assert torch.allclose(got, ref, rtol=1e-13, atol=0), float(
+                ((got - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+        else:
+            assert _ulps(got, ref) <= 1
+
+
+def test_solve_past_the_scan_limit_factors_on_the_card(dev):
+    """tridiag_solve(d, e, B) at n = 40000 factors through K3 (one launch)
+    and solves T X = B: the residual within float64 rounding."""
+    from mac_tpu_torch.ops.tridiag import tridiag_solve as solve_de
+
+    d, e = _factor_inputs(40000, 4, dev, torch.float64)
+    B = torch.randn((40000, 3), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    before = ldl.tridiag_ldl.launches
+    X = solve_de(d, e, B)
+    assert ldl.tridiag_ldl.launches == before + 1
+    TX = d[:, None] * X
+    TX[1:] += e[:, None] * X[:-1]
+    TX[:-1] += e[:, None] * X[1:]
+    assert float((TX - B).abs().max()) <= 1e-10 * float(B.abs().max())
+
+
+def test_ldl_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    d, e = _factor_inputs(100, 0, dev, torch.float32)
+    for fn in (ldl.tridiag_ldl, ldl.tridiag_ldl_blocked):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            fn(d.half(), e.half())
+        with pytest.raises(TypeError, match="e is torch.float64"):
+            fn(d, e.double())
+        with pytest.raises(ValueError, match="d not contiguous"):
+            fn(d.repeat_interleave(2)[::2], e)
+        with pytest.raises(ValueError, match="different devices"):
+            fn(d, e.cpu())
+        with pytest.raises(ValueError, match="want d"):
+            fn(d, e[:-1])
+    with pytest.raises(ValueError, match="block"):
+        ldl.tridiag_ldl_blocked(d, e, 0)
+    # One chain shared by every lane (a lane stride of 0) is taken as is.
+    dp, l = ldl.tridiag_ldl_blocked(d.expand(3, -1), e.expand(3, -1), 32)
+    ref = ldl.tridiag_ldl_blocked_plain(d, e, 32)
+    assert torch.equal(dp, ref[0].expand(3, -1)) and torch.equal(
+        l, ref[1].expand(3, -1))
+
+
+def test_banded_solve_launches_k3b_once_per_factorisation(dev, monkeypatch):
+    """A MAC solve on a banded graph past 4096 nodes factors its chain by
+    K3b, one launch per factorisation, and never hands a plain factor a
+    CUDA tensor."""
+    from mac_tpu_torch.solvers import MAC
+
+    calls = {"factor": 0, "plain": 0}
+    real_factor = banded.tridiag_ldl_blocked
+
+    def factor(*args, **kw):
+        calls["factor"] += 1
+        return real_factor(*args, **kw)
+
+    def watch(real):
+        def plain(*args, **kw):
+            calls["plain"] += any(isinstance(a, torch.Tensor) and a.is_cuda
+                                  for a in args)
+            return real(*args, **kw)
+        return plain
+
+    monkeypatch.setattr(banded, "tridiag_ldl_blocked", factor)
+    for name in ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain"):
+        monkeypatch.setattr(ldl, name, watch(getattr(ldl, name)))
+    idx, w, n = _graph(4500, 2000, 40, 4)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    k = len(cands[1]) // 2
+    mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+              fw_polish=False, round_guard=False, device="cuda")
+    k3b, k3 = ldl.tridiag_ldl_blocked.launches, ldl.tridiag_ldl.launches
+    rounded, unrounded, upper = mac.solve(k)
+    assert calls["factor"] > 0 and calls["plain"] == 0
+    assert ldl.tridiag_ldl_blocked.launches - k3b == calls["factor"]
+    assert ldl.tridiag_ldl.launches == k3
+    assert rounded.sum() == k and np.isfinite(upper)
