@@ -164,6 +164,18 @@ its wall time printed:
      sphere2500 and the n = 100000 expander (K = 12500, max_iters=10) in
      turns old, new, new, old, "old" with the factor patched back to its
      plain loops; each turn's wall, relaxed gap and factorisations.
+ 12. the reference's API on the card: make_banded_precond's four
+     (smoother, kind) pairs on phase 3's city10000 and sphere2500 tables at
+     their start weights, each with its build's call ms, one
+     application's device ms at q = 4, the PCG steps to a 1e-5 relative
+     residual on a centred seeded (n, 4) block, its K1 and K3/K3b launches
+     (block-Jacobi none), TRACEMIN's outer iterations from the default
+     block, and in float64 its symmetry |<Mx, y> - <x, My>| <= 1e-8
+     max(|<Mx, y>|, 1) and positivity on four probes; fiedler_pair_op and
+     tracemin_fiedler on city10000 without xprev0, lambda_2 within 1e-3 of
+     the scipy referee; data/intel.g2o through the native parser and with
+     MAC_TPU_NO_NATIVE=1, equal measurements; no plain version on the
+     card.
 Phases 4, 5, 6 (sphere2500), 8a, 8b, 8d, 9a-9c, 10b and 10f also require
 the chain factor's kernel of their route to have launched (K3b on the
 banded route past 4096 nodes and on the matrix-free route past 32768, K3
@@ -263,7 +275,9 @@ def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
     keeps the device busy while the host enqueues them, CUDA events around
     the reps calls only; the median over `rounds` of elapsed / reps. A
     round whose enqueue outlasted the spin is dropped and the spin
-    doubled, so no host time lands in the window."""
+    doubled, so no host time lands in the window. The reps calls' kernels
+    must fit the device's queue of pending launches (about a thousand),
+    else the enqueue waits for the spin whatever its length."""
     import torch
 
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
@@ -293,12 +307,16 @@ def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
         enqueue_ms = 1e3 * (time.perf_counter() - t0)
         b.synchronize()
         if enqueue_ms > 0.8 * spin_ms:
+            if spin_ms > 30_000:
+                break
             spin_ms *= 2
             continue
         times.append(a.elapsed_time(b) / reps)
         if len(times) == rounds:
             return statistics.median(times)
-    fail("device_ms: the host never got ahead of the device")
+    fail("device_ms: the host never got ahead of the device (fn waits for "
+         "it, or reps calls launch more kernels than the launch queue "
+         "holds behind the spin)")
 
 
 def bound(nbytes: float, flops: float, itemsize: int = 4):
@@ -1791,6 +1809,168 @@ def factor_ab(card, cases, kernels):
     return out
 
 
+# Phase 12: make_banded_precond's (smoother, kind) pairs; PCG's relative
+# residual per column and its step cap; the float64 symmetry gate (the JAX
+# package's test's); the eigensolvers' lambda_2 against the scipy referee.
+PRECOND_VARIANTS = (("chain", "mult"), ("chain", "additive"),
+                    ("bjacobi", "mult"), ("bjacobi", "additive"))
+PCG_TOL = 1e-5
+PCG_MAXITER = 1000
+SYM_TOL = 1e-8
+LAM2_RTOL = 1e-3
+
+
+def api_phase(dev, card, graphs, city_L, dataset, counted):
+    """Phase 12, the reference's API on the card. graphs: {name: (banded
+    tables on the card, float32 edge weights at the start x)} of phase 3
+    (city10000, sphere2500); city_L: city10000's Laplacian at those
+    weights (scipy CSR, for the referee); counted: the kernel wrappers.
+    Every check that fails exits; no plain version may see a CUDA
+    tensor."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch import native
+    from mac_tpu_torch.ops import banded
+    from mac_tpu_torch.ops.cg import pcg
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+    from mac_tpu_torch.ops.lobpcg import tracemin_fiedler
+    from mac_tpu_torch.slam.pose_graph import read_g2o_file
+    from mac_tpu_torch.utils.fiedler import (default_block, fiedler_pair_op,
+                                             scipy_lam2)
+
+    with PlainOnCard() as plain:
+        for gname, (bop, w) in graphs.items():
+            n = bop.n
+            rng = np.random.RandomState(12)
+            B4 = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
+                                 device=dev)
+            Bc = B4 - B4.mean(dim=0, keepdim=True)
+            BD = banded.assemble_bd(bop, w)
+            w64 = w.double()
+            BD64 = banded.assemble_bd(bop, w64)
+            X0 = torch.as_tensor(default_block(n, 4), dtype=torch.float32,
+                                 device=dev)
+            lnorm = 2.0 * BD.deg.amax()
+
+            def apply_L(V):
+                return banded.banded_apply(bop, BD, V)
+
+            for smoother, kind in PRECOND_VARIANTS:
+                label = f"{gname} {smoother}/{kind}"
+                chain = smoother == "chain"
+
+                def build(BD=BD, w=w):
+                    return banded.make_banded_precond(
+                        bop, BD, w=w if chain else None, smoother=smoother,
+                        kind=kind)
+
+                reset_counts(*counted)
+                M = build()
+                Y = M(B4)
+                torch.cuda.synchronize()
+                got = {kern.__name__: kern.launches for kern in counted}
+                k1 = got["tridiag_solve"] + got["tridiag_solve_blocked"]
+                k3 = got["tridiag_ldl"] + got["tridiag_ldl_blocked"]
+                if not bool(torch.isfinite(Y).all()):
+                    fail(f"{label}: non-finite M(B)")
+                if (k1 > 0, k3 > 0) != (chain, chain):
+                    fail(f"{label}: K1 {k1} and K3/K3b {k3} launches in one "
+                         f"build and application; the chain smoother must "
+                         f"launch both, block-Jacobi neither")
+                build_ms = call_ms(build)
+                # An application launches tens of kernels: six of them stay
+                # inside the device's queue of pending launches (about a
+                # thousand), which device_ms's spin needs.
+                apply_ms = device_ms(lambda: M(B4), reps=6)
+                res = pcg(apply_L, Bc, M, tol=PCG_TOL, maxiter=PCG_MAXITER)
+                if not (res.iters < PCG_MAXITER
+                        and bool(torch.isfinite(res.X).all())):
+                    fail(f"{label}: PCG did not reach {PCG_TOL} in "
+                         f"{PCG_MAXITER} steps")
+                eig = tracemin_fiedler(apply_L, X0, lnorm, M)
+                lam = float(eig.lam[0])
+                M64 = build(BD64, w64)
+
+                def dot(a, b):
+                    return float((a * b).sum())
+
+                x, y = (torch.as_tensor(rng.normal(size=(n, 1)), device=dev)
+                        for _ in range(2))
+                ip1, ip2 = dot(M64(x), y), dot(x, M64(y))
+                sym = abs(ip1 - ip2) / max(abs(ip1), 1.0)
+                pos = min(dot(z, M64(z)) for z in (
+                    torch.as_tensor(rng.normal(size=(n, 1)), device=dev)
+                    for _ in range(4)))
+                print(f"{label}: build {build_ms:.4f} ms (call), one "
+                      f"application {apply_ms:.5f} ms (device) at q 4; PCG "
+                      f"{res.iters} steps to {PCG_TOL:g} (float32); K1 {k1}, "
+                      f"K3/K3b {k3} launches a build and application; "
+                      f"TRACEMIN from the default block {eig.iters} outer "
+                      f"iterations, lambda_2 {lam:.9g}; float64 symmetry "
+                      f"{sym:.3e}, least <z, M z> {pos:.3e} ({card})",
+                      flush=True)
+                if not sym <= SYM_TOL:
+                    fail(f"{label}: float64 M not symmetric ({sym:.3e})")
+                if not pos > 0:
+                    fail(f"{label}: float64 M not positive ({pos:.3e})")
+                if not np.isfinite(lam):
+                    fail(f"{label}: TRACEMIN lambda_2 {lam}")
+
+        # The eigensolvers in the reference's call form (no xprev0) on
+        # city10000 at its start weights, against the scipy referee.
+        bop, w = graphs["city10000"]
+        BD = banded.assemble_bd(bop, w)
+        X0 = torch.as_tensor(default_block(bop.n, 4), dtype=torch.float32,
+                             device=dev)
+        ref = scipy_lam2(city_L)
+        pair = fiedler_pair_op(bop, w, X0)
+        direct = tracemin_fiedler(
+            lambda V: banded.banded_apply(bop, BD, V), X0,
+            2.0 * BD.deg.amax(), banded.make_banded_precond(bop, BD, w=w),
+            stall_patience=5, stall_factor=0.99)
+        for label, out in (("fiedler_pair_op", pair),
+                           ("tracemin_fiedler", direct)):
+            lam = float(out.lam[0])
+            gap = (lam - ref) / ref
+            print(f"city10000 at its start weights, {label} without xprev0: "
+                  f"lambda_2 {lam:.9g} in {out.iters} outer iterations, "
+                  f"referee {ref:.9g}, relative {gap:+.3e}", flush=True)
+            if not abs(gap) <= LAM2_RTOL:
+                fail(f"{label}: lambda_2 {lam} off the referee {ref} by "
+                     f"{gap:+.3e}")
+
+        # The g2o reader through the native parser and with the opt-out.
+        path = str(dataset.parent / "intel.g2o")
+        if not native.build():
+            fail("the native library did not build")
+        native._lib, native._tried = None, False
+        meas_n, n_n = read_g2o_file(path)
+        os.environ["MAC_TPU_NO_NATIVE"] = "1"
+        native._lib, native._tried = None, False
+        try:
+            if native.lib() is not None:
+                fail("MAC_TPU_NO_NATIVE=1 did not turn the native library "
+                     "off")
+            meas_p, n_p = read_g2o_file(path)
+        finally:
+            del os.environ["MAC_TPU_NO_NATIVE"]
+            native._lib, native._tried = None, False
+        same = n_n == n_p and len(meas_n) == len(meas_p) and all(
+            (a.i, a.j) == (b.i, b.j) and np.array_equal(a.t, b.t)
+            and np.array_equal(a.R, b.R) and a.kappa == b.kappa
+            and a.tau == b.tau for a, b in zip(meas_n, meas_p))
+        print(f"intel.g2o: {len(meas_n)} measurements through the native "
+              f"parser, {len(meas_p)} with MAC_TPU_NO_NATIVE=1; equal "
+              f"{same}", flush=True)
+        if not same:
+            fail("the native and the Python g2o reader disagree on intel")
+    if plain.calls:
+        fail(f"phase 12 ran plain versions on the card: {plain.calls}")
+
+
 def main():
     import numpy as np
     import torch
@@ -2503,6 +2683,12 @@ def main():
                            lambda out: (mac5.evaluate_objective(out[1]),
                                         REFERENCE_LAM2_SCALE))},
         (k3, k3b))
+
+    # ---- 12. the reference's API on the card
+    phase("12 the reference's API (preconditioner variants, call forms, "
+          "native opt-out)")
+    api_phase(dev, card, {"city10000": (bop, w), "sphere2500": (bop_sp, w_sp)},
+              mac.laplacian(x_init), dataset, counted)
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call

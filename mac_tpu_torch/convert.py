@@ -67,8 +67,9 @@ def graph_operator(src, device=None) -> laplacian.GraphOperator:
         tables[name] = torch.from_numpy(
             np.array(v, dtype=np.bool_ if v.dtype == np.bool_ else np.int64))
     op = laplacian.GraphOperator(
-        tables, int(_field(src, "n")), str(_field(src, "mode")),
-        int(_field(src, "coarse_s")), int(_field(src, "coarse_nc")))
+        **tables, n=int(_field(src, "n")), mode=str(_field(src, "mode")),
+        coarse_s=int(_field(src, "coarse_s")),
+        coarse_nc=int(_field(src, "coarse_nc")))
     return op if device is None else op.to(device)
 
 

@@ -4,12 +4,14 @@ parser (g2o_parser.c) and GreedyESP's lazy-greedy selection cores
 float64 solve matrix Z, or a dense Gram matrix).
 
 The shared library native/libmac_native.so is built from the repository's
-sources with `make -C native` (on first use when it is missing). When it
-cannot be built or loaded, each function returns None and the caller falls
-back to Python.
+sources with `make -C native` (build(), or on first use when it is
+missing). When it cannot be built or loaded, each function returns None
+and the caller falls back to Python. MAC_TPU_NO_NATIVE=1 forces that
+fallback (the same switch as mac_tpu's).
 """
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -22,18 +24,29 @@ _lib = None
 _tried = False
 
 
+def build(quiet: bool = True) -> bool:
+    """Build the shared library in-tree with `make -C native` (its output
+    captured when quiet); whether the library exists afterwards."""
+    try:
+        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+                       capture_output=quiet)
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return _SO.exists()
+
+
 def lib() -> Optional[ctypes.CDLL]:
-    """Load (building on first use if necessary) the native library."""
+    """Load (building on first use if necessary) the native library; None
+    when MAC_TPU_NO_NATIVE is set or the library cannot be built or
+    loaded."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _SO.exists():
-        try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                           capture_output=True)
-        except (OSError, subprocess.CalledProcessError):
-            return None
+    if os.environ.get("MAC_TPU_NO_NATIVE"):
+        return None
+    if not _SO.exists() and not build():
+        return None
     try:
         L = ctypes.CDLL(str(_SO))
     except OSError:

@@ -19,7 +19,9 @@ transposed products of the uppers.
 The companion preconditioner (make_banded_precond) is a symmetric two-level
 cycle: an exact odometry-chain tridiagonal solve applied through the RCM
 permutation (kernel K1, mac_tpu_torch.ops.kernels.tridiag) around a dense
-coarse-grid correction over original-order aggregates.
+coarse-grid correction over original-order aggregates. Its other variants,
+which no route takes: a block-Jacobi smoother (exact solves of the RCM
+diagonal blocks) and the additive cycle M^-1 = S + P Lc^-1 R.
 
 Lanes (the budget sweep): assemble_bd, banded_apply, chain_factor and
 make_banded_precond (without a carried PrecondState) also take R weight
@@ -59,6 +61,11 @@ COARSE_NC = 512
 CHAIN_LDL_BLOCK = 128
 # Newton-Schulz refinement steps per warm coarse-inverse rebuild.
 NS_COARSE_STEPS = 3
+# The preconditioner's smoothers and cycle forms (make_banded_precond);
+# PRECOND_KIND is the form every route takes.
+SMOOTHERS = ("chain", "bjacobi")
+KINDS = ("mult", "additive")
+PRECOND_KIND = "mult"
 
 TABLES = ("ueid_tbl", "dcol_tbl", "agg", "perm", "iperm", "chain_eid",
           "oeid_tbl", "ocol_tbl", "olane_tbl")
@@ -139,13 +146,14 @@ def rcm_order(idx: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray, int]:
 
 
 def build_banded_rcm(idx: np.ndarray, num_nodes: int,
-                     target_nc: int = COARSE_NC):
+                     dtype=torch.float32, target_nc: int = COARSE_NC):
     """RCM-relabel an edge list and build the banded tables.
 
     Returns (bop, relabeled_idx) or (None, None) when the graph admits no
     narrow band. The permutation and the original-order chain table are
     recorded on the operator so the preconditioner smooths in the original
-    (odometry-chain) ordering.
+    (odometry-chain) ordering. dtype is accepted for the reference's call
+    form and unused: the tables are integers.
     """
     idx = np.asarray(idx, dtype=np.int64).reshape(-1, 2)
     n = int(num_nodes)
@@ -160,13 +168,14 @@ def build_banded_rcm(idx: np.ndarray, num_nodes: int,
     return bop, (None if bop is None else ridx.astype(np.int32))
 
 
-def build_banded(idx: np.ndarray, num_nodes: int, target_nc: int = COARSE_NC,
-                 perm=None, iperm=None,
+def build_banded(idx: np.ndarray, num_nodes: int, dtype=torch.float32,
+                 target_nc: int = COARSE_NC, perm=None, iperm=None,
                  orig_idx=None) -> Optional[BandedOperator]:
     """Build the block-banded tables for an (already relabelled) edge list on
     the host. Returns None when no narrow band exists. Duplicate (i, j)
     edges occupy separate slots and sum. perm/iperm/orig_idx: see
-    build_banded_rcm -- identity when omitted."""
+    build_banded_rcm -- identity when omitted. dtype: unused, as in
+    build_banded_rcm."""
     idx = np.asarray(idx, dtype=np.int64).reshape(-1, 2)
     n = int(num_nodes)
     m = idx.shape[0]
@@ -397,54 +406,115 @@ def chain_factor(bop: BandedOperator, BD: BDRep,
     return tridiag_ldl_auto(dd, e_nat)
 
 
-def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
+def diag_blocks(BD: BDRep) -> torch.Tensor:
+    """The BS x BS diagonal blocks of L(w) of the block rows BD holds,
+    (..., rows, BS, BS): ut[0] + ut[0]^T + diag(deg)."""
+    ut0 = BD.ut[..., 0, :, :, :]
+    return ut0 + ut0.mT + torch.diag_embed(BD.deg)
+
+
+def bjacobi_inverse(Dblk: torch.Tensor) -> torch.Tensor:
+    """The block-Jacobi smoother's inverses of the diagonal blocks Dblk
+    (..., nb, BS, BS): each block lifted by 100 eps max|Dblk| (the max over
+    every block of a lane), factored as R^T R by an upper Cholesky (NaN
+    where a block is not positive definite, as JAX's) and inverted as
+    R^-1 R^-T."""
+    eps = torch.finfo(Dblk.dtype).eps
+    eye = torch.eye(BS, dtype=Dblk.dtype, device=Dblk.device)
+    reg = 100 * eps * Dblk.abs().amax(dim=(-3, -2, -1), keepdim=True)
+    Rchol = cholesky_upper(Dblk + reg * eye)
+    Rinv = torch.linalg.solve_triangular(Rchol, eye.expand_as(Rchol),
+                                         upper=True)
+    return Rinv @ Rinv.mT
+
+
+def make_banded_precond(bop: BandedOperator, BD: BDRep,
+                        w: Optional[torch.Tensor] = None,
+                        smoother: str = "chain",
                         prev_state: Optional[PrecondState] = None,
                         use_prev: Optional[bool] = None,
                         return_state: bool = False,
+                        kind: Optional[str] = None,
                         rebuild: Optional[bool] = None, sharded=None):
-    """Two-level symmetric (multiplicative V-cycle) preconditioner for L(w)
-    restricted to 1^perp, with the exact odometry-chain smoother.
+    """Two-level symmetric preconditioner for L(w) restricted to 1^perp.
+
+    smoother: "chain" (the default; needs w) is the exact solve of the
+    odometry chain's tridiagonal part in the original node order, through
+    the RCM permutation (kernel K1, its factor by K3/K3b); "bjacobi" solves
+    the BS x BS RCM diagonal blocks exactly (batched products of their
+    Cholesky inverses, no permutation), cheaper per application and weaker,
+    leaving all coupling between blocks to the coarse level.
+
+    kind: "mult", the symmetric V-cycle (smooth, coarse-correct the
+    residual, smooth again: six permutation gathers with the chain
+    smoother, two residual products), or "additive", M^-1 = S + P Lc^-1 R
+    (both corrections read B: two gathers with the chain smoother, no
+    residual product, weaker per iteration); None takes PRECOND_KIND.
 
     prev_state / use_prev / return_state: warm-rebuild protocol. With
     prev_state, use_prev=False builds the coarse inverse cold (Cholesky),
     use_prev=True refines prev_state.Lc_inv by Newton-Schulz (trace
     damping, a residual check against the damped start, and a cold rebuild
     when the carried inverse is not finite). return_state=True returns
-    (precond_fn, PrecondState).
+    (precond_fn, PrecondState); block-Jacobi's state carries no chain
+    factor.
 
     rebuild: with prev_state, False reuses prev_state as it is (coarse
-    inverse and chain factor); None always rebuilds.
+    inverse and chain factor; block-Jacobi's block inverses are rebuilt);
+    None always rebuilds.
 
     sharded: a mac_tpu_torch.parallel.sharded.ShardedBanded whose BD this
     is (the rank's ut rows, the whole deg): the residual products and the
-    coarse operator then come from its row-sharded products; the chain
-    factor, the coarse inverse and Newton-Schulz stay replicated.
+    coarse operator then come from its row-sharded products, the diagonal
+    blocks from each rank's own rows by one all-gather; the chain factor,
+    the block inverses, the coarse inverse and Newton-Schulz stay
+    replicated.
 
     Returns a function (n, q) -> (n, q) in RCM order. With lanes (BD and w
-    of R lanes, no prev_state), one chain factor and one coarse level per
-    lane, built by Cholesky, and a function (R, n, q) -> (R, n, q).
+    of R lanes, no prev_state), one smoother and one coarse level per lane,
+    built by Cholesky, and a function (R, n, q) -> (R, n, q).
     """
     if rebuild is not None and prev_state is None:
         raise ValueError("rebuild cadence requires a carried PrecondState "
                          "(prev_state)")
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother {smoother!r} is not one of {SMOOTHERS}")
+    if kind is None:
+        kind = PRECOND_KIND
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r} is not one of {KINDS}")
     dtype = BD.ut.dtype
     dev = BD.ut.device
     s, nc = bop.coarse_s, bop.coarse_nc
-    n, n_pad = bop.n, bop.n_pad
+    n, n_pad, nb = bop.n, bop.n_pad, bop.nb
     eps = torch.finfo(dtype).eps
+    lead = BD.deg.shape[:-2]
 
-    if (prev_state is not None and rebuild is not None and not rebuild
-            and prev_state.chain_dp is not None):
-        fac = TridiagFactor(dp=prev_state.chain_dp, l=prev_state.chain_l,
-                            seg=CHAIN_LDL_BLOCK if n > 4096 else None)
+    def pad(B):  # (..., n, q) -> (..., n_pad, q)
+        return torch.cat([B, B.new_zeros((*lead, n_pad - n, B.shape[-1]))],
+                         dim=-2)
+
+    fac = None
+    if smoother == "chain":
+        if w is None:
+            raise ValueError("the 'chain' smoother needs the weight vector w")
+        if (prev_state is not None and rebuild is not None and not rebuild
+                and prev_state.chain_dp is not None):
+            fac = TridiagFactor(dp=prev_state.chain_dp, l=prev_state.chain_l,
+                                seg=CHAIN_LDL_BLOCK if n > 4096 else None)
+        else:
+            fac = chain_factor(bop, BD, w)
+
+        def smooth(B):  # B in RCM order, (..., n, q)
+            return tridiag_solve_factored_fast(
+                fac, B[..., bop.iperm, :])[..., bop.perm, :]
     else:
-        fac = chain_factor(bop, BD, w)
+        Dinv = bjacobi_inverse(diag_blocks(BD) if sharded is None
+                               else sharded.diag_blocks(BD))
 
-    lead = w.shape[:-1]
-
-    def smooth(B):  # B in RCM order, (..., n, q)
-        return tridiag_solve_factored_fast(
-            fac, B[..., bop.iperm, :])[..., bop.perm, :]
+        def smooth(B):  # B in RCM order, (..., n, q)
+            X = Dinv @ pad(B).reshape(*lead, nb, BS, B.shape[-1])
+            return X.reshape(*lead, n_pad, -1)[..., :n, :]
 
     eye = torch.eye(nc, dtype=dtype, device=dev)
 
@@ -520,15 +590,20 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
     def center(B):
         return B - B.mean(dim=-2, keepdim=True)
 
-    def restrict(Rv):  # (..., n, q) RCM -> (..., nc, q) original aggregates
-        Rn = Rv[..., bop.iperm, :]
-        Rp = torch.cat([Rn, Rn.new_zeros((*lead, nc * s - n, Rv.shape[-1]))],
+    # The coarse aggregates live in the original node order.
+    def restrict_nat(Bn):  # (..., n, q) original -> (..., nc, q)
+        Bp = torch.cat([Bn, Bn.new_zeros((*lead, nc * s - n, Bn.shape[-1]))],
                        dim=-2)
-        return Rp.reshape(*lead, nc, s, -1).sum(dim=-2)
+        return Bp.reshape(*lead, nc, s, -1).sum(dim=-2)
+
+    def prolong_nat(Xc):  # (..., nc, q) -> (..., n, q) original
+        return torch.repeat_interleave(Xc, s, dim=-2)[..., :n, :]
+
+    def restrict(Rv):  # (..., n, q) RCM -> (..., nc, q)
+        return restrict_nat(Rv[..., bop.iperm, :])
 
     def prolong(Xc):  # (..., nc, q) -> (..., n, q) RCM
-        return torch.repeat_interleave(Xc, s, dim=-2)[..., :n, :][
-            ..., bop.perm, :]
+        return prolong_nat(Xc)[..., bop.perm, :]
 
     def precond(B):
         B = center(B)
@@ -540,7 +615,21 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep, w: torch.Tensor,
         x = x + smooth(r2)
         return center(x)
 
+    def precond_additive(B):
+        B = center(B)
+        if fac is not None:
+            # The whole cycle in the original order: one gather in, the
+            # chain solve and the coarse correction, one gather out.
+            Bn = B[..., bop.iperm, :]
+            xn = tridiag_solve_factored_fast(fac, Bn)
+            xn = xn + prolong_nat(Lc_inv @ restrict_nat(Bn))
+            return center(xn[..., bop.perm, :])
+        return center(smooth(B) + prolong(Lc_inv @ restrict(B)))
+
+    chosen = precond_additive if kind == "additive" else precond
     if return_state:
-        return precond, PrecondState(Lc_inv=Lc_inv, chain_dp=fac.dp,
-                                     chain_l=fac.l)
-    return precond
+        if fac is None:
+            return chosen, PrecondState(Lc_inv=Lc_inv)
+        return chosen, PrecondState(Lc_inv=Lc_inv, chain_dp=fac.dp,
+                                    chain_l=fac.l)
+    return chosen

@@ -24,12 +24,15 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / torch.where(big, b, torch.ones_like(b)) * big
 
 
-def pcg_fixed(apply_A: Callable, B: torch.Tensor, Minv: Callable,
-              iters: int, X0: Optional[torch.Tensor] = None) -> torch.Tensor:
+def pcg_fixed(apply_A: Callable, B: torch.Tensor,
+              Minv: Optional[Callable] = None, iters: int = 16,
+              X0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`iters` PCG steps toward A X = B from X0 (default 0),
-    preconditioned by Minv. B is (n, q), or (R, n, q) for R lanes.
-    Columnwise step sizes; division guards make exhausted columns inert
-    rather than NaN."""
+    preconditioned by Minv (the identity if None). B is (n, q), or
+    (R, n, q) for R lanes. Columnwise step sizes; division guards make
+    exhausted columns inert rather than NaN."""
+    if Minv is None:
+        Minv = _identity
     if X0 is None:
         X, R = torch.zeros_like(B), B
     else:

@@ -45,10 +45,12 @@ class GraphOperator:
     Index tables are int64 tensors; `to(device)` returns a moved copy.
     """
 
-    def __init__(self, tables: dict, n: int, mode: str, coarse_s: int,
+    def __init__(self, idx, nbr_tbl, eid_tbl, chain_slot, chain_mask,
+                 coarse_idx, n: int, mode: str, coarse_s: int,
                  coarse_nc: int):
-        for name in TABLES:
-            setattr(self, name, tables[name])
+        self.idx, self.nbr_tbl, self.eid_tbl = idx, nbr_tbl, eid_tbl
+        self.chain_slot, self.chain_mask = chain_slot, chain_mask
+        self.coarse_idx = coarse_idx
         self.n = int(n)
         self.mode = mode
         self.coarse_s = int(coarse_s)
@@ -63,9 +65,10 @@ class GraphOperator:
         return self.idx.device
 
     def to(self, device) -> "GraphOperator":
-        return GraphOperator({name: getattr(self, name).to(device)
-                              for name in TABLES}, self.n, self.mode,
-                             self.coarse_s, self.coarse_nc)
+        return GraphOperator(**{name: getattr(self, name).to(device)
+                                for name in TABLES}, n=self.n,
+                             mode=self.mode, coarse_s=self.coarse_s,
+                             coarse_nc=self.coarse_nc)
 
 
 def build_operator(idx: np.ndarray, num_nodes: int,
@@ -109,8 +112,9 @@ def build_operator(idx: np.ndarray, num_nodes: int,
     nc = int(np.ceil(n / s))
     tables = dict(idx=idx, nbr_tbl=nbr, eid_tbl=eid, chain_slot=slot,
                   chain_mask=is_chain, coarse_idx=idx // s)
-    return GraphOperator({k: torch.from_numpy(np.ascontiguousarray(v))
-                          for k, v in tables.items()}, n, mode, s, nc)
+    return GraphOperator(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in tables.items()}, n=n, mode=mode,
+                         coarse_s=s, coarse_nc=nc)
 
 
 def lap_dense(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:

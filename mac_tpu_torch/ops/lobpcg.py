@@ -9,8 +9,10 @@ span[X, Y, X_prev]. Every Ritz value is >= lambda_2(L).
 
 The loop is Python control flow; its stop test is read from the device
 once per outer iteration. The random block X_prev that seeds the first
-basis is an explicit argument: the reference draws it from
-jax.random.normal(PRNGKey(7)), which torch cannot reproduce.
+basis is the argument `xprev0`; left out, it is default_xprev's draw from a
+torch.Generator seeded with 7 (the reference draws it from
+jax.random.normal(PRNGKey(7)), which torch cannot reproduce; the parity
+tests pass the JAX block in).
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -27,6 +29,8 @@ TRACEMIN_INNER_ITERS = 16
 # of the residual near the precision floor.
 STALL_PATIENCE = 5
 STALL_FACTOR = 0.99
+# Seed of the default previous-iterate block (default_xprev).
+XPREV_SEED = 7
 
 
 class FiedlerResult(NamedTuple):
@@ -112,27 +116,37 @@ def _shift_term(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c.double() * m64).to(V.dtype)
 
 
+def default_xprev(n: int, q: int, dtype, device) -> torch.Tensor:
+    """The default block that seeds the eigensolver's previous-iterate
+    memory: N(0, 1) from a torch.Generator seeded with XPREV_SEED."""
+    gen = torch.Generator().manual_seed(XPREV_SEED)
+    return torch.randn((n, q), generator=gen, dtype=dtype).to(device)
+
+
 def default_rel_tol(dtype) -> float:
     """TRACEMIN's eigenvalue-relative stop: 1e-3 in float32, else 1e-7."""
     return 1e-3 if dtype == torch.float32 else 1e-7
 
 
-def _keep_iterating(res, rres, since, eff_tol, rel_tol) -> torch.Tensor:
+def _keep_iterating(res, rres, since, eff_tol, rel_tol,
+                    patience: int = STALL_PATIENCE) -> torch.Tensor:
     """TRACEMIN's stop test, elementwise (one solve, or one flag per lane):
     true while the relative residual rres is above rel_tol, the residual
-    has not stalled, and the reference criterion res <= eff_tol does not
-    hold. That criterion counts only when rres is also sane (< 2): on
-    tiny-lambda graphs ||r||_1 / ||L||_inf is below any tolerance while the
-    pair is still garbage."""
+    has not stalled for `patience` iterations, and the reference criterion
+    res <= eff_tol does not hold. That criterion counts only when rres is
+    also sane (< 2): on tiny-lambda graphs ||r||_1 / ||L||_inf is below
+    any tolerance while the pair is still garbage."""
     legacy_done = (res <= eff_tol) & (rres < 2.0)
-    return (~legacy_done) & (rres > rel_tol) & (since < STALL_PATIENCE)
+    return (~legacy_done) & (rres > rel_tol) & (since < patience)
 
 
-def _stall_update(res_new, best, since, eff_tol):
+def _stall_update(res_new, best, since, eff_tol,
+                  factor: float = STALL_FACTOR):
     """(best residual, count of non-improving iterations) after an outer
-    iteration; an iteration counts only near the precision floor."""
+    iteration; an iteration counts only near the precision floor, and
+    improves when the residual drops below `factor` times the best."""
     near_floor = res_new < 4 * eff_tol
-    improved = res_new < STALL_FACTOR * best
+    improved = res_new < factor * best
     return (torch.minimum(best, res_new),
             torch.where(near_floor & ~improved, since + 1,
                         torch.zeros_like(since)))
@@ -144,10 +158,12 @@ def tracemin_fiedler(
     lnorm: torch.Tensor,
     Minv: Callable[[torch.Tensor], torch.Tensor],
     *,
-    xprev0: torch.Tensor,
+    xprev0: Optional[torch.Tensor] = None,
     tol: float = 1e-8,
     maxiter: int = TRACEMIN_MAXITER,
     inner_iters: int = TRACEMIN_INNER_ITERS,
+    stall_patience: int = STALL_PATIENCE,
+    stall_factor: float = STALL_FACTOR,
     rel_tol: Optional[float] = None,
     coeff_dtype=None,
     lam0: Optional[torch.Tensor] = None,
@@ -161,7 +177,7 @@ def tracemin_fiedler(
     apply_L: (n, k) -> (n, k) Laplacian product. X0: (n, q) start block.
     lnorm: ||L||_inf (the nullspace shift c). Minv: preconditioner on
     1^perp. xprev0: (n, q) block that seeds the previous-iterate memory
-    (LOBPCG's P term) before its first update.
+    (LOBPCG's P term) before its first update; None draws default_xprev's.
 
     nullvec: a unit (n,) vector spanning the operator's nullspace when that
     is not the constant vector, e.g. D^(1/2) 1 / ||D^(1/2) 1|| for the
@@ -180,8 +196,9 @@ def tracemin_fiedler(
     Stops when the eigenvalue-relative residual ||A x - lam x|| / lam drops
     to rel_tol (or, with a sane relative residual, the reference criterion
     ||A x - lam x||_1 / ||L||_inf drops to tol), after maxiter outer
-    iterations, or after STALL_PATIENCE non-improving iterations near the
-    precision floor.
+    iterations, or after `stall_patience` iterations near the precision
+    floor that did not take the residual below `stall_factor` times its
+    best.
 
     agree: reads the stop test on the host, bool by default; on a mesh the
     group's agreement (parallel.mesh.MeshGroup.agree), so that every rank
@@ -232,6 +249,8 @@ def tracemin_fiedler(
     lam, Y0 = torch.linalg.eigh((H + H.T) / 2)
     Y0 = Y0.to(dtype)
     X, AX, lam = X @ Y0, AX @ Y0, lam[:q].to(dtype)
+    if xprev0 is None:
+        xprev0 = default_xprev(n, q, dtype, dev)
     Xprev = project(xprev0.to(dtype))
 
     def residual(lam, X, AX):
@@ -252,7 +271,8 @@ def tracemin_fiedler(
     since = torch.zeros((), dtype=torch.int32, device=dev)
     rres = rel_residual(lam, X, AX)
     while True:
-        keep = _keep_iterating(res, rres, since, eff_tol, rel_tol_v)
+        keep = _keep_iterating(res, rres, since, eff_tol, rel_tol_v,
+                               stall_patience)
         if it >= min_iters and (it >= maxiter or not agree(keep)):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma)
@@ -272,7 +292,8 @@ def tracemin_fiedler(
         X_new = Q @ Cq
         AX_new = AQ @ Cq
         res_new = residual(lam_new, X_new, AX_new)
-        best, since = _stall_update(res_new, best, since, eff_tol)
+        best, since = _stall_update(res_new, best, since, eff_tol,
+                                    stall_factor)
         rres = rel_residual(lam_new, X_new, AX_new)
         Xprev, X, AX, lam, res = X, X_new, AX_new, lam_new, res_new
         it += 1
@@ -324,7 +345,7 @@ def tracemin_fiedler_lanes(
     lnorm: torch.Tensor,
     Minv: Callable[[torch.Tensor], torch.Tensor],
     *,
-    xprev0: torch.Tensor,
+    xprev0: Optional[torch.Tensor] = None,
     tol: float = 1e-8,
     maxiter: int = TRACEMIN_MAXITER,
     inner_iters: int = TRACEMIN_INNER_ITERS,
@@ -345,9 +366,10 @@ def tracemin_fiedler_lanes(
     lanes' columns side by side (on_flat_block). X0: the (n, q) start block
     of every lane, or (R, n, q) one per lane. lnorm: (R,) ||L_r||_inf, each
     lane's nullspace shift. xprev0: the (n, q) block that seeds every
-    lane's previous-iterate memory. min_iters: outer iterations every lane
-    runs whatever its entry residual (as in tracemin_fiedler). agree: as in
-    tracemin_fiedler, for the test whether any lane goes on.
+    lane's previous-iterate memory (None: default_xprev's, for every
+    lane). min_iters: outer iterations every lane runs whatever its entry
+    residual (as in tracemin_fiedler). agree: as in tracemin_fiedler, for
+    the test whether any lane goes on.
 
     Each lane keeps its own Rayleigh-Ritz (batched q x q and 3q x 3q eigh),
     CGS2 and CholeskyQR2, residuals, stall count and stop test; a lane that
@@ -392,6 +414,8 @@ def tracemin_fiedler_lanes(
 
     X = _orth_lanes(project(X0.expand(R, n, q)), coeff_dtype)
     X, AX, lam = rayleigh_ritz(X, apply_shifted(X))
+    if xprev0 is None:
+        xprev0 = default_xprev(n, q, dtype, dev)
     Xprev = project(xprev0.to(dtype)).expand(R, n, q)
     res, rres = residuals(lam, X, AX)
     best = res
@@ -439,7 +463,7 @@ def lobpcg_fiedler(
     X0: torch.Tensor,
     lnorm: torch.Tensor,
     *,
-    xprev0: torch.Tensor,
+    xprev0: Optional[torch.Tensor] = None,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-8,
     maxiter: int = 1000,
@@ -448,8 +472,8 @@ def lobpcg_fiedler(
     """The q smallest nonzero eigenpairs of a graph Laplacian by LOBPCG
     (mac_tpu.ops.lobpcg.lobpcg_fiedler): Rayleigh-Ritz on span[X, W, P]
     of the shifted operator, W the preconditioned residual and P the
-    previous iterate, seeded by `xprev0` (the reference draws it from
-    jax.random, which torch cannot reproduce).
+    previous iterate, seeded by `xprev0` (None: default_xprev's; the
+    reference draws it from jax.random, which torch cannot reproduce).
 
     apply_L: (n, k) -> (n, k) Laplacian product. X0: (n, q) start block.
     lnorm: ||L||_inf, also the nullspace shift. precond: approximate inverse
@@ -478,6 +502,8 @@ def lobpcg_fiedler(
     lam, Y = torch.linalg.eigh((H + H.T) / 2)
     lam, Y = lam.to(dtype), Y.to(dtype)
     X, AX = X @ Y, AX @ Y
+    if xprev0 is None:
+        xprev0 = default_xprev(n, q, dtype, X0.device)
     Xprev = project(xprev0.to(dtype))
 
     def residual(lam, X, AX):

@@ -24,12 +24,12 @@ def frank_wolfe_with_state(
     state0,
     problem: Callable,
     solve_lp: Callable,
+    stepsize: Optional[Callable] = None,
     maxiter: int = 50,
     relative_duality_gap_tol: float = 1e-5,
     grad_norm_tol: float = 1e-10,
-    tail_average_from: Optional[int] = None,
     verbose: bool = False,
-    stepsize: Optional[Callable] = None,
+    tail_average_from: Optional[int] = None,
     agree: Callable = bool,
 ):
     """Maximise a concave f via Frank-Wolfe.

@@ -14,7 +14,8 @@ every rank; each rank holds only its share of the operator's tables:
     banded). A rank assembles its block rows and a halo of `half` rows
     above them through kernel K2/K2b on its slice of the slot tables,
     computes its degrees and output rows, and all-gathers them; its share
-    of the coarse operator R^T L R is summed by one all-reduce.
+    of the coarse operator R^T L R is summed by one all-reduce, and its
+    diagonal blocks (the block-Jacobi smoother's) all-gathered.
   * sharded_candidate_gradient and sharded_top_k_indicator: the
     supergradient over the rank's slice of the candidates, and the
     two-stage top-k LP oracle.
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from mac_tpu_torch.ops.banded import (BS, BandedOperator, BDRep, _deg_from_ut,
-                                      banded_upper, dense_from_upper)
+                                      banded_upper, dense_from_upper,
+                                      diag_blocks)
 from mac_tpu_torch.ops.banded import TABLES as BANDED_TABLES
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut
 from mac_tpu_torch.ops.laplacian import (TABLES, GraphOperator, _w_pad,
@@ -61,8 +63,9 @@ def _ell_operator(op: GraphOperator, keep, device) -> GraphOperator:
     none = torch.zeros((0, 0), dtype=torch.int64)
     tables = {name: getattr(op, name)[keep] for name in TABLES
               if name not in ("nbr_tbl", "eid_tbl")}
-    return GraphOperator(dict(tables, nbr_tbl=none, eid_tbl=none), op.n,
-                         op.mode, op.coarse_s, op.coarse_nc).to(device)
+    return GraphOperator(**tables, nbr_tbl=none, eid_tbl=none, n=op.n,
+                         mode=op.mode, coarse_s=op.coarse_s,
+                         coarse_nc=op.coarse_nc).to(device)
 
 
 class _EllShards:
@@ -328,6 +331,15 @@ class ShardedBanded:
         lo, hi = min(self.b0 * BS, n), min(self.b1 * BS, n)
         LR = self._rows(BD, Rmat.expand(*lead, *Rmat.shape))
         return self.group.all_reduce(Rmat[lo:hi].mT @ LR[..., :hi - lo, :])
+
+    def diag_blocks(self, BD: BDRep) -> torch.Tensor:
+        """The diagonal blocks of L(w) (..., nb, BS, BS), replicated (ops.
+        banded.diag_blocks of the whole operator): each rank's blocks of
+        its own rows, all-gathered."""
+        own = BD._replace(ut=BD.ut[..., self.b0 - self.h0:, :, :],
+                          deg=BD.deg[..., self.b0:self.b1, :])
+        D = _pad(diag_blocks(own), dim=-3, size=self.nb_loc)
+        return self.group.all_gather(D, dim=-3)[..., :self.bop.nb, :, :]
 
     def dense(self, BD: BDRep) -> torch.Tensor:
         """L(w) dense (..., n, n) in RCM ids, replicated (ops.banded.

@@ -252,11 +252,11 @@ class MAC(HostSolveMixin):
         fw_tail_average=None,
         fiedler_precond=None,
         fiedler_backend=None,
+        mesh_apply=None,
         precond_refresh_period=None,
         fw_polish=None,
         round_guard=None,
         device=None,
-        mesh_apply=None,
     ):
         fixed_idx, w_fixed = edges_to_arrays(fixed_edges)
         cand_idx, w_cand = edges_to_arrays(candidate_edges)
@@ -525,8 +525,8 @@ class MAC(HostSolveMixin):
             method=self.fiedler_method,
             precond=self.fiedler_precond,
             coeff_dtype=self.fiedler_coeff_dtype,
-            pstate=pstate, use_prev=use_prev, rebuild=rebuild,
-            return_pstate=want_pstate,
+            banded_pstate=pstate, banded_use_prev=use_prev,
+            banded_rebuild=rebuild, return_banded_pstate=want_pstate,
         )
 
     def _problem_impl(self, params, x, X, maxiter=None, pstate=None,

@@ -1,14 +1,13 @@
 """Conversions between `Edge` lists and NetworkX graphs (carried over from
-mac_tpu.utils.conversions)."""
+mac_tpu.utils.conversions). networkx is imported where a graph is built,
+so that importing the package does not load it."""
 
 from typing import List
-
-import networkx as nx
 
 from mac_tpu_torch.utils.graphs import Edge
 
 
-def nx_to_mac(G: nx.Graph) -> List[Edge]:
+def nx_to_mac(G: "networkx.Graph") -> List[Edge]:
     """Edge list of `G`, endpoints ordered so that i < j, weight 1 where
     the edge has none."""
     edges = []
@@ -18,8 +17,10 @@ def nx_to_mac(G: nx.Graph) -> List[Edge]:
     return edges
 
 
-def mac_to_nx(edges: List[Edge]) -> nx.Graph:
+def mac_to_nx(edges: List[Edge]) -> "networkx.Graph":
     """NetworkX graph with `weight` attributes from a list of edges."""
+    import networkx as nx
+
     G = nx.Graph()
     for e in edges:
         if e.i < e.j:

@@ -27,8 +27,9 @@ from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
                                          lap_tridiagonal_part)
 from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
                                       FiedlerResult, _shift_term,
-                                      dense_fiedler, lobpcg_fiedler,
-                                      on_flat_block, tracemin_fiedler,
+                                      default_xprev, dense_fiedler,
+                                      lobpcg_fiedler, on_flat_block,
+                                      tracemin_fiedler,
                                       tracemin_fiedler_lanes)
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
@@ -160,24 +161,28 @@ def fiedler_pair_op(
     w: torch.Tensor,
     X: torch.Tensor,
     *,
-    xprev0: torch.Tensor,
     tol: float = 1e-8,
     maxiter: int = TRACEMIN_MAXITER,
     inner_iters: int = TRACEMIN_INNER_ITERS,
     rel_tol: Optional[float] = None,
+    chain_w: Optional[torch.Tensor] = None,
     method: str = "tracemin",
     precond: str = "twogrid",
+    apply_override=None,
+    banded: Optional["_banded.BandedOperator"] = None,
     coeff_dtype=None,
-    pstate: Optional["_banded.PrecondState"] = None,
-    use_prev: Optional[bool] = None,
-    rebuild: Optional[bool] = None,
-    return_pstate: bool = False,
+    banded_pstate: Optional["_banded.PrecondState"] = None,
+    banded_use_prev: Optional[bool] = None,
+    banded_rebuild: Optional[bool] = None,
+    return_banded_pstate: bool = False,
     lam0: Optional[torch.Tensor] = None,
     warm_init: Optional[bool] = None,
+    xprev0: Optional[torch.Tensor] = None,
     min_iters: Optional[int] = None,
 ):
     """Fiedler pair of L(w), X the (n, q) start block and xprev0 the block
-    that seeds the eigensolver's previous-iterate memory.
+    that seeds the eigensolver's previous-iterate memory (None: the
+    default, ops.lobpcg.default_xprev).
 
     Lanes (the budget sweep): w (R, m) solves R weight vectors at once, X
     (R, n, q) holding each lane's start block; each lane gets its own
@@ -194,42 +199,63 @@ def fiedler_pair_op(
     min_iters: TRACEMIN's least number of outer iterations; by default 1
     with lam0 given, else 0.
 
-    op: a BandedOperator (TRACEMIN, or LOBPCG for method="lobpcg", with
-        the banded two-level preconditioner, whose coarse inverse pstate /
-        use_prev / rebuild carry across calls; the exact dense eigh of L(w)
-        in RCM ids for method="dense"), a GraphOperator, or the sharded
-        form of either on a mesh (mac_tpu_torch.parallel.sharded:
-        ShardedBanded, ShardedLaplacian, EdgeShardedLaplacian), which
-        solves as the meshless one with its products, degrees and assembly
-        sharded and every loop test agreed over the group. A GraphOperator
-        takes:
+    The banded operator, as the reference takes it: `banded` a
+    BandedOperator and `op` the GraphOperator of the same (RCM) node ids,
+    or `op` itself a BandedOperator. Then TRACEMIN (LOBPCG for
+    method="lobpcg") runs with the banded two-level preconditioner, whose
+    coarse inverse and chain factor banded_pstate / banded_use_prev /
+    banded_rebuild carry across calls (ops.banded.make_banded_precond);
+    method="dense" takes the exact dense eigh, of op's L(w) when `banded`
+    is given (as the reference), of L(w) read off the banded operator in
+    RCM ids when `op` is one. On a mesh `op` may be the sharded form
+    (mac_tpu_torch.parallel.sharded: ShardedBanded, ShardedLaplacian,
+    EdgeShardedLaplacian), which solves as the meshless one with its
+    products, degrees and assembly sharded and every loop test agreed over
+    the group. A GraphOperator takes:
       * the exact dense eigh for method="dense" or a dense-mode operator of
-        at most DENSE_MAX_N nodes;
-      * otherwise the ELL (or dense-mode) product, the preconditioner
-        `precond` -- "twogrid" (the V-cycle) or "tridiag" (the tridiagonal
-        part's LDL^T solve alone, on 1^perp) -- and TRACEMIN, or LOBPCG for
-        method="lobpcg" (its preconditioner is `inner_iters` PCG steps on
-        the shifted operator).
+        at most DENSE_MAX_N nodes (unless apply_override is given);
+      * otherwise the ELL (or dense-mode) product, or apply_override(w, V)
+        in its place, the preconditioner `precond` -- "twogrid" (the
+        V-cycle) or "tridiag" (the tridiagonal part's LDL^T solve alone, on
+        1^perp) -- and TRACEMIN, or LOBPCG for method="lobpcg" (its
+        preconditioner is `inner_iters` PCG steps on the shifted operator).
+    chain_w: accepted for the reference's call form and unused: the
+    tridiagonal part comes from (op, w) itself.
+
     Returns FiedlerResult, or (FiedlerResult, PrecondState or None) with
-    return_pstate=True.
+    return_banded_pstate=True; a route that builds no banded preconditioner
+    returns the incoming banded_pstate unchanged.
     """
     if min_iters is None:
         min_iters = 1 if lam0 is not None else 0
     warm = dict(lam0=lam0, warm_init=warm_init, min_iters=min_iters)
+
+    def _ret(res):
+        return (res, banded_pstate) if return_banded_pstate else res
+
     if method == "lobpcg" and w.dim() == 2:
         # LOBPCG runs lane after lane, on either operator.
-        res = _stack([fiedler_pair_op(
-            op, w[r], X[r], xprev0=xprev0, tol=tol, maxiter=maxiter,
-            inner_iters=inner_iters, method=method, precond=precond)
-            for r in range(w.shape[0])])
-        return (res, pstate) if return_pstate else res
+        return _ret(_stack([fiedler_pair_op(
+            op, w[r], X[r], tol=tol, maxiter=maxiter,
+            inner_iters=inner_iters, method=method, precond=precond,
+            apply_override=apply_override, banded=banded, xprev0=xprev0)
+            for r in range(w.shape[0])]))
     banded_sharded = isinstance(op, _sharded.ShardedBanded)
-    if banded_sharded or isinstance(op, _banded.BandedOperator):
+    op_banded = banded_sharded or isinstance(op, _banded.BandedOperator)
+    if apply_override is not None and (op_banded or banded is not None):
+        raise ValueError("fiedler_pair_op: apply_override replaces the "
+                         "GraphOperator's product; it takes no banded "
+                         "operator")
+    if banded is not None and not (
+            method == "dense" or (op.mode == "dense" and op.n <= DENSE_MAX_N)):
+        op, op_banded = banded, True
+    if op_banded:
         return _banded_pair(
             op.bop if banded_sharded else op, w, X, xprev0=xprev0, tol=tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
-            coeff_dtype=coeff_dtype, pstate=pstate, use_prev=use_prev,
-            rebuild=rebuild, return_pstate=return_pstate, method=method,
+            coeff_dtype=coeff_dtype, pstate=banded_pstate,
+            use_prev=banded_use_prev, rebuild=banded_rebuild,
+            return_pstate=return_banded_pstate, method=method,
             sharded=op if banded_sharded else None, **warm)
     sharded = None
     if isinstance(op, (_sharded.ShardedLaplacian,
@@ -239,19 +265,18 @@ def fiedler_pair_op(
     if not isinstance(op, GraphOperator):
         raise TypeError(f"fiedler_pair_op: unknown operator {type(op)}")
 
-    def _ret(res):
-        # An incoming PrecondState passes through untouched.
-        return (res, pstate) if return_pstate else res
-
-    if method == "dense" or (op.mode == "dense"
-                             and op.n <= DENSE_MAX_N):
+    if apply_override is None and (
+            method == "dense" or (op.mode == "dense" and op.n <= DENSE_MAX_N)):
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
-    if sharded is None:
+    if apply_override is not None:
+        def apply_L(V):
+            return apply_override(w, V)
+    elif sharded is None:
         apply_L = lap_applier(op, w)
-        lnorm = lap_inf_norm(op, w)
     else:
         apply_L = sharded.applier(w)
-        lnorm = 2.0 * sharded.degrees(w).amax(dim=-1)
+    lnorm = (lap_inf_norm(op, w) if sharded is None
+             else 2.0 * sharded.degrees(w).amax(dim=-1))
     if precond == "twogrid":
         Minv = make_twogrid_precond(op, w, apply_L, sharded)
     else:
@@ -372,13 +397,6 @@ def _op_from_matrix(L) -> Tuple[GraphOperator, np.ndarray,
         w = -vals[nz]
     n = L.shape[0]
     return build_operator(idx, n), w, extract_chain_weights(idx, w, n)
-
-
-def default_xprev(n: int, q: int, dtype, device) -> torch.Tensor:
-    """The default block that seeds the eigensolver's previous-iterate
-    memory: N(0, 1) from a torch.Generator seeded with 7."""
-    gen = torch.Generator().manual_seed(_DEFAULT_SEED)
-    return torch.randn((n, q), generator=gen, dtype=dtype).to(device)
 
 
 def _normalized_fiedler(L, X: torch.Tensor, tol: float, maxiter: int,

@@ -131,8 +131,8 @@ def test_lobpcg_pair_on_banded_operator_matches_jax(dtype):
                              chain_dp=torch.zeros(n, dtype=dtype),
                              chain_l=torch.zeros(n, dtype=dtype))
     res2, st = fiedler_pair_op(tbop, tw, torch.as_tensor(X, dtype=dtype),
-                               pstate=pstate, use_prev=False,
-                               return_pstate=True, **kw)
+                               banded_pstate=pstate, banded_use_prev=False,
+                               return_banded_pstate=True, **kw)
     assert float(st.Lc_inv.abs().max()) > 0
     assert abs(float(res2.lam[0]) - lam_j) <= tol * lam_j
     if dtype == torch.float64:
@@ -190,8 +190,9 @@ def test_dense_fiedler_method_keeps_banded_pytree_carry():
     pstate = tb.PrecondState(Lc_inv=torch.ones((nc, nc)),
                              chain_dp=torch.ones(n), chain_l=torch.zeros(n))
     res, st = fiedler_pair_op(bop, w, X0, xprev0=mac.xprev0.double(),
-                              method="dense", pstate=pstate, use_prev=True,
-                              return_pstate=True)
+                              method="dense", banded_pstate=pstate,
+                              banded_use_prev=True,
+                              return_banded_pstate=True)
     assert st is pstate
     L = mac.laplacian(np.full(len(cands), 0.5)).toarray()
     np.testing.assert_allclose(res.lam.numpy(),

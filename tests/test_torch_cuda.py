@@ -6,9 +6,10 @@ banded float64 route and LOBPCG / dense eigh on the banded operator, and the
 baselines on the card (GreedyEig's lane-batched trial chunk through K1,
 GreedyESP's scan), and the chain factor's kernels K3 (exact, against its
 plain doubling scan within 1e-13 relative in float64 and one float32
-ulp) and K3b (segment-decoupled, bitwise). Marked `cuda`; each test skips
-when no CUDA device is present. This file imports neither JAX nor the JAX package, so it
-also runs where JAX is not installed:
+ulp) and K3b (segment-decoupled, bitwise), and the banded preconditioner's
+block-Jacobi and additive variants against their CPU calls. Marked `cuda`;
+each test skips when no CUDA device is present. This file imports neither
+JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -802,3 +803,44 @@ def test_banded_solve_launches_k3b_once_per_factorisation(dev, monkeypatch):
     assert ldl.tridiag_ldl_blocked.launches - k3b == calls["factor"]
     assert ldl.tridiag_ldl.launches == k3
     assert rounded.sum() == k and np.isfinite(upper)
+
+
+_PRECOND_VARIANTS = [("chain", "mult"), ("chain", "additive"),
+                     ("bjacobi", "mult"), ("bjacobi", "additive")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("smoother,kind", _PRECOND_VARIANTS)
+def test_precond_variants_on_cuda_match_the_cpu_call(dev, smoother, kind,
+                                                     dtype):
+    """The banded preconditioner's four (smoother, kind) pairs on the card
+    against the same call on CPU tensors (the kernels' plain versions), on
+    an exact-factor graph (n 700: K3) and a blocked one (n 4500: K3b):
+    within 2e-4 of max |M(B)| in float32 (K1's tolerance) and 1e-10 in
+    float64. The chain smoother launches K1 and its factor's kernel,
+    block-Jacobi neither."""
+    tol = 1e-10 if dtype == torch.float64 else 2e-4
+    for graph in ((700, 120, 40, 3), (4500, 2000, 40, 4)):
+        idx, w_np, n = _graph(*graph)
+        out = {}
+        for device in ("cpu", "cuda"):
+            bop = banded.build_banded_rcm(idx, n)[0].to(device)
+            w = torch.as_tensor(w_np, dtype=dtype, device=device)
+            B = torch.as_tensor(np.random.RandomState(8).normal(size=(n, 4)),
+                                dtype=dtype, device=device)
+            before = (tridiag_solve.launches, ldl.tridiag_ldl.launches
+                      + ldl.tridiag_ldl_blocked.launches)
+            BD = banded.assemble_bd(bop, w)
+            M = banded.make_banded_precond(
+                bop, BD, w=w if smoother == "chain" else None,
+                smoother=smoother, kind=kind)
+            out[device] = M(B).cpu()
+        # The card's launches (the CPU call launches none).
+        k1 = tridiag_solve.launches - before[0]
+        k3 = (ldl.tridiag_ldl.launches + ldl.tridiag_ldl_blocked.launches
+              - before[1])
+        assert (k1 > 0, k3 > 0) == (smoother == "chain",) * 2, (k1, k3)
+        ref = out["cpu"]
+        assert bool(torch.isfinite(out["cuda"]).all())
+        torch.testing.assert_close(out["cuda"], ref, rtol=tol,
+                                   atol=tol * float(ref.abs().max()))

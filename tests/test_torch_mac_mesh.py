@@ -72,6 +72,38 @@ BIG = (chain_plus_loops(10_000, 2_000, seed=11),
        dict(max_iters=3))
 
 
+def banded_graph(n=700, n_loops=260, span=40, seed=3):
+    """An odometry chain plus short-range loop closures (banded after RCM)
+    and its edge weights, float64."""
+    rng = np.random.RandomState(seed)
+    loops = set()
+    while len(loops) < n_loops:
+        i = rng.randint(0, n - 2)
+        j = min(n - 1, i + 2 + rng.randint(span))
+        if j - i > 1:
+            loops.add((i, j))
+    idx = np.concatenate([np.stack([np.arange(n - 1), np.arange(1, n)], 1),
+                          np.array(sorted(loops))])
+    return idx, torch.as_tensor(0.5 + rng.rand(len(idx))), n
+
+
+def bjacobi_block():
+    """The block the block-Jacobi preconditioner is applied to."""
+    return torch.as_tensor(np.random.RandomState(5).normal(size=(700, 4)))
+
+
+def bjacobi_sharded(mesh):
+    """The block-Jacobi preconditioner under sharded= (its diagonal blocks
+    all-gathered from each rank's own rows) at n = 700 in float64, both
+    cycle forms: M(B) of bjacobi_block()."""
+    idx, w, n = banded_graph()
+    sh = sharded.ShardedBanded(tb.build_banded_rcm(idx, n)[0], mesh)
+    BD = sh.assemble(w)
+    return [tb.make_banded_precond(sh.bop, BD, smoother="bjacobi", kind=kind,
+                                   sharded=sh)(bjacobi_block()).numpy()
+            for kind in ("mult", "additive")]
+
+
 def x_init(mac, k):
     return np.full(len(mac.weights), k / len(mac.weights))
 
@@ -101,9 +133,8 @@ def sliced_ut(mesh, case):
 def rank_two(rank, world):
     """The 2-rank cases: ELL rows and edges, banded (a solve and a sweep
     of 2 budgets; float64 solves by LOBPCG and by the dense eigh), the
-    sliced ut rows,
-    and the ELL solve with rank 1's share of the coarse matrix one ulp
-    off."""
+    sliced ut rows, the block-Jacobi preconditioner, and the ELL solve with
+    rank 1's share of the coarse matrix one ulp off."""
     mesh = make_mesh(device_type="cpu")
     (fixed, cands, n), knobs, _, _ = BANDED
     out = {"rows": mesh_solve(mesh, ELL),
@@ -111,7 +142,8 @@ def rank_two(rank, world):
            "banded": mesh_solve(mesh, BANDED),
            "banded_sweep": MAC(fixed, cands, n, mesh=mesh, **knobs
                                ).solve_sweep(BANDED_KS, max_iters=3),
-           "ut": sliced_ut(mesh, BANDED)}
+           "ut": sliced_ut(mesh, BANDED),
+           "bjacobi": bjacobi_sharded(mesh)}
     for method in ("lobpcg", "dense"):
         out[f"banded64_{method}"] = mesh_solve(mesh, BANDED64,
                                                fiedler_method=method)
@@ -333,6 +365,21 @@ def test_banded_sweep_on_mesh_matches_meshless(two):
         np.testing.assert_allclose(lam2(mac, a), lam2(mac, b), rtol=1e-4)
     assert [int(v) for v in r1.sum(axis=1)] == BANDED_KS
     same_everywhere(two, "banded_sweep")
+
+
+def test_bjacobi_precond_on_mesh_matches_meshless(two):
+    """The block-Jacobi preconditioner under sharded= on 2 ranks (both
+    cycle forms, n = 700, float64): every rank's M(B) bitwise the same and
+    within 1e-12 of max |M(B)| of the meshless call."""
+    same_everywhere(two, "bjacobi")
+    idx, w, n = banded_graph()
+    bop = tb.build_banded_rcm(idx, n)[0]
+    BD = tb.assemble_bd(bop, w)
+    for kind, got in zip(("mult", "additive"), two[0]["bjacobi"]):
+        ref = tb.make_banded_precond(bop, BD, smoother="bjacobi",
+                                     kind=kind)(bjacobi_block()).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-12,
+                                   atol=1e-12 * np.abs(ref).max())
 
 
 def test_banded_sliced_ut_rows_bitwise(two):
