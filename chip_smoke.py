@@ -176,6 +176,20 @@ its wall time printed:
      the scipy referee; data/intel.g2o through the native parser and with
      MAC_TPU_NO_NATIVE=1, equal measurements; no plain version on the
      card.
+ 13. the eigensolver's inner solve, replayed as a CUDA graph
+     (mac_tpu_torch.ops.graphs), against the eager loop (EagerInner): warm
+     solves of city10000, sphere2500, the n = 100000 expander (K = 12500,
+     max_iters=10) and phase 10b's banded float64 city10000 (max_iters=20)
+     in turns eager, graph, graph, eager, twice; each turn's wall, relaxed
+     lambda_2, upper bound, captures, replays, inner solves and K1 / K1b
+     launches; every turn's unrounded x, rounded selection and upper bound
+     bitwise the first's, no capture in a warm solve, the graph turns'
+     replays and launches those of the eager turns' inner solves; then one
+     profiled warm solve each way (device busy, kernels, idle share).
+Phases 4 and 5 also print the inner-solve graphs their cold solve captured
+(capture seconds, pool and static bytes) and fail if a warm solve captured
+one; no inner solve of a graphed route runs as the eager loop on the card in
+phases 4 to 12 (PlainOnCard, "plain").
 Phases 4, 5, 6 (sphere2500), 8a, 8b, 8d, 9a-9c, 10b and 10f also require
 the chain factor's kernel of their route to have launched (K3b on the
 banded route past 4096 nodes and on the matrix-free route past 32768, K3
@@ -354,8 +368,10 @@ FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
 class PlainOnCard:
     """While active, counts the calls of the kernels' plain versions that
     are given CUDA tensors (the main paths must make none: every block on
-    the card goes to a kernel): those named in `names`, by default every
-    kernel's. `calls` maps each plain version's name to its count."""
+    the card goes to a kernel), and of the inner solve's eager loop
+    (ops.graphs.plain, "plain": a graphed route on the card replays its
+    graph): those named in `names`, by default all of them. `calls` maps
+    each plain version's name to its count."""
 
     def __init__(self, names=None):
         self.names = names
@@ -363,6 +379,7 @@ class PlainOnCard:
     def __enter__(self):
         import torch
 
+        from mac_tpu_torch.ops import graphs
         from mac_tpu_torch.ops.kernels import assemble, ldl, tridiag
 
         self.calls = {}
@@ -370,7 +387,8 @@ class PlainOnCard:
             (tridiag, "tridiag_solve_plain"),
             (tridiag, "tridiag_solve_blocked_plain"),
             (assemble, "assemble_ut_plain"),
-            (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]))
+            (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]),
+            (graphs, "plain"))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
@@ -432,6 +450,60 @@ class PlainFactor:
     def __exit__(self, *exc):
         self.mod.tridiag_ldl, self.mod.tridiag_ldl_blocked = self.saved
         return False
+
+
+class EagerInner:
+    """While active, the graphed routes run each inner solve as the eager
+    loop on the card (ops.graphs.plain in place of ops.graphs.replay), as
+    they did before the graphs existed, for a comparison run; `calls`
+    counts the inner solves so run."""
+
+    def __enter__(self):
+        from mac_tpu_torch.ops import graphs
+
+        self.mod, self.calls, self.saved = graphs, 0, graphs.replay
+
+        def eager(solve, state, B, X0, iters):
+            self.calls += 1
+            return graphs.plain(solve.build, state, B, X0, iters)
+
+        graphs.replay = eager
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.replay = self.saved
+        return False
+
+
+GRAPH_FIELDS = ("captures", "replays", "capture_s", "pool_bytes",
+                "static_bytes")
+
+
+def graph_stats(op):
+    """{captures, replays, capture_s, pool_bytes, static_bytes} summed
+    over the inner solves on an operator (ops.graphs.InnerSolve)."""
+    return {f: sum(getattr(s, f) for s in op.inner_solves.values())
+            for f in GRAPH_FIELDS}
+
+
+def graph_lines(card, name, stats):
+    """Print the inner-solve graphs of a run of solves from graph_stats
+    before the first and after each solve (the first one cold); fail if a
+    warm solve captured."""
+    cold = {f: stats[1][f] - stats[0][f] for f in GRAPH_FIELDS}
+    warm = [stats[i + 1]["captures"] - stats[i]["captures"]
+            for i in range(1, len(stats) - 1)]
+    replays = [stats[i + 1]["replays"] - stats[i]["replays"]
+               for i in range(len(stats) - 1)]
+    print(f"{name} inner-solve graphs: the cold solve captured "
+          f"{cold['captures']} in {cold['capture_s']:.3f} s (warm-up step "
+          f"included), pools {cold['pool_bytes'] / 2**20:.2f} MiB, static "
+          f"buffers {cold['static_bytes'] / 2**20:.2f} MiB; the warm solves "
+          f"captured {warm}; replays per solve {replays} ({card})",
+          flush=True)
+    if any(warm) or not all(replays):
+        fail(f"{name}: a warm solve captured ({warm}) or a solve replayed "
+             f"nothing ({replays})")
 
 
 def captured_args(mod, name, fn):
@@ -555,12 +627,16 @@ def by_dtype(counted):
     return {kern.__name__: dict(kern.launches_by_dtype) for kern in counted}
 
 
-def profiled_busy(fn):
+def profiled_busy(fn, host_calls=None):
     """(device busy milliseconds, kernels and copies, the three largest
     kernels as (milliseconds, count, name)) of one call of fn(): its device
     activity under torch.profiler, CUDA activity alone, summed from the raw
     activity records (building the profiler's event tree for the ~150k
-    kernels of a GreedyESP scan takes most of a minute)."""
+    kernels of a GreedyESP scan takes most of a minute). host_calls: a
+    dict that receives the count of each CUDA runtime launch call the
+    profiler recorded on the host (cudaLaunchKernel, cudaGraphLaunch, ...),
+    the launches the host enqueued, where the device count above also
+    holds each kernel a graph replays."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -573,6 +649,9 @@ def profiled_busy(fn):
         if e.device_type() == DeviceType.CUDA:
             ns, cnt = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), cnt + 1)
+        elif host_calls is not None and e.name().startswith("cuda") \
+                and "Launch" in e.name():
+            host_calls[e.name()] = host_calls.get(e.name(), 0) + 1
     top = sorted(((ns / 1e6, cnt, name[:80]) for name, (ns, cnt)
                   in by_name.items()), reverse=True)[:3]
     return (sum(ns for ns, _ in by_name.values()) / 1e6,
@@ -1425,9 +1504,10 @@ def float64_phase(dev, card, dataset, synth5, counted):
     LOBPCG on city10000's banded float32 operator; (d) the dense eigh on a
     banded n = 600 graph; (f) the n = 100000 expander of phase 5 in
     float64 (the V-cycle through K1b's float64 instantiation). Phase 8c is
-    the float64 sweep (e). `counted` are the kernel wrappers. Returns the
-    float64 kernels' entries of the kernels line and the launches by dtype
-    of (b)'s two datasets and of (f)."""
+    the float64 sweep (e). `counted` are the kernel wrappers. Returns (b)'s
+    solvers {name: (MAC, K, x_init)}, the launches by dtype of (b)'s two
+    datasets and of (f), and the float64 kernels' entries of the kernels
+    line."""
     import numpy as np
     import torch
 
@@ -1564,7 +1644,7 @@ def float64_phase(dev, card, dataset, synth5, counted):
 
     # (b) the banded operator in float64, through the user's entry point.
     t10 = time.perf_counter()
-    launches_b = {}
+    launches_b, solvers_b = {}, {}
     for name, ref_lam in (("city10000", REFERENCE_LAM2_UNROUNDED),
                           ("sphere2500", BUNDLED["sphere2500"][0])):
         meas, n_ = read_g2o_file(str(dataset.parent / f"{name}.g2o"))
@@ -1579,6 +1659,7 @@ def float64_phase(dev, card, dataset, synth5, counted):
             fail(f"10b {name}: not the banded float64 route with the "
                  f"reference's conservative knobs")
         split = mac._banded.ov_rows > 0
+        solvers_b[name] = (mac, k_, x_)
         reset_counts(*counted)
         walls = []
         with PlainOnCard() as plain:
@@ -1732,7 +1813,7 @@ def float64_phase(dev, card, dataset, synth5, counted):
     if got_f["tridiag_ldl_blocked"].get("float64", 0) <= 0:
         fail("10f: K3b float64 never launched")
     city, sphere = launches_b["city10000"], launches_b["sphere2500"]
-    return launches_b, got_f, [
+    return solvers_b, launches_b, got_f, [
         entry("tridiag_solve_f64", "tridiag.cu",
               "mac_tpu/ops/pallas/tridiag_kernel.py:44",
               f"({n}, 4), city10000's chain factor", k1,
@@ -1806,6 +1887,121 @@ def factor_ab(card, cases, kernels):
               f"{busy:.3f} ms over {kernels_n} kernels and copies; largest "
               f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
               flush=True)
+    return out
+
+
+# Phase 13: the warm solves' turns, the eager inner solve (EagerInner) and
+# the replayed graph: eager, graph, graph, eager, twice.
+GRAPH_TURNS = ("eager", "graph", "graph", "eager") * 2
+
+
+def graph_ab(card, cases, counted):
+    """Phase 13: each case's warm solve in the turns GRAPH_TURNS in this
+    call, "eager" with the inner solve run as the eager loop (EagerInner),
+    "graph" replaying its CUDA graph. `cases` maps a name to (operator,
+    solve() -> (rounded, unrounded, upper), lam(unrounded) -> relaxed
+    lambda_2); `counted` are the kernel wrappers. Per turn: the wall, the
+    relaxed lambda_2 (of the first turn's x, which every turn's equals;
+    the scipy referee's start vector is random, so it is read once), the
+    upper bound, the captures, replays and inner solves, the kernels'
+    launches. Gates: every turn's unrounded x, rounded
+    selection and upper bound bitwise the first turn's; no capture in a
+    warm solve; no replay in an eager turn; the graph turns' replays equal
+    the eager turns' inner solves, and their launches the eager turns'.
+    Then one profiled warm solve each way (device busy, kernels and
+    copies, idle share of its own wall, launch calls on the host). Returns
+    {name: {"eager": [walls], "graph": [walls], "profile": {turn: (wall,
+    busy ms, kernels, host launch calls)},
+    "inner": inner solves a solve, "launches": {wrapper: per solve},
+    "stats": graph_stats}}."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+
+    out = {}
+    for name, (op, solve, lam_of) in cases.items():
+        res = out[name] = {"eager": [], "graph": []}
+        first, seen = None, {"eager": set(), "graph": set()}
+        for turn in GRAPH_TURNS:
+            reset_counts(*counted)
+            s0 = graph_stats(op)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "eager":
+                with EagerInner() as eager:
+                    got = solve()
+                    torch.cuda.synchronize()
+            else:
+                got = solve()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s1 = graph_stats(op)
+            captures = s1["captures"] - s0["captures"]
+            replays = s1["replays"] - s0["replays"]
+            inner = eager.calls if turn == "eager" else replays
+            launches = {kern.__name__: kern.launches for kern in counted}
+            res[turn].append(wall)
+            if first is None:
+                first, lam = got, lam_of(got[1])
+            same = (np.array_equal(got[0], first[0])
+                    and np.array_equal(got[1], first[1])
+                    and got[2] == first[2])
+            print(f"13 {name} {turn}: warm solve {wall:.4f} s, relaxed "
+                  f"lambda_2 {lam:.17g} (x, rounded selection and upper "
+                  f"bound {'bitwise' if same else 'NOT bitwise'} the first "
+                  f"turn's), upper {got[2]:.17g}, rounded "
+                  f"{int(got[0].sum())}; captures {captures}, replays "
+                  f"{replays}, inner solves {inner}; K1 "
+                  f"{launches['tridiag_solve']}, K1b "
+                  f"{launches['tridiag_solve_blocked']} ({card})", flush=True)
+            if not same:
+                fail(f"13 {name} {turn}: the solve is not bitwise the first "
+                     f"turn's (max |x - x_first| "
+                     f"{np.abs(got[1] - first[1]).max():.3e}, relaxed "
+                     f"lambda_2 {lam_of(got[1])!r} against {lam!r}, upper "
+                     f"{got[2]!r} against {first[2]!r})")
+            if captures or inner <= 0 or (turn == "eager" and replays):
+                fail(f"13 {name} {turn}: captures {captures}, replays "
+                     f"{replays}, inner solves {inner}")
+            seen[turn].add((inner, tuple(sorted(launches.items()))))
+        if len(seen["eager"]) != 1 or seen["eager"] != seen["graph"]:
+            fail(f"13 {name}: inner solves and launches a solve differ "
+                 f"between the turns: {seen}")
+        (res["inner"], counts), = seen["graph"]
+        res["launches"] = dict(counts)
+        res["stats"] = graph_stats(op)
+        print(f"13 {name}: eager {[round(t, 4) for t in res['eager']]} s, "
+              f"graph {[round(t, 4) for t in res['graph']]} s; mean graph / "
+              f"eager {sum(res['graph']) / sum(res['eager']):.3f}; "
+              f"{res['inner']} inner solves a solve, launches a solve "
+              f"{res['launches']}; graphs on this operator since its first "
+              f"solve: {res['stats']} ({card})", flush=True)
+        res["profile"] = {}
+        for turn in ("eager", "graph"):
+            walls = []
+
+            def timed():
+                t0 = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+
+            host = {}
+            if turn == "eager":
+                with EagerInner():
+                    busy, kernels_n, top = profiled_busy(timed, host)
+            else:
+                busy, kernels_n, top = profiled_busy(timed, host)
+            res["profile"][turn] = (walls[0], busy, kernels_n,
+                                    sum(host.values()))
+            print(f"13 {name} {turn}, one profiled warm solve: wall "
+                  f"{walls[0]:.4f} s, device busy {busy:.3f} ms over "
+                  f"{kernels_n} kernels and copies, idle share "
+                  f"{1 - busy / 1e3 / walls[0]:.3f}; launch calls on the "
+                  f"host {sum(host.values())} {host}; largest "
+                  f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
+                  flush=True)
     return out
 
 
@@ -2410,8 +2606,10 @@ def main():
 
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")
-    # Phases 4 to 10 hand no plain chain factor a CUDA tensor.
+    # Phases 4 to 10 hand no plain chain factor a CUDA tensor, and phases 4
+    # to 12 run no inner solve of a graphed route as the eager loop.
     plain_factor = PlainOnCard(FACTOR_PLAINS).__enter__()
+    plain_inner = PlainOnCard(("plain",)).__enter__()
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -2421,7 +2619,7 @@ def main():
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     for kern in (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b):
         kern.launches = 0
-    times = []
+    times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2429,6 +2627,8 @@ def main():
                                               use_cache=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        graphs4.append(graph_stats(mac._banded))
+    graph_lines(card, "city10000", graphs4)
     launches = {"tridiag_solve": tridiag_solve.launches,
                 "assemble_ut": assemble_ut.launches,
                 "tridiag_ldl_blocked": k3b.launches}
@@ -2477,7 +2677,7 @@ def main():
     counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b)
     for kern in counted:
         kern.launches = 0
-    path_s, path_launches = [], []
+    path_s, path_launches, graphs5 = [], [], [graph_stats(mac5.op)]
     for label in ("cold", "warm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2487,9 +2687,11 @@ def main():
         path_s.append(time.perf_counter() - t0)
         path_launches.append(tridiag_solve_blocked.launches
                              - sum(path_launches))
+        graphs5.append(graph_stats(mac5.op))
         print(f"solve {label}: {path_s[-1]:.3f} s, last_solve_stats "
               f"{mac5.last_solve_stats}, K1b launches "
               f"{path_launches[-1]}", flush=True)
+    graph_lines(card, f"n = {SCALE_N}", graphs5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lam5 = mac5.evaluate_objective(unrounded5)
@@ -2659,7 +2861,7 @@ def main():
 
     # ---- 10. float64 and the remaining methods
     phase("10 float64 and the remaining methods")
-    launches_10b, launches_10f, f64_kernels = float64_phase(
+    solvers_10b, launches_10b, launches_10f, f64_kernels = float64_phase(
         dev, card, dataset, (fi5, wf5, ci5, wc5), counted)
     plain_factor.__exit__(None, None, None)
     print(f"plain chain factors handed CUDA tensors in phases 4-10: "
@@ -2689,6 +2891,30 @@ def main():
           "native opt-out)")
     api_phase(dev, card, {"city10000": (bop, w), "sphere2500": (bop_sp, w_sp)},
               mac.laplacian(x_init), dataset, counted)
+    plain_inner.__exit__(None, None, None)
+    print(f"inner solves of graphed routes run as the eager loop on the card "
+          f"in phases 4-12: {plain_inner.calls}", flush=True)
+    if plain_inner.calls:
+        fail(f"a graphed route ran its inner solve eagerly on the card: "
+             f"{plain_inner.calls}")
+
+    # ---- 13. the replayed inner solve against the eager loop, end to end
+    phase("13 the inner solve: replayed CUDA graph against the eager loop "
+          "(warm solves)")
+    mac_sp, k_sp, x_sp = bundled_macs["sphere2500"]
+    mac64, k64, x64 = solvers_10b["city10000"]
+    graph_ab(card, {
+        "city10000": (mac._banded, lambda: mac.solve(
+            k, x_init, rounding="nearest", use_cache=True),
+            lambda u: scipy_lam2(mac.laplacian(u))),
+        "sphere2500": (mac_sp._banded, lambda: mac_sp.solve(
+            k_sp, x_sp, use_cache=True),
+            lambda u: scipy_lam2(mac_sp.laplacian(u))),
+        f"n = {SCALE_N}": (mac5.op, lambda: mac5.solve(
+            k5, x5, max_iters=10, use_cache=True), mac5.evaluate_objective),
+        "city10000 banded float64": (mac64._banded, lambda: mac64.solve(
+            k64, x64, max_iters=20),
+            lambda u: scipy_lam2(mac64.laplacian(u)))}, counted)
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call

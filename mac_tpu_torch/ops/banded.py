@@ -98,6 +98,8 @@ class BandedOperator(nn.Module):
         RCM id.
     chain_eid (max(n-1, 1),): edge id joining original nodes (k, k+1),
         sentinel m where absent.
+    inner_solves: the eigensolver's captured inner solves on these tables
+    (mac_tpu_torch.ops.graphs), empty until a solve on the card.
     """
 
     def __init__(self, tables: dict, n: int, nb: int, ndiag: int,
@@ -114,6 +116,7 @@ class BandedOperator(nn.Module):
         self.coarse_nc = int(coarse_nc)
         self.du_dense = int(du_dense)
         self.ov_rows = int(ov_rows)
+        self.inner_solves = {}
 
     @property
     def half(self) -> int:
@@ -438,9 +441,10 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
                         rebuild: Optional[bool] = None, sharded=None):
     """Two-level symmetric preconditioner for L(w) restricted to 1^perp.
 
-    smoother: "chain" (the default; needs w) is the exact solve of the
-    odometry chain's tridiagonal part in the original node order, through
-    the RCM permutation (kernel K1, its factor by K3/K3b); "bjacobi" solves
+    smoother: "chain" (the default; needs w unless a carried state gives
+    its factor) is the exact solve of the odometry chain's tridiagonal
+    part in the original node order, through the RCM permutation (kernel
+    K1, its factor by K3/K3b); "bjacobi" solves
     the BS x BS RCM diagonal blocks exactly (batched products of their
     Cholesky inverses, no permutation), cheaper per application and weaker,
     leaving all coupling between blocks to the coarse level.
@@ -496,12 +500,13 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
 
     fac = None
     if smoother == "chain":
-        if w is None:
-            raise ValueError("the 'chain' smoother needs the weight vector w")
         if (prev_state is not None and rebuild is not None and not rebuild
                 and prev_state.chain_dp is not None):
             fac = TridiagFactor(dp=prev_state.chain_dp, l=prev_state.chain_l,
                                 seg=CHAIN_LDL_BLOCK if n > 4096 else None)
+        elif w is None:
+            raise ValueError("the 'chain' smoother needs the weight vector w "
+                             "to build its factor")
         else:
             fac = chain_factor(bop, BD, w)
 

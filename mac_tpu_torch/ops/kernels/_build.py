@@ -95,6 +95,11 @@ def load(name: str, signatures, path=None) -> ctypes.CDLL:
     return lib
 
 
+def loaded_files() -> tuple:
+    """((source name, library file), ...) of the libraries loaded now."""
+    return tuple(sorted((name, lib._name) for name, lib in _loaded.items()))
+
+
 def function(name: str, fn: str, signatures):
     """The exported C function `fn` of csrc/<name>.cu as a ctypes function,
     resolved at its first call and kept: a wrapper's launch costs one dict

@@ -43,6 +43,8 @@ class GraphOperator:
     consecutive nodes, else the sentinel n - 1; chain_mask (m,): whether it
     joins consecutive nodes. coarse_idx (m, 2): endpoints // coarse_s.
     Index tables are int64 tensors; `to(device)` returns a moved copy.
+    inner_solves: the eigensolver's captured inner solves on this operator
+    (mac_tpu_torch.ops.graphs), empty until a solve on the card.
     """
 
     def __init__(self, idx, nbr_tbl, eid_tbl, chain_slot, chain_mask,
@@ -55,6 +57,7 @@ class GraphOperator:
         self.mode = mode
         self.coarse_s = int(coarse_s)
         self.coarse_nc = int(coarse_nc)
+        self.inner_solves = {}
 
     @property
     def m(self) -> int:
@@ -133,6 +136,24 @@ def _w_pad(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, w.new_zeros((*w.shape[:-1], 1))], dim=-1)
 
 
+def add_at(target: torch.Tensor, index: torch.Tensor,
+           values: torch.Tensor) -> torch.Tensor:
+    """target[..., index] += values along the last dimension, in place,
+    with the leading (lane) dimensions of target and values in step;
+    duplicate indices sum in a fixed order on every device (index_put_
+    with accumulate sorts on CUDA, where index_add_'s atomics add in no
+    fixed order, so a solve would not repeat itself bit for bit). On the
+    CPU, float64 sums run in index order, as index_add_'s."""
+    lead = target.shape[:-1]
+    size = target.shape[-1]
+    values = values.expand(*lead, index.shape[0])
+    if lead:
+        rows = torch.arange(target[..., 0].numel(), device=index.device)
+        index = (rows[:, None] * size + index[None, :]).reshape(-1)
+    target.view(-1).index_put_((index,), values.reshape(-1),
+                               accumulate=True)
+    return target
+
 
 def lap_degrees(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     """Weighted degrees deg_i = sum_{e ni i} w_e (the diagonal of L(w))."""
@@ -201,11 +222,21 @@ def lap_apply_reduced(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
     return out
 
 
+def lap_weight_table(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
+    """The ELL operator's weight table (n, dmax), (R, n, dmax) for lanes:
+    each adjacency slot's edge weight, 0 in padding."""
+    return _w_pad(w)[..., op.eid_tbl]
+
+
+def ell_applier(op: GraphOperator, w_tbl: torch.Tensor):
+    """V -> L(w) @ V on the ELL operator, from its weight table."""
+    return lambda V: _ell_apply_tbl(op, w_tbl, V)
+
+
 def lap_applier(op: GraphOperator, w: torch.Tensor):
     """V -> L(w) @ V with the per-weight work (the dense matrix, or the
     ELL weight table) done once, for an eigensolve's many products."""
     if op.mode == "dense":
         L_dense = lap_dense(op, w)
         return lambda V: L_dense @ V
-    w_tbl = _w_pad(w)[..., op.eid_tbl]
-    return lambda V: _ell_apply_tbl(op, w_tbl, V)
+    return ell_applier(op, lap_weight_table(op, w))

@@ -171,6 +171,7 @@ def tracemin_fiedler(
     min_iters: int = 0,
     nullvec: Optional[torch.Tensor] = None,
     agree: Callable = bool,
+    inner_solve: Optional[Callable] = None,
 ) -> FiedlerResult:
     """Block inverse (subspace) iteration with Rayleigh-Ritz.
 
@@ -203,6 +204,12 @@ def tracemin_fiedler(
     agree: reads the stop test on the host, bool by default; on a mesh the
     group's agreement (parallel.mesh.MeshGroup.agree), so that every rank
     leaves the loop at the same iteration.
+
+    inner_solve: each outer iteration's inner solve as a function (B, X0,
+    iters, c, sigma) -> X computing what pcg_fixed does on apply_inner
+    (L + (c / n) 1 1^T + sigma I, with nullvec None) preconditioned by
+    Minv, for the same operator and preconditioner (ops.graphs: a replayed
+    CUDA graph on the card); None runs pcg_fixed itself.
     """
     n, q = X0.shape
     dtype = X0.dtype
@@ -276,8 +283,11 @@ def tracemin_fiedler(
         if it >= min_iters and (it >= maxiter or not agree(keep)):
             break
         inv_lam = 1.0 / torch.maximum(lam, sigma)
-        Y = pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
-                      X0=X * inv_lam[None, :])
+        if inner_solve is None:
+            Y = pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
+                          X0=X * inv_lam[None, :])
+        else:
+            Y = inner_solve(X, X * inv_lam[None, :], inner_iters, c, sigma)
         Y = project(Y)
         Yp = _colnorm(_ortho_against(X, Y))
         Pp = _colnorm(_ortho_against(X, Xprev))

@@ -7,10 +7,11 @@ dense coarse-grid correction (PyTorch counterpart of mac_tpu.ops.twogrid).
   * Coarse level: s consecutive nodes per aggregate, nc = ceil(n / s)
     aggregates, piecewise-constant prolongation. Lc = P^T L(w) P is the
     (nc, nc) Laplacian of the coarse edges, accumulated in float64 by one
-    index_add_ (the TPU assembled it from one-hot matrix products because
-    its scatters are slow), shifted by (cshift / nc) 1 1^T to make it SPD
-    and inverted once per weight vector through a float64 Cholesky factor
-    (regularised when the graph's components leave it singular).
+    scatter-add in a fixed order (the TPU assembled it from one-hot matrix
+    products because its scatters are slow), shifted by (cshift / nc)
+    1 1^T to make it SPD and inverted once per weight vector through a
+    float64 Cholesky factor (regularised when the graph's components leave
+    it singular).
   * One symmetric V-cycle: pre-smooth, coarse-correct, post-smooth, with
     the input and output centred (the preconditioner acts on 1^perp).
 
@@ -23,9 +24,10 @@ from typing import Callable
 
 import torch
 
-from mac_tpu_torch.ops.laplacian import GraphOperator, lap_tridiagonal_part
+from mac_tpu_torch.ops.laplacian import (GraphOperator, add_at,
+                                         lap_tridiagonal_part)
 from mac_tpu_torch.ops.lobpcg import batched_trace, cholesky_upper
-from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
+from mac_tpu_torch.ops.tridiag import (TridiagFactor, tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
 
 
@@ -40,24 +42,18 @@ def coarse_laplacian(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     flat = torch.cat([ci * nc + cj, cj * nc + ci, ci * nc + ci, cj * nc + cj])
     vals = torch.cat([-w64, -w64, w64, w64], dim=-1)
     Lc = torch.zeros((*lead, nc * nc), dtype=torch.float64, device=w.device)
-    return Lc.index_add_(-1, flat, vals).reshape(*lead, nc, nc)
+    return add_at(Lc, flat, vals).reshape(*lead, nc, nc)
 
 
-def make_twogrid_precond(
-    op: GraphOperator,
-    w: torch.Tensor,
-    apply_L: Callable[[torch.Tensor], torch.Tensor],
-    sharded=None,
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The V-cycle preconditioner for L(w) restricted to 1^perp, a function
-    (n, q) -> (n, q), or (R, n, q) -> (R, n, q) for lanes w (R, m); rebuild
-    it when w changes. sharded: on a mesh, the ELL operator's sharded form
+def twogrid_level(op: GraphOperator, w: torch.Tensor, sharded=None):
+    """(chain factor, Lc_inv): what the V-cycle of L(w) reads beyond the
+    product, built once per weight vector (lanes: one of each per lane).
+    sharded: on a mesh, the ELL operator's sharded form
     (mac_tpu_torch.parallel.sharded), whose collectives build the
     tridiagonal part and Lc identically on every rank."""
-    n, s, nc = op.n, op.coarse_s, op.coarse_nc
+    nc = op.coarse_nc
     dtype = w.dtype
     eps = torch.finfo(dtype).eps
-    lead = w.shape[:-1]
 
     if sharded is None:
         d, e = lap_tridiagonal_part(op, w)
@@ -85,7 +81,18 @@ def make_twogrid_precond(
         Rc = torch.where(singular[..., None, None],
                          cholesky_upper(Lc_reg + jit * eye), Rc)
     Rc_inv = torch.linalg.solve_triangular(Rc, eye.expand_as(Rc), upper=True)
-    Lc_inv = (Rc_inv @ Rc_inv.mT).to(dtype)
+    return fac, (Rc_inv @ Rc_inv.mT).to(dtype)
+
+
+def twogrid_cycle(op: GraphOperator, fac: TridiagFactor,
+                  Lc_inv: torch.Tensor,
+                  apply_L: Callable[[torch.Tensor], torch.Tensor]
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The symmetric V-cycle over a chain factor and a coarse inverse (what
+    twogrid_level builds) and the product apply_L: a function (n, q) ->
+    (n, q), or (R, n, q) -> (R, n, q) for lanes. It builds nothing, so
+    ops.graphs builds it again over static copies of fac and Lc_inv."""
+    n, s, nc = op.n, op.coarse_s, op.coarse_nc
     pad = nc * s - n
 
     def center(B):
@@ -95,6 +102,7 @@ def make_twogrid_precond(
         return tridiag_solve_factored_fast(fac, B)
 
     def restrict(R):  # (..., n, q) -> (..., nc, q): sums within aggregates
+        lead = R.shape[:-2]
         if pad:
             R = torch.cat([R, R.new_zeros((*lead, pad, R.shape[-1]))],
                           dim=-2)
@@ -114,3 +122,16 @@ def make_twogrid_precond(
         return center(x)
 
     return precond
+
+
+def make_twogrid_precond(
+    op: GraphOperator,
+    w: torch.Tensor,
+    apply_L: Callable[[torch.Tensor], torch.Tensor],
+    sharded=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The V-cycle preconditioner for L(w) restricted to 1^perp, a function
+    (n, q) -> (n, q), or (R, n, q) -> (R, n, q) for lanes w (R, m); rebuild
+    it when w changes. sharded: as in twogrid_level."""
+    fac, Lc_inv = twogrid_level(op, w, sharded)
+    return twogrid_cycle(op, fac, Lc_inv, apply_L)

@@ -49,6 +49,12 @@ def _rank_main(rank, world, fn, args, device_type, init, timeout_s, out):
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
+            # Every rank has joined before fn runs: a rank whose fn returns
+            # at once would otherwise tear the group down while a peer is
+            # still in its connection handshake (gloo's connectFullMesh then
+            # fails there with "Connection closed by peer").
+            dist.barrier(device_ids=[rank] if device_type == "cuda"
+                         else None)
             result = fn(rank, world, *args)
         finally:
             dist.destroy_process_group()

@@ -20,11 +20,13 @@ import torch
 from mac_tpu_torch.device import resolve_device
 
 from mac_tpu_torch.ops import banded as _banded
+from mac_tpu_torch.ops import graphs as _graphs
 from mac_tpu_torch.ops.cg import pcg_fixed
 from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
-                                         build_operator, lap_applier,
-                                         lap_degrees, lap_dense, lap_inf_norm,
-                                         lap_tridiagonal_part)
+                                         build_operator, ell_applier,
+                                         lap_applier, lap_degrees, lap_dense,
+                                         lap_inf_norm, lap_tridiagonal_part,
+                                         lap_weight_table)
 from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
                                       FiedlerResult, _shift_term,
                                       default_xprev, dense_fiedler,
@@ -34,7 +36,8 @@ from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
-from mac_tpu_torch.ops.twogrid import make_twogrid_precond
+from mac_tpu_torch.ops.twogrid import (make_twogrid_precond, twogrid_cycle,
+                                       twogrid_level)
 from mac_tpu_torch.parallel import sharded as _sharded
 
 _DEFAULT_SEED = 7  # the reference's np.random.RandomState(7) start block
@@ -81,7 +84,8 @@ def _stack(results) -> FiedlerResult:
 
 def _tracemin(apply_L, X, lnorm, Minv, *, lam0=None, warm_init=None, **kw):
     """tracemin_fiedler, or tracemin_fiedler_lanes for lanes (lnorm (R,));
-    the lanes take the cold entry only. kw may hold `agree`."""
+    the lanes take the cold entry only. kw may hold `agree` and, for one
+    solve, `inner_solve` (ops.graphs)."""
     if lnorm.dim() == 0:
         return tracemin_fiedler(apply_L, X, lnorm, Minv, lam0=lam0,
                                 warm_init=warm_init, **kw)
@@ -137,18 +141,22 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
         return (res, pstate) if return_pstate else res
     # ||L||_inf = 2 max weighted degree, read off BD's diagonal.
     lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
-    pstate_out = None
-    if pstate is not None or return_pstate:
-        Minv, pstate_out = _banded.make_banded_precond(
-            bop, BD, w=w, prev_state=pstate, use_prev=use_prev,
-            rebuild=rebuild, return_state=True, sharded=sharded)
-    else:
-        Minv = _banded.make_banded_precond(bop, BD, w=w, sharded=sharded)
+    want_state = pstate is not None or return_pstate
+    carry = (dict(prev_state=pstate, use_prev=use_prev, rebuild=rebuild)
+             if want_state else {})
+    Minv, built = _banded.make_banded_precond(
+        bop, BD, w=w, return_state=True, sharded=sharded, **carry)
+    pstate_out = built if want_state else None
     if method == "lobpcg":
         res = _lobpcg(apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
                       maxiter=maxiter, inner_iters=inner_iters,
                       agree=warm.get("agree", bool))
     else:
+        if sharded is None and lnorm.dim() == 0:
+            # One solve: its inner solves replay a CUDA graph on the card.
+            warm["inner_solve"] = _graphs.bind(
+                _graphs.banded_inner(bop, _banded.PRECOND_KIND),
+                _graphs.banded_state(BD, built))
         res = _tracemin(
             apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
@@ -268,16 +276,30 @@ def fiedler_pair_op(
     if apply_override is None and (
             method == "dense" or (op.mode == "dense" and op.n <= DENSE_MAX_N)):
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
+    # One TRACEMIN solve on the ELL product with the V-cycle: its inner
+    # solves replay a CUDA graph on the card.
+    graphed = (apply_override is None and sharded is None and op.mode == "ell"
+               and precond == "twogrid" and method == "tracemin"
+               and w.dim() == 1)
     if apply_override is not None:
         def apply_L(V):
             return apply_override(w, V)
+    elif graphed:
+        w_tbl = lap_weight_table(op, w)
+        apply_L = ell_applier(op, w_tbl)
     elif sharded is None:
         apply_L = lap_applier(op, w)
     else:
         apply_L = sharded.applier(w)
     lnorm = (lap_inf_norm(op, w) if sharded is None
              else 2.0 * sharded.degrees(w).amax(dim=-1))
-    if precond == "twogrid":
+    if graphed:
+        fac, Lc_inv = twogrid_level(op, w)
+        Minv = twogrid_cycle(op, fac, Lc_inv, apply_L)
+        warm["inner_solve"] = _graphs.bind(
+            _graphs.twogrid_inner(op, fac.seg),
+            _graphs.twogrid_state(w_tbl, fac, Lc_inv))
+    elif precond == "twogrid":
         Minv = make_twogrid_precond(op, w, apply_L, sharded)
     else:
         d, e = (lap_tridiagonal_part(op, w) if sharded is None

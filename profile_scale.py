@@ -11,7 +11,8 @@ use_cache=True). After one cold and two warm solves without the profiler:
      sum of its kernel and copy durations), its share of that same run's
      wall time, the kernels run, and device time by kernel;
   2. one warm solve with CPU and CUDA activity and the path's layers wrapped
-     in profiler ranges: host-inclusive time by layer.
+     in profiler ranges: host-inclusive time by layer (the inner solves are
+     replays of their CUDA graphs, mac_tpu_torch.ops.graphs).
 Every line names the card and its power limit. It gates nothing:
 chip_smoke.py checks the path.
 """
@@ -23,16 +24,15 @@ from chip_smoke import SCALE_N, card_line, fail, synthetic
 
 def _layer_ranges():
     """(module, attribute, range name) of the matrix-free path's layers."""
-    from mac_tpu_torch.ops import lobpcg, twogrid
+    from mac_tpu_torch.ops import graphs, twogrid
     from mac_tpu_torch.utils import fiedler
 
     return [(fiedler, "tracemin_fiedler", "TRACEMIN"),
-            (lobpcg, "pcg_fixed", "PCG"),
+            (graphs, "replay", "inner solve (graph replay)"),
             (twogrid, "tridiag_ldl_auto", "blocked chain LDL^T"),
-            (twogrid, "coarse_laplacian", "coarse Lc (index_add_)"),
-            (twogrid, "tridiag_solve_factored_fast", "chain solve (K1b)"),
-            (fiedler, "make_twogrid_precond", "V-cycle set-up"),
-            (fiedler, "lap_applier", "ELL apply build")]
+            (twogrid, "coarse_laplacian", "coarse Lc (scatter-add)"),
+            (fiedler, "twogrid_level", "V-cycle set-up"),
+            (fiedler, "lap_weight_table", "ELL weight table")]
 
 
 def _timed(solve):
@@ -79,25 +79,12 @@ def layer_profile(solve, card):
                 return fn(*a, **k)
         return inner
 
-    def ranged_result(fn, name, result_name):
-        # Wrap the built closure too: its calls are the layer's applications.
-        def inner(*a, **k):
-            with record_function(name):
-                built = fn(*a, **k)
-            return ranged(built, result_name)
-        return inner
-
     patched = [(mod, attr, getattr(mod, attr), name)
                for mod, attr, name in _layer_ranges()]
-    names = [name for *_, name in patched] + ["V-cycle apply", "ELL apply"]
+    names = [name for *_, name in patched]
     try:
         for mod, attr, real, name in patched:
-            if attr == "make_twogrid_precond":
-                setattr(mod, attr, ranged_result(real, name, "V-cycle apply"))
-            elif attr == "lap_applier":
-                setattr(mod, attr, ranged_result(real, name, "ELL apply"))
-            else:
-                setattr(mod, attr, ranged(real, name))
+            setattr(mod, attr, ranged(real, name))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = _timed(solve)

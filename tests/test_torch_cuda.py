@@ -6,8 +6,10 @@ banded float64 route and LOBPCG / dense eigh on the banded operator, and the
 baselines on the card (GreedyEig's lane-batched trial chunk through K1,
 GreedyESP's scan), and the chain factor's kernels K3 (exact, against its
 plain doubling scan within 1e-13 relative in float64 and one float32
-ulp) and K3b (segment-decoupled, bitwise), and the banded preconditioner's
-block-Jacobi and additive variants against their CPU calls. Marked `cuda`;
+ulp) and K3b (segment-decoupled, bitwise), the banded preconditioner's
+block-Jacobi and additive variants against their CPU calls, and the
+eigensolver's inner solve replayed as a CUDA graph against the eager loop
+(bitwise, across weight vectors, with the launch counts). Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -844,3 +846,141 @@ def test_precond_variants_on_cuda_match_the_cpu_call(dev, smoother, kind,
         assert bool(torch.isfinite(out["cuda"]).all())
         torch.testing.assert_close(out["cuda"], ref, rtol=tol,
                                    atol=tol * float(ref.abs().max()))
+
+
+def _inner_steps(route, dev, seeds):
+    """For each seed, a Frank-Wolfe step's inner-solve inputs on
+    the card: (InnerSolve, state, fresh apply_inner, fresh Minv), built as
+    utils.fiedler builds them, on a small banded graph (n 1500, chain
+    factor K3) or the ELL operator past 32768 nodes (K1b, K3b); the edge
+    weights scaled by 0.5 + U(0, 1) from the seed (None: unscaled)."""
+    from chip_smoke import synthetic
+    from mac_tpu_torch.ops import graphs, laplacian, twogrid
+    from mac_tpu_torch.ops.lobpcg import _shift_term
+
+    if route == "banded":
+        idx, w_np, n = _graph(1500, 1200, 25, 3)
+        op = banded.build_banded_rcm(idx, n)[0].to(dev)
+    else:
+        fi, wf, ci, wc = synthetic(40000)
+        idx, w_np, n = np.concatenate([fi, ci]), np.concatenate([wf, wc]), \
+            40000
+        op = laplacian.build_operator(idx, n).to(dev)
+    out = []
+    for seed in seeds:
+        scale = (1.0 if seed is None
+                 else 0.5 + np.random.RandomState(seed).rand(len(w_np)))
+        w = torch.as_tensor(w_np * scale, dtype=torch.float32, device=dev)
+        if route == "banded":
+            BD = banded.assemble_bd(op, w)
+            M, st = banded.make_banded_precond(op, BD, w=w, return_state=True)
+            solve = graphs.banded_inner(op, banded.PRECOND_KIND)
+            state = graphs.banded_state(BD, st)
+            lnorm = 2.0 * BD.deg.amax()
+
+            def apply_L(V, BD=BD):
+                return banded.banded_apply(op, BD, V)
+        else:
+            w_tbl = laplacian.lap_weight_table(op, w)
+            apply_L = laplacian.ell_applier(op, w_tbl)
+            fac, Lc_inv = twogrid.twogrid_level(op, w)
+            M = twogrid.twogrid_cycle(op, fac, Lc_inv, apply_L)
+            solve = graphs.twogrid_inner(op, fac.seg)
+            state = graphs.twogrid_state(w_tbl, fac, Lc_inv)
+            lnorm = laplacian.lap_inf_norm(op, w)
+        c = lnorm.to(torch.float32)
+        sigma = 32 * torch.finfo(torch.float32).eps * c
+        state = dict(state, c=c, sigma=sigma)
+
+        def apply_inner(V, apply_L=apply_L, c=c, sigma=sigma):
+            return apply_L(V) + _shift_term(V, c) + sigma * V
+
+        out.append((solve, state, apply_inner, M))
+    return n, out
+
+
+@pytest.mark.parametrize("route", ["banded", "ell"])
+def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
+    """The replayed graph of the inner solve against pcg_fixed on the eager
+    closures of the same step, bitwise, for two weight vectors in turn
+    through one captured graph (each step's state lives at fresh addresses:
+    the graph reads its static copies), and again for the first: one
+    capture, three replays, and after the capture each replay counts the
+    kernel launches the eager loop does (K1 on the banded graph, K1b on
+    the ELL one)."""
+    from mac_tpu_torch.ops.cg import pcg_fixed
+
+    n, steps = _inner_steps(route, dev, (None, 2))
+    kern = tridiag_solve if route == "banded" else tridiag_solve_blocked
+    rng = np.random.RandomState(12)
+    B = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
+                        device=dev)
+    X0 = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
+                         device=dev)
+    solve = steps[0][0]
+    assert all(s is solve for s, *_ in steps)
+    for turn, (_, state, apply_inner, M) in enumerate(steps + steps[:1]):
+        k0 = kern.launches
+        eager = pcg_fixed(apply_inner, B, M, iters=5, X0=X0)
+        torch.cuda.synchronize()
+        k_eager = kern.launches - k0
+        k0 = kern.launches
+        got = solve(state, B, X0, 5)
+        torch.cuda.synchronize()
+        if turn:
+            assert kern.launches - k0 == k_eager > 0
+        assert torch.equal(got, eager), float((got - eager).abs().max())
+    assert (solve.captures, solve.replays) == (1, 3)
+    assert solve.pool_bytes >= 0 and solve.static_bytes > 0
+
+
+def test_fiedler_pair_op_on_cuda_replays_one_graph_per_step_count(dev):
+    """A banded TRACEMIN solve on the card replays its inner solves: one
+    capture for its step count, one replay an outer iteration; a second
+    solve at other weights captures nothing and gives bitwise what the
+    eager loop gives."""
+    from mac_tpu_torch.ops import graphs
+    from mac_tpu_torch.utils.fiedler import fiedler_pair_op
+
+    idx, w_np, n = _graph(1500, 1200, 25, 3)
+    bop = banded.build_banded_rcm(idx, n)[0].to(dev)
+    X = torch.as_tensor(np.random.RandomState(1).normal(size=(n, 4)),
+                        dtype=torch.float32, device=dev)
+    kw = dict(maxiter=6, inner_iters=5)
+    res = fiedler_pair_op(bop, torch.as_tensor(w_np, dtype=torch.float32,
+                                               device=dev), X, **kw)
+    solve, = bop.inner_solves.values()
+    assert res.iters > 0
+    assert (solve.captures, solve.replays) == (1, res.iters)
+    w2 = torch.as_tensor(w_np * (0.5 + np.random.RandomState(2).rand(
+        len(w_np))), dtype=torch.float32, device=dev)
+    res2 = fiedler_pair_op(bop, w2, X, **kw)
+    replays = res.iters + res2.iters
+    assert (solve.captures, solve.replays) == (1, replays)
+    real = graphs.replay
+    graphs.replay = lambda s, state, B, X0, iters: graphs.plain(
+        s.build, state, B, X0, iters)
+    try:
+        eager = fiedler_pair_op(bop, w2, X, **kw)
+    finally:
+        graphs.replay = real
+    assert solve.replays == replays
+    assert torch.equal(res2.X, eager.X) and torch.equal(res2.lam, eager.lam)
+
+
+def test_failed_capture_raises(dev):
+    """A closure that reads the host cannot be captured: the inner solve
+    raises and keeps no graph (nothing falls back to the eager loop)."""
+    from mac_tpu_torch.ops import graphs
+
+    def build(state):
+        return (lambda V: V * float(V.abs().sum())), (lambda R: R)
+
+    solve = graphs.InnerSolve(build, tuple)
+    B = torch.ones((64, 4), device=dev)
+    state = {"c": torch.ones((), device=dev),
+             "sigma": torch.zeros((), device=dev)}
+    with pytest.raises(RuntimeError, match="capturing the inner solve"):
+        solve(state, B, B, 2)
+    assert solve.captures == 0 and not solve.graphs
+    torch.cuda.synchronize()
