@@ -54,14 +54,25 @@ its wall time printed:
      within that plus the scan's own distance from the referee;
      tridiag_solve(d, e, B) at n = 40000 through one K3 launch; each timed
      (device, call, plain call, bound, the dependent chain's length);
+  3e. sym_eig (K4) on TRACEMIN's Rayleigh-Ritz matrices of city10000's
+     tables at its start weights (the 4 x 4 of the entry, the 12 x 12 of an
+     outer iteration, float32 and float64 coefficients), a batch of them,
+     and random symmetric matrices of k 1, 3, 31 and 32: eigenvalues within
+     2 k eps ||H|| of its plain Jacobi's and of torch.linalg.eigh's,
+     residual and orthogonality within 2 k eps, ascending, each vector's
+     largest entry positive; k 33, float16 and a non-contiguous matrix
+     raise; timed at the four main-path shapes (device, call, plain call,
+     torch.linalg.eigh's call time as the library's (it syncs), bound,
+     the dependent rounds);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
-     the loop closures; K1, K2 and K3b must have launched; the relaxed
-     lambda_2 (scipy float64 referee) must sit within -1e-3 relative of
-     the reference optimum 0.06944591018149751 and print as +3.623e-04
-     (the chain factor is bitwise its plain version's, so the gap cannot
-     move), and the rounded selection must hold exactly K edges; from here
-     to phase 10 no plain chain factor may be handed a CUDA tensor;
+     the loop closures; K1, K2, K3b and K4 must have launched; the relaxed
+     lambda_2 (scipy float64 referee) must sit within -1e-4 relative of
+     the reference optimum 0.06944591018149751 and print as CITY_GAP_DIGITS
+     (every kernel on the path is deterministic, so the gap cannot move
+     unless the arithmetic does), and the rounded selection must hold
+     exactly K edges; from here to phase 10 no plain chain factor may be
+     handed a CUDA tensor;
   5. the matrix-free path, as scripts/bench_scale.py drives it: the
      n = 100000 expander-like graph (chain plus loop closures spanning up
      to n/4, no narrow band), K = 12500 of 50000 candidates, x_init the
@@ -163,7 +174,9 @@ its wall time printed:
  11. the chain factor's kernels end to end: warm solves of city10000,
      sphere2500 and the n = 100000 expander (K = 12500, max_iters=10) in
      turns old, new, new, old, "old" with the factor patched back to its
-     plain loops; each turn's wall, relaxed gap and factorisations.
+     plain loops, all on the eager solve path (SolvePath("eager"): a
+     graph replays no Python, so it could not count the plain loops);
+     each turn's wall, relaxed gap and factorisations.
  12. the reference's API on the card: make_banded_precond's four
      (smoother, kind) pairs on phase 3's city10000 and sphere2500 tables at
      their start weights, each with its build's call ms, one
@@ -176,20 +189,32 @@ its wall time printed:
      the scipy referee; data/intel.g2o through the native parser and with
      MAC_TPU_NO_NATIVE=1, equal measurements; no plain version on the
      card.
- 13. the eigensolver's inner solve, replayed as a CUDA graph
-     (mac_tpu_torch.ops.graphs), against the eager loop (EagerInner): warm
+ 13. the eigensolver's single solve on the card three ways
+     (mac_tpu_torch.ops.graphs, SolvePath): "graph" (each Frank-Wolfe
+     step's set-up and TRACEMIN's outer iteration replayed as CUDA graphs),
+     "inner" (only the inner CG steps replayed: the path before the set-up
+     and the outer iteration were captured) and "eager" (no graph): warm
      solves of city10000, sphere2500, the n = 100000 expander (K = 12500,
      max_iters=10) and phase 10b's banded float64 city10000 (max_iters=20)
-     in turns eager, graph, graph, eager, twice; each turn's wall, relaxed
-     lambda_2, upper bound, captures, replays, inner solves and K1 / K1b
-     launches; every turn's unrounded x, rounded selection and upper bound
-     bitwise the first's, no capture in a warm solve, the graph turns'
-     replays and launches those of the eager turns' inner solves; then one
-     profiled warm solve each way (device busy, kernels, idle share).
-Phases 4 and 5 also print the inner-solve graphs their cold solve captured
-(capture seconds, pool and static bytes) and fail if a warm solve captured
-one; no inner solve of a graphed route runs as the eager loop on the card in
-phases 4 to 12 (PlainOnCard, "plain").
+     in turns eager, inner, graph, graph, inner, eager; each turn's wall,
+     relaxed lambda_2, upper bound, captures, replays, set-up redos and
+     K1 / K1b / K4 launches; every turn's unrounded x, rounded selection
+     and upper bound bitwise the first's, no capture in a warm solve, equal
+     launches of every kernel by dtype in every turn, K4 launched, no call
+     of torch.linalg.eigh; the case's quality gate (city10000 relaxed gap
+     >= -1e-4; sphere2500 >= -1e-3; n = 100000 evaluate_objective >= the
+     reference (1 - 1e-3); the banded float64 city10000 within 1e-9
+     relative of the reference), exactly K rounded and upper >= relaxed;
+     then one profiled warm solve each way (device busy, kernels, idle
+     share, launch calls on the host: at most 3000 on city10000 and 1500
+     at n = 100000 replayed); then one step of each cell again with its
+     guard forced (banded: a NaN carried coarse inverse; ELL: the coarse
+     level's singular flag raised): one eager redo, bitwise the eager
+     solve.
+Phases 4 and 5 also print the graphs their cold solve captured (capture
+seconds, pool and static bytes) and fail if a warm solve captured one; no
+single solve of a graphed route runs without its graphs on the card in
+phases 4 to 10 and 12 (PlainOnCard, "plain_solve").
 Phases 4, 5, 6 (sphere2500), 8a, 8b, 8d, 9a-9c, 10b and 10f also require
 the chain factor's kernel of their route to have launched (K3b on the
 banded route past 4096 nodes and on the matrix-free route past 32768, K3
@@ -202,8 +227,11 @@ time (library_ms), and the least time the card could take, bound_ms; one
 entry per lane shape, its launches those with that many lanes in phase 8;
 one entry per float64 kernel, "dtype": "float64", its launches those of
 its phase-10 path; K3 and K3b with "replaces" naming the JAX scan they
-stand for and "chain_steps" the length of their dependent chain) and the
-result line {"ok": true, "device": {...}}.
+stand for and "chain_steps" the length of their dependent chain; K4 one
+entry per shape and dtype, "replaces" the jnp.linalg.eigh line it stands
+for, "launches" those of its dtype on phase 4's path (float32) or phase
+5's (float64 coefficients), "library_ms" the call time of
+torch.linalg.eigh) and the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -244,9 +272,14 @@ GAP_FLOOR_F64 = -1e-4
 # Phase 3d: K3 (exact factor) in float64 against the extended-precision
 # referee (pivot_referee), relative.
 F64_FACTOR_RTOL = 1e-13
-# Phase 4: city10000's relaxed gap as printed since K1's redesign: the chain
-# factor is bitwise its plain version's, so the gap cannot move.
-CITY_GAP_DIGITS = "+3.623e-04"
+# Phase 4: city10000's relaxed gap as printed since K4 took the Rayleigh-Ritz
+# eigensolves: every kernel on the path is deterministic, so the gap cannot
+# move unless the arithmetic does; and its floor, the tuned operating
+# point's.
+CITY_GAP_DIGITS = "+1.182e-03"
+CITY_GAP_FLOOR = -1e-4
+# Phase 13: host launch calls a profiled warm solve may make, replayed.
+HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
 
 
 def fail(msg: str) -> None:
@@ -368,10 +401,10 @@ FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
 class PlainOnCard:
     """While active, counts the calls of the kernels' plain versions that
     are given CUDA tensors (the main paths must make none: every block on
-    the card goes to a kernel), and of the inner solve's eager loop
-    (ops.graphs.plain, "plain": a graphed route on the card replays its
-    graph): those named in `names`, by default all of them. `calls` maps
-    each plain version's name to its count."""
+    the card goes to a kernel), and of the graphed routes' eager solve
+    (ops.graphs.plain_solve, "plain_solve": a single solve on the card
+    replays its graphs): those named in `names`, by default all of them.
+    `calls` maps each plain version's name to its count."""
 
     def __init__(self, names=None):
         self.names = names
@@ -380,7 +413,7 @@ class PlainOnCard:
         import torch
 
         from mac_tpu_torch.ops import graphs
-        from mac_tpu_torch.ops.kernels import assemble, ldl, tridiag
+        from mac_tpu_torch.ops.kernels import assemble, ldl, syev, tridiag
 
         self.calls = {}
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
@@ -388,7 +421,7 @@ class PlainOnCard:
             (tridiag, "tridiag_solve_blocked_plain"),
             (assemble, "assemble_ut_plain"),
             (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]),
-            (graphs, "plain"))
+            (syev, "sym_eig_plain"), (graphs, "plain_solve"))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
@@ -452,50 +485,81 @@ class PlainFactor:
         return False
 
 
-class EagerInner:
-    """While active, the graphed routes run each inner solve as the eager
-    loop on the card (ops.graphs.plain in place of ops.graphs.replay), as
-    they did before the graphs existed, for a comparison run; `calls`
-    counts the inner solves so run."""
+class SolvePath:
+    """While active, the graphed routes' single solves on the card take
+    another path than ops.graphs.graphed_solve, for a comparison run:
+    "eager" (graphs.plain_solve: the build and TRACEMIN's loop with no
+    graph, K4 included) or "inner" (graphs.inner_replayed_solve: only the
+    inner CG steps replayed, the form before the set-up and the outer
+    iteration were captured); `calls` counts the solves so run. No knob
+    selects them."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
 
     def __enter__(self):
         from mac_tpu_torch.ops import graphs
 
-        self.mod, self.calls, self.saved = graphs, 0, graphs.replay
+        self.mod, self.calls, self.saved = graphs, 0, graphs.graphed_solve
+        path = {"eager": graphs.plain_solve,
+                "inner": graphs.inner_replayed_solve}[self.kind]
 
-        def eager(solve, state, B, X0, iters):
+        def run(*args, **kw):
             self.calls += 1
-            return graphs.plain(solve.build, state, B, X0, iters)
+            return path(*args, **kw)
 
-        graphs.replay = eager
+        graphs.graphed_solve = run
         return self
 
     def __exit__(self, *exc):
-        self.mod.replay = self.saved
+        self.mod.graphed_solve = self.saved
         return False
 
 
-GRAPH_FIELDS = ("captures", "replays", "capture_s", "pool_bytes",
+class EighCalls:
+    """While active, counts the calls of torch.linalg.eigh (`calls`): the
+    single-solve routes must make none on the card (K4 takes them)."""
+
+    def __enter__(self):
+        import torch
+
+        self.real, self.calls = torch.linalg.eigh, 0
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        torch.linalg.eigh = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.linalg.eigh = self.real
+        return False
+
+
+GRAPH_FIELDS = ("captures", "replays", "redos", "capture_s", "pool_bytes",
                 "static_bytes")
 
 
 def graph_stats(op):
-    """{captures, replays, capture_s, pool_bytes, static_bytes} summed
-    over the inner solves on an operator (ops.graphs.InnerSolve)."""
-    return {f: sum(getattr(s, f) for s in op.inner_solves.values())
+    """{captures, replays, redos, capture_s, pool_bytes, static_bytes}
+    summed over the graph routes of an operator (ops.graphs.Route)."""
+    return {f: sum(getattr(s, f) for s in op.graph_routes.values())
             for f in GRAPH_FIELDS}
 
 
 def graph_lines(card, name, stats):
-    """Print the inner-solve graphs of a run of solves from graph_stats
-    before the first and after each solve (the first one cold); fail if a
-    warm solve captured."""
+    """Print the graphs of a run of solves from graph_stats before the
+    first and after each solve (the first one cold); fail if a warm solve
+    captured."""
     cold = {f: stats[1][f] - stats[0][f] for f in GRAPH_FIELDS}
     warm = [stats[i + 1]["captures"] - stats[i]["captures"]
             for i in range(1, len(stats) - 1)]
     replays = [stats[i + 1]["replays"] - stats[i]["replays"]
                for i in range(len(stats) - 1)]
-    print(f"{name} inner-solve graphs: the cold solve captured "
+    print(f"{name} solve graphs: the cold solve captured "
           f"{cold['captures']} in {cold['capture_s']:.3f} s (warm-up step "
           f"included), pools {cold['pool_bytes'] / 2**20:.2f} MiB, static "
           f"buffers {cold['static_bytes'] / 2**20:.2f} MiB; the warm solves "
@@ -619,6 +683,113 @@ def factor_times(kern, plain, args, label, steps, card):
           f"call {tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
           f"({tm['bound_by']}); dependent chain {steps} steps, "
           f"{tm['ns_per_step']:.1f} ns a step ({card})", flush=True)
+    return tm
+
+
+def rayleigh_ritz_matrices(bop, w, dev):
+    """{(k, dtype name): H}: the first 4 x 4 (the entry's) and 12 x 12 (an
+    outer iteration's) Rayleigh-Ritz matrices that TRACEMIN hands K4 on the
+    banded tables bop at the weights w from MAC's start block, with
+    float32 coefficients (fast32's) and float64 ones (the default), from
+    one eager outer iteration each (graphs.plain_solve)."""
+    import torch
+
+    from mac_tpu_torch.ops import banded, graphs
+    from mac_tpu_torch.ops.kernels import syev
+    from mac_tpu_torch.ops.lobpcg import default_xprev
+    from mac_tpu_torch.utils.fiedler import default_block
+
+    n = bop.n
+    X = torch.as_tensor(default_block(n, 4), dtype=torch.float32, device=dev)
+    real, got = syev.check_kernel_args, {}
+
+    def record(H):  # the wrapper checks every matrix it launches on
+        got.setdefault((H.shape[-1], str(H.dtype).split(".")[-1]), H.clone())
+        return real(H)
+
+    syev.check_kernel_args = record
+    try:
+        for coeff in (torch.float32, torch.float64):
+            graphs.plain_solve(
+                graphs.banded_route(bop, banded.PRECOND_KIND), w, X,
+                xprev0=default_xprev(n, 4, torch.float32, dev), maxiter=1,
+                inner_iters=10, coeff_dtype=coeff)
+    finally:
+        syev.check_kernel_args = real
+    if sorted(got) != [(4, "float32"), (4, "float64"), (12, "float32"),
+                       (12, "float64")]:
+        fail(f"TRACEMIN handed K4 {sorted(got)}")
+    return got
+
+
+def k4_check(H, label):
+    """K4 against its plain version and torch.linalg.eigh on H (..., k,
+    k): eigenvalues within 2 k eps ||H|| of both and ascending, the
+    residual ||H V - V diag(evals)|| within 2 k eps ||H||, V^T V within
+    2 k eps of I, each column's largest entry positive; returns the largest
+    |evals - plain evals|."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import syev
+
+    k = H.shape[-1]
+    e, V = syev.sym_eig(H)
+    ep, _ = syev.sym_eig_plain(H)
+    el, _ = torch.linalg.eigh(H)
+    torch.cuda.synchronize()
+    eps = torch.finfo(H.dtype).eps
+    hn = max(float(torch.linalg.matrix_norm(H).amax()), 1e-30)
+    tol = 2 * k * eps * hn
+    err = float((e - ep).abs().max())
+    err_l = float((e - el).abs().max())
+    resid = float(torch.linalg.matrix_norm(H @ V - V * e[..., None, :]).amax())
+    eye = torch.eye(k, dtype=H.dtype, device=H.device)
+    orth = float((V.mT @ V - eye).abs().max())
+    top = V.gather(-2, V.abs().argmax(dim=-2, keepdim=True))
+    ok = (bool(torch.isfinite(e).all() and torch.isfinite(V).all())
+          and err <= tol and err_l <= tol and resid <= tol
+          and orth <= 2 * k * eps and bool((top > 0).all())
+          and bool((e[..., 1:] >= e[..., :-1]).all()))
+    print(f"K4 sym_eig {label} {tuple(H.shape)}: max|kernel - plain| "
+          f"{err:.3e}, max|kernel - eigh| {err_l:.3e} (tolerance 2 k eps "
+          f"||H|| = {tol:.3e}), residual {resid:.3e}, max|V^T V - I| "
+          f"{orth:.3e} -> {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"sym_eig disagrees with its plain version or eigh on {label}")
+    return err
+
+
+def k4_times(H, label, card):
+    """Device, call and plain times of K4 on H, torch.linalg.eigh's call
+    time (it synchronises, so no device time), the sweeps this H needs and
+    the bound: H read once, evals and V written once; per rotation 24 m
+    operations on the rows and columns of A and V and 20 for its
+    parameters, per sweep the stop test's 2 m^2, at the dtype's peak."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import syev
+
+    k = H.shape[-1]
+    m = k + k % 2
+    tm = {"device_ms": device_ms(lambda: syev.sym_eig(H)),
+          "call_ms": call_ms(lambda: syev.sym_eig(H)),
+          "plain_ms": call_ms(lambda: syev.sym_eig_plain(H), reps=5,
+                              warmup=1),
+          "library_ms": call_ms(lambda: torch.linalg.eigh(H))}
+    sweeps = syev.jacobi_sweeps(H)
+    rounds = sweeps * (m - 1)
+    tm["bound_ms"], tm["bound_by"] = bound(
+        H.element_size() * (2 * k * k + k),
+        rounds * (m // 2) * (24 * m + 20) + (sweeps + 1) * 2 * m * m,
+        H.element_size())
+    tm["sweeps"], tm["chain_steps"] = sweeps, rounds
+    tm["ns_per_step"] = 1e6 * tm["device_ms"] / max(rounds, 1)
+    print(f"sym_eig time at {label} ({k}, {k}): kernel device "
+          f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, plain "
+          f"call {tm['plain_ms']:.4f} ms, torch.linalg.eigh call "
+          f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.7f} ms "
+          f"({tm['bound_by']}); {sweeps} sweeps, {rounds} dependent rounds, "
+          f"{tm['ns_per_step']:.1f} ns a round ({card})", flush=True)
     return tm
 
 
@@ -1890,95 +2061,118 @@ def factor_ab(card, cases, kernels):
     return out
 
 
-# Phase 13: the warm solves' turns, the eager inner solve (EagerInner) and
-# the replayed graph: eager, graph, graph, eager, twice.
-GRAPH_TURNS = ("eager", "graph", "graph", "eager") * 2
+# Phase 13: the warm solves' turns: "eager" (no graph, SolvePath("eager")),
+# "inner" (the inner CG steps replayed, SolvePath("inner")) and "graph"
+# (the set-up and the outer iteration replayed), interleaved.
+GRAPH_TURNS = ("eager", "inner", "graph", "graph", "inner", "eager")
 
 
 def graph_ab(card, cases, counted):
     """Phase 13: each case's warm solve in the turns GRAPH_TURNS in this
-    call, "eager" with the inner solve run as the eager loop (EagerInner),
-    "graph" replaying its CUDA graph. `cases` maps a name to (operator,
-    solve() -> (rounded, unrounded, upper), lam(unrounded) -> relaxed
-    lambda_2); `counted` are the kernel wrappers. Per turn: the wall, the
+    call. `cases` maps a name to (operator, solve() -> (rounded, unrounded,
+    upper), lam(unrounded) -> relaxed lambda_2, K, quality(lambda_2) ->
+    (ok, text)); `counted` are the kernel wrappers. Per turn: the wall, the
     relaxed lambda_2 (of the first turn's x, which every turn's equals;
     the scipy referee's start vector is random, so it is read once), the
-    upper bound, the captures, replays and inner solves, the kernels'
-    launches. Gates: every turn's unrounded x, rounded
-    selection and upper bound bitwise the first turn's; no capture in a
-    warm solve; no replay in an eager turn; the graph turns' replays equal
-    the eager turns' inner solves, and their launches the eager turns'.
-    Then one profiled warm solve each way (device busy, kernels and
-    copies, idle share of its own wall, launch calls on the host). Returns
-    {name: {"eager": [walls], "graph": [walls], "profile": {turn: (wall,
-    busy ms, kernels, host launch calls)},
-    "inner": inner solves a solve, "launches": {wrapper: per solve},
-    "stats": graph_stats}}."""
+    upper bound, the captures, replays and redos, the kernels' launches.
+    Gates: every turn's unrounded x, rounded selection and upper bound
+    bitwise the first turn's; no capture in a warm solve; no replay in an
+    eager turn; equal launches of every wrapper by dtype in every turn, K4
+    among them; no torch.linalg.eigh call; the case's quality gate,
+    exactly K rounded and upper >= relaxed. Then one profiled warm solve
+    each way (device busy, kernels and copies, idle share of its own wall,
+    launch calls on the host, capped by HOST_LAUNCH_CAPS replayed), and
+    forced_guard.
+    Returns {name: {turn: [walls], "profile": {turn: (wall, busy ms,
+    kernels, host launch calls)}, "launches": {wrapper: {dtype: per
+    solve}}, "stats": graph_stats}}."""
+    from contextlib import nullcontext
+
     import numpy as np
     import torch
 
     from mac_tpu_torch.ops.kernels.tridiag import reset_counts
 
+    def turn_ctx(turn):
+        return SolvePath(turn) if turn != "graph" else nullcontext()
+
     out = {}
-    for name, (op, solve, lam_of) in cases.items():
-        res = out[name] = {"eager": [], "graph": []}
-        first, seen = None, {"eager": set(), "graph": set()}
+    for name, (op, solve, lam_of, k, quality) in cases.items():
+        res = out[name] = {"eager": [], "inner": [], "graph": []}
+        # The inner-only path's graphs are no main path's: capture them in
+        # one untimed solve first.
+        s0 = graph_stats(op)
+        with SolvePath("inner"):
+            solve()
+        print(f"13 {name}: the inner-only path's first solve captured "
+              f"{graph_stats(op)['captures'] - s0['captures']} graphs",
+              flush=True)
+        first, seen = None, set()
         for turn in GRAPH_TURNS:
             reset_counts(*counted)
             s0 = graph_stats(op)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if turn == "eager":
-                with EagerInner() as eager:
-                    got = solve()
-                    torch.cuda.synchronize()
-            else:
+            with turn_ctx(turn), EighCalls() as eigh:
                 got = solve()
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             s1 = graph_stats(op)
-            captures = s1["captures"] - s0["captures"]
-            replays = s1["replays"] - s0["replays"]
-            inner = eager.calls if turn == "eager" else replays
-            launches = {kern.__name__: kern.launches for kern in counted}
+            d = {f: s1[f] - s0[f] for f in ("captures", "replays", "redos")}
+            launches = by_dtype(counted)
             res[turn].append(wall)
             if first is None:
                 first, lam = got, lam_of(got[1])
             same = (np.array_equal(got[0], first[0])
                     and np.array_equal(got[1], first[1])
                     and got[2] == first[2])
+            short = {kern: sum(v.values()) for kern, v in launches.items()}
             print(f"13 {name} {turn}: warm solve {wall:.4f} s, relaxed "
                   f"lambda_2 {lam:.17g} (x, rounded selection and upper "
                   f"bound {'bitwise' if same else 'NOT bitwise'} the first "
                   f"turn's), upper {got[2]:.17g}, rounded "
-                  f"{int(got[0].sum())}; captures {captures}, replays "
-                  f"{replays}, inner solves {inner}; K1 "
-                  f"{launches['tridiag_solve']}, K1b "
-                  f"{launches['tridiag_solve_blocked']} ({card})", flush=True)
+                  f"{int(got[0].sum())}; captures {d['captures']}, replays "
+                  f"{d['replays']}, redos {d['redos']}; K1 "
+                  f"{short['tridiag_solve']}, K1b "
+                  f"{short['tridiag_solve_blocked']}, K4 "
+                  f"{short['sym_eig']}; eigh calls {eigh.calls} ({card})",
+                  flush=True)
             if not same:
                 fail(f"13 {name} {turn}: the solve is not bitwise the first "
                      f"turn's (max |x - x_first| "
                      f"{np.abs(got[1] - first[1]).max():.3e}, relaxed "
                      f"lambda_2 {lam_of(got[1])!r} against {lam!r}, upper "
                      f"{got[2]!r} against {first[2]!r})")
-            if captures or inner <= 0 or (turn == "eager" and replays):
-                fail(f"13 {name} {turn}: captures {captures}, replays "
-                     f"{replays}, inner solves {inner}")
-            seen[turn].add((inner, tuple(sorted(launches.items()))))
-        if len(seen["eager"]) != 1 or seen["eager"] != seen["graph"]:
-            fail(f"13 {name}: inner solves and launches a solve differ "
-                 f"between the turns: {seen}")
-        (res["inner"], counts), = seen["graph"]
-        res["launches"] = dict(counts)
+            if (d["captures"] or (turn == "eager" and d["replays"])
+                    or (turn != "eager" and not d["replays"])
+                    or eigh.calls or short["sym_eig"] <= 0):
+                fail(f"13 {name} {turn}: {d}, eigh calls {eigh.calls}, K4 "
+                     f"launches {short['sym_eig']}")
+            seen.add(tuple(sorted((kern, tuple(sorted(v.items())))
+                                  for kern, v in launches.items())))
+        if len(seen) != 1:
+            fail(f"13 {name}: launches a solve differ between the turns: "
+                 f"{seen}")
+        res["launches"] = launches
         res["stats"] = graph_stats(op)
-        print(f"13 {name}: eager {[round(t, 4) for t in res['eager']]} s, "
-              f"graph {[round(t, 4) for t in res['graph']]} s; mean graph / "
-              f"eager {sum(res['graph']) / sum(res['eager']):.3f}; "
-              f"{res['inner']} inner solves a solve, launches a solve "
-              f"{res['launches']}; graphs on this operator since its first "
-              f"solve: {res['stats']} ({card})", flush=True)
+        ok, text = quality(lam)
+        rounded_ok = int(first[0].sum()) == k
+        bound_ok = first[2] >= lam * (1 - 1e-6)
+        print(f"13 {name}: {text}; rounded {int(first[0].sum())} of K "
+              f"{k}; upper {first[2]:.12g} >= relaxed {lam:.12g}: "
+              f"{bound_ok}", flush=True)
+        if not (ok and rounded_ok and bound_ok):
+            fail(f"13 {name}: quality gate: {text}, rounded "
+                 f"{int(first[0].sum())} (K {k}), upper {first[2]!r}")
+        print(f"13 {name}: " + ", ".join(
+            f"{turn} {[round(t, 4) for t in res[turn]]} s"
+            for turn in ("eager", "inner", "graph")) +
+            f"; mean graph / inner {sum(res['graph']) / sum(res['inner']):.3f},"
+            f" graph / eager {sum(res['graph']) / sum(res['eager']):.3f}; "
+            f"launches a solve {launches}; graphs on this operator since "
+            f"its first solve: {res['stats']} ({card})", flush=True)
         res["profile"] = {}
-        for turn in ("eager", "graph"):
+        for turn in ("eager", "inner", "graph"):
             walls = []
 
             def timed():
@@ -1988,21 +2182,90 @@ def graph_ab(card, cases, counted):
                 walls.append(time.perf_counter() - t0)
 
             host = {}
-            if turn == "eager":
-                with EagerInner():
-                    busy, kernels_n, top = profiled_busy(timed, host)
-            else:
+            with turn_ctx(turn):
                 busy, kernels_n, top = profiled_busy(timed, host)
-            res["profile"][turn] = (walls[0], busy, kernels_n,
-                                    sum(host.values()))
+            calls = sum(host.values())
+            res["profile"][turn] = (walls[0], busy, kernels_n, calls)
             print(f"13 {name} {turn}, one profiled warm solve: wall "
                   f"{walls[0]:.4f} s, device busy {busy:.3f} ms over "
                   f"{kernels_n} kernels and copies, idle share "
                   f"{1 - busy / 1e3 / walls[0]:.3f}; launch calls on the "
-                  f"host {sum(host.values())} {host}; largest "
+                  f"host {calls} {host}; largest "
                   f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
                   flush=True)
+            cap = HOST_LAUNCH_CAPS.get(name)
+            if turn == "graph" and cap is not None and calls > cap:
+                fail(f"13 {name}: {calls} launch calls on the host in a "
+                     f"replayed warm solve, more than {cap}")
+        forced_guard(card, name, op, solve)
     return out
+
+
+def forced_guard(card, name, op, solve):
+    """One Frank-Wolfe step of the case's warm solve run again with its
+    guard forced: on the banded route the step's carried coarse inverse
+    made NaN (a Newton-Schulz refresh from a non-finite carry, which the
+    eager code rebuilds by Cholesky); on the ELL route, which carries no
+    state, the coarse level's singular flag raised, on a copy of the
+    operator whose set-up graph is captured with it. The replayed solve
+    must run the set-up again eagerly once and give bitwise what the eager
+    solve (graphs.plain_solve) gives."""
+    import torch
+
+    from mac_tpu_torch.ops import graphs
+
+    calls, real = [], graphs.graphed_solve
+
+    def record(route, w, X, **kw):
+        calls.append((route, w.clone(), X.clone(), dict(kw)))
+        return real(route, w, X, **kw)
+
+    graphs.graphed_solve = record
+    try:
+        solve()
+    finally:
+        graphs.graphed_solve = real
+    banded = "ut" in calls[0][0].names
+    if banded:
+        route, w, X, kw = next(c for c in reversed(calls)
+                               if c[3].get("branch") == "ns")
+        kw["carried"] = dict(kw["carried"], Lc_inv=torch.full_like(
+            kw["carried"]["Lc_inv"], float("nan")))
+        how = "carried coarse inverse made NaN"
+    else:
+        route, w, X, kw = calls[-1]
+        fresh = op.to(op.device)  # the route holds it weakly: keep it
+        route = graphs.twogrid_route(fresh)
+        how = "coarse level's singular flag raised"
+    level = graphs._twogrid.twogrid_level
+
+    def forced_level(op_, w_, sharded=None, guards=None):
+        out = level(op_, w_, sharded, guards)
+        if guards is not None:
+            guards["coarse_singular"] = torch.ones_like(
+                guards["coarse_singular"])
+        return out
+
+    if not banded:
+        graphs._twogrid.twogrid_level = forced_level
+    try:
+        r0 = route.redos
+        got, _ = real(route, w, X, **kw)
+        redos = route.redos - r0
+    finally:
+        graphs._twogrid.twogrid_level = level
+    ref, _ = graphs.plain_solve(route, w, X, **kw)
+    torch.cuda.synchronize()
+    same = (got.iters == ref.iters and torch.equal(got.X, ref.X)
+            and torch.equal(got.lam, ref.lam))
+    branch = kw.get("branch", "cold")
+    print(f"13 {name} forced guard ({how}, branch {branch}): "
+          f"redos {redos}, {got.iters} outer iterations, result "
+          f"{'bitwise' if same else 'NOT bitwise'} the eager solve's "
+          f"({card})", flush=True)
+    if redos != 1 or not same or not bool(torch.isfinite(got.X).all()):
+        fail(f"13 {name}: a forced guard gave redos {redos}, bitwise "
+             f"{same}")
 
 
 # Phase 12: make_banded_precond's (smoother, kind) pairs; PCG's relative
@@ -2185,7 +2448,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from mac_tpu_torch.ops import banded, laplacian
-    from mac_tpu_torch.ops.kernels import _build, ldl
+    from mac_tpu_torch.ops.kernels import _build, ldl, syev
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
         reset_counts, tridiag_solve, tridiag_solve_blocked,
@@ -2208,7 +2471,7 @@ def main():
     # ---- 2. build the kernels, one nvcc per source, in parallel
     phase("2 build")
     t0 = time.perf_counter()
-    sources = ("tridiag", "assemble", "ldl")
+    sources = ("tridiag", "assemble", "ldl", "syev")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -2604,12 +2867,45 @@ def main():
             k3b_err if kern is k3b else k3_err)[
                 "float64" if key.endswith("f64") else "float32"]
 
+    # ---- 3e. K4 against its plain version
+    phase("3e K4 against its plain version")
+    k4_mats = rayleigh_ritz_matrices(bop, w, dev)
+    rng = np.random.RandomState(4)
+    k4_cases = [(f"TRACEMIN's {k_}x{k_} {dt_} at city10000's start weights",
+                 H_) for (k_, dt_), H_ in sorted(k4_mats.items(),
+                                                 key=lambda kv: str(kv[0]))]
+    for dt_ in (f32, torch.float64):
+        stack = torch.stack([k4_mats[(12, str(dt_).split(".")[-1])]] * 3)
+        k4_cases.append((f"a batch of 3 such 12x12 {dt_}", stack))
+        for k_ in (1, 3, 31, 32):
+            A_ = rng.normal(size=(k_, k_))
+            k4_cases.append((f"random {k_}x{k_} {dt_}", torch.as_tensor(
+                A_ + A_.T, dtype=dt_, device=dev)))
+    k4_err = {}
+    for label, H_ in k4_cases:
+        key = str(H_.dtype).split(".")[-1]
+        k4_err[key] = max(k4_err.get(key, 0.0), k4_check(H_, label))
+    for H_, err in ((torch.zeros(33, 33, device=dev), ValueError),
+                    (torch.zeros(4, 4, device=dev, dtype=torch.float16),
+                     TypeError),
+                    (torch.zeros(8, 8, device=dev)[:4, :4], ValueError)):
+        try:
+            syev.sym_eig(H_)
+        except err:
+            continue
+        fail(f"sym_eig took what its kernel does not: {tuple(H_.shape)} "
+             f"{H_.dtype}, contiguous {H_.is_contiguous()}")
+    print("K4 refuses k 33, float16 and a non-contiguous matrix", flush=True)
+    k4_tm = {key: k4_times(H_, f"TRACEMIN's {key[0]}x{key[0]} {key[1]}",
+                           card) for key, H_ in k4_mats.items()}
+
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")
     # Phases 4 to 10 hand no plain chain factor a CUDA tensor, and phases 4
-    # to 12 run no inner solve of a graphed route as the eager loop.
+    # to 10 and 12 run every single solve of a graphed route through its
+    # graphs and every Rayleigh-Ritz eigensolve through K4.
     plain_factor = PlainOnCard(FACTOR_PLAINS).__enter__()
-    plain_inner = PlainOnCard(("plain",)).__enter__()
+    plain_inner = PlainOnCard(("plain_solve", "sym_eig_plain")).__enter__()
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -2617,8 +2913,10 @@ def main():
     mac = MAC(fixed, cands, n, device="cuda")
     print(f"setup (read, NaiveGreedy, MAC ctor with its host probe): "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    for kern in (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b):
-        kern.launches = 0
+    k4 = syev.sym_eig
+    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b,
+               k4)
+    reset_counts(*counted)
     times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
         torch.cuda.synchronize()
@@ -2631,7 +2929,9 @@ def main():
     graph_lines(card, "city10000", graphs4)
     launches = {"tridiag_solve": tridiag_solve.launches,
                 "assemble_ut": assemble_ut.launches,
-                "tridiag_ldl_blocked": k3b.launches}
+                "tridiag_ldl_blocked": k3b.launches,
+                "sym_eig": k4.launches}
+    k4_launches = {"float32": k4.launches_by_dtype.get("float32", 0)}
     if tridiag_solve_blocked.launches or k3.launches:
         fail("the banded path launched tridiag_solve_blocked or K3")
     print(f"solve: cold {times[0]:.4f} s, warm {[round(t, 4) for t in times[1:]]}"
@@ -2652,11 +2952,12 @@ def main():
     print(f"relaxed lambda_2 (scipy) {lam2:.9g}, reference "
           f"{REFERENCE_LAM2_UNROUNDED:.9g}, relative gap {gap:+.3e}; "
           f"upper bound {upper:.9g}", flush=True)
-    if not gap >= GAP_FLOOR:
-        fail(f"relaxed lambda_2 gap {gap:+.3e} below {GAP_FLOOR}")
+    if not gap >= CITY_GAP_FLOOR:
+        fail(f"relaxed lambda_2 gap {gap:+.3e} below {CITY_GAP_FLOOR}")
     if f"{gap:+.3e}" != CITY_GAP_DIGITS:
         fail(f"city10000's relaxed gap {gap:+.3e} moved from "
-             f"{CITY_GAP_DIGITS}: the chain factor is no longer bitwise")
+             f"{CITY_GAP_DIGITS}: the path's arithmetic is no longer the "
+             "same")
     if upper < lam2 * (1 - 1e-6):
         fail(f"upper bound {upper} below the relaxed lambda_2 {lam2}")
 
@@ -2674,9 +2975,7 @@ def main():
           flush=True)
     if mac5._banded is not None or mac5.op.mode != "ell":
         fail("the n = 100000 expander graph did not take the ELL route")
-    counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b)
-    for kern in counted:
-        kern.launches = 0
+    reset_counts(*counted)
     path_s, path_launches, graphs5 = [], [], [graph_stats(mac5.op)]
     for label in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -2697,6 +2996,7 @@ def main():
     lam5 = mac5.evaluate_objective(unrounded5)
     eval_s = time.perf_counter() - t0
     launches5 = {kern.__name__: kern.launches for kern in counted}
+    k4_launches["float64"] = k4.launches_by_dtype.get("float64", 0)
     print(f"evaluate_objective: {eval_s:.3f} s, K1b launches "
           f"{tridiag_solve_blocked.launches - sum(path_launches)}", flush=True)
     print(f"matrix-free path ({card}): ctor {ctor_s:.3f} s, cold solve "
@@ -2708,9 +3008,10 @@ def main():
           f"{REFERENCE_LAM2_SCALE:.12g}, relative gap {gap5:+.3e}; upper "
           f"bound {upper5:.12g}; rounded {int(rounded5.sum())} of "
           f"{len(wc5)}", flush=True)
-    if launches5["tridiag_solve_blocked"] <= 0 or k3b.launches <= 0:
-        fail("the matrix-free path never launched tridiag_solve_blocked or "
-             "K3b")
+    if (launches5["tridiag_solve_blocked"] <= 0 or k3b.launches <= 0
+            or k4_launches["float64"] <= 0):
+        fail("the matrix-free path never launched tridiag_solve_blocked, "
+             "K3b or K4 in float64")
     if not (np.all(np.isfinite(unrounded5)) and np.all(np.isfinite(rounded5))
             and np.isfinite(upper5) and np.isfinite(lam5)):
         fail("non-finite output on the matrix-free path")
@@ -2869,9 +3170,14 @@ def main():
     if plain_factor.calls:
         fail(f"a plain chain factor ran on the card: {plain_factor.calls}")
 
+    plain_inner.__exit__(None, None, None)
+    inner_calls = dict(plain_inner.calls)
+
     # ---- 11. the chain factor's kernels against its plain loops, end to end
-    phase("11 K3/K3b against the plain factor loops (warm solves)")
-    ab = factor_ab(card, {
+    phase("11 K3/K3b against the plain factor loops (warm solves, eager "
+          "path)")
+    with SolvePath("eager"):
+        ab = factor_ab(card, {
         "city10000": (lambda: mac.solve(k, x_init, rounding="nearest",
                                         use_cache=True),
                       lambda out: (scipy_lam2(mac.laplacian(out[1])),
@@ -2884,37 +3190,56 @@ def main():
                                               use_cache=True),
                            lambda out: (mac5.evaluate_objective(out[1]),
                                         REFERENCE_LAM2_SCALE))},
-        (k3, k3b))
+            (k3, k3b))
 
     # ---- 12. the reference's API on the card
     phase("12 the reference's API (preconditioner variants, call forms, "
           "native opt-out)")
-    api_phase(dev, card, {"city10000": (bop, w), "sphere2500": (bop_sp, w_sp)},
-              mac.laplacian(x_init), dataset, counted)
-    plain_inner.__exit__(None, None, None)
-    print(f"inner solves of graphed routes run as the eager loop on the card "
-          f"in phases 4-12: {plain_inner.calls}", flush=True)
-    if plain_inner.calls:
-        fail(f"a graphed route ran its inner solve eagerly on the card: "
-             f"{plain_inner.calls}")
+    with PlainOnCard(("plain_solve", "sym_eig_plain")) as plain12:
+        api_phase(dev, card, {"city10000": (bop, w),
+                              "sphere2500": (bop_sp, w_sp)},
+                  mac.laplacian(x_init), dataset, counted)
+    for name_, c_ in plain12.calls.items():
+        inner_calls[name_] = inner_calls.get(name_, 0) + c_
+    print(f"single solves of graphed routes run without their graphs, and "
+          f"plain Jacobi eigensolves, on the card in phases 4-10 and 12: "
+          f"{inner_calls}", flush=True)
+    if inner_calls:
+        fail(f"a graphed route solved without its graphs, or K4's plain "
+             f"version ran, on the card: {inner_calls}")
 
-    # ---- 13. the replayed inner solve against the eager loop, end to end
-    phase("13 the inner solve: replayed CUDA graph against the eager loop "
-          "(warm solves)")
+    # ---- 13. the solve's graphs against the inner-only and eager paths
+    phase("13 the solve three ways: set-up and outer iteration replayed, "
+          "inner steps only, eager (warm solves)")
     mac_sp, k_sp, x_sp = bundled_macs["sphere2500"]
     mac64, k64, x64 = solvers_10b["city10000"]
+
+    def rel_gap(ref, floor=None, within=None):
+        def quality(lam):
+            gap = (lam - ref) / ref
+            ok = gap >= floor if within is None else abs(gap) <= within
+            rule = (f">= {floor}" if within is None
+                    else f"within {within} relative")
+            return ok, (f"relaxed lambda_2 {lam:.12g}, reference {ref:.12g},"
+                        f" gap {gap:+.3e} ({rule})")
+        return quality
+
     graph_ab(card, {
         "city10000": (mac._banded, lambda: mac.solve(
             k, x_init, rounding="nearest", use_cache=True),
-            lambda u: scipy_lam2(mac.laplacian(u))),
+            lambda u: scipy_lam2(mac.laplacian(u)), k,
+            rel_gap(REFERENCE_LAM2_UNROUNDED, floor=CITY_GAP_FLOOR)),
         "sphere2500": (mac_sp._banded, lambda: mac_sp.solve(
             k_sp, x_sp, use_cache=True),
-            lambda u: scipy_lam2(mac_sp.laplacian(u))),
+            lambda u: scipy_lam2(mac_sp.laplacian(u)), k_sp,
+            rel_gap(BUNDLED["sphere2500"][0], floor=BUNDLED["sphere2500"][4])),
         f"n = {SCALE_N}": (mac5.op, lambda: mac5.solve(
-            k5, x5, max_iters=10, use_cache=True), mac5.evaluate_objective),
+            k5, x5, max_iters=10, use_cache=True), mac5.evaluate_objective,
+            k5, rel_gap(REFERENCE_LAM2_SCALE, floor=-1e-3)),
         "city10000 banded float64": (mac64._banded, lambda: mac64.solve(
             k64, x64, max_iters=20),
-            lambda u: scipy_lam2(mac64.laplacian(u)))}, counted)
+            lambda u: scipy_lam2(mac64.laplacian(u)), k64,
+            rel_gap(REFERENCE_LAM2_UNROUNDED, within=1e-9))}, counted)
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -3060,7 +3385,23 @@ def main():
                    "mac_tpu/ops/pallas/tridiag_kernel.py:107",
                    f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
                    lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
-    ] + f64_kernels + factor_kernels
+    ] + f64_kernels + factor_kernels + [
+        {"name": "sym_eig", "route": "cuda",
+         "source": "mac_tpu_torch/csrc/syev.cu",
+         "replaces": f"mac_tpu/ops/lobpcg.py:{354 if k_ == 4 else 443}",
+         "shape": f"({k_}, {k_})", "dtype": dt_,
+         "launches": k4_launches[dt_],
+         "launches_path": ("phase 4 city10000, every shape"
+                           if dt_ == "float32" else
+                           f"phase 5 n = {SCALE_N}, every shape"),
+         "max_abs_err": k4_err[dt_], "ms": tm["device_ms"],
+         "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
+         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+         "library": "torch.linalg.eigh, call time (it synchronises)",
+         "sweeps": tm["sweeps"], "chain_steps": tm["chain_steps"]}
+        for (k_, dt_), tm in sorted(k4_tm.items(),
+                                    key=lambda kv: (kv[0][1], kv[0][0]))]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,8 +98,9 @@ class BandedOperator(nn.Module):
         RCM id.
     chain_eid (max(n-1, 1),): edge id joining original nodes (k, k+1),
         sentinel m where absent.
-    inner_solves: the eigensolver's captured inner solves on these tables
-    (mac_tpu_torch.ops.graphs), empty until a solve on the card.
+    graph_routes: the eigensolver's routes on these tables and their
+    captured CUDA graphs (mac_tpu_torch.ops.graphs), filled by the first
+    solve.
     """
 
     def __init__(self, tables: dict, n: int, nb: int, ndiag: int,
@@ -116,7 +117,7 @@ class BandedOperator(nn.Module):
         self.coarse_nc = int(coarse_nc)
         self.du_dense = int(du_dense)
         self.ov_rows = int(ov_rows)
-        self.inner_solves = {}
+        self.graph_routes = {}
 
     @property
     def half(self) -> int:
@@ -438,7 +439,8 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
                         use_prev: Optional[bool] = None,
                         return_state: bool = False,
                         kind: Optional[str] = None,
-                        rebuild: Optional[bool] = None, sharded=None):
+                        rebuild: Optional[bool] = None, sharded=None,
+                        guards: Optional[dict] = None):
     """Two-level symmetric preconditioner for L(w) restricted to 1^perp.
 
     smoother: "chain" (the default; needs w unless a carried state gives
@@ -473,6 +475,12 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
     blocks from each rank's own rows by one all-gather; the chain factor,
     the block inverses, the coarse inverse and Newton-Schulz stay
     replicated.
+
+    guards: None reads Newton-Schulz's guard (is the damped start finite?)
+    on the host and rebuilds cold when it fails. A dict (ops.graphs, whose
+    captured set-up cannot read the host) takes the refined inverse and
+    records the failed guard as a device flag in guards["ns_start_nonfinite"]
+    instead; the caller redoes the step without `guards` when it is set.
 
     Returns a function (n, q) -> (n, q) in RCM order. With lanes (BD and w
     of R lanes, no prev_state), one smoother and one coarse level per lane,
@@ -570,6 +578,9 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
 
         ok = torch.isfinite(X).all() & (resid(X) < resid(X0))
         refined = torch.where(ok, X, X0)
+        if guards is not None:
+            guards["ns_start_nonfinite"] = ~torch.isfinite(X0).all()
+            return refined
         if bool(torch.isfinite(X0).all()):
             return refined
         return _chol_from(Lc_reg)

@@ -1,0 +1,191 @@
+"""Kernel K4: the eigenpairs of small symmetric matrices (csrc/syev.cu).
+
+sym_eig(H) -> (evals, V) for H of shape (..., k, k), k <= 32, float32 or
+float64, computed in H's dtype by cyclic Jacobi rotations in the parallel
+(round-robin) order: evals (..., k) ascending, ties in index order, and V
+(..., k, k) with V[..., :, j] the unit eigenvector of evals[..., j], scaled
+so that its entry of largest magnitude (the first on ties) is positive.
+H is read as symmetric (both triangles are used); TRACEMIN hands it
+(H + H^T) / 2.
+
+It stands for jnp.linalg.eigh in the JAX package's TRACEMIN (the
+Rayleigh-Ritz eigensolves, mac_tpu/ops/lobpcg.py:354, :371, :443), as
+torch.linalg.eigh, which on a CUDA tensor reads its error code back to the
+host and so cannot sit inside a captured CUDA graph.
+
+The wrapper launches the CUDA kernel for a CUDA tensor (one launch, a
+block per matrix, no host read) and runs the plain PyTorch version
+(`sym_eig_plain`: the same rounds in the same order, the same rotation
+formulas and the same stop rule, vectorised over a round's k / 2 pairs and
+over the batch) for a CPU tensor. On a CUDA tensor it raises for what the
+kernel does not take (k > 32, a dtype other than float32 and float64, a
+non-contiguous tensor); nothing falls back to torch.linalg.eigh. It counts
+its launches in `.launches`, `.launches_by_lanes` (by the number of
+matrices) and `.launches_by_dtype`, as the other kernels' wrappers do.
+"""
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from mac_tpu_torch.ops.kernels import _build
+from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
+                                               reset_counts)
+
+MAX_K = 32
+# Sweeps at most; the stop test (off-diagonal Frobenius norm at most
+# eps ||H||_F) ends the loop before every sweep, on the card and here.
+MAX_SWEEPS = 30
+
+
+@lru_cache(maxsize=None)
+def _rounds(m: int):
+    """The round-robin schedule of a sweep over m (even) indices, as the
+    kernel walks it: in round r slot 0 holds index 0 and slot j >= 1 index
+    ((j - 1 + r) mod (m - 1)) + 1, and slot i pairs with slot m - 1 - i.
+    Per round: the flat indices of (p, p), (q, q), (p, q) of its m / 2
+    pairs p < q; each index's partner; each index's pair; each index's
+    sign, -1 at p and +1 at q; the flat indices of (p, p), (q, q), (p, q),
+    (q, p)."""
+    out = []
+    for r in range(m - 1):
+        slot = [0] + [((j - 1 + r) % (m - 1)) + 1 for j in range(1, m)]
+        pairs = [sorted((slot[i], slot[m - 1 - i])) for i in range(m // 2)]
+        P = torch.tensor([p for p, _ in pairs])
+        Q = torch.tensor([q for _, q in pairs])
+        partner = torch.empty(m, dtype=torch.long)
+        partner[P], partner[Q] = Q, P
+        pair = torch.empty(m, dtype=torch.long)
+        pair[P] = pair[Q] = torch.arange(m // 2)
+        sign = torch.ones(m, dtype=torch.float64)
+        sign[P] = -1.0
+        out.append((torch.cat([P * m + P, Q * m + Q, P * m + Q]), partner,
+                    pair, sign,
+                    torch.cat([P * m + P, Q * m + Q, P * m + Q, Q * m + P])))
+    return tuple(out)
+
+
+def sym_eig_plain(H: torch.Tensor):
+    """Plain PyTorch version of K4: (evals, V) of H (..., k, k) by the
+    kernel's Jacobi (see csrc/syev.cu), on any device."""
+    return _jacobi(H)[:2]
+
+
+def jacobi_sweeps(H: torch.Tensor) -> int:
+    """The sweeps the Jacobi takes on H (the most over a batch): how much
+    work this H needs, for a bound on the kernel's time."""
+    return _jacobi(H)[2]
+
+
+def _jacobi(H: torch.Tensor):
+    """(evals, V, sweeps) of the plain version. A and V are held
+    stacked, W = [A; V] (b, 2m, m), so that one column update takes both;
+    with sigma -1 at p and +1 at q, the rotation of rows p and q (x_p - s
+    (x_q + tau x_p), x_q + s (x_p - tau x_q)) reads x + sigma s (y - sigma
+    tau x) for a row x and its partner y: the kernel's roundings."""
+    lead, k = H.shape[:-2], H.shape[-1]
+    dtype, dev = H.dtype, H.device
+    m = k + (k & 1)
+    A = H.reshape(-1, k, k)
+    b = A.shape[0]
+    if m != k:  # a zero row and column pad an odd k
+        A = torch.nn.functional.pad(A, (0, 1, 0, 1))
+    eye = torch.eye(m, dtype=dtype, device=dev)
+    W = torch.cat([A, eye.expand(b, m, m)], dim=1)
+    tol = torch.finfo(dtype).eps * torch.sqrt((A * A).sum(dim=(-2, -1)))
+    off = 1 - eye
+    one = torch.ones((), dtype=dtype, device=dev)
+    h = m // 2
+    schedule = [(g3, partner.to(dev), pair.to(dev), sign.to(dev, dtype), s4)
+                for g3, partner, pair, sign, s4 in _rounds(m)]
+    schedule = [(g3.to(dev), *rest[:3], rest[3].to(dev))
+                for g3, *rest in schedule]
+    sweeps = 0
+    for sweeps in range(MAX_SWEEPS + 1):
+        A = W[:, :m]
+        act = ~(torch.sqrt((A * A * off).sum(dim=(-2, -1))) <= tol)
+        if sweeps == MAX_SWEEPS or not bool(act.any()):
+            break
+        act = act.to(dtype)[:, None]
+        for gather3, partner, pair, sign, scatter4 in schedule:
+            app, aqq, apq = W.view(b, 2 * m * m).index_select(
+                1, gather3).view(b, 3, h).unbind(1)
+            # Rutishauser's t = sign(theta) / (|theta| + hypot(theta, 1)),
+            # theta = (a_qq - a_pp) / (2 a_pq), written as 2 a_pq / (d +
+            # sign(d) hypot(d, 2 a_pq)) with d = a_qq - a_pp; 0 where
+            # a_pq = 0 (0 / 0 where d is 0 too) and in a matrix that has
+            # stopped.
+            d = aqq - app
+            a2 = apq + apq
+            t = a2 / (d + torch.copysign(torch.hypot(d, a2), d))
+            t = torch.nan_to_num(t, nan=0.0) * act
+            c = 1 / torch.hypot(t, one)
+            s = t * c
+            tau = s / (1 + c)
+            st = torch.stack([s, tau]).index_select(2, pair) * sign
+            Ar = W[:, :m]
+            Ar = Ar + st[0, :, :, None] * (Ar.index_select(1, partner)
+                                           - st[1, :, :, None] * Ar)
+            W = torch.cat([Ar, W[:, m:]], dim=1)
+            W = W + st[0, :, None, :] * (W.index_select(2, partner)
+                                         - st[1, :, None, :] * W)
+            ta = t * apq
+            pq = apq * (1 - act)
+            W.view(b, 2 * m * m).index_copy_(
+                1, scatter4, torch.cat([app - ta, aqq + ta, pq, pq], dim=1))
+    evals = torch.diagonal(W[:, :k, :k], dim1=-2, dim2=-1)
+    V = W[:, m:m + k, :k]
+    imax = V.abs().argmax(dim=-2, keepdim=True)
+    V = V * torch.where(V.gather(-2, imax) < 0, -1.0, 1.0).to(dtype)
+    evals, idx = torch.sort(evals, dim=-1, stable=True)
+    V = V.gather(-1, idx[:, None, :].expand(b, k, k))
+    return evals.reshape(*lead, k), V.reshape(*lead, k, k), sweeps
+
+
+_SIGNATURES = {f"sym_eig_{suffix}": [ctypes.c_void_p] * 3
+               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               for suffix in SUFFIX.values()}
+
+
+def check_kernel_args(H: torch.Tensor) -> None:
+    """What the kernel takes: a (..., k, k) float32 or float64 tensor, k
+    from 1 to MAX_K, contiguous."""
+    if H.dim() < 2 or H.shape[-1] != H.shape[-2] or H.shape[-1] < 1:
+        raise ValueError(f"sym_eig: want H (..., k, k), k >= 1; got "
+                         f"{tuple(H.shape)}")
+    if H.shape[-1] > MAX_K:
+        raise ValueError(f"sym_eig kernel: k = {H.shape[-1]} past {MAX_K}")
+    if H.dtype not in SUFFIX:
+        raise TypeError(f"sym_eig kernel takes float32 or float64, not "
+                        f"{H.dtype}")
+    if not H.is_contiguous():
+        raise ValueError("sym_eig kernel: H is not contiguous")
+    if H.numel() // (H.shape[-1] ** 2) >= 2 ** 31:
+        raise ValueError("sym_eig kernel: batch past int32")
+
+
+def sym_eig(H: torch.Tensor):
+    """K4: (evals, V) of the symmetric matrices H (..., k, k) (see the
+    module docstring). CUDA tensors: the hand-written kernel (one launch);
+    CPU tensors: the plain version."""
+    if not H.is_cuda:
+        if H.dim() < 2 or H.shape[-1] != H.shape[-2] or H.shape[-1] < 1:
+            raise ValueError(f"sym_eig: want H (..., k, k), k >= 1; got "
+                             f"{tuple(H.shape)}")
+        return sym_eig_plain(H)
+    check_kernel_args(H)
+    k = H.shape[-1]
+    batch = H.numel() // (k * k)
+    evals = torch.empty(H.shape[:-1], dtype=H.dtype, device=H.device)
+    V = torch.empty_like(H)
+    call = _build.function("syev", f"sym_eig_{SUFFIX[H.dtype]}", _SIGNATURES)
+    err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
+                        V.data_ptr(), k, batch)
+    if err != 0:
+        raise RuntimeError(f"sym_eig kernel launch failed: cudaError {err}")
+    count_launch(sym_eig, batch, H.dtype)
+    return evals, V
+
+
+reset_counts(sym_eig)

@@ -43,8 +43,9 @@ class GraphOperator:
     consecutive nodes, else the sentinel n - 1; chain_mask (m,): whether it
     joins consecutive nodes. coarse_idx (m, 2): endpoints // coarse_s.
     Index tables are int64 tensors; `to(device)` returns a moved copy.
-    inner_solves: the eigensolver's captured inner solves on this operator
-    (mac_tpu_torch.ops.graphs), empty until a solve on the card.
+    graph_routes: the eigensolver's routes on this operator and their
+    captured CUDA graphs (mac_tpu_torch.ops.graphs), filled by the first
+    solve.
     """
 
     def __init__(self, idx, nbr_tbl, eid_tbl, chain_slot, chain_mask,
@@ -57,7 +58,7 @@ class GraphOperator:
         self.mode = mode
         self.coarse_s = int(coarse_s)
         self.coarse_nc = int(coarse_nc)
-        self.inner_solves = {}
+        self.graph_routes = {}
 
     @property
     def m(self) -> int:

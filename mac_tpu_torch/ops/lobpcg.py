@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from mac_tpu_torch.ops.cg import pcg_fixed
+from mac_tpu_torch.ops.kernels import syev as _syev
 
 
 # Outer iterations at most, and preconditioned CG steps per outer iteration.
@@ -152,6 +153,138 @@ def _stall_update(res_new, best, since, eff_tol,
                         torch.zeros_like(since)))
 
 
+class TraceminCarry(NamedTuple):
+    """TRACEMIN's state from one outer iteration to the next."""
+
+    X: torch.Tensor      # (n, q) Ritz vectors
+    AX: torch.Tensor     # (n, q) the shifted operator on them
+    lam: torch.Tensor    # (q,) Ritz values
+    Xprev: torch.Tensor  # (n, q) the previous iterate
+    res: torch.Tensor    # () residual (reference criterion)
+    best: torch.Tensor   # () best residual so far
+    since: torch.Tensor  # () int32, iterations near the floor not improving
+    rres: torch.Tensor   # () eigenvalue-relative residual
+
+
+class TraceminOps:
+    """TRACEMIN's arithmetic on one operator: the entry, one outer
+    iteration and the stop flag, each a function of device tensors with no
+    host read, so that tracemin_fiedler's loop and the captured CUDA graphs
+    of ops.graphs run the same operations. tol and rel_tol are floats or
+    0-dim tensors of the block's dtype; the other arguments are
+    tracemin_fiedler's."""
+
+    def __init__(self, apply_L, Minv, lnorm: torch.Tensor, *, dtype, tol,
+                 rel_tol, coeff_dtype, inner_iters: int,
+                 stall_patience: int = STALL_PATIENCE,
+                 stall_factor: float = STALL_FACTOR, nullvec=None,
+                 inner_solve=None):
+        dev = lnorm.device
+        eps = torch.finfo(dtype).eps
+
+        def scalar(v):  # a fill, not a copy from the host: capturable
+            return (v if isinstance(v, torch.Tensor)
+                    else torch.full((), v, dtype=dtype, device=dev))
+
+        self.apply_L, self.Minv, self.lnorm = apply_L, Minv, lnorm
+        self.dtype, self.coeff_dtype = dtype, coeff_dtype
+        self.inner_iters, self.inner_solve = inner_iters, inner_solve
+        self.stall_patience, self.stall_factor = stall_patience, stall_factor
+        self.eff_tol = torch.clamp(scalar(tol), min=2048 * eps)
+        self.rel_tol = scalar(rel_tol)
+        self.c = lnorm.to(dtype)
+        self.sigma = 32 * eps * self.c
+        # Coefficients in float64, like _shift_term's means.
+        self.u64 = None if nullvec is None else nullvec.double()
+
+    def shift(self, V):
+        if self.u64 is None:
+            return _shift_term(V, self.c)
+        coef = self.u64[None, :] @ V.double()  # (1, k)
+        return (self.c.double() * (self.u64[:, None] * coef)).to(V.dtype)
+
+    def project(self, V):
+        if self.u64 is None:
+            m64 = V.double().mean(dim=0, keepdim=True)
+            return V - m64.to(V.dtype)
+        coef = self.u64[None, :] @ V.double()
+        return V - (self.u64[:, None] * coef).to(V.dtype)
+
+    def apply_shifted(self, V):
+        return self.apply_L(V) + self.shift(V)
+
+    def apply_inner(self, V):
+        return self.apply_shifted(V) + self.sigma * V
+
+    def residual(self, lam, X, AX):
+        r = AX[:, 0] - lam[0] * X[:, 0]
+        return torch.sum(torch.abs(r)) / self.lnorm.to(self.dtype)
+
+    def rel_residual(self, lam, X, AX):
+        r = AX[:, 0] - lam[0] * X[:, 0]
+        return torch.linalg.vector_norm(r) / torch.maximum(lam[0],
+                                                           self.sigma)
+
+    def entry(self, X0: torch.Tensor, xprev0: torch.Tensor,
+              warm: bool) -> TraceminCarry:
+        """The cold entry (orthonormalise, then Rayleigh-Ritz), or the warm
+        one (the Rayleigh-Ritz rotation alone); xprev0 seeds Xprev. Both
+        blocks are read in row-major layout, whatever theirs (a start
+        block may be a transposed view), so that the sums round alike for
+        any caller's layout and for a captured graph's static copy."""
+        q, dtype = X0.shape[1], self.dtype
+        X0, xprev0 = X0.contiguous(), xprev0.contiguous()
+        X = X0 if warm else _orth(self.project(X0), self.coeff_dtype)
+        AX = self.apply_shifted(X)
+        H = _gram(X, AX, self.coeff_dtype)
+        lam, Y0 = _syev.sym_eig((H + H.T) / 2)
+        Y0 = Y0.to(dtype)
+        X, AX, lam = X @ Y0, AX @ Y0, lam[:q].to(dtype)
+        Xprev = self.project(xprev0.to(dtype))
+        res = self.residual(lam, X, AX)
+        since = torch.zeros((), dtype=torch.int32, device=X.device)
+        return TraceminCarry(X, AX, lam, Xprev, res, res, since,
+                             self.rel_residual(lam, X, AX))
+
+    def step(self, carry: TraceminCarry) -> TraceminCarry:
+        """One outer iteration: the inner solve, CGS2 against the Ritz
+        block, CholeskyQR2 of [X, Y, Xprev] and Rayleigh-Ritz."""
+        X, AX, lam, Xprev, res, best, since, rres = carry
+        q, dtype = X.shape[1], self.dtype
+        inv_lam = 1.0 / torch.maximum(lam, self.sigma)
+        if self.inner_solve is None:
+            Y = pcg_fixed(self.apply_inner, X, self.Minv,
+                          iters=self.inner_iters, X0=X * inv_lam[None, :])
+        else:
+            Y = self.inner_solve(X, X * inv_lam[None, :], self.inner_iters,
+                                 self.c, self.sigma)
+        Y = self.project(Y)
+        Yp = _colnorm(_ortho_against(X, Y))
+        Pp = _colnorm(_ortho_against(X, Xprev))
+        S = torch.cat([X, Yp, Pp], dim=1)  # (n, 3q)
+        Q = _orth(S, self.coeff_dtype)
+        AQ = self.apply_shifted(Q)
+        H = _gram(Q, AQ, self.coeff_dtype)
+        H = (H + H.T) / 2
+        evals, C = _syev.sym_eig(H)
+        Cq = C[:, :q].to(dtype)
+        lam_new = evals[:q].to(dtype)
+        X_new = Q @ Cq
+        AX_new = AQ @ Cq
+        res_new = self.residual(lam_new, X_new, AX_new)
+        best, since = _stall_update(res_new, best, since, self.eff_tol,
+                                    self.stall_factor)
+        rres = self.rel_residual(lam_new, X_new, AX_new)
+        return TraceminCarry(X_new, AX_new, lam_new, X, res_new, best, since,
+                             rres)
+
+    def keep(self, carry: TraceminCarry) -> torch.Tensor:
+        """The stop test's flag: true while TRACEMIN goes on."""
+        return _keep_iterating(carry.res, carry.rres, carry.since,
+                               self.eff_tol, self.rel_tol,
+                               self.stall_patience)
+
+
 def tracemin_fiedler(
     apply_L: Callable[[torch.Tensor], torch.Tensor],
     X0: torch.Tensor,
@@ -201,6 +334,11 @@ def tracemin_fiedler(
     floor that did not take the residual below `stall_factor` times its
     best.
 
+    The Rayleigh-Ritz eigensolves run through kernel K4
+    (ops.kernels.syev.sym_eig: the CUDA kernel on the card, its plain
+    Jacobi on the CPU). The arithmetic is TraceminOps'; ops.graphs runs
+    the same entry and outer iteration as replayed CUDA graphs.
+
     agree: reads the stop test on the host, bool by default; on a mesh the
     group's agreement (parallel.mesh.MeshGroup.agree), so that every rank
     leaves the loop at the same iteration.
@@ -208,106 +346,31 @@ def tracemin_fiedler(
     inner_solve: each outer iteration's inner solve as a function (B, X0,
     iters, c, sigma) -> X computing what pcg_fixed does on apply_inner
     (L + (c / n) 1 1^T + sigma I, with nullvec None) preconditioned by
-    Minv, for the same operator and preconditioner (ops.graphs: a replayed
-    CUDA graph on the card); None runs pcg_fixed itself.
+    Minv, for the same operator and preconditioner (ops.graphs.inner_replay:
+    the inner solve alone replayed as a CUDA graph); None runs pcg_fixed
+    itself.
     """
     n, q = X0.shape
     dtype = X0.dtype
-    dev = X0.device
-    eps = torch.finfo(dtype).eps
     if coeff_dtype is None:
         coeff_dtype = torch.float64
-    eff_tol = torch.clamp(torch.tensor(tol, dtype=dtype, device=dev),
-                          min=2048 * eps)
-    c = lnorm.to(dtype)
-    sigma = 32 * eps * c
-
-    if nullvec is None:
-        def shift(V):
-            return _shift_term(V, c)
-
-        def project(V):
-            m64 = V.double().mean(dim=0, keepdim=True)
-            return V - m64.to(V.dtype)
-    else:
-        # Coefficients in float64, like _shift_term's means.
-        u64 = nullvec.double()
-
-        def shift(V):
-            coef = u64[None, :] @ V.double()  # (1, k)
-            return (c.double() * (u64[:, None] * coef)).to(V.dtype)
-
-        def project(V):
-            coef = u64[None, :] @ V.double()
-            return V - (u64[:, None] * coef).to(V.dtype)
-
-    def apply_shifted(V):
-        return apply_L(V) + shift(V)
-
-    def apply_inner(V):
-        return apply_shifted(V) + sigma * V
-
-    # Cold entry: orthonormalise, then Rayleigh-Ritz. Warm entry: the
-    # Rayleigh-Ritz rotation alone.
-    warm = lam0 is not None and bool(warm_init)
-    X = X0 if warm else _orth(project(X0), coeff_dtype)
-    AX = apply_shifted(X)
-    H = _gram(X, AX, coeff_dtype)
-    lam, Y0 = torch.linalg.eigh((H + H.T) / 2)
-    Y0 = Y0.to(dtype)
-    X, AX, lam = X @ Y0, AX @ Y0, lam[:q].to(dtype)
-    if xprev0 is None:
-        xprev0 = default_xprev(n, q, dtype, dev)
-    Xprev = project(xprev0.to(dtype))
-
-    def residual(lam, X, AX):
-        r = AX[:, 0] - lam[0] * X[:, 0]
-        return torch.sum(torch.abs(r)) / lnorm.to(dtype)
-
     if rel_tol is None:
         rel_tol = default_rel_tol(dtype)
-    rel_tol_v = torch.tensor(rel_tol, dtype=dtype, device=dev)
-
-    def rel_residual(lam, X, AX):
-        r = AX[:, 0] - lam[0] * X[:, 0]
-        return torch.linalg.vector_norm(r) / torch.maximum(lam[0], sigma)
-
+    ops = TraceminOps(apply_L, Minv, lnorm, dtype=dtype, tol=tol,
+                      rel_tol=rel_tol, coeff_dtype=coeff_dtype,
+                      inner_iters=inner_iters, stall_patience=stall_patience,
+                      stall_factor=stall_factor, nullvec=nullvec,
+                      inner_solve=inner_solve)
+    if xprev0 is None:
+        xprev0 = default_xprev(n, q, dtype, X0.device)
+    carry = ops.entry(X0, xprev0, lam0 is not None and bool(warm_init))
     it = 0
-    res = residual(lam, X, AX)
-    best = res
-    since = torch.zeros((), dtype=torch.int32, device=dev)
-    rres = rel_residual(lam, X, AX)
     while True:
-        keep = _keep_iterating(res, rres, since, eff_tol, rel_tol_v,
-                               stall_patience)
-        if it >= min_iters and (it >= maxiter or not agree(keep)):
+        if it >= min_iters and (it >= maxiter or not agree(ops.keep(carry))):
             break
-        inv_lam = 1.0 / torch.maximum(lam, sigma)
-        if inner_solve is None:
-            Y = pcg_fixed(apply_inner, X, Minv, iters=inner_iters,
-                          X0=X * inv_lam[None, :])
-        else:
-            Y = inner_solve(X, X * inv_lam[None, :], inner_iters, c, sigma)
-        Y = project(Y)
-        Yp = _colnorm(_ortho_against(X, Y))
-        Pp = _colnorm(_ortho_against(X, Xprev))
-        S = torch.cat([X, Yp, Pp], dim=1)  # (n, 3q)
-        Q = _orth(S, coeff_dtype)
-        AQ = apply_shifted(Q)
-        H = _gram(Q, AQ, coeff_dtype)
-        H = (H + H.T) / 2
-        evals, C = torch.linalg.eigh(H)
-        Cq = C[:, :q].to(dtype)
-        lam_new = evals[:q].to(dtype)
-        X_new = Q @ Cq
-        AX_new = AQ @ Cq
-        res_new = residual(lam_new, X_new, AX_new)
-        best, since = _stall_update(res_new, best, since, eff_tol,
-                                    stall_factor)
-        rres = rel_residual(lam_new, X_new, AX_new)
-        Xprev, X, AX, lam, res = X, X_new, AX_new, lam_new, res_new
+        carry = ops.step(carry)
         it += 1
-    return FiedlerResult(lam=lam, X=X, iters=it, res=res)
+    return FiedlerResult(lam=carry.lam, X=carry.X, iters=it, res=carry.res)
 
 
 def _lanes(V: torch.Tensor, R: int) -> torch.Tensor:

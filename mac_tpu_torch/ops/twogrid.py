@@ -45,12 +45,18 @@ def coarse_laplacian(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     return add_at(Lc, flat, vals).reshape(*lead, nc, nc)
 
 
-def twogrid_level(op: GraphOperator, w: torch.Tensor, sharded=None):
+def twogrid_level(op: GraphOperator, w: torch.Tensor, sharded=None,
+                  guards=None):
     """(chain factor, Lc_inv): what the V-cycle of L(w) reads beyond the
     product, built once per weight vector (lanes: one of each per lane).
     sharded: on a mesh, the ELL operator's sharded form
     (mac_tpu_torch.parallel.sharded), whose collectives build the
-    tridiagonal part and Lc identically on every rank."""
+    tridiagonal part and Lc identically on every rank. guards: None reads
+    on the host whether the coarse factor is singular and regularises it
+    then; a dict (ops.graphs, whose captured set-up cannot read the host)
+    takes the factor as it is and records the test as a device flag in
+    guards["coarse_singular"] instead; the caller redoes the step without
+    `guards` when it is set."""
     nc = op.coarse_nc
     dtype = w.dtype
     eps = torch.finfo(dtype).eps
@@ -70,7 +76,9 @@ def twogrid_level(op: GraphOperator, w: torch.Tensor, sharded=None):
     Rc = cholesky_upper(Lc_reg)
     piv = torch.diagonal(Rc, dim1=-2, dim2=-1)
     singular = ~(piv.amin(dim=-1) > 1e-7 * piv.amax(dim=-1))
-    if bool(singular.any()):
+    if guards is not None:
+        guards["coarse_singular"] = singular.any()
+    elif bool(singular.any()):
         # The constant shift lifts one null vector. A graph of several
         # components made of whole aggregates leaves Lc a null vector per
         # component (lambda_2 = 0), so the factor's last pivot is 0 up to

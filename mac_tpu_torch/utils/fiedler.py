@@ -23,10 +23,9 @@ from mac_tpu_torch.ops import banded as _banded
 from mac_tpu_torch.ops import graphs as _graphs
 from mac_tpu_torch.ops.cg import pcg_fixed
 from mac_tpu_torch.ops.laplacian import (DENSE_MAX_N, GraphOperator,
-                                         build_operator, ell_applier,
-                                         lap_applier, lap_degrees, lap_dense,
-                                         lap_inf_norm, lap_tridiagonal_part,
-                                         lap_weight_table)
+                                         build_operator, lap_applier,
+                                         lap_degrees, lap_dense,
+                                         lap_inf_norm, lap_tridiagonal_part)
 from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
                                       FiedlerResult, _shift_term,
                                       default_xprev, dense_fiedler,
@@ -36,8 +35,7 @@ from mac_tpu_torch.ops.lobpcg import (TRACEMIN_INNER_ITERS, TRACEMIN_MAXITER,
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl_auto,
                                        tridiag_solve_factored_fast)
-from mac_tpu_torch.ops.twogrid import (make_twogrid_precond, twogrid_cycle,
-                                       twogrid_level)
+from mac_tpu_torch.ops.twogrid import make_twogrid_precond
 from mac_tpu_torch.parallel import sharded as _sharded
 
 _DEFAULT_SEED = 7  # the reference's np.random.RandomState(7) start block
@@ -113,7 +111,9 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
                  method="tracemin", sharded=None, **warm):
     """The banded branch: assemble BD(w), then by `method`
     * "tracemin": build the two-level preconditioner (warm-rebuilt from
-      `pstate` when given) and run TRACEMIN;
+      `pstate` when given) and run TRACEMIN; one solve (one weight vector,
+      no mesh) goes through ops.graphs.solve, replayed CUDA graphs of each
+      step's set-up and of the outer iteration on the card;
     * "lobpcg": the same preconditioner inside `inner_iters` PCG steps on
       the shifted operator, and LOBPCG (one weight vector);
     * "dense": the exact dense eigh of L(w) in the operator's RCM ids (a
@@ -121,6 +121,23 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
       that a carried state keeps its structure.
     sharded: the parallel.sharded.ShardedBanded of `bop` on a mesh, whose
     row-sharded assembly and products take the place of the whole ones."""
+    if method == "tracemin" and sharded is None and w.dim() == 1:
+        # One solve: its set-up and outer iterations replay CUDA graphs on
+        # the card (ops.graphs); the same build and loop on the CPU.
+        branch = _graphs.branch_of(pstate, use_prev, rebuild)
+        if branch == "carried" and pstate.chain_dp is None:
+            branch = None  # a block-Jacobi state: not this route's
+        if branch is not None:
+            res, state = _graphs.solve(
+                _graphs.banded_route(bop, _banded.PRECOND_KIND), w, X,
+                carried=(_graphs.banded_carried(pstate)
+                         if branch != "cold" else None),
+                branch=branch, xprev0=xprev0, tol=tol, maxiter=maxiter,
+                inner_iters=inner_iters, rel_tol=rel_tol,
+                coeff_dtype=coeff_dtype, **warm)
+            if return_pstate:
+                return res, _graphs.banded_pstate(state)
+            return res
     if sharded is None:
         BD = _banded.assemble_bd(bop, w)
 
@@ -139,9 +156,9 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
              else sharded.dense(BD))
         res = dense_fiedler(L, X.shape[-1])
         return (res, pstate) if return_pstate else res
+    want_state = pstate is not None or return_pstate
     # ||L||_inf = 2 max weighted degree, read off BD's diagonal.
     lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
-    want_state = pstate is not None or return_pstate
     carry = (dict(prev_state=pstate, use_prev=use_prev, rebuild=rebuild)
              if want_state else {})
     Minv, built = _banded.make_banded_precond(
@@ -152,11 +169,6 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
                       maxiter=maxiter, inner_iters=inner_iters,
                       agree=warm.get("agree", bool))
     else:
-        if sharded is None and lnorm.dim() == 0:
-            # One solve: its inner solves replay a CUDA graph on the card.
-            warm["inner_solve"] = _graphs.bind(
-                _graphs.banded_inner(bop, _banded.PRECOND_KIND),
-                _graphs.banded_state(BD, built))
         res = _tracemin(
             apply_L, X, lnorm, Minv, xprev0=xprev0, tol=tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
@@ -276,30 +288,26 @@ def fiedler_pair_op(
     if apply_override is None and (
             method == "dense" or (op.mode == "dense" and op.n <= DENSE_MAX_N)):
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
-    # One TRACEMIN solve on the ELL product with the V-cycle: its inner
-    # solves replay a CUDA graph on the card.
-    graphed = (apply_override is None and sharded is None and op.mode == "ell"
-               and precond == "twogrid" and method == "tracemin"
-               and w.dim() == 1)
+    if (apply_override is None and sharded is None and op.mode == "ell"
+            and precond == "twogrid" and method == "tracemin"
+            and w.dim() == 1):
+        # One TRACEMIN solve on the ELL product with the V-cycle: replayed
+        # CUDA graphs of its set-up and outer iteration on the card
+        # (ops.graphs); the same build and loop on the CPU.
+        return _ret(_graphs.solve(
+            _graphs.twogrid_route(op), w, X, xprev0=xprev0, tol=tol,
+            maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
+            coeff_dtype=coeff_dtype, **warm)[0])
     if apply_override is not None:
         def apply_L(V):
             return apply_override(w, V)
-    elif graphed:
-        w_tbl = lap_weight_table(op, w)
-        apply_L = ell_applier(op, w_tbl)
     elif sharded is None:
         apply_L = lap_applier(op, w)
     else:
         apply_L = sharded.applier(w)
     lnorm = (lap_inf_norm(op, w) if sharded is None
              else 2.0 * sharded.degrees(w).amax(dim=-1))
-    if graphed:
-        fac, Lc_inv = twogrid_level(op, w)
-        Minv = twogrid_cycle(op, fac, Lc_inv, apply_L)
-        warm["inner_solve"] = _graphs.bind(
-            _graphs.twogrid_inner(op, fac.seg),
-            _graphs.twogrid_state(w_tbl, fac, Lc_inv))
-    elif precond == "twogrid":
+    if precond == "twogrid":
         Minv = make_twogrid_precond(op, w, apply_L, sharded)
     else:
         d, e = (lap_tridiagonal_part(op, w) if sharded is None

@@ -774,7 +774,10 @@ def test_ldl_wrappers_refuse_what_the_kernels_do_not_take(dev):
 def test_banded_solve_launches_k3b_once_per_factorisation(dev, monkeypatch):
     """A MAC solve on a banded graph past 4096 nodes factors its chain by
     K3b, one launch per factorisation, and never hands a plain factor a
-    CUDA tensor."""
+    CUDA tensor: counted on the eager solve path (graphs.plain_solve),
+    where every factorisation is a Python call; a warm solve through the
+    replayed set-up graphs launches K3b as often."""
+    from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.solvers import MAC
 
     calls = {"factor": 0, "plain": 0}
@@ -799,12 +802,21 @@ def test_banded_solve_launches_k3b_once_per_factorisation(dev, monkeypatch):
     k = len(cands[1]) // 2
     mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
               fw_polish=False, round_guard=False, device="cuda")
+    replayed = graphs.graphed_solve
+    monkeypatch.setattr(graphs, "graphed_solve", graphs.plain_solve)
     k3b, k3 = ldl.tridiag_ldl_blocked.launches, ldl.tridiag_ldl.launches
     rounded, unrounded, upper = mac.solve(k)
     assert calls["factor"] > 0 and calls["plain"] == 0
-    assert ldl.tridiag_ldl_blocked.launches - k3b == calls["factor"]
+    eager = ldl.tridiag_ldl_blocked.launches - k3b
+    assert eager == calls["factor"]
     assert ldl.tridiag_ldl.launches == k3
     assert rounded.sum() == k and np.isfinite(upper)
+    monkeypatch.setattr(graphs, "graphed_solve", replayed)
+    mac.solve(k)  # cold: captures the graphs
+    k3b = ldl.tridiag_ldl_blocked.launches
+    mac.solve(k)
+    assert ldl.tridiag_ldl_blocked.launches - k3b == eager
+    assert calls["plain"] == 0 and ldl.tridiag_ldl.launches == k3
 
 
 _PRECOND_VARIANTS = [("chain", "mult"), ("chain", "additive"),
@@ -850,10 +862,11 @@ def test_precond_variants_on_cuda_match_the_cpu_call(dev, smoother, kind,
 
 def _inner_steps(route, dev, seeds):
     """For each seed, a Frank-Wolfe step's inner-solve inputs on
-    the card: (InnerSolve, state, fresh apply_inner, fresh Minv), built as
-    utils.fiedler builds them, on a small banded graph (n 1500, chain
-    factor K3) or the ELL operator past 32768 nodes (K1b, K3b); the edge
-    weights scaled by 0.5 + U(0, 1) from the seed (None: unscaled)."""
+    the card: (Route, state, fresh apply_inner, fresh Minv), built as
+    utils.fiedler built them before the set-up was graphed, on a small
+    banded graph (n 1500, chain factor K3) or the ELL operator past 32768
+    nodes (K1b, K3b); the edge weights scaled by 0.5 + U(0, 1) from the
+    seed (None: unscaled)."""
     from chip_smoke import synthetic
     from mac_tpu_torch.ops import graphs, laplacian, twogrid
     from mac_tpu_torch.ops.lobpcg import _shift_term
@@ -874,7 +887,7 @@ def _inner_steps(route, dev, seeds):
         if route == "banded":
             BD = banded.assemble_bd(op, w)
             M, st = banded.make_banded_precond(op, BD, w=w, return_state=True)
-            solve = graphs.banded_inner(op, banded.PRECOND_KIND)
+            solve = graphs.banded_route(op, banded.PRECOND_KIND)
             state = graphs.banded_state(BD, st)
             lnorm = 2.0 * BD.deg.amax()
 
@@ -885,7 +898,7 @@ def _inner_steps(route, dev, seeds):
             apply_L = laplacian.ell_applier(op, w_tbl)
             fac, Lc_inv = twogrid.twogrid_level(op, w)
             M = twogrid.twogrid_cycle(op, fac, Lc_inv, apply_L)
-            solve = graphs.twogrid_inner(op, fac.seg)
+            solve = graphs.twogrid_route(op)
             state = graphs.twogrid_state(w_tbl, fac, Lc_inv)
             lnorm = laplacian.lap_inf_norm(op, w)
         c = lnorm.to(torch.float32)
@@ -901,13 +914,15 @@ def _inner_steps(route, dev, seeds):
 
 @pytest.mark.parametrize("route", ["banded", "ell"])
 def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
-    """The replayed graph of the inner solve against pcg_fixed on the eager
-    closures of the same step, bitwise, for two weight vectors in turn
-    through one captured graph (each step's state lives at fresh addresses:
-    the graph reads its static copies), and again for the first: one
-    capture, three replays, and after the capture each replay counts the
-    kernel launches the eager loop does (K1 on the banded graph, K1b on
-    the ELL one)."""
+    """The replayed graph of the inner solve alone (graphs.inner_replay,
+    the form before the set-up and the outer iteration were captured)
+    against pcg_fixed on the eager closures of the same step, bitwise, for
+    two weight vectors in turn through one captured graph (each step's
+    state lives at fresh addresses: the graph reads its static copies),
+    and again for the first: one capture, three replays, and after the
+    capture each replay counts the kernel launches the eager loop does
+    (K1 on the banded graph, K1b on the ELL one)."""
+    from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.cg import pcg_fixed
 
     n, steps = _inner_steps(route, dev, (None, 2))
@@ -925,7 +940,7 @@ def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
         torch.cuda.synchronize()
         k_eager = kern.launches - k0
         k0 = kern.launches
-        got = solve(state, B, X0, 5)
+        got = graphs.inner_replay(solve, state, B, X0, 5)
         torch.cuda.synchronize()
         if turn:
             assert kern.launches - k0 == k_eager > 0
@@ -934,11 +949,96 @@ def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
     assert solve.pool_bytes >= 0 and solve.static_bytes > 0
 
 
+def _solve_inputs(dev, route, dtype=torch.float32):
+    """(operator, weight vectors at two seeds, start block, xprev0) of a
+    small banded graph (n 1500, K3) or the ELL operator past 32768 nodes
+    (K1b, K3b), on the card."""
+    from chip_smoke import synthetic
+    from mac_tpu_torch.ops import laplacian
+
+    if route.startswith("banded"):
+        idx, w_np, n = _graph(1500, 1200, 25, 3)
+        op = banded.build_banded_rcm(idx, n)[0].to(dev)
+    else:
+        fi, wf, ci, wc = synthetic(40000)
+        idx, w_np, n = (np.concatenate([fi, ci]), np.concatenate([wf, wc]),
+                        40000)
+        op = laplacian.build_operator(idx, n).to(dev)
+    ws = [torch.as_tensor(w_np * (0.5 + np.random.RandomState(seed).rand(
+        len(w_np))), dtype=dtype, device=dev) for seed in (1, 2)]
+    rng = np.random.RandomState(3)
+    X = torch.as_tensor(rng.normal(size=(n, 4)), dtype=dtype, device=dev)
+    xprev0 = torch.as_tensor(rng.normal(size=(n, 4)), dtype=dtype,
+                             device=dev)
+    return op, ws, X, xprev0
+
+
+@pytest.mark.parametrize("route", ["banded", "banded-f64", "ell"])
+def test_replayed_solves_are_bitwise_the_eager_ones(dev, route):
+    """Frank-Wolfe-like solves through ops.graphs.solve on the card: the
+    banded route a cold build, then a Newton-Schulz refresh and a carried
+    state from the state the step before returned (float32 and float64),
+    the ELL route a cold build at each weight vector. The first round
+    captures both replayed paths' graphs; in the second the set-up and
+    outer-iteration graphs' replays must be bitwise the eager path
+    (graphs.plain_solve on the card, K4 as in the graphs) and the
+    inner-replay path (the inner CG steps alone replayed), with the same
+    launches of every kernel wrapper by dtype, K4 among them, and no
+    capture."""
+    from mac_tpu_torch.ops import graphs
+    from mac_tpu_torch.ops.kernels import syev
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+
+    dtype = torch.float64 if route.endswith("f64") else torch.float32
+    op, ws, X0, xprev0 = _solve_inputs(dev, route, dtype)
+    if route.startswith("banded"):
+        rt = graphs.banded_route(op, banded.PRECOND_KIND)
+        branches = ("cold", "ns", "carried")
+    else:
+        rt = graphs.twogrid_route(op)
+        branches = ("cold", "cold")
+    kw = dict(xprev0=xprev0, tol=1e-8, maxiter=6, inner_iters=4)
+    paths = {"graph": graphs.graphed_solve, "eager": graphs.plain_solve,
+             "inner": graphs.inner_replayed_solve}
+    for rnd, order in enumerate((("graph", "inner"),
+                                 ("eager", "graph", "inner", "graph",
+                                  "eager"))):
+        first, seen = None, set()
+        for path in order:
+            reset_counts(*graphs.WRAPPERS)
+            c0 = rt.captures
+            X, carried, outs = X0, None, []
+            for step, branch in enumerate(branches):
+                res, state = paths[path](
+                    rt, ws[step % 2], X,
+                    carried=carried if branch != "cold" else None,
+                    branch=branch, **kw)
+                outs.append((res, state))
+                X, carried = res.X, state
+            torch.cuda.synchronize()
+            if rnd:
+                assert rt.captures == c0, path
+            counts = tuple((w.__name__, w.launches,
+                            tuple(sorted(w.launches_by_dtype.items())))
+                           for w in graphs.WRAPPERS)
+            assert syev.sym_eig.launches > 0
+            seen.add(counts)
+            if first is None:
+                first = outs
+            for (a, sa), (b, sb) in zip(outs, first):
+                assert a.iters == b.iters > 0
+                assert torch.equal(a.X, b.X) and torch.equal(a.lam, b.lam)
+                assert all(torch.equal(sa[n], sb[n]) for n in sa)
+        assert len(seen) == 1 or not rnd, seen
+    assert rt.redos == 0
+
+
 def test_fiedler_pair_op_on_cuda_replays_one_graph_per_step_count(dev):
-    """A banded TRACEMIN solve on the card replays its inner solves: one
-    capture for its step count, one replay an outer iteration; a second
+    """A banded TRACEMIN solve on the card replays its graphs: a cold
+    solve captures the set-up and the outer iteration and replays the
+    set-up once and the outer iteration once an outer iteration; a second
     solve at other weights captures nothing and gives bitwise what the
-    eager loop gives."""
+    eager path gives (graphs.plain_solve on the card)."""
     from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.utils.fiedler import fiedler_pair_op
 
@@ -949,38 +1049,91 @@ def test_fiedler_pair_op_on_cuda_replays_one_graph_per_step_count(dev):
     kw = dict(maxiter=6, inner_iters=5)
     res = fiedler_pair_op(bop, torch.as_tensor(w_np, dtype=torch.float32,
                                                device=dev), X, **kw)
-    solve, = bop.inner_solves.values()
+    rt, = bop.graph_routes.values()
     assert res.iters > 0
-    assert (solve.captures, solve.replays) == (1, res.iters)
+    assert (rt.captures, rt.replays) == (2, 1 + res.iters)
     w2 = torch.as_tensor(w_np * (0.5 + np.random.RandomState(2).rand(
         len(w_np))), dtype=torch.float32, device=dev)
     res2 = fiedler_pair_op(bop, w2, X, **kw)
-    replays = res.iters + res2.iters
-    assert (solve.captures, solve.replays) == (1, replays)
-    real = graphs.replay
-    graphs.replay = lambda s, state, B, X0, iters: graphs.plain(
-        s.build, state, B, X0, iters)
+    replays = 2 + res.iters + res2.iters
+    assert (rt.captures, rt.replays) == (2, replays)
+    real = graphs.graphed_solve
+    graphs.graphed_solve = graphs.plain_solve
     try:
         eager = fiedler_pair_op(bop, w2, X, **kw)
     finally:
-        graphs.replay = real
-    assert solve.replays == replays
+        graphs.graphed_solve = real
+    assert rt.replays == replays
+    assert eager.iters == res2.iters
     assert torch.equal(res2.X, eager.X) and torch.equal(res2.lam, eager.lam)
 
 
 def test_failed_capture_raises(dev):
-    """A closure that reads the host cannot be captured: the inner solve
+    """A route whose product reads the host cannot be captured: the solve
     raises and keeps no graph (nothing falls back to the eager loop)."""
     from mac_tpu_torch.ops import graphs
 
-    def build(state):
-        return (lambda V: V * float(V.abs().sum())), (lambda R: R)
+    def prepare(s, branch, guards):
+        return {"d": s["w"] * 1.0}, s["w"].abs().amax()
 
-    solve = graphs.InnerSolve(build, tuple)
-    B = torch.ones((64, 4), device=dev)
-    state = {"c": torch.ones((), device=dev),
-             "sigma": torch.zeros((), device=dev)}
-    with pytest.raises(RuntimeError, match="capturing the inner solve"):
-        solve(state, B, B, 2)
-    assert solve.captures == 0 and not solve.graphs
+    def build(state):
+        return ((lambda V: V * float(V.abs().sum()) + state["d"][:, None]),
+                (lambda R: R))
+
+    rt = graphs.Route(prepare, build, tuple, ("d",))
+    w = torch.ones(64, device=dev)
+    X = torch.as_tensor(np.random.RandomState(0).normal(size=(64, 4)),
+                        dtype=torch.float32, device=dev)
+    with pytest.raises(RuntimeError, match="capturing the solve's graph"):
+        graphs.graphed_solve(rt, w, X, xprev0=X, maxiter=2, inner_iters=2)
+    assert rt.captures == 0 and not rt.graphs
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(4, 4), (12, 12), (5, 12, 12), (3, 1, 1),
+                                   (2, 31, 31), (32, 32)])
+def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
+    """K4 against its plain version on the card and torch.linalg.eigh
+    (random symmetric matrices): eigenvalues within 2 k eps ||H|| of both,
+    ascending; residual within 2 k eps ||H|| and V^T V within 2 k eps of
+    I; each column's largest entry positive; one launch a call, counted
+    with the batch as lanes."""
+    from mac_tpu_torch.ops.kernels import syev
+
+    k = shape[-1]
+    rng = np.random.RandomState(k)
+    A = rng.normal(size=shape)
+    H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dtype, device=dev)
+    before = syev.sym_eig.launches
+    e, V = syev.sym_eig(H)
+    torch.cuda.synchronize()
+    assert syev.sym_eig.launches == before + 1
+    ep, _ = syev.sym_eig_plain(H)
+    el, _ = torch.linalg.eigh(H)
+    eps = torch.finfo(dtype).eps
+    hn = torch.linalg.matrix_norm(H).amax()
+    tol = 2 * k * eps * float(hn)
+    assert float((e - ep).abs().max()) <= tol
+    assert float((e - el).abs().max()) <= tol
+    assert bool((e[..., 1:] >= e[..., :-1]).all())
+    resid = torch.linalg.matrix_norm(H @ V - V * e[..., None, :])
+    assert float(resid.max()) <= tol
+    eye = torch.eye(k, dtype=dtype, device=dev)
+    assert float((V.mT @ V - eye).abs().max()) <= 2 * k * eps
+    top = V.gather(-2, V.abs().argmax(dim=-2, keepdim=True))
+    assert bool((top > 0).all())
+
+
+def test_sym_eig_kernel_refuses_what_it_does_not_take(dev):
+    """k past 32, a dtype other than float32 / float64 and a
+    non-contiguous tensor raise on the card: no fallback to eigh."""
+    from mac_tpu_torch.ops.kernels import syev
+
+    for H, err in ((torch.zeros(33, 33, device=dev), ValueError),
+                   (torch.zeros(4, 4, device=dev, dtype=torch.float16),
+                    TypeError),
+                   (torch.zeros(8, 8, device=dev)[:4, :4], ValueError),
+                   (torch.zeros(4, 5, device=dev), ValueError)):
+        with pytest.raises(err):
+            syev.sym_eig(H)

@@ -1,11 +1,15 @@
-"""The eigensolver's graphed inner solve (mac_tpu_torch.ops.graphs) on the
-CPU, where it runs its plain version: the closures built over copies of a
-step's state against the freshly built ones (bitwise), the plain version
-against the JAX package's pcg_fixed with its own preconditioners (float64,
-1e-10), the routes that take the inner solve and those that stay eager,
-and the bookkeeping that keeps the kernels' launch counts true across
-replays. The replays themselves need the card (tests/test_torch_cuda.py).
-Inputs are made from seeds with numpy and handed to both packages."""
+"""The eigensolver's graphed solve (mac_tpu_torch.ops.graphs) on the CPU,
+where its functions run as calls over the same static buffers a graph
+reads: the closures built over copies of a step's state against the
+freshly built ones (bitwise), the inner solve against the JAX package's
+pcg_fixed with its own preconditioners (float64, 1e-10), the set-up and
+outer-iteration functions over static buffers against the eager code
+(bitwise, every branch, exact and blocked factors), a set guard flag
+leading to an eager redo, the routes that take the graphed solve and those
+that stay eager, and the bookkeeping that keeps the kernels' launch counts
+true across replays. The replays themselves need the card
+(tests/test_torch_cuda.py). Inputs are made from seeds with numpy and
+handed to both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -107,23 +111,25 @@ def test_closures_over_static_copies_are_bitwise_the_fresh_ones(route):
     if kind_or_n[0] == "banded":
         kind, n = kind_or_n[1], int(kind_or_n[2])
         bop, state, apply_L, M = _banded_step(n, kind)
-        solve = graphs.banded_inner(bop, kind)
+        solve = graphs.banded_route(bop, kind)
     else:
         n = int(kind_or_n[1])
         op, seg, state, apply_L, M = _twogrid_step(n)
         assert seg == (None if n <= 32768 else 1024)
-        solve = graphs.twogrid_inner(op, seg)
+        solve = graphs.twogrid_route(op)
     static = {name: t.clone() for name, t in state.items()}
-    apply_inner, Minv = graphs.inner_ops(solve.build, static)
+    apply_static, Minv = solve.build(static)
     R, V = (torch.as_tensor(a) for a in _blocks(n))
     assert torch.equal(Minv(R), M(R))
     fresh = _fresh_inner(apply_L, state["c"], state["sigma"])
-    assert torch.equal(apply_inner(V), fresh(V))
-    # The plain version is the eager loop over the fresh closures.
+    assert torch.equal(_fresh_inner(apply_static, static["c"],
+                                    static["sigma"])(V), fresh(V))
+    # The inner solve over static copies is the eager loop over the fresh
+    # closures.
     X0 = torch.as_tensor(_blocks(n, seed=6)[0])
     from mac_tpu_torch.ops.cg import pcg_fixed
 
-    assert torch.equal(solve(state, R, X0, 3),
+    assert torch.equal(graphs.inner_replay(solve, state, R, X0, 3),
                        pcg_fixed(fresh, R, M, iters=3, X0=X0))
     assert solve.captures == solve.replays == 0
 
@@ -138,8 +144,8 @@ def test_operators_with_inner_solves_free_without_the_cycle_collector():
 
     bop, state, *_ = _banded_step(700, "mult")
     op, seg, *_ = _twogrid_step(3000)
-    graphs.banded_inner(bop, "mult")
-    graphs.twogrid_inner(op, seg)
+    graphs.banded_route(bop, "mult")
+    graphs.twogrid_route(op)
     refs = [weakref.ref(bop), weakref.ref(op)]
     del bop, op, state, _
     gc.disable()
@@ -185,8 +191,8 @@ def test_banded_inner_solve_matches_jax():
                                    return_state=True)
     state = dict(graphs.banded_state(BD, st),
                  **_shifts(2.0 * BD.deg.amax()))
-    got = graphs.banded_inner(bop, "mult")(state, torch.as_tensor(B),
-                                          torch.as_tensor(X0), ITERS)
+    got = graphs.inner_replay(graphs.banded_route(bop, "mult"), state,
+                              torch.as_tensor(B), torch.as_tensor(X0), ITERS)
     _close(got.numpy(), ref)
 
 
@@ -226,8 +232,8 @@ def test_twogrid_inner_solve_matches_jax():
     state = dict(graphs.twogrid_state(tl.lap_weight_table(op, w), fac,
                                       Lc_inv), **_shifts(tl.lap_inf_norm(op,
                                                                          w)))
-    got = graphs.twogrid_inner(op, fac.seg)(state, torch.as_tensor(B),
-                                           torch.as_tensor(X0), ITERS)
+    got = graphs.inner_replay(graphs.twogrid_route(op), state,
+                              torch.as_tensor(B), torch.as_tensor(X0), ITERS)
     _close(got.numpy(), ref)
 
 
@@ -235,10 +241,14 @@ def test_twogrid_inner_solve_matches_jax():
                                   "ell-lobpcg", "ell-tridiag"])
 def test_single_solves_take_the_inner_solve_and_others_stay_eager(
         case, monkeypatch):
-    """fiedler_pair_op hands TRACEMIN the route's InnerSolve for one solve
-    on the banded operator and on the ELL operator with the V-cycle, and
-    its result is bitwise the eager loop's; lanes, LOBPCG and the
-    tridiagonal preconditioner run pcg_fixed themselves."""
+    """fiedler_pair_op sends one solve on the banded operator and on the
+    ELL operator with the V-cycle through its route's solve (ops.graphs;
+    plain_solve on the CPU), and its result is bitwise that of the eager
+    build and tracemin_fiedler loop; lanes, LOBPCG and the tridiagonal
+    preconditioner stay eager."""
+    from mac_tpu_torch.ops.lobpcg import tracemin_fiedler
+    from mac_tpu_torch.ops.twogrid import make_twogrid_precond
+
     if case.startswith("banded"):
         idx, w_np, n = _pose_graph(700, 175)
         op = tb.build_banded_rcm(idx, n)[0]
@@ -256,21 +266,177 @@ def test_single_solves_take_the_inner_solve_and_others_stay_eager(
     elif case.endswith("tridiag"):
         kw["precond"] = "tridiag"
     calls = []
-    real = graphs.plain
+    real = graphs.plain_solve
 
-    def counted(*args):
-        calls.append(args[-1])
-        return real(*args)
+    def counted(*args, **kwargs):
+        calls.append(kwargs["inner_iters"])
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(graphs, "plain", counted)
+    monkeypatch.setattr(graphs, "plain_solve", counted)
     res = fiedler_pair_op(op, w, X, **kw)
     single = case in ("banded", "ell")
-    assert (len(calls) > 0) == single and set(calls) <= {4}
+    assert calls == ([4] if single else [])
     if single:
-        monkeypatch.setattr(graphs, "bind", lambda solve, state: None)
-        eager = fiedler_pair_op(op, w, X, **kw)
+        if case == "banded":
+            BD = tb.assemble_bd(op, w)
+            M = tb.make_banded_precond(op, BD, w=w)
+            lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
+
+            def apply_L(V):
+                return tb.banded_apply(op, BD, V)
+        else:
+            apply_L = tl.ell_applier(op, tl.lap_weight_table(op, w))
+            M = make_twogrid_precond(op, w, apply_L)
+            lnorm = tl.lap_inf_norm(op, w)
+        eager = tracemin_fiedler(apply_L, X, lnorm, M, **kw)
+        assert res.iters == eager.iters
         assert torch.equal(res.lam, eager.lam) and torch.equal(res.X,
                                                                eager.X)
+
+
+def _same(a, b):
+    """Bitwise equal FiedlerResults, or dicts of tensors."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+        return
+    assert a.iters == b.iters
+    for name in ("lam", "X", "res"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+SOLVE_KW = dict(tol=1e-8, maxiter=3, inner_iters=3, rel_tol=None,
+                coeff_dtype=None)
+
+
+@pytest.mark.parametrize("route", ["banded-700", "banded-4500",
+                                   "twogrid-3000", "twogrid-34000"])
+def test_setup_and_outer_over_static_buffers_are_bitwise_the_eager_code(
+        route):
+    """graphed_solve, whose set-up and outer-iteration functions run here
+    as calls over the static buffers a graph reads and writes (the carry
+    updated in place, Xprev <- X aliased), against the eager code: the
+    preconditioner built by make_banded_precond / twogrid_level and
+    tracemin_fiedler's loop. Bitwise: the Ritz pairs, the residual, the
+    iteration count and the route's state, over Frank-Wolfe-like steps at
+    three weight vectors: on the banded operator (the multiplicative chain
+    cycle; exact factor at n = 700, blocked past 4096) a cold build, a
+    Newton-Schulz refresh and a carried state, each from the state the
+    step before left; on the ELL operator (exact factor at 3000, blocked
+    past 32768) a cold build each step."""
+    from mac_tpu_torch.ops.lobpcg import tracemin_fiedler
+    from mac_tpu_torch.ops.twogrid import twogrid_cycle
+
+    kind, n = route.split("-")[0], int(route.split("-")[1])
+    if kind == "banded":
+        idx, w_np, n = _pose_graph(n, n // 4)
+        op = tb.build_banded_rcm(idx, n)[0]
+        rt = graphs.banded_route(op, "mult")
+        branches = ("cold", "ns", "carried")
+    else:
+        idx, w_np, n = graph_and_weights(n)
+        op = tl.build_operator(idx, n)
+        rt = graphs.twogrid_route(op)
+        branches = ("cold", "cold", "cold")
+    X = torch.as_tensor(_blocks(n)[0])
+    xprev0 = torch.as_tensor(_blocks(n, seed=7)[0])
+    kw = dict(SOLVE_KW, xprev0=xprev0)
+    carried = None
+    for step, branch in enumerate(branches):
+        scale = 0.5 + np.random.RandomState(step).rand(len(w_np))
+        w = torch.as_tensor(np.asarray(w_np, np.float64) * scale)
+        got, state = graphs.graphed_solve(rt, w, X, carried=carried,
+                                          branch=branch, **kw)
+        if kind == "banded":
+            BD = tb.assemble_bd(op, w)
+            prev = (dict(prev_state=graphs.banded_pstate(carried),
+                         use_prev=branch == "ns",
+                         rebuild=None if branch == "ns" else False)
+                    if carried is not None else {})
+            M, pst = tb.make_banded_precond(op, BD, w=w, return_state=True,
+                                            kind="mult", **prev)
+            lnorm = 2.0 * BD.deg.amax(dim=(-2, -1))
+            eager_state = graphs.banded_state(BD, pst)
+
+            def apply_L(V, BD=BD):
+                return tb.banded_apply(op, BD, V)
+        else:
+            apply_L = tl.ell_applier(op, tl.lap_weight_table(op, w))
+            fac, Lc_inv = twogrid_level(op, w)
+            M = twogrid_cycle(op, fac, Lc_inv, apply_L)
+            lnorm = tl.lap_inf_norm(op, w)
+            eager_state = graphs.twogrid_state(tl.lap_weight_table(op, w),
+                                               fac, Lc_inv)
+        eager = tracemin_fiedler(apply_L, X, lnorm, M, **kw)
+        _same(got, eager)
+        _same(state, eager_state)
+        assert got.iters > 0
+        X, carried = got.X, state
+    assert rt.captures == rt.replays == rt.redos == 0
+
+
+def _two_components(n=600, seed=4):
+    """Two chains of n / 2 nodes with closures inside each: a disconnected
+    ELL graph whose components are made of whole coarse aggregates, so its
+    coarse operator is singular past the constant shift."""
+    rng = np.random.RandomState(seed)
+    half = n // 2
+    edges = []
+    for base in (0, half):
+        edges += [(base + i, base + i + 1) for i in range(half - 1)]
+        for _ in range(half // 2):
+            i = rng.randint(0, half - 3)
+            edges.append((base + i, base + i + 2 + rng.randint(
+                min(20, half - i - 2))))
+    idx = np.array(edges, dtype=np.int64)
+    return idx, 0.5 + rng.rand(len(idx)), n
+
+
+@pytest.mark.parametrize("case", ["nonfinite-carry", "singular-coarse"])
+def test_set_guard_redoes_the_setup_eagerly(case):
+    """A guard the eager code reads on the host becomes a device flag in
+    the graphed set-up: a Newton-Schulz refresh from a non-finite carried
+    inverse (the eager code rebuilds by Cholesky), and a singular coarse
+    level of a disconnected ELL graph (the eager code regularises it). The
+    set-up function raises the flag, graphed_solve runs the set-up again
+    eagerly (one redo) and its result is bitwise the plain solve's."""
+    kw = dict(SOLVE_KW)
+    if case == "nonfinite-carry":
+        idx, w_np, n = _pose_graph(700, 175)
+        op = tb.build_banded_rcm(idx, n)[0]
+        rt = graphs.banded_route(op, "mult")
+        w = torch.as_tensor(w_np)
+        X = torch.as_tensor(_blocks(n)[0])
+        kw["xprev0"] = torch.as_tensor(_blocks(n, seed=7)[0])
+        _, state = graphs.plain_solve(rt, w, X, **kw)
+        carried = dict(state, Lc_inv=torch.full_like(state["Lc_inv"],
+                                                     float("nan")))
+        branch = "ns"
+        w = 1.1 * w
+    else:
+        idx, w_np, n = _two_components()
+        op = tl.build_operator(idx, n)
+        assert op.mode == "ell" and op.coarse_s == 2
+        rt = graphs.twogrid_route(op)
+        w = torch.as_tensor(w_np)
+        X = torch.as_tensor(_blocks(n)[0])
+        kw["xprev0"] = torch.as_tensor(_blocks(n, seed=7)[0])
+        carried, branch = None, "cold"
+    static = dict(carried or {}, w=w, X0=X, xprev0=kw["xprev0"],
+                  tol=torch.tensor(kw["tol"], dtype=w.dtype),
+                  rel_tol=torch.tensor(1e-7, dtype=w.dtype))
+    flagged = graphs.setup_outputs(rt, static, branch, False,
+                                   graphs.Knobs(torch.float64, 3), {})
+    assert bool(flagged["guard"])
+    got, state = graphs.graphed_solve(rt, w, X, carried=carried,
+                                      branch=branch, **kw)
+    ref, ref_state = graphs.plain_solve(rt, w, X, carried=carried,
+                                        branch=branch, **kw)
+    assert rt.redos == 1
+    _same(got, ref)
+    _same(state, ref_state)
+    assert bool(torch.isfinite(got.X).all())
 
 
 def test_replay_bookkeeping_adds_the_captured_launches():
