@@ -8,7 +8,11 @@ its wall time printed:
   1. require CUDA; print the card (nvidia-smi name and power limit) and the
      TF32 flags;
   2. build the hand-written CUDA kernels from mac_tpu_torch/csrc with nvcc,
-     one nvcc process per source, all started together;
+     one nvcc process per source, all started together; print K4's
+     registers, stack frame and spills for each instantiation (ptxas's
+     report, kept beside the library, so a library built by an earlier run
+     is held to the same gate), and fail unless its m = 4 and m = 12 instantiations, float32 and float64,
+     have a 0-byte stack frame and no spills;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time it:
        tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4),
@@ -57,13 +61,20 @@ its wall time printed:
   3e. sym_eig (K4) on TRACEMIN's Rayleigh-Ritz matrices of city10000's
      tables at its start weights (the 4 x 4 of the entry, the 12 x 12 of an
      outer iteration, float32 and float64 coefficients), a batch of them,
-     and random symmetric matrices of k 1, 3, 31 and 32: eigenvalues within
-     2 k eps ||H|| of its plain Jacobi's and of torch.linalg.eigh's,
-     residual and orthogonality within 2 k eps, ascending, each vector's
-     largest entry positive; k 33, float16 and a non-contiguous matrix
-     raise; timed at the four main-path shapes (device, call, plain call,
-     torch.linalg.eigh's call time as the library's (it syncs), bound,
-     the dependent rounds);
+     the lanes' batches (8 and 64 such 12 x 12, perturbed), random
+     symmetric matrices of every k from 1 to 32 (every instantiation of
+     the kernel, even and odd k) and a batch of 67 (a partial last block):
+     eigenvalues within 2 k eps ||H|| of its plain Jacobi's and of
+     torch.linalg.eigh's, residual and orthogonality within 2 k eps,
+     ascending, each vector's largest entry positive; k 33, float16 and a
+     non-contiguous matrix raise; timed at the four main-path shapes and
+     the lanes' (8, 12, 12) float32 (phase 8a) and (64, 12, 12) float64
+     (phase 7c): device, call, plain call, torch.linalg.eigh's device
+     time (torch.profiler, the sum of its kernels) and call time, and
+     the bound: the larger of the chain bound (the rounds this H takes
+     times one round of the irreducible chain, timed by syev.cu's
+     one-warp probe, k4_round_ms) and the byte / operation bound; also
+     K4's launch floor (a 1 x 1 matrix);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K1, K2, K3b and K4 must have launched; the relaxed
@@ -115,7 +126,8 @@ its wall time printed:
      on the chunk's (1728, 256) block), k = 8 (cut from a user's budget to
      keep the phase short): each step's lambda_2 within 1e-3 of the scipy
      referee's, rising every step, the first chunk's batched lambda_2
-     within 5e-4 of the per-lane loop's, K1 launched.
+     within 5e-4 of the per-lane loop's, K1 launched, K4 launched with 64
+     lanes and no torch.linalg.eigh call inside TRACEMIN's lanes.
   8. the budget sweep MAC.solve_sweep, each part with its launch counts by
      lane count: (a) city10000 (scripts/bench_sweep.py's 8 budgets, 10 to
      50% of the loop closures, x_init NaiveGreedy's per budget) on phase
@@ -124,7 +136,8 @@ its wall time printed:
      lane, each lane's relaxed lambda_2 (scipy referee) at least
      (1 - 1e-2) of the serial solve's, the K = 5344 lane within -1e-3 of
      the reference optimum, each lane's Frank-Wolfe bound at least its
-     relaxed lambda_2 (1 - 1e-3), K1 and K2b launched with 8 lanes; prints
+     relaxed lambda_2 (1 - 1e-3), K1, K2b and K4 launched with 8 lanes,
+     no torch.linalg.eigh call inside TRACEMIN's lanes; prints
      the launches per sweep and per serial solve, the sweep's warm median
      against the sum of the serial warm medians and one warm sweep's
      device busy time (profiler); (b) the n = 100000 expander on phase 5's
@@ -230,8 +243,11 @@ its phase-10 path; K3 and K3b with "replaces" naming the JAX scan they
 stand for and "chain_steps" the length of their dependent chain; K4 one
 entry per shape and dtype, "replaces" the jnp.linalg.eigh line it stands
 for, "launches" those of its dtype on phase 4's path (float32) or phase
-5's (float64 coefficients), "library_ms" the call time of
-torch.linalg.eigh) and the result line {"ok": true, "device": {...}}.
+5's (float64 coefficients), and of its lane count in phase 8a (8 lanes)
+or 7c (64), "library_ms" torch.linalg.eigh's device time and
+"library_call_ms" its call time, "bound_ms" the larger of its chain
+bound and its byte/operation bound, "bound_by" "chain" where the chain's
+is larger) and the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -517,16 +533,24 @@ class SolvePath:
 
 
 class EighCalls:
-    """While active, counts the calls of torch.linalg.eigh (`calls`): the
-    single-solve routes must make none on the card (K4 takes them)."""
+    """While active, counts the calls of torch.linalg.eigh (`calls`) and
+    those made inside TRACEMIN's lanes (`lanes`: a tracemin_fiedler_lanes
+    frame on the stack): the single-solve routes must make none on the
+    card, and TRACEMIN's lanes none anywhere (K4 takes them)."""
 
     def __enter__(self):
         import torch
 
-        self.real, self.calls = torch.linalg.eigh, 0
+        self.real, self.calls, self.lanes = torch.linalg.eigh, 0, 0
 
         def counted(*args, **kw):
             self.calls += 1
+            frame = sys._getframe(1)
+            while frame is not None:
+                if frame.f_code.co_name == "tracemin_fiedler_lanes":
+                    self.lanes += 1
+                    break
+                frame = frame.f_back
             return self.real(*args, **kw)
 
         torch.linalg.eigh = counted
@@ -759,12 +783,17 @@ def k4_check(H, label):
     return err
 
 
-def k4_times(H, label, card):
-    """Device, call and plain times of K4 on H, torch.linalg.eigh's call
-    time (it synchronises, so no device time), the sweeps this H needs and
-    the bound: H read once, evals and V written once; per rotation 24 m
-    operations on the rows and columns of A and V and 20 for its
-    parameters, per sweep the stop test's 2 m^2, at the dtype's peak."""
+def k4_times(H, label, card, round_ms):
+    """Device, call and plain times of K4 on H, torch.linalg.eigh's
+    device time (kernels_ms) and call time, the sweeps this H needs and
+    bound_ms, the larger of two bounds, named in bound_by: the chain bound
+    ("chain"), the rounds this H takes (the most over a batch: the
+    matrices run side by side) times round_ms, one round of the
+    irreducible chain (k4_round_ms); and the byte/operation bound ("bytes"
+    or "operations", printed beside it): H read once, evals and V written
+    once, and per rotation 24 m operations on the rows and columns of A and
+    V and 20 for its parameters, per sweep the stop test's 2 m^2, at the
+    dtype's peak."""
     import torch
 
     from mac_tpu_torch.ops.kernels import syev
@@ -775,22 +804,136 @@ def k4_times(H, label, card):
           "call_ms": call_ms(lambda: syev.sym_eig(H)),
           "plain_ms": call_ms(lambda: syev.sym_eig_plain(H), reps=5,
                               warmup=1),
-          "library_ms": call_ms(lambda: torch.linalg.eigh(H))}
+          "library_ms": kernels_ms(lambda: torch.linalg.eigh(H)),
+          "library_call_ms": call_ms(lambda: torch.linalg.eigh(H))}
     sweeps = syev.jacobi_sweeps(H)
     rounds = sweeps * (m - 1)
-    tm["bound_ms"], tm["bound_by"] = bound(
-        H.element_size() * (2 * k * k + k),
-        rounds * (m // 2) * (24 * m + 20) + (sweeps + 1) * 2 * m * m,
+    batch = H.numel() // (k * k)
+    flat_ms, flat_by = bound(
+        H.element_size() * batch * (2 * k * k + k),
+        batch * (rounds * (m // 2) * (24 * m + 20)
+                 + (sweeps + 1) * 2 * m * m),
         H.element_size())
+    tm["bound_ms"], tm["bound_by"] = max((rounds * round_ms, "chain"),
+                                         (flat_ms, flat_by))
     tm["sweeps"], tm["chain_steps"] = sweeps, rounds
     tm["ns_per_step"] = 1e6 * tm["device_ms"] / max(rounds, 1)
-    print(f"sym_eig time at {label} ({k}, {k}): kernel device "
+    print(f"sym_eig time at {label} {tuple(H.shape)}: kernel device "
           f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, plain "
-          f"call {tm['plain_ms']:.4f} ms, torch.linalg.eigh call "
-          f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.7f} ms "
-          f"({tm['bound_by']}); {sweeps} sweeps, {rounds} dependent rounds, "
-          f"{tm['ns_per_step']:.1f} ns a round ({card})", flush=True)
+          f"call {tm['plain_ms']:.4f} ms, torch.linalg.eigh device "
+          f"{tm['library_ms']:.5f} ms, call {tm['library_call_ms']:.4f} ms; "
+          f"bound {tm['bound_ms']:.5f} ms ({tm['bound_by']}; chain: "
+          f"{rounds} dependent rounds of {1e6 * round_ms:.1f} ns, {sweeps} "
+          f"sweeps; {flat_by} {flat_ms:.2e} ms); {tm['ns_per_step']:.1f} ns "
+          f"a round, device / bound "
+          f"{tm['device_ms'] / max(tm['bound_ms'], 1e-12):.2f} ({card})",
+          flush=True)
     return tm
+
+
+def ptxas_report(log: str):
+    """[(entry function, registers, stack frame bytes, spill store bytes,
+    spill load bytes)] from nvcc -Xptxas -v's report, in its order."""
+    import re
+
+    out, fn, frame = [], None, (0, 0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), *frame))
+            fn = None
+    return out
+
+
+def k4_instances(log: str):
+    """{(dtype name, m): (registers, stack bytes, spill stores, spill
+    loads)} of K4's sym_eig_kernel<T, m> instantiations in a ptxas
+    report (mangled names: ...sym_eig_kernelIfLi12E... is float, m 12)."""
+    import re
+
+    got = {}
+    for fn, *rest in ptxas_report(log):
+        m = re.search(r"sym_eig_kernelI([fd])Li(\d+)E", fn)
+        if m:
+            got[({"f": "float32", "d": "float64"}[m.group(1)],
+                 int(m.group(2)))] = tuple(rest)
+    return got
+
+
+def k4_frame_gate(log: str):
+    """k4_instances(log), failing unless K4's instantiations at the main
+    paths' sizes (m 4 and 12, float32 and float64) have a 0-byte stack frame
+    and no spills."""
+    regs = k4_instances(log)
+    for key in (("float32", 4), ("float32", 12), ("float64", 4),
+                ("float64", 12)):
+        if key not in regs or regs[key][1:] != (0, 0, 0):
+            fail(f"K4 {key}: want a 0-byte stack frame and no spills, got "
+                 f"{regs.get(key)}")
+    return regs
+
+
+def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
+    """Device milliseconds of one round of K4's irreducible chain: the
+    parameter arithmetic (two hypot, three IEEE divisions) and one
+    shuffle exchange, on one warp (syev.cu's sym_eig_round_probe_{f32,
+    f64}, in the syev library loaded now); the difference of two chain
+    lengths' device times over their difference in rounds, so that the
+    launch drops out."""
+    import ctypes
+
+    import torch
+
+    from mac_tpu_torch.ops.kernels import _build, syev
+    from mac_tpu_torch.ops.kernels.tridiag import SUFFIX
+
+    fn = getattr(_build.load("syev", syev._SIGNATURES),
+                 f"sym_eig_round_probe_{SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(32, dtype=dtype, device="cuda")
+
+    def run(n):
+        err = _build.launch(fn, out.device, out.data_ptr(), n)
+        if err != 0:
+            fail(f"K4's round probe failed to launch: cudaError {err}")
+
+    t = [device_ms(lambda n=n: run(n), reps=20) for n in rounds]
+    if not bool(torch.isfinite(out).all()):
+        fail("K4's round probe left a non-finite value")
+    return (t[1] - t[0]) / (rounds[1] - rounds[0])
+
+
+def kernels_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of the kernels of one call of fn(): torch.
+    profiler with CUDA activity alone over `reps` calls, the kernels'
+    durations summed (copies and memsets left out) over reps. For a call
+    that synchronises (torch.linalg.eigh), whose device time device_ms
+    cannot take."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.end_ns() - e.start_ns()
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not e.name().startswith(("Memcpy", "Memset")))
+    return ns / 1e6 / reps
 
 
 def by_dtype(counted):
@@ -1061,8 +1204,10 @@ def baselines(dev, dataset, card, counted):
     """Phase 7: GreedyESP on city10000 (scripts/bench_all.py's lazy sweep:
     the chain closed form and the scan on the card) and on a non-chain
     graph (Z by PCG on the card), GreedyEig on intel (the ELL operator, the
-    V-cycle and K1); every gate fatal. Returns the launch counts of
-    GreedyEig's subset(8) and K1's check and times at GreedyEig's shape."""
+    V-cycle and K1; the trial chunks' Rayleigh-Ritz through K4); every
+    gate fatal. Returns the launch counts of GreedyEig's subset(8) (K4's
+    by lane count too, "sym_eig_by_lanes") and K1's check and times at
+    GreedyEig's shape."""
     import numpy as np
     import torch
 
@@ -1219,12 +1364,18 @@ def baselines(dev, dataset, card, counted):
              f"{chunk_err:.3e} relative")
     for kern in counted:
         kern.launches = 0
+    k4 = next(kern for kern in counted if kern.__name__ == "sym_eig")
+    k4_lanes0 = dict(k4.launches_by_lanes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mask_i, sel_i = eig.subset(8)
+    with EighCalls() as eigh_i:
+        mask_i, sel_i = eig.subset(8)
     torch.cuda.synchronize()
     eig_s = time.perf_counter() - t0
     eig_launches = {kern.__name__: kern.launches for kern in counted}
+    eig_launches["sym_eig_by_lanes"] = {
+        r: c - k4_lanes0.get(r, 0) for r, c in k4.launches_by_lanes.items()
+        if c > k4_lanes0.get(r, 0)}
     fi_idx = np.array([[e.i, e.j] for e in fixed_i])
     fi_w = np.array([e.weight for e in fixed_i])
     ref_lams = []
@@ -1241,8 +1392,9 @@ def baselines(dev, dataset, card, counted):
           f"{max(step_err):.2e}; first chunk (64 lanes, K1 at ({n_i}, 256))"
           f" batched {chunk_ms['batched']:.1f} ms against the per-lane loop "
           f"{chunk_ms['per-lane loop']:.1f} ms, lambda_2 within "
-          f"{chunk_err:.2e}; kernel launches in subset(8) {eig_launches} "
-          f"({card})", flush=True)
+          f"{chunk_err:.2e}; kernel launches in subset(8) {eig_launches}; "
+          f"torch.linalg.eigh calls {eigh_i.calls}, inside TRACEMIN's "
+          f"lanes {eigh_i.lanes} ({card})", flush=True)
     if int(mask_i.sum()) != 8 or len(sel_i) != 8:
         fail(f"GreedyEig selected {mask_i.sum()} edges, want 8")
     if not max(step_err) <= 1e-3:
@@ -1252,6 +1404,11 @@ def baselines(dev, dataset, card, counted):
              f"{eig.step_lam2}")
     if eig_launches["tridiag_solve"] <= 0:
         fail("GreedyEig on intel never launched K1")
+    if (eig_launches["sym_eig_by_lanes"].get(eig.chunk, 0) <= 0
+            or eigh_i.lanes):
+        fail(f"GreedyEig's trial lanes: K4 launches by lanes "
+             f"{eig_launches['sym_eig_by_lanes']}, torch.linalg.eigh calls "
+             f"inside TRACEMIN's lanes {eigh_i.lanes}")
     part_s.append(time.perf_counter() - t7)
     print(f"phase 7 wall by part: (a) GreedyESP city10000 {part_s[0]:.3f} s,"
           f" (b) Z path {part_s[1]:.3f} s, (c) GreedyEig intel "
@@ -1300,6 +1457,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     X0 = np.stack([naive.subset(k) for k in ks])
     sweep_s, serial_s, serial_launch = [], {k: [] for k in ks}, None
     reset()
+    eigh_a = EighCalls().__enter__()
     for turn in range(4):
         (r8, u8, up8), dt = timed(lambda: mac.solve_sweep(ks, X0))
         sweep_s.append(dt)
@@ -1318,6 +1476,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
             serial_launch = {kern.__name__: (kern.launches
                                              - before[kern.__name__]) / 8
                              for kern in counted}
+    eigh_a.__exit__(None, None, None)
     busy, kernels_n, top = profiled_busy(lambda: mac.solve_sweep(ks, X0))
     lam_sw = [scipy_lam2(mac.laplacian(u)) for u in u8]
     lam_se = [scipy_lam2(mac.laplacian(u)) for u in serial_u]
@@ -1334,8 +1493,9 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
           f"kernel launches per sweep {sweep_launch} (by lanes {lanes_a}), "
           f"per serial solve {serial_launch}; one warm sweep's device busy "
           f"{busy:.3f} ms over {kernels_n} kernels and copies (profiled "
-          f"run; largest {[(round(ms, 3), cnt, nm) for ms, cnt, nm in top]})"
-          f" ({card})", flush=True)
+          f"run; largest {[(round(ms, 3), cnt, nm) for ms, cnt, nm in top]});"
+          f" torch.linalg.eigh calls {eigh_a.calls}, inside TRACEMIN's "
+          f"lanes {eigh_a.lanes} ({card})", flush=True)
     print(f"8a relaxed lambda_2 (scipy) by lane: sweep "
           f"{[f'{v:.9g}' for v in lam_sw]}, serial "
           f"{[f'{v:.9g}' for v in lam_se]}, sweep - serial relative "
@@ -1354,9 +1514,13 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     if not gap_top >= GAP_FLOOR:
         fail(f"8a: the K = {ks[-1]} lane's gap {gap_top:+.3e} is below "
              f"{GAP_FLOOR}")
-    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked"):
+    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked",
+                 "sym_eig"):
         if lanes_a[name].get(8, 0) <= 0:
             fail(f"8a: {name} never launched with 8 lanes: {lanes_a}")
+    if eigh_a.lanes:
+        fail(f"8a: {eigh_a.lanes} torch.linalg.eigh calls inside TRACEMIN's "
+             f"lanes")
     part_s = [time.perf_counter() - t8]
 
     # (b) the n = 100000 expander, 2 lanes: the ELL V-cycle through K1b.
@@ -2479,6 +2643,13 @@ def main():
         print(f"  nvcc {src}.cu {secs:.2f} s: "
               + " | ".join(ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "smem" in ln), flush=True)
+    # K4 keeps each matrix in registers: its instantiations' frames, from
+    # the report kept beside the library (this build's or an earlier one's).
+    k4_regs = k4_frame_gate(_build.ptxas_log("syev"))
+    print("K4 instantiations (registers, stack frame bytes, spill stores, "
+          "spill loads): " + ", ".join(
+              f"{dt_} m {m_}: {v_}" for (dt_, m_), v_ in sorted(
+                  k4_regs.items())), flush=True)
 
     # ---- 3. kernels against their plain versions on the card
     phase("3 K1, K2 against their plain versions")
@@ -2874,13 +3045,32 @@ def main():
     k4_cases = [(f"TRACEMIN's {k_}x{k_} {dt_} at city10000's start weights",
                  H_) for (k_, dt_), H_ in sorted(k4_mats.items(),
                                                  key=lambda kv: str(kv[0]))]
+
+    def perturbed(H_, R_):
+        """R_ copies of H_ (k, k), each with its own symmetric noise of
+        1e-2 ||H_|| (the lanes' batches hold R_ nearby matrices)."""
+        A_ = torch.as_tensor(rng.normal(size=(R_,) + tuple(H_.shape)),
+                             dtype=H_.dtype, device=dev)
+        return (H_ + 1e-2 * float(torch.linalg.matrix_norm(H_))
+                * (A_ + A_.mT) / 2).contiguous()
+
+    k4_lanes = {8: perturbed(k4_mats[(12, "float32")], 8),
+                64: perturbed(k4_mats[(12, "float64")], 64)}
+    k4_cases += [("phase 8a's lanes, 8 TRACEMIN 12x12 float32",
+                  k4_lanes[8]),
+                 ("phase 7c's lanes, 64 TRACEMIN 12x12 float64",
+                  k4_lanes[64])]
     for dt_ in (f32, torch.float64):
         stack = torch.stack([k4_mats[(12, str(dt_).split(".")[-1])]] * 3)
         k4_cases.append((f"a batch of 3 such 12x12 {dt_}", stack))
-        for k_ in (1, 3, 31, 32):
+        for k_ in range(1, 33):
             A_ = rng.normal(size=(k_, k_))
             k4_cases.append((f"random {k_}x{k_} {dt_}", torch.as_tensor(
                 A_ + A_.T, dtype=dt_, device=dev)))
+        A_ = rng.normal(size=(67, 12, 12))
+        k4_cases.append((f"67 random 12x12 {dt_} (a partial last block)",
+                         torch.as_tensor(A_ + A_.transpose(0, 2, 1),
+                                         dtype=dt_, device=dev)))
     k4_err = {}
     for label, H_ in k4_cases:
         key = str(H_.dtype).split(".")[-1]
@@ -2896,8 +3086,20 @@ def main():
         fail(f"sym_eig took what its kernel does not: {tuple(H_.shape)} "
              f"{H_.dtype}, contiguous {H_.is_contiguous()}")
     print("K4 refuses k 33, float16 and a non-contiguous matrix", flush=True)
+    one = torch.zeros(1, 1, device=dev)
+    k4_floor = device_ms(lambda: syev.sym_eig(one))
+    k4_round = {dt_: k4_round_ms(dt_) for dt_ in (f32, torch.float64)}
+    print(f"K4 launch floor (a 1 x 1 matrix, device_ms): {k4_floor:.5f} ms;"
+          f" one round of its irreducible chain (one-warp probe): float32 "
+          f"{1e6 * k4_round[f32]:.1f} ns, float64 "
+          f"{1e6 * k4_round[torch.float64]:.1f} ns ({card})", flush=True)
     k4_tm = {key: k4_times(H_, f"TRACEMIN's {key[0]}x{key[0]} {key[1]}",
-                           card) for key, H_ in k4_mats.items()}
+                           card, k4_round[H_.dtype])
+             for key, H_ in k4_mats.items()}
+    k4_lane_tm = {R_: dict(k4_times(H_, f"the lanes' batch of {R_}", card,
+                                    k4_round[H_.dtype]),
+                           max_abs_err=k4_err[str(H_.dtype).split(".")[-1]])
+                  for R_, H_ in k4_lanes.items()}
 
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")
@@ -3291,6 +3493,26 @@ def main():
                 "bound_by": tm["bound_by"], "library_ms": None,
                 "chain_steps": tm["chain_steps"], **more}
 
+    # K4 stands for jnp.linalg.eigh: "library_ms" is torch.linalg.eigh's
+    # device time (kernels_ms), "library_call_ms" its call time; bound_ms
+    # the larger of the chain bound and the byte/operation bound.
+    def k4_entry(shape, dtype, tm, launches, path, replaces):
+        return {"name": "sym_eig", "route": "cuda",
+                "source": "mac_tpu_torch/csrc/syev.cu", "replaces": replaces,
+                "shape": shape, "dtype": dtype, "launches": launches,
+                "launches_path": path,
+                "max_abs_err": (tm["max_abs_err"] if "max_abs_err" in tm
+                                else k4_err[dtype]),
+                "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+                "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm["library_ms"],
+                "library_call_ms": tm["library_call_ms"],
+                "library": "torch.linalg.eigh: device time of its kernels; "
+                           "library_call_ms its call (it synchronises)",
+                "launch_floor_ms": k4_floor,
+                "sweeps": tm["sweeps"], "chain_steps": tm["chain_steps"]}
+
     sphere = bundled_launches["sphere2500"]
     scan_blk = "mac_tpu/ops/tridiag.py:153"
     scan_ex = "mac_tpu/ops/tridiag.py:105"
@@ -3386,22 +3608,20 @@ def main():
                    f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
                    lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
     ] + f64_kernels + factor_kernels + [
-        {"name": "sym_eig", "route": "cuda",
-         "source": "mac_tpu_torch/csrc/syev.cu",
-         "replaces": f"mac_tpu/ops/lobpcg.py:{354 if k_ == 4 else 443}",
-         "shape": f"({k_}, {k_})", "dtype": dt_,
-         "launches": k4_launches[dt_],
-         "launches_path": ("phase 4 city10000, every shape"
-                           if dt_ == "float32" else
-                           f"phase 5 n = {SCALE_N}, every shape"),
-         "max_abs_err": k4_err[dt_], "ms": tm["device_ms"],
-         "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
-         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-         "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-         "library": "torch.linalg.eigh, call time (it synchronises)",
-         "sweeps": tm["sweeps"], "chain_steps": tm["chain_steps"]}
+        k4_entry(f"({k_}, {k_})", dt_, tm, k4_launches[dt_],
+                 "phase 4 city10000, every shape" if dt_ == "float32" else
+                 f"phase 5 n = {SCALE_N}, every shape",
+                 f"mac_tpu/ops/lobpcg.py:{354 if k_ == 4 else 443}")
         for (k_, dt_), tm in sorted(k4_tm.items(),
-                                    key=lambda kv: (kv[0][1], kv[0][0]))]
+                                    key=lambda kv: (kv[0][1], kv[0][0]))] + [
+        k4_entry("(8, 12, 12), a TRACEMIN lane each", "float32",
+                 k4_lane_tm[8], lanes_a["sym_eig"].get(8, 0), "phase 8a",
+                 "mac_tpu/ops/lobpcg.py:443 (under vmap)"),
+        k4_entry("(64, 12, 12), a trial lane each", "float64",
+                 k4_lane_tm[64],
+                 eig_launches["sym_eig_by_lanes"].get(64, 0),
+                 "phase 7c (GreedyEig intel, subset(8))",
+                 "mac_tpu/ops/lobpcg.py:443 (under vmap)")]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

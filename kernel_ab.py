@@ -8,7 +8,8 @@ in one process on one NVIDIA GPU.
     python3 kernel_ab.py [--kernels-only] build/ab_old [VARIANT_DIR ...]
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
-them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu).
+them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
+the Rayleigh-Ritz eigensolver K4 likewise with the older syev.cu).
 
 The older sources must export the same C functions. Both versions are built
 with the package's nvcc flags and loaded by _build.load(name, signatures,
@@ -32,7 +33,16 @@ paths' shapes (chip_smoke.py's):
      the older directory also holds tridiag.py, an older copy of
      mac_tpu_torch/ops/kernels/tridiag.py, the call times of K1 and K1b
      through that module's wrappers stand beside the current wrappers', on
-     the new kernels;
+     the new kernels. Where the older directory holds syev.cu, K4
+     sym_eig on phase 3e's four Rayleigh-Ritz matrices of TRACEMIN, the
+     lanes' batches (8, 12, 12) float32 and (64, 12, 12) float64, and
+     random symmetric matrices of every k from 1 to 32 in both types: the
+     number of matrices whose eigenvalues or vectors are not bitwise the
+     older kernel's, device and call times in turns, torch.linalg.eigh's
+     device time (kernels_ms) beside them, each library's launch floor
+     (a 1 x 1 matrix) and one round of the irreducible chain (the new
+     library's one-warp probe, k4_round_ms); each build's registers, stack
+     frame and spills per K4 instantiation are printed at the build;
   2. K1's error against a float64 solve of city10000's chain factor, and
      K1b's against a float64 blocked solve of the n = 100000 chain factor,
      for the old and new kernels and the plain version in float32;
@@ -44,7 +54,13 @@ paths' shapes (chip_smoke.py's):
      the matrix-free path: one warm n = 100000 solve(K, x_init,
      max_iters=10) per turn with its wall and the gap of evaluate_objective
      to the reference library's lambda_2, and once with K1b's plain version
-     in the kernel's place on the card;
+     in the kernel's place on the card; with syev.cu in the older
+     directory also sphere2500 (MAC(fixed, cands, n)) and the banded
+     float64 city10000 (max_iters=20) per turn. Each version solves with a
+     MAC of its own: a solve replays CUDA graphs captured at its first
+     call, which hold the kernels of the library loaded then; the solves
+     with a plain version in a kernel's place run eagerly
+     (chip_smoke.SolvePath("eager")) so that the plain version runs;
   4. one warm solve per version and path under torch.profiler with CUDA
      activity alone: the device time of K1 and K2b (city10000) and of K1b
      (n = 100000) in that solve and the whole device busy time.
@@ -64,9 +80,12 @@ import time
 from pathlib import Path
 from unittest import mock
 
-from chip_smoke import (REFERENCE_LAM2_SCALE, REFERENCE_LAM2_UNROUNDED, SCALE_N,
-                        call_ms, card_line, dataset_inputs, device_ms, fail,
-                        index_add_assembly, k2_args, pose_graph, synthetic)
+from chip_smoke import (BUNDLED, REFERENCE_LAM2_SCALE,
+                        REFERENCE_LAM2_UNROUNDED, SCALE_N, SolvePath, call_ms,
+                        card_line, dataset_inputs, device_ms, fail,
+                        index_add_assembly, k2_args, k4_instances,
+                        k4_round_ms, kernels_ms, pose_graph, ptxas_report,
+                        rayleigh_ritz_matrices, synthetic)
 
 TURNS = ("old", "new", "new", "old")
 
@@ -86,12 +105,24 @@ def build_dir(src_dir: Path, tag: str, names) -> dict:
                               capture_output=True, text=True)
         if proc.returncode != 0:
             fail(f"nvcc failed for {src_dir / name}.cu:\n{proc.stderr}")
-        print(f"{tag} {name}.cu: " + " | ".join(
-            ln.strip() for ln in proc.stderr.splitlines()
-            if "registers" in ln or "smem" in ln or "spill" in ln),
-            flush=True)
+        print_ptxas(tag, name, proc.stderr)
         libs[name] = out
     return libs
+
+
+def print_ptxas(tag: str, name: str, log: str) -> None:
+    """A build's registers, stack frame and spills per entry function
+    (per K4 instantiation, by type and even size m, for syev.cu)."""
+    if k4_instances(log):
+        print(f"{tag} syev.cu (registers, stack frame bytes, spill stores, "
+              f"spill loads): " + ", ".join(
+                  f"{dt} m {m}: {v}"
+                  for (dt, m), v in sorted(k4_instances(log).items())),
+              flush=True)
+        return
+    print(f"{tag} {name}.cu: " + " | ".join(
+        f"{fn[-40:]}: {regs} registers, stack {stack}, spills {st}/{ld}"
+        for fn, regs, stack, st, ld in ptxas_report(log)), flush=True)
 
 
 def enqueue_us(fn, reps: int = 2000) -> float:
@@ -132,6 +163,77 @@ def device_profile(run, keys):
     return out, sums
 
 
+def k4_ab(use, card, bop, w, dev):
+    """K4 old against new in turns (part 1 of the module docstring)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import syev
+
+    use("new")
+    mats = rayleigh_ritz_matrices(bop, w, dev)
+    rng = np.random.RandomState(14)
+    main_cases = [(f"TRACEMIN's {k}x{k} {dt}", mats[(k, dt)])
+                  for dt in ("float32", "float64") for k in (4, 12)]
+    for R, dt in ((8, "float32"), (64, "float64")):
+        H = mats[(12, dt)]
+        A = torch.as_tensor(rng.normal(size=(R, 12, 12)), dtype=H.dtype,
+                            device=dev)
+        main_cases.append((f"lanes ({R}, 12, 12) {dt}", (
+            H + 1e-2 * float(torch.linalg.matrix_norm(H))
+            * (A + A.mT) / 2).contiguous()))
+    main_labels = {label for label, _ in main_cases}
+    cases = list(main_cases)
+    for dt in (torch.float32, torch.float64):
+        for k in range(1, 33):
+            A = rng.normal(size=(3, k, k))
+            cases.append((f"random (3, {k}, {k}) {str(dt)[6:]}",
+                          torch.as_tensor(A + A.transpose(0, 2, 1),
+                                          dtype=dt, device=dev)))
+    one = torch.zeros(1, 1, device=dev)
+    out, dev_ms = {}, {}
+    for version in TURNS:
+        use(version)
+        floor = device_ms(lambda: syev.sym_eig(one))
+        print(f"{version} K4 launch floor (1 x 1): {floor:.5f} ms ({card})",
+              flush=True)
+        for label, H in cases:
+            got = syev.sym_eig(H)
+            torch.cuda.synchronize()
+            out.setdefault(label, {}).setdefault(version, got)
+            dms = device_ms(lambda: syev.sym_eig(H))
+            dev_ms.setdefault(label, {}).setdefault(version, []).append(dms)
+            if label in main_labels:
+                print(f"{version} K4 {label}: device {dms:.5f} ms, call "
+                      f"{call_ms(lambda: syev.sym_eig(H)):.4f} ms ({card})",
+                      flush=True)
+    use("new")
+    for dt in (torch.float32, torch.float64):
+        print(f"K4 round of the irreducible chain, {dt}: "
+              f"{1e6 * k4_round_ms(dt):.1f} ns ({card})", flush=True)
+    differ, total = 0, 0
+    for label, H in cases:
+        (eo, Vo), (en, Vn) = out[label]["old"], out[label]["new"]
+        b = H.numel() // H.shape[-1] ** 2
+        same = [bool(torch.equal(eo.reshape(b, -1)[i], en.reshape(b, -1)[i])
+                     and torch.equal(Vo.reshape(b, -1)[i],
+                                     Vn.reshape(b, -1)[i]))
+                for i in range(b)]
+        differ += same.count(False)
+        total += b
+        old = statistics.median(dev_ms[label]["old"])
+        new = statistics.median(dev_ms[label]["new"])
+        lib = (f", torch.linalg.eigh device "
+               f"{kernels_ms(lambda: torch.linalg.eigh(H)):.5f} ms"
+               if label in main_labels else "")
+        print(f"summary K4 {label}: device old {old:.5f} ms, new {new:.5f} "
+              f"ms, new/old {new / old:.3f}{lib}; matrices not bitwise the "
+              f"old kernel's {same.count(False)} of {b} ({card})",
+              flush=True)
+    print(f"K4 outputs not bitwise the old kernel's: {differ} of {total} "
+          f"matrices", flush=True)
+
+
 def main():
     import importlib.util
 
@@ -149,7 +251,7 @@ def main():
     print(card, flush=True)
     from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops import tridiag as ops_tridiag
-    from mac_tpu_torch.ops.kernels import _build, assemble, ldl, tridiag
+    from mac_tpu_torch.ops.kernels import _build, assemble, ldl, syev, tridiag
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
         tridiag_solve, tridiag_solve_blocked, tridiag_solve_blocked_plain,
@@ -162,12 +264,14 @@ def main():
     sigs = {"tridiag": tridiag._SIGNATURES, "assemble": assemble._SIGNATURES}
     if (old_dir / "ldl.cu").exists():
         sigs["ldl"] = ldl._SIGNATURES
+    if (old_dir / "syev.cu").exists():
+        sigs["syev"] = syev._SIGNATURES
     libs = {"old": build_dir(old_dir, "old", sigs),
             "new": {name: _build.build(name) for name in sigs}}
-    for src, secs, log in _build.build_log:
-        print(f"new {src}.cu: " + " | ".join(
-            ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "smem" in ln or "spill" in ln), flush=True)
+    for src, secs, _ in _build.build_log:
+        print(f"new {src}.cu built in {secs:.1f} s", flush=True)
+    for src in sigs:
+        print_ptxas("new", src, _build.ptxas_log(src))
     variants = [f"variant {Path(d).name}" for d in argv[1:]]
     for tag, d in zip(variants, argv[1:]):
         libs[tag] = build_dir(Path(d), tag.replace(" ", "-"), ("tridiag",))
@@ -177,7 +281,7 @@ def main():
             _build.load(name, sigs[name], path)
 
     dev = torch.device("cuda")
-    (_, n, fixed, cands, k, x_init, bop, w, dp1, l1,
+    (dataset, n, fixed, cands, k, x_init, bop, w, dp1, l1,
      B1) = dataset_inputs(dev)
     args_b = k2_args(bop, w)
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
@@ -297,6 +401,8 @@ def main():
               f"new/old {new / old:.3f}" + "".join(
                   f", {v} {by[v][0]:.5f} ms" for v in variants if v in by)
               + f" ({card})", flush=True)
+    if "syev" in sigs:
+        k4_ab(use, card, bop, w, dev)
     # The wrappers of an older copy of ops/kernels/tridiag.py, on the new
     # kernels: what the host side of a call costs, before and after.
     if (old_dir / "tridiag.py").exists():
@@ -347,107 +453,153 @@ def main():
     if kernels_only:
         return
 
-    # ---- 3. warm solves: wall and the relaxed gap
-    mac = MAC(fixed, cands, n, device="cuda")
-
-    def solve(m=mac):
-        if m.device.type == "cuda":
-            torch.cuda.synchronize()
+    # ---- 3. warm solves: wall and the relaxed gap. A MAC per version:
+    # its cold solve captures the graphs its warm solves replay, with the
+    # kernels of the library loaded at the capture.
+    def timed_solve(run):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, unrounded, _ = m.solve(k, x_init, rounding="nearest",
-                                  use_cache=True)
-        if m.device.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        lam2 = scipy_lam2(m.laplacian(unrounded))
-        return (wall, lam2,
-                (lam2 - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED)
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
 
+    def city_gap(m, unrounded):
+        lam2 = scipy_lam2(m.laplacian(unrounded))
+        return lam2, (lam2 - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED
+
+    def per_version(make):
+        """{version: solver}, each built and solved cold with its library
+        loaded."""
+        built = {}
+        for version in ("old", "new"):
+            use(version)
+            built[version] = make()
+        return built
+
+    def city_run(m):
+        return m.solve(k, x_init, rounding="nearest", use_cache=True)
+
+    macs = per_version(lambda: MAC(fixed, cands, n, device="cuda"))
     for version in ("old", "new"):
         use(version)
-        solve()  # warms the caches of this version
+        city_run(macs[version])  # the cold solve: captures its graphs
     for version in TURNS:
         use(version)
-        wall, lam2, gap = solve()
+        (_, unrounded, _), wall = timed_solve(lambda: city_run(macs[version]))
+        lam2, gap = city_gap(macs[version], unrounded)
         print(f"{version} city10000 warm solve: wall {wall:.4f} s unprofiled;"
               f" relaxed lambda_2 {lam2:.10g}, gap {gap:+.4e} ({card})",
               flush=True)
-    with mock.patch.object(ops_tridiag._kernels, "tridiag_solve",
-                           tridiag_solve_plain):
-        _, lam2, gap = solve()
-    print(f"K1's plain version on the card, city10000 solve: relaxed "
-          f"lambda_2 {lam2:.10g}, gap {gap:+.4e}", flush=True)
-    _, lam2, gap = solve(MAC(fixed, cands, n, device="cpu"))
+    use("new")
+    with SolvePath("eager"), mock.patch.object(
+            ops_tridiag._kernels, "tridiag_solve", tridiag_solve_plain):
+        _, unrounded, _ = city_run(macs["new"])
+    lam2, gap = city_gap(macs["new"], unrounded)
+    print(f"K1's plain version on the card (eager solve), city10000 solve: "
+          f"relaxed lambda_2 {lam2:.10g}, gap {gap:+.4e}", flush=True)
+    mac_cpu = MAC(fixed, cands, n, device="cpu")
+    lam2, gap = city_gap(mac_cpu, city_run(mac_cpu)[1])
     print(f"the port on the CPU (every plain version), city10000 solve: "
           f"relaxed lambda_2 {lam2:.10g}, gap {gap:+.4e}", flush=True)
 
     # The matrix-free path, as chip_smoke.py's phase 5 drives it.
-    mac5 = MAC((fi5, wf5), (ci5, wc5), SCALE_N, fiedler_inner_iters=10,
-               fiedler_maxiter=60, fiedler_tol=6e-4, device="cuda")
-
-    def solve5():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, unrounded, _ = mac5.solve(k5, x5, max_iters=10, use_cache=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        lam2 = mac5.evaluate_objective(unrounded)
+    def solve5(m):
+        (_, unrounded, _), wall = timed_solve(
+            lambda: m.solve(k5, x5, max_iters=10, use_cache=True))
+        lam2 = m.evaluate_objective(unrounded)
         return (wall, lam2,
                 (lam2 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE)
 
+    macs5 = per_version(lambda: MAC(
+        (fi5, wf5), (ci5, wc5), SCALE_N, fiedler_inner_iters=10,
+        fiedler_maxiter=60, fiedler_tol=6e-4, device="cuda"))
     for version in ("old", "new"):
         use(version)
-        solve5()
+        solve5(macs5[version])
     for version in TURNS:
         use(version)
         before = tridiag_solve_blocked.launches
-        wall, lam2, gap = solve5()
+        wall, lam2, gap = solve5(macs5[version])
         print(f"{version} n {SCALE_N} warm solve: wall {wall:.4f} s "
               f"unprofiled; relaxed lambda_2 (evaluate_objective) "
               f"{lam2:.12g}, gap {gap:+.4e}; K1b launches "
               f"{tridiag_solve_blocked.launches - before}, fiedler "
-              f"iterations {mac5.last_solve_stats.get('fiedler_iterations')}"
+              f"iterations "
+              f"{macs5[version].last_solve_stats.get('fiedler_iterations')}"
               f" ({card})", flush=True)
-    with mock.patch.object(ops_tridiag._kernels, "tridiag_solve_blocked",
-                           tridiag_solve_blocked_plain):
-        _, lam2, gap = solve5()
-    print(f"K1b's plain version on the card, n {SCALE_N} solve: relaxed "
-          f"lambda_2 {lam2:.12g}, gap {gap:+.4e}", flush=True)
+    use("new")
+    with SolvePath("eager"), mock.patch.object(
+            ops_tridiag._kernels, "tridiag_solve_blocked",
+            tridiag_solve_blocked_plain):
+        _, lam2, gap = solve5(macs5["new"])
+    print(f"K1b's plain version on the card (eager solve), n {SCALE_N} "
+          f"solve: relaxed lambda_2 {lam2:.12g}, gap {gap:+.4e}", flush=True)
+
+    # K4's other cells: sphere2500 and the banded float64 city10000.
+    if "syev" in sigs:
+        from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                                   split_edges)
+        from mac_tpu_torch.solvers import NaiveGreedy
+
+        meas, n_s = read_g2o_file(str(dataset.parent / "sphere2500.g2o"))
+        fixed_s, cands_s = split_edges(rpm_to_mac(meas))
+        k_s = len(cands_s) // 2
+        x_s = NaiveGreedy(cands_s).subset(k_s)
+        cells = {
+            "sphere2500": (per_version(lambda: MAC(fixed_s, cands_s, n_s)),
+                           lambda m: m.solve(k_s, x_s, use_cache=True),
+                           BUNDLED["sphere2500"][0]),
+            "city10000 banded float64": (
+                per_version(lambda: MAC(fixed, cands, n, use_banded=True,
+                                        dtype=torch.float64,
+                                        device="cuda")),
+                lambda m: m.solve(k, x_init, max_iters=20),
+                REFERENCE_LAM2_UNROUNDED)}
+        for cell, (ms, run, ref) in cells.items():
+            for version in ("old", "new"):
+                use(version)
+                run(ms[version])
+            for version in TURNS:
+                use(version)
+                (_, unrounded, _), wall = timed_solve(
+                    lambda: run(ms[version]))
+                lam2 = scipy_lam2(ms[version].laplacian(unrounded))
+                print(f"{version} {cell} warm solve: wall {wall:.4f} s "
+                      f"unprofiled; relaxed lambda_2 {lam2:.12g}, gap "
+                      f"{(lam2 - ref) / ref:+.4e} ({card})", flush=True)
 
     # ---- 4. the device time of the kernels in one profiled warm solve
     k1_keys = {"K1": lambda nm: ("tridiag_solve_kernel" in nm
                                  and "blocked" not in nm),
-               "K2b": lambda nm: "assemble_ut_kernel" in nm}
-    k1b_keys = {"K1b": lambda nm: "tridiag_solve_blocked_kernel" in nm}
+               "K2b": lambda nm: "assemble_ut_kernel" in nm,
+               "K4": lambda nm: "sym_eig_kernel" in nm}
+    k1b_keys = {"K1b": lambda nm: "tridiag_solve_blocked_kernel" in nm,
+                "K4": lambda nm: "sym_eig_kernel" in nm}
     for version in ("old", "new"):
         use(version)
         t1, t2 = tridiag_solve.launches, assemble_ut.launches
-        (pwall, _, _), sums = device_profile(solve, k1_keys)
+        (_, pwall), sums = device_profile(
+            lambda: timed_solve(lambda: city_run(macs[version])), k1_keys)
         print(f"{version} city10000 warm solve profiled: wall {pwall:.4f} s;"
               f" device busy {sums['busy'][0] / 1e3:.2f}"
               f" ms over {sums['busy'][1]} kernels and copies; K1 "
               f"{sums['K1'][0] / 1e3:.3f} ms over {sums['K1'][1]} launches "
               f"(wrapper counted {tridiag_solve.launches - t1}); K2b "
               f"{sums['K2b'][0] / 1e3:.3f} ms over {sums['K2b'][1]} launches "
-              f"(wrapper counted {assemble_ut.launches - t2}) ({card})",
-              flush=True)
+              f"(wrapper counted {assemble_ut.launches - t2}); K4 "
+              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches "
+              f"({card})", flush=True)
     for version in ("old", "new"):
         use(version)
-
-        def warm5():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mac5.solve(k5, x5, max_iters=10, use_cache=True)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-
         t1 = tridiag_solve_blocked.launches
-        pwall, sums = device_profile(warm5, k1b_keys)
+        (pwall, _, _), sums = device_profile(lambda: solve5(macs5[version]),
+                                             k1b_keys)
         print(f"{version} n {SCALE_N} warm solve profiled: wall {pwall:.4f} "
               f"s; device busy {sums['busy'][0] / 1e3:.2f} ms over "
               f"{sums['busy'][1]} kernels and copies; K1b "
               f"{sums['K1b'][0] / 1e3:.3f} ms over {sums['K1b'][1]} launches "
-              f"(wrapper counted {tridiag_solve_blocked.launches - t1}) "
+              f"(wrapper counted {tridiag_solve_blocked.launches - t1}); K4 "
+              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches "
               f"({card})", flush=True)
 
 

@@ -8,8 +8,10 @@ in seconds without PyTorch's headers:
          -o build/mac_tpu_torch/lib<name>-<hash>.so <name>.cu
 
 The library goes to build/mac_tpu_torch/ beside the package, named by a hash
-of its source and flags, and is built at first use and reused after. Nothing
-here runs at import time.
+of its source and flags, and is built at first use and reused after; nvcc's
+report (ptxas's registers, stack frame and spills per kernel) is kept beside
+it as lib<name>-<hash>.ptxas.txt, so a reused library still has its report
+(ptxas_log). Nothing here runs at import time.
 """
 
 import ctypes
@@ -52,12 +54,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where nvcc's report of library_path(name)'s build is kept."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source exists.
-    nvcc's stderr (the -Xptxas -v register and shared-memory report) is
-    kept in build_log."""
-    out = library_path(name)
-    if out.exists():
+    """Compile csrc/<name>.cu unless the library for this source and its
+    report exist. nvcc's stderr (the -Xptxas -v register and shared-memory
+    report) is written to report_path(name) and kept in build_log."""
+    out, report = library_path(name), report_path(name)
+    if out.exists() and report.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -69,9 +76,17 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, out)
     build_log.append((name, time.perf_counter() - t0, proc.stderr))
     return out
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's report of the library build(name) returns, built now or by an
+    earlier process."""
+    build(name)
+    return report_path(name).read_text()
 
 
 def load(name: str, signatures, path=None) -> ctypes.CDLL:

@@ -9,15 +9,16 @@ H is read as symmetric (both triangles are used); TRACEMIN hands it
 (H + H^T) / 2.
 
 It stands for jnp.linalg.eigh in the JAX package's TRACEMIN (the
-Rayleigh-Ritz eigensolves, mac_tpu/ops/lobpcg.py:354, :371, :443), as
-torch.linalg.eigh, which on a CUDA tensor reads its error code back to the
-host and so cannot sit inside a captured CUDA graph.
+Rayleigh-Ritz eigensolves, mac_tpu/ops/lobpcg.py:354, :371, :443, under
+vmap for its lanes), as torch.linalg.eigh, which on a CUDA tensor reads
+its error code back to the host and so cannot sit inside a captured CUDA
+graph.
 
 The wrapper launches the CUDA kernel for a CUDA tensor (one launch, a
-block per matrix, no host read) and runs the plain PyTorch version
-(`sym_eig_plain`: the same rounds in the same order, the same rotation
-formulas and the same stop rule, vectorised over a round's k / 2 pairs and
-over the batch) for a CPU tensor. On a CUDA tensor it raises for what the
+warp per matrix with the matrix in registers, no host read) and runs the
+plain PyTorch version (`sym_eig_plain`: the same rounds in the same
+order, the same rotation formulas and the same stop rule, vectorised over
+a round's k / 2 pairs and over the batch) for a CPU tensor. On a CUDA tensor it raises for what the
 kernel does not take (k > 32, a dtype other than float32 and float64, a
 non-contiguous tensor); nothing falls back to torch.linalg.eigh. It counts
 its launches in `.launches`, `.launches_by_lanes` (by the number of
@@ -163,6 +164,17 @@ def check_kernel_args(H: torch.Tensor) -> None:
         raise ValueError("sym_eig kernel: H is not contiguous")
     if H.numel() // (H.shape[-1] ** 2) >= 2 ** 31:
         raise ValueError("sym_eig kernel: batch past int32")
+
+
+def check_block(q: int, device) -> None:
+    """Refuse on a CUDA device a TRACEMIN block of q columns whose
+    Rayleigh-Ritz eigensolve (3q x 3q) the kernel does not take: q past
+    MAX_K // 3 = 10. The CPU (the plain version) takes any q."""
+    if torch.device(device).type == "cuda" and 3 * q > MAX_K:
+        raise ValueError(
+            f"a TRACEMIN block of q = {q} columns needs {3 * q} x {3 * q} "
+            f"Rayleigh-Ritz eigensolves; the sym_eig kernel takes k up to "
+            f"{MAX_K}, so on a CUDA device q is at most {MAX_K // 3}")
 
 
 def sym_eig(H: torch.Tensor):

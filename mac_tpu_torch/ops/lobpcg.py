@@ -444,9 +444,11 @@ def tracemin_fiedler_lanes(
     residual (as in tracemin_fiedler). agree: as in tracemin_fiedler, for
     the test whether any lane goes on.
 
-    Each lane keeps its own Rayleigh-Ritz (batched q x q and 3q x 3q eigh),
-    CGS2 and CholeskyQR2, residuals, stall count and stop test; a lane that
-    has stopped stays as it was. The stop flags are read from the device
+    Each lane keeps its own Rayleigh-Ritz (the q x q and 3q x 3q
+    eigensolves of all lanes as one batch through sym_eig: K4 on the card,
+    one launch a batch, its plain Jacobi here), CGS2 and CholeskyQR2,
+    residuals, stall count and stop test; a lane that has stopped stays as
+    it was. The stop flags are read from the device
     once per outer iteration. Returns FiedlerResult with lam (R, q),
     X (R, n, q), iters (R,) and res (R,).
     """
@@ -475,7 +477,7 @@ def tracemin_fiedler_lanes(
 
     def rayleigh_ritz(Q, AQ):
         H = _gram(Q, AQ, coeff_dtype)
-        evals, C = torch.linalg.eigh((H + H.mT) / 2)
+        evals, C = _syev.sym_eig((H + H.mT) / 2)
         Cq = C[:, :, :q].to(dtype)
         return Q @ Cq, AQ @ Cq, evals[:, :q].to(dtype)
 

@@ -71,6 +71,7 @@ import torch
 
 from mac_tpu_torch.device import resolve_device
 from mac_tpu_torch.ops.banded import PrecondState, build_banded_rcm
+from mac_tpu_torch.ops.kernels import syev as _syev
 from mac_tpu_torch.ops.laplacian import build_operator
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.optimization.constraints import (
@@ -189,6 +190,10 @@ class MAC(HostSolveMixin):
         this rank; a device that contradicts it raises.
     mesh: a ("sweep", "graph") torch.distributed DeviceMesh (make_mesh)
         spanning the process group, or None (see the module docstring).
+    fiedler_block_q: the eigensolver's block width q (4 by default). On a
+        CUDA device at most 10: TRACEMIN's 3q x 3q Rayleigh-Ritz
+        eigensolves run in the sym_eig kernel, which takes k up to 32, and
+        a larger q raises here.
     mesh_apply: the sharding of the matrix-free product on a mesh, "rows"
         (node rows, all-gathered; the default) or "edges" (round-robin
         edges, all-reduced).
@@ -327,6 +332,8 @@ class MAC(HostSolveMixin):
         self.dtype = dtype
         self.device = resolve_device(device)
         self.num_nodes = n
+        self._q = min(int(fiedler_block_q or 4), n - 1)
+        _syev.check_block(self._q, self.device)
         self.fixed_idx = fixed_idx
         self.cand_idx = cand_idx
         self.weights = np.asarray(w_cand)
@@ -459,7 +466,6 @@ class MAC(HostSolveMixin):
         self.fw_polish_big_gap = 5e-3
         self.host_pcg = False
 
-        self._q = min(int(fiedler_block_q or 4), n - 1)
         self._X0 = torch.as_tensor(_fiedler.default_block(n, self._q),
                                    dtype=dtype, device=self.device)
         self.xprev0 = _fiedler.default_xprev(n, self._q, dtype, self.device)

@@ -9,7 +9,11 @@ plain doubling scan within 1e-13 relative in float64 and one float32
 ulp) and K3b (segment-decoupled, bitwise), the banded preconditioner's
 block-Jacobi and additive variants against their CPU calls, and the
 eigensolver's inner solve replayed as a CUDA graph against the eager loop
-(bitwise, across weight vectors, with the launch counts). Marked `cuda`;
+(bitwise, across weight vectors, with the launch counts), and the
+Rayleigh-Ritz eigensolver K4 at every order up to 32 and on batches that
+leave its last block partial, with TRACEMIN's lanes (GreedyEig's trial
+chunk, the budget sweep) launching it once a lane batch and never
+calling torch.linalg.eigh. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -1090,9 +1094,16 @@ def test_failed_capture_raises(dev):
     torch.cuda.synchronize()
 
 
+# K4's shapes: TRACEMIN's, a batch that leaves the last block of four
+# matrices partial (67), and a batch of three at every k from 1 to 32: the
+# kernel's every instantiation (even m = 2 ... 32) and the odd k padded
+# beside each.
+_K4_SHAPES = [(4, 4), (12, 12), (5, 12, 12), (67, 12, 12), (32, 32),
+              (2, 31, 31)] + [(3, k, k) for k in range(1, 33)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(4, 4), (12, 12), (5, 12, 12), (3, 1, 1),
-                                   (2, 31, 31), (32, 32)])
+@pytest.mark.parametrize("shape", _K4_SHAPES)
 def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
     """K4 against its plain version on the card and torch.linalg.eigh
     (random symmetric matrices): eigenvalues within 2 k eps ||H|| of both,
@@ -1106,9 +1117,11 @@ def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
     A = rng.normal(size=shape)
     H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dtype, device=dev)
     before = syev.sym_eig.launches
+    lanes = syev.sym_eig.launches_by_lanes.get(H.numel() // k ** 2, 0)
     e, V = syev.sym_eig(H)
     torch.cuda.synchronize()
     assert syev.sym_eig.launches == before + 1
+    assert syev.sym_eig.launches_by_lanes[H.numel() // k ** 2] == lanes + 1
     ep, _ = syev.sym_eig_plain(H)
     el, _ = torch.linalg.eigh(H)
     eps = torch.finfo(dtype).eps
@@ -1137,3 +1150,61 @@ def test_sym_eig_kernel_refuses_what_it_does_not_take(dev):
                    (torch.zeros(4, 5, device=dev), ValueError)):
         with pytest.raises(err):
             syev.sym_eig(H)
+
+
+def _k4_lane_counts(run):
+    """run() with torch.linalg.eigh counted (chip_smoke.EighCalls): its
+    return value, the eigh calls, and K4's launches in it by lane count."""
+    from chip_smoke import EighCalls
+    from mac_tpu_torch.ops.kernels import syev
+
+    before = dict(syev.sym_eig.launches_by_lanes)
+    with EighCalls() as eigh:
+        out = run()
+    torch.cuda.synchronize()
+    return out, eigh.calls, {
+        r: c - before.get(r, 0)
+        for r, c in syev.sym_eig.launches_by_lanes.items()
+        if c > before.get(r, 0)}
+
+
+def test_tracemin_lanes_on_cuda_launch_k4_once_per_batch(dev):
+    """GreedyEig's trial chunk on the card (64 lanes, float32, ELL, float64
+    coefficients): every Rayleigh-Ritz eigensolve of TRACEMIN's lanes is one
+    K4 launch on the whole batch, at the entry and once an outer
+    iteration (no launch on fewer lanes), and torch.linalg.eigh is never
+    called; the lanes' lambda_2 stay at or above the incumbent's."""
+    from chip_smoke import chain_instance
+    from mac_tpu_torch.solvers import GreedyEig
+
+    fixed, cands = chain_instance(1200, 600, 3)
+    g = GreedyEig(fixed, cands, 1200)
+    x = np.zeros(len(cands))
+    x[:400] = 1.0
+    lam, X = g._eval(x, g._X0)
+    (lams, Xs), calls, by_lanes = _k4_lane_counts(
+        lambda: g._eval_chunk(x, np.arange(400, 464), X))
+    assert calls == 0
+    assert set(by_lanes) == {64} and by_lanes[64] >= 2
+    assert np.all(np.isfinite(lams))
+    assert np.all(lams >= float(lam) * (1 - 5e-4))
+
+
+def test_sweep_lanes_on_cuda_launch_k4_per_lane_batch(dev):
+    """A banded float32 sweep of 3 budgets on the card sends TRACEMIN's
+    Rayleigh-Ritz eigensolves to K4 with 3 lanes and never to
+    torch.linalg.eigh; each lane rounds to exactly k."""
+    from mac_tpu_torch.solvers import MAC
+
+    idx, w, n = _graph(1500, 1200, 25, 3)
+    fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
+    m = len(cands[1])
+    ks = [m // 4, m // 2, 3 * m // 4]
+    mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
+              device="cuda")
+    (rounded, unrounded, _), calls, by_lanes = _k4_lane_counts(
+        lambda: mac.solve_sweep(ks))
+    assert calls == 0
+    assert by_lanes.get(3, 0) >= 2
+    assert [int(r.sum()) for r in rounded] == ks
+    assert np.all(np.isfinite(unrounded))

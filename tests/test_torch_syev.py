@@ -2,7 +2,8 @@
 the round-robin cyclic Jacobi that a CPU tensor takes) against
 numpy.linalg.eigh and the JAX package's jnp.linalg.eigh, and the port's
 TRACEMIN, whose Rayleigh-Ritz eigensolves run through it, against the JAX
-package's. The kernel itself runs only on the card
+package's, single and over lanes (the lanes' batches go to sym_eig, never
+to torch.linalg.eigh). The kernel itself runs only on the card
 (tests/test_torch_cuda.py). Inputs are made from numpy seeds.
 
 Tolerances, with eps the dtype's and ||H|| the Frobenius norm: eigenvalues
@@ -168,3 +169,223 @@ def test_tracemin_on_sym_eig_matches_jax(prec, monkeypatch):
     test_tracemin_matches_jax(prec)
     assert calls[0] == (4, 4) and set(calls[1:]) == {(12, 12)}
     assert len(calls) >= 2
+
+
+def _lane_calls(monkeypatch):
+    """Count sym_eig's calls by shape and make torch.linalg.eigh raise:
+    TRACEMIN's lanes must send every Rayleigh-Ritz eigensolve to K4."""
+    import mac_tpu_torch.ops.kernels.syev as syev_mod
+
+    calls = []
+    real = syev_mod.sym_eig
+
+    def counted(H):
+        calls.append(tuple(H.shape))
+        return real(H)
+
+    def refused(*args, **kw):
+        raise AssertionError("torch.linalg.eigh called inside TRACEMIN's "
+                             "lanes")
+
+    monkeypatch.setattr(syev_mod, "sym_eig", counted)
+    monkeypatch.setattr(torch.linalg, "eigh", refused)
+    return calls
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_tracemin_lanes_run_rayleigh_ritz_on_sym_eig(prec, monkeypatch):
+    """tracemin_fiedler_lanes on three lanes (the n = 700 banded operator
+    at three weight vectors, each lane its own preconditioner) sends its
+    Rayleigh-Ritz eigensolves to sym_eig as one (R, k, k) batch, at the
+    entry and once an outer iteration, and never calls torch.linalg.eigh;
+    each lane agrees with the port's single tracemin_fiedler and with the
+    JAX package's tracemin_fiedler under vmap, at the parity tolerances of
+    test_tracemin_on_sym_eig_matches_jax (lambda_2 rtol 1e-4, |<v, v'>| >=
+    1 - 1e-4)."""
+    import jax
+
+    from mac_tpu.ops import banded as jb
+    from mac_tpu.ops.lobpcg import tracemin_fiedler as jax_tracemin
+    from mac_tpu_torch import convert
+    from mac_tpu_torch.ops import banded as tb
+    from mac_tpu_torch.ops.lobpcg import (tracemin_fiedler,
+                                          tracemin_fiedler_lanes)
+    from tests.test_torch_banded import GRAPHS, pose_graph
+    from tests.test_torch_eigen import JDT, TDT, jax_xprev
+
+    jdt, tdt = JDT[prec], TDT[prec]
+    idx, w, n = pose_graph(*GRAPHS["nosplit700"])
+    jbop, _ = jb.build_banded_rcm(idx, n, dtype=jdt)
+    tbop = convert.banded_operator(jbop)
+    rng = np.random.RandomState(11)
+    W = w[None, :] * rng.uniform(0.5, 1.5, size=(3, len(w)))
+    X0 = rng.normal(size=(n, 4))
+    kw = dict(tol=1e-12, maxiter=6, inner_iters=5, rel_tol=1e-12)
+    xprev = torch.tensor(jax_xprev(n, 4, jdt))
+
+    @jax.jit
+    @jax.vmap
+    def run_jax(w):
+        BD = jb.assemble_bd(jbop, w, fused=False)
+        M = jb.make_banded_precond(jbop, BD, w=w)
+        return jax_tracemin(lambda V: jb.banded_apply(jbop, BD, V),
+                            jnp.asarray(X0, jdt), 2.0 * jnp.max(BD.deg), M,
+                            coeff_dtype=None if prec == "f64" else jdt, **kw)
+
+    jres = run_jax(jnp.asarray(W, jdt))
+    tW = torch.as_tensor(W, dtype=tdt)
+    BDs = [tb.assemble_bd(tbop, tw) for tw in tW]
+    Ms = [tb.make_banded_precond(tbop, BD, w=tw) for BD, tw in zip(BDs, tW)]
+    lnorm = torch.stack([2.0 * BD.deg.max() for BD in BDs])
+    coeff = None if prec == "f64" else tdt
+
+    def apply_lanes(V):
+        return torch.stack([tb.banded_apply(tbop, BD, v)
+                            for BD, v in zip(BDs, V)])
+
+    def minv_lanes(V):
+        return torch.stack([M(v) for M, v in zip(Ms, V)])
+
+    singles = [tracemin_fiedler(
+        lambda V, BD=BD: tb.banded_apply(tbop, BD, V),
+        torch.as_tensor(X0, dtype=tdt), c, M, xprev0=xprev,
+        coeff_dtype=coeff, **kw) for BD, M, c in zip(BDs, Ms, lnorm)]
+    calls = _lane_calls(monkeypatch)
+    res = tracemin_fiedler_lanes(
+        apply_lanes, torch.as_tensor(X0, dtype=tdt), lnorm, minv_lanes,
+        xprev0=xprev, coeff_dtype=coeff, **kw)
+    monkeypatch.undo()
+    assert calls[0] == (3, 4, 4)
+    assert len(calls) == int(res.iters.max()) + 1
+    assert set(calls[1:]) == {(3, 12, 12)}
+    for r in range(3):
+        v = res.X[r, :, 0].double().numpy()
+        for lam, x in ((singles[r].lam[0], singles[r].X[:, 0]),
+                       (jres.lam[r, 0], jres.X[r, :, 0])):
+            np.testing.assert_allclose(float(res.lam[r, 0]), float(lam),
+                                       rtol=1e-4)
+            x = np.asarray(x, np.float64)
+            cos = abs(v @ x) / (np.linalg.norm(v) * np.linalg.norm(x))
+            assert cos >= 1 - 1e-4, (r, cos)
+    if prec == "f64":  # f32 may stop earlier, at its own floor
+        assert res.iters.tolist() == [6, 6, 6]
+        assert [int(i) for i in jres.iters] == [6, 6, 6]
+
+
+def test_fiedler_pair_lanes_batches_its_eigensolves(monkeypatch):
+    """GreedyEig's trial chunk (utils.fiedler.fiedler_pair_lanes: R graphs
+    that each add one edge, as one TRACEMIN over lanes) hands sym_eig one
+    (R, 4, 4) batch at the entry and one (R, 12, 12) batch an outer
+    iteration, and no matrix to torch.linalg.eigh."""
+    from chip_smoke import chain_instance
+    from mac_tpu_torch.solvers import GreedyEig
+
+    fixed, cands = chain_instance(600, 300, 5)
+    g = GreedyEig(fixed, cands, 600, device="cpu")
+    x = np.zeros(len(cands))
+    x[:100] = 1.0
+    _, X = g._eval(x, g._X0)
+    calls = _lane_calls(monkeypatch)
+    lams, Xs = g._eval_chunk(x, np.arange(100, 108), X)
+    monkeypatch.undo()
+    assert lams.shape == (8,) and np.all(np.isfinite(lams))
+    assert calls[0] == (8, 4, 4) and len(calls) >= 2
+    assert set(calls[1:]) == {(8, 12, 12)}
+
+
+@pytest.mark.parametrize("q, device, refused", [
+    (10, "cuda", False), (11, "cuda", True), (11, "cpu", False)])
+def test_check_block_refuses_rayleigh_ritz_past_the_kernel(q, device,
+                                                           refused):
+    """A TRACEMIN block of q columns needs 3q x 3q eigensolves: on a CUDA
+    device q past MAX_K // 3 = 10 is refused, on the CPU any q runs."""
+    from mac_tpu_torch.ops.kernels.syev import check_block
+
+    if refused:
+        with pytest.raises(ValueError, match="at most 10"):
+            check_block(q, torch.device(device))
+    else:
+        check_block(q, torch.device(device))
+
+
+def test_mac_refuses_a_block_past_the_kernel_on_cuda(monkeypatch):
+    """MAC(fiedler_block_q=11) raises as it is built when its device is a
+    CUDA device, before anything is placed there; on the CPU it builds."""
+    from chip_smoke import chain_instance
+    from mac_tpu_torch.solvers import MAC
+    from mac_tpu_torch.solvers import mac as mac_module
+
+    fixed, cands = chain_instance(40, 20, 3)
+    assert MAC(fixed, cands, 40, fiedler_block_q=11, device="cpu")._q == 11
+    monkeypatch.setattr(mac_module, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(ValueError, match="at most 10"):
+        MAC(fixed, cands, 40, fiedler_block_q=11)
+
+
+def _fake_nvcc(tmp_path, report):
+    """A stand-in for nvcc that writes an empty library to its -o argument,
+    prints `report` on stderr as ptxas -v would, and logs each run."""
+    import sys
+
+    (tmp_path / "report.txt").write_text(report)
+    script = tmp_path / "nvcc"
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import pathlib, sys\n"
+        "here = pathlib.Path(__file__).parent\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "pathlib.Path(out).write_bytes(b'')\n"
+        "with open(here / 'runs.txt', 'a') as f:\n"
+        "    f.write('run\\n')\n"
+        "sys.stderr.write((here / 'report.txt').read_text())\n")
+    script.chmod(0o755)
+    return script
+
+
+def _ptxas_report(frames):
+    """A ptxas -v report of K4's instantiations {(type letter, m): (stack,
+    spill stores, spill loads)}."""
+    out = []
+    for (t, m), (stack, st, ld) in frames.items():
+        name = f"_ZN12_GLOBAL__N_114sym_eig_kernelI{t}Li{m}EEEvPKT_PS1_S4_ii"
+        out += [f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'",
+                f"ptxas info    : Function properties for {name}",
+                f"    {stack} bytes stack frame, {st} bytes spill stores, "
+                f"{ld} bytes spill loads",
+                "ptxas info    : Used 40 registers, used 0 barriers"]
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_k4_frame_gate_reads_the_report_kept_beside_the_library(
+        tmp_path, monkeypatch, spill):
+    """chip_smoke.py's phase-2 gate on K4's stack frames and spills reads
+    nvcc's report kept beside the library (_build.ptxas_log), so it judges
+    a library built by an earlier process as it judged the build: nvcc runs
+    once, the gate twice, the second time with an empty build_log, and a
+    spill at m = 12 fails both times."""
+    import chip_smoke
+    from mac_tpu_torch.ops.kernels import _build
+
+    frames = {(t, m): (0, 0, 0) for t in "fd" for m in (4, 12, 24)}
+    frames[("d", 24)] = (512, 512, 512)
+    if spill:
+        frames[("f", 12)] = (8, 8, 8)
+    nvcc = _fake_nvcc(tmp_path, _ptxas_report(frames))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_log", [])
+    for turn in range(2):
+        if turn:
+            monkeypatch.setattr(_build, "build_log", [])  # a new process
+        if spill:
+            with pytest.raises(SystemExit):
+                chip_smoke.k4_frame_gate(_build.ptxas_log("syev"))
+        else:
+            regs = chip_smoke.k4_frame_gate(_build.ptxas_log("syev"))
+            assert regs[("float64", 24)] == (40, 512, 512, 512)
+            assert regs[("float32", 12)] == (40, 0, 0, 0)
+    assert (tmp_path / "runs.txt").read_text() == "run\n"
+    assert _build.report_path("syev").exists()
