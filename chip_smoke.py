@@ -11,8 +11,10 @@ its wall time printed:
      one nvcc process per source, all started together; print K4's
      registers, stack frame and spills for each instantiation (ptxas's
      report, kept beside the library, so a library built by an earlier run
-     is held to the same gate), and fail unless its m = 4 and m = 12 instantiations, float32 and float64,
-     have a 0-byte stack frame and no spills;
+     is held to the same gate), and fail unless its m = 4 and m = 12
+     instantiations, float32 and float64, have a 0-byte stack frame and no
+     spills; the same gate for ldl.cu's kernels that hold rows in
+     registers (K3 up to 4096 rows, K3b's chain), both types;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time it:
        tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4),
@@ -50,14 +52,27 @@ its wall time printed:
      to its plain version on city10000's chain at its start weights (n
      10000, block 128, as banded.chain_factor hands it over), the n =
      100000 two-grid chain (block 1024), a chain of 100003 rows (a partial
-     last segment), city10000's 8 budget lanes and phase 8b's 2, in
-     float32 and float64; tridiag_ldl (K3) on sphere2500's chain, n =
-     32768 and 40000 and city10000's 8 lanes, within one ulp of its plain
-     doubling scan in float32 and, in float64, within 1e-13 relative of an
-     extended-precision referee (pivot_referee) and of the plain scan
-     within that plus the scan's own distance from the referee;
-     tridiag_solve(d, e, B) at n = 40000 through one K3 launch; each timed
-     (device, call, plain call, bound, the dependent chain's length);
+     last segment), city10000's 8 budget lanes and phase 8b's 2, one, two
+     and 17 rows, a segment shorter than its block, segments that end
+     inside a ring slot (block 100 and 33, the last of 125 segments
+     ragged) and one chain shared by 3 lanes (lane stride 0), in float32
+     and float64; tridiag_ldl (K3) on sphere2500's chain, n = 32768 and
+     40000, city10000's 8 lanes, one, two and 17 rows, and 4096 and 4097
+     (the largest chain it keeps in registers, the smallest it stages),
+     within one ulp of its plain doubling scan in float32 and, in float64,
+     within 1e-13 relative of an extended-precision referee
+     (pivot_referee) and of the plain scan within that plus the scan's own
+     distance from the referee; K3's range (scaled_factor_check): the
+     float64 sphere2500 chain and 4097 rows scaled by 2^400 and 2^-400,
+     K3 within the referee and the unscaled factor scaled alike bit for
+     bit, K3b bitwise; tridiag_solve(d, e, B) at n = 40000
+     through one K3 launch; the chain probe (ldl_step_ns: one step of
+     K3b's pivot chain and of K3's carry, alone on one thread) and each
+     kernel's phases (ldl_phases: clock64() stamps of its first block)
+     at the main paths' shapes; each kernel timed (device, call, plain
+     call, and its bound: the chain bound, the steps of the shortest
+     dependent chain that its method needs times the probe's step, with
+     the kernel's own chain and the byte / operation bound beside it);
   3e. sym_eig (K4) on TRACEMIN's Rayleigh-Ritz matrices of city10000's
      tables at its start weights (the 4 x 4 of the entry, the 12 x 12 of an
      outer iteration, float32 and float64 coefficients), a batch of them,
@@ -240,7 +255,15 @@ time (library_ms), and the least time the card could take, bound_ms; one
 entry per lane shape, its launches those with that many lanes in phase 8;
 one entry per float64 kernel, "dtype": "float64", its launches those of
 its phase-10 path; K3 and K3b with "replaces" naming the JAX scan they
-stand for and "chain_steps" the length of their dependent chain; K4 one
+stand for, "chain_steps" the length of the kernel's dependent chain,
+"bound_steps" that of the shortest chain its method needs (K3b: block;
+K3: its chunk walks and carry at the chunk length that makes them
+shortest), "chain_step_ns" one step timed by ldl.cu's probe, "bound_ms"
+the larger of the chain bound (bound_steps x chain_step_ns) and the
+byte / operation bound
+("ops_bound_ms", "ops_bound_by"), "bound_by" "chain" where the chain's
+is larger, and "launch_floor_ms" the probe's device time at 0 steps in the
+entry's type; K4 one
 entry per shape and dtype, "replaces" the jnp.linalg.eigh line it stands
 for, "launches" those of its dtype on phase 4's path (float32) or phase
 5's (float64 coefficients), and of its lane count in phase 8a (8 lanes)
@@ -686,27 +709,74 @@ def factor_check(kern, plain, args, label, exact):
     return err
 
 
-def factor_times(kern, plain, args, label, steps, card):
+def scaled_factor_check(args, power, label):
+    """K3's range: the float64 chain args = (d, e) scaled by 2^power (its
+    e^2 by 2^(2 power)). K3 within F64_FACTOR_RTOL relative of
+    pivot_referee, and bit for bit the unscaled chain's factor with dp
+    scaled by 2^power (ldl.cu scales every chain by its max(d) and back);
+    the plain doubling scan is left out, its products of two maps leave
+    the range there. K3b at block 128 bit for bit its plain version."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import ldl
+
+    d1, e1 = args[0].double(), args[1].double()
+    d, e = d1 * 2.0 ** power, e1 * 2.0 ** power
+    dp, l = ldl.tridiag_ldl(d, e)
+    dp1, l1 = ldl.tridiag_ldl(d1, e1)
+    bdp, bl = ldl.tridiag_ldl_blocked(d, e, 128)
+    pdp, pl = ldl.tridiag_ldl_blocked_plain(d, e, 128)
+    torch.cuda.synchronize()
+    ref = pivot_referee(d, e)
+    rel = max(float(np.max(np.abs(a.cpu().numpy().astype(np.longdouble) - r)
+                           / np.maximum(np.abs(r), 1e-300)))
+              for a, r in ((dp, ref[0][0]), (l, ref[1][0])))
+    same = (torch.equal(dp, dp1 * 2.0 ** power) and torch.equal(l, l1))
+    k3b_same = torch.equal(bdp, pdp) and torch.equal(bl, pl)
+    ok = rel <= F64_FACTOR_RTOL and same and k3b_same
+    print(f"K3, K3b float64 on {label} scaled by 2^{power}: K3 max rel to the "
+          f"extended-precision referee {rel:.3e}, "
+          f"{'bit for bit' if same else 'NOT'} the unscaled factor scaled; "
+          f"K3b {'bitwise equal' if k3b_same else 'MISMATCH'} -> "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"K3 or K3b on {label} scaled by 2^{power}")
+
+
+def factor_times(kern, plain, args, label, steps, bound_steps, step_ns,
+                 card):
     """Device, call and plain times of one factorisation on args = (d,
-    e[, block]), its bound (d, e read once, dp, l written once; 5 float64
-    operations a row for K3b, 11 for K3, at the float64 peak) and its
-    dependent chain `steps` long, with the device time per step."""
+    e[, block]) and its bound: the larger of the chain bound ("chain"), the
+    shortest dependent chain that the method needs (`bound_steps` long)
+    times step_ns, one step of that chain timed alone (ldl_step_ns), and
+    the byte / operation bound printed beside it (d, e read once, dp, l
+    written once; 5 float64 operations a row for K3b, 11 for K3, at the
+    float64 peak); with the kernel's own chain (`steps`) and its device
+    time per step."""
     d = args[0]
     lanes = d.shape[0] if d.dim() == 2 else 1
     n = d.shape[-1]
     tm = {"device_ms": device_ms(lambda: kern(*args)),
           "call_ms": call_ms(lambda: kern(*args)),
           "plain_ms": call_ms(lambda: plain(*args), reps=10, warmup=1),
-          "chain_steps": steps}
-    tm["bound_ms"], tm["bound_by"] = bound(
+          "chain_steps": steps, "bound_steps": bound_steps,
+          "chain_step_ns": step_ns}
+    tm["ops_bound_ms"], tm["ops_bound_by"] = bound(
         d.element_size() * lanes * (4 * n - 1),
         lanes * n * (5 if len(args) == 3 else 11), 8)
+    tm["bound_ms"], tm["bound_by"] = max(
+        (1e-6 * bound_steps * step_ns, "chain"),
+        (tm["ops_bound_ms"], tm["ops_bound_by"]))
     tm["ns_per_step"] = 1e6 * tm["device_ms"] / steps
     print(f"{kern.__name__} time at {label}: kernel device "
           f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, plain "
           f"call {tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
-          f"({tm['bound_by']}); dependent chain {steps} steps, "
-          f"{tm['ns_per_step']:.1f} ns a step ({card})", flush=True)
+          f"({tm['bound_by']}: {bound_steps} dependent steps of "
+          f"{step_ns:.2f} ns; {tm['ops_bound_by']} {tm['ops_bound_ms']:.2e} "
+          f"ms); the kernel's chain {steps} steps, {tm['ns_per_step']:.1f} "
+          f"ns a step; device / bound "
+          f"{tm['device_ms'] / tm['bound_ms']:.2f} ({card})", flush=True)
     return tm
 
 
@@ -882,6 +952,39 @@ def k4_frame_gate(log: str):
     return regs
 
 
+def ldl_instances(log: str):
+    """{(kernel, dtype name, rows): (registers, stack bytes, spill stores,
+    spill loads)} of ldl.cu's unstamped kernels in a ptxas report: K3's
+    ldl_kernel<T, rows, false> (rows 16: the chunks in registers, 0: the
+    staged tiles) and K3b's ldl_blocked_kernel<T, false> (rows None)."""
+    import re
+
+    got = {}
+    for fn, *rest in ptxas_report(log):
+        m = re.search(r"ldl_kernelI([fd])Li(\d+)ELb0E", fn)
+        b = re.search(r"ldl_blocked_kernelI([fd])Lb0E", fn)
+        if m:
+            got[("K3", {"f": "float32", "d": "float64"}[m.group(1)],
+                 int(m.group(2)))] = tuple(rest)
+        elif b:
+            got[("K3b", {"f": "float32", "d": "float64"}[b.group(1)],
+                 None)] = tuple(rest)
+    return got
+
+
+def ldl_frame_gate(log: str):
+    """ldl_instances(log), failing unless the kernels that hold rows in
+    registers (K3's 16-row path, K3b's chain), float32 and float64, have a
+    0-byte stack frame and no spills."""
+    regs = ldl_instances(log)
+    for key in (("K3", "float32", 16), ("K3", "float64", 16),
+                ("K3b", "float32", None), ("K3b", "float64", None)):
+        if key not in regs or regs[key][1:] != (0, 0, 0):
+            fail(f"ldl.cu {key}: want a 0-byte stack frame and no spills, "
+                 f"got {regs.get(key)}")
+    return regs
+
+
 def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
     """Device milliseconds of one round of K4's irreducible chain: the
     parameter arithmetic (two hypot, three IEEE divisions) and one
@@ -911,6 +1014,65 @@ def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
     if not bool(torch.isfinite(out).all()):
         fail("K4's round probe left a non-finite value")
     return (t[1] - t[0]) / (rounds[1] - rounds[0])
+
+
+# What ldl.cu's phase stamps measure (clk[1:]), per kernel and, for K3,
+# per path (clk[13]: 1 the chunks in registers, 0 the staged tiles).
+LDL_PHASES = {
+    ("tridiag_ldl_blocked", 0): (
+        "finishers' lane max", "chain", "chain's waits for its rows",
+        "finishers' waits for the chain's pivots",
+        "finishers' tail after the chain"),
+    ("tridiag_ldl", 1): ("loads, lane max, step 1", "step 2 (carry)",
+                         "step 3 walk", "divisions, stores"),
+    ("tridiag_ldl", 0): ("lane max", "step 1", "step 2 (carry)", "step 3")}
+
+
+def ldl_step_ns(dtype, steps=(128, 1024)):
+    """One step of K3b's pivot chain ("K3b": __ddiv_rn then __dsub_rn) and
+    of K3's carry ("K3": a 2-vector through a chunk's map, renormalised
+    every 8), on one thread with the operands in registers (ldl.cu's step
+    probe, in the ldl library loaded now): {chain: {"ns": (device_ms at
+    steps[1] - at steps[0]) / their difference, "ns_at": {R: (device_ms
+    at R - the floor) / R}, "cycles": clock64 cycles a step}, "floor_ms":
+    device_ms of the probe at 0 steps}."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import ldl
+
+    out = torch.zeros(2, dtype=torch.float64, device="cuda")
+    floor = device_ms(lambda: ldl.step_probe(dtype, 0, 0, out), reps=20)
+    got = {"floor_ms": floor}
+    for which, chain in ((0, "K3b"), (1, "K3")):
+        t = {R: device_ms(lambda R=R: ldl.step_probe(dtype, R, which, out),
+                          reps=20) for R in steps}
+        ldl.step_probe(dtype, steps[1], which, out)
+        if not bool(torch.isfinite(out).all()):
+            fail(f"the ldl step probe ({chain}) left a non-finite value")
+        got[chain] = {
+            "ns": 1e6 * (t[steps[1]] - t[steps[0]]) / (steps[1] - steps[0]),
+            "ns_at": {R: 1e6 * (t[R] - floor) / R for R in steps},
+            "cycles": float(out[1]) / steps[1]}
+    return got
+
+
+def ldl_phases(name, args):
+    """[(phase, cycles, ns)] of one launch of K3 (name "tridiag_ldl", args
+    (d, e)) or K3b ("tridiag_ldl_blocked", (d, e, block)) in the build that
+    stamps its phases (ldl.phases; LDL_PHASES names them), then ("whole",
+    cycles, ns) of the launch: thread 0 of the first block, cycles by
+    clock64(), ns by the kernel's %globaltimer span over its cycles; the
+    second of two launches."""
+    from mac_tpu_torch.ops.kernels import ldl
+
+    block = args[2] if len(args) == 3 else None
+    for _ in range(2):
+        clk = ldl.phases(args[0], args[1], block)[2].cpu().tolist()
+    m, total, ns = clk[0], clk[14], clk[15]
+    scale = ns / max(total, 1)
+    rows = [(LDL_PHASES[name, clk[13]][i], clk[1 + i], scale * clk[1 + i])
+            for i in range(m)]
+    return rows + [("whole", total, ns)]
 
 
 def kernels_ms(fn, reps: int = 20) -> float:
@@ -2624,8 +2786,8 @@ def main():
     from mac_tpu_torch.utils.fiedler import scipy_lam2
 
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}; tf32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
@@ -2650,6 +2812,13 @@ def main():
           "spill loads): " + ", ".join(
               f"{dt_} m {m_}: {v_}" for (dt_, m_), v_ in sorted(
                   k4_regs.items())), flush=True)
+    # K3 (up to 4096 rows) and K3b keep rows in registers: the same gate.
+    ldl_regs = ldl_frame_gate(_build.ptxas_log("ldl"))
+    print("ldl.cu kernels (registers, stack frame bytes, spill stores, "
+          "spill loads): " + ", ".join(
+              f"{k_} {dt_}" + (f" rows {r_}" if r_ is not None else "")
+              + f": {v_}" for (k_, dt_, r_), v_ in sorted(
+                  ldl_regs.items(), key=str)), flush=True)
 
     # ---- 3. kernels against their plain versions on the card
     phase("3 K1, K2 against their plain versions")
@@ -2961,26 +3130,47 @@ def main():
              f"{tuple(city8_args[0].shape)}")
     d52l = d52 + 100 * torch.finfo(f32).eps * d52.amax(dim=-1, keepdim=True)
     rng = np.random.RandomState(3)
+
+    def random_chain(rows):
+        """A diagonally dominant float32 chain of `rows` rows on the card."""
+        e_ = -(0.5 + rng.rand(rows - 1))
+        d_ = (0.1 + rng.rand(rows) - np.concatenate([[0], e_])
+              - np.concatenate([e_, [0]]))
+        return (torch.as_tensor(d_, dtype=f32, device=dev),
+                torch.as_tensor(e_, dtype=f32, device=dev))
+
     n_r = SCALE_N + 3  # 97 segments of 1024 and a last one of 675 rows
-    e_r = -(0.5 + rng.rand(n_r - 1))
-    d_r = (0.1 + rng.rand(n_r) - np.concatenate([[0], e_r])
-           - np.concatenate([e_r, [0]]))
-    d_r = torch.as_tensor(d_r, dtype=f32, device=dev)
-    e_r = torch.as_tensor(e_r, dtype=f32, device=dev)
+    d_r, e_r = random_chain(n_r)
+    small = {rows: random_chain(rows) for rows in (1, 2, 17, 4096, 4097)}
     k3b_cases = [
         ("city10000's chain at its start weights, block 128", city_args),
         (f"the n = {SCALE_N} two-grid chain, block 1024", (d5, e5, 1024)),
         (f"a chain of {n_r} rows, block 1024 (a partial last segment)",
          (d_r, e_r, 1024)),
         ("city10000's 8 budget lanes (phase 8a), block 128", city8_args),
-        ("phase 8b's 2 budget lanes, block 1024", (d52l, e52, 1024))]
+        ("phase 8b's 2 budget lanes, block 1024", (d52l, e52, 1024)),
+        ("one row, block 128", (*small[1], 128)),
+        ("two rows, block 128", (*small[2], 128)),
+        ("17 rows, block 128", (*small[17], 128)),
+        ("17 rows, block 1024 (one segment shorter than its block)",
+         (*small[17], 1024)),
+        ("city10000's chain, block 100 (segments that end inside a ring "
+         "slot, 4 blocks of 32 segments)", (*city_args[:2], 100)),
+        ("4097 rows, block 33 (125 segments; a ragged last one of 5 rows)",
+         (*small[4097], 33)),
+        ("city10000's chain shared by 3 lanes (lane stride 0), block 128",
+         (city_args[0].expand(3, -1), city_args[1].expand(3, -1), 128))]
     k3_cases = [
         ("sphere2500's chain at its start weights", sphere_args),
         (f"the n = {SCALE_N} chain's first 32768 rows (the auto route's "
          "largest n)", (d5[:32768], e5[:32767])),
         (f"the n = {SCALE_N} chain's first 40000 rows", (d5[:40000],
                                                         e5[:39999])),
-        ("city10000's 8 budget lanes", city8_args[:2])]
+        ("city10000's 8 budget lanes", city8_args[:2]),
+        ("one row", small[1]), ("two rows", small[2]),
+        ("17 rows", small[17]),
+        ("4096 rows (the largest in registers)", small[4096]),
+        ("4097 rows (the smallest staged)", small[4097])]
     k3b_err, k3_err = {}, {}
     for dtype in (f32, f64):
         key = str(dtype).split(".")[-1]
@@ -2990,6 +3180,10 @@ def main():
         k3_err[key] = max(factor_check(
             k3, k3_plain, (a[0].to(dtype), a[1].to(dtype)), lbl, exact=True)
             for lbl, a in k3_cases)
+    for power in (400, -400):
+        scaled_factor_check(sphere_args, power,
+                            "sphere2500's chain (in registers)")
+        scaled_factor_check(small[4097], power, "4097 rows (staged)")
     # n = 40000 through tridiag_solve(d, e, B): one K3 launch, then a solve.
     from mac_tpu_torch.ops.tridiag import tridiag_solve as solve_de
 
@@ -3003,37 +3197,85 @@ def main():
              "K3 launches, or a non-finite solve")
     print(f"tridiag_solve(d, e, B) at n = 40000: one K3 launch, finite X",
           flush=True)
+    f64_of = lambda a: (a[0].double(), a[1].double(), *a[2:])  # noqa: E731
+    # One step of each kernel's chain alone (ldl.cu's one-thread probe), and
+    # each kernel's phases at the main paths' shapes (clock64() stamps).
+    ldl_step = {dt_: ldl_step_ns(dt_) for dt_ in (f32, f64)}
+    print(f"ldl chain probe (one thread, operands in registers; device_ms "
+          f"at 1024 steps less at 128, over 896): K3b's pivot step float32 "
+          f"{ldl_step[f32]['K3b']['ns']:.2f} ns, float64 "
+          f"{ldl_step[f64]['K3b']['ns']:.2f} ns; K3's carry step float32 "
+          f"{ldl_step[f32]['K3']['ns']:.2f} ns, float64 "
+          f"{ldl_step[f64]['K3']['ns']:.2f} ns; at 128 and 1024 steps less "
+          f"the probe's floor ({ldl_step[f32]['floor_ms']:.5f} ms): " + ", ".join(
+              f"{chain} {str(dt_)[6:]} {ldl_step[dt_][chain]['ns_at'][128]:.2f}"
+              f" / {ldl_step[dt_][chain]['ns_at'][1024]:.2f} ns"
+              for dt_ in (f32, f64) for chain in ("K3b", "K3"))
+          + f"; K3b's step {ldl_step[f32]['K3b']['cycles']:.1f} cycles "
+          f"({card})", flush=True)
+    for label, factor, args in (
+            ("K3b city10000 (10000,), block 128", "tridiag_ldl_blocked",
+             city_args),
+            ("K3b float64 city10000, block 128", "tridiag_ldl_blocked",
+             f64_of(city_args)),
+            (f"K3b ({SCALE_N},), block 1024", "tridiag_ldl_blocked",
+             (d5, e5, 1024)),
+            ("K3b city10000's 8 lanes, block 128", "tridiag_ldl_blocked",
+             city8_args),
+            ("K3 sphere2500 (2500,)", "tridiag_ldl", sphere_args),
+            ("K3 float64 sphere2500", "tridiag_ldl", f64_of(sphere_args)),
+            ("K3 (32768,)", "tridiag_ldl", (d5[:32768], e5[:32767]))):
+        print(f"{factor} phases at {label} (first block, thread 0's clock64()):"
+              + ", ".join(f" {ph} {cyc} cycles {ns / 1e3:.3f} us"
+                          for ph, cyc, ns in ldl_phases(factor, args))
+              + f" ({card})", flush=True)
+
     # The times at the main paths' shapes and their dependent chains: K3b's
-    # is `block` divisions; K3's its chunks' rows (256 chunks at a time)
-    # twice around a serial pass over the chunks (ldl.cu's chunking).
+    # is `block` pivot steps. K3's method walks chunks of c rows (256 chunks
+    # at a time, at most 1024 chunks) twice around a serial pass over the
+    # chunks, each a carry step: the kernel's own chain at its chunking
+    # (at least 16 rows a chunk, ldl.cu), and the bound's at the c that
+    # makes it shortest, which no chunking of the kernel's can beat.
+    def k3_chain(rows, c):
+        nseg = -(-rows // c)
+        return 2 * c * -(-nseg // 256) + nseg
+
     def k3_steps(args):
         rows = args[0].shape[-1]
-        chunk = -(-rows // min(1024, -(-rows // 16)))
-        nseg = -(-rows // chunk)
-        return 2 * chunk * -(-nseg // 256) + nseg
+        return k3_chain(rows, -(-rows // min(1024, -(-rows // 16))))
 
-    f64_of = lambda a: (a[0].double(), a[1].double(), *a[2:])  # noqa: E731
+    def k3_bound_steps(args):
+        rows = args[0].shape[-1]
+        return min(k3_chain(rows, c) for c in range(1, rows + 1)
+                   if -(-rows // c) <= 1024)
+
     factor_tm = {}
-    for key, kern, plain, args, label, steps in (
+    for key, kern, plain, args, label in (
             ("K3b", k3b, k3b_plain, city_args,
-             "city10000's chain (10000,), block 128", 128),
+             "city10000's chain (10000,), block 128"),
             ("K3b_scale", k3b, k3b_plain, (d5, e5, 1024),
-             f"the two-grid chain ({SCALE_N},), block 1024", 1024),
+             f"the two-grid chain ({SCALE_N},), block 1024"),
             ("K3b_lanes8", k3b, k3b_plain, city8_args,
-             "city10000's 8 lanes (8, 10000), block 128", 128),
+             "city10000's 8 lanes (8, 10000), block 128"),
             ("K3b_lanes2", k3b, k3b_plain, (d52l, e52, 1024),
-             f"phase 8b's 2 lanes (2, {SCALE_N}), block 1024", 1024),
-            ("K3", k3, k3_plain, sphere_args, "sphere2500's chain (2500,)",
-             k3_steps(sphere_args)),
+             f"phase 8b's 2 lanes (2, {SCALE_N}), block 1024"),
+            ("K3", k3, k3_plain, sphere_args, "sphere2500's chain (2500,)"),
             ("K3_32768", k3, k3_plain, (d5[:32768], e5[:32767]),
-             "(32768,)", k3_steps((d5[:32768],))),
+             "(32768,)"),
             ("K3_lanes2", k3, k3_plain, sphere2_args,
-             "sphere2500's 2 lanes (2, 2500)", k3_steps(sphere2_args)),
+             "sphere2500's 2 lanes (2, 2500)"),
             ("K3b_f64", k3b, k3b_plain, f64_of(city_args),
-             "city10000's chain in float64, block 128", 128),
+             "city10000's chain in float64, block 128"),
             ("K3_f64", k3, k3_plain, f64_of(sphere_args),
-             "sphere2500's chain in float64", k3_steps(sphere_args))):
-        factor_tm[key] = factor_times(kern, plain, args, label, steps, card)
+             "sphere2500's chain in float64")):
+        steps, bound_steps = ((args[2], args[2]) if kern is k3b
+                              else (k3_steps(args), k3_bound_steps(args)))
+        factor_tm[key] = factor_times(
+            kern, plain, args, label, steps, bound_steps,
+            ldl_step[args[0].dtype]["K3b" if kern is k3b else "K3"]["ns"],
+            card)
+        factor_tm[key]["launch_floor_ms"] = ldl_step[
+            args[0].dtype]["floor_ms"]
         factor_tm[key]["max_abs_err"] = (
             k3b_err if kern is k3b else k3_err)[
                 "float64" if key.endswith("f64") else "float32"]
@@ -3491,7 +3733,12 @@ def main():
                 "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": None,
-                "chain_steps": tm["chain_steps"], **more}
+                "chain_steps": tm["chain_steps"],
+                "bound_steps": tm["bound_steps"],
+                "chain_step_ns": tm["chain_step_ns"],
+                "ops_bound_ms": tm["ops_bound_ms"],
+                "ops_bound_by": tm["ops_bound_by"],
+                "launch_floor_ms": tm["launch_floor_ms"], **more}
 
     # K4 stands for jnp.linalg.eigh: "library_ms" is torch.linalg.eigh's
     # device time (kernels_ms), "library_call_ms" its call time; bound_ms
@@ -3625,7 +3872,7 @@ def main():
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -25,11 +25,15 @@ paths' shapes (chip_smoke.py's):
      q 32) and at (1024, 1), the smallest launch its wrapper can make (the
      launch floor of this way of timing); where the older directory holds
      ldl.cu, K3b tridiag_ldl_blocked at city10000's chain factor (block
-     128, float32 and float64) and the n = 100000 two-grid chain (block
-     1024), and K3 tridiag_ldl at sphere2500's (float32 and float64) and at
-     32768 rows: each with its device time
+     128, float32 and float64), the n = 100000 two-grid chain (block
+     1024) and the sweeps' lanes (8, 10000) and (2, 100000), and K3
+     tridiag_ldl at sphere2500's (float32 and float64) and at 32768 rows:
+     each with its device time
      (chip_smoke.device_ms), the time of one call with its host work
-     (chip_smoke.call_ms) and its error against the plain version. Where
+     (chip_smoke.call_ms) and its error against the plain version
+     (K3b bitwise), then the new build's chain probe (one step of K3b's
+     pivot chain and of K3's carry, chip_smoke.ldl_step_ns) and each
+     factor case's phases (chip_smoke.ldl_phases). Where
      the older directory also holds tridiag.py, an older copy of
      mac_tpu_torch/ops/kernels/tridiag.py, the call times of K1 and K1b
      through that module's wrappers stand beside the current wrappers', on
@@ -54,16 +58,18 @@ paths' shapes (chip_smoke.py's):
      the matrix-free path: one warm n = 100000 solve(K, x_init,
      max_iters=10) per turn with its wall and the gap of evaluate_objective
      to the reference library's lambda_2, and once with K1b's plain version
-     in the kernel's place on the card; with syev.cu in the older
-     directory also sphere2500 (MAC(fixed, cands, n)) and the banded
+     in the kernel's place on the card; with syev.cu or ldl.cu in the
+     older directory also sphere2500 (MAC(fixed, cands, n)) and the banded
      float64 city10000 (max_iters=20) per turn. Each version solves with a
      MAC of its own: a solve replays CUDA graphs captured at its first
      call, which hold the kernels of the library loaded then; the solves
      with a plain version in a kernel's place run eagerly
      (chip_smoke.SolvePath("eager")) so that the plain version runs;
   4. one warm solve per version and path under torch.profiler with CUDA
-     activity alone: the device time of K1 and K2b (city10000) and of K1b
-     (n = 100000) in that solve and the whole device busy time.
+     activity alone: the device time of K1, K2b, K4 and K3b (city10000),
+     of K1b, K4 and K3b (n = 100000) and of K3, K1 and K4 (sphere2500,
+     with ldl.cu or syev.cu in the older directory) in that solve and the
+     whole device busy time.
 Each further VARIANT_DIR holds another tridiag.cu (a step of a design, a
 tuning constant edited, a part of the kernel taken out to see what it
 costs): its K1b is timed after the turns of part 1 and its error printed in
@@ -84,7 +90,8 @@ from chip_smoke import (BUNDLED, REFERENCE_LAM2_SCALE,
                         REFERENCE_LAM2_UNROUNDED, SCALE_N, SolvePath, call_ms,
                         card_line, dataset_inputs, device_ms, fail,
                         index_add_assembly, k2_args, k4_instances,
-                        k4_round_ms, kernels_ms, pose_graph, ptxas_report,
+                        k4_round_ms, kernels_ms, ldl_phases, ldl_step_ns,
+                        pose_graph, ptxas_report,
                         rayleigh_ritz_matrices, synthetic)
 
 TURNS = ("old", "new", "new", "old")
@@ -234,6 +241,29 @@ def k4_ab(use, card, bop, w, dev):
           f"matrices", flush=True)
 
 
+def ldl_report(use, card, factor_args):
+    """The new build's chain probe (ns a step of K3b's pivot chain and K3's
+    carry, float32 and float64 instantiations) and each factor case's phase
+    breakdown (ldl.cu's clock64() stamps, chip_smoke.ldl_phases)."""
+    import torch
+
+    use("new")
+    for dt in (torch.float32, torch.float64):
+        got = ldl_step_ns(dt)
+        print(f"ldl step probe {str(dt)[6:]}: floor {got['floor_ms']:.5f} "
+              "ms; " + "; ".join(
+                  f"{chain} {got[chain]['ns']:.2f} ns a step (R 128: "
+                  f"{got[chain]['ns_at'][128]:.2f}, R 1024: "
+                  f"{got[chain]['ns_at'][1024]:.2f} ns less the floor), "
+                  f"{got[chain]['cycles']:.1f} cycles"
+                  for chain in ("K3b", "K3")) + f" ({card})", flush=True)
+    for label, kern, _, args in factor_args:
+        rows = ldl_phases(kern.__name__, args)
+        print(f"phases {label}: " + ", ".join(
+            f"{name} {cyc} cycles {ns / 1e3:.3f} us" for name, cyc, ns in rows)
+            + f" ({card})", flush=True)
+
+
 def main():
     import importlib.util
 
@@ -317,7 +347,7 @@ def main():
          lambda: tridiag_solve_blocked_plain(dp5[:1024], l5[:1024],
                                              B5w[:32].view(1024, 1)), None),
     ]
-    factor_cases = []
+    factor_cases, factor_args = [], ()
     if "ldl" in sigs:
         from chip_smoke import captured_args
 
@@ -331,23 +361,30 @@ def main():
                                    bop_sp, banded.assemble_bd(bop_sp, w_sp),
                                    w_sp))
         d5l = d5 + 100 * torch.finfo(torch.float32).eps * d5.max()
-        for label, kern, plain, args in (
-                ("K3b tridiag_ldl_blocked city10000 (10000,), block 128",
-                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
-                 city),
-                ("K3b tridiag_ldl_blocked float64 city10000, block 128",
-                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
-                 (city[0].double(), city[1].double(), 128)),
-                (f"K3b tridiag_ldl_blocked ({SCALE_N},), block 1024",
-                 ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
-                 (d5l, e5, 1024)),
-                ("K3 tridiag_ldl sphere2500 (2500,)", ldl.tridiag_ldl,
-                 ldl.tridiag_ldl_plain, sphere),
-                ("K3 tridiag_ldl float64 sphere2500", ldl.tridiag_ldl,
-                 ldl.tridiag_ldl_plain,
-                 (sphere[0].double(), sphere[1].double())),
-                ("K3 tridiag_ldl (32768,)", ldl.tridiag_ldl,
-                 ldl.tridiag_ldl_plain, (d5l[:32768], e5[:32767]))):
+        factor_args = (
+            ("K3b tridiag_ldl_blocked city10000 (10000,), block 128",
+             ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain, city),
+            ("K3b tridiag_ldl_blocked float64 city10000, block 128",
+             ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+             (city[0].double(), city[1].double(), 128)),
+            (f"K3b tridiag_ldl_blocked ({SCALE_N},), block 1024",
+             ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+             (d5l, e5, 1024)),
+            ("K3 tridiag_ldl sphere2500 (2500,)", ldl.tridiag_ldl,
+             ldl.tridiag_ldl_plain, sphere),
+            ("K3 tridiag_ldl float64 sphere2500", ldl.tridiag_ldl,
+             ldl.tridiag_ldl_plain,
+             (sphere[0].double(), sphere[1].double())),
+            ("K3 tridiag_ldl (32768,)", ldl.tridiag_ldl,
+             ldl.tridiag_ldl_plain, (d5l[:32768], e5[:32767])),
+            ("K3b tridiag_ldl_blocked lanes (8, 10000), block 128",
+             ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+             (torch.stack([city[0] * (1 + 0.01 * r) for r in range(8)]),
+              city[1].expand(8, -1), 128)),
+            (f"K3b tridiag_ldl_blocked lanes (2, {SCALE_N}), block 1024",
+             ldl.tridiag_ldl_blocked, ldl.tridiag_ldl_blocked_plain,
+             (torch.stack([d5l, d5l * 1.01]), e5.expand(2, -1), 1024)))
+        for label, kern, plain, args in factor_args:
             factor_cases.append((
                 label, lambda kern=kern, args=args: kern(*args),
                 lambda plain=plain, args=args: plain(*args), None))
@@ -401,6 +438,8 @@ def main():
               f"new/old {new / old:.3f}" + "".join(
                   f", {v} {by[v][0]:.5f} ms" for v in variants if v in by)
               + f" ({card})", flush=True)
+    if factor_args:
+        ldl_report(use, card, factor_args)
     if "syev" in sigs:
         k4_ab(use, card, bop, w, dev)
     # The wrappers of an older copy of ops/kernels/tridiag.py, on the new
@@ -535,8 +574,10 @@ def main():
     print(f"K1b's plain version on the card (eager solve), n {SCALE_N} "
           f"solve: relaxed lambda_2 {lam2:.12g}, gap {gap:+.4e}", flush=True)
 
-    # K4's other cells: sphere2500 and the banded float64 city10000.
-    if "syev" in sigs:
+    # K4's and K3's other cells: sphere2500 (K3, the exact factor) and the
+    # banded float64 city10000 (K3b float64).
+    cells = {}
+    if "syev" in sigs or "ldl" in sigs:
         from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
                                                    split_edges)
         from mac_tpu_torch.solvers import NaiveGreedy
@@ -569,12 +610,14 @@ def main():
                       f"{(lam2 - ref) / ref:+.4e} ({card})", flush=True)
 
     # ---- 4. the device time of the kernels in one profiled warm solve
+    k3_key = lambda nm: "ldl_kernel" in nm  # noqa: E731
+    k3b_key = lambda nm: "ldl_blocked_kernel" in nm  # noqa: E731
     k1_keys = {"K1": lambda nm: ("tridiag_solve_kernel" in nm
                                  and "blocked" not in nm),
                "K2b": lambda nm: "assemble_ut_kernel" in nm,
-               "K4": lambda nm: "sym_eig_kernel" in nm}
+               "K4": lambda nm: "sym_eig_kernel" in nm, "K3b": k3b_key}
     k1b_keys = {"K1b": lambda nm: "tridiag_solve_blocked_kernel" in nm,
-                "K4": lambda nm: "sym_eig_kernel" in nm}
+                "K4": lambda nm: "sym_eig_kernel" in nm, "K3b": k3b_key}
     for version in ("old", "new"):
         use(version)
         t1, t2 = tridiag_solve.launches, assemble_ut.launches
@@ -587,8 +630,9 @@ def main():
               f"(wrapper counted {tridiag_solve.launches - t1}); K2b "
               f"{sums['K2b'][0] / 1e3:.3f} ms over {sums['K2b'][1]} launches "
               f"(wrapper counted {assemble_ut.launches - t2}); K4 "
-              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches "
-              f"({card})", flush=True)
+              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches; "
+              f"K3b {sums['K3b'][0] / 1e3:.3f} ms over {sums['K3b'][1]} "
+              f"launches ({card})", flush=True)
     for version in ("old", "new"):
         use(version)
         t1 = tridiag_solve_blocked.launches
@@ -599,8 +643,21 @@ def main():
               f"{sums['busy'][1]} kernels and copies; K1b "
               f"{sums['K1b'][0] / 1e3:.3f} ms over {sums['K1b'][1]} launches "
               f"(wrapper counted {tridiag_solve_blocked.launches - t1}); K4 "
-              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches "
-              f"({card})", flush=True)
+              f"{sums['K4'][0] / 1e3:.3f} ms over {sums['K4'][1]} launches; "
+              f"K3b {sums['K3b'][0] / 1e3:.3f} ms over {sums['K3b'][1]} "
+              f"launches ({card})", flush=True)
+    if "sphere2500" in cells:  # K3's cell
+        ms, run, _ = cells["sphere2500"]
+        for version in ("old", "new"):
+            use(version)
+            _, sums = device_profile(
+                lambda: timed_solve(lambda: run(ms[version])),
+                {"K3": k3_key, "K1": k1_keys["K1"], "K4": k1_keys["K4"]})
+            print(f"{version} sphere2500 warm solve profiled: device busy "
+                  f"{sums['busy'][0] / 1e3:.2f} ms over {sums['busy'][1]} "
+                  f"kernels and copies; K3 {sums['K3'][0] / 1e3:.3f} ms over "
+                  f"{sums['K3'][1]} launches; K1 {sums['K1'][0] / 1e3:.3f} ms;"
+                  f" K4 {sums['K4'][0] / 1e3:.3f} ms ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,12 @@ chain shared by every lane, is taken as it is) and runs its plain PyTorch
 version (`*_plain`) for tensors on the CPU, and counts its launches in
 `.launches`, `.launches_by_lanes` and `.launches_by_dtype`, as the solve
 kernels' wrappers do (mac_tpu_torch.ops.kernels.tridiag).
+
+Two entry points measure the kernels on the card and are not counted:
+`phases` runs K3 or K3b in the build that stamps its phases with
+clock64(), and `step_probe` runs each kernel's dependent chain alone on
+one thread (K3b's pivot step, K3's carry step), whose step times the
+chain's length bound the kernel's time.
 """
 
 import ctypes
@@ -111,11 +117,16 @@ def tridiag_ldl_blocked_plain(d: torch.Tensor, e: torch.Tensor,
 
 _K3_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_longlong]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    f"{fn}_{suffix}": _K3_ARGS + extra
-    for fn, extra in (("tridiag_ldl", [ctypes.c_void_p]),
-                      ("tridiag_ldl_blocked", [ctypes.c_int,
-                                               ctypes.c_void_p]))
+    f"{fn}_{suffix}": args
+    for fn, args in (
+        ("tridiag_ldl", _K3_ARGS + [_PTR]),
+        ("tridiag_ldl_blocked", _K3_ARGS + [_INT, _PTR]),
+        ("tridiag_ldl_phases", _K3_ARGS + [_PTR, _PTR]),
+        ("tridiag_ldl_blocked_phases", _K3_ARGS + [_INT, _PTR, _PTR]),
+        ("tridiag_ldl_step_probe", [_PTR, _INT, _INT, ctypes.c_double,
+                                    ctypes.c_double, _PTR]))
     for suffix in SUFFIX.values()}
 
 
@@ -172,6 +183,41 @@ def _launch(fn: str, d, e, *extra):
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return dp, l
+
+
+def phases(d: torch.Tensor, e: torch.Tensor, block=None):
+    """One launch of K3 (block None) or K3b on CUDA tensors, in the build
+    that stamps its phases: (dp, l, clk), clk (16,) int64 on the card with
+    the first block's clock64() durations (clk[0] their count, clk[1:1 +
+    clk[0]] the durations as csrc/ldl.cu names them, clk[14] the kernel's
+    cycles, clk[15] its nanoseconds). Not counted as a launch: it
+    measures, the paths never call it."""
+    name = "tridiag_ldl" if block is None else "tridiag_ldl_blocked"
+    if not _on_card(name, d, e):
+        raise ValueError(f"{name}: the phase stamps need CUDA tensors")
+    clk = torch.zeros(16, dtype=torch.int64, device=d.device)
+    extra = () if block is None else (min(int(block), 2 ** 31 - 1),)
+    dp, l = _launch(f"{name}_phases_{SUFFIX[d.dtype]}", d, e, *extra,
+                    clk.data_ptr())
+    return dp, l, clk
+
+
+def step_probe(dtype, steps: int, which: int, out: torch.Tensor):
+    """The chains alone on one thread (csrc/ldl.cu's step probe): K3b's
+    pivot step (which 0) or K3's carry step (which 1), `steps` times, on
+    operands (2.5, 1.0) that keep them in the normal range, in the
+    instantiation of dtype's kernels; out, (2,) float64 on the card,
+    receives the chain's last value and the loop's clock64() cycles. Not
+    counted as a launch."""
+    if not out.is_cuda:
+        raise ValueError("tridiag_ldl_step_probe: the probe needs a CUDA "
+                         "tensor")
+    call = _build.function("ldl", f"tridiag_ldl_step_probe_{SUFFIX[dtype]}",
+                           _SIGNATURES)
+    err = _build.launch(call, out.device, out.data_ptr(), int(steps),
+                        int(which), 2.5, 1.0)
+    if err != 0:
+        raise RuntimeError(f"tridiag_ldl_step_probe failed: cudaError {err}")
 
 
 def tridiag_ldl(d: torch.Tensor, e: torch.Tensor):

@@ -688,10 +688,15 @@ def _factor_inputs(n, seed, dev, dtype, lanes=None):
 
 # chip_smoke.py phase 3d's shapes (n, block, lanes): city10000's chain at
 # block 128, the n = 100000 two-grid chain at 1024, a partial last segment,
-# the sweeps' 8 and 2 lanes; and small edges (one row, one segment).
+# the sweeps' 8 and 2 lanes; and small edges (one row, one segment); the
+# chain warp's edges: two and 17 rows, a segment shorter than its block,
+# segments that end inside a 32-row ring slot (block 100, 33), 125
+# segments (four blocks of 32, the last one partial).
 _K3B_CASES = [(10000, 128, None), (100000, 1024, None), (100003, 1024, None),
               (10000, 128, 8), (100000, 1024, 2), (1, 128, None),
-              (129, 128, None), (5, 1024, 3)]
+              (129, 128, None), (5, 1024, 3), (2, 128, None),
+              (17, 128, None), (17, 1024, None), (10000, 100, None),
+              (4097, 33, None), (4097, 33, 3)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -710,10 +715,12 @@ def test_blocked_ldl_kernel_bitwise_equals_plain(dev, n, block, lanes,
 
 
 # Phase 3d's exact shapes: sphere2500's chain length, the auto route's
-# largest n, n = 40000 past it (tridiag_solve(d, e, B)), 8 lanes; and the
-# edges of the 1024-thread row split.
+# largest n, n = 40000 past it (tridiag_solve(d, e, B)), 8 lanes; the
+# edges of the 1024-thread row split; 17 rows, and 4096 and 4097, the
+# largest chain the kernel keeps in registers and the smallest it stages.
 _K3_CASES = [(2500, None), (32768, None), (40000, None), (10000, 8),
-             (1, None), (2, None), (1023, None), (1025, None), (3000, 3)]
+             (1, None), (2, None), (1023, None), (1025, None), (3000, 3),
+             (17, None), (4096, None), (4097, None), (4096, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -736,6 +743,33 @@ def test_exact_ldl_kernel_matches_plain(dev, n, lanes, dtype):
             assert _ulps(got, ref) <= 1
 
 
+@pytest.mark.parametrize("n", [2500, 4097])
+@pytest.mark.parametrize("power", [400, -400])
+def test_ldl_kernels_on_a_chain_scaled_far_from_one(dev, n, power):
+    """A float64 chain scaled by 2^power (e^2 near 2^(2 power)): K3 within
+    F64_FACTOR_RTOL of the extended-precision referee, in registers (2500
+    rows) and staged (4097), and bit for bit the unscaled chain's factor
+    with dp scaled by the same power of two; K3b bit for bit its plain
+    version."""
+    from chip_smoke import F64_FACTOR_RTOL, pivot_referee
+
+    d1, e1 = _factor_inputs(n, n, dev, torch.float64)
+    d, e = d1 * 2.0 ** power, e1 * 2.0 ** power
+    dp, l = ldl.tridiag_ldl(d, e)
+    dp1, l1 = ldl.tridiag_ldl(d1, e1)
+    ref_dp, ref_l = pivot_referee(d, e)
+    torch.cuda.synchronize()
+    for got, ref in ((dp, ref_dp[0]), (l, ref_l[0])):
+        got = got.cpu().numpy().astype(np.longdouble)
+        rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)
+        assert float(rel.max()) <= F64_FACTOR_RTOL, float(rel.max())
+    assert torch.equal(dp, dp1 * 2.0 ** power)
+    assert torch.equal(l, l1)
+    bdp, bl = ldl.tridiag_ldl_blocked(d, e, 128)
+    pdp, pl = ldl.tridiag_ldl_blocked_plain(d, e, 128)
+    assert torch.equal(bdp, pdp) and torch.equal(bl, pl)
+
+
 def test_solve_past_the_scan_limit_factors_on_the_card(dev):
     """tridiag_solve(d, e, B) at n = 40000 factors through K3 (one launch)
     and solves T X = B: the residual within float64 rounding."""
@@ -751,6 +785,33 @@ def test_solve_past_the_scan_limit_factors_on_the_card(dev):
     TX[1:] += e[:, None] * X[:-1]
     TX[:-1] += e[:, None] * X[1:]
     assert float((TX - B).abs().max()) <= 1e-10 * float(B.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ldl_stamped_build_and_chain_probe(dev, dtype):
+    """The kernels with their phase stamps (ldl.phases) return what the
+    kernels return, bit for bit, with every stamp set and not counted as a
+    launch; the chain probe runs both chains and counts their cycles."""
+    for n, block in ((10000, 128), (2500, None), (4097, None)):
+        d, e = _factor_inputs(n, n, dev, dtype)
+        kern = (ldl.tridiag_ldl if block is None
+                else lambda d_, e_: ldl.tridiag_ldl_blocked(d_, e_, block))
+        counts = (ldl.tridiag_ldl.launches, ldl.tridiag_ldl_blocked.launches)
+        dp, l, clk = ldl.phases(d, e, block)
+        assert counts == (ldl.tridiag_ldl.launches,
+                          ldl.tridiag_ldl_blocked.launches)
+        ref_dp, ref_l = kern(d, e)
+        assert torch.equal(dp, ref_dp) and torch.equal(l, ref_l)
+        clk = clk.cpu().tolist()
+        assert clk[0] in (4, 5) and all(c >= 0 for c in clk[1:1 + clk[0]])
+        assert clk[14] > 0 and clk[15] > 0
+    out = torch.zeros(2, dtype=torch.float64, device=dev)
+    for which, want in ((0, 2.0), (1, None)):
+        ldl.step_probe(dtype, 256, which, out)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()) and float(out[1]) > 0
+        if want is not None:
+            assert abs(float(out[0]) - want) < 1e-12
 
 
 def test_ldl_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -6,6 +6,10 @@ the kernels, that every caller on the solvers' routes hands the kernels
 what they take. Inputs are made from seeds with numpy and handed to both
 packages as arrays."""
 
+import math
+import struct
+from fractions import Fraction
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -255,3 +259,234 @@ def test_solver_routes_hand_the_kernels_what_they_take(monkeypatch):
     card.launched.clear()
     mac.solve_sweep([20, 40], max_iters=2)
     assert card.launched and set(card.launched) == {("tridiag_ldl_f32", 2)}
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """a * b + c rounded once, as the card's fma: the exact value in
+    rationals, rounded to the nearest double by float() (math.fma exists
+    from Python 3.13 on; this is exact for finite operands and a result in
+    the normal range, which the cases below keep to)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _renorm(vals, always=False):
+    """ldl.cu's renorm: scale by the power of two that brings the largest
+    magnitude into [1, 2) once it leaves [2^-64, 2^64] (always with
+    always=True); exact."""
+    m = max(abs(v) for v in vals)
+    if (always or m > 2.0 ** 64 or m < 2.0 ** -64) and 0 < m < math.inf:
+        k = 1 - math.frexp(m)[1]
+        return [math.ldexp(v, k) for v in vals]
+    return vals
+
+
+def _out_of_range(vals):
+    """ldl.cu's out_of_range, on the exponent fields: an entry at or past
+    2^64 (or not finite), or every entry below 2^-64 and one of them
+    normal."""
+    ex = max((struct.unpack("<q", struct.pack("<d", v))[0] >> 52) & 0x7ff
+             for v in vals)
+    return ex >= 1023 + 64 or 0 < ex < 1023 - 64
+
+
+def _max_nan(a, b):
+    """ldl.cu's max_nan: NaN wins, else the larger (a when equal)."""
+    if a != a or b != b:
+        return a if a != a else b
+    return b if a < b else a
+
+
+def k3_model(d, e):
+    """K3's float64 arithmetic in the kernel's order (csrc/ldl.cu), on the
+    host: the chain scaled by 2^-k, 2^k <= max(d) < 2^(k+1) (chain_scale),
+    the chunking (up to 1024 chunks of at least 16 rows), step 1's
+    composed maps with their fma placement (compose_row), step 2's serial
+    carry of the minors' vector (carry), step 3's recurrence (recur_row)
+    and its two divisions a row, the pivots scaled back by 2^k and
+    floored; each renormalisation where the kernel makes it: a row's (a
+    group of 8 chunks') range test acted on a row (a chunk) later, every
+    chunk's map normalised at its end, the carry's last partial group left
+    as it is. (dp, l) as float64 arrays. The register and the staged forms
+    of the kernel share this arithmetic."""
+    d = [float(x) for x in d]
+    e = [float(x) for x in e] + [0.0]
+    n = len(d)
+    mx = max(d)
+    k = (min(max(math.frexp(mx)[1] - 1, -1022), 1022)
+         if 0 < mx < math.inf else 0)
+    down, up = 2.0 ** -k, 2.0 ** k
+    nchunk = min(1024, (n - 1) // 16 + 1)
+    chunk = (n - 1) // nchunk + 1
+    nseg = (n - 1) // chunk + 1
+    bounds = [(s * chunk, min(s * chunk + chunk, n)) for s in range(nseg)]
+    maps = []
+    for i0, i1 in bounds:  # 1.
+        q, pending = [1.0, 0.0, 0.0, 1.0], False
+        e_prev = e[i0 - 1] * down if i0 > 0 else 0.0
+        for i in range(i0, i1):
+            e2 = 0.0 if i == 0 else e_prev * e_prev
+            x = d[i] * down
+            q = [_fma(x, q[0], -(e2 * q[2])), _fma(x, q[1], -(e2 * q[3])),
+                 q[0], q[1]]
+            if pending:
+                q = _renorm(q, True)
+            pending = _out_of_range(q)
+            e_prev = e[i] * down
+        maps.append(_renorm(q, True))
+    v0, v1, vin, pending = 1.0, 0.0, [], False  # 2.
+    whole = nseg - nseg % 8
+    for k, (qa, qb, qc, qd) in enumerate(maps):
+        vin.append((v0, v1))
+        v0, v1 = _fma(qa, v0, qb * v1), _fma(qc, v0, qd * v1)
+        if k < whole and k % 8 == 0 and pending:
+            v0, v1 = _renorm([v0, v1], True)
+        if k < whole and k % 8 == 7:
+            pending = _out_of_range([v0, v1])
+    floor = 8 * np.finfo(np.float64).eps * max(d)
+    dp, l = np.empty(n), np.zeros(n)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for (i0, i1), (v0, v1) in zip(bounds, vin):  # 3.
+            e_prev = e[i0 - 1] * down if i0 > 0 else 0.0
+            pending = False
+            for i in range(i0, i1):
+                e2 = 0.0 if i == 0 else e_prev * e_prev
+                v = _fma(d[i] * down, v0, -(e2 * v1))
+                f = _max_nan(float(np.float64(v) / np.float64(v0)) * up,
+                             floor)
+                v0, v1 = v, v0
+                if pending:
+                    v0, v1 = _renorm([v0, v1], True)
+                pending = _out_of_range([v0, v1])
+                dp[i] = f
+                if i + 1 < n:
+                    l[i + 1] = float(np.float64(e[i]) / np.float64(f))
+                e_prev = e[i] * down
+    return dp, l
+
+
+def _sphere2500_chain():
+    """The chain that banded.chain_factor hands the exact factor on
+    sphere2500 at its start weights (data/sphere2500.g2o, K = 50%,
+    NaiveGreedy), as phase 3d of chip_smoke.py takes it, in float64."""
+    from chip_smoke import captured_args, dataset_inputs
+    from mac_tpu_torch.ops import banded
+
+    bop, w = dataset_inputs(torch.device("cpu"), "sphere2500")[6:8]
+    d, e = captured_args(banded, "tridiag_ldl_auto", lambda: banded.
+                         chain_factor(bop, banded.assemble_bd(bop, w), w))
+    return d.double().numpy(), e.double().numpy()
+
+
+def _floor_chain(n):
+    """A weighted path's Laplacian: pivots w_0, w_1, ..., and a last one of
+    0 up to rounding, which falls to the floor."""
+    w = 0.5 + np.random.RandomState(n).rand(n - 1)
+    z = np.zeros(1)
+    return np.concatenate([w, z]) + np.concatenate([z, w]), -w
+
+
+@pytest.mark.parametrize("case", ["sphere2500", "random 17", "random 1000",
+                                  "random 4096", "random 4097",
+                                  "floor 1000", "2^400 1000", "2^-400 1000"])
+def test_k3_order_within_the_referee(case):
+    """K3's arithmetic in its order (k3_model) within F64_FACTOR_RTOL
+    relative of the extended-precision referee (chip_smoke.pivot_referee,
+    the card's gate), dp and l, on sphere2500's chain, random chains of 17,
+    1000, 4096 (the largest that K3 keeps in registers) and 4097 rows, a
+    chain whose last pivot falls to the floor, and a random chain scaled
+    by 2^400 and by 2^-400 (unscaled, its first row's map would hold e^2
+    near 2^+-800, and the row that the lagged range test lets pass would
+    leave the range). On the scaled chains the model gives the unscaled
+    chain's dp times the same power of two and its l, bit for bit."""
+    from chip_smoke import F64_FACTOR_RTOL, pivot_referee
+
+    kind, _, rows = case.partition(" ")
+    if kind == "sphere2500":
+        d, e = _sphere2500_chain()
+    elif kind == "random":
+        d, e = _chain(int(rows), int(rows))
+    elif kind == "floor":
+        d, e = _floor_chain(int(rows))
+    else:
+        d, e = (np.ldexp(a, int(kind[2:])) for a in _chain(int(rows), 7))
+    dp, l = k3_model(d, e)
+    ref_dp, ref_l = pivot_referee(torch.as_tensor(d), torch.as_tensor(e))
+    for got, ref in ((dp, ref_dp[0]), (l, ref_l[0])):
+        rel = np.abs(got.astype(np.longdouble) - ref) / np.maximum(
+            np.abs(ref), 1e-300)
+        assert float(rel.max()) <= F64_FACTOR_RTOL, (case, float(rel.max()))
+    if kind == "floor":
+        assert dp[-1] == 8 * np.finfo(np.float64).eps * d.max()
+        assert ref_dp[0, -1] == dp[-1]
+    if kind.startswith("2^"):
+        dp1, l1 = k3_model(*_chain(int(rows), 7))
+        assert np.array_equal(dp, np.ldexp(dp1, int(kind[2:])))
+        assert np.array_equal(l, l1)
+
+
+def _ldl_ptxas_report(spill):
+    """A ptxas -v report of ldl.cu's kernels as nvcc prints it for the
+    card (the anonymous namespace's mangled prefix included): K3's
+    ldl_kernel<T, rows, stamped> at rows 16 and 0, K3b's
+    ldl_blocked_kernel<T, stamped>, both types, stamped and not, the
+    instance `spill` ((kernel, type letter, rows)) with a spilling frame."""
+    prefix = "_ZN38_GLOBAL__N__59dd69ad_6_ldl_cu_3341ebb2"
+    names = {}
+    for t in "fd":
+        for c in "01":
+            for rows in (16, 0):
+                names[("K3", t, rows, c)] = (
+                    f"{prefix}10ldl_kernelI{t}Li{rows}ELb{c}EEEvPKT_S3_PS1_S4"
+                    f"_ixxPx")
+            names[("K3b", t, None, c)] = (
+                f"{prefix}18ldl_blocked_kernelI{t}Lb{c}EEEvPKT_S3_PS1_S4_iixx"
+                f"iPx")
+    out = []
+    for key, name in names.items():
+        bad = key[:3] == spill
+        out += [f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'",
+                f"ptxas info    : Function properties for {name}",
+                f"    {48 if bad else 0} bytes stack frame, "
+                f"{44 if bad else 0} bytes spill stores, "
+                f"{44 if bad else 0} bytes spill loads",
+                "ptxas info    : Used 128 registers, used 1 barriers"]
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("spill,fails", [
+    (None, False), (("K3", "d", 0), False), (("K3", "d", 16), True),
+    (("K3b", "f", None), True)])
+def test_ldl_frame_gate(spill, fails):
+    """chip_smoke.py's phase-2 gate on ldl.cu: K3's 16-row instantiations
+    and K3b's, which keep rows in registers, must have no stack frame and
+    no spill, in both types; K3's staged instantiation is not gated; the
+    stamped builds are left out of the table."""
+    import chip_smoke
+
+    log = _ldl_ptxas_report(spill)
+    if fails:
+        with pytest.raises(SystemExit):
+            chip_smoke.ldl_frame_gate(log)
+        return
+    regs = chip_smoke.ldl_frame_gate(log)
+    assert sorted(regs, key=str) == sorted(
+        [("K3", t, r) for t in ("float32", "float64") for r in (16, 0)]
+        + [("K3b", t, None) for t in ("float32", "float64")], key=str)
+    assert regs[("K3", "float64", 0)][1:] == (
+        (48, 44, 44) if spill else (0, 0, 0))
+
+
+@pytest.mark.parametrize("entry", ["phases", "step_probe"])
+def test_measuring_entry_points_want_the_card(entry):
+    """ldl.phases (the stamped build) and ldl.step_probe (the chain probe)
+    measure the card: on CPU tensors they raise, and count no launch."""
+    before = _counts()
+    d, e = (torch.as_tensor(a) for a in _chain(100, 5))
+    out = torch.zeros(2, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        if entry == "phases":
+            ldl.phases(d, e, 32)
+        else:
+            ldl.step_probe(torch.float64, 128, 0, out)
+    assert _counts() == before
