@@ -13,8 +13,9 @@ its wall time printed:
      report, kept beside the library, so a library built by an earlier run
      is held to the same gate), and fail unless its m = 4 and m = 12
      instantiations, float32 and float64, have a 0-byte stack frame and no
-     spills; the same gate for ldl.cu's kernels that hold rows in
-     registers (K3 up to 4096 rows, K3b's chain), both types;
+     spills; the same gate for K4w's shared-memory form (both types) and
+     for ldl.cu's kernels that hold rows in registers (K3 up to 4096 rows,
+     K3b's chain), both types;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time it:
        tridiag_solve (K1) on city10000's chain factor (n = 10000, q = 4),
@@ -89,7 +90,19 @@ its wall time printed:
      the bound: the larger of the chain bound (the rounds this H takes
      times one round of the irreducible chain, timed by syev.cu's
      one-warp probe, k4_round_ms) and the byte / operation bound; also
-     K4's launch floor (a 1 x 1 matrix);
+     K4's launch floor (a 1 x 1 matrix). K4w, the thread-block body past
+     order 32, through the same checks: TRACEMIN's 11 x 11 and 33 x 33
+     (q = 11) and 36 x 36 (q = 12) matrices at city10000's start weights,
+     the lanes' (2, 36, 36), random matrices of every k from 33 to 64 and
+     of k 96, 120 and 170, and float32 180 and float64 130, which must take
+     the workspace form; each call counted under the body body_for names;
+     the shared-memory and workspace forms bitwise equal (body=
+     "wide_workspace" forces the workspace), K4w forced onto the warp
+     body's inputs compared with it bit for bit (printed), syev.cu's
+     scratch bytes and threads against the wrapper's; the warp body at k
+     33 and K4w in shared memory at float64 130 refused; K4w's round with
+     its two block barriers timed by syev.cu's block probe; timed at (33, 33)
+     both types, (96, 96) both types and the lanes' (2, 36, 36);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K1, K2, K3b and K4 must have launched; the relaxed
@@ -99,6 +112,16 @@ its wall time printed:
      unless the arithmetic does), and the rounded selection must hold
      exactly K edges; from here to phase 10 no plain chain factor may be
      handed a CUDA tensor;
+  4b. MAC(fixed, cands, n, fiedler_block_q=11) on city10000 (the
+     slice's path at full width: K4w on the 33 x 33 Rayleigh-Ritz
+     matrices in every outer iteration, replayed): one cold solve, then
+     the counts set to 0, three warm solves, the counts read: K4w and the
+     warp body launched, K1, K2b, K3b launched, no torch.linalg.eigh call,
+     no capture in a warm solve, the relaxed gap >= -1e-3, exactly K,
+     upper >= relaxed; the warm walls beside phase 4's at q = 4, the graph
+     pool's bytes; then sphere2500 on the banded float64 route at q = 11
+     (max_iters=20, two solves): K4w in float64, no float32 launch, the
+     relaxed gap >= -1e-4;
   5. the matrix-free path, as scripts/bench_scale.py drives it: the
      n = 100000 expander-like graph (chain plus loop closures spanning up
      to n/4, no narrow band), K = 12500 of 50000 candidates, x_init the
@@ -165,7 +188,10 @@ its wall time printed:
      lambda_2 at least (1 - 1e-2) of the host engine's solve, printed
      beside the same sweep's on the plain scans; (d)
      sphere2500, 2 lanes (K2's no-split form): exactly k per lane, K1 and
-     K2 launched with 2 lanes.
+     K2 launched with 2 lanes; (e) the same sweep at fiedler_block_q=12:
+     exactly k per lane, each lane's relaxed lambda_2 at least (1 - 1e-2)
+     of (d)'s, K4w launched on the (2, 36, 36) batches, no
+     torch.linalg.eigh call inside TRACEMIN's lanes.
   9. the device mesh (mac_tpu_torch.parallel): a process group of
      torch.cuda.device_count() NCCL ranks (one card: in this process, a
      file:// rendezvous) and a ("sweep", "graph") mesh over it; through
@@ -222,15 +248,19 @@ its wall time printed:
      step's set-up and TRACEMIN's outer iteration replayed as CUDA graphs),
      "inner" (only the inner CG steps replayed: the path before the set-up
      and the outer iteration were captured) and "eager" (no graph): warm
-     solves of city10000, sphere2500, the n = 100000 expander (K = 12500,
-     max_iters=10) and phase 10b's banded float64 city10000 (max_iters=20)
-     in turns eager, inner, graph, graph, inner, eager; each turn's wall,
+     solves of city10000, city10000 at fiedler_block_q=11 (phase 4b's
+     solver: K4w replayed), sphere2500, the n = 100000 expander (K =
+     12500, max_iters=10) and phase 10b's banded float64 city10000
+     (max_iters=20) in turns eager, inner, graph, graph, inner, eager;
+     each turn's wall,
      relaxed lambda_2, upper bound, captures, replays, set-up redos and
-     K1 / K1b / K4 launches; every turn's unrounded x, rounded selection
-     and upper bound bitwise the first's, no capture in a warm solve, equal
-     launches of every kernel by dtype in every turn, K4 launched, no call
-     of torch.linalg.eigh; the case's quality gate (city10000 relaxed gap
-     >= -1e-4; sphere2500 >= -1e-3; n = 100000 evaluate_objective >= the
+     K1 / K1b / K4 launches (K4 by body); every turn's unrounded x, rounded
+     selection and upper bound bitwise the first's, no capture in a warm
+     solve, equal launches of every kernel by dtype and of K4 by body in
+     every turn, K4 launched (K4w at q = 11), no call of
+     torch.linalg.eigh; the case's quality gate (city10000 relaxed gap
+     >= -1e-4, at q = 11 >= -1e-3; sphere2500 >= -1e-3; n = 100000
+     evaluate_objective >= the
      reference (1 - 1e-3); the banded float64 city10000 within 1e-9
      relative of the reference), exactly K rounded and upper >= relaxed;
      then one profiled warm solve each way (device busy, kernels, idle
@@ -270,7 +300,11 @@ for, "launches" those of its dtype on phase 4's path (float32) or phase
 or 7c (64), "library_ms" torch.linalg.eigh's device time and
 "library_call_ms" its call time, "bound_ms" the larger of its chain
 bound and its byte/operation bound, "bound_by" "chain" where the chain's
-is larger) and the result line {"ok": true, "device": {...}}.
+is larger; K4w, "name" "sym_eig_wide", one entry per shape and dtype,
+its "launches" those of phase 4b (float32: the three warm city10000
+solves at q = 11; float64: sphere2500's two) or 8e (the lanes), 0 for the
+(96, 96) shapes no path runs, "barrier_round_ms" its round with the two
+barriers) and the result line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -780,12 +814,13 @@ def factor_times(kern, plain, args, label, steps, bound_steps, step_ns,
     return tm
 
 
-def rayleigh_ritz_matrices(bop, w, dev):
-    """{(k, dtype name): H}: the first 4 x 4 (the entry's) and 12 x 12 (an
+def rayleigh_ritz_matrices(bop, w, dev, q=4):
+    """{(k, dtype name): H}: the first q x q (the entry's) and 3q x 3q (an
     outer iteration's) Rayleigh-Ritz matrices that TRACEMIN hands K4 on the
-    banded tables bop at the weights w from MAC's start block, with
-    float32 coefficients (fast32's) and float64 ones (the default), from
-    one eager outer iteration each (graphs.plain_solve)."""
+    banded tables bop at the weights w from MAC's start block of q columns
+    (4 x 4 and 12 x 12 at the default q = 4), with float32 coefficients
+    (fast32's) and float64 ones (the default), from one eager outer
+    iteration each (graphs.plain_solve)."""
     import torch
 
     from mac_tpu_torch.ops import banded, graphs
@@ -794,7 +829,7 @@ def rayleigh_ritz_matrices(bop, w, dev):
     from mac_tpu_torch.utils.fiedler import default_block
 
     n = bop.n
-    X = torch.as_tensor(default_block(n, 4), dtype=torch.float32, device=dev)
+    X = torch.as_tensor(default_block(n, q), dtype=torch.float32, device=dev)
     real, got = syev.check_kernel_args, {}
 
     def record(H):  # the wrapper checks every matrix it launches on
@@ -806,19 +841,21 @@ def rayleigh_ritz_matrices(bop, w, dev):
         for coeff in (torch.float32, torch.float64):
             graphs.plain_solve(
                 graphs.banded_route(bop, banded.PRECOND_KIND), w, X,
-                xprev0=default_xprev(n, 4, torch.float32, dev), maxiter=1,
+                xprev0=default_xprev(n, q, torch.float32, dev), maxiter=1,
                 inner_iters=10, coeff_dtype=coeff)
     finally:
         syev.check_kernel_args = real
-    if sorted(got) != [(4, "float32"), (4, "float64"), (12, "float32"),
-                       (12, "float64")]:
-        fail(f"TRACEMIN handed K4 {sorted(got)}")
+    want = sorted((k_, dt_) for k_ in (q, 3 * q)
+                  for dt_ in ("float32", "float64"))
+    if sorted(got) != want:
+        fail(f"TRACEMIN handed K4 {sorted(got)}, want {want}")
     return got
 
 
 def k4_check(H, label):
     """K4 against its plain version and torch.linalg.eigh on H (..., k,
-    k): eigenvalues within 2 k eps ||H|| of both and ascending, the
+    k), through the body body_for names (one launch of it counted):
+    eigenvalues within 2 k eps ||H|| of both and ascending, the
     residual ||H V - V diag(evals)|| within 2 k eps ||H||, V^T V within
     2 k eps of I, each column's largest entry positive; returns the largest
     |evals - plain evals|."""
@@ -827,7 +864,12 @@ def k4_check(H, label):
     from mac_tpu_torch.ops.kernels import syev
 
     k = H.shape[-1]
+    body = syev.body_for(k, H.dtype)
+    before = syev.sym_eig.launches_by_body.get(body, 0)
     e, V = syev.sym_eig(H)
+    if syev.sym_eig.launches_by_body.get(body, 0) != before + 1:
+        fail(f"sym_eig on {label} did not count one launch of its body "
+             f"{body}: {syev.sym_eig.launches_by_body}")
     ep, _ = syev.sym_eig_plain(H)
     el, _ = torch.linalg.eigh(H)
     torch.cuda.synchronize()
@@ -844,7 +886,8 @@ def k4_check(H, label):
           and err <= tol and err_l <= tol and resid <= tol
           and orth <= 2 * k * eps and bool((top > 0).all())
           and bool((e[..., 1:] >= e[..., :-1]).all()))
-    print(f"K4 sym_eig {label} {tuple(H.shape)}: max|kernel - plain| "
+    print(f"K4 sym_eig ({body}) {label} {tuple(H.shape)}: max|kernel - "
+          f"plain| "
           f"{err:.3e}, max|kernel - eigh| {err_l:.3e} (tolerance 2 k eps "
           f"||H|| = {tol:.3e}), residual {resid:.3e}, max|V^T V - I| "
           f"{orth:.3e} -> {'ok' if ok else 'MISMATCH'}", flush=True)
@@ -853,7 +896,7 @@ def k4_check(H, label):
     return err
 
 
-def k4_times(H, label, card, round_ms):
+def k4_times(H, label, card, round_ms, wide_round_ms=None):
     """Device, call and plain times of K4 on H, torch.linalg.eigh's
     device time (kernels_ms) and call time, the sweeps this H needs and
     bound_ms, the larger of two bounds, named in bound_by: the chain bound
@@ -863,7 +906,9 @@ def k4_times(H, label, card, round_ms):
     or "operations", printed beside it): H read once, evals and V written
     once, and per rotation 24 m operations on the rows and columns of A and
     V and 20 for its parameters, per sweep the stop test's 2 m^2, at the
-    dtype's peak."""
+    dtype's peak. For K4w, wide_round_ms (K4w's round with its two
+    barriers, k4_round_ms(dtype, threads)) is printed and kept beside
+    the bound as "barrier_round_ms"."""
     import torch
 
     from mac_tpu_torch.ops.kernels import syev
@@ -888,7 +933,15 @@ def k4_times(H, label, card, round_ms):
                                          (flat_ms, flat_by))
     tm["sweeps"], tm["chain_steps"] = sweeps, rounds
     tm["ns_per_step"] = 1e6 * tm["device_ms"] / max(rounds, 1)
-    print(f"sym_eig time at {label} {tuple(H.shape)}: kernel device "
+    tm["body"] = syev.body_for(k, H.dtype)
+    barriers = ""
+    if wide_round_ms is not None:
+        tm["barrier_round_ms"] = wide_round_ms
+        barriers = (f"; K4w's round with its two barriers "
+                    f"{1e6 * wide_round_ms:.1f} ns, x {rounds} rounds = "
+                    f"{rounds * wide_round_ms:.5f} ms")
+    print(f"sym_eig ({tm['body']}) time at {label} {tuple(H.shape)}: "
+          f"kernel device "
           f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, plain "
           f"call {tm['plain_ms']:.4f} ms, torch.linalg.eigh device "
           f"{tm['library_ms']:.5f} ms, call {tm['library_call_ms']:.4f} ms; "
@@ -896,8 +949,8 @@ def k4_times(H, label, card, round_ms):
           f"{rounds} dependent rounds of {1e6 * round_ms:.1f} ns, {sweeps} "
           f"sweeps; {flat_by} {flat_ms:.2e} ms); {tm['ns_per_step']:.1f} ns "
           f"a round, device / bound "
-          f"{tm['device_ms'] / max(tm['bound_ms'], 1e-12):.2f} ({card})",
-          flush=True)
+          f"{tm['device_ms'] / max(tm['bound_ms'], 1e-12):.2f}{barriers} "
+          f"({card})", flush=True)
     return tm
 
 
@@ -952,6 +1005,37 @@ def k4_frame_gate(log: str):
     return regs
 
 
+def k4w_instances(log: str):
+    """{(dtype name, form): (registers, stack bytes, spill stores, spill
+    loads)} of K4w's sym_eig_wide_kernel<T, shared> instantiations in a
+    ptxas report (form "shared" or "workspace"; mangled names:
+    ...sym_eig_wide_kernelIfLb1E... is float in shared memory)."""
+    import re
+
+    got = {}
+    for fn, *rest in ptxas_report(log):
+        m = re.search(r"sym_eig_wide_kernelI([fd])Lb([01])E", fn)
+        if m:
+            got[({"f": "float32", "d": "float64"}[m.group(1)],
+                 "shared" if m.group(2) == "1" else "workspace")] = tuple(
+                     rest)
+    return got
+
+
+def k4w_frame_gate(log: str):
+    """k4w_instances(log), failing unless both forms are there and the
+    shared-memory form, float32 and float64, has a 0-byte stack frame and
+    no spills."""
+    regs = k4w_instances(log)
+    if len(regs) != 4:
+        fail(f"K4w: want four instantiations, got {sorted(regs)}")
+    for key in (("float32", "shared"), ("float64", "shared")):
+        if regs[key][1:] != (0, 0, 0):
+            fail(f"K4w {key}: want a 0-byte stack frame and no spills, "
+                 f"got {regs[key]}")
+    return regs
+
+
 def ldl_instances(log: str):
     """{(kernel, dtype name, rows): (registers, stack bytes, spill stores,
     spill loads)} of ldl.cu's unstamped kernels in a ptxas report: K3's
@@ -985,11 +1069,14 @@ def ldl_frame_gate(log: str):
     return regs
 
 
-def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
+def k4_round_ms(dtype, threads=None, rounds=(256, 4352)) -> float:
     """Device milliseconds of one round of K4's irreducible chain: the
     parameter arithmetic (two hypot, three IEEE divisions) and one
     shuffle exchange, on one warp (syev.cu's sym_eig_round_probe_{f32,
-    f64}, in the syev library loaded now); the difference of two chain
+    f64}, in the syev library loaded now); with `threads`, K4w's round at
+    a block of that many threads instead: the same arithmetic, the
+    exchange through shared memory and the round's two block barriers
+    (sym_eig_wide_round_probe_{f32,f64}). The difference of two chain
     lengths' device times over their difference in rounds, so that the
     launch drops out."""
     import ctypes
@@ -999,14 +1086,18 @@ def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
     from mac_tpu_torch.ops.kernels import _build, syev
     from mac_tpu_torch.ops.kernels.tridiag import SUFFIX
 
+    wide = threads is not None
     fn = getattr(_build.load("syev", syev._SIGNATURES),
-                 f"sym_eig_round_probe_{SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                 f"sym_eig{'_wide' if wide else ''}_round_probe_"
+                 f"{SUFFIX[dtype]}")
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                   + ([ctypes.c_int] if wide else []) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     out = torch.empty(32, dtype=dtype, device="cuda")
 
     def run(n):
-        err = _build.launch(fn, out.device, out.data_ptr(), n)
+        err = _build.launch(fn, out.device, out.data_ptr(), n,
+                            *([threads] if wide else []))
         if err != 0:
             fail(f"K4's round probe failed to launch: cudaError {err}")
 
@@ -1014,6 +1105,42 @@ def k4_round_ms(dtype, rounds=(256, 4352)) -> float:
     if not bool(torch.isfinite(out).all()):
         fail("K4's round probe left a non-finite value")
     return (t[1] - t[0]) / (rounds[1] - rounds[0])
+
+
+def k4w_scratch_check(ks):
+    """syev.cu's scratch bytes and block threads of K4w at each order k,
+    against the wrapper's wide_scratch_bytes and body_for: fail where
+    they disagree. Returns {k: (float32 bytes, float64 bytes,
+    threads)}."""
+    import ctypes
+
+    import torch
+
+    from mac_tpu_torch.ops.kernels import _build, syev
+
+    lib = _build.load("syev", syev._SIGNATURES)
+    got = {}
+    for k in ks:
+        row = []
+        for suffix, itemsize in (("f32", 4), ("f64", 8)):
+            fn = getattr(lib, f"sym_eig_wide_scratch_bytes_{suffix}")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+            row.append(fn(k))
+            if fn(k) != syev.wide_scratch_bytes(k, itemsize):
+                fail(f"K4w's scratch at k {k} ({suffix}): syev.cu "
+                     f"{fn(k)} bytes, the wrapper "
+                     f"{syev.wide_scratch_bytes(k, itemsize)}")
+        fn = lib.sym_eig_wide_threads
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        got[k] = (*row, fn(k))
+    for k, (b32, b64, _) in got.items():
+        for b, dt in ((b32, torch.float32), (b64, torch.float64)):
+            want = ("warp" if k <= syev.WARP_MAX_K else "wide_shared"
+                    if b <= syev.SMEM_LIMIT else "wide_workspace")
+            if syev.body_for(k, dt) != want:
+                fail(f"body_for({k}, {dt}) is {syev.body_for(k, dt)}, "
+                     f"syev.cu's scratch says {want}")
+    return got
 
 
 # What ldl.cu's phase stamps measure (clk[1:]), per kernel and, for K3,
@@ -1578,14 +1705,137 @@ def baselines(dev, dataset, card, counted):
     return eig_launches, k1
 
 
+def wide_block(card, dataset, counted, warm_q4):
+    """Phase 4b: MAC at fiedler_block_q=11, whose 33 x 33 Rayleigh-Ritz
+    eigensolves run in K4w. (a) The slice's path at full width:
+    MAC(fixed, cands, n, fiedler_block_q=11) on city10000 (banded
+    float32, NaiveGreedy x_init, nearest rounding, the replayed set-up and
+    outer-iteration graphs): one cold solve (it captures), then the counts
+    set to 0, three warm solves, the counts read. Gates: K4w launched
+    (through the replays), the warp body on the 11 x 11 entry matrices,
+    K1, K2b and K3b launched, no torch.linalg.eigh call, no capture in a
+    warm solve, the relaxed lambda_2 (scipy referee) within GAP_FLOOR of
+    the reference optimum, exactly K rounded, upper >= relaxed; printed
+    beside phase 4's warm median at q = 4 (warm_q4) and the graphs' pool
+    bytes. (b) A float64 route at q = 11: sphere2500 on the banded float64
+    operator (phase 10b's knobs, max_iters=20), one cold and one warm
+    solve: K4w in float64, no float32 launch, the relaxed gap at least
+    GAP_FLOOR_F64. Returns (the city10000 MAC, {"city10000": K4's
+    launches by body in (a)'s warm solves, "sphere2500 float64": in (b)'s
+    two})."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import syev
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers import MAC, NaiveGreedy
+    from mac_tpu_torch.utils.fiedler import scipy_lam2
+
+    k4 = syev.sym_eig
+    out = {}
+    meas, n = read_g2o_file(str(dataset))
+    fixed, cands = split_edges(rpm_to_mac(meas))
+    k = len(cands) // 2
+    x_init = NaiveGreedy(cands).subset(k)
+    mac11 = MAC(fixed, cands, n, fiedler_block_q=11, device="cuda")
+    if mac11._banded is None or mac11._q != 11 or not mac11._fast32:
+        fail("4b: city10000 at q = 11 left the banded float32 route")
+    stats = [graph_stats(mac11._banded)]
+    walls = []
+    for turn in range(4):
+        if turn == 1:
+            reset_counts(*counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with EighCalls() as eigh:
+            rounded, unrounded, upper = mac11.solve(
+                k, x_init, rounding="nearest", use_cache=True)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        stats.append(graph_stats(mac11._banded))
+        if eigh.calls:
+            fail(f"4b: torch.linalg.eigh called {eigh.calls} times")
+    got = {kern.__name__: kern.launches for kern in counted}
+    bodies = out["city10000"] = dict(k4.launches_by_body)
+    graph_lines(card, "4b city10000 q = 11", stats)
+    lam = scipy_lam2(mac11.laplacian(unrounded))
+    gap = (lam - REFERENCE_LAM2_UNROUNDED) / REFERENCE_LAM2_UNROUNDED
+    print(f"4b city10000 at fiedler_block_q=11 (K {k}, banded float32, "
+          f"fast32): cold {walls[0]:.4f} s, warm "
+          f"{[round(t, 4) for t in walls[1:]]} s, warm median "
+          f"{statistics.median(walls[1:]):.4f} s (phase 4's at q = 4 "
+          f"{warm_q4:.4f} s); graph pool {stats[-1]['pool_bytes']} bytes "
+          f"({stats[-1]['pool_bytes'] / 2**20:.2f} MiB), static buffers "
+          f"{stats[-1]['static_bytes'] / 2**20:.2f} MiB; relaxed lambda_2 "
+          f"(scipy) {lam:.9g}, reference {REFERENCE_LAM2_UNROUNDED:.9g}, "
+          f"relative gap {gap:+.4e}; upper {upper:.9g}; rounded "
+          f"{int(rounded.sum())}; last_solve_stats "
+          f"{mac11.last_solve_stats}; launches in the 3 warm solves {got}, "
+          f"K4 by body {bodies}, by lanes {k4.launches_by_lanes}; "
+          f"torch.linalg.eigh calls 0 ({card})", flush=True)
+    for kname in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked"):
+        if got[kname] <= 0:
+            fail(f"4b: {kname} never launched")
+    if bodies.get("wide_shared", 0) <= 0 or bodies.get("warp", 0) <= 0:
+        fail(f"4b: K4 launches by body {bodies}: want K4w (33 x 33) and "
+             f"the warp body (11 x 11)")
+    if not (np.all(np.isfinite(unrounded)) and np.isfinite(upper)):
+        fail("4b: non-finite solve output")
+    if int(rounded.sum()) != k or not gap >= GAP_FLOOR:
+        fail(f"4b: rounded {rounded.sum()} (K {k}), relaxed gap {gap:+.3e}")
+    if upper < lam * (1 - 1e-6):
+        fail(f"4b: upper bound {upper} below the relaxed lambda_2 {lam}")
+
+    meas, n_s = read_g2o_file(str(dataset.parent / "sphere2500.g2o"))
+    fixed_s, cands_s = split_edges(rpm_to_mac(meas))
+    k_s = len(cands_s) // 2
+    x_s = NaiveGreedy(cands_s).subset(k_s)
+    mac_s = MAC(fixed_s, cands_s, n_s, use_banded=True,
+                dtype=torch.float64, fiedler_block_q=11, device="cuda")
+    reset_counts(*counted)
+    walls = []
+    with EighCalls() as eigh:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_s, u_s, up_s = mac_s.solve(k_s, x_s, max_iters=20)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    got = by_dtype(counted)
+    bodies = out["sphere2500 float64"] = dict(k4.launches_by_body)
+    ref = BUNDLED["sphere2500"][0]
+    lam = scipy_lam2(mac_s.laplacian(u_s))
+    gap = (lam - ref) / ref
+    print(f"4b sphere2500 banded float64 at fiedler_block_q=11 (K {k_s}, "
+          f"max_iters=20): cold {walls[0]:.4f} s, warm {walls[1]:.4f} s; "
+          f"relaxed lambda_2 (scipy) {lam:.17g}, reference {ref:.17g}, "
+          f"relative gap {gap:+.3e}; upper {up_s:.17g}; rounded "
+          f"{int(r_s.sum())}; launches by dtype {got}, K4 by body {bodies}; "
+          f"torch.linalg.eigh calls {eigh.calls} ({card})", flush=True)
+    if (bodies.get("wide_shared", 0) <= 0
+            or got["sym_eig"].get("float64", 0) <= 0 or eigh.calls
+            or any(v.get("float32", 0) for v in got.values())):
+        fail(f"4b sphere2500: K4w float64 not launched, a float32 launch, "
+             f"or an eigh call: {got}, {bodies}, eigh {eigh.calls}")
+    if (int(r_s.sum()) != k_s or not np.isfinite(lam) or not gap >=
+            GAP_FLOOR_F64 or up_s < lam * (1 - 1e-9)):
+        fail(f"4b sphere2500: rounded {r_s.sum()} (K {k_s}), relaxed gap "
+             f"{gap:+.3e}, upper {up_s}")
+    return mac11, k, x_init, out
+
+
 def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     """Phase 8: the budget sweep (MAC.solve_sweep) on the card, every gate
     fatal: (a) city10000, banded float32, 8 lanes against 8 serial warm
     solves, turn by turn in this call; (b) the n = 100000 expander of phase
     5, 2 lanes (K1b); (c) kitti_05 on the float64 device engine (no
-    kernel); (d) sphere2500, 2 lanes (K2's no-split form). `mac` and
-    `mac5` are phases 4 and 5's solvers, synth5 phase 5's instance. Returns
-    the launches of each kernel by lane count in (a), (b) and (d)."""
+    kernel); (d) sphere2500, 2 lanes (K2's no-split form); (e) the same
+    at fiedler_block_q=12 (K4w on the lanes' (2, 36, 36) batches). `mac`
+    and `mac5` are phases 4 and 5's solvers, synth5 phase 5's instance.
+    Returns the launches of each kernel by lane count in (a), (b), (d) and
+    (e) ((e)'s K4 also by body, "sym_eig_by_body")."""
     import numpy as np
     import torch
 
@@ -1783,10 +2033,43 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
         if lanes_d[name].get(2, 0) <= 0:
             fail(f"8d: {name} never launched with 2 lanes: {lanes_d}")
     part_s.append(time.perf_counter() - t8)
+
+    # (e) sphere2500 at fiedler_block_q=12, the same 2 lanes: each outer
+    # iteration's 36 x 36 Rayleigh-Ritz eigensolves as one (2, 36, 36) K4w
+    # launch.
+    t8 = time.perf_counter()
+    mac_e = MAC(fixed_s, cands_s, n_s, fiedler_block_q=12)
+    k4 = next(kern for kern in counted if kern.__name__ == "sym_eig")
+    reset()
+    with EighCalls() as eigh_e:
+        (r_e, u_e, up_e), dt_e = timed(lambda: mac_e.solve_sweep(
+            ks_s, np.stack([naive_s.subset(k) for k in ks_s])))
+    lanes_e = by_lanes()
+    lanes_e["sym_eig_by_body"] = dict(k4.launches_by_body)
+    lam_e = [scipy_lam2(mac_e.laplacian(u)) for u in u_e]
+    rel_e = [(a - b) / b for a, b in zip(lam_e, lam_s)]
+    print(f"8e sphere2500 sweep at fiedler_block_q=12 (2 lanes, budgets "
+          f"{ks_s}): {dt_s:.3f} s at q = 4 (8d), {dt_e:.3f} s at q = 12; "
+          f"relaxed lambda_2 {[f'{v:.9g}' for v in lam_e]}, against 8d's "
+          f"{[f'{v:+.2e}' for v in rel_e]} relative; upper "
+          f"{[f'{v:.9g}' for v in up_e]}; launches by lanes {lanes_e}; "
+          f"torch.linalg.eigh calls {eigh_e.calls}, inside TRACEMIN's "
+          f"lanes {eigh_e.lanes} ({card})", flush=True)
+    if [int(r.sum()) for r in r_e] != ks_s or not np.all(np.isfinite(lam_e)):
+        fail(f"8e: rounded {[r.sum() for r in r_e]}, want {ks_s}")
+    if not all(v >= -1e-2 for v in rel_e) or not all(
+            u >= lam * (1 - 1e-3) for u, lam in zip(up_e, lam_e)):
+        fail(f"8e: a lane's relaxed lambda_2 is below 8d's (1 - 1e-2) or "
+             f"above its upper bound: {rel_e}, {up_e}")
+    if (lanes_e["sym_eig"].get(2, 0) <= 0 or eigh_e.lanes
+            or lanes_e["sym_eig_by_body"].get("wide_shared", 0) <= 0):
+        fail(f"8e: K4w never launched with 2 lanes, or eigh ran in the "
+             f"lanes: {lanes_e}, eigh {eigh_e.lanes}")
+    part_s.append(time.perf_counter() - t8)
     print(f"phase 8 wall by part: (a) {part_s[0]:.3f} s, (b) "
-          f"{part_s[1]:.3f} s, (c) {part_s[2]:.3f} s, (d) {part_s[3]:.3f} s",
-          flush=True)
-    return lanes_a, lanes_b, lanes_d
+          f"{part_s[1]:.3f} s, (c) {part_s[2]:.3f} s, (d) {part_s[3]:.3f} s,"
+          f" (e) {part_s[4]:.3f} s", flush=True)
+    return lanes_a, lanes_b, lanes_d, lanes_e
 
 
 def mesh_part(rank, world, card, dataset, synth5, walls):
@@ -2404,14 +2687,16 @@ def graph_ab(card, cases, counted):
     Gates: every turn's unrounded x, rounded selection and upper bound
     bitwise the first turn's; no capture in a warm solve; no replay in an
     eager turn; equal launches of every wrapper by dtype in every turn, K4
-    among them; no torch.linalg.eigh call; the case's quality gate,
+    among them, and of K4 by body; no torch.linalg.eigh call; the case's
+    quality gate,
     exactly K rounded and upper >= relaxed. Then one profiled warm solve
     each way (device busy, kernels and copies, idle share of its own wall,
     launch calls on the host, capped by HOST_LAUNCH_CAPS replayed), and
     forced_guard.
     Returns {name: {turn: [walls], "profile": {turn: (wall, busy ms,
     kernels, host launch calls)}, "launches": {wrapper: {dtype: per
-    solve}}, "stats": graph_stats}}."""
+    solve}}, "bodies": K4's launches a solve by body, "stats":
+    graph_stats}}."""
     from contextlib import nullcontext
 
     import numpy as np
@@ -2446,6 +2731,8 @@ def graph_ab(card, cases, counted):
             s1 = graph_stats(op)
             d = {f: s1[f] - s0[f] for f in ("captures", "replays", "redos")}
             launches = by_dtype(counted)
+            bodies = dict(next(kern for kern in counted if kern.__name__
+                               == "sym_eig").launches_by_body)
             res[turn].append(wall)
             if first is None:
                 first, lam = got, lam_of(got[1])
@@ -2461,8 +2748,8 @@ def graph_ab(card, cases, counted):
                   f"{d['replays']}, redos {d['redos']}; K1 "
                   f"{short['tridiag_solve']}, K1b "
                   f"{short['tridiag_solve_blocked']}, K4 "
-                  f"{short['sym_eig']}; eigh calls {eigh.calls} ({card})",
-                  flush=True)
+                  f"{short['sym_eig']} (by body {bodies}); eigh calls "
+                  f"{eigh.calls} ({card})", flush=True)
             if not same:
                 fail(f"13 {name} {turn}: the solve is not bitwise the first "
                      f"turn's (max |x - x_first| "
@@ -2475,11 +2762,12 @@ def graph_ab(card, cases, counted):
                 fail(f"13 {name} {turn}: {d}, eigh calls {eigh.calls}, K4 "
                      f"launches {short['sym_eig']}")
             seen.add(tuple(sorted((kern, tuple(sorted(v.items())))
-                                  for kern, v in launches.items())))
+                                  for kern, v in launches.items()))
+                     + tuple(sorted(bodies.items())))
         if len(seen) != 1:
             fail(f"13 {name}: launches a solve differ between the turns: "
                  f"{seen}")
-        res["launches"] = launches
+        res["launches"], res["bodies"] = launches, bodies
         res["stats"] = graph_stats(op)
         ok, text = quality(lam)
         rounded_ok = int(first[0].sum()) == k
@@ -2812,6 +3100,12 @@ def main():
           "spill loads): " + ", ".join(
               f"{dt_} m {m_}: {v_}" for (dt_, m_), v_ in sorted(
                   k4_regs.items())), flush=True)
+    # K4w keeps A and V in shared memory: no spill in that form.
+    k4w_regs = k4w_frame_gate(_build.ptxas_log("syev"))
+    print("K4w instantiations (registers, stack frame bytes, spill stores, "
+          "spill loads): " + ", ".join(
+              f"{dt_} {form_}: {v_}" for (dt_, form_), v_ in sorted(
+                  k4w_regs.items())), flush=True)
     # K3 (up to 4096 rows) and K3b keep rows in registers: the same gate.
     ldl_regs = ldl_frame_gate(_build.ptxas_log("ldl"))
     print("ldl.cu kernels (registers, stack frame bytes, spill stores, "
@@ -3313,28 +3607,101 @@ def main():
         k4_cases.append((f"67 random 12x12 {dt_} (a partial last block)",
                          torch.as_tensor(A_ + A_.transpose(0, 2, 1),
                                          dtype=dt_, device=dev)))
+    # K4w: TRACEMIN's matrices at q = 11 (11 x 11 at the entry, the warp
+    # body; 33 x 33 each outer iteration) and q = 12 (36 x 36), the lanes'
+    # (2, 36, 36), random orders 33 to 64, 96, 120 and 170 (K4w in shared
+    # memory, or on the workspace past its limit: float32 170, float64 120)
+    # and float32 180, float64 130 (the workspace).
+    k4w_mats = {**rayleigh_ritz_matrices(bop, w, dev, q=11),
+                **{key: H_ for key, H_ in rayleigh_ritz_matrices(
+                    bop, w, dev, q=12).items() if key[0] == 36}}
+    k4w_lanes = perturbed(k4w_mats[(36, "float32")], 2)
+    k4w_cases = [(f"TRACEMIN's {k_}x{k_} {dt_} at city10000's start weights "
+                  f"(q = {11 if k_ in (11, 33) else 12})", H_)
+                 for (k_, dt_), H_ in sorted(k4w_mats.items(),
+                                             key=lambda kv: str(kv[0]))]
+    k4w_cases.append(("phase 8e's lanes, 2 TRACEMIN 36x36 float32",
+                      k4w_lanes))
+    k4w_random = {}
+    for dt_, last in ((f32, 180), (torch.float64, 130)):
+        for k_ in list(range(33, 65)) + [96, 120, 170, last]:
+            A_ = rng.normal(size=(k_, k_))
+            k4w_random[(k_, dt_)] = torch.as_tensor(A_ + A_.T, dtype=dt_,
+                                                    device=dev)
+            k4w_cases.append((f"random {k_}x{k_} {dt_}",
+                              k4w_random[(k_, dt_)]))
     k4_err = {}
-    for label, H_ in k4_cases:
+    for label, H_ in k4_cases + k4w_cases:
         key = str(H_.dtype).split(".")[-1]
+        if H_.shape[-1] > syev.WARP_MAX_K:
+            key = "K4w " + key
         k4_err[key] = max(k4_err.get(key, 0.0), k4_check(H_, label))
-    for H_, err in ((torch.zeros(33, 33, device=dev), ValueError),
-                    (torch.zeros(4, 4, device=dev, dtype=torch.float16),
-                     TypeError),
-                    (torch.zeros(8, 8, device=dev)[:4, :4], ValueError)):
+    for dt_, k_ in ((f32, 180), (torch.float64, 130)):
+        if syev.body_for(k_, dt_) != "wide_workspace":
+            fail(f"sym_eig at {k_}x{k_} {dt_} did not take the workspace")
+    # The two storage forms of K4w, and K4w on the warp body's orders,
+    # bit for bit: the same body over one layout, the same arithmetic.
+    k4w_scratch = k4w_scratch_check(list(range(1, 65)) + [96, 118, 119,
+                                                          120, 130, 168,
+                                                          169, 170, 180])
+    forms_same, forms_n = 0, 0
+    form_cases = ([H_ for _, H_ in k4w_cases[:len(k4w_mats) + 1]
+                   if H_.shape[-1] > syev.WARP_MAX_K]
+                  + [k4w_random[(k_, dt_)] for dt_ in (f32, torch.float64)
+                     for k_ in (33, 34, 47, 64, 96, 120)
+                     if syev.body_for(k_, dt_) == "wide_shared"])
+    for H_ in form_cases:
+        e1, V1 = syev.sym_eig(H_)
+        e2, V2 = syev.sym_eig(H_, body="wide_workspace")
+        forms_n += 1
+        forms_same += bool(torch.equal(e1, e2) and torch.equal(V1, V2))
+    warp_same, warp_n = 0, 0
+    for label, H_ in k4_cases:
+        e1, V1 = syev.sym_eig(H_)
+        e2, V2 = syev.sym_eig(H_, body="wide_shared")
+        warp_n += 1
+        warp_same += bool(torch.equal(e1, e2) and torch.equal(V1, V2))
+    torch.cuda.synchronize()
+    print(f"K4w's two storage forms (shared memory, workspace) bitwise "
+          f"equal on {forms_same} of {forms_n} inputs; K4w forced onto the "
+          f"warp body's {warp_n} inputs (k 1 to 32) bitwise the warp body "
+          f"on {warp_same}; syev.cu's scratch bytes and threads at k 33, "
+          f"64, 118, 119, 168, 169: "
+          f"{[(k_, k4w_scratch[k_]) for k_ in (33, 64, 118, 119, 168, 169)]}",
+          flush=True)
+    if forms_same != forms_n:
+        fail("K4w's shared-memory and workspace forms differ")
+    for H_, err, body_ in (
+            (torch.zeros(4, 4, device=dev, dtype=torch.float16), TypeError,
+             None),
+            (torch.zeros(8, 8, device=dev)[:4, :4], ValueError, None),
+            (torch.zeros(33, 33, device=dev), ValueError, "warp"),
+            (k4w_random[(130, torch.float64)], RuntimeError, "wide_shared")):
         try:
-            syev.sym_eig(H_)
+            syev.sym_eig(H_, body=body_)
         except err:
             continue
         fail(f"sym_eig took what its kernel does not: {tuple(H_.shape)} "
-             f"{H_.dtype}, contiguous {H_.is_contiguous()}")
-    print("K4 refuses k 33, float16 and a non-contiguous matrix", flush=True)
+             f"{H_.dtype}, contiguous {H_.is_contiguous()}, body {body_}")
+    print("K4 refuses float16, a non-contiguous matrix, the warp body at k "
+          "33 and K4w in shared memory past its limit (float64 130)",
+          flush=True)
     one = torch.zeros(1, 1, device=dev)
     k4_floor = device_ms(lambda: syev.sym_eig(one))
     k4_round = {dt_: k4_round_ms(dt_) for dt_ in (f32, torch.float64)}
+    # K4w's round with its barriers, at the block of k 33 and 36 (m 34 and
+    # 36) and at 1024 threads (m 64 and past).
+    k4w_threads = sorted({k4w_scratch[k_][2] for k_ in (33, 36, 96)})
+    k4w_round = {(dt_, t_): k4_round_ms(dt_, t_) for dt_ in
+                 (f32, torch.float64) for t_ in k4w_threads}
     print(f"K4 launch floor (a 1 x 1 matrix, device_ms): {k4_floor:.5f} ms;"
           f" one round of its irreducible chain (one-warp probe): float32 "
           f"{1e6 * k4_round[f32]:.1f} ns, float64 "
-          f"{1e6 * k4_round[torch.float64]:.1f} ns ({card})", flush=True)
+          f"{1e6 * k4_round[torch.float64]:.1f} ns; K4w's round with its "
+          f"two barriers (block probe): " + ", ".join(
+              f"{str(dt_).split('.')[-1]} {t_} threads "
+              f"{1e6 * v_:.1f} ns" for (dt_, t_), v_ in k4w_round.items())
+          + f" ({card})", flush=True)
     k4_tm = {key: k4_times(H_, f"TRACEMIN's {key[0]}x{key[0]} {key[1]}",
                            card, k4_round[H_.dtype])
              for key, H_ in k4_mats.items()}
@@ -3342,6 +3709,21 @@ def main():
                                     k4_round[H_.dtype]),
                            max_abs_err=k4_err[str(H_.dtype).split(".")[-1]])
                   for R_, H_ in k4_lanes.items()}
+
+    def k4w_times(H_, label):
+        dt_ = H_.dtype
+        return dict(k4_times(H_, label, card, k4_round[dt_], k4w_round[
+            (dt_, k4w_scratch[H_.shape[-1]][2])]),
+            max_abs_err=k4_err["K4w " + str(dt_).split(".")[-1]])
+
+    k4w_tm = {(33, dt_): k4w_times(k4w_mats[(33, dt_)],
+                                   f"TRACEMIN's 33x33 {dt_} (q = 11)")
+              for dt_ in ("float32", "float64")}
+    k4w_tm.update({(96, str(dt_).split(".")[-1]): k4w_times(
+        k4w_random[(96, dt_)], f"random 96x96 {dt_}")
+        for dt_ in (f32, torch.float64)})
+    k4w_tm[("lanes", "float32")] = k4w_times(
+        k4w_lanes, "phase 8e's lanes' batch of 2")
 
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")
@@ -3404,6 +3786,12 @@ def main():
              "same")
     if upper < lam2 * (1 - 1e-6):
         fail(f"upper bound {upper} below the relaxed lambda_2 {lam2}")
+
+    # ---- 4b. fiedler_block_q = 11: K4w on the main path
+    phase("4b banded path at fiedler_block_q=11 (city10000; sphere2500 "
+          "float64)")
+    mac11, k11, x11, k4w_launches = wide_block(
+        card, dataset, counted, statistics.median(times[1:]))
 
     # ---- 5. the matrix-free path at n = 100000, as bench_scale drives it
     phase(f"5 matrix-free path (n {SCALE_N})")
@@ -3594,8 +3982,8 @@ def main():
 
     # ---- 8. the budget sweep
     phase("8 budget sweep")
-    lanes_a, lanes_b, lanes_d = sweeps(dev, card, mac, mac5, dataset, counted,
-                                       (fi5, wf5, ci5, wc5))
+    lanes_a, lanes_b, lanes_d, lanes_e = sweeps(
+        dev, card, mac, mac5, dataset, counted, (fi5, wf5, ci5, wc5))
 
     # ---- 9. the device mesh
     phase("9 mesh")
@@ -3668,11 +4056,15 @@ def main():
                         f" gap {gap:+.3e} ({rule})")
         return quality
 
-    graph_ab(card, {
+    ab13 = graph_ab(card, {
         "city10000": (mac._banded, lambda: mac.solve(
             k, x_init, rounding="nearest", use_cache=True),
             lambda u: scipy_lam2(mac.laplacian(u)), k,
             rel_gap(REFERENCE_LAM2_UNROUNDED, floor=CITY_GAP_FLOOR)),
+        "city10000 q = 11": (mac11._banded, lambda: mac11.solve(
+            k11, x11, rounding="nearest", use_cache=True),
+            lambda u: scipy_lam2(mac11.laplacian(u)), k11,
+            rel_gap(REFERENCE_LAM2_UNROUNDED, floor=GAP_FLOOR)),
         "sphere2500": (mac_sp._banded, lambda: mac_sp.solve(
             k_sp, x_sp, use_cache=True),
             lambda u: scipy_lam2(mac_sp.laplacian(u)), k_sp,
@@ -3684,6 +4076,9 @@ def main():
             k64, x64, max_iters=20),
             lambda u: scipy_lam2(mac64.laplacian(u)), k64,
             rel_gap(REFERENCE_LAM2_UNROUNDED, within=1e-9))}, counted)
+    if ab13["city10000 q = 11"]["bodies"].get("wide_shared", 0) <= 0:
+        fail(f"13 city10000 q = 11: K4w never launched: "
+             f"{ab13['city10000 q = 11']['bodies']}")
     phase.end()
 
     # "ms" and "device_ms": device time (device_ms); "call_ms": one call
@@ -3760,6 +4155,38 @@ def main():
                 "launch_floor_ms": k4_floor,
                 "sweeps": tm["sweeps"], "chain_steps": tm["chain_steps"]}
 
+    # K4w, K4's thread-block body past order 32: "launches" those of K4w on
+    # its path (phase 4b's three warm city10000 solves at q = 11 in float32,
+    # its two sphere2500 banded float64 solves at q = 11, phase 8e's sweep
+    # at q = 12), "barrier_round_ms" its round with the two barriers
+    # (block probe) beside the bound.
+    def k4w_entry(shape, dtype, key, launches, path, replaces):
+        tm = k4w_tm[key]
+        return dict(k4_entry(shape, dtype, tm, launches, path, replaces),
+                    name="sym_eig_wide", body=tm["body"],
+                    barrier_round_ms=tm["barrier_round_ms"])
+
+    k4w_kernels = [
+        k4w_entry("(33, 33), TRACEMIN's at q = 11", "float32",
+                  (33, "float32"),
+                  k4w_launches["city10000"].get("wide_shared", 0),
+                  "phase 4b city10000 q = 11, 3 warm solves",
+                  "mac_tpu/ops/lobpcg.py:443"),
+        k4w_entry("(33, 33), TRACEMIN's at q = 11", "float64",
+                  (33, "float64"),
+                  k4w_launches["sphere2500 float64"].get("wide_shared", 0),
+                  "phase 4b sphere2500 banded float64 q = 11, 2 solves",
+                  "mac_tpu/ops/lobpcg.py:443"),
+        k4w_entry("(96, 96), random", "float32", (96, "float32"), 0,
+                  "none (timed only; the 3q of q = 32)",
+                  "mac_tpu/ops/lobpcg.py:443"),
+        k4w_entry("(96, 96), random", "float64", (96, "float64"), 0,
+                  "none (timed only; the 3q of q = 32)",
+                  "mac_tpu/ops/lobpcg.py:443"),
+        k4w_entry("(2, 36, 36), a sweep lane each at q = 12", "float32",
+                  ("lanes", "float32"),
+                  lanes_e["sym_eig_by_body"].get("wide_shared", 0),
+                  "phase 8e", "mac_tpu/ops/lobpcg.py:443 (under vmap)")]
     sphere = bundled_launches["sphere2500"]
     scan_blk = "mac_tpu/ops/tridiag.py:153"
     scan_ex = "mac_tpu/ops/tridiag.py:105"
@@ -3868,7 +4295,7 @@ def main():
                  k4_lane_tm[64],
                  eig_launches["sym_eig_by_lanes"].get(64, 0),
                  "phase 7c (GreedyEig intel, subset(8))",
-                 "mac_tpu/ops/lobpcg.py:443 (under vmap)")]
+                 "mac_tpu/ops/lobpcg.py:443 (under vmap)")] + k4w_kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,15 @@
-// K4: the eigenpairs of a batch of small symmetric matrices, by cyclic
-// Jacobi rotations. sym_eig_{f32,f64}(H, evals, V, k, batch, stream):
-// H (batch, k, k) contiguous, k <= 32; evals (batch, k) ascending, ties in
-// index order; V (batch, k, k) with V[:, i, j] the i-th entry of the
-// eigenvector of evals[:, j] (torch.linalg.eigh's layout). The arithmetic
-// stays in H's type.
+// K4: the eigenpairs of a batch of symmetric matrices of any order, by
+// cyclic Jacobi rotations. Two bodies, one arithmetic:
+//   sym_eig_{f32,f64}(H, evals, V, k, batch, stream), k <= 32: one warp a
+//     matrix, the matrix in registers (the warp body);
+//   sym_eig_wide_{f32,f64}(H, evals, V, work, k, batch, stream), any k
+//     (K4w): one thread block a matrix, A and V in dynamic shared memory
+//     (work NULL) or in a global workspace (work: batch x
+//     sym_eig_wide_scratch_bytes_* bytes, 16-byte aligned).
+// H (batch, k, k) contiguous; evals (batch, k) ascending, ties in index
+// order; V (batch, k, k) with V[:, i, j] the i-th entry of the eigenvector
+// of evals[:, j] (torch.linalg.eigh's layout). The arithmetic stays in H's
+// type.
 //
 // Sign convention: each eigenvector column is scaled by -1 where needed so
 // that its entry of largest magnitude (the first such row on ties) is
@@ -12,9 +18,10 @@
 // Replace: the JAX package runs the Rayleigh-Ritz eigensolve of its
 // TRACEMIN as jnp.linalg.eigh inside the compiled solve (mac_tpu/ops/
 // lobpcg.py:354 and :371 at the entry, :443 in every outer iteration), on
-// the 4 x 4 and 12 x 12 matrices of a q = 4 block, under vmap for its
-// lanes. It is not a Pallas kernel; for matrices this small XLA computes it
-// on the TPU by Jacobi rotations too. torch.linalg.eigh on a CUDA tensor
+// the q x q and 3q x 3q matrices of a q-column block (4 x 4 and 12 x 12 at
+// the default q = 4; any q up to n - 1), under vmap for its lanes. It is
+// not a Pallas kernel; for matrices this small XLA computes it on the TPU
+// by Jacobi rotations too. torch.linalg.eigh on a CUDA tensor
 // (cuSOLVER's syevd) reads its error code back to the host, so a solve that
 // called it could not be captured in a CUDA graph; this kernel reads
 // nothing back.
@@ -53,7 +60,7 @@
 // shuffle exchange a round, one warp); chip_smoke.py's K4 bound is the
 // rounds this H takes times that time.
 //
-// The design keeps everything between two parameter computations in
+// The warp body keeps everything between two parameter computations in
 // registers and every index a compile-time constant:
 //   * a template on the even size m (the launcher switches on it): the
 //     rounds and the pairs of a round are unrolled, so every (p, q) is a
@@ -70,10 +77,10 @@
 //   * the parameters sit in a branch; the row updates are selects (and in
 //     float32 the column update too);
 //   * only the ranking and the output go through shared memory, once.
-// One body serves every m. In float64 past m = 20 a lane's column of A and
-// row of V (2 m doubles) outgrow its registers and ptxas spills; those
-// sizes stay right and bitwise, only slower per round (no main path runs
-// them: TRACEMIN's q = 4 gives m = 4 and 12).
+// One body serves every m up to 32. In float64 past m = 20 a lane's column
+// of A and row of V (2 m doubles) outgrow its registers and ptxas spills;
+// those sizes stay right and bitwise, only slower per round (TRACEMIN's
+// default q = 4 gives m = 4 and 12).
 // The roundings are the expressions above, written with the rotation's
 // sign folded in for the column update (x + sigma s (y - sigma tau x),
 // sigma -1 at p and +1 at q, exactly the two formulas after contraction),
@@ -85,6 +92,44 @@
 // inputs.
 //
 // No allocation, no host read: one launch, a warp per matrix.
+//
+// K4w, the wide body (sym_eig_wide_kernel<T, shared>): past m = 32 (a
+// block of q >= 11 columns gives 3q >= 33) a matrix no longer fits a
+// warp's registers. One thread block takes one matrix, with A and V^T
+// row-major (leading dimension m + 1) in a scratch area: dynamic shared
+// memory while the scratch (wide_scratch_bytes: A, V^T, the round's
+// parameters, the reduction's partial sums) fits the 232,448 bytes a
+// block may opt into (m up to 168 in float32, 118 in float64), else the
+// caller's global workspace. The two storage forms run one body over one
+// layout, so their outputs are bitwise equal. The same rounds in the same
+// order as the warp body; each pair of a round has wide_lanes(m) threads
+// of one warp (16 up to m = 128, fewer past it, so that the block stays
+// within 1024 threads), and a round is
+//   1. every thread of a pair computes (p, q) from slot_index at run time,
+//      reads a_pp, a_qq and a_pq = A[p][q] (row p, column q, the operand
+//      the warp body takes) and, where a_pq != 0, (t, c, s, tau) by the
+//      expressions above as the warp body writes them: the same operands
+//      in the same order on each, as the warp body's lanes p and q; its
+//      first thread keeps them for phase 2; a warp barrier (the pair's
+//      threads have read before any of them writes rows p and q);
+//   2. the pair's threads update rows p, q of A and of V^T (V's columns
+//      p, q), a stride of columns each, x + sigma s (y - sigma tau x) with
+//      sigma -1 at p and +1 at q, skipped where s = 0; block barrier;
+//   3. columns p, q of A the same way, a stride of rows each, then, where
+//      the pair acts, the threads of rows p and q write the new diagonal
+//      (a_pp - t a_pq, a_qq + t a_pq) and a_pq = a_qp = 0 after their own
+//      column update; block barrier.
+// Its stop test sums in this order: thread c sums column c's squares over
+// the rows in index order (columns c, c + blockDim, ... one after the
+// other), each warp adds its threads' sums by a butterfly, and every
+// thread adds the warps' sums in warp order. For m <= 32 that is the warp
+// body's order, so K4w forced onto a small matrix gives the warp body's
+// outputs bit for bit. The ranking and the sign convention are the warp
+// body's, a thread an eigenpair (a row of V^T). What bounds it is the
+// warp body's chain plus the two block barriers a round;
+// sym_eig_wide_round_probe_{f32,f64} times that round alone (the
+// parameter arithmetic, an exchange through shared memory and the two
+// barriers, at a given block size).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -380,6 +425,302 @@ int probe(void* out, int rounds, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- K4w: one thread block a matrix, any order ----
+
+// Bytes of dynamic shared memory a block may opt into (H100, H200).
+constexpr long long kSmemLimit = 232448;
+
+// K4w's leading dimension of A and V^T at even order m: odd, so that a
+// warp reading down a column of float32 entries meets no bank twice.
+__host__ __device__ constexpr int wide_ld(int m) { return m + 1; }
+
+// Bytes of K4w's per-matrix scratch at even order m, rounded up to 16: in
+// elements of T, A and V^T (m x wide_ld(m) each, row-major), per pair s,
+// tau and the new a_pp and a_qq (4 x m / 2), the reduction's per-warp sums
+// (32); then per pair p, q and act (3 x m / 2 ints).
+template <typename T>
+__host__ __device__ constexpr long long wide_scratch_bytes(int m) {
+  return ((2LL * m * wide_ld(m) + 2LL * m + 32) * (long long)sizeof(T)
+          + 3LL * (m / 2) * (long long)sizeof(int) + 15) / 16 * 16;
+}
+
+// Threads a pair at even order m: the largest power of two up to 16 that
+// keeps m / 2 pairs within 1024 threads (1 past m = 2048, where a thread
+// takes several pairs in turn). Every setting gives the same bits; of 1
+// to 32, 16 ran fastest on the H100 from m = 34 to 96.
+__host__ __device__ constexpr int wide_lanes(int m) {
+  int lanes = 16;
+  while (lanes > 1 && (long long)(m / 2) * lanes > 1024) lanes >>= 1;
+  return lanes;
+}
+
+// Threads of K4w's block at even order m: m / 2 pairs of wide_lanes(m)
+// threads, a multiple of 32, at most 1024.
+__host__ __device__ constexpr int wide_threads(int m) {
+  const long long t = (long long)(m / 2) * wide_lanes(m);
+  return t >= 1024 ? 1024 : (int)((t + 31) / 32 * 32);
+}
+
+template <typename T>
+struct WideScratch {
+  T *A, *VT, *s, *tau, *dp, *dq, *red;
+  int *p, *q, *act;
+  __device__ WideScratch(unsigned char* base, int m) {
+    const int h = m / 2;
+    const size_t mm = (size_t)m * wide_ld(m);
+    A = reinterpret_cast<T*>(base);
+    VT = A + mm;
+    s = VT + mm;
+    tau = s + h;
+    dp = tau + h;
+    dq = dp + h;
+    red = dq + h;
+    p = reinterpret_cast<int*>(red + 32);
+    q = p + h;
+    act = q + h;
+  }
+};
+
+// The sum of every thread's v over the block, the same on every thread:
+// each warp's by warp_sum, then the warps' sums in warp order.
+template <typename T>
+__device__ T block_sum(T v, T* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T total = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) total += red[w];
+  __syncthreads();  // red is written again by the next sum
+  return total;
+}
+
+// The sum of squares of A's entries (off: its off-diagonal entries) in the
+// order stated in the header.
+template <typename T>
+__device__ T wide_squares(const T* A, int m, bool off, T* red) {
+  const int ld = wide_ld(m);
+  T acc = T(0);
+  for (int c = threadIdx.x; c < m; c += blockDim.x)
+    for (int i = 0; i < m; ++i)
+      if (!off || i != c) {
+        const T a = A[(size_t)i * ld + c];
+        acc += a * a;
+      }
+  return block_sum(acc, red);
+}
+
+// slot_index(slot, r, m) without the division, for run-time m and r
+// (slot < m, r < m - 1); the warp body's slot_index folds at compile time.
+__device__ __forceinline__ int wide_slot(int slot, int r, int m) {
+  if (slot == 0) return 0;
+  const int x = slot - 1 + r;
+  return (x < m - 1 ? x : x - (m - 1)) + 1;
+}
+
+// Round r of a sweep over m (even) indices; see the header. Thread tid
+// serves pair tid / lanes + k * (blockDim / lanes) (one pair when lanes >
+// 1) as the lane tid % lanes of its `lanes` threads (a power of two up to
+// 32).
+template <typename T>
+__device__ void wide_round(WideScratch<T>& w, int m, int lanes, int r) {
+  const int h = m / 2, ld = wide_ld(m);
+  const int per_pass = blockDim.x / lanes, lane = threadIdx.x & (lanes - 1);
+  T* const A = w.A;
+  T* const VT = w.VT;
+  for (int base = 0; base < h; base += per_pass) {  // uniform trip count
+    const int i = base + threadIdx.x / lanes;
+    const bool mine = i < h;
+    int p = 0, q = 0;
+    T t = T(0), s = T(0), tau = T(0), app = T(0), aqq = T(0), apq = T(0);
+    if (mine) {
+      const int sa = wide_slot(i, r, m), sb = wide_slot(m - 1 - i, r, m);
+      p = sa < sb ? sa : sb;
+      q = sa < sb ? sb : sa;
+      app = A[(size_t)p * ld + p];
+      aqq = A[(size_t)q * ld + q];
+      apq = A[(size_t)p * ld + q];
+      if (apq != T(0)) {
+        T d = aqq - app, a2 = apq + apq;
+        t = a2 / (d + copysign(hypot(d, a2), d));
+        T c = T(1) / hypot(t, T(1));
+        s = t * c;
+        tau = s / (T(1) + c);
+      }
+    }
+    // The pair's lanes have read a_pp, a_qq and a_pq before any of them
+    // updates rows p and q (one warp holds them; no other pair reads
+    // those rows).
+    if (lanes > 1) __syncwarp();
+    if (mine) {
+      if (lane == 0) {
+        w.p[i] = p;
+        w.q[i] = q;
+        w.act[i] = apq != T(0);
+        w.s[i] = s;
+        w.tau[i] = tau;
+        w.dp[i] = app - t * apq;
+        w.dq[i] = aqq + t * apq;
+      }
+      if (s != T(0)) {
+        const T ss = -s, tt = -tau;  // sigma = -1 at p
+        T *ap = A + (size_t)p * ld, *aq = A + (size_t)q * ld;
+        T *vp = VT + (size_t)p * ld, *vq = VT + (size_t)q * ld;
+        for (int c = lane; c < m; c += lanes) {
+          const T xa = ap[c], ya = aq[c], xv = vp[c], yv = vq[c];
+          ap[c] = xa + ss * (ya - tt * xa);
+          aq[c] = ya + s * (xa - tau * ya);
+          vp[c] = xv + ss * (yv - tt * xv);
+          vq[c] = yv + s * (xv - tau * yv);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int base = 0; base < h; base += per_pass) {
+    const int i = base + threadIdx.x / lanes;
+    if (i >= h) continue;
+    const int p = w.p[i], q = w.q[i];
+    const T s = w.s[i], tau = w.tau[i];
+    if (s != T(0)) {
+      const T ss = -s, tt = -tau;
+      for (int row = lane; row < m; row += lanes) {
+        T* const ar = A + (size_t)row * ld;
+        const T x = ar[p], y = ar[q];
+        ar[p] = x + ss * (y - tt * x);
+        ar[q] = y + s * (x - tau * y);
+      }
+    }
+    // The thread of row p and of row q: the new diagonal, a_pq = a_qp = 0,
+    // after its own column update.
+    if (w.act[i]) {
+      if ((p & (lanes - 1)) == lane) {
+        A[(size_t)p * ld + p] = w.dp[i];
+        A[(size_t)p * ld + q] = T(0);
+      }
+      if ((q & (lanes - 1)) == lane) {
+        A[(size_t)q * ld + p] = T(0);
+        A[(size_t)q * ld + q] = w.dq[i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(1024)
+sym_eig_wide_kernel(const T* __restrict__ H, T* __restrict__ evals,
+                    T* __restrict__ Vout, unsigned char* work, int k,
+                    int m, int lanes) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int mat = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int ld = wide_ld(m);
+  WideScratch<T> w(kShared ? wide_smem
+                           : work + (size_t)mat * wide_scratch_bytes<T>(m),
+                   m);
+  const T* Hb = H + (size_t)mat * k * k;
+
+  // A = H with a zero row and column padding an odd k; V^T = I.
+  for (size_t e = tid; e < (size_t)m * m; e += nt) {
+    const int i = (int)(e / m), j = (int)(e - (size_t)i * m);
+    w.A[(size_t)i * ld + j] = (i < k && j < k) ? Hb[(size_t)i * k + j]
+                                               : T(0);
+    w.VT[(size_t)i * ld + j] = i == j ? T(1) : T(0);
+  }
+  __syncthreads();
+  const T tol = Eps<T>::value() * sqrt(wide_squares(w.A, m, false, w.red));
+  for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
+    if (sqrt(wide_squares(w.A, m, true, w.red)) <= tol) break;  // uniform
+    for (int r = 0; r < m - 1; ++r) wide_round(w, m, lanes, r);
+  }
+
+  // Thread j owns eigenpair j (column j of V, row j of V^T): the sign
+  // convention, the rank, the output.
+  for (int j = tid; j < k; j += nt) {
+    const T* vj = w.VT + (size_t)j * ld;
+    int imax = 0;
+    T vmax = fabs(vj[0]);
+    for (int i = 1; i < k; ++i) {
+      const T x = fabs(vj[i]);
+      if (x > vmax) {
+        vmax = x;
+        imax = i;
+      }
+    }
+    const bool neg = vj[imax] < T(0);
+    const T d = w.A[(size_t)j * ld + j];
+    int rank = 0;
+    for (int i = 0; i < k; ++i)
+      if (i != j && before(w.A[(size_t)i * ld + i], i, d, j)) ++rank;
+    evals[(size_t)mat * k + rank] = d;
+    T* vb = Vout + (size_t)mat * k * k;
+    for (int i = 0; i < k; ++i) vb[(size_t)i * k + rank] = neg ? -vj[i]
+                                                                : vj[i];
+  }
+}
+
+template <typename T>
+int launch_wide(const void* H, void* evals, void* V, void* work, int k,
+                int batch, void* stream) {
+  if (k < 1 || batch < 0) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const int m = k + (k & 1);
+  const long long bytes = wide_scratch_bytes<T>(m);
+  const int lanes = wide_lanes(m), threads = wide_threads(m);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (work == nullptr) {
+    if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+    // Once per instantiation, at its first launch (a captured solve runs
+    // one step eagerly before it captures).
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        sym_eig_wide_kernel<T, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
+    if (attr != cudaSuccess) return (int)attr;
+    sym_eig_wide_kernel<T, true><<<batch, threads, (size_t)bytes, st>>>(
+        (const T*)H, (T*)evals, (T*)V, nullptr, k, m, lanes);
+  } else {
+    if (reinterpret_cast<uintptr_t>(work) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    sym_eig_wide_kernel<T, false><<<batch, threads, 0, st>>>(
+        (const T*)H, (T*)evals, (T*)V, (unsigned char*)work, k, m, lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4w's round alone: one block of `threads` threads; each round the
+// parameter arithmetic of wide_round on every thread, its tau through
+// shared memory to the partner thread, and the round's two block
+// barriers.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+wide_round_probe_kernel(T* out, int rounds) {
+  __shared__ T ex[1024];
+  const int tid = threadIdx.x;
+  const T app = T(1) + T(0.25) * (tid & 7), aqq = T(2) - T(0.125) * (tid & 3);
+  T apq = T(0.5);
+  for (int r = 0; r < rounds; ++r) {
+    T d = aqq - app, a2 = apq + apq;
+    T t = a2 / (d + copysign(hypot(d, a2), d));
+    T c = T(1) / hypot(t, T(1));
+    T s = t * c;
+    T tau = s / (T(1) + c);
+    ex[tid] = tau;
+    __syncthreads();
+    const T y = ex[tid ^ 1];
+    __syncthreads();
+    apq = y + T(0.5);
+  }
+  if (tid < 32) out[tid] = apq;
+}
+
+template <typename T>
+int wide_probe(void* out, int rounds, int threads, void* stream) {
+  if (rounds < 0 || threads < 32 || threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  wide_round_probe_kernel<T><<<1, threads, 0, (cudaStream_t)stream>>>(
+      (T*)out, rounds);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -394,6 +735,31 @@ int sym_eig_f64(const void* H, void* evals, void* V, int k, int batch,
   return launch<double>(H, evals, V, k, batch, stream);
 }
 
+// K4w: H, evals, V as sym_eig_*; work NULL (A and V in shared memory,
+// refused where sym_eig_wide_scratch_bytes_* passes 232,448) or a
+// workspace of batch x sym_eig_wide_scratch_bytes_*(k) bytes.
+int sym_eig_wide_f32(const void* H, void* evals, void* V, void* work, int k,
+                     int batch, void* stream) {
+  return launch_wide<float>(H, evals, V, work, k, batch, stream);
+}
+
+int sym_eig_wide_f64(const void* H, void* evals, void* V, void* work, int k,
+                     int batch, void* stream) {
+  return launch_wide<double>(H, evals, V, work, k, batch, stream);
+}
+
+// The bytes of K4w's scratch for one matrix of order k, and its block's
+// threads.
+long long sym_eig_wide_scratch_bytes_f32(int k) {
+  return wide_scratch_bytes<float>(k + (k & 1));
+}
+
+long long sym_eig_wide_scratch_bytes_f64(int k) {
+  return wide_scratch_bytes<double>(k + (k & 1));
+}
+
+int sym_eig_wide_threads(int k) { return wide_threads(k + (k & 1)); }
+
 // out: 32 values of the type; rounds: the chain's length.
 int sym_eig_round_probe_f32(void* out, int rounds, void* stream) {
   return probe<float>(out, rounds, stream);
@@ -401,6 +767,18 @@ int sym_eig_round_probe_f32(void* out, int rounds, void* stream) {
 
 int sym_eig_round_probe_f64(void* out, int rounds, void* stream) {
   return probe<double>(out, rounds, stream);
+}
+
+// K4w's round at a block of `threads` threads (a multiple of 32, at most
+// 1024); out: 32 values of the type.
+int sym_eig_wide_round_probe_f32(void* out, int rounds, int threads,
+                                 void* stream) {
+  return wide_probe<float>(out, rounds, threads, stream);
+}
+
+int sym_eig_wide_round_probe_f64(void* out, int rounds, int threads,
+                                 void* stream) {
+  return wide_probe<double>(out, rounds, threads, stream);
 }
 
 }  // extern "C"

@@ -76,6 +76,7 @@ from mac_tpu_torch.ops.kernels import ldl as _ldl
 from mac_tpu_torch.ops.kernels import syev as _syev
 from mac_tpu_torch.ops.kernels import tridiag as _tridiag
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut
+from mac_tpu_torch.ops.kernels.tridiag import COUNT_DICTS
 from mac_tpu_torch.ops.laplacian import (GraphOperator, ell_applier,
                                          lap_inf_norm, lap_weight_table)
 from mac_tpu_torch.ops.lobpcg import (FiedlerResult, TraceminCarry,
@@ -91,14 +92,15 @@ WRAPPERS = (_tridiag.tridiag_solve, _tridiag.tridiag_solve_blocked,
 
 
 def _counts():
-    return [(w.launches, dict(w.launches_by_lanes), dict(w.launches_by_dtype))
+    return [(w.launches, *(dict(getattr(w, d)) for d in COUNT_DICTS))
             for w in WRAPPERS]
 
 
 def _set_counts(counts) -> None:
-    for w, (n, lanes, dtypes) in zip(WRAPPERS, counts):
-        w.launches, w.launches_by_lanes, w.launches_by_dtype = (
-            n, dict(lanes), dict(dtypes))
+    for w, (n, *dicts) in zip(WRAPPERS, counts):
+        w.launches = n
+        for d, got in zip(COUNT_DICTS, dicts):
+            setattr(w, d, dict(got))
 
 
 def _delta(after, before):
@@ -106,17 +108,17 @@ def _delta(after, before):
     def sub(a, b):
         return {k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
 
-    return [(na - nb, sub(la, lb), sub(da, db))
-            for (na, la, da), (nb, lb, db) in zip(after, before)]
+    return [(na - nb, *(sub(a, b) for a, b in zip(da, db)))
+            for (na, *da), (nb, *db) in zip(after, before)]
 
 
 def _add(delta) -> None:
-    for w, (n, lanes, dtypes) in zip(WRAPPERS, delta):
+    for w, (n, *dicts) in zip(WRAPPERS, delta):
         w.launches += n
-        for key, v in lanes.items():
-            w.launches_by_lanes[key] = w.launches_by_lanes.get(key, 0) + v
-        for key, v in dtypes.items():
-            w.launches_by_dtype[key] = w.launches_by_dtype.get(key, 0) + v
+        for d, got in zip(COUNT_DICTS, dicts):
+            counts = getattr(w, d)
+            for key, v in got.items():
+                counts[key] = counts.get(key, 0) + v
 
 
 def _kernels_in_use():

@@ -1,28 +1,36 @@
-"""Kernel K4: the eigenpairs of small symmetric matrices (csrc/syev.cu).
+"""Kernel K4: the eigenpairs of symmetric matrices (csrc/syev.cu).
 
-sym_eig(H) -> (evals, V) for H of shape (..., k, k), k <= 32, float32 or
-float64, computed in H's dtype by cyclic Jacobi rotations in the parallel
-(round-robin) order: evals (..., k) ascending, ties in index order, and V
-(..., k, k) with V[..., :, j] the unit eigenvector of evals[..., j], scaled
-so that its entry of largest magnitude (the first on ties) is positive.
-H is read as symmetric (both triangles are used); TRACEMIN hands it
-(H + H^T) / 2.
+sym_eig(H) -> (evals, V) for H of shape (..., k, k), any k >= 1, float32
+or float64, computed in H's dtype by cyclic Jacobi rotations in the
+parallel (round-robin) order: evals (..., k) ascending, ties in index
+order, and V (..., k, k) with V[..., :, j] the unit eigenvector of
+evals[..., j], scaled so that its entry of largest magnitude (the first on
+ties) is positive. H is read as symmetric (both triangles are used);
+TRACEMIN hands it (H + H^T) / 2.
 
 It stands for jnp.linalg.eigh in the JAX package's TRACEMIN (the
-Rayleigh-Ritz eigensolves, mac_tpu/ops/lobpcg.py:354, :371, :443, under
-vmap for its lanes), as torch.linalg.eigh, which on a CUDA tensor reads
-its error code back to the host and so cannot sit inside a captured CUDA
-graph.
+Rayleigh-Ritz eigensolves of a q-column block, q x q at the entry and
+3q x 3q in every outer iteration, mac_tpu/ops/lobpcg.py:354, :371, :443,
+under vmap for its lanes), as torch.linalg.eigh, which on a CUDA tensor
+reads its error code back to the host and so cannot sit inside a captured
+CUDA graph.
 
-The wrapper launches the CUDA kernel for a CUDA tensor (one launch, a
-warp per matrix with the matrix in registers, no host read) and runs the
-plain PyTorch version (`sym_eig_plain`: the same rounds in the same
-order, the same rotation formulas and the same stop rule, vectorised over
-a round's k / 2 pairs and over the batch) for a CPU tensor. On a CUDA tensor it raises for what the
-kernel does not take (k > 32, a dtype other than float32 and float64, a
-non-contiguous tensor); nothing falls back to torch.linalg.eigh. It counts
-its launches in `.launches`, `.launches_by_lanes` (by the number of
-matrices) and `.launches_by_dtype`, as the other kernels' wrappers do.
+The wrapper launches a CUDA kernel for a CUDA tensor (one launch, no host
+read) and runs the plain PyTorch version (`sym_eig_plain`: the same rounds
+in the same order, the same rotation formulas and the same stop rule,
+vectorised over a round's k / 2 pairs and over the batch) for a CPU
+tensor. The kernel has two bodies, picked by `body_for(k, dtype)`:
+"warp" for k <= 32 (a warp a matrix, the matrix in registers), and past
+it K4w, a thread block a matrix, with A and V in shared memory while they
+fit ("wide_shared") and in a workspace the wrapper allocates with
+torch.empty on H's device otherwise ("wide_workspace"; inside a CUDA graph
+capture it comes from the graph's pool). On a CUDA tensor the wrapper
+raises for what the kernels do not take (a dtype other than float32 and
+float64, a non-contiguous tensor, a batch past int32); nothing falls back
+to torch.linalg.eigh. It counts its launches in `.launches`,
+`.launches_by_lanes` (by the number of matrices), `.launches_by_dtype` and
+`.launches_by_body` (by body_for's names), as the other kernels' wrappers
+do.
 """
 
 import ctypes
@@ -34,7 +42,12 @@ from mac_tpu_torch.ops.kernels import _build
 from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
                                                reset_counts)
 
-MAX_K = 32
+# The largest order the warp body takes; past it K4w runs.
+WARP_MAX_K = 32
+# Bytes of dynamic shared memory a block may opt into (H100, H200): K4w
+# keeps A and V there while its scratch fits.
+SMEM_LIMIT = 232448
+BODIES = ("warp", "wide_shared", "wide_workspace")
 # Sweeps at most; the stop test (off-diagonal Frobenius norm at most
 # eps ||H||_F) ends the loop before every sweep, on the card and here.
 MAX_SWEEPS = 30
@@ -144,19 +157,44 @@ def _jacobi(H: torch.Tensor):
     return evals.reshape(*lead, k), V.reshape(*lead, k, k), sweeps
 
 
-_SIGNATURES = {f"sym_eig_{suffix}": [ctypes.c_void_p] * 3
-               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-               for suffix in SUFFIX.values()}
+def wide_scratch_bytes(k: int, itemsize: int) -> int:
+    """Bytes of K4w's scratch for one matrix of order k (syev.cu's
+    wide_scratch_bytes at m = k rounded up to even): A and V^T (m rows of
+    m + 1), per pair s, tau and the new diagonal pair, 32 partial sums, in
+    elements of `itemsize` bytes, and three ints per pair, rounded up to
+    16."""
+    m = k + (k & 1)
+    return ((2 * m * (m + 1) + 2 * m + 32) * itemsize + 3 * (m // 2) * 4
+            + 15) // 16 * 16
+
+
+def body_for(k: int, dtype: torch.dtype) -> str:
+    """The kernel body that sym_eig runs for order k in dtype on the card:
+    "warp" up to WARP_MAX_K, then "wide_shared" while K4w's scratch fits
+    SMEM_LIMIT (k up to 168 in float32, 118 in float64), else
+    "wide_workspace"."""
+    if k <= WARP_MAX_K:
+        return "warp"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return ("wide_shared" if wide_scratch_bytes(k, itemsize) <= SMEM_LIMIT
+            else "wide_workspace")
+
+
+_SIGNATURES = {
+    **{f"sym_eig_{suffix}": [ctypes.c_void_p] * 3
+       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+       for suffix in SUFFIX.values()},
+    **{f"sym_eig_wide_{suffix}": [ctypes.c_void_p] * 4
+       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+       for suffix in SUFFIX.values()}}
 
 
 def check_kernel_args(H: torch.Tensor) -> None:
-    """What the kernel takes: a (..., k, k) float32 or float64 tensor, k
-    from 1 to MAX_K, contiguous."""
+    """What the kernels take: a (..., k, k) float32 or float64 tensor, any
+    k >= 1, contiguous, fewer than 2^31 matrices."""
     if H.dim() < 2 or H.shape[-1] != H.shape[-2] or H.shape[-1] < 1:
         raise ValueError(f"sym_eig: want H (..., k, k), k >= 1; got "
                          f"{tuple(H.shape)}")
-    if H.shape[-1] > MAX_K:
-        raise ValueError(f"sym_eig kernel: k = {H.shape[-1]} past {MAX_K}")
     if H.dtype not in SUFFIX:
         raise TypeError(f"sym_eig kernel takes float32 or float64, not "
                         f"{H.dtype}")
@@ -166,21 +204,12 @@ def check_kernel_args(H: torch.Tensor) -> None:
         raise ValueError("sym_eig kernel: batch past int32")
 
 
-def check_block(q: int, device) -> None:
-    """Refuse on a CUDA device a TRACEMIN block of q columns whose
-    Rayleigh-Ritz eigensolve (3q x 3q) the kernel does not take: q past
-    MAX_K // 3 = 10. The CPU (the plain version) takes any q."""
-    if torch.device(device).type == "cuda" and 3 * q > MAX_K:
-        raise ValueError(
-            f"a TRACEMIN block of q = {q} columns needs {3 * q} x {3 * q} "
-            f"Rayleigh-Ritz eigensolves; the sym_eig kernel takes k up to "
-            f"{MAX_K}, so on a CUDA device q is at most {MAX_K // 3}")
-
-
-def sym_eig(H: torch.Tensor):
+def sym_eig(H: torch.Tensor, body: str = None):
     """K4: (evals, V) of the symmetric matrices H (..., k, k) (see the
-    module docstring). CUDA tensors: the hand-written kernel (one launch);
-    CPU tensors: the plain version."""
+    module docstring). CUDA tensors: the hand-written kernel, one launch
+    of the body body_for(k, dtype) names; `body` forces one of BODIES
+    instead (the two storage forms of K4w, or K4w on a small matrix, for
+    comparison). CPU tensors: the plain version."""
     if not H.is_cuda:
         if H.dim() < 2 or H.shape[-1] != H.shape[-2] or H.shape[-1] < 1:
             raise ValueError(f"sym_eig: want H (..., k, k), k >= 1; got "
@@ -189,14 +218,33 @@ def sym_eig(H: torch.Tensor):
     check_kernel_args(H)
     k = H.shape[-1]
     batch = H.numel() // (k * k)
+    body = body_for(k, H.dtype) if body is None else body
+    if body not in BODIES:
+        raise ValueError(f"sym_eig: body {body!r} is none of {BODIES}")
+    if body == "warp" and k > WARP_MAX_K:
+        raise ValueError(f"sym_eig: the warp body takes k up to "
+                         f"{WARP_MAX_K}, not {k}")
     evals = torch.empty(H.shape[:-1], dtype=H.dtype, device=H.device)
     V = torch.empty_like(H)
-    call = _build.function("syev", f"sym_eig_{SUFFIX[H.dtype]}", _SIGNATURES)
-    err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
-                        V.data_ptr(), k, batch)
+    suffix = SUFFIX[H.dtype]
+    if body == "warp":
+        call = _build.function("syev", f"sym_eig_{suffix}", _SIGNATURES)
+        err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
+                            V.data_ptr(), k, batch)
+    else:
+        work = None
+        if body == "wide_workspace":
+            work = torch.empty(batch * wide_scratch_bytes(k, H.element_size()),
+                               dtype=torch.uint8, device=H.device)
+        call = _build.function("syev", f"sym_eig_wide_{suffix}", _SIGNATURES)
+        err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
+                            V.data_ptr(),
+                            None if work is None else work.data_ptr(), k,
+                            batch)
     if err != 0:
-        raise RuntimeError(f"sym_eig kernel launch failed: cudaError {err}")
-    count_launch(sym_eig, batch, H.dtype)
+        raise RuntimeError(f"sym_eig kernel ({body}) launch failed: "
+                           f"cudaError {err}")
+    count_launch(sym_eig, batch, H.dtype, body)
     return evals, V
 
 

@@ -166,21 +166,29 @@ def _launch(fn: str, dp, l, B, *extra) -> torch.Tensor:
     return X
 
 
-def count_launch(wrapper, lanes: int, dtype: torch.dtype) -> None:
-    """One launch of `wrapper`'s kernel on `lanes` lanes of `dtype`."""
+# A wrapper's launch counts by key: lanes, dtype name and, for a kernel of
+# several bodies, the body's name.
+COUNT_DICTS = ("launches_by_lanes", "launches_by_dtype", "launches_by_body")
+
+
+def count_launch(wrapper, lanes: int, dtype: torch.dtype,
+                 body: str = None) -> None:
+    """One launch of `wrapper`'s kernel on `lanes` lanes of `dtype` (and
+    of its body `body`, if it has several)."""
     wrapper.launches += 1
-    wrapper.launches_by_lanes[lanes] = (
-        wrapper.launches_by_lanes.get(lanes, 0) + 1)
-    key = str(dtype).split(".")[-1]
-    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+    keys = (lanes, str(dtype).split(".")[-1], body)
+    for name, key in zip(COUNT_DICTS, keys):
+        if key is not None:
+            counts = getattr(wrapper, name)
+            counts[key] = counts.get(key, 0) + 1
 
 
 def reset_counts(*wrappers) -> None:
     """Set every count of each kernel wrapper to 0."""
     for wrapper in wrappers:
         wrapper.launches = 0
-        wrapper.launches_by_lanes = {}
-        wrapper.launches_by_dtype = {}
+        for name in COUNT_DICTS:
+            setattr(wrapper, name, {})
 
 
 def tridiag_solve(dp: torch.Tensor, l: torch.Tensor,

@@ -71,7 +71,6 @@ import torch
 
 from mac_tpu_torch.device import resolve_device
 from mac_tpu_torch.ops.banded import PrecondState, build_banded_rcm
-from mac_tpu_torch.ops.kernels import syev as _syev
 from mac_tpu_torch.ops.laplacian import build_operator
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.optimization.constraints import (
@@ -190,10 +189,10 @@ class MAC(HostSolveMixin):
         this rank; a device that contradicts it raises.
     mesh: a ("sweep", "graph") torch.distributed DeviceMesh (make_mesh)
         spanning the process group, or None (see the module docstring).
-    fiedler_block_q: the eigensolver's block width q (4 by default). On a
-        CUDA device at most 10: TRACEMIN's 3q x 3q Rayleigh-Ritz
-        eigensolves run in the sym_eig kernel, which takes k up to 32, and
-        a larger q raises here.
+    fiedler_block_q: the eigensolver's block width q (4 by default; any q,
+        capped at n - 1). TRACEMIN's q x q and 3q x 3q Rayleigh-Ritz
+        eigensolves run in the sym_eig kernel on a CUDA device: its warp
+        body up to order 32, its thread-block body (K4w) past it.
     mesh_apply: the sharding of the matrix-free product on a mesh, "rows"
         (node rows, all-gathered; the default) or "edges" (round-robin
         edges, all-reduced).
@@ -333,7 +332,6 @@ class MAC(HostSolveMixin):
         self.device = resolve_device(device)
         self.num_nodes = n
         self._q = min(int(fiedler_block_q or 4), n - 1)
-        _syev.check_block(self._q, self.device)
         self.fixed_idx = fixed_idx
         self.cand_idx = cand_idx
         self.weights = np.asarray(w_cand)

@@ -11,9 +11,10 @@ block-Jacobi and additive variants against their CPU calls, and the
 eigensolver's inner solve replayed as a CUDA graph against the eager loop
 (bitwise, across weight vectors, with the launch counts), and the
 Rayleigh-Ritz eigensolver K4 at every order up to 32 and on batches that
-leave its last block partial, with TRACEMIN's lanes (GreedyEig's trial
-chunk, the budget sweep) launching it once a lane batch and never
-calling torch.linalg.eigh. Marked `cuda`;
+leave its last block partial, its thread-block body K4w past 32 (both
+storage forms, bitwise equal; a replayed solve at q = 11), with
+TRACEMIN's lanes (GreedyEig's trial chunk, the budget sweep) launching it
+once a lane batch and never calling torch.linalg.eigh. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -1014,10 +1015,10 @@ def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
     assert solve.pool_bytes >= 0 and solve.static_bytes > 0
 
 
-def _solve_inputs(dev, route, dtype=torch.float32):
-    """(operator, weight vectors at two seeds, start block, xprev0) of a
-    small banded graph (n 1500, K3) or the ELL operator past 32768 nodes
-    (K1b, K3b), on the card."""
+def _solve_inputs(dev, route, dtype=torch.float32, q=4):
+    """(operator, weight vectors at two seeds, start block of q columns,
+    xprev0) of a small banded graph (n 1500, K3) or the ELL operator past
+    32768 nodes (K1b, K3b), on the card."""
     from chip_smoke import synthetic
     from mac_tpu_torch.ops import laplacian
 
@@ -1032,30 +1033,33 @@ def _solve_inputs(dev, route, dtype=torch.float32):
     ws = [torch.as_tensor(w_np * (0.5 + np.random.RandomState(seed).rand(
         len(w_np))), dtype=dtype, device=dev) for seed in (1, 2)]
     rng = np.random.RandomState(3)
-    X = torch.as_tensor(rng.normal(size=(n, 4)), dtype=dtype, device=dev)
-    xprev0 = torch.as_tensor(rng.normal(size=(n, 4)), dtype=dtype,
+    X = torch.as_tensor(rng.normal(size=(n, q)), dtype=dtype, device=dev)
+    xprev0 = torch.as_tensor(rng.normal(size=(n, q)), dtype=dtype,
                              device=dev)
     return op, ws, X, xprev0
 
 
-@pytest.mark.parametrize("route", ["banded", "banded-f64", "ell"])
+@pytest.mark.parametrize("route", ["banded", "banded-f64", "ell",
+                                   "banded-q11", "banded-f64-q11"])
 def test_replayed_solves_are_bitwise_the_eager_ones(dev, route):
     """Frank-Wolfe-like solves through ops.graphs.solve on the card: the
     banded route a cold build, then a Newton-Schulz refresh and a carried
     state from the state the step before returned (float32 and float64),
-    the ELL route a cold build at each weight vector. The first round
-    captures both replayed paths' graphs; in the second the set-up and
-    outer-iteration graphs' replays must be bitwise the eager path
-    (graphs.plain_solve on the card, K4 as in the graphs) and the
-    inner-replay path (the inner CG steps alone replayed), with the same
-    launches of every kernel wrapper by dtype, K4 among them, and no
-    capture."""
+    the ELL route a cold build at each weight vector; a block of 4
+    columns, or of 11 (q11: the 33 x 33 Rayleigh-Ritz eigensolves in
+    K4w). The first round captures both replayed paths' graphs; in the
+    second the set-up and outer-iteration graphs' replays must be bitwise
+    the eager path (graphs.plain_solve on the card, K4 as in the graphs)
+    and the inner-replay path (the inner CG steps alone replayed), with
+    the same launches of every kernel wrapper by dtype and of K4 by body,
+    K4 among them (K4w at q = 11), and no capture."""
     from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.kernels import syev
     from mac_tpu_torch.ops.kernels.tridiag import reset_counts
 
-    dtype = torch.float64 if route.endswith("f64") else torch.float32
-    op, ws, X0, xprev0 = _solve_inputs(dev, route, dtype)
+    dtype = torch.float64 if "f64" in route else torch.float32
+    q = 11 if route.endswith("q11") else 4
+    op, ws, X0, xprev0 = _solve_inputs(dev, route, dtype, q)
     if route.startswith("banded"):
         rt = graphs.banded_route(op, banded.PRECOND_KIND)
         branches = ("cold", "ns", "carried")
@@ -1084,9 +1088,12 @@ def test_replayed_solves_are_bitwise_the_eager_ones(dev, route):
             if rnd:
                 assert rt.captures == c0, path
             counts = tuple((w.__name__, w.launches,
-                            tuple(sorted(w.launches_by_dtype.items())))
+                            tuple(sorted(w.launches_by_dtype.items())),
+                            tuple(sorted(w.launches_by_body.items())))
                            for w in graphs.WRAPPERS)
             assert syev.sym_eig.launches > 0
+            assert (syev.sym_eig.launches_by_body.get("wide_shared", 0)
+                    > 0) == (q == 11)
             seen.add(counts)
             if first is None:
                 first = outs
@@ -1157,10 +1164,15 @@ def test_failed_capture_raises(dev):
 
 # K4's shapes: TRACEMIN's, a batch that leaves the last block of four
 # matrices partial (67), and a batch of three at every k from 1 to 32: the
-# kernel's every instantiation (even m = 2 ... 32) and the odd k padded
-# beside each.
-_K4_SHAPES = [(4, 4), (12, 12), (5, 12, 12), (67, 12, 12), (32, 32),
-              (2, 31, 31)] + [(3, k, k) for k in range(1, 33)]
+# warp body's every instantiation (even m = 2 ... 32) and the odd k padded
+# beside each; K4w's: TRACEMIN's 33 x 33 (q = 11) and the lanes' (2, 36,
+# 36) (q = 12), odd and even orders in shared memory, and 170 / 180 (float32)
+# and 120 / 130 (float64) past it, on the workspace.
+_K4_SHAPES = ([(4, 4), (12, 12), (5, 12, 12), (67, 12, 12), (32, 32),
+               (2, 31, 31)] + [(3, k, k) for k in range(1, 33)]
+              + [(33, 33), (3, 33, 33), (2, 36, 36), (5, 47, 47), (64, 64),
+                 (96, 96), (118, 118), (2, 120, 120), (130, 130),
+                 (170, 170), (180, 180)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1170,7 +1182,7 @@ def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
     (random symmetric matrices): eigenvalues within 2 k eps ||H|| of both,
     ascending; residual within 2 k eps ||H|| and V^T V within 2 k eps of
     I; each column's largest entry positive; one launch a call, counted
-    with the batch as lanes."""
+    with the batch as lanes and under the body body_for names."""
     from mac_tpu_torch.ops.kernels import syev
 
     k = shape[-1]
@@ -1179,10 +1191,13 @@ def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
     H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dtype, device=dev)
     before = syev.sym_eig.launches
     lanes = syev.sym_eig.launches_by_lanes.get(H.numel() // k ** 2, 0)
+    body = syev.body_for(k, dtype)
+    by_body = syev.sym_eig.launches_by_body.get(body, 0)
     e, V = syev.sym_eig(H)
     torch.cuda.synchronize()
     assert syev.sym_eig.launches == before + 1
     assert syev.sym_eig.launches_by_lanes[H.numel() // k ** 2] == lanes + 1
+    assert syev.sym_eig.launches_by_body[body] == by_body + 1
     ep, _ = syev.sym_eig_plain(H)
     el, _ = torch.linalg.eigh(H)
     eps = torch.finfo(dtype).eps
@@ -1200,17 +1215,50 @@ def test_sym_eig_kernel_matches_plain_and_eigh(dev, shape, dtype):
 
 
 def test_sym_eig_kernel_refuses_what_it_does_not_take(dev):
-    """k past 32, a dtype other than float32 / float64 and a
-    non-contiguous tensor raise on the card: no fallback to eigh."""
+    """A dtype other than float32 / float64, a non-contiguous or
+    non-square tensor, the warp body forced past 32, K4w forced into
+    shared memory past its limit and an unknown body raise on the card:
+    no fallback to eigh. Any order runs (33 included)."""
     from mac_tpu_torch.ops.kernels import syev
 
-    for H, err in ((torch.zeros(33, 33, device=dev), ValueError),
-                   (torch.zeros(4, 4, device=dev, dtype=torch.float16),
-                    TypeError),
-                   (torch.zeros(8, 8, device=dev)[:4, :4], ValueError),
-                   (torch.zeros(4, 5, device=dev), ValueError)):
+    for H, err, body in (
+            (torch.zeros(4, 4, device=dev, dtype=torch.float16), TypeError,
+             None),
+            (torch.zeros(8, 8, device=dev)[:4, :4], ValueError, None),
+            (torch.zeros(4, 5, device=dev), ValueError, None),
+            (torch.zeros(33, 33, device=dev), ValueError, "warp"),
+            (torch.zeros(130, 130, device=dev, dtype=torch.float64),
+             RuntimeError, "wide_shared"),
+            (torch.zeros(4, 4, device=dev), ValueError, "rows")):
         with pytest.raises(err):
-            syev.sym_eig(H)
+            syev.sym_eig(H, body=body)
+    e, V = syev.sym_eig(torch.eye(33, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(e, torch.ones(33, device=dev))
+    assert torch.equal(V, torch.eye(33, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(33, 33), (3, 34, 34), (2, 47, 47),
+                                   (64, 64), (96, 96), (118, 118)])
+def test_k4w_storage_forms_are_bitwise_equal(dev, shape, dtype):
+    """K4w with A and V in shared memory and on the workspace (forced by
+    body="wide_workspace"): one body over one layout, so bitwise the same
+    eigenvalues and vectors; each form counted under its own body."""
+    from mac_tpu_torch.ops.kernels import syev
+
+    k = shape[-1]
+    rng = np.random.RandomState(k + 1)
+    A = rng.normal(size=shape)
+    H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dtype, device=dev)
+    assert syev.body_for(k, dtype) == "wide_shared"
+    before = dict(syev.sym_eig.launches_by_body)
+    e1, V1 = syev.sym_eig(H)
+    e2, V2 = syev.sym_eig(H, body="wide_workspace")
+    torch.cuda.synchronize()
+    assert torch.equal(e1, e2) and torch.equal(V1, V2)
+    for body in ("wide_shared", "wide_workspace"):
+        assert syev.sym_eig.launches_by_body[body] == before.get(body, 0) + 1
 
 
 def _k4_lane_counts(run):

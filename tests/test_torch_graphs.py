@@ -441,27 +441,34 @@ def test_set_guard_redoes_the_setup_eagerly(case):
 
 def test_replay_bookkeeping_adds_the_captured_launches():
     """What a capture counted is taken back and added at each replay, by
-    launches, lanes and dtype, for every kernel wrapper."""
+    launches, lanes, dtype and (K4's) body, for every kernel wrapper."""
     saved = graphs._counts()
     try:
-        k1 = graphs.WRAPPERS[0]
+        k1, k4 = graphs.WRAPPERS[0], graphs.WRAPPERS[-1]
+        assert k4.__name__ == "sym_eig"
         before = graphs._counts()
         for _ in range(3):
             k1.launches += 1
             k1.launches_by_lanes[1] = k1.launches_by_lanes.get(1, 0) + 1
             k1.launches_by_dtype["float32"] = (
                 k1.launches_by_dtype.get("float32", 0) + 1)
+        k4.launches += 1
+        k4.launches_by_body["wide_shared"] = (
+            k4.launches_by_body.get("wide_shared", 0) + 1)
         delta = graphs._delta(graphs._counts(), before)
         graphs._set_counts(before)
-        assert delta[0] == (3, {1: 3}, {"float32": 3})
-        assert all(d == (0, {}, {}) for d in delta[1:])
+        assert delta[0] == (3, {1: 3}, {"float32": 3}, {})
+        assert delta[-1] == (1, {}, {}, {"wide_shared": 1})
+        assert all(d == (0, {}, {}, {}) for d in delta[1:-1])
         for _ in range(4):
             graphs._add(delta)
         after = graphs._counts()
         assert after[0][0] == before[0][0] + 12
         assert after[0][1].get(1, 0) == before[0][1].get(1, 0) + 12
         assert after[0][2]["float32"] == before[0][2].get("float32", 0) + 12
-        assert after[1:] == before[1:]
+        assert after[-1][3]["wide_shared"] == (
+            before[-1][3].get("wide_shared", 0) + 4)
+        assert after[1:-1] == before[1:-1]
     finally:
         graphs._set_counts(saved)
 

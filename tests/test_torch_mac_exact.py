@@ -1,6 +1,7 @@
 """Whole MAC.solve of the PyTorch port against the JAX package on the CPU,
 with the default fast32 policy on the banded float32 path, at n = 600: no
-overflow split (kernel K2's tables) and the exact chain factor. Also the
+overflow split (kernel K2's tables) and the exact chain factor, with the
+default eigensolver block and with a block of 11 columns. Also the
 disconnected graph, held to its analytic lambda_2 = 0."""
 
 import numpy as np
@@ -22,21 +23,22 @@ SMALL = dict(use_banded=True, fw_polish=False)
 
 
 def check_solve_parity(n, n_loops, span, seed, expect_split=None,
-                       expect_blocked=None):
+                       expect_blocked=None, **knobs):
     """Both packages solve the same problem from the same NaiveGreedy start
-    (the port given the JAX package's random previous-iterate block); their
-    relaxed lambda_2, scored by the scipy float64 referee, agree within
-    1e-3 relative; each rounding holds exactly k edges; each upper bound is
-    at least the referee's lambda_2 of its relaxed solution."""
+    (the port given the JAX package's random previous-iterate block), with
+    the same extra MAC knobs; their relaxed lambda_2, scored by the scipy
+    float64 referee, agree within 1e-3 relative; each rounding holds
+    exactly k edges; each upper bound is at least the referee's lambda_2 of
+    its relaxed solution. Returns both rounded selections."""
     idx, w, n = pose_graph(n, n_loops, span, seed)
     fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
     k = len(cands[1]) // 2
     x_init = NaiveGreedy(cands).subset(k)
-    jm = JMAC(fixed, cands, n, dtype=jnp.float32, **SMALL)
+    jm = JMAC(fixed, cands, n, dtype=jnp.float32, **SMALL, **knobs)
     jm.round_guard = False
     jr, ju, jup = jm.solve(k, x_init)
     tm = MAC(fixed, cands, n, dtype=torch.float32, round_guard=False,
-             device="cpu", **SMALL)
+             device="cpu", **SMALL, **knobs)
     if expect_split is not None:
         assert (tm._banded.ov_rows > 0) == expect_split
     if expect_blocked is not None:
@@ -53,11 +55,21 @@ def check_solve_parity(n, n_loops, span, seed, expect_split=None,
     assert set(np.unique(tr)) <= {0.0, 1.0}
     assert np.isfinite(tup) and tup >= lam_t * (1 - 1e-9), (tup, lam_t)
     assert jup >= lam_j * (1 - 1e-9)
+    return tr, jr
 
 
 def test_solve_matches_jax_exact_factor():
     check_solve_parity(600, 200, 40, 5, expect_split=False,
                        expect_blocked=False)
+
+
+def test_solve_with_a_wide_block_matches_jax():
+    """fiedler_block_q=11: TRACEMIN's 33 x 33 Rayleigh-Ritz eigensolves
+    (K4w on the card, the plain Jacobi here) in every solve; the relaxed
+    lambda_2 within 1e-3 relative of the JAX package's at the same q, and
+    the same rounded selection."""
+    tr, jr = check_solve_parity(600, 200, 40, 5, fiedler_block_q=11)
+    np.testing.assert_array_equal(tr, jr)
 
 
 def test_disconnected_graph_gives_lambda2_zero():

@@ -150,18 +150,21 @@ def test_petersen_sweep_matches_jax(case):
     case(*petersen())
 
 
-def check_sweep_parity(n, n_loops, span, seed, banded, R, expect_blocked):
+def check_sweep_parity(n, n_loops, span, seed, banded, R, expect_blocked,
+                       **knobs):
     """Both packages sweep R budgets (25%, 50%, 75% of the candidates) from
     the uniform start in float32 (the port given the JAX package's random
-    previous-iterate block); each lane's relaxed lambda_2, scored by the
-    scipy float64 referee, agrees with the JAX package's within 1e-3
-    relative; each lane rounds to exactly k; each dual bound is finite."""
+    previous-iterate block), with the same extra MAC knobs; each lane's
+    relaxed lambda_2, scored by the scipy float64 referee, agrees with the
+    JAX package's within 1e-3 relative; each lane rounds to exactly k; each
+    dual bound is finite."""
     idx, w, n = pose_graph(n, n_loops, span, seed)
     fixed, cands = (idx[:n - 1], w[:n - 1]), (idx[n - 1:], w[n - 1:])
     m = len(cands[1])
     ks = [m // 4, m // 2, (3 * m) // 4][:R]
     kw = (dict(use_banded=True, fw_polish=False) if banded
           else dict(use_banded=False))
+    kw.update(knobs)
     jm = JMAC(fixed, cands, n, dtype=jnp.float32, **kw)
     jr, ju, jup = jm.solve_sweep(ks)
     tm = MAC(fixed, cands, n, dtype=torch.float32, device="cpu", **kw)
@@ -189,6 +192,30 @@ def test_float32_sweep_matches_jax(banded, R):
     False: 5 steps, the two-grid V-cycle, R = 2)."""
     check_sweep_parity(600, 200, 40, 5, banded, R,
                        expect_blocked=False if banded else None)
+
+
+def test_float32_sweep_with_a_wide_block_matches_jax(monkeypatch):
+    """The banded sweep of two budgets with fiedler_block_q=12: each outer
+    iteration's Rayleigh-Ritz eigensolves of both lanes are one (2, 36,
+    36) batch through sym_eig (K4w on the card, the plain Jacobi here),
+    never torch.linalg.eigh; the lanes as in test_float32_sweep_matches_jax
+    against the JAX sweep at the same q."""
+    import mac_tpu_torch.ops.kernels.syev as syev_mod
+
+    shapes, real = set(), syev_mod.sym_eig
+
+    def counted(H):
+        shapes.add(tuple(H.shape))
+        return real(H)
+
+    def refused(*args, **kw):
+        raise AssertionError("torch.linalg.eigh called in the sweep's lanes")
+
+    monkeypatch.setattr(syev_mod, "sym_eig", counted)
+    monkeypatch.setattr(torch.linalg, "eigh", refused)
+    check_sweep_parity(600, 200, 40, 5, True, 2, expect_blocked=False,
+                       fiedler_block_q=12)
+    assert shapes == {(2, 12, 12), (2, 36, 36)}, shapes
 
 
 def test_sweep_refuses_the_banded_float64_route():

@@ -3,8 +3,11 @@ the round-robin cyclic Jacobi that a CPU tensor takes) against
 numpy.linalg.eigh and the JAX package's jnp.linalg.eigh, and the port's
 TRACEMIN, whose Rayleigh-Ritz eigensolves run through it, against the JAX
 package's, single and over lanes (the lanes' batches go to sym_eig, never
-to torch.linalg.eigh). The kernel itself runs only on the card
-(tests/test_torch_cuda.py). Inputs are made from numpy seeds.
+to torch.linalg.eigh), at the default block of q = 4 columns and at q =
+11 and 12, whose 3q x 3q Rayleigh-Ritz matrices take K4w on the card; the
+choice of the kernel's body; MAC built for any block on a CUDA device.
+The kernel itself runs only on the card (tests/test_torch_cuda.py).
+Inputs are made from numpy seeds.
 
 Tolerances, with eps the dtype's and ||H|| the Frobenius norm: eigenvalues
 within 2 k eps ||H|| of numpy's float64 ones (of the same H rounded to the
@@ -19,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from mac_tpu_torch.ops.kernels.syev import MAX_K, sym_eig, sym_eig_plain
+from mac_tpu_torch.ops.kernels.syev import (SMEM_LIMIT, WARP_MAX_K, body_for,
+                                            sym_eig, sym_eig_plain,
+                                            wide_scratch_bytes)
 
 torch.set_num_threads(1)
 
-KS = (1, 2, 3, 4, 12, 31, 32)
+# Orders of the warp body (up to 32) and of K4w: 33, the Rayleigh-Ritz
+# matrix of q = 11, 36 (q = 12) and 96 (q = 32).
+KS = (1, 2, 3, 4, 12, 31, 32, 33, 36, 96)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -84,7 +91,7 @@ def _check(H64, evals, V, dtype, sizes):
 @pytest.mark.parametrize("kind", ["random", "diagonal", "zero", "clustered"])
 @pytest.mark.parametrize("k", KS)
 def test_plain_jacobi_matches_numpy_eigh(k, kind, dtype):
-    """A batch of three matrices (k from 1 to 32, float32 and float64):
+    """A batch of three matrices (k from 1 to 96, float32 and float64):
     eigenvalues, residual, orthogonality, order, the sign convention and
     clusters by subspace, against numpy.linalg.eigh in float64."""
     dt = DTYPES[dtype]
@@ -138,13 +145,13 @@ def test_plain_jacobi_stays_in_the_dtype_and_the_batch_shape():
 
 def test_sym_eig_refuses_what_it_does_not_take():
     """A non-square or 1-D tensor raises on the CPU; the kernel's own
-    limits (k <= MAX_K, float32/float64, contiguous) are checked on the
-    card (tests/test_torch_cuda.py)."""
+    limits (float32/float64, contiguous; any order) are checked on the
+    card (tests/test_torch_cuda.py). The warp body ends at order 32."""
     with pytest.raises(ValueError):
         sym_eig(torch.zeros(3, 4, dtype=torch.float64))
     with pytest.raises(ValueError):
         sym_eig(torch.zeros(4, dtype=torch.float64))
-    assert MAX_K == 32
+    assert WARP_MAX_K == 32
 
 
 @pytest.mark.parametrize("prec", ["f64", "f32"])
@@ -293,34 +300,128 @@ def test_fiedler_pair_lanes_batches_its_eigensolves(monkeypatch):
     assert set(calls[1:]) == {(8, 12, 12)}
 
 
-@pytest.mark.parametrize("q, device, refused", [
-    (10, "cuda", False), (11, "cuda", True), (11, "cpu", False)])
-def test_check_block_refuses_rayleigh_ritz_past_the_kernel(q, device,
-                                                           refused):
-    """A TRACEMIN block of q columns needs 3q x 3q eigensolves: on a CUDA
-    device q past MAX_K // 3 = 10 is refused, on the CPU any q runs."""
-    from mac_tpu_torch.ops.kernels.syev import check_block
+@pytest.mark.parametrize("k, dtype, body", [
+    (1, torch.float32, "warp"), (32, torch.float64, "warp"),
+    (33, torch.float32, "wide_shared"), (33, torch.float64, "wide_shared"),
+    (168, torch.float32, "wide_shared"), (169, torch.float32,
+                                          "wide_workspace"),
+    (180, torch.float32, "wide_workspace"),
+    (118, torch.float64, "wide_shared"), (119, torch.float64,
+                                          "wide_workspace"),
+    (130, torch.float64, "wide_workspace")])
+def test_sym_eig_dispatch_picks_the_body(k, dtype, body):
+    """The body sym_eig runs on the card for order k: the warp body up to
+    32, K4w in shared memory while its scratch (A, V, the round's
+    parameters; syev.cu's wide_scratch_bytes) fits the 232,448 bytes a
+    block may opt into, K4w on a workspace past it: the edges at k 168 /
+    169 (float32) and 118 / 119 (float64)."""
+    assert body_for(k, dtype) == body
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = wide_scratch_bytes(k, itemsize)
+    m = k + k % 2
+    assert nbytes % 16 == 0 and nbytes >= 2 * m * m * itemsize
+    if k > WARP_MAX_K:
+        assert (nbytes <= SMEM_LIMIT) == (body == "wide_shared")
 
-    if refused:
-        with pytest.raises(ValueError, match="at most 10"):
-            check_block(q, torch.device(device))
-    else:
-        check_block(q, torch.device(device))
+
+class _CudaOnCpu(torch.overrides.TorchFunctionMode):
+    """While active, what asks for a CUDA device gets the CPU: a stand-in
+    for a card in a process that has none."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.device:
+            return func(*args, **(kwargs or {}))
+
+        def host(a):
+            if isinstance(a, torch.device) and a.type == "cuda":
+                return torch.device("cpu")
+            return "cpu" if isinstance(a, str) and a.startswith("cuda") else a
+
+        return func(*(host(a) for a in args),
+                    **{n: host(v) for n, v in (kwargs or {}).items()})
 
 
-def test_mac_refuses_a_block_past_the_kernel_on_cuda(monkeypatch):
-    """MAC(fiedler_block_q=11) raises as it is built when its device is a
-    CUDA device, before anything is placed there; on the CPU it builds."""
+@pytest.mark.parametrize("q", [10, 11, 40])
+def test_mac_builds_any_block_on_cuda(q, monkeypatch):
+    """MAC(fiedler_block_q=q) builds for a CUDA device at q 10, 11 (the
+    first block whose 3q x 3q Rayleigh-Ritz matrices pass the warp body)
+    and 40, the device route's tensors placed on a stand-in card: nothing
+    refuses a block width."""
     from chip_smoke import chain_instance
     from mac_tpu_torch.solvers import MAC
     from mac_tpu_torch.solvers import mac as mac_module
 
-    fixed, cands = chain_instance(40, 20, 3)
-    assert MAC(fixed, cands, 40, fiedler_block_q=11, device="cpu")._q == 11
+    fixed, cands = chain_instance(60, 30, 3)
     monkeypatch.setattr(mac_module, "resolve_device",
                         lambda device: torch.device("cuda"))
-    with pytest.raises(ValueError, match="at most 10"):
-        MAC(fixed, cands, 40, fiedler_block_q=11)
+    with _CudaOnCpu():
+        mac = MAC(fixed, cands, 60, fiedler_block_q=q, use_banded=True,
+                  dtype=torch.float32)
+    assert mac._q == q and mac.device.type == "cuda"
+    assert mac.fiedler_backend == "device"
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("q", [11, 12])
+def test_tracemin_wide_block_matches_jax(q, prec, monkeypatch):
+    """TRACEMIN with a block of q = 11 and 12 columns, whose Rayleigh-Ritz
+    eigensolves (q x q at the entry, 3q x 3q = 33 x 33 and 36 x 36 each
+    outer iteration) go through sym_eig (the plain Jacobi here, K4w on the
+    card), against the JAX package's on the same banded operator, start
+    block and injected previous-iterate block, at the parity tolerances of
+    tests/test_torch_eigen.py (lambda_2 rtol 1e-4, |<v, v'>| >= 1 -
+    1e-4), the same outer iterations."""
+    import jax
+
+    import mac_tpu_torch.ops.kernels.syev as syev_mod
+    from mac_tpu.ops import banded as jb
+    from mac_tpu.ops.lobpcg import tracemin_fiedler as jax_tracemin
+    from mac_tpu_torch import convert
+    from mac_tpu_torch.ops import banded as tb
+    from mac_tpu_torch.ops.lobpcg import tracemin_fiedler
+    from tests.test_torch_banded import GRAPHS, pose_graph
+    from tests.test_torch_eigen import JDT, TDT, jax_xprev
+
+    jdt, tdt = JDT[prec], TDT[prec]
+    idx, w, n = pose_graph(*GRAPHS["nosplit700"])
+    jbop, _ = jb.build_banded_rcm(idx, n, dtype=jdt)
+    tbop = convert.banded_operator(jbop)
+    X0 = np.random.RandomState(3).normal(size=(n, q))
+    kw = dict(tol=1e-12, maxiter=8, inner_iters=5, rel_tol=1e-12,
+              coeff_dtype=None if prec == "f64" else jdt)
+
+    @jax.jit
+    def run_jax(w, X0):
+        BD = jb.assemble_bd(jbop, w, fused=False)
+        M = jb.make_banded_precond(jbop, BD, w=w)
+        return jax_tracemin(lambda V: jb.banded_apply(jbop, BD, V), X0,
+                            2.0 * jnp.max(BD.deg), M, **kw)
+
+    jres = run_jax(jnp.asarray(w, jdt), jnp.asarray(X0, jdt))
+    calls = []
+    real = syev_mod.sym_eig
+
+    def counted(H):
+        calls.append(tuple(H.shape))
+        return real(H)
+
+    monkeypatch.setattr(syev_mod, "sym_eig", counted)
+    tw = torch.as_tensor(w, dtype=tdt)
+    BD = tb.assemble_bd(tbop, tw)
+    M = tb.make_banded_precond(tbop, BD, w=tw)
+    tres = tracemin_fiedler(
+        lambda V: tb.banded_apply(tbop, BD, V),
+        torch.as_tensor(X0, dtype=tdt), 2.0 * BD.deg.max(), M,
+        xprev0=torch.tensor(jax_xprev(n, q, jdt)),
+        **dict(kw, coeff_dtype=None if prec == "f64" else tdt))
+    assert calls[0] == (q, q) and set(calls[1:]) == {(3 * q, 3 * q)}
+    assert tres.iters == int(jres.iters) == len(calls) - 1 >= 1
+    np.testing.assert_allclose(float(tres.lam[0]), float(jres.lam[0]),
+                               rtol=1e-4)
+    v = tres.X[:, 0].double().numpy()
+    vj = np.asarray(jres.X[:, 0], np.float64)
+    cos = abs(v @ vj) / (np.linalg.norm(v) * np.linalg.norm(vj))
+    assert cos >= 1 - 1e-4, cos
 
 
 def _fake_nvcc(tmp_path, report):
@@ -345,10 +446,14 @@ def _fake_nvcc(tmp_path, report):
 
 def _ptxas_report(frames):
     """A ptxas -v report of K4's instantiations {(type letter, m): (stack,
-    spill stores, spill loads)}."""
+    spill stores, spill loads)}; m "shared" or "workspace" names a form of
+    K4w, sym_eig_wide_kernel<T, shared>."""
     out = []
     for (t, m), (stack, st, ld) in frames.items():
-        name = f"_ZN12_GLOBAL__N_114sym_eig_kernelI{t}Li{m}EEEvPKT_PS1_S4_ii"
+        name = (f"_ZN12_GLOBAL__N_114sym_eig_kernelI{t}Li{m}EEEvPKT_PS1_S4_ii"
+                if isinstance(m, int) else
+                f"_ZN12_GLOBAL__N_119sym_eig_wide_kernelI{t}Lb"
+                f"{int(m == 'shared')}EEEvPKT_PS1_S4_Phii")
         out += [f"ptxas info    : Compiling entry function '{name}' for "
                 f"'sm_90a'",
                 f"ptxas info    : Function properties for {name}",
@@ -389,3 +494,29 @@ def test_k4_frame_gate_reads_the_report_kept_beside_the_library(
             assert regs[("float32", 12)] == (40, 0, 0, 0)
     assert (tmp_path / "runs.txt").read_text() == "run\n"
     assert _build.report_path("syev").exists()
+
+
+@pytest.mark.parametrize("spill", [None, "workspace", "shared"])
+def test_k4w_frame_gate_reads_its_own_instantiations(spill):
+    """chip_smoke.py's phase-2 gate on K4w: its four instantiations (float32
+    and float64, shared memory and workspace) are read apart from the warp
+    body's (whose name pattern they must not match), and a spill fails the
+    gate only in the shared-memory form."""
+    import chip_smoke
+
+    frames = {(t, m): (0, 0, 0) for t in "fd"
+              for m in (4, 12, "shared", "workspace")}
+    if spill is not None:
+        frames[("d", spill)] = (16, 16, 16)
+    report = _ptxas_report(frames)
+    assert sorted(chip_smoke.k4_instances(report)) == [
+        ("float32", 4), ("float32", 12), ("float64", 4), ("float64", 12)]
+    if spill == "shared":
+        with pytest.raises(SystemExit):
+            chip_smoke.k4w_frame_gate(report)
+        return
+    regs = chip_smoke.k4w_frame_gate(report)
+    assert sorted(regs) == [("float32", "shared"), ("float32", "workspace"),
+                            ("float64", "shared"), ("float64", "workspace")]
+    assert regs[("float64", "workspace")] == (
+        (40, 16, 16, 16) if spill else (40, 0, 0, 0))
