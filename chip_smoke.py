@@ -90,19 +90,25 @@ its wall time printed:
      the bound: the larger of the chain bound (the rounds this H takes
      times one round of the irreducible chain, timed by syev.cu's
      one-warp probe, k4_round_ms) and the byte / operation bound; also
-     K4's launch floor (a 1 x 1 matrix). K4w, the thread-block body past
-     order 32, through the same checks: TRACEMIN's 11 x 11 and 33 x 33
-     (q = 11) and 36 x 36 (q = 12) matrices at city10000's start weights,
-     the lanes' (2, 36, 36), random matrices of every k from 33 to 64 and
-     of k 96, 120 and 170, and float32 180 and float64 130, which must take
-     the workspace form; each call counted under the body body_for names;
-     the shared-memory and workspace forms bitwise equal (body=
+     K4's launch floor (a 1 x 1 matrix). K4w, the two-block cluster
+     body past order 32, through the same checks: TRACEMIN's 11 x 11 and
+     33 x 33 (q = 11) and 36 x 36 (q = 12) matrices at city10000's start
+     weights, the lanes' (2, 36, 36), random matrices of every k from 33
+     to 64 and of k 96, 120 and 170, and float32 180 and float64 130,
+     which must take the workspace form; each call counted under the
+     body body_for names; the shared-memory and workspace forms bitwise
+     equal (body=
      "wide_workspace" forces the workspace), K4w forced onto the warp
      body's inputs compared with it bit for bit (printed), syev.cu's
-     scratch bytes and threads against the wrapper's; the warp body at k
-     33 and K4w in shared memory at float64 130 refused; K4w's round with
-     its two block barriers timed by syev.cu's block probe; timed at (33, 33)
-     both types, (96, 96) both types and the lanes' (2, 36, 36);
+     workspace and shared-memory bytes and threads against the wrapper's;
+     the warp body at k 33 and K4w in shared memory at float64 130
+     refused; K4w's round with its two block barriers timed by syev.cu's
+     block probe; timed at (33, 33) both types, (96, 96) both types and
+     the lanes' (2, 36, 36); its round by phase from its stamped build
+     (k4w_phases: the pushers' reads and the next round's parameters,
+     the 2 x 2 blocks, the barrier waits, the waits for a free slot, the
+     stop test, the V block's waits, rotations and tail) at (33, 33) and
+     (96, 96) in both types;
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K1, K2, K3b and K4 must have launched; the relaxed
@@ -1108,10 +1114,11 @@ def k4_round_ms(dtype, threads=None, rounds=(256, 4352)) -> float:
 
 
 def k4w_scratch_check(ks):
-    """syev.cu's scratch bytes and block threads of K4w at each order k,
-    against the wrapper's wide_scratch_bytes and body_for: fail where
-    they disagree. Returns {k: (float32 bytes, float64 bytes,
-    threads)}."""
+    """syev.cu's workspace bytes, shared-memory bytes a block and block
+    threads of K4w at each order k, against the wrapper's
+    wide_scratch_bytes, wide_smem_bytes and body_for: fail where they
+    disagree. Returns {k: (float32 workspace bytes, float64 workspace
+    bytes, float32 shared bytes, float64 shared bytes, threads)}."""
     import ctypes
 
     import torch
@@ -1122,18 +1129,19 @@ def k4w_scratch_check(ks):
     got = {}
     for k in ks:
         row = []
-        for suffix, itemsize in (("f32", 4), ("f64", 8)):
-            fn = getattr(lib, f"sym_eig_wide_scratch_bytes_{suffix}")
-            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-            row.append(fn(k))
-            if fn(k) != syev.wide_scratch_bytes(k, itemsize):
-                fail(f"K4w's scratch at k {k} ({suffix}): syev.cu "
-                     f"{fn(k)} bytes, the wrapper "
-                     f"{syev.wide_scratch_bytes(k, itemsize)}")
+        for what, py in (("scratch", syev.wide_scratch_bytes),
+                         ("smem", syev.wide_smem_bytes)):
+            for suffix, itemsize in (("f32", 4), ("f64", 8)):
+                fn = getattr(lib, f"sym_eig_wide_{what}_bytes_{suffix}")
+                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+                row.append(fn(k))
+                if fn(k) != py(k, itemsize):
+                    fail(f"K4w's {what} bytes at k {k} ({suffix}): syev.cu "
+                         f"{fn(k)}, the wrapper {py(k, itemsize)}")
         fn = lib.sym_eig_wide_threads
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
         got[k] = (*row, fn(k))
-    for k, (b32, b64, _) in got.items():
+    for k, (_, _, b32, b64, _) in got.items():
         for b, dt in ((b32, torch.float32), (b64, torch.float64)):
             want = ("warp" if k <= syev.WARP_MAX_K else "wide_shared"
                     if b <= syev.SMEM_LIMIT else "wide_workspace")
@@ -1141,6 +1149,66 @@ def k4w_scratch_check(ks):
                 fail(f"body_for({k}, {dt}) is {syev.body_for(k, dt)}, "
                      f"syev.cu's scratch says {want}")
     return got
+
+
+# What syev.cu's K4w phase stamps measure (clk[1:]), by the body that
+# stamped them (clk[13]): 1, the three-pass K4w (kernel_ab.py's stamped
+# copy of its source, ab_fixtures/syev_three_pass_phases.cu); 2, the
+# A and V blocks of the cluster (the A block's first pusher thread and its
+# thread 0, the V block's thread 0). Each phase is a sum over the launch, per
+# "round" or per "sweep" (the stop test) in clock64() cycles, or "ns"
+# (%globaltimer nanoseconds, across the two SMs).
+K4W_PHASES = {
+    1: (("parameters", "round"), ("row update of A and V^T", "round"),
+        ("barrier 1 wait", "round"), ("column update of A", "round"),
+        ("barrier 2 wait", "round"), ("stop test", "sweep")),
+    2: (("pusher: reads and rotations", "round"),
+        ("pusher: next round's parameters", "round"),
+        ("pusher: barrier wait", "round"),
+        ("pair 0's mover: waits for a free slot", "round"),
+        ("thread 0: 2 x 2 blocks", "round"),
+        ("thread 0: barrier wait", "round"), ("stop test", "sweep"),
+        ("V block: waits for a round", "round"),
+        ("V block: rotations", "round"),
+        ("V block's tail after the A block's end", "ns"))}
+
+
+def k4w_phases(H, body=None):
+    """One launch of K4w on H in the build that stamps its phases
+    (syev.wide_phases, the library loaded now; the second of two
+    launches): ([(phase, cycles or None, ns, ns a round or a sweep)],
+    {"sweeps", "rounds", "body"}), the phases as K4W_PHASES names them for
+    the body that stamped them, then ("whole", cycles, ns, ns a round): the
+    A block's thread that stamps (body 1: the block), cycles by clock64(),
+    ns by the kernel's %globaltimer span over its cycles."""
+    from mac_tpu_torch.ops.kernels import syev
+
+    for _ in range(2):
+        clk = syev.wide_phases(H, body)[2].cpu().tolist()
+    sweeps, rounds, design, total, ns = clk[11:16]
+    scale = ns / max(total, 1)
+    rows = []
+    for i, (name, per) in enumerate(K4W_PHASES[design]):
+        v = clk[1 + i]
+        if per == "ns":
+            rows.append((name, None, v, v))
+        else:
+            rows.append((name, v, scale * v,
+                         scale * v / max(rounds if per == "round" else sweeps,
+                                         1)))
+    rows.append(("whole", total, ns, ns / max(rounds, 1)))
+    return rows, {"sweeps": sweeps, "rounds": rounds, "body": design}
+
+
+def k4w_phase_line(label, got, card) -> str:
+    """k4w_phases's split as one line: ns a round (a sweep for the stop
+    test, the whole span for the V block's tail) by phase."""
+    rows, info = got
+    return (f"K4w phases (body {info['body']}) {label}: {info['rounds']} "
+            f"rounds, {info['sweeps']} sweeps; " + ", ".join(
+                f"{name} {per:.1f} ns" for name, _, _, per in rows[:-1])
+            + f"; whole {rows[-1][2] / 1e3:.2f} us, {rows[-1][3]:.1f} ns a "
+            f"round ({card})")
 
 
 # What ldl.cu's phase stamps measure (clk[1:]), per kernel and, for K3,
@@ -3641,9 +3709,8 @@ def main():
             fail(f"sym_eig at {k_}x{k_} {dt_} did not take the workspace")
     # The two storage forms of K4w, and K4w on the warp body's orders,
     # bit for bit: the same body over one layout, the same arithmetic.
-    k4w_scratch = k4w_scratch_check(list(range(1, 65)) + [96, 118, 119,
-                                                          120, 130, 168,
-                                                          169, 170, 180])
+    k4w_scratch = k4w_scratch_check(list(range(1, 65)) + [
+        96, 118, 119, 120, 130, 168, 169, 170, 180])
     forms_same, forms_n = 0, 0
     form_cases = ([H_ for _, H_ in k4w_cases[:len(k4w_mats) + 1]
                    if H_.shape[-1] > syev.WARP_MAX_K]
@@ -3665,9 +3732,11 @@ def main():
     print(f"K4w's two storage forms (shared memory, workspace) bitwise "
           f"equal on {forms_same} of {forms_n} inputs; K4w forced onto the "
           f"warp body's {warp_n} inputs (k 1 to 32) bitwise the warp body "
-          f"on {warp_same}; syev.cu's scratch bytes and threads at k 33, "
-          f"64, 118, 119, 168, 169: "
-          f"{[(k_, k4w_scratch[k_]) for k_ in (33, 64, 118, 119, 168, 169)]}",
+          f"on {warp_same}; syev.cu's workspace bytes (float32, float64), "
+          f"shared bytes a block (float32, float64) and threads at k 33, "
+          f"64, 96, 118, 119, 168, 169: "
+          f"{[(k_, k4w_scratch[k_]) for k_ in (33, 64, 96, 118, 119, 168,
+                                               169)]}",
           flush=True)
     if forms_same != forms_n:
         fail("K4w's shared-memory and workspace forms differ")
@@ -3691,7 +3760,7 @@ def main():
     k4_round = {dt_: k4_round_ms(dt_) for dt_ in (f32, torch.float64)}
     # K4w's round with its barriers, at the block of k 33 and 36 (m 34 and
     # 36) and at 1024 threads (m 64 and past).
-    k4w_threads = sorted({k4w_scratch[k_][2] for k_ in (33, 36, 96)})
+    k4w_threads = sorted({k4w_scratch[k_][-1] for k_ in (33, 36, 96)})
     k4w_round = {(dt_, t_): k4_round_ms(dt_, t_) for dt_ in
                  (f32, torch.float64) for t_ in k4w_threads}
     print(f"K4 launch floor (a 1 x 1 matrix, device_ms): {k4_floor:.5f} ms;"
@@ -3713,7 +3782,7 @@ def main():
     def k4w_times(H_, label):
         dt_ = H_.dtype
         return dict(k4_times(H_, label, card, k4_round[dt_], k4w_round[
-            (dt_, k4w_scratch[H_.shape[-1]][2])]),
+            (dt_, k4w_scratch[H_.shape[-1]][-1])]),
             max_abs_err=k4_err["K4w " + str(dt_).split(".")[-1]])
 
     k4w_tm = {(33, dt_): k4w_times(k4w_mats[(33, dt_)],
@@ -3724,6 +3793,14 @@ def main():
         for dt_ in (f32, torch.float64)})
     k4w_tm[("lanes", "float32")] = k4w_times(
         k4w_lanes, "phase 8e's lanes' batch of 2")
+    # K4w's round by phase (its stamped build): TRACEMIN's 33 x 33 and the
+    # random 96 x 96, both types.
+    for key_, H_ in ((33, k4w_mats[(33, "float32")]),
+                     (33, k4w_mats[(33, "float64")]),
+                     (96, k4w_random[(96, f32)]),
+                     (96, k4w_random[(96, torch.float64)])):
+        print(k4w_phase_line(f"({key_}, {key_}) {H_.dtype}", k4w_phases(H_),
+                             card), flush=True)
 
     # ---- 4. the banded path, through the user's entry points
     phase("4 banded path (city10000)")

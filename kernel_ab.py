@@ -5,19 +5,20 @@ in one process on one NVIDIA GPU.
     mkdir -p build/ab_old
     git show <commit>:mac_tpu_torch/csrc/tridiag.cu > build/ab_old/tridiag.cu
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
-    python3 kernel_ab.py [--kernels-only] build/ab_old [VARIANT_DIR ...]
+    python3 kernel_ab.py [--kernels-only | --syev-only] build/ab_old \
+        [VARIANT_DIR ...]
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
 them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
 the Rayleigh-Ritz eigensolver K4 likewise with the older syev.cu).
 
-The older sources must export the same C functions. Both versions are built
-with the package's nvcc flags and loaded by _build.load(name, signatures,
-path), so both run behind the same wrappers, checks and allocations: the
-wrappers keep the C functions they resolved (_build.function), and
-_build.load with a path drops those handles, so the next call of a wrapper
-goes to the library loaded last. In turns old, new, new, old, at the main
-paths' shapes (chip_smoke.py's):
+The older sources must export the same C functions. Both versions are
+built at once (one nvcc a source) with the package's nvcc flags and loaded
+by _build.load(name, signatures, path), so both run behind the same
+wrappers, checks and allocations: the wrappers keep the C functions they
+resolved (_build.function), and _build.load with a path drops those
+handles, so the next call of a wrapper goes to the library loaded last.
+In turns old, new, new, old, at the main paths' shapes (chip_smoke.py's):
   1. K1 tridiag_solve at city10000's chain factor (10000, 4); K2b
      assemble_ut at city10000's tables and K2 at the n = 700 graph, beside
      the same scatter as one index_add_ into a zeroed ut; K1b
@@ -40,13 +41,27 @@ paths' shapes (chip_smoke.py's):
      the new kernels. Where the older directory holds syev.cu, K4
      sym_eig on phase 3e's four Rayleigh-Ritz matrices of TRACEMIN, the
      lanes' batches (8, 12, 12) float32 and (64, 12, 12) float64, and
-     random symmetric matrices of every k from 1 to 32 in both types: the
-     number of matrices whose eigenvalues or vectors are not bitwise the
-     older kernel's, device and call times in turns, torch.linalg.eigh's
-     device time (kernels_ms) beside them, each library's launch floor
-     (a 1 x 1 matrix) and one round of the irreducible chain (the new
-     library's one-warp probe, k4_round_ms); each build's registers, stack
-     frame and spills per K4 instantiation are printed at the build;
+     random symmetric matrices of every k from 1 to 32 in both types, and
+     K4w on TRACEMIN's 33 x 33 at city10000's start weights (q = 11, both
+     types), random (96, 96) in both types, the lanes' (2, 36, 36) (q =
+     12), random (2, k, k) for k 33 to 64 and (120, 120) in both types,
+     and (170, 170) float32 and (130, 130) float64 on the workspace form
+     (past the three-pass kernel's shared-memory orders, 168 and 118, both
+     versions take
+     the workspace): the number of matrices whose eigenvalues or vectors
+     are not bitwise the older kernel's (by K4 and K4w), device and call
+     times in turns, torch.linalg.eigh's device time (kernels_ms) beside
+     them, each library's launch floor (a 1 x 1 matrix), one round of the
+     irreducible chain (the new library's one-warp probe, k4_round_ms)
+     and K4w's round with its two barriers (the block probe at the new
+     blocks' threads), the new K4w instantiations' frames
+     (k4w_frame_gate), and K4w's round by phase (k4w_phases) at 33 and 96
+     in both types for each version: an older syev.cu without stamps of
+     its own is built with ab_fixtures/syev_three_pass_phases.cu appended
+     (the three-pass K4w of commit 9f43cf3, stamped); each build's
+     registers, stack frame and spills per K4 and K4w instantiation are
+     printed at the build. With
+     --syev-only only syev.cu is built (old and new) and only this runs;
   2. K1's error against a float64 solve of city10000's chain factor, and
      K1b's against a float64 blocked solve of the n = 100000 chain factor,
      for the old and new kernels and the plain version in float32;
@@ -90,41 +105,84 @@ from chip_smoke import (BUNDLED, REFERENCE_LAM2_SCALE,
                         REFERENCE_LAM2_UNROUNDED, SCALE_N, SolvePath, call_ms,
                         card_line, dataset_inputs, device_ms, fail,
                         index_add_assembly, k2_args, k4_instances,
-                        k4_round_ms, kernels_ms, ldl_phases, ldl_step_ns,
-                        pose_graph, ptxas_report,
+                        k4_round_ms, k4w_frame_gate, k4w_instances,
+                        k4w_phase_line, k4w_phases, kernels_ms, ldl_phases,
+                        ldl_step_ns, pose_graph, ptxas_report,
                         rayleigh_ritz_matrices, synthetic)
 
 TURNS = ("old", "new", "new", "old")
 
 
-def build_dir(src_dir: Path, tag: str, names) -> dict:
-    """nvcc the sources `names` of src_dir into build/ab/; {name: path of
-    the library}."""
+# The stamps of the three-pass K4w (its shared-memory form), compiled onto an
+# older syev.cu that has none of its own (see the file).
+THREE_PASS_STAMPS = Path(__file__).resolve().parent / "ab_fixtures" / (
+    "syev_three_pass_phases.cu")
+
+
+def build_one(src_dir: Path, tag: str, name: str):
+    """nvcc src_dir/<name>.cu into build/ab/ (an older syev.cu without
+    sym_eig_wide_phases_* with THREE_PASS_STAMPS appended); (path of the
+    library, nvcc's report)."""
     from mac_tpu_torch.ops.kernels import _build
 
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
+    out = out_dir / f"lib{name}-{tag}.so"
+    src = (src_dir / f"{name}.cu").resolve()
+    if name == "syev" and "sym_eig_wide_phases_" not in src.read_text():
+        stamped = out_dir / f"syev-{tag}-stamped.cu"
+        stamped.write_text(f'#include "{src}"\n'
+                           f'#include "{THREE_PASS_STAMPS}"\n')
+        src = stamped
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed for {src}:\n{proc.stderr}")
+    return out, proc.stderr
+
+
+def build_all(old_dir: Path, names, variant_dirs):
+    """The older sources' libraries, the current ones (_build.build) and
+    each variant's tridiag.cu, one nvcc each, all at once; {version: {name:
+    library}}, each build's report printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mac_tpu_torch.ops.kernels import _build
+
+    with ThreadPoolExecutor(2 * len(names) + len(variant_dirs)) as pool:
+        old = {name: pool.submit(build_one, old_dir, "old", name)
+               for name in names}
+        new = {name: pool.submit(_build.build, name) for name in names}
+        var = {f"variant {Path(d).name}": pool.submit(
+            build_one, Path(d), f"variant-{Path(d).name}", "tridiag")
+            for d in variant_dirs}
+        libs = {"old": {name: f.result()[0] for name, f in old.items()},
+                "new": {name: f.result() for name, f in new.items()}}
+        libs.update({tag: {"tridiag": f.result()[0]}
+                     for tag, f in var.items()})
+    for name, f in old.items():
+        print_ptxas("old", name, f.result()[1])
+    for src, secs, _ in _build.build_log:
+        print(f"new {src}.cu built in {secs:.1f} s", flush=True)
     for name in names:
-        out = out_dir / f"lib{name}-{tag}.so"
-        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                               str(out), str(src_dir / f"{name}.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            fail(f"nvcc failed for {src_dir / name}.cu:\n{proc.stderr}")
-        print_ptxas(tag, name, proc.stderr)
-        libs[name] = out
+        print_ptxas("new", name, _build.ptxas_log(name))
+    for tag, f in var.items():
+        print_ptxas(tag, "tridiag", f.result()[1])
     return libs
 
 
 def print_ptxas(tag: str, name: str, log: str) -> None:
     """A build's registers, stack frame and spills per entry function
-    (per K4 instantiation, by type and even size m, for syev.cu)."""
+    (per K4 instantiation, by type and even size m, and per K4w one, by
+    type and storage form, for syev.cu)."""
     if k4_instances(log):
         print(f"{tag} syev.cu (registers, stack frame bytes, spill stores, "
               f"spill loads): " + ", ".join(
                   f"{dt} m {m}: {v}"
-                  for (dt, m), v in sorted(k4_instances(log).items())),
+                  for (dt, m), v in sorted(k4_instances(log).items()))
+              + "; K4w " + ", ".join(
+                  f"{dt} {form}: {v}"
+                  for (dt, form), v in sorted(k4w_instances(log).items())),
               flush=True)
         return
     print(f"{tag} {name}.cu: " + " | ".join(
@@ -170,75 +228,135 @@ def device_profile(run, keys):
     return out, sums
 
 
+# The orders up to which the three-pass K4w took its shared-memory form; past
+# them an A/B against a build of that source runs both versions on the
+# workspace (body "wide_workspace"), so that each input takes one form in
+# both.
+THREE_PASS_SHARED_MAX = {"float32": 168, "float64": 118}
+
+
 def k4_ab(use, card, bop, w, dev):
-    """K4 old against new in turns (part 1 of the module docstring)."""
+    """K4 and K4w old against new in turns (part 1 of the module
+    docstring)."""
     import numpy as np
     import torch
 
-    from mac_tpu_torch.ops.kernels import syev
+    from mac_tpu_torch.ops.kernels import _build, syev
 
     use("new")
     mats = rayleigh_ritz_matrices(bop, w, dev)
     rng = np.random.RandomState(14)
-    main_cases = [(f"TRACEMIN's {k}x{k} {dt}", mats[(k, dt)])
+    main_cases = [(f"TRACEMIN's {k}x{k} {dt}", mats[(k, dt)], None)
                   for dt in ("float32", "float64") for k in (4, 12)]
+
+    def perturbed(H, R):
+        A = torch.as_tensor(rng.normal(size=(R,) + tuple(H.shape)),
+                            dtype=H.dtype, device=dev)
+        return (H + 1e-2 * float(torch.linalg.matrix_norm(H))
+                * (A + A.mT) / 2).contiguous()
+
     for R, dt in ((8, "float32"), (64, "float64")):
-        H = mats[(12, dt)]
-        A = torch.as_tensor(rng.normal(size=(R, 12, 12)), dtype=H.dtype,
-                            device=dev)
-        main_cases.append((f"lanes ({R}, 12, 12) {dt}", (
-            H + 1e-2 * float(torch.linalg.matrix_norm(H))
-            * (A + A.mT) / 2).contiguous()))
-    main_labels = {label for label, _ in main_cases}
+        main_cases.append((f"lanes ({R}, 12, 12) {dt}",
+                           perturbed(mats[(12, dt)], R), None))
+    # K4w: TRACEMIN's 33 x 33 (q = 11), random 96 x 96, the lanes' (2, 36,
+    # 36) at q = 12.
+    mats11 = rayleigh_ritz_matrices(bop, w, dev, q=11)
+    mats12 = rayleigh_ritz_matrices(bop, w, dev, q=12)
+    wide_main = [(f"K4w TRACEMIN's 33x33 {dt} (q = 11)", mats11[(33, dt)],
+                  None) for dt in ("float32", "float64")]
+    for dt in (torch.float32, torch.float64):
+        A = rng.normal(size=(96, 96))
+        wide_main.append((f"K4w random (96, 96) {str(dt)[6:]}",
+                          torch.as_tensor(A + A.T, dtype=dt, device=dev),
+                          None))
+    wide_main.append(("K4w lanes (2, 36, 36) float32",
+                      perturbed(mats12[(36, "float32")], 2), None))
+    main_cases += wide_main
+    main_labels = {label for label, _, _ in main_cases}
     cases = list(main_cases)
     for dt in (torch.float32, torch.float64):
         for k in range(1, 33):
             A = rng.normal(size=(3, k, k))
             cases.append((f"random (3, {k}, {k}) {str(dt)[6:]}",
                           torch.as_tensor(A + A.transpose(0, 2, 1),
-                                          dtype=dt, device=dev)))
+                                          dtype=dt, device=dev), None))
+    for dt, ws in ((torch.float32, 170), (torch.float64, 130)):
+        for k in list(range(33, 65)) + [120, ws]:
+            A = rng.normal(size=(2, k, k) if k <= 64 else (k, k))
+            H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dt,
+                                device=dev)
+            forced = k == ws or k > THREE_PASS_SHARED_MAX[str(dt)[6:]]
+            cases.append((f"K4w random {tuple(H.shape)} {str(dt)[6:]}"
+                          + (" on the workspace" if forced else ""), H,
+                          "wide_workspace" if forced else None))
     one = torch.zeros(1, 1, device=dev)
-    out, dev_ms = {}, {}
+    out, dev_ms, call = {}, {}, {}
     for version in TURNS:
         use(version)
         floor = device_ms(lambda: syev.sym_eig(one))
         print(f"{version} K4 launch floor (1 x 1): {floor:.5f} ms ({card})",
               flush=True)
-        for label, H in cases:
-            got = syev.sym_eig(H)
+        for label, H, body in cases:
+            got = syev.sym_eig(H, body=body)
             torch.cuda.synchronize()
             out.setdefault(label, {}).setdefault(version, got)
-            dms = device_ms(lambda: syev.sym_eig(H))
+            main = label in main_labels
+            dms = device_ms(lambda: syev.sym_eig(H, body=body),
+                            reps=100 if main else 20, rounds=5 if main else 3)
             dev_ms.setdefault(label, {}).setdefault(version, []).append(dms)
-            if label in main_labels:
+            if main:
+                cms = call_ms(lambda: syev.sym_eig(H, body=body))
+                call.setdefault(label, {}).setdefault(version, []).append(
+                    cms)
                 print(f"{version} K4 {label}: device {dms:.5f} ms, call "
-                      f"{call_ms(lambda: syev.sym_eig(H)):.4f} ms ({card})",
-                      flush=True)
+                      f"{cms:.4f} ms ({card})", flush=True)
     use("new")
+    lib = _build.load("syev", syev._SIGNATURES)
+    threads = sorted({lib.sym_eig_wide_threads(k) for k in (33, 36, 96)})
     for dt in (torch.float32, torch.float64):
         print(f"K4 round of the irreducible chain, {dt}: "
-              f"{1e6 * k4_round_ms(dt):.1f} ns ({card})", flush=True)
-    differ, total = 0, 0
-    for label, H in cases:
+              f"{1e6 * k4_round_ms(dt):.1f} ns; K4w's round with its two "
+              f"barriers (block probe) at the new blocks' threads " + ", ".join(
+                  f"{t} {1e6 * k4_round_ms(dt, t):.1f} ns" for t in threads)
+              + f" ({card})", flush=True)
+    differ = {"K4": [0, 0], "K4w": [0, 0]}
+    for label, H, body in cases:
         (eo, Vo), (en, Vn) = out[label]["old"], out[label]["new"]
         b = H.numel() // H.shape[-1] ** 2
         same = [bool(torch.equal(eo.reshape(b, -1)[i], en.reshape(b, -1)[i])
                      and torch.equal(Vo.reshape(b, -1)[i],
                                      Vn.reshape(b, -1)[i]))
                 for i in range(b)]
-        differ += same.count(False)
-        total += b
+        group = differ["K4w" if H.shape[-1] > syev.WARP_MAX_K else "K4"]
+        group[0] += same.count(False)
+        group[1] += b
         old = statistics.median(dev_ms[label]["old"])
         new = statistics.median(dev_ms[label]["new"])
-        lib = (f", torch.linalg.eigh device "
-               f"{kernels_ms(lambda: torch.linalg.eigh(H)):.5f} ms"
-               if label in main_labels else "")
+        more = ""
+        if label in main_labels:
+            more = (f", call old {statistics.median(call[label]['old']):.4f}"
+                    f" ms, new {statistics.median(call[label]['new']):.4f} "
+                    f"ms, torch.linalg.eigh device "
+                    f"{kernels_ms(lambda: torch.linalg.eigh(H)):.5f} ms")
         print(f"summary K4 {label}: device old {old:.5f} ms, new {new:.5f} "
-              f"ms, new/old {new / old:.3f}{lib}; matrices not bitwise the "
+              f"ms, new/old {new / old:.3f}{more}; matrices not bitwise the "
               f"old kernel's {same.count(False)} of {b} ({card})",
               flush=True)
-    print(f"K4 outputs not bitwise the old kernel's: {differ} of {total} "
-          f"matrices", flush=True)
+    for group, (n_differ, n_total) in differ.items():
+        print(f"{group} outputs not bitwise the old kernel's: {n_differ} of "
+              f"{n_total} matrices", flush=True)
+    # K4w's round by phase, each version's stamped build (the older one
+    # through THREE_PASS_STAMPS where its source has no stamps).
+    for version in ("old", "new"):
+        use(version)
+        for label, H, _ in wide_main[:4]:
+            print(f"{version} " + k4w_phase_line(label, k4w_phases(H), card),
+                  flush=True)
+    regs = k4w_frame_gate(_build.ptxas_log("syev"))
+    print("new K4w instantiations (registers, stack frame bytes, spill "
+          "stores, spill loads): " + ", ".join(
+              f"{dt} {form}: {v}" for (dt, form), v in sorted(regs.items()))
+          + " (the shared-memory form: 0-byte stack, no spills)", flush=True)
 
 
 def ldl_report(use, card, factor_args):
@@ -270,11 +388,13 @@ def main():
     import numpy as np
     import torch
 
-    argv = [a for a in sys.argv[1:] if a != "--kernels-only"]
-    kernels_only = len(argv) < len(sys.argv) - 1
+    flags = {"--kernels-only", "--syev-only"}
+    argv = [a for a in sys.argv[1:] if a not in flags]
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    syev_only = "--syev-only" in sys.argv[1:]
     if not argv:
-        fail("usage: python3 kernel_ab.py [--kernels-only] OLD_CSRC_DIR "
-             "[VARIANT_DIR ...]")
+        fail("usage: python3 kernel_ab.py [--kernels-only | --syev-only] "
+             "OLD_CSRC_DIR [VARIANT_DIR ...]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     card = card_line()
@@ -296,15 +416,12 @@ def main():
         sigs["ldl"] = ldl._SIGNATURES
     if (old_dir / "syev.cu").exists():
         sigs["syev"] = syev._SIGNATURES
-    libs = {"old": build_dir(old_dir, "old", sigs),
-            "new": {name: _build.build(name) for name in sigs}}
-    for src, secs, _ in _build.build_log:
-        print(f"new {src}.cu built in {secs:.1f} s", flush=True)
-    for src in sigs:
-        print_ptxas("new", src, _build.ptxas_log(src))
+    if syev_only:
+        if "syev" not in sigs:
+            fail(f"--syev-only: no syev.cu in {old_dir}")
+        sigs = {"syev": syev._SIGNATURES}
     variants = [f"variant {Path(d).name}" for d in argv[1:]]
-    for tag, d in zip(variants, argv[1:]):
-        libs[tag] = build_dir(Path(d), tag.replace(" ", "-"), ("tridiag",))
+    libs = build_all(old_dir, sigs, [] if syev_only else argv[1:])
 
     def use(version):
         for name, path in libs[version].items():
@@ -313,6 +430,9 @@ def main():
     dev = torch.device("cuda")
     (dataset, n, fixed, cands, k, x_init, bop, w, dp1, l1,
      B1) = dataset_inputs(dev)
+    if syev_only:
+        k4_ab(use, card, bop, w, dev)
+        return
     args_b = k2_args(bop, w)
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
     bop_s = banded.build_banded_rcm(idx_s, n_s)[0].to(dev)

@@ -21,16 +21,34 @@ in the same order, the same rotation formulas and the same stop rule,
 vectorised over a round's k / 2 pairs and over the batch) for a CPU
 tensor. The kernel has two bodies, picked by `body_for(k, dtype)`:
 "warp" for k <= 32 (a warp a matrix, the matrix in registers), and past
-it K4w, a thread block a matrix, with A and V in shared memory while they
-fit ("wide_shared") and in a workspace the wrapper allocates with
-torch.empty on H's device otherwise ("wide_workspace"; inside a CUDA graph
-capture it comes from the graph's pool). On a CUDA tensor the wrapper
-raises for what the kernels do not take (a dtype other than float32 and
-float64, a non-contiguous tensor, a batch past int32); nothing falls back
-to torch.linalg.eigh. It counts its launches in `.launches`,
+it K4w, a cluster of two thread blocks a matrix on neighbouring SMs. Its
+A block keeps A by slots, twice: each round reads one copy and writes the
+other at the next round's slots, so that every 2 x 2 block (the two rows
+of one pair by the two columns of another) is four entries at fixed,
+conflict-free places; a thread loads a block once, rotates its rows and
+then its columns in registers and stores it once, one block barrier a
+round. Its pusher warps compute the next round's parameters once a pair,
+from the blocks of this round they read before anyone writes, and
+publish them in shared memory, while the other threads rotate. Its V
+block holds V^T and applies each round's rotations as the A block hands
+them over, through a ring of slots in the V block's shared memory
+written across the cluster by asynchronous stores (st.async) and
+signalled by mbarriers, so V's rotations are off A's chain. Each entry
+of A and V sees the roundings of the three-pass K4w (commit 9f43cf3: rows
+of A and V^T, then columns of A) in the same order, so its outputs are
+that kernel's bit for bit.
+A and V^T sit in the blocks' shared memory while
+`wide_smem_bytes` fits SMEM_LIMIT ("wide_shared"; k up to 168 in float32,
+118 in float64) and in a workspace the wrapper allocates with torch.empty
+on H's device otherwise ("wide_workspace", `wide_scratch_bytes` a matrix;
+inside a CUDA graph capture it comes from the graph's pool). On a CUDA
+tensor the wrapper raises for what the kernels do not take (a dtype other
+than float32 and float64, a non-contiguous tensor, a batch past 2^30 in
+K4w, past int32 in the warp body); nothing falls back to
+torch.linalg.eigh. It counts its launches in `.launches`,
 `.launches_by_lanes` (by the number of matrices), `.launches_by_dtype` and
 `.launches_by_body` (by body_for's names), as the other kernels' wrappers
-do.
+do. `wide_phases` runs K4w with clock64() stamps of its phases.
 """
 
 import ctypes
@@ -48,6 +66,9 @@ WARP_MAX_K = 32
 # keeps A and V there while its scratch fits.
 SMEM_LIMIT = 232448
 BODIES = ("warp", "wide_shared", "wide_workspace")
+# Slots of K4w's ring, through which its A block hands each round's
+# rotations to its V block.
+RING = 8
 # Sweeps at most; the stop test (off-diagonal Frobenius norm at most
 # eps ||H||_F) ends the loop before every sweep, on the card and here.
 MAX_SWEEPS = 30
@@ -157,26 +178,49 @@ def _jacobi(H: torch.Tensor):
     return evals.reshape(*lead, k), V.reshape(*lead, k, k), sweeps
 
 
+def _wide_region_bytes(m: int, itemsize: int) -> int:
+    """Bytes of K4w's A block region at even order m: A twice (by slots,
+    the round's layout and the next one's), then two buffers of per pair
+    s, tau and the new diagonal pair and 32 partial sums in elements of
+    `itemsize` bytes, and two buffers of an int per pair (act) and per
+    pair the moves of its rows and columns (four ints), rounded up to 16
+    (syev.cu's wide_region_bytes)."""
+    return 2 * m * m * itemsize + ((4 * m + 32) * itemsize + 6 * (m // 2) * 4
+                                   + 15) // 16 * 16
+
+
 def wide_scratch_bytes(k: int, itemsize: int) -> int:
-    """Bytes of K4w's scratch for one matrix of order k (syev.cu's
-    wide_scratch_bytes at m = k rounded up to even): A and V^T (m rows of
-    m + 1), per pair s, tau and the new diagonal pair, 32 partial sums, in
-    elements of `itemsize` bytes, and three ints per pair, rounded up to
-    16."""
+    """Bytes of K4w's workspace for one matrix of order k (syev.cu's
+    wide_scratch_bytes at m = k rounded up to even): the A block's region,
+    then V^T (m rows of m + 1), rounded up to 16; more than the three-pass
+    K4w's, so that an A/B against that kernel fits its workspace too."""
     m = k + (k & 1)
-    return ((2 * m * (m + 1) + 2 * m + 32) * itemsize + 3 * (m // 2) * 4
-            + 15) // 16 * 16
+    return _wide_region_bytes(m, itemsize) + (m * (m + 1) * itemsize
+                                              + 15) // 16 * 16
+
+
+def wide_smem_bytes(k: int, itemsize: int) -> int:
+    """Bytes of dynamic shared memory each block of K4w's shared-memory
+    form takes at order k (syev.cu's wide_smem_bytes): the ring (a 144-byte
+    head of mbarriers, then as many slots of m / 2 rotations of 4 elements
+    as fit beside the region, at most RING, at least one), then the A
+    block's region; more than SMEM_LIMIT where that form cannot take k."""
+    m = k + (k & 1)
+    region = _wide_region_bytes(m, itemsize)
+    slot = (m // 2) * 4 * itemsize
+    slots = min(RING, max(1, (SMEM_LIMIT - 144 - region) // slot))
+    return 144 + slots * slot + region
 
 
 def body_for(k: int, dtype: torch.dtype) -> str:
     """The kernel body that sym_eig runs for order k in dtype on the card:
-    "warp" up to WARP_MAX_K, then "wide_shared" while K4w's scratch fits
+    "warp" up to WARP_MAX_K, then "wide_shared" while K4w's blocks fit
     SMEM_LIMIT (k up to 168 in float32, 118 in float64), else
     "wide_workspace"."""
     if k <= WARP_MAX_K:
         return "warp"
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return ("wide_shared" if wide_scratch_bytes(k, itemsize) <= SMEM_LIMIT
+    return ("wide_shared" if wide_smem_bytes(k, itemsize) <= SMEM_LIMIT
             else "wide_workspace")
 
 
@@ -186,6 +230,9 @@ _SIGNATURES = {
        for suffix in SUFFIX.values()},
     **{f"sym_eig_wide_{suffix}": [ctypes.c_void_p] * 4
        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+       for suffix in SUFFIX.values()},
+    **{f"sym_eig_wide_phases_{suffix}": [ctypes.c_void_p] * 4
+       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
        for suffix in SUFFIX.values()}}
 
 
@@ -215,36 +262,76 @@ def sym_eig(H: torch.Tensor, body: str = None):
             raise ValueError(f"sym_eig: want H (..., k, k), k >= 1; got "
                              f"{tuple(H.shape)}")
         return sym_eig_plain(H)
+    body = _kernel_body(H, body)
+    if body == "warp":
+        k = H.shape[-1]
+        evals = torch.empty(H.shape[:-1], dtype=H.dtype, device=H.device)
+        V = torch.empty_like(H)
+        call = _build.function("syev", f"sym_eig_{SUFFIX[H.dtype]}",
+                               _SIGNATURES)
+        err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
+                            V.data_ptr(), k, H.numel() // (k * k))
+        if err != 0:
+            raise RuntimeError(f"sym_eig kernel ({body}) launch failed: "
+                               f"cudaError {err}")
+    else:
+        evals, V = _launch_wide(H, body, "sym_eig_wide")
+    count_launch(sym_eig, H.numel() // H.shape[-1] ** 2, H.dtype, body)
+    return evals, V
+
+
+def wide_phases(H: torch.Tensor, body: str = None):
+    """One launch of K4w on the CUDA tensor H (..., k, k) in the build
+    that stamps its phases (sym_eig_wide_phases_*; `body` as sym_eig's,
+    "wide_shared" or "wide_workspace"): (evals, V, clk), clk (16,) int64 on
+    the card with the first matrix's clock64() durations as csrc/syev.cu's
+    wide_body lays them out (clk[0] their count, clk[13] the body that
+    stamped them). Not counted as a launch: it measures, the paths never
+    call it."""
+    if not H.is_cuda:
+        raise ValueError("sym_eig_wide_phases: the phase stamps need a CUDA "
+                         "tensor")
+    body = _kernel_body(H, body or ("wide_shared" if body_for(
+        H.shape[-1], H.dtype) == "warp" else None))
+    if body == "warp":
+        raise ValueError("sym_eig_wide_phases: stamps K4w, not the warp body")
+    clk = torch.zeros(16, dtype=torch.int64, device=H.device)
+    evals, V = _launch_wide(H, body, "sym_eig_wide_phases", clk.data_ptr())
+    return evals, V, clk
+
+
+def _kernel_body(H: torch.Tensor, body):
+    """The body a launch on the CUDA tensor H takes: body_for's, or the
+    forced `body`, after the kernels' checks."""
     check_kernel_args(H)
     k = H.shape[-1]
-    batch = H.numel() // (k * k)
     body = body_for(k, H.dtype) if body is None else body
     if body not in BODIES:
         raise ValueError(f"sym_eig: body {body!r} is none of {BODIES}")
     if body == "warp" and k > WARP_MAX_K:
         raise ValueError(f"sym_eig: the warp body takes k up to "
                          f"{WARP_MAX_K}, not {k}")
+    return body
+
+
+def _launch_wide(H: torch.Tensor, body: str, name: str, *extra):
+    """One launch of K4w's exported `name`_{f32,f64} on H in the storage
+    form `body` names (the workspace allocated here); (evals, V)."""
+    k = H.shape[-1]
+    batch = H.numel() // (k * k)
     evals = torch.empty(H.shape[:-1], dtype=H.dtype, device=H.device)
     V = torch.empty_like(H)
-    suffix = SUFFIX[H.dtype]
-    if body == "warp":
-        call = _build.function("syev", f"sym_eig_{suffix}", _SIGNATURES)
-        err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
-                            V.data_ptr(), k, batch)
-    else:
-        work = None
-        if body == "wide_workspace":
-            work = torch.empty(batch * wide_scratch_bytes(k, H.element_size()),
-                               dtype=torch.uint8, device=H.device)
-        call = _build.function("syev", f"sym_eig_wide_{suffix}", _SIGNATURES)
-        err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
-                            V.data_ptr(),
-                            None if work is None else work.data_ptr(), k,
-                            batch)
+    work = None
+    if body == "wide_workspace":
+        work = torch.empty(batch * wide_scratch_bytes(k, H.element_size()),
+                           dtype=torch.uint8, device=H.device)
+    call = _build.function("syev", f"{name}_{SUFFIX[H.dtype]}", _SIGNATURES)
+    err = _build.launch(call, H.device, H.data_ptr(), evals.data_ptr(),
+                        V.data_ptr(), None if work is None else work.data_ptr(),
+                        k, batch, *extra)
     if err != 0:
         raise RuntimeError(f"sym_eig kernel ({body}) launch failed: "
                            f"cudaError {err}")
-    count_launch(sym_eig, batch, H.dtype, body)
     return evals, V
 
 

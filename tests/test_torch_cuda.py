@@ -11,8 +11,9 @@ block-Jacobi and additive variants against their CPU calls, and the
 eigensolver's inner solve replayed as a CUDA graph against the eager loop
 (bitwise, across weight vectors, with the launch counts), and the
 Rayleigh-Ritz eigensolver K4 at every order up to 32 and on batches that
-leave its last block partial, its thread-block body K4w past 32 (both
-storage forms, bitwise equal; a replayed solve at q = 11), with
+leave its last block partial, its cluster body K4w past 32 (both storage
+forms, bitwise equal, at and past the shared-memory edge; its phase
+stamps; a replayed solve at q = 11), with
 TRACEMIN's lanes (GreedyEig's trial chunk, the budget sweep) launching it
 once a lane batch and never calling torch.linalg.eigh. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
@@ -1259,6 +1260,88 @@ def test_k4w_storage_forms_are_bitwise_equal(dev, shape, dtype):
     assert torch.equal(e1, e2) and torch.equal(V1, V2)
     for body in ("wide_shared", "wide_workspace"):
         assert syev.sym_eig.launches_by_body[body] == before.get(body, 0) + 1
+
+
+@pytest.mark.parametrize("k, dtype", [(168, torch.float32),
+                                      (169, torch.float32),
+                                      (118, torch.float64),
+                                      (119, torch.float64)])
+def test_k4w_sizing_at_the_shared_memory_edge(dev, k, dtype):
+    """K4w's shared-memory form at the largest order whose blocks fit (168
+    float32, 118 float64, as before) and just past it: syev.cu's
+    shared bytes a block, workspace bytes and threads against the
+    wrapper's, the body body_for picks; at the edge both forms run the
+    cluster and agree bit for bit, past it the shared form is refused and
+    the workspace form runs."""
+    import ctypes
+
+    from mac_tpu_torch.ops.kernels import _build, syev
+
+    lib = _build.load("syev", syev._SIGNATURES)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    itemsize = 4 if dtype == torch.float32 else 8
+    for what, py in (("smem", syev.wide_smem_bytes),
+                     ("scratch", syev.wide_scratch_bytes)):
+        fn = getattr(lib, f"sym_eig_wide_{what}_bytes_{suffix}")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        assert fn(k) == py(k, itemsize)
+    lib.sym_eig_wide_threads.argtypes = [ctypes.c_int]
+    assert lib.sym_eig_wide_threads(k) == 896
+    fits = syev.wide_smem_bytes(k, itemsize) <= syev.SMEM_LIMIT
+    assert fits == (k in (168, 118))
+    assert syev.body_for(k, dtype) == ("wide_shared" if fits
+                                       else "wide_workspace")
+    rng = np.random.RandomState(k)
+    A = rng.normal(size=(k, k))
+    H = torch.as_tensor(A + A.T, dtype=dtype, device=dev)
+    e2, V2 = syev.sym_eig(H, body="wide_workspace")
+    if fits:
+        e1, V1 = syev.sym_eig(H, body="wide_shared")
+        torch.cuda.synchronize()
+        assert torch.equal(e1, e2) and torch.equal(V1, V2)
+    else:
+        with pytest.raises(RuntimeError):
+            syev.sym_eig(H, body="wide_shared")
+    el = torch.linalg.eigvalsh(H)
+    tol = 2 * k * torch.finfo(dtype).eps * float(torch.linalg.matrix_norm(H))
+    assert float((e2 - el).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(33, 33), (2, 36, 36), (96, 96),
+                                   (180, 180)])
+def test_k4w_phase_stamps_run_the_kernels_arithmetic(dev, shape, dtype):
+    """sym_eig_wide_phases_* (chip_smoke.k4w_phases reads it): the stamped
+    build's eigenpairs are bitwise the kernel's, in either storage form,
+    and its clock lists body 2's ten phases, the sweeps and rounds this H
+    takes (rounds = sweeps (m - 1)), a positive span; no launch counted."""
+    from chip_smoke import K4W_PHASES, k4w_phases
+    from mac_tpu_torch.ops.kernels import syev
+
+    k = shape[-1]
+    rng = np.random.RandomState(k + 7)
+    A = rng.normal(size=shape)
+    H = torch.as_tensor(A + np.swapaxes(A, -1, -2), dtype=dtype, device=dev)
+    for body in ("wide_shared", "wide_workspace"):
+        if syev.body_for(k, dtype) != "wide_shared" and body == "wide_shared":
+            continue
+        e, V = syev.sym_eig(H, body=body)
+        before = syev.sym_eig.launches
+        e_s, V_s, clk = syev.wide_phases(H, body)
+        torch.cuda.synchronize()
+        assert syev.sym_eig.launches == before
+        assert torch.equal(e, e_s) and torch.equal(V, V_s)
+        clk = clk.cpu().tolist()
+        m = k + k % 2
+        assert clk[0] == 10 and clk[13] == 2
+        assert 1 <= clk[11] < syev.MAX_SWEEPS
+        assert clk[12] == clk[11] * (m - 1)
+        assert clk[14] > 0 and clk[15] > 0
+    rows, info = k4w_phases(H)
+    assert [name for name, *_ in rows] == [
+        name for name, _ in K4W_PHASES[2]] + ["whole"]
+    first = H.reshape(-1, k, k)[:1]
+    assert info["rounds"] == syev.jacobi_sweeps(first) * (m - 1)
 
 
 def _k4_lane_counts(run):

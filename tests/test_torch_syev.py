@@ -22,9 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from mac_tpu_torch.ops.kernels.syev import (SMEM_LIMIT, WARP_MAX_K, body_for,
-                                            sym_eig, sym_eig_plain,
-                                            wide_scratch_bytes)
+from mac_tpu_torch.ops.kernels.syev import (MAX_SWEEPS, RING, SMEM_LIMIT,
+                                            WARP_MAX_K, body_for, sym_eig,
+                                            sym_eig_plain, wide_scratch_bytes,
+                                            wide_smem_bytes)
 
 torch.set_num_threads(1)
 
@@ -311,17 +312,237 @@ def test_fiedler_pair_lanes_batches_its_eigensolves(monkeypatch):
     (130, torch.float64, "wide_workspace")])
 def test_sym_eig_dispatch_picks_the_body(k, dtype, body):
     """The body sym_eig runs on the card for order k: the warp body up to
-    32, K4w in shared memory while its scratch (A, V, the round's
-    parameters; syev.cu's wide_scratch_bytes) fits the 232,448 bytes a
-    block may opt into, K4w on a workspace past it: the edges at k 168 /
-    169 (float32) and 118 / 119 (float64)."""
+    32, K4w in shared memory while each block of its cluster (the ring of
+    at least one slot, A twice by slots and the round's parameters;
+    syev.cu's wide_smem_bytes) fits the 232,448 bytes a block may opt
+    into, K4w on a workspace past it (the A block's region and V^T,
+    wide_scratch_bytes a matrix, more than the three-pass K4w's): the edges
+    at k 168 / 169 (float32) and 118 / 119 (float64), as before."""
     assert body_for(k, dtype) == body
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = wide_scratch_bytes(k, itemsize)
+    smem = wide_smem_bytes(k, itemsize)
     m = k + k % 2
     assert nbytes % 16 == 0 and nbytes >= 2 * m * m * itemsize
+    assert 2 * m * m * itemsize < smem <= nbytes - m * m * itemsize + 144 + (
+        RING * m * 2 * itemsize)
     if k > WARP_MAX_K:
-        assert (nbytes <= SMEM_LIMIT) == (body == "wide_shared")
+        assert (smem <= SMEM_LIMIT) == (body == "wide_shared")
+
+
+def _k4w_pairs(m, r):
+    """(P, Q), p < q, of the m / 2 pairs of round r (the kernel's
+    round-robin order)."""
+    slot = [0] + [((j - 1 + r) % (m - 1)) + 1 for j in range(1, m)]
+    a = np.array([slot[i] for i in range(m // 2)])
+    b = np.array([slot[m - 1 - i] for i in range(m // 2)])
+    return np.minimum(a, b), np.maximum(a, b)
+
+
+def _k4w_params(app, aqq, apq):
+    """act, s, tau and the new a_pp, a_qq of each pair, in the operands'
+    dtype, by the kernel's expressions (0 where a_pq = 0)."""
+    dt = apq.dtype.type
+    act = apq != 0
+    one = dt(1)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        d = aqq - app
+        a2 = apq + apq
+        t = np.where(act, a2 / (d + np.copysign(np.hypot(d, a2), d)),
+                     dt(0)).astype(apq.dtype)
+        c = one / np.hypot(t, one)
+        s = np.where(act, t * c, dt(0)).astype(apq.dtype)
+        tau = np.where(act, s / (one + c), dt(0)).astype(apq.dtype)
+    return act, s, tau, app - t * apq, aqq + t * apq
+
+
+def _k4w_rot(x, y, s, tau):
+    """Rows (or columns) p and q under (s, tau): x + sigma s (y - sigma tau
+    x), sigma -1 at p and +1 at q, as the kernel writes it."""
+    return x + (-s) * (y - (-tau) * x), y + s * (x - tau * y)
+
+
+def k4w_model(H):
+    """A numpy model of the three-pass K4w's rounds (commit 9f43cf3) on one
+    matrix H (k, k) in H's dtype, each operation rounded to the dtype as
+    numpy rounds it: (A, V^T, sweeps) after the stop rule. A round: the
+    parameters, then rows p, q of A and of V^T for every pair, then
+    columns p, q of A for every pair, then the new diagonal."""
+    dt = H.dtype
+    k = H.shape[0]
+    m = k + (k & 1)
+    A = np.zeros((m, m), dt)
+    A[:k, :k] = H  # a zero row and column pad an odd k
+    VT = np.eye(m, dtype=dt)
+    off = ~np.eye(m, dtype=bool)
+    tol = np.finfo(dt).eps * np.sqrt(np.sum(A * A, dtype=dt))
+    for sweep in range(MAX_SWEEPS + 1):
+        if (sweep == MAX_SWEEPS
+                or np.sqrt(np.sum(A * A * off, dtype=dt)) <= tol):
+            break
+        for r in range(m - 1):
+            P, Q = _k4w_pairs(m, r)
+            act, s, tau, dp, dq = _k4w_params(A[P, P], A[Q, Q], A[P, Q])
+            on = s != 0
+            for M in (A, VT):
+                nx, ny = _k4w_rot(M[P], M[Q], s[:, None], tau[:, None])
+                M[P[on]], M[Q[on]] = nx[on], ny[on]
+            nx, ny = _k4w_rot(A[:, P], A[:, Q], s, tau)
+            A[:, P[on]], A[:, Q[on]] = nx[:, on], ny[:, on]
+            A[P[act], P[act]], A[Q[act], Q[act]] = dp[act], dq[act]
+            A[P[act], Q[act]] = A[Q[act], P[act]] = 0
+    return A, VT, sweep
+
+
+def _k4w_slot_home(s, m):
+    """(pair, side) of slot s: slot s < m / 2 is side 0 of pair s, slot m -
+    1 - a side 1 of pair a."""
+    h = m // 2
+    s = np.asarray(s)
+    return np.where(s < h, s, m - 1 - s), (s >= h).astype(np.int64)
+
+
+def k4w_slot_model(H):
+    """The redesigned K4w's schedule on one matrix H (k, k), as numpy arrays
+    in H's dtype: (A, V^T, sweeps). A lives by slots in two buffers of four
+    planes (side of the row, side of the column) x (pair, pair); a round
+    reads one buffer and writes the other at the next round's slots (slot
+    j >= 2 to j - 1, 1 to m - 1, 0 stays); every 2 x 2 block of two pairs'
+    sides is rotated by its row pair, then by its column pair, with side
+    0's (sigma s, sigma tau) and side 1's their negatives (sigma -1 at p,
+    +1 at q); a diagonal block takes its new diagonal and zeros where its
+    pair acts. The next round's parameters come from this round's: the
+    next pair's a_pq from its block read before this round's writes and
+    rotated, its a_pp and a_qq from this round's new diagonal (or as they
+    were), by the warp body's expressions; round 0's from the matrix as
+    loaded. V^T takes each round's (p, q, s, tau) after A's last round
+    (the V block trailing). The stop test sums A by index as k4w_model
+    does."""
+    dt = H.dtype
+    k = H.shape[0]
+    m = k + (k & 1)
+    h = m // 2
+    A = np.zeros((m, m), dt)
+    A[:k, :k] = H
+    pi, si = _k4w_slot_home(np.arange(m), m)  # round 0: slot i holds i
+    buf = [np.zeros((2, 2, h, h), dt), np.zeros((2, 2, h, h), dt)]
+    buf[0][si[:, None], si[None, :], pi[:, None], pi[None, :]] = A
+    # Where the entry of (pair, side) goes next round.
+    slot_of = np.stack([np.arange(h), m - 1 - np.arange(h)], 1)  # [a, side]
+    nslot = np.where(slot_of == 0, 0, np.where(slot_of == 1, m - 1,
+                                               slot_of - 1))
+    npair, nside = _k4w_slot_home(nslot, m)
+    off = ~np.eye(m, dtype=bool)
+    tol = np.finfo(dt).eps * np.sqrt(np.sum(A * A, dtype=dt))
+    zero, z = dt.type(0), np.zeros(h, dt)
+    # Round 0's parameters come from a round that rotates and moves
+    # nothing.
+    ss0, tt0, d0, d1, act = z, z, z, z, np.zeros(h, bool)
+    ab, rounds, sweep, r, recs = 0, -1, 0, m - 2, []
+    ar = np.arange(h)
+    while True:
+        real = rounds >= 0
+        rn = r + 1 if r + 1 < m - 1 else 0
+        rl = r if real else 0
+        A0 = buf[ab]
+        # Every block rotated: x[sa][sb] (h, h) at pairs (a, b).
+        x = [[A0[sa, sb].copy() for sb in (0, 1)] for sa in (0, 1)]
+        ra, ta = ss0[:, None], tt0[:, None]
+        on = ra != 0
+        for sb in (0, 1):
+            n0 = x[0][sb] + ra * (x[1][sb] - ta * x[0][sb])
+            n1 = x[1][sb] + (-ra) * (x[0][sb] - (-ta) * x[1][sb])
+            x[0][sb], x[1][sb] = np.where(on, n0, x[0][sb]), np.where(
+                on, n1, x[1][sb])
+        cb, tb = ss0[None, :], tt0[None, :]
+        on = cb != 0
+        for sa in (0, 1):
+            n0 = x[sa][0] + cb * (x[sa][1] - tb * x[sa][0])
+            n1 = x[sa][1] + (-cb) * (x[sa][0] - (-tb) * x[sa][1])
+            x[sa][0], x[sa][1] = np.where(on, n0, x[sa][0]), np.where(
+                on, n1, x[sa][1])
+        # The next round's pairs: p at (u, su), q at (v, sv) of this round.
+        P, Q = _k4w_pairs(m, rn)
+        u, su = _k4w_slot_home(np.where(P == 0, 0, (P - 1 - rl) % (m - 1)
+                                        + 1), m)
+        v, sv = _k4w_slot_home(np.where(Q == 0, 0, (Q - 1 - rl) % (m - 1)
+                                        + 1), m)
+        rot = np.stack([np.stack([x[0][0], x[0][1]]),
+                        np.stack([x[1][0], x[1][1]])])
+        raw = A0[su, sv, u, u]
+        apq = np.where(u != v, rot[su, sv, u, v],
+                       np.where(act[u], zero, raw))
+        dd = np.stack([d0, d1])
+        app = np.where(act[u], dd[su, u], A0[su, su, u, u])
+        aqq = np.where(act[v], dd[sv, v], A0[sv, sv, v, v])
+        if real:
+            A1 = buf[ab ^ 1]
+            for sa in (0, 1):
+                for sb in (0, 1):
+                    val = x[sa][sb].copy()
+                    val[ar, ar] = np.where(act, dd[sa] if sa == sb else zero,
+                                           A0[sa, sb, ar, ar])
+                    A1[nside[:, sa][:, None], nside[:, sb][None, :],
+                       npair[:, sa][:, None], npair[:, sb][None, :]] = val
+            Pr, Qr = _k4w_pairs(m, r)
+            s0p = np.array([((j - 1 + r) % (m - 1)) + 1 if j else 0
+                            for j in range(h)]) == Pr
+            sgn = np.where(s0p, -1, 1).astype(dt)
+            recs.append((Pr, Qr, ss0 * sgn, tt0 * sgn))
+            ab ^= 1
+        act, s, tau, dp, dq = _k4w_params(app, aqq, apq)
+        s0p = np.array([((j - 1 + rn) % (m - 1)) + 1 if j else 0
+                        for j in range(h)]) == P
+        ss0, tt0 = np.where(s0p, -s, s), np.where(s0p, -tau, tau)
+        d0, d1 = np.where(s0p, dp, dq), np.where(s0p, dq, dp)
+        rounds, r = rounds + 1, rn
+        if r == 0:
+            if sweep == MAX_SWEEPS:
+                break
+            Ai = buf[ab][si[:, None], si[None, :], pi[:, None], pi[None, :]]
+            if np.sqrt(np.sum(Ai * Ai * off, dtype=dt)) <= tol:
+                break
+            sweep += 1
+    VT = np.eye(m, dtype=dt)
+    for P, Q, s, tau in recs:
+        on = s != 0
+        nx, ny = _k4w_rot(VT[P], VT[Q], s[:, None], tau[:, None])
+        VT[P[on]], VT[Q[on]] = nx[on], ny[on]
+    return buf[ab][si[:, None], si[None, :], pi[:, None], pi[None, :]], VT, \
+        sweep
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", ["random", "clustered", "sparse"])
+@pytest.mark.parametrize("k", [33, 34, 36, 64, 96])
+def test_k4w_block_schedule_is_bitwise_the_three_pass_order(k, kind, dtype):
+    """The reordering argument behind K4w's redesign, on the CPU: the
+    redesigned schedule (k4w_slot_model: A by slots in two buffers, each
+    2 x 2 block rotated by its rows, then its columns, with signs by side;
+    the next round's parameters from blocks read before the writes; V^T
+    from the rounds' records after A's rounds) gives bit for bit the A,
+    V^T and sweeps of the three-pass order (k4w_model: rows of A and V^T, then
+    columns of A), because each entry sees the same expressions on the same
+    operands in the same order; odd k padded with a zero row and column,
+    random, clustered and sparse matrices (a_pq = 0 skips rotations),
+    float32 and float64. The model's eigenvalues stand within 2 k eps ||H||
+    of numpy's float64 ones."""
+    dt = np.dtype(dtype)
+    if kind == "sparse":
+        rng = np.random.RandomState(7 * k)
+        X = rng.normal(size=(k, k)) * (rng.uniform(size=(k, k)) < 0.2)
+        H64 = X + X.T
+    else:
+        H64 = _matrices(kind, k, batch=1, seed=11)[0][0]
+    H = H64.astype(dt)
+    A1, V1, sweeps1 = k4w_model(H)
+    A2, V2, sweeps2 = k4w_slot_model(H)
+    assert sweeps1 == sweeps2 and 1 <= sweeps1 < MAX_SWEEPS
+    assert A1.tobytes() == A2.tobytes() and V1.tobytes() == V2.tobytes()
+    evals = np.sort(np.diag(A1)[:k]).astype(np.float64)
+    np.testing.assert_allclose(
+        evals, np.linalg.eigvalsh(H.astype(np.float64)), rtol=0,
+        atol=2 * k * np.finfo(dt).eps * np.linalg.norm(H64))
 
 
 class _CudaOnCpu(torch.overrides.TorchFunctionMode):
