@@ -109,15 +109,29 @@ its wall time printed:
      the 2 x 2 blocks, the barrier waits, the waits for a free slot, the
      stop test, the V block's waits, rotations and tail) at (33, 33) and
      (96, 96) in both types;
+  3f. TRACEMIN's inner CG step's kernels against their plain versions
+     (cg_kernels): K5 banded_product (the inner form with its dots at
+     city10000's (10000, 4), the residual and plain forms, (10000, 12),
+     the coarse assembly's (10000, 500), sphere2500's (2500, 4), 8 lanes,
+     float64; library: torch.sparse.mm of L(w) as BSR), K6 (col_sums,
+     cg_update, cg_direction; float32, float64, 8 lanes; library for the
+     sums: torch.linalg.vecdot), K1p tridiag_solve_permuted (bitwise K1
+     on the gathered, centred input; the add form with its sums; 8 lanes;
+     float64; the tiled branch at (32768, 16)) and K7 coarse_correct:
+     float32 within 1e-5 and float64 within 1e-12 relative in norm (K1p
+     at K1's tolerance), two calls bitwise equal; device, call and plain
+     times, bound and library time;
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
-     the loop closures; K1, K2, K3b and K4 must have launched; the relaxed
+     the loop closures; K2, K3b, K4 and the CG step's K5, K6, K1p and K7
+     must have launched, and K1, K1b and K3 must not; the relaxed
      lambda_2 (scipy float64 referee) must sit within -1e-4 relative of
      the reference optimum 0.06944591018149751 and print as CITY_GAP_DIGITS
      (every kernel on the path is deterministic, so the gap cannot move
      unless the arithmetic does), and the rounded selection must hold
-     exactly K edges; from here to phase 10 no plain chain factor may be
-     handed a CUDA tensor;
+     exactly K edges; from here to phase 10 no plain chain factor, and
+     no plain form of the CG step (CG_PLAINS), may be handed a CUDA
+     tensor;
   4b. MAC(fixed, cands, n, fiedler_block_q=11) on city10000 (the
      slice's path at full width: K4w on the 33 x 33 Rayleigh-Ritz
      matrices in every outer iteration, replayed): one cold solve, then
@@ -249,15 +263,19 @@ its wall time printed:
      the scipy referee; data/intel.g2o through the native parser and with
      MAC_TPU_NO_NATIVE=1, equal measurements; no plain version on the
      card.
- 13. the eigensolver's single solve on the card three ways
-     (mac_tpu_torch.ops.graphs, SolvePath): "graph" (each Frank-Wolfe
-     step's set-up and TRACEMIN's outer iteration replayed as CUDA graphs),
-     "inner" (only the inner CG steps replayed: the path before the set-up
-     and the outer iteration were captured) and "eager" (no graph): warm
+ 13. the eigensolver's single solve on the card four ways
+     (mac_tpu_torch.ops.graphs, SolvePath, PlainCG): "graph" (each
+     Frank-Wolfe step's set-up and TRACEMIN's outer iteration replayed as
+     CUDA graphs), "inner" (only the inner CG steps replayed: the path
+     before the set-up and the outer iteration were captured), "eager" (no
+     graph) and "plain-cg" (replayed, with the CG step as PyTorch ops: the
+     step before K5, K6, K1p and K7; its turns bitwise each other, held to
+     the quality gate, no kernel of the CG step launched): warm
      solves of city10000, city10000 at fiedler_block_q=11 (phase 4b's
      solver: K4w replayed), sphere2500, the n = 100000 expander (K =
      12500, max_iters=10) and phase 10b's banded float64 city10000
-     (max_iters=20) in turns eager, inner, graph, graph, inner, eager;
+     (max_iters=20) in turns eager, inner, plain-cg, graph, graph,
+     plain-cg, inner, eager;
      each turn's wall,
      relaxed lambda_2, upper bound, captures, replays, set-up redos and
      K1 / K1b / K4 launches (K4 by body); every turn's unrounded x, rounded
@@ -351,14 +369,18 @@ GAP_FLOOR_F64 = -1e-4
 # Phase 3d: K3 (exact factor) in float64 against the extended-precision
 # referee (pivot_referee), relative.
 F64_FACTOR_RTOL = 1e-13
-# Phase 4: city10000's relaxed gap as printed since K4 took the Rayleigh-Ritz
-# eigensolves: every kernel on the path is deterministic, so the gap cannot
-# move unless the arithmetic does; and its floor, the tuned operating
-# point's.
-CITY_GAP_DIGITS = "+1.182e-03"
+# Phase 4: city10000's relaxed gap as printed since K5, K6, K1p and K7 took
+# TRACEMIN's inner CG step (+1.182e-03 before, with K4 on the Rayleigh-Ritz
+# eigensolves): every kernel on the path is deterministic, so the gap
+# cannot move unless the arithmetic does; and its floor, the tuned
+# operating point's.
+CITY_GAP_DIGITS = "+1.064e-03"
 CITY_GAP_FLOOR = -1e-4
 # Phase 13: host launch calls a profiled warm solve may make, replayed.
 HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
+# Phase 13: device kernels one replayed CG step of city10000 may run (141
+# before kernels K5, K6, K1p and K7).
+STEP_KERNEL_CAP = 16
 
 
 def fail(msg: str) -> None:
@@ -475,6 +497,31 @@ def k1_whole_row_limit(q: int, itemsize: int) -> int:
 
 # The plain versions of the chain factor's kernels K3 and K3b.
 FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
+# The CG step's kernels (their wrappers' names): the banded routes launch
+# all of them, every route that runs pcg_fixed on the card K6's three. K1p
+# is K1's body with permuted loads and stores: on the banded routes it
+# takes K1's place in the V-cycle.
+CG_KERNELS = ("banded_product", "coarse_correct", "tridiag_solve_permuted",
+              "col_sums", "cg_update", "cg_direction")
+K6_KERNELS = ("col_sums", "cg_update", "cg_direction")
+
+
+def k1_body(got, key=None):
+    """Launches of K1's body, K1 and K1p, from `got` (by wrapper name:
+    counts, or dicts by dtype or lanes, then read at `key`)."""
+    a, b = got["tridiag_solve"], got["tridiag_solve_permuted"]
+    if key is None:
+        return a + b
+    return a.get(key, 0) + b.get(key, 0)
+
+
+# The plain forms of the CG step (K5, K7, K1p, K6, pcg_fixed's loop, the
+# V-cycle's PyTorch form "plain"): none may run on the card on the
+# single-solve, lane and float64 routes.
+CG_PLAINS = ("banded_product_plain", "coarse_correct_plain",
+             "tridiag_solve_permuted_plain", "col_sums_plain",
+             "cg_update_plain", "cg_direction_plain", "pcg_fixed_plain",
+             "plain")
 
 
 class PlainOnCard:
@@ -491,8 +538,10 @@ class PlainOnCard:
     def __enter__(self):
         import torch
 
-        from mac_tpu_torch.ops import graphs
-        from mac_tpu_torch.ops.kernels import assemble, ldl, syev, tridiag
+        from mac_tpu_torch.ops import banded, cg, graphs
+        from mac_tpu_torch.ops.kernels import (assemble, ldl, pcg, syev,
+                                               tridiag)
+        from mac_tpu_torch.ops.kernels import banded as kb
 
         self.calls = {}
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
@@ -500,7 +549,12 @@ class PlainOnCard:
             (tridiag, "tridiag_solve_blocked_plain"),
             (assemble, "assemble_ut_plain"),
             (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]),
-            (syev, "sym_eig_plain"), (graphs, "plain_solve"))
+            (syev, "sym_eig_plain"), (graphs, "plain_solve"),
+            (kb, "banded_product_plain"), (kb, "coarse_correct_plain"),
+            (tridiag, "tridiag_solve_permuted_plain"),
+            (pcg, "col_sums_plain"), (pcg, "cg_update_plain"),
+            (pcg, "cg_direction_plain"), (cg, "pcg_fixed_plain"),
+            (banded.VCycle, "plain"))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
@@ -561,6 +615,58 @@ class PlainFactor:
 
     def __exit__(self, *exc):
         self.mod.tridiag_ldl, self.mod.tridiag_ldl_blocked = self.saved
+        return False
+
+
+def _plain_cg_loop(*args, **kw):
+    """pcg_fixed's PyTorch loop, counted in PlainCG.calls."""
+    from mac_tpu_torch.ops import cg
+
+    PlainCG.calls += 1
+    return cg.pcg_fixed_plain(*args, **kw)
+
+
+def _plain_vcycle(cyc, B):
+    """The V-cycle's PyTorch form (ops.banded.VCycle.plain)."""
+    return cyc.plain(B)
+
+
+class PlainCG:
+    """While active, TRACEMIN's inner CG step on the card runs as it did
+    before kernels K5, K6, K1p and K7, for a comparison run: pcg_fixed's
+    PyTorch loop, the V-cycle's PyTorch form around K1 (VCycle.plain), and
+    the plain versions of K5 (every banded product, the outer iteration's
+    too) and of K6, K1p and K7 wherever they are called. `calls` counts the
+    pcg_fixed calls so run. The functions swapped in are the same objects
+    every time, so that a replayed graph captured under one PlainCG is
+    found again under the next. No knob selects it."""
+
+    calls = 0
+
+    def __enter__(self):
+        from mac_tpu_torch.ops import banded, cg
+        from mac_tpu_torch.ops.kernels import banded as kb
+        from mac_tpu_torch.ops.kernels import pcg, tridiag
+
+        PlainCG.calls = 0
+        swaps = [(cg, "pcg_fixed_steps", _plain_cg_loop),
+                 (banded, "_vcycle_kernels", _plain_vcycle),
+                 (kb, "banded_product", kb.banded_product_plain),
+                 (kb, "coarse_correct", kb.coarse_correct_plain),
+                 (tridiag, "tridiag_solve_permuted",
+                  tridiag.tridiag_solve_permuted_plain),
+                 (pcg, "col_sums", pcg.col_sums_plain),
+                 (pcg, "cg_update", pcg.cg_update_plain),
+                 (pcg, "cg_direction", pcg.cg_direction_plain)]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in swaps]
+        for mod, name, new in swaps:
+            setattr(mod, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
         return False
 
 
@@ -1539,6 +1645,336 @@ def k2_times(args, label, card):
     return tm
 
 
+# Phase 3f: K5, K6, K1p and K7 against their plain versions, relative in
+# norm (K1p is also held bitwise to K1 on the gathered input).
+CG_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def rel_norm(got, ref) -> float:
+    """||got - ref|| / ||ref|| in float64 (0 when both are 0)."""
+    import torch
+
+    d = torch.linalg.vector_norm((got - ref).double())
+    r = torch.linalg.vector_norm(ref.double())
+    return float(d / r) if float(r) > 0 else float(d)
+
+
+def bsr_library(bop, BD, V):
+    """One torch.sparse call computing L(w) V: L as a BSR matrix of 128 x
+    128 blocks over the padded rows (built here, not timed), times V
+    padded; None where torch refuses the dtype or layout on the card."""
+    import torch
+
+    from mac_tpu_torch.ops.banded import banded_upper
+
+    try:
+        U = banded_upper(BD.ut, bop.nb)
+        L = U + U.mT + torch.diag(BD.deg.reshape(-1))
+        Lbsr = L.to_sparse_bsr((128, 128))
+        del U, L
+        Vp = torch.zeros((bop.n_pad, V.shape[-1]), dtype=V.dtype,
+                         device=V.device)
+        Vp[:bop.n] = V
+
+        def run():
+            return torch.sparse.mm(Lbsr, Vp)
+
+        run()
+        torch.cuda.synchronize()
+        return run
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        print(f"  torch.sparse.mm of a BSR L(w) ({V.dtype}): not available "
+              f"here ({str(exc).splitlines()[0][:120]})", flush=True)
+        return None
+
+
+def cg_case(label, card, kern, plain, nbytes, flops, itemsize, tol,
+            library=None, fresh=None, same_as=None):
+    """One kernel case of phase 3f: kern() twice (its outputs bitwise
+    equal), plain() once on the same inputs (relative error in norm within
+    tol, and max |kern - plain|), same_as() (if given) bitwise kern's; then
+    device and call times, the plain version's call time, the bound from
+    (bytes, operations) and the library call's device time. `fresh`
+    (if given) restores in-place inputs before each checked call. Returns
+    the timing dict."""
+    import torch
+
+    def outs(fn):
+        if fresh is not None:
+            fresh()
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        return tuple(t.clone() for t in got if t is not None)
+
+    a, b, ref = outs(kern), outs(kern), outs(plain)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    err = max(rel_norm(x, y) for x, y in zip(a, ref))
+    abs_err = max(float((x - y).abs().max()) for x, y in zip(a, ref))
+    if same_as is not None:
+        twin = outs(same_as)
+        if not all(torch.equal(x, y) for x, y in zip(a, twin)):
+            fail(f"3f {label}: not bitwise its twin (the kernel it shares a "
+                 f"body with)")
+    tm = {"device_ms": device_ms(kern), "call_ms": call_ms(kern),
+          "plain_ms": call_ms(plain), "max_abs_err": abs_err,
+          "rel_err": err, "bitwise_repeat": same,
+          "library_ms": None if library is None else device_ms(library)}
+    tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, itemsize)
+    print(f"3f {label}: kernel device {tm['device_ms']:.5f} ms, call "
+          f"{tm['call_ms']:.4f} ms, plain call {tm['plain_ms']:.4f} ms, "
+          f"library {tm['library_ms']}, bound {tm['bound_ms']:.5f} ms "
+          f"({tm['bound_by']}); relative error in norm {err:.3e} (max abs "
+          f"{abs_err:.3e}), two calls bitwise {same} ({card})", flush=True)
+    if not same:
+        fail(f"3f {label}: two calls differ")
+    if not err <= tol:
+        fail(f"3f {label}: relative error {err:.3e} above {tol}")
+    return tm
+
+
+def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
+    """Phase 3f: K5 (banded_product: the CG step's inner form with its
+    dots at city10000's (10000, 4), the V-cycle's residual form, the outer
+    iteration's (10000, 12), the coarse assembly's nc = 500 columns,
+    sphere2500's (2500, 4), 8 lanes (8, 10000, 4), float64), K6 (col_sums,
+    cg_update, cg_direction; float32, float64, 8 lanes), K1p
+    (tridiag_solve_permuted: the cycle's first smoothing with its
+    centring, the second adding into x with its column sums, 8 lanes,
+    float64, and the tiled branch at (32768, 16) float64) and K7
+    (coarse_correct; float32, float64, 8 lanes) against their plain
+    versions on the card: two calls bitwise equal, the error, device /
+    call / plain / bound / library times. Returns {key: timing dict with
+    "name", "shape", "source", "replaces"}."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import banded
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels import tridiag as k1
+
+    out = {}
+    rng = np.random.RandomState(18)
+    BS = banded.BS
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    def setup(op, ws, dtype):
+        BD = banded.assemble_bd(op, ws.to(dtype))
+        M = banded.make_banded_precond(op, BD, w=ws.to(dtype))
+        return BD, M
+
+    bds = {"float32": setup(bop, w, torch.float32),
+           "float64": setup(bop, w, torch.float64)}
+    ws8 = torch.stack([w * float(0.5 + rng.rand()) for _ in range(8)])
+    bds["lanes"] = setup(bop, ws8, torch.float32)
+    bds["sphere"] = setup(bop_sp, w_sp, torch.float32)
+    src5 = "mac_tpu_torch/csrc/banded.cu"
+    rep5 = "mac_tpu/ops/banded.py:466 (banded_apply; not Pallas)"
+
+    def k5(key, label, op, BD, q, form, lanes=None):
+        dtype = BD.ut.dtype
+        n = op.n
+        V = rand(*((lanes,) if lanes else ()), n, q, dtype=dtype)
+        kw = {}
+        if form == "inner":
+            c = (2.0 * BD.deg.amax(dim=(-2, -1))).to(dtype)
+            kw = dict(vsum=kp.col_sums(V), c=c,
+                      sigma=32 * torch.finfo(dtype).eps * c, dot=True)
+        elif form == "residual":
+            B = rand(*V.shape, dtype=dtype)
+            kw = dict(B=B, bsum=kp.col_sums(B))
+        ut, deg = BD.ut, BD.deg
+        it = V.element_size()
+        ln = lanes or 1
+        nbytes = it * (ut.numel() + deg.numel() + (2 + (form == "residual"))
+                       * ln * n * q)
+        flops = 2.0 * q * (2 * op.half + 1) * op.nb * BS * BS * ln
+        lib = (bsr_library(op, BD, V) if lanes is None and form == "plain"
+               else None)
+        tm = cg_case(f"K5 {label}", card,
+                     lambda: kb.banded_product(ut, deg, V, n, **kw),
+                     lambda: kb.banded_product_plain(ut, deg, V, n, **kw),
+                     nbytes, flops, it, CG_TOL[str(dtype).split(".")[-1]],
+                     library=lib)
+        out[key] = dict(tm, name="banded_product", shape=label,
+                        source=src5, replaces=rep5)
+
+    BD32, M32 = bds["float32"]
+    BD64, M64 = bds["float64"]
+    BD8, M8 = bds["lanes"]
+    BDsp, _ = bds["sphere"]
+    k5("K5", "(10000, 4) inner form with the dots, the CG step's A P", bop,
+       BD32, 4, "inner")
+    k5("K5_residual", "(10000, 4) residual form, the V-cycle's", bop, BD32,
+       4, "residual")
+    k5("K5_plain", "(10000, 4) plain form (library: BSR L(w) V)", bop, BD32,
+       4, "plain")
+    k5("K5_12", "(10000, 12) plain form, the outer iteration's A Q", bop,
+       BD32, 12, "plain")
+    k5("K5_nc", f"(10000, {bop.coarse_nc}) plain form, the coarse "
+       "assembly's L R", bop, BD32, bop.coarse_nc, "plain")
+    k5("K5_sphere", "sphere2500 (2500, 4) inner form with the dots", bop_sp,
+       BDsp, 4, "inner")
+    k5("K5_lanes", "(8, 10000, 4) inner form with the dots, 8 lanes", bop,
+       BD8, 4, "inner", lanes=8)
+    k5("K5_f64", "(10000, 4) inner form with the dots, float64", bop, BD64,
+       4, "inner")
+    k5("K5_f64_plain", "(10000, 4) plain form, float64 (library: BSR)", bop,
+       BD64, 4, "plain")
+
+    # K6 at the CG step's shapes.
+    rep6 = "mac_tpu/ops/cg.py:52 (pcg_fixed's loop body; not Pallas)"
+    for tag, lead, dtype in (("", (), torch.float32),
+                             ("_f64", (), torch.float64),
+                             ("_lanes", (8,), torch.float32)):
+        n, q = bop.n, 4
+        it = torch.finfo(dtype).bits // 8
+        ln = lead[0] if lead else 1
+        tol = CG_TOL[str(dtype).split(".")[-1]]
+        A, M = rand(*lead, n, q, dtype=dtype), rand(*lead, n, q, dtype=dtype)
+        msum = kp.col_sums(M)
+        tm = cg_case(f"K6 col_sums{tag} {tuple(A.shape)}, the dots R . Z "
+                     "with Z centred", card,
+                     lambda: kp.col_sums(A, M, msum),
+                     lambda: kp.col_sums_plain(A, M, msum),
+                     it * 2 * ln * n * q, 3.0 * ln * n * q, it, tol,
+                     library=lambda: torch.linalg.vecdot(A, M, dim=-2))
+        out["K6_colsum" + tag] = dict(tm, name="col_sums",
+                                      shape=str(tuple(A.shape)),
+                                      source="mac_tpu_torch/csrc/pcg.cu",
+                                      replaces=rep6)
+        X0, R0, P0, AP = (rand(*lead, n, q, dtype=dtype) for _ in range(4))
+        rz0 = rand(*lead, q, dtype=dtype)
+        pap = rand(*lead, q, dtype=torch.float64)
+        X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
+
+        def fresh():
+            X.copy_(X0)
+            R.copy_(R0)
+            P.copy_(P0)
+            rz.copy_(rz0)
+
+        tm = cg_case(f"K6 cg_update{tag} {tuple(X.shape)} with R's sums",
+                     card, lambda: (X, R, kp.cg_update(X, R, P, AP, rz, pap,
+                                                       sums=True)),
+                     lambda: (X, R, kp.cg_update_plain(X, R, P, AP, rz, pap,
+                                                       sums=True)),
+                     it * 6 * ln * n * q, 5.0 * ln * n * q, it, tol,
+                     fresh=fresh)
+        out["K6_update" + tag] = dict(tm, name="cg_update",
+                                      shape=str(tuple(X.shape)),
+                                      source="mac_tpu_torch/csrc/pcg.cu",
+                                      replaces=rep6)
+        Z = rand(*lead, n, q, dtype=dtype)
+        zsum, rz_new = kp.col_sums(Z), kp.col_sums(R0, Z, kp.col_sums(Z))
+        tm = cg_case(f"K6 cg_direction{tag} {tuple(P.shape)} with P's sums",
+                     card, lambda: (P, rz, kp.cg_direction(
+                         P, Z, zsum, rz, rz_new, sums=True)),
+                     lambda: (P, rz, kp.cg_direction_plain(
+                         P, Z, zsum, rz, rz_new, sums=True)),
+                     it * 3 * ln * n * q, 4.0 * ln * n * q, it, tol,
+                     fresh=fresh)
+        out["K6_direction" + tag] = dict(tm, name="cg_direction",
+                                         shape=str(tuple(P.shape)),
+                                         source="mac_tpu_torch/csrc/pcg.cu",
+                                         replaces=rep6)
+
+    # K1p and K7 on the cycles' factors and coarse inverses.
+    rep1 = ("mac_tpu/ops/pallas/tridiag_kernel.py:77 with the gathers of "
+            "mac_tpu/ops/banded.py:793-800")
+    rep7 = "mac_tpu/ops/banded.py:795-797 (restrict, Lc_inv @, prolong)"
+    for tag, M, lead in (("", M32, ()), ("_f64", M64, ()),
+                         ("_lanes", M8, (8,))):
+        fac = M.fac
+        dtype = M.BD.ut.dtype
+        dp, l = fac.dp.to(dtype).contiguous(), fac.l.to(dtype).contiguous()
+        n, q = bop.n, 4
+        it = torch.finfo(dtype).bits // 8
+        ln = lead[0] if lead else 1
+        kname = str(dtype).split(".")[-1]
+        B, X0 = rand(*lead, n, q, dtype=dtype), rand(*lead, n, q, dtype=dtype)
+        bsum = kp.col_sums(B)
+        iperm, perm = bop.iperm, bop.perm
+        # bsum / n by an elementwise division, as K1p divides (PyTorch
+        # multiplies by the reciprocal of a host scalar).
+        m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
+        Bn = (B[..., iperm.long(), :] - m).contiguous()
+
+        def twin():  # K1 on the gathered, centred input, scattered back
+            x = k1.tridiag_solve(dp, l, Bn)
+            return x[..., perm.long(), :]
+
+        tm = cg_case(f"K1p{tag} {tuple(B.shape)}, the first smoothing "
+                     "(centred)", card,
+                     lambda: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
+                                                       bsum=bsum),
+                     lambda: k1.tridiag_solve_permuted_plain(
+                         dp, l, B, iperm, perm, bsum=bsum),
+                     it * (2 * n * (ln if lead else 1) + 2 * ln * n * q)
+                     + 4 * n, 5.0 * ln * n * q, it, CG_TOL[kname],
+                     same_as=twin)
+        out["K1p" + tag] = dict(tm, name="tridiag_solve_permuted",
+                                shape=str(tuple(B.shape)),
+                                source="mac_tpu_torch/csrc/tridiag.cu",
+                                replaces=rep1)
+        X = X0.clone()
+
+        def fresh():
+            X.copy_(X0)
+
+        tm = cg_case(f"K1p{tag} {tuple(B.shape)}, the second smoothing "
+                     "added into x, with x's sums", card,
+                     lambda: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
+                                                       X=X, sums=True),
+                     lambda: k1.tridiag_solve_permuted_plain(
+                         dp, l, B, iperm, perm, X=X, sums=True),
+                     it * (2 * n + 3 * ln * n * q) + 4 * n,
+                     6.0 * ln * n * q, it, CG_TOL[kname], fresh=fresh)
+        out["K1p_add" + tag] = dict(tm, name="tridiag_solve_permuted",
+                                    shape=str(tuple(B.shape)) + " add",
+                                    source="mac_tpu_torch/csrc/tridiag.cu",
+                                    replaces=rep1)
+        Lc_inv = M.Lc_inv.to(dtype).contiguous()
+        nc, s_ = bop.coarse_nc, bop.coarse_s
+        tm = cg_case(f"K7{tag} {tuple(B.shape)}, nc {nc}, s {s_}", card,
+                     lambda: kb.coarse_correct(B, X, iperm, perm, Lc_inv, s_),
+                     lambda: kb.coarse_correct_plain(B, X, iperm, perm,
+                                                     Lc_inv, s_),
+                     it * (Lc_inv.numel() + 3 * ln * n * q) + 4 * n,
+                     2.0 * ln * nc * nc * q, it,
+                     CG_TOL[kname], fresh=fresh)
+        out["K7" + tag] = dict(tm, name="coarse_correct",
+                               shape=f"{tuple(B.shape)}, nc {nc}",
+                               source="mac_tpu_torch/csrc/banded.cu",
+                               replaces=rep7)
+    # K1p's tiled branch: rows past shared memory, z through its scratch.
+    n_t, q_t = 32768, 16
+    d_t = torch.as_tensor(2.5 + rng.rand(n_t), dtype=torch.float64,
+                          device=dev)
+    l_t = torch.as_tensor(-0.3 * rng.rand(n_t), dtype=torch.float64,
+                          device=dev)
+    l_t[0] = 0.0
+    perm_t = torch.as_tensor(rng.permutation(n_t), dtype=torch.int32,
+                             device=dev)
+    iperm_t = torch.empty_like(perm_t)
+    iperm_t[perm_t.long()] = torch.arange(n_t, dtype=torch.int32, device=dev)
+    B_t = rand(n_t, q_t, dtype=torch.float64)
+    bsum_t = kp.col_sums(B_t)
+    m_t = (bsum_t / torch.full_like(bsum_t, n_t)).unsqueeze(-2)
+    Bn_t = (B_t[iperm_t.long()] - m_t).contiguous()
+    cg_case(f"K1p ({n_t}, {q_t}) float64, the tiled branch", card,
+            lambda: k1.tridiag_solve_permuted(d_t, l_t, B_t, iperm_t, perm_t,
+                                              bsum=bsum_t),
+            lambda: k1.tridiag_solve_permuted_plain(d_t, l_t, B_t, iperm_t,
+                                                    perm_t, bsum=bsum_t),
+            8 * 4 * n_t * q_t, 5.0 * n_t * q_t, 8, CG_TOL["float64"],
+            same_as=lambda: k1.tridiag_solve(d_t, l_t, Bn_t)[perm_t.long()])
+    return out
+
+
 def lane_weights(fixed, cands, ks, dev):
     """(R, m) float32 edge weights of the budget lanes ks: the fixed edges'
     weights, then each candidate's weight times NaiveGreedy's top-k[r]
@@ -1843,7 +2279,7 @@ def wide_block(card, dataset, counted, warm_q4):
           f"{mac11.last_solve_stats}; launches in the 3 warm solves {got}, "
           f"K4 by body {bodies}, by lanes {k4.launches_by_lanes}; "
           f"torch.linalg.eigh calls 0 ({card})", flush=True)
-    for kname in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked"):
+    for kname in ("assemble_ut", "tridiag_ldl_blocked", *CG_KERNELS):
         if got[kname] <= 0:
             fail(f"4b: {kname} never launched")
     if bodies.get("wide_shared", 0) <= 0 or bodies.get("warp", 0) <= 0:
@@ -1994,8 +2430,8 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
     if not gap_top >= GAP_FLOOR:
         fail(f"8a: the K = {ks[-1]} lane's gap {gap_top:+.3e} is below "
              f"{GAP_FLOOR}")
-    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl_blocked",
-                 "sym_eig"):
+    for name in ("assemble_ut", "tridiag_ldl_blocked", "sym_eig",
+                 *CG_KERNELS):
         if lanes_a[name].get(8, 0) <= 0:
             fail(f"8a: {name} never launched with 8 lanes: {lanes_a}")
     if eigh_a.lanes:
@@ -2023,7 +2459,8 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
           f"{(lam5 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE:+.3e}; "
           f"upper {[f'{v:.9g}' for v in up5]}; launches by lanes {lanes_b} "
           f"({card})", flush=True)
-    for name in ("tridiag_solve_blocked", "tridiag_ldl_blocked"):
+    for name in ("tridiag_solve_blocked", "tridiag_ldl_blocked",
+                 *K6_KERNELS):
         if lanes_b[name].get(2, 0) <= 0:
             fail(f"8b: {name} never launched with 2 lanes: {lanes_b}")
     if [int(r.sum()) for r in r5] != ks5:
@@ -2067,7 +2504,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
         fail("8c: kitti_05 is not a float64 instance on the card")
     if [int(r.sum()) for r in r_k] != ks_k:
         fail(f"8c: rounded {[r.sum() for r in r_k]}, want {ks_k}")
-    if (got_k["tridiag_solve"].get("float64", 0) <= 0 or plain_k.calls
+    if (k1_body(got_k, "float64") <= 0 or plain_k.calls
             or any(v.get("float32", 0) for v in got_k.values())):
         fail(f"8c: the float64 sweep did not run K1's float64 "
              f"instantiation alone: {got_k}, plain {plain_k.calls}")
@@ -2097,7 +2534,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
         fail(f"8d: rounded {[r.sum() for r in r_s]}, want {ks_s}")
     if mac_s._banded is None or mac_s._banded.ov_rows:
         fail("8d: sphere2500 left K2's no-split banded form")
-    for name in ("tridiag_solve", "assemble_ut", "tridiag_ldl"):
+    for name in ("assemble_ut", "tridiag_ldl", *CG_KERNELS):
         if lanes_d[name].get(2, 0) <= 0:
             fail(f"8d: {name} never launched with 2 lanes: {lanes_d}")
     part_s.append(time.perf_counter() - t8)
@@ -2539,8 +2976,11 @@ def float64_phase(dev, card, dataset, synth5, counted):
               f"kernel launches by dtype {got}; plain versions on the card "
               f"{plain.calls}", flush=True)
         if (got["assemble_ut"].get("float64", 0) <= 0
-                or got["tridiag_solve"].get("float64", 0) <= 0):
-            fail(f"10b {name}: K2/K2b or K1 float64 never launched: {got}")
+                or k1_body(got, "float64") <= 0
+                or min(got[kern].get("float64", 0) for kern in CG_KERNELS)
+                <= 0):
+            fail(f"10b {name}: K2/K2b, K1p or K5, K6, K7 float64 never "
+                 f"launched: {got}")
         if any(v.get("float32", 0) for v in got.values()) or plain.calls:
             fail(f"10b {name}: a block left the float64 kernels: {got}, "
                  f"plain {plain.calls}")
@@ -2582,7 +3022,7 @@ def float64_phase(dev, card, dataset, synth5, counted):
     if int(r_c.sum()) != k or not gap_c >= GAP_FLOOR:
         fail(f"10c: rounded {r_c.sum()} (want {k}), gap {gap_c:+.3e} "
              f"(floor {GAP_FLOOR})")
-    if (got_c["tridiag_solve"].get("float32", 0) <= 0
+    if (k1_body(got_c, "float32") <= 0
             or got_c["assemble_ut"].get("float32", 0) <= 0):
         fail(f"10c: K1 or K2b never launched: {got_c}")
     part_s["c"] = time.perf_counter() - t10
@@ -2665,9 +3105,9 @@ def float64_phase(dev, card, dataset, synth5, counted):
         entry("tridiag_solve_f64", "tridiag.cu",
               "mac_tpu/ops/pallas/tridiag_kernel.py:44",
               f"({n}, 4), city10000's chain factor", k1,
-              city["tridiag_solve"].get("float64", 0)
-              + sphere["tridiag_solve"].get("float64", 0),
-              "phase 10b (city10000 and sphere2500, 2 solves each)"),
+              k1_body(city, "float64") + k1_body(sphere, "float64"),
+              "phase 10b (city10000 and sphere2500, 2 solves each; K1's "
+              "body, since the V-cycle's K1p)"),
         entry("tridiag_solve_blocked_f64", "tridiag.cu",
               "mac_tpu/ops/pallas/tridiag_kernel.py:107",
               f"({SCALE_N}, 4), the two-grid chain factor", k1b,
@@ -2739,9 +3179,62 @@ def factor_ab(card, cases, kernels):
 
 
 # Phase 13: the warm solves' turns: "eager" (no graph, SolvePath("eager")),
-# "inner" (the inner CG steps replayed, SolvePath("inner")) and "graph"
-# (the set-up and the outer iteration replayed), interleaved.
-GRAPH_TURNS = ("eager", "inner", "graph", "graph", "inner", "eager")
+# "inner" (the inner CG steps replayed, SolvePath("inner")), "graph" (the
+# set-up and the outer iteration replayed) and "plain-cg" (replayed as
+# "graph", with the CG step as PyTorch ops, PlainCG: as before K5, K6, K1p
+# and K7), interleaved.
+GRAPH_TURNS = ("eager", "inner", "plain-cg", "graph", "graph", "plain-cg",
+               "inner", "eager")
+PROFILE_TURNS = ("eager", "inner", "graph", "plain-cg")
+
+
+def device_items(fn):
+    """(busy ms, kernels, [(ms, calls, name)] by device item, largest
+    first) of one call of fn() under torch.profiler, CUDA activity alone;
+    kernels counts neither copies nor memsets."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, cnt = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), cnt + 1)
+    items = sorted(((ns / 1e6, cnt, name) for name, (ns, cnt)
+                    in by_name.items()), reverse=True)
+    kernels = sum(cnt for _, cnt, name in items
+                  if not name.startswith(("Memcpy", "Memset")))
+    return sum(ms for ms, _, _ in items), kernels, items
+
+
+def step_kernels(op):
+    """(kernels, device ms) of one inner CG step on the graphed route of
+    `op` (a banded operator or an ELL one): a replayed inner solve
+    (ops.graphs.inner_replay) of 6 steps less one of 5, each captured
+    first, over the route's static state after a solve."""
+    import torch
+
+    from mac_tpu_torch.ops import graphs
+
+    route = next(r for r in op.graph_routes.values()
+                 if any(key[0] != "inner" for key in r.statics))
+    s = next(s for key, s in route.statics.items() if key[0] != "inner")
+    dtype = s["X"].dtype
+    state = {n: s[n] for n in route.names}
+    c = s["lnorm"].to(dtype)
+    state.update(c=c, sigma=32 * torch.finfo(dtype).eps * c)
+    B = s["X"].clone()
+    got = []
+    for iters in (5, 6):
+        graphs.inner_replay(route, state, B, B, iters)  # captures
+        torch.cuda.synchronize()
+        got.append(device_items(
+            lambda: graphs.inner_replay(route, state, B, B, iters)))
+    return got[1][1] - got[0][1], got[1][0] - got[0][0]
 
 
 def graph_ab(card, cases, counted):
@@ -2755,16 +3248,20 @@ def graph_ab(card, cases, counted):
     Gates: every turn's unrounded x, rounded selection and upper bound
     bitwise the first turn's; no capture in a warm solve; no replay in an
     eager turn; equal launches of every wrapper by dtype in every turn, K4
-    among them, and of K4 by body; no torch.linalg.eigh call; the case's
-    quality gate,
-    exactly K rounded and upper >= relaxed. Then one profiled warm solve
-    each way (device busy, kernels and copies, idle share of its own wall,
-    launch calls on the host, capped by HOST_LAUNCH_CAPS replayed), and
+    among them, and of K4 by body; K6 launched in every turn, and K5, K1p
+    and K7 on the banded routes; no torch.linalg.eigh call; the case's
+    quality gate, exactly K rounded and upper >= relaxed. The "plain-cg"
+    turns (PlainCG) are held to each other instead (bitwise, the same
+    launches, none of the CG step's kernels) and to the quality gate.
+    Then one profiled warm solve each way (device busy, kernels and
+    copies, idle share of its own wall, launch calls on the host, capped
+    by HOST_LAUNCH_CAPS replayed; for "graph" and "plain-cg" the kernels
+    and device ms of one replayed CG step, step_kernels), and
     forced_guard.
     Returns {name: {turn: [walls], "profile": {turn: (wall, busy ms,
-    kernels, host launch calls)}, "launches": {wrapper: {dtype: per
-    solve}}, "bodies": K4's launches a solve by body, "stats":
-    graph_stats}}."""
+    kernels, host launch calls, one CG step's kernels, its ms)},
+    "launches": {wrapper: {dtype: per solve}}, "bodies": K4's launches a
+    solve by body, "stats": graph_stats}}."""
     from contextlib import nullcontext
 
     import numpy as np
@@ -2773,20 +3270,24 @@ def graph_ab(card, cases, counted):
     from mac_tpu_torch.ops.kernels.tridiag import reset_counts
 
     def turn_ctx(turn):
+        if turn == "plain-cg":
+            return PlainCG()
         return SolvePath(turn) if turn != "graph" else nullcontext()
 
     out = {}
     for name, (op, solve, lam_of, k, quality) in cases.items():
-        res = out[name] = {"eager": [], "inner": [], "graph": []}
-        # The inner-only path's graphs are no main path's: capture them in
-        # one untimed solve first.
-        s0 = graph_stats(op)
-        with SolvePath("inner"):
-            solve()
-        print(f"13 {name}: the inner-only path's first solve captured "
-              f"{graph_stats(op)['captures'] - s0['captures']} graphs",
-              flush=True)
-        first, seen = None, set()
+        res = out[name] = {"eager": [], "inner": [], "graph": [],
+                           "plain-cg": []}
+        # The inner-only path's and the plain CG step's graphs are no main
+        # path's: capture them in one untimed solve each first.
+        for turn in ("inner", "plain-cg"):
+            s0 = graph_stats(op)
+            with turn_ctx(turn):
+                solve()
+            print(f"13 {name}: the {turn} path's first solve captured "
+                  f"{graph_stats(op)['captures'] - s0['captures']} graphs",
+                  flush=True)
+        first, seen, plain_first, plain_seen = None, set(), None, set()
         for turn in GRAPH_TURNS:
             reset_counts(*counted)
             s0 = graph_stats(op)
@@ -2802,6 +3303,31 @@ def graph_ab(card, cases, counted):
             bodies = dict(next(kern for kern in counted if kern.__name__
                                == "sym_eig").launches_by_body)
             res[turn].append(wall)
+            if turn == "plain-cg":
+                # The plain CG step rounds otherwise: its turns are held to
+                # each other, and to the quality gate below.
+                if plain_first is None:
+                    plain_first, plain_lam = got, lam_of(got[1])
+                same = (np.array_equal(got[0], plain_first[0])
+                        and np.array_equal(got[1], plain_first[1])
+                        and got[2] == plain_first[2])
+                short = {kern: sum(v.values()) for kern, v in launches.items()}
+                print(f"13 {name} plain-cg: warm solve {wall:.4f} s, relaxed "
+                      f"lambda_2 {plain_lam:.17g} (x, rounded selection and "
+                      f"upper bound {'bitwise' if same else 'NOT bitwise'} "
+                      f"the first plain-cg turn's), upper {got[2]:.17g}, "
+                      f"rounded {int(got[0].sum())}; captures "
+                      f"{d['captures']}, replays {d['replays']}; launches "
+                      f"{short} ({card})", flush=True)
+                if not same or d["captures"] or not d["replays"] or \
+                        any(short[kern] for kern in CG_KERNELS):
+                    fail(f"13 {name} plain-cg: not bitwise the first "
+                         f"plain-cg turn, a capture, no replay, or a kernel "
+                         f"of the CG step launched: {d}, {short}")
+                plain_seen.add(tuple(sorted(
+                    (kern, tuple(sorted(v.items())))
+                    for kern, v in launches.items())))
+                continue
             if first is None:
                 first, lam = got, lam_of(got[1])
             same = (np.array_equal(got[0], first[0])
@@ -2829,12 +3355,22 @@ def graph_ab(card, cases, counted):
                     or eigh.calls or short["sym_eig"] <= 0):
                 fail(f"13 {name} {turn}: {d}, eigh calls {eigh.calls}, K4 "
                      f"launches {short['sym_eig']}")
+            # The CG step's kernels: K6 on every route, K5, K1p and K7 too
+            # on the banded one.
+            cg_want = CG_KERNELS if hasattr(op, "ueid_tbl") else K6_KERNELS
+            if min(short[kern] for kern in cg_want) <= 0:
+                fail(f"13 {name} {turn}: a kernel of the CG step never "
+                     f"launched: {short}")
             seen.add(tuple(sorted((kern, tuple(sorted(v.items())))
                                   for kern, v in launches.items()))
                      + tuple(sorted(bodies.items())))
-        if len(seen) != 1:
+        if len(seen) != 1 or len(plain_seen) != 1:
             fail(f"13 {name}: launches a solve differ between the turns: "
-                 f"{seen}")
+                 f"{seen}, plain-cg {plain_seen}")
+        ok_p, text_p = quality(plain_lam)
+        print(f"13 {name} plain-cg: {text_p}", flush=True)
+        if not ok_p:
+            fail(f"13 {name} plain-cg: quality gate: {text_p}")
         res["launches"], res["bodies"] = launches, bodies
         res["stats"] = graph_stats(op)
         ok, text = quality(lam)
@@ -2848,13 +3384,13 @@ def graph_ab(card, cases, counted):
                  f"{int(first[0].sum())} (K {k}), upper {first[2]!r}")
         print(f"13 {name}: " + ", ".join(
             f"{turn} {[round(t, 4) for t in res[turn]]} s"
-            for turn in ("eager", "inner", "graph")) +
+            for turn in ("eager", "inner", "graph", "plain-cg")) +
             f"; mean graph / inner {sum(res['graph']) / sum(res['inner']):.3f},"
             f" graph / eager {sum(res['graph']) / sum(res['eager']):.3f}; "
             f"launches a solve {launches}; graphs on this operator since "
             f"its first solve: {res['stats']} ({card})", flush=True)
         res["profile"] = {}
-        for turn in ("eager", "inner", "graph"):
+        for turn in PROFILE_TURNS:
             walls = []
 
             def timed():
@@ -2867,12 +3403,17 @@ def graph_ab(card, cases, counted):
             with turn_ctx(turn):
                 busy, kernels_n, top = profiled_busy(timed, host)
             calls = sum(host.values())
-            res["profile"][turn] = (walls[0], busy, kernels_n, calls)
+            with turn_ctx(turn):
+                per_step = (step_kernels(op) if turn in ("graph", "plain-cg")
+                            else (None, None))
+            res["profile"][turn] = (walls[0], busy, kernels_n, calls,
+                                    per_step[0], per_step[1])
             print(f"13 {name} {turn}, one profiled warm solve: wall "
                   f"{walls[0]:.4f} s, device busy {busy:.3f} ms over "
                   f"{kernels_n} kernels and copies, idle share "
                   f"{1 - busy / 1e3 / walls[0]:.3f}; launch calls on the "
-                  f"host {calls} {host}; largest "
+                  f"host {calls} {host}; one CG step (6 less 5 replayed) "
+                  f"{per_step[0]} kernels, {per_step[1]} ms; largest "
                   f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
                   flush=True)
             cap = HOST_LAUNCH_CAPS.get(name)
@@ -3013,7 +3554,7 @@ def api_phase(dev, card, graphs, city_L, dataset, counted):
                 Y = M(B4)
                 torch.cuda.synchronize()
                 got = {kern.__name__: kern.launches for kern in counted}
-                k1 = got["tridiag_solve"] + got["tridiag_solve_blocked"]
+                k1 = k1_body(got) + got["tridiag_solve_blocked"]
                 k3 = got["tridiag_ldl"] + got["tridiag_ldl_blocked"]
                 if not bool(torch.isfinite(Y).all()):
                     fail(f"{label}: non-finite M(B)")
@@ -3132,9 +3673,12 @@ def main():
     from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops.kernels import _build, ldl, syev
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
+    from mac_tpu_torch.ops.kernels import banded as kbanded
+    from mac_tpu_torch.ops.kernels import pcg as kpcg
     from mac_tpu_torch.ops.kernels.tridiag import (
         reset_counts, tridiag_solve, tridiag_solve_blocked,
-        tridiag_solve_blocked_plain, tridiag_solve_plain)
+        tridiag_solve_blocked_plain, tridiag_solve_permuted,
+        tridiag_solve_plain)
     from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_auto,
                                            tridiag_ldl_blocked)
     from mac_tpu_torch.slam.pose_graph import read_g2o_file, rpm_to_mac, split_edges
@@ -3153,7 +3697,7 @@ def main():
     # ---- 2. build the kernels, one nvcc per source, in parallel
     phase("2 build")
     t0 = time.perf_counter()
-    sources = ("tridiag", "assemble", "ldl", "syev")
+    sources = ("tridiag", "assemble", "ldl", "syev", "banded", "pcg")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3803,12 +4347,18 @@ def main():
                              card), flush=True)
 
     # ---- 4. the banded path, through the user's entry points
+    # ---- 3f. the CG step's kernels against their plain versions
+    phase("3f K5, K6, K1p, K7 against their plain versions")
+    cg_tm = cg_kernels(dev, card, bop, w, bop_sp, w_sp)
+
     phase("4 banded path (city10000)")
     # Phases 4 to 10 hand no plain chain factor a CUDA tensor, and phases 4
     # to 10 and 12 run every single solve of a graphed route through its
-    # graphs and every Rayleigh-Ritz eigensolve through K4.
+    # graphs, every Rayleigh-Ritz eigensolve through K4 and every CG step
+    # through K6 (and on the banded routes K5, K1p and K7).
     plain_factor = PlainOnCard(FACTOR_PLAINS).__enter__()
-    plain_inner = PlainOnCard(("plain_solve", "sym_eig_plain")).__enter__()
+    plain_inner = PlainOnCard(("plain_solve", "sym_eig_plain")
+                              + CG_PLAINS).__enter__()
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -3818,7 +4368,9 @@ def main():
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     k4 = syev.sym_eig
     counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b,
-               k4)
+               k4, kbanded.banded_product, kbanded.coarse_correct,
+               tridiag_solve_permuted, kpcg.col_sums, kpcg.cg_update,
+               kpcg.cg_direction)
     reset_counts(*counted)
     times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
@@ -3830,13 +4382,17 @@ def main():
         times.append(time.perf_counter() - t0)
         graphs4.append(graph_stats(mac._banded))
     graph_lines(card, "city10000", graphs4)
-    launches = {"tridiag_solve": tridiag_solve.launches,
+    launches = {"tridiag_solve_permuted": tridiag_solve_permuted.launches,
                 "assemble_ut": assemble_ut.launches,
                 "tridiag_ldl_blocked": k3b.launches,
+                **{kern.__name__: kern.launches for kern in counted
+                   if kern.__name__ in CG_KERNELS},
                 "sym_eig": k4.launches}
     k4_launches = {"float32": k4.launches_by_dtype.get("float32", 0)}
-    if tridiag_solve_blocked.launches or k3.launches:
-        fail("the banded path launched tridiag_solve_blocked or K3")
+    tridiag_solve_launches_4 = tridiag_solve.launches
+    if tridiag_solve_blocked.launches or k3.launches or tridiag_solve.launches:
+        fail("the banded path launched tridiag_solve_blocked, K3 or K1 "
+             "(K1p takes K1's place in the V-cycle)")
     print(f"solve: cold {times[0]:.4f} s, warm {[round(t, 4) for t in times[1:]]}"
           f" s, warm median {statistics.median(times[1:]):.4f} s ({card})",
           flush=True)
@@ -3918,9 +4474,10 @@ def main():
           f"bound {upper5:.12g}; rounded {int(rounded5.sum())} of "
           f"{len(wc5)}", flush=True)
     if (launches5["tridiag_solve_blocked"] <= 0 or k3b.launches <= 0
-            or k4_launches["float64"] <= 0):
+            or k4_launches["float64"] <= 0
+            or min(launches5[kern] for kern in K6_KERNELS) <= 0):
         fail("the matrix-free path never launched tridiag_solve_blocked, "
-             "K3b or K4 in float64")
+             "K3b, K4 in float64 or K6")
     if not (np.all(np.isfinite(unrounded5)) and np.all(np.isfinite(rounded5))
             and np.isfinite(upper5) and np.isfinite(lam5)):
         fail("non-finite output on the matrix-free path")
@@ -4001,10 +4558,10 @@ def main():
             if not lam_r >= 0.1 * lam_u:
                 fail(f"{ds}: rounded lambda_2 {lam_r} collapsed below 0.1 of "
                      f"the relaxed {lam_u}")
-            if min(got["tridiag_solve"], got["assemble_ut"],
-                   got["tridiag_ldl"]) <= 0:
-                fail(f"{ds} never launched K1, K3 or the assembly kernel: "
-                     f"{got}")
+            if min(k1_body(got), got["assemble_ut"], got["tridiag_ldl"],
+                   *(got[kern] for kern in CG_KERNELS)) <= 0:
+                fail(f"{ds} never launched K1p, K3, the assembly kernel or "
+                     f"K5, K6, K7: {got}")
             b6 = mac6._banded
             print(f"{ds}: assembly form "
                   f"{'K2b (split)' if b6.ov_rows else 'K2 (no split)'}, nb "
@@ -4048,7 +4605,7 @@ def main():
         fail(f"disconnected graph: selected {r_d.sum()}, upper {up_d}")
     if not (np.isfinite(obj_d) and abs(obj_d) < 1e-8):
         fail(f"disconnected graph: evaluate_objective {obj_d}, want 0")
-    if (got_d["tridiag_solve"].get("float64", 0) <= 0 or plain_d.calls
+    if (k1_body(got_d, "float64") <= 0 or plain_d.calls
             or any(v.get("float32", 0) for v in got_d.values())):
         fail(f"the float64 solve did not run its chain solves through K1's "
              f"float64 instantiation alone: {got_d}, plain {plain_d.calls}")
@@ -4104,22 +4661,24 @@ def main():
     # ---- 12. the reference's API on the card
     phase("12 the reference's API (preconditioner variants, call forms, "
           "native opt-out)")
-    with PlainOnCard(("plain_solve", "sym_eig_plain")) as plain12:
+    with PlainOnCard(("plain_solve", "sym_eig_plain")
+                     + CG_PLAINS) as plain12:
         api_phase(dev, card, {"city10000": (bop, w),
                               "sphere2500": (bop_sp, w_sp)},
                   mac.laplacian(x_init), dataset, counted)
     for name_, c_ in plain12.calls.items():
         inner_calls[name_] = inner_calls.get(name_, 0) + c_
     print(f"single solves of graphed routes run without their graphs, and "
-          f"plain Jacobi eigensolves, on the card in phases 4-10 and 12: "
-          f"{inner_calls}", flush=True)
+          f"plain Jacobi eigensolves, and plain forms of the CG step, on "
+          f"the card in phases 4-10 and 12: {inner_calls}", flush=True)
     if inner_calls:
         fail(f"a graphed route solved without its graphs, or K4's plain "
-             f"version ran, on the card: {inner_calls}")
+             f"version, or a plain form of the CG step ran, on the card: "
+             f"{inner_calls}")
 
     # ---- 13. the solve's graphs against the inner-only and eager paths
-    phase("13 the solve three ways: set-up and outer iteration replayed, "
-          "inner steps only, eager (warm solves)")
+    phase("13 the solve four ways: set-up and outer iteration replayed, "
+          "inner steps only, eager, the plain CG step (warm solves)")
     mac_sp, k_sp, x_sp = bundled_macs["sphere2500"]
     mac64, k64, x64 = solvers_10b["city10000"]
 
@@ -4153,6 +4712,16 @@ def main():
             k64, x64, max_iters=20),
             lambda u: scipy_lam2(mac64.laplacian(u)), k64,
             rel_gap(REFERENCE_LAM2_UNROUNDED, within=1e-9))}, counted)
+    for name_, res_ in ab13.items():
+        g_, p_ = res_["profile"]["graph"], res_["profile"]["plain-cg"]
+        print(f"13 {name_}: replayed warm solve, kernels / plain CG step: "
+              f"device busy {g_[1]:.3f} / {p_[1]:.3f} ms, device kernels "
+              f"{g_[2]} / {p_[2]}, one CG step {g_[4]} / {p_[4]} kernels, "
+              f"{g_[5]} / {p_[5]} ms ({card})", flush=True)
+    step13 = ab13["city10000"]["profile"]["graph"][4]
+    if step13 is None or step13 > STEP_KERNEL_CAP:
+        fail(f"13 city10000: a replayed CG step ran {step13} device kernels, "
+             f"more than {STEP_KERNEL_CAP}")
     if ab13["city10000 q = 11"]["bodies"].get("wide_shared", 0) <= 0:
         fail(f"13 city10000 q = 11: K4w never launched: "
              f"{ab13['city10000 q = 11']['bodies']}")
@@ -4309,7 +4878,16 @@ def main():
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
-         "shape": "(10000, 4)", "launches": launches["tridiag_solve"],
+         "shape": "(10000, 4)", "launches": eig_launches["tridiag_solve"],
+         "launches_path": "phase 7c (GreedyEig's two-grid V-cycle); on the "
+                          "banded routes K1p (K1's body) takes its place",
+         "launches_city10000": tridiag_solve_launches_4,
+         "shape_lanes": "(8, 10000, 4), a chain factor per lane",
+         "ms_lanes": k1_lanes["device_ms"],
+         "call_ms_lanes": k1_lanes["call_ms"],
+         "plain_ms_lanes": k1_lanes["plain_ms"],
+         "bound_ms_lanes": k1_lanes["bound_ms"],
+         "max_abs_err_lanes": k1_lanes["max_abs_err"],
          "launches_mesh": mesh_launches["a"]["tridiag_solve"],
          "launches_sphere2500": sphere["tridiag_solve"],
          "launches_greedy_eig": eig_launches["tridiag_solve"],
@@ -4343,9 +4921,6 @@ def main():
          "max_abs_err": k1b_err, "ms": k1b_dev, "device_ms": k1b_dev,
          "call_ms": k1b_call, "plain_ms": k1b_plain_ms,
          "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None},
-        lane_entry("tridiag_solve", "mac_tpu/ops/pallas/tridiag_kernel.py:44",
-                   "(8, 10000, 4), a chain factor per lane", k1_lanes,
-                   lanes_a["tridiag_solve"].get(8, 0), "phase 8a"),
         lane_entry("assemble_ut", "mac_tpu/ops/pallas/assemble_kernel.py:61",
                    "(8, ...) city10000 tables (K2b form)",
                    dict(k2b8_tm, max_abs_err=k2_err["K2b_lanes"]),
@@ -4373,6 +4948,39 @@ def main():
                  eig_launches["sym_eig_by_lanes"].get(64, 0),
                  "phase 7c (GreedyEig intel, subset(8))",
                  "mac_tpu/ops/lobpcg.py:443 (under vmap)")] + k4w_kernels
+    # K5, K6, K1p and K7 (phase 3f): "launches" those of the wrapper on the
+    # path "launches_path" names (every shape of a wrapper on it): phase 4's
+    # four city10000 solves (float32), phase 10b's banded float64 solves,
+    # phase 8a's sweep (8 lanes), phase 6's four sphere2500 solves.
+    def cg_entry(key, count, path):
+        tm = cg_tm[key]
+        return {"name": tm["name"], "route": "cuda", "source": tm["source"],
+                "replaces": tm["replaces"], "shape": tm["shape"],
+                "launches": count, "launches_path": path,
+                "max_abs_err": tm["max_abs_err"], "rel_err": tm["rel_err"],
+                "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+                "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm["library_ms"]}
+
+    def f64_of(kern):
+        return sum(launches_10b[nm][kern].get("float64", 0)
+                   for nm in ("city10000", "sphere2500"))
+
+    p4, p10 = "phase 4 city10000", "phase 10b banded float64"
+    cg_line = []
+    for key in sorted(cg_tm):
+        kern = cg_tm[key]["name"]
+        if key.endswith("_f64") or key.endswith("_f64_plain"):
+            cg_line.append(cg_entry(key, f64_of(kern), p10))
+        elif key.endswith("_lanes"):
+            cg_line.append(cg_entry(key, lanes_a[kern].get(8, 0),
+                                    "phase 8a (8 lanes)"))
+        elif key.endswith("_sphere"):
+            cg_line.append(cg_entry(key, sphere[kern], "phase 6 sphere2500"))
+        else:
+            cg_line.append(cg_entry(key, launches[kern], p4))
+    kernels += cg_line
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

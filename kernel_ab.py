@@ -733,7 +733,11 @@ def main():
     k3_key = lambda nm: "ldl_kernel" in nm  # noqa: E731
     k3b_key = lambda nm: "ldl_blocked_kernel" in nm  # noqa: E731
     k1_keys = {"K1": lambda nm: ("tridiag_solve_kernel" in nm
-                                 and "blocked" not in nm),
+                                 and "blocked" not in nm
+                                 and "true>" not in nm),
+               # K1p: K1's body with the permuted entry (the banded cycle's)
+               "K1p": lambda nm: ("tridiag_solve_kernel" in nm
+                                  and "true>" in nm),
                "K2b": lambda nm: "assemble_ut_kernel" in nm,
                "K4": lambda nm: "sym_eig_kernel" in nm, "K3b": k3b_key}
     k1b_keys = {"K1b": lambda nm: "tridiag_solve_blocked_kernel" in nm,

@@ -127,6 +127,10 @@ constexpr int kCluster = 16;            // blocks per cluster (non-portable)
 constexpr int kK1Threads = 256;         // threads per block
 constexpr int kSmemBytes = 200 * 1024;  // dynamic shared memory cap
 constexpr int kMaxQ = 128;              // columns per launch
+// K1p's shared memory beyond K1's cap: its column sums' kK1Threads + kMaxQ
+// doubles ahead of K1's layout, and its means (kMaxQ elements) after it.
+constexpr int kPermHeadBytes = (kK1Threads + kMaxQ) * 8;
+constexpr int kPermExtraBytes = kPermHeadBytes + kMaxQ * 8;
 
 // Block-wide transposing copies between a (rows x q) run of device memory
 // at row stride ld (coalesced) and the tile in shared memory, column-major
@@ -349,17 +353,42 @@ __device__ void exchange(cg::cluster_group& cluster, T* tot_c, T* tot_v,
   __syncthreads();
 }
 
+// K1p, K1's permuted entry: the V-cycle's smoother in the original node
+// order of B and X held in the operator's (RCM) order. Row j of the chain
+// is row iperm[j] of B and of X: the tile loads B[iperm[j]] less B's
+// column mean (the cycle's centring, from bsum) and the solve stores x_j
+// to X[iperm[j]], or adds it there (`add`); each block then sums its rows
+// of X per column (float64, fixed order) and the block that takes the last
+// ticket sums those partials in block order into osum. The rows do not
+// fit shared memory: z goes through the natural-order scratch Z. K1's
+// arithmetic is the same (kPerm = false compiles none of this).
+template <typename T>
+struct PermArgs {
+  const int* iperm;    // (n,) original row -> row of B and X
+  const double* bsum;  // (lanes, ld) B's column sums to centre by, or null
+  T* Z;                // (lanes, n, ld) scratch for the tiled branch
+  int add;             // X[iperm[j]] += x_j
+  double* part;        // (lanes, ld, cluster) X's column sums per block, or null
+  double* osum;        // (lanes, ld) their totals
+  unsigned* ticket;    // one counter at 0, left at 0
+};
+
 // B and X hold R lanes of (n, ld); the cluster at (blockIdx.y, blockIdx.z)
 // solves the column group of up to kMaxQ columns starting at column
 // kMaxQ * blockIdx.y of lane blockIdx.z, whose factor starts fstride
 // elements into dp and l per lane. T is float or double.
-template <typename T>
+template <typename T, bool kPerm>
 __global__ void __launch_bounds__(kK1Threads)
 tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
                      const T* __restrict__ B, T* X, int n, int ld,
-                     int span, int tile_rows, long long fstride) {
+                     int span, int tile_rows, long long fstride,
+                     PermArgs<T> pa) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  // K1p: kK1Threads + kMaxQ doubles for its column sums, and the means.
+  double* red = reinterpret_cast<double*>(smem_raw);
+  double* bacc = red + kK1Threads;
+  T* smem = reinterpret_cast<T*>(kPerm ? smem_raw + kPermHeadBytes
+                                       : smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int j0 = kMaxQ * static_cast<int>(blockIdx.y);
   const int q = min(kMaxQ, ld - j0);  // this cluster's columns
@@ -368,6 +397,14 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   l += lane * fstride;
   B += lane * n * ld + j0;
   X += lane * n * ld + j0;
+  T* zbuf = X;  // z between the substitutions in the tiled branch
+  if (kPerm) {
+    if (pa.Z != nullptr) {
+      pa.Z += lane * n * ld + j0;
+      zbuf = pa.Z;
+    }
+    if (pa.bsum != nullptr) pa.bsum += lane * ld + j0;
+  }
   const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x;
   const int nw = blockDim.x >> 5;
@@ -393,6 +430,7 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   T* bv = bc + q;
   T* gc = bv + q;                            // nblk * q each
   T* gv = gc + cluster.num_blocks() * q;
+  T* smean = gv + cluster.num_blocks() * q;  // K1p: q
 
   const long long r0 = min((long long)rank * span, (long long)n);
   const long long r1 = min(r0 + span, (long long)n);
@@ -405,7 +443,14 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
     fv[i] = T(0);
     bc[i] = T(1);
     bv[i] = T(0);
+    if (kPerm) {
+      smean[i] = pa.bsum != nullptr
+                     ? static_cast<T>(pa.bsum[i] / static_cast<double>(n))
+                     : T(0);
+      bacc[i] = 0.0;
+    }
   }
+  if (kPerm) __syncthreads();
   auto start = [&](int k) { return r0 + (long long)k * tile_rows; };
   auto len = [&](int k) {
     return static_cast<int>(min((long long)tile_rows, r1 - start(k)));
@@ -415,7 +460,13 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   auto load = [&](int k, const T* src) {
     const long long ts = start(k);
     const int tr = len(k);
-    tile_in(sB, lds, src + ts * ld, ld, tr, q);
+    if (kPerm && src == B) {  // B's rows through iperm, centred
+      for (RowWalk e(q); e.r < tr; e.next())
+        sB[e.c * lds + e.r] =
+            B[(long long)pa.iperm[ts + e.r] * ld + e.c] - smean[e.c];
+    } else {
+      tile_in(sB, lds, src + ts * ld, ld, tr, q);
+    }
     for (int i = t; i < tr; i += blockDim.x)
       __pipeline_memcpy_async(sdp + i, dp + ts + i, sizeof(T));
     for (int i = t; i <= tr; i += blockDim.x) {
@@ -429,8 +480,46 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
     __syncthreads();
   };
   auto store = [&](int k) {
-    tile_out(X + start(k) * ld, ld, sB, lds, len(k), q);
+    tile_out(zbuf + start(k) * ld, ld, sB, lds, len(k), q);
     __syncthreads();
+  };
+  // The solve's rows leave: K1 writes them in order, K1p through iperm
+  // (adding into X with `add`), then adds the tile's column sums of what
+  // it wrote to bacc in a fixed order.
+  auto store_out = [&](int k) {
+    if (!kPerm) {
+      tile_out(X + start(k) * ld, ld, sB, lds, len(k), q);
+      __syncthreads();
+      return;
+    }
+    const long long ts = start(k);
+    const int tr = len(k);
+    for (RowWalk e(q); e.r < tr; e.next()) {
+      T* dst = X + (long long)pa.iperm[ts + e.r] * ld + e.c;
+      T v = sB[e.c * lds + e.r];
+      if (pa.add) v = *dst + v;
+      *dst = v;
+      sB[e.c * lds + e.r] = v;
+    }
+    __syncthreads();
+    if (pa.part == nullptr) return;
+    for (int c0 = 0; c0 < q; c0 += kK1Threads) {
+      const int cw = min(kK1Threads, q - c0);
+      const int ns = kK1Threads / cw;
+      const int col = c0 + t % cw;
+      double acc = 0.0;
+      if (t / cw < ns)
+        for (int i = t / cw; i < tr; i += ns)
+          acc += static_cast<double>(sB[col * lds + i]);
+      red[t] = acc;
+      __syncthreads();
+      if (t < cw) {
+        double s = 0.0;
+        for (int k2 = 0; k2 < ns; ++k2) s += red[t + k2 * cw];
+        bacc[c0 + t] += s;
+      }
+      __syncthreads();
+    }
   };
   // After a tile's apply (and a barrier): carry leaves the tile.
   auto advance = [&]() {
@@ -472,14 +561,39 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   // Backward: x over z, last tile first; X written once per row.
   for (int k = ntiles - 1; k >= 0; --k) {
     if (!resident) {
-      load(k, X);
+      load(k, zbuf);
       compose_bwd(k, nullptr, nullptr);
     }
     tile_apply<T, false>(sB, lds, sdp, sl, len(k), start(k), n, q, cols, xc, xv,
                       carry);
     __syncthreads();
     if (!resident) advance();
-    store(k);
+    store_out(k);
+  }
+  if (kPerm && pa.part != nullptr) {
+    // This block's column sums, then (in the block with the last ticket)
+    // every block's in block order.
+    const int nblk = static_cast<int>(cluster.num_blocks());
+    for (int i = t; i < q; i += blockDim.x)
+      pa.part[(lane * ld + j0 + i) * nblk + rank] = bacc[i];
+    __threadfence();
+    __syncthreads();
+    __shared__ bool last;
+    if (t == 0)
+      last = atomicAdd(pa.ticket, 1u) ==
+             gridDim.x * gridDim.y * gridDim.z - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      const int count = static_cast<int>(gridDim.z) * ld;
+      for (int i = t; i < count; i += blockDim.x) {
+        double s = 0.0;
+        for (int k = 0; k < nblk; ++k)
+          s += __ldcg(pa.part + (long long)i * nblk + k);
+        pa.osum[i] = s;
+      }
+      if (t == 0) *pa.ticket = 0u;
+    }
   }
   // No block leaves while another may still read its shared memory.
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
@@ -821,24 +935,27 @@ tridiag_solve_blocked_kernel(const T* __restrict__ dp,
   }
 }
 
-// K1's function attributes for element type T: the dynamic shared memory
-// cap and the non-portable cluster size. The first error, or cudaSuccess.
-template <typename T>
+// K1's (kPerm = false) or K1p's (true) function attributes for element
+// type T: the dynamic shared memory cap and the non-portable cluster size.
+// The first error, or cudaSuccess.
+template <typename T, bool kPerm>
 cudaError_t k1_setup() {
   const cudaError_t err = cudaFuncSetAttribute(
-      tridiag_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      tridiag_solve_kernel<T, kPerm>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes + (kPerm ? kPermExtraBytes : 0));
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(tridiag_solve_kernel<T>,
+  return cudaFuncSetAttribute(tridiag_solve_kernel<T, kPerm>,
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               1);
 }
 
-template <typename T>
+template <typename T, bool kPerm>
 int k1_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
-              int lanes, long long fstride, void* stream) {
+              int lanes, long long fstride, void* stream,
+              PermArgs<T> pa = PermArgs<T>{}) {
   if (n <= 0 || q <= 0 || lanes <= 0) return 0;
-  static const cudaError_t setup = k1_setup<T>();
+  static const cudaError_t setup = k1_setup<T, kPerm>();
   if (setup != cudaSuccess) return static_cast<int>(setup);
   const int nblk = kCluster;
   // Rows per block and per tile, multiples of 4 (the tile's column stride,
@@ -853,7 +970,10 @@ int k1_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
   // wc, wv; xc, xv; tc, tv, carry and the four totals; gc, gv; sl's row
   // and the padding row of the tile. In elements of T: with 8-byte
   // elements a block holds half the rows, so the tiled branch starts at
-  // about half of float's n.
+  // about half of float's n. K1p takes K1's tile rows, so that its tiles
+  // and their carries are K1's, and adds above K1's cap its column sums'
+  // doubles (head) and its means (qg).
+  const int head = kPerm ? kPermHeadBytes : 0;
   const int fixed = 64 + 2 * npass * kK1Threads + 7 * qg + 2 * nblk * qg
                     + 1 + qg;
   const int fit =
@@ -863,7 +983,8 @@ int k1_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
   cfg.gridDim = dim3(nblk, (q + kMaxQ - 1) / kMaxQ, lanes);
   cfg.blockDim = dim3(kK1Threads);
   cfg.dynamicSmemBytes =
-      static_cast<size_t>(tile_rows * (qg + 2) + fixed) * sizeof(T);
+      head + static_cast<size_t>(tile_rows * (qg + 2) + fixed +
+                                 (kPerm ? qg : 0)) * sizeof(T);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute cluster_dim[1];
   cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
@@ -873,8 +994,8 @@ int k1_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
   cfg.attrs = cluster_dim;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tridiag_solve_kernel<T>, dp, l, B, X, n, q, span, tile_rows,
-      fstride);
+      &cfg, tridiag_solve_kernel<T, kPerm>, dp, l, B, X, n, q, span,
+      tile_rows, fstride, pa);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -914,14 +1035,34 @@ int k1b_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
 extern "C" int tridiag_solve_f32(const float* dp, const float* l,
                                  const float* B, float* X, int n, int q,
                                  int lanes, long long fstride, void* stream) {
-  return k1_launch(dp, l, B, X, n, q, lanes, fstride, stream);
+  return k1_launch<float, false>(dp, l, B, X, n, q, lanes, fstride, stream);
 }
 
 extern "C" int tridiag_solve_f64(const double* dp, const double* l,
                                  const double* B, double* X, int n, int q,
                                  int lanes, long long fstride, void* stream) {
-  return k1_launch(dp, l, B, X, n, q, lanes, fstride, stream);
+  return k1_launch<double, false>(dp, l, B, X, n, q, lanes, fstride, stream);
 }
+
+// K1p. As K1, with iperm (n,) int32, B's column sums bsum (lanes, q)
+// float64 or null (no centring), the scratch Z (lanes, n, q) of the tiled
+// branch, add (X[iperm[j]] += x_j when non-zero), and, unless part is
+// null, X's column sums after the solve into osum (lanes, q) float64
+// through part (lanes * q * 16 float64) and ticket (one counter at 0, left
+// at 0).
+#define K1P_EXPORT(T, S)                                                    \
+  extern "C" int tridiag_solve_perm_##S(                                    \
+      const T* dp, const T* l, const T* B, T* X, int n, int q, int lanes,   \
+      long long fstride, const int* iperm, const double* bsum, T* Z,        \
+      int add, double* part, double* osum, unsigned* ticket,                \
+      void* stream) {                                                       \
+    PermArgs<T> pa = {iperm, bsum, Z, add, part, osum, ticket};             \
+    return k1_launch<T, true>(dp, l, B, X, n, q, lanes, fstride, stream,    \
+                              pa);                                          \
+  }
+
+K1P_EXPORT(float, f32)
+K1P_EXPORT(double, f64)
 
 // K1b. The same arrays and lanes; `block` (a multiple of 32, at most 1024)
 // is the segment length. The grid is (segments, column groups, lanes).

@@ -35,15 +35,21 @@ products (the coarse R^T (L R) and the residual applies) at its DEFAULT
 precision, a single bf16 pass; this port keeps them in float32.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from mac_tpu_torch.ops.kernels import banded as _kb
+from mac_tpu_torch.ops.kernels import pcg as _kp
+from mac_tpu_torch.ops.kernels import tridiag as _k1
 from mac_tpu_torch.ops.kernels.assemble import assemble_ut
-from mac_tpu_torch.ops.lobpcg import batched_trace, cholesky_upper
+from mac_tpu_torch.ops.lobpcg import (Operator, batched_trace,
+                                      cholesky_upper)
 from mac_tpu_torch.ops.tridiag import (
+    SOLVE_BLOCK,
+    TRIDIAG_SCAN_MAX_N,
     TridiagFactor,
     tridiag_ldl_auto,
     tridiag_ldl_blocked,
@@ -304,44 +310,49 @@ def banded_apply(bop: BandedOperator, BD: BDRep,
     block row, the degree term, the diagonal block's strict upper part and
     its transpose, and each off block diagonal read directly at +t and
     transposed at -t, all against locally centred inputs. With lanes (BD
-    and V (R, n, q)), lane r's operator on lane r's block: each product is
-    one batched matmul over R nb blocks."""
-    lead, (n, q) = V.shape[:-2], V.shape[-2:]
-    nb, half, ndiag = bop.nb, bop.half, bop.ndiag
-    n_pad = bop.n_pad
-    ut, deg = BD.ut, BD.deg
-    if n_pad != n:
-        V = torch.cat([V, V.new_zeros((*lead, n_pad - n, q))], dim=-2)
-    Vb = V.reshape(*lead, nb, BS, q)
-    zpad = Vb.new_zeros((*lead, half, BS, q))
-    Vp = torch.cat([zpad, Vb, zpad], dim=-3)
+    and V (R, n, q)), lane r's operator on lane r's block. Kernel K5
+    (mac_tpu_torch.ops.kernels.banded) on the card, one launch; its plain
+    version, PyTorch's batched products, on the CPU. The kernel reads each
+    lane of V row-major: another layout is copied so first."""
+    if V.is_cuda and not _kb.one_lane_contiguous(V, 2):
+        V = V.contiguous()
+    return _kb.banded_product(BD.ut, BD.deg, V, bop.n)
 
-    def blocks(o):  # the nb blocks of Vp from block o on
-        return Vp[..., o:o + nb, :, :]
 
-    if V.numel() // n_pad * ndiag * n_pad > 64 * 1024 * 1024:
-        # Huge windows (a wide coarse assembly at large n): sliding-window
-        # mean from a cumsum instead of materialising the window stack.
-        S = Vp.sum(dim=-2)  # (..., nb + 2 half, q)
-        C = torch.cat([S.new_zeros((*lead, 1, q)), torch.cumsum(S, dim=-2)],
-                      dim=-2)
-        cb = ((C[..., ndiag:, :] - C[..., :-ndiag, :])
-              / (ndiag * BS)).unsqueeze(-2)
-    else:
-        win = torch.stack([blocks(o) for o in range(ndiag)], dim=0)
-        cb = win.mean(dim=(0, -2)).unsqueeze(-2)
-    Vc0 = blocks(half) - cb
-    ut0 = ut[..., 0, :, :, :]
-    out = deg.unsqueeze(-1) * Vc0
-    out = out + torch.matmul(ut0.transpose(-1, -2), Vc0)
-    out = out + torch.matmul(ut0, Vc0)
-    for t in range(1, half + 1):
-        utt = ut[..., t, :, :, :]
-        out = out + torch.matmul(utt.transpose(-1, -2), blocks(half + t) - cb)
-        utsh = torch.cat([ut.new_zeros((*lead, t, BS, BS)),
-                          utt[..., : nb - t, :, :]], dim=-3)
-        out = out + torch.matmul(utsh, blocks(half - t) - cb)
-    return out.reshape(*lead, n_pad, q)[..., :n, :]
+class BandedProduct(Operator):
+    """L(w) V on the banded operator (banded_apply), or TRACEMIN's shifted
+    operators over it: (L V + (c / n) 1 1^T V) with c, and + sigma V with
+    sigma too (c, sigma 0-d, or (R,) with lanes), all through K5's wrapper
+    (the kernel on the card, its plain version on the CPU). `product`
+    gives pcg_fixed K5's other forms (the residual B - A V, the column
+    dots of V and A V), from V's column sums `vsum` (float64) where the
+    shift needs them."""
+
+    def __init__(self, bop: BandedOperator, BD: BDRep,
+                 c: Optional[torch.Tensor] = None,
+                 sigma: Optional[torch.Tensor] = None):
+        self.bop, self.BD, self.c, self.sigma = bop, BD, c, sigma
+
+    def shifted(self, c: torch.Tensor,
+                sigma: Optional[torch.Tensor] = None) -> "BandedProduct":
+        return BandedProduct(self.bop, self.BD, c, sigma)
+
+    def __call__(self, V: torch.Tensor) -> torch.Tensor:
+        if self.c is None:
+            return banded_apply(self.bop, self.BD, V)
+        V = V.contiguous()
+        return self.product(V, vsum=_kp.col_sums(V))
+
+    def product(self, V: torch.Tensor, vsum: Optional[torch.Tensor] = None,
+                B: Optional[torch.Tensor] = None, dot: bool = False):
+        """K5 on V: A V, or B - A V with B; (that, the column dots of V and
+        it) with dot. vsum: V's column sums (float64), which the shift
+        needs (ignored without c)."""
+        shifted = self.c is not None
+        return _kb.banded_product(
+            self.BD.ut, self.BD.deg, V, self.bop.n, B=B,
+            vsum=vsum if shifted else None, c=self.c,
+            sigma=self.sigma if shifted else None, dot=dot)
 
 
 def banded_upper(ut: torch.Tensor, nb: int, b0: int = 0) -> torch.Tensor:
@@ -643,9 +654,80 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
         return center(smooth(B) + prolong(Lc_inv @ restrict(B)))
 
     chosen = precond_additive if kind == "additive" else precond
+    if kind == "mult" and fac is not None and sharded is None:
+        chosen = VCycle(bop, BD, fac, Lc_inv, plain=precond, smooth=smooth)
     if return_state:
         if fac is None:
             return chosen, PrecondState(Lc_inv=Lc_inv)
         return chosen, PrecondState(Lc_inv=Lc_inv, chain_dp=fac.dp,
                                     chain_l=fac.l)
     return chosen
+
+
+class VCycle:
+    """make_banded_precond's symmetric V-cycle with the chain smoother
+    (kind "mult", no mesh): smooth, coarse-correct the residual, smooth
+    again, on the centred right-hand side, the result centred.
+
+    `plain(B)` is make_banded_precond's cycle as PyTorch ops around the
+    chain solve's kernel: the CPU's form, the reference's order. On the
+    card the cycle is six launches of hand-written kernels, `cycle(R,
+    rsum)`: K1p (the chain solve reading R's rows through the permutation,
+    centred by R's column sums rsum), K5's residual form, K7's two
+    launches (restrict, the coarse product and the prolong-add into x), K5
+    again and K1p adding into x, which returns x uncentred with its column
+    sums (float64): pcg_fixed's K6 centres it on the fly. A factor that the
+    tridiagonal dispatch sends to the segment kernel K1b (past
+    TRIDIAG_SCAN_MAX_N rows) smooths by K1b between the gathers (`smooth`,
+    the chain solve in RCM order). Calling the cycle on CUDA tensors runs
+    `cycle` (through _vcycle_kernels) and centres its result."""
+
+    def __init__(self, bop: BandedOperator, BD: BDRep, fac: TridiagFactor,
+                 Lc_inv: torch.Tensor, *, plain: Callable, smooth: Callable):
+        self.bop, self.BD, self.fac, self.Lc_inv = bop, BD, fac, Lc_inv
+        self._plain, self.smooth = plain, smooth
+        n = bop.n
+        self.k1p = not (n > TRIDIAG_SCAN_MAX_N and fac.seg is not None
+                        and SOLVE_BLOCK % int(fac.seg) == 0)
+
+    def plain(self, B: torch.Tensor) -> torch.Tensor:
+        return self._plain(B)
+
+    def _smooth_kernels(self, B, bsum=None, X=None, sums=False):
+        bop, fac = self.bop, self.fac
+        dp = fac.dp if fac.dp.dtype == B.dtype else fac.dp.to(B.dtype)
+        l = fac.l if fac.l.dtype == B.dtype else fac.l.to(B.dtype)
+        if self.k1p:
+            return _k1.tridiag_solve_permuted(dp, l, B, bop.iperm, bop.perm,
+                                              bsum=bsum, X=X, sums=sums)
+        if bsum is not None:
+            B = B - (bsum / bop.n).to(B.dtype).unsqueeze(-2)
+        x = self.smooth(B)
+        if X is not None:
+            x = X + x
+        return (x, _kp.col_sums(x)) if sums else x
+
+    def cycle(self, R: torch.Tensor, rsum: torch.Tensor):
+        """The cycle's kernels on R (RCM order, contiguous) with its column
+        sums rsum (float64): (x, x's column sums), x uncentred."""
+        bop, BD = self.bop, self.BD
+        x = self._smooth_kernels(R, bsum=rsum)
+        r = _kb.banded_product(BD.ut, BD.deg, x, bop.n, B=R, bsum=rsum)
+        x = _kb.coarse_correct(r, x, bop.iperm, bop.perm, self.Lc_inv,
+                               bop.coarse_s)
+        r2 = _kb.banded_product(BD.ut, BD.deg, x, bop.n, B=R, bsum=rsum)
+        return self._smooth_kernels(r2, X=x, sums=True)
+
+    def __call__(self, B: torch.Tensor) -> torch.Tensor:
+        if B.is_cuda:
+            return _vcycle_kernels(self, B)
+        return self.plain(B)
+
+
+def _vcycle_kernels(cyc: VCycle, B: torch.Tensor) -> torch.Tensor:
+    """The cycle on the card, centred: K6's column sums of B, the cycle's
+    kernels, and x less its column means."""
+    B = B.contiguous()
+    x, xsum = cyc.cycle(B, _kp.col_sums(B))
+    return x - (xsum / cyc.bop.n).to(x.dtype).unsqueeze(-2)
+

@@ -12,16 +12,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from mac_tpu_torch.ops.kernels import pcg as _k6
+from mac_tpu_torch.ops.kernels.pcg import safe_div as _safe_div
+
 
 def _identity(B):
     return B
-
-
-def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a / b where |b| > tiny, else 0: exhausted columns stay inert rather
-    than NaN."""
-    big = b.abs() > torch.finfo(b.dtype).tiny
-    return a / torch.where(big, b, torch.ones_like(b)) * big
 
 
 def pcg_fixed(apply_A: Callable, B: torch.Tensor,
@@ -30,7 +26,18 @@ def pcg_fixed(apply_A: Callable, B: torch.Tensor,
     """`iters` PCG steps toward A X = B from X0 (default 0),
     preconditioned by Minv (the identity if None). B is (n, q), or
     (R, n, q) for R lanes. Columnwise step sizes; division guards make
-    exhausted columns inert rather than NaN."""
+    exhausted columns inert rather than NaN. On CUDA tensors the step's
+    update runs in kernel K6 (pcg_fixed_steps), else as PyTorch ops
+    (pcg_fixed_plain)."""
+    if B.is_cuda:
+        return pcg_fixed_steps(apply_A, B, Minv, iters, X0)
+    return pcg_fixed_plain(apply_A, B, Minv, iters, X0)
+
+
+def pcg_fixed_plain(apply_A: Callable, B: torch.Tensor,
+                    Minv: Optional[Callable] = None, iters: int = 16,
+                    X0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """pcg_fixed as PyTorch ops (the reference's loop body, op for op)."""
     if Minv is None:
         Minv = _identity
     if X0 is None:
@@ -51,6 +58,61 @@ def pcg_fixed(apply_A: Callable, B: torch.Tensor,
         P = Z + beta * P
         rz = rz_new
     return X
+
+
+def pcg_fixed_steps(apply_A: Callable, B: torch.Tensor,
+                    Minv: Optional[Callable] = None, iters: int = 16,
+                    X0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """pcg_fixed through K6's wrappers (mac_tpu_torch.ops.kernels.pcg), on
+    any device: the kernels on CUDA tensors, their plain versions on the
+    CPU. Per step: A P with the column dots P . AP, K6's first pass (alpha,
+    X, R and R's column sums), Z = Minv(R), the dots R . Z (K6) and K6's
+    second pass (beta, P, rz and P's column sums). Where apply_A has
+    `product` (ops.banded.BandedProduct: K5 gives A P with the dots, and
+    the start's residual, in one launch) and Minv has `cycle`
+    (ops.banded.VCycle: its kernels return x uncentred with its column
+    sums, and K6 centres Z = x - mean(x) on the fly), a step is ten
+    launches on city10000's banded route; otherwise apply_A and Minv run as
+    they are, with the dots from K6. X0 is not changed."""
+    product = getattr(apply_A, "product", None)
+    cycle = getattr(Minv, "cycle", None)
+    B = B.contiguous()
+    if X0 is None:
+        X, R = torch.zeros_like(B), B.clone()
+    else:
+        X = X0.clone(memory_format=torch.contiguous_format)
+        if product is not None:
+            R = product(X, vsum=_k6.col_sums(X), B=B)
+        else:
+            R = (B - apply_A(X0)).contiguous()
+
+    def precondition(R, rsum):
+        if cycle is not None:
+            return cycle(R, rsum)
+        if Minv is None:
+            return R, None
+        return Minv(R).contiguous(), None
+
+    rsum = _k6.col_sums(R) if cycle is not None else None
+    Z, zsum = precondition(R, rsum)
+    rz = torch.empty(B.shape[:-2] + B.shape[-1:], dtype=B.dtype,
+                     device=B.device)
+    P = torch.empty_like(B)
+    sums = product is not None
+    psum = _k6.cg_direction(P, Z, zsum, rz, _k6.col_sums(R, Z, zsum),
+                            init=True, sums=sums)
+    for _ in range(int(iters)):
+        if product is not None:
+            AP, pap = product(P, vsum=psum, dot=True)
+        else:
+            AP = apply_A(P).contiguous()
+            pap = _k6.col_sums(P, AP)
+        rsum = _k6.cg_update(X, R, P, AP, rz, pap, sums=cycle is not None)
+        Z, zsum = precondition(R, rsum)
+        psum = _k6.cg_direction(P, Z, zsum, rz, _k6.col_sums(R, Z, zsum),
+                                sums=sums)
+    return X
+
 
 
 class CGResult(NamedTuple):

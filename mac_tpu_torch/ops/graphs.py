@@ -71,7 +71,10 @@ import torch
 from mac_tpu_torch.ops import banded as _banded
 from mac_tpu_torch.ops import twogrid as _twogrid
 from mac_tpu_torch.ops.cg import pcg_fixed
+from mac_tpu_torch.ops import cg as _cg
 from mac_tpu_torch.ops.kernels import _build
+from mac_tpu_torch.ops.kernels import banded as _kbanded
+from mac_tpu_torch.ops.kernels import pcg as _kpcg
 from mac_tpu_torch.ops.kernels import ldl as _ldl
 from mac_tpu_torch.ops.kernels import syev as _syev
 from mac_tpu_torch.ops.kernels import tridiag as _tridiag
@@ -80,7 +83,7 @@ from mac_tpu_torch.ops.kernels.tridiag import COUNT_DICTS
 from mac_tpu_torch.ops.laplacian import (GraphOperator, ell_applier,
                                          lap_inf_norm, lap_weight_table)
 from mac_tpu_torch.ops.lobpcg import (FiedlerResult, TraceminCarry,
-                                      TraceminOps, _shift_term,
+                                      TraceminOps, as_operator,
                                       default_rel_tol, default_xprev,
                                       tracemin_fiedler)
 from mac_tpu_torch.ops.tridiag import TRIDIAG_SCAN_MAX_N, TridiagFactor
@@ -88,7 +91,9 @@ from mac_tpu_torch.ops.tridiag import TRIDIAG_SCAN_MAX_N, TridiagFactor
 # Every kernel wrapper; a replay adds what its capture counted to each.
 WRAPPERS = (_tridiag.tridiag_solve, _tridiag.tridiag_solve_blocked,
             assemble_ut, _ldl.tridiag_ldl, _ldl.tridiag_ldl_blocked,
-            _syev.sym_eig)
+            _kbanded.banded_product, _kbanded.coarse_correct,
+            _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
+            _kpcg.cg_update, _kpcg.cg_direction, _syev.sym_eig)
 
 
 def _counts():
@@ -128,7 +133,10 @@ def _kernels_in_use():
     kernel libraries loaded (kernel_ab.py loads other builds in turns)."""
     return (_tridiag.tridiag_solve, _tridiag.tridiag_solve_blocked,
             _ldl.tridiag_ldl, _ldl.tridiag_ldl_blocked, _syev.sym_eig,
-            _build.loaded_files())
+            _kbanded.banded_product, _kbanded.coarse_correct,
+            _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
+            _kpcg.cg_update, _kpcg.cg_direction, _cg.pcg_fixed_steps,
+            _banded._vcycle_kernels, _build.loaded_files())
 
 
 class Knobs(NamedTuple):
@@ -370,11 +378,7 @@ def inner_replay(route: Route, state: Dict[str, torch.Tensor],
 
     def inner_steps(s):
         apply_L, Minv = route.build(s)
-        c, sigma = s["c"], s["sigma"]
-
-        def apply_inner(V):
-            return apply_L(V) + _shift_term(V, c) + sigma * V
-
+        apply_inner = as_operator(apply_L).shifted(s["c"], s["sigma"])
         s["Y"].copy_(pcg_fixed(apply_inner, s["B"], Minv, iters=iters,
                                X0=s["X0"]))
 
@@ -472,7 +476,7 @@ def banded_route(bop: "_banded.BandedOperator", kind: str) -> Route:
         Minv = _banded.make_banded_precond(
             op, BD, prev_state=banded_pstate(state), rebuild=False,
             kind=kind)
-        return (lambda V: _banded.banded_apply(op, BD, V)), Minv
+        return _banded.BandedProduct(op, BD), Minv
 
     return _cached(bop, ("banded", kind), lambda: Route(
         prepare, build, lambda: tuple(ref().buffers()),

@@ -109,7 +109,10 @@ _SIGNATURES = {
     f"{fn}_{suffix}": _K1_ARGS + extra
     for fn, extra in (("tridiag_solve", [ctypes.c_void_p]),
                       ("tridiag_solve_blocked", [ctypes.c_int,
-                                                 ctypes.c_void_p]))
+                                                 ctypes.c_void_p]),
+                      ("tridiag_solve_perm",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4))
     for suffix in SUFFIX.values()}
 
 
@@ -223,4 +226,80 @@ def tridiag_solve_blocked(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor,
     return X
 
 
-reset_counts(tridiag_solve, tridiag_solve_blocked)
+def tridiag_solve_permuted_plain(dp, l, B, iperm, perm, *, bsum=None,
+                                 X=None, sums=False):
+    """Plain version of K1p: the V-cycle's smoother with its gathers, as
+    ops.banded's cycle runs it: B centred by its own column means when
+    bsum is given (bsum only says so), its rows gathered into the original
+    order (iperm), K1's plain solve, the rows gathered back (perm), added
+    to X when X is given; with sums=True also the result's column sums
+    (float64)."""
+    if bsum is not None:
+        B = B - B.mean(dim=-2, keepdim=True)
+    x = tridiag_solve_plain(dp, l, B[..., iperm, :])[..., perm, :]
+    if X is not None:
+        x = X + x
+    return (x, x.double().sum(dim=-2)) if sums else x
+
+
+def tridiag_solve_permuted(dp: torch.Tensor, l: torch.Tensor,
+                           B: torch.Tensor, iperm: torch.Tensor,
+                           perm: torch.Tensor, *, bsum: torch.Tensor = None,
+                           X: torch.Tensor = None, sums: bool = False):
+    """K1p, K1's permuted entry: x with x[iperm[j]] the solve's row j of
+    (B - bsum / n)[iperm] (the centring when bsum, B's column sums in
+    float64, is given), added into X in place when X is given; with
+    sums=True also x's column sums (float64), summed in a fixed order.
+    B, X (n, q) or (R, n, q) in the operator's (RCM) order, the factor in
+    the original order as K1 takes it. CUDA tensors: K1's body with
+    permuted loads and stores, one launch (any n: rows past shared memory
+    go through a natural-order scratch); CPU tensors: the plain version."""
+    if not _on_card("tridiag_solve_permuted", dp, l, B):
+        return tridiag_solve_permuted_plain(dp, l, B, iperm, perm, bsum=bsum,
+                                            X=X, sums=sums)
+    lead, (n, q) = B.shape[:-2], B.shape[-2:]
+    lanes = B.shape[0] if B.dim() == 3 else 1
+    if iperm.dtype != torch.int32 or iperm.shape != (n,) or \
+            iperm.device != B.device:
+        raise ValueError("tridiag_solve_permuted kernel: iperm must be int32 "
+                         "(n,) on B's device")
+    want = (*lead, q)
+    if bsum is not None and (bsum.dtype != torch.float64
+                             or bsum.shape != want):
+        raise ValueError(f"tridiag_solve_permuted: bsum must be float64 "
+                         f"{want}")
+    if X is not None and (X.shape != B.shape or X.dtype != B.dtype
+                          or not X.is_contiguous()):
+        raise ValueError("tridiag_solve_permuted kernel: X must be "
+                         "contiguous, of B's shape and type")
+    from mac_tpu_torch.ops.kernels.pcg import ticket
+
+    tk = ticket(B.device) if sums else None
+    out = torch.empty_like(B) if X is None else X
+    Z = torch.empty_like(B)
+    part = osum = None
+    if sums:
+        part = torch.empty(lanes * q * 16, dtype=torch.float64,
+                           device=B.device)
+        osum = torch.empty(want, dtype=torch.float64, device=B.device)
+
+    call = _build.function("tridiag",
+                           f"tridiag_solve_perm_{SUFFIX[B.dtype]}",
+                           _SIGNATURES)
+    fstride = dp.shape[-1] if dp.dim() == 2 else 0
+    nul = 0
+    err = _build.launch(
+        call, B.device, dp.data_ptr(), l.data_ptr(), B.data_ptr(),
+        out.data_ptr(), n, q, lanes, fstride, iperm.data_ptr(),
+        nul if bsum is None else bsum.data_ptr(), Z.data_ptr(),
+        int(X is not None), nul if part is None else part.data_ptr(),
+        nul if osum is None else osum.data_ptr(),
+        nul if tk is None else tk.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"tridiag_solve_perm kernel launch failed: "
+                           f"cudaError {err}")
+    count_launch(tridiag_solve_permuted, lanes, B.dtype)
+    return (out, osum) if sums else out
+
+
+reset_counts(tridiag_solve, tridiag_solve_blocked, tridiag_solve_permuted)

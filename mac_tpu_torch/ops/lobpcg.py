@@ -110,11 +110,45 @@ def _ortho_against(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return Y
 
 
+def _per_lane(x: torch.Tensor) -> torch.Tensor:
+    """A scalar, or one per lane (R,), shaped to broadcast over a block."""
+    return x[:, None, None] if x.dim() == 1 else x
+
+
 def _shift_term(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(c / n) 1 1^T V with the column means accumulated in float64 (c can
-    exceed lambda_2 by many orders of magnitude)."""
-    m64 = V.double().mean(dim=0, keepdim=True)
-    return (c.double() * m64).to(V.dtype)
+    exceed lambda_2 by many orders of magnitude); V (n, k) with c 0-d, or
+    lanes (R, n, k) with c (R,)."""
+    m64 = V.double().mean(dim=-2, keepdim=True)
+    return (_per_lane(c).double() * m64).to(V.dtype)
+
+
+class Operator:
+    """A linear operator V -> L V with TRACEMIN's shifted forms:
+    `shifted(c)` is V -> L V + (c / n) 1 1^T V, and `shifted(c, sigma)`
+    that + sigma V (c and sigma 0-d, or (R,) one per lane). Here they are
+    closures over the product with _shift_term's shift; an operator with
+    forms of its own (ops.banded.BandedProduct) overrides `shifted`.
+    as_operator wraps a plain function."""
+
+    def __init__(self, apply: Callable[[torch.Tensor], torch.Tensor]):
+        self.apply = apply
+
+    def __call__(self, V: torch.Tensor) -> torch.Tensor:
+        return self.apply(V)
+
+    def shifted(self, c: torch.Tensor, sigma: Optional[torch.Tensor] = None
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+        def apply_shifted(V):
+            y = self(V) + _shift_term(V, c)
+            return y if sigma is None else y + _per_lane(sigma) * V
+
+        return apply_shifted
+
+
+def as_operator(apply_L) -> Operator:
+    """apply_L as an Operator (itself if it is one)."""
+    return apply_L if isinstance(apply_L, Operator) else Operator(apply_L)
 
 
 def default_xprev(n: int, q: int, dtype, device) -> torch.Tensor:
@@ -196,12 +230,20 @@ class TraceminOps:
         self.sigma = 32 * eps * self.c
         # Coefficients in float64, like _shift_term's means.
         self.u64 = None if nullvec is None else nullvec.double()
+        # The shifted operator and the inner solve's (+ sigma V).
+        if nullvec is None:
+            op = as_operator(apply_L)
+            self.apply_shifted = op.shifted(self.c)
+            self.apply_inner = op.shifted(self.c, self.sigma)
+        else:
+            def apply_shifted(V):
+                coef = self.u64[None, :] @ V.double()  # (1, k)
+                shift = self.c.double() * (self.u64[:, None] * coef)
+                return apply_L(V) + shift.to(V.dtype)
 
-    def shift(self, V):
-        if self.u64 is None:
-            return _shift_term(V, self.c)
-        coef = self.u64[None, :] @ V.double()  # (1, k)
-        return (self.c.double() * (self.u64[:, None] * coef)).to(V.dtype)
+            self.apply_shifted = apply_shifted
+            self.apply_inner = (lambda V: apply_shifted(V)
+                                + self.sigma * V)
 
     def project(self, V):
         if self.u64 is None:
@@ -209,12 +251,6 @@ class TraceminOps:
             return V - m64.to(V.dtype)
         coef = self.u64[None, :] @ V.double()
         return V - (self.u64[:, None] * coef).to(V.dtype)
-
-    def apply_shifted(self, V):
-        return self.apply_L(V) + self.shift(V)
-
-    def apply_inner(self, V):
-        return self.apply_shifted(V) + self.sigma * V
 
     def residual(self, lam, X, AX):
         r = AX[:, 0] - lam[0] * X[:, 0]
@@ -463,17 +499,12 @@ def tracemin_fiedler_lanes(
         coeff_dtype = torch.float64
     c = lnorm.to(dtype)
     sigma = 32 * eps * c
-    c64 = c.double()[:, None, None]
 
     def project(V):
         return V - V.double().mean(dim=-2, keepdim=True).to(V.dtype)
 
-    def apply_shifted(V):
-        shift = (c64 * V.double().mean(dim=-2, keepdim=True)).to(V.dtype)
-        return apply_L(V) + shift
-
-    def apply_inner(V):
-        return apply_shifted(V) + sigma[:, None, None] * V
+    op = as_operator(apply_L)
+    apply_shifted, apply_inner = op.shifted(c), op.shifted(c, sigma)
 
     def rayleigh_ritz(Q, AQ):
         H = _gram(Q, AQ, coeff_dtype)

@@ -140,9 +140,7 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
             return res
     if sharded is None:
         BD = _banded.assemble_bd(bop, w)
-
-        def apply_L(V):
-            return _banded.banded_apply(bop, BD, V)
+        apply_L = _banded.BandedProduct(bop, BD)
     else:
         BD = sharded.assemble(w)
 

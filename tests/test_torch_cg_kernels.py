@@ -1,0 +1,328 @@
+"""TRACEMIN's inner CG step as the card runs it (kernels K5, K6, K1p, K7),
+through the kernels' plain versions on the CPU, against the JAX package.
+
+K5 (the banded product, mac_tpu_torch.ops.kernels.banded.banded_product)
+in its plain, inner and residual forms and with its column dots, against
+mac_tpu.ops.banded.banded_apply; the CG steps through K6's wrappers
+(mac_tpu_torch.ops.cg.pcg_fixed_steps) with the V-cycle's kernel forms
+(ops.banded.VCycle.cycle: K1p, K5's residual, K7) against
+mac_tpu.ops.cg.pcg_fixed over the JAX operator and V-cycle; one cycle
+against make_banded_precond's; K6's fixed order of a column sum (a numpy
+model, block_sum_model) against an exact float64 sum. Inputs come from
+numpy seeds and go to both packages as arrays."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mac_tpu.ops import banded as jb
+from mac_tpu.ops import cg as jcg
+from mac_tpu_torch import convert
+from mac_tpu_torch.ops import banded as tb
+from mac_tpu_torch.ops import cg as tcg
+from mac_tpu_torch.ops.kernels import banded as kb
+from mac_tpu_torch.ops.kernels import pcg as kp
+from mac_tpu_torch.ops.kernels import tridiag as k1
+
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (np.float32, jnp.float32, torch.float32, 1e-5),
+          "float64": (np.float64, jnp.float64, torch.float64, 1e-12)}
+
+
+def pose_graph(n, n_loops, span, seed=3):
+    """Odometry chain plus short-range loop closures."""
+    rng = np.random.RandomState(seed)
+    chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+    loops = set()
+    while len(loops) < n_loops:
+        i = rng.randint(0, n - 2)
+        j = min(n - 1, i + 2 + rng.randint(span))
+        if j - i > 1:
+            loops.add((i, j))
+    idx = np.concatenate([chain, np.array(sorted(loops))]).astype(np.int64)
+    return idx, 0.5 + rng.rand(len(idx)), n
+
+
+# half 1 after RCM (with the overflow split at 1500), and half 2 in the
+# original order (spans up to 200 > one block).
+GRAPHS = {"rcm600": ((600, 200, 40), True, 1),
+          "rcm1500": ((1500, 1200, 25), True, 1),
+          "wide1000": ((1000, 400, 200), False, 2)}
+
+_cache = {}
+
+
+def operators(name, dtype):
+    """(JAX operator, its BD, port operator, its BD, w, n) of a graph at
+    dtype ("float32" or "float64")."""
+    key = (name, dtype)
+    if key not in _cache:
+        (n_, loops, span), rcm, half = GRAPHS[name]
+        idx, w, n = pose_graph(n_, loops, span)
+        jbop = (jb.build_banded_rcm(idx, n)[0] if rcm
+                else jb.build_banded(idx, n))
+        assert jbop.half == half
+        npt, jdt, tdt, _ = DTYPES[dtype]
+        w = w.astype(npt)
+        jBD = jb.assemble_bd(jbop, jnp.asarray(w, jdt), fused=False)
+        tbop = convert.banded_operator(jbop)
+        tBD = tb.assemble_bd(tbop, torch.as_tensor(w, dtype=tdt))
+        _cache[key] = (jbop, jBD, tbop, tBD, w, n)
+    return _cache[key]
+
+
+def rel_err(got, ref):
+    return np.linalg.norm(got - ref) / np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name,q", [("rcm600", 4), ("rcm1500", 12),
+                                    ("wide1000", 4), ("wide1000", 12),
+                                    ("rcm600", "nc")])
+def test_k5_plain_forms_match_jax_banded_apply(name, q, dtype):
+    """K5's plain version: L V, B - L V (B centred) and the inner form,
+    with the column dots summed, against banded_apply of the JAX package
+    (and the same arithmetic in numpy around it); float64 to 1e-12,
+    float32 to 1e-5 relative in norm."""
+    jbop, jBD, tbop, tBD, w, n = operators(name, dtype)
+    npt, _, tdt, tol = DTYPES[dtype]
+    q = jbop.coarse_nc if q == "nc" else q
+    rng = np.random.RandomState(7)
+    V = rng.normal(size=(n, q)).astype(npt)
+    B = rng.normal(size=(n, q)).astype(npt)
+    ref = np.asarray(jb.banded_apply(jbop, jBD, jnp.asarray(V)))
+    tV, tB = torch.as_tensor(V), torch.as_tensor(B)
+    y, dots = kb.banded_product(tBD.ut, tBD.deg, tV, n, dot=True)
+    assert rel_err(y.numpy(), ref) < tol
+    np.testing.assert_allclose(dots.numpy(), (V.astype(np.float64) * ref)
+                               .sum(axis=0), rtol=100 * tol,
+                               atol=tol * np.abs(V * ref).sum(axis=0).max())
+    r = kb.banded_product(tBD.ut, tBD.deg, tV, n, B=tB,
+                          bsum=kp.col_sums(tB)).numpy()
+    assert rel_err(r, (B - B.mean(axis=0)) - ref) < tol
+    c, sigma = np.asarray(3.5, npt), np.asarray(1e-4, npt)
+    inner = kb.banded_product(
+        tBD.ut, tBD.deg, tV, n, vsum=kp.col_sums(tV), c=torch.as_tensor(c),
+        sigma=torch.as_tensor(sigma)).numpy()
+    want = ref + float(c) * V.astype(np.float64).mean(axis=0) + sigma * V
+    assert rel_err(inner, want) < tol
+
+
+def test_k5_plain_lanes_match_jax_per_lane():
+    """Two lanes, each its own weights and block, in one call of K5's plain
+    version, against the JAX apply per lane (float64)."""
+    jbop, _, tbop, _, w, n = operators("rcm600", "float64")
+    rng = np.random.RandomState(2)
+    ws = np.stack([w, w * (0.5 + rng.rand(len(w)))])
+    V = rng.normal(size=(2, n, 4))
+    tBD = tb.assemble_bd(tbop, torch.as_tensor(ws))
+    got, dots = kb.banded_product(tBD.ut, tBD.deg, torch.as_tensor(V), n,
+                                  dot=True)
+    for r in range(2):
+        jBD = jb.assemble_bd(jbop, jnp.asarray(ws[r]), fused=False)
+        ref = np.asarray(jb.banded_apply(jbop, jBD, jnp.asarray(V[r])))
+        assert rel_err(got[r].numpy(), ref) < 1e-12
+        np.testing.assert_allclose(dots[r].numpy(), (V[r] * ref).sum(0),
+                                   rtol=1e-10)
+
+
+def test_k5_window_branch_follows_the_reference_gate():
+    """The window means come from the stacked window up to 64 Mi entries of
+    one lane's stack, whatever the lanes, and from the cumsum past it."""
+    V = torch.zeros(10, 500)
+    assert kb.stacked_window(V, 79, 2)
+    assert kb.stacked_window(V.expand(8, 10, 500), 79, 2)
+    assert not kb.stacked_window(V, 236, 2)
+
+
+@jax.jit
+def _jax_inner_solve(jbop, w, B, X0, c, sigma, iters_arr):
+    BD = jb.assemble_bd(jbop, w, fused=False)
+    Minv = jb.make_banded_precond(jbop, BD, w=w)
+
+    def apply_inner(V):
+        return (jb.banded_apply(jbop, BD, V) + c * jnp.mean(V, axis=0)
+                + sigma * V)
+
+    return jcg.pcg_fixed(apply_inner, B, Minv, iters=iters_arr.shape[0],
+                         X0=X0)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 5])
+def test_pcg_steps_match_jax_pcg_fixed(iters):
+    """pcg_fixed through K6's plain versions, K5's inner form and the
+    V-cycle's kernel forms (K1p, K5's residual, K7), against the JAX
+    package's pcg_fixed on its banded operator and V-cycle, in float64 at
+    1e-10 relative."""
+    jbop, jBD, tbop, tBD, w, n = operators("rcm600", "float64")
+    rng = np.random.RandomState(11)
+    B = rng.normal(size=(n, 4))
+    X0 = 0.1 * rng.normal(size=(n, 4))
+    c, sigma = 2.0 * float(np.asarray(jBD.deg).max()), 1e-3
+    ref = np.asarray(_jax_inner_solve(jbop, jnp.asarray(w), jnp.asarray(B),
+                                      jnp.asarray(X0), c, sigma,
+                                      jnp.zeros(iters)))
+    tw = torch.as_tensor(w)
+    Minv = tb.make_banded_precond(tbop, tBD, w=tw)
+    assert isinstance(Minv, tb.VCycle) and Minv.k1p
+    apply_inner = tb.BandedProduct(tbop, tBD).shifted(
+        torch.tensor(c, dtype=torch.float64),
+        torch.tensor(sigma, dtype=torch.float64))
+    tX0 = torch.as_tensor(X0)
+    got = tcg.pcg_fixed_steps(apply_inner, torch.as_tensor(B), Minv,
+                              iters=iters, X0=tX0).numpy()
+    assert rel_err(got, ref) < 1e-10
+    np.testing.assert_array_equal(tX0.numpy(), X0)  # X0 is not changed
+    # ... and the plain loop (the CPU's pcg_fixed) agrees with both.
+    plain = tcg.pcg_fixed(apply_inner, torch.as_tensor(B), Minv, iters=iters,
+                          X0=tX0).numpy()
+    assert rel_err(plain, ref) < 1e-10
+
+
+@jax.jit
+def _jax_precond_apply(jbop, w, B):
+    BD = jb.assemble_bd(jbop, w, fused=False)
+    return jb.make_banded_precond(jbop, BD, w=w)(B)
+
+
+@pytest.mark.parametrize("name,dtype", [("rcm600", "float64"),
+                                        ("rcm1500", "float32")])
+def test_vcycle_kernel_forms_match_jax_precond(name, dtype):
+    """One application of the V-cycle through K1p's and K7's plain forms
+    (VCycle.cycle, centred by its column sums) against the JAX package's
+    make_banded_precond(...)(B) and the port's plain cycle: float64 to
+    1e-10, float32 to 1e-4 relative (the chain solve's scans)."""
+    jbop, jBD, tbop, tBD, w, n = operators(name, dtype)
+    npt, jdt, tdt, _ = DTYPES[dtype]
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    rng = np.random.RandomState(5)
+    B = rng.normal(size=(n, 4)).astype(npt)
+    ref = np.asarray(_jax_precond_apply(jbop, jnp.asarray(w, jdt),
+                                        jnp.asarray(B)))
+    cyc = tb.make_banded_precond(tbop, tBD, w=torch.as_tensor(w, dtype=tdt))
+    tB = torch.as_tensor(B)
+    x, xsum = cyc.cycle(tB, kp.col_sums(tB))
+    got = (x - (xsum / n).to(tdt)).numpy()
+    assert rel_err(got, ref) < tol
+    assert rel_err(cyc.plain(tB).numpy(), ref) < tol
+    assert rel_err(tb._vcycle_kernels(cyc, tB).numpy(), got) < 1e-12
+
+
+def test_vcycle_lanes_match_single_cycles():
+    """The cycle's kernel forms on two lanes (a factor and a coarse inverse
+    per lane) equal two single cycles (float64)."""
+    _, _, tbop, _, w, n = operators("rcm600", "float64")
+    rng = np.random.RandomState(3)
+    ws = torch.as_tensor(np.stack([w, w * (0.5 + rng.rand(len(w)))]))
+    BD = tb.assemble_bd(tbop, ws)
+    cyc = tb.make_banded_precond(tbop, BD, w=ws)
+    B = torch.as_tensor(rng.normal(size=(2, n, 3)))
+    x, xsum = cyc.cycle(B, kp.col_sums(B))
+    for r in range(2):
+        BDr = tb.BDRep(ut=BD.ut[r], deg=BD.deg[r])
+        one = tb.make_banded_precond(tbop, BDr, w=ws[r])
+        xr, xsr = one.cycle(B[r], kp.col_sums(B[r]))
+        np.testing.assert_allclose(x[r].numpy(), xr.numpy(), rtol=1e-12,
+                                   atol=1e-12 * xr.abs().max().item())
+        np.testing.assert_allclose(xsum[r].numpy(), xsr.numpy(), rtol=1e-10)
+
+
+def test_k1p_and_k7_plain_forms():
+    """K1p's plain form is the gathers around K1's plain solve (centring,
+    adding, column sums); K7's the cycle's restrict, product and prolong."""
+    _, _, tbop, tBD, w, n = operators("rcm600", "float64")
+    fac = tb.chain_factor(tbop, tBD, torch.as_tensor(w))
+    rng = np.random.RandomState(8)
+    B = torch.as_tensor(rng.normal(size=(n, 4)))
+    X = torch.as_tensor(rng.normal(size=(n, 4)))
+    iperm, perm = tbop.iperm, tbop.perm
+    Bc = B - B.mean(dim=0, keepdim=True)
+    want = X + k1.tridiag_solve_plain(fac.dp, fac.l, Bc[iperm])[perm]
+    got, s = k1.tridiag_solve_permuted(fac.dp, fac.l, B, iperm, perm,
+                                       bsum=kp.col_sums(B), X=X, sums=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_allclose(s.numpy(), want.sum(0).numpy(), rtol=1e-12)
+    nc, sz = tbop.coarse_nc, tbop.coarse_s
+    Lc_inv = torch.as_tensor(rng.normal(size=(nc, nc)))
+    out = kb.coarse_correct(B, X, iperm, perm, Lc_inv, sz).numpy()
+    agg = tbop.agg[:n].long().numpy()
+    rc = np.zeros((nc, 4))
+    np.add.at(rc, agg, B.numpy())
+    np.testing.assert_allclose(out, X.numpy() + (Lc_inv.numpy() @ rc)[agg],
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(1000, 4), (600, 300), (257, 1)])
+def test_k6_sum_order_model_against_exact_sum(shape):
+    """block_sum_model, the kernels' fixed order of a column sum (rows by
+    thread slots, slots in order, blocks in order), is within 1e-14 of the
+    exactly rounded float64 sum, and the plain col_sums within 1e-13 of
+    it."""
+    rng = np.random.RandomState(0)
+    A = rng.normal(size=shape).astype(np.float32)
+    model = kp.block_sum_model(A)
+    exact = np.array([math.fsum(A[:, j].astype(np.float64))
+                      for j in range(shape[1])])
+    scale = np.abs(A).sum(axis=0)
+    assert np.all(np.abs(model - exact) <= 1e-14 * scale)
+    plain = kp.col_sums(torch.as_tensor(A)).numpy()
+    assert np.all(np.abs(plain - exact) <= 1e-13 * scale)
+
+
+def test_k6_plain_passes():
+    """K6's plain passes: alpha and beta by the reference's safe division
+    (0 where the divisor is tiny), X, R, P and rz in place, the sums."""
+    rng = np.random.RandomState(1)
+    X, R, P, AP, Z = (torch.as_tensor(rng.normal(size=(2, 50, 3)))
+                      for _ in range(5))
+    X0, R0, P0 = X.clone(), R.clone(), P.clone()
+    rz = torch.as_tensor(rng.normal(size=(2, 3)))
+    pap = torch.as_tensor(rng.normal(size=(2, 3)))
+    pap[1, 2] = 0.0
+    rsum = kp.cg_update(X, R, P, AP, rz, pap, sums=True)
+    alpha = (rz / pap).unsqueeze(-2)
+    alpha[1, 0, 2] = 0.0
+    np.testing.assert_allclose(X.numpy(), (X0 + alpha * P).numpy())
+    np.testing.assert_allclose(R.numpy(), (R0 - alpha * AP).numpy())
+    np.testing.assert_allclose(rsum.numpy(), R.sum(dim=1).numpy())
+    zsum = Z.sum(dim=1)
+    rz_new = kp.col_sums(R, Z, zsum)
+    Zc = Z - Z.mean(dim=1, keepdim=True)
+    np.testing.assert_allclose(rz_new.numpy(), (R * Zc).sum(dim=1).numpy(),
+                               rtol=1e-12)
+    rz_old = rz.clone()
+    psum = kp.cg_direction(P, Z, zsum, rz, rz_new, sums=True)
+    want = Zc + (rz_new / rz_old).unsqueeze(-2) * P0
+    np.testing.assert_allclose(P.numpy(), want.numpy(), rtol=1e-12)
+    np.testing.assert_array_equal(rz.numpy(), rz_new.numpy())
+    np.testing.assert_allclose(psum.numpy(), P.sum(dim=1).numpy())
+    kp.cg_direction(P, Z, None, rz, rz_new, init=True)
+    np.testing.assert_array_equal(P.numpy(), Z.numpy())
+
+
+def test_wrappers_refuse_bad_arguments_and_count_nothing_on_cpu():
+    """On CPU tensors the wrappers run their plain versions and count no
+    launch; mismatched shapes and sums raise."""
+    wrappers = (kb.banded_product, kb.coarse_correct,
+                k1.tridiag_solve_permuted, kp.col_sums, kp.cg_update,
+                kp.cg_direction)
+    k1.reset_counts(*wrappers)
+    _, _, tbop, tBD, w, n = operators("rcm600", "float32")
+    V = torch.zeros(n, 4)
+    kb.banded_product(tBD.ut, tBD.deg, V, n)
+    kp.col_sums(V)
+    assert all(f.launches == 0 for f in wrappers)
+    with pytest.raises(ValueError):
+        kp.col_sums(V, torch.zeros(n, 3))
+    with pytest.raises(ValueError):
+        kp.cg_update(V, V, V, V, torch.zeros(4), torch.zeros(4))  # pap f32
+    with pytest.raises(ValueError):
+        kb.banded_product(tBD.ut, tBD.deg, torch.zeros(n + 1, 4), n)
+    with pytest.raises(ValueError):
+        kb.coarse_correct(V, torch.zeros(n, 3), tbop.iperm, tbop.perm,
+                          torch.zeros(3, 3), 2)

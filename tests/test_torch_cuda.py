@@ -15,7 +15,12 @@ leave its last block partial, its cluster body K4w past 32 (both storage
 forms, bitwise equal, at and past the shared-memory edge; its phase
 stamps; a replayed solve at q = 11), with
 TRACEMIN's lanes (GreedyEig's trial chunk, the budget sweep) launching it
-once a lane batch and never calling torch.linalg.eigh. Marked `cuda`;
+once a lane batch and never calling torch.linalg.eigh, and TRACEMIN's
+inner CG step's kernels: K5 (the banded product in its forms), K6 (the
+PCG update's passes and sums), K1p (K1's permuted entry, bitwise K1 on
+the gathered input) and K7 (the coarse correction) against their plain
+versions, bitwise repeatable, and a replayed city10000 inner solve in at
+most 16 device kernels a CG step. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -33,6 +38,7 @@ from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
 from mac_tpu_torch.ops.kernels.tridiag import (tridiag_solve,
                                                tridiag_solve_blocked,
                                                tridiag_solve_blocked_plain,
+                                               tridiag_solve_permuted,
                                                tridiag_solve_plain)
 from mac_tpu_torch.ops.tridiag import (tridiag_ldl, tridiag_ldl_blocked,
                                        tridiag_solve_factored_fast)
@@ -267,9 +273,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         assemble_ut(bop.dcol_tbl, wu, ov, ov, ov.float(), bop.half, bop.nb)
 
 
+def _k1_body(dtype=None):
+    """Launches of K1's body: K1, and K1p (its permuted entry, the banded
+    V-cycle's smoother), in all or of one dtype name."""
+    if dtype is None:
+        return tridiag_solve.launches + tridiag_solve_permuted.launches
+    return (tridiag_solve.launches_by_dtype.get(dtype, 0)
+            + tridiag_solve_permuted.launches_by_dtype.get(dtype, 0))
+
+
 def test_solve_on_cuda_goes_through_both_kernels(dev):
-    """A MAC solve on the card launches both kernels and returns a rounded
-    selection of k edges."""
+    """A MAC solve on the card launches both kernels (K1's body as K1p in
+    the banded V-cycle) and returns a rounded selection of k edges."""
     from mac_tpu_torch.solvers import MAC
 
     idx, w, n = _graph(1500, 1200, 25, 3)
@@ -277,9 +292,9 @@ def test_solve_on_cuda_goes_through_both_kernels(dev):
     k = len(cands[1]) // 2
     mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
               fw_polish=False, round_guard=False, device="cuda")
-    t0, a0 = tridiag_solve.launches, assemble_ut.launches
+    t0, a0 = _k1_body(), assemble_ut.launches
     rounded, unrounded, upper = mac.solve(k)
-    assert tridiag_solve.launches > t0 and assemble_ut.launches > a0
+    assert _k1_body() > t0 and assemble_ut.launches > a0
     assert rounded.sum() == k and np.isfinite(upper)
     assert np.all(np.isfinite(unrounded))
 
@@ -303,8 +318,8 @@ def test_ell_solve_on_cuda_launches_the_blocked_kernel(dev):
 
 
 def _launch_counts():
-    return (tridiag_solve.launches, tridiag_solve_blocked.launches,
-            assemble_ut.launches)
+    """(K1's body: K1 and K1p, K1b, K2/K2b) launches."""
+    return (_k1_body(), tridiag_solve_blocked.launches, assemble_ut.launches)
 
 
 def test_banded_tails_on_cuda_agree_with_the_cpu_run(dev):
@@ -522,10 +537,10 @@ def test_sweep_on_cuda_goes_through_the_lane_kernels(dev):
     ks = [m // 4, m // 2, 3 * m // 4]
     mac = MAC(fixed, cands, n, use_banded=True, dtype=torch.float32,
               device="cuda")
-    t0, a0 = tridiag_solve.launches, assemble_ut.launches
+    t0, a0 = _k1_body(), assemble_ut.launches
     rounded, unrounded, upper = mac.solve_sweep(ks)
     assert assemble_ut.launches - a0 == 32
-    assert tridiag_solve.launches > t0
+    assert _k1_body() > t0
     assert [int(r.sum()) for r in rounded] == ks
     assert np.all(np.isfinite(unrounded)) and np.all(np.isfinite(upper))
 
@@ -654,11 +669,12 @@ def test_banded_float64_and_methods_on_cuda(dev):
                   device=device)
         assert mac._banded is not None and not mac.fw_polish
         assert (mac.fiedler_tol, mac.fiedler_maxiter) == (1e-8, 200)
-        k1 = dict(tridiag_solve.launches_by_dtype)
+        k1 = dict(tridiag_solve_permuted.launches_by_dtype)
         k2 = dict(assemble_ut.launches_by_dtype)
         rounded, unrounded, upper = mac.solve(k)
         if device == "cuda":
-            for wrapper, was in ((tridiag_solve, k1), (assemble_ut, k2)):
+            for wrapper, was in ((tridiag_solve_permuted, k1),
+                                 (assemble_ut, k2)):
                 now = wrapper.launches_by_dtype
                 assert now.get("float64", 0) > was.get("float64", 0)
                 assert now.get("float32", 0) == was.get("float32", 0)
@@ -909,7 +925,7 @@ def test_precond_variants_on_cuda_match_the_cpu_call(dev, smoother, kind,
             w = torch.as_tensor(w_np, dtype=dtype, device=device)
             B = torch.as_tensor(np.random.RandomState(8).normal(size=(n, 4)),
                                 dtype=dtype, device=device)
-            before = (tridiag_solve.launches, ldl.tridiag_ldl.launches
+            before = (_k1_body(), ldl.tridiag_ldl.launches
                       + ldl.tridiag_ldl_blocked.launches)
             BD = banded.assemble_bd(bop, w)
             M = banded.make_banded_precond(
@@ -917,7 +933,7 @@ def test_precond_variants_on_cuda_match_the_cpu_call(dev, smoother, kind,
                 smoother=smoother, kind=kind)
             out[device] = M(B).cpu()
         # The card's launches (the CPU call launches none).
-        k1 = tridiag_solve.launches - before[0]
+        k1 = _k1_body() - before[0]
         k3 = (ldl.tridiag_ldl.launches + ldl.tridiag_ldl_blocked.launches
               - before[1])
         assert (k1 > 0, k3 > 0) == (smoother == "chain",) * 2, (k1, k3)
@@ -936,7 +952,7 @@ def _inner_steps(route, dev, seeds):
     seed (None: unscaled)."""
     from chip_smoke import synthetic
     from mac_tpu_torch.ops import graphs, laplacian, twogrid
-    from mac_tpu_torch.ops.lobpcg import _shift_term
+    from mac_tpu_torch.ops.lobpcg import as_operator
 
     if route == "banded":
         idx, w_np, n = _graph(1500, 1200, 25, 3)
@@ -957,9 +973,7 @@ def _inner_steps(route, dev, seeds):
             solve = graphs.banded_route(op, banded.PRECOND_KIND)
             state = graphs.banded_state(BD, st)
             lnorm = 2.0 * BD.deg.amax()
-
-            def apply_L(V, BD=BD):
-                return banded.banded_apply(op, BD, V)
+            apply_L = banded.BandedProduct(op, BD)
         else:
             w_tbl = laplacian.lap_weight_table(op, w)
             apply_L = laplacian.ell_applier(op, w_tbl)
@@ -971,10 +985,9 @@ def _inner_steps(route, dev, seeds):
         c = lnorm.to(torch.float32)
         sigma = 32 * torch.finfo(torch.float32).eps * c
         state = dict(state, c=c, sigma=sigma)
-
-        def apply_inner(V, apply_L=apply_L, c=c, sigma=sigma):
-            return apply_L(V) + _shift_term(V, c) + sigma * V
-
+        # The step's form, as ops.graphs.inner_replay builds it (K5 with
+        # the shift on the banded route).
+        apply_inner = as_operator(apply_L).shifted(c, sigma)
         out.append((solve, state, apply_inner, M))
     return n, out
 
@@ -988,12 +1001,13 @@ def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
     state lives at fresh addresses: the graph reads its static copies),
     and again for the first: one capture, three replays, and after the
     capture each replay counts the kernel launches the eager loop does
-    (K1 on the banded graph, K1b on the ELL one)."""
+    (K1p on the banded graph, K1b on the ELL one)."""
     from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.cg import pcg_fixed
 
     n, steps = _inner_steps(route, dev, (None, 2))
-    kern = tridiag_solve if route == "banded" else tridiag_solve_blocked
+    kern = (tridiag_solve_permuted if route == "banded"
+            else tridiag_solve_blocked)
     rng = np.random.RandomState(12)
     B = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
                         device=dev)
@@ -1400,3 +1414,245 @@ def test_sweep_lanes_on_cuda_launch_k4_per_lane_batch(dev):
     assert by_lanes.get(3, 0) >= 2
     assert [int(r.sum()) for r in rounded] == ks
     assert np.all(np.isfinite(unrounded))
+
+
+# TRACEMIN's inner CG step on the card: K5 (the banded product), K6 (the
+# PCG update with fixed-order column sums), K1p (K1's permuted entry) and K7
+# (the coarse correction), each against its plain version (float32 1e-5,
+# float64 1e-12 relative in norm; K1p at K1's own tolerance, and bitwise K1
+# on the gathered input), two calls bitwise equal.
+_CG_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _rel(got, ref):
+    return float(torch.linalg.vector_norm((got - ref).double())
+                 / torch.linalg.vector_norm(ref.double()))
+
+
+def _banded_case(dev, dtype, wide=False, lanes=None):
+    """(operator, BD, w) of a banded graph on the card: n 1500 after RCM
+    (half 1, the overflow split), or n 1000 in the original order (half
+    2); with lanes, a weight vector per lane."""
+    idx, w_np, n = _graph(1000, 400, 200, 3) if wide else _graph(
+        1500, 1200, 25, 3)
+    op = (banded.build_banded(idx, n) if wide
+          else banded.build_banded_rcm(idx, n)[0]).to(dev)
+    assert op.half == (2 if wide else 1)
+    rng = np.random.RandomState(5)
+    if lanes:
+        w_np = w_np * (0.5 + rng.rand(lanes, len(w_np)))
+    w = torch.as_tensor(w_np, dtype=dtype, device=dev)
+    return op, banded.assemble_bd(op, w), w
+
+
+def _twice(fn):
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wide,q,lanes", [
+    (False, 4, None), (False, 12, None), (False, 1, None), (False, 40, None),
+    (False, "nc", None), (True, 4, None), (True, 33, None), (False, 4, 2)])
+@pytest.mark.parametrize("form", ["plain", "residual", "inner"])
+def test_k5_matches_plain_and_repeats(dev, dtype, wide, q, lanes, form):
+    """K5 in each form (with the column dots in the inner one) on the
+    narrow and wide bodies, half 1 and 2, lanes, against its plain
+    version."""
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    op, BD, _ = _banded_case(dev, dtype, wide, lanes)
+    q = op.coarse_nc if q == "nc" else q
+    rng = np.random.RandomState(6)
+    lead = (lanes,) if lanes else ()
+    V = torch.as_tensor(rng.normal(size=lead + (op.n, q)), dtype=dtype,
+                        device=dev)
+    kw = {}
+    if form == "residual":
+        B = torch.as_tensor(rng.normal(size=V.shape), dtype=dtype, device=dev)
+        kw = dict(B=B, bsum=kp.col_sums(B))
+    elif form == "inner":
+        c = (2.0 * BD.deg.amax(dim=(-2, -1))).to(dtype)
+        kw = dict(vsum=kp.col_sums(V), c=c, sigma=1e-3 * c, dot=True)
+    before = kb.banded_product.launches
+    got = _twice(lambda: kb.banded_product(BD.ut, BD.deg, V, op.n, **kw))
+    assert kb.banded_product.launches == before + 2
+    ref = kb.banded_product_plain(BD.ut, BD.deg, V, op.n, **kw)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for x, y in zip(got, ref):
+        assert _rel(x, y) <= _CG_TOL[dtype], (_rel(x, y), form)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(10000, 4), (3, 2500, 12), (257, 1),
+                                   (600, 300)])
+def test_k6_passes_match_plain_and_repeat(dev, dtype, shape):
+    """K6's column sums (of A; of A M with M centred), first pass (alpha,
+    X, R and R's sums) and second (beta, P, rz and P's sums; and the first
+    step's P = Z) against their plain versions."""
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    rng = np.random.RandomState(7)
+
+    def rand(*s, dt=dtype):
+        return torch.as_tensor(rng.normal(size=s), dtype=dt, device=dev)
+
+    A, M, X0, R0, P0, AP, Z = (rand(*shape) for _ in range(7))
+    qs = shape[:-2] + shape[-1:]
+    rz0, pap = rand(*qs), rand(*qs, dt=torch.float64)
+    msum = kp.col_sums(M)
+    tol = _CG_TOL[dtype]
+    for kern, plain in ((lambda: kp.col_sums(A),
+                         lambda: kp.col_sums_plain(A)),
+                        (lambda: kp.col_sums(A, M, msum),
+                         lambda: kp.col_sums_plain(A, M, msum))):
+        got = _twice(kern)[0]
+        assert _rel(got, plain()) <= tol
+    for init in (False, True):
+        outs = []
+        for fn in ((kp.cg_update, kp.cg_direction),
+                   (kp.cg_update_plain, kp.cg_direction_plain)):
+            X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
+            rs = fn[0](X, R, P, AP, rz, pap, sums=True)
+            ps = fn[1](P, Z, msum, rz, kp.col_sums_plain(R, Z, msum),
+                       init=init, sums=True)
+            outs.append((X, R, rs, P, rz, ps))
+        for x, y in zip(*outs):
+            assert _rel(x, y) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,q,lanes", [(1500, 4, None), (1500, 4, 3),
+                                       (33000, 40, None), (1500, 130, None)])
+def test_k1p_is_k1_on_the_gathered_input(dev, dtype, n, q, lanes):
+    """K1p, centring by B's sums, storing through the permutation, then
+    adding into X with its column sums: bitwise K1 on the gathered,
+    centred input scattered back, and within 1e-5 (float32) or 1e-12
+    (float64) of the plain version (the tiled branch at (33000, 40),
+    column groups at q 130)."""
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels.tridiag import (
+        tridiag_solve_permuted_plain)
+
+    d, e, rng = _chain(n, 21, dev)
+    d, e = d.to(dtype), e.to(dtype)
+    if lanes:
+        d = d * torch.as_tensor(1.0 + rng.rand(lanes, 1), dtype=dtype,
+                                device=dev)
+        e = e.expand(lanes, -1).contiguous()
+    f = tridiag_ldl(d, e)
+    lead = (lanes,) if lanes else ()
+    perm = torch.as_tensor(rng.permutation(n), dtype=torch.int32,
+                           device=dev)
+    iperm = torch.empty_like(perm)
+    iperm[perm.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    B = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+                        device=dev)
+    X0 = torch.as_tensor(rng.normal(size=B.shape), dtype=dtype, device=dev)
+    bsum = kp.col_sums(B)
+    x = _twice(lambda: tridiag_solve_permuted(f.dp, f.l, B, iperm, perm,
+                                              bsum=bsum))[0]
+    m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
+    twin = tridiag_solve(f.dp, f.l, (B[..., iperm.long(), :] - m)
+                         .contiguous())[..., perm.long(), :]
+    assert torch.equal(x, twin)
+    tol = _CG_TOL[dtype]
+    ref = tridiag_solve_permuted_plain(f.dp, f.l, B, iperm, perm, bsum=bsum)
+    assert _rel(x, ref) <= tol
+    X = X0.clone()
+    got, s = tridiag_solve_permuted(f.dp, f.l, B, iperm, perm, X=X,
+                                    sums=True)
+    assert got is X
+    want, s_ref = tridiag_solve_permuted_plain(f.dp, f.l, B, iperm, perm,
+                                               X=X0, sums=True)
+    assert _rel(got, want) <= tol and _rel(s, s_ref) <= tol
+    X = X0.clone()
+    again = tridiag_solve_permuted(f.dp, f.l, B, iperm, perm, X=X, sums=True)
+    assert torch.equal(again[0], got) and torch.equal(again[1], s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes,q", [(None, 4), (2, 4), (None, 40)])
+def test_k7_matches_plain_and_repeats(dev, dtype, lanes, q):
+    """K7 (restrict, the coarse product, the prolong-add into x, two
+    launches) on a banded operator's aggregates against its plain
+    version, with a coarse inverse per lane."""
+    from mac_tpu_torch.ops.kernels import banded as kb
+
+    op, BD, w = _banded_case(dev, dtype, lanes=lanes)
+    M = banded.make_banded_precond(op, BD, w=w)
+    lead = (lanes,) if lanes else ()
+    rng = np.random.RandomState(9)
+    r = torch.as_tensor(rng.normal(size=lead + (op.n, q)), dtype=dtype,
+                        device=dev)
+    x0 = torch.as_tensor(rng.normal(size=r.shape), dtype=dtype, device=dev)
+    got = _twice(lambda: kb.coarse_correct(r, x0.clone(), op.iperm, op.perm,
+                                           M.Lc_inv, op.coarse_s))[0]
+    ref = kb.coarse_correct_plain(r, x0, op.iperm, op.perm, M.Lc_inv,
+                                  op.coarse_s)
+    assert _rel(got, ref) <= _CG_TOL[dtype]
+
+
+def test_cg_kernels_refuse_what_they_do_not_take(dev):
+    """A wrong dtype, a non-contiguous block or mixed devices raise; none
+    falls back to a plain version."""
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    op, BD, _ = _banded_case(dev, torch.float32)
+    V = torch.zeros(op.n, 4, device=dev)
+    with pytest.raises(TypeError):
+        kb.banded_product(BD.ut, BD.deg, V.double(), op.n)
+    with pytest.raises(ValueError):
+        kb.banded_product(BD.ut, BD.deg, V.cpu(), op.n)
+    with pytest.raises(ValueError):
+        kp.col_sums(torch.zeros(4, op.n, device=dev).T)
+    with pytest.raises(TypeError):
+        kp.col_sums(V.half())
+    with pytest.raises(ValueError):
+        tridiag_solve_permuted(V[:, 0], V[:, 0], V, op.iperm.long(), op.perm)
+
+
+def test_city_shaped_inner_solve_replays_in_few_kernels(dev):
+    """A replayed inner solve (graphs.inner_replay) on city10000's banded
+    operator at its start weights: bitwise the eager kernel loop (K5's
+    inner form, K6, the V-cycle's K1p, K5 and K7), within 1e-4 relative of
+    the plain PyTorch loop (pcg_fixed_plain over the plain cycle), and one
+    CG step of at most 16 device kernels (6 steps less 5, profiled)."""
+    from chip_smoke import dataset_inputs, device_items
+    from mac_tpu_torch.ops import graphs
+    from mac_tpu_torch.ops.cg import pcg_fixed, pcg_fixed_plain
+
+    _, n, _, _, _, _, bop, w, _, _, _ = dataset_inputs(dev)
+    route = graphs.banded_route(bop, banded.PRECOND_KIND)
+    BD = banded.assemble_bd(bop, w)
+    M, st = banded.make_banded_precond(bop, BD, w=w, return_state=True)
+    c = 2.0 * BD.deg.amax()
+    sigma = 32 * torch.finfo(torch.float32).eps * c
+    state = dict(graphs.banded_state(BD, st), c=c, sigma=sigma)
+    rng = np.random.RandomState(13)
+    B = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
+                        device=dev)
+    X0 = 0.1 * B
+    inner = banded.BandedProduct(bop, BD).shifted(c, sigma)
+    eager = pcg_fixed(inner, B, M, iters=5, X0=X0)
+    got = graphs.inner_replay(route, state, B, X0, 5)
+    assert torch.equal(got, eager)
+    from mac_tpu_torch.ops.kernels.banded import banded_product_plain
+
+    plain = pcg_fixed_plain(
+        lambda V: banded_product_plain(BD.ut, BD.deg, V, n, c=c,
+                                       sigma=sigma), B, M.plain, iters=5,
+        X0=X0)
+    assert _rel(got, plain) <= 1e-4
+    kernels = []
+    for iters in (5, 6):
+        graphs.inner_replay(route, state, B, X0, iters)
+        torch.cuda.synchronize()
+        kernels.append(device_items(
+            lambda: graphs.inner_replay(route, state, B, X0, iters))[1])
+    assert 0 < kernels[1] - kernels[0] <= 16, kernels
