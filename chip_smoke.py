@@ -111,9 +111,11 @@ its wall time printed:
      (96, 96) in both types;
   3f. TRACEMIN's inner CG step's kernels against their plain versions
      (cg_kernels): K5 banded_product (the inner form with its dots at
-     city10000's (10000, 4), the residual and plain forms, (10000, 12),
-     the coarse assembly's (10000, 500), sphere2500's (2500, 4), 8 lanes,
-     float64; library: torch.sparse.mm of L(w) as BSR), K6 (col_sums,
+     city10000's (10000, 4) and the q = 11 CG step's (10000, 11), the
+     residual and plain forms, (10000, 12) and the q = 11 outer
+     iteration's (10000, 33), the coarse assembly's (10000, 500) in
+     float32 and float64, sphere2500's (2500, 4), 8 lanes, float64;
+     library: torch.sparse.mm of L(w) as BSR), K6 (col_sums,
      cg_update, cg_direction; float32, float64, 8 lanes; library for the
      sums: torch.linalg.vecdot), K1p tridiag_solve_permuted (bitwise K1
      on the gathered, centred input; the add form with its sums; 8 lanes;
@@ -356,12 +358,15 @@ BUNDLED = {
     "sphere2500": (0.23430047503258467, "float32", "device", True, -1e-3),
     "ais2klinik": (5.2958016833414765e-05, "float64", "host", False, -1e-6),
 }
-# NVIDIA H100 SXM published peaks: HBM bytes/s and float32 and float64
-# (non-tensor-core) FLOP/s; bound_ms is the larger of bytes / rate and
-# operations / rate.
+# NVIDIA H100 SXM published peaks: HBM bytes/s, float32 and float64
+# (non-tensor-core) FLOP/s, and the tensor cores' dense TF32 and float64
+# (DMMA) FLOP/s; bound_ms is the larger of bytes / rate and operations /
+# rate, at the rate of the unit the kernel's body runs on.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 H100_F64_FLOPS = 34e12
+H100_TF32_TC_FLOPS = 495e12
+H100_F64_TC_FLOPS = 67e12
 # Phase 10: the float64 kernels against their plain versions.
 F64_TOL = 1e-10
 # Phase 10b: the banded float64 solves' relaxed gap floor.
@@ -369,12 +374,13 @@ GAP_FLOOR_F64 = -1e-4
 # Phase 3d: K3 (exact factor) in float64 against the extended-precision
 # referee (pivot_referee), relative.
 F64_FACTOR_RTOL = 1e-13
-# Phase 4: city10000's relaxed gap as printed since K5, K6, K1p and K7 took
-# TRACEMIN's inner CG step (+1.182e-03 before, with K4 on the Rayleigh-Ritz
-# eigensolves): every kernel on the path is deterministic, so the gap
-# cannot move unless the arithmetic does; and its floor, the tuned
-# operating point's.
-CITY_GAP_DIGITS = "+1.064e-03"
+# Phase 4: city10000's relaxed gap as printed since K5's redesign (the
+# coarse assembly on the tensor cores in 3xTF32, the CG step's products in
+# another order; +1.064e-03 with the first K5, K6, K1p and K7, +1.182e-03
+# before them with K4 on the Rayleigh-Ritz eigensolves): every kernel on
+# the path is deterministic, so the gap cannot move unless the arithmetic
+# does; and its floor, the tuned operating point's.
+CITY_GAP_DIGITS = "+1.122e-03"
 CITY_GAP_FLOOR = -1e-4
 # Phase 13: host launch calls a profiled warm solve may make, replayed.
 HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
@@ -467,10 +473,12 @@ def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
          "holds behind the spin)")
 
 
-def bound(nbytes: float, flops: float, itemsize: int = 4):
+def bound(nbytes: float, flops: float, itemsize: int = 4, rate=None):
     """(least milliseconds on the card, what bounds it); the operations at
-    the float32 (itemsize 4) or float64 (8) peak."""
-    rate = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
+    `rate` FLOP/s, by default the float32 (itemsize 4) or float64 (8)
+    peak outside the tensor cores."""
+    if rate is None:
+        rate = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
     tb, to = nbytes / H100_BYTES_PER_S, flops / rate
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
@@ -1689,7 +1697,7 @@ def bsr_library(bop, BD, V):
 
 
 def cg_case(label, card, kern, plain, nbytes, flops, itemsize, tol,
-            library=None, fresh=None, same_as=None):
+            library=None, fresh=None, same_as=None, rate=None):
     """One kernel case of phase 3f: kern() twice (its outputs bitwise
     equal), plain() once on the same inputs (relative error in norm within
     tol, and max |kern - plain|), same_as() (if given) bitwise kern's; then
@@ -1719,7 +1727,7 @@ def cg_case(label, card, kern, plain, nbytes, flops, itemsize, tol,
           "plain_ms": call_ms(plain), "max_abs_err": abs_err,
           "rel_err": err, "bitwise_repeat": same,
           "library_ms": None if library is None else device_ms(library)}
-    tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, itemsize)
+    tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, itemsize, rate)
     print(f"3f {label}: kernel device {tm['device_ms']:.5f} ms, call "
           f"{tm['call_ms']:.4f} ms, plain call {tm['plain_ms']:.4f} ms, "
           f"library {tm['library_ms']}, bound {tm['bound_ms']:.5f} ms "
@@ -1732,34 +1740,13 @@ def cg_case(label, card, kern, plain, nbytes, flops, itemsize, tol,
     return tm
 
 
-def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
-    """Phase 3f: K5 (banded_product: the CG step's inner form with its
-    dots at city10000's (10000, 4), the V-cycle's residual form, the outer
-    iteration's (10000, 12), the coarse assembly's nc = 500 columns,
-    sphere2500's (2500, 4), 8 lanes (8, 10000, 4), float64), K6 (col_sums,
-    cg_update, cg_direction; float32, float64, 8 lanes), K1p
-    (tridiag_solve_permuted: the cycle's first smoothing with its
-    centring, the second adding into x with its column sums, 8 lanes,
-    float64, and the tiled branch at (32768, 16) float64) and K7
-    (coarse_correct; float32, float64, 8 lanes) against their plain
-    versions on the card: two calls bitwise equal, the error, device /
-    call / plain / bound / library times. Returns {key: timing dict with
-    "name", "shape", "source", "replaces"}."""
-    import numpy as np
+def cg_inputs(dev, bop, w, bop_sp, w_sp, rng):
+    """Phase 3f's operators: {"float32", "float64": city10000's (BD, the
+    V-cycle M) at the start weights, "lanes": at 8 scaled weights (drawn
+    from rng), "sphere": sphere2500's}."""
     import torch
 
     from mac_tpu_torch.ops import banded
-    from mac_tpu_torch.ops.kernels import banded as kb
-    from mac_tpu_torch.ops.kernels import pcg as kp
-    from mac_tpu_torch.ops.kernels import tridiag as k1
-
-    out = {}
-    rng = np.random.RandomState(18)
-    BS = banded.BS
-
-    def rand(*shape, dtype=torch.float32):
-        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
-                               device=dev)
 
     def setup(op, ws, dtype):
         BD = banded.assemble_bd(op, ws.to(dtype))
@@ -1771,20 +1758,44 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
     ws8 = torch.stack([w * float(0.5 + rng.rand()) for _ in range(8)])
     bds["lanes"] = setup(bop, ws8, torch.float32)
     bds["sphere"] = setup(bop_sp, w_sp, torch.float32)
-    src5 = "mac_tpu_torch/csrc/banded.cu"
-    rep5 = "mac_tpu/ops/banded.py:466 (banded_apply; not Pallas)"
+    return bds
 
-    def k5(key, label, op, BD, q, form, lanes=None):
+
+def k5_cases(dev, bop, bop_sp, bds, rng):
+    """Phase 3f's K5 cases (banded_product on the main paths' shapes):
+    [(key, label, kernel(), plain(), bytes, operations, itemsize,
+    tolerance, library() or None, FLOP/s of the body's unit or None)]; V
+    (and B) drawn from rng, the cases since the redesign from a
+    RandomState of their own, so that the earlier cases' inputs stay as
+    they were. The bytes read once and written once (ut, deg, V, B, out),
+    the operations 2 q (2 half + 1) BS^2 per block row and lane; the
+    unit's rate for the wide body (q > K5_NARROW_MAX_Q) the tensor cores':
+    float32 as 3xTF32, three products at the TF32 peak, float64 on DMMA
+    (None, the SIMT peak, for the narrow body); the library call
+    torch.sparse.mm of L(w) as BSR for the plain form without lanes."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.banded import BS
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    cases = []
+    rng19 = np.random.RandomState(19)
+
+    def k5(key, label, op, BD, q, form, lanes=None, r=rng):
         dtype = BD.ut.dtype
         n = op.n
-        V = rand(*((lanes,) if lanes else ()), n, q, dtype=dtype)
+        V = torch.as_tensor(r.normal(size=((lanes,) if lanes else ())
+                                     + (n, q)), dtype=dtype, device=dev)
         kw = {}
         if form == "inner":
             c = (2.0 * BD.deg.amax(dim=(-2, -1))).to(dtype)
             kw = dict(vsum=kp.col_sums(V), c=c,
                       sigma=32 * torch.finfo(dtype).eps * c, dot=True)
         elif form == "residual":
-            B = rand(*V.shape, dtype=dtype)
+            B = torch.as_tensor(r.normal(size=V.shape), dtype=dtype,
+                                device=dev)
             kw = dict(B=B, bsum=kp.col_sums(B))
         ut, deg = BD.ut, BD.deg
         it = V.element_size()
@@ -1794,18 +1805,18 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
         flops = 2.0 * q * (2 * op.half + 1) * op.nb * BS * BS * ln
         lib = (bsr_library(op, BD, V) if lanes is None and form == "plain"
                else None)
-        tm = cg_case(f"K5 {label}", card,
-                     lambda: kb.banded_product(ut, deg, V, n, **kw),
-                     lambda: kb.banded_product_plain(ut, deg, V, n, **kw),
-                     nbytes, flops, it, CG_TOL[str(dtype).split(".")[-1]],
-                     library=lib)
-        out[key] = dict(tm, name="banded_product", shape=label,
-                        source=src5, replaces=rep5)
+        rate = None
+        if q > kb.K5_NARROW_MAX_Q:
+            rate = H100_TF32_TC_FLOPS / 3 if it == 4 else H100_F64_TC_FLOPS
+        cases.append((key, label,
+                      lambda: kb.banded_product(ut, deg, V, n, **kw),
+                      lambda: kb.banded_product_plain(ut, deg, V, n, **kw),
+                      nbytes, flops, it, CG_TOL[str(dtype).split(".")[-1]],
+                      lib, rate))
 
-    BD32, M32 = bds["float32"]
-    BD64, M64 = bds["float64"]
-    BD8, M8 = bds["lanes"]
-    BDsp, _ = bds["sphere"]
+    BD32, BD64 = bds["float32"][0], bds["float64"][0]
+    BD8, BDsp = bds["lanes"][0], bds["sphere"][0]
+    nc = bop.coarse_nc
     k5("K5", "(10000, 4) inner form with the dots, the CG step's A P", bop,
        BD32, 4, "inner")
     k5("K5_residual", "(10000, 4) residual form, the V-cycle's", bop, BD32,
@@ -1814,8 +1825,8 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
        4, "plain")
     k5("K5_12", "(10000, 12) plain form, the outer iteration's A Q", bop,
        BD32, 12, "plain")
-    k5("K5_nc", f"(10000, {bop.coarse_nc}) plain form, the coarse "
-       "assembly's L R", bop, BD32, bop.coarse_nc, "plain")
+    k5("K5_nc", f"(10000, {nc}) plain form, the coarse assembly's L R", bop,
+       BD32, nc, "plain")
     k5("K5_sphere", "sphere2500 (2500, 4) inner form with the dots", bop_sp,
        BDsp, 4, "inner")
     k5("K5_lanes", "(8, 10000, 4) inner form with the dots, 8 lanes", bop,
@@ -1824,6 +1835,54 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
        4, "inner")
     k5("K5_f64_plain", "(10000, 4) plain form, float64 (library: BSR)", bop,
        BD64, 4, "plain")
+    k5("K5_nc_f64", f"(10000, {nc}) plain form, float64, the banded float64 "
+       "route's coarse assembly (library: BSR)", bop, BD64, nc, "plain",
+       r=rng19)
+    k5("K5_11", "(10000, 11) inner form with the dots, the q = 11 CG step's "
+       "A P", bop, BD32, 11, "inner", r=rng19)
+    k5("K5_33", "(10000, 33) plain form, the q = 11 outer iteration's A Q "
+       "(library: BSR)", bop, BD32, 33, "plain", r=rng19)
+    return cases
+
+
+def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
+    """Phase 3f: K5 (banded_product, k5_cases: the CG step's inner form
+    with its dots at city10000's (10000, 4) and the q = 11 step's (10000,
+    11), the V-cycle's residual form, the outer iteration's (10000, 12)
+    and (10000, 33), the coarse assembly's nc = 500 columns in float32 and
+    float64, sphere2500's (2500, 4), 8 lanes (8, 10000, 4), float64), K6
+    (col_sums, cg_update, cg_direction; float32, float64, 8 lanes), K1p
+    (tridiag_solve_permuted: the cycle's first smoothing with its
+    centring, the second adding into x with its column sums, 8 lanes,
+    float64, and the tiled branch at (32768, 16) float64) and K7
+    (coarse_correct; float32, float64, 8 lanes) against their plain
+    versions on the card: two calls bitwise equal, the error, device /
+    call / plain / bound / library times. Returns {key: timing dict with
+    "name", "shape", "source", "replaces"}."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels import tridiag as k1
+
+    out = {}
+    rng = np.random.RandomState(18)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    bds = cg_inputs(dev, bop, w, bop_sp, w_sp, rng)
+    src5 = "mac_tpu_torch/csrc/banded.cu"
+    rep5 = "mac_tpu/ops/banded.py:466 (banded_apply; not Pallas)"
+    for (key, label, kern, plain, nbytes, flops, it, tol, lib,
+         rate) in k5_cases(dev, bop, bop_sp, bds, rng):
+        tm = cg_case(f"K5 {label}", card, kern, plain, nbytes, flops, it,
+                     tol, library=lib, rate=rate)
+        out[key] = dict(tm, name="banded_product", shape=label, source=src5,
+                        replaces=rep5)
+    M32, M64, M8 = bds["float32"][1], bds["float64"][1], bds["lanes"][1]
 
     # K6 at the CG step's shapes.
     rep6 = "mac_tpu/ops/cg.py:52 (pcg_fixed's loop body; not Pallas)"
@@ -2225,8 +2284,9 @@ def wide_block(card, dataset, counted, warm_q4):
     operator (phase 10b's knobs, max_iters=20), one cold and one warm
     solve: K4w in float64, no float32 launch, the relaxed gap at least
     GAP_FLOOR_F64. Returns (the city10000 MAC, {"city10000": K4's
-    launches by body in (a)'s warm solves, "sphere2500 float64": in (b)'s
-    two})."""
+    launches by body in (a)'s warm solves, "city10000 launches": each
+    counted wrapper's launches there, "sphere2500 float64": K4's by body in
+    (b)'s two})."""
     import numpy as np
     import torch
 
@@ -2261,7 +2321,8 @@ def wide_block(card, dataset, counted, warm_q4):
         stats.append(graph_stats(mac11._banded))
         if eigh.calls:
             fail(f"4b: torch.linalg.eigh called {eigh.calls} times")
-    got = {kern.__name__: kern.launches for kern in counted}
+    got = out["city10000 launches"] = {kern.__name__: kern.launches
+                                       for kern in counted}
     bodies = out["city10000"] = dict(k4.launches_by_body)
     graph_lines(card, "4b city10000 q = 11", stats)
     lam = scipy_lam2(mac11.laplacian(unrounded))
@@ -4951,7 +5012,9 @@ def main():
     # K5, K6, K1p and K7 (phase 3f): "launches" those of the wrapper on the
     # path "launches_path" names (every shape of a wrapper on it): phase 4's
     # four city10000 solves (float32), phase 10b's banded float64 solves,
-    # phase 8a's sweep (8 lanes), phase 6's four sphere2500 solves.
+    # phase 8a's sweep (8 lanes), phase 6's four sphere2500 solves, phase
+    # 4b's three warm city10000 solves at q = 11 (K5's (10000, 11) and
+    # (10000, 33)).
     def cg_entry(key, count, path):
         tm = cg_tm[key]
         return {"name": tm["name"], "route": "cuda", "source": tm["source"],
@@ -4978,6 +5041,10 @@ def main():
                                     "phase 8a (8 lanes)"))
         elif key.endswith("_sphere"):
             cg_line.append(cg_entry(key, sphere[kern], "phase 6 sphere2500"))
+        elif key in ("K5_11", "K5_33"):
+            cg_line.append(cg_entry(
+                key, k4w_launches["city10000 launches"][kern],
+                "phase 4b city10000 q = 11 (3 warm solves)"))
         else:
             cg_line.append(cg_entry(key, launches[kern], p4))
     kernels += cg_line

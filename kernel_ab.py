@@ -5,12 +5,13 @@ in one process on one NVIDIA GPU.
     mkdir -p build/ab_old
     git show <commit>:mac_tpu_torch/csrc/tridiag.cu > build/ab_old/tridiag.cu
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
-    python3 kernel_ab.py [--kernels-only | --syev-only] build/ab_old \
-        [VARIANT_DIR ...]
+    python3 kernel_ab.py [--kernels-only | --syev-only | --banded-only] \
+        build/ab_old [VARIANT_DIR ...]
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
 them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
-the Rayleigh-Ritz eigensolver K4 likewise with the older syev.cu).
+the Rayleigh-Ritz eigensolver K4 likewise with the older syev.cu, the
+banded product K5 with the older banded.cu).
 
 The older sources must export the same C functions. Both versions are
 built at once (one nvcc a source) with the package's nvcc flags and loaded
@@ -61,7 +62,17 @@ In turns old, new, new, old, at the main paths' shapes (chip_smoke.py's):
      (the three-pass K4w of commit 9f43cf3, stamped); each build's
      registers, stack frame and spills per K4 and K4w instantiation are
      printed at the build. With
-     --syev-only only syev.cu is built (old and new) and only this runs;
+     --syev-only only syev.cu is built (old and new) and only this runs.
+     Where the older directory holds banded.cu, K5 banded_product at every
+     shape of chip_smoke.py's phase 3f (chip_smoke.k5_cases, the same
+     inputs): each version's two calls bitwise equal and its error
+     against the plain version, device and call times in turns, the
+     bound and the BSR torch.sparse.mm yardstick, old / new per shape
+     (the older kernel's dot partials fit the current wrapper's scratch
+     in its narrow body, and phase 3f's wide cases take no dots), then
+     at (10000, 4) (inner and plain) and float64 plain each version's
+     time after a 64 MB memset that leaves ut out of L2; with
+     --banded-only only banded.cu is built and only this runs;
   2. K1's error against a float64 solve of city10000's chain factor, and
      K1b's against a float64 blocked solve of the n = 100000 chain factor,
      for the old and new kernels and the plain version in float32;
@@ -90,7 +101,11 @@ tuning constant edited, a part of the kernel taken out to see what it
 costs): its K1b is timed after the turns of part 1 and its error printed in
 part 2, and nothing else runs on it; a variant that disagrees with the
 plain version is marked and timed all the same. --kernels-only stops after
-part 2.
+part 2. With --banded-only each VARIANT_DIR holds another banded.cu
+instead, timed at every K5 shape after that shape's turns (the read-once
+narrow bodies of ab_fixtures/k5_read_once_tma and
+ab_fixtures/k5_read_once_cp_async take a scratch of terms, which this
+script hands them).
 Every timing line names the card and its power limit.
 """
 
@@ -141,9 +156,9 @@ def build_one(src_dir: Path, tag: str, name: str):
     return out, proc.stderr
 
 
-def build_all(old_dir: Path, names, variant_dirs):
+def build_all(old_dir: Path, names, variant_dirs, vname="tridiag"):
     """The older sources' libraries, the current ones (_build.build) and
-    each variant's tridiag.cu, one nvcc each, all at once; {version: {name:
+    each variant's <vname>.cu, one nvcc each, all at once; {version: {name:
     library}}, each build's report printed."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -154,11 +169,11 @@ def build_all(old_dir: Path, names, variant_dirs):
                for name in names}
         new = {name: pool.submit(_build.build, name) for name in names}
         var = {f"variant {Path(d).name}": pool.submit(
-            build_one, Path(d), f"variant-{Path(d).name}", "tridiag")
+            build_one, Path(d), f"variant-{Path(d).name}", vname)
             for d in variant_dirs}
         libs = {"old": {name: f.result()[0] for name, f in old.items()},
                 "new": {name: f.result() for name, f in new.items()}}
-        libs.update({tag: {"tridiag": f.result()[0]}
+        libs.update({tag: {vname: f.result()[0]}
                      for tag, f in var.items()})
     for name, f in old.items():
         print_ptxas("old", name, f.result()[1])
@@ -167,7 +182,7 @@ def build_all(old_dir: Path, names, variant_dirs):
     for name in names:
         print_ptxas("new", name, _build.ptxas_log(name))
     for tag, f in var.items():
-        print_ptxas(tag, "tridiag", f.result()[1])
+        print_ptxas(tag, vname, f.result()[1])
     return libs
 
 
@@ -359,6 +374,122 @@ def k4_ab(use, card, bop, w, dev):
           + " (the shared-memory form: 0-byte stack, no spills)", flush=True)
 
 
+def use_banded_variant(path: Path, src: Path) -> None:
+    """Load the library at `path`, built from the variant banded.cu `src`,
+    behind the current K5 and K7 wrappers. A variant whose
+    banded_product_* takes a scratch of terms after the ticket (the
+    read-once narrow bodies in ab_fixtures/: lanes * nb * (2 half + 2) *
+    split * 128 * q values, split at most 8, for q <= 16) is called
+    through an adapter that hands it that scratch, allocated here at the
+    first call of each size."""
+    import ctypes
+
+    import torch
+
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import banded as kb
+
+    if "T* terms" not in src.read_text():
+        _build.load("banded", kb._SIGNATURES, path)
+        return
+    sigs = {fn: (types[:19] + [ctypes.c_void_p] + types[19:]
+                 if fn.startswith("banded_product_") else types)
+            for fn, types in kb._SIGNATURES.items()}
+    lib = _build.load("banded", sigs, path)
+    scratch = {}
+    for fn in sigs:
+        if not fn.startswith("banded_product_"):
+            continue
+        itemsize = 4 if fn.endswith("f32") else 8
+
+        def call(*args, raw=getattr(lib, fn), itemsize=itemsize):
+            n, q, nb, half, lanes = args[19:24]
+            size = lanes * nb * (2 * half + 2) * 8 * 128 * q * itemsize
+            ptr = 0
+            if q <= kb.K5_NARROW_MAX_Q:
+                if size not in scratch:
+                    scratch[size] = torch.empty(size, dtype=torch.uint8,
+                                                device="cuda")
+                ptr = scratch[size].data_ptr()
+            return raw(*args[:19], ptr, *args[19:])
+
+        _build._functions[("banded", fn)] = call
+
+
+def k5_ab(use, card, dev, bop, w, variants):
+    """K5 (banded_product) old against new in turns at every phase-3f K5
+    shape (chip_smoke.k5_cases, their inputs drawn as phase 3f draws
+    them): each version's two calls bitwise equal and within phase 3f's
+    tolerance of the plain version (a version that fails is marked, not
+    fatal, so that both are timed), device and call times, the bound and
+    the library call's device time, then old / new medians per shape;
+    each variant ({tag: (library, source)}, use_banded_variant) timed
+    after the
+    turns the same way, with its time over new's; last, three shapes with
+    ut cold in L2 (after a 64 MB memset)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import bound, cg_inputs, k5_cases, rel_norm
+
+    (_, _, _, _, _, _, bop_sp, w_sp, _, _, _) = dataset_inputs(
+        dev, "sphere2500")
+    use("new")
+    rng = np.random.RandomState(18)
+    cases = k5_cases(dev, bop, bop_sp, cg_inputs(dev, bop, w, bop_sp, w_sp,
+                                                 rng), rng)
+    times = {}
+    for _, label, kern, plain, nbytes, flops, it, tol, lib, rate in cases:
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for version in TURNS + tuple(variants):
+            if version in variants:
+                use_banded_variant(*variants[version])
+            else:
+                use(version)
+            a, b = kern(), kern()
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            err = max(rel_norm(x, y) for x, y in zip(a, ref))
+            dms, cms = device_ms(kern), call_ms(kern)
+            times.setdefault(label, {}).setdefault(version, []).append(dms)
+            print(f"{version} K5 {label}: device {dms:.5f} ms, call "
+                  f"{cms:.4f} ms; relative error {err:.3e}, two calls "
+                  f"bitwise {same}"
+                  + ("" if same and err <= tol else " (FAILS phase 3f)")
+                  + f" ({card})", flush=True)
+        use("new")
+        bms, by = bound(nbytes, flops, it, rate)
+        print(f"K5 {label}: bound {bms:.5f} ms ({by})"
+              + ("" if lib is None else
+                 f", library (BSR torch.sparse.mm) device "
+                 f"{device_ms(lib):.5f} ms") + f" ({card})", flush=True)
+    for label, by in times.items():
+        old, new = statistics.median(by["old"]), statistics.median(by["new"])
+        print(f"summary K5 {label}: device old {old:.5f} ms, new {new:.5f} "
+              f"ms, new/old {new / old:.3f}"
+              + "".join(f", {v} {by[v][0]:.5f} ms ({by[v][0] / new:.3f} of "
+                        f"new)" for v in variants)
+              + f" ({card})", flush=True)
+    # ut cold: each call after a 64 MB memset (past the 50 MB L2), the
+    # memset's own device time taken off.
+    flush = torch.empty(16 * 1024 * 1024, device=dev)
+    memset_ms = device_ms(flush.zero_, reps=50)
+    for key, label, kern, *_ in cases:
+        if key not in ("K5", "K5_plain", "K5_f64_plain"):
+            continue
+        for version in TURNS:
+            use(version)
+            warm = device_ms(kern, reps=50)
+            cold = device_ms(lambda: (flush.zero_(), kern()),
+                             reps=50) - memset_ms
+            print(f"{version} K5 {label}: device {warm:.5f} ms back to "
+                  f"back, {cold:.5f} ms after a 64 MB memset (ut out of "
+                  f"L2; the memset's {memset_ms:.5f} ms taken off) "
+                  f"({card})", flush=True)
+
+
 def ldl_report(use, card, factor_args):
     """The new build's chain probe (ns a step of K3b's pivot chain and K3's
     carry, float32 and float64 instantiations) and each factor case's phase
@@ -388,13 +519,14 @@ def main():
     import numpy as np
     import torch
 
-    flags = {"--kernels-only", "--syev-only"}
+    flags = {"--kernels-only", "--syev-only", "--banded-only"}
     argv = [a for a in sys.argv[1:] if a not in flags]
     kernels_only = "--kernels-only" in sys.argv[1:]
     syev_only = "--syev-only" in sys.argv[1:]
+    banded_only = "--banded-only" in sys.argv[1:]
     if not argv:
-        fail("usage: python3 kernel_ab.py [--kernels-only | --syev-only] "
-             "OLD_CSRC_DIR [VARIANT_DIR ...]")
+        fail("usage: python3 kernel_ab.py [--kernels-only | --syev-only | "
+             "--banded-only] OLD_CSRC_DIR [VARIANT_DIR ...]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     card = card_line()
@@ -402,6 +534,7 @@ def main():
     from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops import tridiag as ops_tridiag
     from mac_tpu_torch.ops.kernels import _build, assemble, ldl, syev, tridiag
+    from mac_tpu_torch.ops.kernels import banded as kbanded
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels.tridiag import (
         tridiag_solve, tridiag_solve_blocked, tridiag_solve_blocked_plain,
@@ -416,12 +549,19 @@ def main():
         sigs["ldl"] = ldl._SIGNATURES
     if (old_dir / "syev.cu").exists():
         sigs["syev"] = syev._SIGNATURES
+    if (old_dir / "banded.cu").exists():
+        sigs["banded"] = kbanded._SIGNATURES
     if syev_only:
         if "syev" not in sigs:
             fail(f"--syev-only: no syev.cu in {old_dir}")
         sigs = {"syev": syev._SIGNATURES}
+    if banded_only:
+        if "banded" not in sigs:
+            fail(f"--banded-only: no banded.cu in {old_dir}")
+        sigs = {"banded": kbanded._SIGNATURES}
     variants = [f"variant {Path(d).name}" for d in argv[1:]]
-    libs = build_all(old_dir, sigs, [] if syev_only else argv[1:])
+    libs = build_all(old_dir, sigs, [] if syev_only else argv[1:],
+                     "banded" if banded_only else "tridiag")
 
     def use(version):
         for name, path in libs[version].items():
@@ -432,6 +572,11 @@ def main():
      B1) = dataset_inputs(dev)
     if syev_only:
         k4_ab(use, card, bop, w, dev)
+        return
+    if banded_only:
+        k5_ab(use, card, dev, bop, w,
+              {tag: (libs[tag]["banded"], Path(d) / "banded.cu")
+               for tag, d in zip(variants, argv[1:])})
         return
     args_b = k2_args(bop, w)
     idx_s, w_s, n_s = pose_graph(700, 120, 40, 3)
@@ -562,6 +707,8 @@ def main():
         ldl_report(use, card, factor_args)
     if "syev" in sigs:
         k4_ab(use, card, bop, w, dev)
+    if "banded" in sigs:
+        k5_ab(use, card, dev, bop, w, {})
     # The wrappers of an older copy of ops/kernels/tridiag.py, on the new
     # kernels: what the host side of a call costs, before and after.
     if (old_dir / "tridiag.py").exists():

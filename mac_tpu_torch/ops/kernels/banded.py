@@ -30,6 +30,7 @@ wrappers do (K7 one count a call of its two launches).
 
 import ctypes
 
+import numpy as np
 import torch
 
 from mac_tpu_torch.ops.kernels import _build
@@ -40,6 +41,11 @@ from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
 BS = 128
 # Aggregates per block of K7 (csrc/banded.cu's kAggs).
 K7_AGGS = 16
+# K5's narrow body takes q up to this many columns (csrc/banded.cu's
+# kNarrowMaxQ) in blocks of K5_NARROW_ROWS rows (kNarrowRows); the wide
+# body in whole block rows.
+K5_NARROW_MAX_Q = 16
+K5_NARROW_ROWS = 32
 # Past this many window entries per lane (q (2 half + 1) n_pad, as the
 # reference gates it, mac_tpu/ops/banded.py:486) the window means come
 # from a cumsum of per-block sums instead of the stacked window.
@@ -123,6 +129,14 @@ def _product_plain(ut: torch.Tensor, deg: torch.Tensor,
                           utt[..., : nb - t, :, :]], dim=-3)
         out = out + torch.matmul(utsh, blocks(half - t) - cb)
     return out.reshape(*lead, nb * BS, q)[..., :n, :]
+
+
+def dot_partials(q: int, nb: int, lanes: int) -> int:
+    """The float64 partials K5's column dots need: one per block of its
+    grid and column (csrc/banded.cu: the narrow body's BS / K5_NARROW_ROWS
+    blocks a block row, the wide body's one)."""
+    return lanes * q * nb * (BS // K5_NARROW_ROWS if q <= K5_NARROW_MAX_Q
+                             else 1)
 
 
 def _per_lane(x: torch.Tensor) -> torch.Tensor:
@@ -222,7 +236,7 @@ def banded_product(ut: torch.Tensor, deg: torch.Tensor, V: torch.Tensor,
     out = torch.empty(lead + (n, q), dtype=dtype, device=dev)
     part = dots = None
     if dot:
-        part = torch.empty(lanes * q * nb * 4, dtype=torch.float64,
+        part = torch.empty(dot_partials(q, nb, lanes), dtype=torch.float64,
                            device=dev)
         dots = torch.empty(lead + (q,), dtype=torch.float64, device=dev)
     c_lane = 1 if c is not None and c.dim() == 1 else 0
@@ -235,13 +249,43 @@ def banded_product(ut: torch.Tensor, deg: torch.Tensor, V: torch.Tensor,
         _lane_stride(V, 2, lanes), out.data_ptr(), _ptr(B),
         0 if B is None else _lane_stride(B, 2, lanes), _ptr(bsum),
         _ptr(vsum), _ptr(c), c_lane, _ptr(sigma), s_lane, _ptr(cb),
-        _ptr(part), _ptr(dots),
-        _ptr(tk), n, q, nb, half, lanes)
+        _ptr(part), _ptr(dots), _ptr(tk), n, q, nb, half, lanes)
     if err != 0:
         raise RuntimeError(f"banded_product kernel launch failed: "
                            f"cudaError {err}")
     count_launch(banded_product, lanes, dtype)
     return (out, dots) if dot else out
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 rounds them."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_product_model(A: np.ndarray, B: np.ndarray,
+                        kc: int = 32) -> np.ndarray:
+    """A numpy model of the wide body's float32 product on the tensor cores
+    ("3xTF32", csrc/banded.cu): A (m, K) and B (K, p) float32 each split as
+    hi = tf32(x), lo = tf32(x - hi); per chunk of kc columns of A the
+    products lo hi + hi lo + hi hi in float32, each chunk's sum added to
+    the result in float32."""
+    A = np.asarray(A, dtype=np.float32)
+    B = np.asarray(B, dtype=np.float32)
+    Ah = tf32(A)
+    Al = tf32(A - Ah)
+    Bh = tf32(B)
+    Bl = tf32(B - Bh)
+    out = np.zeros((A.shape[0], B.shape[1]), dtype=np.float32)
+    for k0 in range(0, A.shape[1], kc):
+        k = slice(k0, k0 + kc)
+        sub = Al[:, k] @ Bh[k]
+        sub = sub + Ah[:, k] @ Bl[k]
+        sub = sub + Ah[:, k] @ Bh[k]
+        out = out + sub
+    return out
 
 
 def coarse_correct_plain(r, x, iperm, perm, Lc_inv, s):

@@ -80,20 +80,34 @@ def rel_err(got, ref):
     return np.linalg.norm(got - ref) / np.linalg.norm(ref)
 
 
+def coarse_indicator(agg, n, nc, npt):
+    """The coarse assembly's input (mac_tpu/ops/banded.py:549): the (n, nc)
+    indicator of each RCM row's aggregate."""
+    return (np.asarray(agg)[:n, None] == np.arange(nc)[None, :]).astype(npt)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("name,q", [("rcm600", 4), ("rcm1500", 12),
                                     ("wide1000", 4), ("wide1000", 12),
-                                    ("rcm600", "nc")])
+                                    ("rcm600", "nc"), ("rcm1500", 11),
+                                    ("wide1000", 11), ("rcm1500", 33),
+                                    ("wide1000", 33), ("rcm600", "rmat"),
+                                    ("wide1000", "rmat")])
 def test_k5_plain_forms_match_jax_banded_apply(name, q, dtype):
     """K5's plain version: L V, B - L V (B centred) and the inner form,
     with the column dots summed, against banded_apply of the JAX package
     (and the same arithmetic in numpy around it); float64 to 1e-12,
-    float32 to 1e-5 relative in norm."""
+    float32 to 1e-5 relative in norm. V random, or ("rmat") the coarse
+    assembly's own input, the aggregates' indicator."""
     jbop, jBD, tbop, tBD, w, n = operators(name, dtype)
     npt, _, tdt, tol = DTYPES[dtype]
-    q = jbop.coarse_nc if q == "nc" else q
     rng = np.random.RandomState(7)
-    V = rng.normal(size=(n, q)).astype(npt)
+    if q == "rmat":
+        V = coarse_indicator(jbop.agg, n, jbop.coarse_nc, npt)
+        q = V.shape[1]
+    else:
+        q = jbop.coarse_nc if q == "nc" else q
+        V = rng.normal(size=(n, q)).astype(npt)
     B = rng.normal(size=(n, q)).astype(npt)
     ref = np.asarray(jb.banded_apply(jbop, jBD, jnp.asarray(V)))
     tV, tB = torch.as_tensor(V), torch.as_tensor(B)
@@ -111,6 +125,48 @@ def test_k5_plain_forms_match_jax_banded_apply(name, q, dtype):
         sigma=torch.as_tensor(sigma)).numpy()
     want = ref + float(c) * V.astype(np.float64).mean(axis=0) + sigma * V
     assert rel_err(inner, want) < tol
+
+
+def test_k5_split_product_model_holds_the_coarse_assembly_to_1e_5():
+    """The wide body's float32 arithmetic (kb.split_product_model: each
+    operand split into two TF32 parts, three products a 32-column chunk,
+    the chunks added in float32) at the coarse assembly's shape: a
+    10000-node banded graph (half 2, 79 block rows), nc = 500 aggregates,
+    V the aggregates' indicator centred by each block row's window means;
+    every block row's 2 half + 2 terms as one product of K = 768, against
+    the float64 product of the same float32 operands, within the 1e-5
+    relative in norm that the card holds the kernel to. One TF32 product
+    (hi hi alone, 10 bits of ut) misses it."""
+    idx, w, n = pose_graph(10000, 3000, 230, seed=5)
+    bop = tb.build_banded_rcm(idx, n)[0]
+    assert bop.half == 2 and bop.nb == 79 and bop.coarse_nc == 500
+    BD = tb.assemble_bd(bop, torch.as_tensor(w, dtype=torch.float32))
+    ut = BD.ut.numpy()
+    nb, half, nc, BS = bop.nb, bop.half, bop.coarse_nc, kb.BS
+    V = np.zeros((nb * BS, nc), dtype=np.float32)
+    V[:n] = coarse_indicator(bop.agg.numpy(), n, nc, np.float32)
+    num = den = num1 = 0.0
+    for b in range(nb):
+        lo, hi = max(0, b - half) * BS, min(nb, b + half + 1) * BS
+        cb = (V[lo:hi].astype(np.float64).sum(0)
+              / ((2 * half + 1) * BS)).astype(np.float32)
+        blocks, pieces = [], []
+        for t in range(half + 1):
+            for bv, piece in ((b + t, ut[t, b].T), (b - t, ut[t, b - t])):
+                if bv < 0:
+                    continue
+                Vb = (V[bv * BS:(bv + 1) * BS] if bv < nb
+                      else np.zeros((BS, nc), np.float32))
+                blocks.append(Vb - cb)
+                pieces.append(piece)
+        A, Bm = np.concatenate(pieces, 1), np.concatenate(blocks, 0)
+        ref = A.astype(np.float64) @ Bm.astype(np.float64)
+        got = kb.split_product_model(A, Bm)
+        num += np.sum((got - ref) ** 2)
+        num1 += np.sum((kb.tf32(A) @ kb.tf32(Bm) - ref) ** 2)
+        den += np.sum(ref ** 2)
+    assert math.sqrt(num / den) <= 1e-5
+    assert math.sqrt(num1 / den) > 1e-5
 
 
 def test_k5_plain_lanes_match_jax_per_lane():

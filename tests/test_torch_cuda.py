@@ -1456,21 +1456,30 @@ def _twice(fn):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("wide,q,lanes", [
     (False, 4, None), (False, 12, None), (False, 1, None), (False, 40, None),
-    (False, "nc", None), (True, 4, None), (True, 33, None), (False, 4, 2)])
+    (False, "nc", None), (True, 4, None), (True, 33, None), (False, 4, 2),
+    (False, 11, None), (True, 11, None), (False, 33, None),
+    (False, "rmat", None), (True, "rmat", None)])
 @pytest.mark.parametrize("form", ["plain", "residual", "inner"])
 def test_k5_matches_plain_and_repeats(dev, dtype, wide, q, lanes, form):
     """K5 in each form (with the column dots in the inner one) on the
     narrow and wide bodies, half 1 and 2, lanes, against its plain
-    version."""
+    version; V random, or ("rmat") the coarse assembly's input, the
+    aggregates' indicator."""
     from mac_tpu_torch.ops.kernels import banded as kb
     from mac_tpu_torch.ops.kernels import pcg as kp
 
     op, BD, _ = _banded_case(dev, dtype, wide, lanes)
-    q = op.coarse_nc if q == "nc" else q
     rng = np.random.RandomState(6)
     lead = (lanes,) if lanes else ()
-    V = torch.as_tensor(rng.normal(size=lead + (op.n, q)), dtype=dtype,
-                        device=dev)
+    if q == "rmat":
+        agg = op.agg[:op.n].long()
+        V = (agg[:, None] == torch.arange(op.coarse_nc, device=dev)[None, :]
+             ).to(dtype)
+        q = op.coarse_nc
+    else:
+        q = op.coarse_nc if q == "nc" else q
+        V = torch.as_tensor(rng.normal(size=lead + (op.n, q)), dtype=dtype,
+                            device=dev)
     kw = {}
     if form == "residual":
         B = torch.as_tensor(rng.normal(size=V.shape), dtype=dtype, device=dev)
