@@ -117,16 +117,23 @@ its wall time printed:
      float32 and float64, sphere2500's (2500, 4), 8 lanes, float64;
      library: torch.sparse.mm of L(w) as BSR), K6 (col_sums,
      cg_update, cg_direction; float32, float64, 8 lanes; library for the
-     sums: torch.linalg.vecdot), K1p tridiag_solve_permuted (bitwise K1
-     on the gathered, centred input; the add form with its sums; 8 lanes;
-     float64; the tiled branch at (32768, 16)) and K7 coarse_correct:
-     float32 within 1e-5 and float64 within 1e-12 relative in norm (K1p
-     at K1's tolerance), two calls bitwise equal; device, call and plain
-     times, bound and library time;
+     sums: torch.linalg.vecdot), K1p tridiag_solve_permuted in both
+     bodies (k1p_cases: the segment body on city10000's factor, decoupled
+     every 128 rows, bitwise K1b at block 128 on the gathered, centred
+     input, at (10000, 4) in both forms, float32 and float64, 8 lanes, and
+     at (100000, 4); its add form's column sums bitwise their order's
+     numpy model; the cluster body, bitwise K1 on it, on sphere2500's
+     exact factor in both forms and at (32768, 16) float64, its tiled
+     branch) and K7 coarse_correct (k7_cases: city10000's (10000, 4) in
+     float32, float64 and 8 lanes, sphere2500's): float32 within 1e-5 and
+     float64 within 1e-12 relative in norm, two calls bitwise equal;
+     device, call and plain times, bound and library time, each wrapper's
+     launch floor (launch_floors: its smallest launch);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
-     the loop closures; K2, K3b, K4 and the CG step's K5, K6, K1p and K7
-     must have launched, and K1, K1b and K3 must not; the relaxed
+     the loop closures; K2, K3b, K4 and the CG step's K5, K6, K1p (its
+     segment body alone) and K7 must have launched, and K1, K1b and K3
+     must not; the relaxed
      lambda_2 (scipy float64 referee) must sit within -1e-4 relative of
      the reference optimum 0.06944591018149751 and print as CITY_GAP_DIGITS
      (every kernel on the path is deterministic, so the gap cannot move
@@ -165,8 +172,9 @@ its wall time printed:
      referee) within -1e-6 relative of the reference library's on the host
      routes and -1e-3 on sphere2500; exactly K edges rounded; the upper
      bound at least the relaxed lambda_2 (1 - 1e-9); sphere2500's rounded
-     lambda_2 at least 0.1 of its relaxed one (not collapsed), with K1 and
-     the assembly kernel launched; no kernel launched on the host routes.
+     lambda_2 at least 0.1 of its relaxed one (not collapsed), with K1p
+     (its cluster body alone: the exact factor) and the assembly kernel
+     launched; no kernel launched on the host routes.
      Then the graph that is disconnected even with every candidate (two
      chains of 600 nodes, three candidates): float64 on the device engine
      on the card, solve(2) selects 2, a finite upper bound,
@@ -374,19 +382,23 @@ GAP_FLOOR_F64 = -1e-4
 # Phase 3d: K3 (exact factor) in float64 against the extended-precision
 # referee (pivot_referee), relative.
 F64_FACTOR_RTOL = 1e-13
-# Phase 4: city10000's relaxed gap as printed since K5's redesign (the
-# coarse assembly on the tensor cores in 3xTF32, the CG step's products in
-# another order; +1.064e-03 with the first K5, K6, K1p and K7, +1.182e-03
-# before them with K4 on the Rayleigh-Ritz eigensolves): every kernel on
-# the path is deterministic, so the gap cannot move unless the arithmetic
-# does; and its floor, the tuned operating point's.
-CITY_GAP_DIGITS = "+1.122e-03"
+# Phase 4: city10000's relaxed gap as printed since K1p's segment body
+# (the chain solve by a pivot's reciprocal where K1 divides, x's column
+# sums in another order; +1.122e-03 with K5's redesign, the coarse
+# assembly in 3xTF32; +1.064e-03 with the first K5, K6, K1p and K7,
+# +1.182e-03 before them with K4 on the Rayleigh-Ritz eigensolves): every
+# kernel on the path is deterministic, so the gap cannot move unless the
+# arithmetic does; and its floor, the tuned operating point's.
+CITY_GAP_DIGITS = "+1.290e-03"
 CITY_GAP_FLOOR = -1e-4
 # Phase 13: host launch calls a profiled warm solve may make, replayed.
 HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
-# Phase 13: device kernels one replayed CG step of city10000 may run (141
-# before kernels K5, K6, K1p and K7).
-STEP_KERNEL_CAP = 16
+# Phase 13: device kernels one replayed CG step of city10000 runs: K5's
+# inner form and K6's first pass; the V-cycle's K1p, K5 residual, K7
+# (K7_LAUNCHES launches a call), K5 residual and K1p adding; K6's dots and
+# second pass (141 before kernels K5, K6, K1p and K7).
+K7_LAUNCHES = 2
+STEP_KERNELS = 8 + K7_LAUNCHES
 
 
 def fail(msg: str) -> None:
@@ -1862,9 +1874,7 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
     import numpy as np
     import torch
 
-    from mac_tpu_torch.ops.kernels import banded as kb
     from mac_tpu_torch.ops.kernels import pcg as kp
-    from mac_tpu_torch.ops.kernels import tridiag as k1
 
     out = {}
     rng = np.random.RandomState(18)
@@ -1882,7 +1892,6 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
                      tol, library=lib, rate=rate)
         out[key] = dict(tm, name="banded_product", shape=label, source=src5,
                         replaces=rep5)
-    M32, M64, M8 = bds["float32"][1], bds["float64"][1], bds["lanes"][1]
 
     # K6 at the CG step's shapes.
     rep6 = "mac_tpu/ops/cg.py:52 (pcg_fixed's loop body; not Pallas)"
@@ -1941,97 +1950,224 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
                                          source="mac_tpu_torch/csrc/pcg.cu",
                                          replaces=rep6)
 
-    # K1p and K7 on the cycles' factors and coarse inverses.
-    rep1 = ("mac_tpu/ops/pallas/tridiag_kernel.py:77 with the gathers of "
-            "mac_tpu/ops/banded.py:793-800")
-    rep7 = "mac_tpu/ops/banded.py:795-797 (restrict, Lc_inv @, prolong)"
-    for tag, M, lead in (("", M32, ()), ("_f64", M64, ()),
-                         ("_lanes", M8, (8,))):
-        fac = M.fac
-        dtype = M.BD.ut.dtype
-        dp, l = fac.dp.to(dtype).contiguous(), fac.l.to(dtype).contiguous()
-        n, q = bop.n, 4
+    # K1p (both bodies) and K7 on the cycles' factors and coarse inverses.
+    srcs = {"K1p": "mac_tpu_torch/csrc/tridiag.cu",
+            "K7": "mac_tpu_torch/csrc/banded.cu"}
+    reps = {"K1p": ("mac_tpu/ops/pallas/tridiag_kernel.py:77 with the "
+                    "gathers of mac_tpu/ops/banded.py:793-800"),
+            "K7": "mac_tpu/ops/banded.py:795-797 (restrict, Lc_inv @, "
+                  "prolong)"}
+    floors = launch_floors(dev)
+    print("3f launch floors (the smallest launch of each wrapper): " + ", "
+          .join(f"{k} {v:.5f} ms" for k, v in floors.items())
+          + f" ({card})", flush=True)
+    for c in k1p_cases(dev, bop, bop_sp, bds) + k7_cases(dev, bop, bop_sp,
+                                                          bds):
+        kern = c["kernel"]
+        tm = cg_case(c["label"], card, lambda: kern(c["seg"]), c["plain"],
+                     c["bytes"], c["flops"], c["itemsize"], c["tol"],
+                     fresh=c["fresh"], same_as=c["twin"])
+        if c["model"] is not None:
+            got_sums, want_sums = c["model"]()
+            if not torch.equal(got_sums, want_sums):
+                fail(f"3f {c['label']}: column sums not bitwise their "
+                     f"order's model (k1p_segment_sum_model)")
+        kind = c["key"].split("_")[0]
+        out[c["key"]] = dict(tm, name=c["name"], shape=c["shape"],
+                             body=c["body"], floor_ms=floors[c["floor"]],
+                             source=srcs[kind], replaces=reps[kind])
+    return out
+
+
+def launch_floors(dev, segment=True):
+    """Device ms of the smallest launch each K1p body's and K7's wrapper
+    can make (chip_smoke.device_ms): the segment body at (32, 1), seg 32
+    (one block of one warp; left out without `segment`, for a library
+    that has none); the cluster body at (16, 1) (its 16 blocks); K7 at
+    n = 1, q = 1, one aggregate (a cluster of one block)."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import tridiag as k1
+
+    def chain(n):
+        one = torch.ones(n, device=dev)
+        iperm = torch.arange(n, dtype=torch.int32, device=dev)
+        return one, torch.zeros(n, device=dev), iperm, torch.ones(
+            (n, 1), device=dev)
+
+    d32, l32, i32, b32 = chain(32)
+    d16, l16, i16, b16 = chain(16)
+    x1 = torch.zeros((1, 1), device=dev)
+    lc1 = torch.ones((1, 1), device=dev)
+    i1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    floors = {}
+    if segment:
+        floors["K1p segment"] = device_ms(lambda: k1.tridiag_solve_permuted(
+            d32, l32, b32, i32, i32, seg=32))
+    floors["K1p cluster"] = device_ms(lambda: k1.tridiag_solve_permuted(
+        d16, l16, b16, i16, i16))
+    floors["K7"] = device_ms(lambda: kb.coarse_correct(x1, x1, i1, i1, lc1,
+                                                       1))
+    return floors
+
+
+def k1p_cases(dev, bop, bop_sp, bds):
+    """Phase 3f's K1p cases (tridiag_solve_permuted at the main paths'
+    shapes), inputs from a RandomState(20) of their own: the segment body
+    on city10000's chain factor (decoupled every 128 rows) at (10000, 4),
+    the first smoothing (centred) and the second (added into x, with x's
+    sums) in float32 and float64 and with 8 lanes, and on a factor
+    decoupled every 128 rows at (100000, 4); the cluster body on
+    sphere2500's exact factor (2500, 4), both forms, and on an exact
+    (32768, 16) float64 factor (its tiled branch). Each a dict: "kernel"
+    (seg -> the call; seg None runs the cluster body, as every K1p before
+    the segment body did), "seg" (the factor's), "plain", "twin" (the
+    kernel its body shares its arithmetic with, K1b at block seg or K1, on
+    the gathered, centred input, scattered back: bitwise), "fresh"
+    (restores x), "model" (the add form of the segment body: its sums and
+    k1p_segment_sum_model's of the x it wrote, to be bitwise), the bytes
+    read once and written once (dp, l, B, the old x, x, iperm), the
+    operations, itemsize, tolerance, "floor" (launch_floors' key)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels import tridiag as k1
+
+    rng = np.random.RandomState(20)
+    cases = []
+
+    def rand(*shape, dtype):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    def add(key, label, dp, l, seg, iperm, perm, lead, q, dtype, adding):
+        n = iperm.shape[0]
         it = torch.finfo(dtype).bits // 8
         ln = lead[0] if lead else 1
-        kname = str(dtype).split(".")[-1]
-        B, X0 = rand(*lead, n, q, dtype=dtype), rand(*lead, n, q, dtype=dtype)
-        bsum = kp.col_sums(B)
-        iperm, perm = bop.iperm, bop.perm
-        # bsum / n by an elementwise division, as K1p divides (PyTorch
-        # multiplies by the reciprocal of a host scalar).
-        m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
-        Bn = (B[..., iperm.long(), :] - m).contiguous()
-
-        def twin():  # K1 on the gathered, centred input, scattered back
-            x = k1.tridiag_solve(dp, l, Bn)
-            return x[..., perm.long(), :]
-
-        tm = cg_case(f"K1p{tag} {tuple(B.shape)}, the first smoothing "
-                     "(centred)", card,
-                     lambda: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
-                                                       bsum=bsum),
-                     lambda: k1.tridiag_solve_permuted_plain(
-                         dp, l, B, iperm, perm, bsum=bsum),
-                     it * (2 * n * (ln if lead else 1) + 2 * ln * n * q)
-                     + 4 * n, 5.0 * ln * n * q, it, CG_TOL[kname],
-                     same_as=twin)
-        out["K1p" + tag] = dict(tm, name="tridiag_solve_permuted",
-                                shape=str(tuple(B.shape)),
-                                source="mac_tpu_torch/csrc/tridiag.cu",
-                                replaces=rep1)
+        B = rand(*lead, n, q, dtype=dtype)
+        X0 = rand(*lead, n, q, dtype=dtype)
         X = X0.clone()
+        bsum = kp.col_sums(B)
+        kw = dict(X=X, sums=True) if adding else dict(bsum=bsum)
 
-        def fresh():
-            X.copy_(X0)
+        def solve(Bn):  # the twin: K1b at block seg, or K1
+            if seg is None:
+                return k1.tridiag_solve(dp, l, Bn)
+            return k1.tridiag_solve_blocked(dp, l, Bn, block=seg)
 
-        tm = cg_case(f"K1p{tag} {tuple(B.shape)}, the second smoothing "
-                     "added into x, with x's sums", card,
-                     lambda: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
-                                                       X=X, sums=True),
-                     lambda: k1.tridiag_solve_permuted_plain(
-                         dp, l, B, iperm, perm, X=X, sums=True),
-                     it * (2 * n + 3 * ln * n * q) + 4 * n,
-                     6.0 * ln * n * q, it, CG_TOL[kname], fresh=fresh)
-        out["K1p_add" + tag] = dict(tm, name="tridiag_solve_permuted",
-                                    shape=str(tuple(B.shape)) + " add",
-                                    source="mac_tpu_torch/csrc/tridiag.cu",
-                                    replaces=rep1)
-        Lc_inv = M.Lc_inv.to(dtype).contiguous()
-        nc, s_ = bop.coarse_nc, bop.coarse_s
-        tm = cg_case(f"K7{tag} {tuple(B.shape)}, nc {nc}, s {s_}", card,
-                     lambda: kb.coarse_correct(B, X, iperm, perm, Lc_inv, s_),
-                     lambda: kb.coarse_correct_plain(B, X, iperm, perm,
-                                                     Lc_inv, s_),
-                     it * (Lc_inv.numel() + 3 * ln * n * q) + 4 * n,
-                     2.0 * ln * nc * nc * q, it,
-                     CG_TOL[kname], fresh=fresh)
-        out["K7" + tag] = dict(tm, name="coarse_correct",
-                               shape=f"{tuple(B.shape)}, nc {nc}",
-                               source="mac_tpu_torch/csrc/banded.cu",
-                               replaces=rep7)
-    # K1p's tiled branch: rows past shared memory, z through its scratch.
-    n_t, q_t = 32768, 16
-    d_t = torch.as_tensor(2.5 + rng.rand(n_t), dtype=torch.float64,
-                          device=dev)
-    l_t = torch.as_tensor(-0.3 * rng.rand(n_t), dtype=torch.float64,
-                          device=dev)
-    l_t[0] = 0.0
-    perm_t = torch.as_tensor(rng.permutation(n_t), dtype=torch.int32,
+        def twin():
+            if adding:
+                Bn = B[..., iperm.long(), :].contiguous()
+                return X0 + solve(Bn)[..., perm.long(), :]
+            m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
+            Bn = (B[..., iperm.long(), :] - m).contiguous()
+            return solve(Bn)[..., perm.long(), :]
+
+        def model():
+            got = k1.tridiag_solve_permuted(dp, l, B, iperm, perm, X=X,
+                                            sums=True, seg=seg)
+            x = got[0].cpu().numpy().reshape(-1, n, q)[:, iperm.cpu().long()]
+            want = np.stack([k1.k1p_segment_sum_model(v, seg) for v in x])
+            return got[1].cpu().reshape(want.shape), torch.as_tensor(want)
+
+        fac_bytes = it * 2 * dp.numel()
+        nbytes = (fac_bytes + 4 * n + it * (3 if adding else 2) * ln * n * q
+                  + 8 * ln * q)
+        cases.append(dict(
+            key=key, label=f"K1p {label}", name="tridiag_solve_permuted",
+            shape=label, body=k1.permuted_body(seg), seg=seg,
+            kernel=lambda s: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
+                                                       seg=s, **kw),
+            plain=lambda: k1.tridiag_solve_permuted_plain(
+                dp, l, B, iperm, perm, seg=seg, **kw),
+            twin=twin, fresh=(lambda: X.copy_(X0)) if adding else None,
+            model=model if adding and seg is not None else None,
+            bytes=nbytes, flops=(6.0 if adding else 5.0) * ln * n * q,
+            itemsize=it, tol=CG_TOL[str(dtype).split(".")[-1]],
+            floor="K1p " + k1.permuted_body(seg)))
+
+    for tag, M, lead in (("", bds["float32"][1], ()),
+                         ("_f64", bds["float64"][1], ()),
+                         ("_lanes", bds["lanes"][1], (8,))):
+        dtype = M.BD.ut.dtype
+        dp = M.fac.dp.to(dtype).contiguous()
+        l = M.fac.l.to(dtype).contiguous()
+        shape = f"{lead + (bop.n, 4)} {str(dtype)[6:]}, seg {M.fac.seg}"
+        add("K1p" + tag, f"{shape}, the first smoothing (centred)", dp, l,
+            M.fac.seg, bop.iperm, bop.perm, lead, 4, dtype, False)
+        add("K1p_add" + tag, f"{shape}, the second smoothing added into x, "
+            "with x's sums", dp, l, M.fac.seg, bop.iperm, bop.perm, lead, 4,
+            dtype, True)
+    Msp = bds["sphere"][1]
+    for key, adding, form in (
+            ("K1p_sphere", False, "the first smoothing"),
+            ("K1p_add_sphere", True, "the second smoothing added into x, "
+             "with x's sums")):
+        add(key, f"sphere2500 ({bop_sp.n}, 4), its exact factor, {form}",
+            Msp.fac.dp.contiguous(), Msp.fac.l.contiguous(), Msp.fac.seg,
+            bop_sp.iperm, bop_sp.perm, (), 4, torch.float32, adding)
+    for key, n, q, seg, dtype in (("K1p_100000", 100000, 4, 128,
+                                   torch.float32),
+                                  ("K1p_tiled", 32768, 16, None,
+                                   torch.float64)):
+        dp = torch.as_tensor(2.5 + rng.rand(n), dtype=dtype, device=dev)
+        l = torch.as_tensor(-0.3 * rng.rand(n), dtype=dtype, device=dev)
+        l[::seg or n] = 0.0
+        perm = torch.as_tensor(rng.permutation(n), dtype=torch.int32,
+                               device=dev)
+        iperm = torch.empty_like(perm)
+        iperm[perm.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+        what = (f"a factor decoupled every {seg} rows" if seg
+                else "an exact factor, the cluster body's tiled branch")
+        add(key, f"({n}, {q}) {str(dtype)[6:]}, {what}, the first "
+            "smoothing", dp, l, seg, iperm, perm, (), q, dtype, False)
+    return cases
+
+
+def k7_cases(dev, bop, bop_sp, bds):
+    """Phase 3f's K7 cases (coarse_correct), inputs from a RandomState(21)
+    of their own: city10000's coarse level (nc 500, s 20) at (10000, 4) in
+    float32 and float64 and with 8 lanes (a coarse inverse each), and
+    sphere2500's; dicts as k1p_cases' (no twin or model; "kernel" takes
+    and ignores a seg), the bytes Lc_inv's, r's, x's read and written
+    once and iperm's, the operations 2 nc^2 q a lane."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import banded as kb
+
+    rng = np.random.RandomState(21)
+    cases = []
+    for tag, M, op, lead in (("", bds["float32"][1], bop, ()),
+                             ("_f64", bds["float64"][1], bop, ()),
+                             ("_lanes", bds["lanes"][1], bop, (8,)),
+                             ("_sphere", bds["sphere"][1], bop_sp, ())):
+        dtype = M.BD.ut.dtype
+        it = torch.finfo(dtype).bits // 8
+        ln = lead[0] if lead else 1
+        n, q, nc, s_ = op.n, 4, op.coarse_nc, op.coarse_s
+        r = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+                            device=dev)
+        X0 = torch.as_tensor(rng.normal(size=r.shape), dtype=dtype,
                              device=dev)
-    iperm_t = torch.empty_like(perm_t)
-    iperm_t[perm_t.long()] = torch.arange(n_t, dtype=torch.int32, device=dev)
-    B_t = rand(n_t, q_t, dtype=torch.float64)
-    bsum_t = kp.col_sums(B_t)
-    m_t = (bsum_t / torch.full_like(bsum_t, n_t)).unsqueeze(-2)
-    Bn_t = (B_t[iperm_t.long()] - m_t).contiguous()
-    cg_case(f"K1p ({n_t}, {q_t}) float64, the tiled branch", card,
-            lambda: k1.tridiag_solve_permuted(d_t, l_t, B_t, iperm_t, perm_t,
-                                              bsum=bsum_t),
-            lambda: k1.tridiag_solve_permuted_plain(d_t, l_t, B_t, iperm_t,
-                                                    perm_t, bsum=bsum_t),
-            8 * 4 * n_t * q_t, 5.0 * n_t * q_t, 8, CG_TOL["float64"],
-            same_as=lambda: k1.tridiag_solve(d_t, l_t, Bn_t)[perm_t.long()])
-    return out
+        X = X0.clone()
+        Lc_inv = M.Lc_inv.to(dtype).contiguous()
+        iperm, perm = op.iperm, op.perm
+        label = f"{tuple(r.shape)} {str(dtype)[6:]}, nc {nc}, s {s_}"
+        cases.append(dict(
+            key="K7" + tag, label=f"K7 {label}", name="coarse_correct",
+            shape=label, body=None, seg=None,
+            kernel=lambda _s, r=r, X=X, Lc_inv=Lc_inv, iperm=iperm, perm=perm,
+            s_=s_: kb.coarse_correct(r, X, iperm, perm, Lc_inv, s_),
+            plain=lambda r=r, X=X, Lc_inv=Lc_inv, iperm=iperm, perm=perm,
+            s_=s_: kb.coarse_correct_plain(r, X, iperm, perm, Lc_inv, s_),
+            twin=None, fresh=lambda X=X, X0=X0: X.copy_(X0), model=None,
+            bytes=it * (Lc_inv.numel() + 3 * ln * n * q) + 4 * n,
+            flops=2.0 * ln * nc * nc * q, itemsize=it,
+            tol=CG_TOL[str(dtype).split(".")[-1]], floor="K7"))
+    return cases
 
 
 def lane_weights(fixed, cands, ks, dev):
@@ -3252,7 +3388,8 @@ PROFILE_TURNS = ("eager", "inner", "graph", "plain-cg")
 def device_items(fn):
     """(busy ms, kernels, [(ms, calls, name)] by device item, largest
     first) of one call of fn() under torch.profiler, CUDA activity alone;
-    kernels counts neither copies nor memsets."""
+    kernels counts neither copies nor memsets (nor the copy kernels a
+    graph's memcpy nodes may run as, memcpy32_post and its kind)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3268,7 +3405,7 @@ def device_items(fn):
     items = sorted(((ns / 1e6, cnt, name) for name, (ns, cnt)
                     in by_name.items()), reverse=True)
     kernels = sum(cnt for _, cnt, name in items
-                  if not name.startswith(("Memcpy", "Memset")))
+                  if not name.lower().startswith(("memcpy", "memset")))
     return sum(ms for ms, _, _ in items), kernels, items
 
 
@@ -4450,6 +4587,10 @@ def main():
                    if kern.__name__ in CG_KERNELS},
                 "sym_eig": k4.launches}
     k4_launches = {"float32": k4.launches_by_dtype.get("float32", 0)}
+    k1p_bodies = {"phase 4": dict(tridiag_solve_permuted.launches_by_body)}
+    if set(k1p_bodies["phase 4"]) != {"segment"}:
+        fail(f"city10000's chain factor (decoupled every 128 rows) did not "
+             f"take K1p's segment body alone: {k1p_bodies['phase 4']}")
     tridiag_solve_launches_4 = tridiag_solve.launches
     if tridiag_solve_blocked.launches or k3.launches or tridiag_solve.launches:
         fail("the banded path launched tridiag_solve_blocked, K3 or K1 "
@@ -4568,6 +4709,7 @@ def main():
             fail(f"{ds}: MAC without a device argument is on {mac6.device}")
         for kern in counted:
             kern.launches = 0
+        bodies0 = dict(tridiag_solve_permuted.launches_by_body)
         times6 = []
         for _ in range(4):
             torch.cuda.synchronize()
@@ -4576,6 +4718,10 @@ def main():
             torch.cuda.synchronize()
             times6.append(time.perf_counter() - t0)
         got = {kern.__name__: kern.launches for kern in counted}
+        k1p_bodies[f"phase 6 {ds}"] = {
+            b: c - bodies0.get(b, 0)
+            for b, c in tridiag_solve_permuted.launches_by_body.items()
+            if c > bodies0.get(b, 0)}
         bundled_launches[ds] = got
         bundled_walls[ds] = statistics.median(times6[1:])
         bundled_macs[ds] = (mac6, k6, x6)
@@ -4627,7 +4773,11 @@ def main():
             print(f"{ds}: assembly form "
                   f"{'K2b (split)' if b6.ov_rows else 'K2 (no split)'}, nb "
                   f"{b6.nb}, half {b6.half}, du_dense {b6.du_dense}, ov_rows "
-                  f"{b6.ov_rows}; exact chain factor (n <= 4096)", flush=True)
+                  f"{b6.ov_rows}; exact chain factor (n <= 4096); K1p by "
+                  f"body {k1p_bodies[f'phase 6 {ds}']}", flush=True)
+            if set(k1p_bodies[f"phase 6 {ds}"]) != {"cluster"}:
+                fail(f"{ds}: its exact chain factor did not take K1p's "
+                     f"cluster body alone: {k1p_bodies[f'phase 6 {ds}']}")
             if b6.ov_rows:
                 fail(f"{ds}: the solver's tables split, phase 3's did not")
         elif any(got.values()):
@@ -4780,9 +4930,9 @@ def main():
               f"{g_[2]} / {p_[2]}, one CG step {g_[4]} / {p_[4]} kernels, "
               f"{g_[5]} / {p_[5]} ms ({card})", flush=True)
     step13 = ab13["city10000"]["profile"]["graph"][4]
-    if step13 is None or step13 > STEP_KERNEL_CAP:
+    if step13 != STEP_KERNELS:
         fail(f"13 city10000: a replayed CG step ran {step13} device kernels, "
-             f"more than {STEP_KERNEL_CAP}")
+             f"not {STEP_KERNELS}")
     if ab13["city10000 q = 11"]["bodies"].get("wide_shared", 0) <= 0:
         fail(f"13 city10000 q = 11: K4w never launched: "
              f"{ab13['city10000 q = 11']['bodies']}")
@@ -5017,8 +5167,12 @@ def main():
     # (10000, 33)).
     def cg_entry(key, count, path):
         tm = cg_tm[key]
+        extra = {} if tm.get("body") is None else {
+            "body": tm["body"], "floor_ms": tm["floor_ms"]}
+        if tm["name"] == "coarse_correct":
+            extra = {"floor_ms": tm["floor_ms"]}
         return {"name": tm["name"], "route": "cuda", "source": tm["source"],
-                "replaces": tm["replaces"], "shape": tm["shape"],
+                "replaces": tm["replaces"], "shape": tm["shape"], **extra,
                 "launches": count, "launches_path": path,
                 "max_abs_err": tm["max_abs_err"], "rel_err": tm["rel_err"],
                 "ms": tm["device_ms"], "device_ms": tm["device_ms"],
@@ -5034,7 +5188,17 @@ def main():
     cg_line = []
     for key in sorted(cg_tm):
         kern = cg_tm[key]["name"]
-        if key.endswith("_f64") or key.endswith("_f64_plain"):
+        body = cg_tm[key].get("body")
+        if body is not None and not key.endswith(("_f64", "_lanes")):
+            # K1p: its body's launches on the path that runs it.
+            path = "phase 4" if body == "segment" else "phase 6 sphere2500"
+            cg_line.append(cg_entry(key, k1p_bodies[path].get(body, 0),
+                                    f"{path} ({body} body)"))
+        elif body is not None and key.endswith("_f64"):
+            cg_line.append(cg_entry(
+                key, launches_10b["city10000"][kern].get("float64", 0),
+                "phase 10b banded float64 city10000 (segment body)"))
+        elif key.endswith("_f64") or key.endswith("_f64_plain"):
             cg_line.append(cg_entry(key, f64_of(kern), p10))
         elif key.endswith("_lanes"):
             cg_line.append(cg_entry(key, lanes_a[kern].get(8, 0),

@@ -5,8 +5,8 @@ in one process on one NVIDIA GPU.
     mkdir -p build/ab_old
     git show <commit>:mac_tpu_torch/csrc/tridiag.cu > build/ab_old/tridiag.cu
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
-    python3 kernel_ab.py [--kernels-only | --syev-only | --banded-only] \
-        build/ab_old [VARIANT_DIR ...]
+    python3 kernel_ab.py [--kernels-only | --syev-only | --banded-only |
+        --cg-only] build/ab_old [VARIANT_DIR ...]
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
 them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
@@ -106,6 +106,23 @@ instead, timed at every K5 shape after that shape's turns (the read-once
 narrow bodies of ab_fixtures/k5_read_once_tma and
 ab_fixtures/k5_read_once_cp_async take a scratch of terms, which this
 script hands them).
+With --cg-only the older directory holds tridiag.cu and banded.cu (K1p's
+and K7's sources), and only they are built and only this runs: K1p
+tridiag_solve_permuted and K7 coarse_correct at every shape of
+chip_smoke.py's phase 3f (chip_smoke.k1p_cases, k7_cases, the same
+inputs), in turns old, new, new, old: each version's two calls bitwise
+equal, its error against the plain version, whether its output is bitwise
+the older version's, device and call times, the bound, old / new per
+shape; the older K1p runs its cluster body on every factor (the only body
+before the segment body), the new one the body of the factor's seg; an
+older K7 whose export takes a float64 scratch (its earlier two launches) is
+called through an adapter that hands it one. Then each version's launch
+floors (chip_smoke.launch_floors) and, at (10000, 4), each version's time
+after a 64 MB memset that leaves its inputs out of L2. Each VARIANT_DIR
+then holds another tridiag.cu, banded.cu or both, whose K1p or K7 is timed
+at every shape of its kernel after that shape's turns, its output held
+bitwise to the new version's (ab_fixtures/k7_cluster: K7 as one launch of
+a thread-block cluster).
 Every timing line names the card and its power limit.
 """
 
@@ -490,6 +507,146 @@ def k5_ab(use, card, dev, bop, w, variants):
                   f"({card})", flush=True)
 
 
+def use_old_k7(lib) -> None:
+    """Call an older banded.cu's coarse_correct_* whose float64 scratch
+    after lc_lane is larger (its earlier two launches: lanes * ceil(nc /
+    16) * nc * q values) through an adapter that hands it one of that size
+    in place of the current wrapper's."""
+    import ctypes
+
+    import torch
+
+    from mac_tpu_torch.ops.kernels import _build
+
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for fn in ("coarse_correct_f32", "coarse_correct_f64"):
+        raw = getattr(lib, fn)
+        raw.argtypes = [P, P, P, P, L, P] + [I] * 5 + [P]
+        raw.restype = ctypes.c_int
+
+        def call(r, x, iperm, lc, lc_lane, rc, n, q, nc, s, lanes, stream,
+                 raw=raw):
+            xcp = torch.empty(lanes * -(-nc // 16) * nc * q,
+                              dtype=torch.float64, device="cuda")
+            return raw(r, x, iperm, lc, lc_lane, xcp.data_ptr(), n, q, nc, s,
+                       lanes, stream)
+
+        _build._functions[("banded", fn)] = call
+
+
+def cg_ab(use, card, dev, bop, w, variants):
+    """K1p and K7 old against new in turns at phase 3f's shapes (the
+    module docstring's --cg-only); each variant ({tag: {source name:
+    library}}) times the K1p cases (with a tridiag.cu) or the K7 cases
+    (with a banded.cu) after their turns, its output held bitwise to the
+    new version's."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (bound, cg_inputs, k1p_cases, k7_cases,
+                            launch_floors, rel_norm)
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import banded as kbanded
+    from mac_tpu_torch.ops.kernels import tridiag
+
+    sigs = {"banded": kbanded._SIGNATURES, "tridiag": tridiag._SIGNATURES}
+
+    (_, _, _, _, _, _, bop_sp, w_sp, _, _, _) = dataset_inputs(
+        dev, "sphere2500")
+    use("new")
+    bds = cg_inputs(dev, bop, w, bop_sp, w_sp, np.random.RandomState(18))
+    cases = k1p_cases(dev, bop, bop_sp, bds) + k7_cases(dev, bop, bop_sp,
+                                                         bds)
+
+    def runner(c, version):
+        seg = c["seg"] if version == "new" else None
+        return lambda: c["kernel"](seg)
+
+    def checked(c, run):
+        if c["fresh"] is not None:
+            c["fresh"]()
+        got = run()
+        got = got if isinstance(got, tuple) else (got,)
+        return tuple(t.clone() for t in got)
+
+    times = {}
+    for c in cases:
+        if c["fresh"] is not None:
+            c["fresh"]()
+        ref = c["plain"]()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        first = {}
+        for version in TURNS:
+            use(version)
+            run = runner(c, version)
+            a, b = checked(c, run), checked(c, run)
+            first.setdefault(version, a)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            err = max(rel_norm(x, y) for x, y in zip(a, ref))
+            as_old = all(torch.equal(x, y) for x, y in zip(a, first["old"]))
+            dms, cms = device_ms(run), call_ms(run)
+            times.setdefault(c["label"], {}).setdefault(version, []).append(
+                dms)
+            body = (c["body"] if version == "new" or c["body"] is None
+                    else "cluster")
+            print(f"{version} {c['label']}" + (f" [{body} body]" if body
+                                               else "")
+                  + f": device {dms:.5f} ms, call {cms:.4f} ms; relative "
+                  f"error {err:.3e}, two calls bitwise {same}, bitwise the "
+                  f"old version's {as_old}"
+                  + ("" if same and err <= c["tol"] else " (FAILS phase 3f)")
+                  + f" ({card})", flush=True)
+        src = "banded" if c["name"] == "coarse_correct" else "tridiag"
+        for tag, libs in variants.items():
+            if src not in libs:
+                continue
+            use("new")
+            _build.load(src, sigs[src], libs[src])
+            run = runner(c, "new")
+            a, b = checked(c, run), checked(c, run)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            as_new = all(torch.equal(x, y) for x, y in zip(a, first["new"]))
+            dms = device_ms(run)
+            times[c["label"]].setdefault(tag, []).append(dms)
+            print(f"{tag} {c['label']}: device {dms:.5f} ms; two calls "
+                  f"bitwise {same}, bitwise the new version's {as_new} "
+                  f"({card})", flush=True)
+        use("new")
+        bms, by = bound(c["bytes"], c["flops"], c["itemsize"])
+        print(f"{c['label']}: bound {bms:.5f} ms ({by}) ({card})",
+              flush=True)
+    for label, by in times.items():
+        old, new = statistics.median(by["old"]), statistics.median(by["new"])
+        print(f"summary {label}: device old {old:.5f} ms, new {new:.5f} ms, "
+              f"new/old {new / old:.3f}"
+              + "".join(f", {v} {by[v][0]:.5f} ms ({by[v][0] / old:.3f} of "
+                        f"old)" for v in variants if v in by)
+              + f" ({card})", flush=True)
+    for version in ("old", "new"):
+        use(version)
+        floors = launch_floors(dev, segment=version == "new")
+        print(f"{version} launch floors: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in floors.items()) + f" ({card})",
+            flush=True)
+    # Inputs cold: each call after a 64 MB memset (past the 50 MB L2), the
+    # memset's own device time taken off.
+    flush = torch.empty(16 * 1024 * 1024, device=dev)
+    memset_ms = device_ms(flush.zero_, reps=50)
+    for c in cases:
+        if c["key"] not in ("K1p", "K1p_add", "K1p_sphere", "K7", "K7_f64"):
+            continue
+        for version in TURNS:
+            use(version)
+            run = runner(c, version)
+            warm = device_ms(run, reps=50)
+            cold = device_ms(lambda: (flush.zero_(), run()),
+                             reps=50) - memset_ms
+            print(f"{version} {c['label']}: device {warm:.5f} ms back to "
+                  f"back, {cold:.5f} ms after a 64 MB memset (inputs out of "
+                  f"L2; the memset's {memset_ms:.5f} ms taken off) "
+                  f"({card})", flush=True)
+
+
 def ldl_report(use, card, factor_args):
     """The new build's chain probe (ns a step of K3b's pivot chain and K3's
     carry, float32 and float64 instantiations) and each factor case's phase
@@ -519,14 +676,15 @@ def main():
     import numpy as np
     import torch
 
-    flags = {"--kernels-only", "--syev-only", "--banded-only"}
+    flags = {"--kernels-only", "--syev-only", "--banded-only", "--cg-only"}
     argv = [a for a in sys.argv[1:] if a not in flags]
     kernels_only = "--kernels-only" in sys.argv[1:]
     syev_only = "--syev-only" in sys.argv[1:]
     banded_only = "--banded-only" in sys.argv[1:]
+    cg_only = "--cg-only" in sys.argv[1:]
     if not argv:
         fail("usage: python3 kernel_ab.py [--kernels-only | --syev-only | "
-             "--banded-only] OLD_CSRC_DIR [VARIANT_DIR ...]")
+             "--banded-only | --cg-only] OLD_CSRC_DIR [VARIANT_DIR ...]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     card = card_line()
@@ -559,19 +717,45 @@ def main():
         if "banded" not in sigs:
             fail(f"--banded-only: no banded.cu in {old_dir}")
         sigs = {"banded": kbanded._SIGNATURES}
+    if cg_only:
+        if "banded" not in sigs:
+            fail(f"--cg-only: no banded.cu in {old_dir}")
+        sigs = {"tridiag": tridiag._SIGNATURES,
+                "banded": kbanded._SIGNATURES}
     variants = [f"variant {Path(d).name}" for d in argv[1:]]
-    libs = build_all(old_dir, sigs, [] if syev_only else argv[1:],
+    libs = build_all(old_dir, sigs,
+                     [] if syev_only or cg_only else argv[1:],
                      "banded" if banded_only else "tridiag")
+    old_k7 = "double* xcp" in (old_dir / "banded.cu").read_text() if (
+        old_dir / "banded.cu").exists() else False
 
     def use(version):
         for name, path in libs[version].items():
-            _build.load(name, sigs[name], path)
+            lib = _build.load(name, sigs[name], path)
+            if name == "banded" and version == "old" and old_k7:
+                use_old_k7(lib)
 
     dev = torch.device("cuda")
     (dataset, n, fixed, cands, k, x_init, bop, w, dp1, l1,
      B1) = dataset_inputs(dev)
     if syev_only:
         k4_ab(use, card, bop, w, dev)
+        return
+    if cg_only:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2 * len(variants) + 1) as pool:
+            jobs = {(tag, name): pool.submit(build_one, Path(d),
+                                             f"variant-{Path(d).name}", name)
+                    for tag, d in zip(variants, argv[1:])
+                    for name in ("tridiag", "banded")
+                    if (Path(d) / f"{name}.cu").exists()}
+            built = {key: job.result() for key, job in jobs.items()}
+        for (tag, name), (_, log) in built.items():
+            print_ptxas(tag, name, log)
+        cg_ab(use, card, dev, bop, w,
+              {tag: {name: path for (t, name), (path, _) in built.items()
+                     if t == tag} for tag in variants})
         return
     if banded_only:
         k5_ab(use, card, dev, bop, w,

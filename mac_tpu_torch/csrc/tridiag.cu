@@ -1,7 +1,9 @@
 // Tridiagonal LDL^T solve for an (n, q) block of right-hand sides:
 //     L diag(dp) L^T X = B,  L unit lower bidiagonal with subdiagonal l.
-// Two kernels: K1, whole rows, and K1b, segment-decoupled (further down).
-// Both take R lanes in one launch: B and X (R, n, q), and dp, l either one
+// Two kernels: K1, whole rows, and K1b, segment-decoupled (further down);
+// and K1p, the V-cycle's smoother with its gathers through the permutation,
+// on K1's body for an exact factor and on K1b's for a decoupled one.
+// All take R lanes in one launch: B and X (R, n, q), and dp, l either one
 // factor per lane (R, n), at a lane stride fstride = n, or one factor that
 // every lane shares (n,), fstride = 0. R = 1 is the single solve.
 //
@@ -70,6 +72,31 @@ __device__ __forceinline__ void warp_scan_maps_segmented(T& c, T& v, int lane,
       c = c * pc;
     }
   }
+}
+
+// Four consecutive values of a row: a float4 (16 bytes), or for double two
+// 16-byte halves (32 bytes, moved as two 16-byte loads or stores).
+struct alignas(16) Double4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<double> {
+  using type = Double4;
+};
+template <typename T>
+__device__ __forceinline__ typename Vec4<T>::type vec4(T x, T y, T z, T w) {
+  typename Vec4<T>::type v;
+  v.x = x;
+  v.y = y;
+  v.z = z;
+  v.w = w;
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -355,20 +382,41 @@ __device__ void exchange(cg::cluster_group& cluster, T* tot_c, T* tot_v,
 
 // K1p, K1's permuted entry: the V-cycle's smoother in the original node
 // order of B and X held in the operator's (RCM) order. Row j of the chain
-// is row iperm[j] of B and of X: the tile loads B[iperm[j]] less B's
-// column mean (the cycle's centring, from bsum) and the solve stores x_j
-// to X[iperm[j]], or adds it there (`add`); each block then sums its rows
-// of X per column (float64, fixed order) and the block that takes the last
-// ticket sums those partials in block order into osum. The rows do not
-// fit shared memory: z goes through the natural-order scratch Z. K1's
-// arithmetic is the same (kPerm = false compiles none of this).
+// is row iperm[j] of B and of X: the solve loads B[iperm[j]] less B's
+// column mean (the cycle's centring, from bsum) and stores x_j to
+// X[iperm[j]], or adds it there (`add`); then X's column sums (float64,
+// fixed order: per block, then the block that takes the last ticket sums
+// the blocks' partials in block order) go to osum. Two bodies, by the
+// factor:
+//   cluster (an exact factor: sphere2500's, every banded graph of at most
+//     4096 nodes): K1's body (kPerm = true; K1's instantiation compiles none
+//     of this), each thread moving whole rows of B and X through iperm (a
+//     16-byte load a row at q = 4 float32). The rows do not fit shared
+//     memory past K1's whole-row limit: z goes through the natural-order
+//     scratch Z. Bitwise K1 on the gathered input.
+//   segment (a factor decoupled every `seg` rows, the blocked LDL^T of
+//     every banded graph past 4096 nodes): K1b's body, further down.
+// Whether this block took the last of `total` tickets of the counter (left
+// at 0 again by the caller): every write before it of the threads that
+// pass `wrote` is visible to the block that did.
+__device__ bool last_ticket(unsigned* ticket, unsigned total,
+                            bool wrote = true) {
+  __shared__ bool last;
+  if (wrote) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == total - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
 template <typename T>
 struct PermArgs {
   const int* iperm;    // (n,) original row -> row of B and X
   const double* bsum;  // (lanes, ld) B's column sums to centre by, or null
-  T* Z;                // (lanes, n, ld) scratch for the tiled branch
+  T* Z;                // (lanes, n, ld) scratch of the cluster body's tiles
   int add;             // X[iperm[j]] += x_j
-  double* part;        // (lanes, ld, cluster) X's column sums per block, or null
+  double* part;        // (lanes, ld, blocks) X's column sums per block, or null
   double* osum;        // (lanes, ld) their totals
   unsigned* ticket;    // one counter at 0, left at 0
 };
@@ -398,6 +446,13 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   B += lane * n * ld + j0;
   X += lane * n * ld + j0;
   T* zbuf = X;  // z between the substitutions in the tiled branch
+  using V4 = typename Vec4<T>::type;
+  // K1p moves a row's columns four at a time where every row of B and X
+  // starts 16-byte aligned.
+  const bool rowvec =
+      kPerm && ld % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(X)) % 16)
+          == 0;
   if (kPerm) {
     if (pa.Z != nullptr) {
       pa.Z += lane * n * ld + j0;
@@ -460,10 +515,20 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
   auto load = [&](int k, const T* src) {
     const long long ts = start(k);
     const int tr = len(k);
-    if (kPerm && src == B) {  // B's rows through iperm, centred
-      for (RowWalk e(q); e.r < tr; e.next())
-        sB[e.c * lds + e.r] =
-            B[(long long)pa.iperm[ts + e.r] * ld + e.c] - smean[e.c];
+    if (kPerm && src == B) {  // B's rows through iperm, whole, centred
+      for (int i = t; i < tr; i += blockDim.x) {
+        const T* row = B + (long long)pa.iperm[ts + i] * ld;
+        int c = 0;
+        if (rowvec)
+          for (; c + 4 <= q; c += 4) {
+            const V4 b = *reinterpret_cast<const V4*>(row + c);
+            sB[c * lds + i] = b.x - smean[c];
+            sB[(c + 1) * lds + i] = b.y - smean[c + 1];
+            sB[(c + 2) * lds + i] = b.z - smean[c + 2];
+            sB[(c + 3) * lds + i] = b.w - smean[c + 3];
+          }
+        for (; c < q; ++c) sB[c * lds + i] = row[c] - smean[c];
+      }
     } else {
       tile_in(sB, lds, src + ts * ld, ld, tr, q);
     }
@@ -494,12 +559,29 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
     }
     const long long ts = start(k);
     const int tr = len(k);
-    for (RowWalk e(q); e.r < tr; e.next()) {
-      T* dst = X + (long long)pa.iperm[ts + e.r] * ld + e.c;
-      T v = sB[e.c * lds + e.r];
-      if (pa.add) v = *dst + v;
-      *dst = v;
-      sB[e.c * lds + e.r] = v;
+    for (int i = t; i < tr; i += blockDim.x) {  // whole rows through iperm
+      T* row = X + (long long)pa.iperm[ts + i] * ld;
+      int c = 0;
+      if (rowvec)
+        for (; c + 4 <= q; c += 4) {
+          V4 v = vec4<T>(sB[c * lds + i], sB[(c + 1) * lds + i],
+                         sB[(c + 2) * lds + i], sB[(c + 3) * lds + i]);
+          if (pa.add) {
+            const V4 o = *reinterpret_cast<const V4*>(row + c);
+            v = vec4<T>(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+          }
+          *reinterpret_cast<V4*>(row + c) = v;
+          sB[c * lds + i] = v.x;
+          sB[(c + 1) * lds + i] = v.y;
+          sB[(c + 2) * lds + i] = v.z;
+          sB[(c + 3) * lds + i] = v.w;
+        }
+      for (; c < q; ++c) {
+        T v = sB[c * lds + i];
+        if (pa.add) v = row[c] + v;
+        row[c] = v;
+        sB[c * lds + i] = v;
+      }
     }
     __syncthreads();
     if (pa.part == nullptr) return;
@@ -576,15 +658,7 @@ tridiag_solve_kernel(const T* __restrict__ dp, const T* __restrict__ l,
     const int nblk = static_cast<int>(cluster.num_blocks());
     for (int i = t; i < q; i += blockDim.x)
       pa.part[(lane * ld + j0 + i) * nblk + rank] = bacc[i];
-    __threadfence();
-    __syncthreads();
-    __shared__ bool last;
-    if (t == 0)
-      last = atomicAdd(pa.ticket, 1u) ==
-             gridDim.x * gridDim.y * gridDim.z - 1;
-    __syncthreads();
-    if (last) {
-      __threadfence();
+    if (last_ticket(pa.ticket, gridDim.x * gridDim.y * gridDim.z)) {
       const int count = static_cast<int>(gridDim.z) * ld;
       for (int i = t; i < count; i += blockDim.x) {
         double s = 0.0;
@@ -649,33 +723,11 @@ constexpr int kMaxBlock = 1024;  // the longest segment
 constexpr int kRows = 4;         // consecutive rows per thread
 constexpr int kCols = 4;         // columns per block: four values of a row
 constexpr int kK1bThreads = kMaxBlock / kRows;
+constexpr int kSegThreads = 128;  // K1p's segment body: threads a block,
+constexpr int kSumChunk = 4096;   // its last block's partials a chunk,
+constexpr int kSumLoads = 32;     // and loads a thread in flight
 constexpr int kK1bWarps = kK1bThreads / 32;
 static_assert(kRows == 4 && kCols == 4, "K1b's loads and its tile's swizzle");
-
-// Four consecutive values of a row: a float4 (16 bytes), or for double two
-// 16-byte halves (32 bytes, moved as two 16-byte loads or stores).
-struct alignas(16) Double4 {
-  double x, y, z, w;
-};
-template <typename T>
-struct Vec4;
-template <>
-struct Vec4<float> {
-  using type = float4;
-};
-template <>
-struct Vec4<double> {
-  using type = Double4;
-};
-template <typename T>
-__device__ __forceinline__ typename Vec4<T>::type vec4(T x, T y, T z, T w) {
-  typename Vec4<T>::type v;
-  v.x = x;
-  v.y = y;
-  v.z = z;
-  v.w = w;
-  return v;
-}
 
 // How a block moves its rows of B and X:
 //   kScalar: value by value, any q and any alignment;
@@ -738,54 +790,21 @@ __device__ __forceinline__ float reciprocal(float x) {
 }
 __device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
 
-template <typename T, RowMoves kMoves>
-__global__ void __launch_bounds__(kK1bThreads)
-tridiag_solve_blocked_kernel(const T* __restrict__ dp,
-                             const T* __restrict__ l,
-                             const T* __restrict__ B, T* __restrict__ X,
-                             int n, int q, int block, long long fstride) {
+// The factor of a thread's kRows consecutive rows from g0 (row r0 of a
+// segment of `rows` rows inside n): cf[i] = -l of its row i, the forward
+// coefficient of row i and the backward coefficient of row i - 1, 0 at the
+// segment's first row and past its last row inside n (which also cuts the
+// backward pass at the segment's last row and at row n - 1); rd[i] the
+// pivot's reciprocal (1 past the rows). `vec`: dp and l 16-byte aligned
+// at g0, one vector load each.
+template <typename T>
+__device__ __forceinline__ void segment_factor(const T* dp, const T* l,
+                                               long long g0, int r0,
+                                               int rows, bool vec,
+                                               T (&cf)[kRows + 1],
+                                               T (&rd)[kRows]) {
   using V4 = typename Vec4<T>::type;
-  {  // lane blockIdx.z: its factor and its (n, q) block
-    const long long lane = blockIdx.z;
-    dp += lane * fstride;
-    l += lane * fstride;
-    B += lane * n * q;
-    X += lane * n * q;
-  }
-  __shared__ T fc[kK1bWarps], fv[kK1bWarps][kCols];
-  __shared__ T bc[kK1bWarps], bv[kK1bWarps][kCols];
-  __shared__ V4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const long long seg0 = static_cast<long long>(blockIdx.x) * block;
-  // The segment's rows inside n, this thread's first row in the segment and
-  // in the arrays, the block's first column.
-  const int rows = static_cast<int>(min(static_cast<long long>(block),
-                                        n - seg0));
-  const int r0 = threadIdx.x * kRows;
-  const long long g0 = seg0 + r0;
-  const int j0 = blockIdx.y * kCols;
-  // kTile: the warp's tile, its first row in the segment, its rows of B, X.
-  V4* tile = tiles + (kMoves == kTile ? w * 32 * kRows : 0);
-  const int t0 = w * 32 * kRows;
-  const V4* Bt = reinterpret_cast<const V4*>(B) + seg0 + t0;
-  V4* Xt = reinterpret_cast<V4*>(X) + seg0 + t0;
-  const V4 zero4 = vec4<T>(T(0), T(0), T(0), T(0));
-
-  // cf[i] = -l of the thread's row i: the forward coefficient of row i and
-  // the backward coefficient of row i - 1. It is 0 at the segment's first
-  // row and past its last row inside n, which also cuts the backward pass
-  // at the segment's last row and at row n - 1.
-  T cf[kRows + 1], rd[kRows], v[kRows][kCols];
-  if (kMoves == kTile) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int f = 32 * k + lane;
-      tile[tile_slot(f)] = t0 + f < rows ? Bt[f] : zero4;
-    }
-  }
-  if (kMoves != kScalar && r0 + kRows <= rows) {
+  if (vec && r0 + kRows <= rows) {
     const V4 l4 = *reinterpret_cast<const V4*>(l + g0);
     const V4 d4 = *reinterpret_cast<const V4*>(dp + g0);
     cf[0] = r0 != 0 ? -l4.x : T(0);
@@ -805,6 +824,147 @@ tridiag_solve_blocked_kernel(const T* __restrict__ dp,
     }
   }
   cf[kRows] = r0 + kRows < rows ? -l[g0 + kRows] : T(0);
+}
+
+// The two substitutions of one segment over its warps w0 .. w0 + nws - 1
+// of the block, each thread's kRows rows of kCols columns in v (B in, X
+// out). Forward: y_i = b_i + cf_i y_{i-1}; the thread's map, the scan over
+// the warp, the segment's warps before this one, then the rows again from
+// the incoming value; z = y / dp replaces b (a product with the pivot's
+// reciprocal). Backward: x_i = z_i + cf_{i+1} x_{i+1}, the same steps from
+// the last row to the first; x replaces z. fc, fv, bc, bv: the block's
+// warps' total maps (kK1bWarps each), in shared memory. Two
+// __syncthreads() of the whole block.
+template <typename T>
+__device__ __forceinline__ void segment_solve(const T (&cf)[kRows + 1],
+                                              const T (&rd)[kRows],
+                                              T (&v)[kRows][kCols], T* fc,
+                                              T (*fv)[kCols], T* bc,
+                                              T (*bv)[kCols], int w0,
+                                              int nws) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int wl = w - w0;  // the warp within its segment
+  T c = T(1), t[kCols], nc, nt[kCols], in[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) t[j] = T(0);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i] * t[j];
+    c = cf[i] * c;
+  }
+  warp_scan_maps_cols(c, t, lane, false);
+  neighbour_map(c, t, lane, false, nc, nt);
+  if (lane == 31) {
+    fc[w] = c;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) fv[w][j] = t[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = T(0);
+#pragma unroll
+  for (int k = 0; k < kK1bWarps - 1; ++k) {
+    if (k < wl) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        in[j] = fv[w0 + k][j] + fc[w0 + k] * in[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      in[j] = v[i][j] + cf[i] * in[j];
+      v[i][j] = in[j] * rd[i];
+    }
+  }
+
+  c = T(1);
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) t[j] = T(0);
+#pragma unroll
+  for (int i = kRows - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i + 1] * t[j];
+    c = cf[i + 1] * c;
+  }
+  warp_scan_maps_cols(c, t, lane, true);
+  neighbour_map(c, t, lane, true, nc, nt);
+  if (lane == 0) {
+    bc[w] = c;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) bv[w][j] = t[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = T(0);
+#pragma unroll
+  for (int k = kK1bWarps - 1; k > 0; --k) {
+    if (k > wl && k < nws) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        in[j] = bv[w0 + k][j] + bc[w0 + k] * in[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
+#pragma unroll
+  for (int i = kRows - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      in[j] = v[i][j] + cf[i + 1] * in[j];
+      v[i][j] = in[j];
+    }
+  }
+}
+
+template <typename T, RowMoves kMoves>
+__global__ void __launch_bounds__(kK1bThreads)
+tridiag_solve_blocked_kernel(const T* __restrict__ dp,
+                             const T* __restrict__ l,
+                             const T* __restrict__ B, T* __restrict__ X,
+                             int n, int q, int block, long long fstride) {
+  using V4 = typename Vec4<T>::type;
+  {  // lane blockIdx.z: its factor and its (n, q) block
+    const long long lane = blockIdx.z;
+    dp += lane * fstride;
+    l += lane * fstride;
+    B += lane * n * q;
+    X += lane * n * q;
+  }
+  __shared__ T fc[kK1bWarps], fv[kK1bWarps][kCols];
+  __shared__ T bc[kK1bWarps], bv[kK1bWarps][kCols];
+  __shared__ V4 tiles[kMoves == kTile ? kK1bThreads * kRows : 1];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const long long seg0 = static_cast<long long>(blockIdx.x) * block;
+  // The segment's rows inside n, this thread's first row in the segment and
+  // in the arrays, the block's first column.
+  const int rows = static_cast<int>(min(static_cast<long long>(block),
+                                        n - seg0));
+  const int r0 = threadIdx.x * kRows;
+  const long long g0 = seg0 + r0;
+  const int j0 = blockIdx.y * kCols;
+  // kTile: the warp's tile, its first row in the segment, its rows of B, X.
+  V4* tile = tiles + (kMoves == kTile ? w * 32 * kRows : 0);
+  const int t0 = w * 32 * kRows;
+  const V4* Bt = reinterpret_cast<const V4*>(B) + seg0 + t0;
+  V4* Xt = reinterpret_cast<V4*>(X) + seg0 + t0;
+  const V4 zero4 = vec4<T>(T(0), T(0), T(0), T(0));
+
+  T cf[kRows + 1], rd[kRows], v[kRows][kCols];
+  if (kMoves == kTile) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int f = 32 * k + lane;
+      tile[tile_slot(f)] = t0 + f < rows ? Bt[f] : zero4;
+    }
+  }
+  segment_factor(dp, l, g0, r0, rows, kMoves != kScalar, cf, rd);
   if (kMoves == kTile) __syncwarp();
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -827,84 +987,7 @@ tridiag_solve_blocked_kernel(const T* __restrict__ dp,
     }
   }
 
-  // Forward: y_i = b_i + cf_i y_{i-1}. The thread's map, the scan over the
-  // warp, the warps before this one, then the rows again from the incoming
-  // value; z = y / dp replaces b (a product with the pivot's reciprocal).
-  T c = T(1), t[kCols], nc, nt[kCols], in[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) t[j] = T(0);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i] * t[j];
-    c = cf[i] * c;
-  }
-  warp_scan_maps_cols(c, t, lane, false);
-  neighbour_map(c, t, lane, false, nc, nt);
-  if (lane == 31) {
-    fc[w] = c;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) fv[w][j] = t[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = T(0);
-#pragma unroll
-  for (int k = 0; k < kK1bWarps - 1; ++k) {
-    if (k < w) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) in[j] = fv[k][j] + fc[k] * in[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      in[j] = v[i][j] + cf[i] * in[j];
-      v[i][j] = in[j] * rd[i];
-    }
-  }
-
-  // Backward: x_i = z_i + cf_{i+1} x_{i+1}, the same steps from the last
-  // row to the first; x replaces z.
-  c = T(1);
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) t[j] = T(0);
-#pragma unroll
-  for (int i = kRows - 1; i >= 0; --i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) t[j] = v[i][j] + cf[i + 1] * t[j];
-    c = cf[i + 1] * c;
-  }
-  warp_scan_maps_cols(c, t, lane, true);
-  neighbour_map(c, t, lane, true, nc, nt);
-  if (lane == 0) {
-    bc[w] = c;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[w][j] = t[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = T(0);
-#pragma unroll
-  for (int k = kK1bWarps - 1; k > 0; --k) {
-    if (k > w && k < nw) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) in[j] = bv[k][j] + bc[k] * in[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) in[j] = nt[j] + nc * in[j];
-#pragma unroll
-  for (int i = kRows - 1; i >= 0; --i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      in[j] = v[i][j] + cf[i + 1] * in[j];
-      v[i][j] = in[j];
-    }
-  }
+  segment_solve(cf, rd, v, fc, fv, bc, bv, 0, blockDim.x >> 5);
 
   if (kMoves == kTile) {
     __syncwarp();  // every lane has taken its rows of B from the tile
@@ -933,6 +1016,223 @@ tridiag_solve_blocked_kernel(const T* __restrict__ dp,
         if (j0 + j < q) row[j] = v[i][j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1p's segment body: K1b's solve with K1p's gathers, for a factor decoupled
+// every `seg` rows (the blocked LDL^T that ops.banded builds for every
+// banded graph past 4096 nodes: city10000's 79 segments of 128 rows).
+//
+// What held K1p back on such factors: the cluster body solves the whole chain
+// on 16 of 132 SMs with a cross-block exchange of affine maps, moved B and X a
+// value at a time through iperm and summed X's columns with two barriers per
+// column group: 16.2 us of device time at (10000, 4) on an H100 (700 W), where
+// its byte bound is 0.13 us. Taking l = 0 at every segment start, the solve is
+// seg-row chains that share nothing, the contract of K1b; the reference itself
+// sends such factors to its segment kernel past 32768 rows
+// (mac_tpu/ops/tridiag.py). The permutation is not local (consecutive chain
+// rows lie a median of 97 RCM rows apart on city10000), so the rows stay
+// gathers: what the body does about them is to load them whole and all at once
+// from a block per segment.
+//
+// The design: K1b's threads for each (segment, group of kCols columns, lane), a
+// warp at seg 128, a block a segment; where the column sums are asked for, a
+// block holds up to kSegThreads / (those threads) segments, four at seg 128, so
+// that fewer blocks take part in the sums' ticket and the last block has more
+// threads (one segment a block is faster without the sums, several with them:
+// 3.7 against 4.2 us, and 17.3 against 10.9 with 8 lanes, at (10000, 4) float32
+// on an H100). A thread loads iperm for its kRows consecutive chain rows as one
+// vector, then B's rows through it, whole (one 16-byte load a row at q = 4
+// float32, two in float64), and in the adding form X's old rows beside them,
+// all in flight at once; B is centred by bsum / n. The thread's rows stay in
+// registers through K1b's solve (segment_solve, the same code: bitwise K1b on
+// the gathered, centred input), then leave through iperm by whole rows, added
+// to X's old rows in the adding form. X's column sums: each thread adds its
+// rows in order (float64), the warp by a fixed xor butterfly (16, 8, 4, 2, 1),
+// a segment its warps in order, a block its segments in order into part[(lane,
+// column), block]; the block with the last ticket loads those partials into
+// shared memory, all at once (a chunk at a time past kSumChunk), and a thread a
+// column adds them in block order (tridiag.py's k1p_segment_sum_model is this
+// order in numpy). No atomics but the ticket.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kK1bThreads)
+tridiag_solve_perm_seg_kernel(const T* __restrict__ dp,
+                              const T* __restrict__ l,
+                              const T* __restrict__ B, T* X, int n, int q,
+                              int seg, long long fstride, PermArgs<T> pa) {
+  using V4 = typename Vec4<T>::type;
+  const long long lane_id = blockIdx.z;
+  dp += lane_id * fstride;
+  l += lane_id * fstride;
+  B += lane_id * n * q;
+  X += lane_id * n * q;
+  __shared__ T fc[kK1bWarps], fv[kK1bWarps][kCols];
+  __shared__ T bc[kK1bWarps], bv[kK1bWarps][kCols];
+  __shared__ double wsum[kK1bWarps][kCols];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  // The thread's segment (sg, its place sl in the block), its warps and
+  // the thread's rows in it; a segment past n has no rows.
+  const int tps = ((seg + kRows - 1) / kRows + 31) & ~31;
+  const int nseg = (n + seg - 1) / seg;
+  const int sl = threadIdx.x / tps;
+  const int sg = blockIdx.x * (blockDim.x / tps) + sl;
+  const int nws = tps >> 5;
+  const int w0 = sl * nws;
+  const long long seg0 = static_cast<long long>(sg) * seg;
+  const int rows = static_cast<int>(
+      max(0LL, min(static_cast<long long>(seg), n - seg0)));
+  const int r0 = (threadIdx.x - sl * tps) * kRows;
+  const long long g0 = seg0 + r0;
+  const int j0 = blockIdx.y * kCols;
+  const V4 zero4 = vec4<T>(T(0), T(0), T(0), T(0));
+
+  // The thread's rows of B and X (row iperm[g0 + i]); past n, row 0 (never
+  // moved).
+  int src[kRows];
+  if (kVec && r0 + kRows <= rows) {
+    const int4 p4 = *reinterpret_cast<const int4*>(pa.iperm + g0);
+    src[0] = p4.x;
+    src[1] = p4.y;
+    src[2] = p4.z;
+    src[3] = p4.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      src[i] = r0 + i < rows ? pa.iperm[g0 + i] : 0;
+  }
+  T v[kRows][kCols], xo[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const bool live = r0 + i < rows;
+    const long long off = static_cast<long long>(src[i]) * q + j0;
+    if (kVec) {
+      const V4 b4 = live ? *reinterpret_cast<const V4*>(B + off) : zero4;
+      const V4 x4 = live && pa.add ? *reinterpret_cast<const V4*>(X + off)
+                                   : zero4;
+      v[i][0] = b4.x;
+      v[i][1] = b4.y;
+      v[i][2] = b4.z;
+      v[i][3] = b4.w;
+      xo[i][0] = x4.x;
+      xo[i][1] = x4.y;
+      xo[i][2] = x4.z;
+      xo[i][3] = x4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const bool in = live && j0 + j < q;
+        v[i][j] = in ? B[off + j] : T(0);
+        xo[i][j] = in && pa.add ? X[off + j] : T(0);
+      }
+    }
+  }
+  T cf[kRows + 1], rd[kRows];
+  segment_factor(dp, l, g0, r0, rows, kVec, cf, rd);
+  if (pa.bsum != nullptr) {
+    T mean[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      mean[j] = j0 + j < q ? static_cast<T>(pa.bsum[lane_id * q + j0 + j] /
+                                            static_cast<double>(n))
+                           : T(0);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (r0 + i < rows && j0 + j < q) v[i][j] = v[i][j] - mean[j];
+  }
+
+  segment_solve(cf, rd, v, fc, fv, bc, bv, w0, nws);
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (r0 + i >= rows) continue;
+    if (pa.add) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) v[i][j] = xo[i][j] + v[i][j];
+    }
+    T* row = X + static_cast<long long>(src[i]) * q + j0;
+    if (kVec) {
+      *reinterpret_cast<V4*>(row) = vec4<T>(v[i][0], v[i][1], v[i][2],
+                                            v[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j0 + j < q) row[j] = v[i][j];
+    }
+  }
+  if (pa.part == nullptr) return;
+  double s[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    s[j] = 0.0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (r0 + i < rows) s[j] += static_cast<double>(v[i][j]);
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1)
+      s[j] += __shfl_xor_sync(kFullMask, s[j], k);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) wsum[w][j] = s[j];
+  }
+  __syncthreads();
+  // The block's partial: each of its segments' sum (its warps in order),
+  // the segments in order.
+  const int nblk = gridDim.x;
+  const bool writer = threadIdx.x < kCols && j0 + threadIdx.x < q;
+  if (writer) {
+    double acc = 0.0;
+    for (int b = 0; b < static_cast<int>(blockDim.x) / tps; ++b) {
+      if (blockIdx.x * (blockDim.x / tps) + b >= nseg) break;
+      double part = 0.0;
+      for (int k = 0; k < nws; ++k) part += wsum[b * nws + k][threadIdx.x];
+      acc += part;
+    }
+    pa.part[(lane_id * q + j0 + threadIdx.x) * nblk + blockIdx.x] = acc;
+  }
+  // Only the partials must be visible to the last block (x reaches the
+  // next kernel at the launch boundary).
+  if (!last_ticket(pa.ticket, gridDim.x * gridDim.y * gridDim.z, writer))
+    return;
+  // The partials come into shared memory by chunks of at most kSumChunk,
+  // kSumLoads loads a thread in flight before their stores; a thread a
+  // column then adds them in block order.
+  extern __shared__ double buf[];
+  const int count = static_cast<int>(gridDim.z) * q;
+  const int cpc =
+      min(static_cast<int>(blockDim.x), max(1, kSumChunk / nblk));
+  const int spc = min(nblk, kSumChunk / cpc);
+  for (int c0 = 0; c0 < count; c0 += cpc) {
+    const int cc = min(cpc, count - c0);
+    double acc = 0.0;
+    for (int s0 = 0; s0 < nblk; s0 += spc) {
+      const int sc = min(spc, nblk - s0);
+      for (int e0 = threadIdx.x; e0 < cc * sc;
+           e0 += kSumLoads * blockDim.x) {
+        double v[kSumLoads];
+#pragma unroll
+        for (int u = 0; u < kSumLoads; ++u) {
+          const int e = e0 + u * blockDim.x;
+          const int c = e / sc;
+          if (e < cc * sc)
+            v[u] = __ldcg(pa.part + static_cast<long long>(c0 + c) * nblk +
+                          s0 + e - c * sc);
+        }
+#pragma unroll
+        for (int u = 0; u < kSumLoads; ++u)
+          if (e0 + u * blockDim.x < cc * sc) buf[e0 + u * blockDim.x] = v[u];
+      }
+      __syncthreads();
+      if (threadIdx.x < cc)
+        for (int k = 0; k < sc; ++k) acc += buf[threadIdx.x * sc + k];
+      __syncthreads();
+    }
+    if (threadIdx.x < cc) pa.osum[c0 + threadIdx.x] = acc;
+  }
+  if (threadIdx.x == 0) *pa.ticket = 0u;
 }
 
 // K1's (kPerm = false) or K1p's (true) function attributes for element
@@ -1024,6 +1324,42 @@ int k1b_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1p's segment body: the grid (segments, column groups, lanes), K1b's
+// threads for `seg` rows; whole-row moves (kVec) where q % 4 == 0 and dp,
+// l, iperm, B and X are 16-byte aligned at every lane.
+template <typename T>
+int k1p_seg_launch(const T* dp, const T* l, const T* B, T* X, int n, int q,
+                   int lanes, long long fstride, int seg, PermArgs<T> pa,
+                   void* stream) {
+  if (seg < 32 || seg > kMaxBlock || seg % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || q <= 0 || lanes <= 0) return 0;
+  const int tps = ((seg + kRows - 1) / kRows + 31) & ~31;
+  const int spb =
+      pa.part != nullptr && tps < kSegThreads ? kSegThreads / tps : 1;
+  const int nseg = (n + seg - 1) / seg;
+  const dim3 grid((nseg + spb - 1) / spb, (q + kCols - 1) / kCols, lanes);
+  const int threads = tps * spb;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(dp) | reinterpret_cast<uintptr_t>(l) |
+       reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(X) |
+       reinterpret_cast<uintptr_t>(pa.iperm)) % 16 == 0 &&
+      fstride % 4 == 0;
+  auto kernel = aligned && q % 4 == 0
+                    ? tridiag_solve_perm_seg_kernel<T, true>
+                    : tridiag_solve_perm_seg_kernel<T, false>;
+  // The last block's chunk of partials (the sums only).
+  const long long partials = static_cast<long long>(lanes) * q * grid.x;
+  const size_t smem =
+      pa.part == nullptr
+          ? 0
+          : sizeof(double) * static_cast<size_t>(
+                                 partials < kSumChunk ? partials : kSumChunk);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      dp, l, B, X, n, q, seg, fstride, pa);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1. B, X: (lanes, n, q) float32 (_f32) or float64 (_f64), row-major and
@@ -1045,11 +1381,14 @@ extern "C" int tridiag_solve_f64(const double* dp, const double* l,
 }
 
 // K1p. As K1, with iperm (n,) int32, B's column sums bsum (lanes, q)
-// float64 or null (no centring), the scratch Z (lanes, n, q) of the tiled
-// branch, add (X[iperm[j]] += x_j when non-zero), and, unless part is
-// null, X's column sums after the solve into osum (lanes, q) float64
-// through part (lanes * q * 16 float64) and ticket (one counter at 0, left
-// at 0).
+// float64 or null (no centring), add (X[iperm[j]] += x_j when non-zero),
+// and, unless part is null, X's column sums after the solve into osum
+// (lanes, q) float64 through part (the blocks' partials) and ticket (one
+// counter at 0, left at 0). tridiag_solve_perm_*: the cluster body, with
+// the scratch Z (lanes, n, q) of its tiles, part lanes * q * 16 float64.
+// tridiag_solve_perm_seg_*: the segment body for a factor decoupled every
+// `seg` rows (a multiple of 32 up to 1024; else cudaErrorInvalidValue), part
+// lanes * q * ceil(n / seg) float64.
 #define K1P_EXPORT(T, S)                                                    \
   extern "C" int tridiag_solve_perm_##S(                                    \
       const T* dp, const T* l, const T* B, T* X, int n, int q, int lanes,   \
@@ -1059,6 +1398,15 @@ extern "C" int tridiag_solve_f64(const double* dp, const double* l,
     PermArgs<T> pa = {iperm, bsum, Z, add, part, osum, ticket};             \
     return k1_launch<T, true>(dp, l, B, X, n, q, lanes, fstride, stream,    \
                               pa);                                          \
+  }                                                                         \
+  extern "C" int tridiag_solve_perm_seg_##S(                                \
+      const T* dp, const T* l, const T* B, T* X, int n, int q, int lanes,   \
+      long long fstride, int seg, const int* iperm, const double* bsum,     \
+      int add, double* part, double* osum, unsigned* ticket,                \
+      void* stream) {                                                       \
+    PermArgs<T> pa = {iperm, bsum, nullptr, add, part, osum, ticket};       \
+    return k1p_seg_launch<T>(dp, l, B, X, n, q, lanes, fstride, seg, pa,    \
+                             stream);                                       \
   }
 
 K1P_EXPORT(float, f32)

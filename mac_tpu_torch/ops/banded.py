@@ -48,8 +48,6 @@ from mac_tpu_torch.ops.kernels.assemble import assemble_ut
 from mac_tpu_torch.ops.lobpcg import (Operator, batched_trace,
                                       cholesky_upper)
 from mac_tpu_torch.ops.tridiag import (
-    SOLVE_BLOCK,
-    TRIDIAG_SCAN_MAX_N,
     TridiagFactor,
     tridiag_ldl_auto,
     tridiag_ldl_blocked,
@@ -655,7 +653,7 @@ def make_banded_precond(bop: BandedOperator, BD: BDRep,
 
     chosen = precond_additive if kind == "additive" else precond
     if kind == "mult" and fac is not None and sharded is None:
-        chosen = VCycle(bop, BD, fac, Lc_inv, plain=precond, smooth=smooth)
+        chosen = VCycle(bop, BD, fac, Lc_inv, plain=precond)
     if return_state:
         if fac is None:
             return chosen, PrecondState(Lc_inv=Lc_inv)
@@ -674,21 +672,18 @@ class VCycle:
     card the cycle is six launches of hand-written kernels, `cycle(R,
     rsum)`: K1p (the chain solve reading R's rows through the permutation,
     centred by R's column sums rsum), K5's residual form, K7's two
-    launches (restrict, the coarse product and the prolong-add into x), K5
-    again and K1p adding into x, which returns x uncentred with its column
-    sums (float64): pcg_fixed's K6 centres it on the fly. A factor that the
-    tridiagonal dispatch sends to the segment kernel K1b (past
-    TRIDIAG_SCAN_MAX_N rows) smooths by K1b between the gathers (`smooth`,
-    the chain solve in RCM order). Calling the cycle on CUDA tensors runs
-    `cycle` (through _vcycle_kernels) and centres its result."""
+    (restrict, then the coarse product and the prolong-add into x), K5 and
+    K1p adding into x, which returns x uncentred with its column sums
+    (float64): pcg_fixed's K6 centres it on the fly. K1p takes the factor's
+    `seg`: a factor decoupled every seg rows (every banded graph past 4096
+    nodes, the budget sweep's lanes too) goes to its segment body, an exact
+    one to its cluster body. Calling the cycle on CUDA tensors runs `cycle`
+    (through _vcycle_kernels) and centres its result."""
 
     def __init__(self, bop: BandedOperator, BD: BDRep, fac: TridiagFactor,
-                 Lc_inv: torch.Tensor, *, plain: Callable, smooth: Callable):
+                 Lc_inv: torch.Tensor, *, plain: Callable):
         self.bop, self.BD, self.fac, self.Lc_inv = bop, BD, fac, Lc_inv
-        self._plain, self.smooth = plain, smooth
-        n = bop.n
-        self.k1p = not (n > TRIDIAG_SCAN_MAX_N and fac.seg is not None
-                        and SOLVE_BLOCK % int(fac.seg) == 0)
+        self._plain = plain
 
     def plain(self, B: torch.Tensor) -> torch.Tensor:
         return self._plain(B)
@@ -697,15 +692,9 @@ class VCycle:
         bop, fac = self.bop, self.fac
         dp = fac.dp if fac.dp.dtype == B.dtype else fac.dp.to(B.dtype)
         l = fac.l if fac.l.dtype == B.dtype else fac.l.to(B.dtype)
-        if self.k1p:
-            return _k1.tridiag_solve_permuted(dp, l, B, bop.iperm, bop.perm,
-                                              bsum=bsum, X=X, sums=sums)
-        if bsum is not None:
-            B = B - (bsum / bop.n).to(B.dtype).unsqueeze(-2)
-        x = self.smooth(B)
-        if X is not None:
-            x = X + x
-        return (x, _kp.col_sums(x)) if sums else x
+        return _k1.tridiag_solve_permuted(dp, l, B, bop.iperm, bop.perm,
+                                          bsum=bsum, X=X, sums=sums,
+                                          seg=fac.seg)
 
     def cycle(self, R: torch.Tensor, rsum: torch.Tensor):
         """The cycle's kernels on R (RCM order, contiguous) with its column

@@ -19,7 +19,8 @@ Its forms, by keyword:
 K7 `coarse_correct(r, x, iperm, perm, Lc_inv, s)` stands for the coarse
 correction of the reference's V-cycle (mac_tpu/ops/banded.py:793-800):
 x + P Lc^-1 R r, R summing s consecutive original-order rows (through
-iperm), P its transpose; the kernel adds into x in place (two launches).
+iperm), P its transpose; the kernel adds into x in place (two launches,
+the second overlapping the first).
 
 Each wrapper launches its kernel for CUDA tensors (float32 or float64) and
 runs its plain PyTorch version (`*_plain`: for K5 the arithmetic of
@@ -39,8 +40,6 @@ from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
                                                reset_counts)
 
 BS = 128
-# Aggregates per block of K7 (csrc/banded.cu's kAggs).
-K7_AGGS = 16
 # K5's narrow body takes q up to this many columns (csrc/banded.cu's
 # kNarrowMaxQ) in blocks of K5_NARROW_ROWS rows (kNarrowRows); the wide
 # body in whole block rows.
@@ -333,15 +332,13 @@ def coarse_correct(r: torch.Tensor, x: torch.Tensor, iperm: torch.Tensor,
                          "contiguous")
     if any(a.device != r.device for a in (x, iperm, Lc_inv)):
         raise ValueError("coarse_correct: tensors on different devices")
-    nchunk = -(-nc // K7_AGGS)
-    xcp = torch.empty(lanes * nchunk * nc * q, dtype=torch.float64,
-                      device=r.device)
+    rc = torch.empty(lanes * nc * q, dtype=torch.float64, device=r.device)
     call = _build.function("banded", f"coarse_correct_{SUFFIX[r.dtype]}",
                            _SIGNATURES)
     err = _build.launch(call, r.device, r.data_ptr(), x.data_ptr(),
                         iperm.data_ptr(), Lc_inv.data_ptr(),
-                        _lane_stride(Lc_inv, 2, lanes), xcp.data_ptr(), n,
-                        q, nc, int(s), lanes)
+                        _lane_stride(Lc_inv, 2, lanes), rc.data_ptr(), n, q,
+                        nc, int(s), lanes)
     if err != 0:
         raise RuntimeError(f"coarse_correct kernel launch failed: cudaError "
                            f"{err}")

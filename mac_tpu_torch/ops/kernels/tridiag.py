@@ -6,7 +6,11 @@ kernels they replace, mac_tpu/ops/pallas/tridiag_kernel.py:
 
   K1  `tridiag_solve` (tridiag_solve_fused): whole rows;
   K1b `tridiag_solve_blocked` (tridiag_solve_fused_blocked): segments of
-      `block` rows, decoupled by taking l = 0 at each segment's first row.
+      `block` rows, decoupled by taking l = 0 at each segment's first row;
+  K1p `tridiag_solve_permuted`: the banded V-cycle's smoother with its
+      gathers through the permutation (mac_tpu/ops/banded.py:793-800), on
+      K1b's design for a factor decoupled every `seg` rows and on K1's for
+      an exact factor (its two bodies, counted in `.launches_by_body`).
 
 Both also take R lanes in one call: B of shape (R, n, q), with dp, l of
 shape (R, n) (a factor per lane: the budget sweep) or (n,) (one factor
@@ -23,6 +27,7 @@ launches}).
 
 import ctypes
 
+import numpy as np
 import torch
 
 from mac_tpu_torch.ops.kernels import _build
@@ -112,7 +117,10 @@ _SIGNATURES = {
                                                  ctypes.c_void_p]),
                       ("tridiag_solve_perm",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 4))
+                       + [ctypes.c_void_p] * 4),
+                      ("tridiag_solve_perm_seg",
+                       [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 4))
     for suffix in SUFFIX.values()}
 
 
@@ -227,36 +235,99 @@ def tridiag_solve_blocked(dp: torch.Tensor, l: torch.Tensor, B: torch.Tensor,
 
 
 def tridiag_solve_permuted_plain(dp, l, B, iperm, perm, *, bsum=None,
-                                 X=None, sums=False):
+                                 X=None, sums=False, seg=None):
     """Plain version of K1p: the V-cycle's smoother with its gathers, as
     ops.banded's cycle runs it: B centred by its own column means when
     bsum is given (bsum only says so), its rows gathered into the original
     order (iperm), K1's plain solve, the rows gathered back (perm), added
     to X when X is given; with sums=True also the result's column sums
-    (float64)."""
+    (float64). With seg, l is taken as 0 at every seg-th row, as the
+    segment body takes it: on a factor decoupled there (the blocked LDL^T)
+    the whole-row solve is the segments' solve."""
     if bsum is not None:
         B = B - B.mean(dim=-2, keepdim=True)
+    if seg is not None:
+        l = l.clone()
+        l[..., ::seg] = 0.0
     x = tridiag_solve_plain(dp, l, B[..., iperm, :])[..., perm, :]
     if X is not None:
         x = X + x
     return (x, x.double().sum(dim=-2)) if sums else x
 
 
+def permuted_body(seg) -> str:
+    """K1p's body for a factor: "segment" (K1b's design) for one
+    decoupled every `seg` rows, "cluster" (K1's) for an exact factor (seg
+    None)."""
+    return "cluster" if seg is None else "segment"
+
+
+# K1p's cluster body: blocks of a cluster, each with its column sums' partial.
+K1P_CLUSTER = 16
+
+
+# K1p's segment body: threads a block where it takes the column sums
+# (csrc/tridiag.cu's kSegThreads).
+K1P_SEG_THREADS = 128
+
+
+def k1p_segment_sum_model(values: np.ndarray, seg: int) -> np.ndarray:
+    """The segment body's order of X's column sums, in numpy float64:
+    values (n, q) (already rounded to the solve's type); per segment of seg
+    rows, thread t adds rows 4t .. 4t + 3 in order, each warp's 32 threads
+    by the xor butterfly 16, 8, 4, 2, 1, the warps in order; a block (of
+    K1P_SEG_THREADS threads, or a segment's threads past them) adds its
+    segments' sums in order, then the blocks' partials add in block order.
+    Returns (q,)."""
+    values = np.asarray(values, dtype=np.float64)
+    n, q = values.shape
+    threads = (-(-seg // 4) + 31) // 32 * 32  # a segment's (K1b's)
+    per_block = max(1, K1P_SEG_THREADS // threads) * seg
+    lanes = np.arange(32)
+    out = np.zeros(q)
+    for col in range(q):
+        total = 0.0
+        for b0 in range(0, n, per_block):
+            block_part = 0.0
+            for s0 in range(b0, min(n, b0 + per_block), seg):
+                block = values[s0:min(n, s0 + seg), col]
+                tsum = np.zeros(threads)
+                for t in range(threads):
+                    acc = 0.0
+                    for v in block[4 * t:4 * t + 4]:
+                        acc += v
+                    tsum[t] = acc
+                part = 0.0
+                for w in range(threads // 32):
+                    v = tsum[32 * w:32 * w + 32]
+                    for k in (16, 8, 4, 2, 1):
+                        v = v + v[lanes ^ k]
+                    part += v[0]
+                block_part += part
+            total += block_part
+        out[col] = total
+    return out
+
+
 def tridiag_solve_permuted(dp: torch.Tensor, l: torch.Tensor,
                            B: torch.Tensor, iperm: torch.Tensor,
                            perm: torch.Tensor, *, bsum: torch.Tensor = None,
-                           X: torch.Tensor = None, sums: bool = False):
+                           X: torch.Tensor = None, sums: bool = False,
+                           seg: int = None):
     """K1p, K1's permuted entry: x with x[iperm[j]] the solve's row j of
     (B - bsum / n)[iperm] (the centring when bsum, B's column sums in
     float64, is given), added into X in place when X is given; with
     sums=True also x's column sums (float64), summed in a fixed order.
     B, X (n, q) or (R, n, q) in the operator's (RCM) order, the factor in
-    the original order as K1 takes it. CUDA tensors: K1's body with
-    permuted loads and stores, one launch (any n: rows past shared memory
-    go through a natural-order scratch); CPU tensors: the plain version."""
+    the original order as K1 takes it; seg: the factor is decoupled every
+    seg rows (l taken as 0 there; a multiple of 32 up to 1024), or None for
+    an exact factor. CUDA tensors: one launch of the body permuted_body
+    picks, the segment body (K1b's solve a segment) or the cluster body
+    (K1's, any n: rows past shared memory go through a natural-order
+    scratch); CPU tensors: the plain version."""
     if not _on_card("tridiag_solve_permuted", dp, l, B):
         return tridiag_solve_permuted_plain(dp, l, B, iperm, perm, bsum=bsum,
-                                            X=X, sums=sums)
+                                            X=X, sums=sums, seg=seg)
     lead, (n, q) = B.shape[:-2], B.shape[-2:]
     lanes = B.shape[0] if B.dim() == 3 else 1
     if iperm.dtype != torch.int32 or iperm.shape != (n,) or \
@@ -272,33 +343,40 @@ def tridiag_solve_permuted(dp: torch.Tensor, l: torch.Tensor,
                           or not X.is_contiguous()):
         raise ValueError("tridiag_solve_permuted kernel: X must be "
                          "contiguous, of B's shape and type")
+    body = permuted_body(seg)
+    if body == "segment" and not (32 <= seg <= 1024 and seg % 32 == 0):
+        raise ValueError(f"tridiag_solve_permuted kernel: seg {seg} is not "
+                         "a multiple of 32 in [32, 1024]")
     from mac_tpu_torch.ops.kernels.pcg import ticket
 
     tk = ticket(B.device) if sums else None
     out = torch.empty_like(B) if X is None else X
-    Z = torch.empty_like(B)
+    # The segment body's partials, one a block: at most one a segment.
+    blocks = -(-n // seg) if body == "segment" else K1P_CLUSTER
     part = osum = None
     if sums:
-        part = torch.empty(lanes * q * 16, dtype=torch.float64,
+        part = torch.empty(lanes * q * blocks, dtype=torch.float64,
                            device=B.device)
         osum = torch.empty(want, dtype=torch.float64, device=B.device)
-
-    call = _build.function("tridiag",
-                           f"tridiag_solve_perm_{SUFFIX[B.dtype]}",
-                           _SIGNATURES)
     fstride = dp.shape[-1] if dp.dim() == 2 else 0
-    nul = 0
-    err = _build.launch(
-        call, B.device, dp.data_ptr(), l.data_ptr(), B.data_ptr(),
-        out.data_ptr(), n, q, lanes, fstride, iperm.data_ptr(),
-        nul if bsum is None else bsum.data_ptr(), Z.data_ptr(),
-        int(X is not None), nul if part is None else part.data_ptr(),
-        nul if osum is None else osum.data_ptr(),
-        nul if tk is None else tk.data_ptr())
+    args = [dp.data_ptr(), l.data_ptr(), B.data_ptr(), out.data_ptr(), n, q,
+            lanes, fstride]
+    sums_args = [0 if part is None else part.data_ptr(),
+                 0 if osum is None else osum.data_ptr(),
+                 0 if tk is None else tk.data_ptr()]
+    bsum_ptr = 0 if bsum is None else bsum.data_ptr()
+    if body == "segment":
+        fn = f"tridiag_solve_perm_seg_{SUFFIX[B.dtype]}"
+        args += [int(seg), iperm.data_ptr(), bsum_ptr, int(X is not None)]
+    else:
+        fn = f"tridiag_solve_perm_{SUFFIX[B.dtype]}"
+        Z = torch.empty_like(B)
+        args += [iperm.data_ptr(), bsum_ptr, Z.data_ptr(), int(X is not None)]
+    err = _build.launch(_build.function("tridiag", fn, _SIGNATURES),
+                        B.device, *args, *sums_args)
     if err != 0:
-        raise RuntimeError(f"tridiag_solve_perm kernel launch failed: "
-                           f"cudaError {err}")
-    count_launch(tridiag_solve_permuted, lanes, B.dtype)
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    count_launch(tridiag_solve_permuted, lanes, B.dtype, body)
     return (out, osum) if sums else out
 
 

@@ -21,10 +21,16 @@ after the warm solve (chip_smoke.step_kernels).
 --plain-cg runs every solve with the plain CG step (the torch ops that the
 kernels K5, K6, K1p and K7 stand for) on the card, as chip_smoke.py's
 phase 13 does in its "plain-cg" turn: the account before the kernels, on
-the same tree. Every line names the card and its power limit.
+the same tree. --before DIR first runs DIR's profile_cg.py (an older
+checkout, e.g. a `git archive` of the parent commit unpacked under build/)
+on the same cells in a process of its own, then this tree's, and ends
+with each cell's busy milliseconds and CG-step kernels before and after.
+Every line names the card and its power limit.
 """
 
 import argparse
+import re
+import subprocess
 import sys
 import time
 from contextlib import nullcontext
@@ -130,11 +136,31 @@ def main():
     ap.add_argument("--plain-cg", action="store_true",
                     help="the plain CG step on the card")
     ap.add_argument("--cells", default=",".join(CELLS))
+    ap.add_argument("--before", metavar="DIR",
+                    help="an older checkout to profile first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
     print(card, flush=True)
+    before = {}
+    if args.before:
+        cmd = [sys.executable, "profile_cg.py", "--cells", args.cells]
+        if args.plain_cg:
+            cmd.append("--plain-cg")
+        proc = subprocess.run(cmd, cwd=args.before, capture_output=True,
+                              text=True)
+        for line in proc.stdout.splitlines():
+            print(f"before | {line}", flush=True)
+            got = re.match(r"(.+) \((?:kernels|plain CG step)\): .*device busy "
+                           r"([0-9.]+) ms.*one CG step alone .*?: (\S+) "
+                           r"kernels", line)
+            if got:
+                before[got[1]] = (float(got[2]), got[3])
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+            fail(f"the older profile_cg.py in {args.before} exited "
+                 f"{proc.returncode}")
     import mac_tpu_torch  # noqa: F401 (sets the numerics policy)
     from concurrent.futures import ThreadPoolExecutor
 
@@ -147,6 +173,7 @@ def main():
     ctx = nullcontext
     if args.plain_cg:
         from chip_smoke import PlainCG as ctx
+    after = {}
     for name, (mac, solve) in build_cells(args.cells.split(",")).items():
         with ctx():
             t0 = time.perf_counter()
@@ -168,6 +195,12 @@ def main():
         for ms, cnt, nm in items[:10]:
             print(f"  {ms:9.3f} ms {cnt:7d} calls {1e3 * ms / cnt:8.2f} us "
                   f"a call  {nm[:110]}", flush=True)
+        after[name] = (busy, per_step[0])
+    for name, (busy, step) in after.items():
+        if name in before:
+            print(f"summary {name}: device busy {before[name][0]:.3f} -> "
+                  f"{busy:.3f} ms ({busy / before[name][0]:.3f}), one CG step "
+                  f"{before[name][1]} -> {step} kernels ({card})", flush=True)
     print(f"profile_cg: done ({card})", flush=True)
 
 

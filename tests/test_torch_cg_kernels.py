@@ -7,9 +7,12 @@ mac_tpu.ops.banded.banded_apply; the CG steps through K6's wrappers
 (mac_tpu_torch.ops.cg.pcg_fixed_steps) with the V-cycle's kernel forms
 (ops.banded.VCycle.cycle: K1p, K5's residual, K7) against
 mac_tpu.ops.cg.pcg_fixed over the JAX operator and V-cycle; one cycle
-against make_banded_precond's; K6's fixed order of a column sum (a numpy
-model, block_sum_model) against an exact float64 sum. Inputs come from
-numpy seeds and go to both packages as arrays."""
+against make_banded_precond's, on exact factors and on the segment-
+decoupled factors of graphs past 4096 nodes; which body of K1p the cycle
+sends each factor to; K6's and K1p's segment body's fixed orders of a
+column sum (numpy models, block_sum_model and k1p_segment_sum_model)
+against an exact float64 sum. Inputs come from numpy seeds and go to both
+packages as arrays."""
 
 import math
 
@@ -49,10 +52,12 @@ def pose_graph(n, n_loops, span, seed=3):
 
 
 # half 1 after RCM (with the overflow split at 1500), and half 2 in the
-# original order (spans up to 200 > one block).
+# original order (spans up to 200 > one block); past 4096 nodes (rcm5000)
+# the chain factor is decoupled every CHAIN_LDL_BLOCK rows.
 GRAPHS = {"rcm600": ((600, 200, 40), True, 1),
           "rcm1500": ((1500, 1200, 25), True, 1),
-          "wide1000": ((1000, 400, 200), False, 2)}
+          "wide1000": ((1000, 400, 200), False, 2),
+          "rcm5000": ((5000, 3000, 25), True, 1)}
 
 _cache = {}
 
@@ -225,7 +230,7 @@ def test_pcg_steps_match_jax_pcg_fixed(iters):
                                       jnp.zeros(iters)))
     tw = torch.as_tensor(w)
     Minv = tb.make_banded_precond(tbop, tBD, w=tw)
-    assert isinstance(Minv, tb.VCycle) and Minv.k1p
+    assert isinstance(Minv, tb.VCycle) and Minv.fac.seg is None
     apply_inner = tb.BandedProduct(tbop, tBD).shifted(
         torch.tensor(c, dtype=torch.float64),
         torch.tensor(sigma, dtype=torch.float64))
@@ -247,12 +252,16 @@ def _jax_precond_apply(jbop, w, B):
 
 
 @pytest.mark.parametrize("name,dtype", [("rcm600", "float64"),
-                                        ("rcm1500", "float32")])
+                                        ("rcm1500", "float32"),
+                                        ("rcm5000", "float64"),
+                                        ("rcm5000", "float32")])
 def test_vcycle_kernel_forms_match_jax_precond(name, dtype):
     """One application of the V-cycle through K1p's and K7's plain forms
     (VCycle.cycle, centred by its column sums) against the JAX package's
     make_banded_precond(...)(B) and the port's plain cycle: float64 to
-    1e-10, float32 to 1e-4 relative (the chain solve's scans)."""
+    1e-10, float32 to 1e-4 relative (the chain solve's scans). Past 4096
+    nodes (rcm5000) the chain factor is decoupled every 128 rows, which
+    the cycle hands K1p as its seg (the segment body on the card)."""
     jbop, jBD, tbop, tBD, w, n = operators(name, dtype)
     npt, jdt, tdt, _ = DTYPES[dtype]
     tol = 1e-10 if dtype == "float64" else 1e-4
@@ -261,6 +270,7 @@ def test_vcycle_kernel_forms_match_jax_precond(name, dtype):
     ref = np.asarray(_jax_precond_apply(jbop, jnp.asarray(w, jdt),
                                         jnp.asarray(B)))
     cyc = tb.make_banded_precond(tbop, tBD, w=torch.as_tensor(w, dtype=tdt))
+    assert cyc.fac.seg == (tb.CHAIN_LDL_BLOCK if n > 4096 else None)
     tB = torch.as_tensor(B)
     x, xsum = cyc.cycle(tB, kp.col_sums(tB))
     got = (x - (xsum / n).to(tdt)).numpy()
@@ -311,6 +321,161 @@ def test_k1p_and_k7_plain_forms():
     np.add.at(rc, agg, B.numpy())
     np.testing.assert_allclose(out, X.numpy() + (Lc_inv.numpy() @ rc)[agg],
                                rtol=1e-12, atol=1e-12)
+
+
+def test_segment_factor_whole_row_solve_is_the_blocked_solve():
+    """On the chain factor of a graph past 4096 nodes (decoupled every 128
+    rows, l = 0 at each segment start) the whole-row plain solve equals the
+    blocked plain solve at block = seg within 1e-12 (float64): the identity
+    K1p's segment body stands on. K1p's plain version with seg (l taken as
+    0 at the segment starts) is bitwise its version without."""
+    _, _, tbop, tBD, w, n = operators("rcm5000", "float64")
+    fac = tb.chain_factor(tbop, tBD, torch.as_tensor(w))
+    assert fac.seg == tb.CHAIN_LDL_BLOCK and n > 4096
+    assert torch.all(fac.l[::fac.seg] == 0)
+    rng = np.random.RandomState(4)
+    B = torch.as_tensor(rng.normal(size=(n, 4)))
+    whole = k1.tridiag_solve_plain(fac.dp, fac.l, B)
+    blocked = k1.tridiag_solve_blocked_plain(fac.dp, fac.l, B,
+                                             block=fac.seg)
+    assert rel_err(whole.numpy(), blocked.numpy()) < 1e-12
+    iperm, perm = tbop.iperm, tbop.perm
+    with_seg = k1.tridiag_solve_permuted(fac.dp, fac.l, B, iperm, perm,
+                                         bsum=kp.col_sums(B), seg=fac.seg)
+    without = k1.tridiag_solve_permuted(fac.dp, fac.l, B, iperm, perm,
+                                        bsum=kp.col_sums(B))
+    assert torch.equal(with_seg, without)
+    # A factor whose l is not zero at the segment starts: the plain version
+    # with seg solves the decoupled segments, as the segment body does.
+    l_coupled = fac.l.clone()
+    l_coupled[fac.seg::fac.seg] = -0.25
+    got = k1.tridiag_solve_permuted(fac.dp, l_coupled, B, iperm, perm,
+                                    seg=fac.seg)
+    want = k1.tridiag_solve_blocked_plain(fac.dp, l_coupled, B[iperm],
+                                          block=fac.seg)[perm]
+    assert rel_err(got.numpy(), want.numpy()) < 1e-12
+
+
+def _record_k1p(monkeypatch):
+    """The seg of every K1p call ops.banded makes, with K1 and K1b (the
+    retired K1b-between-gathers smoothing) refused."""
+    segs = []
+    real = k1.tridiag_solve_permuted
+
+    def k1p(*args, seg=None, **kw):
+        segs.append(seg)
+        return real(*args, seg=seg, **kw)
+
+    def refused(*args, **kw):
+        raise AssertionError("the cycle's kernels smoothed outside K1p")
+
+    monkeypatch.setattr(tb._k1, "tridiag_solve_permuted", k1p)
+    monkeypatch.setattr(tb._k1, "tridiag_solve_blocked", refused)
+    monkeypatch.setattr(tb._k1, "tridiag_solve", refused)
+    monkeypatch.setattr(tb, "tridiag_solve_factored_fast", refused)
+    return segs
+
+
+def test_vcycle_sends_each_factor_to_its_k1p_body(monkeypatch):
+    """VCycle.cycle hands K1p the factor's seg: the segment body for every
+    decoupled factor (a graph past 4096 nodes, its budget lanes, and a
+    graph past TRIDIAG_SCAN_MAX_N = 32768 nodes, which earlier smoothed by
+    K1b between PyTorch gathers), the cluster body for an exact one; no
+    other chain solve runs in the cycle, and the cycle keeps no smoother of
+    its own."""
+    from mac_tpu_torch.ops.tridiag import TRIDIAG_SCAN_MAX_N
+
+    cases = []
+    for name in ("rcm600", "rcm5000"):
+        _, _, tbop, tBD, w, n = operators(name, "float32")
+        cases.append((tbop, tBD, torch.as_tensor(w), n))
+    _, _, tbop, _, w, n = operators("rcm5000", "float32")
+    rng = np.random.RandomState(6)
+    ws = torch.as_tensor(np.stack([w, w * (0.5 + rng.rand(len(w)))]))
+    cases.append((tbop, tb.assemble_bd(tbop, ws), ws, n))
+    idx, wl, nl = pose_graph(TRIDIAG_SCAN_MAX_N + 300, 2000, 25, seed=9)
+    bl = tb.build_banded_rcm(idx, nl)[0]
+    wl = torch.as_tensor(wl, dtype=torch.float32)
+    cases.append((bl, tb.assemble_bd(bl, wl), wl, nl))
+    segs = _record_k1p(monkeypatch)
+    for bop, BD, w, n in cases:
+        cyc = tb.make_banded_precond(bop, BD, w=w)
+        assert isinstance(cyc, tb.VCycle)
+        assert not hasattr(cyc, "smooth") and not hasattr(cyc, "k1p")
+        lead = w.shape[:-1]
+        B = torch.as_tensor(rng.normal(size=(*lead, n, 3)), dtype=BD.ut.dtype)
+        segs.clear()
+        cyc.cycle(B, kp.col_sums(B))
+        want = tb.CHAIN_LDL_BLOCK if n > 4096 else None
+        assert segs == [want, want], (n, segs)
+        assert k1.permuted_body(want) == ("segment" if n > 4096
+                                          else "cluster")
+
+
+def test_k1p_wrapper_launches_the_body_of_its_seg(monkeypatch):
+    """With a card standing in (the wrapper's checks pass for CPU tensors
+    and the launch records the exported function and its arguments), K1p
+    calls tridiag_solve_perm_seg_* with seg and a partial a segment per
+    column for a decoupled factor, tridiag_solve_perm_* for an exact one,
+    and counts each launch by body."""
+    from mac_tpu_torch.ops.kernels import _build
+
+    launched = []
+    real_on_card = k1._on_card
+
+    def on_card(name, dp, l, B):
+        real_on_card(name, dp, l, B)
+        k1.check_kernel_args(name, dp, l, B)
+        return True
+
+    def function(src, fn, sigs):
+        assert fn in sigs
+        return fn
+
+    def launch(fn, device, *args):
+        launched.append((fn, args))
+        return 0
+
+    monkeypatch.setattr(k1, "_on_card", on_card)
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(kp, "ticket", lambda dev: torch.zeros(1))
+    k1.reset_counts(k1.tridiag_solve_permuted)
+    n, q = 1000, 4
+    rng = np.random.RandomState(2)
+    dp = torch.as_tensor(1.0 + rng.rand(n))
+    l = torch.as_tensor(-0.3 * rng.rand(n))
+    B = torch.as_tensor(rng.normal(size=(2, n, q)))
+    perm = torch.as_tensor(rng.permutation(n), dtype=torch.int32)
+    iperm = torch.argsort(perm).to(torch.int32)
+    k1.tridiag_solve_permuted(dp, l, B, iperm, perm, X=B.clone(), sums=True,
+                              seg=128)
+    k1.tridiag_solve_permuted(dp, l, B, iperm, perm, sums=True)
+    (fn_s, args_s), (fn_c, args_c) = launched
+    assert fn_s == "tridiag_solve_perm_seg_f64" and args_s[8] == 128
+    assert args_s[11] == 1  # adding into X
+    assert fn_c == "tridiag_solve_perm_f64"
+    assert k1.tridiag_solve_permuted.launches_by_body == {"segment": 1,
+                                                          "cluster": 1}
+    assert k1.tridiag_solve_permuted.launches_by_lanes == {2: 2}
+    with pytest.raises(ValueError):
+        k1.tridiag_solve_permuted(dp, l, B, iperm, perm, seg=100)
+
+
+@pytest.mark.parametrize("shape,seg", [((10000, 4), 128), ((1000, 3), 96),
+                                       ((257, 1), 32), ((3000, 2), 1024)])
+def test_k1p_segment_sum_order_model_against_exact_sum(shape, seg):
+    """k1p_segment_sum_model, the segment body's order of X's column sums
+    (a thread's four rows in order, a warp's xor butterfly, the warps in
+    order, a block's segments in order, the blocks in order), is within
+    1e-14 of the exactly rounded float64 sum."""
+    rng = np.random.RandomState(1)
+    A = rng.normal(size=shape).astype(np.float32)
+    model = k1.k1p_segment_sum_model(A, seg)
+    exact = np.array([math.fsum(A[:, j].astype(np.float64))
+                      for j in range(shape[1])])
+    scale = np.abs(A).sum(axis=0)
+    assert np.all(np.abs(model - exact) <= 1e-14 * scale)
 
 
 @pytest.mark.parametrize("shape", [(1000, 4), (600, 300), (257, 1)])

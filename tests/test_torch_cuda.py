@@ -17,8 +17,9 @@ stamps; a replayed solve at q = 11), with
 TRACEMIN's lanes (GreedyEig's trial chunk, the budget sweep) launching it
 once a lane batch and never calling torch.linalg.eigh, and TRACEMIN's
 inner CG step's kernels: K5 (the banded product in its forms), K6 (the
-PCG update's passes and sums), K1p (K1's permuted entry, bitwise K1 on
-the gathered input) and K7 (the coarse correction) against their plain
+PCG update's passes and sums), K1p (K1's permuted entry: its cluster
+body bitwise K1 on the gathered input, its segment body bitwise K1b) and
+K7 (the coarse correction) against their plain
 versions, bitwise repeatable, and a replayed city10000 inner solve in at
 most 16 device kernels a CG step. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
@@ -1536,24 +1537,31 @@ def test_k6_passes_match_plain_and_repeat(dev, dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,q,lanes", [(1500, 4, None), (1500, 4, 3),
-                                       (33000, 40, None), (1500, 130, None)])
-def test_k1p_is_k1_on_the_gathered_input(dev, dtype, n, q, lanes):
+                                       (33000, 40, None), (1500, 130, None),
+                                       (10000, 4, None)])
+@pytest.mark.parametrize("body", ["cluster", "segment"])
+def test_k1p_is_k1_on_the_gathered_input(dev, dtype, n, q, lanes, body):
     """K1p, centring by B's sums, storing through the permutation, then
-    adding into X with its column sums: bitwise K1 on the gathered,
-    centred input scattered back, and within 1e-5 (float32) or 1e-12
-    (float64) of the plain version (the tiled branch at (33000, 40),
-    column groups at q 130)."""
+    adding into X with its column sums, in both bodies: the cluster body
+    (an exact factor) bitwise K1 on the gathered, centred input scattered
+    back, the segment body (a factor decoupled every 128 rows, seg 128)
+    bitwise K1b at block 128 on it; each within 1e-5 (float32) or 1e-12
+    (float64) of the plain version (the cluster body's tiled branch at
+    (33000, 40), column groups at q 130, lanes with a factor each); the
+    segment body's column sums bitwise its order's numpy model
+    (k1p_segment_sum_model) on the X it wrote."""
     from mac_tpu_torch.ops.kernels import pcg as kp
     from mac_tpu_torch.ops.kernels.tridiag import (
-        tridiag_solve_permuted_plain)
+        k1p_segment_sum_model, tridiag_solve_permuted_plain)
 
+    seg = None if body == "cluster" else 128
     d, e, rng = _chain(n, 21, dev)
     d, e = d.to(dtype), e.to(dtype)
     if lanes:
         d = d * torch.as_tensor(1.0 + rng.rand(lanes, 1), dtype=dtype,
                                 device=dev)
         e = e.expand(lanes, -1).contiguous()
-    f = tridiag_ldl(d, e)
+    f = tridiag_ldl(d, e) if seg is None else tridiag_ldl_blocked(d, e, seg)
     lead = (lanes,) if lanes else ()
     perm = torch.as_tensor(rng.permutation(n), dtype=torch.int32,
                            device=dev)
@@ -1563,45 +1571,63 @@ def test_k1p_is_k1_on_the_gathered_input(dev, dtype, n, q, lanes):
                         device=dev)
     X0 = torch.as_tensor(rng.normal(size=B.shape), dtype=dtype, device=dev)
     bsum = kp.col_sums(B)
+    counts = dict(tridiag_solve_permuted.launches_by_body)
     x = _twice(lambda: tridiag_solve_permuted(f.dp, f.l, B, iperm, perm,
-                                              bsum=bsum))[0]
+                                              bsum=bsum, seg=seg))[0]
+    assert tridiag_solve_permuted.launches_by_body[body] == \
+        counts.get(body, 0) + 2
     m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
-    twin = tridiag_solve(f.dp, f.l, (B[..., iperm.long(), :] - m)
-                         .contiguous())[..., perm.long(), :]
-    assert torch.equal(x, twin)
+    Bn = (B[..., iperm.long(), :] - m).contiguous()
+    solved = (tridiag_solve(f.dp, f.l, Bn) if seg is None
+              else tridiag_solve_blocked(f.dp, f.l, Bn, block=seg))
+    assert torch.equal(x, solved[..., perm.long(), :])
     tol = _CG_TOL[dtype]
-    ref = tridiag_solve_permuted_plain(f.dp, f.l, B, iperm, perm, bsum=bsum)
+    ref = tridiag_solve_permuted_plain(f.dp, f.l, B, iperm, perm, bsum=bsum,
+                                       seg=seg)
     assert _rel(x, ref) <= tol
     X = X0.clone()
     got, s = tridiag_solve_permuted(f.dp, f.l, B, iperm, perm, X=X,
-                                    sums=True)
+                                    sums=True, seg=seg)
     assert got is X
     want, s_ref = tridiag_solve_permuted_plain(f.dp, f.l, B, iperm, perm,
-                                               X=X0, sums=True)
+                                               X=X0, sums=True, seg=seg)
     assert _rel(got, want) <= tol and _rel(s, s_ref) <= tol
+    if seg is not None:
+        # X's rows in chain order (row j at iperm[j]), as the body sums them.
+        vals = got.cpu().numpy().reshape((-1, n, q))[:, iperm.cpu().long()]
+        model = np.stack([k1p_segment_sum_model(v, seg) for v in vals])
+        np.testing.assert_array_equal(s.cpu().numpy().reshape(model.shape),
+                                      model)
     X = X0.clone()
-    again = tridiag_solve_permuted(f.dp, f.l, B, iperm, perm, X=X, sums=True)
+    again = tridiag_solve_permuted(f.dp, f.l, B, iperm, perm, X=X, sums=True,
+                                   seg=seg)
     assert torch.equal(again[0], got) and torch.equal(again[1], s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("lanes,q", [(None, 4), (2, 4), (None, 40)])
-def test_k7_matches_plain_and_repeats(dev, dtype, lanes, q):
-    """K7 (restrict, the coarse product, the prolong-add into x, two
-    launches) on a banded operator's aggregates against its plain
-    version, with a coarse inverse per lane."""
+@pytest.mark.parametrize("lanes,q,shared", [
+    (None, 4, False), (2, 4, False), (2, 4, True), (None, 40, False),
+    (None, 11, False), (None, 12, False), (2, 11, False), (2, 12, True)])
+def test_k7_matches_plain_and_repeats(dev, dtype, lanes, q, shared):
+    """K7 (restrict, then the coarse product and the prolong-add into x)
+    on a banded operator's aggregates against its plain version,
+    with a coarse inverse per lane or one shared by the lanes (shared), at
+    the CG step's q 4, 11 and 12 and past a cluster's column tile (40)."""
     from mac_tpu_torch.ops.kernels import banded as kb
 
     op, BD, w = _banded_case(dev, dtype, lanes=lanes)
     M = banded.make_banded_precond(op, BD, w=w)
+    Lc_inv = M.Lc_inv[0].contiguous() if shared else M.Lc_inv
     lead = (lanes,) if lanes else ()
     rng = np.random.RandomState(9)
     r = torch.as_tensor(rng.normal(size=lead + (op.n, q)), dtype=dtype,
                         device=dev)
     x0 = torch.as_tensor(rng.normal(size=r.shape), dtype=dtype, device=dev)
+    before = kb.coarse_correct.launches
     got = _twice(lambda: kb.coarse_correct(r, x0.clone(), op.iperm, op.perm,
-                                           M.Lc_inv, op.coarse_s))[0]
-    ref = kb.coarse_correct_plain(r, x0, op.iperm, op.perm, M.Lc_inv,
+                                           Lc_inv, op.coarse_s))[0]
+    assert kb.coarse_correct.launches == before + 2
+    ref = kb.coarse_correct_plain(r, x0, op.iperm, op.perm, Lc_inv,
                                   op.coarse_s)
     assert _rel(got, ref) <= _CG_TOL[dtype]
 
@@ -1631,8 +1657,9 @@ def test_city_shaped_inner_solve_replays_in_few_kernels(dev):
     operator at its start weights: bitwise the eager kernel loop (K5's
     inner form, K6, the V-cycle's K1p, K5 and K7), within 1e-4 relative of
     the plain PyTorch loop (pcg_fixed_plain over the plain cycle), and one
-    CG step of at most 16 device kernels (6 steps less 5, profiled)."""
-    from chip_smoke import dataset_inputs, device_items
+    CG step of chip_smoke.STEP_KERNELS device kernels (6 steps less 5,
+    profiled)."""
+    from chip_smoke import STEP_KERNELS, dataset_inputs, device_items
     from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.cg import pcg_fixed, pcg_fixed_plain
 
@@ -1658,10 +1685,15 @@ def test_city_shaped_inner_solve_replays_in_few_kernels(dev):
                                        sigma=sigma), B, M.plain, iters=5,
         X0=X0)
     assert _rel(got, plain) <= 1e-4
-    kernels = []
+    got = []
     for iters in (5, 6):
         graphs.inner_replay(route, state, B, X0, iters)
         torch.cuda.synchronize()
-        kernels.append(device_items(
-            lambda: graphs.inner_replay(route, state, B, X0, iters))[1])
-    assert 0 < kernels[1] - kernels[0] <= 16, kernels
+        got.append(device_items(
+            lambda: graphs.inner_replay(route, state, B, X0, iters)))
+    step = {}  # the device items one more step adds, by name
+    for sign, (_, _, items) in zip((-1, 1), got):
+        for _, cnt, name in items:
+            step[name[:70]] = step.get(name[:70], 0) + sign * cnt
+    assert got[1][1] - got[0][1] == STEP_KERNELS, {
+        name: cnt for name, cnt in step.items() if cnt}
