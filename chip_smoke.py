@@ -116,8 +116,10 @@ its wall time printed:
      iteration's (10000, 33), the coarse assembly's (10000, 500) in
      float32 and float64, sphere2500's (2500, 4), 8 lanes, float64;
      library: torch.sparse.mm of L(w) as BSR), K6 (col_sums,
-     cg_update, cg_direction; float32, float64, 8 lanes; library for the
-     sums: torch.linalg.vecdot), K1p tridiag_solve_permuted in both
+     cg_update, cg_direction_dots; float32, float64, 8 lanes, and the
+     first step's form; col_sums bitwise its order's numpy model,
+     block_sum_model, and the fused pass's dots bitwise col_sums; library
+     for the sums: torch.linalg.vecdot), K1p tridiag_solve_permuted in both
      bodies (k1p_cases: the segment body on city10000's factor, decoupled
      every 128 rows, bitwise K1b at block 128 on the gathered, centred
      input, at (10000, 4) in both forms, float32 and float64, 8 lanes, and
@@ -395,10 +397,11 @@ CITY_GAP_FLOOR = -1e-4
 HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
 # Phase 13: device kernels one replayed CG step of city10000 runs: K5's
 # inner form and K6's first pass; the V-cycle's K1p, K5 residual, K7
-# (K7_LAUNCHES launches a call), K5 residual and K1p adding; K6's dots and
-# second pass (141 before kernels K5, K6, K1p and K7).
+# (K7_LAUNCHES launches a call), K5 residual and K1p adding; K6's second
+# pass with the dots (141 before kernels K5, K6, K1p and K7; 10 before the
+# second pass took the dots).
 K7_LAUNCHES = 2
-STEP_KERNELS = 8 + K7_LAUNCHES
+STEP_KERNELS = 7 + K7_LAUNCHES
 
 
 def fail(msg: str) -> None:
@@ -522,8 +525,8 @@ FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
 # is K1's body with permuted loads and stores: on the banded routes it
 # takes K1's place in the V-cycle.
 CG_KERNELS = ("banded_product", "coarse_correct", "tridiag_solve_permuted",
-              "col_sums", "cg_update", "cg_direction")
-K6_KERNELS = ("col_sums", "cg_update", "cg_direction")
+              "col_sums", "cg_update", "cg_direction_dots")
+K6_KERNELS = ("col_sums", "cg_update", "cg_direction_dots")
 
 
 def k1_body(got, key=None):
@@ -540,8 +543,8 @@ def k1_body(got, key=None):
 # single-solve, lane and float64 routes.
 CG_PLAINS = ("banded_product_plain", "coarse_correct_plain",
              "tridiag_solve_permuted_plain", "col_sums_plain",
-             "cg_update_plain", "cg_direction_plain", "pcg_fixed_plain",
-             "plain")
+             "cg_update_plain", "cg_direction_plain",
+             "cg_direction_dots_plain", "pcg_fixed_plain", "plain")
 
 
 class PlainOnCard:
@@ -573,7 +576,8 @@ class PlainOnCard:
             (kb, "banded_product_plain"), (kb, "coarse_correct_plain"),
             (tridiag, "tridiag_solve_permuted_plain"),
             (pcg, "col_sums_plain"), (pcg, "cg_update_plain"),
-            (pcg, "cg_direction_plain"), (cg, "pcg_fixed_plain"),
+            (pcg, "cg_direction_plain"), (pcg, "cg_direction_dots_plain"),
+            (cg, "pcg_fixed_plain"),
             (banded.VCycle, "plain"))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
@@ -677,7 +681,7 @@ class PlainCG:
                   tridiag.tridiag_solve_permuted_plain),
                  (pcg, "col_sums", pcg.col_sums_plain),
                  (pcg, "cg_update", pcg.cg_update_plain),
-                 (pcg, "cg_direction", pcg.cg_direction_plain)]
+                 (pcg, "cg_direction_dots", pcg.cg_direction_dots_plain)]
         self.saved = [(mod, name, getattr(mod, name))
                       for mod, name, _ in swaps]
         for mod, name, new in swaps:
@@ -1863,7 +1867,8 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
     11), the V-cycle's residual form, the outer iteration's (10000, 12)
     and (10000, 33), the coarse assembly's nc = 500 columns in float32 and
     float64, sphere2500's (2500, 4), 8 lanes (8, 10000, 4), float64), K6
-    (col_sums, cg_update, cg_direction; float32, float64, 8 lanes), K1p
+    (col_sums, cg_update, cg_direction_dots; float32, float64, 8 lanes),
+    K1p
     (tridiag_solve_permuted: the cycle's first smoothing with its
     centring, the second adding into x with its column sums, 8 lanes,
     float64, and the tiled branch at (32768, 16) float64) and K7
@@ -1894,61 +1899,23 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
                         replaces=rep5)
 
     # K6 at the CG step's shapes.
-    rep6 = "mac_tpu/ops/cg.py:52 (pcg_fixed's loop body; not Pallas)"
-    for tag, lead, dtype in (("", (), torch.float32),
-                             ("_f64", (), torch.float64),
-                             ("_lanes", (8,), torch.float32)):
-        n, q = bop.n, 4
-        it = torch.finfo(dtype).bits // 8
-        ln = lead[0] if lead else 1
-        tol = CG_TOL[str(dtype).split(".")[-1]]
-        A, M = rand(*lead, n, q, dtype=dtype), rand(*lead, n, q, dtype=dtype)
-        msum = kp.col_sums(M)
-        tm = cg_case(f"K6 col_sums{tag} {tuple(A.shape)}, the dots R . Z "
-                     "with Z centred", card,
-                     lambda: kp.col_sums(A, M, msum),
-                     lambda: kp.col_sums_plain(A, M, msum),
-                     it * 2 * ln * n * q, 3.0 * ln * n * q, it, tol,
-                     library=lambda: torch.linalg.vecdot(A, M, dim=-2))
-        out["K6_colsum" + tag] = dict(tm, name="col_sums",
-                                      shape=str(tuple(A.shape)),
-                                      source="mac_tpu_torch/csrc/pcg.cu",
-                                      replaces=rep6)
-        X0, R0, P0, AP = (rand(*lead, n, q, dtype=dtype) for _ in range(4))
-        rz0 = rand(*lead, q, dtype=dtype)
-        pap = rand(*lead, q, dtype=torch.float64)
-        X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
-
-        def fresh():
-            X.copy_(X0)
-            R.copy_(R0)
-            P.copy_(P0)
-            rz.copy_(rz0)
-
-        tm = cg_case(f"K6 cg_update{tag} {tuple(X.shape)} with R's sums",
-                     card, lambda: (X, R, kp.cg_update(X, R, P, AP, rz, pap,
-                                                       sums=True)),
-                     lambda: (X, R, kp.cg_update_plain(X, R, P, AP, rz, pap,
-                                                       sums=True)),
-                     it * 6 * ln * n * q, 5.0 * ln * n * q, it, tol,
-                     fresh=fresh)
-        out["K6_update" + tag] = dict(tm, name="cg_update",
-                                      shape=str(tuple(X.shape)),
-                                      source="mac_tpu_torch/csrc/pcg.cu",
-                                      replaces=rep6)
-        Z = rand(*lead, n, q, dtype=dtype)
-        zsum, rz_new = kp.col_sums(Z), kp.col_sums(R0, Z, kp.col_sums(Z))
-        tm = cg_case(f"K6 cg_direction{tag} {tuple(P.shape)} with P's sums",
-                     card, lambda: (P, rz, kp.cg_direction(
-                         P, Z, zsum, rz, rz_new, sums=True)),
-                     lambda: (P, rz, kp.cg_direction_plain(
-                         P, Z, zsum, rz, rz_new, sums=True)),
-                     it * 3 * ln * n * q, 4.0 * ln * n * q, it, tol,
-                     fresh=fresh)
-        out["K6_direction" + tag] = dict(tm, name="cg_direction",
-                                         shape=str(tuple(P.shape)),
-                                         source="mac_tpu_torch/csrc/pcg.cu",
-                                         replaces=rep6)
+    floors6 = k6_floors(dev)
+    print("3f K6 launch floors (the smallest launch of each wrapper): "
+          + ", ".join(f"{k} {v:.5f} ms" for k, v in floors6.items())
+          + f" ({card})", flush=True)
+    for c in k6_cases(dev, bop.n, rng):
+        tm = cg_case(c["label"], card, c["kernel"], c["plain"], c["bytes"],
+                     c["flops"], c["itemsize"], c["tol"], library=c["library"],
+                     fresh=c["fresh"])
+        if c["model"] is not None:
+            got_sums, want_sums = c["model"]()
+            if not torch.equal(got_sums, want_sums):
+                fail(f"3f {c['label']}: {c['model_of']}")
+        out[c["key"]] = dict(tm, name=c["name"], shape=c["shape"],
+                             floor_ms=floors6[f"K6 {c['name']}"],
+                             source="mac_tpu_torch/csrc/pcg.cu",
+                             replaces="mac_tpu/ops/cg.py:52 (pcg_fixed's loop "
+                                      "body; not Pallas)")
 
     # K1p (both bodies) and K7 on the cycles' factors and coarse inverses.
     srcs = {"K1p": "mac_tpu_torch/csrc/tridiag.cu",
@@ -2010,6 +1977,133 @@ def launch_floors(dev, segment=True):
     floors["K7"] = device_ms(lambda: kb.coarse_correct(x1, x1, i1, i1, lc1,
                                                        1))
     return floors
+
+
+def k6_floors(dev, dots=None):
+    """Device ms of the smallest launch each K6 wrapper can make (one block
+    of a (1, 1) float32 block, every sum asked for): col_sums, cg_update
+    and the second pass with the dots, `dots(P, R, Z, zsum, rz, init,
+    sums)`, by default cg_direction_dots (kernel_ab.py passes an older
+    library's col_sums and cg_direction, two launches)."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    dots = dots or kp.cg_direction_dots
+    x = torch.ones((1, 1), device=dev)
+    rz = torch.ones(1, device=dev)
+    pap = torch.ones(1, dtype=torch.float64, device=dev)
+    return {"K6 col_sums": device_ms(lambda: kp.col_sums(x)),
+            "K6 cg_update": device_ms(lambda: kp.cg_update(
+                x, x, x, x, rz, pap, sums=True)),
+            "K6 cg_direction_dots": device_ms(lambda: dots(
+                x, x, x, None, rz, False, True))}
+
+
+def k6_cases(dev, n, rng):
+    """Phase 3f's K6 cases at the CG step's shapes, (n, 4) in float32 and
+    float64 and (8, n, 4), inputs drawn from rng: col_sums as the dots R .
+    Z with Z centred (its sums, and the plain column sums of A, bitwise
+    block_sum_model in float32), cg_update with R's sums, and
+    cg_direction_dots with P's sums (rz_new bitwise col_sums(R, Z, zsum));
+    in float32 also its first-step form (P = Z). Each a dict: "key",
+    "name" (the wrapper's), "label", "shape", "kernel", "plain", "fresh"
+    (restores the in-place inputs), the bytes read once and written once,
+    the operations, itemsize, tolerance, "library" (torch.linalg.vecdot
+    for the dots, or None), "model" (None, or () -> (got, want) to be
+    bitwise equal; "model_of" says what it holds), "kind" ("colsum",
+    "update", "dots", "dots_init") and "inputs" (the tensors by name)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    cases = []
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    for tag, lead, dtype in (("", (), torch.float32),
+                             ("_f64", (), torch.float64),
+                             ("_lanes", (8,), torch.float32)):
+        q = 4
+        it = torch.finfo(dtype).bits // 8
+        ln = lead[0] if lead else 1
+        tol = CG_TOL[str(dtype).split(".")[-1]]
+        shape = str((*lead, n, q))
+        A, M = rand(*lead, n, q, dtype=dtype), rand(*lead, n, q, dtype=dtype)
+        msum = kp.col_sums(M)
+        model = None
+        if not tag:
+            def model(A=A, M=M, msum=msum):
+                Mc = M - (msum / n).to(M.dtype)
+                got = torch.stack([kp.col_sums(A), kp.col_sums(A, M, msum)])
+                want = [kp.block_sum_model(v.cpu().numpy())
+                        for v in (A, A * Mc)]
+                return got.cpu(), torch.as_tensor(np.array(want))
+        cases.append(dict(
+            key="K6_colsum" + tag, name="col_sums", kind="colsum",
+            label=f"K6 col_sums{tag} {shape}, the dots R . Z with Z centred",
+            shape=shape, kernel=lambda A=A, M=M, msum=msum: kp.col_sums(
+                A, M, msum),
+            plain=lambda A=A, M=M, msum=msum: kp.col_sums_plain(A, M, msum),
+            fresh=None, bytes=it * 2 * ln * n * q, flops=3.0 * ln * n * q,
+            itemsize=it, tol=tol, model=model,
+            model_of="sums not bitwise block_sum_model",
+            library=lambda A=A, M=M: torch.linalg.vecdot(A, M, dim=-2),
+            inputs=dict(A=A, M=M, msum=msum)))
+        X0, R0, P0, AP = (rand(*lead, n, q, dtype=dtype) for _ in range(4))
+        rz0 = rand(*lead, q, dtype=dtype)
+        pap = rand(*lead, q, dtype=torch.float64)
+        X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
+
+        def fresh(X=X, R=R, P=P, rz=rz, X0=X0, R0=R0, P0=P0, rz0=rz0):
+            X.copy_(X0)
+            R.copy_(R0)
+            P.copy_(P0)
+            rz.copy_(rz0)
+
+        cases.append(dict(
+            key="K6_update" + tag, name="cg_update", kind="update",
+            label=f"K6 cg_update{tag} {shape} with R's sums", shape=shape,
+            kernel=lambda X=X, R=R, P=P, AP=AP, rz=rz, pap=pap: (
+                X, R, kp.cg_update(X, R, P, AP, rz, pap, sums=True)),
+            plain=lambda X=X, R=R, P=P, AP=AP, rz=rz, pap=pap: (
+                X, R, kp.cg_update_plain(X, R, P, AP, rz, pap, sums=True)),
+            fresh=fresh, bytes=it * 6 * ln * n * q, flops=5.0 * ln * n * q,
+            itemsize=it, tol=tol, model=None, library=None,
+            inputs=dict(X=X, R=R, P=P, AP=AP, rz=rz, pap=pap)))
+        Z = rand(*lead, n, q, dtype=dtype)
+        zsum = kp.col_sums(Z)
+        for init in ((False, True) if not tag else (False,)):
+            def kern(P=P, R0=R0, Z=Z, zsum=zsum, rz=rz, init=init):
+                return (P, rz, *kp.cg_direction_dots(P, R0, Z, zsum, rz,
+                                                     init=init, sums=True))
+
+            def plain(P=P, R0=R0, Z=Z, zsum=zsum, rz=rz, init=init):
+                return (P, rz, *kp.cg_direction_dots_plain(
+                    P, R0, Z, zsum, rz, init=init, sums=True))
+
+            def dots_model(kern=kern, fresh=fresh, R0=R0, Z=Z, zsum=zsum):
+                fresh()
+                return kern()[3], kp.col_sums(R0, Z, zsum)
+
+            form = " the first step (P = Z)," if init else ""
+            cases.append(dict(
+                key="K6_direction_dots" + tag + ("_init" if init else ""),
+                name="cg_direction_dots",
+                kind="dots_init" if init else "dots",
+                label=f"K6 cg_direction_dots{tag} {shape},{form} the dots R "
+                      "(Z centred) and P's sums", shape=shape, kernel=kern,
+                plain=plain, fresh=fresh,
+                bytes=it * (3 - init) * ln * n * q + it * ln * n * q,
+                flops=(4.0 + 2.0 * (not init)) * ln * n * q,
+                itemsize=it, tol=tol, model=dots_model,
+                model_of="rz_new not bitwise col_sums(R, Z, zsum)",
+                library=lambda R0=R0, Z=Z: torch.linalg.vecdot(R0, Z, dim=-2),
+                inputs=dict(P=P, R=R0, Z=Z, zsum=zsum, rz=rz, init=init)))
+    return cases
 
 
 def k1p_cases(dev, bop, bop_sp, bds):
@@ -4568,7 +4662,7 @@ def main():
     counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b,
                k4, kbanded.banded_product, kbanded.coarse_correct,
                tridiag_solve_permuted, kpcg.col_sums, kpcg.cg_update,
-               kpcg.cg_direction)
+               kpcg.cg_direction_dots)
     reset_counts(*counted)
     times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
@@ -5167,10 +5261,9 @@ def main():
     # (10000, 33)).
     def cg_entry(key, count, path):
         tm = cg_tm[key]
-        extra = {} if tm.get("body") is None else {
-            "body": tm["body"], "floor_ms": tm["floor_ms"]}
-        if tm["name"] == "coarse_correct":
-            extra = {"floor_ms": tm["floor_ms"]}
+        extra = {} if tm.get("body") is None else {"body": tm["body"]}
+        if "floor_ms" in tm:
+            extra["floor_ms"] = tm["floor_ms"]
         return {"name": tm["name"], "route": "cuda", "source": tm["source"],
                 "replaces": tm["replaces"], "shape": tm["shape"], **extra,
                 "launches": count, "launches_path": path,

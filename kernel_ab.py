@@ -107,7 +107,8 @@ narrow bodies of ab_fixtures/k5_read_once_tma and
 ab_fixtures/k5_read_once_cp_async take a scratch of terms, which this
 script hands them).
 With --cg-only the older directory holds tridiag.cu and banded.cu (K1p's
-and K7's sources), and only they are built and only this runs: K1p
+and K7's sources), pcg.cu (K6's), or all three, and only they are built
+and only this runs. With tridiag.cu and banded.cu: K1p
 tridiag_solve_permuted and K7 coarse_correct at every shape of
 chip_smoke.py's phase 3f (chip_smoke.k1p_cases, k7_cases, the same
 inputs), in turns old, new, new, old: each version's two calls bitwise
@@ -122,7 +123,19 @@ after a 64 MB memset that leaves its inputs out of L2. Each VARIANT_DIR
 then holds another tridiag.cu, banded.cu or both, whose K1p or K7 is timed
 at every shape of its kernel after that shape's turns, its output held
 bitwise to the new version's (ab_fixtures/k7_cluster: K7 as one launch of
-a thread-block cluster).
+a thread-block cluster). With pcg.cu: K6 at phase 3f's shapes
+(chip_smoke.k6_cases: (10000, 4) float32 and float64, (8, 10000, 4)) in
+turns old, new, new, old: col_sums (the dots R . Z, Z centred), cg_update
+with R's sums, and the second pass with the dots and P's sums (the new
+cg_direction_dots, one cooperative launch, against the older library's
+col_sums and cg_direction, two launches, whose export this script calls
+itself; in float32 also the first step's form): each version's two calls
+bitwise equal, its error against the plain version, whether its output is
+bitwise the older version's, whether its rz_new is bitwise its own
+col_sums(R, Z, zsum), device and call times, new / old per shape; then
+each version's launch floors (chip_smoke.k6_floors) and, at (10000, 4)
+float32, each version's time after a 64 MB memset that leaves its inputs
+out of L2.
 Every timing line names the card and its power limit.
 """
 
@@ -647,6 +660,136 @@ def cg_ab(use, card, dev, bop, w, variants):
                   f"({card})", flush=True)
 
 
+def old_k6_dots(lib):
+    """The second pass with the dots on an older pcg.cu, which has no fused
+    pass: its col_sums (the dots R . Z) through the current wrapper, then
+    its pcg_direction_*, called here with the current wrapper's scratch
+    (both partial buffers hold lanes * q * ceil(n / 256) values); the
+    signature of chip_smoke.k6_floors' `dots`: (P's sums or None,
+    rz_new)."""
+    import ctypes
+
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels.tridiag import SUFFIX
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    raw = {}
+    for dtype, sfx in SUFFIX.items():
+        raw[dtype] = getattr(lib, f"pcg_direction_{sfx}")
+        raw[dtype].argtypes = [P] * 5 + [I] * 4 + [P] * 4
+        raw[dtype].restype = ctypes.c_int
+
+    def dots(P, R, Z, zsum, rz, init=False, sums=False):
+        rz_new = kp.col_sums(R, Z, zsum)
+        lanes, n, q = kp._shape(P)
+        tk = kp.ticket(P.device)
+        out = kp._sums_like(P) if sums else None
+        part = kp._part(P) if sums else None
+        err = _build.launch(raw[P.dtype], P.device, P.data_ptr(),
+                            Z.data_ptr(), kp._ptr(zsum), rz.data_ptr(),
+                            rz_new.data_ptr(), int(bool(init)), n, q, lanes,
+                            kp._ptr(part), kp._ptr(out), tk.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"the older pcg_direction failed: {err}")
+        return out, rz_new
+
+    return dots
+
+
+def k6_ab(use, card, dev, n, dots_of):
+    """K6 old against new in turns at phase 3f's shapes (the module
+    docstring's --cg-only with pcg.cu); dots_of: {version: the second pass
+    with the dots}."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import bound, k6_cases, k6_floors, rel_norm
+
+    use("new")
+    cases = k6_cases(dev, n, np.random.RandomState(18))
+
+    def runner(c, version):
+        if c["kind"] not in ("dots", "dots_init"):
+            return c["kernel"]
+        a = c["inputs"]
+        return lambda: (a["P"], a["rz"], *dots_of[version](
+            a["P"], a["R"], a["Z"], a["zsum"], a["rz"], a["init"], True))
+
+    def checked(c, run):
+        if c["fresh"] is not None:
+            c["fresh"]()
+        got = run()
+        got = got if isinstance(got, tuple) else (got,)
+        return tuple(t.clone() for t in got)
+
+    times = {}
+    for c in cases:
+        ref = checked(c, c["plain"])
+        first = {}
+        for version in TURNS:
+            use(version)
+            run = runner(c, version)
+            a, b = checked(c, run), checked(c, run)
+            first.setdefault(version, a)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            err = max(rel_norm(x, y) for x, y in zip(a, ref))
+            as_old = all(torch.equal(x, y) for x, y in zip(a, first["old"]))
+            extra = ""
+            if c["kind"].startswith("dots"):
+                i = c["inputs"]
+                extra = (", rz_new bitwise its col_sums(R, Z, zsum) "
+                         f"{torch.equal(a[3], kp_col_sums(i))}")
+            dms, cms = device_ms(run), call_ms(run)
+            times.setdefault(c["label"], {}).setdefault(version, []).append(
+                dms)
+            print(f"{version} {c['label']}: device {dms:.5f} ms, call "
+                  f"{cms:.4f} ms; relative error {err:.3e}, two calls "
+                  f"bitwise {same}, bitwise the old version's {as_old}"
+                  f"{extra}"
+                  + ("" if same and err <= c["tol"] else " (FAILS phase 3f)")
+                  + f" ({card})", flush=True)
+        use("new")
+        bms, by = bound(c["bytes"], c["flops"], c["itemsize"])
+        print(f"{c['label']}: bound {bms:.5f} ms ({by}) ({card})",
+              flush=True)
+    for label, by in times.items():
+        old, new = statistics.median(by["old"]), statistics.median(by["new"])
+        print(f"summary {label}: device old {old:.5f} ms, new {new:.5f} ms, "
+              f"new/old {new / old:.3f} ({card})", flush=True)
+    for version in TURNS[:2]:
+        use(version)
+        floors = k6_floors(dev, dots_of[version])
+        print(f"{version} K6 launch floors: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in floors.items()) + f" ({card})",
+            flush=True)
+    # Inputs cold: each call after a 64 MB memset (past the 50 MB L2), the
+    # memset's own device time taken off.
+    flush = torch.empty(16 * 1024 * 1024, device=dev)
+    memset_ms = device_ms(flush.zero_, reps=50)
+    for c in cases:
+        if c["key"] not in ("K6_colsum", "K6_update", "K6_direction_dots"):
+            continue
+        for version in TURNS:
+            use(version)
+            run = runner(c, version)
+            warm = device_ms(run, reps=50)
+            cold = device_ms(lambda: (flush.zero_(), run()),
+                             reps=50) - memset_ms
+            print(f"{version} {c['label']}: device {warm:.5f} ms back to "
+                  f"back, {cold:.5f} ms after a 64 MB memset (inputs out of "
+                  f"L2; the memset's {memset_ms:.5f} ms taken off) "
+                  f"({card})", flush=True)
+
+
+def kp_col_sums(inputs):
+    """col_sums(R, Z, zsum) of a K6 dots case's inputs, on the library
+    loaded now."""
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    return kp.col_sums(inputs["R"], inputs["Z"], inputs["zsum"])
+
+
 def ldl_report(use, card, factor_args):
     """The new build's chain probe (ns a step of K3b's pivot chain and K3's
     carry, float32 and float64 instantiations) and each factor case's phase
@@ -718,10 +861,14 @@ def main():
             fail(f"--banded-only: no banded.cu in {old_dir}")
         sigs = {"banded": kbanded._SIGNATURES}
     if cg_only:
-        if "banded" not in sigs:
-            fail(f"--cg-only: no banded.cu in {old_dir}")
-        sigs = {"tridiag": tridiag._SIGNATURES,
-                "banded": kbanded._SIGNATURES}
+        from mac_tpu_torch.ops.kernels import pcg as kpcg
+
+        sigs = {name: sig for name, sig in (
+            ("tridiag", tridiag._SIGNATURES), ("banded", kbanded._SIGNATURES),
+            ("pcg", kpcg._SIGNATURES)) if (old_dir / f"{name}.cu").exists()}
+        if not ({"tridiag", "banded"} <= set(sigs) or "pcg" in sigs):
+            fail(f"--cg-only: neither tridiag.cu and banded.cu nor pcg.cu "
+                 f"in {old_dir}")
     variants = [f"variant {Path(d).name}" for d in argv[1:]]
     libs = build_all(old_dir, sigs,
                      [] if syev_only or cg_only else argv[1:],
@@ -729,11 +876,15 @@ def main():
     old_k7 = "double* xcp" in (old_dir / "banded.cu").read_text() if (
         old_dir / "banded.cu").exists() else False
 
+    dots_of = {}
+
     def use(version):
         for name, path in libs[version].items():
             lib = _build.load(name, sigs[name], path)
             if name == "banded" and version == "old" and old_k7:
                 use_old_k7(lib)
+            if name == "pcg" and version == "old" and "old" not in dots_of:
+                dots_of["old"] = old_k6_dots(lib)
 
     dev = torch.device("cuda")
     (dataset, n, fixed, cands, k, x_init, bop, w, dp1, l1,
@@ -753,9 +904,16 @@ def main():
             built = {key: job.result() for key, job in jobs.items()}
         for (tag, name), (_, log) in built.items():
             print_ptxas(tag, name, log)
-        cg_ab(use, card, dev, bop, w,
-              {tag: {name: path for (t, name), (path, _) in built.items()
-                     if t == tag} for tag in variants})
+        if "pcg" in sigs:
+            from mac_tpu_torch.ops.kernels import pcg as kpcg
+
+            use("old")
+            dots_of["new"] = kpcg.cg_direction_dots
+            k6_ab(use, card, dev, bop.n, dots_of)
+        if {"tridiag", "banded"} <= set(sigs):
+            cg_ab(use, card, dev, bop, w,
+                  {tag: {name: path for (t, name), (path, _) in built.items()
+                         if t == tag} for tag in variants})
         return
     if banded_only:
         k5_ab(use, card, dev, bop, w,

@@ -66,14 +66,15 @@ def pcg_fixed_steps(apply_A: Callable, B: torch.Tensor,
     """pcg_fixed through K6's wrappers (mac_tpu_torch.ops.kernels.pcg), on
     any device: the kernels on CUDA tensors, their plain versions on the
     CPU. Per step: A P with the column dots P . AP, K6's first pass (alpha,
-    X, R and R's column sums), Z = Minv(R), the dots R . Z (K6) and K6's
-    second pass (beta, P, rz and P's column sums). Where apply_A has
+    X, R and R's column sums), Z = Minv(R), and K6's second pass with the
+    dots (R . Z, then beta, P, rz and P's column sums). Where apply_A has
     `product` (ops.banded.BandedProduct: K5 gives A P with the dots, and
     the start's residual, in one launch) and Minv has `cycle`
     (ops.banded.VCycle: its kernels return x uncentred with its column
-    sums, and K6 centres Z = x - mean(x) on the fly), a step is ten
+    sums, and K6 centres Z = x - mean(x) on the fly), a step is nine
     launches on city10000's banded route; otherwise apply_A and Minv run as
-    they are, with the dots from K6. X0 is not changed."""
+    they are, with the dots P . AP from K6's col_sums. X0 is not
+    changed."""
     product = getattr(apply_A, "product", None)
     cycle = getattr(Minv, "cycle", None)
     B = B.contiguous()
@@ -99,8 +100,8 @@ def pcg_fixed_steps(apply_A: Callable, B: torch.Tensor,
                      device=B.device)
     P = torch.empty_like(B)
     sums = product is not None
-    psum = _k6.cg_direction(P, Z, zsum, rz, _k6.col_sums(R, Z, zsum),
-                            init=True, sums=sums)
+    psum, _ = _k6.cg_direction_dots(P, R, Z, zsum, rz, init=True,
+                                    sums=sums)
     for _ in range(int(iters)):
         if product is not None:
             AP, pap = product(P, vsum=psum, dot=True)
@@ -109,8 +110,7 @@ def pcg_fixed_steps(apply_A: Callable, B: torch.Tensor,
             pap = _k6.col_sums(P, AP)
         rsum = _k6.cg_update(X, R, P, AP, rz, pap, sums=cycle is not None)
         Z, zsum = precondition(R, rsum)
-        psum = _k6.cg_direction(P, Z, zsum, rz, _k6.col_sums(R, Z, zsum),
-                                sums=sums)
+        psum, _ = _k6.cg_direction_dots(P, R, Z, zsum, rz, sums=sums)
     return X
 
 

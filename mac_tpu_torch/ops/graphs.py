@@ -93,7 +93,7 @@ WRAPPERS = (_tridiag.tridiag_solve, _tridiag.tridiag_solve_blocked,
             assemble_ut, _ldl.tridiag_ldl, _ldl.tridiag_ldl_blocked,
             _kbanded.banded_product, _kbanded.coarse_correct,
             _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
-            _kpcg.cg_update, _kpcg.cg_direction, _syev.sym_eig)
+            _kpcg.cg_update, _kpcg.cg_direction_dots, _syev.sym_eig)
 
 
 def _counts():
@@ -135,7 +135,7 @@ def _kernels_in_use():
             _ldl.tridiag_ldl, _ldl.tridiag_ldl_blocked, _syev.sym_eig,
             _kbanded.banded_product, _kbanded.coarse_correct,
             _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
-            _kpcg.cg_update, _kpcg.cg_direction, _cg.pcg_fixed_steps,
+            _kpcg.cg_update, _kpcg.cg_direction_dots, _cg.pcg_fixed_steps,
             _banded._vcycle_kernels, _build.loaded_files())
 
 

@@ -12,21 +12,27 @@ it through these wrappers on CUDA tensors. Blocks are (n, q), or R lanes
                            alpha = rz / pap (0 where |pap| <= tiny, in A's
                            type), X += alpha P and R -= alpha AP in place;
                            with sums=True the new R's column sums;
-  `cg_direction(P, Z, zsum, rz, rz_new, init)`
-                           beta = rz_new / rz (0 where |rz| <= tiny),
-                           P = Z + beta P in place (P = Z with init), Z
-                           centred by zsum / n when zsum is given, then rz =
-                           rz_new in place; with sums=True the new P's
-                           column sums.
+  `cg_direction_dots(P, R, Z, zsum, rz, init)`
+                           rz_new = R . Z column by column (Z centred by
+                           zsum / n when zsum is given; bitwise
+                           col_sums(R, Z, zsum)), beta = rz_new / rz (0
+                           where |rz| <= tiny), P = Z + beta P in place (P =
+                           Z with init), then rz = rz_new in place; returns
+                           (P's new column sums with sums=True, else None;
+                           rz_new).
 
 Every sum goes in a fixed order whatever the order in which the kernel's
-blocks run: each block's partial to a buffer, then the block that takes the
-last ticket of an atomic counter sums the partials in a fixed order (the
-counter is used for nothing else and is left at 0; one counter per device,
-`ticket`, which the kernels that take tickets share on one stream). So a
-replayed graph is bitwise the eager solve. `block_sum_model` is a numpy
-model of that order (the last block's sum a warp a column:
-`warp_sum_model`).
+blocks run and however many there are: the rows are cut into items of ROWS
+rows (and groups of 4 columns, and lanes), each item's partial to a buffer,
+then the block that takes the last ticket of an atomic counter sums the
+partials in a fixed order (the counter is used for nothing else and is left
+at 0; one counter per device, `ticket`, which the kernels that take tickets
+share on one stream). So a replayed graph is bitwise the eager solve.
+`block_sum_model` is a numpy model of that order (the last block's sum a
+warp a column: `warp_sum_model`). cg_direction_dots's blocks meet at a grid
+barrier on a word of their own (`barrier`) once the dots' partials are
+written, then each sums the partials of its columns itself; so it is
+launched cooperatively (every block resident at once).
 
 Each wrapper launches its kernel for CUDA tensors (float32 or float64) and
 runs its plain PyTorch version (`*_plain`) for CPU tensors, and counts its
@@ -43,9 +49,11 @@ from mac_tpu_torch.ops.kernels import _build
 from mac_tpu_torch.ops.kernels.tridiag import (SUFFIX, count_launch,
                                                reset_counts)
 
-# Rows a block of the kernels sums (csrc/pcg.cu's kRows) and its threads.
-ROWS = 256
-THREADS = 256
+# The threads that sum an item of the kernels (csrc/pcg.cu's kThreads), a
+# row each, or two past R2_ITEMS items of one row (kR2Items): rows_of.
+THREADS = 128
+R2_ITEMS = 160
+ROWS = THREADS  # the most partials a column can have: ceil(n / ROWS)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,9 +62,21 @@ for _s in SUFFIX.values():
     # The last pointer of each is the stream.
     _SIGNATURES[f"pcg_colsum_{_s}"] = [_P, _P, _P, _I, _I, _I] + [_P] * 4
     _SIGNATURES[f"pcg_update_{_s}"] = [_P] * 6 + [_I] * 3 + [_P] * 4
-    _SIGNATURES[f"pcg_direction_{_s}"] = [_P] * 5 + [_I] * 4 + [_P] * 4
+    _SIGNATURES[f"pcg_direction_dots_{_s}"] = ([_P] * 5 + [_I] * 4
+                                               + [_P] * 2 + [_I] + [_P] * 3)
 
 _tickets = {}
+_barriers = {}
+
+
+def _word(words: dict, device: torch.device, what: str) -> torch.Tensor:
+    t = words.get(device)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the kernels' {what} is first needed inside "
+                               "a graph capture: run one step before")
+        t = words[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 def ticket(device: torch.device) -> torch.Tensor:
@@ -65,14 +85,14 @@ def ticket(device: torch.device) -> torch.Tensor:
     before it allocates its scratch, and holds the scratch until its launch
     is queued: memory freed earlier could otherwise become the counter
     while a kernel queued later still writes there."""
-    t = _tickets.get(device)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the kernels' ticket counter is first needed "
-                               "inside a graph capture: run one step before")
-        t = _tickets[device] = torch.zeros(1, dtype=torch.int32,
-                                           device=device)
-    return t
+    return _word(_tickets, device, "ticket counter")
+
+
+def barrier(device: torch.device) -> torch.Tensor:
+    """The device's grid-barrier word of cg_direction_dots (one int32 at 0,
+    whose top bit each launch flips), made at its first use like ticket(),
+    and used by nothing else."""
+    return _word(_barriers, device, "barrier word")
 
 
 def _ptr(t) -> int:
@@ -113,9 +133,17 @@ def _sums_like(A: torch.Tensor) -> torch.Tensor:
                        device=A.device)
 
 
-def _part(A: torch.Tensor) -> torch.Tensor:
+def rows_of(n: int, q: int, lanes: int = 1) -> int:
+    """The rows of an item of the kernels for blocks (lanes, n, q)
+    (csrc/pcg.cu's rows_of): THREADS, or twice that past R2_ITEMS items."""
+    items = -(-n // THREADS) * -(-q // 4) * lanes
+    return THREADS * (2 if items > R2_ITEMS else 1)
+
+
+def _part(A: torch.Tensor, sets: int = 1) -> torch.Tensor:
+    """Scratch for `sets` sets of the items' column partials of A."""
     lanes, n, q = _shape(A)
-    return torch.empty(lanes * q * -(-n // ROWS), dtype=torch.float64,
+    return torch.empty(sets * lanes * q * -(-n // ROWS), dtype=torch.float64,
                        device=A.device)
 
 
@@ -211,7 +239,8 @@ def cg_update(X: torch.Tensor, R: torch.Tensor, P: torch.Tensor,
 
 
 def cg_direction_plain(P, Z, zsum, rz, rz_new, init=False, sums=False):
-    """Plain version of cg_direction, in place on P and rz."""
+    """The direction step with rz_new given (cg_direction_dots_plain's
+    second half), in place on P and rz."""
     if zsum is not None:
         Z = Z - _mean(zsum, Z.shape[-2], Z.dtype)
     new = rz_new.to(rz.dtype)
@@ -223,31 +252,40 @@ def cg_direction_plain(P, Z, zsum, rz, rz_new, init=False, sums=False):
     return P.double().sum(dim=-2) if sums else None
 
 
-def cg_direction(P: torch.Tensor, Z: torch.Tensor, zsum, rz: torch.Tensor,
-                 rz_new: torch.Tensor, init: bool = False,
-                 sums: bool = False):
-    """K6's second pass (see the module docstring): P and rz updated in
-    place; P's new column sums (float64) with sums=True, else None. zsum:
-    Z's column sums (float64) to centre it by, or None; rz_new: float64."""
-    if Z.shape != P.shape:
-        raise ValueError(f"cg_direction: P {tuple(P.shape)} and Z "
-                         f"{tuple(Z.shape)} differ")
-    _check_sum("cg_direction", zsum, P)
-    _check_sum("cg_direction", rz_new, P)
-    if rz.shape != rz_new.shape or rz.dtype != P.dtype:
-        raise ValueError("cg_direction: rz must be of rz_new's shape and "
-                         "the blocks' type")
-    if not check_args("cg_direction", P, Z, rz):
-        return cg_direction_plain(P, Z, zsum, rz, rz_new, init, sums)
+def cg_direction_dots_plain(P, R, Z, zsum, rz, init=False, sums=False):
+    """Plain version of cg_direction_dots: col_sums_plain, then
+    cg_direction_plain."""
+    rz_new = col_sums_plain(R, Z, zsum)
+    return cg_direction_plain(P, Z, zsum, rz, rz_new, init, sums), rz_new
+
+
+def cg_direction_dots(P: torch.Tensor, R: torch.Tensor, Z: torch.Tensor,
+                      zsum, rz: torch.Tensor, init: bool = False,
+                      sums: bool = False):
+    """K6's second pass with the dots (see the module docstring): P and rz
+    updated in place; returns (P's new column sums, float64, with
+    sums=True, else None; rz_new = R . Z, float64, bitwise col_sums(R, Z,
+    zsum)). zsum: Z's column sums (float64) to centre it by, or None."""
+    for a in (R, Z):
+        if a.shape != P.shape:
+            raise ValueError(f"cg_direction_dots: P {tuple(P.shape)} and "
+                             f"{tuple(a.shape)} differ")
+    _check_sum("cg_direction_dots", zsum, P)
+    if rz.shape != (*P.shape[:-2], P.shape[-1]) or rz.dtype != P.dtype:
+        raise ValueError("cg_direction_dots: rz must be (lanes, q) in the "
+                         "blocks' type")
+    if not check_args("cg_direction_dots", P, R, Z, rz):
+        return cg_direction_dots_plain(P, R, Z, zsum, rz, init, sums)
     lanes, n, q = _shape(P)
-    tk = ticket(P.device)
-    out = _sums_like(P) if sums else None
-    part = _part(P) if sums else None
-    _call("pcg_direction", P.dtype, P.device, P.data_ptr(), Z.data_ptr(),
-          _ptr(zsum), rz.data_ptr(), rz_new.data_ptr(), int(bool(init)), n,
-          q, lanes, _ptr(part), _ptr(out), tk.data_ptr())
-    count_launch(cg_direction, lanes, P.dtype)
-    return out
+    tk, bar = ticket(P.device), barrier(P.device)
+    out = torch.empty((2, *rz.shape), dtype=torch.float64, device=P.device)
+    part = _part(P, 2)  # held until the launch is queued
+    _call("pcg_direction_dots", P.dtype, P.device, P.data_ptr(),
+          R.data_ptr(), Z.data_ptr(), _ptr(zsum), rz.data_ptr(),
+          int(bool(init)), n, q, lanes, part.data_ptr(), out.data_ptr(),
+          int(bool(sums)), tk.data_ptr(), bar.data_ptr())
+    count_launch(cg_direction_dots, lanes, P.dtype)
+    return (out[1] if sums else None), out[0]
 
 
 def warp_sum_model(parts) -> float:
@@ -259,6 +297,13 @@ def warp_sum_model(parts) -> float:
     lanes = [0.0] * 32
     for k, v in enumerate(parts):
         lanes[k % 32] += float(v)
+    return _butterfly(lanes)
+
+
+def _butterfly(lanes) -> float:
+    """A warp's 32 values added by the kernels' xor butterfly (at each step
+    lane i adds the value of lane i ^ off, off = 16, 8, 4, 2, 1): lane 0's
+    result (every lane's)."""
     off = 16
     while off:
         lanes = [lanes[i] + lanes[i ^ off] for i in range(32)]
@@ -269,30 +314,28 @@ def warp_sum_model(parts) -> float:
 def block_sum_model(values: np.ndarray, rows: int = ROWS,
                     threads: int = THREADS) -> np.ndarray:
     """The kernels' order of a column sum, in numpy float64: values (n, q)
-    (already rounded to the block's type); each block of `rows` rows, for
-    each column, thread slot k of threads // q sums rows k, k + ns, ... in
-    order, the block adds its slots in order, then the block partials add
-    as warp_sum_model orders them. (For q > threads the columns go in
-    chunks of `threads`.) Returns (q,)."""
+    (already rounded to the block's type; one lane of a block the kernels
+    cut into items of `rows` rows, rows_of(n, q, lanes)). Each item:
+    thread t adds rows t, t + threads, ... of it in order (from 0.0), each
+    warp's 32 threads add by the kernels' xor butterfly (off = 16, 8, 4, 2,
+    1), and the warps add in order (from 0.0); then the items' partials add
+    as warp_sum_model orders them. Returns (q,)."""
     values = np.asarray(values, dtype=np.float64)
     n, q = values.shape
     out = np.zeros(q)
-    for c0 in range(0, q, threads):
-        cw = min(threads, q - c0)
-        ns = threads // cw
-        for col in range(c0, c0 + cw):
-            parts = []
-            for r0 in range(0, n, rows):
-                block = values[r0:min(n, r0 + rows), col]
-                part = 0.0
-                for k in range(ns):
-                    acc = 0.0
-                    for v in block[k::ns]:
-                        acc += v
-                    part += acc
-                parts.append(part)
-            out[col] = warp_sum_model(parts)
+    for col in range(q):
+        parts = []
+        for r0 in range(0, n, rows):
+            block = values[r0:min(n, r0 + rows), col]
+            acc = [0.0] * threads
+            for k, v in enumerate(block):
+                acc[k % threads] += float(v)
+            part = 0.0
+            for w in range(0, threads, 32):
+                part += _butterfly(acc[w:w + 32])
+            parts.append(part)
+        out[col] = warp_sum_model(parts)
     return out
 
 
-reset_counts(col_sums, cg_update, cg_direction)
+reset_counts(col_sums, cg_update, cg_direction_dots)

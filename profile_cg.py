@@ -18,13 +18,17 @@ measure), and the kernels of one CG step alone: a replayed inner solve
 (ops.graphs.inner_replay) of 6 steps less one of 5, over the route's state
 after the warm solve (chip_smoke.step_kernels).
 
+Also per cell: K6's device time in the warm solve, all its kernels
+(names with "k6_") added up.
 --plain-cg runs every solve with the plain CG step (the torch ops that the
 kernels K5, K6, K1p and K7 stand for) on the card, as chip_smoke.py's
 phase 13 does in its "plain-cg" turn: the account before the kernels, on
 the same tree. --before DIR first runs DIR's profile_cg.py (an older
 checkout, e.g. a `git archive` of the parent commit unpacked under build/)
 on the same cells in a process of its own, then this tree's, and ends
-with each cell's busy milliseconds and CG-step kernels before and after.
+with each cell's busy milliseconds, CG-step kernels and K6's device time
+before and after (before: the "k6_" items among the older script's ten
+largest, where it prints no K6 line of its own).
 Every line names the card and its power limit.
 """
 
@@ -143,20 +147,30 @@ def main():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
     print(card, flush=True)
-    before = {}
+    before, k6_before = {}, {}
     if args.before:
         cmd = [sys.executable, "profile_cg.py", "--cells", args.cells]
         if args.plain_cg:
             cmd.append("--plain-cg")
         proc = subprocess.run(cmd, cwd=args.before, capture_output=True,
                               text=True)
+        cell = None
         for line in proc.stdout.splitlines():
             print(f"before | {line}", flush=True)
             got = re.match(r"(.+) \((?:kernels|plain CG step)\): .*device busy "
                            r"([0-9.]+) ms.*one CG step alone .*?: (\S+) "
                            r"kernels", line)
             if got:
-                before[got[1]] = (float(got[2]), got[3])
+                cell = got[1]
+                before[cell] = (float(got[2]), got[3])
+            k6 = re.match(r"K6 \(k6_\*\): ([0-9.]+) ms, (\d+) calls", line)
+            item = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls .*k6_", line)
+            if cell is not None and k6:  # its own line: all of K6
+                k6_before[cell] = [float(k6[1]), int(k6[2])]
+            elif cell is not None and item:
+                got6 = k6_before.setdefault(cell, [0.0, 0])
+                got6[0] += float(item[1])
+                got6[1] += int(item[2])
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr, flush=True)
             fail(f"the older profile_cg.py in {args.before} exited "
@@ -195,12 +209,18 @@ def main():
         for ms, cnt, nm in items[:10]:
             print(f"  {ms:9.3f} ms {cnt:7d} calls {1e3 * ms / cnt:8.2f} us "
                   f"a call  {nm[:110]}", flush=True)
-        after[name] = (busy, per_step[0])
-    for name, (busy, step) in after.items():
+        k6 = [(ms, cnt) for ms, cnt, nm in items if "k6_" in nm]
+        k6_ms, k6_calls = sum(m for m, _ in k6), sum(c for _, c in k6)
+        print(f"K6 (k6_*): {k6_ms:.3f} ms, {k6_calls} calls in the warm "
+              f"solve ({card})", flush=True)
+        after[name] = (busy, per_step[0], k6_ms)
+    for name, (busy, step, k6_ms) in after.items():
         if name in before:
+            was = k6_before.get(name, [float("nan"), 0])[0]
             print(f"summary {name}: device busy {before[name][0]:.3f} -> "
                   f"{busy:.3f} ms ({busy / before[name][0]:.3f}), one CG step "
-                  f"{before[name][1]} -> {step} kernels ({card})", flush=True)
+                  f"{before[name][1]} -> {step} kernels, K6 {was:.3f} -> "
+                  f"{k6_ms:.3f} ms ({card})", flush=True)
     print(f"profile_cg: done ({card})", flush=True)
 
 

@@ -15,6 +15,8 @@ against an exact float64 sum. Inputs come from numpy seeds and go to both
 packages as arrays."""
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -478,21 +480,68 @@ def test_k1p_segment_sum_order_model_against_exact_sum(shape, seg):
     assert np.all(np.abs(model - exact) <= 1e-14 * scale)
 
 
-@pytest.mark.parametrize("shape", [(1000, 4), (600, 300), (257, 1)])
-def test_k6_sum_order_model_against_exact_sum(shape):
-    """block_sum_model, the kernels' fixed order of a column sum (rows by
-    thread slots, slots in order, blocks in order), is within 1e-14 of the
-    exactly rounded float64 sum, and the plain col_sums within 1e-13 of
+@pytest.mark.parametrize("shape,rows", [((1000, 4), 128), ((600, 300), 256),
+                                        ((257, 1), 128), ((1000, 4), 256)])
+def test_k6_sum_order_model_against_exact_sum(shape, rows):
+    """block_sum_model, the kernels' fixed order of a column sum (in each
+    item of ROWS rows each thread's rows in order, a warp's xor butterfly,
+    the warps in order; then the items a warp a column), is within 1e-14 of
+    the exactly rounded float64 sum, and the plain col_sums within 1e-13 of
     it."""
     rng = np.random.RandomState(0)
     A = rng.normal(size=shape).astype(np.float32)
-    model = kp.block_sum_model(A)
+    model = kp.block_sum_model(A, rows=rows)
     exact = np.array([math.fsum(A[:, j].astype(np.float64))
                       for j in range(shape[1])])
     scale = np.abs(A).sum(axis=0)
     assert np.all(np.abs(model - exact) <= 1e-14 * scale)
     plain = kp.col_sums(torch.as_tensor(A)).numpy()
     assert np.all(np.abs(plain - exact) <= 1e-13 * scale)
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+@pytest.mark.parametrize("centred", [False, True])
+@pytest.mark.parametrize("init", [False, True])
+def test_k6_direction_dots_plain_is_the_sums_then_the_direction(lanes, centred,
+                                                               init):
+    """cg_direction_dots' plain form (what the CPU runs) is col_sums_plain's
+    dots followed by cg_direction_plain, bitwise: P, rz, P's sums and rz_new,
+    at the first step and after it, with Z centred by its sums or not, with
+    and without lanes."""
+    rng = np.random.RandomState(4)
+    lead = (lanes,) if lanes else ()
+    P0, R, Z = (torch.as_tensor(rng.normal(size=lead + (300, 5)),
+                                dtype=torch.float32) for _ in range(3))
+    rz0 = torch.as_tensor(rng.normal(size=lead + (5,)), dtype=torch.float32)
+    zsum = kp.col_sums(Z) if centred else None
+    P1, rz1 = P0.clone(), rz0.clone()
+    psum, rz_new = kp.cg_direction_dots(P1, R, Z, zsum, rz1, init=init,
+                                        sums=True)
+    P2, rz2 = P0.clone(), rz0.clone()
+    want_new = kp.col_sums_plain(R, Z, zsum)
+    want_psum = kp.cg_direction_plain(P2, Z, zsum, rz2, want_new, init=init,
+                                      sums=True)
+    for got, want in ((P1, P2), (rz1, rz2), (psum, want_psum),
+                      (rz_new, want_new)):
+        assert torch.equal(got, want)
+    P3, rz3 = P0.clone(), rz0.clone()
+    none, again = kp.cg_direction_dots(P3, R, Z, zsum, rz3, init=init)
+    assert none is None and torch.equal(again, rz_new)
+    assert torch.equal(P3, P1) and torch.equal(rz3, rz1)
+
+
+def test_k6_sum_model_sizes_are_the_kernels():
+    """The item sizes the wrappers and block_sum_model assume (THREADS,
+    R2_ITEMS, rows_of) are csrc/pcg.cu's (kThreads, kR2Items): city10000's
+    (10000, 4) single block takes items of one row a thread, its 8 lanes
+    and the n = 100000 route's (100000, 4) two."""
+    src = (Path(kp.__file__).resolve().parents[2] / "csrc" /
+           "pcg.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    r2 = int(re.search(r"constexpr int kR2Items = (\d+);", src)[1])
+    assert (kp.THREADS, kp.R2_ITEMS, kp.ROWS) == (threads, r2, threads)
+    assert kp.rows_of(10000, 4) == threads
+    assert kp.rows_of(10000, 4, 8) == kp.rows_of(100000, 4) == 2 * threads
 
 
 def test_k6_plain_passes():
@@ -517,12 +566,13 @@ def test_k6_plain_passes():
     np.testing.assert_allclose(rz_new.numpy(), (R * Zc).sum(dim=1).numpy(),
                                rtol=1e-12)
     rz_old = rz.clone()
-    psum = kp.cg_direction(P, Z, zsum, rz, rz_new, sums=True)
+    psum, got = kp.cg_direction_dots(P, R, Z, zsum, rz, sums=True)
+    np.testing.assert_array_equal(got.numpy(), rz_new.numpy())
     want = Zc + (rz_new / rz_old).unsqueeze(-2) * P0
     np.testing.assert_allclose(P.numpy(), want.numpy(), rtol=1e-12)
     np.testing.assert_array_equal(rz.numpy(), rz_new.numpy())
     np.testing.assert_allclose(psum.numpy(), P.sum(dim=1).numpy())
-    kp.cg_direction(P, Z, None, rz, rz_new, init=True)
+    kp.cg_direction_dots(P, R, Z, None, rz, init=True)
     np.testing.assert_array_equal(P.numpy(), Z.numpy())
 
 
@@ -531,7 +581,7 @@ def test_wrappers_refuse_bad_arguments_and_count_nothing_on_cpu():
     launch; mismatched shapes and sums raise."""
     wrappers = (kb.banded_product, kb.coarse_correct,
                 k1.tridiag_solve_permuted, kp.col_sums, kp.cg_update,
-                kp.cg_direction)
+                kp.cg_direction_dots)
     k1.reset_counts(*wrappers)
     _, _, tbop, tBD, w, n = operators("rcm600", "float32")
     V = torch.zeros(n, 4)
@@ -542,6 +592,10 @@ def test_wrappers_refuse_bad_arguments_and_count_nothing_on_cpu():
         kp.col_sums(V, torch.zeros(n, 3))
     with pytest.raises(ValueError):
         kp.cg_update(V, V, V, V, torch.zeros(4), torch.zeros(4))  # pap f32
+    with pytest.raises(ValueError):
+        kp.cg_direction_dots(V, V, torch.zeros(n, 3), None, torch.zeros(4))
+    with pytest.raises(ValueError):  # rz of the wrong type
+        kp.cg_direction_dots(V, V, V, None, torch.zeros(4).double())
     with pytest.raises(ValueError):
         kb.banded_product(tBD.ut, tBD.deg, torch.zeros(n + 1, 4), n)
     with pytest.raises(ValueError):

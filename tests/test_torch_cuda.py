@@ -1501,9 +1501,10 @@ def test_k5_matches_plain_and_repeats(dev, dtype, wide, q, lanes, form):
 @pytest.mark.parametrize("shape", [(10000, 4), (3, 2500, 12), (257, 1),
                                    (600, 300)])
 def test_k6_passes_match_plain_and_repeat(dev, dtype, shape):
-    """K6's column sums (of A; of A M with M centred), first pass (alpha,
-    X, R and R's sums) and second (beta, P, rz and P's sums; and the first
-    step's P = Z) against their plain versions."""
+    """K6's column sums (of A; of A M with M centred; bitwise their order's
+    numpy model, block_sum_model), first pass (alpha, X, R and R's sums)
+    and second with the dots (rz_new, beta, P, rz and P's sums; and the
+    first step's P = Z) against their plain versions."""
     from mac_tpu_torch.ops.kernels import pcg as kp
 
     rng = np.random.RandomState(7)
@@ -1522,17 +1523,119 @@ def test_k6_passes_match_plain_and_repeat(dev, dtype, shape):
                          lambda: kp.col_sums_plain(A, M, msum))):
         got = _twice(kern)[0]
         assert _rel(got, plain()) <= tol
+    if len(shape) == 2 and shape[0] * shape[1] <= 40000:
+        Mc = M - (msum / shape[0]).to(dtype)
+        rows = kp.rows_of(*shape)
+        for got, vals in ((kp.col_sums(A), A), (kp.col_sums(A, M, msum),
+                                                 A * Mc)):
+            want = kp.block_sum_model(vals.cpu().numpy(), rows=rows)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
     for init in (False, True):
         outs = []
-        for fn in ((kp.cg_update, kp.cg_direction),
-                   (kp.cg_update_plain, kp.cg_direction_plain)):
+        for fn in ((kp.cg_update, kp.cg_direction_dots),
+                   (kp.cg_update_plain, kp.cg_direction_dots_plain)):
             X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
             rs = fn[0](X, R, P, AP, rz, pap, sums=True)
-            ps = fn[1](P, Z, msum, rz, kp.col_sums_plain(R, Z, msum),
-                       init=init, sums=True)
-            outs.append((X, R, rs, P, rz, ps))
+            ps, rz_new = fn[1](P, R, Z, msum, rz, init=init, sums=True)
+            outs.append((X, R, rs, P, rz, ps, rz_new))
         for x, y in zip(*outs):
             assert _rel(x, y) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(10000, 4), (8, 10000, 4), (10000, 11),
+                                   (257, 1), (3, 2500, 12), (64, 10000, 4),
+                                   (100000, 4)])
+@pytest.mark.parametrize("centred", [False, True])
+def test_k6_direction_dots_matches_plain_and_repeats(dev, dtype, shape,
+                                                     centred):
+    """K6's second pass with the dots (one cooperative launch: the dots R .
+    Z, Z centred by zsum / n, then beta, P, rz and P's sums) against
+    col_sums_plain followed by cg_direction_plain, at the first step and
+    after it, with and without P's sums: two calls bitwise, rz_new bitwise col_sums(R, Z, zsum) (the
+    same items in the same order), counted under its own wrapper; (64,
+    10000, 4) has more items than the card holds blocks, so its blocks
+    loop over items."""
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    rng = np.random.RandomState(8)
+    P0, R, Z, M = (torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                                   device=dev) for _ in range(4))
+    rz0 = torch.as_tensor(rng.normal(size=shape[:-2] + shape[-1:]),
+                          dtype=dtype, device=dev)
+    # Z less the means of another block, so that P's sums stay clear of 0
+    # (a relative error of sums that cancel to rounding says nothing).
+    zsum = kp.col_sums(M) if centred else None
+    tol = _CG_TOL[dtype]
+    for init in (False, True):
+        for sums in (True, False):
+            P, rz = P0.clone(), rz0.clone()
+
+            def run(P=P, rz=rz, init=init, sums=sums):
+                P.copy_(P0)
+                rz.copy_(rz0)
+                psum, rz_new = kp.cg_direction_dots(P, R, Z, zsum, rz,
+                                                    init=init, sums=sums)
+                assert (psum is None) == (not sums)
+                return (P, rz, rz_new) + ((psum,) if sums else ())
+
+            before = kp.cg_direction_dots.launches
+            got = _twice(run)
+            assert kp.cg_direction_dots.launches == before + 2
+            assert torch.equal(got[2], kp.col_sums(R, Z, zsum))
+            Pp, rzp = P0.clone(), rz0.clone()
+            psum, rz_new = kp.cg_direction_dots_plain(Pp, R, Z, zsum, rzp,
+                                                      init=init, sums=sums)
+            want = (Pp, rzp, rz_new) + ((psum,) if sums else ())
+            for x, y in zip(got, want):
+                assert _rel(x, y) <= tol, (init, sums)
+
+
+def test_k6_direction_dots_replays_in_a_graph(dev):
+    """The cooperative launch of K6's second pass, captured in a CUDA graph
+    with K6's first pass and replayed, gives the eager bits, step after
+    step (its generation word moves on at each replay)."""
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    rng = np.random.RandomState(12)
+    X0, R0, P0, AP, Z = (torch.as_tensor(rng.normal(size=(10000, 4)),
+                                         dtype=torch.float32, device=dev)
+                         for _ in range(5))
+    rz0 = torch.as_tensor(rng.rand(4) + 0.5, dtype=torch.float32, device=dev)
+    pap = torch.as_tensor(rng.rand(4) + 0.5, dtype=torch.float64, device=dev)
+    zsum = kp.col_sums(Z)
+    X, R, P, rz = X0.clone(), R0.clone(), P0.clone(), rz0.clone()
+
+    def reset():
+        for a, b in ((X, X0), (R, R0), (P, P0), (rz, rz0)):
+            a.copy_(b)
+
+    def step():
+        kp.cg_update(X, R, P, AP, rz, pap)
+        return kp.cg_direction_dots(P, R, Z, zsum, rz, sums=True)
+
+    reset()
+    eager = []
+    for _ in range(3):
+        psum, rz_new = step()
+        eager.append(tuple(t.clone() for t in (X, R, P, rz, psum, rz_new)))
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        reset()
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    reset()
+    with torch.cuda.graph(graph):
+        outs = step()
+    reset()
+    for want in eager:
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        got = (X, R, P, rz, *outs)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
