@@ -127,10 +127,20 @@ its wall time printed:
      numpy model; the cluster body, bitwise K1 on it, on sphere2500's
      exact factor in both forms and at (32768, 16) float64, its tiled
      branch) and K7 coarse_correct (k7_cases: city10000's (10000, 4) in
-     float32, float64 and 8 lanes, sphere2500's): float32 within 1e-5 and
-     float64 within 1e-12 relative in norm, two calls bitwise equal;
-     device, call and plain times, bound and library time, each wrapper's
-     launch floor (launch_floors: its smallest launch);
+     float32, float64 and 8 lanes, sphere2500's); the matrix-free route's
+     K8 ell_product (k8_cases, on the n = 100000 expander's tables at its
+     start weights: (100000, 4) in the inner form with its dots, the
+     residual and plain forms, (100000, 12), float64, phase 8b's 2 lanes
+     with a table each, GreedyEig's (1728, 256) block over intel's one
+     table; its dots bitwise their order's numpy model, dot_model;
+     library: torch.sparse.mm of L(w) as CSR) and its V-cycle's K1p and
+     K7 through the identity permutation (ell_cycle_cases: K1p's segment
+     body at seg 1024 and K7 at nc 511, s 196 at (100000, 4), float64 and
+     2 lanes; K1p's cluster body and K7 at s 4 at GreedyEig's (1728,
+     256)): float32 within 1e-5 and float64 within 1e-12 relative in norm,
+     two calls bitwise equal; device, call and plain times, bound and
+     library time, each wrapper's launch floor (launch_floors: its
+     smallest launch);
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K2, K3b, K4 and the CG step's K5, K6, K1p (its
@@ -159,7 +169,9 @@ its wall time printed:
      top-K candidates by weight, MAC with fiedler_inner_iters=10,
      fiedler_maxiter=60, fiedler_tol=6e-4, one cold and one warm
      solve(K, x_init, max_iters=10), then evaluate_objective of the relaxed
-     solution; K1b must have launched; every output finite; exactly K
+     solution; K3b, K4 and the CG step's K8, K6, K1p (its segment body
+     alone) and K7 must have launched, and K1b, K1 and K5 must not (the
+     V-cycle's chain solve is K1p's); every output finite; exactly K
      edges rounded; the relaxed lambda_2 at or above the reference
      library's 0.025668825678050997 (1 - 1e-3); the upper bound at or
      above it (1 - 1e-6).
@@ -192,12 +204,14 @@ its wall time printed:
      busy time under torch.profiler. GreedyESP's Z path (a non-chain
      graph, n 5000, m 2500, k 800: Z by batched PCG on the card, then the
      scan): the host numpy loop's selection. GreedyEig on intel (n 1728,
-     785 candidates, float32, chunk 64; the ELL operator, the V-cycle, K1
-     on the chunk's (1728, 256) block), k = 8 (cut from a user's budget to
-     keep the phase short): each step's lambda_2 within 1e-3 of the scipy
+     785 candidates, float32, chunk 64; the ELL operator through K8, the
+     V-cycle through K1p's cluster body, K8 and K7 on the chunk's
+     (1728, 256) block), k = 8 (cut from a user's budget to keep the
+     phase short): each step's lambda_2 within 1e-3 of the scipy
      referee's, rising every step, the first chunk's batched lambda_2
-     within 5e-4 of the per-lane loop's, K1 launched, K4 launched with 64
-     lanes and no torch.linalg.eigh call inside TRACEMIN's lanes.
+     within 5e-4 of the per-lane loop's, K1p, K8 and K7 launched, K4
+     launched with 64 lanes and no torch.linalg.eigh call inside
+     TRACEMIN's lanes.
   8. the budget sweep MAC.solve_sweep, each part with its launch counts by
      lane count: (a) city10000 (scripts/bench_sweep.py's 8 budgets, 10 to
      50% of the loop closures, x_init NaiveGreedy's per budget) on phase
@@ -212,7 +226,8 @@ its wall time printed:
      against the sum of the serial warm medians and one warm sweep's
      device busy time (profiler); (b) the n = 100000 expander on phase 5's
      solver, budgets 6250 and 12500, max_iters=10, x_init the top-k by
-     weight: K1b launched with 2 lanes, exactly k per lane, the K = 12500
+     weight: K3b, K8, K1p, K7 and K6 launched with 2 lanes, exactly k per
+     lane, the K = 12500
      lane's evaluate_objective at or above the reference library's
      (1 - 1e-3); (c) kitti_05, float64, on the device engine (budgets 6
      and 33): exactly k per lane, K1's float64 instantiation launched and
@@ -255,8 +270,9 @@ its wall time printed:
      city10000, banded float32, fiedler_method="lobpcg": exactly K and a
      gap >= -1e-3 on the warm solve; (d) fiedler_method="dense" on a banded
      n = 600 graph, 3 steps: finite, exactly K; (f) phase 5's expander in
-     float64 (max_iters=2): the V-cycle through K1b's float64
-     instantiation alone, exactly K, upper >= evaluate_objective.
+     float64 (max_iters=2): the CG step through K8's, K1p's, K7's and
+     K6's float64 instantiations and no float32 launch, exactly K, upper
+     >= evaluate_objective.
  11. the chain factor's kernels end to end: warm solves of city10000,
      sphere2500 and the n = 100000 expander (K = 12500, max_iters=10) in
      turns old, new, new, old, "old" with the factor patched back to its
@@ -281,8 +297,8 @@ its wall time printed:
      CUDA graphs), "inner" (only the inner CG steps replayed: the path
      before the set-up and the outer iteration were captured), "eager" (no
      graph) and "plain-cg" (replayed, with the CG step as PyTorch ops: the
-     step before K5, K6, K1p and K7; its turns bitwise each other, held to
-     the quality gate, no kernel of the CG step launched): warm
+     step before K5, K6, K1p, K7 and K8; its turns bitwise each other,
+     held to the quality gate, no kernel of the CG step launched): warm
      solves of city10000, city10000 at fiedler_block_q=11 (phase 4b's
      solver: K4w replayed), sphere2500, the n = 100000 expander (K =
      12500, max_iters=10) and phase 10b's banded float64 city10000
@@ -301,7 +317,10 @@ its wall time printed:
      relative of the reference), exactly K rounded and upper >= relaxed;
      then one profiled warm solve each way (device busy, kernels, idle
      share, launch calls on the host: at most 3000 on city10000 and 1500
-     at n = 100000 replayed); then one step of each cell again with its
+     at n = 100000 replayed; one CG step alone, step_kernels: the
+     kernel nodes of a captured 6-step inner solve less a 5-step one, of STEP_KERNELS device kernels on city10000 and
+     ELL_STEP_KERNELS at n = 100000); then one step of each cell again
+     with its
      guard forced (banded: a NaN carried coarse inverse; ELL: the coarse
      level's singular flag raised): one eager redo, bitwise the eager
      solve.
@@ -315,7 +334,8 @@ banded route past 4096 nodes and on the matrix-free route past 32768, K3
 below), in the dtype and lane count of the route.
 profile_scale.py profiles phase 5's warm solve; this script gates only.
 The last lines are the card, a JSON summary of the kernels (launches on
-their path (K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
+their path (K1 and K1b on the mesh's, phase 9, whose V-cycles keep
+them; K1 also on GreedyEig's, launches_greedy_eig), error against the plain version, device time (ms and
 device_ms), call_ms, the plain version's call time, the yardstick's device
 time (library_ms), and the least time the card could take, bound_ms; one
 entry per lane shape, its launches those with that many lanes in phase 8;
@@ -402,6 +422,11 @@ HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
 # second pass took the dots).
 K7_LAUNCHES = 2
 STEP_KERNELS = 7 + K7_LAUNCHES
+# Phase 13: device kernels one replayed CG step of the n = 100000 matrix-free
+# route runs: K8's inner form with the dots and K6's first pass; the
+# V-cycle's K1p, K8 residual, K7, K8 residual and K1p adding; K6's second
+# pass with the dots (45 with the ELL product and the cycle as PyTorch ops).
+ELL_STEP_KERNELS = 7 + K7_LAUNCHES
 
 
 def fail(msg: str) -> None:
@@ -523,9 +548,13 @@ FACTOR_PLAINS = ("tridiag_ldl_plain", "tridiag_ldl_blocked_plain")
 # The CG step's kernels (their wrappers' names): the banded routes launch
 # all of them, every route that runs pcg_fixed on the card K6's three. K1p
 # is K1's body with permuted loads and stores: on the banded routes it
-# takes K1's place in the V-cycle.
+# takes K1's place in the V-cycle. The matrix-free route launches
+# ELL_CG_KERNELS: K8 in K5's place, and K1p (through the identity
+# permutation) where its cycle ran K1b or K1.
 CG_KERNELS = ("banded_product", "coarse_correct", "tridiag_solve_permuted",
               "col_sums", "cg_update", "cg_direction_dots")
+ELL_CG_KERNELS = ("ell_product", "coarse_correct", "tridiag_solve_permuted",
+                  "col_sums", "cg_update", "cg_direction_dots")
 K6_KERNELS = ("col_sums", "cg_update", "cg_direction_dots")
 
 
@@ -538,12 +567,12 @@ def k1_body(got, key=None):
     return a.get(key, 0) + b.get(key, 0)
 
 
-# The plain forms of the CG step (K5, K7, K1p, K6, pcg_fixed's loop, the
-# V-cycle's PyTorch form "plain"): none may run on the card on the
-# single-solve, lane and float64 routes.
-CG_PLAINS = ("banded_product_plain", "coarse_correct_plain",
-             "tridiag_solve_permuted_plain", "col_sums_plain",
-             "cg_update_plain", "cg_direction_plain",
+# The plain forms of the CG step (K5, K8, K7, K1p, K6, pcg_fixed's loop,
+# the V-cycles' PyTorch form "plain", banded and ELL): none may run on the
+# card on the single-solve, lane and float64 routes.
+CG_PLAINS = ("banded_product_plain", "ell_product_plain",
+             "coarse_correct_plain", "tridiag_solve_permuted_plain",
+             "col_sums_plain", "cg_update_plain", "cg_direction_plain",
              "cg_direction_dots_plain", "pcg_fixed_plain", "plain")
 
 
@@ -561,8 +590,8 @@ class PlainOnCard:
     def __enter__(self):
         import torch
 
-        from mac_tpu_torch.ops import banded, cg, graphs
-        from mac_tpu_torch.ops.kernels import (assemble, ldl, pcg, syev,
+        from mac_tpu_torch.ops import banded, cg, graphs, twogrid
+        from mac_tpu_torch.ops.kernels import (assemble, ell, ldl, pcg, syev,
                                                tridiag)
         from mac_tpu_torch.ops.kernels import banded as kb
 
@@ -574,11 +603,12 @@ class PlainOnCard:
             (ldl, FACTOR_PLAINS[0]), (ldl, FACTOR_PLAINS[1]),
             (syev, "sym_eig_plain"), (graphs, "plain_solve"),
             (kb, "banded_product_plain"), (kb, "coarse_correct_plain"),
+            (ell, "ell_product_plain"),
             (tridiag, "tridiag_solve_permuted_plain"),
             (pcg, "col_sums_plain"), (pcg, "cg_update_plain"),
             (pcg, "cg_direction_plain"), (pcg, "cg_direction_dots_plain"),
             (cg, "pcg_fixed_plain"),
-            (banded.VCycle, "plain"))
+            (banded.VCycle, "plain"), (twogrid.EllVCycle, "plain"))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
@@ -651,16 +681,18 @@ def _plain_cg_loop(*args, **kw):
 
 
 def _plain_vcycle(cyc, B):
-    """The V-cycle's PyTorch form (ops.banded.VCycle.plain)."""
+    """The V-cycle's PyTorch form (ops.banded.VCycle.plain,
+    ops.twogrid.EllVCycle.plain)."""
     return cyc.plain(B)
 
 
 class PlainCG:
     """While active, TRACEMIN's inner CG step on the card runs as it did
-    before kernels K5, K6, K1p and K7, for a comparison run: pcg_fixed's
-    PyTorch loop, the V-cycle's PyTorch form around K1 (VCycle.plain), and
-    the plain versions of K5 (every banded product, the outer iteration's
-    too) and of K6, K1p and K7 wherever they are called. `calls` counts the
+    before kernels K5, K6, K1p, K7 and K8, for a comparison run:
+    pcg_fixed's PyTorch loop, the V-cycles' PyTorch forms (VCycle.plain
+    around K1, EllVCycle.plain around K1 or K1b), and the plain versions of
+    K5 and K8 (every banded and ELL product, the outer iteration's too)
+    and of K6, K1p and K7 wherever they are called. `calls` counts the
     pcg_fixed calls so run. The functions swapped in are the same objects
     every time, so that a replayed graph captured under one PlainCG is
     found again under the next. No knob selects it."""
@@ -668,14 +700,16 @@ class PlainCG:
     calls = 0
 
     def __enter__(self):
-        from mac_tpu_torch.ops import banded, cg
+        from mac_tpu_torch.ops import banded, cg, twogrid
         from mac_tpu_torch.ops.kernels import banded as kb
-        from mac_tpu_torch.ops.kernels import pcg, tridiag
+        from mac_tpu_torch.ops.kernels import ell, pcg, tridiag
 
         PlainCG.calls = 0
         swaps = [(cg, "pcg_fixed_steps", _plain_cg_loop),
                  (banded, "_vcycle_kernels", _plain_vcycle),
+                 (twogrid, "_ell_vcycle_kernels", _plain_vcycle),
                  (kb, "banded_product", kb.banded_product_plain),
+                 (ell, "ell_product", ell.ell_product_plain),
                  (kb, "coarse_correct", kb.coarse_correct_plain),
                  (tridiag, "tridiag_solve_permuted",
                   tridiag.tridiag_solve_permuted_plain),
@@ -1861,7 +1895,45 @@ def k5_cases(dev, bop, bop_sp, bds, rng):
     return cases
 
 
-def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
+def greedy_eig_table(dev, dataset):
+    """(operator, weights) of GreedyEig's incumbent on intel at its start
+    (the odometry chain, every candidate at weight 0), as phase 7c's
+    GreedyEig builds them: the ELL table its 64 trial lanes share."""
+    import numpy as np
+
+    from mac_tpu_torch.slam.pose_graph import (read_g2o_file, rpm_to_mac,
+                                               split_edges)
+    from mac_tpu_torch.solvers.greedy_eig import GreedyEig
+
+    meas, n_i = read_g2o_file(str(Path(dataset).parent / "intel.g2o"))
+    fixed_i, cands_i = split_edges(rpm_to_mac(meas))
+    eig = GreedyEig(fixed_i, cands_i, n_i, device=dev)
+    return eig.op, eig._weights(np.zeros(len(cands_i)))
+
+
+def ell_inputs(dev, dataset):
+    """Phase 3f's matrix-free inputs: (op5, w5, W5, op_ge, w_ge), the
+    n = 100000 expander's operator at its start weights (phase 5), phase
+    8b's two budget lanes' weights (2, m) and greedy_eig_table's."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import laplacian
+
+    fi5, wf5, ci5, wc5 = synthetic(SCALE_N, seed=0, local=False)
+    op5 = laplacian.build_operator(np.concatenate([fi5, ci5]),
+                                   SCALE_N).to(dev)
+    x = np.zeros((3, len(wc5)))
+    for r, k_ in enumerate((len(wc5) // 4, 6250, 12500)):
+        x[r, np.argpartition(wc5, -k_)[-k_:]] = 1.0
+    W = torch.as_tensor(np.concatenate(
+        [np.broadcast_to(wf5, (3, len(wf5))), x * wc5], axis=1),
+        dtype=torch.float32, device=dev)
+    return (op5, W[0].contiguous(), W[1:].contiguous(),
+            *greedy_eig_table(dev, dataset))
+
+
+def cg_kernels(dev, card, bop, w, bop_sp, w_sp, ell=None):
     """Phase 3f: K5 (banded_product, k5_cases: the CG step's inner form
     with its dots at city10000's (10000, 4) and the q = 11 step's (10000,
     11), the V-cycle's residual form, the outer iteration's (10000, 12)
@@ -1874,8 +1946,14 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
     float64, and the tiled branch at (32768, 16) float64) and K7
     (coarse_correct; float32, float64, 8 lanes) against their plain
     versions on the card: two calls bitwise equal, the error, device /
-    call / plain / bound / library times. Returns {key: timing dict with
-    "name", "shape", "source", "replaces"}."""
+    call / plain / bound / library times. With `ell` (ell_inputs'
+    tuple), the matrix-free route's too: K8 (ell_product, k8_cases; its
+    dots bitwise dot_model's; library: torch.sparse.mm of L(w) as CSR)
+    and its V-cycle's K1p and K7 through the identity permutation
+    (ell_cycle_cases: K1p's segment body at seg 1024 and K7 at s 196 at
+    (100000, 4), float64, 2 lanes; at GreedyEig's (1728, 256) K1p's
+    cluster body and K7 at s 4). Returns {key: timing dict with "name",
+    "shape", "source", "replaces"}."""
     import numpy as np
     import torch
 
@@ -1928,8 +2006,14 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
     print("3f launch floors (the smallest launch of each wrapper): " + ", "
           .join(f"{k} {v:.5f} ms" for k, v in floors.items())
           + f" ({card})", flush=True)
-    for c in k1p_cases(dev, bop, bop_sp, bds) + k7_cases(dev, bop, bop_sp,
-                                                          bds):
+    ell_cases = [] if ell is None else ell_cycle_cases(dev, *ell)
+    reps.update(K1p_ell=("mac_tpu/ops/pallas/tridiag_kernel.py:107 and :77 "
+                         "in the two-grid V-cycle's smooth, "
+                         "mac_tpu/ops/twogrid.py:109-110, with its centring"),
+                K7_ell="mac_tpu/ops/twogrid.py:112-129 (restrict, Lc_inv @, "
+                       "prolong)")
+    for c in (k1p_cases(dev, bop, bop_sp, bds)
+              + k7_cases(dev, bop, bop_sp, bds) + ell_cases):
         kern = c["kernel"]
         tm = cg_case(c["label"], card, lambda: kern(c["seg"]), c["plain"],
                      c["bytes"], c["flops"], c["itemsize"], c["tol"],
@@ -1940,21 +2024,42 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp):
                 fail(f"3f {c['label']}: column sums not bitwise their "
                      f"order's model (k1p_segment_sum_model)")
         kind = c["key"].split("_")[0]
+        rep = reps[kind + "_ell"] if "_ell" in c["key"] else reps[kind]
         out[c["key"]] = dict(tm, name=c["name"], shape=c["shape"],
                              body=c["body"], floor_ms=floors[c["floor"]],
-                             source=srcs[kind], replaces=reps[kind])
+                             source=srcs[kind], replaces=rep)
+    if ell is None:
+        return out
+
+    # K8, the matrix-free route's ELL product.
+    for c in k8_cases(dev, *ell):
+        tm = cg_case(c["label"], card, c["kernel"], c["plain"], c["bytes"],
+                     c["flops"], c["itemsize"], c["tol"],
+                     library=c["library"])
+        if c["model"] is not None:
+            got_dots, want_dots = c["model"]()
+            if not torch.equal(got_dots, want_dots):
+                fail(f"3f {c['label']}: the column dots not bitwise their "
+                     f"order's model (ell.dot_model)")
+        out[c["key"]] = dict(tm, name=c["name"], shape=c["shape"],
+                             floor_ms=floors["K8"],
+                             source="mac_tpu_torch/csrc/ell.cu",
+                             replaces="mac_tpu/ops/laplacian.py:169 "
+                                      "(_ell_apply; not Pallas)")
     return out
 
 
 def launch_floors(dev, segment=True):
-    """Device ms of the smallest launch each K1p body's and K7's wrapper
-    can make (chip_smoke.device_ms): the segment body at (32, 1), seg 32
-    (one block of one warp; left out without `segment`, for a library
-    that has none); the cluster body at (16, 1) (its 16 blocks); K7 at
-    n = 1, q = 1, one aggregate (a cluster of one block)."""
+    """Device ms of the smallest launch each K1p body's, K7's and K8's
+    wrapper can make (chip_smoke.device_ms): the segment body at (32, 1),
+    seg 32 (one block of one warp; left out without `segment`, for a
+    library that has none); the cluster body at (16, 1) (its 16 blocks);
+    K7 at n = 1, q = 1, one aggregate (a cluster of one block); K8 at
+    n = 1, q = 1, one slot (one block)."""
     import torch
 
     from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import ell as k8
     from mac_tpu_torch.ops.kernels import tridiag as k1
 
     def chain(n):
@@ -1976,6 +2081,8 @@ def launch_floors(dev, segment=True):
         d16, l16, b16, i16, i16))
     floors["K7"] = device_ms(lambda: kb.coarse_correct(x1, x1, i1, i1, lc1,
                                                        1))
+    nbr1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    floors["K8"] = device_ms(lambda: k8.ell_product(nbr1, lc1, x1))
     return floors
 
 
@@ -2106,6 +2213,65 @@ def k6_cases(dev, n, rng):
     return cases
 
 
+def k1p_case(cases, rand, dev, key, label, dp, l, seg, iperm, perm, lead,
+             q, dtype, adding):
+    """Append to `cases` one K1p case (k1p_cases' dicts) on the factor dp,
+    l (decoupled every seg rows, or exact: seg None) through the
+    permutation iperm / perm, B (and the old x) drawn by rand(*shape,
+    dtype=): the first smoothing (centred) or, adding, the second (added
+    into x, with x's sums)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import pcg as kp
+    from mac_tpu_torch.ops.kernels import tridiag as k1
+
+    n = iperm.shape[0]
+    it = torch.finfo(dtype).bits // 8
+    ln = lead[0] if lead else 1
+    B = rand(*lead, n, q, dtype=dtype)
+    X0 = rand(*lead, n, q, dtype=dtype)
+    X = X0.clone()
+    bsum = kp.col_sums(B)
+    kw = dict(X=X, sums=True) if adding else dict(bsum=bsum)
+
+    def solve(Bn):  # the twin: K1b at block seg, or K1
+        if seg is None:
+            return k1.tridiag_solve(dp, l, Bn)
+        return k1.tridiag_solve_blocked(dp, l, Bn, block=seg)
+
+    def twin():
+        if adding:
+            Bn = B[..., iperm.long(), :].contiguous()
+            return X0 + solve(Bn)[..., perm.long(), :]
+        m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
+        Bn = (B[..., iperm.long(), :] - m).contiguous()
+        return solve(Bn)[..., perm.long(), :]
+
+    def model():
+        got = k1.tridiag_solve_permuted(dp, l, B, iperm, perm, X=X,
+                                        sums=True, seg=seg)
+        x = got[0].cpu().numpy().reshape(-1, n, q)[:, iperm.cpu().long()]
+        want = np.stack([k1.k1p_segment_sum_model(v, seg) for v in x])
+        return got[1].cpu().reshape(want.shape), torch.as_tensor(want)
+
+    fac_bytes = it * 2 * dp.numel()
+    nbytes = (fac_bytes + 4 * n + it * (3 if adding else 2) * ln * n * q
+              + 8 * ln * q)
+    cases.append(dict(
+        key=key, label=f"K1p {label}", name="tridiag_solve_permuted",
+        shape=label, body=k1.permuted_body(seg), seg=seg,
+        kernel=lambda s: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
+                                                   seg=s, **kw),
+        plain=lambda: k1.tridiag_solve_permuted_plain(
+            dp, l, B, iperm, perm, seg=seg, **kw),
+        twin=twin, fresh=(lambda: X.copy_(X0)) if adding else None,
+        model=model if adding and seg is not None else None,
+        bytes=nbytes, flops=(6.0 if adding else 5.0) * ln * n * q,
+        itemsize=it, tol=CG_TOL[str(dtype).split(".")[-1]],
+        floor="K1p " + k1.permuted_body(seg)))
+
+
 def k1p_cases(dev, bop, bop_sp, bds):
     """Phase 3f's K1p cases (tridiag_solve_permuted at the main paths'
     shapes), inputs from a RandomState(20) of their own: the segment body
@@ -2126,9 +2292,6 @@ def k1p_cases(dev, bop, bop_sp, bds):
     import numpy as np
     import torch
 
-    from mac_tpu_torch.ops.kernels import pcg as kp
-    from mac_tpu_torch.ops.kernels import tridiag as k1
-
     rng = np.random.RandomState(20)
     cases = []
 
@@ -2136,51 +2299,8 @@ def k1p_cases(dev, bop, bop_sp, bds):
         return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
                                device=dev)
 
-    def add(key, label, dp, l, seg, iperm, perm, lead, q, dtype, adding):
-        n = iperm.shape[0]
-        it = torch.finfo(dtype).bits // 8
-        ln = lead[0] if lead else 1
-        B = rand(*lead, n, q, dtype=dtype)
-        X0 = rand(*lead, n, q, dtype=dtype)
-        X = X0.clone()
-        bsum = kp.col_sums(B)
-        kw = dict(X=X, sums=True) if adding else dict(bsum=bsum)
-
-        def solve(Bn):  # the twin: K1b at block seg, or K1
-            if seg is None:
-                return k1.tridiag_solve(dp, l, Bn)
-            return k1.tridiag_solve_blocked(dp, l, Bn, block=seg)
-
-        def twin():
-            if adding:
-                Bn = B[..., iperm.long(), :].contiguous()
-                return X0 + solve(Bn)[..., perm.long(), :]
-            m = (bsum / torch.full_like(bsum, n)).to(dtype).unsqueeze(-2)
-            Bn = (B[..., iperm.long(), :] - m).contiguous()
-            return solve(Bn)[..., perm.long(), :]
-
-        def model():
-            got = k1.tridiag_solve_permuted(dp, l, B, iperm, perm, X=X,
-                                            sums=True, seg=seg)
-            x = got[0].cpu().numpy().reshape(-1, n, q)[:, iperm.cpu().long()]
-            want = np.stack([k1.k1p_segment_sum_model(v, seg) for v in x])
-            return got[1].cpu().reshape(want.shape), torch.as_tensor(want)
-
-        fac_bytes = it * 2 * dp.numel()
-        nbytes = (fac_bytes + 4 * n + it * (3 if adding else 2) * ln * n * q
-                  + 8 * ln * q)
-        cases.append(dict(
-            key=key, label=f"K1p {label}", name="tridiag_solve_permuted",
-            shape=label, body=k1.permuted_body(seg), seg=seg,
-            kernel=lambda s: k1.tridiag_solve_permuted(dp, l, B, iperm, perm,
-                                                       seg=s, **kw),
-            plain=lambda: k1.tridiag_solve_permuted_plain(
-                dp, l, B, iperm, perm, seg=seg, **kw),
-            twin=twin, fresh=(lambda: X.copy_(X0)) if adding else None,
-            model=model if adding and seg is not None else None,
-            bytes=nbytes, flops=(6.0 if adding else 5.0) * ln * n * q,
-            itemsize=it, tol=CG_TOL[str(dtype).split(".")[-1]],
-            floor="K1p " + k1.permuted_body(seg)))
+    def add(*args):
+        k1p_case(cases, rand, dev, *args)
 
     for tag, M, lead in (("", bds["float32"][1], ()),
                          ("_f64", bds["float64"][1], ()),
@@ -2220,6 +2340,32 @@ def k1p_cases(dev, bop, bop_sp, bds):
     return cases
 
 
+def k7_case(rng, dev, key, label, Lc_inv, iperm, perm, n, nc, s_, lead, q,
+            dtype):
+    """One K7 case (k7_cases' dicts): r and the old x drawn from rng at
+    lead + (n, q), the coarse inverse Lc_inv of nc aggregates of s_ rows
+    (one per lane, or shared), through iperm / perm."""
+    import torch
+
+    from mac_tpu_torch.ops.kernels import banded as kb
+
+    it = torch.finfo(dtype).bits // 8
+    ln = lead[0] if lead else 1
+    r = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+                        device=dev)
+    X0 = torch.as_tensor(rng.normal(size=r.shape), dtype=dtype, device=dev)
+    X = X0.clone()
+    return dict(
+        key=key, label=f"K7 {label}", name="coarse_correct", shape=label,
+        body=None, seg=None,
+        kernel=lambda _s: kb.coarse_correct(r, X, iperm, perm, Lc_inv, s_),
+        plain=lambda: kb.coarse_correct_plain(r, X, iperm, perm, Lc_inv, s_),
+        twin=None, fresh=lambda: X.copy_(X0), model=None,
+        bytes=it * (Lc_inv.numel() + 3 * ln * n * q) + 4 * n,
+        flops=2.0 * ln * nc * nc * q, itemsize=it,
+        tol=CG_TOL[str(dtype).split(".")[-1]], floor="K7")
+
+
 def k7_cases(dev, bop, bop_sp, bds):
     """Phase 3f's K7 cases (coarse_correct), inputs from a RandomState(21)
     of their own: city10000's coarse level (nc 500, s 20) at (10000, 4) in
@@ -2230,8 +2376,6 @@ def k7_cases(dev, bop, bop_sp, bds):
     import numpy as np
     import torch
 
-    from mac_tpu_torch.ops.kernels import banded as kb
-
     rng = np.random.RandomState(21)
     cases = []
     for tag, M, op, lead in (("", bds["float32"][1], bop, ()),
@@ -2239,28 +2383,178 @@ def k7_cases(dev, bop, bop_sp, bds):
                              ("_lanes", bds["lanes"][1], bop, (8,)),
                              ("_sphere", bds["sphere"][1], bop_sp, ())):
         dtype = M.BD.ut.dtype
-        it = torch.finfo(dtype).bits // 8
-        ln = lead[0] if lead else 1
         n, q, nc, s_ = op.n, 4, op.coarse_nc, op.coarse_s
-        r = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+        label = f"{lead + (n, q)} {str(dtype)[6:]}, nc {nc}, s {s_}"
+        cases.append(k7_case(rng, dev, "K7" + tag, label,
+                             M.Lc_inv.to(dtype).contiguous(), op.iperm,
+                             op.perm, n, nc, s_, lead, q, dtype))
+    return cases
+
+
+def csr_library(op, w_tbl, V):
+    """One torch.sparse call computing L(w) V on the ELL operator: L as a
+    CSR matrix (the n degrees and the two entries of every edge, about
+    n + 2 m nonzeros; built here, not timed) times V; None where torch
+    refuses the dtype or layout on the card."""
+    import torch
+
+    try:
+        n, dmax = op.nbr_tbl.shape
+        keep = w_tbl != 0
+        rows = torch.arange(n, device=V.device)[:, None].expand(n, dmax)
+        diag = torch.arange(n, device=V.device)
+        idx = torch.stack([torch.cat([rows[keep], diag]),
+                           torch.cat([op.nbr_tbl[keep], diag])])
+        vals = torch.cat([-w_tbl[keep], w_tbl.sum(dim=1)])
+        L = torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce()
+        Lcsr = L.to_sparse_csr()
+        del L
+
+        def run():
+            return torch.sparse.mm(Lcsr, V)
+
+        run()
+        torch.cuda.synchronize()
+        return run
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        print(f"  torch.sparse.mm of a CSR L(w) ({V.dtype}): not available "
+              f"here ({str(exc).splitlines()[0][:120]})", flush=True)
+        return None
+
+
+def k8_cases(dev, op5, w5, W5, op_ge, w_ge):
+    """Phase 3f's K8 cases (ell_product at the main paths' shapes), inputs
+    from a RandomState(22) of their own: the n = 100000 expander's tables
+    at its start weights w5 (phase 5), at (100000, 4) the CG step's inner
+    form with its dots, the V-cycle's residual form and the plain form,
+    the outer iteration's (100000, 12) inner form, float64's inner form
+    with the dots and plain form (phase 10f); phase 8b's two budget lanes
+    W5 (2, 100000, 4), a weight table per lane, inner form with the dots;
+    GreedyEig's (1728, 256) flat block over intel's table (op_ge, w_ge),
+    shared by its 64 lanes. Each a dict: key, label, "kernel", "plain",
+    "model" (with the dots: the dots and dot_model's of the products V
+    times the output the kernel wrote, to be bitwise), the bytes read once
+    and written once (the int32 ids, the weights, V, B, the output), the
+    operations (a subtraction, a product and a sum a nonzero slot and
+    column, 2 more an entry for the epilogue), itemsize, tolerance and the
+    library call (torch.sparse.mm of L(w) as CSR, for the plain form)."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import laplacian
+    from mac_tpu_torch.ops.kernels import ell as k8
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    rng = np.random.RandomState(22)
+    cases = []
+
+    def add(key, label, op, w, q, form, lanes=None, library=False,
+            dot=False):
+        dtype = w.dtype
+        w_tbl = laplacian.lap_weight_table(op, w).contiguous()
+        n, dmax = op.nbr_tbl.shape
+        lead = (lanes,) if lanes else ()
+        V = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
                             device=dev)
-        X0 = torch.as_tensor(rng.normal(size=r.shape), dtype=dtype,
-                             device=dev)
-        X = X0.clone()
-        Lc_inv = M.Lc_inv.to(dtype).contiguous()
-        iperm, perm = op.iperm, op.perm
-        label = f"{tuple(r.shape)} {str(dtype)[6:]}, nc {nc}, s {s_}"
+        kw = {}
+        if form == "inner":
+            c = laplacian.lap_inf_norm(op, w).to(dtype)
+            kw = dict(vsum=kp.col_sums(V), c=c,
+                      sigma=32 * torch.finfo(dtype).eps * c, dot=dot)
+        elif form == "residual":
+            B = torch.as_tensor(rng.normal(size=V.shape), dtype=dtype,
+                                device=dev)
+            kw = dict(B=B, bsum=kp.col_sums(B))
+        it = V.element_size()
+        ln = lanes or 1
+        nnz = int((w_tbl != 0).sum()) * (1 if w_tbl.dim() == 3 else ln)
+        nbytes = (4 * n * dmax + it * w_tbl.numel()
+                  + it * ln * n * q * (2 + (form == "residual")))
+        flops = 3.0 * nnz * q + 2.0 * ln * n * q
+
+        def model():
+            y, dots = k8.ell_product(op.nbr32, w_tbl, V, **kw)
+            prod = (V * y).cpu().numpy().reshape(-1, n, q)
+            want = np.stack([k8.dot_model(p) for p in prod])
+            return dots.cpu().reshape(want.shape), torch.as_tensor(want)
+
         cases.append(dict(
-            key="K7" + tag, label=f"K7 {label}", name="coarse_correct",
-            shape=label, body=None, seg=None,
-            kernel=lambda _s, r=r, X=X, Lc_inv=Lc_inv, iperm=iperm, perm=perm,
-            s_=s_: kb.coarse_correct(r, X, iperm, perm, Lc_inv, s_),
-            plain=lambda r=r, X=X, Lc_inv=Lc_inv, iperm=iperm, perm=perm,
-            s_=s_: kb.coarse_correct_plain(r, X, iperm, perm, Lc_inv, s_),
-            twin=None, fresh=lambda X=X, X0=X0: X.copy_(X0), model=None,
-            bytes=it * (Lc_inv.numel() + 3 * ln * n * q) + 4 * n,
-            flops=2.0 * ln * nc * nc * q, itemsize=it,
-            tol=CG_TOL[str(dtype).split(".")[-1]], floor="K7"))
+            key=key, label=f"K8 {label}", name="ell_product", shape=label,
+            kernel=lambda: k8.ell_product(op.nbr32, w_tbl, V, **kw),
+            plain=lambda: k8.ell_product_plain(op.nbr32, w_tbl, V, **kw),
+            model=model if kw.get("dot") else None, bytes=nbytes,
+            flops=flops, itemsize=it, tol=CG_TOL[str(dtype)[6:]],
+            library=csr_library(op, w_tbl, V) if library else None))
+
+    n5 = op5.n
+    w64 = w5.double()
+    add("K8", f"({n5}, 4) inner form, the CG step's A P, with the dots",
+        op5, w5, 4, "inner", dot=True)
+    add("K8_residual", f"({n5}, 4) residual form, the V-cycle's", op5, w5,
+        4, "residual")
+    add("K8_plain", f"({n5}, 4) plain form (library: CSR L(w) V)", op5, w5,
+        4, "plain", library=True)
+    add("K8_12", f"({n5}, 12) inner form, the outer iteration's A Q", op5,
+        w5, 12, "inner")
+    add("K8_f64", f"({n5}, 4) inner form, float64, with the dots", op5, w64,
+        4, "inner", dot=True)
+    add("K8_f64_plain", f"({n5}, 4) plain form, float64 (library: CSR)",
+        op5, w64, 4, "plain", library=True)
+    add("K8_lanes", f"(2, {n5}, 4) inner form, phase 8b's 2 lanes, a "
+        "table each, with the dots", op5, W5, 4, "inner", lanes=2, dot=True)
+    add("K8_ge", f"({op_ge.n}, 256) plain form, GreedyEig's flat block "
+        "(64 lanes of 4) over one table (library: CSR)", op_ge, w_ge, 256,
+        "plain", library=True)
+    return cases
+
+
+def ell_cycle_cases(dev, op5, w5, W5, op_ge, w_ge):
+    """Phase 3f's K1p and K7 cases on the matrix-free route's V-cycle
+    (ops.twogrid.EllVCycle: the identity permutation), inputs from a
+    RandomState(23) of their own: the n = 100000 expander's chain factor
+    (decoupled every 1024 rows: K1p's segment body at seg 1024) and coarse
+    level (nc 511, s 196) at its start weights, float32 and float64, and
+    phase 8b's two budget lanes (a factor and a coarse inverse each);
+    GreedyEig's (1728, 256) block on intel's exact factor (K1p's cluster
+    body) and coarse level (nc 432, s 4). Dicts as k1p_cases' and
+    k7_cases'."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops import twogrid
+
+    rng = np.random.RandomState(23)
+    cases = []
+
+    def rand(*shape, dtype):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    def level(op, w, dtype):
+        fac, Lc_inv = twogrid.twogrid_level(op, w.to(dtype))
+        return (fac.dp.to(dtype).contiguous(), fac.l.to(dtype).contiguous(),
+                fac.seg, Lc_inv.to(dtype).contiguous())
+
+    for tag, op, w, lead, q, dtype in (
+            ("_ell", op5, w5, (), 4, torch.float32),
+            ("_ell_f64", op5, w5, (), 4, torch.float64),
+            ("_ell_lanes", op5, W5, (2,), 4, torch.float32),
+            ("_ell_ge", op_ge, w_ge, (), 256, torch.float32)):
+        dp, l, seg, Lc_inv = level(op, w, dtype)
+        iperm = op.ident32
+        shape = (f"{lead + (op.n, q)} {str(dtype)[6:]}, identity "
+                 f"permutation, " + (f"seg {seg}" if seg else "exact factor"))
+        k1p_case(cases, rand, dev, "K1p" + tag, f"{shape}, the ELL cycle's "
+                 "first smoothing (centred)", dp, l, seg, iperm, iperm, lead,
+                 q, dtype, False)
+        k1p_case(cases, rand, dev, "K1p_add" + tag, f"{shape}, the ELL "
+                 "cycle's second smoothing added into x, with x's sums", dp,
+                 l, seg, iperm, iperm, lead, q, dtype, True)
+        nc, s_ = op.coarse_nc, op.coarse_s
+        cases.append(k7_case(
+            rng, dev, "K7" + tag, f"{lead + (op.n, q)} {str(dtype)[6:]}, nc "
+            f"{nc}, s {s_}, the ELL cycle's, identity permutation", Lc_inv,
+            iperm, iperm, op.n, nc, s_, lead, q, dtype))
     return cases
 
 
@@ -2385,7 +2679,8 @@ def baselines(dev, dataset, card, counted):
           f"the card, scan on the card): {z_s:.3f} s; selected set = host "
           f"numpy loop's ({card})", flush=True)
     part_s.append(time.perf_counter() - t7)
-    # (c) GreedyEig on intel: the ELL operator, the V-cycle and K1.
+    # (c) GreedyEig on intel: the ELL operator (K8) and the V-cycle (K1p's
+    # cluster body, K8, K7).
     t7 = time.perf_counter()
     meas, n_i = read_g2o_file(str(dataset.parent / "intel.g2o"))
     fixed_i, cands_i = split_edges(rpm_to_mac(meas))
@@ -2394,8 +2689,9 @@ def baselines(dev, dataset, card, counted):
         fail(f"GreedyEig on intel: dtype {eig.dtype}, operator "
              f"{eig.op.mode}, chunk {eig.chunk}")
     x_i = np.zeros(len(cands_i))
-    # K1 at the shape GreedyEig gives it: the incumbent's V-cycle chain
-    # factor, a chunk's (n, 64 q) block.
+    # K1 at the shape GreedyEig gives its V-cycle's chain solve (since the
+    # cycle's kernels, K1p's cluster body, K1's body, runs there): the
+    # incumbent's chain factor, a chunk's (n, 64 q) block.
     d_i, e_i = lap_tridiagonal_part(eig.op, eig._weights(x_i))
     f_i = tridiag_ldl_auto(
         d_i + 100 * torch.finfo(torch.float32).eps * d_i.max(), e_i)
@@ -2471,7 +2767,8 @@ def baselines(dev, dataset, card, counted):
           f"float32): subset {eig_s:.3f} s; step lambda_2 "
           f"{[f'{v:.9g}' for v in eig.step_lam2]}, scipy referee "
           f"{[f'{v:.9g}' for v in ref_lams]}, max rel err "
-          f"{max(step_err):.2e}; first chunk (64 lanes, K1 at ({n_i}, 256))"
+          f"{max(step_err):.2e}; first chunk (64 lanes, the V-cycle's K1p, "
+          f"K8 and K7 at ({n_i}, 256))"
           f" batched {chunk_ms['batched']:.1f} ms against the per-lane loop "
           f"{chunk_ms['per-lane loop']:.1f} ms, lambda_2 within "
           f"{chunk_err:.2e}; kernel launches in subset(8) {eig_launches}; "
@@ -2484,8 +2781,10 @@ def baselines(dev, dataset, card, counted):
     if not all(b > a for a, b in zip(eig.step_lam2, eig.step_lam2[1:])):
         fail(f"GreedyEig's lambda_2 did not rise every step: "
              f"{eig.step_lam2}")
-    if eig_launches["tridiag_solve"] <= 0:
-        fail("GreedyEig on intel never launched K1")
+    if min(k1_body(eig_launches), eig_launches["ell_product"],
+           eig_launches["coarse_correct"]) <= 0:
+        fail(f"GreedyEig on intel never launched its V-cycle's kernels (K1p "
+             f"or K1, K8, K7): {eig_launches}")
     if (eig_launches["sym_eig_by_lanes"].get(eig.chunk, 0) <= 0
             or eigh_i.lanes):
         fail(f"GreedyEig's trial lanes: K4 launches by lanes "
@@ -2730,7 +3029,8 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
              f"lanes")
     part_s = [time.perf_counter() - t8]
 
-    # (b) the n = 100000 expander, 2 lanes: the ELL V-cycle through K1b.
+    # (b) the n = 100000 expander, 2 lanes: K8 and the ELL V-cycle's K1p,
+    # K7 on both lanes in one launch each.
     t8 = time.perf_counter()
     _, wf5, _, wc5 = synth5
     ks5 = [6250, 12500]
@@ -2750,8 +3050,7 @@ def sweeps(dev, card, mac, mac5, dataset, counted, synth5):
           f"{(lam5 - REFERENCE_LAM2_SCALE) / REFERENCE_LAM2_SCALE:+.3e}; "
           f"upper {[f'{v:.9g}' for v in up5]}; launches by lanes {lanes_b} "
           f"({card})", flush=True)
-    for name in ("tridiag_solve_blocked", "tridiag_ldl_blocked",
-                 *K6_KERNELS):
+    for name in ("tridiag_ldl_blocked", *ELL_CG_KERNELS):
         if lanes_b[name].get(2, 0) <= 0:
             fail(f"8b: {name} never launched with 2 lanes: {lanes_b}")
     if [int(r.sum()) for r in r5] != ks5:
@@ -3339,7 +3638,7 @@ def float64_phase(dev, card, dataset, synth5, counted):
              f"{r_d.sum()} (want {k_d}), upper {up_d}")
     part_s["d"] = time.perf_counter() - t10
 
-    # (f) the n = 100000 expander in float64: the V-cycle through K1b.
+    # (f) the n = 100000 expander in float64: K8, the V-cycle's K1p and K7.
     t10 = time.perf_counter()
     mac_f = MAC((fi5, wf5), (ci5, wc5), SCALE_N, dtype=f64,
                 fiedler_inner_iters=10, fiedler_maxiter=60,
@@ -3362,11 +3661,11 @@ def float64_phase(dev, card, dataset, synth5, counted):
           f"{up_f:.12g}; rounded {int(r_f.sum())}; last_solve_stats "
           f"{mac_f.last_solve_stats}; launches by dtype {got_f}; plain "
           f"versions on the card {plain_f.calls}", flush=True)
-    if (got_f["tridiag_solve_blocked"].get("float64", 0) <= 0
+    if (min(got_f[kern].get("float64", 0) for kern in ELL_CG_KERNELS) <= 0
             or plain_f.calls
             or any(v.get("float32", 0) for v in got_f.values())):
-        fail(f"10f: the V-cycle did not run K1b's float64 instantiation "
-             f"alone: {got_f}, plain {plain_f.calls}")
+        fail(f"10f: the CG step did not run K8's, K1p's, K7's and K6's "
+             f"float64 instantiations alone: {got_f}, plain {plain_f.calls}")
     if int(r_f.sum()) != k5 or not (np.isfinite(lam_f)
                                      and up_f >= lam_f * (1 - 1e-6)):
         fail(f"10f: rounded {r_f.sum()} (want {k5}), lambda_2 {lam_f}, "
@@ -3402,7 +3701,10 @@ def float64_phase(dev, card, dataset, synth5, counted):
         entry("tridiag_solve_blocked_f64", "tridiag.cu",
               "mac_tpu/ops/pallas/tridiag_kernel.py:107",
               f"({SCALE_N}, 4), the two-grid chain factor", k1b,
-              got_f["tridiag_solve_blocked"].get("float64", 0), "phase 10f"),
+              got_f["tridiag_solve_blocked"].get("float64", 0),
+              "phase 10f: none since the matrix-free V-cycle's chain solve "
+              "is K1p's segment body (K1b's solve; its float64 launches "
+              "under tridiag_solve_permuted)"),
         entry("assemble_ut_f64", "assemble.cu",
               "mac_tpu/ops/pallas/assemble_kernel.py:61",
               "city10000 tables (K2b form)", k2["K2b"],
@@ -3503,14 +3805,85 @@ def device_items(fn):
     return sum(ms for ms, _, _ in items), kernels, items
 
 
-def step_kernels(op):
-    """(kernels, device ms) of one inner CG step on the graphed route of
-    `op` (a banded operator or an ELL one): a replayed inner solve
-    (ops.graphs.inner_replay) of 6 steps less one of 5, each captured
-    first, over the route's static state after a solve."""
+def _cudart():
+    """The CUDA runtime library PyTorch loaded (its path read from
+    /proc/self/maps), through ctypes."""
+    import ctypes
+
+    with open("/proc/self/maps") as maps:
+        paths = sorted({ln.split()[-1] for ln in maps
+                        if "libcudart" in ln and ln.split()[-1].startswith("/")})
+    lib = ctypes.CDLL(paths[0] if paths else "libcudart.so.12")
+    for fn in ("cudaGraphGetNodes", "cudaGraphNodeGetType",
+               "cudaGraphChildGraphNodeGetGraph"):
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def graph_kernels(fn) -> int:
+    """The kernels one replay of a CUDA graph of fn() launches: the graph
+    captured (torch.cuda.CUDAGraph(keep_graph=True), never instantiated
+    or replayed) and its kernel nodes counted, child graphs' too, from the
+    graph itself (cudaGraphGetNodes, cudaGraphNodeGetType); copy and
+    memset nodes are not kernels. No profiler trace is read: a trace on
+    this card can lose or gain device items (step_kernels)."""
+    import ctypes
+
     import torch
 
-    from mac_tpu_torch.ops import graphs
+    rt = _cudart()
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: cudaError {err}")
+
+    def count(graph) -> int:
+        n = ctypes.c_size_t(0)
+        check(rt.cudaGraphGetNodes(ctypes.c_void_p(graph), None,
+                                   ctypes.byref(n)), "cudaGraphGetNodes")
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        check(rt.cudaGraphGetNodes(ctypes.c_void_p(graph), nodes,
+                                   ctypes.byref(n)), "cudaGraphGetNodes")
+        kernels = 0
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                          ctypes.byref(kind)),
+                  "cudaGraphNodeGetType")
+            if kind.value == 0:  # cudaGraphNodeTypeKernel
+                kernels += 1
+            elif kind.value == 4:  # cudaGraphNodeTypeGraph
+                child = ctypes.c_void_p()
+                check(rt.cudaGraphChildGraphNodeGetGraph(
+                    ctypes.c_void_p(node), ctypes.byref(child)),
+                    "cudaGraphChildGraphNodeGetGraph")
+                kernels += count(child.value)
+        return kernels
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    kernels = count(graph.raw_cuda_graph())
+    graph.reset()
+    return kernels
+
+
+def step_kernels(op, rounds: int = 3):
+    """(kernels, device ms) of one inner CG step on the graphed route of
+    `op` (a banded operator or an ELL one), over the route's static state
+    after a solve: the kernels an inner solve of 6 steps launches less
+    those of one of 5 (graph_kernels: each captured once more, its kernel
+    nodes counted); the ms the replayed inner solve of 6 steps less one
+    of 5 (ops.graphs.inner_replay, each captured first), each graph's
+    replay alone under torch.profiler behind a spin kernel and a
+    synchronize, `rounds` times in turns, the median busy of each."""
+    import statistics
+
+    import torch
+
+    from mac_tpu_torch.ops import cg, graphs
+    from mac_tpu_torch.ops.lobpcg import as_operator
 
     route = next(r for r in op.graph_routes.values()
                  if any(key[0] != "inner" for key in r.statics))
@@ -3520,13 +3893,39 @@ def step_kernels(op):
     c = s["lnorm"].to(dtype)
     state.update(c=c, sigma=32 * torch.finfo(dtype).eps * c)
     B = s["X"].clone()
-    got = []
+    replays = {}
     for iters in (5, 6):
         graphs.inner_replay(route, state, B, B, iters)  # captures
+        key = (("inner", iters), route.statics[("inner", B.dtype,
+                                                tuple(B.shape), B.device)]
+               ["key"], graphs._kernels_in_use())
+        replays[iters] = route.graphs[key].graph.replay
+    inner = route.statics[("inner", B.dtype, tuple(B.shape), B.device)]
+
+    def solve(iters):
+        apply_L, Minv = route.build(inner)
+        apply_inner = as_operator(apply_L).shifted(inner["c"], inner["sigma"])
+        inner["Y"].copy_(cg.pcg_fixed(apply_inner, inner["B"], Minv,
+                                      iters=iters, X0=inner["X0"]))
+
+    kernels = {iters: graph_kernels(lambda: solve(iters)) for iters in (5, 6)}
+
+    def busy(replay):
+        def run():
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            replay()
+
         torch.cuda.synchronize()
-        got.append(device_items(
-            lambda: graphs.inner_replay(route, state, B, B, iters)))
-    return got[1][1] - got[0][1], got[1][0] - got[0][0]
+        _, _, items = device_items(run)
+        return sum(ms for ms, _, name in items if "spin_kernel" not in name)
+
+    ms = {5: [], 6: []}
+    for _ in range(rounds):
+        for iters in (5, 6):
+            ms[iters].append(busy(replays[iters]))
+    return (kernels[6] - kernels[5],
+            statistics.median(ms[6]) - statistics.median(ms[5]))
 
 
 def graph_ab(card, cases, counted):
@@ -3612,7 +4011,8 @@ def graph_ab(card, cases, counted):
                       f"{d['captures']}, replays {d['replays']}; launches "
                       f"{short} ({card})", flush=True)
                 if not same or d["captures"] or not d["replays"] or \
-                        any(short[kern] for kern in CG_KERNELS):
+                        any(short[kern] for kern in set(CG_KERNELS)
+                            | set(ELL_CG_KERNELS)):
                     fail(f"13 {name} plain-cg: not bitwise the first "
                          f"plain-cg turn, a capture, no replay, or a kernel "
                          f"of the CG step launched: {d}, {short}")
@@ -3647,9 +4047,10 @@ def graph_ab(card, cases, counted):
                     or eigh.calls or short["sym_eig"] <= 0):
                 fail(f"13 {name} {turn}: {d}, eigh calls {eigh.calls}, K4 "
                      f"launches {short['sym_eig']}")
-            # The CG step's kernels: K6 on every route, K5, K1p and K7 too
-            # on the banded one.
-            cg_want = CG_KERNELS if hasattr(op, "ueid_tbl") else K6_KERNELS
+            # The CG step's kernels: K6, K1p and K7 on every route, K5 on
+            # the banded one, K8 on the matrix-free one.
+            cg_want = (CG_KERNELS if hasattr(op, "ueid_tbl")
+                       else ELL_CG_KERNELS)
             if min(short[kern] for kern in cg_want) <= 0:
                 fail(f"13 {name} {turn}: a kernel of the CG step never "
                      f"launched: {short}")
@@ -3966,6 +4367,7 @@ def main():
     from mac_tpu_torch.ops.kernels import _build, ldl, syev
     from mac_tpu_torch.ops.kernels.assemble import assemble_ut, assemble_ut_plain
     from mac_tpu_torch.ops.kernels import banded as kbanded
+    from mac_tpu_torch.ops.kernels import ell as kell
     from mac_tpu_torch.ops.kernels import pcg as kpcg
     from mac_tpu_torch.ops.kernels.tridiag import (
         reset_counts, tridiag_solve, tridiag_solve_blocked,
@@ -3989,7 +4391,7 @@ def main():
     # ---- 2. build the kernels, one nvcc per source, in parallel
     phase("2 build")
     t0 = time.perf_counter()
-    sources = ("tridiag", "assemble", "ldl", "syev", "banded", "pcg")
+    sources = ("tridiag", "assemble", "ldl", "syev", "banded", "pcg", "ell")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -4640,8 +5042,9 @@ def main():
 
     # ---- 4. the banded path, through the user's entry points
     # ---- 3f. the CG step's kernels against their plain versions
-    phase("3f K5, K6, K1p, K7 against their plain versions")
-    cg_tm = cg_kernels(dev, card, bop, w, bop_sp, w_sp)
+    phase("3f K5, K6, K1p, K7, K8 against their plain versions")
+    cg_tm = cg_kernels(dev, card, bop, w, bop_sp, w_sp,
+                       ell=(op5, w5, W5, *greedy_eig_table(dev, dataset)))
 
     phase("4 banded path (city10000)")
     # Phases 4 to 10 hand no plain chain factor a CUDA tensor, and phases 4
@@ -4662,7 +5065,7 @@ def main():
     counted = (tridiag_solve, tridiag_solve_blocked, assemble_ut, k3, k3b,
                k4, kbanded.banded_product, kbanded.coarse_correct,
                tridiag_solve_permuted, kpcg.col_sums, kpcg.cg_update,
-               kpcg.cg_direction_dots)
+               kpcg.cg_direction_dots, kell.ell_product)
     reset_counts(*counted)
     times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
@@ -4686,8 +5089,9 @@ def main():
         fail(f"city10000's chain factor (decoupled every 128 rows) did not "
              f"take K1p's segment body alone: {k1p_bodies['phase 4']}")
     tridiag_solve_launches_4 = tridiag_solve.launches
-    if tridiag_solve_blocked.launches or k3.launches or tridiag_solve.launches:
-        fail("the banded path launched tridiag_solve_blocked, K3 or K1 "
+    if (tridiag_solve_blocked.launches or k3.launches or tridiag_solve.launches
+            or kell.ell_product.launches):
+        fail("the banded path launched tridiag_solve_blocked, K3, K1 or K8 "
              "(K1p takes K1's place in the V-cycle)")
     print(f"solve: cold {times[0]:.4f} s, warm {[round(t, 4) for t in times[1:]]}"
           f" s, warm median {statistics.median(times[1:]):.4f} s ({card})",
@@ -4745,11 +5149,11 @@ def main():
                                                   use_cache=True)
         torch.cuda.synchronize()
         path_s.append(time.perf_counter() - t0)
-        path_launches.append(tridiag_solve_blocked.launches
+        path_launches.append(kell.ell_product.launches
                              - sum(path_launches))
         graphs5.append(graph_stats(mac5.op))
         print(f"solve {label}: {path_s[-1]:.3f} s, last_solve_stats "
-              f"{mac5.last_solve_stats}, K1b launches "
+              f"{mac5.last_solve_stats}, K8 launches "
               f"{path_launches[-1]}", flush=True)
     graph_lines(card, f"n = {SCALE_N}", graphs5)
     torch.cuda.synchronize()
@@ -4757,9 +5161,10 @@ def main():
     lam5 = mac5.evaluate_objective(unrounded5)
     eval_s = time.perf_counter() - t0
     launches5 = {kern.__name__: kern.launches for kern in counted}
+    k1p_bodies["phase 5"] = dict(tridiag_solve_permuted.launches_by_body)
     k4_launches["float64"] = k4.launches_by_dtype.get("float64", 0)
-    print(f"evaluate_objective: {eval_s:.3f} s, K1b launches "
-          f"{tridiag_solve_blocked.launches - sum(path_launches)}", flush=True)
+    print(f"evaluate_objective: {eval_s:.3f} s, K8 launches "
+          f"{kell.ell_product.launches - sum(path_launches)}", flush=True)
     print(f"matrix-free path ({card}): ctor {ctor_s:.3f} s, cold solve "
           f"{path_s[0]:.3f} s, warm solve {path_s[1]:.3f} s, "
           f"evaluate_objective {eval_s:.3f} s; kernel launches {launches5}",
@@ -4769,11 +5174,17 @@ def main():
           f"{REFERENCE_LAM2_SCALE:.12g}, relative gap {gap5:+.3e}; upper "
           f"bound {upper5:.12g}; rounded {int(rounded5.sum())} of "
           f"{len(wc5)}", flush=True)
-    if (launches5["tridiag_solve_blocked"] <= 0 or k3b.launches <= 0
-            or k4_launches["float64"] <= 0
-            or min(launches5[kern] for kern in K6_KERNELS) <= 0):
-        fail("the matrix-free path never launched tridiag_solve_blocked, "
-             "K3b, K4 in float64 or K6")
+    if (k3b.launches <= 0 or k4_launches["float64"] <= 0
+            or min(launches5[kern] for kern in ELL_CG_KERNELS) <= 0):
+        fail(f"the matrix-free path never launched K3b, K4 in float64 or a "
+             f"kernel of its CG step (K8, K1p, K7, K6): {launches5}")
+    if (launches5["tridiag_solve_blocked"] or launches5["tridiag_solve"]
+            or launches5["banded_product"]
+            or set(k1p_bodies["phase 5"]) != {"segment"}):
+        fail(f"the matrix-free path's V-cycle ran K1b, K1 or K5, or K1p "
+             f"outside its segment body (the chain factor is decoupled "
+             f"every 1024 rows): {launches5}, K1p by body "
+             f"{k1p_bodies['phase 5']}")
     if not (np.all(np.isfinite(unrounded5)) and np.all(np.isfinite(rounded5))
             and np.isfinite(upper5) and np.isfinite(lam5)):
         fail("non-finite output on the matrix-free path")
@@ -5027,6 +5438,10 @@ def main():
     if step13 != STEP_KERNELS:
         fail(f"13 city10000: a replayed CG step ran {step13} device kernels, "
              f"not {STEP_KERNELS}")
+    step13_ell = ab13[f"n = {SCALE_N}"]["profile"]["graph"][4]
+    if step13_ell != ELL_STEP_KERNELS:
+        fail(f"13 n = {SCALE_N}: a replayed CG step ran {step13_ell} device "
+             f"kernels, not {ELL_STEP_KERNELS}")
     if ab13["city10000 q = 11"]["bodies"].get("wide_shared", 0) <= 0:
         fail(f"13 city10000 q = 11: K4w never launched: "
              f"{ab13['city10000 q = 11']['bodies']}")
@@ -5183,9 +5598,12 @@ def main():
         {"name": "tridiag_solve", "route": "cuda",
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:44",
-         "shape": "(10000, 4)", "launches": eig_launches["tridiag_solve"],
-         "launches_path": "phase 7c (GreedyEig's two-grid V-cycle); on the "
-                          "banded routes K1p (K1's body) takes its place",
+         "shape": "(10000, 4)",
+         "launches": mesh_launches["a"]["tridiag_solve"],
+         "launches_path": "phase 9a (the mesh's banded V-cycle); on the "
+                          "single-card banded routes, in GreedyEig's and in "
+                          "every single-card ELL V-cycle, K1p (K1's body) "
+                          "takes its place",
          "launches_city10000": tridiag_solve_launches_4,
          "shape_lanes": "(8, 10000, 4), a chain factor per lane",
          "ms_lanes": k1_lanes["device_ms"],
@@ -5219,7 +5637,12 @@ def main():
          "source": "mac_tpu_torch/csrc/tridiag.cu",
          "replaces": "mac_tpu/ops/pallas/tridiag_kernel.py:107",
          "shape": f"({SCALE_N}, 4)",
-         "launches": launches5["tridiag_solve_blocked"],
+         "launches": sum(got["tridiag_solve_blocked"]
+                         for got in mesh_launches["c"].values()),
+         "launches_path": "phase 9c (the mesh's ELL V-cycle, row and edge "
+                          "shards); phase 5's V-cycle runs K1p's segment "
+                          "body (K1b's solve) in its place",
+         "launches_phase5": launches5["tridiag_solve_blocked"],
          "launches_mesh": sum(got["tridiag_solve_blocked"]
                               for got in mesh_launches["c"].values()),
          "launches_sphere2500": sphere["tridiag_solve_blocked"],
@@ -5237,7 +5660,9 @@ def main():
         lane_entry("tridiag_solve_blocked",
                    "mac_tpu/ops/pallas/tridiag_kernel.py:107",
                    f"(2, {SCALE_N}, 4), a chain factor per lane", k1b_lanes,
-                   lanes_b["tridiag_solve_blocked"].get(2, 0), "phase 8b"),
+                   lanes_b["tridiag_solve_blocked"].get(2, 0),
+                   "phase 8b: none (its V-cycle runs K1p's segment "
+                   "body on the 2 lanes)"),
     ] + f64_kernels + factor_kernels + [
         k4_entry(f"({k_}, {k_})", dt_, tm, k4_launches[dt_],
                  "phase 4 city10000, every shape" if dt_ == "float32" else
@@ -5278,11 +5703,35 @@ def main():
                    for nm in ("city10000", "sphere2500"))
 
     p4, p10 = "phase 4 city10000", "phase 10b banded float64"
+    # The matrix-free route's cases (K8, and K1p and K7 in its V-cycle):
+    # their launches on the path that runs that shape.
+    p5 = f"phase 5 n = {SCALE_N} (2 solves and evaluate_objective)"
+    p7 = "phase 7c (GreedyEig intel, subset(8))"
+    ell_paths = {}
+    for kern, tag in (("ell_product", "K8"),
+                      ("tridiag_solve_permuted", "K1p"),
+                      ("tridiag_solve_permuted", "K1p_add"),
+                      ("coarse_correct", "K7")):
+        t = tag + ("" if tag.startswith("K8") else "_ell")
+        ell_paths[t] = (launches5[kern], p5)
+        ell_paths[t + "_f64"] = (launches_10f[kern].get("float64", 0),
+                                 "phase 10f n = 100000 float64")
+        ell_paths[t + "_lanes"] = (lanes_b[kern].get(2, 0),
+                                   "phase 8b (2 lanes)")
+        ell_paths[t + "_ge"] = (eig_launches[kern], p7)
+    for t in ("K8_residual", "K8_plain", "K8_12"):
+        ell_paths[t] = ell_paths["K8"]
+    ell_paths["K8_f64_plain"] = ell_paths["K8_f64"]
     cg_line = []
     for key in sorted(cg_tm):
         kern = cg_tm[key]["name"]
         body = cg_tm[key].get("body")
-        if body is not None and not key.endswith(("_f64", "_lanes")):
+        if key in ell_paths:
+            count, path = ell_paths[key]
+            if body is not None:
+                path += f" ({body} body)"
+            cg_line.append(cg_entry(key, count, path))
+        elif body is not None and not key.endswith(("_f64", "_lanes")):
             # K1p: its body's launches on the path that runs it.
             path = "phase 4" if body == "segment" else "phase 6 sphere2500"
             cg_line.append(cg_entry(key, k1p_bodies[path].get(body, 0),

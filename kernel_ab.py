@@ -7,6 +7,7 @@ in one process on one NVIDIA GPU.
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
     python3 kernel_ab.py [--kernels-only | --syev-only | --banded-only |
         --cg-only] build/ab_old [VARIANT_DIR ...]
+    python3 kernel_ab.py --ell-only
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
 them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
@@ -136,6 +137,17 @@ col_sums(R, Z, zsum), device and call times, new / old per shape; then
 each version's launch floors (chip_smoke.k6_floors) and, at (10000, 4)
 float32, each version's time after a 64 MB memset that leaves its inputs
 out of L2.
+With --ell-only no older directory is read: K8, the matrix-free route's
+ELL product (ell_product, csrc/ell.cu), against its plain version and
+torch.sparse.mm of L(w) as CSR (for the plain form, where the library
+computes the same function) at every shape of chip_smoke.py's phase 3f
+(chip_smoke.k8_cases on chip_smoke.ell_inputs, the same inputs), in turns
+kernel, plain, CSR, CSR, plain, kernel: each one's device time (median of
+its turns; the plain version's at 20 calls a timing, its kernels filling
+the launch queue sooner), the kernel's error against the plain version,
+kernel / plain and kernel / CSR, the bound and the launch floor
+(chip_smoke.launch_floors); then at (100000, 4) the kernel and CSR after a
+64 MB memset that leaves the tables and V out of L2.
 Every timing line names the card and its power limit.
 """
 
@@ -813,12 +825,66 @@ def ldl_report(use, card, factor_args):
             + f" ({card})", flush=True)
 
 
+def ell_ab(card, dev):
+    """--ell-only (the module docstring)."""
+    import torch
+
+    from chip_smoke import (bound, ell_inputs, k8_cases, launch_floors,
+                            rel_norm)
+
+    ell = ell_inputs(dev, Path(__file__).resolve().parent / "data"
+                     / "city10000.g2o")
+    floor = launch_floors(dev)["K8"]
+    print(f"K8 launch floor (n 1, q 1, one slot): {floor:.5f} ms ({card})",
+          flush=True)
+    flush = torch.empty(16 * 1024 * 1024, device=dev)
+    memset_ms = device_ms(flush.zero_, reps=50)
+    for c in k8_cases(dev, *ell):
+        runs = {"kernel": (c["kernel"], 100), "plain": (c["plain"], 20)}
+        if c["library"] is not None:
+            runs["CSR"] = (c["library"], 100)
+        times = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            fn, reps = runs[k]
+            times[k].append(device_ms(fn, reps=reps))
+        got, ref = c["kernel"](), c["plain"]()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(rel_norm(x, y) for x, y in zip(got, ref))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        bms, by = bound(c["bytes"], c["flops"], c["itemsize"])
+        print(f"{c['label']}: device " + ", ".join(
+            f"{k} {v:.5f} ms {[round(t, 5) for t in times[k]]}"
+            for k, v in med.items())
+            + f"; kernel / plain {med['kernel'] / med['plain']:.3f}"
+            + ("" if "CSR" not in med
+               else f", kernel / CSR {med['kernel'] / med['CSR']:.3f}")
+            + f"; bound {bms:.5f} ms ({by}), kernel / bound "
+              f"{med['kernel'] / bms:.2f}, launch floor {floor:.5f} ms; "
+              f"relative error {err:.3e} ({card})", flush=True)
+        if c["key"] == "K8_plain":
+            for k in ("kernel", "CSR"):
+                fn = runs[k][0]
+                cold = device_ms(lambda: (flush.zero_(), fn()),
+                                 reps=50) - memset_ms
+                print(f"{c['label']}: {k} {cold:.5f} ms after a 64 MB "
+                      f"memset (inputs out of L2; the memset's "
+                      f"{memset_ms:.5f} ms taken off) ({card})", flush=True)
+
+
 def main():
     import importlib.util
 
     import numpy as np
     import torch
 
+    if "--ell-only" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device")
+        card = card_line()
+        print(card, flush=True)
+        ell_ab(card, torch.device("cuda"))
+        return
     flags = {"--kernels-only", "--syev-only", "--banded-only", "--cg-only"}
     argv = [a for a in sys.argv[1:] if a not in flags]
     kernels_only = "--kernels-only" in sys.argv[1:]

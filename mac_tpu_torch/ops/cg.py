@@ -68,13 +68,14 @@ def pcg_fixed_steps(apply_A: Callable, B: torch.Tensor,
     CPU. Per step: A P with the column dots P . AP, K6's first pass (alpha,
     X, R and R's column sums), Z = Minv(R), and K6's second pass with the
     dots (R . Z, then beta, P, rz and P's column sums). Where apply_A has
-    `product` (ops.banded.BandedProduct: K5 gives A P with the dots, and
-    the start's residual, in one launch) and Minv has `cycle`
-    (ops.banded.VCycle: its kernels return x uncentred with its column
-    sums, and K6 centres Z = x - mean(x) on the fly), a step is nine
-    launches on city10000's banded route; otherwise apply_A and Minv run as
-    they are, with the dots P . AP from K6's col_sums. X0 is not
-    changed."""
+    `product` (ops.banded.BandedProduct, K5, or ops.laplacian.EllProduct,
+    K8: A P with the dots, and the start's residual, in one launch) and
+    Minv has `cycle` (ops.banded.VCycle or ops.twogrid.EllVCycle: their
+    kernels return x uncentred with its column sums, and K6 centres Z =
+    x - mean(x) on the fly), a step is nine launches on city10000's banded
+    route and on the n = 100000 matrix-free one; otherwise apply_A and
+    Minv run as they are, with the dots P . AP from K6's col_sums. X0 is
+    not changed."""
     product = getattr(apply_A, "product", None)
     cycle = getattr(Minv, "cycle", None)
     B = B.contiguous()

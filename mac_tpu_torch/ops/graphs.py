@@ -74,6 +74,7 @@ from mac_tpu_torch.ops.cg import pcg_fixed
 from mac_tpu_torch.ops import cg as _cg
 from mac_tpu_torch.ops.kernels import _build
 from mac_tpu_torch.ops.kernels import banded as _kbanded
+from mac_tpu_torch.ops.kernels import ell as _kell
 from mac_tpu_torch.ops.kernels import pcg as _kpcg
 from mac_tpu_torch.ops.kernels import ldl as _ldl
 from mac_tpu_torch.ops.kernels import syev as _syev
@@ -93,7 +94,8 @@ WRAPPERS = (_tridiag.tridiag_solve, _tridiag.tridiag_solve_blocked,
             assemble_ut, _ldl.tridiag_ldl, _ldl.tridiag_ldl_blocked,
             _kbanded.banded_product, _kbanded.coarse_correct,
             _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
-            _kpcg.cg_update, _kpcg.cg_direction_dots, _syev.sym_eig)
+            _kpcg.cg_update, _kpcg.cg_direction_dots, _kell.ell_product,
+            _syev.sym_eig)
 
 
 def _counts():
@@ -136,7 +138,8 @@ def _kernels_in_use():
             _kbanded.banded_product, _kbanded.coarse_correct,
             _tridiag.tridiag_solve_permuted, _kpcg.col_sums,
             _kpcg.cg_update, _kpcg.cg_direction_dots, _cg.pcg_fixed_steps,
-            _banded._vcycle_kernels, _build.loaded_files())
+            _banded._vcycle_kernels, _kell.ell_product,
+            _twogrid._ell_vcycle_kernels, _build.loaded_files())
 
 
 class Knobs(NamedTuple):
@@ -505,10 +508,10 @@ def banded_carried(pstate: "_banded.PrecondState"):
 def twogrid_route(op: GraphOperator) -> Route:
     """The matrix-free route: the ELL weight table and ||L(w)||_inf, and
     twogrid_level (K3/K3b, the coarse operator, its Cholesky); over a state
-    the ELL product and the two-grid V-cycle (ops.twogrid.twogrid_cycle)
-    over its chain factor, decoupled every 1024 rows past
-    TRIDIAG_SCAN_MAX_N nodes as tridiag_ldl_auto factors it. State:
-    twogrid_state."""
+    the ELL product (ops.laplacian.EllProduct, kernel K8) and the two-grid
+    V-cycle (ops.twogrid.EllVCycle: K1p, K8, K7) over its chain factor,
+    decoupled every 1024 rows past TRIDIAG_SCAN_MAX_N nodes as
+    tridiag_ldl_auto factors it. State: twogrid_state."""
     ref = weakref.ref(op)  # the operator holds this Route: no cycle
     seg = None if op.n <= TRIDIAG_SCAN_MAX_N else 1024
 
@@ -525,7 +528,8 @@ def twogrid_route(op: GraphOperator) -> Route:
                                                apply_L)
 
     return _cached(op, ("twogrid",), lambda: Route(
-        prepare, build, lambda: (ref().nbr_tbl,),
+        prepare, build,
+        lambda: (ref().nbr_tbl, ref().nbr32, ref().ident32),
         ("w_tbl", "dp", "l", "Lc_inv")))
 
 

@@ -8,7 +8,10 @@ paths:
     applied by matrix products; small graphs also get an exact eigh.
   * ``ell``: padded adjacency (ELLPACK) tables of (neighbour, edge id) per
     node, and the difference-form gather apply
-        (L(w) V)_i = sum_k w_ik (V_i - V_{nbr_ik}).
+        (L(w) V)_i = sum_k w_ik (V_i - V_{nbr_ik}),
+    kernel K8 on the card (mac_tpu_torch.ops.kernels.ell), its plain
+    version, the gather on the (q, n) layout, on the CPU; `EllProduct`
+    gives it with TRACEMIN's shifted forms.
 
 The tables are static per topology; only the weight vector changes across
 Frank-Wolfe steps. Every function of w also takes R weight vectors w (R, m)
@@ -22,6 +25,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from mac_tpu_torch.ops.kernels import ell as _k8
+from mac_tpu_torch.ops.kernels import pcg as _kp
+from mac_tpu_torch.ops.lobpcg import Operator
 
 # Graphs with n <= DENSE_MAX_N take the dense path; larger ones the ELL
 # gather path (whose difference form is also the float32-stable one).
@@ -43,6 +50,10 @@ class GraphOperator:
     consecutive nodes, else the sentinel n - 1; chain_mask (m,): whether it
     joins consecutive nodes. coarse_idx (m, 2): endpoints // coarse_s.
     Index tables are int64 tensors; `to(device)` returns a moved copy.
+    Made with the operator, on its device (never inside a graph capture):
+    nbr32, nbr_tbl as int32 (what kernel K8 reads), and ident32, the
+    identity permutation (n,) int32 that the V-cycle's kernels K1p and K7
+    take on this route.
     graph_routes: the eigensolver's routes on this operator and their
     captured CUDA graphs (mac_tpu_torch.ops.graphs), filled by the first
     solve.
@@ -58,6 +69,9 @@ class GraphOperator:
         self.mode = mode
         self.coarse_s = int(coarse_s)
         self.coarse_nc = int(coarse_nc)
+        self.nbr32 = nbr_tbl.to(torch.int32).contiguous()
+        self.ident32 = torch.arange(self.n, dtype=torch.int32,
+                                    device=nbr_tbl.device)
         self.graph_routes = {}
 
     @property
@@ -185,21 +199,48 @@ def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor,
     return d, e.index_add_(-1, op.chain_slot, -wc)[..., :op.n - 1]
 
 
-def _ell_apply_tbl(op: GraphOperator, w_tbl: torch.Tensor,
-                   V: torch.Tensor) -> torch.Tensor:
-    # Difference form (L V)_i = sum_k w_ik (V_i - V_nbr_ik), not the
-    # equivalent deg_i V_i - sum_k w_ik V_nbr_ik: smooth eigenvectors make
-    # the latter cancel two O(deg |V|) terms down to O(lambda |V|) in
-    # float32, while neighbour differences of close values are exact.
-    # The gather runs on the (q, n) layout: gathering whole (n, q) rows of
-    # q = 4 floats takes a PyTorch kernel with one thread block per row,
-    # 17x slower on an H100 at n = 1e5 (PERF.md).
-    # Lanes: V (R, n, q) and w_tbl (R, n, dmax), lane by lane.
-    n, dmax = op.nbr_tbl.shape
-    Vt = V.mT.contiguous()                                   # (..., q, n)
-    Vd = Vt[..., None] - Vt[..., op.nbr_tbl.reshape(-1)].reshape(
-        *Vt.shape[:-1], n, dmax)
-    return (Vd * w_tbl.unsqueeze(-3)).sum(dim=-1).mT.contiguous()  # (.., n, q)
+class EllProduct(Operator):
+    """L(w) V on the ELL operator from its weight table w_tbl (n, dmax),
+    or (R, n, dmax) for lanes (lane by lane; one table (n, dmax) serves
+    every lane of V (R, n, q)), in the difference form (L V)_i = sum_k
+    w_ik (V_i - V_nbr_ik), not the equivalent deg_i V_i - sum_k w_ik
+    V_nbr_ik: smooth eigenvectors make the latter cancel two O(deg |V|)
+    terms down to O(lambda |V|) in float32, while neighbour differences of
+    close values are exact. Or TRACEMIN's shifted operators over it:
+    L V + (c / n) 1 1^T V with c, and + sigma V with sigma too (c, sigma
+    0-d, or (R,) with lanes), all through K8's wrapper (the kernel on the
+    card, its plain version on the CPU): the counterpart of
+    ops.banded.BandedProduct. `product` gives pcg_fixed K8's other forms
+    (the residual B - A V, the column dots of V and A V), from V's column
+    sums `vsum` (float64) where the shift needs them."""
+
+    def __init__(self, op: GraphOperator, w_tbl: torch.Tensor,
+                 c: Optional[torch.Tensor] = None,
+                 sigma: Optional[torch.Tensor] = None):
+        self.op, self.w_tbl, self.c, self.sigma = op, w_tbl, c, sigma
+
+    def shifted(self, c: torch.Tensor,
+                sigma: Optional[torch.Tensor] = None) -> "EllProduct":
+        return EllProduct(self.op, self.w_tbl, c, sigma)
+
+    def __call__(self, V: torch.Tensor) -> torch.Tensor:
+        V = V.contiguous()  # the kernel reads each lane row-major
+        if self.c is None:
+            return self.product(V)
+        return self.product(V, vsum=_kp.col_sums(V))
+
+    def product(self, V: torch.Tensor, vsum: Optional[torch.Tensor] = None,
+                B: Optional[torch.Tensor] = None,
+                bsum: Optional[torch.Tensor] = None, dot: bool = False):
+        """K8 on V: A V, or B - A V with B (centred by its column sums
+        bsum, float64, when given); (that, the column dots of V and it)
+        with dot. vsum: V's column sums (float64), which the shift needs
+        (ignored without c)."""
+        shifted = self.c is not None
+        return _k8.ell_product(
+            self.op.nbr32, self.w_tbl, V, B=B, bsum=bsum,
+            vsum=vsum if shifted else None, c=self.c,
+            sigma=self.sigma if shifted else None, dot=dot)
 
 
 def lap_apply(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
@@ -229,9 +270,10 @@ def lap_weight_table(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
     return _w_pad(w)[..., op.eid_tbl]
 
 
-def ell_applier(op: GraphOperator, w_tbl: torch.Tensor):
-    """V -> L(w) @ V on the ELL operator, from its weight table."""
-    return lambda V: _ell_apply_tbl(op, w_tbl, V)
+def ell_applier(op: GraphOperator, w_tbl: torch.Tensor) -> EllProduct:
+    """V -> L(w) @ V on the ELL operator, from its weight table: an
+    EllProduct (kernel K8 on the card)."""
+    return EllProduct(op, w_tbl)
 
 
 def lap_applier(op: GraphOperator, w: torch.Tensor):

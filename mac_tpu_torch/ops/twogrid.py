@@ -13,7 +13,11 @@ dense coarse-grid correction (PyTorch counterpart of mac_tpu.ops.twogrid).
     float64 Cholesky factor (regularised when the graph's components leave
     it singular).
   * One symmetric V-cycle: pre-smooth, coarse-correct, post-smooth, with
-    the input and output centred (the preconditioner acts on 1^perp).
+    the input and output centred (the preconditioner acts on 1^perp). Over
+    the ELL product (ops.laplacian.EllProduct) it is an EllVCycle, whose
+    form on the card is five hand-written kernels (K1p, K8, K7, K8, K1p)
+    with the identity permutation; over any other product (the mesh's
+    sharded one, parallel/sharded.py) the PyTorch cycle.
 
 With R weight vectors w (R, m) (the budget sweep), one V-cycle per lane on
 blocks (R, n, q): a chain factor and a coarse level each, the chain solves
@@ -24,7 +28,10 @@ from typing import Callable
 
 import torch
 
-from mac_tpu_torch.ops.laplacian import (GraphOperator, add_at,
+from mac_tpu_torch.ops.kernels import banded as _kb
+from mac_tpu_torch.ops.kernels import pcg as _kp
+from mac_tpu_torch.ops.kernels import tridiag as _k1
+from mac_tpu_torch.ops.laplacian import (EllProduct, GraphOperator, add_at,
                                          lap_tridiagonal_part)
 from mac_tpu_torch.ops.lobpcg import batched_trace, cholesky_upper
 from mac_tpu_torch.ops.tridiag import (TridiagFactor, tridiag_ldl_auto,
@@ -99,7 +106,10 @@ def twogrid_cycle(op: GraphOperator, fac: TridiagFactor,
     """The symmetric V-cycle over a chain factor and a coarse inverse (what
     twogrid_level builds) and the product apply_L: a function (n, q) ->
     (n, q), or (R, n, q) -> (R, n, q) for lanes. It builds nothing, so
-    ops.graphs builds it again over static copies of fac and Lc_inv."""
+    ops.graphs builds it again over static copies of fac and Lc_inv. Over
+    the ELL product of op (an unshifted EllProduct) it is an EllVCycle
+    (its kernels on the card); over any other product, the mesh's sharded
+    one among them, the PyTorch cycle."""
     n, s, nc = op.n, op.coarse_s, op.coarse_nc
     pad = nc * s - n
 
@@ -129,7 +139,72 @@ def twogrid_cycle(op: GraphOperator, fac: TridiagFactor,
         x = x + smooth(r2)
         return center(x)
 
+    if (isinstance(apply_L, EllProduct) and apply_L.c is None
+            and apply_L.op is op):
+        return EllVCycle(op, fac, Lc_inv, apply_L, plain=precond)
     return precond
+
+
+class EllVCycle:
+    """twogrid_cycle's symmetric V-cycle over the ELL product: smooth,
+    coarse-correct the residual, smooth again, on the centred right-hand
+    side, the result centred; the counterpart of ops.banded.VCycle.
+
+    `plain(B)` is twogrid_cycle's cycle as PyTorch ops around the chain
+    solve's kernel: the CPU's form, the reference's order. On the card the
+    cycle is six launches of hand-written kernels, `cycle(R, rsum)`: K1p
+    (the chain solve of R centred by its column sums rsum, through the
+    identity permutation op.ident32), K8's residual form, K7's two
+    (restrict, then the coarse product and the prolong-add into x), K8 and
+    K1p adding into x, which returns x uncentred with its column sums
+    (float64): pcg_fixed's K6 centres it on the fly. K1p takes the
+    factor's `seg`: the factor decoupled every 1024 rows past
+    TRIDIAG_SCAN_MAX_N nodes goes to its segment body, an exact one to its
+    cluster body. Calling the cycle on CUDA tensors runs `cycle` (through
+    _ell_vcycle_kernels) and centres its result."""
+
+    def __init__(self, op: GraphOperator, fac: TridiagFactor,
+                 Lc_inv: torch.Tensor, apply_L: EllProduct, *,
+                 plain: Callable):
+        self.op, self.fac, self.Lc_inv, self.apply_L = op, fac, Lc_inv, apply_L
+        self._plain = plain
+
+    def plain(self, B: torch.Tensor) -> torch.Tensor:
+        return self._plain(B)
+
+    def _smooth_kernels(self, B, bsum=None, X=None, sums=False):
+        op, fac = self.op, self.fac
+        dp = fac.dp if fac.dp.dtype == B.dtype else fac.dp.to(B.dtype)
+        l = fac.l if fac.l.dtype == B.dtype else fac.l.to(B.dtype)
+        return _k1.tridiag_solve_permuted(dp, l, B, op.ident32, op.ident32,
+                                          bsum=bsum, X=X, sums=sums,
+                                          seg=fac.seg)
+
+    def cycle(self, R: torch.Tensor, rsum: torch.Tensor):
+        """The cycle's kernels on R (contiguous) with its column sums rsum
+        (float64): (x, x's column sums), x uncentred."""
+        op = self.op
+        x = self._smooth_kernels(R, bsum=rsum)
+        r = self.apply_L.product(x, B=R, bsum=rsum)
+        Lc_inv = self.Lc_inv if self.Lc_inv.dtype == R.dtype else \
+            self.Lc_inv.to(R.dtype)
+        x = _kb.coarse_correct(r, x, op.ident32, op.ident32, Lc_inv,
+                               op.coarse_s)
+        r2 = self.apply_L.product(x, B=R, bsum=rsum)
+        return self._smooth_kernels(r2, X=x, sums=True)
+
+    def __call__(self, B: torch.Tensor) -> torch.Tensor:
+        if B.is_cuda:
+            return _ell_vcycle_kernels(self, B)
+        return self.plain(B)
+
+
+def _ell_vcycle_kernels(cyc: EllVCycle, B: torch.Tensor) -> torch.Tensor:
+    """The cycle on the card, centred: K6's column sums of B, the cycle's
+    kernels, and x less its column means."""
+    B = B.contiguous()
+    x, xsum = cyc.cycle(B, _kp.col_sums(B))
+    return x - (xsum / cyc.op.n).to(x.dtype).unsqueeze(-2)
 
 
 def make_twogrid_precond(

@@ -104,7 +104,7 @@ class _EllShards:
 def _ell_rows(nbr: torch.Tensor, w_tbl: torch.Tensor, Vt: torch.Tensor,
               Vrows: torch.Tensor) -> torch.Tensor:
     """sum_k w_ik (V_i - V_nbr_ik) for the rows of an ELL table, in the
-    (q, n) gather layout of ops.laplacian._ell_apply_tbl: Vt (..., q, n) the
+    (q, n) gather layout of ops.kernels.ell.ell_product_plain: Vt (..., q, n) the
     whole block, Vrows (..., q, rows) the table's own rows. Returns
     (..., rows, q)."""
     rows, dmax = nbr.shape

@@ -16,19 +16,21 @@ outer-iteration replay runs its key's inner_iters steps) and the kernels
 per CG step (all the solve's kernels over its CG steps, a whole solve's
 measure), and the kernels of one CG step alone: a replayed inner solve
 (ops.graphs.inner_replay) of 6 steps less one of 5, over the route's state
-after the warm solve (chip_smoke.step_kernels).
+after the warm solve (chip_smoke.step_kernels: the kernels counted from
+the captured graphs' nodes, the ms from profiles of their replays).
 
-Also per cell: K6's device time in the warm solve, all its kernels
-(names with "k6_") added up.
+Also per cell: K6's and K8's device time in the warm solve, all their
+kernels (names with "k6_", "k8_") added up.
 --plain-cg runs every solve with the plain CG step (the torch ops that the
-kernels K5, K6, K1p and K7 stand for) on the card, as chip_smoke.py's
+kernels K5, K6, K1p, K7 and K8 stand for) on the card, as chip_smoke.py's
 phase 13 does in its "plain-cg" turn: the account before the kernels, on
 the same tree. --before DIR first runs DIR's profile_cg.py (an older
 checkout, e.g. a `git archive` of the parent commit unpacked under build/)
 on the same cells in a process of its own, then this tree's, and ends
 with each cell's busy milliseconds, CG-step kernels and K6's device time
 before and after (before: the "k6_" items among the older script's ten
-largest, where it prints no K6 line of its own).
+largest, where it prints no K6 line of its own), and each cell's ten
+largest items before and after side by side.
 Every line names the card and its power limit.
 """
 
@@ -147,7 +149,7 @@ def main():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
     print(card, flush=True)
-    before, k6_before = {}, {}
+    before, k6_before, tops_before = {}, {}, {}
     if args.before:
         cmd = [sys.executable, "profile_cg.py", "--cells", args.cells]
         if args.plain_cg:
@@ -165,6 +167,11 @@ def main():
                 before[cell] = (float(got[2]), got[3])
             k6 = re.match(r"K6 \(k6_\*\): ([0-9.]+) ms, (\d+) calls", line)
             item = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls .*k6_", line)
+            top = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls\s+[0-9.]+ us a "
+                           r"call  (.*)", line)
+            if cell is not None and top:
+                tops_before.setdefault(cell, []).append(
+                    (float(top[1]), int(top[2]), top[3]))
             if cell is not None and k6:  # its own line: all of K6
                 k6_before[cell] = [float(k6[1]), int(k6[2])]
             elif cell is not None and item:
@@ -187,7 +194,7 @@ def main():
     ctx = nullcontext
     if args.plain_cg:
         from chip_smoke import PlainCG as ctx
-    after = {}
+    after, tops = {}, {}
     for name, (mac, solve) in build_cells(args.cells.split(",")).items():
         with ctx():
             t0 = time.perf_counter()
@@ -209,10 +216,13 @@ def main():
         for ms, cnt, nm in items[:10]:
             print(f"  {ms:9.3f} ms {cnt:7d} calls {1e3 * ms / cnt:8.2f} us "
                   f"a call  {nm[:110]}", flush=True)
-        k6 = [(ms, cnt) for ms, cnt, nm in items if "k6_" in nm]
-        k6_ms, k6_calls = sum(m for m, _ in k6), sum(c for _, c in k6)
-        print(f"K6 (k6_*): {k6_ms:.3f} ms, {k6_calls} calls in the warm "
-              f"solve ({card})", flush=True)
+        for tag in ("k6_", "k8_"):
+            got = [(ms, cnt) for ms, cnt, nm in items if tag in nm]
+            print(f"{tag.upper()[:2]} ({tag}*): {sum(m for m, _ in got):.3f} "
+                  f"ms, {sum(c for _, c in got)} calls in the warm solve "
+                  f"({card})", flush=True)
+        k6_ms = sum(ms for ms, _, nm in items if "k6_" in nm)
+        tops[name] = items[:10]
         after[name] = (busy, per_step[0], k6_ms)
     for name, (busy, step, k6_ms) in after.items():
         if name in before:
@@ -221,6 +231,12 @@ def main():
                   f"{busy:.3f} ms ({busy / before[name][0]:.3f}), one CG step "
                   f"{before[name][1]} -> {step} kernels, K6 {was:.3f} -> "
                   f"{k6_ms:.3f} ms ({card})", flush=True)
+            for i, (old, new) in enumerate(zip(
+                    tops_before.get(name, []) + [None] * 10, tops[name])):
+                old = ("-" if old is None
+                       else f"{old[0]:.3f} ms / {old[1]} {old[2][:50]}")
+                print(f"summary {name} largest {i + 1}: before {old}; after "
+                      f"{new[0]:.3f} ms / {new[1]} {new[2][:50]}", flush=True)
     print(f"profile_cg: done ({card})", flush=True)
 
 

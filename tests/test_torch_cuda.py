@@ -21,7 +21,11 @@ PCG update's passes and sums), K1p (K1's permuted entry: its cluster
 body bitwise K1 on the gathered input, its segment body bitwise K1b) and
 K7 (the coarse correction) against their plain
 versions, bitwise repeatable, and a replayed city10000 inner solve in at
-most 16 device kernels a CG step. Marked `cuda`;
+most 16 device kernels a CG step; the matrix-free route's K8 (the ELL
+product in its forms, its dots bitwise their order's model), its
+V-cycle's kernels (EllVCycle) against its plain form, and a replayed
+n = 100000 inner solve bitwise the eager one in ELL_STEP_KERNELS device
+kernels a CG step. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -302,8 +306,11 @@ def test_solve_on_cuda_goes_through_both_kernels(dev):
 
 def test_ell_solve_on_cuda_launches_the_blocked_kernel(dev):
     """A matrix-free MAC solve past 32768 nodes (an expander-like graph, no
-    narrow band) launches K1b on every V-cycle and returns k edges."""
+    narrow band) runs every V-cycle's chain solve on K1b's solve, as K1p's
+    segment body (the cycle's kernels: K1p, K8, K7), never K1b between
+    PyTorch gathers, and returns k edges."""
     from chip_smoke import synthetic
+    from mac_tpu_torch.ops.kernels.ell import ell_product
     from mac_tpu_torch.solvers import MAC
 
     fi, wf, ci, wc = synthetic(40000)
@@ -311,9 +318,13 @@ def test_ell_solve_on_cuda_launches_the_blocked_kernel(dev):
     mac = MAC((fi, wf), (ci, wc), 40000, dtype=torch.float32,
               fiedler_maxiter=10, fiedler_inner_iters=4, device="cuda")
     assert mac._banded is None and mac.op.mode == "ell"
-    before = tridiag_solve_blocked.launches
+    before = (tridiag_solve_blocked.launches,
+              tridiag_solve_permuted.launches_by_body.get("segment", 0),
+              ell_product.launches)
     rounded, unrounded, upper = mac.solve(k, max_iters=2)
-    assert tridiag_solve_blocked.launches > before
+    assert tridiag_solve_blocked.launches == before[0]
+    assert tridiag_solve_permuted.launches_by_body["segment"] > before[1]
+    assert ell_product.launches > before[2]
     assert rounded.sum() == k and np.isfinite(upper)
     assert np.all(np.isfinite(unrounded))
 
@@ -410,7 +421,8 @@ def test_front_ends_default_to_cuda(dev):
 def test_greedy_eig_batched_chunk_matches_per_lane_loop(dev):
     """GreedyEig on the card (float32, ELL, n 1200, 600 long candidates,
     400 of them selected): a trial chunk of 64 lanes as one solve launches
-    K1 on the (n, 256) block, and its lambda_2 agree with the per-lane loop
+    K1's body (K1p, the V-cycle's chain solve) and K8 on the (n, 256)
+    block, and its lambda_2 agree with the per-lane loop
     (each lane with its own weights and V-cycle) to 5e-4 relative, none
     below the incumbent's; two greedy steps select two edges."""
     from chip_smoke import chain_instance
@@ -424,10 +436,13 @@ def test_greedy_eig_batched_chunk_matches_per_lane_loop(dev):
     x = np.zeros(len(cands))
     x[:400] = 1.0
     lam, X = g._eval(x, g._X0)
+    from mac_tpu_torch.ops.kernels.ell import ell_product
+
     cand = np.arange(400, 464)
-    before = tridiag_solve.launches
+    before, k8 = _k1_body(), ell_product.launches_by_lanes.get(1, 0)
     lams, Xs = g._eval_chunk(x, cand, X)
-    assert tridiag_solve.launches > before and Xs.is_cuda
+    assert _k1_body() > before and Xs.is_cuda
+    assert ell_product.launches_by_lanes[1] > k8
     c = torch.as_tensor(cand, device=dev)
     ref = fiedler_pair_lanes_plain(g.op, g._weights(x), c + g._m_fixed,
                                    g._w_cand[c], X, xprev0=g.xprev0,
@@ -1002,13 +1017,14 @@ def test_graphed_inner_solve_is_bitwise_the_eager_loop(dev, route):
     state lives at fresh addresses: the graph reads its static copies),
     and again for the first: one capture, three replays, and after the
     capture each replay counts the kernel launches the eager loop does
-    (K1p on the banded graph, K1b on the ELL one)."""
+    (K1p on both graphs, and K8 on the ELL one)."""
     from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.cg import pcg_fixed
 
+    from mac_tpu_torch.ops.kernels.ell import ell_product
+
     n, steps = _inner_steps(route, dev, (None, 2))
-    kern = (tridiag_solve_permuted if route == "banded"
-            else tridiag_solve_blocked)
+    kern = tridiag_solve_permuted if route == "banded" else ell_product
     rng = np.random.RandomState(12)
     B = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32,
                         device=dev)
@@ -1800,3 +1816,165 @@ def test_city_shaped_inner_solve_replays_in_few_kernels(dev):
             step[name[:70]] = step.get(name[:70], 0) + sign * cnt
     assert got[1][1] - got[0][1] == STEP_KERNELS, {
         name: cnt for name, cnt in step.items() if cnt}
+
+
+# The matrix-free route's CG step on the card: K8 (the ELL product in its
+# forms) and its V-cycle's K1p and K7 through the identity permutation
+# (ops.twogrid.EllVCycle), each against its plain version (float32 1e-5,
+# float64 1e-12 relative in norm), two calls bitwise equal.
+def _ell_case(dev, dtype, n, lanes=None, shared=False):
+    """(operator, weights) of chip_smoke.synthetic(n) on the card: the
+    expander-like graph of the n = 100000 route at its full weights; with
+    lanes and not shared, a weight vector per lane."""
+    from chip_smoke import synthetic
+    from mac_tpu_torch.ops import laplacian
+
+    fi, wf, ci, wc = synthetic(n)
+    op = laplacian.build_operator(np.concatenate([fi, ci]), n).to(dev)
+    w_np = np.concatenate([wf, wc])
+    if lanes and not shared:
+        w_np = w_np * (0.5 + np.random.RandomState(5).rand(lanes, len(w_np)))
+    return op, torch.as_tensor(w_np, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,q,lanes,shared", [
+    (40000, 4, None, False), (40000, 12, None, False), (40000, 1, None, False),
+    (40000, 3, None, False), (40000, 4, 2, False), (40000, 4, 2, True),
+    (1728, 256, None, False), (1000, 600, None, False)])
+@pytest.mark.parametrize("form", ["plain", "residual", "inner"])
+def test_k8_matches_plain_and_repeats(dev, dtype, n, q, lanes, shared, form):
+    """K8 in each form (with the column dots in the inner one) against its
+    plain version: q 4 (16-byte rows), 12, 1 and 3 (element loads), lanes
+    with a table each or one shared, GreedyEig's (1728, 256) flat block
+    and 600 columns (two column tiles); the dots bitwise their order's
+    numpy model (ell.dot_model) up to 16 columns."""
+    from mac_tpu_torch.ops import laplacian
+    from mac_tpu_torch.ops.kernels import ell as k8
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    op, w = _ell_case(dev, dtype, n, lanes, shared)
+    w_tbl = laplacian.lap_weight_table(op, w)
+    rng = np.random.RandomState(6)
+    lead = (lanes,) if lanes else ()
+    V = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+                        device=dev)
+    kw = {}
+    if form == "residual":
+        B = torch.as_tensor(rng.normal(size=V.shape), dtype=dtype, device=dev)
+        kw = dict(B=B, bsum=kp.col_sums(B))
+    elif form == "inner":
+        c = laplacian.lap_inf_norm(op, w).to(dtype)
+        kw = dict(vsum=kp.col_sums(V), c=c, sigma=1e-3 * c, dot=True)
+    before = k8.ell_product.launches
+    got = _twice(lambda: k8.ell_product(op.nbr32, w_tbl, V, **kw))
+    assert k8.ell_product.launches == before + 2
+    ref = k8.ell_product_plain(op.nbr32, w_tbl, V, **kw)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for x, y in zip(got, ref):
+        assert _rel(x, y) <= _CG_TOL[dtype], (_rel(x, y), form)
+    if form == "inner" and q <= 16:
+        prod = (V * got[0]).cpu().numpy().reshape(-1, n, q)
+        want = np.stack([k8.dot_model(p) for p in prod])
+        np.testing.assert_array_equal(got[1].cpu().numpy().reshape(
+            want.shape), want)
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    """An int64 neighbour table, float16, mixed dtypes or devices, a
+    non-contiguous block and an inner form without V's sums raise; none
+    falls back to the plain version."""
+    from mac_tpu_torch.ops import laplacian
+    from mac_tpu_torch.ops.kernels import ell as k8
+
+    op, w = _ell_case(dev, torch.float32, 6000)
+    w_tbl = laplacian.lap_weight_table(op, w)
+    V = torch.zeros(op.n, 4, device=dev)
+    with pytest.raises(ValueError):
+        k8.ell_product(op.nbr_tbl, w_tbl, V)
+    with pytest.raises(TypeError):
+        k8.ell_product(op.nbr32, w_tbl.half(), V.half())
+    with pytest.raises(TypeError):
+        k8.ell_product(op.nbr32, w_tbl, V.double())
+    with pytest.raises(ValueError):
+        k8.ell_product(op.nbr32, w_tbl.cpu(), V)
+    with pytest.raises(ValueError):
+        k8.ell_product(op.nbr32, w_tbl, torch.zeros(4, op.n, device=dev).T)
+    with pytest.raises(ValueError):
+        k8.ell_product(op.nbr32, w_tbl, V, c=torch.ones((), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,q,lanes", [(40000, 4, None), (6000, 4, None),
+                                       (1728, 256, None), (40000, 4, 2)])
+def test_ell_cycle_kernels_match_plain(dev, dtype, n, q, lanes):
+    """The ELL V-cycle on the card (EllVCycle: K6's sums, K1p, K8's
+    residual, K7, K8, K1p adding, centred) against its PyTorch form on the
+    same card (EllVCycle.plain: the chain solve by K1b or K1, the products
+    by K8's plain form through EllProduct): past 32768 nodes K1p's segment
+    body (seg 1024), below it its cluster body, GreedyEig's (1728, 256)
+    block and 2 lanes with a factor and coarse inverse each; two calls
+    bitwise; each call two K1p, one K7 and two K8 launches."""
+    from mac_tpu_torch.ops import laplacian, twogrid
+    from mac_tpu_torch.ops.kernels import banded as kb
+    from mac_tpu_torch.ops.kernels import ell as k8
+
+    op, w = _ell_case(dev, dtype, n, lanes)
+    cyc = twogrid.make_twogrid_precond(op, w, laplacian.lap_applier(op, w))
+    assert isinstance(cyc, twogrid.EllVCycle)
+    assert cyc.fac.seg == (1024 if n > 32768 else None)
+    rng = np.random.RandomState(8)
+    lead = (lanes,) if lanes else ()
+    B = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
+                        device=dev)
+    before = (tridiag_solve_permuted.launches, kb.coarse_correct.launches,
+              k8.ell_product.launches)
+    got = _twice(lambda: cyc(B))[0]
+    assert (tridiag_solve_permuted.launches - before[0],
+            kb.coarse_correct.launches - before[1],
+            k8.ell_product.launches - before[2]) == (4, 2, 4)
+    body = "segment" if n > 32768 else "cluster"
+    assert tridiag_solve_permuted.launches_by_body.get(body, 0) >= 4
+    ref = cyc.plain(B)
+    assert _rel(got, ref) <= _CG_TOL[dtype], _rel(got, ref)
+
+
+def test_ell_inner_solve_replays_in_few_kernels(dev):
+    """The n = 100000 expander's graphed solve on the card (a few outer
+    iterations), then its inner CG solve replayed (graphs.inner_replay)
+    bitwise the eager kernel loop (K8's inner form, K6, the V-cycle's K1p,
+    K8 and K7), within 1e-4 relative of the plain PyTorch loop
+    (pcg_fixed_plain over the plain cycle and product), and one CG step of
+    chip_smoke.ELL_STEP_KERNELS device kernels (chip_smoke.step_kernels)."""
+    from chip_smoke import ELL_STEP_KERNELS, SCALE_N, step_kernels
+    from mac_tpu_torch.ops import graphs, laplacian, twogrid
+    from mac_tpu_torch.ops.cg import pcg_fixed, pcg_fixed_plain
+    from mac_tpu_torch.ops.kernels.ell import ell_product_plain
+
+    op, w = _ell_case(dev, torch.float32, SCALE_N)
+    route = graphs.twogrid_route(op)
+    rng = np.random.RandomState(14)
+    X = torch.as_tensor(rng.normal(size=(SCALE_N, 4)), dtype=torch.float32,
+                        device=dev)
+    graphs.graphed_solve(route, w, X, xprev0=X.flip(0).contiguous(),
+                         tol=1e-8, maxiter=2, inner_iters=4)
+    state, lnorm = route.prepare({"w": w}, "cold", None)
+    apply_L, M = route.build(state)
+    assert isinstance(M, twogrid.EllVCycle)
+    c = lnorm.to(torch.float32)
+    sigma = 32 * torch.finfo(torch.float32).eps * c
+    B = torch.as_tensor(rng.normal(size=(SCALE_N, 4)), dtype=torch.float32,
+                        device=dev)
+    X0 = 0.1 * B
+    inner = apply_L.shifted(c, sigma)
+    eager = pcg_fixed(inner, B, M, iters=5, X0=X0)
+    got = graphs.inner_replay(route, dict(state, c=c, sigma=sigma), B, X0,
+                              5)
+    assert torch.equal(got, eager)
+    plain = pcg_fixed_plain(
+        lambda V: ell_product_plain(op.nbr32, state["w_tbl"], V,
+                                    vsum=V.sum(0), c=c, sigma=sigma),
+        B, M.plain, iters=5, X0=X0)
+    assert _rel(got, plain) <= 1e-4
+    kernels, ms = step_kernels(op)
+    assert kernels == ELL_STEP_KERNELS, (kernels, ms)
