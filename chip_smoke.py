@@ -128,12 +128,15 @@ its wall time printed:
      exact factor in both forms and at (32768, 16) float64, its tiled
      branch) and K7 coarse_correct (k7_cases: city10000's (10000, 4) in
      float32, float64 and 8 lanes, sphere2500's); the matrix-free route's
-     K8 ell_product (k8_cases, on the n = 100000 expander's tables at its
-     start weights: (100000, 4) in the inner form with its dots, the
-     residual and plain forms, (100000, 12), float64, phase 8b's 2 lanes
-     with a table each, GreedyEig's (1728, 256) block over intel's one
-     table; its dots bitwise their order's numpy model, dot_model;
-     library: torch.sparse.mm of L(w) as CSR) and its V-cycle's K1p and
+     K8 ell_product (k8_cases, on the n = 100000 expander's slot-major
+     tables at its start weights: (100000, 4) in the inner form with its
+     dots, the residual and plain forms, (100000, 12), float64, phase 8b's
+     2 lanes with a table each, GreedyEig's (1728, 256) block over intel's
+     one table; its dots bitwise their order's numpy model, dot_model;
+     each case's registers, resident blocks a SM and the grid's waves;
+     bound: the least bytes of the work, 2m ids and weights, the row
+     counts, V, B and the output; library: torch.sparse.mm of L(w) as
+     CSR) and its V-cycle's K1p and
      K7 through the identity permutation (ell_cycle_cases: K1p's segment
      body at seg 1024 and K7 at nc 511, s 196 at (100000, 4), float64 and
      2 lanes; K1p's cluster body and K7 at s 4 at GreedyEig's (1728,
@@ -2032,7 +2035,27 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp, ell=None):
         return out
 
     # K8, the matrix-free route's ELL product.
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import ell as k8
+
+    # K8 keeps a trip's gathers in registers under its launch bounds: no
+    # stack frame and no spill in either instantiation.
+    k8_regs = ptxas_report(_build.ptxas_log("ell"))
+    print("3f K8 instantiations (registers, stack frame bytes, spill "
+          "stores, spill loads): " + ", ".join(
+              f"{fn[-40:]}: {rest}" for fn, *rest in k8_regs), flush=True)
+    if len(k8_regs) != 2 or any(any(rest[1:]) for _, *rest in k8_regs):
+        fail(f"3f K8: an instantiation has a stack frame or spills, or one "
+             f"is missing: {k8_regs}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for c in k8_cases(dev, *ell):
+        regs, per_sm = k8.occupancy(c["dtype"], dev)
+        grid = k8.grid_blocks(*c["grid"])
+        waves = -(-grid // max(per_sm * sms, 1))
+        print(f"3f {c['label']}: {regs} registers a thread, {per_sm} "
+              f"resident blocks a SM ({per_sm * sms} on {sms} SMs), grid "
+              f"{grid} blocks, {waves} wave{'s' if waves > 1 else ''} "
+              f"({card})", flush=True)
         tm = cg_case(c["label"], card, c["kernel"], c["plain"], c["bytes"],
                      c["flops"], c["itemsize"], c["tol"],
                      library=c["library"])
@@ -2042,7 +2065,8 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp, ell=None):
                 fail(f"3f {c['label']}: the column dots not bitwise their "
                      f"order's model (ell.dot_model)")
         out[c["key"]] = dict(tm, name=c["name"], shape=c["shape"],
-                             floor_ms=floors["K8"],
+                             floor_ms=floors["K8"], registers=regs,
+                             resident_blocks=per_sm, waves=waves,
                              source="mac_tpu_torch/csrc/ell.cu",
                              replaces="mac_tpu/ops/laplacian.py:169 "
                                       "(_ell_apply; not Pallas)")
@@ -2055,7 +2079,7 @@ def launch_floors(dev, segment=True):
     seg 32 (one block of one warp; left out without `segment`, for a
     library that has none); the cluster body at (16, 1) (its 16 blocks);
     K7 at n = 1, q = 1, one aggregate (a cluster of one block); K8 at
-    n = 1, q = 1, one slot (one block)."""
+    n = 1, q = 1, one filled slot (one block)."""
     import torch
 
     from mac_tpu_torch.ops.kernels import banded as kb
@@ -2082,7 +2106,8 @@ def launch_floors(dev, segment=True):
     floors["K7"] = device_ms(lambda: kb.coarse_correct(x1, x1, i1, i1, lc1,
                                                        1))
     nbr1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    floors["K8"] = device_ms(lambda: k8.ell_product(nbr1, lc1, x1))
+    cnt1 = torch.ones(1, dtype=torch.int32, device=dev)
+    floors["K8"] = device_ms(lambda: k8.ell_product(nbr1, cnt1, lc1, x1))
     return floors
 
 
@@ -2394,18 +2419,19 @@ def k7_cases(dev, bop, bop_sp, bds):
 def csr_library(op, w_tbl, V):
     """One torch.sparse call computing L(w) V on the ELL operator: L as a
     CSR matrix (the n degrees and the two entries of every edge, about
-    n + 2 m nonzeros; built here, not timed) times V; None where torch
-    refuses the dtype or layout on the card."""
+    n + 2 m nonzeros; built here from the slot-major weight table w_tbl
+    (dmax, n), not timed) times V; None where torch refuses the dtype or
+    layout on the card."""
     import torch
 
     try:
-        n, dmax = op.nbr_tbl.shape
+        dmax, n = op.slot_nbr.shape
         keep = w_tbl != 0
-        rows = torch.arange(n, device=V.device)[:, None].expand(n, dmax)
+        rows = torch.arange(n, device=V.device)[None, :].expand(dmax, n)
         diag = torch.arange(n, device=V.device)
         idx = torch.stack([torch.cat([rows[keep], diag]),
-                           torch.cat([op.nbr_tbl[keep], diag])])
-        vals = torch.cat([-w_tbl[keep], w_tbl.sum(dim=1)])
+                           torch.cat([op.slot_nbr[keep].long(), diag])])
+        vals = torch.cat([-w_tbl[keep], w_tbl.sum(dim=0)])
         L = torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce()
         Lcsr = L.to_sparse_csr()
         del L
@@ -2433,11 +2459,16 @@ def k8_cases(dev, op5, w5, W5, op_ge, w_ge):
     GreedyEig's (1728, 256) flat block over intel's table (op_ge, w_ge),
     shared by its 64 lanes. Each a dict: key, label, "kernel", "plain",
     "model" (with the dots: the dots and dot_model's of the products V
-    times the output the kernel wrote, to be bitwise), the bytes read once
-    and written once (the int32 ids, the weights, V, B, the output), the
+    times the output the kernel wrote, to be bitwise), the least bytes of
+    the work read once and written once (the 2m filled slots' int32 ids
+    and weights, a weight table per lane where the lanes have their own,
+    the int32 row counts, V, B, the output; not the padding), the
     operations (a subtraction, a product and a sum a nonzero slot and
-    column, 2 more an entry for the epilogue), itemsize, tolerance and the
-    library call (torch.sparse.mm of L(w) as CSR, for the plain form)."""
+    column, 2 more an entry for the epilogue), itemsize, tolerance, the
+    library call (torch.sparse.mm of L(w) as CSR, for the plain form),
+    "dtype", "grid" ((n, q, lanes), for ell.grid_blocks) and "inputs"
+    (the row-major neighbour table, the weight table, V and the keywords:
+    kernel_ab.py calls an older K8 on them)."""
     import numpy as np
     import torch
 
@@ -2452,7 +2483,7 @@ def k8_cases(dev, op5, w5, W5, op_ge, w_ge):
             dot=False):
         dtype = w.dtype
         w_tbl = laplacian.lap_weight_table(op, w).contiguous()
-        n, dmax = op.nbr_tbl.shape
+        n = op.n
         lead = (lanes,) if lanes else ()
         V = torch.as_tensor(rng.normal(size=lead + (n, q)), dtype=dtype,
                             device=dev)
@@ -2468,23 +2499,27 @@ def k8_cases(dev, op5, w5, W5, op_ge, w_ge):
         it = V.element_size()
         ln = lanes or 1
         nnz = int((w_tbl != 0).sum()) * (1 if w_tbl.dim() == 3 else ln)
-        nbytes = (4 * n * dmax + it * w_tbl.numel()
-                  + it * ln * n * q * (2 + (form == "residual")))
+        slots = 2 * op.m  # the filled slots: each edge at both its ends
+        nbytes = (4 * slots + it * slots * (ln if w_tbl.dim() == 3 else 1)
+                  + 4 * n + it * ln * n * q * (2 + (form == "residual")))
         flops = 3.0 * nnz * q + 2.0 * ln * n * q
+        tables = (op.slot_nbr, op.slot_count, w_tbl)
 
         def model():
-            y, dots = k8.ell_product(op.nbr32, w_tbl, V, **kw)
+            y, dots = k8.ell_product(*tables, V, **kw)
             prod = (V * y).cpu().numpy().reshape(-1, n, q)
             want = np.stack([k8.dot_model(p) for p in prod])
             return dots.cpu().reshape(want.shape), torch.as_tensor(want)
 
         cases.append(dict(
             key=key, label=f"K8 {label}", name="ell_product", shape=label,
-            kernel=lambda: k8.ell_product(op.nbr32, w_tbl, V, **kw),
-            plain=lambda: k8.ell_product_plain(op.nbr32, w_tbl, V, **kw),
+            kernel=lambda: k8.ell_product(*tables, V, **kw),
+            plain=lambda: k8.ell_product_plain(*tables, V, **kw),
             model=model if kw.get("dot") else None, bytes=nbytes,
             flops=flops, itemsize=it, tol=CG_TOL[str(dtype)[6:]],
-            library=csr_library(op, w_tbl, V) if library else None))
+            library=csr_library(op, w_tbl, V) if library else None,
+            dtype=dtype, grid=(n, q, ln),
+            inputs=dict(nbr_tbl=op.nbr_tbl, w_tbl=w_tbl, V=V, kw=kw)))
 
     n5 = op5.n
     w64 = w5.double()

@@ -7,12 +7,13 @@ in one process on one NVIDIA GPU.
     git show <commit>:mac_tpu_torch/csrc/assemble.cu > build/ab_old/assemble.cu
     python3 kernel_ab.py [--kernels-only | --syev-only | --banded-only |
         --cg-only] build/ab_old [VARIANT_DIR ...]
-    python3 kernel_ab.py --ell-only
+    python3 kernel_ab.py --ell-only build/ab_old
 
 (and, to time the chain factor's kernels too, the older ldl.cu beside
 them: git show <commit>:mac_tpu_torch/csrc/ldl.cu > build/ab_old/ldl.cu;
 the Rayleigh-Ritz eigensolver K4 likewise with the older syev.cu, the
-banded product K5 with the older banded.cu).
+banded product K5 with the older banded.cu; --ell-only takes the older
+ell.cu alone).
 
 The older sources must export the same C functions. Both versions are
 built at once (one nvcc a source) with the package's nvcc flags and loaded
@@ -137,17 +138,27 @@ col_sums(R, Z, zsum), device and call times, new / old per shape; then
 each version's launch floors (chip_smoke.k6_floors) and, at (10000, 4)
 float32, each version's time after a 64 MB memset that leaves its inputs
 out of L2.
-With --ell-only no older directory is read: K8, the matrix-free route's
-ELL product (ell_product, csrc/ell.cu), against its plain version and
-torch.sparse.mm of L(w) as CSR (for the plain form, where the library
-computes the same function) at every shape of chip_smoke.py's phase 3f
-(chip_smoke.k8_cases on chip_smoke.ell_inputs, the same inputs), in turns
-kernel, plain, CSR, CSR, plain, kernel: each one's device time (median of
-its turns; the plain version's at 20 calls a timing, its kernels filling
-the launch queue sooner), the kernel's error against the plain version,
-kernel / plain and kernel / CSR, the bound and the launch floor
-(chip_smoke.launch_floors); then at (100000, 4) the kernel and CSR after a
-64 MB memset that leaves the tables and V out of L2.
+With --ell-only the older directory holds ell.cu (K8, the matrix-free
+route's ELL product), and only it is built (old and new at once, each
+build's registers and spills printed): at every shape of chip_smoke.py's
+phase 3f (chip_smoke.k8_cases on chip_smoke.ell_inputs, the same inputs),
+in turns old, new, new, old, each version on the tables in its own
+layout: an older ell.cu whose export takes no row counts (before the
+slot-major tables) is called here on the operator's row-major tables,
+nbr_tbl as int32 (n, dmax) and the weight table transposed to (n, dmax),
+both made once a shape, with the current wrapper's scratch; each
+version's device and call times, new / old (medians of the turns),
+whether the new outputs and dots are bitwise the old version's, the
+error against the plain version, the restated bound (chip_smoke.k8_cases'
+least bytes of the work); then the plain version's and CSR
+torch.sparse.mm's device times (the plain version's at 20 calls a
+timing, its kernels filling the launch queue sooner); each version's
+launch floor (n 1, q 1, one slot) and, at (100000, 4) in the plain form
+and the inner form with the dots, each version's time after a 64 MB
+memset that leaves the tables and V out of L2. Each VARIANT_DIR then
+holds another ell.cu with the current export (a design step), timed at
+every shape after that shape's turns, its outputs held bitwise to the
+new version's.
 Every timing line names the card and its power limit.
 """
 
@@ -825,51 +836,166 @@ def ldl_report(use, card, factor_args):
             + f" ({card})", flush=True)
 
 
-def ell_ab(card, dev):
-    """--ell-only (the module docstring)."""
+def old_k8(lib):
+    """run(case) -> a call of an older ell.cu's K8 (row-major tables, no
+    row counts: its export's arguments are the current ones less cnt) on
+    k8_cases' case inputs, with the row-major tables made here once and the
+    current wrapper's scratch; the call returns what ell_product would."""
+    import ctypes
+
+    import torch
+
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import ell as k8
+    from mac_tpu_torch.ops.kernels.pcg import _ptr, ticket
+    from mac_tpu_torch.ops.kernels.tridiag import SUFFIX
+
+    raw = {}
+    for dtype, sfx in SUFFIX.items():
+        raw[dtype] = getattr(lib, f"ell_product_{sfx}")
+        sig = k8._SIGNATURES[f"ell_product_{sfx}"]
+        raw[dtype].argtypes = sig[:1] + sig[2:]
+        raw[dtype].restype = ctypes.c_int
+
+    def run(case):
+        i = case["inputs"]
+        nbr = i["nbr_tbl"].to(torch.int32).contiguous()
+        w_tbl, V, kw = i["w_tbl"].mT.contiguous(), i["V"], i["kw"]
+        n, dmax = nbr.shape
+        q, dev = V.shape[-1], V.device
+        lanes = V.shape[0] if V.dim() == 3 else (
+            w_tbl.shape[0] if w_tbl.dim() == 3 else 1)
+        lead = (lanes,) if V.dim() == 3 or w_tbl.dim() == 3 else ()
+        B, c, sigma = kw.get("B"), kw.get("c"), kw.get("sigma")
+        dot = kw.get("dot", False)
+
+        def call():
+            tk = ticket(dev) if dot else None
+            out = torch.empty(lead + (n, q), dtype=V.dtype, device=dev)
+            part = dots = None
+            if dot:
+                part = torch.empty(k8.dot_partials(n, q, lanes),
+                                   dtype=torch.float64, device=dev)
+                dots = torch.empty(lead + (q,), dtype=torch.float64,
+                                   device=dev)
+            err = _build.launch(
+                raw[V.dtype], dev, nbr.data_ptr(), w_tbl.data_ptr(),
+                k8._lane_stride(w_tbl, lanes), V.data_ptr(),
+                k8._lane_stride(V, lanes), out.data_ptr(), _ptr(B),
+                0 if B is None else k8._lane_stride(B, lanes),
+                _ptr(kw.get("bsum")), _ptr(kw.get("vsum")), _ptr(c),
+                1 if c is not None and c.dim() == 1 else 0, _ptr(sigma),
+                1 if sigma is not None and sigma.dim() == 1 else 0,
+                _ptr(part), _ptr(dots), _ptr(tk), n, q, dmax, lanes)
+            if err != 0:
+                raise RuntimeError(f"the older ell_product failed: {err}")
+            return (out, dots) if dot else out
+
+        return call
+
+    return run
+
+
+def ell_ab(card, dev, old_dir: Path, variant_dirs=()):
+    """--ell-only (the module docstring); each of variant_dirs holds an
+    ell.cu with the current export, timed at every shape after its
+    turns through the current wrapper."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from chip_smoke import (bound, ell_inputs, k8_cases, launch_floors,
                             rel_norm)
+    from mac_tpu_torch.ops.kernels import _build
+    from mac_tpu_torch.ops.kernels import ell as k8
 
+    with ThreadPoolExecutor(2 + len(variant_dirs)) as pool:
+        old_job = pool.submit(build_one, old_dir, "old", "ell")
+        var_jobs = {Path(d).name: pool.submit(
+            build_one, Path(d), f"variant-{Path(d).name}", "ell")
+            for d in variant_dirs}
+        new_path = pool.submit(_build.build, "ell").result()
+        old_path, old_log = old_job.result()
+        variants = {name: job.result() for name, job in var_jobs.items()}
+    print_ptxas("old", "ell", old_log)
+    print_ptxas("new", "ell", _build.ptxas_log("ell"))
+    for name, (_, log) in variants.items():
+        print_ptxas(f"variant {name}", "ell", log)
+    old_run = old_k8(ctypes.CDLL(str(old_path)))
     ell = ell_inputs(dev, Path(__file__).resolve().parent / "data"
                      / "city10000.g2o")
-    floor = launch_floors(dev)["K8"]
-    print(f"K8 launch floor (n 1, q 1, one slot): {floor:.5f} ms ({card})",
-          flush=True)
+    floors = {"new": launch_floors(dev)["K8"]}
+    one = {"inputs": {
+        "nbr_tbl": torch.zeros((1, 1), dtype=torch.int64, device=dev),
+        "w_tbl": torch.ones((1, 1), device=dev),
+        "V": torch.zeros((1, 1), device=dev), "kw": {}}}
+    floors["old"] = device_ms(old_run(one))
+    print(f"K8 launch floors (n 1, q 1, one slot): old {floors['old']:.5f} "
+          f"ms, new {floors['new']:.5f} ms ({card})", flush=True)
+
+    def outs(fn):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        return tuple(t.clone() for t in got)
+
+    cases = k8_cases(dev, *ell)
+    runs = {}
+    for c in cases:
+        runs[c["key"]] = {"old": old_run(c), "new": c["kernel"]}
+        ref = outs(c["plain"])
+        first, times = {}, {"old": [], "new": []}
+        for version in TURNS:
+            run = runs[c["key"]][version]
+            a, b = outs(run), outs(run)
+            first.setdefault(version, a)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            err = max(rel_norm(x, y) for x, y in zip(a, ref))
+            as_old = all(torch.equal(x, y) for x, y in zip(a, first["old"]))
+            dms, cms = device_ms(run), call_ms(run)
+            times[version].append(dms)
+            print(f"{version} {c['label']}: device {dms:.5f} ms, call "
+                  f"{cms:.4f} ms; relative error {err:.3e}, two calls "
+                  f"bitwise {same}, bitwise the old version's (outputs"
+                  f"{' and dots' if len(a) > 1 else ''}) {as_old}"
+                  + ("" if same and err <= c["tol"] else " (FAILS phase 3f)")
+                  + f" ({card})", flush=True)
+        old, new = (statistics.median(times[v]) for v in ("old", "new"))
+        bms, by = bound(c["bytes"], c["flops"], c["itemsize"])
+        plain_ms = device_ms(c["plain"], reps=20)
+        lib_ms = (None if c["library"] is None else statistics.median(
+            [device_ms(c["library"]) for _ in range(2)]))
+        print(f"summary {c['label']}: device old {old:.5f} ms, new "
+              f"{new:.5f} ms, new/old {new / old:.3f}; restated bound "
+              f"{bms:.5f} ms ({by}), new / bound {new / bms:.2f}; plain "
+              f"device {plain_ms:.5f} ms, CSR "
+              + ("none" if lib_ms is None else f"{lib_ms:.5f} ms")
+              + f" ({card})", flush=True)
+        for name, (path, _) in variants.items():
+            _build.load("ell", k8._SIGNATURES, path)
+            a = outs(c["kernel"])
+            as_new = all(torch.equal(x, y) for x, y in zip(a, first["new"]))
+            vms = statistics.median([device_ms(c["kernel"])
+                                     for _ in range(2)])
+            print(f"variant {name} {c['label']}: device {vms:.5f} ms, "
+                  f"variant/new {vms / new:.3f}, bitwise the new "
+                  f"version's {as_new} ({card})", flush=True)
+        if variants:
+            _build.load("ell", k8._SIGNATURES, new_path)
+    # Inputs cold: each call after a 64 MB memset (past the 50 MB L2), the
+    # memset's own device time taken off.
     flush = torch.empty(16 * 1024 * 1024, device=dev)
     memset_ms = device_ms(flush.zero_, reps=50)
-    for c in k8_cases(dev, *ell):
-        runs = {"kernel": (c["kernel"], 100), "plain": (c["plain"], 20)}
-        if c["library"] is not None:
-            runs["CSR"] = (c["library"], 100)
-        times = {k: [] for k in runs}
-        for k in list(runs) + list(runs)[::-1]:
-            fn, reps = runs[k]
-            times[k].append(device_ms(fn, reps=reps))
-        got, ref = c["kernel"](), c["plain"]()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max(rel_norm(x, y) for x, y in zip(got, ref))
-        med = {k: statistics.median(v) for k, v in times.items()}
-        bms, by = bound(c["bytes"], c["flops"], c["itemsize"])
-        print(f"{c['label']}: device " + ", ".join(
-            f"{k} {v:.5f} ms {[round(t, 5) for t in times[k]]}"
-            for k, v in med.items())
-            + f"; kernel / plain {med['kernel'] / med['plain']:.3f}"
-            + ("" if "CSR" not in med
-               else f", kernel / CSR {med['kernel'] / med['CSR']:.3f}")
-            + f"; bound {bms:.5f} ms ({by}), kernel / bound "
-              f"{med['kernel'] / bms:.2f}, launch floor {floor:.5f} ms; "
-              f"relative error {err:.3e} ({card})", flush=True)
-        if c["key"] == "K8_plain":
-            for k in ("kernel", "CSR"):
-                fn = runs[k][0]
-                cold = device_ms(lambda: (flush.zero_(), fn()),
-                                 reps=50) - memset_ms
-                print(f"{c['label']}: {k} {cold:.5f} ms after a 64 MB "
-                      f"memset (inputs out of L2; the memset's "
-                      f"{memset_ms:.5f} ms taken off) ({card})", flush=True)
+    for c in cases:
+        if c["key"] not in ("K8", "K8_plain"):
+            continue
+        for version in TURNS:
+            run = runs[c["key"]][version]
+            cold = device_ms(lambda: (flush.zero_(), run()),
+                             reps=50) - memset_ms
+            print(f"{version} {c['label']}: {cold:.5f} ms after a 64 MB "
+                  f"memset (inputs out of L2; the memset's {memset_ms:.5f} "
+                  f"ms taken off) ({card})", flush=True)
 
 
 def main():
@@ -878,14 +1004,8 @@ def main():
     import numpy as np
     import torch
 
-    if "--ell-only" in sys.argv[1:]:
-        if not torch.cuda.is_available():
-            fail("no CUDA device")
-        card = card_line()
-        print(card, flush=True)
-        ell_ab(card, torch.device("cuda"))
-        return
-    flags = {"--kernels-only", "--syev-only", "--banded-only", "--cg-only"}
+    flags = {"--kernels-only", "--syev-only", "--banded-only", "--cg-only",
+             "--ell-only"}
     argv = [a for a in sys.argv[1:] if a not in flags]
     kernels_only = "--kernels-only" in sys.argv[1:]
     syev_only = "--syev-only" in sys.argv[1:]
@@ -893,11 +1013,17 @@ def main():
     cg_only = "--cg-only" in sys.argv[1:]
     if not argv:
         fail("usage: python3 kernel_ab.py [--kernels-only | --syev-only | "
-             "--banded-only | --cg-only] OLD_CSRC_DIR [VARIANT_DIR ...]")
+             "--banded-only | --cg-only | --ell-only] OLD_CSRC_DIR "
+             "[VARIANT_DIR ...]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     card = card_line()
     print(card, flush=True)
+    if "--ell-only" in sys.argv[1:]:
+        if not (Path(argv[0]) / "ell.cu").exists():
+            fail(f"--ell-only: no ell.cu in {argv[0]}")
+        ell_ab(card, torch.device("cuda"), Path(argv[0]), argv[1:])
+        return
     from mac_tpu_torch.ops import banded, laplacian
     from mac_tpu_torch.ops import tridiag as ops_tridiag
     from mac_tpu_torch.ops.kernels import _build, assemble, ldl, syev, tridiag

@@ -529,7 +529,8 @@ def twogrid_route(op: GraphOperator) -> Route:
 
     return _cached(op, ("twogrid",), lambda: Route(
         prepare, build,
-        lambda: (ref().nbr_tbl, ref().nbr32, ref().ident32),
+        lambda: (ref().slot_eid, ref().slot_nbr, ref().slot_count,
+                 ref().ident32),
         ("w_tbl", "dp", "l", "Lc_inv")))
 
 

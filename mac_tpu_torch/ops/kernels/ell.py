@@ -1,14 +1,18 @@
 """Kernel K8, the ELL product of the matrix-free route (csrc/ell.cu).
 
-`ell_product(nbr, w_tbl, V, ...)` stands for the reference's _ell_apply
-(mac_tpu/ops/laplacian.py:169-181, a gather and an einsum that XLA fuses):
-L(w) V in the difference form (L V)_i = sum_k w_ik (V_i - V_nbr_ik) over
-the padded adjacency tables of ops.laplacian.GraphOperator, the neighbour
-table nbr (n, dmax) and the weight table w_tbl (n, dmax) of
-ops.laplacian.lap_weight_table, with V (n, q), or R lanes: V (R, n, q) and
-w_tbl (R, n, dmax) (the budget sweep's, a table per lane) or one table
-(n, dmax) shared by the lanes. Its forms, by keyword, are K5's
-(ops.kernels.banded):
+`ell_product(nbr, cnt, w_tbl, V, ...)` stands for the reference's
+_ell_apply (mac_tpu/ops/laplacian.py:169-181, a gather and an einsum that
+XLA fuses): L(w) V in the difference form (L V)_i = sum_k w_ik (V_i -
+V_nbr_ik) over the padded adjacency tables of
+ops.laplacian.GraphOperator, held slot-major: the neighbour table nbr
+(dmax, n) int32 (`slot_nbr`), each row's filled slots cnt (n,) int32
+(`slot_count`; the padding follows them) and the weight table w_tbl
+(dmax, n) of ops.laplacian.lap_weight_table, with V (n, q), or R lanes: V
+(R, n, q) and w_tbl (R, dmax, n) (the budget sweep's, a table per lane) or
+one table (dmax, n) shared by the lanes. The kernel walks each row to its
+count; the plain version walks every slot, the padding adding 0, so the
+two agree bit for bit on finite V (csrc/ell.cu). Its forms, by keyword,
+are K5's (ops.kernels.banded):
   * plain: L V;
   * inner (c, with sigma optional): (L V + (c / n) 1 1^T V) + sigma V, the
     shift's column means in float64 (ops.lobpcg._shift_term); the kernel
@@ -20,10 +24,13 @@ w_tbl (R, n, dmax) (the budget sweep's, a table per lane) or one table
     a fixed order (returns (out, dot)); dot_model is that order in numpy.
 
 The wrapper launches the kernel for CUDA tensors (float32 or float64, nbr
-int32) and runs its plain PyTorch version (`ell_product_plain`: the
-arithmetic of the gather on the (q, n) layout that ops.laplacian ran before
-the kernel) for CPU tensors, and counts its launches as the other kernels'
-wrappers do (`.launches`, `.launches_by_lanes`, `.launches_by_dtype`).
+and cnt int32) and runs its plain PyTorch version (`ell_product_plain`:
+the arithmetic of the gather on the (q, n) layout that ops.laplacian ran
+before the kernel) for CPU tensors, and counts its launches as the other
+kernels' wrappers do (`.launches`, `.launches_by_lanes`,
+`.launches_by_dtype`). `occupancy(dtype)` reads the kernel's registers and
+resident blocks a SM from the runtime and `grid_blocks` its grid, for the
+report of chip_smoke.py's phase 3f.
 """
 
 import ctypes
@@ -45,9 +52,11 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    f"ell_product_{_s}": ([_P, _P, _L, _P, _L, _P, _P, _L, _P, _P, _P, _L,
-                           _P, _L, _P, _P, _P] + [_I] * 4 + [_P])
+    f"ell_product_{_s}": ([_P, _P, _P, _L, _P, _L, _P, _P, _L, _P, _P, _P,
+                           _L, _P, _L, _P, _P, _P] + [_I] * 4 + [_P])
     for _s in SUFFIX.values()}  # the last pointer is the stream
+_SIGNATURES.update({f"ell_product_occupancy_{_s}": [
+    ctypes.POINTER(_I), ctypes.POINTER(_I)] for _s in SUFFIX.values()})
 
 
 def rows_per_block(q: int) -> int:
@@ -62,26 +71,52 @@ def dot_partials(n: int, q: int, lanes: int) -> int:
     return lanes * q * -(-n // rows_per_block(q))
 
 
+def grid_blocks(n: int, q: int, lanes: int = 1) -> int:
+    """The blocks of the kernel's grid for (lanes, n, q): blocks of
+    rows_per_block(q) rows by column tiles of up to 4 * THREADS columns,
+    for each lane."""
+    groups = -(-q // COLS)
+    return (-(-n // rows_per_block(q)) * -(-groups // min(groups, THREADS))
+            * lanes)
+
+
+def occupancy(dtype: torch.dtype, device: torch.device) -> tuple:
+    """(registers a thread, resident blocks a SM) of the kernel's dtype
+    instantiation on `device`, as the CUDA runtime reports them (no
+    launch, no count)."""
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    call = _build.function("ell", f"ell_product_occupancy_{SUFFIX[dtype]}",
+                           _SIGNATURES)
+    with torch.cuda.device(device):
+        err = call(ctypes.byref(regs), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ell_product occupancy query failed: cudaError "
+                           f"{err}")
+    return regs.value, blocks.value
+
+
 def _gather_product(nbr: torch.Tensor, w_tbl: torch.Tensor,
                     V: torch.Tensor) -> torch.Tensor:
     # The gather runs on the (q, n) layout: gathering whole (n, q) rows of
     # q = 4 floats takes a PyTorch kernel with one thread block per row,
-    # 17x slower on an H100 at n = 1e5 (PERF.md).
-    n, dmax = nbr.shape
+    # 17x slower on an H100 at n = 1e5 (PERF.md). The slot-major tables
+    # give (..., q, dmax, n) terms, added over the slots in slot order.
+    dmax, n = nbr.shape
     Vt = V.mT.contiguous()                                   # (..., q, n)
-    Vd = Vt[..., None] - Vt.index_select(-1, nbr.reshape(-1)).reshape(
-        *Vt.shape[:-1], n, dmax)
-    return (Vd * w_tbl.unsqueeze(-3)).sum(dim=-1).mT.contiguous()
+    Vd = Vt.unsqueeze(-2) - Vt.index_select(-1, nbr.reshape(-1)).reshape(
+        *Vt.shape[:-1], dmax, n)
+    return (Vd * w_tbl.unsqueeze(-3)).sum(dim=-2).mT.contiguous()
 
 
-def ell_product_plain(nbr, w_tbl, V, *, B=None, bsum=None, vsum=None,
+def ell_product_plain(nbr, cnt, w_tbl, V, *, B=None, bsum=None, vsum=None,
                       c=None, sigma=None, dot=False):
-    """Plain version of K8 (the module docstring's forms): the shift takes
-    V's own column means and the residual B's own (vsum and bsum only say
-    that they are wanted)."""
-    if V.shape[-2] != nbr.shape[0]:
+    """Plain version of K8 (the module docstring's forms): every slot of
+    every row (the padding past cnt adds 0; cnt is not read); the shift
+    takes V's own column means and the residual B's own (vsum and bsum
+    only say that they are wanted)."""
+    if V.shape[-2] != nbr.shape[1]:
         raise ValueError(f"ell_product: V has {V.shape[-2]} rows, the "
-                         f"tables {nbr.shape[0]}")
+                         f"tables {nbr.shape[1]}")
     y = _gather_product(nbr, w_tbl, V)
     if c is not None:
         m64 = V.double().mean(dim=-2, keepdim=True)
@@ -109,32 +144,33 @@ def _lane_stride(t: torch.Tensor, lanes: int) -> int:
     return t.stride(0)
 
 
-def _on_card(nbr: torch.Tensor, w_tbl: torch.Tensor,
+def _on_card(nbr: torch.Tensor, cnt: torch.Tensor, w_tbl: torch.Tensor,
              V: torch.Tensor) -> bool:
     """True when V lies on a CUDA device (launch the kernel), False when
     it and the tables lie on the CPU (run the plain version)."""
     if V.is_cuda:
         return True
-    if w_tbl.is_cuda or nbr.is_cuda:
+    if w_tbl.is_cuda or nbr.is_cuda or cnt.is_cuda:
         raise ValueError("ell_product: tensors on different devices")
     return False
 
 
-def ell_product(nbr: torch.Tensor, w_tbl: torch.Tensor, V: torch.Tensor, *,
-                B: torch.Tensor = None, bsum: torch.Tensor = None,
-                vsum: torch.Tensor = None, c: torch.Tensor = None,
-                sigma: torch.Tensor = None, dot: bool = False):
+def ell_product(nbr: torch.Tensor, cnt: torch.Tensor, w_tbl: torch.Tensor,
+                V: torch.Tensor, *, B: torch.Tensor = None,
+                bsum: torch.Tensor = None, vsum: torch.Tensor = None,
+                c: torch.Tensor = None, sigma: torch.Tensor = None,
+                dot: bool = False):
     """K8: L(w) V in the form the keywords ask for (module docstring): out
     (..., n, q), with dot=True (out, column dots (..., q) float64). CUDA
     tensors: the hand-written kernel, one launch (float32 or float64, the
-    same for w_tbl, V, B, c and sigma; nbr int32; each lane of w_tbl, V
-    and B contiguous, V and w_tbl may be expanded over the lanes); CPU
-    tensors: the plain version."""
-    if not _on_card(nbr, w_tbl, V):
-        return ell_product_plain(nbr, w_tbl, V, B=B, bsum=bsum, vsum=vsum,
-                                 c=c, sigma=sigma, dot=dot)
+    same for w_tbl, V, B, c and sigma; nbr (dmax, n) and cnt (n,) int32,
+    contiguous; each lane of w_tbl, V and B contiguous, V and w_tbl may be
+    expanded over the lanes); CPU tensors: the plain version."""
+    if not _on_card(nbr, cnt, w_tbl, V):
+        return ell_product_plain(nbr, cnt, w_tbl, V, B=B, bsum=bsum,
+                                 vsum=vsum, c=c, sigma=sigma, dot=dot)
     dtype, dev = V.dtype, V.device
-    n, dmax = nbr.shape
+    dmax, n = nbr.shape
     q = V.shape[-1]
     lanes = V.shape[0] if V.dim() == 3 else (w_tbl.shape[0]
                                              if w_tbl.dim() == 3 else 1)
@@ -142,15 +178,18 @@ def ell_product(nbr: torch.Tensor, w_tbl: torch.Tensor, V: torch.Tensor, *,
     if dtype not in SUFFIX or any(a.dtype != dtype for a in arrays):
         raise TypeError("ell_product kernel takes float32 or float64, the "
                         "same for w_tbl, V, B, c and sigma")
-    if any(a.device != dev for a in arrays + [nbr]):
+    if any(a.device != dev for a in arrays + [nbr, cnt]):
         raise ValueError("ell_product: tensors on different devices")
-    if nbr.dtype != torch.int32 or not nbr.is_contiguous():
-        raise ValueError("ell_product kernel: nbr must be int32 and "
-                         "contiguous")
-    if V.shape[-2] != n or w_tbl.shape[-2:] != (n, dmax) or \
+    if any(t.dtype != torch.int32 or not t.is_contiguous()
+           for t in (nbr, cnt)):
+        raise ValueError("ell_product kernel: nbr and cnt must be int32 "
+                         "and contiguous")
+    if V.shape[-2] != n or w_tbl.shape[-2:] != (dmax, n) or \
+            tuple(cnt.shape) != (n,) or \
             (B is not None and B.shape[-2:] != V.shape[-2:]):
-        raise ValueError(f"ell_product: nbr {tuple(nbr.shape)}, w_tbl "
-                         f"{tuple(w_tbl.shape)}, V {tuple(V.shape)}")
+        raise ValueError(f"ell_product: nbr {tuple(nbr.shape)}, cnt "
+                         f"{tuple(cnt.shape)}, w_tbl {tuple(w_tbl.shape)}, "
+                         f"V {tuple(V.shape)}")
     if not all(one_lane_contiguous(a, 2) for a in
                [w_tbl, V] + ([B] if B is not None else [])):
         raise ValueError("ell_product kernel: a lane of w_tbl, V or B is "
@@ -179,7 +218,7 @@ def ell_product(nbr: torch.Tensor, w_tbl: torch.Tensor, V: torch.Tensor, *,
     call = _build.function("ell", f"ell_product_{SUFFIX[dtype]}",
                            _SIGNATURES)
     err = _build.launch(
-        call, dev, nbr.data_ptr(), w_tbl.data_ptr(),
+        call, dev, nbr.data_ptr(), cnt.data_ptr(), w_tbl.data_ptr(),
         _lane_stride(w_tbl, lanes), V.data_ptr(), _lane_stride(V, lanes),
         out.data_ptr(), _ptr(B), 0 if B is None else _lane_stride(B, lanes),
         _ptr(bsum), _ptr(vsum), _ptr(c), c_lane, _ptr(sigma), s_lane,

@@ -9,9 +9,10 @@ paths:
   * ``ell``: padded adjacency (ELLPACK) tables of (neighbour, edge id) per
     node, and the difference-form gather apply
         (L(w) V)_i = sum_k w_ik (V_i - V_{nbr_ik}),
-    kernel K8 on the card (mac_tpu_torch.ops.kernels.ell), its plain
-    version, the gather on the (q, n) layout, on the CPU; `EllProduct`
-    gives it with TRACEMIN's shifted forms.
+    kernel K8 on the card (mac_tpu_torch.ops.kernels.ell) over the tables
+    held slot-major (dmax, n), each row walked to its filled slots, its
+    plain version, the gather on the (q, n) layout, on the CPU;
+    `EllProduct` gives it with TRACEMIN's shifted forms.
 
 The tables are static per topology; only the weight vector changes across
 Frank-Wolfe steps. Every function of w also takes R weight vectors w (R, m)
@@ -50,10 +51,13 @@ class GraphOperator:
     consecutive nodes, else the sentinel n - 1; chain_mask (m,): whether it
     joins consecutive nodes. coarse_idx (m, 2): endpoints // coarse_s.
     Index tables are int64 tensors; `to(device)` returns a moved copy.
-    Made with the operator, on its device (never inside a graph capture):
-    nbr32, nbr_tbl as int32 (what kernel K8 reads), and ident32, the
-    identity permutation (n,) int32 that the V-cycle's kernels K1p and K7
-    take on this route.
+    Made with the operator, on its device (never inside a graph capture),
+    the slot-major tables kernel K8 reads: slot_nbr (dmax, n) int32,
+    nbr_tbl transposed; slot_eid (dmax, n), eid_tbl transposed, which
+    lap_weight_table gathers the weights through; slot_count (n,) int32,
+    each row's filled slots (those whose edge is not the sentinel; the
+    padding follows them); and ident32, the identity permutation (n,)
+    int32 that the V-cycle's kernels K1p and K7 take on this route.
     graph_routes: the eigensolver's routes on this operator and their
     captured CUDA graphs (mac_tpu_torch.ops.graphs), filled by the first
     solve.
@@ -69,7 +73,10 @@ class GraphOperator:
         self.mode = mode
         self.coarse_s = int(coarse_s)
         self.coarse_nc = int(coarse_nc)
-        self.nbr32 = nbr_tbl.to(torch.int32).contiguous()
+        self.slot_nbr = nbr_tbl.T.to(torch.int32).contiguous()
+        self.slot_eid = eid_tbl.T.contiguous()
+        self.slot_count = (eid_tbl != idx.shape[0]).sum(dim=1).to(
+            torch.int32)
         self.ident32 = torch.arange(self.n, dtype=torch.int32,
                                     device=nbr_tbl.device)
         self.graph_routes = {}
@@ -200,8 +207,8 @@ def lap_tridiagonal_part(op: GraphOperator, w: torch.Tensor,
 
 
 class EllProduct(Operator):
-    """L(w) V on the ELL operator from its weight table w_tbl (n, dmax),
-    or (R, n, dmax) for lanes (lane by lane; one table (n, dmax) serves
+    """L(w) V on the ELL operator from its weight table w_tbl (dmax, n),
+    or (R, dmax, n) for lanes (lane by lane; one table (dmax, n) serves
     every lane of V (R, n, q)), in the difference form (L V)_i = sum_k
     w_ik (V_i - V_nbr_ik), not the equivalent deg_i V_i - sum_k w_ik
     V_nbr_ik: smooth eigenvectors make the latter cancel two O(deg |V|)
@@ -238,8 +245,8 @@ class EllProduct(Operator):
         (ignored without c)."""
         shifted = self.c is not None
         return _k8.ell_product(
-            self.op.nbr32, self.w_tbl, V, B=B, bsum=bsum,
-            vsum=vsum if shifted else None, c=self.c,
+            self.op.slot_nbr, self.op.slot_count, self.w_tbl, V, B=B,
+            bsum=bsum, vsum=vsum if shifted else None, c=self.c,
             sigma=self.sigma if shifted else None, dot=dot)
 
 
@@ -265,9 +272,10 @@ def lap_apply_reduced(op: GraphOperator, w: torch.Tensor, V: torch.Tensor,
 
 
 def lap_weight_table(op: GraphOperator, w: torch.Tensor) -> torch.Tensor:
-    """The ELL operator's weight table (n, dmax), (R, n, dmax) for lanes:
-    each adjacency slot's edge weight, 0 in padding."""
-    return _w_pad(w)[..., op.eid_tbl]
+    """The ELL operator's weight table, slot-major as kernel K8 reads it:
+    (dmax, n), (R, dmax, n) for lanes, each adjacency slot's edge weight,
+    0 in padding; one gather a weight vector."""
+    return _w_pad(w)[..., op.slot_eid]
 
 
 def ell_applier(op: GraphOperator, w_tbl: torch.Tensor) -> EllProduct:

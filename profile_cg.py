@@ -27,10 +27,10 @@ phase 13 does in its "plain-cg" turn: the account before the kernels, on
 the same tree. --before DIR first runs DIR's profile_cg.py (an older
 checkout, e.g. a `git archive` of the parent commit unpacked under build/)
 on the same cells in a process of its own, then this tree's, and ends
-with each cell's busy milliseconds, CG-step kernels and K6's device time
-before and after (before: the "k6_" items among the older script's ten
-largest, where it prints no K6 line of its own), and each cell's ten
-largest items before and after side by side.
+with each cell's busy milliseconds, CG-step kernels and K6's and K8's
+device time and calls before and after (before: the "k6_" items among the
+older script's ten largest, where it prints no K6 line of its own), and
+each cell's ten largest items before and after side by side.
 Every line names the card and its power limit.
 """
 
@@ -149,7 +149,7 @@ def main():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
     print(card, flush=True)
-    before, k6_before, tops_before = {}, {}, {}
+    before, tags_before, tops_before = {}, {}, {}
     if args.before:
         cmd = [sys.executable, "profile_cg.py", "--cells", args.cells]
         if args.plain_cg:
@@ -165,17 +165,20 @@ def main():
             if got:
                 cell = got[1]
                 before[cell] = (float(got[2]), got[3])
-            k6 = re.match(r"K6 \(k6_\*\): ([0-9.]+) ms, (\d+) calls", line)
+            tag = re.match(r"(K[68]) \(k[68]_\*\): ([0-9.]+) ms, (\d+) "
+                           r"calls", line)
             item = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls .*k6_", line)
             top = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls\s+[0-9.]+ us a "
                            r"call  (.*)", line)
             if cell is not None and top:
                 tops_before.setdefault(cell, []).append(
                     (float(top[1]), int(top[2]), top[3]))
-            if cell is not None and k6:  # its own line: all of K6
-                k6_before[cell] = [float(k6[1]), int(k6[2])]
+            if cell is not None and tag:  # its own line: all of K6 or K8
+                tags_before.setdefault(cell, {})[tag[1]] = [
+                    float(tag[2]), int(tag[3])]
             elif cell is not None and item:
-                got6 = k6_before.setdefault(cell, [0.0, 0])
+                got6 = tags_before.setdefault(cell, {}).setdefault(
+                    "K6", [0.0, 0])
                 got6[0] += float(item[1])
                 got6[1] += int(item[2])
         if proc.returncode != 0:
@@ -216,21 +219,25 @@ def main():
         for ms, cnt, nm in items[:10]:
             print(f"  {ms:9.3f} ms {cnt:7d} calls {1e3 * ms / cnt:8.2f} us "
                   f"a call  {nm[:110]}", flush=True)
+        tagged = {}
         for tag in ("k6_", "k8_"):
             got = [(ms, cnt) for ms, cnt, nm in items if tag in nm]
-            print(f"{tag.upper()[:2]} ({tag}*): {sum(m for m, _ in got):.3f} "
-                  f"ms, {sum(c for _, c in got)} calls in the warm solve "
-                  f"({card})", flush=True)
-        k6_ms = sum(ms for ms, _, nm in items if "k6_" in nm)
+            ms, cnt = sum(m for m, _ in got), sum(c for _, c in got)
+            tagged[tag.upper()[:2]] = (ms, cnt)
+            print(f"{tag.upper()[:2]} ({tag}*): {ms:.3f} ms, {cnt} calls in "
+                  f"the warm solve ({card})", flush=True)
         tops[name] = items[:10]
-        after[name] = (busy, per_step[0], k6_ms)
-    for name, (busy, step, k6_ms) in after.items():
+        after[name] = (busy, per_step[0], tagged)
+    for name, (busy, step, tagged) in after.items():
         if name in before:
-            was = k6_before.get(name, [float("nan"), 0])[0]
+            was = tags_before.get(name, {})
             print(f"summary {name}: device busy {before[name][0]:.3f} -> "
                   f"{busy:.3f} ms ({busy / before[name][0]:.3f}), one CG step "
-                  f"{before[name][1]} -> {step} kernels, K6 {was:.3f} -> "
-                  f"{k6_ms:.3f} ms ({card})", flush=True)
+                  f"{before[name][1]} -> {step} kernels, " + ", ".join(
+                      f"{t} {was.get(t, [float('nan'), 0])[0]:.3f} ms / "
+                      f"{was.get(t, [0, 0])[1]} -> {ms:.3f} ms / {cnt}"
+                      for t, (ms, cnt) in tagged.items()) + f" ({card})",
+                  flush=True)
             for i, (old, new) in enumerate(zip(
                     tops_before.get(name, []) + [None] * 10, tops[name])):
                 old = ("-" if old is None

@@ -22,7 +22,9 @@ body bitwise K1 on the gathered input, its segment body bitwise K1b) and
 K7 (the coarse correction) against their plain
 versions, bitwise repeatable, and a replayed city10000 inner solve in at
 most 16 device kernels a CG step; the matrix-free route's K8 (the ELL
-product in its forms, its dots bitwise their order's model), its
+product in its forms over the slot-major tables, on graphs whose warps
+walk to dmax and on chains, its dots bitwise their order's model, a
+replayed graph bitwise the eager call), its
 V-cycle's kernels (EllVCycle) against its plain form, and a replayed
 n = 100000 inner solve bitwise the eager one in ELL_STEP_KERNELS device
 kernels a CG step. Marked `cuda`;
@@ -1822,38 +1824,68 @@ def test_city_shaped_inner_solve_replays_in_few_kernels(dev):
 # forms) and its V-cycle's K1p and K7 through the identity permutation
 # (ops.twogrid.EllVCycle), each against its plain version (float32 1e-5,
 # float64 1e-12 relative in norm), two calls bitwise equal.
-def _ell_case(dev, dtype, n, lanes=None, shared=False):
+def _ell_graph(n, kind):
+    """(edge index, weights) of a test graph for K8: "full", a chain whose
+    nodes 0 mod 32 each join 16 nodes 5 mod 32 (n a multiple of 32; each
+    of those joined by 16, so that every warp of 32 rows walks to dmax,
+    18), or "chain", the chain alone (dmax 2)."""
+    rng = np.random.RandomState(21)
+    idx = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+    if kind == "full":
+        hubs = np.arange(0, n, 32)
+        far = (hubs[:, None] + 5 + 64 * np.arange(16)[None, :]) % n
+        idx = np.concatenate([idx, np.stack(
+            [np.repeat(hubs, 16), far.reshape(-1)], 1)])
+    return idx, 0.5 + rng.rand(len(idx))
+
+
+def _ell_case(dev, dtype, n, lanes=None, shared=False, kind="expander"):
     """(operator, weights) of chip_smoke.synthetic(n) on the card: the
     expander-like graph of the n = 100000 route at its full weights; with
-    lanes and not shared, a weight vector per lane."""
+    lanes and not shared, a weight vector per lane; kind "full" or "chain"
+    one of _ell_graph's instead."""
     from chip_smoke import synthetic
     from mac_tpu_torch.ops import laplacian
 
-    fi, wf, ci, wc = synthetic(n)
-    op = laplacian.build_operator(np.concatenate([fi, ci]), n).to(dev)
-    w_np = np.concatenate([wf, wc])
+    if kind == "expander":
+        fi, wf, ci, wc = synthetic(n)
+        idx, w_np = np.concatenate([fi, ci]), np.concatenate([wf, wc])
+    else:
+        idx, w_np = _ell_graph(n, kind)
+    op = laplacian.build_operator(idx, n, mode="ell").to(dev)
     if lanes and not shared:
         w_np = w_np * (0.5 + np.random.RandomState(5).rand(lanes, len(w_np)))
     return op, torch.as_tensor(w_np, dtype=dtype, device=dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,q,lanes,shared", [
-    (40000, 4, None, False), (40000, 12, None, False), (40000, 1, None, False),
-    (40000, 3, None, False), (40000, 4, 2, False), (40000, 4, 2, True),
-    (1728, 256, None, False), (1000, 600, None, False)])
+@pytest.mark.parametrize("n,q,lanes,shared,kind", [
+    (40000, 4, None, False, "expander"), (40000, 12, None, False, "expander"),
+    (40000, 1, None, False, "expander"), (40000, 3, None, False, "expander"),
+    (40000, 4, 2, False, "expander"), (40000, 4, 2, True, "expander"),
+    (1728, 256, None, False, "expander"), (1000, 600, None, False, "expander"),
+    (40000, 4, None, False, "full"), (40000, 4, None, False, "chain"),
+    (1728, 256, None, False, "chain")])
 @pytest.mark.parametrize("form", ["plain", "residual", "inner"])
-def test_k8_matches_plain_and_repeats(dev, dtype, n, q, lanes, shared, form):
+def test_k8_matches_plain_and_repeats(dev, dtype, n, q, lanes, shared, kind,
+                                      form):
     """K8 in each form (with the column dots in the inner one) against its
     plain version: q 4 (16-byte rows), 12, 1 and 3 (element loads), lanes
     with a table each or one shared, GreedyEig's (1728, 256) flat block
-    and 600 columns (two column tiles); the dots bitwise their order's
-    numpy model (ell.dot_model) up to 16 columns."""
+    and 600 columns (two column tiles); a graph whose every warp walks to
+    dmax (_ell_graph "full") and a chain (dmax 2); the dots bitwise their
+    order's numpy model (ell.dot_model) up to 16 columns."""
     from mac_tpu_torch.ops import laplacian
     from mac_tpu_torch.ops.kernels import ell as k8
     from mac_tpu_torch.ops.kernels import pcg as kp
 
-    op, w = _ell_case(dev, dtype, n, lanes, shared)
+    op, w = _ell_case(dev, dtype, n, lanes, shared, kind)
+    cnt = op.slot_count.cpu()
+    dmax = op.slot_nbr.shape[0]
+    if kind == "full":  # every warp's largest count is dmax
+        assert (cnt.reshape(-1, 32).amax(1) == dmax).all()
+    elif kind == "chain":
+        assert dmax == 2
     w_tbl = laplacian.lap_weight_table(op, w)
     rng = np.random.RandomState(6)
     lead = (lanes,) if lanes else ()
@@ -1867,9 +1899,10 @@ def test_k8_matches_plain_and_repeats(dev, dtype, n, q, lanes, shared, form):
         c = laplacian.lap_inf_norm(op, w).to(dtype)
         kw = dict(vsum=kp.col_sums(V), c=c, sigma=1e-3 * c, dot=True)
     before = k8.ell_product.launches
-    got = _twice(lambda: k8.ell_product(op.nbr32, w_tbl, V, **kw))
+    tables = (op.slot_nbr, op.slot_count, w_tbl)
+    got = _twice(lambda: k8.ell_product(*tables, V, **kw))
     assert k8.ell_product.launches == before + 2
-    ref = k8.ell_product_plain(op.nbr32, w_tbl, V, **kw)
+    ref = k8.ell_product_plain(*tables, V, **kw)
     ref = ref if isinstance(ref, tuple) else (ref,)
     for x, y in zip(got, ref):
         assert _rel(x, y) <= _CG_TOL[dtype], (_rel(x, y), form)
@@ -1881,27 +1914,76 @@ def test_k8_matches_plain_and_repeats(dev, dtype, n, q, lanes, shared, form):
 
 
 def test_k8_refuses_what_it_does_not_take(dev):
-    """An int64 neighbour table, float16, mixed dtypes or devices, a
-    non-contiguous block and an inner form without V's sums raise; none
-    falls back to the plain version."""
+    """An int64 neighbour or count table, a row-major weight table,
+    float16, mixed dtypes or devices, a non-contiguous block and an inner
+    form without V's sums raise; none falls back to the plain version."""
     from mac_tpu_torch.ops import laplacian
     from mac_tpu_torch.ops.kernels import ell as k8
 
     op, w = _ell_case(dev, torch.float32, 6000)
     w_tbl = laplacian.lap_weight_table(op, w)
     V = torch.zeros(op.n, 4, device=dev)
-    with pytest.raises(ValueError):
-        k8.ell_product(op.nbr_tbl, w_tbl, V)
+    nbr, cnt = op.slot_nbr, op.slot_count
+    for bad in ((nbr.long(), cnt, w_tbl), (nbr, cnt.long(), w_tbl),
+                (nbr, cnt, w_tbl.T.contiguous()), (nbr, cnt.cpu(), w_tbl)):
+        with pytest.raises(ValueError):
+            k8.ell_product(*bad, V)
     with pytest.raises(TypeError):
-        k8.ell_product(op.nbr32, w_tbl.half(), V.half())
+        k8.ell_product(nbr, cnt, w_tbl.half(), V.half())
     with pytest.raises(TypeError):
-        k8.ell_product(op.nbr32, w_tbl, V.double())
+        k8.ell_product(nbr, cnt, w_tbl, V.double())
     with pytest.raises(ValueError):
-        k8.ell_product(op.nbr32, w_tbl.cpu(), V)
+        k8.ell_product(nbr, cnt, w_tbl.cpu(), V)
     with pytest.raises(ValueError):
-        k8.ell_product(op.nbr32, w_tbl, torch.zeros(4, op.n, device=dev).T)
+        k8.ell_product(nbr, cnt, w_tbl, torch.zeros(4, op.n, device=dev).T)
     with pytest.raises(ValueError):
-        k8.ell_product(op.nbr32, w_tbl, V, c=torch.ones((), device=dev))
+        k8.ell_product(nbr, cnt, w_tbl, V, c=torch.ones((), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_replayed_graph_is_bitwise_the_eager_call(dev, dtype):
+    """K8's inner form with its dots and its residual form captured in a
+    CUDA graph (two launches): each replay, at new inputs copied into the
+    captured ones, is bitwise the eager call on those inputs (the dots'
+    ticket left at 0 by every launch)."""
+    from mac_tpu_torch.ops import laplacian
+    from mac_tpu_torch.ops.kernels import ell as k8
+    from mac_tpu_torch.ops.kernels import pcg as kp
+
+    op, w = _ell_case(dev, dtype, 40000)
+    w_tbl = laplacian.lap_weight_table(op, w)
+    c = laplacian.lap_inf_norm(op, w).to(dtype)
+    tables = (op.slot_nbr, op.slot_count, w_tbl)
+    rng = np.random.RandomState(19)
+
+    def rand():
+        return torch.as_tensor(rng.normal(size=(op.n, 4)), dtype=dtype,
+                               device=dev)
+
+    V, B = rand(), rand()
+
+    def both():
+        inner = k8.ell_product(*tables, V, vsum=kp.col_sums(V), c=c,
+                               sigma=1e-3 * c, dot=True)
+        return inner + (k8.ell_product(*tables, V, B=B,
+                                       bsum=kp.col_sums(B)),)
+
+    both()  # the ticket and the library before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = k8.ell_product.launches
+    with torch.cuda.graph(g):
+        outs = both()
+    captured = k8.ell_product.launches - before
+    assert captured == 2
+    for _ in range(3):
+        V.copy_(rand())
+        B.copy_(rand())
+        g.replay()
+        torch.cuda.synchronize()
+        want = both()
+        for x, y in zip(outs, want):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1972,7 +2054,8 @@ def test_ell_inner_solve_replays_in_few_kernels(dev):
                               5)
     assert torch.equal(got, eager)
     plain = pcg_fixed_plain(
-        lambda V: ell_product_plain(op.nbr32, state["w_tbl"], V,
+        lambda V: ell_product_plain(op.slot_nbr, op.slot_count,
+                                    state["w_tbl"], V,
                                     vsum=V.sum(0), c=c, sigma=sigma),
         B, M.plain, iters=5, X0=X0)
     assert _rel(got, plain) <= 1e-4

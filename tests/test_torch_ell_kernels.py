@@ -79,6 +79,11 @@ def expander(n=N):
     return _cache[n]
 
 
+def _k8(op, *args, **kw):
+    """K8's wrapper over op's slot-major neighbour and count tables."""
+    return k8.ell_product(op.slot_nbr, op.slot_count, *args, **kw)
+
+
 def rel_err(got, ref):
     return np.linalg.norm(got - ref) / np.linalg.norm(ref)
 
@@ -91,18 +96,139 @@ def blocked_factor(monkeypatch):
 
 
 def test_operator_carries_the_kernels_int32_tables():
-    """nbr32 is nbr_tbl as int32 and ident32 the identity permutation,
-    made with the operator and again by to()."""
+    """slot_nbr is nbr_tbl transposed as int32, slot_count each row's
+    filled slots (int32), slot_eid eid_tbl transposed and ident32 the
+    identity permutation, made with the operator and again by to()."""
     idx, w, jop, top = expander()
-    assert top.nbr32.dtype == torch.int32 and top.ident32.dtype == torch.int32
-    assert torch.equal(top.nbr32.long(), top.nbr_tbl)
+    for t in (top.slot_nbr, top.slot_count, top.ident32):
+        assert t.dtype == torch.int32 and t.is_contiguous()
+    assert top.slot_eid.is_contiguous()
+    assert torch.equal(top.slot_nbr.long(), top.nbr_tbl.T)
+    assert torch.equal(top.slot_eid, top.eid_tbl.T)
     assert torch.equal(top.ident32.long(), torch.arange(N))
     moved = top.to("cpu")
-    assert moved.nbr32 is not top.nbr32
-    assert torch.equal(moved.nbr32, top.nbr32)
-    assert torch.equal(moved.ident32, top.ident32)
+    assert moved.slot_nbr is not top.slot_nbr
+    for name in ("slot_nbr", "slot_eid", "slot_count", "ident32"):
+        assert torch.equal(getattr(moved, name), getattr(top, name))
     np.testing.assert_array_equal(np.asarray(jop.nbr_tbl),
-                                  top.nbr32.numpy())
+                                  top.slot_nbr.numpy().T)
+    np.testing.assert_array_equal(
+        (np.asarray(jop.eid_tbl) != len(idx)).sum(axis=1),
+        top.slot_count.numpy())
+
+
+def _random_graph(kind):
+    """(edge index (m, 2), n) of a small test graph: a chain with random
+    extra edges (some duplicated), a perfect matching (dmax 1), a chain
+    with one node joined to many (a single row at dmax), or a star."""
+    rng = np.random.RandomState(len(kind))
+    if kind == "matching":
+        n = 64
+        return np.stack([np.arange(0, n, 2), np.arange(1, n, 2)], 1), n
+    n = 300
+    chain = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+    if kind == "chain_random":
+        extra = rng.randint(0, n, size=(400, 2))
+        extra = extra[extra[:, 0] != extra[:, 1]]
+        return np.concatenate([chain, extra, extra[:20]]), n
+    if kind == "one_wide_row":
+        hub = 137
+        others = np.setdiff1d(rng.choice(n, 40, replace=False),
+                              [hub, hub - 1, hub + 1])
+        return np.concatenate([chain, np.stack(
+            [np.full_like(others, hub), others], 1)]), n
+    return np.stack([np.zeros(n - 1, np.int64), np.arange(1, n)], 1), n
+
+
+@pytest.mark.parametrize("kind", ["chain_random", "matching", "one_wide_row",
+                                  "star"])
+def test_operator_slot_tables_are_the_row_tables_transposed(kind):
+    """The kernel's slot-major tables against the row-major ones: each
+    row's count is its non-sentinel slots of eid_tbl; the padding (the
+    sentinel edge m, neighbour 0) lies only at a row's tail; slot_nbr and
+    slot_eid are nbr_tbl and eid_tbl transposed, and lap_weight_table the
+    (n, dmax) gather transposed, lane by lane for a weight vector a
+    lane."""
+    idx, n = _random_graph(kind)
+    op = tl.build_operator(idx, n, mode="ell")
+    m = idx.shape[0]
+    eid, nbr = op.eid_tbl.numpy(), op.nbr_tbl.numpy()
+    cnt = op.slot_count.numpy()
+    dmax = nbr.shape[1]
+    assert dmax == {"matching": 1, "star": n - 1}.get(kind, dmax)
+    if kind == "one_wide_row":
+        assert (cnt == dmax).sum() == 1 and np.sort(cnt)[-2] <= 4
+    np.testing.assert_array_equal(cnt, (eid != m).sum(axis=1))
+    filled = np.arange(dmax)[None, :] < cnt[:, None]
+    np.testing.assert_array_equal(eid != m, filled)  # padding at the tail
+    assert (nbr[~filled] == 0).all()
+    assert cnt.sum() == 2 * m
+    np.testing.assert_array_equal(op.slot_nbr.numpy(), nbr.T)
+    np.testing.assert_array_equal(op.slot_eid.numpy(), eid.T)
+    rng = np.random.RandomState(9)
+    for dtype in (torch.float32, torch.float64):
+        w = torch.as_tensor(rng.rand(3, m) + 0.5, dtype=dtype)
+        w[:, ::7] = 0.0  # edges at zero weight stay filled slots
+        rows = torch.cat([w, w.new_zeros(3, 1)], dim=1)[:, op.eid_tbl]
+        lanes = tl.lap_weight_table(op, w)
+        assert lanes.shape == (3, dmax, n) and lanes.is_contiguous()
+        for r in range(3):
+            assert torch.equal(lanes[r], rows[r].T)
+            assert torch.equal(tl.lap_weight_table(op, w[r]), rows[r].T)
+
+
+def _walk_model(nbr, cnt, w_tbl, V, to_count=True):
+    """The kernel's walk in numpy, in V's type: each row's slots in slot
+    order, w (V_i - V_nbr) added one rounding at a time (no fma), up to
+    the row's count (to_count=False: every slot, the padding too, as the
+    walk to dmax adds it). nbr, w_tbl (dmax, n) slot-major; V (n, q)."""
+    dmax, n = nbr.shape
+    acc = np.zeros_like(V)
+    for k in range(dmax):
+        rows = np.flatnonzero(k < cnt) if to_count else np.arange(n)
+        d = V[rows] - V[nbr[k, rows]]
+        acc[rows] = acc[rows] + w_tbl[k, rows, None] * d
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k8_walk_to_each_rows_count_is_bitwise_the_full_walk(dtype):
+    """On finite V the walk to each row's count equals the walk over all
+    dmax slots bit for bit (padding adds 0 x a finite difference, a +-0,
+    to a sum that is nonzero or +0), here with rows of equal values (zero
+    differences) and edges at zero weight, on the expander's tables and on
+    a graph whose padding is most of its slots; and both are within
+    rounding of the plain version. An Inf at node 0 is the one case where
+    they differ: the full walk's padding makes the padded rows NaN."""
+    npt = DTYPES[dtype][0]
+    rng = np.random.RandomState(12)
+    star_idx, star_n = _random_graph("one_wide_row")
+    _, _, _, top = expander()
+    for op in (top, tl.build_operator(star_idx, star_n, mode="ell")):
+        n = op.n
+        nbr, cnt = op.slot_nbr.numpy(), op.slot_count.numpy()
+        w = rng.rand(op.m).astype(npt)
+        w[::5] = 0.0
+        w_tbl = tl.lap_weight_table(op, torch.as_tensor(w)).numpy()
+        V = rng.normal(size=(n, 4)).astype(npt)
+        V[::3] = V[0]  # equal neighbours: exact zero differences
+        V[1::7] = -V[1::7]
+        got = _walk_model(nbr, cnt, w_tbl, V)
+        full = _walk_model(nbr, cnt, w_tbl, V, to_count=False)
+        assert got.dtype == npt
+        uint = np.uint32 if dtype == "float32" else np.uint64
+        np.testing.assert_array_equal(got.view(uint), full.view(uint))
+        plain = k8.ell_product_plain(op.slot_nbr, op.slot_count,
+                                     torch.as_tensor(w_tbl),
+                                     torch.as_tensor(V)).numpy()
+        assert rel_err(plain, got) < DTYPES[dtype][3]
+        V[0] = np.inf
+        padded = cnt < nbr.shape[0]
+        with np.errstate(invalid="ignore"):
+            inf_got = _walk_model(nbr, cnt, w_tbl, V)
+            inf_full = _walk_model(nbr, cnt, w_tbl, V, to_count=False)
+        assert np.isnan(inf_full[padded]).all()
+        assert not np.isnan(inf_got[padded]).all()
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -122,7 +248,7 @@ def test_k8_forms_match_jax_ell_apply(q, dtype):
     ref = np.asarray(jl._ell_apply(jop, wj, jnp.asarray(V)))
     w_tbl = tl.lap_weight_table(top, wt)
     tV, tB = torch.as_tensor(V), torch.as_tensor(B)
-    y, dots = k8.ell_product(top.nbr32, w_tbl, tV, dot=True)
+    y, dots = _k8(top, w_tbl, tV, dot=True)
     assert rel_err(y.numpy(), ref) < tol
     # The dots: each product in the block's type, summed in float64.
     np.testing.assert_allclose(
@@ -132,7 +258,7 @@ def test_k8_forms_match_jax_ell_apply(q, dtype):
     assert isinstance(apply_L, tl.EllProduct)
     assert isinstance(tl.lap_applier(top, wt), tl.EllProduct)
     assert torch.equal(apply_L(tV), y)
-    r = k8.ell_product(top.nbr32, w_tbl, tV, B=tB,
+    r = _k8(top, w_tbl, tV, B=tB,
                        bsum=kp.col_sums(tB)).numpy()
     assert rel_err(r, (B - B.mean(axis=0)) - ref) < tol
     c = np.asarray(2.0 * np.asarray(jl.lap_degrees(jop, wj)).max(), npt)
@@ -140,7 +266,7 @@ def test_k8_forms_match_jax_ell_apply(q, dtype):
     want = np.asarray(jl._ell_apply(jop, wj, jnp.asarray(V))
                       + jax_shift_term(jnp.asarray(V), c)
                       + jnp.asarray(sigma) * jnp.asarray(V))
-    inner = k8.ell_product(top.nbr32, w_tbl, tV, vsum=kp.col_sums(tV),
+    inner = _k8(top, w_tbl, tV, vsum=kp.col_sums(tV),
                            c=torch.as_tensor(c), sigma=torch.as_tensor(sigma))
     assert rel_err(inner.numpy(), want) < tol
     shifted = apply_L.shifted(torch.as_tensor(c), torch.as_tensor(sigma))
@@ -201,18 +327,18 @@ def test_k8_lanes_match_single_calls():
     ws = np.stack([w, w * np.round((0.5 + rng.rand(len(w))) * 256) / 256])
     V = torch.as_tensor(rng.normal(size=(2, N, 4)))
     w_tbl = tl.lap_weight_table(top, torch.as_tensor(ws))
-    assert w_tbl.shape == (2, N, top.nbr_tbl.shape[1])
-    got, dots = k8.ell_product(top.nbr32, w_tbl, V, dot=True)
+    assert w_tbl.shape == (2, top.nbr_tbl.shape[1], N)
+    got, dots = _k8(top, w_tbl, V, dot=True)
     for r in range(2):
-        one, d1 = k8.ell_product(top.nbr32, w_tbl[r], V[r], dot=True)
+        one, d1 = _k8(top, w_tbl[r], V[r], dot=True)
         assert torch.equal(got[r], one) and torch.equal(dots[r], d1)
         ref = np.asarray(jl._ell_apply(jop, jnp.asarray(ws[r]),
                                        jnp.asarray(V[r].numpy())))
         assert rel_err(got[r].numpy(), ref) < 1e-12
     shared = w_tbl[0]
-    lanes = k8.ell_product(top.nbr32, shared, V)
+    lanes = _k8(top, shared, V)
     for r in range(2):
-        assert torch.equal(lanes[r], k8.ell_product(top.nbr32, shared, V[r]))
+        assert torch.equal(lanes[r], _k8(top, shared, V[r]))
     flat = V.permute(1, 0, 2).reshape(N, 8)
     out = tl.ell_applier(top, shared)(flat).reshape(N, 2, 4).permute(1, 0, 2)
     assert rel_err(out.numpy(), lanes.numpy()) < 1e-12
@@ -349,7 +475,8 @@ def test_ell_cg_step_calls_the_route_kernels(monkeypatch, blocked_factor):
     apply_L, Minv = route.build(state)
     assert isinstance(apply_L, tl.EllProduct)
     assert isinstance(Minv, ttg.EllVCycle) and Minv.fac.seg == 1024
-    assert any(t is top.nbr32 for t in route.tables())
+    assert any(t is top.slot_nbr for t in route.tables())
+    assert any(t is top.slot_count for t in route.tables())
     assert any(t is top.ident32 for t in route.tables())
     calls = []
 
@@ -447,7 +574,8 @@ def test_k8_wrapper_passes_its_c_signature(monkeypatch):
     the weight table, V and B (0 for one shared by the lanes), c's and
     sigma's lane flags, n, q, dmax and the lanes, a partial for each
     column and block of rows with the dots; it counts each launch by lanes
-    and dtype, and refuses an int64 neighbour table, float16, mixed
+    and dtype, and refuses an int64 neighbour or count table, a count
+    table of another length, a row-major weight table, float16, mixed
     dtypes and an inner form without V's sums."""
     from mac_tpu_torch.ops.kernels import _build
 
@@ -461,7 +589,7 @@ def test_k8_wrapper_passes_its_c_signature(monkeypatch):
         launched.append((fn, args))
         return 0
 
-    monkeypatch.setattr(k8, "_on_card", lambda nbr, w_tbl, V: True)
+    monkeypatch.setattr(k8, "_on_card", lambda nbr, cnt, w_tbl, V: True)
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(_build, "launch", launch)
     monkeypatch.setattr(k8, "ticket", lambda dev: torch.zeros(1))
@@ -472,34 +600,40 @@ def test_k8_wrapper_passes_its_c_signature(monkeypatch):
     V = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32)
     w_tbl = tl.lap_weight_table(top, torch.as_tensor(w, dtype=torch.float32))
     c = torch.tensor(2.0)
-    out, dots = k8.ell_product(top.nbr32, w_tbl, V, vsum=kp.col_sums(V), c=c,
+    out, dots = _k8(top, w_tbl, V, vsum=kp.col_sums(V), c=c,
                                sigma=1e-3 * c, dot=True)
     assert out.shape == (n, 4) and dots.shape == (4,)
     V2 = torch.as_tensor(rng.normal(size=(2, n, 12)))
     W2 = torch.stack([w_tbl.double(), 2 * w_tbl.double()])
-    k8.ell_product(top.nbr32, W2, V2, B=V2, bsum=kp.col_sums(V2))
-    k8.ell_product(top.nbr32, w_tbl.double(), V2)  # one table, 2 lanes
+    _k8(top, W2, V2, B=V2, bsum=kp.col_sums(V2))
+    _k8(top, w_tbl.double(), V2)  # one table, 2 lanes
     sig = k8._SIGNATURES["ell_product_f32"]
     (f1, a1), (f2, a2), (f3, a3) = launched
     assert (f1, f2, f3) == ("ell_product_f32", "ell_product_f64",
                             "ell_product_f64")
     assert len(a1) == len(a2) == len(a3) == len(sig) - 1
-    # w_lane, v_lane; b_lane; c_lane, s_lane; n, q, dmax, lanes
-    assert (a1[2], a1[4], a1[7], a1[11], a1[13]) == (0, 0, 0, 0, 0)
+    # nbr, cnt; w_lane, v_lane; b_lane; c_lane, s_lane; n, q, dmax, lanes
+    assert (a1[0], a1[1]) == (top.slot_nbr.data_ptr(),
+                              top.slot_count.data_ptr())
+    assert (a1[3], a1[5], a1[8], a1[12], a1[14]) == (0, 0, 0, 0, 0)
     assert a1[-4:] == (n, 4, dmax, 1)
-    assert a1[14] != 0 and a1[15] != 0 and a1[16] != 0  # part, dot, ticket
-    assert (a2[2], a2[4], a2[7]) == (n * dmax, n * 12, n * 12)
-    assert a2[-4:] == (n, 12, dmax, 2) and a2[14] == 0
-    assert (a3[2], a3[4]) == (0, n * 12) and a3[-4:] == (n, 12, dmax, 2)
+    assert a1[15] != 0 and a1[16] != 0 and a1[17] != 0  # part, dot, ticket
+    assert (a2[3], a2[5], a2[8]) == (n * dmax, n * 12, n * 12)
+    assert a2[-4:] == (n, 12, dmax, 2) and a2[15] == 0
+    assert (a3[3], a3[5]) == (0, n * 12) and a3[-4:] == (n, 12, dmax, 2)
     assert k8.ell_product.launches == 3
     assert k8.ell_product.launches_by_lanes == {1: 1, 2: 2}
     assert k8.ell_product.launches_by_dtype == {"float32": 1, "float64": 2}
     assert k8.dot_partials(n, 4, 1) == 4 * -(-n // 128)
-    with pytest.raises(ValueError):
-        k8.ell_product(top.nbr_tbl, w_tbl, V)
+    for bad in ((top.slot_nbr.long(), top.slot_count, w_tbl),
+                (top.slot_nbr, top.slot_count.long(), w_tbl),
+                (top.slot_nbr, top.slot_count[1:], w_tbl),
+                (top.slot_nbr, top.slot_count, w_tbl.T.contiguous())):
+        with pytest.raises(ValueError):
+            k8.ell_product(*bad, V)
     with pytest.raises(TypeError):
-        k8.ell_product(top.nbr32, w_tbl.half(), V.half())
+        _k8(top, w_tbl.half(), V.half())
     with pytest.raises(TypeError):
-        k8.ell_product(top.nbr32, w_tbl.double(), V)
+        _k8(top, w_tbl.double(), V)
     with pytest.raises(ValueError):
-        k8.ell_product(top.nbr32, w_tbl, V, c=c)
+        _k8(top, w_tbl, V, c=c)
