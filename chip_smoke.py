@@ -143,7 +143,17 @@ its wall time printed:
      256)): float32 within 1e-5 and float64 within 1e-12 relative in norm,
      two calls bitwise equal; device, call and plain times, bound and
      library time, each wrapper's launch floor (launch_floors: its
-     smallest launch);
+     smallest launch); and the Frank-Wolfe step's K9 fw_oracle and K10
+     fw_update (fw_kernels: city10000's m 10688, k 5344 in float32 and
+     float64 and the n = 100000 expander's m 50000, k 12500; K9 also at
+     k = 1 and m - 1, with g = 0 ties across the threshold, the threshold
+     inside a run of equal values and NaN entries; K10 from the start
+     point and a random x, before and on the tail average, the gap stop
+     off and fired): g, s, x, the tail average, the weights, the counters
+     and the stop flag bitwise the plain version's, u and ||g|| within
+     FW_TOL, two calls bitwise, a replayed CUDA graph of the pair bitwise
+     the eager pair; device, call and plain times, bound, K9's yardstick
+     torch.topk with scatter_;
   4. the banded path: read data/city10000.g2o, NaiveGreedy x_init, build
      MAC(..., device="cuda"), one cold and three warm solves at K = 50% of
      the loop closures; K2, K3b, K4 and the CG step's K5, K6, K1p (its
@@ -153,8 +163,12 @@ its wall time printed:
      the reference optimum 0.06944591018149751 and print as CITY_GAP_DIGITS
      (every kernel on the path is deterministic, so the gap cannot move
      unless the arithmetic does), and the rounded selection must hold
-     exactly K edges; from here to phase 10 no plain chain factor, and
-     no plain form of the CG step (CG_PLAINS), may be handed a CUDA
+     exactly K edges; K9 and K10 launched (the Frank-Wolfe loop's
+     bookkeeping on the device); then the same solve once with the loop
+     on the host (PlainFW, plain_fw_check): rounded selection, x, upper
+     bound and iteration counts bitwise, no K9 or K10 launch; from here to
+     phase 10 no plain chain factor, and no plain form of the CG step
+     (CG_PLAINS) or of K9 and K10 (FW_PLAINS), may be handed a CUDA
      tensor;
   4b. MAC(fixed, cands, n, fiedler_block_q=11) on city10000 (the
      slice's path at full width: K4w on the 33 x 33 Rayleigh-Ritz
@@ -177,7 +191,8 @@ its wall time printed:
      V-cycle's chain solve is K1p's); every output finite; exactly K
      edges rounded; the relaxed lambda_2 at or above the reference
      library's 0.025668825678050997 (1 - 1e-3); the upper bound at or
-     above it (1 - 1e-6).
+     above it (1 - 1e-6); K9 and K10 launched, and the warm solve once
+     more with the loop on the host, bitwise (plain_fw_check).
   6. the bundled datasets with scripts/bench_all.py's protocol: for each
      of intel, kitti_05, kitti_02, sphere2500 and ais2klinik, K = 50% of
      the loop closures, x_init from NaiveGreedy, MAC(fixed, cands, n) with
@@ -294,39 +309,54 @@ its wall time printed:
      the scipy referee; data/intel.g2o through the native parser and with
      MAC_TPU_NO_NATIVE=1, equal measurements; no plain version on the
      card.
- 13. the eigensolver's single solve on the card four ways
-     (mac_tpu_torch.ops.graphs, SolvePath, PlainCG): "graph" (each
-     Frank-Wolfe step's set-up and TRACEMIN's outer iteration replayed as
-     CUDA graphs), "inner" (only the inner CG steps replayed: the path
-     before the set-up and the outer iteration were captured), "eager" (no
-     graph) and "plain-cg" (replayed, with the CG step as PyTorch ops: the
-     step before K5, K6, K1p, K7 and K8; its turns bitwise each other,
-     held to the quality gate, no kernel of the CG step launched): warm
-     solves of city10000, city10000 at fiedler_block_q=11 (phase 4b's
-     solver: K4w replayed), sphere2500, the n = 100000 expander (K =
-     12500, max_iters=10) and phase 10b's banded float64 city10000
-     (max_iters=20) in turns eager, inner, plain-cg, graph, graph,
-     plain-cg, inner, eager;
+ 13. the eigensolver's single solve and the Frank-Wolfe loop on the card
+     five ways (mac_tpu_torch.ops.graphs, SolvePath, PlainFW, PlainCG):
+     "graph" (the loop's bookkeeping on the device, K9 and K10, its stop
+     flag read with the next step's set-up; each step's set-up and
+     TRACEMIN's outer iteration replayed as CUDA graphs over the route's
+     static state, ops.graphs.StepSolves), "plain-fw" (the same graphs,
+     the loop on the host: MAC._fw_host, the path before K9 and K10),
+     "inner" (the host loop, only the inner CG steps replayed: the path
+     before the set-up and the outer iteration were captured), "eager"
+     (the host loop, no graph) and "plain-cg" (the device loop, with the
+     CG step as PyTorch ops: the step before K5, K6, K1p, K7 and K8; its
+     turns bitwise each other, held to the quality gate, no kernel of the
+     CG step launched): warm solves of city10000, city10000 at
+     fiedler_block_q=11 (phase 4b's solver: K4w replayed), sphere2500,
+     the n = 100000 expander (K = 12500, max_iters=10) and phase 10b's
+     banded float64 city10000 (max_iters=20) in turns eager, inner,
+     plain-fw, plain-cg, graph, graph, plain-cg, plain-fw, inner, eager;
      each turn's wall,
-     relaxed lambda_2, upper bound, captures, replays, set-up redos and
-     K1 / K1b / K4 launches (K4 by body); every turn's unrounded x, rounded
-     selection and upper bound bitwise the first's, no capture in a warm
-     solve, equal launches of every kernel by dtype and of K4 by body in
-     every turn, K4 launched (K4w at q = 11), no call of
+     relaxed lambda_2, upper bound, FW and Fiedler iterations, captures,
+     replays, set-up redos, discarded set-ups, K1 / K1b / K4 launches (K4
+     by body) and K9 / K10's; every turn's unrounded x, rounded selection,
+     iterations and upper bound bitwise the first's (in float64 the device
+     loop's bound within 1e-12 relative), K9 and K10 once a step in the
+     device loop's turns and never in the host loop's, no capture in a
+     warm solve, equal launches of every kernel by dtype and of K4 by body
+     in every turn, K4 launched (K4w at q = 11), no call of
      torch.linalg.eigh; the case's quality gate (city10000 relaxed gap
      >= -1e-4, at q = 11 >= -1e-3; sphere2500 >= -1e-3; n = 100000
      evaluate_objective >= the
      reference (1 - 1e-3); the banded float64 city10000 within 1e-9
      relative of the reference), exactly K rounded and upper >= relaxed;
-     then one profiled warm solve each way (device busy, kernels, idle
-     share, launch calls on the host: at most 3000 on city10000 and 1500
-     at n = 100000 replayed; one CG step alone, step_kernels: the
+     then one profiled warm solve each way (device busy, kernels, idle share, launch calls on the host: at most 700 on
+     city10000 and 300 at n = 100000 in the device loop's turn, and the
+     host reads of the loops and graphed_solve, graphs.host_reads; one
+     CG step alone, step_kernels: the
      kernel nodes of a captured 6-step inner solve less a 5-step one, of STEP_KERNELS device kernels on city10000 and
      ELL_STEP_KERNELS at n = 100000); then one step of each cell again
      with its
      guard forced (banded: a NaN carried coarse inverse; ELL: the coarse
      level's singular flag raised): one eager redo, bitwise the eager
-     solve.
+     solve; and the device loop with every set-up's guard forced
+     (device_loop_guard): one redo a step, bitwise. Then a forced early stop
+     on each route (forced_stops: sphere2500 at max_iters=12, the
+     n = 100000 expander at 10, the banded float64 city10000 at 20, the
+     first gap tolerance of FORCED_STOP_TOLS that stops the host loop
+     early): host loop, device loop, device loop, host loop; the same
+     step count and bitwise results, one discarded set-up in the device
+     loop's turns and launches equal once its launches are taken off.
 Phases 4 and 5 also print the graphs their cold solve captured (capture
 seconds, pool and static bytes) and fail if a warm solve captured one; no
 single solve of a graphed route runs without its graphs on the card in
@@ -417,7 +447,7 @@ F64_FACTOR_RTOL = 1e-13
 CITY_GAP_DIGITS = "+1.290e-03"
 CITY_GAP_FLOOR = -1e-4
 # Phase 13: host launch calls a profiled warm solve may make, replayed.
-HOST_LAUNCH_CAPS = {"city10000": 3000, "n = 100000": 1500}
+HOST_LAUNCH_CAPS = {"city10000": 700, "n = 100000": 300}
 # Phase 13: device kernels one replayed CG step of city10000 runs: K5's
 # inner form and K6's first pass; the V-cycle's K1p, K5 residual, K7
 # (K7_LAUNCHES launches a call), K5 residual and K1p adding; K6's second
@@ -594,8 +624,8 @@ class PlainOnCard:
         import torch
 
         from mac_tpu_torch.ops import banded, cg, graphs, twogrid
-        from mac_tpu_torch.ops.kernels import (assemble, ell, ldl, pcg, syev,
-                                               tridiag)
+        from mac_tpu_torch.ops.kernels import (assemble, ell, fw, ldl, pcg,
+                                               syev, tridiag)
         from mac_tpu_torch.ops.kernels import banded as kb
 
         self.calls = {}
@@ -611,7 +641,8 @@ class PlainOnCard:
             (pcg, "col_sums_plain"), (pcg, "cg_update_plain"),
             (pcg, "cg_direction_plain"), (pcg, "cg_direction_dots_plain"),
             (cg, "pcg_fixed_plain"),
-            (banded.VCycle, "plain"), (twogrid.EllVCycle, "plain"))
+            (banded.VCycle, "plain"), (twogrid.EllVCycle, "plain"),
+            (fw, FW_PLAINS[0]), (fw, FW_PLAINS[1]))
             if self.names is None or name in self.names]
         for mod, name, real in self.saved:
             def counted(*args, _real=real, _name=name, **kw):
@@ -737,8 +768,10 @@ class SolvePath:
     "eager" (graphs.plain_solve: the build and TRACEMIN's loop with no
     graph, K4 included) or "inner" (graphs.inner_replayed_solve: only the
     inner CG steps replayed, the form before the set-up and the outer
-    iteration were captured); `calls` counts the solves so run. No knob
-    selects them."""
+    iteration were captured); `calls` counts the solves so run. MAC's
+    Frank-Wolfe loop runs on the host meanwhile (PlainFW): its device loop
+    solves through the graphs' per-step interface, which these paths
+    predate. No knob selects them."""
 
     def __init__(self, kind: str):
         self.kind = kind
@@ -755,10 +788,12 @@ class SolvePath:
             return path(*args, **kw)
 
         graphs.graphed_solve = run
+        self.loop = PlainFW().__enter__()
         return self
 
     def __exit__(self, *exc):
         self.mod.graphed_solve = self.saved
+        self.loop.__exit__(*exc)
         return False
 
 
@@ -793,8 +828,8 @@ class EighCalls:
         return False
 
 
-GRAPH_FIELDS = ("captures", "replays", "redos", "capture_s", "pool_bytes",
-                "static_bytes")
+GRAPH_FIELDS = ("captures", "replays", "redos", "discards", "capture_s",
+                "pool_bytes", "static_bytes")
 
 
 def graph_stats(op):
@@ -2071,6 +2106,294 @@ def cg_kernels(dev, card, bop, w, bop_sp, w_sp, ell=None):
                              replaces="mac_tpu/ops/laplacian.py:169 "
                                       "(_ell_apply; not Pallas)")
     return out
+
+
+# Phase 3f: K9 and K10 (csrc/fw.cu) against their plain versions: g, s, x,
+# the tail average, the weights, the counters and the stop flag bitwise; u
+# and ||g|| within these relative tolerances by dtype (the plain version's
+# are cuBLAS's dot and PyTorch's norm, the kernel's its own sums in double).
+FW_TOL = {"float32": 1e-6, "float64": 1e-14}
+FW_PLAINS = ("fw_oracle_plain", "fw_update_plain")
+
+
+def fw_kernels(dev, card, cands, synth):
+    """Phase 3f for K9 (fw_oracle) and K10 (fw_update): at city10000's
+    shape (m 10688 candidates with their endpoints, k 5344, a random Ritz
+    block (10000, 4)) in float32 and float64 and at the n = 100000
+    expander's (m 50000, k 12500; `synth` its instance) in float32: K9 at
+    k = m / 2, 1 and m - 1, with half the nodes at one value of v (g = 0
+    ties across the threshold), with v in {0, 1, 2} and unit weights (the
+    threshold inside a run of equal values) and with NaN nodes (against
+    the plain version on the card and on a CPU copy); K10 from K9's g and
+    s at the start point k / m and at a random feasible x, the stop test
+    off and fired, before the tail average and on it (counts 2 and 5), its
+    ||g|| output read. Each: two calls bitwise, the plain version bitwise
+    (u and ||g|| within FW_TOL), and a CUDA graph of the pair K9 then K10,
+    replayed, bitwise the eager pair. Then device, call and plain times at
+    each shape (K10 on the tail average's step), the bound (bytes: K9 v,
+    the endpoints, w_cand, g and s; K10 g, s, x, xavg, w_cand read, x, xavg,
+    w written) and K9's yardstick, torch.topk with scatter_ (device time;
+    its tie order is not the reference's, so it is timed only). Returns
+    {key: timing dict}."""
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels import fw as kfw
+
+    rng = np.random.RandomState(24)
+    ci = np.array([[e.i, e.j] for e in cands], dtype=np.int32)
+    shapes = {"city": (10000, ci, np.array([e.weight for e in cands]),
+                       len(cands) // 2),
+              "scale": (SCALE_N, synth[2].astype(np.int32), synth[3],
+                        len(synth[3]) // 4)}
+    out = {}
+
+    def state(m, dt, x):
+        return dict(x=torch.tensor(x, dtype=dt, device=dev),
+                    u=torch.tensor(float("inf"), dtype=dt, device=dev),
+                    xavg=torch.zeros(m, dtype=dt, device=dev),
+                    counters=torch.zeros(2, dtype=torch.int32, device=dev),
+                    done=torch.zeros((), dtype=torch.bool, device=dev),
+                    w=torch.zeros(m, dtype=dt, device=dev),
+                    norm=torch.zeros((), dtype=dt, device=dev))
+
+    def oracle_check(label, V, ends, wc, k, cpu_ref=False):
+        g, s = kfw.fw_oracle(V, ends, wc, k)
+        g2, s2 = kfw.fw_oracle(V, ends, wc, k)
+        if cpu_ref:
+            gp, sp = (t_.to(dev) for t_ in kfw.fw_oracle_plain(
+                V.cpu(), ends.cpu(), wc.cpu(), k))
+        else:
+            gp, sp = kfw.fw_oracle_plain(V, ends, wc, k)
+        def eq(a, b):  # bitwise, NaN equal to NaN
+            return (torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0)))
+
+        same = (eq(g, gp) and torch.equal(s, sp) and eq(g, g2)
+                and torch.equal(s, s2) and int(s.sum()) == k)
+        print(f"3f K9 {label} {V.dtype} (m {len(wc)}, k {k}): g and s "
+              f"{'bitwise' if same else 'NOT bitwise'} the plain version's"
+              f"{' (on a CPU copy)' if cpu_ref else ''}, two calls "
+              f"bitwise, {int(s.sum())} selected ({card})", flush=True)
+        if not same:
+            fail(f"3f K9 {label}: not bitwise its plain version or not "
+                 f"repeatable: {int((s != sp).sum())} selections differ")
+        return g, s
+
+    def update_check(label, f, g, s, x, wc, k, *, gap_tol, tail_from,
+                     it, cnt):
+        dt = g.dtype
+        m = len(g)
+        got = []
+        for fn in (kfw.fw_update, kfw.fw_update, kfw.fw_update_plain):
+            st = state(m, dt, x)
+            st["counters"].copy_(torch.tensor([it, cnt], dtype=torch.int32))
+            st["xavg"].copy_(st["x"].flip(0))
+            fn(f, g, s, st["x"], st["u"], st["xavg"], st["counters"],
+               st["done"], st["w"], wc, grad_norm_tol=1e-8,
+               gap_tol=gap_tol, tail_from=tail_from, mask_tol=1e-10,
+               norm=st["norm"])
+            got.append(st)
+        a, b, p = got
+        exact = ("x", "xavg", "w", "counters", "done")
+        same = all(torch.equal(a[n_], p[n_]) for n_ in exact)
+        repeat = all(torch.equal(a[n_], b[n_]) for n_ in a)
+        rel = {n_: abs(float(a[n_]) - float(p[n_])) / abs(float(p[n_]))
+               for n_ in ("u", "norm")}
+        tol = FW_TOL[str(dt).split(".")[-1]]
+        if bool(a["done"]) != (gap_tol > 1.0):
+            fail(f"3f K10 {label}: the gap stop did not fire as set up")
+        print(f"3f K10 {label} {dt} (m {m}): x, xavg, w, counters "
+              f"{a['counters'].tolist()} and done {bool(a['done'])} "
+              f"{'bitwise' if same else 'NOT bitwise'} the plain "
+              f"version's, two calls {'bitwise' if repeat else 'differ'}; "
+              f"u relative {rel['u']:.3e}, ||g|| relative "
+              f"{rel['norm']:.3e} (within {tol}) ({card})", flush=True)
+        if not (same and repeat and max(rel.values()) <= tol):
+            fail(f"3f K10 {label}: not bitwise its plain version, not "
+                 f"repeatable, or u / ||g|| off: {rel}")
+        return max(abs(float(a[n_]) - float(p[n_])) for n_ in ("u", "norm"))
+
+    def graph_check(label, V, ends, wc, k, x, f):
+        """K9 then K10 captured in a CUDA graph over static tensors,
+        replayed once from the same state as an eager pair: bitwise."""
+        dt = V.dtype
+        m = len(wc)
+        res = {}
+        for way in ("eager", "graph"):
+            st = state(m, dt, x)
+            st["counters"].copy_(torch.tensor([20, 3], dtype=torch.int32))
+
+            def pair():
+                g_, s_ = kfw.fw_oracle(V, ends, wc, k)
+                kfw.fw_update(f, g_, s_, st["x"], st["u"], st["xavg"],
+                              st["counters"], st["done"], st["w"], wc,
+                              grad_norm_tol=1e-8, gap_tol=0.0, tail_from=16,
+                              mask_tol=1e-10)
+                return g_, s_
+
+            if way == "eager":
+                g_, s_ = pair()
+            else:
+                saved = {n_: v.clone() for n_, v in st.items()}
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    g_, s_ = pair()
+                for n_, v in saved.items():
+                    st[n_].copy_(v)
+                graph.replay()
+            torch.cuda.synchronize()
+            res[way] = dict(st, g=g_.clone(), s=s_.clone())
+        same = all(torch.equal(res["eager"][n_], res["graph"][n_])
+                   for n_ in res["eager"])
+        print(f"3f K9 + K10 {label} {dt}: a replayed graph of the pair "
+              f"{'bitwise' if same else 'NOT bitwise'} the eager pair "
+              f"({card})", flush=True)
+        if not same:
+            fail(f"3f K9 + K10 {label}: the replayed pair differs")
+
+    for key, dt in (("city", torch.float32), ("city", torch.float64),
+                    ("scale", torch.float32)):
+        n, ends_np, wc_np, k = shapes[key]
+        m = len(wc_np)
+        ends = torch.as_tensor(ends_np, device=dev).contiguous()
+        wc = torch.as_tensor(wc_np, dtype=dt, device=dev)
+        V = torch.as_tensor(rng.normal(size=(n, 4)), dtype=dt, device=dev)
+        tag = f"{key} {str(dt).split('.')[-1]}"
+        g, s = oracle_check(f"{tag} k = m / 2", V, ends, wc, k)
+        for kk in (1, m - 1):
+            oracle_check(f"{tag} k = {kk}", V, ends, wc, kk)
+        Vt = V.clone()
+        Vt[: n // 2, 0] = 0.25
+        zeros = int((Vt[ends[:, 0].long(), 0]
+                     == Vt[ends[:, 1].long(), 0]).sum())
+        gt, st_ = oracle_check(f"{tag} ties (g = 0 x {zeros})", Vt, ends, wc,
+                               m - zeros // 2)
+        if not 0 < int(st_[gt == 0].sum()) < zeros:
+            fail(f"3f K9 {tag}: the threshold does not fall inside the "
+                 f"zeros")
+        Vr = torch.as_tensor(rng.randint(0, 3, size=(n, 4)), dtype=dt,
+                             device=dev)
+        oracle_check(f"{tag} runs of equal g", Vr, ends, torch.ones_like(wc),
+                     k)
+        Vn = V.clone()
+        Vn[torch.as_tensor(rng.randint(0, n, 64), device=dev), 0] = \
+            float("nan")
+        oracle_check(f"{tag} NaN", Vn, ends, wc, k, cpu_ref=True)
+        oracle_check(f"{tag} NaN", Vn, ends, wc, k)
+        f = torch.tensor(0.07, dtype=dt, device=dev)
+        x0 = np.full(m, k / m)
+        xr = rng.rand(m)
+        xr *= k / xr.sum()
+        err = 0.0
+        for lab, x, gap_tol, tail_from, it, cnt in (
+                ("start point", x0, 0.0, None, 0, 0),
+                ("random x, tail average (count 2)", xr, 0.0, 16, 17, 1),
+                ("random x, tail average (count 5)", xr, 0.0, 16, 20, 4),
+                ("random x, gap stop", xr, 1e30, 16, 20, 4)):
+            err = max(err, update_check(f"{tag} {lab}", f, g, s, x, wc, k,
+                                        gap_tol=gap_tol, tail_from=tail_from,
+                                        it=it, cnt=cnt))
+        graph_check(tag, V, ends, wc, k, xr, f)
+        item = torch.finfo(dt).bits // 8
+        st = state(m, dt, xr)
+        st["counters"].copy_(torch.tensor([16, 0], dtype=torch.int32))
+
+        def k10():
+            kfw.fw_update(f, g, s, st["x"], st["u"], st["xavg"],
+                          st["counters"], st["done"], st["w"], wc,
+                          grad_norm_tol=1e-8, gap_tol=0.0, tail_from=16,
+                          mask_tol=1e-10)
+
+        def k10_plain():
+            kfw.fw_update_plain(f, g, s, st["x"], st["u"], st["xavg"],
+                                st["counters"], st["done"], st["w"], wc,
+                                grad_norm_tol=1e-8, gap_tol=0.0,
+                                tail_from=16, mask_tol=1e-10)
+
+        def topk():
+            return torch.zeros_like(g).scatter_(0, torch.topk(g, k).indices,
+                                                1.0)
+
+        k9_tm = {"device_ms": device_ms(lambda: kfw.fw_oracle(V, ends, wc,
+                                                               k)),
+                 "call_ms": call_ms(lambda: kfw.fw_oracle(V, ends, wc, k)),
+                 "plain_ms": call_ms(lambda: kfw.fw_oracle_plain(V, ends, wc,
+                                                                 k)),
+                 "library_ms": device_ms(topk, reps=20),
+                 "max_abs_err": 0.0,
+                 "shape": f"V ({n}, 4), m {m}, k {k}"}
+        k9_tm["bound_ms"], k9_tm["bound_by"] = bound(
+            n * item + m * 8 + 3 * m * item, 4 * m, item)
+        k10_tm = {"device_ms": device_ms(k10), "call_ms": call_ms(k10),
+                  "plain_ms": call_ms(k10_plain), "library_ms": None,
+                  "max_abs_err": err, "shape": f"m {m}, the tail average's "
+                                               f"step"}
+        k10_tm["bound_ms"], k10_tm["bound_by"] = bound(8 * m * item, 12 * m,
+                                                       item)
+        for name_, tm in (("K9", k9_tm), ("K10", k10_tm)):
+            print(f"3f {name_} {tag} ({tm['shape']}): kernel device "
+                  f"{tm['device_ms']:.5f} ms, call {tm['call_ms']:.4f} ms, "
+                  f"plain call {tm['plain_ms']:.4f} ms, library "
+                  f"{tm['library_ms']}, bound {tm['bound_ms']:.5f} ms "
+                  f"({tm['bound_by']}) ({card})", flush=True)
+            out[f"{name_} {tag}"] = dict(tm, dtype=str(dt).split(".")[-1])
+    return out
+
+
+def plain_fw_check(card, label, mac, solve, got, kernels):
+    """The solve once more with the Frank-Wolfe loop on the host (PlainFW,
+    "plain-fw"): its rounded selection, unrounded x, upper bound (float32:
+    the float64 certificate, a function of x and the Ritz block; float64:
+    the loop's own bound, within 1e-12 relative) and step and Fiedler
+    iteration counts against `got`, the last solve's through the device
+    loop (whose stats mac.last_solve_stats holds), and K9 and K10 (the
+    `kernels`) not launched by it."""
+    import numpy as np
+
+    stats = dict(mac.last_solve_stats)
+    before = [kern.launches for kern in kernels]
+    with PlainFW():
+        ref = solve()
+    ref_stats = dict(mac.last_solve_stats)
+    same = (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+            and all(stats[key] == ref_stats[key]
+                    for key in ("fw_iterations", "fiedler_iterations")))
+    f64 = str(mac.dtype).endswith("float64")
+    upper_ok = (got[2] == ref[2] if not f64
+                else abs(got[2] - ref[2]) <= 1e-12 * abs(ref[2]))
+    extra = [kern.launches - b for kern, b in zip(kernels, before)]
+    print(f"{label} plain-fw (the host loop): rounded selection and x "
+          f"{'bitwise' if same else 'NOT bitwise'} the device loop's, "
+          f"upper {ref[2]!r} against {got[2]!r} ("
+          f"{'bitwise' if got[2] == ref[2] else 'within 1e-12' if upper_ok else 'OFF'}"
+          f"), FW iterations {ref_stats['fw_iterations']} / "
+          f"{stats['fw_iterations']}, Fiedler iterations "
+          f"{ref_stats['fiedler_iterations']} / "
+          f"{stats['fiedler_iterations']}; K9, K10 launched by it {extra} "
+          f"({card})", flush=True)
+    if not (same and upper_ok) or any(extra):
+        fail(f"{label}: the device loop is not the host loop's solve, or "
+             f"the host loop launched K9 / K10")
+
+
+class PlainFW:
+    """While active, MAC's Frank-Wolfe loop runs on the host (MAC._fw_host:
+    the loop's bookkeeping as PyTorch ops, the stop test read every step),
+    as before kernels K9 and K10, for a comparison run ("plain-fw"). No
+    knob selects it."""
+
+    def __enter__(self):
+        from mac_tpu_torch.solvers.mac import MAC
+
+        self.cls, self.saved = MAC, MAC.__dict__["_fw_device"]
+        MAC._fw_device = MAC._fw_host
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._fw_device = self.saved
+        return False
 
 
 def launch_floors(dev, segment=True):
@@ -3807,13 +4130,15 @@ def factor_ab(card, cases, kernels):
 
 
 # Phase 13: the warm solves' turns: "eager" (no graph, SolvePath("eager")),
-# "inner" (the inner CG steps replayed, SolvePath("inner")), "graph" (the
-# set-up and the outer iteration replayed) and "plain-cg" (replayed as
-# "graph", with the CG step as PyTorch ops, PlainCG: as before K5, K6, K1p
-# and K7), interleaved.
-GRAPH_TURNS = ("eager", "inner", "plain-cg", "graph", "graph", "plain-cg",
-               "inner", "eager")
-PROFILE_TURNS = ("eager", "inner", "graph", "plain-cg")
+# "inner" (the inner CG steps replayed, SolvePath("inner")), "plain-fw" (the
+# set-up and the outer iteration replayed, the Frank-Wolfe loop on the host:
+# PlainFW, as before K9 and K10; these three run the host loop), "graph"
+# (the device loop over the replayed set-up and outer iteration, K9 and
+# K10) and "plain-cg" (as "graph", with the CG step as PyTorch ops, PlainCG:
+# as before K5, K6, K1p and K7), interleaved.
+GRAPH_TURNS = ("eager", "inner", "plain-fw", "plain-cg", "graph", "graph",
+               "plain-cg", "plain-fw", "inner", "eager")
+PROFILE_TURNS = ("eager", "inner", "plain-fw", "graph", "plain-cg")
 
 
 def device_items(fn):
@@ -3963,50 +4288,116 @@ def step_kernels(op, rounds: int = 3):
             statistics.median(ms[6]) - statistics.median(ms[5]))
 
 
-def graph_ab(card, cases, counted):
+def route_op(mac):
+    """The operator whose graph routes a MAC's single solves use."""
+    return mac._banded if mac._banded is not None else mac.op
+
+
+def discard_marks(op) -> dict:
+    """How many discarded set-ups each of op's routes has recorded."""
+    return {id(r): len(r.discard_launches) for r in op.graph_routes.values()}
+
+
+def discarded_by_dtype(op, marks) -> dict:
+    """{wrapper name: {dtype: launches}} of the set-ups op's routes
+    discarded since discard_marks gave `marks` (a stopped Frank-Wolfe
+    loop's next set-up, ops.graphs.StepSolves)."""
+    from mac_tpu_torch.ops import graphs
+
+    out = {}
+    for route in op.graph_routes.values():
+        for launches in route.discard_launches[marks.get(id(route), 0):]:
+            for wrapper, (_, _, dtypes, _) in zip(graphs.WRAPPERS, launches):
+                got = out.setdefault(wrapper.__name__, {})
+                for dt, v in dtypes.items():
+                    got[dt] = got.get(dt, 0) + v
+    return out
+
+
+def less(launches: dict, extra: dict) -> dict:
+    """launches ({wrapper: {dtype: n}}) less extra, zeros left out."""
+    out = {}
+    for kern, by in launches.items():
+        left = {dt: v - extra.get(kern, {}).get(dt, 0)
+                for dt, v in by.items()}
+        out[kern] = {dt: v for dt, v in left.items() if v}
+    return out
+
+
+def same_solve(got, want, f64: bool) -> bool:
+    """Rounded selection and x bitwise; the upper bound bitwise, or within
+    1e-12 relative in float64 (the loop's own bound, whose dot and norm the
+    device loop sums in its own order)."""
+    import numpy as np
+
+    upper = (got[2] == want[2] if not f64
+             else abs(got[2] - want[2]) <= 1e-12 * abs(want[2]))
+    return (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1]) and upper)
+
+
+# Phase 13: the turns whose Frank-Wolfe loop runs on the host (MAC._fw_host):
+# SolvePath's (eager, inner) and PlainFW's; the others run the device loop.
+HOST_LOOP_TURNS = ("eager", "inner", "plain-fw")
+
+
+def graph_ab(card, cases, counted, fw_kerns):
     """Phase 13: each case's warm solve in the turns GRAPH_TURNS in this
-    call. `cases` maps a name to (operator, solve() -> (rounded, unrounded,
+    call. `cases` maps a name to (MAC, solve() -> (rounded, unrounded,
     upper), lam(unrounded) -> relaxed lambda_2, K, quality(lambda_2) ->
-    (ok, text)); `counted` are the kernel wrappers. Per turn: the wall, the
-    relaxed lambda_2 (of the first turn's x, which every turn's equals;
-    the scipy referee's start vector is random, so it is read once), the
-    upper bound, the captures, replays and redos, the kernels' launches.
-    Gates: every turn's unrounded x, rounded selection and upper bound
-    bitwise the first turn's; no capture in a warm solve; no replay in an
-    eager turn; equal launches of every wrapper by dtype in every turn, K4
+    (ok, text)); `counted` are the kernel wrappers of the eigensolve,
+    `fw_kerns` K9 and K10's. Per turn: the wall, the relaxed lambda_2 (of
+    the first turn's x, which every turn's equals; the scipy referee's
+    start vector is random, so it is read once), the upper bound, the FW
+    and Fiedler iterations, the captures, replays, redos and discarded
+    set-ups, the kernels' launches. Gates: every turn's unrounded x and
+    rounded selection bitwise the first turn's (an "eager" one, the host
+    loop), its upper bound too (in float64 the device loop's within 1e-12
+    relative: same_solve), and its FW and Fiedler iterations equal; K9 and
+    K10 launched once a step in the device loop's turns ("graph",
+    "plain-cg"), never in the host loop's (HOST_LOOP_TURNS); no capture
+    in a warm solve; no replay in an eager turn; equal launches of every
+    wrapper by dtype in every turn (a discarded set-up's taken off), K4
     among them, and of K4 by body; K6 launched in every turn, and K5, K1p
     and K7 on the banded routes; no torch.linalg.eigh call; the case's
     quality gate, exactly K rounded and upper >= relaxed. The "plain-cg"
     turns (PlainCG) are held to each other instead (bitwise, the same
     launches, none of the CG step's kernels) and to the quality gate.
-    Then one profiled warm solve each way (device busy, kernels and
-    copies, idle share of its own wall, launch calls on the host, capped
-    by HOST_LAUNCH_CAPS replayed; for "graph" and "plain-cg" the kernels
-    and device ms of one replayed CG step, step_kernels), and
-    forced_guard.
+    Then one profiled warm solve each way of PROFILE_TURNS (device busy,
+    kernels and copies, idle share of its own wall, launch calls on the
+    host, capped by HOST_LAUNCH_CAPS in the device loop's "graph" turn,
+    and the host reads of the loops and graphed_solve, graphs.host_reads;
+    for "graph" and "plain-cg" the kernels and device ms of one replayed
+    CG step, step_kernels), forced_guard (the host loop's per-step
+    solves) and device_loop_guard (the device loop's).
     Returns {name: {turn: [walls], "profile": {turn: (wall, busy ms,
-    kernels, host launch calls, one CG step's kernels, its ms)},
-    "launches": {wrapper: {dtype: per solve}}, "bodies": K4's launches a
-    solve by body, "stats": graph_stats}}."""
+    kernels, host launch calls, one CG step's kernels, its ms, host
+    reads)}, "launches": {wrapper: {dtype: per solve}}, "bodies": K4's
+    launches a solve by body, "stats": graph_stats}}."""
     from contextlib import nullcontext
 
     import numpy as np
     import torch
 
+    from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.kernels.tridiag import reset_counts
 
     def turn_ctx(turn):
         if turn == "plain-cg":
             return PlainCG()
+        if turn == "plain-fw":
+            return PlainFW()
         return SolvePath(turn) if turn != "graph" else nullcontext()
 
     out = {}
-    for name, (op, solve, lam_of, k, quality) in cases.items():
-        res = out[name] = {"eager": [], "inner": [], "graph": [],
-                           "plain-cg": []}
-        # The inner-only path's and the plain CG step's graphs are no main
+    for name, (mac, solve, lam_of, k, quality) in cases.items():
+        op = route_op(mac)
+        f64 = str(mac.dtype).endswith("float64")
+        res = out[name] = {turn: [] for turn in GRAPH_TURNS}
+        # The inner-only path's, the plain CG step's and the host loop's
+        # graphs (its set-ups do not chain the Ritz block) are no main
         # path's: capture them in one untimed solve each first.
-        for turn in ("inner", "plain-cg"):
+        for turn in ("inner", "plain-cg", "plain-fw"):
             s0 = graph_stats(op)
             with turn_ctx(turn):
                 solve()
@@ -4015,17 +4406,24 @@ def graph_ab(card, cases, counted):
                   flush=True)
         first, seen, plain_first, plain_seen = None, set(), None, set()
         for turn in GRAPH_TURNS:
-            reset_counts(*counted)
-            s0 = graph_stats(op)
+            reset_counts(*counted, *fw_kerns)
+            s0, marks = graph_stats(op), discard_marks(op)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with turn_ctx(turn), EighCalls() as eigh:
                 got = solve()
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            stats = dict(mac.last_solve_stats)
+            iters = (stats["fw_iterations"], stats["fiedler_iterations"])
             s1 = graph_stats(op)
-            d = {f: s1[f] - s0[f] for f in ("captures", "replays", "redos")}
-            launches = by_dtype(counted)
+            d = {f: s1[f] - s0[f] for f in ("captures", "replays", "redos",
+                                            "discards")}
+            disc = discarded_by_dtype(op, marks)
+            launches = less(by_dtype(counted), disc)
+            fw = [kern.launches for kern in fw_kerns]
+            fw_ok = (fw == [0, 0] if turn in HOST_LOOP_TURNS
+                     else fw == [iters[0]] * 2)
             bodies = dict(next(kern for kern in counted if kern.__name__
                                == "sym_eig").launches_by_body)
             res[turn].append(wall)
@@ -4033,55 +4431,60 @@ def graph_ab(card, cases, counted):
                 # The plain CG step rounds otherwise: its turns are held to
                 # each other, and to the quality gate below.
                 if plain_first is None:
-                    plain_first, plain_lam = got, lam_of(got[1])
-                same = (np.array_equal(got[0], plain_first[0])
-                        and np.array_equal(got[1], plain_first[1])
-                        and got[2] == plain_first[2])
+                    plain_first, plain_lam = (got, iters), lam_of(got[1])
+                same = (same_solve(got, plain_first[0], False)
+                        and iters == plain_first[1])
                 short = {kern: sum(v.values()) for kern, v in launches.items()}
                 print(f"13 {name} plain-cg: warm solve {wall:.4f} s, relaxed "
-                      f"lambda_2 {plain_lam:.17g} (x, rounded selection and "
-                      f"upper bound {'bitwise' if same else 'NOT bitwise'} "
-                      f"the first plain-cg turn's), upper {got[2]:.17g}, "
-                      f"rounded {int(got[0].sum())}; captures "
-                      f"{d['captures']}, replays {d['replays']}; launches "
-                      f"{short} ({card})", flush=True)
+                      f"lambda_2 {plain_lam:.17g} (x, rounded selection, "
+                      f"upper bound and iterations "
+                      f"{'bitwise' if same else 'NOT bitwise'} the first "
+                      f"plain-cg turn's), upper {got[2]:.17g}, rounded "
+                      f"{int(got[0].sum())}, FW / Fiedler iterations "
+                      f"{iters}; captures {d['captures']}, replays "
+                      f"{d['replays']}, discards {d['discards']}; K9, K10 "
+                      f"{fw}; launches {short} ({card})", flush=True)
                 if not same or d["captures"] or not d["replays"] or \
-                        any(short[kern] for kern in set(CG_KERNELS)
+                        not fw_ok or any(
+                            short[kern] for kern in set(CG_KERNELS)
                             | set(ELL_CG_KERNELS)):
                     fail(f"13 {name} plain-cg: not bitwise the first "
-                         f"plain-cg turn, a capture, no replay, or a kernel "
-                         f"of the CG step launched: {d}, {short}")
+                         f"plain-cg turn, a capture, no replay, K9 / K10 "
+                         f"not once a step, or a kernel of the CG step "
+                         f"launched: {d}, {fw}, {short}")
                 plain_seen.add(tuple(sorted(
                     (kern, tuple(sorted(v.items())))
                     for kern, v in launches.items())))
                 continue
             if first is None:
-                first, lam = got, lam_of(got[1])
-            same = (np.array_equal(got[0], first[0])
-                    and np.array_equal(got[1], first[1])
-                    and got[2] == first[2])
+                first, lam = (got, iters), lam_of(got[1])
+            same = (same_solve(got, first[0],
+                               f64 and turn not in HOST_LOOP_TURNS)
+                    and iters == first[1])
             short = {kern: sum(v.values()) for kern, v in launches.items()}
             print(f"13 {name} {turn}: warm solve {wall:.4f} s, relaxed "
-                  f"lambda_2 {lam:.17g} (x, rounded selection and upper "
-                  f"bound {'bitwise' if same else 'NOT bitwise'} the first "
-                  f"turn's), upper {got[2]:.17g}, rounded "
-                  f"{int(got[0].sum())}; captures {d['captures']}, replays "
-                  f"{d['replays']}, redos {d['redos']}; K1 "
+                  f"lambda_2 {lam:.17g} (x, rounded selection, upper bound "
+                  f"and iterations {'bitwise' if same else 'NOT bitwise'} "
+                  f"the first turn's), upper {got[2]:.17g}, rounded "
+                  f"{int(got[0].sum())}, FW / Fiedler iterations {iters}; "
+                  f"captures {d['captures']}, replays {d['replays']}, redos "
+                  f"{d['redos']}, discards {d['discards']}; K1 "
                   f"{short['tridiag_solve']}, K1b "
                   f"{short['tridiag_solve_blocked']}, K4 "
-                  f"{short['sym_eig']} (by body {bodies}); eigh calls "
-                  f"{eigh.calls} ({card})", flush=True)
+                  f"{short['sym_eig']} (by body {bodies}), K9, K10 {fw}; "
+                  f"eigh calls {eigh.calls} ({card})", flush=True)
             if not same:
                 fail(f"13 {name} {turn}: the solve is not bitwise the first "
                      f"turn's (max |x - x_first| "
-                     f"{np.abs(got[1] - first[1]).max():.3e}, relaxed "
+                     f"{np.abs(got[1] - first[0][1]).max():.3e}, relaxed "
                      f"lambda_2 {lam_of(got[1])!r} against {lam!r}, upper "
-                     f"{got[2]!r} against {first[2]!r})")
+                     f"{got[2]!r} against {first[0][2]!r}, iterations "
+                     f"{iters} against {first[1]})")
             if (d["captures"] or (turn == "eager" and d["replays"])
                     or (turn != "eager" and not d["replays"])
-                    or eigh.calls or short["sym_eig"] <= 0):
+                    or eigh.calls or short["sym_eig"] <= 0 or not fw_ok):
                 fail(f"13 {name} {turn}: {d}, eigh calls {eigh.calls}, K4 "
-                     f"launches {short['sym_eig']}")
+                     f"launches {short['sym_eig']}, K9 / K10 {fw}")
             # The CG step's kernels: K6, K1p and K7 on every route, K5 on
             # the banded one, K8 on the matrix-free one.
             cg_want = (CG_KERNELS if hasattr(op, "ueid_tbl")
@@ -4102,21 +4505,24 @@ def graph_ab(card, cases, counted):
         res["launches"], res["bodies"] = launches, bodies
         res["stats"] = graph_stats(op)
         ok, text = quality(lam)
-        rounded_ok = int(first[0].sum()) == k
-        bound_ok = first[2] >= lam * (1 - 1e-6)
-        print(f"13 {name}: {text}; rounded {int(first[0].sum())} of K "
-              f"{k}; upper {first[2]:.12g} >= relaxed {lam:.12g}: "
+        got0 = first[0]
+        rounded_ok = int(got0[0].sum()) == k
+        bound_ok = got0[2] >= lam * (1 - 1e-6)
+        print(f"13 {name}: {text}; rounded {int(got0[0].sum())} of K "
+              f"{k}; upper {got0[2]:.12g} >= relaxed {lam:.12g}: "
               f"{bound_ok}", flush=True)
         if not (ok and rounded_ok and bound_ok):
             fail(f"13 {name}: quality gate: {text}, rounded "
-                 f"{int(first[0].sum())} (K {k}), upper {first[2]!r}")
+                 f"{int(got0[0].sum())} (K {k}), upper {got0[2]!r}")
         print(f"13 {name}: " + ", ".join(
             f"{turn} {[round(t, 4) for t in res[turn]]} s"
-            for turn in ("eager", "inner", "graph", "plain-cg")) +
-            f"; mean graph / inner {sum(res['graph']) / sum(res['inner']):.3f},"
-            f" graph / eager {sum(res['graph']) / sum(res['eager']):.3f}; "
-            f"launches a solve {launches}; graphs on this operator since "
-            f"its first solve: {res['stats']} ({card})", flush=True)
+            for turn in ("eager", "inner", "plain-fw", "graph", "plain-cg"))
+            + f"; mean graph / plain-fw "
+            f"{sum(res['graph']) / sum(res['plain-fw']):.3f}, graph / inner "
+            f"{sum(res['graph']) / sum(res['inner']):.3f}, graph / eager "
+            f"{sum(res['graph']) / sum(res['eager']):.3f}; launches a solve "
+            f"{launches}; graphs on this operator since its first solve: "
+            f"{res['stats']} ({card})", flush=True)
         res["profile"] = {}
         for turn in PROFILE_TURNS:
             walls = []
@@ -4129,19 +4535,22 @@ def graph_ab(card, cases, counted):
 
             host = {}
             with turn_ctx(turn):
+                reads0 = graphs.host_reads
                 busy, kernels_n, top = profiled_busy(timed, host)
+                reads = graphs.host_reads - reads0
             calls = sum(host.values())
             with turn_ctx(turn):
                 per_step = (step_kernels(op) if turn in ("graph", "plain-cg")
                             else (None, None))
             res["profile"][turn] = (walls[0], busy, kernels_n, calls,
-                                    per_step[0], per_step[1])
+                                    per_step[0], per_step[1], reads)
             print(f"13 {name} {turn}, one profiled warm solve: wall "
                   f"{walls[0]:.4f} s, device busy {busy:.3f} ms over "
                   f"{kernels_n} kernels and copies, idle share "
                   f"{1 - busy / 1e3 / walls[0]:.3f}; launch calls on the "
-                  f"host {calls} {host}; one CG step (6 less 5 replayed) "
-                  f"{per_step[0]} kernels, {per_step[1]} ms; largest "
+                  f"host {calls} {host}; host reads {reads}; one CG step (6 "
+                  f"less 5 replayed) {per_step[0]} kernels, {per_step[1]} "
+                  f"ms; largest "
                   f"{[(round(ms, 3), c, nm) for ms, c, nm in top]} ({card})",
                   flush=True)
             cap = HOST_LAUNCH_CAPS.get(name)
@@ -4149,6 +4558,161 @@ def graph_ab(card, cases, counted):
                 fail(f"13 {name}: {calls} launch calls on the host in a "
                      f"replayed warm solve, more than {cap}")
         forced_guard(card, name, op, solve)
+        device_loop_guard(card, name, mac, solve, first[0], f64)
+    return out
+
+
+def device_loop_guard(card, name, mac, solve, want, f64):
+    """The case's warm solve through the device loop with the guard of
+    every step's set-up forced (on fresh routes of the operator, whose
+    set-up graphs are captured with a flag "forced" raised; the routes
+    are put back after): each step's set-up is run again eagerly from the
+    copy of the carried state it saved (ops.graphs._solve_static), so the
+    solve is bitwise `want` (the first turn's; same_solve) with one redo
+    a step."""
+    import torch
+
+    from mac_tpu_torch.ops import graphs
+
+    op = route_op(mac)
+    saved, real_cached = dict(op.graph_routes), graphs._cached
+
+    def forced_cached(op_, key, make):
+        def make_forced():
+            route = make()
+            prepare = route.prepare
+
+            def forced(s, branch, guards):
+                out = prepare(s, branch, guards)
+                if guards is not None:
+                    guards["forced"] = torch.ones((), dtype=torch.bool,
+                                                  device=s["w"].device)
+                return out
+
+            route.prepare = forced
+            return route
+
+        return real_cached(op_, key, make_forced)
+
+    op.graph_routes.clear()
+    graphs._cached = forced_cached
+    try:
+        got = solve()
+        torch.cuda.synchronize()
+        steps = mac.last_solve_stats["fw_iterations"]
+        redos = sum(r.redos for r in op.graph_routes.values())
+    finally:
+        graphs._cached = real_cached
+        op.graph_routes.clear()
+        op.graph_routes.update(saved)
+    same = same_solve(got, want, f64)
+    print(f"13 {name} device loop with every set-up's guard forced: redos "
+          f"{redos} over {steps} FW steps, result "
+          f"{'bitwise' if same else 'NOT bitwise'} the first turn's "
+          f"({card})", flush=True)
+    if redos != steps or not same:
+        fail(f"13 {name}: the device loop's forced guards gave redos "
+             f"{redos} over {steps} steps, bitwise {same}")
+
+
+# Phase 13: the forced early stops' gap tolerances, tried in order until the
+# host loop stops before max_iters.
+FORCED_STOP_TOLS = (1e-2, 3e-2, 1e-1, 3e-1, 1.0)
+
+
+def forced_stops(card, cases, counted, fw_kerns):
+    """Phase 13: a Frank-Wolfe loop whose gap stop fires, on each route:
+    `cases` maps a name to (MAC, K, x_init, max_iters). The tolerance is
+    the first of FORCED_STOP_TOLS at which the host loop (PlainFW) stops
+    before max_iters. Then one device-loop solve (it captures what it
+    needs) and the turns plain-fw, device, device, plain-fw: the same step
+    count, below max_iters, and Fiedler iterations, x and the rounded
+    selection bitwise, the upper bound by same_solve; the device loop
+    discards exactly one set-up (the step after the stop, its flag read
+    with that set-up's) and launches K9 and K10 once a step, the host loop
+    neither; and every wrapper's launches by dtype equal to the host
+    loop's once the discarded set-up's launches are taken off (a set-up's
+    K2 or K3 and K4 ran once more). Returns {name: (tolerance, steps)}."""
+    from contextlib import nullcontext
+
+    import numpy as np
+    import torch
+
+    from mac_tpu_torch.ops.kernels.tridiag import reset_counts
+
+    out = {}
+    for name, (mac, k, x, maxiter) in cases.items():
+        op = route_op(mac)
+        f64 = str(mac.dtype).endswith("float64")
+
+        def solve(tol):
+            return mac.solve(k, x, max_iters=maxiter,
+                             relative_duality_gap_tol=tol, use_cache=True)
+
+        tol = None
+        for cand in FORCED_STOP_TOLS:
+            with PlainFW():
+                solve(cand)
+            if mac.last_solve_stats["fw_iterations"] < maxiter:
+                tol = cand
+                break
+        if tol is None:
+            fail(f"13 {name}: no gap tolerance of {FORCED_STOP_TOLS} stops "
+                 f"the loop before {maxiter} steps")
+        solve(tol)
+        turns = []
+        for turn in ("plain-fw", "device", "device", "plain-fw"):
+            reset_counts(*counted, *fw_kerns)
+            s0, marks = graph_stats(op), discard_marks(op)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with PlainFW() if turn == "plain-fw" else nullcontext():
+                got = solve(tol)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = dict(mac.last_solve_stats)
+            s1 = graph_stats(op)
+            disc = discarded_by_dtype(op, marks)
+            turns.append(dict(
+                turn=turn, got=got, wall=wall,
+                iters=(stats["fw_iterations"], stats["fiedler_iterations"]),
+                captures=s1["captures"] - s0["captures"],
+                discards=s1["discards"] - s0["discards"], disc=disc,
+                launches=less(by_dtype(counted), disc),
+                fw=[kern.launches for kern in fw_kerns]))
+        ref = turns[0]
+        bad = []
+        for tr in turns:
+            device = tr["turn"] == "device"
+            if not (same_solve(tr["got"], ref["got"], f64 and device)
+                    and tr["iters"] == ref["iters"]):
+                bad.append(f"{tr['turn']} not bitwise")
+            if tr["discards"] != (1 if device else 0) or tr["captures"]:
+                bad.append(f"{tr['turn']} discards {tr['discards']}, "
+                           f"captures {tr['captures']}")
+            if tr["fw"] != ([ref["iters"][0]] * 2 if device else [0, 0]):
+                bad.append(f"{tr['turn']} K9, K10 {tr['fw']}")
+            if tr["launches"] != ref["launches"]:
+                bad.append(f"{tr['turn']} launches {tr['launches']} against "
+                           f"{ref['launches']}")
+            if device and not tr["disc"].get("sym_eig"):
+                bad.append(f"the discarded set-up launched no K4: "
+                           f"{tr['disc']}")
+        steps = ref["iters"][0]
+        if steps >= maxiter:
+            bad.append(f"no stop: {steps} steps")
+        print(f"13 forced stop {name} (max_iters {maxiter}, gap tolerance "
+              f"{tol}): {steps} FW steps, Fiedler iterations "
+              f"{ref['iters'][1]} in every turn; walls "
+              f"{[(tr['turn'], round(tr['wall'], 4)) for tr in turns]} s; "
+              f"the device loop's discarded set-up launched "
+              f"{turns[1]['disc']}; upper {turns[1]['got'][2]!r} against "
+              f"the host loop's {ref['got'][2]!r}; max |x - x_host| "
+              f"{np.abs(turns[1]['got'][1] - ref['got'][1]).max():.3e} "
+              f"({card})", flush=True)
+        if bad:
+            fail(f"13 forced stop {name}: {bad}")
+        out[name] = (tol, steps)
     return out
 
 
@@ -4173,7 +4737,8 @@ def forced_guard(card, name, op, solve):
 
     graphs.graphed_solve = record
     try:
-        solve()
+        with PlainFW():  # the device loop solves through StepSolves
+            solve()
     finally:
         graphs.graphed_solve = real
     banded = "ut" in calls[0][0].names
@@ -4404,6 +4969,7 @@ def main():
     from mac_tpu_torch.ops.kernels import banded as kbanded
     from mac_tpu_torch.ops.kernels import ell as kell
     from mac_tpu_torch.ops.kernels import pcg as kpcg
+    from mac_tpu_torch.ops.kernels import fw as kfw
     from mac_tpu_torch.ops.kernels.tridiag import (
         reset_counts, tridiag_solve, tridiag_solve_blocked,
         tridiag_solve_blocked_plain, tridiag_solve_permuted,
@@ -4426,7 +4992,8 @@ def main():
     # ---- 2. build the kernels, one nvcc per source, in parallel
     phase("2 build")
     t0 = time.perf_counter()
-    sources = ("tridiag", "assemble", "ldl", "syev", "banded", "pcg", "ell")
+    sources = ("tridiag", "assemble", "ldl", "syev", "banded", "pcg", "ell",
+               "fw")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -5077,9 +5644,11 @@ def main():
 
     # ---- 4. the banded path, through the user's entry points
     # ---- 3f. the CG step's kernels against their plain versions
-    phase("3f K5, K6, K1p, K7, K8 against their plain versions")
+    phase("3f K5, K6, K1p, K7, K8, K9, K10 against their plain versions")
     cg_tm = cg_kernels(dev, card, bop, w, bop_sp, w_sp,
                        ell=(op5, w5, W5, *greedy_eig_table(dev, dataset)))
+    fw_tm = fw_kernels(dev, card, cands, (fi5, wf5, ci5, wc5))
+    fw_kerns = (kfw.fw_oracle, kfw.fw_update)
 
     phase("4 banded path (city10000)")
     # Phases 4 to 10 hand no plain chain factor a CUDA tensor, and phases 4
@@ -5088,7 +5657,7 @@ def main():
     # through K6 (and on the banded routes K5, K1p and K7).
     plain_factor = PlainOnCard(FACTOR_PLAINS).__enter__()
     plain_inner = PlainOnCard(("plain_solve", "sym_eig_plain")
-                              + CG_PLAINS).__enter__()
+                              + CG_PLAINS + FW_PLAINS).__enter__()
     t0 = time.perf_counter()
     meas, n = read_g2o_file(str(dataset))
     fixed, cands = split_edges(rpm_to_mac(meas))
@@ -5101,7 +5670,7 @@ def main():
                k4, kbanded.banded_product, kbanded.coarse_correct,
                tridiag_solve_permuted, kpcg.col_sums, kpcg.cg_update,
                kpcg.cg_direction_dots, kell.ell_product)
-    reset_counts(*counted)
+    reset_counts(*counted, *fw_kerns)
     times, graphs4 = [], [graph_stats(mac._banded)]
     for _ in range(4):
         torch.cuda.synchronize()
@@ -5132,7 +5701,12 @@ def main():
           f" s, warm median {statistics.median(times[1:]):.4f} s ({card})",
           flush=True)
     print(f"last_solve_stats: {mac.last_solve_stats}", flush=True)
+    fw_launches = {"phase 4": by_dtype(fw_kerns)}
+    launches.update({kern.__name__: kern.launches for kern in fw_kerns})
     print(f"kernel launches in the 4 solves: {launches}", flush=True)
+    plain_fw_check(card, "4 city10000", mac, lambda: mac.solve(
+        k, x_init, rounding="nearest", use_cache=True),
+        (rounded, unrounded, upper), fw_kerns)
     for kname, count in launches.items():
         if count <= 0:
             fail(f"the main path never launched {kname}")
@@ -5175,7 +5749,7 @@ def main():
           flush=True)
     if mac5._banded is not None or mac5.op.mode != "ell":
         fail("the n = 100000 expander graph did not take the ELL route")
-    reset_counts(*counted)
+    reset_counts(*counted, *fw_kerns)
     path_s, path_launches, graphs5 = [], [], [graph_stats(mac5.op)]
     for label in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -5196,6 +5770,13 @@ def main():
     lam5 = mac5.evaluate_objective(unrounded5)
     eval_s = time.perf_counter() - t0
     launches5 = {kern.__name__: kern.launches for kern in counted}
+    fw_launches["phase 5"] = by_dtype(fw_kerns)
+    if min(kern.launches for kern in fw_kerns) <= 0:
+        fail(f"the matrix-free path never launched K9 or K10: "
+             f"{fw_launches['phase 5']}")
+    plain_fw_check(card, f"5 n = {SCALE_N}", mac5, lambda: mac5.solve(
+        k5, x5, max_iters=10, use_cache=True),
+        (rounded5, unrounded5, upper5), fw_kerns)
     k1p_bodies["phase 5"] = dict(tridiag_solve_permuted.launches_by_body)
     k4_launches["float64"] = k4.launches_by_dtype.get("float64", 0)
     print(f"evaluate_objective: {eval_s:.3f} s, K8 launches "
@@ -5379,8 +5960,13 @@ def main():
 
     # ---- 10. float64 and the remaining methods
     phase("10 float64 and the remaining methods")
+    reset_counts(*fw_kerns)
     solvers_10b, launches_10b, launches_10f, f64_kernels = float64_phase(
         dev, card, dataset, (fi5, wf5, ci5, wc5), counted)
+    fw_launches["phase 10"] = by_dtype(fw_kerns)
+    if min(kern.launches_by_dtype.get("float64", 0) for kern in fw_kerns) <= 0:
+        fail(f"the float64 solves of phase 10 never launched K9 or K10 in "
+             f"float64: {fw_launches['phase 10']}")
     plain_factor.__exit__(None, None, None)
     print(f"plain chain factors handed CUDA tensors in phases 4-10: "
           f"{plain_factor.calls}", flush=True)
@@ -5428,8 +6014,9 @@ def main():
              f"{inner_calls}")
 
     # ---- 13. the solve's graphs against the inner-only and eager paths
-    phase("13 the solve four ways: set-up and outer iteration replayed, "
-          "inner steps only, eager, the plain CG step (warm solves)")
+    phase("13 the solve five ways: the device loop over the replayed set-up "
+          "and outer iteration, the host loop over them, inner steps only, "
+          "eager, the plain CG step (warm solves); forced early stops")
     mac_sp, k_sp, x_sp = bundled_macs["sphere2500"]
     mac64, k64, x64 = solvers_10b["city10000"]
 
@@ -5444,31 +6031,45 @@ def main():
         return quality
 
     ab13 = graph_ab(card, {
-        "city10000": (mac._banded, lambda: mac.solve(
+        "city10000": (mac, lambda: mac.solve(
             k, x_init, rounding="nearest", use_cache=True),
             lambda u: scipy_lam2(mac.laplacian(u)), k,
             rel_gap(REFERENCE_LAM2_UNROUNDED, floor=CITY_GAP_FLOOR)),
-        "city10000 q = 11": (mac11._banded, lambda: mac11.solve(
+        "city10000 q = 11": (mac11, lambda: mac11.solve(
             k11, x11, rounding="nearest", use_cache=True),
             lambda u: scipy_lam2(mac11.laplacian(u)), k11,
             rel_gap(REFERENCE_LAM2_UNROUNDED, floor=GAP_FLOOR)),
-        "sphere2500": (mac_sp._banded, lambda: mac_sp.solve(
+        "sphere2500": (mac_sp, lambda: mac_sp.solve(
             k_sp, x_sp, use_cache=True),
             lambda u: scipy_lam2(mac_sp.laplacian(u)), k_sp,
             rel_gap(BUNDLED["sphere2500"][0], floor=BUNDLED["sphere2500"][4])),
-        f"n = {SCALE_N}": (mac5.op, lambda: mac5.solve(
+        f"n = {SCALE_N}": (mac5, lambda: mac5.solve(
             k5, x5, max_iters=10, use_cache=True), mac5.evaluate_objective,
             k5, rel_gap(REFERENCE_LAM2_SCALE, floor=-1e-3)),
-        "city10000 banded float64": (mac64._banded, lambda: mac64.solve(
+        "city10000 banded float64": (mac64, lambda: mac64.solve(
             k64, x64, max_iters=20),
             lambda u: scipy_lam2(mac64.laplacian(u)), k64,
-            rel_gap(REFERENCE_LAM2_UNROUNDED, within=1e-9))}, counted)
+            rel_gap(REFERENCE_LAM2_UNROUNDED, within=1e-9))}, counted,
+        fw_kerns)
     for name_, res_ in ab13.items():
         g_, p_ = res_["profile"]["graph"], res_["profile"]["plain-cg"]
+        h_ = res_["profile"]["plain-fw"]
         print(f"13 {name_}: replayed warm solve, kernels / plain CG step: "
               f"device busy {g_[1]:.3f} / {p_[1]:.3f} ms, device kernels "
               f"{g_[2]} / {p_[2]}, one CG step {g_[4]} / {p_[4]} kernels, "
               f"{g_[5]} / {p_[5]} ms ({card})", flush=True)
+        print(f"13 {name_}: replayed warm solve, device loop / host loop "
+              f"(plain-fw): wall {g_[0]:.4f} / {h_[0]:.4f} s, device busy "
+              f"{g_[1]:.3f} / {h_[1]:.3f} ms, idle share "
+              f"{1 - g_[1] / 1e3 / g_[0]:.3f} / "
+              f"{1 - h_[1] / 1e3 / h_[0]:.3f}, launch calls on the host "
+              f"{g_[3]} / {h_[3]}, host reads {g_[6]} / {h_[6]} ({card})",
+              flush=True)
+    stops13 = forced_stops(card, {
+        "sphere2500": (mac_sp, k_sp, x_sp, 12),
+        f"n = {SCALE_N}": (mac5, k5, x5, 10),
+        "city10000 banded float64": (mac64, k64, x64, 20)}, counted,
+        fw_kerns)
     step13 = ab13["city10000"]["profile"]["graph"][4]
     if step13 != STEP_KERNELS:
         fail(f"13 city10000: a replayed CG step ran {step13} device kernels, "
@@ -5789,6 +6390,38 @@ def main():
         else:
             cg_line.append(cg_entry(key, launches[kern], p4))
     kernels += cg_line
+    # K9 and K10 (phase 3f): one entry per shape and dtype, "launches" those
+    # of its dtype on the path that runs that shape: phase 4's four
+    # city10000 solves (float32, m 10688), phase 5's two n = 100000 solves
+    # (float32, m 50000), phase 10's float64 solves (10b's city10000 and
+    # sphere2500, 10f's n = 100000; m 10688 is city10000's). "max_abs_err"
+    # K9's 0 (bitwise), K10's largest |u - u_plain| or |norm - norm_plain|
+    # (x, xavg, w bitwise); K9's "library_ms" torch.topk with scatter_.
+    fw_paths = {"city float32": ("phase 4", "phase 4 city10000 (4 solves)"),
+                "scale float32": ("phase 5", f"phase 5 n = {SCALE_N} "
+                                             f"(2 solves)"),
+                "city float64": ("phase 10", "phase 10 float64 solves (10b, "
+                                             "10f)")}
+    for key_, tm in sorted(fw_tm.items()):
+        short_, tag_ = key_.split(" ", 1)
+        kern = "fw_oracle" if short_ == "K9" else "fw_update"
+        path_, text_ = fw_paths[tag_]
+        kernels.append({
+            "name": kern, "route": "cuda",
+            "source": "mac_tpu_torch/csrc/fw.cu",
+            "replaces": ("mac_tpu/solvers/mac.py:1468 (the supergradient) "
+                         "and mac_tpu/optimization/constraints.py:20 "
+                         "(lax.top_k); not Pallas" if short_ == "K9" else
+                         "mac_tpu/optimization/frankwolfe.py:97 (the loop "
+                         "body) and mac_tpu/solvers/mac.py:958 (the "
+                         "weights); not Pallas"),
+            "shape": tm["shape"], "dtype": tm["dtype"],
+            "launches": fw_launches[path_][kern].get(tm["dtype"], 0),
+            "launches_path": text_, "max_abs_err": tm["max_abs_err"],
+            "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+            "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,17 +28,26 @@ A solve (`solve`) runs
     the preconditioner's guards read on the host: the plain version;
   * on CUDA tensors `graphed_solve`, over one static state per (operator,
     dtype, shapes) (`Route.statics`: the inputs w, X0, xprev0, tol, rel_tol,
-    the route's state, lnorm, TRACEMIN's carry and a flag pair [keep,
-    guard]): it copies the inputs in, replays the set-up graph of its
-    (branch, entry), which writes the state, lnorm, the carry and both
-    flags, reads the flags in one sync, and then replays the outer
-    iteration's graph (the inner CG steps, projection, CGS2, CholeskyQR2,
-    Rayleigh-Ritz through K4, the residuals and the stall count), which
-    updates the carry in place and writes keep, reading keep after each
-    replay as tracemin_fiedler's loop does. A set guard (the Newton-Schulz
-    start not finite, a singular coarse factor: what the eager code reads
-    on the host) runs the step's set-up again eagerly into the static
-    state, so the result is the eager one (`Route.redos`).
+    the route's state, lnorm, TRACEMIN's carry, a saved copy of the carried
+    state and the flags [keep, guard, done]): it copies the inputs in,
+    replays the set-up graph of its (branch, entry), which saves the
+    carried state and writes the state, lnorm, the carry, keep and guard,
+    reads the flags in one sync, and then replays the outer iteration's
+    graph (the inner CG steps, projection, CGS2, CholeskyQR2, Rayleigh-Ritz
+    through K4, the residuals and the stall count), which updates the
+    carry in place and writes keep, reading keep after each replay as
+    tracemin_fiedler's loop does. A set guard (the Newton-Schulz start not
+    finite, a singular coarse factor: what the eager code reads on the
+    host) runs the step's set-up again eagerly from the saved state into
+    the static state, so the result is the eager one (`Route.redos`).
+A Frank-Wolfe loop's solves go through `StepSolves`, the per-step form of
+the same: the inputs copied in once, then each step's set-up and outer
+iterations over the static state as it stands, the next step's weights
+written into w by the loop's K10 and its stop flag into done, which
+reaches the host in the next set-up's flag read (a set-up that finds it
+set is discarded, `Route.discards`). On CPU tensors StepSolves runs the
+same functions over the same static buffers with no graph. `read_flag`
+counts the host reads (`host_reads`).
 `inner_replayed_solve` is the form before the set-up and outer iteration
 were captured: the eager loop with only the inner CG steps replayed
 (`inner_replay`), kept to compare against.
@@ -158,26 +167,33 @@ class _Graph(NamedTuple):
 
 class Route:
     """The captured graphs of one route of one operator; see the module
-    docstring. names: the route state's names; tables(): the operator's
+    docstring. names: the route state's names; carried: those of them a
+    set-up may read back (a carried state); tables(): the operator's
     tensors the route reads besides its state.
 
     captures / replays: graphs captured and replayed; capture_s: seconds
     spent capturing (warm-up steps included); pool_bytes: device memory the
     captures reserved for the route's pool; static_bytes: the static
-    buffers; redos: set-ups run again eagerly for a set guard."""
+    buffers; redos: set-ups run again eagerly for a set guard; discards:
+    Frank-Wolfe steps' set-ups discarded for a stop flag (StepSolves), and
+    discard_launches what each of their replays launched, per wrapper."""
 
     def __init__(self, prepare: Callable, build: Callable,
-                 tables: Callable[[], tuple], names: tuple):
+                 tables: Callable[[], tuple], names: tuple,
+                 carried: tuple = ()):
         self.prepare = prepare
         self.build = build
         self.tables = tables
         self.names = names
+        self.carried = carried
         self.statics = {}
         self.graphs = {}
         self.pool = None
         self.captures = 0
         self.replays = 0
         self.redos = 0
+        self.discards = 0
+        self.discard_launches = []
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.static_bytes = 0
@@ -270,13 +286,13 @@ def _capture(route: Route, fn: Callable, s) -> _Graph:
 
 
 def run(route: Route, key: tuple, fn: Callable,
-        s: Dict[str, torch.Tensor]) -> None:
+        s: Dict[str, torch.Tensor]) -> Optional[_Graph]:
     """fn(s), which writes its results into s: on the card the replay of
     the graph filed under `key` (and the static state's key), captured at
-    its first call; on the CPU a call."""
+    its first call, and that graph returned; on the CPU a call (None)."""
     if not s["X0"].is_cuda:
         fn(s)
-        return
+        return None
 
     def full_key():
         return (key, s["key"], _kernels_in_use())
@@ -290,6 +306,7 @@ def run(route: Route, key: tuple, fn: Callable,
     g.graph.replay()
     _add(g.launches)
     route.replays += 1
+    return g
 
 
 def _buffer(t: torch.Tensor) -> torch.Tensor:
@@ -299,11 +316,17 @@ def _buffer(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+_SAVED = "saved_"
+
+
 def _static(route: Route, w, X, xprev0, carried, knobs: Knobs):
     """The static state of (w's and X's dtype and shape, device), made at
-    its first use: clones of the inputs, and buffers for the outputs,
-    shaped by one eager set-up and one eager outer iteration over a copy
-    (which also load the kernels' libraries)."""
+    its first use: clones of the inputs, buffers for the outputs, shaped by
+    one eager set-up and one eager outer iteration over a copy (which also
+    load the kernels' libraries), a copy of the carried state that each
+    set-up takes before it writes (saved_<name>: what a guard's redo and
+    a discarded step read), and the flags [keep, guard, done]: the set-up
+    writes the first two, a Frank-Wolfe step's K10 the third."""
     key = (w.dtype, tuple(w.shape), X.dtype, tuple(X.shape), X.device)
     s = route.statics.get(key)
     if s is not None:
@@ -317,11 +340,19 @@ def _static(route: Route, w, X, xprev0, carried, knobs: Knobs):
             s[n] = torch.empty_like(t, memory_format=torch.contiguous_format)
     scratch = dict(s, **{n: t for n, t in out.items() if n in s})
     outer_outputs(route, scratch, knobs)
-    flags = torch.zeros(2, dtype=torch.bool, device=X.device)
+    for n in route.carried:
+        s[_SAVED + n] = torch.empty_like(s[n])
+    flags = torch.zeros(3, dtype=torch.bool, device=X.device)
     route.static_bytes += sum(t.nbytes for t in s.values()) + flags.nbytes
-    s.update(flags=flags, keep=flags[0], guard=flags[1], key=key)
+    s.update(flags=flags, keep=flags[0], guard=flags[1], done=flags[2],
+             key=key)
     route.statics[key] = s
     return s
+
+
+def _saved(route: Route, s) -> Dict[str, torch.Tensor]:
+    """The carried state as the last set-up found it (its own copy)."""
+    return {n: s[_SAVED + n] for n in route.carried}
 
 
 def branch_of(pstate, use_prev, rebuild) -> str:
@@ -389,52 +420,150 @@ def inner_replay(route: Route, state: Dict[str, torch.Tensor],
     return s["Y"].clone()
 
 
-def graphed_solve(route: Route, w, X, *, carried=None, branch="cold",
-                  xprev0=None, tol: float = 1e-8, maxiter: int = 200,
-                  inner_iters: int = 16, rel_tol=None, coeff_dtype=None,
-                  lam0=None, warm_init=None, min_iters: int = 0):
-    """The solve through run(): the set-up's graph, one read of its flags
-    (and an eager set-up when a guard is set), then the outer iteration's
-    graph until keep is false, maxiter, as tracemin_fiedler's loop.
-    Returns (FiedlerResult, state) with copies of the static tensors."""
-    dtype = X.dtype
-    knobs = Knobs(torch.float64 if coeff_dtype is None else coeff_dtype,
-                  int(inner_iters))
-    if xprev0 is None:
-        xprev0 = default_xprev(X.shape[0], X.shape[1], dtype, X.device)
-    carried = carried or {}
-    s = _static(route, w, X, xprev0, carried, knobs)
-    for n, t in dict(carried, w=w, X0=X, xprev0=xprev0).items():
-        s[n].copy_(t)
-    s["tol"].fill_(tol)
-    s["rel_tol"].fill_(default_rel_tol(dtype) if rel_tol is None
-                       else rel_tol)
-    warm = lam0 is not None and bool(warm_init)
+# Device-to-host reads made by the solves' and the Frank-Wolfe loops'
+# tests (graphed_solve's flags and keep, a loop's stop test; read_flag).
+host_reads = 0
 
+
+def read_flag(t: torch.Tensor):
+    """t read on the host (a bool, or a list for a flag vector), counted
+    in host_reads."""
+    global host_reads
+    host_reads += 1
+    return t.tolist() if t.dim() else bool(t)
+
+
+def _knobs(coeff_dtype, inner_iters) -> Knobs:
+    return Knobs(torch.float64 if coeff_dtype is None else coeff_dtype,
+                 int(inner_iters))
+
+
+def _fill(s, tol, rel_tol) -> None:
+    s["tol"].fill_(tol)
+    s["rel_tol"].fill_(default_rel_tol(s["X0"].dtype) if rel_tol is None
+                       else rel_tol)
+
+
+def _solve_static(route: Route, s, branch: str, warm: bool, knobs: Knobs,
+                  maxiter: int, min_iters: int, step: bool = False,
+                  chain: bool = False):
+    """The solve over the static state s as it stands: the set-up's graph
+    (which first saves the carried state, and with chain starts from the
+    last solve's Ritz block: X0 = X), one read of the flags (and an eager
+    set-up from the saved state when a guard is set), then the outer
+    iteration's graph until keep is false, maxiter, as tracemin_fiedler's
+    loop. The outer iterations run; for a Frank-Wolfe step (step), None
+    when the flag done (the last step's stop) was set."""
     def setup(s):
+        if chain:
+            s["X0"].copy_(s["X"])
+        for n, t in _saved(route, s).items():
+            t.copy_(s[n])
         _write(s, setup_outputs(route, s, branch, warm, knobs, {}))
 
     def outer(s):
         _write(s, outer_outputs(route, s, knobs))
 
-    run(route, ("setup", branch, warm, knobs), setup, s)
-    keep, guard = s["flags"].tolist()
+    g = run(route, ("setup", branch, warm, knobs, chain), setup, s)
+    keep, guard, done = read_flag(s["flags"])
+    if step and done:
+        route.discards += 1
+        if g is not None:
+            route.discard_launches.append(g.launches)
+        return None
     if guard:
-        # The graph overwrote the carried state: the redo reads the
-        # caller's.
+        # The graph overwrote the carried state: the redo reads the copy
+        # it saved first.
         route.redos += 1
-        _write(s, setup_outputs(route, dict(s, **carried), branch, warm,
-                                knobs, None))
-        keep = bool(s["keep"])
+        _write(s, setup_outputs(route, dict(s, **_saved(route, s)), branch,
+                                warm, knobs, None))
+        keep = read_flag(s["keep"])
     it = 0
     while not (it >= min_iters and (it >= maxiter or not keep)):
         run(route, ("outer", knobs), outer, s)
         it += 1
         if min_iters <= it < maxiter:
-            keep = bool(s["keep"])
+            keep = read_flag(s["keep"])
+    return it
+
+
+def graphed_solve(route: Route, w, X, *, carried=None, branch="cold",
+                  xprev0=None, tol: float = 1e-8, maxiter: int = 200,
+                  inner_iters: int = 16, rel_tol=None, coeff_dtype=None,
+                  lam0=None, warm_init=None, min_iters: int = 0):
+    """The solve through run(): the inputs copied into the static state,
+    then _solve_static. Returns (FiedlerResult, state) with copies of the
+    static tensors."""
+    knobs = _knobs(coeff_dtype, inner_iters)
+    if xprev0 is None:
+        xprev0 = default_xprev(X.shape[0], X.shape[1], X.dtype, X.device)
+    carried = carried or {}
+    s = _static(route, w, X, xprev0, carried, knobs)
+    for n, t in dict(carried, w=w, X0=X, xprev0=xprev0).items():
+        s[n].copy_(t)
+    _fill(s, tol, rel_tol)
+    warm = lam0 is not None and bool(warm_init)
+    it = _solve_static(route, s, branch, warm, knobs, maxiter, min_iters)
     res = FiedlerResult(lam=s["lam"].clone(), X=s["X"].clone(), iters=it,
                         res=s["res"].clone())
     return res, {n: s[n].clone() for n in route.names}
+
+
+class StepSolves:
+    """The eigensolves of a Frank-Wolfe loop on one route, a step each,
+    over the route's static state (ops.graphs' per-step interface; the
+    loop is optimization.frankwolfe's device loop). Made from the first
+    step's weights w, start block X and xprev0 (copied in once), it keeps
+    everything in the static buffers from step to step:
+      * w: the weight vector each set-up reads; the loop's K10 writes its
+        candidates' part after each step;
+      * done: the flag a step's K10 sets when its stop test fires (the
+        loop clears it first); the next step's set-up read carries it to
+        the host with keep and guard;
+      * the Ritz block: with chain, each step after the first starts from
+        the last step's X (copied to X0 by the set-up graph), else from X
+        every step;
+      * the carried preconditioner state stays where the last set-up
+        wrote it, and each set-up saves a copy first (a guard's redo
+        reads it).
+    step(branch, maxiter, inner_iters) runs one step's solve and returns
+    its outer iterations, or None when done was set: that step's set-up has
+    run but is discarded, and X0 and the saved state hold what the last
+    step left (stopped()). f, X and state() are where the graphs left the
+    last step's Fiedler value, Ritz block and route state. So a step
+    launches nothing of its own but the graphs' replays."""
+
+    def __init__(self, route: Route, w, X, *, xprev0=None, tol=1e-8,
+                 rel_tol=None, coeff_dtype=None, inner_iters=16,
+                 chain=True):
+        self.route, self.chain, self.coeff_dtype = route, chain, coeff_dtype
+        if xprev0 is None:
+            xprev0 = default_xprev(X.shape[0], X.shape[1], X.dtype, X.device)
+        s = self.s = _static(route, w, X, xprev0, {},
+                             _knobs(coeff_dtype, inner_iters))
+        for n, t in dict(w=w, X0=X, xprev0=xprev0).items():
+            s[n].copy_(t)
+        _fill(s, tol, rel_tol)
+        self.w, self.done = s["w"], s["done"]
+        self.f, self.X = s["lam"][0], s["X"]
+        self.steps = 0
+
+    def step(self, branch: str, maxiter: int, inner_iters: int):
+        it = _solve_static(self.route, self.s, branch, False,
+                           _knobs(self.coeff_dtype, inner_iters), maxiter, 0,
+                           step=True, chain=self.chain and self.steps > 0)
+        if it is not None:
+            self.steps += 1
+        return it
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The route's carried state as the last step left it."""
+        return {n: self.s[n] for n in self.route.carried}
+
+    def stopped(self):
+        """(Ritz block, carried state) of the last step after a discarded
+        set-up."""
+        return self.s["X0"], _saved(self.route, self.s)
 
 
 def solve(route: Route, w, X, **kw):
@@ -483,7 +612,7 @@ def banded_route(bop: "_banded.BandedOperator", kind: str) -> Route:
 
     return _cached(bop, ("banded", kind), lambda: Route(
         prepare, build, lambda: tuple(ref().buffers()),
-        ("ut", "deg", "dp", "l", "Lc_inv")))
+        ("ut", "deg", "dp", "l", "Lc_inv"), ("dp", "l", "Lc_inv")))
 
 
 def banded_state(BD: "_banded.BDRep", pstate: "_banded.PrecondState"):

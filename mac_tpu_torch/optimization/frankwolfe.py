@@ -3,6 +3,9 @@
 frank_wolfe_with_state threads auxiliary state across steps, frank_wolfe is
 the stateless form with the reference library's call signature, and
 frank_wolfe_lanes runs R problems as lanes of one loop (the budget sweep).
+_frank_wolfe_on_device is frank_wolfe_with_state's loop for MAC's problem
+with its step's bookkeeping in kernels K9 and K10 (ops.kernels.fw) and its
+stop test kept on the device, as the reference's lax.while_loop keeps it.
 
 Termination semantics match the reference: when a tolerance check fires the
 candidate iterate is not stepped, so the returned x is the one at which
@@ -82,6 +85,58 @@ def frank_wolfe_with_state(
         gamma = torch.as_tensor(gamma, dtype=dtype, device=x.device)
         x = x + gamma * (s - x)
     if averaging and cnt > 0:
+        x = xavg
+    return x, u, state, it
+
+
+def _frank_wolfe_on_device(initial: torch.Tensor, state0, problem: Callable,
+                           ends: torch.Tensor, w_cand: torch.Tensor, k: int,
+                           w_out: torch.Tensor, done: torch.Tensor, *,
+                           maxiter: int, relative_duality_gap_tol: float,
+                           grad_norm_tol: float, mask_tol: float,
+                           tail_average_from: Optional[int] = None):
+    """frank_wolfe_with_state's loop for a supergradient w_cand (v_i -
+    v_j)^2 over the edges `ends` (int32 (m, 2)) and the top-k LP oracle,
+    with each step's bookkeeping on x's device and no host read of its
+    own: K9 (fw_oracle) takes the supergradient and the oracle, K10
+    (fw_update) the bound, the stop tests, the tail average, the step and
+    the next weights, in place. The same steps and results as
+    frank_wolfe_with_state(initial, state0, ..., solve_subset_box_lp(., k))
+    on the same problem.
+
+    problem(x, state) -> (f, V, state'): f a 0-dim tensor, V the block
+        whose column 0 is v. Its eigensolve reads its weights from w_out,
+        whose last m entries each step sets to where(x > mask_tol, x, 0)
+        w_cand (written for `initial` first). The flag
+        `done` (0-dim bool on the device) is set by a step whose test
+        fired; problem reads it with what it reads of its own solve and
+        then returns (None, None, state_k), state_k the state as that
+        stopped step left it, its own work leaving no trace.
+    Returns (x, u, state, num_iters) as frank_wolfe_with_state."""
+    # Imported here: ops.kernels.fw imports this module (naive_stepsize).
+    from mac_tpu_torch.ops.kernels import fw as _fw
+
+    x = initial.clone(memory_format=torch.contiguous_format)
+    m = x.shape[0]
+    w_new = w_out[w_out.shape[0] - m:]
+    w_new.copy_(torch.where(x > mask_tol, x, torch.zeros_like(x)) * w_cand)
+    u = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    xavg = torch.zeros_like(x)
+    counters = torch.zeros(2, dtype=torch.int32, device=x.device)
+    done.fill_(False)
+    state = state0
+    it = 0
+    while it < maxiter:
+        f, V, state = problem(x, state)
+        if f is None:
+            break
+        g, s = _fw.fw_oracle(V, ends, w_cand, k)
+        _fw.fw_update(f, g, s, x, u, xavg, counters, done, w_new, w_cand,
+                      grad_norm_tol=grad_norm_tol,
+                      gap_tol=relative_duality_gap_tol,
+                      tail_from=tail_average_from, mask_tol=mask_tol)
+        it += 1
+    if tail_average_from is not None and it > tail_average_from:
         x = xavg
     return x, u, state, it
 

@@ -70,12 +70,14 @@ import numpy as np
 import torch
 
 from mac_tpu_torch.device import resolve_device
+from mac_tpu_torch.ops import graphs as _graphs
 from mac_tpu_torch.ops.banded import PrecondState, build_banded_rcm
 from mac_tpu_torch.ops.laplacian import build_operator
 from mac_tpu_torch.ops.precond import extract_chain_weights
 from mac_tpu_torch.optimization.constraints import (
     solve_subset_box_lp, solve_subset_box_lp_dynamic)
-from mac_tpu_torch.optimization.frankwolfe import (frank_wolfe_lanes,
+from mac_tpu_torch.optimization.frankwolfe import (_frank_wolfe_on_device,
+                                                   frank_wolfe_lanes,
                                                    frank_wolfe_with_state)
 from mac_tpu_torch.parallel import sharded as _sharded
 from mac_tpu_torch.parallel.mesh import (MeshGroup, check_mesh, mesh_device,
@@ -479,9 +481,11 @@ class MAC(HostSolveMixin):
 
     @property
     def _agree(self):
-        """How the loops read their stop tests: bool, or on a mesh the
-        'graph' group's agreement."""
-        return bool if self._group is None else self._group.agree
+        """How the loops read their stop tests: a counted host read
+        (ops.graphs.read_flag), or on a mesh the 'graph' group's
+        agreement."""
+        return (_graphs.read_flag if self._group is None
+                else self._group.agree)
 
     def _mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x > self.min_selection_weight_tol, x,
@@ -563,41 +567,71 @@ class MAC(HostSolveMixin):
         """The Frank-Wolfe loop with the Ritz block, the cumulative Fiedler
         iteration count, the step index and the preconditioner state
         threaded through its state; nearest rounding of the result (ties
-        to the larger candidate weight)."""
+        to the larger candidate weight). A single card's solve without
+        verbose runs the loop's bookkeeping on the device (_fw_device);
+        on a mesh, or with verbose, the host loop (_fw_host) runs it."""
         if schedule is None or not use_cache:
             schedule = ((1, self.fiedler_maxiter),)
         if not use_cache:
             inner_schedule = None
-        # The banded route carries its preconditioner state across steps;
-        # the matrix-free route rebuilds its V-cycle every step.
-        pstate0 = None
-        bop, dev = self._banded, self.device
-        if bop is not None:
-            nc, n = bop.coarse_nc, bop.n
-            pstate0 = PrecondState(
-                Lc_inv=torch.zeros((nc, nc), dtype=self.dtype, device=dev),
-                chain_dp=torch.zeros(n, dtype=self.dtype, device=dev),
-                chain_l=torch.zeros(n, dtype=self.dtype, device=dev))
-        period = int(self.precond_refresh_period)
+        loop = (self._fw_host if self.mesh is not None or verbose
+                else self._fw_device)
+        x, u, X, it, fiters = loop(
+            params, x0, X0, k=k, maxiter=maxiter,
+            relative_duality_gap_tol=relative_duality_gap_tol,
+            grad_norm_tol=grad_norm_tol, use_cache=use_cache,
+            schedule=schedule, inner_schedule=inner_schedule,
+            tail_average_from=(maxiter // 2 if tail_average else None),
+            verbose=verbose)
+        rounded = round_nearest(x, k, weights=params[1],
+                                break_ties_decimal_tol=10)
+        return x, u, X, it, fiters, rounded
 
+    def _pstate0(self):
+        """The banded route's carried preconditioner state before the
+        first step (the matrix-free route rebuilds its V-cycle every step:
+        None)."""
+        bop, dev = self._banded, self.device
+        if bop is None:
+            return None
+        nc, n = bop.coarse_nc, bop.n
+        return PrecondState(
+            Lc_inv=torch.zeros((nc, nc), dtype=self.dtype, device=dev),
+            chain_dp=torch.zeros(n, dtype=self.dtype, device=dev),
+            chain_l=torch.zeros(n, dtype=self.dtype, device=dev))
+
+    def _step_knobs(self, schedule, inner_schedule, step: int, pstate):
+        """(outer-iteration cap, inner CG steps or None, use_prev, rebuild)
+        of FW step `step`: the schedules, and with a carried state the
+        Newton-Schulz coarse refresh once the FW step size 2/(step+2)
+        bounds the operator change (step >= 4) and, with a refresh period
+        p > 1, a rebuild only every p-th step from step 8 on. A function of
+        the step alone."""
+        mi = self._warm_cap(schedule, step)
+        ii = (None if inner_schedule is None
+              else self._warm_inner(inner_schedule, step))
+        period = int(self.precond_refresh_period)
+        rebuild = None if period <= 1 else (step < 8 or step % period == 0)
+        use_prev = step >= 4 if pstate is not None else None
+        return mi, ii, use_prev, rebuild
+
+    def _fw_host(self, params, x0, X0, *, k, maxiter,
+                 relative_duality_gap_tol, grad_norm_tol, use_cache,
+                 schedule, inner_schedule, tail_average_from, verbose):
+        """frank_wolfe_with_state on the host: its loop and MAC's step as
+        PyTorch ops, the stop test read every step. Returns (x, u, X,
+        iterations, Fiedler iterations)."""
         def problem(x, state):
             X, fiters, step, pstate = state
-            mi = self._warm_cap(schedule, step)
-            ii = (None if inner_schedule is None
-                  else self._warm_inner(inner_schedule, step))
+            mi, ii, use_prev, rebuild = self._step_knobs(
+                schedule, inner_schedule, step, pstate)
             if pstate is None:
                 f, grad, Xres, iters = self._problem_impl(
                     params, x, X, maxiter=mi, inner_iters=ii)
             else:
-                # Newton-Schulz coarse refresh once the FW step size
-                # 2/(step+2) bounds the operator change (step >= 4); with a
-                # refresh period p > 1, steps >= 8 rebuild only every p-th
-                # step.
-                rebuild = (None if period <= 1
-                           else (step < 8 or step % period == 0))
                 f, grad, Xres, iters, pstate = self._problem_impl(
                     params, x, X, maxiter=mi, pstate=pstate,
-                    use_prev=step >= 4, rebuild=rebuild, inner_iters=ii)
+                    use_prev=use_prev, rebuild=rebuild, inner_iters=ii)
             Xnew = Xres if use_cache else X0
             return f, grad, (Xnew, fiters + iters, step + 1, pstate)
 
@@ -609,15 +643,93 @@ class MAC(HostSolveMixin):
                 return _sharded.sharded_top_k_indicator(self._group, g, k)
 
         x, u, (X, fiters, _, _), it = frank_wolfe_with_state(
-            x0, (X0, 0, 0, pstate0), problem, solve_lp,
+            x0, (X0, 0, 0, self._pstate0()), problem, solve_lp,
             maxiter=maxiter,
             relative_duality_gap_tol=relative_duality_gap_tol,
             grad_norm_tol=grad_norm_tol, verbose=verbose,
-            tail_average_from=(maxiter // 2 if tail_average else None),
-            agree=self._agree)
-        rounded = round_nearest(x, k, weights=params[1],
-                                break_ties_decimal_tol=10)
-        return x, u, X, it, fiters, rounded
+            tail_average_from=tail_average_from, agree=self._agree)
+        return x, u, X, it, fiters
+
+    def _cand_ends(self, cand_int: torch.Tensor) -> torch.Tensor:
+        """The candidates' endpoints cand_int (m, 2) as K9's int32 table,
+        made once."""
+        cached = getattr(self, "_ends", None)
+        if cached is None or cached[0] is not cand_int:
+            cached = self._ends = (cand_int,
+                                   cand_int.to(torch.int32).contiguous())
+        return cached[1]
+
+    def _fw_device(self, params, x0, X0, *, k, maxiter,
+                   relative_duality_gap_tol, grad_norm_tol, use_cache,
+                   schedule, inner_schedule, tail_average_from, verbose):
+        """_fw_host's loop with its bookkeeping on the device
+        (optimization.frankwolfe._frank_wolfe_on_device: kernels K9 and
+        K10, the stop test read with the next step's solve). A route with
+        replayed graphs (fiedler.graph_route) solves each step over its
+        static state (ops.graphs.StepSolves: K10 writes the weights the
+        set-up reads, the stop flag travels in the set-up's flag read, the
+        Ritz block and the carried state stay in place); any other route
+        solves as _problem_impl does, from a weight vector K10 writes, and
+        reads the stop flag before each step after the first. The same
+        steps and results as _fw_host. Returns (x, u, X, iterations,
+        Fiedler iterations)."""
+        _, w_cand, _, op = params
+        pstate0 = self._pstate0()
+        w0 = self._w_all(params, x0)
+        route = _fiedler.graph_route(op, w0, method=self.fiedler_method,
+                                     precond=self.fiedler_precond)
+        if route is not None:
+            solves = _graphs.StepSolves(
+                route, w0, X0, xprev0=self.xprev0, tol=self.fiedler_tol,
+                rel_tol=self.fiedler_rel_tol,
+                coeff_dtype=self.fiedler_coeff_dtype,
+                inner_iters=self.fiedler_inner_iters, chain=use_cache)
+            w_out, done = solves.w, solves.done
+
+            def problem(x, state):
+                _, fiters, step, pstate = state
+                mi, ii, use_prev, rebuild = self._step_knobs(
+                    schedule, inner_schedule, step, pstate)
+                branch = _graphs.branch_of(pstate, use_prev, rebuild)
+                iters = solves.step(
+                    branch, mi, self.fiedler_inner_iters if ii is None
+                    else ii)
+                if iters is None:
+                    X, carried = solves.stopped()
+                    return None, None, (X, fiters, step, None if pstate
+                                        is None else _graphs.banded_pstate(
+                                            carried))
+                if pstate is not None:
+                    pstate = _graphs.banded_pstate(solves.state())
+                return solves.f, solves.X, (solves.X if use_cache else X0,
+                                            fiters + iters, step + 1, pstate)
+        else:
+            w_out = w0.clone()
+            done = torch.zeros((), dtype=torch.bool, device=w0.device)
+
+            def problem(x, state):
+                X, fiters, step, pstate = state
+                if step and _graphs.read_flag(done):
+                    return None, None, state
+                mi, ii, use_prev, rebuild = self._step_knobs(
+                    schedule, inner_schedule, step, pstate)
+                out = self._fiedler(
+                    params, w_out, X, maxiter=mi, pstate=pstate,
+                    use_prev=use_prev, rebuild=rebuild,
+                    want_pstate=pstate is not None, inner_iters=ii)
+                res, pstate = out if pstate is not None else (out, None)
+                return res.lam[0], res.X.contiguous(), (
+                    res.X if use_cache else X0, fiters + res.iters,
+                    step + 1, pstate)
+
+        x, u, (X, fiters, _, _), it = _frank_wolfe_on_device(
+            x0, (X0, 0, 0, pstate0), problem, self._cand_ends(params[2]),
+            w_cand, k, w_out, done, maxiter=maxiter,
+            relative_duality_gap_tol=relative_duality_gap_tol,
+            grad_norm_tol=grad_norm_tol,
+            mask_tol=self.min_selection_weight_tol,
+            tail_average_from=tail_average_from)
+        return x, u, X.clone(), it, int(fiters)
 
     def _fw_dynamic_impl(self, params, x0, X0, ks, *, maxiter: int,
                          relative_duality_gap_tol: float,

@@ -121,7 +121,9 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
       that a carried state keeps its structure.
     sharded: the parallel.sharded.ShardedBanded of `bop` on a mesh, whose
     row-sharded assembly and products take the place of the whole ones."""
-    if method == "tracemin" and sharded is None and w.dim() == 1:
+    route = (graph_route(bop, w, method=method) if sharded is None
+             else None)
+    if route is not None:
         # One solve: its set-up and outer iterations replay CUDA graphs on
         # the card (ops.graphs); the same build and loop on the CPU.
         branch = _graphs.branch_of(pstate, use_prev, rebuild)
@@ -129,7 +131,7 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
             branch = None  # a block-Jacobi state: not this route's
         if branch is not None:
             res, state = _graphs.solve(
-                _graphs.banded_route(bop, _banded.PRECOND_KIND), w, X,
+                route, w, X,
                 carried=(_graphs.banded_carried(pstate)
                          if branch != "cold" else None),
                 branch=branch, xprev0=xprev0, tol=tol, maxiter=maxiter,
@@ -172,6 +174,26 @@ def _banded_pair(bop, w, X, *, xprev0, tol, maxiter, inner_iters, rel_tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
             coeff_dtype=coeff_dtype, **warm)
     return (res, pstate_out) if return_pstate else res
+
+
+def graph_route(op, w: torch.Tensor, *, method: str = "tracemin",
+                precond: str = "twogrid", apply_override=None):
+    """The ops.graphs Route on which one solve of the weight vector w on
+    the meshless operator op (a BandedOperator or a GraphOperator) goes:
+    TRACEMIN on the banded operator with its chain cycle, or on the ELL
+    operator with the two-grid V-cycle; None where it solves otherwise
+    (lanes, LOBPCG or the dense eigh, the chain solve alone, a dense-mode
+    operator, a product override). fiedler_pair_op solves through it, and
+    a Frank-Wolfe loop's solves through its per-step interface
+    (ops.graphs.StepSolves)."""
+    if method != "tracemin" or w.dim() != 1 or apply_override is not None:
+        return None
+    if isinstance(op, _banded.BandedOperator):
+        return _graphs.banded_route(op, _banded.PRECOND_KIND)
+    if (isinstance(op, GraphOperator) and op.mode == "ell"
+            and precond == "twogrid"):
+        return _graphs.twogrid_route(op)
+    return None
 
 
 def fiedler_pair_op(
@@ -286,14 +308,15 @@ def fiedler_pair_op(
     if apply_override is None and (
             method == "dense" or (op.mode == "dense" and op.n <= DENSE_MAX_N)):
         return _ret(dense_fiedler(lap_dense(op, w), X.shape[-1]))
-    if (apply_override is None and sharded is None and op.mode == "ell"
-            and precond == "twogrid" and method == "tracemin"
-            and w.dim() == 1):
+    route = (graph_route(op, w, method=method, precond=precond,
+                         apply_override=apply_override)
+             if sharded is None else None)
+    if route is not None:
         # One TRACEMIN solve on the ELL product with the V-cycle: replayed
         # CUDA graphs of its set-up and outer iteration on the card
         # (ops.graphs); the same build and loop on the CPU.
         return _ret(_graphs.solve(
-            _graphs.twogrid_route(op), w, X, xprev0=xprev0, tol=tol,
+            route, w, X, xprev0=xprev0, tol=tol,
             maxiter=maxiter, inner_iters=inner_iters, rel_tol=rel_tol,
             coeff_dtype=coeff_dtype, **warm)[0])
     if apply_override is not None:

@@ -20,18 +20,23 @@ after the warm solve (chip_smoke.step_kernels: the kernels counted from
 the captured graphs' nodes, the ms from profiles of their replays).
 
 Also per cell: K6's and K8's device time in the warm solve, all their
-kernels (names with "k6_", "k8_") added up.
+kernels (names with "k6_", "k8_") added up; and one more profiled warm
+solve with the host's calls recorded: its wall, device busy and idle share
+(1 - busy / wall), the CUDA launch calls the host made (cudaLaunchKernel,
+cudaGraphLaunch, ...; chip_smoke.profiled_busy) and the device-to-host
+reads of the Frank-Wolfe loop and graphed_solve (ops.graphs.host_reads;
+"not counted" on a tree without the counter).
 --plain-cg runs every solve with the plain CG step (the torch ops that the
 kernels K5, K6, K1p, K7 and K8 stand for) on the card, as chip_smoke.py's
 phase 13 does in its "plain-cg" turn: the account before the kernels, on
-the same tree. --before DIR first runs DIR's profile_cg.py (an older
-checkout, e.g. a `git archive` of the parent commit unpacked under build/)
-on the same cells in a process of its own, then this tree's, and ends
-with each cell's busy milliseconds, CG-step kernels and K6's and K8's
-device time and calls before and after (before: the "k6_" items among the
-older script's ten largest, where it prints no K6 line of its own), and
-each cell's ten largest items before and after side by side.
-Every line names the card and its power limit.
+the same tree. --before DIR runs this script's code over DIR's package (an
+older checkout, e.g. a `git archive` of the parent commit unpacked under
+build/) and over this tree's, each in a process of its own, in turns
+before, after, after, before on the same cells, and ends with each cell's
+numbers turn by turn (wall, device busy, idle share, host launch calls,
+host reads, busy milliseconds of the kernel profile, CG-step kernels, K6's
+and K8's device time and calls) and its ten largest items before and after
+side by side. Every line names the card and its power limit.
 """
 
 import argparse
@@ -42,7 +47,7 @@ import time
 from contextlib import nullcontext
 
 from chip_smoke import (BUNDLED, SCALE_N, card_line, device_items, fail,
-                        step_kernels, synthetic)
+                        profiled_busy, step_kernels, synthetic)
 
 CELLS = ("city10000", "city10000 q = 11", "sphere2500", f"n = {SCALE_N}",
          "city10000 banded float64")
@@ -143,51 +148,19 @@ def main():
                     help="the plain CG step on the card")
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--before", metavar="DIR",
-                    help="an older checkout to profile first")
+                    help="an older checkout: turns before, after, after, "
+                         "before")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     card = card_line()
     print(card, flush=True)
-    before, tags_before, tops_before = {}, {}, {}
     if args.before:
-        cmd = [sys.executable, "profile_cg.py", "--cells", args.cells]
-        if args.plain_cg:
-            cmd.append("--plain-cg")
-        proc = subprocess.run(cmd, cwd=args.before, capture_output=True,
-                              text=True)
-        cell = None
-        for line in proc.stdout.splitlines():
-            print(f"before | {line}", flush=True)
-            got = re.match(r"(.+) \((?:kernels|plain CG step)\): .*device busy "
-                           r"([0-9.]+) ms.*one CG step alone .*?: (\S+) "
-                           r"kernels", line)
-            if got:
-                cell = got[1]
-                before[cell] = (float(got[2]), got[3])
-            tag = re.match(r"(K[68]) \(k[68]_\*\): ([0-9.]+) ms, (\d+) "
-                           r"calls", line)
-            item = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls .*k6_", line)
-            top = re.match(r"\s+([0-9.]+) ms\s+(\d+) calls\s+[0-9.]+ us a "
-                           r"call  (.*)", line)
-            if cell is not None and top:
-                tops_before.setdefault(cell, []).append(
-                    (float(top[1]), int(top[2]), top[3]))
-            if cell is not None and tag:  # its own line: all of K6 or K8
-                tags_before.setdefault(cell, {})[tag[1]] = [
-                    float(tag[2]), int(tag[3])]
-            elif cell is not None and item:
-                got6 = tags_before.setdefault(cell, {}).setdefault(
-                    "K6", [0.0, 0])
-                got6[0] += float(item[1])
-                got6[1] += int(item[2])
-        if proc.returncode != 0:
-            print(proc.stderr[-4000:], file=sys.stderr, flush=True)
-            fail(f"the older profile_cg.py in {args.before} exited "
-                 f"{proc.returncode}")
+        return ab_turns(args, card)
     import mac_tpu_torch  # noqa: F401 (sets the numerics policy)
     from concurrent.futures import ThreadPoolExecutor
 
+    from mac_tpu_torch.ops import graphs
     from mac_tpu_torch.ops.kernels import _build
 
     sources = [p.stem for p in _build.CSRC.glob("*.cu")]
@@ -197,7 +170,6 @@ def main():
     ctx = nullcontext
     if args.plain_cg:
         from chip_smoke import PlainCG as ctx
-    after, tops = {}, {}
     for name, (mac, solve) in build_cells(args.cells.split(",")).items():
         with ctx():
             t0 = time.perf_counter()
@@ -219,32 +191,113 @@ def main():
         for ms, cnt, nm in items[:10]:
             print(f"  {ms:9.3f} ms {cnt:7d} calls {1e3 * ms / cnt:8.2f} us "
                   f"a call  {nm[:110]}", flush=True)
-        tagged = {}
         for tag in ("k6_", "k8_"):
             got = [(ms, cnt) for ms, cnt, nm in items if tag in nm]
             ms, cnt = sum(m for m, _ in got), sum(c for _, c in got)
-            tagged[tag.upper()[:2]] = (ms, cnt)
             print(f"{tag.upper()[:2]} ({tag}*): {ms:.3f} ms, {cnt} calls in "
                   f"the warm solve ({card})", flush=True)
-        tops[name] = items[:10]
-        after[name] = (busy, per_step[0], tagged)
-    for name, (busy, step, tagged) in after.items():
-        if name in before:
-            was = tags_before.get(name, {})
-            print(f"summary {name}: device busy {before[name][0]:.3f} -> "
-                  f"{busy:.3f} ms ({busy / before[name][0]:.3f}), one CG step "
-                  f"{before[name][1]} -> {step} kernels, " + ", ".join(
-                      f"{t} {was.get(t, [float('nan'), 0])[0]:.3f} ms / "
-                      f"{was.get(t, [0, 0])[1]} -> {ms:.3f} ms / {cnt}"
-                      for t, (ms, cnt) in tagged.items()) + f" ({card})",
-                  flush=True)
-            for i, (old, new) in enumerate(zip(
-                    tops_before.get(name, []) + [None] * 10, tops[name])):
-                old = ("-" if old is None
-                       else f"{old[0]:.3f} ms / {old[1]} {old[2][:50]}")
-                print(f"summary {name} largest {i + 1}: before {old}; after "
-                      f"{new[0]:.3f} ms / {new[1]} {new[2][:50]}", flush=True)
+        with ctx():
+            walls, host = [], {}
+            reads0 = getattr(graphs, "host_reads", None)
+
+            def timed(solve=solve):
+                t0 = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+
+            busy_h, _, _ = profiled_busy(timed, host)
+            reads = ("not counted" if reads0 is None
+                     else graphs.host_reads - reads0)
+        print(f"{name} ({way}): one profiled warm solve with the host's "
+              f"calls: wall {walls[0]:.4f} s, device busy {busy_h:.3f} ms, "
+              f"idle share {1 - busy_h / 1e3 / walls[0]:.3f}, launch calls "
+              f"on the host {sum(host.values())} {host}, host reads {reads} "
+              f"({card})", flush=True)
     print(f"profile_cg: done ({card})", flush=True)
+
+
+TURN_RE = {
+    "profile": re.compile(
+        r"(.+) \((?:kernels|plain CG step)\): cold solve .*device busy "
+        r"([0-9.]+) ms.*one CG step alone .*?: (\S+) kernels"),
+    "host": re.compile(
+        r"(.+) \((?:kernels|plain CG step)\): one profiled warm solve with "
+        r"the host's calls: wall ([0-9.]+) s, device busy ([0-9.]+) ms, "
+        r"idle share ([0-9.]+), launch calls on the host (\d+) .*host reads "
+        r"(.+?) \("),
+    "tag": re.compile(r"(K[68]) \(k[68]_\*\): ([0-9.]+) ms, (\d+) calls"),
+    "top": re.compile(r"\s+([0-9.]+) ms\s+(\d+) calls\s+[0-9.]+ us a "
+                      r"call  (.*)"),
+}
+
+
+def ab_turns(args, card):
+    """--before DIR: this script's code over DIR's package and over this
+    tree's, each a process of its own (`python -c` in the tree's root, so
+    the tree's mac_tpu_torch and chip_smoke are imported), in turns
+    before, after, after, before; each turn's lines echoed, then per cell
+    the numbers of every turn and the largest items of the first turn of
+    each side."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve()
+    cmd = ["--cells", args.cells] + (["--plain-cg"] if args.plain_cg else [])
+    runner = ("import runpy, sys; sys.argv = [sys.argv[0]] + sys.argv[1:]; "
+              f"runpy.run_path({str(here)!r}, run_name='__main__')")
+    got = {}
+    for turn, root in (("before", args.before), ("after", here.parent),
+                       ("after", here.parent), ("before", args.before)):
+        proc = subprocess.run([sys.executable, "-c", runner, *cmd],
+                              cwd=root, capture_output=True, text=True)
+        cells, cell = {}, None
+        for line in proc.stdout.splitlines():
+            print(f"{turn} | {line}", flush=True)
+            m = TURN_RE["profile"].match(line)
+            if m:
+                cell = m[1]
+                cells[cell] = {"busy_profile": float(m[2]), "step": m[3],
+                               "tags": {}, "top": []}
+                continue
+            m = TURN_RE["host"].match(line)
+            if m:
+                cells[m[1]].update(wall=float(m[2]), busy=float(m[3]),
+                                   idle=float(m[4]), calls=int(m[5]),
+                                   reads=m[6])
+                continue
+            m, top = TURN_RE["tag"].match(line), TURN_RE["top"].match(line)
+            if cell is not None and m:
+                cells[cell]["tags"][m[1]] = (float(m[2]), int(m[3]))
+            elif cell is not None and top:
+                cells[cell]["top"].append((float(top[1]), int(top[2]),
+                                           top[3]))
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+            fail(f"the {turn} turn in {root} exited {proc.returncode}")
+        got.setdefault(turn, []).append(cells)
+    for name in args.cells.split(","):
+        for turn in ("before", "after"):
+            for i, cells in enumerate(got[turn]):
+                c = cells.get(name)
+                if c is None:
+                    continue
+                print(f"summary {name} {turn} {i + 1}: wall "
+                      f"{c.get('wall')} s, device busy {c.get('busy')} ms, "
+                      f"idle share {c.get('idle')}, launch calls on the host "
+                      f"{c.get('calls')}, host reads {c.get('reads')}; "
+                      f"kernel profile busy {c['busy_profile']} ms, one CG "
+                      f"step {c['step']} kernels, " + ", ".join(
+                          f"{t} {ms} ms / {n}" for t, (ms, n)
+                          in sorted(c["tags"].items())) + f" ({card})",
+                      flush=True)
+        old = got["before"][0].get(name, {}).get("top", [])
+        new = got["after"][0].get(name, {}).get("top", [])
+        for i, (a, b) in enumerate(zip(old + [None] * 10, new)):
+            a = "-" if a is None else f"{a[0]:.3f} ms / {a[1]} {a[2][:50]}"
+            print(f"summary {name} largest {i + 1}: before {a}; after "
+                  f"{b[0]:.3f} ms / {b[1]} {b[2][:50]}", flush=True)
+    print(f"profile_cg: done ({card})", flush=True)
+    return 0
 
 
 if __name__ == "__main__":

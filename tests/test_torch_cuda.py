@@ -27,7 +27,13 @@ walk to dmax and on chains, its dots bitwise their order's model, a
 replayed graph bitwise the eager call), its
 V-cycle's kernels (EllVCycle) against its plain form, and a replayed
 n = 100000 inner solve bitwise the eager one in ELL_STEP_KERNELS device
-kernels a CG step. Marked `cuda`;
+kernels a CG step; and the Frank-Wolfe step's K9 (the supergradient and
+the top-k oracle) and K10 (bound, stop test, tail average, step, next
+weights) against their plain versions (bitwise; u and ||g|| to rounding),
+NaN first, a replayed graph of the pair bitwise the eager pair, their
+refusals, and a replayed warm solve with the loop on the device bitwise
+the host loop's, on a banded and a matrix-free graph, with and without a
+stop that fires. Marked `cuda`;
 each test skips when no CUDA device is present. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -2061,3 +2067,202 @@ def test_ell_inner_solve_replays_in_few_kernels(dev):
     assert _rel(got, plain) <= 1e-4
     kernels, ms = step_kernels(op)
     assert kernels == ELL_STEP_KERNELS, (kernels, ms)
+
+
+# K9 (fw_oracle) and K10 (fw_update): the Frank-Wolfe step's bookkeeping.
+def _fw_inputs(dev, dtype, n, m, seed, ties=False):
+    rng = np.random.RandomState(seed)
+    V = rng.normal(size=(n, 4))
+    if ties:
+        V[: n // 2, 0] = 0.25
+    return (torch.as_tensor(V, dtype=dtype, device=dev),
+            torch.as_tensor(rng.randint(0, n, size=(m, 2)), dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(0.5 + rng.rand(m), dtype=dtype, device=dev),
+            torch.as_tensor(rng.rand(m), dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,ties", [(10000, 10688, False),
+                                      (10000, 10688, True),
+                                      (100000, 50000, False), (50, 3, False)])
+def test_fw_kernels_match_plain_and_repeat(dev, dtype, n, m, ties):
+    """K9 at k = m / 2, 1 and m - 1 (and with half the nodes at one value
+    of v, the g = 0 ties across the threshold) and K10 on its g and s,
+    the tail average on: g, s, x, xavg, w, the counters and the stop flag
+    bitwise the plain version's, u and ||g|| within 1e-6 (float32) or
+    1e-14 (float64) relative, two calls bitwise."""
+    from mac_tpu_torch.ops.kernels import fw
+
+    V, ends, wc, x0 = _fw_inputs(dev, dtype, n, m, 7, ties)
+    for k in sorted({max(1, m // 2), 1, m - 1}):
+        g, s = fw.fw_oracle(V, ends, wc, k)
+        g2, s2 = fw.fw_oracle(V, ends, wc, k)
+        gp, sp = fw.fw_oracle_plain(V, ends, wc, k)
+        assert torch.equal(g, gp) and torch.equal(s, sp)
+        assert torch.equal(g, g2) and torch.equal(s, s2)
+        assert int(s.sum()) == k
+    k = max(1, m // 2)
+    g, s = fw.fw_oracle(V, ends, wc, k)
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    got = []
+    for fn in (fw.fw_update, fw.fw_update, fw.fw_update_plain):
+        st = dict(x=x0.clone(),
+                  u=torch.tensor(float("inf"), dtype=dtype, device=dev),
+                  xavg=x0.flip(0).contiguous(),
+                  ctr=torch.tensor([20, 4], dtype=torch.int32, device=dev),
+                  done=torch.zeros((), dtype=torch.bool, device=dev),
+                  w=torch.empty_like(x0),
+                  norm=torch.zeros((), dtype=dtype, device=dev))
+        fn(torch.tensor(0.07, dtype=dtype, device=dev), g, s, st["x"],
+           st["u"], st["xavg"], st["ctr"], st["done"], st["w"], wc,
+           grad_norm_tol=1e-8, gap_tol=0.0, tail_from=16, mask_tol=1e-10,
+           norm=st["norm"])
+        got.append(st)
+    a, b, p = got
+    for name in ("x", "xavg", "w", "ctr", "done"):
+        assert torch.equal(a[name], p[name]), name
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    for name in ("u", "norm"):
+        assert abs(float(a[name]) - float(p[name])) <= tol * abs(
+            float(p[name])), name
+
+
+def test_fw_oracle_orders_nan_first(dev):
+    """K9 with NaN entries of g (NaN nodes of v) against the plain version
+    on a CPU copy: NaN selected first, lower index first."""
+    from mac_tpu_torch.ops.kernels import fw
+
+    V, ends, wc, _ = _fw_inputs(dev, torch.float32, 4000, 6000, 9)
+    V[torch.arange(0, 4000, 97, device=dev), 0] = float("nan")
+    for k in (10, 3000):
+        g, s = fw.fw_oracle(V, ends, wc, k)
+        gp, sp = fw.fw_oracle_plain(V.cpu(), ends.cpu(), wc.cpu(), k)
+        assert torch.equal(s.cpu(), sp)
+        assert torch.equal(g.isnan().cpu(), gp.isnan())
+
+
+def test_fw_pair_replays_in_a_graph(dev):
+    """K9 then K10 captured in a CUDA graph, replayed from the same state,
+    bitwise the eager pair."""
+    from mac_tpu_torch.ops.kernels import fw
+
+    V, ends, wc, x0 = _fw_inputs(dev, torch.float32, 10000, 10688, 3)
+    k = 5344
+    out = {}
+    for way in ("eager", "graph"):
+        st = dict(x=x0.clone(), u=torch.tensor(1.0, device=dev),
+                  xavg=torch.zeros_like(x0),
+                  ctr=torch.tensor([17, 1], dtype=torch.int32, device=dev),
+                  done=torch.zeros((), dtype=torch.bool, device=dev),
+                  w=torch.empty_like(x0))
+        f = torch.tensor(0.07, device=dev)
+
+        def pair():
+            g, s = fw.fw_oracle(V, ends, wc, k)
+            fw.fw_update(f, g, s, st["x"], st["u"], st["xavg"], st["ctr"],
+                         st["done"], st["w"], wc, grad_norm_tol=1e-8,
+                         gap_tol=0.0, tail_from=16, mask_tol=1e-10)
+            return g, s
+
+        if way == "eager":
+            g, s = pair()
+        else:
+            saved = {n: t.clone() for n, t in st.items()}
+            pair()  # loads the kernels before the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                g, s = pair()
+            for n, t in saved.items():
+                st[n].copy_(t)
+            graph.replay()
+        torch.cuda.synchronize()
+        out[way] = dict(st, g=g.clone(), s=s.clone())
+    for name in out["eager"]:
+        assert torch.equal(out["eager"][name], out["graph"][name]), name
+
+
+def test_fw_kernels_refuse_what_they_do_not_take(dev):
+    """int64 endpoints, k outside 1..m, float16 and mixed types, tensors
+    on two devices."""
+    from mac_tpu_torch.ops.kernels import fw
+
+    V, ends, wc, x0 = _fw_inputs(dev, torch.float32, 100, 60, 1)
+    with pytest.raises(TypeError):
+        fw.fw_oracle(V, ends.long(), wc, 5)
+    for k in (0, 61):
+        with pytest.raises(ValueError):
+            fw.fw_oracle(V, ends, wc, k)
+    with pytest.raises(TypeError):
+        fw.fw_oracle(V.half(), ends, wc.half(), 5)
+    with pytest.raises(TypeError):
+        fw.fw_oracle(V.double(), ends, wc, 5)
+    with pytest.raises(ValueError):
+        fw.fw_oracle(V.cpu(), ends, wc, 5)
+    g, s = fw.fw_oracle(V, ends, wc, 5)
+    with pytest.raises(TypeError):
+        fw.fw_update(torch.tensor(0.5, device=dev), g, s, x0.clone(),
+                     torch.tensor(1.0, device=dev), x0.clone(),
+                     torch.zeros(2, dtype=torch.int64, device=dev),
+                     torch.zeros((), dtype=torch.bool, device=dev),
+                     x0.clone(), wc, grad_norm_tol=1e-8, gap_tol=0.0,
+                     mask_tol=0.0)
+
+
+def _fw_instances():
+    """A banded pose graph (n 1500) and an expander-like graph on the
+    matrix-free route (n 3000), each with its solver's knobs."""
+    from scripts.bench_scale import synthetic
+
+    idx, w, n = _graph(1500, 500, 40, 3)
+    chain, loops = idx[:n - 1], idx[n - 1:]
+    banded = ((chain, w[:n - 1]), (loops, w[n - 1:]), n,
+              dict(use_banded=True, dtype=torch.float32))
+    fi, wf, ci, wc = synthetic(3000, seed=0, local=False)
+    ell = ((fi, wf), (ci, wc), 3000, dict(fiedler_inner_iters=10,
+                                          fiedler_maxiter=60,
+                                          fiedler_tol=6e-4))
+    return {"banded": banded, "ell": ell}
+
+
+@pytest.mark.parametrize("route", ["banded", "ell"])
+@pytest.mark.parametrize("stop", [False, True])
+def test_device_loop_replayed_is_bitwise_the_host_loop(dev, route, stop):
+    """A replayed warm solve with the Frank-Wolfe loop on the device (K9,
+    K10, the stop flag read with the next set-up) against the same solve
+    with the loop on the host: rounded selection, x, upper bound and
+    iteration counts bitwise, K9 and K10 launched once a step; with a loose
+    gap tolerance the loop stops early, at the same step, and the device
+    loop discards exactly one set-up."""
+    from mac_tpu_torch.ops.kernels import fw
+    from mac_tpu_torch.solvers import MAC
+
+    fixed, cands, n, knobs = _fw_instances()[route]
+    m = len(cands[1])
+    k = m // 2 if route == "banded" else m // 4
+    x0 = np.full(m, k / m)
+    kw = (dict(max_iters=12, relative_duality_gap_tol=0.3) if stop
+          else dict(max_iters=8))
+    mac = MAC(fixed, cands, n, device="cuda", **knobs)
+    mac.solve(k, x0, **kw)  # captures the graphs
+    op = mac._banded if mac._banded is not None else mac.op
+    disc0 = sum(r.discards for r in op.graph_routes.values())
+    launches0 = fw.fw_oracle.launches
+    dev_out = mac.solve(k, x0, **kw)
+    dev_stats = dict(mac.last_solve_stats)
+    discards = sum(r.discards for r in op.graph_routes.values()) - disc0
+    assert fw.fw_oracle.launches - launches0 == dev_stats["fw_iterations"]
+    mac._fw_device = mac._fw_host
+    host_out = mac.solve(k, x0, **kw)
+    host_stats = dict(mac.last_solve_stats)
+    for a, b in zip(dev_out, host_out):
+        np.testing.assert_array_equal(a, b)
+    for key in ("fw_iterations", "fiedler_iterations"):
+        assert dev_stats[key] == host_stats[key], key
+    steps = dev_stats["fw_iterations"]
+    if stop:
+        assert steps < kw["max_iters"] and discards == 1
+    else:
+        assert steps == kw["max_iters"] and discards == 0
